@@ -1,0 +1,127 @@
+"""Flax parameter trees -> the port's ResNet.
+
+Takes the ``params`` tree of ``psana_ray_tpu``'s
+``ResNetClassifier(norm="frozen")`` as nested dicts of numpy arrays (or of
+anything ``np.asarray`` accepts) and builds the port's
+:class:`~psana_ray_tpu_torch.models.resnet.ResNetClassifier` with the same
+weights. The flax names it maps (``pallas_resnet.py:498-518``):
+
+    stem/kernel                       -> stem.weight          (HWIO -> OIHW)
+    stem_norm/{scale,bias}            -> stem_norm.{scale,bias}
+    BottleneckBlock_i/Conv_{0,1,2}    -> blocks.i.conv{1,2,3}.weight
+    BottleneckBlock_i/FrozenAffine_k  -> blocks.i.norm{k+1}
+    BottleneckBlock_i/proj            -> blocks.i.proj.weight
+    BottleneckBlock_i/proj_norm       -> blocks.i.proj_norm
+    head/{kernel,bias}                -> head.{weight,bias}   (kernel transposed)
+
+Every leaf must map and every port parameter must be filled: anything
+else raises. The kernels' bf16 GEMM layouts are packed from the model
+once, by :func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from psana_ray_tpu_torch.models.resnet import BottleneckBlock, ResNetClassifier
+
+_BLOCK = re.compile(r"^BottleneckBlock_(\d+)/(.+)$")
+_IN_BLOCK_LEAF = re.compile(r"^(Conv_[012]|FrozenAffine_[012]|proj|proj_norm)/(kernel|scale|bias)$")
+_TOP = {
+    "stem/kernel": "stem.weight",
+    "stem_norm/scale": "stem_norm.scale",
+    "stem_norm/bias": "stem_norm.bias",
+    "head/kernel": "head.weight",
+    "head/bias": "head.bias",
+}
+_IN_BLOCK = {
+    "Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+    "FrozenAffine_0": "norm1", "FrozenAffine_1": "norm2", "FrozenAffine_2": "norm3",
+    "proj": "proj", "proj_norm": "proj_norm",
+}
+_LEAF = {"kernel": "weight", "scale": "scale", "bias": "bias"}
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts -> ``{"a/b/leaf": array}``."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten(v, path + "/"))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _block_key(path: str) -> str:
+    """The state_dict key inside one block of a flax block-relative path."""
+    m = _IN_BLOCK_LEAF.match(path)
+    if m is None:
+        raise KeyError(f"no port parameter for flax block leaf {path!r}")
+    module, leaf = m.groups()
+    return f"{_IN_BLOCK[module]}.{_LEAF[leaf]}"
+
+
+def port_key(path: str) -> str:
+    """The port's ``state_dict`` key of a flax leaf path; KeyError if none."""
+    if path in _TOP:
+        return _TOP[path]
+    m = _BLOCK.match(path)
+    if m is None:
+        raise KeyError(f"no port parameter for flax leaf {path!r}")
+    return f"blocks.{m.group(1)}.{_block_key(m.group(2))}"
+
+
+def port_tensor(path: str, arr: np.ndarray) -> torch.Tensor:
+    """A flax leaf in the port's layout (f32)."""
+    a = np.array(arr, dtype=np.float32)  # a writable copy
+    if path.endswith("/kernel") and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    elif path == "head/kernel":
+        a = a.T  # [in, classes] -> nn.Linear [classes, in]
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def resnet_from_flax(
+    params: Mapping,
+    stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    device: Optional[torch.device] = None,
+) -> ResNetClassifier:
+    """Build the port's frozen ResNet from a flax ``params`` tree."""
+    flat = flatten(params)
+    stem = flat["stem/kernel"]
+    model = ResNetClassifier(
+        stage_sizes,
+        in_channels=stem.shape[2],
+        num_classes=flat["head/kernel"].shape[1],
+        width=stem.shape[3],
+    )
+    _load(model, {port_key(k): port_tensor(k, v) for k, v in flat.items()})
+    return model.to(device) if device is not None else model
+
+
+def _load(module: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise ValueError(f"flax tree does not match the model: missing {missing}, unexpected {extra}")
+    for k, v in state.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{k}: flax shape {tuple(v.shape)} != port shape {tuple(own[k].shape)}")
+    module.load_state_dict(state, strict=True)
+
+
+def block_from_flax(params: Mapping, stride: int = 1) -> BottleneckBlock:
+    """Build one port :class:`BottleneckBlock` from the ``params`` tree of a
+    flax ``BottleneckBlock(norm="frozen")``."""
+    flat = flatten(params)
+    w1 = flat["Conv_0/kernel"]
+    block = BottleneckBlock(w1.shape[2], w1.shape[3], stride)
+    _load(block, {_block_key(k): port_tensor(k, v) for k, v in flat.items()})
+    return block

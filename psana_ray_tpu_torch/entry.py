@@ -1,0 +1,44 @@
+"""Entry point: the flagship forward step (calibration + ResNet-50).
+
+Mirrors ``__graft_entry__.entry`` of the JAX package: the ResNet-50
+hit/miss classifier over epix10k2M panel stacks (BASELINE config 4), at
+batch 4 of full frames, with weights from the seeded numpy init.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from psana_ray_tpu_torch.convert import resnet_from_flax
+from psana_ray_tpu_torch.device import resolve_device
+from psana_ray_tpu_torch.models import init_resnet_params, pack_fused, panels_to_nhwc, resnet_fused_infer
+from psana_ray_tpu_torch.ops import fused_calibrate
+from psana_ray_tpu_torch.sources import SyntheticSource
+
+
+def entry(device=None):
+    """Return ``(fn, example_args)``: ``fn(params, frames)`` calibrates raw
+    ``[4, 16, 352, 384]`` frames with ``calib_kernel`` (bf16 out) and
+    classifies them with the fused ResNet-50. On ``cuda`` (the default;
+    ``RuntimeError`` without a card) it runs the kernels, on ``"cpu"`` their
+    plain versions."""
+    device = resolve_device(device)
+    src = SyntheticSource(num_events=1, detector_name="epix10k2M", seed=0)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        rng.normal(100.0, 10.0, size=(4, *src.spec.frame_shape)).astype(np.float32)
+    ).to(device)
+    pedestal = torch.from_numpy(src.pedestal()).to(device)
+    gain = torch.from_numpy(src.gain_map()).to(device)
+    mask = torch.from_numpy(src.create_bad_pixel_mask()).to(device)
+    model = resnet_from_flax(init_resnet_params(in_channels=src.spec.panels, seed=0), device=device)
+    params = pack_fused(model)
+
+    def forward(params, frames):
+        calibrated = fused_calibrate(
+            frames, pedestal, gain, mask, threshold=10.0, out_dtype=torch.bfloat16
+        )
+        return resnet_fused_infer(params, panels_to_nhwc(calibrated))
+
+    return forward, (params, frames)

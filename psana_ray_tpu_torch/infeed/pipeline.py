@@ -1,0 +1,343 @@
+"""Device prefetch + the end-to-end infeed pipeline.
+
+The port's counterpart of ``psana_ray_tpu/infeed/pipeline.py``. A
+background thread stages the next ``prefetch_depth`` batches onto the
+card while the current batch computes:
+
+- each batch is copied into one of a small ring of **pinned** host
+  buffers, then to the card with ``non_blocking=True`` on a side stream;
+- a pinned buffer is refilled only after the event recorded behind its
+  last copy has completed;
+- the consumer's stream waits on that event (``wait_event``) before using
+  the batch, and every device tensor gets ``record_stream`` so the
+  allocator does not recycle it under the consumer's work.
+
+On ``device="cpu"`` batches become CPU tensors (zero-copy views of the
+batcher's arrays). Errors in the staging thread surface in the consumer.
+The staging thread times its two host stages per batch (assembling the
+batch from the queue, staging it to the card) into the pipeline's
+:class:`PipelineMetrics`.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue as _queue
+import threading
+import time
+from typing import Any, Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from psana_ray_tpu_torch.device import resolve_device
+from psana_ray_tpu_torch.infeed.batcher import Batch, batches_from_queue
+
+
+class StopStream(Exception):
+    """Raise from a ``run()`` step to end the loop early (consumer-side
+    stop); ``run()`` closes the pipeline and returns the count so far."""
+
+
+class PipelineMetrics:
+    """Frames, bytes and per-batch step latency of one pipeline, and the
+    host seconds its staging thread spent assembling and staging batches."""
+
+    def __init__(self, window: int = 4096):
+        self.frames = 0
+        self.batches = 0
+        self.bytes = 0
+        self.staged = 0
+        self.host_batch_s = 0.0
+        self.host_stage_s = 0.0
+        self.latencies_s = collections.deque(maxlen=window)
+        self._t_first: Optional[float] = None
+        self._t_last: Optional[float] = None
+
+    def observe_batch(self, num_valid: int, latency_s: float, nbytes: int = 0) -> None:
+        now = time.monotonic()
+        if self._t_first is None:
+            self._t_first = now - latency_s
+        self._t_last = now
+        self.frames += int(num_valid)
+        self.batches += 1
+        self.bytes += int(nbytes)
+        self.latencies_s.append(latency_s)
+
+    def observe_host(self, batch_s: float, stage_s: float) -> None:
+        self.staged += 1
+        self.host_batch_s += batch_s
+        self.host_stage_s += stage_s
+
+    def latency_ms(self, q: float = 0.5) -> float:
+        if not self.latencies_s:
+            return float("nan")
+        return float(np.quantile(np.asarray(self.latencies_s), q) * 1e3)
+
+    def fps(self) -> float:
+        if self._t_first is None or self._t_last <= self._t_first:
+            return float("nan")
+        return self.frames / (self._t_last - self._t_first)
+
+    def summary(self) -> dict:
+        return {
+            "frames": self.frames,
+            "batches": self.batches,
+            "bytes": self.bytes,
+            "fps": self.fps(),
+            "p50_ms": self.latency_ms(0.5),
+            "p99_ms": self.latency_ms(0.99),
+            "host_batch_ms": 1e3 * self.host_batch_s / max(self.staged, 1),
+            "host_stage_ms": 1e3 * self.host_stage_s / max(self.staged, 1),
+        }
+
+
+class _PinnedSlot:
+    __slots__ = ("host", "event")
+
+    def __init__(self):
+        self.host: Optional[tuple] = None
+        self.event: Optional[torch.cuda.Event] = None
+
+
+class DevicePrefetcher:
+    """Wrap a host Batch iterator; yield batches resident on ``device``.
+
+    Always ``close()`` it (or use it as a context manager, or exhaust it):
+    an abandoned prefetcher pins its staged batches and its thread."""
+
+    def __init__(
+        self,
+        batches: Iterator[Batch],
+        device=None,
+        prefetch_depth: int = 2,
+        stop_event: Optional[threading.Event] = None,
+        metrics: Optional[PipelineMetrics] = None,
+    ):
+        if prefetch_depth < 1:
+            raise ValueError("prefetch_depth must be >= 1")
+        self.device = resolve_device(device)
+        self.metrics = metrics
+        self._src = batches
+        self.prefetch_depth = prefetch_depth
+        self._buf: _queue.Queue = _queue.Queue(maxsize=prefetch_depth)
+        self._err: Optional[BaseException] = None
+        self._stop = stop_event if stop_event is not None else threading.Event()
+        self._done = False
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._slots = [_PinnedSlot() for _ in range(prefetch_depth + 1)]
+            self._slot_i = 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _stage(self, batch: Batch):
+        """Host batch -> (device batch, copy-done event or None)."""
+        if not self._cuda:
+            return batch.map_arrays(torch.from_numpy), None
+        slot = self._slots[self._slot_i % len(self._slots)]
+        self._slot_i += 1
+        if slot.event is not None:
+            slot.event.synchronize()  # its last H2D copy has finished
+        arrays = [np.ascontiguousarray(a) for a in batch.arrays()]
+        if slot.host is None or any(
+            h.shape != a.shape or h.numpy().dtype != a.dtype for h, a in zip(slot.host, arrays)
+        ):
+            slot.host = tuple(
+                torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, pin_memory=True)
+                for a in arrays
+            )
+        for h, a in zip(slot.host, arrays):
+            h.copy_(torch.from_numpy(a))
+        with torch.cuda.stream(self._copy_stream):
+            dev = [h.to(self.device, non_blocking=True) for h in slot.host]
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        slot.event = event
+        return Batch(*dev, num_valid=batch.num_valid), event
+
+    def _put(self, item) -> bool:
+        """Bounded put that gives up when close() is called."""
+        while not self._stop.is_set():
+            try:
+                self._buf.put(item, timeout=0.05)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def _run(self):
+        try:
+            src = iter(self._src)
+            while True:
+                t0 = time.monotonic()
+                batch = next(src, None)  # queue pops + batcher copies
+                if batch is None:
+                    break
+                t1 = time.monotonic()
+                item = self._stage(batch)  # pinned copy + H2D enqueue
+                if self.metrics is not None:
+                    self.metrics.observe_host(t1 - t0, time.monotonic() - t1)
+                if not self._put(item):
+                    return
+        except BaseException as e:  # surfaced in the consumer's __next__
+            self._err = e
+        finally:
+            self._put(None)
+
+    def set_prefetch_depth(self, n: int) -> int:
+        """Resize the staging queue live; staged batches are never dropped.
+        Returns the depth now in effect."""
+        n = max(1, int(n))
+        with self._buf.mutex:
+            self._buf.maxsize = n
+            self._buf.not_full.notify_all()
+        self.prefetch_depth = n
+        return n
+
+    def close(self, timeout: float = 5.0):
+        """Stop the staging thread and release staged batches."""
+        self._stop.set()
+        try:
+            while True:
+                self._buf.get_nowait()
+        except _queue.Empty:
+            pass
+        self._thread.join(timeout=timeout)
+        try:
+            self._buf.put_nowait(None)
+        except _queue.Full:
+            pass
+        self._done = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Batch:
+        if self._done:
+            raise StopIteration
+        item = self._buf.get()
+        if item is None:
+            self._done = True
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        batch, event = item
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in batch.arrays():
+                t.record_stream(stream)
+        return batch
+
+
+def _frames_nbytes(frames) -> int:
+    return int(frames.numel() * frames.element_size()) if torch.is_tensor(frames) else int(
+        getattr(frames, "nbytes", 0))
+
+
+def drive_step(
+    metrics: PipelineMetrics,
+    step: Callable[[Batch], Any],
+    batch: Batch,
+    block_until_ready: bool = False,
+):
+    """Run one step over a device batch and record frames, bytes and
+    latency. ``block_until_ready`` synchronises the batch's stream, making
+    the latency a true per-batch device latency instead of enqueue time."""
+    t0 = time.monotonic()
+    out = step(batch)
+    if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
+        torch.cuda.current_stream(batch.frames.device).synchronize()
+    metrics.observe_batch(batch.num_valid, time.monotonic() - t0, _frames_nbytes(batch.frames))
+    return out
+
+
+class InfeedPipeline:
+    """queue -> batcher -> device prefetch -> step function."""
+
+    def __init__(
+        self,
+        queue,
+        batch_size: int,
+        device=None,
+        prefetch_depth: int = 2,
+        poll_interval_s: float = 0.01,
+        max_wait_s: Optional[float] = None,
+        metrics: Optional[PipelineMetrics] = None,
+        batcher_buffers: int = 0,
+    ):
+        if batcher_buffers > 0 and batcher_buffers < prefetch_depth + 4:
+            # alive at once: prefetch_depth queued + 1 with the consumer +
+            # 1 being filled + 1 un-yielded in the batch source + 1 margin
+            # for the copy in flight
+            raise ValueError(
+                f"batcher_buffers={batcher_buffers} can recycle a batch still alive "
+                f"downstream; need >= prefetch_depth + 4 = {prefetch_depth + 4}"
+            )
+        self.queue = queue
+        self.batch_size = batch_size
+        self._batcher_buffers = batcher_buffers
+        self.metrics = metrics if metrics is not None else PipelineMetrics()
+        stop = threading.Event()
+        self._batches = batches_from_queue(
+            queue, batch_size, poll_interval_s=poll_interval_s, max_wait_s=max_wait_s,
+            stop=stop, n_buffers=batcher_buffers,
+        )
+        self._prefetcher = DevicePrefetcher(
+            self._batches, device=device, prefetch_depth=prefetch_depth, stop_event=stop,
+            metrics=self.metrics,
+        )
+        self.device = self._prefetcher.device
+
+    def __iter__(self) -> Iterator[Batch]:
+        return iter(self._prefetcher)
+
+    @property
+    def prefetch_depth(self) -> int:
+        return self._prefetcher.prefetch_depth
+
+    def set_prefetch_depth(self, n: int) -> int:
+        """Live prefetch-depth dial, clipped to ``batcher_buffers - 4``
+        when batch arenas are pooled. Returns the depth now in effect."""
+        n = max(1, int(n))
+        if self._batcher_buffers > 0:
+            n = min(n, max(1, self._batcher_buffers - 4))
+        return self._prefetcher.set_prefetch_depth(n)
+
+    def close(self):
+        self._prefetcher.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def run(
+        self,
+        step: Callable[[Batch], Any],
+        on_result: Optional[Callable] = None,
+        block_until_ready: bool = False,
+    ) -> int:
+        """Drive ``step`` over every batch until end of stream; returns the
+        frames seen. The pipeline is closed on exit, normal or not."""
+        n = 0
+        try:
+            for batch in self:
+                out = drive_step(self.metrics, step, batch, block_until_ready)
+                n += batch.num_valid
+                if on_result is not None:
+                    on_result(out, batch)
+        except StopStream:
+            pass
+        finally:
+            self.close()
+        return n

@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels: build/load machinery and launch counts.
+
+Sources live in ``psana_ray_tpu_torch/csrc``; :mod:`.build` compiles them
+with ``nvcc`` at first use. Each kernel's Python wrapper adds one to its
+entry of :data:`LAUNCHES` where it launches the kernel, and nowhere else,
+so a run can show that the main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0}
+
+
+def reset_counters() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def counts() -> Dict[str, int]:
+    """A copy of the launch counts, by kernel name."""
+    return dict(LAUNCHES)

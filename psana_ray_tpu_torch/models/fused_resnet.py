@@ -1,0 +1,337 @@
+"""Fused ResNet-50 inference with the hand-written bottleneck kernels.
+
+Counterpart of ``psana_ray_tpu/models/pallas_resnet.py``. Each bottleneck
+block is three CUDA launches (``csrc/bottleneck.cu``):
+
+    y1  = conv1x1_kernel(x, w1)             silu(x@w1 * s1 + b1)          K2, front
+    y2  = conv3x3_kernel(y1, w2, stride)    silu(conv3x3(y1) * s2 + b2)   K2, middle
+    out = conv1x1_kernel(y2, w3, ...)       silu(y2@w3 * s3 + b3 + res)   K3, the back step
+
+where ``res`` is the identity ``x`` (added in f32) or the strided
+projection ``x[::s, ::s] @ wp * sp + bp``. y1, y2 and the output are bf16;
+accumulators and affines are f32, at the Pallas kernel's rounding points.
+The TPU kernel keeps y1 and y2 in VMEM; here they round-trip through HBM
+in bf16 (the fused single-kernel block is the planned redesign).
+
+The stem convolution, max-pool, global average pool and head are library
+ops, as they are XLA ops in the reference. Activations are NHWC at their
+true extents: the reference's width-to-8 and 128-channel padding only
+serve the TPU's DMA and are not carried over.
+
+Each kernel wrapper runs its plain version (``*_plain``: ``F.conv2d`` in
+f32 on bf16 operands, rounded at the same three points) for a CPU tensor,
+and launches the kernel, or raises, for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from psana_ray_tpu_torch.kernels import LAUNCHES, build
+from psana_ray_tpu_torch.models.resnet import (
+    BottleneckBlock,
+    ResNetClassifier,
+    full_f32,
+    max_pool_same,
+    same_pads,
+)
+
+_BF16 = torch.bfloat16
+
+# kernel tiling constraints (csrc/bottleneck.cu: BK = 32, BN = 64)
+_K_QUANTUM = 32
+_N_QUANTUM = 64
+
+# a projection operand: (x [B,H,W,Cin] bf16, wp [Cin,N] bf16, sp [N], bp [N], stride)
+Projection = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
+
+
+@dataclasses.dataclass
+class BlockWeights:
+    """One bottleneck's weights in the kernels' GEMM layouts: bf16 ``[K, N]``
+    matrices (the 3x3 as ``[9*f, f]``, taps row-major) and f32 affines."""
+
+    stride: int
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+    s1: torch.Tensor
+    b1: torch.Tensor
+    s2: torch.Tensor
+    b2: torch.Tensor
+    s3: torch.Tensor
+    b3: torch.Tensor
+    wp: Optional[torch.Tensor] = None
+    sp: Optional[torch.Tensor] = None
+    bp: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class FusedResNet:
+    """A :class:`ResNetClassifier` packed once for :func:`resnet_fused_infer`."""
+
+    stem_w: torch.Tensor      # [width, P, 7, 7] bf16
+    stem_scale: torch.Tensor  # [width] bf16
+    stem_bias: torch.Tensor   # [width] bf16
+    blocks: List[BlockWeights]
+    head_w: torch.Tensor      # [C, classes] f32
+    head_b: torch.Tensor      # [classes] f32
+    model: ResNetClassifier   # the plain model, for the small-extent fallback
+
+
+def _gemm_layout(w: torch.Tensor) -> torch.Tensor:
+    """OIHW conv weight -> ``[KH*KW*I, O]`` bf16 (HWIO flattened)."""
+    o, i, kh, kw = w.shape
+    return w.permute(2, 3, 1, 0).reshape(kh * kw * i, o).to(_BF16).contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def pack_block(blk: BottleneckBlock) -> BlockWeights:
+    """One block's weights in the kernels' layouts, on the block's device."""
+    bw = BlockWeights(
+        stride=blk.stride,
+        w1=_gemm_layout(blk.conv1.weight),
+        w2=_gemm_layout(blk.conv2.weight),
+        w3=_gemm_layout(blk.conv3.weight),
+        s1=_f32(blk.norm1.scale), b1=_f32(blk.norm1.bias),
+        s2=_f32(blk.norm2.scale), b2=_f32(blk.norm2.bias),
+        s3=_f32(blk.norm3.scale), b3=_f32(blk.norm3.bias),
+    )
+    if blk.proj is not None:
+        bw.wp = _gemm_layout(blk.proj.weight)
+        bw.sp, bw.bp = _f32(blk.proj_norm.scale), _f32(blk.proj_norm.bias)
+    return bw
+
+
+def pack_fused(model: ResNetClassifier) -> FusedResNet:
+    """Pack the model's weights into the kernels' layouts, once, on the
+    model's device."""
+    return FusedResNet(
+        stem_w=model.stem.weight.to(_BF16).contiguous(),
+        stem_scale=model.stem_norm.scale.to(_BF16),
+        stem_bias=model.stem_norm.bias.to(_BF16),
+        blocks=[pack_block(blk) for blk in model.blocks],
+        head_w=_f32(model.head.weight.t()),
+        head_b=_f32(model.head.bias),
+        model=model,
+    )
+
+
+# -- plain versions -------------------------------------------------------
+
+
+def _nchw_f32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(_BF16).permute(0, 3, 1, 2).float()
+
+
+def _conv_f32(a: torch.Tensor, w: torch.Tensor, k: int, stride: int, pads) -> torch.Tensor:
+    """NHWC bf16 ``a`` (*) GEMM-layout ``w`` in f32 -> NCHW f32."""
+    cin, n = w.shape[0] // (k * k), w.shape[1]
+    wt = w.to(_BF16).float().reshape(k, k, cin, n).permute(3, 2, 0, 1)
+    with full_f32():
+        return F.conv2d(F.pad(_nchw_f32(a), pads), wt, stride=stride)
+
+
+def _affine(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return acc * s.float().view(1, -1, 1, 1) + b.float().view(1, -1, 1, 1)
+
+
+def _nhwc_bf16(v: torch.Tensor) -> torch.Tensor:
+    return F.silu(v).to(_BF16).permute(0, 2, 3, 1).contiguous()
+
+
+def conv1x1_plain(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    proj: Optional[Projection] = None,
+) -> torch.Tensor:
+    """Plain version of ``conv1x1_kernel``: ``silu(a@w*scale+bias [+ res])``
+    in f32 on bf16 operands, rounded to bf16. NHWC in, NHWC out."""
+    v = _affine(_conv_f32(a, w, 1, 1, (0, 0, 0, 0)), scale, bias)
+    if residual is not None:
+        v = v + _nchw_f32(residual)
+    if proj is not None:
+        x, wp, sp, bp, s = proj
+        v = v + _affine(_conv_f32(x[:, ::s, ::s], wp, 1, 1, (0, 0, 0, 0)), sp, bp)
+    return _nhwc_bf16(v)
+
+
+def _pads3x3(stride: int):
+    # XLA SAME for a 3-tap kernel: (1,1) at stride 1, (0,1) at stride 2
+    return (1, 1, 1, 1) if stride == 1 else (0, 1, 0, 1)
+
+
+def conv3x3_plain(
+    x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """Plain version of ``conv3x3_kernel``: ``silu(conv3x3(x)*scale+bias)``
+    with XLA SAME padding, f32 on bf16 operands, rounded to bf16."""
+    _check_stride(x, stride)
+    return _nhwc_bf16(_affine(_conv_f32(x, w, 3, stride, _pads3x3(stride)), scale, bias))
+
+
+# -- kernel wrappers ------------------------------------------------------
+
+
+def _check_stride(x: torch.Tensor, stride: int) -> None:
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if stride == 2 and (x.shape[1] % 2 or x.shape[2] % 2):
+        # the Pallas kernel's output extent is h // s (pallas_resnet.py:344)
+        # where flax SAME gives ceil(h / 2): they agree only on even extents
+        raise ValueError(f"stride-2 block needs even H and W, got {tuple(x.shape[1:3])}")
+
+
+def _check_operand(name: str, a: torch.Tensor, w: torch.Tensor, k: int) -> None:
+    if a.dim() != 4 or a.dtype != _BF16 or not a.is_contiguous():
+        raise ValueError(f"{name}: activations must be contiguous NHWC bf16, got "
+                         f"{a.dtype} {tuple(a.shape)}")
+    c = a.shape[3]
+    if w.dtype != _BF16 or not w.is_contiguous() or w.shape[0] != k * k * c:
+        raise ValueError(f"{name}: weight must be contiguous bf16 [{k * k * c}, N], got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if c % _K_QUANTUM or w.shape[1] % _N_QUANTUM:
+        raise ValueError(f"{name}: kernel needs Cin % {_K_QUANTUM} == 0 and N % {_N_QUANTUM} "
+                         f"== 0, got Cin={c}, N={w.shape[1]}")
+    if w.device != a.device:
+        raise ValueError(f"{name}: weight on {w.device}, activations on {a.device}")
+
+
+def _affine_ok(name: str, n: int, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
+            raise ValueError(f"{name}: affines must be contiguous f32 [{n}]")
+
+
+def conv1x1(
+    a: torch.Tensor,
+    w: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    proj: Optional[Projection] = None,
+) -> torch.Tensor:
+    """``silu(a@w*scale+bias [+ residual | + proj])`` over NHWC pixels:
+    ``conv1x1_kernel`` on a CUDA tensor, :func:`conv1x1_plain` on CPU."""
+    if not a.is_cuda:
+        return conv1x1_plain(a, w, scale, bias, residual, proj)
+    if residual is not None and proj is not None:
+        raise ValueError("conv1x1: residual and proj are exclusive")
+    _check_operand("conv1x1_kernel", a, w, 1)
+    b, h, wd, c = a.shape
+    n = w.shape[1]
+    _affine_ok("conv1x1_kernel", n, scale, bias)
+    out = torch.empty((b, h, wd, n), dtype=_BF16, device=a.device)
+    mode, res_ptr = 0, None
+    a2_ptr = w2_ptr = s2_ptr = b2_ptr = None
+    h2 = w2d = c2 = 0
+    stride2 = 1
+    if residual is not None:
+        if residual.shape != out.shape or residual.dtype != _BF16 or not residual.is_contiguous():
+            raise ValueError(f"conv1x1_kernel: identity residual must be contiguous bf16 "
+                             f"{tuple(out.shape)}, got {residual.dtype} {tuple(residual.shape)}")
+        mode, res_ptr = 1, residual.data_ptr()
+    elif proj is not None:
+        x, wp, sp, bp, stride2 = proj
+        _check_operand("conv1x1_kernel (projection)", x, wp, 1)
+        _affine_ok("conv1x1_kernel (projection)", n, sp, bp)
+        if wp.shape[1] != n or x.shape[0] != b or -(-x.shape[1] // stride2) != h \
+                or -(-x.shape[2] // stride2) != wd:
+            raise ValueError(f"conv1x1_kernel: projection input {tuple(x.shape)} at stride "
+                             f"{stride2} does not give the output grid {(b, h, wd)}")
+        mode = 2
+        a2_ptr, w2_ptr, s2_ptr, b2_ptr = x.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr()
+        _, h2, w2d, c2 = x.shape
+    lib = build.library("bottleneck")
+    err = lib.conv1x1_launch(
+        a.data_ptr(), b, h, wd, c, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
+        mode, res_ptr, a2_ptr, h2, w2d, c2, stride2, w2_ptr, s2_ptr, b2_ptr, out.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    build.check(lib, err, "conv1x1_kernel")
+    LAUNCHES["conv1x1_kernel"] += 1
+    return out
+
+
+def conv3x3(
+    x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
+) -> torch.Tensor:
+    """``silu(conv3x3(x)*scale+bias)``, XLA SAME padding, stride 1 or 2:
+    ``conv3x3_kernel`` on a CUDA tensor, :func:`conv3x3_plain` on CPU."""
+    if not x.is_cuda:
+        return conv3x3_plain(x, w, scale, bias, stride)
+    _check_stride(x, stride)
+    _check_operand("conv3x3_kernel", x, w, 3)
+    b, h, wd, c = x.shape
+    n = w.shape[1]
+    _affine_ok("conv3x3_kernel", n, scale, bias)
+    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
+    lib = build.library("bottleneck")
+    err = lib.conv3x3_launch(
+        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "conv3x3_kernel")
+    LAUNCHES["conv3x3_kernel"] += 1
+    return out
+
+
+# -- the block and the network --------------------------------------------
+
+
+def fused_bottleneck(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
+    """One bottleneck block: ``[B, H, W, Cin]`` bf16 -> ``[B, H/s, W/s, 4f]``."""
+    y1 = conv1x1(x, blk.w1, blk.s1, blk.b1)
+    y2 = conv3x3(y1, blk.w2, blk.s2, blk.b2, blk.stride)
+    if blk.wp is None:
+        return conv1x1(y2, blk.w3, blk.s3, blk.b3, residual=x)
+    return conv1x1(y2, blk.w3, blk.s3, blk.b3, proj=(x, blk.wp, blk.sp, blk.bp, blk.stride))
+
+
+def _stem(params: FusedResNet, x: torch.Tensor) -> torch.Tensor:
+    """conv7x7/2 (bf16) -> bf16 affine -> SiLU -> maxpool3x3/2, SAME
+    padding throughout; NHWC in, contiguous NHWC bf16 out."""
+    xn = x.to(_BF16).permute(0, 3, 1, 2)
+    ph = same_pads(xn.shape[2], 7, 2)
+    pw = same_pads(xn.shape[3], 7, 2)
+    # bf16 convolution with f32 accumulation (cuDNN on the card)
+    y = F.conv2d(F.pad(xn, (pw[0], pw[1], ph[0], ph[1])), params.stem_w, stride=2)
+    y = y * params.stem_scale.view(1, -1, 1, 1) + params.stem_bias.view(1, -1, 1, 1)
+    y = max_pool_same(F.silu(y))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+@torch.no_grad()
+def resnet_fused_infer(
+    params: FusedResNet,
+    x: torch.Tensor,
+    stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    return_features: bool = False,
+):
+    """Fused forward of a frozen ResNet over NHWC ``x`` ``[B, H, W, P]``:
+    f32 logits ``[B, classes]`` (and the f32 pooled features with
+    ``return_features``), equal to ``params.model`` to bf16 tolerance."""
+    if sum(stage_sizes) != len(params.blocks):
+        raise ValueError(f"stage_sizes {tuple(stage_sizes)} do not match the "
+                         f"{len(params.blocks)} packed blocks")
+    # every strided stage's input needs >= 2 rows (pallas_resnet.py:536-552):
+    # smaller inputs are toy geometries and take the plain forward
+    min_extent = 4 * 2 ** (len(stage_sizes) - 1)
+    if x.shape[1] < min_extent or x.shape[2] < min_extent:
+        return params.model(x, return_features=return_features)
+    y = _stem(params, x)
+    for blk in params.blocks:
+        y = fused_bottleneck(y, blk)
+    feat = y.float().mean(dim=(1, 2))  # GAP over the true extent, f32
+    logits = feat @ params.head_w + params.head_b
+    return (logits, feat) if return_features else logits

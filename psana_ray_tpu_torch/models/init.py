@@ -1,0 +1,79 @@
+"""Seeded numpy initialization of the frozen ResNet parameter tree.
+
+Builds the same tree, with the same names and shapes, that flax's
+``ResNetClassifier(norm="frozen").init`` gives (``params`` only), without
+JAX: a nested dict of numpy arrays that
+:func:`psana_ray_tpu_torch.convert.resnet_from_flax` turns into the port's
+model. Convolution kernels (HWIO) are drawn as variance_scaling(2.0,
+fan_out, normal), the head as variance_scaling(1.0, fan_in,
+truncated_normal); affine scales are ``1 + 0.1*N(0,1)`` and biases
+``0.1*N(0,1)``, so the affines are not the init constants 1 and 0 (which
+would hide broadcast and transpose faults and shrink the logits to ~1e-4
+at full depth).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+
+
+def _conv(rng: np.random.Generator, k: int, cin: int, cout: int) -> np.ndarray:
+    std = np.sqrt(2.0 / (k * k * cout))
+    return (std * rng.standard_normal((k, k, cin, cout))).astype(np.float32)
+
+
+def _affine(rng: np.random.Generator, ch: int) -> Dict[str, np.ndarray]:
+    return {
+        "scale": (1.0 + 0.1 * rng.standard_normal(ch)).astype(np.float32),
+        "bias": (0.1 * rng.standard_normal(ch)).astype(np.float32),
+    }
+
+
+def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    # flax truncated_normal: N(0,1) cut to [-2, 2], rescaled to unit variance
+    out = rng.standard_normal(shape)
+    bad = np.abs(out) > 2.0
+    while bad.any():
+        out[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(out) > 2.0
+    return (out * std / 0.87962566103423978).astype(np.float32)
+
+
+def init_resnet_params(
+    in_channels: int,
+    stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    width: int = 64,
+    num_classes: int = 2,
+    seed: int = 0,
+) -> Dict[str, dict]:
+    """The ``params`` tree of a frozen-affine bottleneck ResNet."""
+    rng = np.random.default_rng(seed)
+    p: Dict[str, dict] = {
+        "stem": {"kernel": _conv(rng, 7, in_channels, width)},
+        "stem_norm": _affine(rng, width),
+    }
+    cin, idx = width, 0
+    for i, n_blocks in enumerate(stage_sizes):
+        f = width * 2**i
+        for j in range(n_blocks):
+            stride = 2 if (i > 0 and j == 0) else 1
+            blk = {
+                "Conv_0": {"kernel": _conv(rng, 1, cin, f)},
+                "FrozenAffine_0": _affine(rng, f),
+                "Conv_1": {"kernel": _conv(rng, 3, f, f)},
+                "FrozenAffine_1": _affine(rng, f),
+                "Conv_2": {"kernel": _conv(rng, 1, f, 4 * f)},
+                "FrozenAffine_2": _affine(rng, 4 * f),
+            }
+            if stride != 1 or cin != 4 * f:
+                blk["proj"] = {"kernel": _conv(rng, 1, cin, 4 * f)}
+                blk["proj_norm"] = _affine(rng, 4 * f)
+            p[f"BottleneckBlock_{idx}"] = blk
+            cin, idx = 4 * f, idx + 1
+    p["head"] = {
+        "kernel": _truncated_normal(rng, (cin, num_classes), np.sqrt(1.0 / cin)),
+        "bias": np.zeros(num_classes, np.float32),
+    }
+    return p

@@ -1,0 +1,164 @@
+"""The hand-written Hopper kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and skips without one. It imports no
+JAX, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Shapes are small and ragged (pixel counts that are not multiples of the
+kernels' tiles) so that the edge masking runs. Tolerances: calibration
+rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
+bottleneck kernels ``rel_err < 0.05``, the JAX package's bound for bf16
+activations with f32 accumulation.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import psana_ray_tpu_torch as pt  # noqa: E402
+from psana_ray_tpu_torch.models import fused_resnet as fr  # noqa: E402
+from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+REL_TOL = 0.05
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt.reset_counters()
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen(cuda):
+    return torch.Generator(device=cuda).manual_seed(0)
+
+
+def rel_err(ref, got):
+    ref, got = ref.float(), got.float()
+    return float((ref - got).abs().max() / max(float(ref.abs().max()), 1e-3))
+
+
+def _calib_inputs(cuda, b, p, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    ped = (100.0 + 3.0 * rng.standard_normal((p, h, w))).astype(np.float32)
+    gain = (1.0 + 0.02 * rng.standard_normal((p, h, w))).astype(np.float32)
+    mask = (rng.random((p, h, w)) > 0.01).astype(np.uint8)
+    mask[0] = 0
+    raw = ped + 35.0 * rng.poisson(0.1, (b, p, h, w)) + rng.normal(0, 2.5, (b, p, h, w))
+    return [torch.from_numpy(np.asarray(a, np.float32) if a is not mask else a).to(cuda)
+            for a in (raw, ped, gain, mask)]
+
+
+@pytest.mark.parametrize("w", [96, 95])  # 95: the scalar path (pixels % 4 != 0)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_calib_kernel_matches_plain(cuda, w, out_dtype):
+    raw, ped, gain, mask = _calib_inputs(cuda, 3, 4, 64, w)
+    got = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype)
+    ref = fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype).float()
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and pt.counts()["calib_kernel"] == 1
+    tol = 1e-4 + 1e-5 * ref.abs()
+    if out_dtype == torch.bfloat16:
+        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    assert bool(torch.all((got.float() - ref).abs() <= tol))
+    assert bool(torch.all(got[:, 0] == 0))  # the all-masked panel
+
+
+def test_calib_kernel_auto_batch_and_integer_raw(cuda):
+    raw, ped, gain, mask = _calib_inputs(cuda, 2, 2, 32, 64)
+    raw_int = raw.clamp(0, 65535).to(torch.int32)
+    got = pt.fused_calibrate(raw_int[1], ped, gain, mask)
+    ref = fused_calibrate_plain(raw_int[1], ped, gain, mask)
+    assert got.shape == raw.shape[1:] and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_calib_kernel_refuses_what_it_does_not_take(cuda):
+    raw, ped, gain, mask = _calib_inputs(cuda, 1, 2, 8, 8)
+    with pytest.raises(NotImplementedError):
+        pt.fused_calibrate(raw.half(), ped, gain, mask)
+    with pytest.raises(ValueError):
+        pt.fused_calibrate(raw, ped[:1], gain, mask)
+    with pytest.raises(ValueError):
+        pt.fused_calibrate(raw, ped.cpu(), gain, mask)
+
+
+def _operands(gen, cuda, b, h, w, cin, n):
+    x = torch.randn((b, h, w, cin), generator=gen, device=cuda).bfloat16()
+    wt = (torch.randn((cin, n), generator=gen, device=cuda) / cin**0.5).bfloat16()
+    s = 1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    return x, wt, s, bias
+
+
+@pytest.mark.parametrize("mode", ["plain", "identity", "proj1", "proj2"])
+def test_conv1x1_kernel_matches_plain(cuda, gen, mode):
+    b, h, w, cin, n = 3, 10, 14, 64, 128  # 420 pixels: a ragged last tile
+    x, wt, s, bias = _operands(gen, cuda, b, h, w, cin, n)
+    kw = {}
+    if mode == "identity":
+        kw["residual"] = torch.randn((b, h, w, n), generator=gen, device=cuda).bfloat16()
+    elif mode.startswith("proj"):
+        stride = int(mode[-1])
+        xp, wp, sp, bp = _operands(gen, cuda, b, h * stride, w * stride, 96, n)
+        kw["proj"] = (xp, wp, sp, bp, stride)
+    got = fr.conv1x1(x, wt, s, bias, **kw)
+    ref = fr.conv1x1_plain(x, wt, s, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert pt.counts()["conv1x1_kernel"] == 1
+    assert rel_err(ref, got) < REL_TOL
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_kernel_matches_plain(cuda, gen, stride):
+    b, h, w, c = 2, 12, 18, 64
+    x, _, s, bias = _operands(gen, cuda, b, h, w, c, c)
+    wt = (torch.randn((9 * c, c), generator=gen, device=cuda) / (9 * c) ** 0.5).bfloat16()
+    got = fr.conv3x3(x, wt, s, bias, stride)
+    ref = fr.conv3x3_plain(x, wt, s, bias, stride)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h // stride, w // stride, c)
+    assert pt.counts()["conv3x3_kernel"] == 1
+    assert rel_err(ref, got) < REL_TOL
+
+
+def test_bottleneck_kernels_refuse_bad_shapes(cuda, gen):
+    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 48, 64)
+    with pytest.raises(ValueError, match="Cin"):
+        fr.conv1x1(x, wt, s, bias)
+    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 64, 64)
+    with pytest.raises(ValueError, match="contiguous NHWC bf16"):
+        fr.conv1x1(x.float(), wt, s, bias)
+    with pytest.raises(ValueError, match="exclusive"):
+        fr.conv1x1(x, wt, s, bias, residual=x, proj=(x, wt, s, bias, 1))
+    assert pt.counts()["conv1x1_kernel"] == 0
+
+
+def test_fused_network_matches_plain_model(cuda):
+    stages = (1, 1, 1, 1)
+    model = pt.resnet_from_flax(pt.init_resnet_params(in_channels=4, stage_sizes=stages, seed=1),
+                                stages, device=cuda)
+    x = torch.randn((2, 64, 64, 4), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, stages, return_features=True)
+    ref_logits, ref_feat = model(x, return_features=True)
+    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4}
+    assert float(ref_feat.abs().max()) >= 1e-2
+    assert rel_err(ref_logits, logits) < REL_TOL
+    assert rel_err(ref_feat, feat) < REL_TOL
+
+
+def test_entry_runs_on_the_card(cuda):
+    assert pt.resolve_device().type == "cuda"
+    fn, args = pt.entry()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    assert tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all())
+    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16}
