@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's calibrated ResNet-50 serving path on one NVIDIA H100.
+"""Drive the port's two serving paths on one NVIDIA H100: the calibrated
+ResNet-50 classifier and the SFX Bragg-peak pipeline (PeakNet-TPU U-Net).
 
 Run from the root of a checkout, with no arguments:
 
@@ -30,9 +31,34 @@ one JSON line (``{"phase": ...}``):
 6. ``profile``: the same pipeline for 4 more batches under
    ``torch.profiler``: device time by kernel, the device's idle share and
    the busiest host ops.
+7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
+   (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
+   16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
+   22x24 256->512 with no downsample. Every ``conv3x3_kernel`` launch
+   against its plain version and each level against the chain of plain
+   versions (``rel_err < 0.05``), with kernel, plain and library
+   (bf16 channels-last ``F.conv2d``) times, the fused level's bound and
+   the bound of the three launches (y1 and skip through HBM).
+8. ``sfx_end_to_end``: a producer thread feeds RAW events into a
+   ``RingBuffer``; ``SfxPipeline(SfxConfig(batch_size=8)).run`` drains
+   them (``calib_kernel`` -> ``peaknet_tpu_fused_infer`` -> ``find_peaks``
+   -> an in-memory writer) for 6 batches. Launch counts must be +1
+   ``calib_kernel`` and +8 ``conv_block_kernel`` per batch; the last
+   batch's logits are checked against the plain path on the card, and
+   the peaks written for it against a recomputation.
+9. ``sfx_profile``: the same pipeline for 4 more batches under
+   ``torch.profiler``.
+
+10. ``unported_bounds``: the bounds of the TPU kernels not ported yet
+   (K5-K7, flash attention forward and backward), computed from the
+   shapes at which the JAX package runs them: ``ViTHitClassifier``
+   defaults (embed 512, 4 heads, head dim 128, non-causal) on epix10k2M
+   at batch 2, so BH = 8 and S = 8448 tokens, bf16.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
-raises and exits non-zero before the device line is printed.
+raises and exits non-zero before the device line is printed. The
+``calib_kernel`` launches in the kernels line are those of both serving
+runs (phases 5 and 8); every other kernel runs on one path only.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up. For ``conv1x1_kernel`` and ``conv3x3_kernel`` the
@@ -59,6 +85,11 @@ BATCH = 32
 E2E_BATCHES = 6
 POOL_EVENTS = 64
 REL_TOL = 0.05
+SFX_BATCH = 8  # frames; 128 panel-rows of epix10k2M
+SFX_FEATURES = (64, 128, 256, 512)
+SFX_BATCHES = 6
+# (level, index into FusedUNet.levels, h, w) at s2d 2 on 352x384 panels
+UNET_LEVELS = (("level1", 0, 88, 96), ("level2", 1, 44, 48), ("bottleneck", 2, 22, 24))
 
 # (class name, block index in ResNet-50, blocks of that class in the network)
 BLOCK_CLASSES = (
@@ -355,7 +386,8 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     pipe, wall = run_pipeline(torch, pt, pool, step, device, E2E_BATCHES, on_result)
     counts = pt.counts()
     nb = pipe.metrics.batches
-    want = {"calib_kernel": nb, "conv3x3_kernel": 16 * nb, "conv1x1_kernel": 32 * nb}
+    want = {"calib_kernel": nb, "conv3x3_kernel": 16 * nb, "conv1x1_kernel": 32 * nb,
+            "conv_block_kernel": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -383,15 +415,9 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     return counts
 
 
-def phase_profile(torch, pt, pool, consts, params, device, n_batches=4, top=12):
-    """The same pipeline under ``torch.profiler``: device time by kernel per
-    batch, the device's idle share of the wall time and the host ops of the
-    consumer thread that take the most time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step = make_step(torch, pt, consts, params)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_pipeline(torch, pt, pool, step, device, n_batches)
+def profile_summary(torch, prof, wall, n_batches, top=16) -> dict:
+    """Device time by kernel per batch, the device's idle share of the wall
+    time and the host ops that take the most time, from a profiler run."""
     events = prof.key_averages()
 
     def dev_us(e):
@@ -406,18 +432,291 @@ def phase_profile(torch, pt, pool, consts, params, device, n_batches=4, top=12):
     compute = sum(dev_us(e) for e in kernels) - copies
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
     per = 1e3 * n_batches
-    emit(
-        "profile",
-        batches=n_batches,
-        wall_ms_per_batch=wall * 1e3 / n_batches,
-        device_compute_ms_per_batch=compute / per,
-        device_copy_ms_per_batch=copies / per,
-        device_idle_share=max(0.0, 1.0 - compute / 1e3 / (wall * 1e3)),
-        top_device=[{"name": e.key[:80], "ms_per_batch": dev_us(e) / per,
-                     "calls_per_batch": e.count / n_batches} for e in kernels[:top]],
-        top_host=[{"name": e.key[:80], "self_ms_per_batch": e.self_cpu_time_total / per,
-                   "calls_per_batch": e.count / n_batches} for e in host[:top]],
-    )
+    return {
+        "batches": n_batches,
+        "wall_ms_per_batch": wall * 1e3 / n_batches,
+        "device_compute_ms_per_batch": compute / per,
+        "device_copy_ms_per_batch": copies / per,
+        "device_idle_share": max(0.0, 1.0 - compute / 1e3 / (wall * 1e3)),
+        "top_device": [{"name": e.key[:160], "ms_per_batch": dev_us(e) / per,
+                        "calls_per_batch": e.count / n_batches} for e in kernels[:top]],
+        "top_host": [{"name": e.key[:80], "self_ms_per_batch": e.self_cpu_time_total / per,
+                      "calls_per_batch": e.count / n_batches} for e in host[:top]],
+    }
+
+
+def phase_profile(torch, pt, pool, consts, params, device, n_batches=4):
+    """The ResNet pipeline under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_step(torch, pt, consts, params)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run_pipeline(torch, pt, pool, step, device, n_batches)
+    emit("profile", **profile_summary(torch, prof, wall, n_batches))
+
+
+# -- phase 7 ---------------------------------------------------------------
+
+
+def _conv3x3_cost(m_out, cin, n, m_in, affine=True):
+    """(bytes, ops) of one bf16 3x3 convolution: input, weight, affines,
+    output, each once."""
+    return (2 * m_in * cin + 2 * 9 * cin * n + (8 * n if affine else 0) + 2 * m_out * n,
+            2.0 * m_out * 9 * cin * n)
+
+
+def phase_conv_block(torch, F, fu, fr, timer, uparams, device):
+    """Each K4 level at batch 128, every launch against its plain version."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    b = SFX_BATCH * 16
+    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "three_launch_bound_ms": 0.0, "max_abs_err": 0.0, "launches_per_batch": 0}
+    levels = []
+    for name, idx, h, w in UNET_LEVELS:
+        lvl = uparams.levels[idx]
+        cin, f = lvl.w1.shape[2], lvl.w1.shape[3]
+        down = lvl.wd is not None
+        x = torch.randn((b, h, w, cin), generator=gen, device=device).to(torch.bfloat16)
+        w1, w2 = fu._gemm(lvl.w1), fu._gemm(lvl.w2)
+        wd = fu._gemm(lvl.wd) if down else None
+        c = fu.COUNTER
+        y1 = fr.launch_conv3x3(x, w1, *lvl.a1, 1, c)
+        skip = fr.launch_conv3x3(y1, w2, *lvl.a2, 1, c)
+        dn = fr.launch_conv3x3(skip, wd, None, None, 2, c) if down else None
+        checks = {"conv1": (y1, fr.conv3x3_plain(x, w1, *lvl.a1)),
+                  "conv2": (skip, fr.conv3x3_plain(y1, w2, *lvl.a2))}
+        if down:
+            checks["down"] = (dn, fu.downsample_plain(skip, lvl.wd))
+        # the whole level (its wrapper) against the chain of plain versions
+        got = fu.fused_conv_block(x, lvl.w1, lvl.a1, lvl.w2, lvl.a2, lvl.wd)
+        ref = fu.fused_conv_block_plain(x, lvl.w1, lvl.a1, lvl.w2, lvl.a2, lvl.wd)
+        torch.cuda.synchronize()
+        errs = {k: {"max_abs_err": float((a.float() - r.float()).abs().max()), "rel_err": rel_err(r, a)}
+                for k, (a, r) in checks.items()}
+        level_rel = max(rel_err(r, a) for a, r in zip(got, ref) if a is not None)
+        bad = [k for k, e in errs.items() if not e["rel_err"] < REL_TOL]
+        if bad or not level_rel < REL_TOL or not torch.isfinite(got[0].float()).all():
+            raise AssertionError(f"{name}: kernels disagree with their plain versions: {errs}, "
+                                 f"level rel_err {level_rel}")
+
+        m, m2 = b * h * w, b * (h // 2) * (w // 2)
+        cost = {"conv1": _conv3x3_cost(m, cin, f, m), "conv2": _conv3x3_cost(m, f, f, m)}
+        if down:
+            cost["down"] = _conv3x3_cost(m2, f, f, m, affine=False)
+        ops = sum(o for _, o in cost.values())
+        fused_bytes = (2 * m * cin + 2 * 9 * (cin * f + f * f) + 16 * f + 2 * m * f
+                       + ((2 * 9 * f * f + 2 * m2 * f) if down else 0))
+        bms, by = bound_ms(fused_bytes, ops, BF16_OPS_PER_S)
+        three = sum(bound_ms(nb, o, BF16_OPS_PER_S)[0] for nb, o in cost.values())
+
+        # library yardsticks, never called by the port: bf16 channels-last
+        # F.conv2d of the same convolutions (no affine)
+        def oihw(g, ci):
+            return g.reshape(3, 3, ci, f).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+        xn, y1n, skn = (t.permute(0, 3, 1, 2) for t in (x, y1, skip))
+        w1o, w2o = oihw(w1, cin), oihw(w2, f)
+        launches = {
+            "conv1": (lambda: fr.launch_conv3x3(x, w1, *lvl.a1, 1, c),
+                      lambda: fr.conv3x3_plain(x, w1, *lvl.a1),
+                      lambda: F.conv2d(xn, w1o, padding=1)),
+            "conv2": (lambda: fr.launch_conv3x3(y1, w2, *lvl.a2, 1, c),
+                      lambda: fr.conv3x3_plain(y1, w2, *lvl.a2),
+                      lambda: F.conv2d(y1n, w2o, padding=1)),
+        }
+        if down:
+            skp = F.pad(skn, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+            wdo = oihw(wd, f)
+            launches["down"] = (lambda: fr.launch_conv3x3(skip, wd, None, None, 2, c),
+                                lambda: fu.downsample_plain(skip, lvl.wd),
+                                lambda: F.conv2d(skp, wdo, stride=2))
+        row = {"level": name, "x": [b, h, w, cin], "features": f, "down": down,
+               "gflop": ops / 1e9, "fused_mbytes": fused_bytes / 1e6, "bound_ms": bms,
+               "bound_by": by, "three_launch_bound_ms": three, "level_rel_err": level_rel,
+               "launches": {}}
+        for step, (kfn, pfn, lfn) in launches.items():
+            nb, o = cost[step]
+            t = {"ms": timer.ms(kfn, iters=10), "plain_ms": timer.ms(pfn, iters=3, warmup=1),
+                 "library_ms": timer.ms(lfn, iters=10),
+                 "bound_ms": bound_ms(nb, o, BF16_OPS_PER_S)[0], "gflop": o / 1e9, **errs[step]}
+            row["launches"][step] = t
+            for key in ("ms", "plain_ms", "library_ms"):
+                agg[key] += t[key]
+            agg["max_abs_err"] = max(agg["max_abs_err"], t["max_abs_err"])
+            agg["launches_per_batch"] += 1
+        row["ms"] = sum(t["ms"] for t in row["launches"].values())
+        agg["bound_ms"] += bms
+        agg["three_launch_bound_ms"] += three
+        emit("conv_block", **row)
+        levels.append(row)
+        del x, y1, skip, dn, checks, got, ref, launches
+    agg["bound_by"] = "operations"
+    return agg, levels
+
+
+# -- phases 8 and 9 ----------------------------------------------------------
+
+
+class PeakSink:
+    """An in-memory writer: keeps every appended peak set."""
+
+    max_peaks = 128
+
+    def __init__(self):
+        self.sets = []
+
+    def append(self, sets):
+        self.sets.extend(sets)
+
+
+def run_sfx(torch, pt, pool, pipe, n_batches):
+    """A producer thread puts ``n_batches * SFX_BATCH`` RAW events and one
+    EOS into a ``RingBuffer``; ``pipe.run`` drains them. Returns the wall
+    seconds."""
+    n_events = n_batches * SFX_BATCH
+    ring = pt.RingBuffer(maxsize=3 * SFX_BATCH)
+    events = ((i, pool[i % len(pool)], 10.0) for i in range(n_events))
+    produced = {}
+
+    def producer():
+        produced["n"] = pt.produce(events, ring, timeout=120.0)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    before = pipe.n_events
+    t0 = time.monotonic()
+    try:
+        written = pipe.run(ring)
+    finally:
+        wall = time.monotonic() - t0
+        ring.close()
+        thread.join(timeout=60)
+    if produced.get("n") != n_events or written != n_events or pipe.n_events - before != n_events:
+        raise AssertionError(f"produced {produced.get('n')}, wrote {written}, expected {n_events}")
+    return wall
+
+
+def _peak_agreement(a, b):
+    """Share of the peaks of two find_peaks results that match one-to-one
+    at the same pixel, over the larger of the two counts."""
+    (ya, _, na), (yb, _, nb) = a, b
+    ya, na, yb, nb = ya.cpu().numpy(), na.cpu().numpy(), yb.cpu().numpy(), nb.cpu().numpy()
+    hits = total = 0
+    for r in range(len(na)):
+        pa = {tuple(p) for p in ya[r, :na[r]]}
+        pb = {tuple(p) for p in yb[r, :nb[r]]}
+        hits += len(pa & pb)
+        total += max(len(pa), len(pb))
+    return hits / max(total, 1)
+
+
+def phase_sfx(torch, pt, pool, calib_np, device):
+    import numpy as np
+
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+
+    params = pt.init_peaknet_tpu_params(SFX_FEATURES, seed=0)
+    sink = PeakSink()
+    pipe = pt.SfxPipeline(params, sink, calib=calib_np, config=pt.SfxConfig(batch_size=SFX_BATCH))
+    if pipe.device != device:
+        raise AssertionError(f"SfxPipeline chose {pipe.device}, not the card {device}")
+    # warm-up outside the counted run (cuDNN picks the library convs' algorithms)
+    warm = torch.from_numpy(np.stack(pool[:SFX_BATCH])).to(device)
+    pipe.device_step(warm)
+    torch.cuda.synchronize()
+    del warm
+
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    wall = run_sfx(torch, pt, pool, pipe, SFX_BATCHES)
+    counts = pt.counts()
+    nb = pipe.metrics.batches
+    want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+            "conv_block_kernel": 8 * nb}
+    if nb != SFX_BATCHES or counts != want:
+        raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+
+    # the last batch again: kernel-path logits against the plain path, and
+    # the peaks the pipeline wrote against find_peaks of those logits
+    n_events = SFX_BATCHES * SFX_BATCH
+    last = list(range(n_events - SFX_BATCH, n_events))
+    frames = torch.from_numpy(np.stack([pool[i % len(pool)] for i in last])).to(device)
+    ped, gain, mask = (torch.from_numpy(a).to(device) for a in calib_np)
+    cfg = pipe.cfg
+    with torch.no_grad():
+        cal = pt.fused_calibrate(frames, ped, gain, mask, threshold=cfg.calib_threshold,
+                                 out_dtype=torch.bfloat16)
+        logits = pt.peaknet_tpu_fused_infer(pipe.params, pt.panels_to_nhwc(cal, mode="batch"))
+        cal_ref = fused_calibrate_plain(frames, ped, gain, mask, threshold=cfg.calib_threshold,
+                                        out_dtype=torch.bfloat16)
+        ref = pipe.model(pt.panels_to_nhwc(cal_ref, mode="batch"))
+    kw = dict(max_peaks=cfg.max_peaks, threshold=cfg.peak_threshold, min_distance=cfg.min_distance)
+    peaks, ref_peaks = pt.find_peaks(logits, **kw), pt.find_peaks(ref, **kw)
+    torch.cuda.synchronize()
+    err = rel_err(ref, logits)
+    p, h = frames.shape[1], frames.shape[2]
+    yx, score, n = (a.cpu().numpy() for a in peaks)
+    rewritten = []
+    for i in range(SFX_BATCH):
+        rows = range(i * p, (i + 1) * p)
+        rewritten.append(sorted(
+            (float(yx[r, k, 0] + (r - i * p) * h), float(yx[r, k, 1])) for r in rows for k in range(n[r])))
+    # the writer keeps an event's max_peaks brightest peaks: each written
+    # peak must be one of the recomputed batch's
+    written = {s.event_idx: list(zip(s.y.tolist(), s.x.tolist())) for s in sink.sets}
+    hits = sum(len(set(written[e]) & set(rewritten[j])) for j, e in enumerate(last))
+    recomputed = hits / max(sum(len(written[e]) for e in last), 1)
+    if (tuple(logits.shape) != (SFX_BATCH * p, h, frames.shape[3], 1)
+            or not torch.isfinite(logits).all()
+            or not err < REL_TOL or recomputed < 0.99 or len(sink.sets) != n_events):
+        raise AssertionError(f"SFX result wrong: logits {tuple(logits.shape)} rel_err {err}, "
+                             f"share of written peaks found again {recomputed}, "
+                             f"{len(sink.sets)} events written")
+    summary = pipe.metrics.summary()
+    emit("sfx_end_to_end", batches=nb, frames=summary["frames"], wall_s=wall, fps=summary["fps"],
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         peak_mem_gib=peak_mem, peaks_written=pipe.n_peaks, launches=counts,
+         logits_rel_err=err, logits_max_abs=float(ref.abs().max()),
+         peak_agreement_kernel_vs_plain=_peak_agreement(peaks, ref_peaks),
+         written_peaks_found_again=recomputed,
+         peaks_last_batch=int(n.sum()))
+    return pipe, counts
+
+
+def unported_bounds(bh=8, s=8448, d=128) -> dict:
+    """Bounds of flash attention (K5 forward, K6 dk/dv, K7 dq) at
+    ``[BH, S, D]`` bf16, non-causal: matmul operations (2*S*S*D each) at
+    989 TFLOP/s against q, k, v, do, o and grads read or written once
+    (f32 lse and delta rows)."""
+    t = bh * s * d * 2  # one bf16 [BH, S, D] tensor
+    rows = bh * s * 4  # one f32 [BH, S] row vector
+    mm = 2.0 * bh * s * s * d  # one S x S x D matmul over all heads
+    cost = {
+        # qk^T, pv; reads q k v, writes o and lse
+        "K5 _flash_kernel": (3 * t + t + rows, 2 * mm),
+        # recomputed qk^T, p^T do, do v^T, ds^T q; reads q k v do lse delta, writes dk dv
+        "K6 _flash_bwd_dkv_kernel": (4 * t + 2 * rows + 2 * t, 4 * mm),
+        # recomputed qk^T, do v^T, ds k; reads q k v do lse delta, writes dq
+        "K7 _flash_bwd_dq_kernel": (4 * t + 2 * rows + t, 3 * mm),
+    }
+    out = {}
+    for name, (nbytes, ops) in cost.items():
+        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        out[name] = {"bh": bh, "s": s, "d": d, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                     "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def phase_sfx_profile(torch, pt, pool, pipe, n_batches=4):
+    """The SFX pipeline under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run_sfx(torch, pt, pool, pipe, n_batches)
+    emit("sfx_profile", **profile_summary(torch, prof, wall, n_batches))
 
 
 def main() -> int:
@@ -440,6 +739,7 @@ def main() -> int:
     import psana_ray_tpu_torch as pt
     from psana_ray_tpu_torch.kernels import build
     from psana_ray_tpu_torch.models import fused_resnet as fr
+    from psana_ray_tpu_torch.models import fused_unet as fu
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -472,13 +772,23 @@ def main() -> int:
 
     counts = phase_end_to_end(torch, pt, pool, consts, model, params, device)
     phase_profile(torch, pt, pool, consts, params, device)
+    del model, params
+
+    calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
+    uparams = pt.pack_unet(pt.unet_from_flax(pt.init_peaknet_tpu_params(SFX_FEATURES, seed=0),
+                                             device=device))
+    conv_block, _ = phase_conv_block(torch, F, fu, fr, timer, uparams, device)
+    del uparams
+    pipe, sfx_counts = phase_sfx(torch, pt, pool, calib_np, device)
+    phase_sfx_profile(torch, pt, pool, pipe)
+    emit("unported_bounds", **unported_bounds())
 
     csrc = "psana_ray_tpu_torch/csrc"
     c = calib["bf16"]
     kernels = [{
         "name": "calib_kernel", "route": "cuda", "source": f"{csrc}/calib.cu",
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
-        "launches": counts["calib_kernel"],
+        "launches": counts["calib_kernel"] + sfx_counts["calib_kernel"],
         "max_abs_err": max(calib["f32"]["max_abs_err"], c["max_abs_err"]),
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -496,6 +806,14 @@ def main() -> int:
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
         })
+    kernels.append({
+        "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/bottleneck.cu",
+        "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
+        "launches": sfx_counts["conv_block_kernel"], "max_abs_err": conv_block["max_abs_err"],
+        "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
+        "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],
+        "library_ms": conv_block["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

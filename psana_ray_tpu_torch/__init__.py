@@ -1,10 +1,13 @@
 """psana_ray_tpu_torch: the PyTorch + CUDA port of psana_ray_tpu for NVIDIA Hopper.
 
-The calibrated ResNet-50 serving path: a synthetic detector source and a
-producer feed a ring buffer; the infeed batches frames and stages them
-onto the card through pinned memory; ``calib_kernel`` calibrates them and
-the fused ResNet-50 (``conv1x1_kernel`` / ``conv3x3_kernel`` bottlenecks)
-classifies them. Every kernel is hand-written CUDA C++ for sm_90a, built
+Two serving paths. A synthetic detector source and a producer feed a ring
+buffer; the infeed batches frames and stages them onto the card through
+pinned memory; ``calib_kernel`` calibrates them. Then either the fused
+ResNet-50 (``conv1x1_kernel`` / ``conv3x3_kernel`` bottlenecks) classifies
+them, or the SFX pipeline (:class:`SfxPipeline`) runs the PeakNet-TPU
+U-Net (``conv3x3_kernel`` encoder levels, counted as
+``conv_block_kernel``), extracts Bragg peaks and writes them to a CXI
+file. Every kernel is hand-written CUDA C++ for sm_90a, built
 with ``nvcc`` at first use (:mod:`psana_ray_tpu_torch.kernels.build`), and
 has a plain PyTorch version beside it that CPU tensors run.
 
@@ -13,7 +16,9 @@ nothing of ``psana_ray_tpu``. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
-from psana_ray_tpu_torch.convert import resnet_from_flax
+from psana_ray_tpu_torch.checkpoint import StreamCursor
+from psana_ray_tpu_torch.convert import resnet_from_flax, unet_from_flax
+from psana_ray_tpu_torch.cxi import CxiWriter, PeakSet
 from psana_ray_tpu_torch.device import resolve_device
 from psana_ray_tpu_torch.entry import entry
 from psana_ray_tpu_torch.infeed import (
@@ -29,23 +34,36 @@ from psana_ray_tpu_torch.infeed import (
 from psana_ray_tpu_torch.kernels import LAUNCHES, counts, reset_counters
 from psana_ray_tpu_torch.models import (
     FusedResNet,
+    FusedUNet,
+    PeakNetUNetTPU,
     ResNet50,
     ResNetClassifier,
+    depth_to_space,
+    find_peaks,
     fused_bottleneck,
+    fused_conv_block,
+    init_peaknet_tpu_params,
     init_resnet_params,
     nhwc_to_panels,
     pack_fused,
+    pack_unet,
     panels_to_nhwc,
+    peak_metrics,
+    peaknet_tpu_fused_infer,
     resnet_fused_infer,
+    space_to_depth,
 )
 from psana_ray_tpu_torch.ops import calibrate, common_mode, fused_calibrate
 from psana_ray_tpu_torch.producer import produce
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord
+from psana_ray_tpu_torch.sfx import DEFAULT_THRESHOLDS, SfxConfig, SfxPipeline, infer_features, infer_s2d
 from psana_ray_tpu_torch.sources import DETECTORS, DetectorSpec, RetrievalMode, SyntheticSource
 from psana_ray_tpu_torch.transport import EMPTY, FULL, RingBuffer, TransportClosed
 
 __all__ = [
     "Batch",
+    "CxiWriter",
+    "DEFAULT_THRESHOLDS",
     "DETECTORS",
     "DetectorSpec",
     "DevicePrefetcher",
@@ -56,31 +74,47 @@ __all__ = [
     "FrameBatcher",
     "FrameRecord",
     "FusedResNet",
-    "LAUNCHES",
+    "FusedUNet",
     "InfeedPipeline",
+    "LAUNCHES",
+    "PeakNetUNetTPU",
+    "PeakSet",
     "PipelineMetrics",
-    "ResNet50",
     "ResNetClassifier",
     "RetrievalMode",
     "RingBuffer",
+    "SfxConfig",
+    "SfxPipeline",
     "StopStream",
+    "StreamCursor",
     "SyntheticSource",
     "TransportClosed",
     "batches_from_queue",
     "calibrate",
     "common_mode",
     "counts",
+    "depth_to_space",
     "drive_step",
     "entry",
+    "find_peaks",
     "fused_bottleneck",
     "fused_calibrate",
+    "fused_conv_block",
+    "infer_features",
+    "infer_s2d",
+    "init_peaknet_tpu_params",
     "init_resnet_params",
     "nhwc_to_panels",
     "pack_fused",
+    "pack_unet",
     "panels_to_nhwc",
+    "peak_metrics",
+    "peaknet_tpu_fused_infer",
     "produce",
     "reset_counters",
     "resnet_from_flax",
     "resnet_fused_infer",
     "resolve_device",
+    "space_to_depth",
+    "unet_from_flax",
 ]

@@ -1,0 +1,87 @@
+"""Stream cursors: per-shard watermarks of processed events.
+
+The port's own copy of ``StreamCursor`` from ``psana_ray_tpu/checkpoint.py``,
+with the same JSON file format, so that either package resumes from the
+other's cursor. Saving and loading model state (orbax in the JAX
+package) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+from typing import Dict
+
+
+@dataclasses.dataclass
+class StreamCursor:
+    """The contiguous watermark of processed ``event_idx``, per shard.
+
+    Shard ``r`` of ``stride`` owns events ``r, r+stride, ...``. Events that
+    complete out of order wait in a pending set; the watermark moves only
+    when every lower index of the shard's sequence has been seen. At least
+    once: pending events are not saved, so a resume re-processes them.
+    """
+
+    stride: int = 1
+    positions: Dict[int, int] = dataclasses.field(default_factory=dict)
+    _pending: Dict[int, set] = dataclasses.field(default_factory=dict)
+
+    def advance(self, shard_rank: int, event_idx: int) -> None:
+        r, idx = int(shard_rank), int(event_idx)
+        if not (0 <= r < self.stride):
+            raise ValueError(f"shard_rank {r} outside [0, stride={self.stride}): the cursor's "
+                             f"stride must equal the producers' total_shards")
+        if idx % self.stride != r:
+            raise ValueError(f"event_idx {idx} does not belong to shard {r}'s strided sequence "
+                             f"(idx % {self.stride} == {idx % self.stride})")
+        cur = self.positions.get(r)
+        if cur is not None and idx <= cur:
+            return  # a duplicate of an event already done
+        pend = self._pending.setdefault(r, set())
+        pend.add(idx)
+        nxt = r if cur is None else cur + self.stride
+        while nxt in pend:
+            pend.discard(nxt)
+            self.positions[r] = nxt
+            nxt += self.stride
+
+    def resume_point(self, shard_rank: int) -> int:
+        """The first event this shard should (re)process."""
+        r = int(shard_rank)
+        cur = self.positions.get(r)
+        return (r % self.stride) if cur is None else cur + self.stride
+
+    def pending_count(self, shard_rank: int) -> int:
+        """Out-of-order completions held above the watermark."""
+        return len(self._pending.get(int(shard_rank), ()))
+
+    def save(self, path: str) -> None:
+        """Write ``{"stride", "positions"}`` as JSON, atomically."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".cursor")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump({"stride": self.stride,
+                           "positions": {str(k): v for k, v in self.positions.items()}}, f)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+
+    @staticmethod
+    def load(path: str) -> "StreamCursor":
+        """The cursor saved at ``path``; an empty one if there is none. Reads
+        the older ``{rank: idx}`` format too."""
+        if not os.path.exists(path):
+            return StreamCursor()
+        with open(path) as f:
+            raw = json.load(f)
+        if "positions" not in raw:
+            return StreamCursor(stride=1, positions={int(k): int(v) for k, v in raw.items()})
+        return StreamCursor(stride=int(raw.get("stride", 1)),
+                            positions={int(k): int(v) for k, v in raw["positions"].items()})

@@ -1,10 +1,10 @@
-"""Flax parameter trees -> the port's ResNet.
+"""Flax parameter trees -> the port's ResNet and PeakNet-TPU U-Net.
 
 Takes the ``params`` tree of ``psana_ray_tpu``'s
-``ResNetClassifier(norm="frozen")`` as nested dicts of numpy arrays (or of
-anything ``np.asarray`` accepts) and builds the port's
-:class:`~psana_ray_tpu_torch.models.resnet.ResNetClassifier` with the same
-weights. The flax names it maps (``pallas_resnet.py:498-518``):
+``ResNetClassifier(norm="frozen")`` or ``PeakNetUNetTPU(norm="frozen")``
+as nested dicts of numpy arrays (or of anything ``np.asarray`` accepts)
+and builds the port's model with the same weights. The ResNet's flax
+names (``pallas_resnet.py:498-518``):
 
     stem/kernel                       -> stem.weight          (HWIO -> OIHW)
     stem_norm/{scale,bias}            -> stem_norm.{scale,bias}
@@ -14,20 +14,33 @@ weights. The flax names it maps (``pallas_resnet.py:498-518``):
     BottleneckBlock_i/proj_norm       -> blocks.i.proj_norm
     head/{kernel,bias}                -> head.{weight,bias}   (kernel transposed)
 
+The U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
+
+    ConvBlock_i/Conv_{0,1}            -> enc.i.conv{1,2}.weight
+    ConvBlock_i/FrozenAffine_{0,1}    -> enc.i.norm{1,2}
+    Conv_i (i < n_enc)                -> down.i.weight         (stride-2)
+    Conv_{n_enc+i}                    -> up.i.weight
+    MergeBlock_i/{merge_up,merge_skip,Conv_0} -> merge.i.{merge_up,merge_skip,conv}.weight
+    MergeBlock_i/FrozenAffine_{0,1}   -> merge.i.norm{1,2}
+    logits/{kernel,bias}              -> logits_weight, logits_bias
+
 Every leaf must map and every port parameter must be filled: anything
-else raises. The kernels' bf16 GEMM layouts are packed from the model
-once, by :func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused`.
+else raises. The kernels' bf16 GEMM layouts are packed from the models
+once, by :func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused` and
+:func:`psana_ray_tpu_torch.models.fused_unet.pack_unet`.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from psana_ray_tpu_torch.models.resnet import BottleneckBlock, ResNetClassifier
+from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU
 
 _BLOCK = re.compile(r"^BottleneckBlock_(\d+)/(.+)$")
 _IN_BLOCK_LEAF = re.compile(r"^(Conv_[012]|FrozenAffine_[012]|proj|proj_norm)/(kernel|scale|bias)$")
@@ -125,3 +138,83 @@ def block_from_flax(params: Mapping, stride: int = 1) -> BottleneckBlock:
     block = BottleneckBlock(w1.shape[2], w1.shape[3], stride)
     _load(block, {_block_key(k): port_tensor(k, v) for k, v in flat.items()})
     return block
+
+
+def infer_s2d(params: Mapping, num_classes: int = 1) -> int:
+    """The space-to-depth factor of a PeakNet-TPU ``params`` tree: its
+    ``logits`` head emits ``num_classes * s2d**2`` channels."""
+    try:
+        out_ch = int(np.shape(params["logits"]["kernel"])[-1])
+    except (KeyError, TypeError) as e:
+        raise ValueError("params tree has no logits/kernel leaf: is this a PeakNetUNetTPU "
+                         "serving tree?") from e
+    s2d = math.isqrt(out_ch // num_classes)
+    if s2d * s2d * num_classes != out_ch:
+        raise ValueError(f"logits head emits {out_ch} channels, not num_classes*s2d^2 "
+                         f"for any integer s2d")
+    return s2d
+
+
+def infer_features(params: Mapping) -> Tuple[int, ...]:
+    """The encoder widths of a PeakNet-TPU ``params`` tree: ``ConvBlock_i``'s
+    first conv emits ``features[i]`` channels (the last is the bottleneck)."""
+    widths = []
+    while isinstance(params, Mapping) and f"ConvBlock_{len(widths)}" in params:
+        try:
+            kern = params[f"ConvBlock_{len(widths)}"]["Conv_0"]["kernel"]
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"ConvBlock_{len(widths)} has no Conv_0/kernel leaf: is this a "
+                             f"PeakNetUNetTPU serving tree?") from e
+        widths.append(int(np.shape(kern)[-1]))
+    if not widths:
+        raise ValueError("params tree has no ConvBlock_0: is this a PeakNetUNetTPU serving tree?")
+    return tuple(widths)
+
+
+_UNET_BLOCK = re.compile(r"^ConvBlock_(\d+)/(Conv_[01]|FrozenAffine_[01])/(kernel|scale|bias)$")
+_UNET_CONV = re.compile(r"^Conv_(\d+)/kernel$")
+_UNET_MERGE = re.compile(
+    r"^MergeBlock_(\d+)/(merge_up|merge_skip|Conv_0|FrozenAffine_[01])/(kernel|scale|bias)$")
+_UNET_IN_BLOCK = {"Conv_0": "conv1", "Conv_1": "conv2", "FrozenAffine_0": "norm1",
+                  "FrozenAffine_1": "norm2"}
+_UNET_IN_MERGE = {"merge_up": "merge_up", "merge_skip": "merge_skip", "Conv_0": "conv",
+                  "FrozenAffine_0": "norm1", "FrozenAffine_1": "norm2"}
+
+
+def unet_port_key(path: str, n_enc: int) -> str:
+    """The port's ``state_dict`` key of a PeakNet-TPU flax leaf path."""
+    if path == "logits/kernel":
+        return "logits_weight"
+    if path == "logits/bias":
+        return "logits_bias"
+    m = _UNET_BLOCK.match(path)
+    if m:
+        i, module, leaf = m.groups()
+        return f"enc.{i}.{_UNET_IN_BLOCK[module]}.{_LEAF[leaf]}"
+    m = _UNET_CONV.match(path)
+    if m:
+        i = int(m.group(1))
+        return f"down.{i}.weight" if i < n_enc else f"up.{i - n_enc}.weight"
+    m = _UNET_MERGE.match(path)
+    if m:
+        i, module, leaf = m.groups()
+        return f"merge.{i}.{_UNET_IN_MERGE[module]}.{_LEAF[leaf]}"
+    raise KeyError(f"no port parameter for flax leaf {path!r}")
+
+
+def unet_from_flax(
+    params: Mapping, device: Optional[torch.device] = None, num_classes: int = 1
+) -> PeakNetUNetTPU:
+    """Build the port's frozen :class:`PeakNetUNetTPU` from a flax
+    ``params`` tree; features and s2d come from the tree itself."""
+    features = infer_features(params)
+    s2d = infer_s2d(params, num_classes)
+    flat = flatten(params)
+    cin = flat["ConvBlock_0/Conv_0/kernel"].shape[2]
+    if cin % (s2d * s2d):
+        raise ValueError(f"ConvBlock_0 takes {cin} channels, not a multiple of s2d^2 = {s2d * s2d}")
+    model = PeakNetUNetTPU(features, in_channels=cin // (s2d * s2d), num_classes=num_classes,
+                           s2d=s2d)
+    n_enc = len(features) - 1
+    _load(model, {unet_port_key(k, n_enc): port_tensor(k, v) for k, v in flat.items()})
+    return model.to(device) if device is not None else model

@@ -12,7 +12,19 @@
 //         <2>: silu(y2@w3 * s3 + b3 + x[::s,::s]@wp * sp + bp) (projection)
 // y1, y2 and out are rounded to bf16; every accumulator and every affine
 // is f32, at exactly the rounding points of the Pallas kernel
-// (pallas_resnet.py:169, :215, :220-239). XLA SAME padding of the 3x3 is
+// (pallas_resnet.py:169, :215, :220-239).
+//
+// conv3x3_kernel also carries K4, one PeakNet-TPU encoder level
+// (psana_ray_tpu/models/pallas_unet.py:_conv_block_kernel), as three
+// launches chosen by its epilogue template parameter:
+//   y1   = conv3x3_kernel<0>(x,    w1, 1)   silu(conv3x3(x)  * s1 + b1)
+//   skip = conv3x3_kernel<0>(y1,   w2, 1)   silu(conv3x3(y1) * s2 + b2)
+//   down = conv3x3_kernel<1>(skip, wd, 2)   conv3x3/2(skip), no affine
+// (the bottleneck level has no down), each rounded to bf16 where the
+// Pallas kernel rounds (pallas_unet.py:115, :133, :176). The TPU kernel
+// keeps the whole level in 16 MB of VMEM; an SM has 227 KB, so y1 and
+// skip make a round trip through HBM here. At PeakNet-TPU's full width
+// every level is bound by tensor-core operations (Cin >= 64, f >= 128). XLA SAME padding of the 3x3 is
 // (1,1) at stride 1 and (0,1) at stride 2: the tap origin is shifted by
 // `pad` and out-of-range taps read zeros. The strided projection input
 // x[::s, ::s] is read in place through the stride, with no copy.
@@ -158,7 +170,8 @@ __device__ __forceinline__ void store_acc(float* Cs, Acc (&acc)[2][2]) {
                               wmma::mem_row_major);
 }
 
-// kMode 0: silu(acc*s+b); 1: + identity residual res[m, n]; 2: + (acc2*s2+b2)
+// kMode 0: silu(acc*s+b); 1: + identity residual res[m, n]; 2: + (acc2*s2+b2);
+// 3: acc alone, no affine and no activation (the U-Net's downsample conv)
 template <int kMode>
 __device__ __forceinline__ void conv_body(const Operand& op, int N, int M, int Ho, int Wo,
                                           const float* __restrict__ scale,
@@ -192,7 +205,8 @@ __device__ __forceinline__ void conv_body(const Operand& op, int N, int M, int H
     const int n = n0 + c8;
     float v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = C1[row * LDC + c8 + e] * scale[n + e] + bias[n + e];
+    for (int e = 0; e < 8; ++e)
+      v[e] = kMode == 3 ? C1[row * LDC + c8 + e] : C1[row * LDC + c8 + e] * scale[n + e] + bias[n + e];
     if constexpr (kMode == 1) {
       const uint4 r = *reinterpret_cast<const uint4*>(res + static_cast<size_t>(m) * N + n);
       const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
@@ -210,7 +224,9 @@ __device__ __forceinline__ void conv_body(const Operand& op, int N, int M, int H
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(silu_f32(v[2 * e]), silu_f32(v[2 * e + 1]));
+    for (int e = 0; e < 4; ++e)
+      o2[e] = kMode == 3 ? __floats2bfloat162_rn(v[2 * e], v[2 * e + 1])
+                         : __floats2bfloat162_rn(silu_f32(v[2 * e]), silu_f32(v[2 * e + 1]));
     *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * N + n) = o;
   }
 }
@@ -222,10 +238,12 @@ conv1x1_kernel(Operand op, int N, int M, int Ho, int Wo, const float* scale, con
   conv_body<kMode>(op, N, M, Ho, Wo, scale, bias, res, op2, scale2, bias2, out);
 }
 
+// kEpi 0: silu(acc*s+b) (ResNet middle, U-Net ConvBlock convs); 1: acc rounded to bf16
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(Operand op, int N, int M, int Ho, int Wo, const float* scale, const float* bias,
                bf16* out) {
-  conv_body<0>(op, N, M, Ho, Wo, scale, bias, nullptr, op, nullptr, nullptr, out);
+  conv_body<kEpi == 0 ? 0 : 3>(op, N, M, Ho, Wo, scale, bias, nullptr, op, nullptr, nullptr, out);
 }
 
 template <typename Kernel>
@@ -248,6 +266,16 @@ cudaError_t launch_conv1x1(const Operand& op, const Operand& op2, int N, int M, 
   if (attr != cudaSuccess) return attr;
   conv1x1_kernel<kMode><<<grid_for(M, N), kThreads, smem, s>>>(op, N, M, Ho, Wo, scale, bias, res,
                                                                op2, scale2, bias2, out);
+  return cudaGetLastError();
+}
+
+template <int kEpi>
+cudaError_t launch_conv3x3(const Operand& op, int N, int M, int Ho, int Wo, const float* scale,
+                           const float* bias, bf16* out, cudaStream_t s) {
+  static const cudaError_t attr = allow_smem(conv3x3_kernel<kEpi>, kSmemAB + kSmemC);
+  if (attr != cudaSuccess) return attr;
+  conv3x3_kernel<kEpi><<<grid_for(M, N), kThreads, kSmemAB + kSmemC, s>>>(op, N, M, Ho, Wo, scale,
+                                                                          bias, out);
   return cudaGetLastError();
 }
 
@@ -279,12 +307,16 @@ extern "C" int conv1x1_launch(const void* a, int B, int H, int W, int C, const v
 }
 
 // 3x3 convolution, XLA SAME padding ((1,1) at stride 1, (0,1) at stride 2),
-// then silu(acc*s+b). x [B, H, W, C] bf16; w [9*C, N] bf16 (taps row-major,
-// HWIO flattened); out [B, H/stride, W/stride, N] bf16. Stride 2 needs even
-// H and W (the Pallas kernel's h // s output extent).
+// then epilogue 0: silu(acc*s+b), or epilogue 1: acc alone (scale and bias
+// unused, may be null). x [B, H, W, C] bf16; w [9*C, N] bf16 (taps
+// row-major, HWIO flattened); out [B, H/stride, W/stride, N] bf16. Stride 2
+// needs even H and W (the Pallas kernels' h // s output extent).
 extern "C" int conv3x3_launch(const void* x, int B, int H, int W, int C, int stride, const void* w,
-                              int N, const void* scale, const void* bias, void* out, void* stream) {
-  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+                              int N, const void* scale, const void* bias, int epilogue, void* out,
+                              void* stream) {
+  if ((stride != 1 && stride != 2) || (epilogue != 0 && epilogue != 1) ||
+      (epilogue == 0 && (!scale || !bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Operand op{static_cast<const bf16*>(x), static_cast<const bf16*>(w), H, W, C, 3, stride,
                    stride == 1 ? 1 : 0};
   const int Ho = H / stride, Wo = W / stride;
@@ -292,11 +324,8 @@ extern "C" int conv3x3_launch(const void* x, int B, int H, int W, int C, int str
   if (B <= 0 || H % stride || W % stride || !shape_ok(op, N) || m_ll > (1LL << 31) - 1 ||
       (m_ll + BM - 1) / BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int M = static_cast<int>(m_ll);
-  static const cudaError_t attr = allow_smem(conv3x3_kernel, kSmemAB + kSmemC);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  conv3x3_kernel<<<grid_for(M, N), kThreads, kSmemAB + kSmemC, static_cast<cudaStream_t>(stream)>>>(
-      op, N, M, Ho, Wo, static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<bf16*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const auto launch = epilogue == 0 ? launch_conv3x3<0> : launch_conv3x3<1>;
+  return static_cast<int>(launch(op, N, static_cast<int>(m_ll), Ho, Wo,
+                                 static_cast<const float*>(scale), static_cast<const float*>(bias),
+                                 static_cast<bf16*>(out), static_cast<cudaStream_t>(stream)));
 }

@@ -42,11 +42,6 @@ class Batch:
     def arrays(self) -> tuple:
         return (self.frames, self.valid, self.shard_rank, self.event_idx, self.photon_energy)
 
-    def map_arrays(self, fn) -> "Batch":
-        """A copy with ``fn`` applied to every per-row array field;
-        ``num_valid`` passes through."""
-        return Batch(*(fn(a) for a in self.arrays()), num_valid=self.num_valid)
-
 
 class FrameBatcher:
     """Accumulates FrameRecords into fixed-shape Batches.

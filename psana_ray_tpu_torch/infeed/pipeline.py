@@ -13,10 +13,13 @@ card while the current batch computes:
   allocator does not recycle it under the consumer's work.
 
 On ``device="cpu"`` batches become CPU tensors (zero-copy views of the
-batcher's arrays). Errors in the staging thread surface in the consumer.
-The staging thread times its two host stages per batch (assembling the
-batch from the queue, staging it to the card) into the pipeline's
-:class:`PipelineMetrics`.
+batcher's arrays). With ``stage_meta=False`` only the frames go to the
+device; the per-row metadata (``valid``, ``shard_rank``, ``event_idx``,
+``photon_energy``) stays in host numpy arrays, for consumers that use it
+on the host and must not read it back from the card. Errors in the
+staging thread surface in the consumer. The staging thread times its two
+host stages per batch (assembling the batch from the queue, staging it
+to the card) into the pipeline's :class:`PipelineMetrics`.
 """
 
 from __future__ import annotations
@@ -113,11 +116,13 @@ class DevicePrefetcher:
         prefetch_depth: int = 2,
         stop_event: Optional[threading.Event] = None,
         metrics: Optional[PipelineMetrics] = None,
+        stage_meta: bool = True,
     ):
         if prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
         self.device = resolve_device(device)
         self.metrics = metrics
+        self.stage_meta = stage_meta
         self._src = batches
         self.prefetch_depth = prefetch_depth
         self._buf: _queue.Queue = _queue.Queue(maxsize=prefetch_depth)
@@ -134,13 +139,23 @@ class DevicePrefetcher:
 
     def _stage(self, batch: Batch):
         """Host batch -> (device batch, copy-done event or None)."""
+        if not self.stage_meta:
+            # the metadata is copied: a pooled batcher reuses its arrays
+            meta = [np.array(a) for a in batch.arrays()[1:]]
+            staged, event = self._stage_arrays([batch.frames])
+            return Batch(staged[0], *meta, num_valid=batch.num_valid), event
+        staged, event = self._stage_arrays(batch.arrays())
+        return Batch(*staged, num_valid=batch.num_valid), event
+
+    def _stage_arrays(self, arrays):
+        """Host arrays -> (tensors on the device, copy-done event or None)."""
         if not self._cuda:
-            return batch.map_arrays(torch.from_numpy), None
+            return [torch.from_numpy(a) for a in arrays], None
         slot = self._slots[self._slot_i % len(self._slots)]
         self._slot_i += 1
         if slot.event is not None:
             slot.event.synchronize()  # its last H2D copy has finished
-        arrays = [np.ascontiguousarray(a) for a in batch.arrays()]
+        arrays = [np.ascontiguousarray(a) for a in arrays]
         if slot.host is None or any(
             h.shape != a.shape or h.numpy().dtype != a.dtype for h, a in zip(slot.host, arrays)
         ):
@@ -155,7 +170,7 @@ class DevicePrefetcher:
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         slot.event = event
-        return Batch(*dev, num_valid=batch.num_valid), event
+        return dev, event
 
     def _put(self, item) -> bool:
         """Bounded put that gives up when close() is called."""
@@ -234,7 +249,8 @@ class DevicePrefetcher:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
             for t in batch.arrays():
-                t.record_stream(stream)
+                if torch.is_tensor(t):
+                    t.record_stream(stream)
         return batch
 
 

@@ -4,13 +4,17 @@ Sources live in ``psana_ray_tpu_torch/csrc``; :mod:`.build` compiles them
 with ``nvcc`` at first use. Each kernel's Python wrapper adds one to its
 entry of :data:`LAUNCHES` where it launches the kernel, and nowhere else,
 so a run can show that the main path went through the kernel.
+``conv_block_kernel`` counts the launches of ``conv3x3_kernel`` made by
+the U-Net's encoder levels (K4), apart from the ResNet's.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0}
+LAUNCHES: Dict[str, int] = {
+    "calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0, "conv_block_kernel": 0,
+}
 
 
 def reset_counters() -> None:

@@ -55,8 +55,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # a2, H2, W2, C2, stride2, w2, scale2, bias2, out, stream
         "conv1x1_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
                            _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        # x, B, H, W, C, stride, w, N, scale, bias, out, stream
-        "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+        # x, B, H, W, C, stride, w, N, scale, bias, epilogue, out, stream
+        "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Models: the frozen ResNet, its fused kernel path, layouts and init."""
+"""Models: the frozen ResNet and PeakNet-TPU U-Net, their fused kernel paths,
+layouts, peak extraction and init."""
 
 from psana_ray_tpu_torch.models.fused_resnet import (
     BlockWeights,
@@ -11,23 +12,44 @@ from psana_ray_tpu_torch.models.fused_resnet import (
     pack_fused,
     resnet_fused_infer,
 )
+from psana_ray_tpu_torch.models.fused_unet import (
+    FusedUNet,
+    fused_conv_block,
+    fused_conv_block_plain,
+    pack_unet,
+    peaknet_tpu_fused_infer,
+)
 from psana_ray_tpu_torch.models.heads import nhwc_to_panels, panels_to_nhwc
-from psana_ray_tpu_torch.models.init import init_resnet_params
+from psana_ray_tpu_torch.models.init import init_peaknet_tpu_params, init_resnet_params
+from psana_ray_tpu_torch.models.peaks import find_peaks, peak_metrics, split_truth_by_panel
 from psana_ray_tpu_torch.models.resnet import ResNet50, ResNetClassifier
+from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
 
 __all__ = [
     "BlockWeights",
     "FusedResNet",
+    "FusedUNet",
+    "PeakNetUNetTPU",
     "ResNet50",
     "ResNetClassifier",
     "conv1x1",
     "conv1x1_plain",
     "conv3x3",
     "conv3x3_plain",
+    "depth_to_space",
+    "find_peaks",
     "fused_bottleneck",
+    "fused_conv_block",
+    "fused_conv_block_plain",
+    "init_peaknet_tpu_params",
     "init_resnet_params",
     "nhwc_to_panels",
     "pack_fused",
+    "pack_unet",
     "panels_to_nhwc",
+    "peak_metrics",
+    "peaknet_tpu_fused_infer",
     "resnet_fused_infer",
+    "space_to_depth",
+    "split_truth_by_panel",
 ]

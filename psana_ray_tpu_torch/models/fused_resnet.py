@@ -263,6 +263,38 @@ def conv1x1(
     return out
 
 
+def launch_conv3x3(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    stride: int,
+    counter: str,
+) -> torch.Tensor:
+    """One launch of ``conv3x3_kernel`` on CUDA tensors, counted under
+    ``LAUNCHES[counter]``: epilogue ``silu(acc*scale+bias)``, or the bare
+    accumulator rounded to bf16 when ``scale`` and ``bias`` are None."""
+    _check_stride(x, stride)
+    _check_operand(counter, x, w, 3)
+    b, h, wd, c = x.shape
+    n = w.shape[1]
+    epilogue = int(scale is None)
+    if epilogue != int(bias is None):
+        raise ValueError(f"{counter}: give both scale and bias, or neither")
+    if not epilogue:
+        _affine_ok(counter, n, scale, bias)
+    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
+    lib = build.library("bottleneck")
+    err = lib.conv3x3_launch(
+        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n,
+        None if epilogue else scale.data_ptr(), None if epilogue else bias.data_ptr(),
+        epilogue, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, counter)
+    LAUNCHES[counter] += 1
+    return out
+
+
 def conv3x3(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
@@ -270,20 +302,7 @@ def conv3x3(
     ``conv3x3_kernel`` on a CUDA tensor, :func:`conv3x3_plain` on CPU."""
     if not x.is_cuda:
         return conv3x3_plain(x, w, scale, bias, stride)
-    _check_stride(x, stride)
-    _check_operand("conv3x3_kernel", x, w, 3)
-    b, h, wd, c = x.shape
-    n = w.shape[1]
-    _affine_ok("conv3x3_kernel", n, scale, bias)
-    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
-    lib = build.library("bottleneck")
-    err = lib.conv3x3_launch(
-        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "conv3x3_kernel")
-    LAUNCHES["conv3x3_kernel"] += 1
-    return out
+    return launch_conv3x3(x, w, scale, bias, stride, "conv3x3_kernel")
 
 
 # -- the block and the network --------------------------------------------

@@ -1,11 +1,13 @@
-"""Seeded numpy initialization of the frozen ResNet parameter tree.
+"""Seeded numpy initialization of the frozen ResNet and U-Net parameter trees.
 
-Builds the same tree, with the same names and shapes, that flax's
-``ResNetClassifier(norm="frozen").init`` gives (``params`` only), without
-JAX: a nested dict of numpy arrays that
-:func:`psana_ray_tpu_torch.convert.resnet_from_flax` turns into the port's
-model. Convolution kernels (HWIO) are drawn as variance_scaling(2.0,
-fan_out, normal), the head as variance_scaling(1.0, fan_in,
+Builds the same trees, with the same names and shapes, that flax's
+``ResNetClassifier(norm="frozen").init`` and
+``PeakNetUNetTPU(norm="frozen").init`` give (``params`` only), without
+JAX: nested dicts of numpy arrays that
+:func:`psana_ray_tpu_torch.convert.resnet_from_flax` and
+:func:`psana_ray_tpu_torch.convert.unet_from_flax` turn into the port's
+models. Convolution kernels (HWIO) are drawn as variance_scaling(2.0,
+fan_out, normal), the heads as variance_scaling(1.0, fan_in,
 truncated_normal); affine scales are ``1 + 0.1*N(0,1)`` and biases
 ``0.1*N(0,1)``, so the affines are not the init constants 1 and 0 (which
 would hide broadcast and transpose faults and shrink the logits to ~1e-4
@@ -75,5 +77,53 @@ def init_resnet_params(
     p["head"] = {
         "kernel": _truncated_normal(rng, (cin, num_classes), np.sqrt(1.0 / cin)),
         "bias": np.zeros(num_classes, np.float32),
+    }
+    return p
+
+
+def _conv_block(rng: np.random.Generator, cin: int, f: int) -> Dict[str, dict]:
+    return {
+        "Conv_0": {"kernel": _conv(rng, 3, cin, f)},
+        "FrozenAffine_0": _affine(rng, f),
+        "Conv_1": {"kernel": _conv(rng, 3, f, f)},
+        "FrozenAffine_1": _affine(rng, f),
+    }
+
+
+def init_peaknet_tpu_params(
+    features: Sequence[int] = (64, 128, 256, 512),
+    in_channels: int = 1,
+    num_classes: int = 1,
+    s2d: int = 2,
+    seed: int = 0,
+) -> Dict[str, dict]:
+    """The ``params`` tree of a frozen-affine ``PeakNetUNetTPU``: encoder
+    ``ConvBlock_i`` and downsample ``Conv_i`` (i < n_enc), the bottleneck
+    ``ConvBlock_{n_enc}``, decoder ``Conv_{n_enc+i}`` and ``MergeBlock_i``,
+    and the ``logits`` head (``num_classes * s2d**2`` outputs)."""
+    rng = np.random.default_rng(seed)
+    n_enc = len(features) - 1
+    p: Dict[str, dict] = {}
+    cin = in_channels * s2d * s2d
+    for i, f in enumerate(features[:-1]):
+        p[f"ConvBlock_{i}"] = _conv_block(rng, cin, f)
+        p[f"Conv_{i}"] = {"kernel": _conv(rng, 3, f, f)}
+        cin = f
+    p[f"ConvBlock_{n_enc}"] = _conv_block(rng, cin, features[-1])
+    cin = features[-1]
+    for i, f in enumerate(reversed(features[:-1])):
+        p[f"Conv_{n_enc + i}"] = {"kernel": _conv(rng, 3, cin, f)}
+        p[f"MergeBlock_{i}"] = {
+            "merge_up": {"kernel": _conv(rng, 3, f, f)},
+            "merge_skip": {"kernel": _conv(rng, 3, f, f)},
+            "FrozenAffine_0": _affine(rng, f),
+            "Conv_0": {"kernel": _conv(rng, 3, f, f)},
+            "FrozenAffine_1": _affine(rng, f),
+        }
+        cin = f
+    k = num_classes * s2d * s2d
+    p["logits"] = {
+        "kernel": _truncated_normal(rng, (1, 1, cin, k), np.sqrt(1.0 / cin)),
+        "bias": np.zeros(k, np.float32),
     }
     return p

@@ -85,19 +85,31 @@ class SyntheticSource:
         """Generate event ``idx`` (globally indexed): ``(panels, photon
         energy in keV)``. Deterministic; every random draw is the JAX
         package's, in its order."""
+        data, energy, _ = self.event_with_truth(idx, mode)
+        return data, energy
+
+    def event_with_truth(
+        self, idx: int, mode: str = RetrievalMode.CALIB
+    ) -> Tuple[np.ndarray, float, np.ndarray]:
+        """Like :meth:`event`, also returning the planted peaks as
+        ``[n_peaks, 4]`` float32 rows ``(panel, cy, cx, amplitude)``, the
+        truth :func:`~psana_ray_tpu_torch.models.peaks.peak_metrics` scores
+        against. The same random draws as :meth:`event`."""
         rng = np.random.default_rng((self._seed << 20) ^ idx)
         spec = self.spec
         p, h, w = spec.frame_shape
         photons = rng.poisson(0.08, size=(p, h, w)).astype(np.float32)
-        n_peaks = rng.integers(self.peak_count // 2, self.peak_count + 1)
+        n_peaks = int(rng.integers(self.peak_count // 2, self.peak_count + 1))
         yy = np.arange(h, dtype=np.float32)[:, None]
         xx = np.arange(w, dtype=np.float32)[None, :]
-        for _ in range(int(n_peaks)):
+        truth = np.zeros((n_peaks, 4), dtype=np.float32)
+        for j in range(n_peaks):
             pi = int(rng.integers(0, p))
             cy, cx = rng.uniform(4, h - 4), rng.uniform(4, w - 4)
             amp = rng.uniform(50, 800)
             sig = rng.uniform(0.8, 2.2)
             photons[pi] += amp * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig**2))
+            truth[j] = (pi, cy, cx, amp)
         photon_energy = float(rng.uniform(8.0, 12.0))  # keV
 
         if mode == RetrievalMode.CALIB:
@@ -113,7 +125,7 @@ class SyntheticSource:
             # clip before the cast: a float ADU slightly below 0 would wrap
             info = np.iinfo(self.dtype)
             data = np.clip(data, info.min, info.max)
-        return data.astype(self.dtype, copy=False), photon_energy
+        return data.astype(self.dtype, copy=False), photon_energy, truth
 
     def iter_indexed_events(
         self, mode: str = RetrievalMode.CALIB

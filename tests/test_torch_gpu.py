@@ -8,8 +8,8 @@ JAX, so it also runs on a machine that has only PyTorch:
 Shapes are small and ragged (pixel counts that are not multiples of the
 kernels' tiles) so that the edge masking runs. Tolerances: calibration
 rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
-bottleneck kernels ``rel_err < 0.05``, the JAX package's bound for bf16
-activations with f32 accumulation.
+bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
+bound for bf16 activations with f32 accumulation.
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import psana_ray_tpu_torch as pt  # noqa: E402
 from psana_ray_tpu_torch.models import fused_resnet as fr  # noqa: E402
+from psana_ray_tpu_torch.models import fused_unet as fu  # noqa: E402
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -149,7 +150,8 @@ def test_fused_network_matches_plain_model(cuda):
     x = torch.randn((2, 64, 64, 4), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
     logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, stages, return_features=True)
     ref_logits, ref_feat = model(x, return_features=True)
-    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4}
+    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4,
+                           "conv_block_kernel": 0}
     assert float(ref_feat.abs().max()) >= 1e-2
     assert rel_err(ref_logits, logits) < REL_TOL
     assert rel_err(ref_feat, feat) < REL_TOL
@@ -161,4 +163,94 @@ def test_entry_runs_on_the_card(cuda):
     logits = fn(*args)
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all())
-    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16}
+    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16,
+                           "conv_block_kernel": 0}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("epilogue", ["affine_silu", "none"])
+def test_conv3x3_kernel_epilogues(cuda, gen, stride, epilogue):
+    b, h, w, c, n = 2, 12, 18, 32, 64
+    x, _, s, bias = _operands(gen, cuda, b, h, w, c, n)
+    wt = (torch.randn((9 * c, n), generator=gen, device=cuda) / (9 * c) ** 0.5).bfloat16()
+    if epilogue == "none":
+        s = bias = None
+        ref = fr._conv_f32(x, wt, 3, stride, fr._pads3x3(stride)).to(torch.bfloat16)
+        ref = ref.permute(0, 2, 3, 1)
+    else:
+        ref = fr.conv3x3_plain(x, wt, s, bias, stride)
+    got = fr.launch_conv3x3(x, wt, s, bias, stride, "conv_block_kernel")
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, h // stride, w // stride, n)
+    assert pt.counts()["conv_block_kernel"] == 1 and pt.counts()["conv3x3_kernel"] == 0
+    assert rel_err(ref, got) < REL_TOL
+
+
+def _level(gen, cuda, cin, f, down):
+    def w(i, o):
+        return torch.randn((3, 3, i, o), generator=gen, device=cuda) / (9 * i) ** 0.5
+
+    def a():
+        return (1.0 + 0.1 * torch.randn(f, generator=gen, device=cuda),
+                0.1 * torch.randn(f, generator=gen, device=cuda))
+
+    return w(cin, f), a(), w(f, f), a(), (w(f, f) if down else None)
+
+
+@pytest.mark.parametrize("down", [True, False])
+def test_conv_block_kernel_matches_plain(cuda, gen, down):
+    x = torch.randn((2, 12, 18, 32), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, 32, 64, down)
+    skip, dn = fu.fused_conv_block(x, w1, a1, w2, a2, wd)
+    ref_skip, ref_dn = fu.fused_conv_block_plain(x, w1, a1, w2, a2, wd)
+    torch.cuda.synchronize()
+    assert pt.counts()["conv_block_kernel"] == (3 if down else 2)
+    assert skip.dtype == torch.bfloat16 and rel_err(ref_skip, skip) < REL_TOL
+    if down:
+        assert tuple(dn.shape) == (2, 6, 9, 64) and rel_err(ref_dn, dn) < REL_TOL
+    else:
+        assert dn is None and ref_dn is None
+
+
+def test_conv_block_kernel_refuses_narrow_channels(cuda, gen):
+    x = torch.randn((1, 8, 8, 16), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, 16, 64, True)
+    with pytest.raises(ValueError, match="Cin"):
+        fu.fused_conv_block(x, w1, a1, w2, a2, wd)
+    assert pt.counts()["conv_block_kernel"] == 0
+
+
+def test_fused_unet_matches_plain_model(cuda):
+    features = (32, 64, 128, 256)
+    model = pt.unet_from_flax(pt.init_peaknet_tpu_params(features, seed=1), device=cuda)
+    x = torch.randn((2, 64, 128, 1), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    got = pt.peaknet_tpu_fused_infer(pt.pack_unet(model), x)
+    with torch.no_grad():
+        ref = model(x)
+    assert pt.counts()["conv_block_kernel"] == 3 + 3 + 2
+    assert tuple(got.shape) == (2, 64, 128, 1) and bool(torch.isfinite(got).all())
+    assert rel_err(ref, got) < REL_TOL
+
+
+def test_sfx_pipeline_runs_on_the_card(cuda):
+    class Sink:
+        max_peaks = 64
+
+        def __init__(self):
+            self.sets = []
+
+        def append(self, sets):
+            self.sets.extend(sets)
+
+    src = pt.SyntheticSource(num_events=6, detector_name="smoke_a", seed=5)
+    ring = pt.RingBuffer(maxsize=8)
+    pt.produce(src.iter_indexed_events("raw"), ring)
+    calib = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
+    sink = Sink()
+    pipe = pt.SfxPipeline(pt.init_peaknet_tpu_params((32, 64, 128, 256), seed=0), sink,
+                          calib=calib, config=pt.SfxConfig(batch_size=4))
+    assert pipe.device.type == "cuda"
+    assert pipe.run(ring) == 6
+    assert [s.event_idx for s in sink.sets] == list(range(6))
+    assert pt.counts() == {"calib_kernel": 2, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+                           "conv_block_kernel": 16}
