@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's two serving paths on one NVIDIA H100: the calibrated
-ResNet-50 classifier and the SFX Bragg-peak pipeline (PeakNet-TPU U-Net).
+"""Drive the port's three serving paths on one NVIDIA H100: the calibrated
+ResNet-50 classifier, the SFX Bragg-peak pipeline (PeakNet-TPU U-Net) and
+the ViT hit classifier with the flash-attention trunk.
 
 Run from the root of a checkout, with no arguments:
 
@@ -20,7 +21,9 @@ one JSON line (``{"phase": ...}``):
 4. ``bottleneck``: each of the 8 bottleneck block classes of ResNet-50 at
    batch 32 and full width, every kernel launch against its plain version
    on the same inputs (``rel_err < 0.05``), and the whole block against
-   the chain of plain versions.
+   the chain of plain versions. A ``bottleneck_by_tpu_kernel`` line sums
+   them per TPU kernel over one batch: K2 is the front ``conv1x1_kernel``
+   and the ``conv3x3_kernel`` launches, K3 the back ``conv1x1_kernel``.
 5. ``end_to_end``: a producer thread feeds RAW events into the port's
    ``RingBuffer``; ``InfeedPipeline(batch_size=32, prefetch_depth=2)`` ->
    ``fused_calibrate(bf16)`` -> ``panels_to_nhwc`` -> ``resnet_fused_infer``
@@ -49,21 +52,44 @@ one JSON line (``{"phase": ...}``):
 9. ``sfx_profile``: the same pipeline for 4 more batches under
    ``torch.profiler``.
 
-10. ``unported_bounds``: the bounds of the TPU kernels not ported yet
-   (K5-K7, flash attention forward and backward), computed from the
-   shapes at which the JAX package runs them: ``ViTHitClassifier``
-   defaults (embed 512, 4 heads, head dim 128, non-causal) on epix10k2M
-   at batch 2, so BH = 8 and S = 8448 tokens, bf16.
+10. ``flash_kernel``: K5 against its plain version on ``[B, H, S, 128]``
+   bf16 inputs ``N(0, 1)`` (scores of std 1, so the softmax is far from
+   flat): the ViT serving shape (B 2, H 4, S 8448, non-causal), causal at
+   Sq = Sk = 1024, and Sq = 256 against Sk = 768. ``o`` within 2e-2 and
+   ``lse`` within 1e-2 (max abs), and each within 1e-2 of its own scale
+   (``max|o_ref|``; ``max|lse_ref - log(keys)|``, the distance from a flat
+   softmax). Two controls must fail that check in every case: zeros, and
+   attention that ignores the scores (the mean of the allowed values,
+   ``lse = log(keys)``). With kernel, plain and library
+   (``F.scaled_dot_product_attention``) times and the bound of the work
+   each case needs.
+11. ``vit_end_to_end``: a producer thread feeds RAW events into a
+   ``RingBuffer``; ``InfeedPipeline(batch_size=2, prefetch_depth=2)`` ->
+   ``vit_serve_step`` (``calib_kernel`` to bf16 -> ``ViTHitClassifier`` at
+   the reference's defaults: patch 16, embed 512, depth 4, 4 heads, 8448
+   tokens a frame) for 6 batches. Launch counts must be +1
+   ``calib_kernel`` and +4 ``flash_kernel`` per batch and nothing else;
+   the last batch's logits are checked against the plain path on the
+   card (``fused_calibrate_plain`` and the model with the plain
+   attention). The same model with score-blind attention (the flat
+   control above) gives the logits' sensitivity to attention.
+12. ``vit_profile``: the same pipeline for 4 more batches under
+   ``torch.profiler``.
+13. ``unported_bounds``: the bounds of the TPU kernels not ported yet
+   (K6, K7, the flash backward kernels) at the ViT serving shape (BH 8,
+   S 8448, head dim 128, bf16, non-causal).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
-``calib_kernel`` launches in the kernels line are those of both serving
-runs (phases 5 and 8); every other kernel runs on one path only.
+``calib_kernel`` launches in the kernels line are those of the three
+serving runs (phases 5, 8 and 11); every other kernel runs on one path
+only.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up. For ``conv1x1_kernel`` and ``conv3x3_kernel`` the
 kernels line gives the sum over one batch of the main path (each block
-class's time times the number of blocks of that class). ``bound_ms`` is
+class's time times the number of blocks of that class); for
+``flash_kernel`` one batch is 4 launches at the serving shape. ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16
 tensor cores; 67 TFLOP/s f32 for the calibration arithmetic), counting
 each input byte read once and each output byte written once.
@@ -88,6 +114,13 @@ REL_TOL = 0.05
 SFX_BATCH = 8  # frames; 128 panel-rows of epix10k2M
 SFX_FEATURES = (64, 128, 256, 512)
 SFX_BATCHES = 6
+VIT_BATCH = 2  # frames; each one 8448-token sequence
+VIT_BATCHES = 6
+VIT_DEPTH = 4  # flash_kernel launches per batch
+FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
+# (case, B, H, Sq, Sk, causal); the first is the ViT serving shape
+FLASH_CASES = (("serving", 2, 4, 8448, 8448, False), ("causal", 2, 4, 1024, 1024, True),
+               ("uneven", 2, 4, 256, 768, False))
 # (level, index into FusedUNet.levels, h, w) at s2d 2 on 352x384 panels
 UNET_LEVELS = (("level1", 0, 88, 96), ("level2", 1, 44, 48), ("bottleneck", 2, 22, 24))
 
@@ -213,6 +246,12 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
             "launches_per_batch": 0, "bound_by": {"bytes": 0.0, "operations": 0.0}}
         for k in ("conv1x1_kernel", "conv3x3_kernel")
     }
+    # the same launches summed per TPU kernel: K2 = front + middle, K3 = back
+    per_tpu = {
+        k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+            "launches_per_batch": 0}
+        for k in ("K2", "K3")
+    }
     classes = []
     for name, idx, mult in BLOCK_CLASSES:
         blk = params.blocks[idx]
@@ -312,11 +351,17 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
             agg["bound_by"][by] += mult * bms
             agg["launches_per_batch"] += mult
             agg["max_abs_err"] = max(agg["max_abs_err"], t["max_abs_err"])
+            tpu = per_tpu["K3" if step == "back" else "K2"]
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                tpu[key] += mult * t[key]
+            tpu["launches_per_batch"] += mult
+            tpu["max_abs_err"] = max(tpu["max_abs_err"], t["max_abs_err"])
         emit("bottleneck", **row)
         classes.append(row)
         del x, y1, y2, out, checks, p1, p2, p3, y1p, back_a
     for agg in per_kernel.values():
         agg["bound_by"] = max(agg["bound_by"], key=agg["bound_by"].get)
+    emit("bottleneck_by_tpu_kernel", **per_tpu)
     return per_kernel, classes
 
 
@@ -335,12 +380,12 @@ def make_step(torch, pt, consts, params):
     return step
 
 
-def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None):
-    """A producer thread puts ``n_batches * BATCH`` RAW events (the pool,
+def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch=BATCH):
+    """A producer thread puts ``n_batches * batch`` RAW events (the pool,
     cycled) and one EOS into a ``RingBuffer``; ``InfeedPipeline`` drives
     ``step`` over them. Returns the pipeline and the wall seconds."""
-    n_events = n_batches * BATCH
-    ring = pt.RingBuffer(maxsize=3 * BATCH)
+    n_events = n_batches * batch
+    ring = pt.RingBuffer(maxsize=3 * batch)
     events = ((i, pool[i % len(pool)], 10.0) for i in range(n_events))
     produced = {}
 
@@ -349,7 +394,7 @@ def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None):
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
-    pipe = pt.InfeedPipeline(ring, batch_size=BATCH, device=device, prefetch_depth=2)
+    pipe = pt.InfeedPipeline(ring, batch_size=batch, device=device, prefetch_depth=2)
     t0 = time.monotonic()
     try:
         seen = pipe.run(step, on_result=on_result, block_until_ready=True)
@@ -387,7 +432,7 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     counts = pt.counts()
     nb = pipe.metrics.batches
     want = {"calib_kernel": nb, "conv3x3_kernel": 16 * nb, "conv1x1_kernel": 32 * nb,
-            "conv_block_kernel": 0}
+            "conv_block_kernel": 0, "flash_kernel": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -633,7 +678,7 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     counts = pt.counts()
     nb = pipe.metrics.batches
     want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 8 * nb}
+            "conv_block_kernel": 8 * nb, "flash_kernel": 0}
     if nb != SFX_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
@@ -686,8 +731,24 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     return pipe, counts
 
 
+def _flash_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a flash call computes: all of them, or with the
+    top-left causal mask those with k <= q."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + (sq - n) * sk
+
+
+def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False):
+    """(bytes, ops) of K5: q, k, v read once and o (bf16) and lse (f32)
+    written once; two products of 2*d operations per (query, key) pair."""
+    nbytes = bh * (2 * sq * d + 2 * 2 * sk * d + 2 * sq * d + 4 * sq)
+    return nbytes, 2.0 * 2 * d * bh * _flash_pairs(sq, sk, causal)
+
+
 def unported_bounds(bh=8, s=8448, d=128) -> dict:
-    """Bounds of flash attention (K5 forward, K6 dk/dv, K7 dq) at
+    """Bounds of the flash backward kernels (K6 dk/dv, K7 dq) at
     ``[BH, S, D]`` bf16, non-causal: matmul operations (2*S*S*D each) at
     989 TFLOP/s against q, k, v, do, o and grads read or written once
     (f32 lse and delta rows)."""
@@ -695,8 +756,6 @@ def unported_bounds(bh=8, s=8448, d=128) -> dict:
     rows = bh * s * 4  # one f32 [BH, S] row vector
     mm = 2.0 * bh * s * s * d  # one S x S x D matmul over all heads
     cost = {
-        # qk^T, pv; reads q k v, writes o and lse
-        "K5 _flash_kernel": (3 * t + t + rows, 2 * mm),
         # recomputed qk^T, p^T do, do v^T, ds^T q; reads q k v do lse delta, writes dk dv
         "K6 _flash_bwd_dkv_kernel": (4 * t + 2 * rows + 2 * t, 4 * mm),
         # recomputed qk^T, do v^T, ds k; reads q k v do lse delta, writes dq
@@ -708,6 +767,166 @@ def unported_bounds(bh=8, s=8448, d=128) -> dict:
         out[name] = {"bh": bh, "s": s, "d": d, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
                      "bound_ms": bms, "bound_by": by}
     return out
+
+
+# -- phases 10-12 ----------------------------------------------------------
+
+
+def flat_attention(torch, v, sq, causal):
+    """Attention that ignores the scores: each query row averages the
+    values of the keys it may see, and its lse is the log of their count
+    (the lse of all-zero scores). ``v`` is ``[B, H, Sk, D]``."""
+    b, h, sk, _ = v.shape
+    i = torch.arange(sq, device=v.device)
+    n = (torch.clamp(i + 1, max=sk) if causal else torch.full_like(i, sk)).float()
+    if causal:
+        o = v.float().cumsum(2)[:, :, torch.clamp(i, max=sk - 1)] / n[:, None]
+    else:
+        o = v.float().mean(2, keepdim=True).expand(b, h, sq, -1)
+    return o, torch.log(n).expand(b, h, sq)
+
+
+def flash_errors(o, lse, o_ref, lse_ref, lse_flat) -> dict:
+    """Max abs errors of ``o`` and ``lse``, and each over its own scale:
+    ``max|o_ref|`` and ``max|lse_ref - lse_flat|``."""
+    d_o = float((o.float() - o_ref.float()).abs().max())
+    d_lse = float((lse - lse_ref).abs().max())
+    return {"o": d_o, "lse": d_lse, "o_rel": d_o / float(o_ref.float().abs().max()),
+            "lse_rel": d_lse / float((lse_ref - lse_flat).abs().max())}
+
+
+def flash_ok(errs) -> bool:
+    return all(errs[key] <= FLASH_TOL[key] for key in FLASH_TOL)
+
+
+def phase_flash(torch, F, tf, timer, device):
+    """K5 against its plain version in each case of ``FLASH_CASES``, and
+    two controls that the same check must reject."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    results = {}
+    for name, b, h, sq, sk, causal in FLASH_CASES:
+        def mk(s):
+            return torch.randn((b, h, s, 128), generator=gen, device=device).bfloat16()
+
+        q, k, v = mk(sq), mk(sk), mk(sk)
+        o, lse = tf.launch_flash(q, k, v, causal)
+        o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal)
+        o_flat, lse_flat = flat_attention(torch, v, sq, causal)
+        torch.cuda.synchronize()
+        errs = flash_errors(o, lse, o_ref, lse_ref, lse_flat)
+        if (not flash_ok(errs) or not torch.isfinite(o.float()).all()
+                or not torch.isfinite(lse).all()):
+            raise AssertionError(f"flash_kernel ({name}) disagrees with its plain version: {errs}")
+        controls = {"zeros": flash_errors(torch.zeros_like(o), torch.zeros_like(lse), o_ref,
+                                          lse_ref, lse_flat),
+                    "flat": flash_errors(o_flat, lse_flat, o_ref, lse_ref, lse_flat)}
+        passed = [c for c, e in controls.items() if flash_ok(e)]
+        if passed:
+            raise AssertionError(f"flash_kernel ({name}): the check passes the {passed} "
+                                 f"control(s): {controls}")
+        del o, o_ref, lse, lse_ref, o_flat, lse_flat
+        nbytes, ops = flash_cost(b * h, sq, sk, causal=causal)
+        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        row = {
+            "case": name, "shape_q": [b, h, sq, 128], "sk": sk, "causal": causal,
+            "max_abs_err_o": errs["o"], "max_abs_err_lse": errs["lse"],
+            "rel_err_o": errs["o_rel"], "rel_err_lse": errs["lse_rel"], "controls": controls,
+            "ms": timer.ms(lambda: tf.launch_flash(q, k, v, causal), iters=10),
+            "plain_ms": timer.ms(lambda: tf.attention_with_stats_plain(q, k, v, causal),
+                                 iters=3, warmup=1),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                                   iters=10),
+            "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+        }
+        row["tflops"] = ops / row["ms"] / 1e9
+        emit("flash_kernel", **row)
+        results[name] = row
+        del q, k, v
+    return results
+
+
+def make_vit_step(torch, pt, consts, model):
+    """The ViT serving step: calibrate to bf16, then the ViT."""
+    ped, gain, mask = consts
+
+    def step(batch):
+        return pt.vit_serve_step(model, batch.frames, ped, gain, mask, threshold=10.0)
+
+    return step
+
+
+def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
+    """The ViT serving path through the infeed, 6 batches of 2 frames."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+
+    ped, gain, mask = consts
+    params = pt.init_vit_params(frame_shape, seed=0)
+    model = pt.vit_from_flax(params, device=device)
+
+    def plain_attn(q, k, v):
+        return tf.attention_with_stats_plain(*(t.transpose(1, 2) for t in (q, k, v)))[0].transpose(1, 2)
+
+    def flat_attn(q, k, v):
+        return flat_attention(torch, v.transpose(1, 2), q.shape[1], False)[0].to(v.dtype).transpose(1, 2)
+
+    plain = pt.vit_from_flax(params, attn_fn=plain_attn, device=device)
+    flat = pt.vit_from_flax(params, attn_fn=flat_attn, device=device)
+    step = make_vit_step(torch, pt, consts, model)
+    # warm-up outside the counted run (cuBLAS handles, the kernel library)
+    warm = torch.from_numpy(np.stack(pool[:VIT_BATCH])).to(device)
+    step(pt.Batch(warm, *(torch.zeros(VIT_BATCH, device=device) for _ in range(4)),
+                  num_valid=VIT_BATCH))
+    torch.cuda.synchronize()
+    del warm
+
+    last = {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"] = out, batch.frames
+
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    pipe, wall = run_pipeline(torch, pt, pool, step, device, VIT_BATCHES, on_result, batch=VIT_BATCH)
+    counts = pt.counts()
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    nb = pipe.metrics.batches
+    want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+            "conv_block_kernel": 0, "flash_kernel": VIT_DEPTH * nb}
+    if nb != VIT_BATCHES or counts != want:
+        raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
+
+    logits = last["out"]
+    if tuple(logits.shape) != (VIT_BATCH, 2) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+    with torch.no_grad():
+        cal = fused_calibrate_plain(last["frames"], ped, gain, mask, threshold=10.0,
+                                    out_dtype=torch.bfloat16)
+        ref = plain(cal)
+        ref_flat = flat(cal)
+    torch.cuda.synchronize()
+    err = rel_err(ref, logits)
+    if not err < REL_TOL:
+        raise AssertionError(f"ViT logits disagree with the plain path: rel_err {err}")
+    summary = pipe.metrics.summary()
+    emit("vit_end_to_end", batches=nb, frames=summary["frames"], wall_s=wall, fps=summary["fps"],
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         peak_mem_gib=peak_mem, launches=counts, logits_rel_err=err,
+         logits_max_abs=float(ref.abs().max()),
+         logits_rel_err_flat_attention=rel_err(ref, ref_flat), tokens_per_frame=model.embed.pos_embed.shape[1])
+    return model, counts
+
+
+def phase_vit_profile(torch, pt, pool, consts, model, device, n_batches=4):
+    """The ViT pipeline under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_vit_step(torch, pt, consts, model)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run_pipeline(torch, pt, pool, step, device, n_batches, batch=VIT_BATCH)
+    emit("vit_profile", **profile_summary(torch, prof, wall, n_batches))
 
 
 def phase_sfx_profile(torch, pt, pool, pipe, n_batches=4):
@@ -740,6 +959,7 @@ def main() -> int:
     from psana_ray_tpu_torch.kernels import build
     from psana_ray_tpu_torch.models import fused_resnet as fr
     from psana_ray_tpu_torch.models import fused_unet as fu
+    from psana_ray_tpu_torch.parallel import flash as tf
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -781,6 +1001,11 @@ def main() -> int:
     del uparams
     pipe, sfx_counts = phase_sfx(torch, pt, pool, calib_np, device)
     phase_sfx_profile(torch, pt, pool, pipe)
+    del pipe
+
+    flash = phase_flash(torch, F, tf, timer, device)
+    vit, vit_counts = phase_vit(torch, pt, tf, pool, consts, src.spec.frame_shape, device)
+    phase_vit_profile(torch, pt, pool, consts, vit, device)
     emit("unported_bounds", **unported_bounds())
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -788,7 +1013,7 @@ def main() -> int:
     kernels = [{
         "name": "calib_kernel", "route": "cuda", "source": f"{csrc}/calib.cu",
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
-        "launches": counts["calib_kernel"] + sfx_counts["calib_kernel"],
+        "launches": counts["calib_kernel"] + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"],
         "max_abs_err": max(calib["f32"]["max_abs_err"], c["max_abs_err"]),
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -813,6 +1038,16 @@ def main() -> int:
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],
         "library_ms": conv_block["library_ms"],
+    })
+    f = flash["serving"]  # one batch of the main path: VIT_DEPTH launches at this shape
+    kernels.append({
+        "name": "flash_kernel", "route": "cuda", "source": f"{csrc}/flash.cu",
+        "replaces": "psana_ray_tpu/parallel/flash.py:155",
+        "launches": vit_counts["flash_kernel"],
+        "max_abs_err": max(r["max_abs_err_o"] for r in flash.values()),
+        "ms": VIT_DEPTH * f["ms"], "plain_ms": VIT_DEPTH * f["plain_ms"],
+        "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": VIT_DEPTH * f["library_ms"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -1,13 +1,14 @@
 """psana_ray_tpu_torch: the PyTorch + CUDA port of psana_ray_tpu for NVIDIA Hopper.
 
-Two serving paths. A synthetic detector source and a producer feed a ring
-buffer; the infeed batches frames and stages them onto the card through
-pinned memory; ``calib_kernel`` calibrates them. Then either the fused
-ResNet-50 (``conv1x1_kernel`` / ``conv3x3_kernel`` bottlenecks) classifies
-them, or the SFX pipeline (:class:`SfxPipeline`) runs the PeakNet-TPU
-U-Net (``conv3x3_kernel`` encoder levels, counted as
-``conv_block_kernel``), extracts Bragg peaks and writes them to a CXI
-file. Every kernel is hand-written CUDA C++ for sm_90a, built
+Three serving paths. A synthetic detector source and a producer feed a
+ring buffer; the infeed batches frames and stages them onto the card
+through pinned memory; ``calib_kernel`` calibrates them. Then the fused
+ResNet-50 (``conv1x1_kernel`` / ``conv3x3_kernel`` bottlenecks) or the
+ViT hit classifier (:func:`vit_serve_step`, one ``flash_kernel`` launch
+per transformer block) classifies them, or the SFX pipeline
+(:class:`SfxPipeline`) runs the PeakNet-TPU U-Net (``conv3x3_kernel``
+encoder levels, counted as ``conv_block_kernel``), extracts Bragg peaks
+and writes them to a CXI file. Every kernel is hand-written CUDA C++ for sm_90a, built
 with ``nvcc`` at first use (:mod:`psana_ray_tpu_torch.kernels.build`), and
 has a plain PyTorch version beside it that CPU tensors run.
 
@@ -17,10 +18,10 @@ caller passes ``device="cpu"``.
 """
 
 from psana_ray_tpu_torch.checkpoint import StreamCursor
-from psana_ray_tpu_torch.convert import resnet_from_flax, unet_from_flax
+from psana_ray_tpu_torch.convert import resnet_from_flax, unet_from_flax, vit_from_flax
 from psana_ray_tpu_torch.cxi import CxiWriter, PeakSet
 from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.entry import entry
+from psana_ray_tpu_torch.entry import entry, vit_serve_step
 from psana_ray_tpu_torch.infeed import (
     Batch,
     DevicePrefetcher,
@@ -38,22 +39,26 @@ from psana_ray_tpu_torch.models import (
     PeakNetUNetTPU,
     ResNet50,
     ResNetClassifier,
+    ViTHitClassifier,
     depth_to_space,
     find_peaks,
     fused_bottleneck,
     fused_conv_block,
     init_peaknet_tpu_params,
     init_resnet_params,
+    init_vit_params,
     nhwc_to_panels,
     pack_fused,
     pack_unet,
     panels_to_nhwc,
+    patchify_panels,
     peak_metrics,
     peaknet_tpu_fused_infer,
     resnet_fused_infer,
     space_to_depth,
 )
 from psana_ray_tpu_torch.ops import calibrate, common_mode, fused_calibrate
+from psana_ray_tpu_torch.parallel import attention_with_stats, flash_attention
 from psana_ray_tpu_torch.producer import produce
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord
 from psana_ray_tpu_torch.sfx import DEFAULT_THRESHOLDS, SfxConfig, SfxPipeline, infer_features, infer_s2d
@@ -89,6 +94,8 @@ __all__ = [
     "StreamCursor",
     "SyntheticSource",
     "TransportClosed",
+    "ViTHitClassifier",
+    "attention_with_stats",
     "batches_from_queue",
     "calibrate",
     "common_mode",
@@ -97,6 +104,7 @@ __all__ = [
     "drive_step",
     "entry",
     "find_peaks",
+    "flash_attention",
     "fused_bottleneck",
     "fused_calibrate",
     "fused_conv_block",
@@ -104,10 +112,12 @@ __all__ = [
     "infer_s2d",
     "init_peaknet_tpu_params",
     "init_resnet_params",
+    "init_vit_params",
     "nhwc_to_panels",
     "pack_fused",
     "pack_unet",
     "panels_to_nhwc",
+    "patchify_panels",
     "peak_metrics",
     "peaknet_tpu_fused_infer",
     "produce",
@@ -117,4 +127,6 @@ __all__ = [
     "resolve_device",
     "space_to_depth",
     "unet_from_flax",
+    "vit_from_flax",
+    "vit_serve_step",
 ]

@@ -1,4 +1,4 @@
-"""Flax parameter trees -> the port's ResNet and PeakNet-TPU U-Net.
+"""Flax parameter trees -> the port's ResNet, PeakNet-TPU U-Net and ViT.
 
 Takes the ``params`` tree of ``psana_ray_tpu``'s
 ``ResNetClassifier(norm="frozen")`` or ``PeakNetUNetTPU(norm="frozen")``
@@ -24,6 +24,10 @@ The U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
     MergeBlock_i/FrozenAffine_{0,1}   -> merge.i.norm{1,2}
     logits/{kernel,bias}              -> logits_weight, logits_bias
 
+The ViT's (``vit.py:221-263``) keep their names and layouts: a flax path
+``a/b/leaf`` is the ``state_dict`` key ``a.b.leaf`` (Dense kernels stay
+``[in, out]``).
+
 Every leaf must map and every port parameter must be filled: anything
 else raises. The kernels' bf16 GEMM layouts are packed from the models
 once, by :func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused` and
@@ -41,6 +45,7 @@ import torch
 
 from psana_ray_tpu_torch.models.resnet import BottleneckBlock, ResNetClassifier
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU
+from psana_ray_tpu_torch.models.vit import ViTHitClassifier
 
 _BLOCK = re.compile(r"^BottleneckBlock_(\d+)/(.+)$")
 _IN_BLOCK_LEAF = re.compile(r"^(Conv_[012]|FrozenAffine_[012]|proj|proj_norm)/(kernel|scale|bias)$")
@@ -217,4 +222,49 @@ def unet_from_flax(
                            s2d=s2d)
     n_enc = len(features) - 1
     _load(model, {unet_port_key(k, n_enc): port_tensor(k, v) for k, v in flat.items()})
+    return model.to(device) if device is not None else model
+
+
+def load_flax(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Fill a module whose ``state_dict`` keys are the flax paths with
+    ``/`` replaced by ``.`` (the ViT's modules) from a flax ``params``
+    tree; a missing, unexpected or misshapen leaf raises ``ValueError``."""
+    _load(module, {k.replace("/", "."): torch.from_numpy(np.array(v, dtype=np.float32))
+                   for k, v in flatten(params).items()})
+    return module
+
+
+def vit_from_flax(
+    params: Mapping,
+    num_heads: int = 4,
+    dtype: torch.dtype = torch.bfloat16,
+    attn_fn=None,
+    input_norm: str = "log1p",
+    head_pool: str = "max",
+    device: Optional[torch.device] = None,
+) -> ViTHitClassifier:
+    """Build the port's :class:`ViTHitClassifier` from a flax ``params``
+    tree. Patch, width, depth, MLP ratio, class and token counts come from
+    the tree; ``num_heads`` cannot (``qkv`` is ``[E, 3E]`` whatever the
+    head count) and is an argument with the flax default."""
+    flat = flatten(params)
+    try:
+        proj, pos, out = flat["embed/proj/kernel"], flat["embed/pos_embed"], flat["head/out/kernel"]
+    except KeyError as e:
+        raise ValueError(f"params tree has no {e.args[0]} leaf: is this a ViTHitClassifier "
+                         f"tree?") from e
+    patch = math.isqrt(proj.shape[0])
+    if patch * patch != proj.shape[0]:
+        raise ValueError(f"embed/proj takes {proj.shape[0]} inputs, not a square patch")
+    embed_dim = proj.shape[1]
+    depth = 0
+    while f"trunk/block{depth}/qkv/kernel" in flat:
+        depth += 1
+    up = flat.get("trunk/block0/up/kernel")
+    model = ViTHitClassifier(
+        pos.shape[1], patch=patch, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+        mlp_ratio=4 if up is None else up.shape[1] // embed_dim, num_classes=out.shape[1],
+        dtype=dtype, attn_fn=attn_fn, input_norm=input_norm, head_pool=head_pool,
+    )
+    load_flax(model, params)
     return model.to(device) if device is not None else model

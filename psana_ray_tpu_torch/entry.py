@@ -1,8 +1,12 @@
-"""Entry point: the flagship forward step (calibration + ResNet-50).
+"""Entry points: the flagship forward step (calibration + ResNet-50) and
+the ViT hit classifier's serving step (calibration + ViT).
 
-Mirrors ``__graft_entry__.entry`` of the JAX package: the ResNet-50
-hit/miss classifier over epix10k2M panel stacks (BASELINE config 4), at
-batch 4 of full frames, with weights from the seeded numpy init.
+:func:`entry` mirrors ``__graft_entry__.entry`` of the JAX package: the
+ResNet-50 hit/miss classifier over epix10k2M panel stacks (BASELINE
+config 4), at batch 4 of full frames, with weights from the seeded numpy
+init. :func:`vit_serve_step` is the counterpart of ``infer2`` in the JAX
+package's ``bench.py:_bench_vit``: RAW frames -> ``fused_calibrate`` to
+bf16 -> ``ViTHitClassifier``.
 """
 
 from __future__ import annotations
@@ -12,7 +16,13 @@ import torch
 
 from psana_ray_tpu_torch.convert import resnet_from_flax
 from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.models import init_resnet_params, pack_fused, panels_to_nhwc, resnet_fused_infer
+from psana_ray_tpu_torch.models import (
+    ViTHitClassifier,
+    init_resnet_params,
+    pack_fused,
+    panels_to_nhwc,
+    resnet_fused_infer,
+)
 from psana_ray_tpu_torch.ops import fused_calibrate
 from psana_ray_tpu_torch.sources import SyntheticSource
 
@@ -42,3 +52,21 @@ def entry(device=None):
         return resnet_fused_infer(params, panels_to_nhwc(calibrated))
 
     return forward, (params, frames)
+
+
+@torch.no_grad()
+def vit_serve_step(
+    model: ViTHitClassifier,
+    frames: torch.Tensor,
+    pedestal: torch.Tensor,
+    gain: torch.Tensor,
+    mask: torch.Tensor,
+    threshold: float = 10.0,
+) -> torch.Tensor:
+    """RAW ``[B, P, H, W]`` frames -> ``[B, classes]`` f32 logits:
+    ``calib_kernel`` to bf16, then the ViT (one ``flash_kernel`` launch per
+    block on the card; the plain versions on CPU tensors)."""
+    cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
+                          out_dtype=torch.bfloat16)
+    return model(cal)
+

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-LIBS = ("calib", "bottleneck")
+LIBS = ("calib", "bottleneck", "flash")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +57,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                            _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         # x, B, H, W, C, stride, w, N, scale, bias, epilogue, out, stream
         "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
+    },
+    "flash": {
+        # q, k, v, o, lse, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
 }
 

@@ -1,5 +1,5 @@
 """Models: the frozen ResNet and PeakNet-TPU U-Net, their fused kernel paths,
-layouts, peak extraction and init."""
+the ViT hit classifier, layouts, peak extraction and init."""
 
 from psana_ray_tpu_torch.models.fused_resnet import (
     BlockWeights,
@@ -20,10 +20,20 @@ from psana_ray_tpu_torch.models.fused_unet import (
     peaknet_tpu_fused_infer,
 )
 from psana_ray_tpu_torch.models.heads import nhwc_to_panels, panels_to_nhwc
-from psana_ray_tpu_torch.models.init import init_peaknet_tpu_params, init_resnet_params
+from psana_ray_tpu_torch.models.init import (
+    init_peaknet_tpu_params,
+    init_resnet_params,
+    init_vit_params,
+)
 from psana_ray_tpu_torch.models.peaks import find_peaks, peak_metrics, split_truth_by_panel
 from psana_ray_tpu_torch.models.resnet import ResNet50, ResNetClassifier
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
+from psana_ray_tpu_torch.models.vit import (
+    TransformerBlock,
+    ViTHitClassifier,
+    patchify_panels,
+    vit_pipelined_apply,
+)
 
 __all__ = [
     "BlockWeights",
@@ -32,6 +42,8 @@ __all__ = [
     "PeakNetUNetTPU",
     "ResNet50",
     "ResNetClassifier",
+    "TransformerBlock",
+    "ViTHitClassifier",
     "conv1x1",
     "conv1x1_plain",
     "conv3x3",
@@ -43,13 +55,16 @@ __all__ = [
     "fused_conv_block_plain",
     "init_peaknet_tpu_params",
     "init_resnet_params",
+    "init_vit_params",
     "nhwc_to_panels",
     "pack_fused",
     "pack_unet",
     "panels_to_nhwc",
+    "patchify_panels",
     "peak_metrics",
     "peaknet_tpu_fused_infer",
     "resnet_fused_infer",
     "space_to_depth",
     "split_truth_by_panel",
+    "vit_pipelined_apply",
 ]

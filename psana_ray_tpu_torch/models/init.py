@@ -1,22 +1,25 @@
-"""Seeded numpy initialization of the frozen ResNet and U-Net parameter trees.
+"""Seeded numpy initialization of the frozen ResNet, U-Net and ViT parameter trees.
 
 Builds the same trees, with the same names and shapes, that flax's
-``ResNetClassifier(norm="frozen").init`` and
-``PeakNetUNetTPU(norm="frozen").init`` give (``params`` only), without
-JAX: nested dicts of numpy arrays that
-:func:`psana_ray_tpu_torch.convert.resnet_from_flax` and
-:func:`psana_ray_tpu_torch.convert.unet_from_flax` turn into the port's
+``ResNetClassifier(norm="frozen").init``,
+``PeakNetUNetTPU(norm="frozen").init`` and ``ViTHitClassifier().init``
+give (``params`` only), without JAX: nested dicts of numpy arrays that
+:func:`psana_ray_tpu_torch.convert.resnet_from_flax`,
+:func:`psana_ray_tpu_torch.convert.unet_from_flax` and
+:func:`psana_ray_tpu_torch.convert.vit_from_flax` turn into the port's
 models. Convolution kernels (HWIO) are drawn as variance_scaling(2.0,
 fan_out, normal), the heads as variance_scaling(1.0, fan_in,
 truncated_normal); affine scales are ``1 + 0.1*N(0,1)`` and biases
 ``0.1*N(0,1)``, so the affines are not the init constants 1 and 0 (which
 would hide broadcast and transpose faults and shrink the logits to ~1e-4
-at full depth).
+at full depth). The ViT's Dense kernels are lecun_normal (flax's default),
+its LayerNorm scales ``1 + 0.1*N(0,1)`` and biases ``0.1*N(0,1)``, its
+Dense biases ``0.1*N(0,1)`` and ``pos_embed`` ``0.02*N(0,1)``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -127,3 +130,49 @@ def init_peaknet_tpu_params(
         "bias": np.zeros(k, np.float32),
     }
     return p
+
+
+def _dense(rng: np.random.Generator, fin: int, fout: int, bias: bool = True) -> Dict[str, np.ndarray]:
+    out = {"kernel": _truncated_normal(rng, (fin, fout), np.sqrt(1.0 / fin))}  # lecun_normal
+    if bias:
+        out["bias"] = (0.1 * rng.standard_normal(fout)).astype(np.float32)
+    return out
+
+
+def init_vit_params(
+    frame_shape: Tuple[int, int, int] = (16, 352, 384),
+    patch: int = 16,
+    embed_dim: int = 512,
+    depth: int = 4,
+    mlp_ratio: int = 4,
+    num_classes: int = 2,
+    seed: int = 0,
+) -> Dict[str, dict]:
+    """The ``params`` tree of ``ViTHitClassifier`` for ``[P, H, W]``
+    frames: ``embed/{proj, pos_embed}``, ``trunk/block{i}/{LayerNorm_0,
+    qkv, proj, LayerNorm_1, up, down}`` and ``head/{LayerNorm_0, out}``.
+    The head count does not show in the tree (``qkv`` is ``[E, 3E]``)."""
+    p, h, w = frame_shape
+    if h % patch or w % patch:
+        raise ValueError(f"frame {h}x{w} is not a whole number of {patch}x{patch} patches")
+    rng = np.random.default_rng(seed)
+    tokens = p * (h // patch) * (w // patch)
+    e = embed_dim
+    params: Dict[str, dict] = {
+        "embed": {
+            "proj": _dense(rng, patch * patch, e),
+            "pos_embed": (0.02 * rng.standard_normal((1, tokens, e))).astype(np.float32),
+        },
+        "trunk": {},
+    }
+    for i in range(depth):
+        params["trunk"][f"block{i}"] = {
+            "LayerNorm_0": _affine(rng, e),
+            "qkv": _dense(rng, e, 3 * e, bias=False),
+            "proj": _dense(rng, e, e, bias=False),
+            "LayerNorm_1": _affine(rng, e),
+            "up": _dense(rng, e, mlp_ratio * e),
+            "down": _dense(rng, mlp_ratio * e, e),
+        }
+    params["head"] = {"LayerNorm_0": _affine(rng, e), "out": _dense(rng, e, num_classes)}
+    return params

@@ -9,7 +9,10 @@ Shapes are small and ragged (pixel counts that are not multiples of the
 kernels' tiles) so that the edge masking runs. Tolerances: calibration
 rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
 bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
-bound for bf16 activations with f32 accumulation.
+bound for bf16 activations with f32 accumulation, as is the ViT with the
+flash kernel; the flash kernel itself ``o`` atol 2e-2 and ``lse`` atol
+1e-2, the bf16 tolerances of ``tests/test_ring_attention.py``, and each
+within 1e-2 of its own scale on unit-scale inputs.
 """
 
 import numpy as np
@@ -151,7 +154,7 @@ def test_fused_network_matches_plain_model(cuda):
     logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, stages, return_features=True)
     ref_logits, ref_feat = model(x, return_features=True)
     assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4,
-                           "conv_block_kernel": 0}
+                           "conv_block_kernel": 0, "flash_kernel": 0}
     assert float(ref_feat.abs().max()) >= 1e-2
     assert rel_err(ref_logits, logits) < REL_TOL
     assert rel_err(ref_feat, feat) < REL_TOL
@@ -164,7 +167,7 @@ def test_entry_runs_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all())
     assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16,
-                           "conv_block_kernel": 0}
+                           "conv_block_kernel": 0, "flash_kernel": 0}
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -253,4 +256,97 @@ def test_sfx_pipeline_runs_on_the_card(cuda):
     assert pipe.run(ring) == 6
     assert [s.event_idx for s in sink.sets] == list(range(6))
     assert pt.counts() == {"calib_kernel": 2, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 16}
+                           "conv_block_kernel": 16, "flash_kernel": 0}
+
+
+def _flat_lse(sq, sk, causal, device):
+    """Row log-sum-exp of all-zero scores: the log of each row's key count."""
+    i = torch.arange(sq, device=device)
+    return torch.log((torch.clamp(i + 1, max=sk) if causal else torch.full_like(i, sk)).float())
+
+
+@pytest.mark.parametrize(
+    "bh,sq,sk,causal",
+    [(3, 256, 256, False), (3, 256, 256, True), (2, 256, 768, False), (2, 256, 768, True),
+     (2, 384, 128, True)],
+)
+def test_flash_kernel_matches_plain(cuda, gen, bh, sq, sk, causal):
+    """Unit-scale q, k, v (scores of std 1, far from a flat softmax): o
+    within 2e-2 and lse within 1e-2 of the plain version (bf16, the
+    tolerances of tests/test_ring_attention.py:235-243), and each within
+    1e-2 of its own scale: max |o_ref|, and max |lse_ref - log(keys)|."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    def mk(s):
+        return torch.randn((1, bh, s, 128), generator=gen, device=cuda).bfloat16()
+
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    o, lse = tf.attention_with_stats(q, k, v, causal=causal)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert pt.counts()["flash_kernel"] == 1
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    d_o = float((o.float() - o_ref.float()).abs().max())
+    d_lse = float((lse - lse_ref).abs().max())
+    assert d_o <= 2e-2 and d_lse <= 1e-2
+    assert d_o <= 1e-2 * float(o_ref.float().abs().max())
+    assert d_lse <= 1e-2 * float((lse_ref - _flat_lse(sq, sk, causal, cuda)).abs().max())
+
+
+def test_flash_kernel_takes_the_repo_layout(cuda, gen):
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v = (torch.randn((2, 128, 2, 128), generator=gen, device=cuda).bfloat16() for _ in range(3))
+    got = tf.flash_attention(q, k, v)
+    ref, _ = tf.attention_with_stats_plain(*(t.transpose(1, 2) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (2, 128, 2, 128) and pt.counts()["flash_kernel"] == 1
+    assert float((got.float() - ref.transpose(1, 2).float()).abs().max()) <= 2e-2
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    z = torch.zeros((1, 2, 128, 128), device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tf.attention_with_stats(z, z, z)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        tf.attention_with_stats(*(torch.zeros((1, 2, 128, 64), device=cuda).bfloat16(),) * 3)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tf.attention_with_stats(*(torch.zeros((1, 2, 192, 128), device=cuda).bfloat16(),) * 3)
+    assert pt.counts()["flash_kernel"] == 0
+
+
+def test_vit_matches_plain_attention_model(cuda):
+    """The small ViT (patch 8, embed 256, 2 heads, depth 2, 256 tokens):
+    flash_kernel in every block against the plain attention."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    params = pt.init_vit_params((2, 64, 128), patch=8, embed_dim=256, depth=2, seed=1)
+    model = pt.vit_from_flax(params, num_heads=2, device=cuda)
+    plain = pt.vit_from_flax(
+        params, num_heads=2, device=cuda,
+        attn_fn=lambda q, k, v: tf.attention_with_stats_plain(
+            *(t.transpose(1, 2) for t in (q, k, v)))[0].transpose(1, 2))
+    x = torch.randn((2, 2, 64, 128), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        got, ref = model(x), plain(x)
+    assert pt.counts()["flash_kernel"] == 2
+    assert tuple(got.shape) == (2, 2) and bool(torch.isfinite(got).all())
+    assert rel_err(ref, got) < REL_TOL
+
+
+def test_vit_serve_step_runs_on_the_card(cuda):
+    """The serving step at the reference's defaults on 2 RAW epix10k2M
+    frames: one calib_kernel launch and one flash_kernel launch a block."""
+    src = pt.SyntheticSource(num_events=2, detector_name="epix10k2M", seed=0)
+    frames = torch.from_numpy(
+        np.stack([src.event(i, pt.RetrievalMode.RAW)[0] for i in range(2)])).to(cuda)
+    ped, gain, mask = (torch.from_numpy(a).to(cuda) for a in
+                       (src.pedestal(), src.gain_map(), src.create_bad_pixel_mask()))
+    model = pt.vit_from_flax(pt.init_vit_params(src.spec.frame_shape, seed=0), device=cuda)
+    logits = pt.vit_serve_step(model, frames, ped, gain, mask)
+    torch.cuda.synchronize()
+    assert tuple(logits.shape) == (2, 2) and bool(torch.isfinite(logits).all())
+    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+                           "conv_block_kernel": 0, "flash_kernel": 4}
