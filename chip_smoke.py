@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the port's three serving paths on one NVIDIA H100: the calibrated
-ResNet-50 classifier, the SFX Bragg-peak pipeline (PeakNet-TPU U-Net) and
-the ViT hit classifier with the flash-attention trunk.
+"""Drive the port's three serving paths and its training path on one
+NVIDIA H100: the calibrated ResNet-50 classifier, the SFX Bragg-peak
+pipeline (PeakNet-TPU U-Net), the ViT hit classifier with the
+flash-attention trunk, and the ViT's training recipe with the flash
+backward kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -75,21 +77,56 @@ one JSON line (``{"phase": ...}``):
    control above) gives the logits' sensitivity to attention.
 12. ``vit_profile``: the same pipeline for 4 more batches under
    ``torch.profiler``.
-13. ``unported_bounds``: the bounds of the TPU kernels not ported yet
-   (K6, K7, the flash backward kernels) at the ViT serving shape (BH 8,
-   S 8448, head dim 128, bf16, non-causal).
+13. ``flash_bwd``: K6 (``flash_bwd_dkv_kernel``) and K7
+   (``flash_bwd_dq_kernel``) against ``attention_bwd_plain`` on the same
+   residuals (``o``, ``lse`` from ``flash_kernel``), q, k, v and dO
+   ``N(0, 1)`` bf16: the ViT training shape (B 4, H 4, S 8448,
+   non-causal), causal Sq = Sk = 1024, Sq 128 against Sk 384 causal and
+   not, and one case with an ``N(0, 1)`` lse cotangent. Each of dq, dk, dv
+   within ``max|g - g_ref| / max|g_ref| <= 1e-2``, all finite; two
+   controls must fail that check in every case: zeros, and the backward
+   of score-blind attention (p = 1/keys: dq = dk = 0). The errors of a
+   backward that drops delta, and of one that ignores dlse, are printed.
+   Kernel times (each kernel alone), the plain version's (one call for
+   dq, dk and dv), the library's (the backward of
+   ``F.scaled_dot_product_attention`` from a saved forward, one call for
+   the three) and each kernel's bound.
+14. ``vit_train``: the training recipe of the JAX package's
+   ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
+   epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
+   ``train_hit_classifier`` at batch 4 for 300 steps. First, parity from
+   the same init on the first chunk: one forward and backward with the
+   kernels against one with the plain attention (forward and backward),
+   loss within 0.05 relative; and against one with the kernel forward and
+   the plain backward (the same activations, so only K6 and K7 differ),
+   every parameter's gradient ``rel_err < 0.05``. The worst leaf of each
+   comparison is named, and printed beside them are the plain path
+   against the kernel forward with the plain backward (the forward's
+   rounding, which the max-pool head's ties amplify) and the gradients of
+   a backward that drops delta. Launch counts must be +1
+   ``calib_kernel`` per 4-frame chunk, +4 ``flash_kernel``, +4
+   ``flash_bwd_dkv_kernel`` and +4 ``flash_bwd_dq_kernel`` per step, and
+   nothing else. p50/p99 step ms (synchronised after each step),
+   training frames/s, peak memory, the first and last 20-step mean
+   loss, and accuracy on 16 held-out events through ``vit_serve_step``.
+15. ``vit_train_profile``: 4 more train steps under ``torch.profiler``.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs (phases 5, 8 and 11); every other kernel runs on one path
-only.
+serving runs and the training run (phases 5, 8, 11 and 14), the
+``flash_kernel`` launches those of the ViT's serving and training runs;
+every other kernel runs on one path only.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up. For ``conv1x1_kernel`` and ``conv3x3_kernel`` the
 kernels line gives the sum over one batch of the main path (each block
 class's time times the number of blocks of that class); for
-``flash_kernel`` one batch is 4 launches at the serving shape. ``bound_ms`` is
+``flash_kernel`` one batch is 4 launches at the serving shape, and for
+the backward kernels one train step is 4 launches of each at the
+training shape (``plain_ms`` is the plain version's one call for dq, dk
+and dv; ``library_ms``, the SDPA backward's one call for the three, is
+given once, with K6). ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16
 tensor cores; 67 TFLOP/s f32 for the calibration arithmetic), counting
 each input byte read once and each output byte written once.
@@ -118,6 +155,20 @@ VIT_BATCH = 2  # frames; each one 8448-token sequence
 VIT_BATCHES = 6
 VIT_DEPTH = 4  # flash_kernel launches per batch
 FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
+BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
+NO_BWD = {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0}  # serving paths launch none
+# (case, B, H, Sq, Sk, causal, with an lse cotangent); the first is the ViT training shape
+BWD_CASES = (("training", 4, 4, 8448, 8448, False, False),
+             ("causal", 2, 4, 1024, 1024, True, False),
+             ("uneven", 2, 4, 128, 384, False, False),
+             ("uneven_causal", 2, 4, 128, 384, True, False),
+             ("dlse", 2, 4, 1024, 1024, False, True))
+TRAIN_DETECTOR = "epix10k2M"
+TRAIN_BATCH = 4  # frames a step (bench.py:_train_hit_classifier)
+TRAIN_STEPS = 300  # the recipe's
+TRAIN_EVENTS = 80  # 10 batches of 8 (bench.py:_bench_classifier_quality)
+EVAL_START, EVAL_EVENTS = 5000, 16
+PROFILE_STEPS = 4
 # (case, B, H, Sq, Sk, causal); the first is the ViT serving shape
 FLASH_CASES = (("serving", 2, 4, 8448, 8448, False), ("causal", 2, 4, 1024, 1024, True),
                ("uneven", 2, 4, 256, 768, False))
@@ -432,7 +483,7 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     counts = pt.counts()
     nb = pipe.metrics.batches
     want = {"calib_kernel": nb, "conv3x3_kernel": 16 * nb, "conv1x1_kernel": 32 * nb,
-            "conv_block_kernel": 0, "flash_kernel": 0}
+            "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -678,7 +729,7 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     counts = pt.counts()
     nb = pipe.metrics.batches
     want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 8 * nb, "flash_kernel": 0}
+            "conv_block_kernel": 8 * nb, "flash_kernel": 0, **NO_BWD}
     if nb != SFX_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
@@ -745,28 +796,6 @@ def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False):
     written once; two products of 2*d operations per (query, key) pair."""
     nbytes = bh * (2 * sq * d + 2 * 2 * sk * d + 2 * sq * d + 4 * sq)
     return nbytes, 2.0 * 2 * d * bh * _flash_pairs(sq, sk, causal)
-
-
-def unported_bounds(bh=8, s=8448, d=128) -> dict:
-    """Bounds of the flash backward kernels (K6 dk/dv, K7 dq) at
-    ``[BH, S, D]`` bf16, non-causal: matmul operations (2*S*S*D each) at
-    989 TFLOP/s against q, k, v, do, o and grads read or written once
-    (f32 lse and delta rows)."""
-    t = bh * s * d * 2  # one bf16 [BH, S, D] tensor
-    rows = bh * s * 4  # one f32 [BH, S] row vector
-    mm = 2.0 * bh * s * s * d  # one S x S x D matmul over all heads
-    cost = {
-        # recomputed qk^T, p^T do, do v^T, ds^T q; reads q k v do lse delta, writes dk dv
-        "K6 _flash_bwd_dkv_kernel": (4 * t + 2 * rows + 2 * t, 4 * mm),
-        # recomputed qk^T, do v^T, ds k; reads q k v do lse delta, writes dq
-        "K7 _flash_bwd_dq_kernel": (4 * t + 2 * rows + t, 3 * mm),
-    }
-    out = {}
-    for name, (nbytes, ops) in cost.items():
-        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        out[name] = {"bh": bh, "s": s, "d": d, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
-                     "bound_ms": bms, "bound_by": by}
-    return out
 
 
 # -- phases 10-12 ----------------------------------------------------------
@@ -893,7 +922,7 @@ def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
     nb = pipe.metrics.batches
     want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 0, "flash_kernel": VIT_DEPTH * nb}
+            "conv_block_kernel": 0, "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
     if nb != VIT_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -936,6 +965,258 @@ def phase_sfx_profile(torch, pt, pool, pipe, n_batches=4):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run_sfx(torch, pt, pool, pipe, n_batches)
     emit("sfx_profile", **profile_summary(torch, prof, wall, n_batches))
+
+
+# -- phases 13-15 ----------------------------------------------------------
+
+
+def flash_bwd_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False) -> dict:
+    """(bytes, ops) of K6 and K7: q, k, v and do (bf16) and lse and delta
+    (f32) read once, dk and dv (K6) or dq (K7) written once; four products
+    of 2*d operations per (query, key) pair for K6 (s, dp, dv, dk), three
+    for K7 (s, dp, dq)."""
+    t_q, t_k = 2 * bh * sq * d, 2 * bh * sk * d
+    reads = 2 * t_q + 2 * t_k + 2 * 4 * bh * sq
+    ops = 2.0 * d * bh * _flash_pairs(sq, sk, causal)
+    return {"flash_bwd_dkv_kernel": (reads + 2 * t_k, 4 * ops),
+            "flash_bwd_dq_kernel": (reads + t_q, 3 * ops)}
+
+
+def bwd_errors(got, ref) -> dict:
+    """``max|g - g_ref| / max|g_ref|`` of each of dq, dk, dv."""
+    return {n: rel_err(r, g) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+
+
+def bwd_ok(errs) -> bool:
+    return all(errs[n] <= BWD_TOL for n in ("dq", "dk", "dv"))
+
+
+def flat_attention_bwd(torch, do, sk, causal):
+    """The backward of score-blind attention (p = 1/keys over the keys a
+    query may see): p does not depend on q or k, so dq = dk = 0, and
+    dv[key] sums do[q] / keys(q) over the queries that see the key."""
+    b, h, sq, d = do.shape
+    i = torch.arange(sq, device=do.device)
+    n = (torch.clamp(i + 1, max=sk) if causal else torch.full_like(i, sk)).float()
+    w = do.float() / n[:, None]
+    dv = torch.zeros((b, h, sk, d), device=do.device)
+    if causal:
+        m = min(sq, sk)
+        dv[:, :, :m] = w.flip(2).cumsum(2).flip(2)[:, :, :m]  # sum over q >= key
+    else:
+        dv += w.sum(2, keepdim=True)
+    return torch.zeros_like(do), torch.zeros_like(dv), dv
+
+
+def phase_flash_bwd(torch, F, tf, timer, device):
+    """K6 and K7 against ``attention_bwd_plain`` in each case of
+    ``BWD_CASES``, two controls that the same check must reject, and the
+    errors of a backward that drops delta or ignores dlse (printed)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    results = {}
+    for name, b, h, sq, sk, causal, with_dlse in BWD_CASES:
+        def mk(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+
+        q, k, v, do = (mk(b, h, s_, 128).bfloat16() for s_ in (sq, sk, sk, sq))
+        dlse = mk(b, h, sq) if with_dlse else None
+        o, lse = tf.launch_flash(q, k, v, causal)
+        got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
+        ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, ref)
+        abs_err = {n: float((g.float() - r.float()).abs().max())
+                   for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        if not bwd_ok(errs) or not all(bool(torch.isfinite(g.float()).all()) for g in got):
+            raise AssertionError(f"flash backward ({name}) disagrees with its plain version: {errs}")
+        controls = {"zeros": bwd_errors([torch.zeros_like(g) for g in got], ref),
+                    "flat": bwd_errors(flat_attention_bwd(torch, do, sk, causal), ref)}
+        passed = [c for c, e in controls.items() if bwd_ok(e)]
+        if passed:
+            raise AssertionError(f"flash backward ({name}): the check passes the {passed} "
+                                 f"control(s): {controls}")
+        sens = {"drop_delta": tf.attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal)}
+        if with_dlse:
+            sens["ignore_dlse"] = tf.attention_bwd_plain(q, k, v, o, lse, do, causal)
+        sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
+        for e in sens.values():
+            e["rejected"] = not bwd_ok(e)
+        del got, ref
+        delta = tf.flash_bwd_delta(o, do, dlse)
+        # the library yardstick, never called by the port: the backward of
+        # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        row = {"case": name, "shape_q": [b, h, sq, 128], "sk": sk, "causal": causal,
+               "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
+               "sensitivity": sens, "kernels": {}}
+        launches = {
+            "flash_bwd_dkv_kernel": lambda: tf.launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            "flash_bwd_dq_kernel": lambda: tf.launch_flash_bwd_dq(q, k, v, do, lse, delta, causal),
+        }
+        for kname, (nbytes, ops) in flash_bwd_cost(b * h, sq, sk, causal=causal).items():
+            bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            ms = timer.ms(launches[kname], iters=10)
+            row["kernels"][kname] = {"ms": ms, "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9,
+                                     "mbytes": nbytes / 1e6, "tflops": ops / ms / 1e9}
+        # the plain version computes dq, dk and dv in one call
+        row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
+                                   iters=3, warmup=1)
+        row["library_ms"] = timer.ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=10)
+        emit("flash_bwd", **row)
+        results[name] = row
+        del q, k, v, do, o, lse, delta, leaves, out
+    return results
+
+
+def reference_attention(torch, tf, kernel_forward=False, drop_delta=False):
+    """A ``[B, S, H, D]`` ``attn_fn`` whose backward is the plain one
+    (``attention_bwd_plain``) and whose forward is the plain one
+    (``attention_with_stats_plain``) or, with ``kernel_forward``,
+    ``flash_kernel``; with ``drop_delta`` the backward drops the delta
+    term (``o`` taken as 0)."""
+    forward = tf.launch_flash if kernel_forward else tf.attention_with_stats_plain
+
+    class Reference(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = forward(q, k, v)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return tf.attention_bwd_plain(q, k, v, torch.zeros_like(o) if drop_delta else o, lse, do)
+
+    def attn(q, k, v):
+        return Reference.apply(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+    return attn
+
+
+def phase_vit_train(torch, pt, tf, consts, frame_shape, device):
+    """The ViT training recipe on the card: parity of one step against the
+    plain attention, then ``train_hit_classifier`` for ``TRAIN_STEPS``
+    steps, then accuracy on held-out events through ``vit_serve_step``."""
+    import numpy as np
+
+    ped, gain, mask = consts
+    t0 = time.monotonic()
+    src = pt.SyntheticSource(num_events=1, detector_name=TRAIN_DETECTOR, seed=7, hit_fraction=0.5)
+    batches = [pt.raw_hit_batch(src, 8 * i, 8) for i in range(TRAIN_EVENTS // 8)]
+    eval_frames, eval_labels = pt.raw_hit_batch(src, EVAL_START, EVAL_EVENTS)
+    gen_s = time.monotonic() - t0
+    params = pt.init_vit_params(frame_shape, seed=0)
+
+    # parity: one forward and backward from the same init on the first
+    # chunk. The kernel path (K5 forward, K6/K7 backward) against the plain
+    # path (plain forward and backward), and, to tell the backward kernels
+    # from the forward's rounding, against the kernel forward with the
+    # plain backward (the same activations: only K6/K7 differ)
+    with torch.no_grad():
+        x = pt.fused_calibrate(torch.from_numpy(batches[0][0][:TRAIN_BATCH]).to(device), ped, gain,
+                               mask, threshold=10.0, out_dtype=torch.bfloat16)
+    labels = torch.from_numpy(batches[0][1][:TRAIN_BATCH]).to(device)
+    valid = torch.ones(TRAIN_BATCH, dtype=torch.uint8, device=device)
+
+    def grads(attn_fn):
+        m = pt.vit_from_flax(params, attn_fn=attn_fn, device=device)
+        loss = pt.masked_softmax_xent(m(x), labels, valid)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in m.named_parameters()}
+
+    def compare(ref, got):
+        err = {n: rel_err(ref[n], got[n]) for n in ref}
+        worst = max(err, key=err.get)
+        whole = rel_err(torch.cat([ref[n].flatten() for n in ref]),
+                        torch.cat([got[n].flatten() for n in ref]))
+        return {"worst_leaf": worst, "worst_rel_err": err[worst],
+                "median_rel_err": float(np.median(list(err.values()))), "whole_rel_err": whole}
+
+    loss_k, g_k = grads(None)
+    loss_p, g_p = grads(reference_attention(torch, tf))
+    loss_f, g_f = grads(reference_attention(torch, tf, kernel_forward=True))
+    _, g_d = grads(reference_attention(torch, tf, kernel_forward=True, drop_delta=True))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_kernel_forward": loss_f,
+              "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+              "backward_kernels": compare(g_f, g_k),   # K6/K7 vs plain, same forward
+              "kernel_vs_plain_path": compare(g_p, g_k),
+              "forward_rounding": compare(g_p, g_f),   # kernel vs plain forward, plain backward
+              "drop_delta": compare(g_f, g_d)}
+    parity["drop_delta"]["rejected"] = not parity["drop_delta"]["worst_rel_err"] < REL_TOL
+    if not (parity["loss_rel_err"] <= REL_TOL and finite
+            and parity["backward_kernels"]["worst_rel_err"] < REL_TOL):
+        raise AssertionError(f"ViT train step disagrees with the plain attention: {parity}")
+    emit("vit_train_parity", **parity)
+    del g_k, g_p, g_f, g_d
+
+    # the recipe, from the same init
+    model = pt.vit_from_flax(params, device=device)
+    stamps = []
+
+    def on_step(n, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    t0 = time.perf_counter()
+    model, losses = pt.train_hit_classifier(model, batches, ped, gain, mask, TRAIN_STEPS,
+                                            device=device, on_step=on_step)
+    counts = pt.counts()
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    chunks = sum(-(-len(lb) // TRAIN_BATCH) for _, lb in batches)
+    n = VIT_DEPTH * TRAIN_STEPS
+    want = {"calib_kernel": chunks, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+            "conv_block_kernel": 0, "flash_kernel": n, "flash_bwd_dkv_kernel": n,
+            "flash_bwd_dq_kernel": n}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} over {TRAIN_STEPS} steps, expected {want}")
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or not all(
+            bool(torch.isfinite(p).all()) for p in model.parameters()):
+        raise AssertionError(f"training diverged: losses {losses[:3]} ... {losses[-3:]}")
+    step_ms = np.diff(stamps) * 1e3  # steps 1.. (step 0 also calibrates the chunks)
+
+    preds = []
+    for i in range(0, EVAL_EVENTS, TRAIN_BATCH):
+        f = torch.from_numpy(eval_frames[i:i + TRAIN_BATCH]).to(device)
+        preds.append(pt.vit_serve_step(model, f, ped, gain, mask).argmax(-1).cpu().numpy())
+    acc = float((np.concatenate(preds) == eval_labels).mean())
+    emit("vit_train", steps=TRAIN_STEPS, batch=TRAIN_BATCH, events=TRAIN_EVENTS,
+         train_hits=int(sum(int(lb.sum()) for _, lb in batches)), event_gen_s=gen_s,
+         first_step_ms=(stamps[0] - t0) * 1e3, p50_step_ms=float(np.percentile(step_ms, 50)),
+         p99_step_ms=float(np.percentile(step_ms, 99)), mean_step_ms=float(step_ms.mean()),
+         frames_per_s=TRAIN_BATCH / (float(step_ms.mean()) / 1e3), peak_mem_gib=peak_mem,
+         loss_first20=float(np.mean(losses[:20])), loss_last20=float(np.mean(losses[-20:])),
+         eval_events=EVAL_EVENTS, eval_hits=int(eval_labels.sum()), accuracy=acc,
+         launches=counts)
+    return {"model": model, "x": x, "labels": labels, "valid": valid}, counts
+
+
+def phase_vit_train_profile(torch, pt, train):
+    """``PROFILE_STEPS`` train steps of the trained model on one chunk
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = train["model"]
+    schedule = pt.warmup_cosine_decay_schedule(0.0, 6e-4, 20, TRAIN_STEPS, 1e-5)
+    step = pt.make_train_step(model, pt.adamw(model.parameters(), schedule, 0.01),
+                              lambda lg, aux: pt.masked_softmax_xent(lg, *aux))
+    aux = (train["labels"], train["valid"])
+    step(train["x"], aux)  # warm-up: the optimizer's state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            step(train["x"], aux)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    emit("vit_train_profile", **profile_summary(torch, prof, wall, PROFILE_STEPS))
 
 
 def main() -> int:
@@ -1006,14 +1287,17 @@ def main() -> int:
     flash = phase_flash(torch, F, tf, timer, device)
     vit, vit_counts = phase_vit(torch, pt, tf, pool, consts, src.spec.frame_shape, device)
     phase_vit_profile(torch, pt, pool, consts, vit, device)
-    emit("unported_bounds", **unported_bounds())
+    flash_bwd = phase_flash_bwd(torch, F, tf, timer, device)
+    train, train_counts = phase_vit_train(torch, pt, tf, consts, src.spec.frame_shape, device)
+    phase_vit_train_profile(torch, pt, train)
 
     csrc = "psana_ray_tpu_torch/csrc"
     c = calib["bf16"]
     kernels = [{
         "name": "calib_kernel", "route": "cuda", "source": f"{csrc}/calib.cu",
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
-        "launches": counts["calib_kernel"] + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"],
+        "launches": (counts["calib_kernel"] + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
+                     + train_counts["calib_kernel"]),
         "max_abs_err": max(calib["f32"]["max_abs_err"], c["max_abs_err"]),
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -1043,12 +1327,26 @@ def main() -> int:
     kernels.append({
         "name": "flash_kernel", "route": "cuda", "source": f"{csrc}/flash.cu",
         "replaces": "psana_ray_tpu/parallel/flash.py:155",
-        "launches": vit_counts["flash_kernel"],
+        "launches": vit_counts["flash_kernel"] + train_counts["flash_kernel"],
         "max_abs_err": max(r["max_abs_err_o"] for r in flash.values()),
         "ms": VIT_DEPTH * f["ms"], "plain_ms": VIT_DEPTH * f["plain_ms"],
         "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": VIT_DEPTH * f["library_ms"],
     })
+    tb = flash_bwd["training"]  # one train step: VIT_DEPTH launches of each at this shape
+    for name, line, grads in (("flash_bwd_dkv_kernel", 314, ("dk", "dv")),
+                              ("flash_bwd_dq_kernel", 354, ("dq",))):
+        kr = tb["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
+            "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
+            "launches": train_counts[name],
+            "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values() for g in grads),
+            "ms": VIT_DEPTH * kr["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
+            "bound_ms": VIT_DEPTH * kr["bound_ms"], "bound_by": kr["bound_by"],
+            # the SDPA backward computes dq, dk and dv in one call: given once, for the pair
+            "library_ms": VIT_DEPTH * tb["library_ms"] if name == "flash_bwd_dkv_kernel" else None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

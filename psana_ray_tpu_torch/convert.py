@@ -26,7 +26,8 @@ The U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
 
 The ViT's (``vit.py:221-263``) keep their names and layouts: a flax path
 ``a/b/leaf`` is the ``state_dict`` key ``a.b.leaf`` (Dense kernels stay
-``[in, out]``).
+``[in, out]``), and :func:`vit_to_flax` maps a (trained) port ViT back to
+the flax tree.
 
 Every leaf must map and every port parameter must be filled: anything
 else raises. The kernels' bf16 GEMM layouts are packed from the models
@@ -268,3 +269,16 @@ def vit_from_flax(
     )
     load_flax(model, params)
     return model.to(device) if device is not None else model
+
+
+def vit_to_flax(model: ViTHitClassifier) -> Dict[str, dict]:
+    """The flax ``params`` tree (nested dicts of f32 numpy arrays) of a
+    port ViT: the inverse of :func:`vit_from_flax`."""
+    tree: Dict[str, dict] = {}
+    for key, value in model.state_dict().items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
+    return tree

@@ -29,76 +29,17 @@
 // layout of the p.v product, so p never leaves registers, and each thread
 // owns whole quarter-rows, so the row max and row sum take two shuffles.
 // wgmma, TMA and warp specialisation are the next step (ROADMAP Queue 2).
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace flash;
 
-constexpr int kD = 128;                     // head dim
 constexpr int kBQ = 64;                     // query rows per block
 constexpr int kBKV = 64;                    // key rows per tile
 constexpr int kThreads = 128;               // 4 warps x 16 query rows
-constexpr int kTile = 64 * kD;              // elements of one [64, 128] tile
 constexpr int kSmem = 5 * kTile * 2;        // Q + 2 stages x (K, V): 80 KB
-constexpr float kNegInf = -1e30f;           // flash.py NEG_INF
-
-// element offset of 16-byte chunk c (0..15) of row r in a [64, 128] tile:
-// the chunk index is XORed with r % 8, so the 8 rows of one ldmatrix
-// matrix fall on 8 different 16-byte bank groups
-__device__ __forceinline__ int swz(int r, int c) { return r * kD + ((c ^ (r & 7)) << 3); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// one [64, 128] tile (row stride kD in global memory) into shared memory
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g) {
-#pragma unroll
-  for (int i = threadIdx.x; i < 64 * (kD / 8); i += kThreads) {
-    const int r = i >> 4, c = i & 15;
-    cp_async16(s + swz(r, c), g + r * kD + c * 8);
-  }
-}
 
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
@@ -120,9 +61,9 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   int n_tiles = Sk / kBKV;
   if (kCausal) n_tiles = min(n_tiles, (q0 + kBQ + kBKV - 1) / kBKV);  // flash.py:147-152
 
-  load_tile(Qs, q + (bh * Sq + q0) * kD);
-  load_tile(Ks, kg);
-  load_tile(Vs, vg);
+  load_tile<kThreads>(Qs, q + (bh * Sq + q0) * kD);
+  load_tile<kThreads>(Ks, kg);
+  load_tile<kThreads>(Vs, vg);
   cp_async_commit();
 
   uint32_t qf[8][4];  // this warp's 16 query rows as A fragments, 8 steps of 16 d
@@ -137,8 +78,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(Ks + (st ^ 1) * kTile, kg + static_cast<size_t>(j + 1) * kBKV * kD);
-      load_tile(Vs + (st ^ 1) * kTile, vg + static_cast<size_t>(j + 1) * kBKV * kD);
+      load_tile<kThreads>(Ks + (st ^ 1) * kTile, kg + static_cast<size_t>(j + 1) * kBKV * kD);
+      load_tile<kThreads>(Vs + (st ^ 1) * kTile, vg + static_cast<size_t>(j + 1) * kBKV * kD);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -148,7 +89,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     if (j == 0) {
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        ldmatrix_x4(qf[kk], Qs + swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+        load_a(qf[kk], Qs, warp * 16, kk);
     }
     const bf16* ks = Ks + st * kTile;
     const bf16* vs = Vs + st * kTile;
@@ -164,7 +105,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         uint32_t b[4];
-        ldmatrix_x4(b, ks + swz(16 * jj + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
+        load_bt(b, ks, 16 * jj, kk);
         mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
       }
@@ -227,7 +168,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 #pragma unroll
       for (int dn = 0; dn < 8; ++dn) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + swz(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * dn + (lane >> 4)));
+        load_b(b, vs, 16 * kk, dn);
         mma_bf16(acc[2 * dn], pf[kk], b[0], b[1]);
         mma_bf16(acc[2 * dn + 1], pf[kk], b[2], b[3]);
       }

@@ -6,7 +6,9 @@ entry of :data:`LAUNCHES` where it launches the kernel, and nowhere else,
 so a run can show that the main path went through the kernel.
 ``conv_block_kernel`` counts the launches of ``conv3x3_kernel`` made by
 the U-Net's encoder levels (K4), apart from the ResNet's;
-``flash_kernel`` the flash-attention forward launches (K5).
+``flash_kernel`` the flash-attention forward launches (K5),
+``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` the backward's (K6,
+K7).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0, "conv_block_kernel": 0,
-    "flash_kernel": 0,
+    "flash_kernel": 0, "flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0,
 }
 
 

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-LIBS = ("calib", "bottleneck", "flash")
+LIBS = ("calib", "bottleneck", "flash", "flash_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,6 +61,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash": {
         # q, k, v, o, lse, BH, Sq, Sk, D, sm_scale, causal, stream
         "flash_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_bwd": {
+        # q, k, v, do, lse, delta, dk, dv, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, do, lse, delta, dq, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
 }
 

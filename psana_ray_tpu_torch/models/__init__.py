@@ -1,5 +1,5 @@
 """Models: the frozen ResNet and PeakNet-TPU U-Net, their fused kernel paths,
-the ViT hit classifier, layouts, peak extraction and init."""
+the ViT hit classifier, layouts, peak extraction, losses and init."""
 
 from psana_ray_tpu_torch.models.fused_resnet import (
     BlockWeights,
@@ -25,6 +25,7 @@ from psana_ray_tpu_torch.models.init import (
     init_resnet_params,
     init_vit_params,
 )
+from psana_ray_tpu_torch.models.losses import masked_softmax_xent
 from psana_ray_tpu_torch.models.peaks import find_peaks, peak_metrics, split_truth_by_panel
 from psana_ray_tpu_torch.models.resnet import ResNet50, ResNetClassifier
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
@@ -56,6 +57,7 @@ __all__ = [
     "init_peaknet_tpu_params",
     "init_resnet_params",
     "init_vit_params",
+    "masked_softmax_xent",
     "nhwc_to_panels",
     "pack_fused",
     "pack_unet",

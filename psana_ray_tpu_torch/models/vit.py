@@ -1,12 +1,14 @@
-"""ViT diffraction hit classifier in PyTorch, served on one card.
+"""ViT diffraction hit classifier in PyTorch, served and trained on one card.
 
 Counterpart of ``psana_ray_tpu/models/vit.py``: every panel of a detector
 frame is cut into p x p patches and the whole frame becomes one token
 sequence (epix10k2M at patch 16: 16 panels x 22 x 24 = 8,448 tokens), a
 pre-LN transformer trunk runs over it with a pluggable attention
 (``attn_fn``, default :func:`~psana_ray_tpu_torch.parallel.flash.flash_attention`,
-whose CUDA path is ``flash_kernel``), and a LayerNorm + max-pool head gives
-f32 logits.
+whose CUDA path is ``flash_kernel`` forward and ``flash_bwd_dkv_kernel`` /
+``flash_bwd_dq_kernel`` backward), and a LayerNorm + max-pool head gives
+f32 logits. Parameters are ordinary trainable ``nn.Parameter``s; serving
+runs under ``torch.no_grad()`` (:func:`~psana_ray_tpu_torch.entry.vit_serve_step`).
 
 Numerics follow flax at ``dtype`` (bf16 by default) with f32 parameters:
 
@@ -41,7 +43,7 @@ _MULTI_DEVICE = "the multi-device layer (ROADMAP.md Queue 1 item 6)"
 
 
 def _param(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(*shape))
 
 
 def patchify_panels(frames: torch.Tensor, patch: int) -> torch.Tensor:
@@ -64,7 +66,7 @@ class LayerNorm(nn.Module):
     def __init__(self, features: int, dtype: torch.dtype = _BF16):
         super().__init__()
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(features))
         self.bias = _param(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -173,7 +175,11 @@ class Trunk(nn.Module):
 
 
 class Head(nn.Module):
-    """LayerNorm in ``dtype``, f32 token pooling, f32 dense (``vit.py:197-218``)."""
+    """LayerNorm in ``dtype``, f32 token pooling, f32 dense (``vit.py:197-218``).
+
+    Max pooling is ``amax``, whose gradient is split evenly among tied
+    maxima, as JAX's ``reduce_max`` JVP splits it (``torch.max(dim=...)``
+    would give it all to one token; bf16 LayerNorm outputs tie often)."""
 
     def __init__(self, embed_dim: int, num_classes: int, dtype: torch.dtype = _BF16,
                  pool: str = "max"):

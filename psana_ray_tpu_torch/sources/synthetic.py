@@ -7,7 +7,9 @@ pedestal + Gaussian noise + Poisson photon background with bright
 Bragg-like peaks, and a per-panel common-mode offset in raw mode (the
 ``calib`` and ``raw`` retrieval modes). Every event is generated from
 ``seed ^ hash(exp, run, event_idx)``, so any rank can regenerate any
-event.
+event. With ``hit_fraction`` set, each event is a hit (peaks planted)
+with that probability and otherwise a miss (background only): the
+labelled hit-finding corpus the classifiers train on.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ class SyntheticSource:
         num_shards: int = 1,
         dtype: str = "float32",
         peak_count: int = 24,
+        hit_fraction: Optional[float] = None,
     ):
         if detector_name not in DETECTORS:
             raise ValueError(f"unknown detector {detector_name!r}; have {sorted(DETECTORS)}")
@@ -51,6 +54,11 @@ class SyntheticSource:
         self.num_shards = num_shards
         self.dtype = np.dtype(dtype)
         self.peak_count = peak_count
+        # None keeps every event a hit and the frames bit-identical to a
+        # source without the knob (no extra random draw)
+        if hit_fraction is not None and not 0.0 <= hit_fraction <= 1.0:
+            raise ValueError(f"hit_fraction must be in [0, 1], got {hit_fraction}")
+        self.hit_fraction = hit_fraction
         self._seed = _stable_seed(exp, run, seed)
         self._pedestal: Optional[np.ndarray] = None
         self._gain_map: Optional[np.ndarray] = None
@@ -99,7 +107,8 @@ class SyntheticSource:
         spec = self.spec
         p, h, w = spec.frame_shape
         photons = rng.poisson(0.08, size=(p, h, w)).astype(np.float32)
-        n_peaks = int(rng.integers(self.peak_count // 2, self.peak_count + 1))
+        is_hit = self.hit_fraction is None or bool(rng.random() < self.hit_fraction)
+        n_peaks = int(rng.integers(self.peak_count // 2, self.peak_count + 1)) if is_hit else 0
         yy = np.arange(h, dtype=np.float32)[:, None]
         xx = np.arange(w, dtype=np.float32)[None, :]
         truth = np.zeros((n_peaks, 4), dtype=np.float32)

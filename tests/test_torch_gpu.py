@@ -12,7 +12,10 @@ bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
 bound for bf16 activations with f32 accumulation, as is the ViT with the
 flash kernel; the flash kernel itself ``o`` atol 2e-2 and ``lse`` atol
 1e-2, the bf16 tolerances of ``tests/test_ring_attention.py``, and each
-within 1e-2 of its own scale on unit-scale inputs.
+within 1e-2 of its own scale on unit-scale inputs; the flash backward
+kernels' dq, dk and dv within 1e-2 of their own scale
+(``max|g - g_ref| / max|g_ref|``) on unit-scale inputs, where they round
+p and ds to bf16 and the plain version keeps f32.
 """
 
 import numpy as np
@@ -27,6 +30,8 @@ from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain  # noqa: E
 
 pytestmark = pytest.mark.gpu
 REL_TOL = 0.05
+BWD_TOL = 1e-2
+NO_BWD = {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0}  # serving paths launch no backward
 
 
 @pytest.fixture
@@ -154,7 +159,7 @@ def test_fused_network_matches_plain_model(cuda):
     logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, stages, return_features=True)
     ref_logits, ref_feat = model(x, return_features=True)
     assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4,
-                           "conv_block_kernel": 0, "flash_kernel": 0}
+                           "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     assert float(ref_feat.abs().max()) >= 1e-2
     assert rel_err(ref_logits, logits) < REL_TOL
     assert rel_err(ref_feat, feat) < REL_TOL
@@ -167,7 +172,7 @@ def test_entry_runs_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all())
     assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16,
-                           "conv_block_kernel": 0, "flash_kernel": 0}
+                           "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -256,7 +261,7 @@ def test_sfx_pipeline_runs_on_the_card(cuda):
     assert pipe.run(ring) == 6
     assert [s.event_idx for s in sink.sets] == list(range(6))
     assert pt.counts() == {"calib_kernel": 2, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 16, "flash_kernel": 0}
+                           "conv_block_kernel": 16, "flash_kernel": 0, **NO_BWD}
 
 
 def _flat_lse(sq, sk, causal, device):
@@ -349,4 +354,94 @@ def test_vit_serve_step_runs_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (2, 2) and bool(torch.isfinite(logits).all())
     assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 0, "flash_kernel": 4}
+                           "conv_block_kernel": 0, "flash_kernel": 4, **NO_BWD}
+
+
+def _bwd_inputs(gen, cuda, bh, sq, sk, dlse):
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    q, k, v = mk(1, bh, sq, 128).bfloat16(), mk(1, bh, sk, 128).bfloat16(), mk(1, bh, sk, 128).bfloat16()
+    do = mk(1, bh, sq, 128).bfloat16()
+    return q, k, v, do, (mk(1, bh, sq) if dlse else None)
+
+
+@pytest.mark.parametrize(
+    "bh,sq,sk,causal,dlse",
+    [(3, 256, 256, False, False), (3, 256, 256, True, False), (2, 128, 384, False, False),
+     (2, 128, 384, True, False), (2, 384, 128, True, False), (2, 768, 768, False, True),
+     (2, 512, 512, True, True)],
+)
+def test_flash_bwd_kernels_match_plain(cuda, gen, bh, sq, sk, causal, dlse):
+    """K6 and K7 against ``attention_bwd_plain`` on the same residuals,
+    ``N(0, 1)`` inputs: causal, uneven lengths (a key tile no query sees
+    when causal), with an lse cotangent."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do, dl = _bwd_inputs(gen, cuda, bh, sq, sk, dlse)
+    o, lse = tf.launch_flash(q, k, v, causal)
+    got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dl)
+    ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dl)
+    torch.cuda.synchronize()
+    assert pt.counts()["flash_bwd_dkv_kernel"] == 1 and pt.counts()["flash_bwd_dq_kernel"] == 1
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert rel_err(r, g) <= BWD_TOL, (name, rel_err(r, g))
+
+
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(cuda):
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    def call(shape, dtype=torch.bfloat16):
+        z = torch.zeros(shape, device=cuda, dtype=dtype)
+        return tf.launch_flash_bwd(z, z, z, z, torch.zeros(shape[:3], device=cuda), z)
+
+    with pytest.raises(NotImplementedError, match="bf16"):
+        call((1, 2, 128, 128), torch.float32)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        call((1, 2, 128, 64))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        call((1, 2, 192, 128))
+    assert pt.counts()["flash_bwd_dkv_kernel"] == 0 and pt.counts()["flash_bwd_dq_kernel"] == 0
+
+
+def test_flash_backward_through_the_function(cuda, gen):
+    """One backward through ``attention_with_stats`` with both outputs in
+    the loss launches each backward kernel once and matches the plain
+    backward with the lse cotangent."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do, dl = _bwd_inputs(gen, cuda, 2, 256, 256, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = tf.attention_with_stats(*leaves, causal=True)
+    torch.autograd.backward((o, lse), (do, dl))
+    torch.cuda.synchronize()
+    assert {k_: pt.counts()[k_] for k_ in ("flash_kernel", "flash_bwd_dkv_kernel",
+                                           "flash_bwd_dq_kernel")} == {
+        "flash_kernel": 1, "flash_bwd_dkv_kernel": 1, "flash_bwd_dq_kernel": 1}
+    ref = tf.attention_bwd_plain(q, k, v, o.detach(), lse.detach(), do, True, dl)
+    for name, leaf, r in zip(("dq", "dk", "dv"), leaves, ref):
+        assert rel_err(r, leaf.grad) <= BWD_TOL, name
+
+
+def test_vit_train_step_on_the_card(cuda):
+    """One train step of the small ViT (patch 8, embed 256, 2 heads, depth
+    2, 256 tokens) on the card: each backward kernel launches once per
+    block, and every gradient is finite."""
+    params = pt.init_vit_params((2, 64, 128), patch=8, embed_dim=256, depth=2, seed=1)
+    model = pt.vit_from_flax(params, num_heads=2, device=cuda)
+    opt = pt.adamw(model.parameters(), pt.warmup_cosine_decay_schedule(0.0, 6e-4, 2, 10, 1e-5),
+                   weight_decay=0.01)
+    step = pt.make_train_step(model, opt, lambda lg, aux: pt.masked_softmax_xent(lg, *aux))
+    x = torch.randn((4, 2, 64, 128), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    labels = torch.tensor([0, 1, 1, 0], device=cuda)
+    valid = torch.tensor([1, 1, 1, 0], dtype=torch.uint8, device=cuda)
+    loss = step(x, (labels, valid))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
+                           "conv_block_kernel": 0, "flash_kernel": 2,
+                           "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2}
+    grads = [p.grad for p in model.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)

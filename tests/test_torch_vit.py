@@ -138,7 +138,8 @@ def test_transformer_block_matches_flax(rng, dtype):
     params = flax_params(block, x, rng)
     ref = np.asarray(block.apply(jax_tree(params), jnp.asarray(x).astype(jdt)).astype(jnp.float32))
     port = load_flax(tv.TransformerBlock(256, 2, dtype=tdt), params)
-    got = port(torch.from_numpy(x).to(tdt))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).to(tdt))
     assert got.dtype == tdt
     err = rel_err(ref, got.float().numpy())
     print(f"rel_err {err}")  # observed values: pytest -rP
@@ -155,7 +156,8 @@ def test_model_matches_flax(rng, dtype, attn):
     params = flax_params(jmodel, x[:1], rng)
     ref = np.asarray(jmodel.apply(jax_tree(params), jnp.asarray(x)))
     port = pt.vit_from_flax(params, num_heads=2, dtype=tdt)
-    got = port(torch.from_numpy(x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
     assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (2, 2)
     err = rel_err(ref, got.numpy())
     print(f"rel_err {err} max|ref| {np.abs(ref).max()}")  # observed values: pytest -rP
@@ -170,7 +172,8 @@ def test_model_options_match_flax(rng, input_norm, head_pool):
     params = flax_params(jmodel, x[:1], rng)
     ref = np.asarray(jmodel.apply(jax_tree(params), jnp.asarray(x)))
     port = pt.vit_from_flax(params, num_heads=2, input_norm=input_norm, head_pool=head_pool)
-    err = rel_err(ref, port(torch.from_numpy(x)).numpy())
+    with torch.no_grad():
+        err = rel_err(ref, port(torch.from_numpy(x)).numpy())
     print(f"rel_err {err}")  # observed values: pytest -rP
     assert err < REL_TOL, err
 
