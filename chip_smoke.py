@@ -16,7 +16,11 @@ one JSON line (``{"phase": ...}``):
    power limit (also printed alone on a line of their own).
 2. ``build``: compiles ``psana_ray_tpu_torch/csrc/*.cu`` with ``nvcc``
    (one process per source, all at once) and reports the seconds and each
-   kernel's registers and spills from ``-Xptxas -v``.
+   kernel's registers and spills from ``-Xptxas -v``, and for each kernel
+   whether ``ptxas`` advised that its ``wgmma.mma_async`` instructions
+   are serialized or that its ``setmaxnreg`` was ignored. A
+   ``build_sm90`` line sums that up for the ``wgmma`` kernels of
+   ``conv_sm90.cu``; a spill or a serialization there fails the run.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
    f32 RAW frames from ``SyntheticSource``, with f32 and bf16 output
    (f32: rtol 1e-5, atol 1e-4; bf16: that plus one bf16 ulp).
@@ -25,12 +29,15 @@ one JSON line (``{"phase": ...}``):
    on the same inputs (``rel_err < 0.05``), and the whole block against
    the chain of plain versions. A ``bottleneck_by_tpu_kernel`` line sums
    them per TPU kernel over one batch: K2 is the front ``conv1x1_kernel``
-   and the ``conv3x3_kernel`` launches, K3 the back ``conv1x1_kernel``.
+   and the ``conv3x3_kernel`` launches (the WMMA kernels, unchanged, the
+   control against earlier runs), K3 the ``back_kernel`` launches, with
+   the GB/s they reach.
 5. ``end_to_end``: a producer thread feeds RAW events into the port's
    ``RingBuffer``; ``InfeedPipeline(batch_size=32, prefetch_depth=2)`` ->
    ``fused_calibrate(bf16)`` -> ``panels_to_nhwc`` -> ``resnet_fused_infer``
    for 6 batches. Launch counts must be +1 ``calib_kernel``, +16
-   ``conv3x3_kernel`` and +32 ``conv1x1_kernel`` per batch; the last
+   ``conv1x1_kernel``, +16 ``conv3x3_kernel`` and +16 ``back_kernel``
+   per batch; the last
    batch's logits and pooled features are checked against the plain path
    on the card.
 6. ``profile``: the same pipeline for 4 more batches under
@@ -39,11 +46,12 @@ one JSON line (``{"phase": ...}``):
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
-   22x24 256->512 with no downsample. Every ``conv3x3_kernel`` launch
-   against its plain version and each level against the chain of plain
-   versions (``rel_err < 0.05``), with kernel, plain and library
-   (bf16 channels-last ``F.conv2d``) times, the fused level's bound and
-   the bound of the three launches (y1 and skip through HBM).
+   22x24 256->512 with no downsample. Every ``conv3x3_sm90_kernel``
+   launch against its plain version and each level against the chain of
+   plain versions (``rel_err < 0.05``), with kernel, plain and library
+   (bf16 channels-last ``F.conv2d``) times, the TFLOP/s each launch and
+   level reaches, the fused level's bound and the bound of the three
+   launches (y1 and skip through HBM).
 8. ``sfx_end_to_end``: a producer thread feeds RAW events into a
    ``RingBuffer``; ``SfxPipeline(SfxConfig(batch_size=8)).run`` drains
    them (``calib_kernel`` -> ``peaknet_tpu_fused_infer`` -> ``find_peaks``
@@ -119,9 +127,10 @@ serving runs and the training run (phases 5, 8, 11 and 14), the
 every other kernel runs on one path only.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
-it, after warm-up. For ``conv1x1_kernel`` and ``conv3x3_kernel`` the
-kernels line gives the sum over one batch of the main path (each block
-class's time times the number of blocks of that class); for
+it, after warm-up. For ``conv1x1_kernel``, ``conv3x3_kernel`` and
+``back_kernel`` the kernels line gives the sum over one batch of the main
+path (each block class's time times the number of blocks of that class);
+for ``conv_block_kernel`` the 8 launches of one SFX batch; for
 ``flash_kernel`` one batch is 4 launches at the serving shape, and for
 the backward kernels one train step is 4 launches of each at the
 training shape (``plain_ms`` is the plain version's one call for dq, dk
@@ -157,6 +166,7 @@ VIT_DEPTH = 4  # flash_kernel launches per batch
 FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
 BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
 NO_BWD = {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0}  # serving paths launch none
+NO_RESNET = {"conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0}  # other paths
 # (case, B, H, Sq, Sk, causal, with an lse cotangent); the first is the ViT training shape
 BWD_CASES = (("training", 4, 4, 8448, 8448, False, False),
              ("causal", 2, 4, 1024, 1024, True, False),
@@ -294,13 +304,14 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
     strides = [blk.stride for blk in params.blocks]
     per_kernel = {
         k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-            "launches_per_batch": 0, "bound_by": {"bytes": 0.0, "operations": 0.0}}
-        for k in ("conv1x1_kernel", "conv3x3_kernel")
+            "launches_per_batch": 0, "bound_by": {"bytes": 0.0, "operations": 0.0},
+            "gbytes": 0.0, "gflop": 0.0}
+        for k in ("conv1x1_kernel", "conv3x3_kernel", "back_kernel")
     }
     # the same launches summed per TPU kernel: K2 = front + middle, K3 = back
     per_tpu = {
         k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-            "launches_per_batch": 0}
+            "launches_per_batch": 0, "gbytes": 0.0, "gflop": 0.0}
         for k in ("K2", "K3")
     }
     classes = []
@@ -311,7 +322,7 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
             div *= s
         h, w = h0 // div, w0 // div
         cin, f = blk.w1.shape
-        cout = blk.w3.shape[1]
+        cout = blk.w3.shape[0]  # K-major [N, F]
         s = blk.stride
         ho, wo = h // s, w // s
         x = torch.randn((BATCH, h, w, cin), generator=gen, device=device).to(torch.bfloat16)
@@ -319,17 +330,17 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
         y2 = fr.conv3x3(y1, blk.w2, blk.s2, blk.b2, s)
         proj = None if blk.wp is None else (x, blk.wp, blk.sp, blk.bp, s)
         res = x if blk.wp is None else None
-        out = fr.conv1x1(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)
+        out = fr.back_step(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)
         # each launch against its plain version on the same inputs
         checks = {
             "front": (y1, fr.conv1x1_plain(x, blk.w1, blk.s1, blk.b1)),
             "middle": (y2, fr.conv3x3_plain(y1, blk.w2, blk.s2, blk.b2, s)),
-            "back": (out, fr.conv1x1_plain(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)),
+            "back": (out, fr.back_step_plain(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)),
         }
         # the whole block against the chain of plain versions
         p1 = fr.conv1x1_plain(x, blk.w1, blk.s1, blk.b1)
         p2 = fr.conv3x3_plain(p1, blk.w2, blk.s2, blk.b2, s)
-        p3 = fr.conv1x1_plain(p2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)
+        p3 = fr.back_step_plain(p2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj)
         torch.cuda.synchronize()
         errs = {k: {"max_abs_err": float((a.float() - b.float()).abs().max()), "rel_err": rel_err(b, a)}
                 for k, (a, b) in checks.items()}
@@ -360,11 +371,11 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
         w2_oihw = blk.w2.reshape(3, 3, f, f).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         if blk.wp is None:
-            back_a, back_w = y2.reshape(m_out, f), blk.w3
+            back_a, back_w = y2.reshape(m_out, f), blk.w3.t().contiguous()
         else:
             xs = x[:, ::s, ::s].reshape(m_out, cin)
             back_a = torch.cat([y2.reshape(m_out, f), xs], dim=1)
-            back_w = torch.cat([blk.w3, blk.wp], dim=0)
+            back_w = torch.cat([blk.w3.t(), blk.wp.t()], dim=0).contiguous()
         launches = {
             "front": ("conv1x1_kernel",
                       lambda: fr.conv1x1(x, blk.w1, blk.s1, blk.b1),
@@ -374,9 +385,9 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
                        lambda: fr.conv3x3(y1, blk.w2, blk.s2, blk.b2, s),
                        lambda: fr.conv3x3_plain(y1, blk.w2, blk.s2, blk.b2, s),
                        lambda: F.conv2d(y1p, w2_oihw, stride=s)),
-            "back": ("conv1x1_kernel",
-                     lambda: fr.conv1x1(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj),
-                     lambda: fr.conv1x1_plain(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj),
+            "back": ("back_kernel",
+                     lambda: fr.back_step(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj),
+                     lambda: fr.back_step_plain(y2, blk.w3, blk.s3, blk.b3, residual=res, proj=proj),
                      lambda: torch.matmul(back_a, back_w)),
         }
         row = {"class": name, "blocks": mult, "x": [BATCH, h, w, cin], "stride": s,
@@ -395,23 +406,35 @@ def phase_bottleneck(torch, F, fr, timer, params, frame_hw, device):
                 "mbytes": nbytes / 1e6,
                 **errs[step],
             }
+            t["gbytes_per_s"] = nbytes / t["ms"] / 1e6
+            t["tflops"] = ops / t["ms"] / 1e9
             row["launches"][step] = t
             agg = per_kernel[kname]
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 agg[key] += mult * t[key]
+            agg["gbytes"] += mult * nbytes / 1e9
+            agg["gflop"] += mult * ops / 1e9
             agg["bound_by"][by] += mult * bms
             agg["launches_per_batch"] += mult
             agg["max_abs_err"] = max(agg["max_abs_err"], t["max_abs_err"])
             tpu = per_tpu["K3" if step == "back" else "K2"]
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 tpu[key] += mult * t[key]
+            tpu["gbytes"] += mult * nbytes / 1e9
+            tpu["gflop"] += mult * ops / 1e9
             tpu["launches_per_batch"] += mult
             tpu["max_abs_err"] = max(tpu["max_abs_err"], t["max_abs_err"])
         emit("bottleneck", **row)
         classes.append(row)
         del x, y1, y2, out, checks, p1, p2, p3, y1p, back_a
-    for agg in per_kernel.values():
-        agg["bound_by"] = max(agg["bound_by"], key=agg["bound_by"].get)
+    for agg in list(per_kernel.values()) + list(per_tpu.values()):
+        if isinstance(agg.get("bound_by"), dict):
+            agg["bound_by"] = max(agg["bound_by"], key=agg["bound_by"].get)
+        agg["gbytes_per_s"] = agg["gbytes"] / agg["ms"] * 1e3
+        agg["tflops"] = agg["gflop"] / agg["ms"]
+        agg["share_of_bound"] = agg["bound_ms"] / agg["ms"]
+    per_tpu["K3"]["kernel"] = "back_kernel"
+    per_tpu["K2"]["kernel"] = "conv1x1_kernel + conv3x3_kernel"
     emit("bottleneck_by_tpu_kernel", **per_tpu)
     return per_kernel, classes
 
@@ -482,8 +505,8 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     pipe, wall = run_pipeline(torch, pt, pool, step, device, E2E_BATCHES, on_result)
     counts = pt.counts()
     nb = pipe.metrics.batches
-    want = {"calib_kernel": nb, "conv3x3_kernel": 16 * nb, "conv1x1_kernel": 32 * nb,
-            "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
+    want = {"calib_kernel": nb, "conv1x1_kernel": 16 * nb, "conv3x3_kernel": 16 * nb,
+            "back_kernel": 16 * nb, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -561,31 +584,31 @@ def _conv3x3_cost(m_out, cin, n, m_in, affine=True):
             2.0 * m_out * 9 * cin * n)
 
 
-def phase_conv_block(torch, F, fu, fr, timer, uparams, device):
+def phase_conv_block(torch, F, fu, timer, uparams, device):
     """Each K4 level at batch 128, every launch against its plain version."""
     gen = torch.Generator(device=device).manual_seed(0)
     b = SFX_BATCH * 16
     agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "three_launch_bound_ms": 0.0, "max_abs_err": 0.0, "launches_per_batch": 0}
+           "three_launch_bound_ms": 0.0, "max_abs_err": 0.0, "launches_per_batch": 0, "gflop": 0.0}
     levels = []
     for name, idx, h, w in UNET_LEVELS:
         lvl = uparams.levels[idx]
-        cin, f = lvl.w1.shape[2], lvl.w1.shape[3]
+        f, cin = lvl.w1.shape[0], lvl.w1.shape[1] // 9  # K-major [f, 9*cin]
         down = lvl.wd is not None
         x = torch.randn((b, h, w, cin), generator=gen, device=device).to(torch.bfloat16)
-        w1, w2 = fu._gemm(lvl.w1), fu._gemm(lvl.w2)
-        wd = fu._gemm(lvl.wd) if down else None
-        c = fu.COUNTER
-        y1 = fr.launch_conv3x3(x, w1, *lvl.a1, 1, c)
-        skip = fr.launch_conv3x3(y1, w2, *lvl.a2, 1, c)
-        dn = fr.launch_conv3x3(skip, wd, None, None, 2, c) if down else None
-        checks = {"conv1": (y1, fr.conv3x3_plain(x, w1, *lvl.a1)),
-                  "conv2": (skip, fr.conv3x3_plain(y1, w2, *lvl.a2))}
+        conv, plain = fu.launch_level_conv, fu.level_conv_plain
+        y1 = conv(x, lvl.w1, *lvl.a1, 1)
+        skip = conv(y1, lvl.w2, *lvl.a2, 1)
+        dn = conv(skip, lvl.wd, None, None, 2) if down else None
+        checks = {"conv1": (y1, plain(x, lvl.w1, *lvl.a1, 1)),
+                  "conv2": (skip, plain(y1, lvl.w2, *lvl.a2, 1))}
         if down:
-            checks["down"] = (dn, fu.downsample_plain(skip, lvl.wd))
-        # the whole level (its wrapper) against the chain of plain versions
-        got = fu.fused_conv_block(x, lvl.w1, lvl.a1, lvl.w2, lvl.a2, lvl.wd)
-        ref = fu.fused_conv_block_plain(x, lvl.w1, lvl.a1, lvl.w2, lvl.a2, lvl.wd)
+            checks["down"] = (dn, plain(skip, lvl.wd, None, None, 2))
+        # the whole level (its wrapper, on HWIO weights) against the chain of plain versions
+        hwio = [None if wt is None else wt.reshape(wt.shape[0], 3, 3, -1).permute(1, 2, 3, 0)
+                for wt in (lvl.w1, lvl.w2, lvl.wd)]
+        got = fu.fused_conv_block(x, hwio[0], lvl.a1, hwio[1], lvl.a2, hwio[2])
+        ref = fu.fused_conv_block_plain(x, hwio[0], lvl.a1, hwio[1], lvl.a2, hwio[2])
         torch.cuda.synchronize()
         errs = {k: {"max_abs_err": float((a.float() - r.float()).abs().max()), "rel_err": rel_err(r, a)}
                 for k, (a, r) in checks.items()}
@@ -607,25 +630,25 @@ def phase_conv_block(torch, F, fu, fr, timer, uparams, device):
 
         # library yardsticks, never called by the port: bf16 channels-last
         # F.conv2d of the same convolutions (no affine)
-        def oihw(g, ci):
-            return g.reshape(3, 3, ci, f).permute(3, 2, 0, 1).contiguous(
+        def oihw(wt):
+            return wt.reshape(wt.shape[0], 3, 3, -1).permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
 
         xn, y1n, skn = (t.permute(0, 3, 1, 2) for t in (x, y1, skip))
-        w1o, w2o = oihw(w1, cin), oihw(w2, f)
+        w1o, w2o = oihw(lvl.w1), oihw(lvl.w2)
         launches = {
-            "conv1": (lambda: fr.launch_conv3x3(x, w1, *lvl.a1, 1, c),
-                      lambda: fr.conv3x3_plain(x, w1, *lvl.a1),
+            "conv1": (lambda: conv(x, lvl.w1, *lvl.a1, 1),
+                      lambda: plain(x, lvl.w1, *lvl.a1, 1),
                       lambda: F.conv2d(xn, w1o, padding=1)),
-            "conv2": (lambda: fr.launch_conv3x3(y1, w2, *lvl.a2, 1, c),
-                      lambda: fr.conv3x3_plain(y1, w2, *lvl.a2),
+            "conv2": (lambda: conv(y1, lvl.w2, *lvl.a2, 1),
+                      lambda: plain(y1, lvl.w2, *lvl.a2, 1),
                       lambda: F.conv2d(y1n, w2o, padding=1)),
         }
         if down:
             skp = F.pad(skn, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
-            wdo = oihw(wd, f)
-            launches["down"] = (lambda: fr.launch_conv3x3(skip, wd, None, None, 2, c),
-                                lambda: fu.downsample_plain(skip, lvl.wd),
+            wdo = oihw(lvl.wd)
+            launches["down"] = (lambda: conv(skip, lvl.wd, None, None, 2),
+                                lambda: plain(skip, lvl.wd, None, None, 2),
                                 lambda: F.conv2d(skp, wdo, stride=2))
         row = {"level": name, "x": [b, h, w, cin], "features": f, "down": down,
                "gflop": ops / 1e9, "fused_mbytes": fused_bytes / 1e6, "bound_ms": bms,
@@ -636,18 +659,25 @@ def phase_conv_block(torch, F, fu, fr, timer, uparams, device):
             t = {"ms": timer.ms(kfn, iters=10), "plain_ms": timer.ms(pfn, iters=3, warmup=1),
                  "library_ms": timer.ms(lfn, iters=10),
                  "bound_ms": bound_ms(nb, o, BF16_OPS_PER_S)[0], "gflop": o / 1e9, **errs[step]}
+            t["tflops"] = o / t["ms"] / 1e9
+            t["library_tflops"] = o / t["library_ms"] / 1e9
             row["launches"][step] = t
             for key in ("ms", "plain_ms", "library_ms"):
                 agg[key] += t[key]
             agg["max_abs_err"] = max(agg["max_abs_err"], t["max_abs_err"])
             agg["launches_per_batch"] += 1
         row["ms"] = sum(t["ms"] for t in row["launches"].values())
+        row["tflops"] = ops / row["ms"] / 1e9
         agg["bound_ms"] += bms
         agg["three_launch_bound_ms"] += three
+        agg["gflop"] += ops / 1e9
         emit("conv_block", **row)
         levels.append(row)
         del x, y1, skip, dn, checks, got, ref, launches
     agg["bound_by"] = "operations"
+    agg["tflops"] = agg["gflop"] / agg["ms"]
+    agg["share_of_bound"] = agg["bound_ms"] / agg["ms"]
+    emit("conv_block_per_batch", **agg)
     return agg, levels
 
 
@@ -728,8 +758,8 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     wall = run_sfx(torch, pt, pool, pipe, SFX_BATCHES)
     counts = pt.counts()
     nb = pipe.metrics.batches
-    want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 8 * nb, "flash_kernel": 0, **NO_BWD}
+    want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 8 * nb, "flash_kernel": 0,
+            **NO_BWD}
     if nb != SFX_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
@@ -921,8 +951,8 @@ def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
     counts = pt.counts()
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
     nb = pipe.metrics.batches
-    want = {"calib_kernel": nb, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 0, "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
+    want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 0,
+            "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
     if nb != VIT_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
@@ -1172,8 +1202,8 @@ def phase_vit_train(torch, pt, tf, consts, frame_shape, device):
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
     chunks = sum(-(-len(lb) // TRAIN_BATCH) for _, lb in batches)
     n = VIT_DEPTH * TRAIN_STEPS
-    want = {"calib_kernel": chunks, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-            "conv_block_kernel": 0, "flash_kernel": n, "flash_bwd_dkv_kernel": n,
+    want = {"calib_kernel": chunks, **NO_RESNET, "conv_block_kernel": 0,
+            "flash_kernel": n, "flash_bwd_dkv_kernel": n,
             "flash_bwd_dq_kernel": n}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {TRAIN_STEPS} steps, expected {want}")
@@ -1254,6 +1284,14 @@ def main() -> int:
 
     info = build.build()
     emit("build", seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
+    sm90 = [r for r in info["ptxas"] if r["lib"] == "conv_sm90"]
+    emit("build_sm90", kernels=len(sm90), registers=sorted({r.get("registers") for r in sm90}),
+         spills=sum(r["spill_stores"] + r["spill_loads"] for r in sm90),
+         wgmma_serialized=[r["function"] for r in sm90 if r["wgmma_serialized"]],
+         setmaxnreg_ignored=[r["function"] for r in sm90 if r["setmaxnreg_ignored"]])
+    if not sm90 or any(r["spill_stores"] + r["spill_loads"] or r["wgmma_serialized"]
+                       or r["setmaxnreg_ignored"] for r in sm90):
+        raise AssertionError(f"the wgmma kernels spill, serialize or lose setmaxnreg: {sm90}")
 
     t0 = time.monotonic()
     src = pt.SyntheticSource(num_events=POOL_EVENTS, detector_name="epix10k2M", seed=0)
@@ -1278,7 +1316,7 @@ def main() -> int:
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
     uparams = pt.pack_unet(pt.unet_from_flax(pt.init_peaknet_tpu_params(SFX_FEATURES, seed=0),
                                              device=device))
-    conv_block, _ = phase_conv_block(torch, F, fu, fr, timer, uparams, device)
+    conv_block, _ = phase_conv_block(torch, F, fu, timer, uparams, device)
     del uparams
     pipe, sfx_counts = phase_sfx(torch, pt, pool, calib_np, device)
     phase_sfx_profile(torch, pt, pool, pipe)
@@ -1303,20 +1341,21 @@ def main() -> int:
         "bound_by": c["bound_by"], "library_ms": None,
     }]
     replaces = {
-        "conv1x1_kernel": "psana_ray_tpu/models/pallas_resnet.py:95 and "
-                          "psana_ray_tpu/models/pallas_resnet.py:251",
+        "conv1x1_kernel": "psana_ray_tpu/models/pallas_resnet.py:95",
         "conv3x3_kernel": "psana_ray_tpu/models/pallas_resnet.py:95",
+        "back_kernel": "psana_ray_tpu/models/pallas_resnet.py:251",
     }
     for name, agg in per_kernel.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{csrc}/bottleneck.cu",
+            "name": name, "route": "cuda",
+            "source": f"{csrc}/{'conv_sm90' if name == 'back_kernel' else 'bottleneck'}.cu",
             "replaces": replaces[name], "launches": counts[name],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
         })
     kernels.append({
-        "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/bottleneck.cu",
+        "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/conv_sm90.cu",
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
         "launches": sfx_counts["conv_block_kernel"], "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],

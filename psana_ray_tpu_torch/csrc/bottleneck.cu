@@ -1,33 +1,18 @@
-// conv1x1_kernel and conv3x3_kernel: the ResNet-v1.5 bottleneck for Hopper
-// (sm_90a), as chained implicit GEMMs over NHWC bf16 activations.
+// conv1x1_kernel and conv3x3_kernel: the front half of the ResNet-v1.5
+// bottleneck (K2) for Hopper (sm_90a), as two chained implicit GEMMs over
+// NHWC bf16 activations.
 //
-// Replaces the TPU kernels
-//   psana_ray_tpu/models/pallas_resnet.py:_bottleneck_kernel (K2) and
-//   psana_ray_tpu/models/pallas_resnet.py:_back_kernel       (K3).
-// One bottleneck block is three launches:
-//   y1  = conv1x1_kernel<0>(x,  w1)              silu(x@w1 * s1 + b1)
-//   y2  = conv3x3_kernel   (y1, w2, stride)       silu(conv3x3(y1) * s2 + b2)
-//   out = conv1x1_kernel<1|2>(y2, w3, ...)        the back step (K3):
-//         <1>: silu(y2@w3 * s3 + b3 + x)                       (identity)
-//         <2>: silu(y2@w3 * s3 + b3 + x[::s,::s]@wp * sp + bp) (projection)
-// y1, y2 and out are rounded to bf16; every accumulator and every affine
-// is f32, at exactly the rounding points of the Pallas kernel
-// (pallas_resnet.py:169, :215, :220-239).
-//
-// conv3x3_kernel also carries K4, one PeakNet-TPU encoder level
-// (psana_ray_tpu/models/pallas_unet.py:_conv_block_kernel), as three
-// launches chosen by its epilogue template parameter:
-//   y1   = conv3x3_kernel<0>(x,    w1, 1)   silu(conv3x3(x)  * s1 + b1)
-//   skip = conv3x3_kernel<0>(y1,   w2, 1)   silu(conv3x3(y1) * s2 + b2)
-//   down = conv3x3_kernel<1>(skip, wd, 2)   conv3x3/2(skip), no affine
-// (the bottleneck level has no down), each rounded to bf16 where the
-// Pallas kernel rounds (pallas_unet.py:115, :133, :176). The TPU kernel
-// keeps the whole level in 16 MB of VMEM; an SM has 227 KB, so y1 and
-// skip make a round trip through HBM here. At PeakNet-TPU's full width
-// every level is bound by tensor-core operations (Cin >= 64, f >= 128). XLA SAME padding of the 3x3 is
-// (1,1) at stride 1 and (0,1) at stride 2: the tap origin is shifted by
-// `pad` and out-of-range taps read zeros. The strided projection input
-// x[::s, ::s] is read in place through the stride, with no copy.
+// Replaces the TPU kernel
+//   psana_ray_tpu/models/pallas_resnet.py:_bottleneck_kernel (K2).
+// One bottleneck block's front is two launches:
+//   y1 = conv1x1_kernel(x,  w1)           silu(x@w1 * s1 + b1)
+//   y2 = conv3x3_kernel(y1, w2, stride)   silu(conv3x3(y1) * s2 + b2)
+// y1 and y2 are rounded to bf16; every accumulator and every affine is
+// f32, at exactly the rounding points of the Pallas kernel
+// (pallas_resnet.py:169, :215). XLA SAME padding of the 3x3 is (1,1) at
+// stride 1 and (0,1) at stride 2: the tap origin is shifted by `pad` and
+// out-of-range taps read zeros. The back step (K3) and the U-Net encoder
+// level (K4) run on the wgmma mainloop of conv_sm90.cu.
 //
 // What bounds it on this card: at batch 32 the 3x3 convolutions and the
 // stride-2 blocks are bound by tensor-core operations (989 TFLOP/s bf16)
@@ -36,9 +21,9 @@
 // 256-thread block, stages 128x32 and 32x64 bf16 operand tiles through a
 // two-deep cp.async ring in shared memory, and multiplies with WMMA
 // 16x16x16 bf16 fragments (f32 accumulators); the epilogue goes through a
-// shared-memory f32 tile. The TPU kernel keeps y1 and y2 in VMEM; here
-// they make a round trip through HBM in bf16. Fusing the block into one
-// kernel (wgmma, TMA, y1 kept on chip) is the planned redesign.
+// shared-memory f32 tile. The TPU kernel keeps y1 in VMEM; here it makes
+// a round trip through HBM in bf16. Moving it onto the wgmma mainloop,
+// with y1 kept on chip, is the planned redesign.
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
@@ -170,31 +155,20 @@ __device__ __forceinline__ void store_acc(float* Cs, Acc (&acc)[2][2]) {
                               wmma::mem_row_major);
 }
 
-// kMode 0: silu(acc*s+b); 1: + identity residual res[m, n]; 2: + (acc2*s2+b2);
-// 3: acc alone, no affine and no activation (the U-Net's downsample conv)
-template <int kMode>
+// out = silu(acc*s+b) over the (m0, n0) tile, rounded to bf16
 __device__ __forceinline__ void conv_body(const Operand& op, int N, int M, int Ho, int Wo,
                                           const float* __restrict__ scale,
-                                          const float* __restrict__ bias,
-                                          const bf16* __restrict__ res, const Operand& op2,
-                                          const float* __restrict__ scale2,
-                                          const float* __restrict__ bias2,
-                                          bf16* __restrict__ out) {
+                                          const float* __restrict__ bias, bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + kStages * kAStage;
   float* C1 = reinterpret_cast<float*>(smem + kSmemAB);
-  float* C2 = C1 + BM * LDC;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
 
   Acc acc[2][2];
   conv_gemm(op, N, M, Ho, Wo, m0, n0, As, Bs, acc);
   store_acc(C1, acc);
-  if constexpr (kMode == 2) {
-    conv_gemm(op2, N, M, Ho, Wo, m0, n0, As, Bs, acc);
-    store_acc(C2, acc);
-  }
   __syncthreads();
 
   for (int g = threadIdx.x; g < BM * BN / 8; g += kThreads) {
@@ -205,127 +179,71 @@ __device__ __forceinline__ void conv_body(const Operand& op, int N, int M, int H
     const int n = n0 + c8;
     float v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = kMode == 3 ? C1[row * LDC + c8 + e] : C1[row * LDC + c8 + e] * scale[n + e] + bias[n + e];
-    if constexpr (kMode == 1) {
-      const uint4 r = *reinterpret_cast<const uint4*>(res + static_cast<size_t>(m) * N + n);
-      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(r2[e]);
-        v[2 * e] += f.x;
-        v[2 * e + 1] += f.y;
-      }
-    }
-    if constexpr (kMode == 2) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += C2[row * LDC + c8 + e] * scale2[n + e] + bias2[n + e];
-    }
+    for (int e = 0; e < 8; ++e) v[e] = C1[row * LDC + c8 + e] * scale[n + e] + bias[n + e];
     uint4 o;
     __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o2[e] = kMode == 3 ? __floats2bfloat162_rn(v[2 * e], v[2 * e + 1])
-                         : __floats2bfloat162_rn(silu_f32(v[2 * e]), silu_f32(v[2 * e + 1]));
+    for (int e = 0; e < 4; ++e) o2[e] = __floats2bfloat162_rn(silu_f32(v[2 * e]), silu_f32(v[2 * e + 1]));
     *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * N + n) = o;
   }
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 conv1x1_kernel(Operand op, int N, int M, int Ho, int Wo, const float* scale, const float* bias,
-               const bf16* res, Operand op2, const float* scale2, const float* bias2, bf16* out) {
-  conv_body<kMode>(op, N, M, Ho, Wo, scale, bias, res, op2, scale2, bias2, out);
+               bf16* out) {
+  conv_body(op, N, M, Ho, Wo, scale, bias, out);
 }
 
-// kEpi 0: silu(acc*s+b) (ResNet middle, U-Net ConvBlock convs); 1: acc rounded to bf16
-template <int kEpi>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(Operand op, int N, int M, int Ho, int Wo, const float* scale, const float* bias,
                bf16* out) {
-  conv_body<kEpi == 0 ? 0 : 3>(op, N, M, Ho, Wo, scale, bias, nullptr, op, nullptr, nullptr, out);
+  conv_body(op, N, M, Ho, Wo, scale, bias, out);
 }
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-bool shape_ok(const Operand& op, int N) {
-  return op.C > 0 && op.C % BK == 0 && N > 0 && N % BN == 0 && op.H > 0 && op.W > 0;
-}
-
-dim3 grid_for(int M, int N) { return dim3(N / BN, (M + BM - 1) / BM); }
-
-template <int kMode>
-cudaError_t launch_conv1x1(const Operand& op, const Operand& op2, int N, int M, int Ho, int Wo,
-                           const float* scale, const float* bias, const bf16* res,
-                           const float* scale2, const float* bias2, bf16* out, cudaStream_t s) {
-  constexpr int smem = kSmemAB + (kMode == 2 ? 2 : 1) * kSmemC;
-  static const cudaError_t attr = allow_smem(conv1x1_kernel<kMode>, smem);
+cudaError_t launch(Kernel kernel, const Operand& op, int N, int M, int Ho, int Wo,
+                   const float* scale, const float* bias, bf16* out, cudaStream_t s) {
+  constexpr int smem = kSmemAB + kSmemC;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  conv1x1_kernel<kMode><<<grid_for(M, N), kThreads, smem, s>>>(op, N, M, Ho, Wo, scale, bias, res,
-                                                               op2, scale2, bias2, out);
+  kernel<<<dim3(N / BN, (M + BM - 1) / BM), kThreads, smem, s>>>(op, N, M, Ho, Wo, scale, bias, out);
   return cudaGetLastError();
 }
 
-template <int kEpi>
-cudaError_t launch_conv3x3(const Operand& op, int N, int M, int Ho, int Wo, const float* scale,
-                           const float* bias, bf16* out, cudaStream_t s) {
-  static const cudaError_t attr = allow_smem(conv3x3_kernel<kEpi>, kSmemAB + kSmemC);
-  if (attr != cudaSuccess) return attr;
-  conv3x3_kernel<kEpi><<<grid_for(M, N), kThreads, kSmemAB + kSmemC, s>>>(op, N, M, Ho, Wo, scale,
-                                                                          bias, out);
-  return cudaGetLastError();
+bool shape_ok(const Operand& op, int N, long long m) {
+  return op.C > 0 && op.C % BK == 0 && N > 0 && N % BN == 0 && op.H > 0 && op.W > 0 && m > 0 &&
+         m <= (1LL << 31) - 1 && (m + BM - 1) / BM <= 65535;
 }
 
 }  // namespace
 
-// 1x1 convolution with the bottleneck epilogues over the [B, H, W] pixel
-// grid. a [B, H, W, C] bf16; w [C, N] bf16; scale/bias [N] f32. mode 0:
-// silu(a@w*s+b). mode 1: + res[B, H, W, N] (bf16, added in f32). mode 2:
-// + (a2 read at (y*stride2, x*stride2)) @ w2 * scale2 + bias2, with
-// a2 [B, H2, W2, C2] and w2 [C2, N]. out [B, H, W, N] bf16.
+// 1x1 convolution silu(a@w*s+b) over the [B, H, W] pixel grid. a
+// [B, H, W, C] bf16; w [C, N] bf16; scale/bias [N] f32; out [B, H, W, N] bf16.
 extern "C" int conv1x1_launch(const void* a, int B, int H, int W, int C, const void* w, int N,
-                              const void* scale, const void* bias, int mode, const void* res,
-                              const void* a2, int H2, int W2, int C2, int stride2, const void* w2,
-                              const void* scale2, const void* bias2, void* out, void* stream) {
+                              const void* scale, const void* bias, void* out, void* stream) {
   const Operand op{static_cast<const bf16*>(a), static_cast<const bf16*>(w), H, W, C, 1, 1, 0};
-  const Operand op2{static_cast<const bf16*>(a2 ? a2 : a), static_cast<const bf16*>(w2 ? w2 : w),
-                    H2, W2, C2, 1, stride2, 0};
-  const long long m_ll = static_cast<long long>(B) * H * W;
-  if (B <= 0 || !shape_ok(op, N) || m_ll > (1LL << 31) - 1 ||
-      (m_ll + BM - 1) / BM > 65535 || mode < 0 || mode > 2 || (mode == 1 && !res) ||
-      (mode == 2 && (!a2 || !w2 || !scale2 || !bias2 || stride2 < 1 || !shape_ok(op2, N))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = mode == 0 ? launch_conv1x1<0> : mode == 1 ? launch_conv1x1<1> : launch_conv1x1<2>;
-  return static_cast<int>(launch(op, op2, N, static_cast<int>(m_ll), H, W,
+  const long long m = static_cast<long long>(B) * H * W;
+  if (B <= 0 || !shape_ok(op, N, m) || !scale || !bias) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(conv1x1_kernel, op, N, static_cast<int>(m), H, W,
                                  static_cast<const float*>(scale), static_cast<const float*>(bias),
-                                 static_cast<const bf16*>(res), static_cast<const float*>(scale2),
-                                 static_cast<const float*>(bias2), static_cast<bf16*>(out),
-                                 static_cast<cudaStream_t>(stream)));
+                                 static_cast<bf16*>(out), static_cast<cudaStream_t>(stream)));
 }
 
 // 3x3 convolution, XLA SAME padding ((1,1) at stride 1, (0,1) at stride 2),
-// then epilogue 0: silu(acc*s+b), or epilogue 1: acc alone (scale and bias
-// unused, may be null). x [B, H, W, C] bf16; w [9*C, N] bf16 (taps
-// row-major, HWIO flattened); out [B, H/stride, W/stride, N] bf16. Stride 2
-// needs even H and W (the Pallas kernels' h // s output extent).
+// then silu(acc*s+b). x [B, H, W, C] bf16; w [9*C, N] bf16 (taps
+// row-major, HWIO flattened); out [B, H/stride, W/stride, N] bf16. Stride
+// 2 needs even H and W (the Pallas kernel's h // s output extent).
 extern "C" int conv3x3_launch(const void* x, int B, int H, int W, int C, int stride, const void* w,
-                              int N, const void* scale, const void* bias, int epilogue, void* out,
-                              void* stream) {
-  if ((stride != 1 && stride != 2) || (epilogue != 0 && epilogue != 1) ||
-      (epilogue == 0 && (!scale || !bias)))
-    return static_cast<int>(cudaErrorInvalidValue);
+                              int N, const void* scale, const void* bias, void* out, void* stream) {
+  if ((stride != 1 && stride != 2) || !scale || !bias) return static_cast<int>(cudaErrorInvalidValue);
   const Operand op{static_cast<const bf16*>(x), static_cast<const bf16*>(w), H, W, C, 3, stride,
                    stride == 1 ? 1 : 0};
   const int Ho = H / stride, Wo = W / stride;
-  const long long m_ll = static_cast<long long>(B) * Ho * Wo;
-  if (B <= 0 || H % stride || W % stride || !shape_ok(op, N) || m_ll > (1LL << 31) - 1 ||
-      (m_ll + BM - 1) / BM > 65535)
+  const long long m = static_cast<long long>(B) * Ho * Wo;
+  if (B <= 0 || H % stride || W % stride || !shape_ok(op, N, m))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = epilogue == 0 ? launch_conv3x3<0> : launch_conv3x3<1>;
-  return static_cast<int>(launch(op, N, static_cast<int>(m_ll), Ho, Wo,
+  return static_cast<int>(launch(conv3x3_kernel, op, N, static_cast<int>(m), Ho, Wo,
                                  static_cast<const float*>(scale), static_cast<const float*>(bias),
                                  static_cast<bf16*>(out), static_cast<cudaStream_t>(stream)));
 }

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-LIBS = ("calib", "bottleneck", "flash", "flash_bwd")
+LIBS = ("calib", "bottleneck", "conv_sm90", "flash", "flash_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,12 +51,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "bottleneck": {
-        # a, B, H, W, C, w, N, scale, bias, mode, res,
-        # a2, H2, W2, C2, stride2, w2, scale2, bias2, out, stream
-        "conv1x1_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
-                           _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        # x, B, H, W, C, stride, w, N, scale, bias, epilogue, out, stream
-        "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P],
+        # a, B, H, W, C, w, N, scale, bias, out, stream
+        "conv1x1_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+        # x, B, H, W, C, stride, w, N, scale, bias, out, stream
+        "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    },
+    "conv_sm90": {
+        # x, B, H, W, C, stride, wt, N, scale, bias, out, stream
+        "conv3x3_sm90_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+        # y2, B, Ho, Wo, F, w3t, N, s3, b3, res, x, H, W, Cin, stride, wpt, sp, bp, out, stream
+        "back_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P],
     },
     "flash": {
         # q, k, v, o, lse, BH, Sq, Sk, D, sm_scale, causal, stream
@@ -133,15 +138,18 @@ def _build_locked() -> Dict[str, object]:
 
 def ptxas_report(out: Optional[Path] = None) -> List[dict]:
     """Registers, spill stores/loads and shared memory per kernel, from the
-    ``-Xptxas -v`` logs kept beside the libraries."""
+    ``-Xptxas -v`` logs kept beside the libraries, and whether ``ptxas``
+    advised that the kernel's ``wgmma.mma_async`` instructions are
+    serialized or that its ``setmaxnreg`` was ignored."""
     out = out or build_dir()
     rows = []
     for name in LIBS:
         log_path = out / f"{name}.ptxas.log"
         if not log_path.exists():
             continue
+        lines = log_path.read_text().splitlines()
         func = None
-        for line in log_path.read_text().splitlines():
+        for line in lines:
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 func = m.group(1)
@@ -156,6 +164,12 @@ def ptxas_report(out: Optional[Path] = None) -> List[dict]:
                 rows[-1]["registers"] = int(m.group(1))
                 sm = re.search(r"(\d+) bytes smem", line)
                 rows[-1]["static_smem"] = int(sm.group(1)) if sm else 0
+        for row in rows:
+            if row["lib"] == name:
+                said = [line for line in lines if row["function"] in line]
+                row["wgmma_serialized"] = any("wgmma.mma_async instructions are serialized" in line
+                                              for line in said)
+                row["setmaxnreg_ignored"] = any("setmaxnreg ignored" in line for line in said)
     return rows
 
 

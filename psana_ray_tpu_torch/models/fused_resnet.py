@@ -1,17 +1,21 @@
 """Fused ResNet-50 inference with the hand-written bottleneck kernels.
 
 Counterpart of ``psana_ray_tpu/models/pallas_resnet.py``. Each bottleneck
-block is three CUDA launches (``csrc/bottleneck.cu``):
+block is three CUDA launches:
 
     y1  = conv1x1_kernel(x, w1)             silu(x@w1 * s1 + b1)          K2, front
     y2  = conv3x3_kernel(y1, w2, stride)    silu(conv3x3(y1) * s2 + b2)   K2, middle
-    out = conv1x1_kernel(y2, w3, ...)       silu(y2@w3 * s3 + b3 + res)   K3, the back step
+    out = back_kernel(y2, w3, ...)          silu(y2@w3 * s3 + b3 + res)   K3, the back step
 
 where ``res`` is the identity ``x`` (added in f32) or the strided
 projection ``x[::s, ::s] @ wp * sp + bp``. y1, y2 and the output are bf16;
 accumulators and affines are f32, at the Pallas kernel's rounding points.
+K2's two launches run on the WMMA kernels of ``csrc/bottleneck.cu``; the
+back step runs on the Hopper ``wgmma`` mainloop of ``csrc/conv_sm90.cu``
+(TMA operand and residual loads, a TMA store of the output), which takes
+``w3`` and ``wp`` K-major (``[N, K]``, packed once by :func:`pack_block`).
 The TPU kernel keeps y1 and y2 in VMEM; here they round-trip through HBM
-in bf16 (the fused single-kernel block is the planned redesign).
+in bf16.
 
 The stem convolution, max-pool, global average pool and head are library
 ops, as they are XLA ops in the reference. Activations are NHWC at their
@@ -42,18 +46,25 @@ from psana_ray_tpu_torch.models.resnet import (
 
 _BF16 = torch.bfloat16
 
-# kernel tiling constraints (csrc/bottleneck.cu: BK = 32, BN = 64)
+# tiling constraints of the WMMA kernels (csrc/bottleneck.cu: BK = 32, BN = 64)
 _K_QUANTUM = 32
 _N_QUANTUM = 64
+# and of the wgmma mainloop (csrc/sm90_gemm.cuh: BK = 64, BN = 128 or 256)
+SM90_K_QUANTUM = 64
+SM90_N_QUANTUM = 128
+SM90_MAX_M = 65535 * 128  # output pixels: the grid's M tiles
 
-# a projection operand: (x [B,H,W,Cin] bf16, wp [Cin,N] bf16, sp [N], bp [N], stride)
+# a projection operand: (x [B,H,W,Cin] bf16, wp, sp [N], bp [N], stride), wp
+# [Cin, N] for the plain version, K-major [N, Cin] for back_step
 Projection = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
 
 
 @dataclasses.dataclass
 class BlockWeights:
-    """One bottleneck's weights in the kernels' GEMM layouts: bf16 ``[K, N]``
-    matrices (the 3x3 as ``[9*f, f]``, taps row-major) and f32 affines."""
+    """One bottleneck's weights in the kernels' GEMM layouts: ``w1`` and
+    ``w2`` bf16 ``[K, N]`` (the 3x3 as ``[9*f, f]``, taps row-major) for
+    K2's kernels, ``w3`` and ``wp`` bf16 K-major ``[N, K]`` for
+    ``back_kernel``, and f32 affines."""
 
     stride: int
     w1: torch.Tensor
@@ -89,6 +100,11 @@ def _gemm_layout(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(kh * kw * i, o).to(_BF16).contiguous()
 
 
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """OIHW 1x1 conv weight -> ``[O, I]`` bf16, K contiguous."""
+    return w[:, :, 0, 0].to(_BF16).contiguous()
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
@@ -99,13 +115,13 @@ def pack_block(blk: BottleneckBlock) -> BlockWeights:
         stride=blk.stride,
         w1=_gemm_layout(blk.conv1.weight),
         w2=_gemm_layout(blk.conv2.weight),
-        w3=_gemm_layout(blk.conv3.weight),
+        w3=_k_major(blk.conv3.weight),
         s1=_f32(blk.norm1.scale), b1=_f32(blk.norm1.bias),
         s2=_f32(blk.norm2.scale), b2=_f32(blk.norm2.bias),
         s3=_f32(blk.norm3.scale), b3=_f32(blk.norm3.bias),
     )
     if blk.proj is not None:
-        bw.wp = _gemm_layout(blk.proj.weight)
+        bw.wp = _k_major(blk.proj.weight)
         bw.sp, bw.bp = _f32(blk.proj_norm.scale), _f32(blk.proj_norm.bias)
     return bw
 
@@ -207,102 +223,164 @@ def _check_operand(name: str, a: torch.Tensor, w: torch.Tensor, k: int) -> None:
         raise ValueError(f"{name}: weight on {w.device}, activations on {a.device}")
 
 
+def _check_k_major(name: str, a: torch.Tensor, w: torch.Tensor) -> None:
+    """NHWC bf16 activations and a contiguous K-major bf16 ``[N, C]`` weight."""
+    if a.dim() != 4 or a.dtype != _BF16 or not a.is_contiguous():
+        raise ValueError(f"{name}: activations must be contiguous NHWC bf16, got "
+                         f"{a.dtype} {tuple(a.shape)}")
+    if w.dim() != 2 or w.dtype != _BF16 or not w.is_contiguous() or w.shape[1] != a.shape[3]:
+        raise ValueError(f"{name}: weight must be contiguous bf16 K-major [N, {a.shape[3]}], "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    if w.device != a.device:
+        raise ValueError(f"{name}: weight on {w.device}, activations on {a.device}")
+
+
 def _affine_ok(name: str, n: int, *ts: torch.Tensor) -> None:
     for t in ts:
         if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f"{name}: affines must be contiguous f32 [{n}]")
 
 
-def conv1x1(
-    a: torch.Tensor,
-    w: torch.Tensor,
-    scale: torch.Tensor,
-    bias: torch.Tensor,
-    residual: Optional[torch.Tensor] = None,
-    proj: Optional[Projection] = None,
-) -> torch.Tensor:
-    """``silu(a@w*scale+bias [+ residual | + proj])`` over NHWC pixels:
+def conv1x1(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``silu(a@w*scale+bias)`` over NHWC pixels (K2's front):
     ``conv1x1_kernel`` on a CUDA tensor, :func:`conv1x1_plain` on CPU."""
     if not a.is_cuda:
-        return conv1x1_plain(a, w, scale, bias, residual, proj)
-    if residual is not None and proj is not None:
-        raise ValueError("conv1x1: residual and proj are exclusive")
+        return conv1x1_plain(a, w, scale, bias)
     _check_operand("conv1x1_kernel", a, w, 1)
     b, h, wd, c = a.shape
     n = w.shape[1]
     _affine_ok("conv1x1_kernel", n, scale, bias)
     out = torch.empty((b, h, wd, n), dtype=_BF16, device=a.device)
-    mode, res_ptr = 0, None
-    a2_ptr = w2_ptr = s2_ptr = b2_ptr = None
-    h2 = w2d = c2 = 0
-    stride2 = 1
-    if residual is not None:
-        if residual.shape != out.shape or residual.dtype != _BF16 or not residual.is_contiguous():
-            raise ValueError(f"conv1x1_kernel: identity residual must be contiguous bf16 "
-                             f"{tuple(out.shape)}, got {residual.dtype} {tuple(residual.shape)}")
-        mode, res_ptr = 1, residual.data_ptr()
-    elif proj is not None:
-        x, wp, sp, bp, stride2 = proj
-        _check_operand("conv1x1_kernel (projection)", x, wp, 1)
-        _affine_ok("conv1x1_kernel (projection)", n, sp, bp)
-        if wp.shape[1] != n or x.shape[0] != b or -(-x.shape[1] // stride2) != h \
-                or -(-x.shape[2] // stride2) != wd:
-            raise ValueError(f"conv1x1_kernel: projection input {tuple(x.shape)} at stride "
-                             f"{stride2} does not give the output grid {(b, h, wd)}")
-        mode = 2
-        a2_ptr, w2_ptr, s2_ptr, b2_ptr = x.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr()
-        _, h2, w2d, c2 = x.shape
     lib = build.library("bottleneck")
     err = lib.conv1x1_launch(
         a.data_ptr(), b, h, wd, c, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
-        mode, res_ptr, a2_ptr, h2, w2d, c2, stride2, w2_ptr, s2_ptr, b2_ptr, out.data_ptr(),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check(lib, err, "conv1x1_kernel")
     LAUNCHES["conv1x1_kernel"] += 1
     return out
 
 
-def launch_conv3x3(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    scale: Optional[torch.Tensor],
-    bias: Optional[torch.Tensor],
-    stride: int,
-    counter: str,
-) -> torch.Tensor:
-    """One launch of ``conv3x3_kernel`` on CUDA tensors, counted under
-    ``LAUNCHES[counter]``: epilogue ``silu(acc*scale+bias)``, or the bare
-    accumulator rounded to bf16 when ``scale`` and ``bias`` are None."""
-    _check_stride(x, stride)
-    _check_operand(counter, x, w, 3)
-    b, h, wd, c = x.shape
-    n = w.shape[1]
-    epilogue = int(scale is None)
-    if epilogue != int(bias is None):
-        raise ValueError(f"{counter}: give both scale and bias, or neither")
-    if not epilogue:
-        _affine_ok(counter, n, scale, bias)
-    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
-    lib = build.library("bottleneck")
-    err = lib.conv3x3_launch(
-        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n,
-        None if epilogue else scale.data_ptr(), None if epilogue else bias.data_ptr(),
-        epilogue, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, counter)
-    LAUNCHES[counter] += 1
-    return out
-
-
 def conv3x3(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
-    """``silu(conv3x3(x)*scale+bias)``, XLA SAME padding, stride 1 or 2:
-    ``conv3x3_kernel`` on a CUDA tensor, :func:`conv3x3_plain` on CPU."""
+    """``silu(conv3x3(x)*scale+bias)``, XLA SAME padding, stride 1 or 2
+    (K2's middle): ``conv3x3_kernel`` on a CUDA tensor,
+    :func:`conv3x3_plain` on CPU."""
     if not x.is_cuda:
         return conv3x3_plain(x, w, scale, bias, stride)
-    return launch_conv3x3(x, w, scale, bias, stride, "conv3x3_kernel")
+    _check_stride(x, stride)
+    _check_operand("conv3x3_kernel", x, w, 3)
+    b, h, wd, c = x.shape
+    n = w.shape[1]
+    _affine_ok("conv3x3_kernel", n, scale, bias)
+    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
+    lib = build.library("bottleneck")
+    err = lib.conv3x3_launch(
+        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "conv3x3_kernel")
+    LAUNCHES["conv3x3_kernel"] += 1
+    return out
+
+
+def sm90_gemm_gate(name: str, m: int, k: int, n: int) -> None:
+    """Raise unless the wgmma mainloop takes an implicit GEMM of ``m``
+    output pixels, ``k`` input channels a tap and ``n`` outputs."""
+    if k <= 0 or k % SM90_K_QUANTUM or n <= 0 or n % SM90_N_QUANTUM:
+        raise ValueError(f"{name}: kernel needs Cin % {SM90_K_QUANTUM} == 0 and N % "
+                         f"{SM90_N_QUANTUM} == 0, got Cin={k}, N={n}")
+    if not 0 < m <= SM90_MAX_M:
+        raise ValueError(f"{name}: kernel takes 1 to {SM90_MAX_M} output pixels, got {m}")
+
+
+def back_gate(y2_shape: Sequence[int], n: int, residual_shape: Optional[Sequence[int]] = None,
+              proj_shape: Optional[Sequence[int]] = None, stride: int = 1) -> None:
+    """Raise unless ``back_kernel`` takes these shapes: y2 ``[B, Ho, Wo, F]``
+    to ``n`` outputs, with an identity residual ``[B, Ho, Wo, n]`` or a
+    projection input ``[B, Ho*stride, Wo*stride, Cin]``, exactly one."""
+    if len(y2_shape) != 4:
+        raise ValueError(f"back_kernel: y2 must be [B, Ho, Wo, F], got {tuple(y2_shape)}")
+    b, ho, wo, f = y2_shape
+    sm90_gemm_gate("back_kernel", b * ho * wo, f, n)
+    if (residual_shape is None) == (proj_shape is None):
+        raise ValueError("back_kernel: give an identity residual or a projection, exactly one")
+    if residual_shape is not None and tuple(residual_shape) != (b, ho, wo, n):
+        raise ValueError(f"back_kernel: identity residual must be {(b, ho, wo, n)}, got "
+                         f"{tuple(residual_shape)}")
+    if proj_shape is not None:
+        if stride not in (1, 2):
+            raise ValueError(f"back_kernel: projection stride must be 1 or 2, got {stride}")
+        if len(proj_shape) != 4 or tuple(proj_shape[:3]) != (b, ho * stride, wo * stride):
+            raise ValueError(f"back_kernel: projection input {tuple(proj_shape)} at stride "
+                             f"{stride} does not give the output grid {(b, ho, wo)}")
+        sm90_gemm_gate("back_kernel (projection)", b * ho * wo, proj_shape[3], n)
+
+
+def back_step_plain(
+    y2: torch.Tensor,
+    w3: torch.Tensor,
+    s3: torch.Tensor,
+    b3: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    proj: Optional[Projection] = None,
+) -> torch.Tensor:
+    """Plain version of ``back_kernel`` on its K-major weights: the
+    :func:`conv1x1_plain` back step."""
+    if proj is not None:
+        x, wp, sp, bp, s = proj
+        proj = (x, wp.t(), sp, bp, s)
+    return conv1x1_plain(y2, w3.t(), s3, b3, residual, proj)
+
+
+def back_step(
+    y2: torch.Tensor,
+    w3: torch.Tensor,
+    s3: torch.Tensor,
+    b3: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    proj: Optional[Projection] = None,
+) -> torch.Tensor:
+    """The bottleneck's back step (K3), ``silu(y2@w3.T*s3+b3 + residual)``
+    or ``silu((y2@w3.T*s3+b3) + (x[::s,::s]@wp.T*sp+bp))`` with K-major
+    ``w3 [N, F]`` and ``wp [N, Cin]``: ``back_kernel`` on a CUDA tensor,
+    :func:`back_step_plain` on CPU. The kernel takes F and Cin multiples
+    of 64 and N a multiple of 128, and raises otherwise."""
+    if not y2.is_cuda:
+        return back_step_plain(y2, w3, s3, b3, residual, proj)
+    n = w3.shape[0]
+    back_gate(y2.shape, n, None if residual is None else residual.shape,
+              None if proj is None else proj[0].shape, 1 if proj is None else proj[4])
+    _check_k_major("back_kernel", y2, w3)
+    _affine_ok("back_kernel", n, s3, b3)
+    b, ho, wo, f = y2.shape
+    out = torch.empty((b, ho, wo, n), dtype=_BF16, device=y2.device)
+    res_ptr = x_ptr = wp_ptr = sp_ptr = bp_ptr = None
+    h = w = cin = 0
+    stride = 1
+    if residual is not None:
+        if residual.dtype != _BF16 or not residual.is_contiguous() or residual.device != y2.device:
+            raise ValueError(f"back_kernel: identity residual must be contiguous bf16 on "
+                             f"{y2.device}, got {residual.dtype} on {residual.device}")
+        res_ptr = residual.data_ptr()
+    else:
+        x, wp, sp, bp, stride = proj
+        _check_k_major("back_kernel (projection)", x, wp)
+        _affine_ok("back_kernel (projection)", n, sp, bp)
+        if wp.shape[0] != n:
+            raise ValueError(f"back_kernel: wp must be [{n}, Cin], got {tuple(wp.shape)}")
+        _, h, w, cin = x.shape
+        x_ptr, wp_ptr, sp_ptr, bp_ptr = x.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr()
+    lib = build.library("conv_sm90")
+    err = lib.back_launch(
+        y2.data_ptr(), b, ho, wo, f, w3.data_ptr(), n, s3.data_ptr(), b3.data_ptr(), res_ptr,
+        x_ptr, h, w, cin, stride, wp_ptr, sp_ptr, bp_ptr, out.data_ptr(),
+        torch.cuda.current_stream(y2.device).cuda_stream,
+    )
+    build.check(lib, err, "back_kernel")
+    LAUNCHES["back_kernel"] += 1
+    return out
 
 
 # -- the block and the network --------------------------------------------
@@ -313,8 +391,8 @@ def fused_bottleneck(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
     y1 = conv1x1(x, blk.w1, blk.s1, blk.b1)
     y2 = conv3x3(y1, blk.w2, blk.s2, blk.b2, blk.stride)
     if blk.wp is None:
-        return conv1x1(y2, blk.w3, blk.s3, blk.b3, residual=x)
-    return conv1x1(y2, blk.w3, blk.s3, blk.b3, proj=(x, blk.wp, blk.sp, blk.bp, blk.stride))
+        return back_step(y2, blk.w3, blk.s3, blk.b3, residual=x)
+    return back_step(y2, blk.w3, blk.s3, blk.b3, proj=(x, blk.wp, blk.sp, blk.bp, blk.stride))
 
 
 def _stem(params: FusedResNet, x: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,34 @@
 """Fused PeakNet-TPU inference with the hand-written encoder-level kernel.
 
 Counterpart of ``psana_ray_tpu/models/pallas_unet.py``. One encoder level
-(K4, ``_conv_block_kernel``) is three launches of ``conv3x3_kernel``
-(``csrc/bottleneck.cu``), two for the bottleneck, which has no ``down``:
+(K4, ``_conv_block_kernel``) is three launches of ``conv3x3_sm90_kernel``
+(``csrc/conv_sm90.cu``, the Hopper ``wgmma`` mainloop of
+``csrc/sm90_gemm.cuh``), two for the bottleneck, which has no ``down``:
 
-    y1   = conv3x3_kernel<0>(x, w1)        silu(conv3x3(x)  * s1 + b1)
-    skip = conv3x3_kernel<0>(y1, w2)       silu(conv3x3(y1) * s2 + b2)
-    down = conv3x3_kernel<1>(skip, wd, 2)  conv3x3/2(skip), no affine
+    y1   = conv3x3(x, w1)        silu(conv3x3(x)  * s1 + b1)
+    skip = conv3x3(y1, w2)       silu(conv3x3(y1) * s2 + b2)
+    down = conv3x3(skip, wd, 2)  conv3x3/2(skip), no affine
 
 y1, skip and down are bf16, accumulators and affines f32, rounded where
-the Pallas kernel rounds. The TPU kernel keeps the level in VMEM; here
-y1 and skip make a round trip through HBM in bf16 (the fused one-launch
-level is the planned redesign). The launches count under
-``LAUNCHES["conv_block_kernel"]``, apart from the ResNet's.
+the Pallas kernel rounds. The TPU kernel keeps the level in VMEM; here y1
+and skip make a round trip through HBM in bf16. At PeakNet-TPU's widths
+each launch is bound by tensor-core operations and the three launches'
+bound is within about 1% of a fused level's, so the level stays three
+launches. The launches count under ``LAUNCHES["conv_block_kernel"]``.
+The kernel takes K-major weights ``[f, 9*cin]``: :func:`pack_unet` packs
+them once; :func:`fused_conv_block`, which takes HWIO weights, packs them
+at each call.
 
 :func:`peaknet_tpu_fused_infer` keeps the reference's split
 (``pallas_unet.py:351-402``): encoder level 0 and the decoder are library
 convolutions (bf16 ``F.conv2d``, cuDNN on the card, as XLA in the
-reference), levels 1..n-1 and the bottleneck go through
-:func:`fused_conv_block`, and the head is an f32 1x1 followed by
-``depth_to_space``. Activations keep their true channel counts: the
-reference's 128-lane padding only serves the TPU.
+reference), levels 1..n-1 and the bottleneck go through the K4 launches,
+and the head is an f32 1x1 followed by ``depth_to_space``. Activations
+keep their true channel counts: the reference's 128-lane padding only
+serves the TPU.
 
-:func:`fused_conv_block` runs :func:`fused_conv_block_plain` for a CPU
-tensor, and launches the kernels, or raises, for a CUDA tensor.
+A CPU tensor runs the plain versions; a CUDA tensor launches the kernels,
+or raises.
 """
 
 from __future__ import annotations
@@ -34,11 +39,14 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from psana_ray_tpu_torch.kernels import LAUNCHES, build
 from psana_ray_tpu_torch.models.fused_resnet import (
+    _affine_ok,
+    _check_stride,
     _conv_f32,
     _pads3x3,
     conv3x3_plain,
-    launch_conv3x3,
+    sm90_gemm_gate,
 )
 from psana_ray_tpu_torch.models.resnet import conv2d_same
 from psana_ray_tpu_torch.models.unet_tpu import (
@@ -58,9 +66,15 @@ Affine = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _gemm(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[3, 3, cin, f]`` -> the kernel's ``[9*cin, f]`` bf16 (a view
-    when ``w`` is already contiguous bf16)."""
+    """HWIO ``[3, 3, cin, f]`` -> the plain versions' ``[9*cin, f]`` bf16
+    (a view when ``w`` is already contiguous bf16)."""
     return w.to(_BF16).reshape(-1, w.shape[3]).contiguous()
+
+
+def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, cin, f]`` -> the kernel's K-major ``[f, 9*cin]`` bf16,
+    ``w[n, (dy*3 + dx)*cin + c]``."""
+    return w.to(_BF16).permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous()
 
 
 def _check_level(x: torch.Tensor, w1: torch.Tensor, wd: Optional[torch.Tensor]) -> None:
@@ -75,11 +89,78 @@ def _check_level(x: torch.Tensor, w1: torch.Tensor, wd: Optional[torch.Tensor]) 
                          f"{tuple(x.shape[1:3])}")
 
 
-def downsample_plain(skip: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
-    """Plain version of the level's third launch: conv3x3/2 with SAME
-    (0, 1) padding and no affine, f32 on bf16 operands, rounded to bf16."""
-    down = _conv_f32(skip, _gemm(wd), 3, 2, _pads3x3(2)).to(_BF16)
+def level_conv_gate(x_shape, n: int, stride: int) -> None:
+    """Raise unless ``conv3x3_sm90_kernel`` takes ``x [B, h, w, cin]`` to
+    ``n`` outputs at ``stride``: cin % 64, n % 128, even h and w at
+    stride 2."""
+    if len(x_shape) != 4:
+        raise ValueError(f"{COUNTER}: x must be [B, h, w, cin], got {tuple(x_shape)}")
+    b, h, w, cin = x_shape
+    if stride not in (1, 2):
+        raise ValueError(f"{COUNTER}: stride must be 1 or 2, got {stride}")
+    if stride == 2 and (h % 2 or w % 2):
+        raise ValueError(f"{COUNTER}: stride 2 needs even h and w, got {(h, w)}")
+    sm90_gemm_gate(COUNTER, b * (h // stride) * (w // stride), cin, n)
+
+
+def launch_level_conv(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    stride: int,
+) -> torch.Tensor:
+    """One launch of ``conv3x3_sm90_kernel`` on CUDA tensors, counted under
+    ``LAUNCHES["conv_block_kernel"]``: K-major ``wt [f, 9*cin]``, epilogue
+    ``silu(acc*scale+bias)``, or the bare accumulator rounded to bf16 when
+    ``scale`` and ``bias`` are None."""
+    n = wt.shape[0]
+    level_conv_gate(x.shape, n, stride)
+    if x.dtype != _BF16 or not x.is_contiguous():
+        raise ValueError(f"{COUNTER}: activations must be contiguous NHWC bf16, got {x.dtype}")
+    if (wt.dim() != 2 or wt.dtype != _BF16 or not wt.is_contiguous()
+            or wt.shape[1] != 9 * x.shape[3] or wt.device != x.device):
+        raise ValueError(f"{COUNTER}: weight must be contiguous bf16 K-major "
+                         f"[{n}, {9 * x.shape[3]}] on {x.device}, got {wt.dtype} "
+                         f"{tuple(wt.shape)} on {wt.device}")
+    if (scale is None) != (bias is None):
+        raise ValueError(f"{COUNTER}: give both scale and bias, or neither")
+    if scale is not None:
+        _affine_ok(COUNTER, n, scale, bias)
+    b, h, w, c = x.shape
+    out = torch.empty((b, h // stride, w // stride, n), dtype=_BF16, device=x.device)
+    lib = build.library("conv_sm90")
+    err = lib.conv3x3_sm90_launch(
+        x.data_ptr(), b, h, w, c, stride, wt.data_ptr(), n,
+        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, COUNTER)
+    LAUNCHES[COUNTER] += 1
+    return out
+
+
+def level_conv_plain(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    stride: int,
+) -> torch.Tensor:
+    """Plain version of :func:`launch_level_conv`: f32 on bf16 operands,
+    rounded to bf16 once."""
+    if scale is not None:
+        return conv3x3_plain(x, wt.t(), scale, bias, stride)
+    _check_stride(x, stride)
+    down = _conv_f32(x, wt.t(), 3, stride, _pads3x3(stride)).to(_BF16)
     return down.permute(0, 2, 3, 1).contiguous()
+
+
+def downsample_plain(skip: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """Plain version of the level's third launch on HWIO ``wd``: conv3x3/2
+    with SAME (0, 1) padding and no affine, f32 on bf16 operands, rounded
+    to bf16."""
+    return level_conv_plain(skip, pack_conv3x3(wd), None, None, 2)
 
 
 def fused_conv_block_plain(
@@ -98,6 +179,15 @@ def fused_conv_block_plain(
     return skip, (None if wd is None else downsample_plain(skip, wd))
 
 
+def conv_block(x: torch.Tensor, lvl: "LevelWeights") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One encoder level on packed weights: the three K4 launches on a
+    CUDA tensor, their plain versions on a CPU tensor."""
+    conv = launch_level_conv if x.is_cuda else level_conv_plain
+    y1 = conv(x, lvl.w1, *lvl.a1, 1)
+    skip = conv(y1, lvl.w2, *lvl.a2, 1)
+    return skip, (None if lvl.wd is None else conv(skip, lvl.wd, None, None, 2))
+
+
 def fused_conv_block(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -111,15 +201,15 @@ def fused_conv_block(
     affines ``(scale [f], bias [f])``. Returns ``skip [B, h, w, f]`` and
     ``down [B, h/2, w/2, f]`` (None without ``wd``), both bf16.
 
-    The kernels take ``cin % 32 == 0`` and ``f % 64 == 0`` and raise
-    otherwise; a CPU tensor runs :func:`fused_conv_block_plain`."""
+    The kernel takes ``cin % 64 == 0`` and ``f % 128 == 0`` and raises
+    otherwise; a CPU tensor runs :func:`fused_conv_block_plain`. The
+    weights are packed at each call (:func:`pack_unet` packs once)."""
     if not x.is_cuda:
         return fused_conv_block_plain(x, w1, a1, w2, a2, wd)
     _check_level(x, w1, wd)
-    y1 = launch_conv3x3(x, _gemm(w1), a1[0], a1[1], 1, COUNTER)
-    skip = launch_conv3x3(y1, _gemm(w2), a2[0], a2[1], 1, COUNTER)
-    down = None if wd is None else launch_conv3x3(skip, _gemm(wd), None, None, 2, COUNTER)
-    return skip, down
+    lvl = LevelWeights(pack_conv3x3(w1), a1, pack_conv3x3(w2), a2,
+                       None if wd is None else pack_conv3x3(wd))
+    return conv_block(x, lvl)
 
 
 # -- packing ---------------------------------------------------------------
@@ -127,8 +217,8 @@ def fused_conv_block(
 
 @dataclasses.dataclass
 class LevelWeights:
-    """One encoder level for :func:`fused_conv_block`: HWIO bf16 kernels,
-    f32 affines."""
+    """One encoder level for :func:`conv_block`: K-major bf16 kernels
+    ``[f, 9*cin]`` (:func:`pack_conv3x3`), f32 affines."""
 
     w1: torch.Tensor
     a1: Affine
@@ -179,8 +269,8 @@ def _oihw(conv) -> torch.Tensor:
     return conv.weight.to(_BF16).contiguous(memory_format=torch.channels_last)
 
 
-def _hwio(conv) -> torch.Tensor:
-    return conv.weight.permute(2, 3, 1, 0).to(_BF16).contiguous()
+def _k_major(conv) -> torch.Tensor:
+    return pack_conv3x3(conv.weight.permute(2, 3, 1, 0))
 
 
 def _affine(norm, dtype) -> Affine:
@@ -197,9 +287,9 @@ def pack_unet(model: PeakNetUNetTPU) -> FusedUNet:
                           _affine(enc0.norm2, _BF16), _oihw(model.down[0]))
     levels = []
     for i, blk in enumerate(model.enc[1:], start=1):
-        wd = _hwio(model.down[i]) if i < len(model.down) else None
-        levels.append(LevelWeights(_hwio(blk.conv1), _affine(blk.norm1, torch.float32),
-                                   _hwio(blk.conv2), _affine(blk.norm2, torch.float32), wd))
+        wd = _k_major(model.down[i]) if i < len(model.down) else None
+        levels.append(LevelWeights(_k_major(blk.conv1), _affine(blk.norm1, torch.float32),
+                                   _k_major(blk.conv2), _affine(blk.norm2, torch.float32), wd))
     decoder = [
         DecoderLevel(_oihw(up), _oihw(mb.merge_up), _oihw(mb.merge_skip),
                      _affine(mb.norm1, _BF16), _oihw(mb.conv), _affine(mb.norm2, _BF16))
@@ -256,7 +346,7 @@ def peaknet_tpu_fused_infer(params: FusedUNet, x: torch.Tensor) -> torch.Tensor:
 
     # inner encoder levels and the bottleneck: the K4 launches
     for lvl in params.levels:
-        skip, down = fused_conv_block(y.contiguous(), lvl.w1, lvl.a1, lvl.w2, lvl.a2, lvl.wd)
+        skip, down = conv_block(y.contiguous(), lvl)
         if down is None:
             y = skip
         else:

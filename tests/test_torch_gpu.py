@@ -6,7 +6,10 @@ JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Shapes are small and ragged (pixel counts that are not multiples of the
-kernels' tiles) so that the edge masking runs. Tolerances: calibration
+kernels' tiles) so that the edge masking runs; the wgmma kernels
+(``back_kernel``, the K4 ``conv3x3_sm90_kernel``) also run one exact
+128-pixel tile first, the U-Net bottleneck's 22x24 extent, N from 128 to
+2048 and K from 64 to 4608. Tolerances: calibration
 rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
 bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
 bound for bf16 activations with f32 accumulation, as is the ViT with the
@@ -32,6 +35,7 @@ pytestmark = pytest.mark.gpu
 REL_TOL = 0.05
 BWD_TOL = 1e-2
 NO_BWD = {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0}  # serving paths launch no backward
+NO_CONV = {"conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0, "conv_block_kernel": 0}
 
 
 @pytest.fixture
@@ -107,19 +111,50 @@ def _operands(gen, cuda, b, h, w, cin, n):
     return x, wt, s, bias
 
 
-@pytest.mark.parametrize("mode", ["plain", "identity", "proj1", "proj2"])
-def test_conv1x1_kernel_matches_plain(cuda, gen, mode):
-    b, h, w, cin, n = 3, 10, 14, 64, 128  # 420 pixels: a ragged last tile
-    x, wt, s, bias = _operands(gen, cuda, b, h, w, cin, n)
+def _k_major(gen, cuda, k, n):
+    return (torch.randn((n, k), generator=gen, device=cuda) / k**0.5).bfloat16()
+
+
+# (B, Ho, Wo, F, N, mode): the first is one exact 128 x 128 x 64 tile
+BACK_CASES = [
+    (1, 8, 16, 64, 128, "identity"),
+    (3, 10, 14, 64, 256, "identity"),     # 420 pixels: a ragged last tile
+    (2, 11, 12, 512, 2048, "identity"),   # ResNet stage 4's widths
+    (3, 10, 14, 64, 256, "proj1"),
+    (3, 10, 14, 128, 512, "proj2"),
+    (2, 22, 24, 256, 1024, "proj2"),
+    (2, 11, 12, 4608, 128, "identity"),   # K = 4608
+]
+
+
+@pytest.mark.parametrize("b,ho,wo,f,n,mode", BACK_CASES)
+def test_back_kernel_matches_plain(cuda, gen, b, ho, wo, f, n, mode):
+    y2 = torch.randn((b, ho, wo, f), generator=gen, device=cuda).bfloat16()
+    w3 = _k_major(gen, cuda, f, n)
+    s3 = 1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda)
+    b3 = 0.1 * torch.randn(n, generator=gen, device=cuda)
     kw = {}
     if mode == "identity":
-        kw["residual"] = torch.randn((b, h, w, n), generator=gen, device=cuda).bfloat16()
-    elif mode.startswith("proj"):
-        stride = int(mode[-1])
-        xp, wp, sp, bp = _operands(gen, cuda, b, h * stride, w * stride, 96, n)
-        kw["proj"] = (xp, wp, sp, bp, stride)
-    got = fr.conv1x1(x, wt, s, bias, **kw)
-    ref = fr.conv1x1_plain(x, wt, s, bias, **kw)
+        kw["residual"] = torch.randn((b, ho, wo, n), generator=gen, device=cuda).bfloat16()
+    else:
+        stride, cin = int(mode[-1]), 64 * (1 + (f // 64) % 3)
+        x = torch.randn((b, ho * stride, wo * stride, cin), generator=gen, device=cuda).bfloat16()
+        kw["proj"] = (x, _k_major(gen, cuda, cin, n), 1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda),
+                      0.1 * torch.randn(n, generator=gen, device=cuda), stride)
+    got = fr.back_step(y2, w3, s3, b3, **kw)
+    ref = fr.back_step_plain(y2, w3, s3, b3, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "back_kernel": 1, "flash_kernel": 0, **NO_BWD}
+    assert bool(torch.isfinite(got.float()).all())
+    assert rel_err(ref, got) < REL_TOL, rel_err(ref, got)
+
+
+def test_conv1x1_kernel_matches_plain(cuda, gen):
+    b, h, w, cin, n = 3, 10, 14, 64, 128  # 420 pixels: a ragged last tile
+    x, wt, s, bias = _operands(gen, cuda, b, h, w, cin, n)
+    got = fr.conv1x1(x, wt, s, bias)
+    ref = fr.conv1x1_plain(x, wt, s, bias)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     assert pt.counts()["conv1x1_kernel"] == 1
@@ -143,12 +178,18 @@ def test_bottleneck_kernels_refuse_bad_shapes(cuda, gen):
     x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 48, 64)
     with pytest.raises(ValueError, match="Cin"):
         fr.conv1x1(x, wt, s, bias)
-    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 64, 64)
+    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 64, 128)
     with pytest.raises(ValueError, match="contiguous NHWC bf16"):
         fr.conv1x1(x.float(), wt, s, bias)
-    with pytest.raises(ValueError, match="exclusive"):
-        fr.conv1x1(x, wt, s, bias, residual=x, proj=(x, wt, s, bias, 1))
-    assert pt.counts()["conv1x1_kernel"] == 0
+    w3 = _k_major(gen, cuda, 64, 128)
+    with pytest.raises(ValueError, match="exactly one"):
+        fr.back_step(x, w3, s, bias, residual=x, proj=(x, w3, s, bias, 1))
+    narrow = _k_major(gen, cuda, 32, 128)
+    with pytest.raises(ValueError, match="Cin"):
+        fr.back_step(x[..., :32].contiguous(), narrow, s, bias, residual=x)
+    with pytest.raises(ValueError, match="N % 128"):
+        fr.back_step(x, _k_major(gen, cuda, 64, 64), s[:64], bias[:64], residual=x[..., :64])
+    assert pt.counts()["conv1x1_kernel"] == 0 and pt.counts()["back_kernel"] == 0
 
 
 def test_fused_network_matches_plain_model(cuda):
@@ -158,8 +199,8 @@ def test_fused_network_matches_plain_model(cuda):
     x = torch.randn((2, 64, 64, 4), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
     logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, stages, return_features=True)
     ref_logits, ref_feat = model(x, return_features=True)
-    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 8, "conv3x3_kernel": 4,
-                           "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
+    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 4, "conv3x3_kernel": 4,
+                           "back_kernel": 4, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     assert float(ref_feat.abs().max()) >= 1e-2
     assert rel_err(ref_logits, logits) < REL_TOL
     assert rel_err(ref_feat, feat) < REL_TOL
@@ -171,27 +212,39 @@ def test_entry_runs_on_the_card(cuda):
     logits = fn(*args)
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (4, 2) and bool(torch.isfinite(logits).all())
-    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 32, "conv3x3_kernel": 16,
-                           "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
+    # one ResNet-50 batch: K2's 16 + 16 launches and K3's 16
+    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 16, "conv3x3_kernel": 16,
+                           "back_kernel": 16, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
 
 
-@pytest.mark.parametrize("stride", [1, 2])
+# (B, h, w, cin, n, stride): the first is one exact 128 x 128 x 64 tile
+LEVEL_CONV_CASES = [
+    (1, 8, 16, 64, 128, 1),
+    (3, 10, 14, 64, 128, 1),      # 420 pixels: a ragged last tile
+    (3, 10, 14, 64, 256, 2),      # stride 2, SAME (0, 1)
+    (2, 22, 24, 256, 512, 1),     # the bottleneck level's extent
+    (2, 22, 24, 512, 128, 1),     # K = 9 * 512 = 4608
+    (2, 44, 48, 128, 256, 2),
+]
+
+
+@pytest.mark.parametrize("b,h,w,cin,n,stride", LEVEL_CONV_CASES)
 @pytest.mark.parametrize("epilogue", ["affine_silu", "none"])
-def test_conv3x3_kernel_epilogues(cuda, gen, stride, epilogue):
-    b, h, w, c, n = 2, 12, 18, 32, 64
-    x, _, s, bias = _operands(gen, cuda, b, h, w, c, n)
-    wt = (torch.randn((9 * c, n), generator=gen, device=cuda) / (9 * c) ** 0.5).bfloat16()
-    if epilogue == "none":
-        s = bias = None
-        ref = fr._conv_f32(x, wt, 3, stride, fr._pads3x3(stride)).to(torch.bfloat16)
-        ref = ref.permute(0, 2, 3, 1)
-    else:
-        ref = fr.conv3x3_plain(x, wt, s, bias, stride)
-    got = fr.launch_conv3x3(x, wt, s, bias, stride, "conv_block_kernel")
+def test_conv3x3_kernel_epilogues(cuda, gen, b, h, w, cin, n, stride, epilogue):
+    x = torch.randn((b, h, w, cin), generator=gen, device=cuda).bfloat16()
+    wt = _k_major(gen, cuda, 9 * cin, n)
+    s = bias = None
+    if epilogue == "affine_silu":
+        s = 1.0 + 0.1 * torch.randn(n, generator=gen, device=cuda)
+        bias = 0.1 * torch.randn(n, generator=gen, device=cuda)
+    got = fu.launch_level_conv(x, wt, s, bias, stride)
+    ref = fu.level_conv_plain(x, wt, s, bias, stride)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (b, h // stride, w // stride, n)
-    assert pt.counts()["conv_block_kernel"] == 1 and pt.counts()["conv3x3_kernel"] == 0
-    assert rel_err(ref, got) < REL_TOL
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "conv_block_kernel": 1, "flash_kernel": 0,
+                           **NO_BWD}
+    assert bool(torch.isfinite(got.float()).all())
+    assert rel_err(ref, got) < REL_TOL, rel_err(ref, got)
 
 
 def _level(gen, cuda, cin, f, down):
@@ -207,29 +260,33 @@ def _level(gen, cuda, cin, f, down):
 
 @pytest.mark.parametrize("down", [True, False])
 def test_conv_block_kernel_matches_plain(cuda, gen, down):
-    x = torch.randn((2, 12, 18, 32), generator=gen, device=cuda).bfloat16()
-    w1, a1, w2, a2, wd = _level(gen, cuda, 32, 64, down)
+    x = torch.randn((2, 12, 18, 64), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, 64, 128, down)
     skip, dn = fu.fused_conv_block(x, w1, a1, w2, a2, wd)
     ref_skip, ref_dn = fu.fused_conv_block_plain(x, w1, a1, w2, a2, wd)
     torch.cuda.synchronize()
     assert pt.counts()["conv_block_kernel"] == (3 if down else 2)
     assert skip.dtype == torch.bfloat16 and rel_err(ref_skip, skip) < REL_TOL
     if down:
-        assert tuple(dn.shape) == (2, 6, 9, 64) and rel_err(ref_dn, dn) < REL_TOL
+        assert tuple(dn.shape) == (2, 6, 9, 128) and rel_err(ref_dn, dn) < REL_TOL
     else:
         assert dn is None and ref_dn is None
 
 
 def test_conv_block_kernel_refuses_narrow_channels(cuda, gen):
-    x = torch.randn((1, 8, 8, 16), generator=gen, device=cuda).bfloat16()
-    w1, a1, w2, a2, wd = _level(gen, cuda, 16, 64, True)
+    x = torch.randn((1, 8, 8, 32), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, 32, 128, True)
     with pytest.raises(ValueError, match="Cin"):
+        fu.fused_conv_block(x, w1, a1, w2, a2, wd)
+    x = torch.randn((1, 8, 8, 64), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, 64, 64, True)
+    with pytest.raises(ValueError, match="N % 128"):
         fu.fused_conv_block(x, w1, a1, w2, a2, wd)
     assert pt.counts()["conv_block_kernel"] == 0
 
 
 def test_fused_unet_matches_plain_model(cuda):
-    features = (32, 64, 128, 256)
+    features = (64, 128, 256, 512)
     model = pt.unet_from_flax(pt.init_peaknet_tpu_params(features, seed=1), device=cuda)
     x = torch.randn((2, 64, 128, 1), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
     got = pt.peaknet_tpu_fused_infer(pt.pack_unet(model), x)
@@ -255,13 +312,14 @@ def test_sfx_pipeline_runs_on_the_card(cuda):
     pt.produce(src.iter_indexed_events("raw"), ring)
     calib = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
     sink = Sink()
-    pipe = pt.SfxPipeline(pt.init_peaknet_tpu_params((32, 64, 128, 256), seed=0), sink,
+    pipe = pt.SfxPipeline(pt.init_peaknet_tpu_params((64, 128, 256, 512), seed=0), sink,
                           calib=calib, config=pt.SfxConfig(batch_size=4))
     assert pipe.device.type == "cuda"
     assert pipe.run(ring) == 6
     assert [s.event_idx for s in sink.sets] == list(range(6))
-    assert pt.counts() == {"calib_kernel": 2, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 16, "flash_kernel": 0, **NO_BWD}
+    # two SFX batches: +8 conv_block_kernel each
+    assert pt.counts() == {"calib_kernel": 2, **NO_CONV, "conv_block_kernel": 16, "flash_kernel": 0,
+                           **NO_BWD}
 
 
 def _flat_lse(sq, sk, causal, device):
@@ -353,8 +411,7 @@ def test_vit_serve_step_runs_on_the_card(cuda):
     logits = pt.vit_serve_step(model, frames, ped, gain, mask)
     torch.cuda.synchronize()
     assert tuple(logits.shape) == (2, 2) and bool(torch.isfinite(logits).all())
-    assert pt.counts() == {"calib_kernel": 1, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 0, "flash_kernel": 4, **NO_BWD}
+    assert pt.counts() == {"calib_kernel": 1, **NO_CONV, "flash_kernel": 4, **NO_BWD}
 
 
 def _bwd_inputs(gen, cuda, bh, sq, sk, dlse):
@@ -440,8 +497,7 @@ def test_vit_train_step_on_the_card(cuda):
     loss = step(x, (labels, valid))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(loss))
-    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0,
-                           "conv_block_kernel": 0, "flash_kernel": 2,
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "flash_kernel": 2,
                            "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2}
     grads = [p.grad for p in model.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
