@@ -1,11 +1,23 @@
-// conv3x3_sm90_kernel and back_kernel: the U-Net encoder level (K4) and
-// the ResNet bottleneck's back step (K3) on the Hopper implicit-GEMM
+// conv_sm90_kernel: the ResNet bottleneck's front half (K2) and back step
+// (K3) and the U-Net encoder level (K4) on the Hopper implicit-GEMM
 // mainloop of sm90_gemm.cuh (wgmma, TMA, an mbarrier ring, warp
 // specialisation), for sm_90a.
 //
 // Replaces the TPU kernels
-//   psana_ray_tpu/models/pallas_unet.py:_conv_block_kernel   (K4) and
-//   psana_ray_tpu/models/pallas_resnet.py:_back_kernel       (K3).
+//   psana_ray_tpu/models/pallas_resnet.py:_bottleneck_kernel (K2),
+//   psana_ray_tpu/models/pallas_resnet.py:_back_kernel       (K3) and
+//   psana_ray_tpu/models/pallas_unet.py:_conv_block_kernel   (K4).
+//
+// K2, the bottleneck's front half, is two launches of conv_sm90_launch:
+//   y1 = conv1x1(x,  w1)           silu(x@w1 * s1 + b1)
+//   y2 = conv3x3(y1, w2, stride)   silu(conv3x3(y1) * s2 + b2)
+// y1 and y2 rounded to bf16 (pallas_resnet.py:169, :215). y1 makes a round
+// trip through HBM: at batch 32 it is 0.15 ms of bf16 traffic a batch
+// against the front half's 0.73 ms bound, and the 1x1 launches of stages
+// 1-2 are bound by bytes, the 3x3 launches by operations, so a fused front
+// (y1 kept on chip with a one-pixel halo) would save at most that round
+// trip. Stage 1 has 64 channels: its launches run 64-wide N tiles
+// (m64n64k16).
 //
 // K4, one PeakNet-TPU encoder level, is three launches of the 3x3 kernel
 // (two for the bottleneck level, which has no down):
@@ -25,7 +37,8 @@
 // useful), with the SAME padding as the box's corners and the stride as
 // its element stride, zeros where a tap falls outside the image. TMA and
 // not a cp.async gather: 128 producer threads issuing 16-byte copies
-// could not keep the ring full on the card.
+// could not keep the ring full on the card. A 1x1 filter is the same
+// walk with one tap.
 //
 // K3, the back step, is one launch:
 //   identity:   out = silu(y2@w3 * s3 + b3 + x)
@@ -34,10 +47,13 @@
 // projection's summation order. It is bound by HBM bytes in every block
 // class but the stage 3 and 4 projections: y2 comes by TMA, the identity
 // residual streams in by TMA into the output tile while the mainloop runs,
-// and the output leaves by TMA. An identity CTA spans N = 256 (stage 1
-// reads y2 once); a projection CTA holds two accumulator sets of N = 128
-// (64 + 64 registers a thread). y2 and the projection input x[::s, ::s]
-// come by the same im2col TMA as K4's activations (a 1x1 filter).
+// and the output leaves by TMA. An identity CTA spans up to N = 256
+// (stage 1 reads y2 once); a projection CTA holds two accumulator sets of
+// up to N = 128 (64 + 64 registers a thread).
+//
+// Channel counts are multiples of 64 (the Python packers zero-pad narrower
+// models, as the TPU kernels pad to 128). Each launch picks its N tile,
+// 256, 128 or 64 wide, as the widest that still gives every SM a tile.
 //
 // The kernel is persistent: one CTA an SM walks the output tiles (128
 // pixels x BN, N fastest, so neighbouring CTAs share A through L2), and
@@ -52,6 +68,7 @@
 // largest part of the back step's time after the bytes.
 #include "common.cuh"
 #include "sm90_gemm.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -221,42 +238,7 @@ conv_sm90_kernel(const __grid_constant__ CUtensorMap mA1, const __grid_constant_
 
 // -- host side ------------------------------------------------------------------
 
-// libcuda's tensor-map encoders, found through the runtime's entry-point
-// query (the library does not link libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const int*, const int*,
-                                 cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-void* cuda_entry_point(const char* name) {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-  const cudaError_t e = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
-#else
-  const cudaError_t e = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
-#endif
-  return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? p : nullptr;
-}
-
-// a row-major bf16 [rows, cols] matrix, boxes of [box_rows, 64] with the
-// 128-byte swizzle, rows past the end read as zeros and not written
-bool make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols, int box_rows) {
-  static const auto fn = reinterpret_cast<EncodeTiled>(cuda_entry_point("cuTensorMapEncodeTiled"));
-  if (!fn || reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 64 || rows <= 0) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using tmap::make_map;
 
 // NHWC bf16 activations x [B, H, W, C] read through a ksize x ksize filter
 // at `stride` with padding (pad_lo, pad_hi): each request brings 128
@@ -265,7 +247,8 @@ bool make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols,
 // and H at `stride`, then N; taps outside the image read zeros.
 bool make_im2col_map(CUtensorMap* map, const void* x, int B, int H, int W, int C, int ksize,
                      int stride, int pad_lo, int pad_hi) {
-  static const auto fn = reinterpret_cast<EncodeIm2col>(cuda_entry_point("cuTensorMapEncodeIm2col"));
+  static const auto fn =
+      reinterpret_cast<tmap::EncodeIm2col>(tmap::cuda_entry_point("cuTensorMapEncodeIm2col"));
   if (!fn || reinterpret_cast<uintptr_t>(x) % 16 || C % 64) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
@@ -314,43 +297,71 @@ cudaError_t launch(const Maps& m, const Operand& op1, const Operand& op2, int M,
 
 constexpr cudaError_t kBad = cudaErrorInvalidValue;
 
+// The widest N tile (of 64, 128, 256, at most `widest`) that divides N
+// and still gives every SM a tile; failing that, the narrowest that
+// divides N. ResNet stage 4's 4,224 output pixels are 33 M tiles: its
+// N = 512 in 128-wide tiles fills the 132 SMs once, in 256-wide tiles half
+// of them. 0 when N is not a multiple of 64.
+int pick_bn(long long M, int N, int widest) {
+  const long long mt = (M + kBM - 1) / kBM;
+  int narrowest = 0;
+  for (int bn = widest; bn >= 64; bn /= 2) {
+    if (N % bn) continue;
+    narrowest = bn;
+    if (mt * (N / bn) >= sm_count()) return bn;
+  }
+  return narrowest;
+}
+
+template <int kEpi>
+cudaError_t launch_bn(int bn, const Maps& m, const Operand& op1, const Operand& op2, int M, int N,
+                      int Ho, int Wo, const float* s1, const float* b1, const float* s2,
+                      const float* b2, cudaStream_t stream) {
+  if (bn == 64) return launch<64, kEpi>(m, op1, op2, M, N, Ho, Wo, s1, b1, s2, b2, stream);
+  if (bn == 128) return launch<128, kEpi>(m, op1, op2, M, N, Ho, Wo, s1, b1, s2, b2, stream);
+  // a projection CTA holds two accumulator sets: 256 columns would not fit
+  if constexpr (kEpi != kProjection) {
+    if (bn == 256) return launch<256, kEpi>(m, op1, op2, M, N, Ho, Wo, s1, b1, s2, b2, stream);
+  }
+  return kBad;
+}
+
+
 bool m_ok(long long m) { return m > 0 && m <= (1LL << 31) - 1 - kBM; }
 
 }  // namespace
 
-// 3x3 convolution over NHWC bf16, XLA SAME padding ((1,1) at stride 1,
-// (0,1) at stride 2), then silu(acc*scale+bias), or the bare accumulator
-// when scale and bias are null. x [B, H, W, C]; wt [N, 9*C] bf16 K-major
-// (wt[n, (dy*3+dx)*C + c]); out [B, H/stride, W/stride, N]. Takes
-// C % 64 == 0, N % 128 == 0, and even H and W at stride 2.
-extern "C" int conv3x3_sm90_launch(const void* x, int B, int H, int W, int C, int stride,
-                                   const void* wt, int N, const void* scale, const void* bias,
-                                   void* out, void* stream) {
-  if ((stride != 1 && stride != 2) || B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 64 ||
-      N <= 0 || N % 128 || H % stride || W % stride || (!scale != !bias))
+// ksize x ksize convolution over NHWC bf16 (ksize 1 or 3), XLA SAME
+// padding for the 3x3 ((1,1) at stride 1, (0,1) at stride 2) and none for
+// the 1x1, then silu(acc*scale+bias), or the bare accumulator when scale
+// and bias are null. x [B, H, W, C]; wt [N, ksize*ksize*C] bf16 K-major
+// (wt[n, (dy*ksize+dx)*C + c]); out [B, H/stride, W/stride, N]. Takes
+// C % 64 == 0, N % 64 == 0, and H and W multiples of the stride.
+extern "C" int conv_sm90_launch(const void* x, int B, int H, int W, int C, int ksize, int stride,
+                                const void* wt, int N, const void* scale, const void* bias,
+                                void* out, void* stream) {
+  if ((ksize != 1 && ksize != 3) || (stride != 1 && stride != 2) || B <= 0 || H <= 0 || W <= 0 ||
+      C <= 0 || C % 64 || N <= 0 || N % 64 || H % stride || W % stride || (!scale != !bias))
     return static_cast<int>(kBad);
   const int Ho = H / stride, Wo = W / stride;
   const long long M = static_cast<long long>(B) * Ho * Wo;
   if (!m_ok(M)) return static_cast<int>(kBad);
-  const int pad = stride == 1 ? 1 : 0;
-  const Operand op{H, W, C, 3, stride, pad};
-  const bool wide = N % 256 == 0;
+  const int pad_lo = ksize == 3 && stride == 1 ? 1 : 0, pad_hi = ksize == 3 ? 1 : 0;
+  const Operand op{H, W, C, ksize, stride, pad_lo};
+  const int bn = pick_bn(M, N, 256);
   Maps m;
-  if (!make_im2col_map(&m.a1, x, B, H, W, C, 3, stride, pad, 1) ||
-      !make_map(&m.b1, wt, N, 9LL * C, wide ? 256 : 128) || !make_map(&m.out, out, M, N, 64))
+  if (!make_im2col_map(&m.a1, x, B, H, W, C, ksize, stride, pad_lo, pad_hi) ||
+      !make_map(&m.b1, wt, N, static_cast<long long>(ksize) * ksize * C, bn) ||
+      !make_map(&m.out, out, M, N, 64))
     return static_cast<int>(kBad);
   m.a2 = m.b2 = m.res = m.out;  // unused
   const auto* s = static_cast<const float*>(scale);
   const auto* b = static_cast<const float*>(bias);
   const auto st = static_cast<cudaStream_t>(stream);
   const int Mi = static_cast<int>(M);
-  cudaError_t e;
-  if (scale)
-    e = wide ? launch<256, kAffineSilu>(m, op, op, Mi, N, Ho, Wo, s, b, nullptr, nullptr, st)
-             : launch<128, kAffineSilu>(m, op, op, Mi, N, Ho, Wo, s, b, nullptr, nullptr, st);
-  else
-    e = wide ? launch<256, kBare>(m, op, op, Mi, N, Ho, Wo, nullptr, nullptr, nullptr, nullptr, st)
-             : launch<128, kBare>(m, op, op, Mi, N, Ho, Wo, nullptr, nullptr, nullptr, nullptr, st);
+  const cudaError_t e =
+      scale ? launch_bn<kAffineSilu>(bn, m, op, op, Mi, N, Ho, Wo, s, b, nullptr, nullptr, st)
+            : launch_bn<kBare>(bn, m, op, op, Mi, N, Ho, Wo, nullptr, nullptr, nullptr, nullptr, st);
   return static_cast<int>(e);
 }
 
@@ -359,13 +370,13 @@ extern "C" int conv3x3_sm90_launch(const void* x, int B, int H, int W, int C, in
 // one of: res [B, Ho, Wo, N] bf16 (identity), or the projection x
 // [B, H, W, Cin] bf16 read at (oy*stride, ox*stride) with H = Ho*stride,
 // W = Wo*stride, wpt [N, Cin] bf16 K-major, sp, bp [N] f32. out
-// [B, Ho, Wo, N] bf16. Takes F % 64 == 0, Cin % 64 == 0, N % 128 == 0.
+// [B, Ho, Wo, N] bf16. Takes F % 64 == 0, Cin % 64 == 0, N % 64 == 0.
 extern "C" int back_launch(const void* y2, int B, int Ho, int Wo, int F, const void* w3t, int N,
                            const void* s3, const void* b3, const void* res, const void* x, int H,
                            int W, int Cin, int stride, const void* wpt, const void* sp,
                            const void* bp, void* out, void* stream) {
   const bool proj = x != nullptr;
-  if (B <= 0 || Ho <= 0 || Wo <= 0 || F <= 0 || F % 64 || N <= 0 || N % 128 || !s3 || !b3 ||
+  if (B <= 0 || Ho <= 0 || Wo <= 0 || F <= 0 || F % 64 || N <= 0 || N % 64 || !s3 || !b3 ||
       (res != nullptr) == proj)
     return static_cast<int>(kBad);
   if (proj && (Cin <= 0 || Cin % 64 || (stride != 1 && stride != 2) || H != Ho * stride ||
@@ -375,14 +386,14 @@ extern "C" int back_launch(const void* y2, int B, int Ho, int Wo, int F, const v
   if (!m_ok(M)) return static_cast<int>(kBad);
   const Operand op1{Ho, Wo, F, 1, 1, 0};
   const Operand op2{H, W, Cin, 1, stride, 0};
-  const bool wide = !proj && N % 256 == 0;
+  const int bn = pick_bn(M, N, proj ? 128 : 256);
   Maps m;
   if (!make_im2col_map(&m.a1, y2, B, Ho, Wo, F, 1, 1, 0, 0) ||
-      !make_map(&m.b1, w3t, N, F, wide ? 256 : 128) || !make_map(&m.out, out, M, N, 64))
+      !make_map(&m.b1, w3t, N, F, bn) || !make_map(&m.out, out, M, N, 64))
     return static_cast<int>(kBad);
   m.a2 = m.b2 = m.res = m.out;  // replaced below where used
   if (proj) {
-    if (!make_map(&m.b2, wpt, N, Cin, 128) ||
+    if (!make_map(&m.b2, wpt, N, Cin, bn) ||
         !make_im2col_map(&m.a2, x, B, H, W, Cin, 1, stride, 0, 0))
       return static_cast<int>(kBad);
   } else if (!make_map(&m.res, res, M, N, 64)) {
@@ -391,12 +402,8 @@ extern "C" int back_launch(const void* y2, int B, int Ho, int Wo, int F, const v
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto st = static_cast<cudaStream_t>(stream);
   const int Mi = static_cast<int>(M);
-  cudaError_t e;
-  if (proj)
-    e = launch<128, kProjection>(m, op1, op2, Mi, N, Ho, Wo, f(s3), f(b3), f(sp), f(bp), st);
-  else if (wide)
-    e = launch<256, kResidual>(m, op1, op2, Mi, N, Ho, Wo, f(s3), f(b3), nullptr, nullptr, st);
-  else
-    e = launch<128, kResidual>(m, op1, op2, Mi, N, Ho, Wo, f(s3), f(b3), nullptr, nullptr, st);
+  const cudaError_t e =
+      proj ? launch_bn<kProjection>(bn, m, op1, op2, Mi, N, Ho, Wo, f(s3), f(b3), f(sp), f(bp), st)
+           : launch_bn<kResidual>(bn, m, op1, op2, Mi, N, Ho, Wo, f(s3), f(b3), nullptr, nullptr, st);
   return static_cast<int>(e);
 }

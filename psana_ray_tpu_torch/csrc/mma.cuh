@@ -1,5 +1,5 @@
-// Tile helpers shared by the flash-attention kernels (flash.cu, K5;
-// flash_bwd.cu, K6 and K7): [64, 128] bf16 tiles in XOR-swizzled shared
+// Tile helpers of the flash-attention backward kernels (flash_bwd.cu, K6
+// and K7): [64, 128] bf16 tiles in XOR-swizzled shared
 // memory filled by cp.async, ldmatrix fragment loads (plain and
 // transposed) and mma.sync m16n8k16 with f32 accumulators.
 #pragma once

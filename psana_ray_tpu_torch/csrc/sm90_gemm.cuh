@@ -7,7 +7,7 @@
 // one filter tap, zeros where the tap falls in the padding.
 //
 // CTA: 384 threads. Warpgroups 0 and 1 are the consumers: each owns 64
-// rows of the 128-row M tile and all BN (128 or 256) columns, one
+// rows of the 128-row M tile and all BN (64, 128 or 256) columns, one
 // m64nBNk16 wgmma per 16 of K. Warpgroup 2 is the producer. setmaxnreg
 // moves registers from the producer warpgroup (56) to the consumers (224):
 // 128*56 + 256*224 = 384*168, the launch's 168 a thread.
@@ -143,6 +143,9 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // -- warpgroup registers ------------------------------------------------------
 
@@ -166,6 +169,19 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   d |= static_cast<uint64_t>(1) << 62;                    // 128-byte swizzle
   return d;
 }
+// descriptor of an MN-major operand (MN contiguous) in 128-byte-swizzled
+// panels: each K row holds 64 MN values in 128 bytes, 8 K rows make one
+// 1024-byte swizzle atom (SBO), and the next 64 MN values sit `panel`
+// bytes further on (LBO). A 16-deep K step advances the start by 2048
+// bytes, a whole number of atoms.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile, uint32_t panel) {
+  const uint32_t a = smem_u32(tile);
+  uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((panel >> 4) & 0x3FFF) << 16;  // LBO: the next 64 MN values
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;              // SBO: the next 8 K rows
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -182,7 +198,24 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 }
 
 // d[64 x BN] += a[64 x 16] . b[16 x BN]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// scale_d 0 overwrites d instead of adding to it
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -200,7 +233,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
@@ -236,12 +269,40 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[64 x 128] += a[64 x 16] . b[16 x 128] with A in registers (the
+// m16n8k16 A fragment of each warp's 16 rows: a0 (row g, k 2t..2t+1),
+// a1 (row g+8), a2 (row g, k 2t+8..), a3 (row g+8, k 2t+8..)) and B
+// MN-major in shared memory (the transpose bit set: N contiguous)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t a, uint64_t b) {
-  if constexpr (BN == 128) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64k16(d, a, b);
+  } else if constexpr (BN == 128) {
     wgmma_m64n128k16(d, a, b);
   } else {
-    static_assert(BN == 256, "BN is 128 or 256");
+    static_assert(BN == 256, "BN is 64, 128 or 256");
     wgmma_m64n256k16(d, a, b);
   }
 }

@@ -4,9 +4,10 @@ Sources live in ``psana_ray_tpu_torch/csrc``; :mod:`.build` compiles them
 with ``nvcc`` at first use. Each kernel's Python wrapper adds one to its
 entry of :data:`LAUNCHES` where it launches the kernel, and nowhere else,
 so a run can show that the main path went through the kernel.
-``conv1x1_kernel`` and ``conv3x3_kernel`` count the ResNet bottleneck's
-front half (K2), ``back_kernel`` its back step (K3);
-``conv_block_kernel`` counts the launches of ``conv3x3_sm90_kernel``
+``conv1x1_kernel`` and ``conv3x3_kernel`` count the launches of
+``conv_sm90_kernel`` (``csrc/conv_sm90.cu``) made by the ResNet
+bottleneck's front half (K2), ``back_kernel`` its back step (K3);
+``conv_block_kernel`` counts the 3x3 launches of ``conv_sm90_kernel``
 made by the U-Net's encoder levels (K4); ``flash_kernel`` the
 flash-attention forward launches (K5),
 ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` the backward's (K6,

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-LIBS = ("calib", "bottleneck", "conv_sm90", "flash", "flash_bwd")
+LIBS = ("calib", "conv_sm90", "flash", "flash_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,15 +50,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # raw, pedestal, gain, mask, out, B, P, n, threshold, out_bf16, stream
         "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
-    "bottleneck": {
-        # a, B, H, W, C, w, N, scale, bias, out, stream
-        "conv1x1_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
-        # x, B, H, W, C, stride, w, N, scale, bias, out, stream
-        "conv3x3_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
-    },
     "conv_sm90": {
-        # x, B, H, W, C, stride, wt, N, scale, bias, out, stream
-        "conv3x3_sm90_launch": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+        # x, B, H, W, C, ksize, stride, wt, N, scale, bias, out, stream
+        "conv_sm90_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
         # y2, B, Ho, Wo, F, w3t, N, s3, b3, res, x, H, W, Cin, stride, wpt, sp, bp, out, stream
         "back_launch": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],

@@ -1,7 +1,10 @@
 """Fused ResNet-50 inference with the hand-written bottleneck kernels.
 
 Counterpart of ``psana_ray_tpu/models/pallas_resnet.py``. Each bottleneck
-block is three CUDA launches:
+block is three launches of the Hopper ``wgmma`` kernel of
+``csrc/conv_sm90.cu`` (the implicit-GEMM mainloop of
+``csrc/sm90_gemm.cuh``: TMA operand loads, an mbarrier ring, two consumer
+warpgroups, a TMA store of the output), each counted under its own name:
 
     y1  = conv1x1_kernel(x, w1)             silu(x@w1 * s1 + b1)          K2, front
     y2  = conv3x3_kernel(y1, w2, stride)    silu(conv3x3(y1) * s2 + b2)   K2, middle
@@ -10,17 +13,26 @@ block is three CUDA launches:
 where ``res`` is the identity ``x`` (added in f32) or the strided
 projection ``x[::s, ::s] @ wp * sp + bp``. y1, y2 and the output are bf16;
 accumulators and affines are f32, at the Pallas kernel's rounding points.
-K2's two launches run on the WMMA kernels of ``csrc/bottleneck.cu``; the
-back step runs on the Hopper ``wgmma`` mainloop of ``csrc/conv_sm90.cu``
-(TMA operand and residual loads, a TMA store of the output), which takes
-``w3`` and ``wp`` K-major (``[N, K]``, packed once by :func:`pack_block`).
 The TPU kernel keeps y1 and y2 in VMEM; here they round-trip through HBM
-in bf16.
+in bf16. At batch 32 the stage 1-2 1x1 launches are bound by HBM bytes
+and the 3x3 launches by tensor-core operations; y1's round trip is a
+small part of the front half's bound, so the front stays two launches.
+
+Every kernel takes K-major weights, packed once by :func:`pack_block`:
+``w1 [F, Cin]``, ``w2 [F, 9*F]`` (``w2[n, (dy*3 + dx)*F + c]``), ``w3
+[N, F]``, ``wp [N, Cin]``, and channel counts that are multiples of 64
+(:data:`CHANNEL_QUANTUM`). :func:`pack_block` zero-pads every channel
+dimension to that quantum: weight rows and columns, and scales and biases
+with zeros, so that a padded channel is ``silu(0) = 0`` through every
+block. :func:`resnet_fused_infer` pads the activations once, after the
+stem, and drops the padded channels before the global average pool; the
+reference pads to 128 inside its kernels (``pallas_resnet.py:349-352``).
+ResNet-50 at its full width (64) takes no padding.
 
 The stem convolution, max-pool, global average pool and head are library
 ops, as they are XLA ops in the reference. Activations are NHWC at their
-true extents: the reference's width-to-8 and 128-channel padding only
-serve the TPU's DMA and are not carried over.
+true extents: the reference's width-to-8 padding only serves the TPU's
+DMA and is not carried over.
 
 Each kernel wrapper runs its plain version (``*_plain``: ``F.conv2d`` in
 f32 on bf16 operands, rounded at the same three points) for a CPU tensor,
@@ -46,12 +58,9 @@ from psana_ray_tpu_torch.models.resnet import (
 
 _BF16 = torch.bfloat16
 
-# tiling constraints of the WMMA kernels (csrc/bottleneck.cu: BK = 32, BN = 64)
-_K_QUANTUM = 32
-_N_QUANTUM = 64
-# and of the wgmma mainloop (csrc/sm90_gemm.cuh: BK = 64, BN = 128 or 256)
-SM90_K_QUANTUM = 64
-SM90_N_QUANTUM = 128
+# channel counts the wgmma mainloop takes (csrc/sm90_gemm.cuh: a k-step of
+# 64 channels, N tiles of 64, 128 or 256)
+CHANNEL_QUANTUM = 64
 SM90_MAX_M = 65535 * 128  # output pixels: the grid's M tiles
 
 # a projection operand: (x [B,H,W,Cin] bf16, wp, sp [N], bp [N], stride), wp
@@ -61,12 +70,15 @@ Projection = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
 
 @dataclasses.dataclass
 class BlockWeights:
-    """One bottleneck's weights in the kernels' GEMM layouts: ``w1`` and
-    ``w2`` bf16 ``[K, N]`` (the 3x3 as ``[9*f, f]``, taps row-major) for
-    K2's kernels, ``w3`` and ``wp`` bf16 K-major ``[N, K]`` for
-    ``back_kernel``, and f32 affines."""
+    """One bottleneck's weights in the kernels' layouts, channels padded to
+    :data:`CHANNEL_QUANTUM`: bf16 K-major ``w1 [F, Cin]``, ``w2 [F, 9*F]``
+    (taps row-major), ``w3 [N, F]`` and ``wp [N, Cin]``, f32 affines, and
+    the block's true channel counts."""
 
     stride: int
+    cin: int
+    features: int
+    cout: int
     w1: torch.Tensor
     w2: torch.Tensor
     w3: torch.Tensor
@@ -94,35 +106,60 @@ class FusedResNet:
     model: ResNetClassifier   # the plain model, for the small-extent fallback
 
 
-def _gemm_layout(w: torch.Tensor) -> torch.Tensor:
-    """OIHW conv weight -> ``[KH*KW*I, O]`` bf16 (HWIO flattened)."""
-    o, i, kh, kw = w.shape
-    return w.permute(2, 3, 1, 0).reshape(kh * kw * i, o).to(_BF16).contiguous()
+def padded(c: int) -> int:
+    """``c`` rounded up to a multiple of :data:`CHANNEL_QUANTUM`."""
+    return -(-c // CHANNEL_QUANTUM) * CHANNEL_QUANTUM
 
 
-def _k_major(w: torch.Tensor) -> torch.Tensor:
-    """OIHW 1x1 conv weight -> ``[O, I]`` bf16, K contiguous."""
-    return w[:, :, 0, 0].to(_BF16).contiguous()
+def _pad_to(t: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``t`` zero-padded at the end of each dimension to ``shape``."""
+    pads = []
+    for have, want in zip(reversed(t.shape), reversed(shape)):
+        pads += [0, want - have]
+    return F.pad(t, pads) if any(pads) else t
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.float32).contiguous()
+def pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
+    """NHWC ``x`` with its channels zero-padded to ``c``."""
+    return x if x.shape[3] == c else F.pad(x, (0, c - x.shape[3]))
+
+
+def pack_conv3x3(w: torch.Tensor, cin: Optional[int] = None, f: Optional[int] = None) -> torch.Tensor:
+    """HWIO ``[3, 3, cin, f]`` -> the kernel's K-major ``[f, 9*cin]`` bf16,
+    ``w[n, (dy*3 + dx)*cin + c]``, zero-padded to ``cin`` input and ``f``
+    output channels where given."""
+    w = _pad_to(w, (3, 3, cin or w.shape[2], f or w.shape[3]))
+    return w.to(_BF16).permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous()
+
+
+def _k_major(w: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """OIHW 1x1 conv weight -> ``[n, k]`` bf16, K contiguous, zero-padded."""
+    return _pad_to(w[:, :, 0, 0], (n, k)).to(_BF16).contiguous()
+
+
+def _f32(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """f32 copy of ``t``, a vector zero-padded to ``n`` where given."""
+    return (t if n is None else _pad_to(t, (n,))).to(torch.float32).contiguous()
 
 
 def pack_block(blk: BottleneckBlock) -> BlockWeights:
-    """One block's weights in the kernels' layouts, on the block's device."""
+    """One block's weights in the kernels' layouts, channels zero-padded,
+    on the block's device."""
+    f, cin = blk.conv1.weight.shape[:2]
+    cout = blk.conv3.weight.shape[0]
+    fp, cp, np_ = padded(f), padded(cin), padded(cout)
     bw = BlockWeights(
-        stride=blk.stride,
-        w1=_gemm_layout(blk.conv1.weight),
-        w2=_gemm_layout(blk.conv2.weight),
-        w3=_k_major(blk.conv3.weight),
-        s1=_f32(blk.norm1.scale), b1=_f32(blk.norm1.bias),
-        s2=_f32(blk.norm2.scale), b2=_f32(blk.norm2.bias),
-        s3=_f32(blk.norm3.scale), b3=_f32(blk.norm3.bias),
+        stride=blk.stride, cin=cin, features=f, cout=cout,
+        w1=_k_major(blk.conv1.weight, fp, cp),
+        w2=pack_conv3x3(blk.conv2.weight.permute(2, 3, 1, 0), fp, fp),
+        w3=_k_major(blk.conv3.weight, np_, fp),
+        s1=_f32(blk.norm1.scale, fp), b1=_f32(blk.norm1.bias, fp),
+        s2=_f32(blk.norm2.scale, fp), b2=_f32(blk.norm2.bias, fp),
+        s3=_f32(blk.norm3.scale, np_), b3=_f32(blk.norm3.bias, np_),
     )
     if blk.proj is not None:
-        bw.wp = _k_major(blk.proj.weight)
-        bw.sp, bw.bp = _f32(blk.proj_norm.scale), _f32(blk.proj_norm.bias)
+        bw.wp = _k_major(blk.proj.weight, np_, cp)
+        bw.sp, bw.bp = _f32(blk.proj_norm.scale, np_), _f32(blk.proj_norm.bias, np_)
     return bw
 
 
@@ -171,8 +208,9 @@ def conv1x1_plain(
     residual: Optional[torch.Tensor] = None,
     proj: Optional[Projection] = None,
 ) -> torch.Tensor:
-    """Plain version of ``conv1x1_kernel``: ``silu(a@w*scale+bias [+ res])``
-    in f32 on bf16 operands, rounded to bf16. NHWC in, NHWC out."""
+    """The 1x1 convolutions' plain arithmetic on a ``[K, N]`` ``w``:
+    ``silu(a@w*scale+bias [+ res])`` in f32 on bf16 operands, rounded to
+    bf16. NHWC in, NHWC out."""
     v = _affine(_conv_f32(a, w, 1, 1, (0, 0, 0, 0)), scale, bias)
     if residual is not None:
         v = v + _nchw_f32(residual)
@@ -190,10 +228,25 @@ def _pads3x3(stride: int):
 def conv3x3_plain(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
-    """Plain version of ``conv3x3_kernel``: ``silu(conv3x3(x)*scale+bias)``
-    with XLA SAME padding, f32 on bf16 operands, rounded to bf16."""
+    """The 3x3 convolutions' plain arithmetic on a ``[9*C, N]`` ``w`` (HWIO
+    flattened): ``silu(conv3x3(x)*scale+bias)`` with XLA SAME padding, f32
+    on bf16 operands, rounded to bf16."""
     _check_stride(x, stride)
     return _nhwc_bf16(_affine(_conv_f32(x, w, 3, stride, _pads3x3(stride)), scale, bias))
+
+
+def front_plain(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv1x1_kernel`` on its K-major ``w [N, C]``:
+    :func:`conv1x1_plain` on ``w.T``."""
+    return conv1x1_plain(a, w.t(), scale, bias)
+
+
+def middle_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 stride: int = 1) -> torch.Tensor:
+    """Plain version of ``conv3x3_kernel`` on its K-major ``w [N, 9*C]``:
+    :func:`conv3x3_plain` on ``w.T``."""
+    return conv3x3_plain(x, w.t(), scale, bias, stride)
 
 
 # -- kernel wrappers ------------------------------------------------------
@@ -206,21 +259,6 @@ def _check_stride(x: torch.Tensor, stride: int) -> None:
         # the Pallas kernel's output extent is h // s (pallas_resnet.py:344)
         # where flax SAME gives ceil(h / 2): they agree only on even extents
         raise ValueError(f"stride-2 block needs even H and W, got {tuple(x.shape[1:3])}")
-
-
-def _check_operand(name: str, a: torch.Tensor, w: torch.Tensor, k: int) -> None:
-    if a.dim() != 4 or a.dtype != _BF16 or not a.is_contiguous():
-        raise ValueError(f"{name}: activations must be contiguous NHWC bf16, got "
-                         f"{a.dtype} {tuple(a.shape)}")
-    c = a.shape[3]
-    if w.dtype != _BF16 or not w.is_contiguous() or w.shape[0] != k * k * c:
-        raise ValueError(f"{name}: weight must be contiguous bf16 [{k * k * c}, N], got "
-                         f"{w.dtype} {tuple(w.shape)}")
-    if c % _K_QUANTUM or w.shape[1] % _N_QUANTUM:
-        raise ValueError(f"{name}: kernel needs Cin % {_K_QUANTUM} == 0 and N % {_N_QUANTUM} "
-                         f"== 0, got Cin={c}, N={w.shape[1]}")
-    if w.device != a.device:
-        raise ValueError(f"{name}: weight on {w.device}, activations on {a.device}")
 
 
 def _check_k_major(name: str, a: torch.Tensor, w: torch.Tensor) -> None:
@@ -241,58 +279,89 @@ def _affine_ok(name: str, n: int, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: affines must be contiguous f32 [{n}]")
 
 
-def conv1x1(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``silu(a@w*scale+bias)`` over NHWC pixels (K2's front):
-    ``conv1x1_kernel`` on a CUDA tensor, :func:`conv1x1_plain` on CPU."""
-    if not a.is_cuda:
-        return conv1x1_plain(a, w, scale, bias)
-    _check_operand("conv1x1_kernel", a, w, 1)
-    b, h, wd, c = a.shape
-    n = w.shape[1]
-    _affine_ok("conv1x1_kernel", n, scale, bias)
-    out = torch.empty((b, h, wd, n), dtype=_BF16, device=a.device)
-    lib = build.library("bottleneck")
-    err = lib.conv1x1_launch(
-        a.data_ptr(), b, h, wd, c, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
+def sm90_gemm_gate(name: str, m: int, k: int, n: int) -> None:
+    """Raise unless the wgmma mainloop takes an implicit GEMM of ``m``
+    output pixels, ``k`` input channels a tap and ``n`` outputs."""
+    q = CHANNEL_QUANTUM
+    if k <= 0 or k % q or n <= 0 or n % q:
+        raise ValueError(f"{name}: kernel needs Cin % {q} == 0 and N % {q} == 0, got Cin={k}, "
+                         f"N={n}")
+    if not 0 < m <= SM90_MAX_M:
+        raise ValueError(f"{name}: kernel takes 1 to {SM90_MAX_M} output pixels, got {m}")
+
+
+def conv_gate(name: str, x_shape: Sequence[int], n: int, stride: int) -> None:
+    """Raise unless ``conv_sm90_kernel`` takes ``x [B, h, w, cin]`` to ``n``
+    outputs at ``stride``: cin % 64, n % 64, even h and w at stride 2."""
+    if len(x_shape) != 4:
+        raise ValueError(f"{name}: x must be [B, h, w, cin], got {tuple(x_shape)}")
+    b, h, w, cin = x_shape
+    if stride not in (1, 2):
+        raise ValueError(f"{name}: stride must be 1 or 2, got {stride}")
+    if stride == 2 and (h % 2 or w % 2):
+        # the Pallas kernels' output extent is h // s (pallas_resnet.py:344)
+        raise ValueError(f"{name}: stride 2 needs even h and w, got {(h, w)}")
+    sm90_gemm_gate(name, b * (h // stride) * (w // stride), cin, n)
+
+
+def launch_conv(
+    counter: str,
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    bias: Optional[torch.Tensor],
+    ksize: int,
+    stride: int,
+) -> torch.Tensor:
+    """One launch of ``conv_sm90_kernel`` on CUDA tensors, counted under
+    ``LAUNCHES[counter]``: a ``ksize`` x ``ksize`` convolution (1 or 3,
+    XLA SAME padding) of NHWC bf16 ``x`` with K-major ``wt [N,
+    ksize*ksize*cin]``, epilogue ``silu(acc*scale+bias)``, or the bare
+    accumulator when ``scale`` and ``bias`` are None; rounded to bf16."""
+    n = wt.shape[0]
+    conv_gate(counter, x.shape, n, stride)
+    if x.dtype != _BF16 or not x.is_contiguous():
+        raise ValueError(f"{counter}: activations must be contiguous NHWC bf16, got {x.dtype}")
+    k = ksize * ksize * x.shape[3]
+    if (wt.dim() != 2 or wt.dtype != _BF16 or not wt.is_contiguous() or wt.shape[1] != k
+            or wt.device != x.device):
+        raise ValueError(f"{counter}: weight must be contiguous bf16 K-major [{n}, {k}] on "
+                         f"{x.device}, got {wt.dtype} {tuple(wt.shape)} on {wt.device}")
+    if (scale is None) != (bias is None):
+        raise ValueError(f"{counter}: give both scale and bias, or neither")
+    if scale is not None:
+        _affine_ok(counter, n, scale, bias)
+    b, h, w, c = x.shape
+    out = torch.empty((b, h // stride, w // stride, n), dtype=_BF16, device=x.device)
+    lib = build.library("conv_sm90")
+    err = lib.conv_sm90_launch(
+        x.data_ptr(), b, h, w, c, ksize, stride, wt.data_ptr(), n,
+        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(lib, err, "conv1x1_kernel")
-    LAUNCHES["conv1x1_kernel"] += 1
+    build.check(lib, err, counter)
+    LAUNCHES[counter] += 1
     return out
+
+
+def conv1x1(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``silu(a@w.T*scale+bias)`` over NHWC pixels with K-major ``w [N, C]``
+    (K2's front): ``conv1x1_kernel`` on a CUDA tensor, :func:`front_plain`
+    on CPU."""
+    if not a.is_cuda:
+        return front_plain(a, w, scale, bias)
+    return launch_conv("conv1x1_kernel", a, w, scale, bias, 1, 1)
 
 
 def conv3x3(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, stride: int = 1
 ) -> torch.Tensor:
-    """``silu(conv3x3(x)*scale+bias)``, XLA SAME padding, stride 1 or 2
-    (K2's middle): ``conv3x3_kernel`` on a CUDA tensor,
-    :func:`conv3x3_plain` on CPU."""
+    """``silu(conv3x3(x)*scale+bias)`` with K-major ``w [N, 9*C]``, XLA SAME
+    padding, stride 1 or 2 (K2's middle): ``conv3x3_kernel`` on a CUDA
+    tensor, :func:`middle_plain` on CPU."""
     if not x.is_cuda:
-        return conv3x3_plain(x, w, scale, bias, stride)
-    _check_stride(x, stride)
-    _check_operand("conv3x3_kernel", x, w, 3)
-    b, h, wd, c = x.shape
-    n = w.shape[1]
-    _affine_ok("conv3x3_kernel", n, scale, bias)
-    out = torch.empty((b, h // stride, wd // stride, n), dtype=_BF16, device=x.device)
-    lib = build.library("bottleneck")
-    err = lib.conv3x3_launch(
-        x.data_ptr(), b, h, wd, c, stride, w.data_ptr(), n, scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "conv3x3_kernel")
-    LAUNCHES["conv3x3_kernel"] += 1
-    return out
-
-
-def sm90_gemm_gate(name: str, m: int, k: int, n: int) -> None:
-    """Raise unless the wgmma mainloop takes an implicit GEMM of ``m``
-    output pixels, ``k`` input channels a tap and ``n`` outputs."""
-    if k <= 0 or k % SM90_K_QUANTUM or n <= 0 or n % SM90_N_QUANTUM:
-        raise ValueError(f"{name}: kernel needs Cin % {SM90_K_QUANTUM} == 0 and N % "
-                         f"{SM90_N_QUANTUM} == 0, got Cin={k}, N={n}")
-    if not 0 < m <= SM90_MAX_M:
-        raise ValueError(f"{name}: kernel takes 1 to {SM90_MAX_M} output pixels, got {m}")
+        return middle_plain(x, w, scale, bias, stride)
+    return launch_conv("conv3x3_kernel", x, w, scale, bias, 3, stride)
 
 
 def back_gate(y2_shape: Sequence[int], n: int, residual_shape: Optional[Sequence[int]] = None,
@@ -345,8 +414,8 @@ def back_step(
     """The bottleneck's back step (K3), ``silu(y2@w3.T*s3+b3 + residual)``
     or ``silu((y2@w3.T*s3+b3) + (x[::s,::s]@wp.T*sp+bp))`` with K-major
     ``w3 [N, F]`` and ``wp [N, Cin]``: ``back_kernel`` on a CUDA tensor,
-    :func:`back_step_plain` on CPU. The kernel takes F and Cin multiples
-    of 64 and N a multiple of 128, and raises otherwise."""
+    :func:`back_step_plain` on CPU. The kernel takes F, Cin and N
+    multiples of 64, and raises otherwise."""
     if not y2.is_cuda:
         return back_step_plain(y2, w3, s3, b3, residual, proj)
     n = w3.shape[0]
@@ -386,13 +455,21 @@ def back_step(
 # -- the block and the network --------------------------------------------
 
 
-def fused_bottleneck(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
-    """One bottleneck block: ``[B, H, W, Cin]`` bf16 -> ``[B, H/s, W/s, 4f]``."""
+def _block(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
+    """One bottleneck on padded channels: ``[B, H, W, padded(cin)]`` ->
+    ``[B, H/s, W/s, padded(cout)]``."""
     y1 = conv1x1(x, blk.w1, blk.s1, blk.b1)
     y2 = conv3x3(y1, blk.w2, blk.s2, blk.b2, blk.stride)
     if blk.wp is None:
         return back_step(y2, blk.w3, blk.s3, blk.b3, residual=x)
     return back_step(y2, blk.w3, blk.s3, blk.b3, proj=(x, blk.wp, blk.sp, blk.bp, blk.stride))
+
+
+def fused_bottleneck(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
+    """One bottleneck block: ``[B, H, W, Cin]`` bf16 -> ``[B, H/s, W/s, 4f]``,
+    the channels padded for the kernels and dropped again."""
+    y = _block(pad_channels(x, blk.w1.shape[1]), blk)
+    return y if y.shape[3] == blk.cout else y[..., :blk.cout].contiguous()
 
 
 def _stem(params: FusedResNet, x: torch.Tensor) -> torch.Tensor:
@@ -426,9 +503,10 @@ def resnet_fused_infer(
     min_extent = 4 * 2 ** (len(stage_sizes) - 1)
     if x.shape[1] < min_extent or x.shape[2] < min_extent:
         return params.model(x, return_features=return_features)
-    y = _stem(params, x)
+    y = pad_channels(_stem(params, x), params.blocks[0].w1.shape[1])
     for blk in params.blocks:
-        y = fused_bottleneck(y, blk)
-    feat = y.float().mean(dim=(1, 2))  # GAP over the true extent, f32
+        y = _block(y, blk)
+    # GAP over the true extent and the true channels, f32
+    feat = y[..., :params.blocks[-1].cout].float().mean(dim=(1, 2))
     logits = feat @ params.head_w + params.head_b
     return (logits, feat) if return_features else logits

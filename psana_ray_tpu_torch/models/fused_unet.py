@@ -1,8 +1,8 @@
 """Fused PeakNet-TPU inference with the hand-written encoder-level kernel.
 
 Counterpart of ``psana_ray_tpu/models/pallas_unet.py``. One encoder level
-(K4, ``_conv_block_kernel``) is three launches of ``conv3x3_sm90_kernel``
-(``csrc/conv_sm90.cu``, the Hopper ``wgmma`` mainloop of
+(K4, ``_conv_block_kernel``) is three launches of ``conv_sm90_kernel``
+with a 3x3 filter (``csrc/conv_sm90.cu``, the Hopper ``wgmma`` mainloop of
 ``csrc/sm90_gemm.cuh``), two for the bottleneck, which has no ``down``:
 
     y1   = conv3x3(x, w1)        silu(conv3x3(x)  * s1 + b1)
@@ -15,17 +15,22 @@ and skip make a round trip through HBM in bf16. At PeakNet-TPU's widths
 each launch is bound by tensor-core operations and the three launches'
 bound is within about 1% of a fused level's, so the level stays three
 launches. The launches count under ``LAUNCHES["conv_block_kernel"]``.
-The kernel takes K-major weights ``[f, 9*cin]``: :func:`pack_unet` packs
-them once; :func:`fused_conv_block`, which takes HWIO weights, packs them
-at each call.
+The kernel takes K-major weights ``[f, 9*cin]`` with ``cin`` and ``f``
+multiples of 64: :func:`pack_unet` packs them once, zero-padding the
+channels (weights, and scales and biases with zeros, so that a padded
+channel stays ``silu(0) = 0``); :func:`fused_conv_block`, which takes
+HWIO weights, packs them at each call. The reference pads every channel
+dimension to 128 inside its kernel (``pallas_unet.py:218-225``).
 
 :func:`peaknet_tpu_fused_infer` keeps the reference's split
 (``pallas_unet.py:351-402``): encoder level 0 and the decoder are library
 convolutions (bf16 ``F.conv2d``, cuDNN on the card, as XLA in the
 reference), levels 1..n-1 and the bottleneck go through the K4 launches,
-and the head is an f32 1x1 followed by ``depth_to_space``. Activations
-keep their true channel counts: the reference's 128-lane padding only
-serves the TPU.
+and the head is an f32 1x1 followed by ``depth_to_space``. The
+activations are padded once, where they enter level 1, and the padded
+channels of each skip and of the bottleneck's output are dropped before
+the decoder. PeakNet-TPU at its published widths (64, 128, 256, 512)
+takes no padding.
 
 A CPU tensor runs the plain versions; a CUDA tensor launches the kernels,
 or raises.
@@ -39,14 +44,17 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from psana_ray_tpu_torch.kernels import LAUNCHES, build
 from psana_ray_tpu_torch.models.fused_resnet import (
-    _affine_ok,
     _check_stride,
     _conv_f32,
+    _f32,
     _pads3x3,
     conv3x3_plain,
-    sm90_gemm_gate,
+    conv_gate,
+    launch_conv,
+    pack_conv3x3,
+    pad_channels,
+    padded,
 )
 from psana_ray_tpu_torch.models.resnet import conv2d_same
 from psana_ray_tpu_torch.models.unet_tpu import (
@@ -71,12 +79,6 @@ def _gemm(w: torch.Tensor) -> torch.Tensor:
     return w.to(_BF16).reshape(-1, w.shape[3]).contiguous()
 
 
-def pack_conv3x3(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[3, 3, cin, f]`` -> the kernel's K-major ``[f, 9*cin]`` bf16,
-    ``w[n, (dy*3 + dx)*cin + c]``."""
-    return w.to(_BF16).permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous()
-
-
 def _check_level(x: torch.Tensor, w1: torch.Tensor, wd: Optional[torch.Tensor]) -> None:
     if x.dim() != 4 or w1.dim() != 4 or w1.shape[:2] != (3, 3):
         raise ValueError(f"need x [B, h, w, cin] and w1 [3, 3, cin, f], got "
@@ -90,17 +92,10 @@ def _check_level(x: torch.Tensor, w1: torch.Tensor, wd: Optional[torch.Tensor]) 
 
 
 def level_conv_gate(x_shape, n: int, stride: int) -> None:
-    """Raise unless ``conv3x3_sm90_kernel`` takes ``x [B, h, w, cin]`` to
-    ``n`` outputs at ``stride``: cin % 64, n % 128, even h and w at
+    """Raise unless ``conv_sm90_kernel`` takes ``x [B, h, w, cin]`` to
+    ``n`` outputs at ``stride``: cin % 64, n % 64, even h and w at
     stride 2."""
-    if len(x_shape) != 4:
-        raise ValueError(f"{COUNTER}: x must be [B, h, w, cin], got {tuple(x_shape)}")
-    b, h, w, cin = x_shape
-    if stride not in (1, 2):
-        raise ValueError(f"{COUNTER}: stride must be 1 or 2, got {stride}")
-    if stride == 2 and (h % 2 or w % 2):
-        raise ValueError(f"{COUNTER}: stride 2 needs even h and w, got {(h, w)}")
-    sm90_gemm_gate(COUNTER, b * (h // stride) * (w // stride), cin, n)
+    conv_gate(COUNTER, x_shape, n, stride)
 
 
 def launch_level_conv(
@@ -110,34 +105,11 @@ def launch_level_conv(
     bias: Optional[torch.Tensor],
     stride: int,
 ) -> torch.Tensor:
-    """One launch of ``conv3x3_sm90_kernel`` on CUDA tensors, counted under
-    ``LAUNCHES["conv_block_kernel"]``: K-major ``wt [f, 9*cin]``, epilogue
-    ``silu(acc*scale+bias)``, or the bare accumulator rounded to bf16 when
-    ``scale`` and ``bias`` are None."""
-    n = wt.shape[0]
-    level_conv_gate(x.shape, n, stride)
-    if x.dtype != _BF16 or not x.is_contiguous():
-        raise ValueError(f"{COUNTER}: activations must be contiguous NHWC bf16, got {x.dtype}")
-    if (wt.dim() != 2 or wt.dtype != _BF16 or not wt.is_contiguous()
-            or wt.shape[1] != 9 * x.shape[3] or wt.device != x.device):
-        raise ValueError(f"{COUNTER}: weight must be contiguous bf16 K-major "
-                         f"[{n}, {9 * x.shape[3]}] on {x.device}, got {wt.dtype} "
-                         f"{tuple(wt.shape)} on {wt.device}")
-    if (scale is None) != (bias is None):
-        raise ValueError(f"{COUNTER}: give both scale and bias, or neither")
-    if scale is not None:
-        _affine_ok(COUNTER, n, scale, bias)
-    b, h, w, c = x.shape
-    out = torch.empty((b, h // stride, w // stride, n), dtype=_BF16, device=x.device)
-    lib = build.library("conv_sm90")
-    err = lib.conv3x3_sm90_launch(
-        x.data_ptr(), b, h, w, c, stride, wt.data_ptr(), n,
-        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, COUNTER)
-    LAUNCHES[COUNTER] += 1
-    return out
+    """One 3x3 launch of ``conv_sm90_kernel`` on CUDA tensors, counted
+    under ``LAUNCHES["conv_block_kernel"]``: K-major ``wt [f, 9*cin]``,
+    epilogue ``silu(acc*scale+bias)``, or the bare accumulator rounded to
+    bf16 when ``scale`` and ``bias`` are None."""
+    return launch_conv(COUNTER, x, wt, scale, bias, 3, stride)
 
 
 def level_conv_plain(
@@ -201,15 +173,17 @@ def fused_conv_block(
     affines ``(scale [f], bias [f])``. Returns ``skip [B, h, w, f]`` and
     ``down [B, h/2, w/2, f]`` (None without ``wd``), both bf16.
 
-    The kernel takes ``cin % 64 == 0`` and ``f % 128 == 0`` and raises
-    otherwise; a CPU tensor runs :func:`fused_conv_block_plain`. The
-    weights are packed at each call (:func:`pack_unet` packs once)."""
+    On a CUDA tensor the weights are packed at each call (:func:`pack_unet`
+    packs once), with ``cin`` and ``f`` zero-padded to multiples of 64, and
+    the padded channels are dropped from the results; a CPU tensor runs
+    :func:`fused_conv_block_plain`."""
     if not x.is_cuda:
         return fused_conv_block_plain(x, w1, a1, w2, a2, wd)
     _check_level(x, w1, wd)
-    lvl = LevelWeights(pack_conv3x3(w1), a1, pack_conv3x3(w2), a2,
-                       None if wd is None else pack_conv3x3(wd))
-    return conv_block(x, lvl)
+    f = w1.shape[3]
+    lvl = pack_level(w1, a1, w2, a2, wd)
+    skip, down = conv_block(pad_channels(x, lvl.w1.shape[1] // 9), lvl)
+    return skip[..., :f], (None if down is None else down[..., :f])
 
 
 # -- packing ---------------------------------------------------------------
@@ -218,13 +192,28 @@ def fused_conv_block(
 @dataclasses.dataclass
 class LevelWeights:
     """One encoder level for :func:`conv_block`: K-major bf16 kernels
-    ``[f, 9*cin]`` (:func:`pack_conv3x3`), f32 affines."""
+    ``[f, 9*cin]`` (:func:`pack_conv3x3`) and f32 affines, channels
+    zero-padded to multiples of 64 by :func:`pack_level`."""
 
     w1: torch.Tensor
     a1: Affine
     w2: torch.Tensor
     a2: Affine
     wd: Optional[torch.Tensor] = None
+
+
+def pack_level(w1: torch.Tensor, a1: Affine, w2: torch.Tensor, a2: Affine,
+               wd: Optional[torch.Tensor] = None) -> LevelWeights:
+    """One level's HWIO weights and affines in the kernel's layouts, ``cin``
+    and ``f`` zero-padded to multiples of 64 (scales and biases with
+    zeros)."""
+    cp, fp = padded(w1.shape[2]), padded(w1.shape[3])
+
+    def aff(a):
+        return _f32(a[0], fp), _f32(a[1], fp)
+
+    return LevelWeights(pack_conv3x3(w1, cp, fp), aff(a1), pack_conv3x3(w2, fp, fp), aff(a2),
+                        None if wd is None else pack_conv3x3(wd, fp, fp))
 
 
 @dataclasses.dataclass
@@ -269,8 +258,8 @@ def _oihw(conv) -> torch.Tensor:
     return conv.weight.to(_BF16).contiguous(memory_format=torch.channels_last)
 
 
-def _k_major(conv) -> torch.Tensor:
-    return pack_conv3x3(conv.weight.permute(2, 3, 1, 0))
+def _hwio(conv) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0)
 
 
 def _affine(norm, dtype) -> Affine:
@@ -287,9 +276,9 @@ def pack_unet(model: PeakNetUNetTPU) -> FusedUNet:
                           _affine(enc0.norm2, _BF16), _oihw(model.down[0]))
     levels = []
     for i, blk in enumerate(model.enc[1:], start=1):
-        wd = _k_major(model.down[i]) if i < len(model.down) else None
-        levels.append(LevelWeights(_k_major(blk.conv1), _affine(blk.norm1, torch.float32),
-                                   _k_major(blk.conv2), _affine(blk.norm2, torch.float32), wd))
+        wd = _hwio(model.down[i]) if i < len(model.down) else None
+        levels.append(pack_level(_hwio(blk.conv1), _affine(blk.norm1, torch.float32),
+                                 _hwio(blk.conv2), _affine(blk.norm2, torch.float32), wd))
     decoder = [
         DecoderLevel(_oihw(up), _oihw(mb.merge_up), _oihw(mb.merge_skip),
                      _affine(mb.norm1, _BF16), _oihw(mb.conv), _affine(mb.norm2, _BF16))
@@ -344,13 +333,15 @@ def peaknet_tpu_fused_infer(params: FusedUNet, x: torch.Tensor) -> torch.Tensor:
     skips = [y]
     y = _lib_conv(y, l0.wd, stride=2)
 
-    # inner encoder levels and the bottleneck: the K4 launches
-    for lvl in params.levels:
-        skip, down = conv_block(y.contiguous(), lvl)
+    # inner encoder levels and the bottleneck: the K4 launches, on channels
+    # padded to the kernel's quantum; the decoder reads the true channels
+    y = pad_channels(y.contiguous(), params.levels[0].w1.shape[1] // 9)
+    for f, lvl in zip(params.features[1:], params.levels):
+        skip, down = conv_block(y, lvl)
         if down is None:
-            y = skip
+            y = skip[..., :f]
         else:
-            skips.append(skip)
+            skips.append(skip[..., :f])
             y = down
 
     # decoder: library convolutions

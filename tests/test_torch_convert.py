@@ -95,10 +95,13 @@ def test_packed_layouts_are_made_once(small_tree):
     packed = fr.pack_fused(model)
     blk = packed.blocks[0]
     k = small_tree["BottleneckBlock_0/Conv_1/kernel"]  # HWIO [3, 3, f, f]
+    f = k.shape[3]
+    fp = fr.padded(f)
     assert blk.w2.dtype == torch.bfloat16 and blk.w2.is_contiguous()
-    np.testing.assert_array_equal(
-        blk.w2.float().numpy(),
-        torch.from_numpy(k.reshape(9 * k.shape[2], k.shape[3])).bfloat16().float().numpy())
+    # K-major [F, 9*F], w2[n, (dy*3 + dx)*F + c], F zero-padded to a multiple of 64
+    want = np.zeros((fp, 3, 3, fp), np.float32)
+    want[:f, :, :, :f] = torch.from_numpy(k).bfloat16().float().numpy().transpose(3, 0, 1, 2)
+    np.testing.assert_array_equal(blk.w2.float().numpy(), want.reshape(fp, 9 * fp))
     assert blk.wp is not None and packed.blocks[1].wp is None and packed.blocks[2].stride == 2
     assert packed.head_w.shape == (small_tree["head/kernel"].shape)
 

@@ -7,9 +7,11 @@ JAX, so it also runs on a machine that has only PyTorch:
 
 Shapes are small and ragged (pixel counts that are not multiples of the
 kernels' tiles) so that the edge masking runs; the wgmma kernels
-(``back_kernel``, the K4 ``conv3x3_sm90_kernel``) also run one exact
-128-pixel tile first, the U-Net bottleneck's 22x24 extent, N from 128 to
-2048 and K from 64 to 4608. Tolerances: calibration
+(``conv_sm90_kernel`` for K2 and K4, ``back_kernel``) also run one exact
+128-pixel tile first, the U-Net bottleneck's 22x24 extent, N from 64 to
+2048 and K from 64 to 4608, and models narrower than the kernels'
+64-channel quantum on zero-padded channels. The flash kernel runs one
+128-row tile, causal Sq != Sk and the ViT serving shape. Tolerances: calibration
 rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
 bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
 bound for bf16 activations with f32 accumulation, as is the ViT with the
@@ -124,6 +126,8 @@ BACK_CASES = [
     (3, 10, 14, 128, 512, "proj2"),
     (2, 22, 24, 256, 1024, "proj2"),
     (2, 11, 12, 4608, 128, "identity"),   # K = 4608
+    (3, 10, 14, 64, 192, "identity"),     # N % 128 != 0: 64-wide N tiles
+    (3, 10, 14, 64, 192, "proj2"),
 ]
 
 
@@ -150,46 +154,59 @@ def test_back_kernel_matches_plain(cuda, gen, b, ho, wo, f, n, mode):
     assert rel_err(ref, got) < REL_TOL, rel_err(ref, got)
 
 
-def test_conv1x1_kernel_matches_plain(cuda, gen):
-    b, h, w, cin, n = 3, 10, 14, 64, 128  # 420 pixels: a ragged last tile
-    x, wt, s, bias = _operands(gen, cuda, b, h, w, cin, n)
+# ResNet-50 stage 1's front launches at batch 32 widths (N = F = 64, the
+# m64n64k16 tile): the first block's Cin 64 (one k-step), then Cin 256
+@pytest.mark.parametrize("cin", [64, 256])
+def test_conv1x1_kernel_matches_plain(cuda, gen, cin):
+    b, h, w, n = 3, 10, 14, 64  # 420 pixels: a ragged last tile
+    x, _, s, bias = _operands(gen, cuda, b, h, w, cin, n)
+    wt = _k_major(gen, cuda, cin, n)
     got = fr.conv1x1(x, wt, s, bias)
-    ref = fr.conv1x1_plain(x, wt, s, bias)
+    ref = fr.front_plain(x, wt, s, bias)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
-    assert pt.counts()["conv1x1_kernel"] == 1
-    assert rel_err(ref, got) < REL_TOL
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "conv1x1_kernel": 1, "flash_kernel": 0,
+                           **NO_BWD}
+    assert rel_err(ref, got) < REL_TOL, rel_err(ref, got)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_conv3x3_kernel_matches_plain(cuda, gen, stride):
-    b, h, w, c = 2, 12, 18, 64
+    b, h, w, c = 2, 12, 18, 64  # stage 1's F = 64: N = 64
     x, _, s, bias = _operands(gen, cuda, b, h, w, c, c)
-    wt = (torch.randn((9 * c, c), generator=gen, device=cuda) / (9 * c) ** 0.5).bfloat16()
+    wt = _k_major(gen, cuda, 9 * c, c)
     got = fr.conv3x3(x, wt, s, bias, stride)
-    ref = fr.conv3x3_plain(x, wt, s, bias, stride)
+    ref = fr.middle_plain(x, wt, s, bias, stride)
     torch.cuda.synchronize()
     assert got.shape == (b, h // stride, w // stride, c)
-    assert pt.counts()["conv3x3_kernel"] == 1
-    assert rel_err(ref, got) < REL_TOL
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "conv3x3_kernel": 1, "flash_kernel": 0,
+                           **NO_BWD}
+    assert rel_err(ref, got) < REL_TOL, rel_err(ref, got)
 
 
 def test_bottleneck_kernels_refuse_bad_shapes(cuda, gen):
-    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 48, 64)
+    x, _, s, bias = _operands(gen, cuda, 1, 4, 4, 48, 64)
     with pytest.raises(ValueError, match="Cin"):
-        fr.conv1x1(x, wt, s, bias)
-    x, wt, s, bias = _operands(gen, cuda, 1, 4, 4, 64, 128)
+        fr.conv1x1(x, _k_major(gen, cuda, 48, 64), s, bias)
+    x, _, s, bias = _operands(gen, cuda, 1, 4, 4, 64, 128)
+    w1 = _k_major(gen, cuda, 64, 128)
     with pytest.raises(ValueError, match="contiguous NHWC bf16"):
-        fr.conv1x1(x.float(), wt, s, bias)
+        fr.conv1x1(x.float(), w1, s, bias)
+    with pytest.raises(ValueError, match="K-major"):
+        fr.conv1x1(x, w1.t().contiguous(), s, bias)
+    with pytest.raises(ValueError, match="N % 64"):
+        fr.conv3x3(x, _k_major(gen, cuda, 9 * 64, 96), s[:96], bias[:96])
+    with pytest.raises(ValueError, match="even"):
+        fr.conv3x3(x[:, :3].contiguous(), _k_major(gen, cuda, 9 * 64, 64), s[:64], bias[:64], 2)
     w3 = _k_major(gen, cuda, 64, 128)
     with pytest.raises(ValueError, match="exactly one"):
         fr.back_step(x, w3, s, bias, residual=x, proj=(x, w3, s, bias, 1))
     narrow = _k_major(gen, cuda, 32, 128)
     with pytest.raises(ValueError, match="Cin"):
         fr.back_step(x[..., :32].contiguous(), narrow, s, bias, residual=x)
-    with pytest.raises(ValueError, match="N % 128"):
-        fr.back_step(x, _k_major(gen, cuda, 64, 64), s[:64], bias[:64], residual=x[..., :64])
-    assert pt.counts()["conv1x1_kernel"] == 0 and pt.counts()["back_kernel"] == 0
+    with pytest.raises(ValueError, match="N % 64"):
+        fr.back_step(x, _k_major(gen, cuda, 64, 96), s[:96], bias[:96], residual=x[..., :96])
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "flash_kernel": 0, **NO_BWD}
 
 
 def test_fused_network_matches_plain_model(cuda):
@@ -202,6 +219,21 @@ def test_fused_network_matches_plain_model(cuda):
     assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 4, "conv3x3_kernel": 4,
                            "back_kernel": 4, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     assert float(ref_feat.abs().max()) >= 1e-2
+    assert rel_err(ref_logits, logits) < REL_TOL
+    assert rel_err(ref_feat, feat) < REL_TOL
+
+
+def test_narrow_resnet_runs_through_the_kernels(cuda):
+    """The CPU parity tests' ResNet-50 (width 16, stage widths 16..128 and
+    a 16-channel stem) runs every block through the kernels on channels
+    padded to 64, within tolerance of its plain model."""
+    model = pt.resnet_from_flax(pt.init_resnet_params(in_channels=4, width=16, seed=2), device=cuda)
+    x = torch.randn((2, 64, 64, 4), generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    logits, feat = pt.resnet_fused_infer(pt.pack_fused(model), x, return_features=True)
+    ref_logits, ref_feat = model(x, return_features=True)
+    assert pt.counts() == {"calib_kernel": 0, "conv1x1_kernel": 16, "conv3x3_kernel": 16,
+                           "back_kernel": 16, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
+    assert tuple(feat.shape) == (2, 512) and float(ref_feat.abs().max()) >= 1e-2
     assert rel_err(ref_logits, logits) < REL_TOL
     assert rel_err(ref_feat, feat) < REL_TOL
 
@@ -225,6 +257,8 @@ LEVEL_CONV_CASES = [
     (2, 22, 24, 256, 512, 1),     # the bottleneck level's extent
     (2, 22, 24, 512, 128, 1),     # K = 9 * 512 = 4608
     (2, 44, 48, 128, 256, 2),
+    (3, 10, 14, 64, 64, 1),       # N = 64: the m64n64k16 tile
+    (3, 10, 14, 128, 64, 2),
 ]
 
 
@@ -273,16 +307,18 @@ def test_conv_block_kernel_matches_plain(cuda, gen, down):
         assert dn is None and ref_dn is None
 
 
-def test_conv_block_kernel_refuses_narrow_channels(cuda, gen):
-    x = torch.randn((1, 8, 8, 32), generator=gen, device=cuda).bfloat16()
-    w1, a1, w2, a2, wd = _level(gen, cuda, 32, 128, True)
-    with pytest.raises(ValueError, match="Cin"):
-        fu.fused_conv_block(x, w1, a1, w2, a2, wd)
-    x = torch.randn((1, 8, 8, 64), generator=gen, device=cuda).bfloat16()
-    w1, a1, w2, a2, wd = _level(gen, cuda, 64, 64, True)
-    with pytest.raises(ValueError, match="N % 128"):
-        fu.fused_conv_block(x, w1, a1, w2, a2, wd)
-    assert pt.counts()["conv_block_kernel"] == 0
+@pytest.mark.parametrize("cin,f", [(32, 128), (64, 64), (32, 32)])
+def test_conv_block_kernel_runs_narrow_channels(cuda, gen, cin, f):
+    """A level narrower than the kernel's 64-channel quantum runs through
+    the kernel on zero-padded channels and gives the true channels."""
+    x = torch.randn((2, 8, 12, cin), generator=gen, device=cuda).bfloat16()
+    w1, a1, w2, a2, wd = _level(gen, cuda, cin, f, True)
+    skip, dn = fu.fused_conv_block(x, w1, a1, w2, a2, wd)
+    ref_skip, ref_dn = fu.fused_conv_block_plain(x, w1, a1, w2, a2, wd)
+    torch.cuda.synchronize()
+    assert pt.counts()["conv_block_kernel"] == 3
+    assert tuple(skip.shape) == (2, 8, 12, f) and tuple(dn.shape) == (2, 4, 6, f)
+    assert rel_err(ref_skip, skip) < REL_TOL and rel_err(ref_dn, dn) < REL_TOL
 
 
 def test_fused_unet_matches_plain_model(cuda):
@@ -293,6 +329,19 @@ def test_fused_unet_matches_plain_model(cuda):
     with torch.no_grad():
         ref = model(x)
     assert pt.counts()["conv_block_kernel"] == 3 + 3 + 2
+    assert tuple(got.shape) == (2, 64, 128, 1) and bool(torch.isfinite(got).all())
+    assert rel_err(ref, got) < REL_TOL
+
+
+def test_narrow_unet_runs_through_the_kernels(cuda):
+    """PeakNet-TPU (32, 64, 128): level 1 and the bottleneck run through the
+    kernel on channels padded to 64, within tolerance of the plain model."""
+    model = pt.unet_from_flax(pt.init_peaknet_tpu_params((32, 64, 128), seed=1), device=cuda)
+    x = torch.randn((2, 64, 128, 1), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    got = pt.peaknet_tpu_fused_infer(pt.pack_unet(model), x)
+    with torch.no_grad():
+        ref = model(x)
+    assert pt.counts()["conv_block_kernel"] == 3 + 2
     assert tuple(got.shape) == (2, 64, 128, 1) and bool(torch.isfinite(got).all())
     assert rel_err(ref, got) < REL_TOL
 
@@ -330,8 +379,10 @@ def _flat_lse(sq, sk, causal, device):
 
 @pytest.mark.parametrize(
     "bh,sq,sk,causal",
-    [(3, 256, 256, False), (3, 256, 256, True), (2, 256, 768, False), (2, 256, 768, True),
-     (2, 384, 128, True)],
+    [(1, 128, 128, False), (1, 128, 128, True),  # one tile
+     (3, 256, 256, False), (3, 256, 256, True), (2, 256, 768, False), (2, 256, 768, True),
+     (2, 384, 128, True), (2, 640, 384, True),   # causal, Sq != Sk
+     (8, 8448, 8448, False)],                    # the ViT serving shape
 )
 def test_flash_kernel_matches_plain(cuda, gen, bh, sq, sk, causal):
     """Unit-scale q, k, v (scores of std 1, far from a flat softmax): o
@@ -378,6 +429,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiples of 128"):
         tf.attention_with_stats(*(torch.zeros((1, 2, 192, 128), device=cuda).bfloat16(),) * 3)
     assert pt.counts()["flash_kernel"] == 0
+    # the C entry point checks the 128-row tiles itself
+    from psana_ray_tpu_torch.kernels import build
+
+    z = torch.zeros((1, 64, 128), device=cuda).bfloat16()
+    lib = build.library("flash")
+    err = lib.flash_fwd_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                               torch.zeros(64, device=cuda).data_ptr(), 1, 64, 64, 128, 0.1, 0,
+                               torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_vit_matches_plain_attention_model(cuda):

@@ -118,7 +118,10 @@ def test_whole_network_matches_jax(rng):
     ref_feat, ref_logits = out[:, :c], out[:, c:]
 
     model = resnet_from_flax(params, STAGES)
-    logits, feat = fr.resnet_fused_infer(fr.pack_fused(model), torch.from_numpy(x), STAGES,
+    packed = fr.pack_fused(model)
+    # width 16: F and the stem's channels padded to 64, as the card's kernels need
+    assert packed.blocks[0].w1.shape == (64, 64) and packed.blocks[0].w2.shape == (64, 9 * 64)
+    logits, feat = fr.resnet_fused_infer(packed, torch.from_numpy(x), STAGES,
                                          return_features=True)
     assert tuple(logits.shape) == (2, 2) and tuple(feat.shape) == (2, c)
     errs = {"logits": rel_err(ref_logits, logits.numpy()), "features": rel_err(ref_feat, feat.numpy())}
@@ -149,7 +152,7 @@ def test_stride2_needs_even_extent():
     takes ``ceil(h / 2)``; they agree only on even extents, so the port
     refuses odd ones."""
     x = torch.zeros(1, 7, 8, 32, dtype=torch.bfloat16)
-    w = torch.zeros(9 * 32, 32, dtype=torch.bfloat16)
+    w = torch.zeros(32, 9 * 32, dtype=torch.bfloat16)  # K-major
     s = torch.ones(32)
     with pytest.raises(ValueError, match="even"):
         fr.conv3x3(x, w, s, s, stride=2)

@@ -116,6 +116,7 @@ def test_conv_block_plain_matches_jax_kernel(rng, cin, f, down):
         ((8, 16, 32, 32), (1, 64, 128, 1), 2),
         ((8, 16, 16), (1, 32, 64, 2), 2),
         ((8, 16, 16), (2, 64, 128, 1), 4),
+        ((32, 64, 128), (1, 64, 128, 1), 2),  # level 1's 32 input channels padded to 64
     ],
 )
 def test_network_matches_flax_and_jax_fused(rng, features, shape, s2d):
@@ -131,7 +132,11 @@ def test_network_matches_flax_and_jax_fused(rng, features, shape, s2d):
     model = unet_from_flax(params)
     assert model.features == features and model.s2d == s2d
     plain = model(torch.from_numpy(x))
-    fused = fu.peaknet_tpu_fused_infer(fu.pack_unet(model), torch.from_numpy(x))
+    packed = fu.pack_unet(model)
+    # the kernels' levels run on channels padded to multiples of 64
+    assert all(lvl.w1.shape[0] % 64 == 0 and lvl.w1.shape[1] % (9 * 64) == 0
+               for lvl in packed.levels)
+    fused = fu.peaknet_tpu_fused_infer(packed, torch.from_numpy(x))
     assert plain.dtype == fused.dtype == torch.float32
     assert tuple(plain.shape) == tuple(fused.shape) == flax_out.shape == (*shape[:3], 1)
     errs = {"plain_vs_flax": rel_err(flax_out, plain.numpy()),

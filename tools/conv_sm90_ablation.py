@@ -11,12 +11,16 @@ sources with one edit, into ``build/torch_kernels/ablation/<variant>/``:
 - ``no_mma``: the consumers issue no ``wgmma`` (the loads, barriers and
   epilogue remain);
 - ``no_epilogue``: the epilogue's per-element arithmetic and its writes
-  to shared memory are skipped (the TMA stores of the output tile remain).
+  to shared memory are skipped (the TMA stores of the output tile remain);
+- ``two_waves``: each launch picks the widest N tile that gives every SM
+  two tiles (not one), so that a tile's epilogue overlaps the next
+  tile's loads.
 
-The results of the two ablated variants are wrong; only their times
-mean something. Each case is a shape of the main path: the three SFX
-encoder levels' 3x3 launches (K4, batch 128) and ResNet-50's back steps
-at batch 32 (K3, identity blocks). Times are CUDA-event means of 20
+The results of ``no_mma`` and ``no_epilogue`` are wrong; only their
+times mean something. Each case is a shape of the main path: the three
+SFX encoder levels' 3x3 launches (K4, batch 128), ResNet-50's front
+launches (K2, the 1x1 and the 3x3 of each block class) and back steps
+(K3, identity blocks) at batch 32; a last row sums K2 over one batch. Times are CUDA-event means of 20
 launches back to back after a warm-up (warm L2, no host work between
 launches, unlike ``chip_smoke.py``'s single cold launches). One JSON line
 per case, after the ``nvidia-smi`` name and power limit.
@@ -36,15 +40,35 @@ sys.path.insert(0, ROOT)
 
 MMA = "for (int kk = 0; kk < kBK / 16; ++kk) wgmma_k16<BN>(acc, da + 2 * kk, db + 2 * kk);"
 EPILOGUE = "for (int j = 0; j < BN / 8; ++j) {"
+ONE_WAVE = "if (mt * (N / bn) >= sm_count()) return bn;"
 VARIANTS = {
     "base": [],
     "no_mma": [("sm90_gemm.cuh", MMA, "")],
     "no_epilogue": [("conv_sm90.cu", EPILOGUE, "for (int j = 0; j < 0; ++j) {")],
+    "two_waves": [("conv_sm90.cu", ONE_WAVE, ONE_WAVE.replace(">= sm_count()", ">= 2 * sm_count()"))],
 }
 # (name, B, H, W, Cin, N, stride): K4's launches at the SFX shapes
 K4_CASES = [("level1_conv1", 128, 88, 96, 64, 128, 1), ("level1_conv2", 128, 88, 96, 128, 128, 1),
             ("level1_down", 128, 88, 96, 128, 128, 2), ("level2_conv2", 128, 44, 48, 256, 256, 1),
             ("bottleneck_conv2", 128, 22, 24, 512, 512, 1)]
+# (name, blocks of the class, B, H, W, Cin, N, ksize, stride): K2's launches
+# at batch 32, the front 1x1 and the 3x3 of each ResNet-50 block class
+K2_CASES = [("stage1_proj_1x1", 1, 32, 88, 96, 64, 64, 1, 1),
+            ("stage1_proj_3x3", 1, 32, 88, 96, 64, 64, 3, 1),
+            ("stage1_identity_1x1", 2, 32, 88, 96, 256, 64, 1, 1),
+            ("stage1_identity_3x3", 2, 32, 88, 96, 64, 64, 3, 1),
+            ("stage2_proj_1x1", 1, 32, 88, 96, 256, 128, 1, 1),
+            ("stage2_proj_3x3", 1, 32, 88, 96, 128, 128, 3, 2),
+            ("stage2_identity_1x1", 3, 32, 44, 48, 512, 128, 1, 1),
+            ("stage2_identity_3x3", 3, 32, 44, 48, 128, 128, 3, 1),
+            ("stage3_proj_1x1", 1, 32, 44, 48, 512, 256, 1, 1),
+            ("stage3_proj_3x3", 1, 32, 44, 48, 256, 256, 3, 2),
+            ("stage3_identity_1x1", 5, 32, 22, 24, 1024, 256, 1, 1),
+            ("stage3_identity_3x3", 5, 32, 22, 24, 256, 256, 3, 1),
+            ("stage4_proj_1x1", 1, 32, 22, 24, 1024, 512, 1, 1),
+            ("stage4_proj_3x3", 1, 32, 22, 24, 512, 512, 3, 2),
+            ("stage4_identity_1x1", 2, 32, 11, 12, 2048, 512, 1, 1),
+            ("stage4_identity_3x3", 2, 32, 11, 12, 512, 512, 3, 1)]
 # (name, B, Ho, Wo, F, N): K3's identity blocks at batch 32
 K3_CASES = [("stage1_identity", 32, 88, 96, 64, 256), ("stage2_identity", 32, 44, 48, 128, 512),
             ("stage3_identity", 32, 22, 24, 256, 1024), ("stage4_identity", 32, 11, 12, 512, 2048)]
@@ -108,10 +132,20 @@ def main() -> int:
         ops = 2.0 * b * (h // s) * (w // s) * 9 * cin * n
 
         def k4(lib, x=x, wt=wt, out=out, aff=aff, b=b, h=h, w=w, cin=cin, n=n, s=s):
-            return lib.conv3x3_sm90_launch(x.data_ptr(), b, h, w, cin, s, wt.data_ptr(), n,
-                                           aff[0].data_ptr(), aff[1].data_ptr(), out.data_ptr(),
-                                           stream())
-        cases.append(("conv3x3_sm90_kernel", name, k4, ops, None))
+            return lib.conv_sm90_launch(x.data_ptr(), b, h, w, cin, 3, s, wt.data_ptr(), n,
+                                        aff[0].data_ptr(), aff[1].data_ptr(), out.data_ptr(),
+                                        stream())
+        cases.append(("conv_block_kernel", name, k4, ops, None, 0))
+    for name, mult, b, h, w, cin, n, k, s in K2_CASES:
+        x, wt, out = randn(b, h, w, cin), randn(n, k * k * cin, scale=0.02), randn(b, h // s, w // s, n)
+        aff = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+        ops = 2.0 * b * (h // s) * (w // s) * k * k * cin * n
+
+        def k2(lib, x=x, wt=wt, out=out, aff=aff, b=b, h=h, w=w, cin=cin, n=n, k=k, s=s):
+            return lib.conv_sm90_launch(x.data_ptr(), b, h, w, cin, k, s, wt.data_ptr(), n,
+                                        aff[0].data_ptr(), aff[1].data_ptr(), out.data_ptr(),
+                                        stream())
+        cases.append(("conv1x1_kernel" if k == 1 else "conv3x3_kernel", name, k2, ops, None, mult))
     for name, b, ho, wo, f, n in K3_CASES:
         y2, w3, res, out = randn(b, ho, wo, f), randn(n, f, scale=0.05), randn(b, ho, wo, n), randn(b, ho, wo, n)
         aff = torch.ones(n, device=dev), torch.zeros(n, device=dev)
@@ -121,9 +155,10 @@ def main() -> int:
             return lib.back_launch(y2.data_ptr(), b, ho, wo, f, w3.data_ptr(), n, aff[0].data_ptr(),
                                    aff[1].data_ptr(), res.data_ptr(), None, 0, 0, 0, 1, None, None,
                                    None, out.data_ptr(), stream())
-        cases.append(("back_kernel", name, k3, None, nbytes))
+        cases.append(("back_kernel", name, k3, None, nbytes, 0))
 
-    for kernel, name, fn, ops, nbytes in cases:
+    k2_batch = dict.fromkeys(libs, 0.0)
+    for kernel, name, fn, ops, nbytes, mult in cases:
         row = {"kernel": kernel, "case": name}
         for variant, lib in libs.items():
             if fn(lib) != 0:
@@ -138,7 +173,9 @@ def main() -> int:
             ms = e0.elapsed_time(e1) / 20
             row[variant] = {"ms": ms, **({"tflops": ops / ms / 1e9} if ops else
                                          {"gbytes_per_s": nbytes / ms / 1e6})}
+            k2_batch[variant] += mult * ms
         print(json.dumps(row), flush=True)
+    print(json.dumps({"kernel": "K2", "case": "one batch of 32", "ms": k2_batch}), flush=True)
     return 0
 
 
