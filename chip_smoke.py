@@ -20,9 +20,10 @@ one JSON line (``{"phase": ...}``):
    whether ``ptxas`` advised that its ``wgmma.mma_async`` instructions
    are serialized or that its ``setmaxnreg`` was ignored. A
    ``build_sm90`` line sums that up for the ``wgmma`` kernels of
-   ``conv_sm90.cu`` and ``flash.cu``; a spill, a serialization, an
-   ignored ``setmaxnreg`` or a launch register count other than 168 there
-   fails the run.
+   ``conv_sm90.cu``, ``flash.cu`` and ``flash_bwd.cu``; a spill, a
+   serialization or an ignored ``setmaxnreg`` there fails the run, and so
+   does a launch register count other than 168 in the two that move
+   registers with ``setmaxnreg``.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
    f32 RAW frames from ``SyntheticSource``, with f32 and bf16 output
    (f32: rtol 1e-5, atol 1e-4; bf16: that plus one bf16 ulp).
@@ -90,8 +91,8 @@ one JSON line (``{"phase": ...}``):
    control above) gives the logits' sensitivity to attention.
 12. ``vit_profile``: the same pipeline for 4 more batches under
    ``torch.profiler``.
-13. ``flash_bwd``: K6 (``flash_bwd_dkv_kernel``) and K7
-   (``flash_bwd_dq_kernel``) against ``attention_bwd_plain`` on the same
+13. ``flash_bwd``: ``flash_bwd_kernel`` (K6 and K7 in one pass) and its
+   dq rounding ``flash_bwd_dq_convert`` against ``attention_bwd_plain`` on the same
    residuals (``o``, ``lse`` from ``flash_kernel``), q, k, v and dO
    ``N(0, 1)`` bf16: the ViT training shape (B 4, H 4, S 8448,
    non-causal), causal Sq = Sk = 1024, Sq 128 against Sk 384 causal and
@@ -100,10 +101,16 @@ one JSON line (``{"phase": ...}``):
    controls must fail that check in every case: zeros, and the backward
    of score-blind attention (p = 1/keys: dq = dk = 0). The errors of a
    backward that drops delta, and of one that ignores dlse, are printed.
-   Kernel times (each kernel alone), the plain version's (one call for
-   dq, dk and dv), the library's (the backward of
-   ``F.scaled_dot_product_attention`` from a saved forward, one call for
-   the three) and each kernel's bound.
+   A second launch on the same inputs must give identical dk and dv and
+   dq within one bf16 ulp of its largest value (dq's f32 sums across key
+   tiles arrive in another order each run). Times: the pair as the
+   backward launches it (dq_acc zeroed, the kernel, the dq rounding;
+   ``ms`` and ``ms_cold``), the kernel alone and the rounding alone, the
+   plain version's (one call for dq, dk and dv), the library's (the
+   backward of ``F.scaled_dot_product_attention`` from a saved forward,
+   one call for the three), and the bound of the five products the
+   function needs, with that of the seven of a two-kernel design beside
+   it.
 14. ``vit_train``: the training recipe of the JAX package's
    ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
    epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
@@ -111,14 +118,14 @@ one JSON line (``{"phase": ...}``):
    the same init on the first chunk: one forward and backward with the
    kernels against one with the plain attention (forward and backward),
    loss within 0.05 relative; and against one with the kernel forward and
-   the plain backward (the same activations, so only K6 and K7 differ),
+   the plain backward (the same activations, so only the backward kernel differs),
    every parameter's gradient ``rel_err < 0.05``. The worst leaf of each
    comparison is named, and printed beside them are the plain path
    against the kernel forward with the plain backward (the forward's
    rounding, which the max-pool head's ties amplify) and the gradients of
    a backward that drops delta. Launch counts must be +1
    ``calib_kernel`` per 4-frame chunk, +4 ``flash_kernel``, +4
-   ``flash_bwd_dkv_kernel`` and +4 ``flash_bwd_dq_kernel`` per step, and
+   ``flash_bwd_kernel`` and +4 ``flash_bwd_dq_convert`` per step, and
    nothing else. p50/p99 step ms (synchronised after each step),
    training frames/s, peak memory, the first and last 20-step mean
    loss, and accuracy on 16 held-out events through ``vit_serve_step``.
@@ -141,17 +148,18 @@ Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up, with the card kept busy (a spin of about a
 millisecond, ``torch.cuda._sleep``) between the flush and the start
 event, so that the host prepares the launch (tensor maps, ctypes) while
-the card works and the time is the card's alone. ``ms_cold`` (K2-K5)
+the card works and the time is the card's alone. ``ms_cold`` (K2-K7)
 is the earlier timer's: no spin, so a call's host time shows whenever it
 outlasts the flush. For ``conv1x1_kernel``, ``conv3x3_kernel`` and
 ``back_kernel`` the kernels line gives the sum over one batch of the main
 path (each block class's time times the number of blocks of that class);
 for ``conv_block_kernel`` the 8 launches of one SFX batch; for
 ``flash_kernel`` one batch is 4 launches at the serving shape, and for
-the backward kernels one train step is 4 launches of each at the
-training shape (``plain_ms`` is the plain version's one call for dq, dk
-and dv; ``library_ms``, the SDPA backward's one call for the three, is
-given once, with K6). ``bound_ms`` is
+``flash_bwd_kernel``, which both K6's and K7's rows name, one train step
+is 4 launches of the pair (kernel and dq rounding) at the training shape
+(``plain_ms`` is the plain version's one call for dq, dk and dv;
+``library_ms``, the SDPA backward's one call for the three, is given
+once, with K6). ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16
 tensor cores; 67 TFLOP/s f32 for the calibration arithmetic), counting
 each input byte read once and each output byte written once.
@@ -181,7 +189,7 @@ VIT_BATCHES = 6
 VIT_DEPTH = 4  # flash_kernel launches per batch
 FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
 BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
-NO_BWD = {"flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0}  # serving paths launch none
+NO_BWD = {"flash_bwd_kernel": 0, "flash_bwd_dq_convert": 0}  # serving paths launch none
 NO_RESNET = {"conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0}  # other paths
 # (case, B, H, Sq, Sk, causal, with an lse cotangent); the first is the ViT training shape
 BWD_CASES = (("training", 4, 4, 8448, 8448, False, False),
@@ -1042,16 +1050,17 @@ def phase_sfx_profile(torch, pt, pool, pipe, n_batches=4):
 # -- phases 13-15 ----------------------------------------------------------
 
 
-def flash_bwd_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False) -> dict:
-    """(bytes, ops) of K6 and K7: q, k, v and do (bf16) and lse and delta
-    (f32) read once, dk and dv (K6) or dq (K7) written once; four products
-    of 2*d operations per (query, key) pair for K6 (s, dp, dv, dk), three
-    for K7 (s, dp, dq)."""
+def flash_bwd_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False):
+    """(bytes, ops, ops_7) of the backward: q, k, v and do (bf16) and lse
+    and delta (f32) read once, dq, dk and dv (bf16) written once; five
+    products of 2*d operations per (query, key) pair (s, dp, dv, dk, dq),
+    what the function needs and ``flash_bwd_kernel`` does, and ``ops_7``
+    for the seven of a two-kernel design that computes s and dp twice (the
+    TPU kernels' split, ``flash.py:284-287``)."""
     t_q, t_k = 2 * bh * sq * d, 2 * bh * sk * d
-    reads = 2 * t_q + 2 * t_k + 2 * 4 * bh * sq
+    nbytes = 2 * t_q + 2 * t_k + 2 * 4 * bh * sq + t_q + 2 * t_k
     ops = 2.0 * d * bh * _flash_pairs(sq, sk, causal)
-    return {"flash_bwd_dkv_kernel": (reads + 2 * t_k, 4 * ops),
-            "flash_bwd_dq_kernel": (reads + t_q, 3 * ops)}
+    return nbytes, 5 * ops, 7 * ops
 
 
 def bwd_errors(got, ref) -> dict:
@@ -1081,9 +1090,10 @@ def flat_attention_bwd(torch, do, sk, causal):
 
 
 def phase_flash_bwd(torch, F, tf, timer, device):
-    """K6 and K7 against ``attention_bwd_plain`` in each case of
-    ``BWD_CASES``, two controls that the same check must reject, and the
-    errors of a backward that drops delta or ignores dlse (printed)."""
+    """``flash_bwd_kernel`` (K6 and K7 in one pass) against
+    ``attention_bwd_plain`` in each case of ``BWD_CASES``, two controls
+    that the same check must reject, a repeat launch, and the errors of a
+    backward that drops delta or ignores dlse (printed)."""
     gen = torch.Generator(device=device).manual_seed(1)
     results = {}
     for name, b, h, sq, sk, causal, with_dlse in BWD_CASES:
@@ -1113,24 +1123,44 @@ def phase_flash_bwd(torch, F, tf, timer, device):
         sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
         for e in sens.values():
             e["rejected"] = not bwd_ok(e)
-        del got, ref
+        # the repeat check: dk and dv identical, dq within one bf16 ulp of
+        # its largest value (its f32 sums arrive in another order each run)
+        again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
+        torch.cuda.synchronize()
+        repeat = {"dk_equal": bool(torch.equal(got[1], again[1])),
+                  "dv_equal": bool(torch.equal(got[2], again[2])),
+                  "dq_max_diff": float((got[0].float() - again[0].float()).abs().max()),
+                  "dq_ulp": 2.0 ** -8 * float(ref[0].float().abs().max())}
+        if not (repeat["dk_equal"] and repeat["dv_equal"]
+                and repeat["dq_max_diff"] <= repeat["dq_ulp"]):
+            raise AssertionError(f"flash backward ({name}): two launches disagree: {repeat}")
+        del got, ref, again
         delta = tf.flash_bwd_delta(o, do, dlse)
         # the library yardstick, never called by the port: the backward of
         # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, causal=causal)
+        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
+
+        def pair():  # what the backward launches: dq_acc zeroed, the kernel, the dq rounding
+            return tf.launch_flash_bwd_dq_convert(
+                tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)[0])
+
+        ms = timer.ms(pair, iters=10)
         row = {"case": name, "shape_q": [b, h, sq, 128], "sk": sk, "causal": causal,
                "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
-               "sensitivity": sens, "kernels": {}}
-        launches = {
-            "flash_bwd_dkv_kernel": lambda: tf.launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal),
-            "flash_bwd_dq_kernel": lambda: tf.launch_flash_bwd_dq(q, k, v, do, lse, delta, causal),
-        }
-        for kname, (nbytes, ops) in flash_bwd_cost(b * h, sq, sk, causal=causal).items():
-            bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-            ms = timer.ms(launches[kname], iters=10)
-            row["kernels"][kname] = {"ms": ms, "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9,
-                                     "mbytes": nbytes / 1e6, "tflops": ops / ms / 1e9}
+               "sensitivity": sens, "repeat": repeat,
+               "ms": ms, "ms_cold": timer.ms_cold(pair, iters=10),
+               # the kernel alone (adding into a dq_acc that is not re-zeroed) and the rounding alone
+               "kernel_ms": timer.ms(
+                   lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal, dq_acc),
+                   iters=10),
+               "convert_ms": timer.ms(lambda: tf.launch_flash_bwd_dq_convert(dq_acc), iters=10),
+               "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+               "tflops": ops / ms / 1e9,
+               "bound_ms_7_products": bound_ms(nbytes, ops7, BF16_OPS_PER_S)[0]}
         # the plain version computes dq, dk and dv in one call
         row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
                                    iters=3, warmup=1)
@@ -1138,7 +1168,7 @@ def phase_flash_bwd(torch, F, tf, timer, device):
             lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=10)
         emit("flash_bwd", **row)
         results[name] = row
-        del q, k, v, do, o, lse, delta, leaves, out
+        del q, k, v, do, o, lse, delta, leaves, out, dq_acc
     return results
 
 
@@ -1183,10 +1213,10 @@ def phase_vit_train(torch, pt, tf, consts, frame_shape, device):
     params = pt.init_vit_params(frame_shape, seed=0)
 
     # parity: one forward and backward from the same init on the first
-    # chunk. The kernel path (K5 forward, K6/K7 backward) against the plain
+    # chunk. The kernel path (K5 forward, the K6/K7 kernel backward) against the plain
     # path (plain forward and backward), and, to tell the backward kernels
     # from the forward's rounding, against the kernel forward with the
-    # plain backward (the same activations: only K6/K7 differ)
+    # plain backward (the same activations: only the backward kernel differs)
     with torch.no_grad():
         x = pt.fused_calibrate(torch.from_numpy(batches[0][0][:TRAIN_BATCH]).to(device), ped, gain,
                                mask, threshold=10.0, out_dtype=torch.bfloat16)
@@ -1215,7 +1245,7 @@ def phase_vit_train(torch, pt, tf, consts, frame_shape, device):
     finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
     parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_kernel_forward": loss_f,
               "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
-              "backward_kernels": compare(g_f, g_k),   # K6/K7 vs plain, same forward
+              "backward_kernels": compare(g_f, g_k),   # flash_bwd_kernel vs plain, same forward
               "kernel_vs_plain_path": compare(g_p, g_k),
               "forward_rounding": compare(g_p, g_f),   # kernel vs plain forward, plain backward
               "drop_delta": compare(g_f, g_d)}
@@ -1245,8 +1275,7 @@ def phase_vit_train(torch, pt, tf, consts, frame_shape, device):
     chunks = sum(-(-len(lb) // TRAIN_BATCH) for _, lb in batches)
     n = VIT_DEPTH * TRAIN_STEPS
     want = {"calib_kernel": chunks, **NO_RESNET, "conv_block_kernel": 0,
-            "flash_kernel": n, "flash_bwd_dkv_kernel": n,
-            "flash_bwd_dq_kernel": n}
+            "flash_kernel": n, "flash_bwd_kernel": n, "flash_bwd_dq_convert": n}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {TRAIN_STEPS} steps, expected {want}")
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)) or not all(
@@ -1364,18 +1393,24 @@ def main() -> int:
 
     info = build.build()
     emit("build", seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
-    # the wgmma kernels: setmaxnreg moves 384 threads' 168 registers to the
-    # consumers, so each must launch with exactly 168
-    sm90 = [r for r in info["ptxas"] if r["lib"] in ("conv_sm90", "flash")]
-    emit("build_sm90", libraries={lib: sum(r["lib"] == lib for r in sm90)
-                                  for lib in ("conv_sm90", "flash")},
-         registers=sorted({r.get("registers") for r in sm90}),
+    # the wgmma kernels: none may spill or serialize its wgmma; those of
+    # conv_sm90.cu and flash.cu move 384 threads' 168 registers to their
+    # consumers with setmaxnreg, so each must launch with exactly 168
+    # (flash_bwd_kernel runs 256 threads without setmaxnreg, and the dq
+    # rounding pass of flash_bwd.cu is no wgmma kernel)
+    wgmma_libs = ("conv_sm90", "flash", "flash_bwd")
+    sm90 = [r for r in info["ptxas"] if r["lib"] in wgmma_libs
+            and (r["lib"] != "flash_bwd" or "flash_bwd_kernel" in r["function"])]
+    emit("build_sm90", libraries={lib: sum(r["lib"] == lib for r in sm90) for lib in wgmma_libs},
+         registers={lib: sorted({r.get("registers") for r in sm90 if r["lib"] == lib})
+                    for lib in wgmma_libs},
          spills=sum(r["spill_stores"] + r["spill_loads"] for r in sm90),
          wgmma_serialized=[r["function"] for r in sm90 if r["wgmma_serialized"]],
          setmaxnreg_ignored=[r["function"] for r in sm90 if r["setmaxnreg_ignored"]])
-    if ({r["lib"] for r in sm90} != {"conv_sm90", "flash"}
+    if ({r["lib"] for r in sm90} != set(wgmma_libs)
             or any(r["spill_stores"] + r["spill_loads"] or r["wgmma_serialized"]
-                   or r["setmaxnreg_ignored"] or r.get("registers") != 168 for r in sm90)):
+                   or r["setmaxnreg_ignored"]
+                   or (r["lib"] != "flash_bwd" and r.get("registers") != 168) for r in sm90)):
         raise AssertionError(f"the wgmma kernels spill, serialize or lose setmaxnreg: {sm90}")
 
     t0 = time.monotonic()
@@ -1458,19 +1493,18 @@ def main() -> int:
         "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": VIT_DEPTH * f["library_ms"],
     })
-    tb = flash_bwd["training"]  # one train step: VIT_DEPTH launches of each at this shape
-    for name, line, grads in (("flash_bwd_dkv_kernel", 314, ("dk", "dv")),
-                              ("flash_bwd_dq_kernel", 354, ("dq",))):
-        kr = tb["kernels"][name]
+    tb = flash_bwd["training"]  # one train step: VIT_DEPTH launches at this shape
+    # K6 and K7 are one kernel: both rows give the pair's numbers, and the
+    # SDPA backward (dq, dk and dv in one call) is given once, with K6
+    for line, grads in ((314, ("dk", "dv")), (354, ("dq",))):
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
+            "name": "flash_bwd_kernel", "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
             "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
-            "launches": train_counts[name],
+            "launches": train_counts["flash_bwd_kernel"],
             "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values() for g in grads),
-            "ms": VIT_DEPTH * kr["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
-            "bound_ms": VIT_DEPTH * kr["bound_ms"], "bound_by": kr["bound_by"],
-            # the SDPA backward computes dq, dk and dv in one call: given once, for the pair
-            "library_ms": VIT_DEPTH * tb["library_ms"] if name == "flash_bwd_dkv_kernel" else None,
+            "ms": VIT_DEPTH * tb["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
+            "bound_ms": VIT_DEPTH * tb["bound_ms"], "bound_by": tb["bound_by"],
+            "library_ms": VIT_DEPTH * tb["library_ms"] if line == 314 else None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -12,7 +12,7 @@ extracts Bragg peaks and writes them to a CXI file.
 :func:`train_hit_classifier` trains the ViT on one card (calibrated
 chunks kept on the device, ``masked_softmax_xent``, warmup-cosine AdamW,
 :func:`make_train_step`); its attention backward runs
-``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` behind a
+the single-pass ``flash_bwd_kernel`` (and ``flash_bwd_dq_convert``) behind a
 ``torch.autograd.Function``. Every kernel is hand-written CUDA C++ for
 sm_90a, built with ``nvcc`` at first use
 (:mod:`psana_ray_tpu_torch.kernels.build`), and has a plain PyTorch

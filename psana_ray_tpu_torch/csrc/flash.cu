@@ -56,6 +56,7 @@
 namespace {
 
 using sm90::bf16;
+using sm90::pack_bf16;
 
 constexpr int kD = 128;       // head dim
 constexpr int kBQ = 128;      // query rows a CTA: two consumer warpgroups of 64
@@ -80,11 +81,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <bool kCausal>

@@ -135,6 +135,30 @@ __device__ __forceinline__ void tma_store_commit() {
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// wait until this thread's committed TMA stores and reductions are complete
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// TMA reduction: add the shared box at src into the global box at (c0, c1)
+// (element-wise, in the map's type), in this thread's bulk group
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0,
+                                               int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// a contiguous bulk copy global -> shared of `bytes` (a multiple of 16,
+// both ends 16-byte aligned), completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 // order this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (TMA stores)
 __device__ __forceinline__ void fence_async_shared() {
@@ -160,27 +184,30 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // -- wgmma --------------------------------------------------------------------
 
-// descriptor of a K-major [rows][64] bf16 tile with the 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint32_t a = smem_u32(tile);
+// descriptor of a K-major [rows][64] bf16 tile with the 128-byte swizzle,
+// at shared address a
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
   uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);  // start address
   d |= static_cast<uint64_t>(1) << 16;                    // LBO (unused when swizzled)
   d |= static_cast<uint64_t>(1024 >> 4) << 32;            // SBO: 8 rows of 128 bytes
   d |= static_cast<uint64_t>(1) << 62;                    // 128-byte swizzle
   return d;
 }
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) { return sw128_desc(smem_u32(tile)); }
 // descriptor of an MN-major operand (MN contiguous) in 128-byte-swizzled
 // panels: each K row holds 64 MN values in 128 bytes, 8 K rows make one
 // 1024-byte swizzle atom (SBO), and the next 64 MN values sit `panel`
 // bytes further on (LBO). A 16-deep K step advances the start by 2048
 // bytes, a whole number of atoms.
-__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile, uint32_t panel) {
-  const uint32_t a = smem_u32(tile);
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t a, uint32_t panel) {
   uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((panel >> 4) & 0x3FFF) << 16;  // LBO: the next 64 MN values
   d |= static_cast<uint64_t>(1024 >> 4) << 32;              // SBO: the next 8 K rows
   d |= static_cast<uint64_t>(1) << 62;
   return d;
+}
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile, uint32_t panel) {
+  return sw128_desc_mn(smem_u32(tile), panel);
 }
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
@@ -197,23 +224,35 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x BN] += a[64 x 16] . b[16 x BN]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+// two f32 as a bf16 pair, lo in the low half: the A fragment's element order
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d[64 x BN] += a[64 x 16] . b[16 x BN]^T, both K-major in shared memory;
+// kTransB 1 reads b MN-major instead (N contiguous), and scale_d 0
+// overwrites d instead of adding to it
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-// scale_d 0 overwrites d instead of adding to it
+// scale_d 0 overwrites d instead of adding to it; kTransA / kTransB 1
+// read a / b MN-major instead of K-major
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
                                                  int scale_d = 1) {
   asm volatile(
@@ -224,7 +263,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -233,7 +272,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {

@@ -1,7 +1,8 @@
-// Host-side TMA tensor maps for the wgmma kernels (conv_sm90.cu, flash.cu):
-// libcuda's encoders, found through the runtime's entry-point query (the
-// libraries do not link libcuda), and the row-major bf16 map that every
-// 2-D operand, residual and output of those kernels uses.
+// Host-side TMA tensor maps for the wgmma kernels (conv_sm90.cu, flash.cu,
+// flash_bwd.cu): libcuda's encoders, found through the runtime's
+// entry-point query (the libraries do not link libcuda), and the row-major
+// map that every 2-D operand, residual and output of those kernels uses
+// (bf16, or f32 for the backward's dq sums).
 #pragma once
 
 #include <cuda.h>
@@ -32,18 +33,23 @@ inline void* cuda_entry_point(const char* name) {
 }
 
 // a row-major bf16 [rows, cols] matrix, boxes of [box_rows, 64] with the
-// 128-byte swizzle, rows past the end read as zeros and not written
+// 128-byte swizzle, rows past the end read as zeros and not written; with
+// f32, a row-major f32 matrix in boxes of [box_rows, 32] (128 bytes a
+// box row, the same swizzle)
 inline bool make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols,
-                     int box_rows) {
+                     int box_rows, bool f32 = false) {
   static const auto fn = reinterpret_cast<EncodeTiled>(cuda_entry_point("cuTensorMapEncodeTiled"));
-  if (!fn || reinterpret_cast<uintptr_t>(ptr) % 16 || cols % 64 || rows <= 0) return false;
+  const int elem_bytes = f32 ? 4 : 2;
+  const int box_cols = 128 / elem_bytes;
+  if (!fn || reinterpret_cast<uintptr_t>(ptr) % 16 || cols % box_cols || rows <= 0) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tmap

@@ -9,9 +9,9 @@ so a run can show that the main path went through the kernel.
 bottleneck's front half (K2), ``back_kernel`` its back step (K3);
 ``conv_block_kernel`` counts the 3x3 launches of ``conv_sm90_kernel``
 made by the U-Net's encoder levels (K4); ``flash_kernel`` the
-flash-attention forward launches (K5),
-``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel`` the backward's (K6,
-K7).
+flash-attention forward launches (K5), ``flash_bwd_kernel`` the
+single-pass backward's (K6 and K7 in one kernel, ``csrc/flash_bwd.cu``)
+and ``flash_bwd_dq_convert`` those of its dq rounding pass.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0,
     "conv_block_kernel": 0,
-    "flash_kernel": 0, "flash_bwd_dkv_kernel": 0, "flash_bwd_dq_kernel": 0,
+    "flash_kernel": 0, "flash_bwd_kernel": 0, "flash_bwd_dq_convert": 0,
 }
 
 

@@ -13,7 +13,8 @@ rebuilds and an unchanged one loads straight away. ``ptxas`` register and
 spill reports are kept beside each library (``<name>.ptxas.log``).
 
 Libraries load with ``ctypes``. Every C entry point takes ``c_void_p`` for
-pointers and the stream and ``c_int`` for integers, launches on the stream
+pointers and the stream and ``c_int`` (``c_longlong`` for element
+counts) for integers, launches on the stream
 it is given, and returns the launch's ``cudaError_t``; :func:`check`
 raises on anything but 0. A build or load failure raises ``RuntimeError``:
 there is no fallback to the plain versions for a CUDA tensor.
@@ -43,6 +44,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -62,10 +64,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_bwd": {
-        # q, k, v, do, lse, delta, dk, dv, BH, Sq, Sk, D, sm_scale, causal, stream
-        "flash_bwd_dkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-        # q, k, v, do, lse, delta, dq, BH, Sq, Sk, D, sm_scale, causal, stream
-        "flash_bwd_dq_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, do, lse, delta, dk, dv, dq_acc, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # dq_acc, dq, n, stream
+        "flash_bwd_dq_convert_launch": [_P, _P, _L, _P],
     },
 }
 

@@ -5,8 +5,8 @@ frame is cut into p x p patches and the whole frame becomes one token
 sequence (epix10k2M at patch 16: 16 panels x 22 x 24 = 8,448 tokens), a
 pre-LN transformer trunk runs over it with a pluggable attention
 (``attn_fn``, default :func:`~psana_ray_tpu_torch.parallel.flash.flash_attention`,
-whose CUDA path is ``flash_kernel`` forward and ``flash_bwd_dkv_kernel`` /
-``flash_bwd_dq_kernel`` backward), and a LayerNorm + max-pool head gives
+whose CUDA path is ``flash_kernel`` forward and ``flash_bwd_kernel``
+backward), and a LayerNorm + max-pool head gives
 f32 logits. Parameters are ordinary trainable ``nn.Parameter``s; serving
 runs under ``torch.no_grad()`` (:func:`~psana_ray_tpu_torch.entry.vit_serve_step`).
 

@@ -1,6 +1,7 @@
 """Flash attention: the ``flash_kernel`` forward (K5) and the
-``flash_bwd_dkv_kernel`` / ``flash_bwd_dq_kernel`` backward (K6, K7)
-CUDA kernels, behind a ``torch.autograd.Function``.
+single-pass ``flash_bwd_kernel`` backward (K6 and K7 in one kernel, with
+``flash_bwd_dq_convert`` rounding its f32 dq) CUDA kernels, behind a
+``torch.autograd.Function``.
 
 Counterpart of the single-device surface of
 ``psana_ray_tpu/parallel/flash.py``:
@@ -144,7 +145,7 @@ def attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, causal: bool = False, dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``:
+    """Plain version of ``flash_bwd_kernel`` and ``flash_bwd_dq_convert``:
     ``(dq, dk, dv)`` from the forward's residuals, as
     ``_xla_attention_bwd`` computes them. ``p = exp(scale * q.k^T - lse)``
     from the saved ``lse``, everything in f32 (no bf16 rounding of ``p``
@@ -198,35 +199,44 @@ def _bwd_args(q, k, v, do, lse, delta, kernel):
     return tensors, shape
 
 
-def launch_flash_bwd_dkv(
+def launch_flash_bwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``flash_bwd_dkv_kernel`` (K6) on CUDA tensors: ``(dk, dv)``."""
+    delta: torch.Tensor, causal: bool = False, dq_acc: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``flash_bwd_kernel`` (K6 and K7 in one pass) on CUDA
+    tensors: ``(dq_acc, dk, dv)``. The kernel adds dq's f32 sums into
+    ``dq_acc`` (``[B, H, Sq, D]`` f32, zeroed here when not given) in an
+    order that changes from run to run; :func:`launch_flash_bwd_dq_convert`
+    rounds it to dq."""
+    if dq_acc is not None and (dq_acc.shape != q.shape or dq_acc.dtype != torch.float32
+                               or not dq_acc.is_contiguous() or dq_acc.device != q.device):
+        raise ValueError(f"dq_acc must be a contiguous f32 {tuple(q.shape)} on {q.device}, got "
+                         f"{dq_acc.dtype} {tuple(dq_acc.shape)} on {dq_acc.device}")
     tensors, (bh, sq, sk, d, scale, stream) = _bwd_args(q, k, v, do, lse, delta,
-                                                        "flash_bwd_dkv_kernel")
+                                                        "flash_bwd_kernel")
+    if dq_acc is None:
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(tensors[1]), torch.empty_like(tensors[2])
     lib = build.library("flash_bwd")
-    err = lib.flash_bwd_dkv_launch(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(),
-                                   bh, sq, sk, d, scale, int(bool(causal)), stream)
-    build.check(lib, err, "flash_bwd_dkv_kernel")
-    LAUNCHES["flash_bwd_dkv_kernel"] += 1
-    return dk, dv
+    err = lib.flash_bwd_launch(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(),
+                               dq_acc.data_ptr(), bh, sq, sk, d, scale, int(bool(causal)), stream)
+    build.check(lib, err, "flash_bwd_kernel")
+    LAUNCHES["flash_bwd_kernel"] += 1
+    return dq_acc, dk, dv
 
 
-def launch_flash_bwd_dq(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor, causal: bool = False,
-) -> torch.Tensor:
-    """One launch of ``flash_bwd_dq_kernel`` (K7) on CUDA tensors: ``dq``."""
-    tensors, (bh, sq, sk, d, scale, stream) = _bwd_args(q, k, v, do, lse, delta,
-                                                        "flash_bwd_dq_kernel")
-    dq = torch.empty_like(tensors[0])
+def launch_flash_bwd_dq_convert(dq_acc: torch.Tensor) -> torch.Tensor:
+    """One launch of ``flash_bwd_dq_convert`` on a CUDA tensor: the f32
+    ``dq_acc`` rounded to bf16, once."""
+    if dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous() or dq_acc.numel() % 4:
+        raise ValueError(f"flash_bwd_dq_convert takes a contiguous f32 tensor of a multiple of 4 "
+                         f"elements, got {dq_acc.dtype} {tuple(dq_acc.shape)}")
+    dq = torch.empty(dq_acc.shape, dtype=torch.bfloat16, device=dq_acc.device)
     lib = build.library("flash_bwd")
-    err = lib.flash_bwd_dq_launch(*(t.data_ptr() for t in tensors), dq.data_ptr(),
-                                  bh, sq, sk, d, scale, int(bool(causal)), stream)
-    build.check(lib, err, "flash_bwd_dq_kernel")
-    LAUNCHES["flash_bwd_dq_kernel"] += 1
+    err = lib.flash_bwd_dq_convert_launch(dq_acc.data_ptr(), dq.data_ptr(), dq_acc.numel(),
+                                          torch.cuda.current_stream(dq_acc.device).cuda_stream)
+    build.check(lib, err, "flash_bwd_dq_convert")
+    LAUNCHES["flash_bwd_dq_convert"] += 1
     return dq
 
 
@@ -235,12 +245,13 @@ def launch_flash_bwd(
     do: torch.Tensor, causal: bool = False, dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward on CUDA tensors: ``delta`` (:func:`flash_bwd_delta`),
-    then one launch each of K6 and K7. Returns ``(dq, dk, dv)``."""
+    one launch of ``flash_bwd_kernel``, then one of ``flash_bwd_dq_convert``.
+    Returns ``(dq, dk, dv)``."""
     if o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} is not shaped like q {tuple(q.shape)}")
     delta = flash_bwd_delta(o, do, dlse)
-    dk, dv = launch_flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return launch_flash_bwd_dq(q, k, v, do, lse, delta, causal), dk, dv
+    dq_acc, dk, dv = launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)
+    return launch_flash_bwd_dq_convert(dq_acc), dk, dv
 
 
 def _forward(q, k, v, causal):
@@ -251,7 +262,7 @@ def _forward(q, k, v, causal):
 
 class FlashAttention(torch.autograd.Function):
     """``(q, k, v) -> (o, lse)`` in ``[B, H, S, D]``, differentiable in both
-    outputs: ``flash_kernel`` forward and the K6/K7 backward on CUDA
+    outputs: ``flash_kernel`` forward and ``flash_bwd_kernel`` backward on CUDA
     tensors, the plain versions on CPU tensors. Saves ``(q, k, v, o,
     lse)``; ``dlse`` enters the backward as ``delta - dlse``
     (``flash.py:498-529``)."""

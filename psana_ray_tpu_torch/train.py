@@ -8,8 +8,8 @@ once (``calib_kernel`` to bf16, threshold 10) and kept on the device;
 ``masked_softmax_xent``; AdamW with weight decay 0.01 under a warmup-cosine
 schedule (0 -> 6e-4 over 20 steps, then down to 1e-5 at ``steps``); the
 chunks cycled for ``steps`` steps. On the card each step launches
-``flash_kernel`` once per block in the forward and ``flash_bwd_dkv_kernel``
-and ``flash_bwd_dq_kernel`` once per block in the backward.
+``flash_kernel`` once per block in the forward and ``flash_bwd_kernel``
+and ``flash_bwd_dq_convert`` once per block in the backward.
 """
 
 from __future__ import annotations

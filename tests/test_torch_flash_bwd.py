@@ -9,9 +9,11 @@ from the same residuals atol 5e-2 in bf16 and 1e-4 in f32 (``:314``),
 1e-4 with an lse cotangent (``:344``) and for Sq != Sk (``:390``); the
 gradients of ``attention_with_stats`` with both outputs in the loss rtol
 2e-4, atol 2e-5 (``:287``), and of ``flash_attention`` rtol 1e-4, atol
-1e-5 (``:367``). ``flash_bwd_dkv_kernel`` and ``flash_bwd_dq_kernel``
-themselves run only on the card (``tests/test_torch_gpu.py``); here their
-input checks run, which need no card.
+1e-5 (``:367``). ``flash_bwd_kernel`` itself runs only on the card
+(``tests/test_torch_gpu.py``); here its input checks run, which need no
+card, and a torch emulation of its tiling and rounding points is held
+against the Pallas kernels (within one bf16 ulp of each gradient's
+largest value).
 """
 
 import numpy as np
@@ -166,6 +168,70 @@ def test_delta_folds_in_the_lse_cotangent(rng):
                                (o.bfloat16().float() * do.bfloat16().float()).sum(-1))
 
 
+def _fused_emulation(q, k, v, do, lse, delta, causal, seed):
+    """The tiling and rounding points of ``flash_bwd_kernel``, in torch on
+    the CPU: one 128-key tile a CTA, looping over 64-query tiles (those
+    with a query at or after the key tile's first when causal), s and dp
+    from bf16 operands in f32, p and ds in f32, p rounded to bf16 only as
+    the operand of p^T.dO and ds only as that of ds^T.q and ds.k; dk and dv
+    summed in f32 over the loop, each CTA's dq partials added into an f32
+    dq_acc with the key tiles in a shuffled order (the TMA reductions'
+    order changes from run to run); each gradient rounded to bf16 once."""
+    f, bf = torch.float32, torch.bfloat16
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5
+    dq_acc = torch.zeros((b, h, sq, d), dtype=f)
+    dk, dv = torch.zeros((b, h, sk, d), dtype=bf), torch.zeros((b, h, sk, d), dtype=bf)
+    for kt in np.random.default_rng(seed).permutation(sk // 128):
+        k0 = 128 * int(kt)
+        kb, vb = k[:, :, k0:k0 + 128].to(f), v[:, :, k0:k0 + 128].to(f)
+        dk_t, dv_t = torch.zeros((b, h, 128, d), dtype=f), torch.zeros((b, h, 128, d), dtype=f)
+        for i in range(k0 // 64 if causal else 0, sq // 64):
+            rows = slice(64 * i, 64 * i + 64)
+            qb, dob = q[:, :, rows].to(f), do[:, :, rows].to(f)
+            st = torch.matmul(kb, qb.transpose(-1, -2))  # [keys, queries]
+            pt_ = torch.exp(st * scale - lse[:, :, rows].unsqueeze(-2))
+            if causal:
+                keys = torch.arange(k0, k0 + 128)[:, None]
+                pt_ = pt_.masked_fill(keys > torch.arange(64 * i, 64 * i + 64)[None, :], 0.0)
+            dpt = torch.matmul(vb, dob.transpose(-1, -2))
+            dst = pt_ * (dpt - delta[:, :, rows].unsqueeze(-2)) * scale
+            p16, ds16 = pt_.to(bf).to(f), dst.to(bf).to(f)
+            dv_t += torch.matmul(p16, dob)
+            dk_t += torch.matmul(ds16, qb)
+            dq_acc[:, :, rows] += torch.matmul(ds16.transpose(-1, -2), kb)
+        dk[:, :, k0:k0 + 128], dv[:, :, k0:k0 + 128] = dk_t.to(bf), dv_t.to(bf)
+    return dq_acc.to(bf), dk, dv
+
+
+@pytest.mark.parametrize("dlse", [False, True])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384), (384, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_kernel_tiling_matches_jax_kernels(rng, causal, sq, sk, dlse):
+    """The fused kernel's algorithm (``_fused_emulation``) against the
+    Pallas backward kernels in interpret mode on the same bf16 residuals,
+    BH 2. Both round p and ds to bf16 at the same points; what differs is
+    the order of the f32 sums (dq across key tiles) and the final bf16
+    rounding, so each gradient is held within ``2**-8 * max|g_ref|``, at
+    most one bf16 ulp of its largest value. (The plain version, which
+    keeps p and ds in f32, is 0.003-0.006 of the scale from the Pallas
+    kernels here; the emulation 0.0014 at most.)"""
+    q, k, v, o, lse, do = _residuals(rng, 1, 2, sq, sk, 128, 1.0, jnp.bfloat16, causal)
+    dl = jnp.asarray(rng.normal(size=(1, 2, sq)).astype(np.float32)) if dlse else None
+    want = jf._pallas_attention_bwd(q, k, v, o, lse, do, causal, interpret=True, dlse=dl)
+    tq, tk, tv, to, tdo = (_t(a, torch.bfloat16) for a in (q, k, v, o, do))
+    delta = tf.flash_bwd_delta(to, tdo, None if dl is None else _t(dl))
+    got = _fused_emulation(tq, tk, tv, tdo, _t(lse), delta, causal, seed=sq + sk)
+    for g, w, grad in zip(got, want, ("dq", "dk", "dv")):
+        w = np.asarray(w, np.float32)
+        err = float(np.abs(_np(g) - w).max())
+        assert err <= 2.0 ** -8 * float(np.abs(w).max()), (grad, err, float(np.abs(w).max()))
+    if causal and sk > sq:
+        assert float(got[1][:, :, sq:].float().abs().max()) == 0.0
+        assert float(got[2][:, :, sq:].float().abs().max()) == 0.0
+
+
 @pytest.mark.parametrize(
     "shape,kshape,dtype,err,match",
     [
@@ -183,18 +249,22 @@ def test_backward_kernels_refuse_what_they_do_not_take(shape, kshape, dtype, err
     pt.reset_counters()
     with pytest.raises(err, match=match):
         tf.launch_flash_bwd(q, k, k, q, lse, q)
-    for launch in (tf.launch_flash_bwd_dkv, tf.launch_flash_bwd_dq):
-        with pytest.raises(err, match=match):
-            launch(q, k, k, q, lse, lse)
-    assert pt.counts()["flash_bwd_dkv_kernel"] == 0 and pt.counts()["flash_bwd_dq_kernel"] == 0
+    with pytest.raises(err, match=match):
+        tf.launch_flash_bwd_kernel(q, k, k, q, lse, lse)
+    assert pt.counts()["flash_bwd_kernel"] == 0 and pt.counts()["flash_bwd_dq_convert"] == 0
 
 
 def test_backward_launchers_check_the_residual_shapes():
     q = torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16)
     lse = torch.zeros((1, 2, 128))
     with pytest.raises(ValueError, match="lse, delta"):
-        tf.launch_flash_bwd_dkv(q, q, q, q, lse, lse[:, :1])
+        tf.launch_flash_bwd_kernel(q, q, q, q, lse, lse[:, :1])
     with pytest.raises(ValueError, match="do shaped like q"):
-        tf.launch_flash_bwd_dq(q, q, q, q[:, :1], lse, lse)
+        tf.launch_flash_bwd_kernel(q, q, q, q[:, :1], lse, lse)
     with pytest.raises(ValueError, match="shaped like q"):
         tf.launch_flash_bwd(q, q, q, q[:, :1], lse, q)
+    with pytest.raises(ValueError, match="dq_acc"):
+        tf.launch_flash_bwd_kernel(q, q, q, q, lse, lse, dq_acc=torch.zeros((1, 2, 128, 64)))
+    with pytest.raises(ValueError, match="f32"):
+        tf.launch_flash_bwd_dq_convert(q)
+    assert pt.counts()["flash_bwd_dq_convert"] == 0

@@ -10,7 +10,8 @@ take and refuse. The packing tests check that the K-major layouts the
 kernels read, put back through the plain versions, give the HWIO /
 ``[K, N]`` results exactly; that the packers zero-pad narrow models so
 that every launch of the padded pack passes the gates; and that the
-published widths take no padding.
+published widths take no padding. The ablation tools' text edits of the
+kernel sources are held to the sources as they are.
 """
 
 import numpy as np
@@ -265,3 +266,35 @@ def test_narrow_unet_pack_is_padded_and_passes_the_gates():
         if lvl.wd is not None:
             fu.level_conv_gate((b, h, w, f), f, 2)
             h, w = h // 2, w // 2
+
+
+def _ablation_edits():
+    """(tool, variant, file, old) for every text edit of the three ablation
+    tools: each builds its variants from copies of ``csrc/`` with these
+    edits, and raises on the card if one no longer applies."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    cases = []
+    for tool, default_file in (("conv_sm90_ablation", None), ("flash_ablation", "flash.cu"),
+                               ("flash_bwd_ablation", "flash_bwd.cu")):
+        spec = importlib.util.spec_from_file_location(tool, root / "tools" / f"{tool}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for variant, edits in mod.VARIANTS.items():
+            for edit in edits:
+                name, old = (edit[0], edit[1]) if default_file is None else (default_file, edit[0])
+                cases.append((tool, variant, name, old))
+    return root / "psana_ray_tpu_torch" / "csrc", cases
+
+
+@pytest.mark.parametrize("tool", ["conv_sm90_ablation", "flash_ablation", "flash_bwd_ablation"])
+def test_ablation_edits_apply_to_the_sources(tool):
+    """Every variant of the tool edits text that the kernel sources hold,
+    so a kernel edit that breaks a variant shows here and not on the card."""
+    csrc, cases = _ablation_edits()
+    mine = [c for c in cases if c[0] == tool]
+    assert mine
+    for _, variant, name, old in mine:
+        assert old in (csrc / name).read_text(), (variant, name, old[:80])
