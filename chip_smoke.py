@@ -25,8 +25,18 @@ one JSON line (``{"phase": ...}``):
    does a launch register count other than 168 in the two that move
    registers with ``setmaxnreg``.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
-   f32 RAW frames from ``SyntheticSource``, with f32 and bf16 output
-   (f32: rtol 1e-5, atol 1e-4; bf16: that plus one bf16 ulp).
+   f32 RAW frames from ``SyntheticSource`` with f32 and bf16 output, the
+   same frames as uint16 ADUs with bf16 output, and ``[8, 8, 512, 1024]``
+   jungfrau4M frames drawn on the card from a seeded generator with bf16
+   output (f32: rtol 1e-5, atol 1e-4; bf16: that plus one bf16 ulp; two
+   launches on one input bit-identical). Each case gives the plan it ran
+   (route, cluster size, rows and shared memory a CTA, the card's
+   ``cudaOccupancyMaxActiveClusters``, the load mode), both timers and
+   GB/s on the bound's bytes; the epix10k2M cases also time the two-pass
+   route on the same input, checked too (``two_pass_ms``; other cluster
+   sizes are ``tools/calib_ablation.py``'s). A ``build_calib`` line after the
+   build gives K1's registers, spills and static shared memory from
+   ``-Xptxas -v`` and fails the run on a spill.
 4. ``bottleneck``: each of the 8 bottleneck block classes of ResNet-50 at
    batch 32 and full width, every kernel launch against its plain version
    on the same inputs (``rel_err < 0.05``), and the whole block against
@@ -148,7 +158,7 @@ Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up, with the card kept busy (a spin of about a
 millisecond, ``torch.cuda._sleep``) between the flush and the start
 event, so that the host prepares the launch (tensor maps, ctypes) while
-the card works and the time is the card's alone. ``ms_cold`` (K2-K7)
+the card works and the time is the card's alone. ``ms_cold``
 is the earlier timer's: no spin, so a call's host time shows whenever it
 outlasts the flush. For ``conv1x1_kernel``, ``conv3x3_kernel`` and
 ``back_kernel`` the kernels line gives the sum over one batch of the main
@@ -181,6 +191,7 @@ BATCH = 32
 E2E_BATCHES = 6
 POOL_EVENTS = 64
 REL_TOL = 0.05
+JUNGFRAU_BATCH = 8  # frames of K1's jungfrau4M case
 SFX_BATCH = 8  # frames; 128 panel-rows of epix10k2M
 SFX_FEATURES = (64, 128, 256, 512)
 SFX_BATCHES = 6
@@ -292,41 +303,90 @@ def nvidia_smi_line() -> str:
 # -- phase 3 ---------------------------------------------------------------
 
 
+def calib_err(torch, got, ref, what: str) -> float:
+    """Max abs error of ``got`` against the plain version ``ref``; raises
+    outside rtol 1e-5 / atol 1e-4 (bf16 output: plus one bf16 ulp) or on a
+    non-finite value."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    tol = 1e-4 + 1e-5 * ref.abs()
+    if got.dtype == torch.bfloat16:
+        # f32 values that differ by the f32 tolerance can round to
+        # neighbouring bf16 values: allow one bf16 ulp (8 significant
+        # bits) of the plain version's value on top
+        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    if not bool(torch.all(diff <= tol)) or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"calib_kernel ({what}) disagrees with its plain version: "
+                             f"max abs err {float(diff.max())}")
+    return float(diff.max())
+
+
+def calib_case(torch, fc, timer, raw, ped, gain, mask, out_dtype, what, routes=True):
+    """One K1 case: the wrapper's plan against its plain version, both
+    timers, GB/s on the bound's bytes; with ``routes``, the two-pass route
+    on the same input, checked too."""
+    b, p, h, w = raw.shape
+    npix = b * p * h * w
+
+    def call(plan=None):
+        return fc.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=plan)
+
+    got = call()
+    err = calib_err(torch, got, fc.fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype),
+                    what)
+    if not torch.equal(got, call()):
+        raise AssertionError(f"calib_kernel ({what}): two launches on one input differ")
+    plan, load, active = fc.runnable_plan(raw, ped, gain, mask, out_dtype)
+    nbytes = raw.numel() * raw.element_size() + npix * got.element_size() + p * h * w * (4 + 4 + 1)
+    bms, by = bound_ms(nbytes, 7.0 * npix, F32_OPS_PER_S)
+    ms = timer.ms(call, iters=20)
+    res = {
+        "shape": [b, p, h, w], "raw": str(raw.dtype), "out": str(out_dtype),
+        "route": plan.route, "cluster": plan.cluster, "rows_per_cta": plan.rows_per_cta,
+        "smem_per_cta": plan.smem_bytes, "active_clusters": active, "load": load,
+        "max_abs_err": err, "ms": ms, "ms_cold": timer.ms_cold(call, iters=20),
+        "plain_ms": timer.ms(
+            lambda: fc.fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype), iters=5),
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+    }
+    if routes:
+        calib_err(torch, call(fc.TWO_PASS), got.float(), f"{what}, two-pass route")
+        res["two_pass_ms"] = timer.ms(lambda: call(fc.TWO_PASS), iters=20)
+    return res
+
+
 def phase_calib(torch, pt, timer, src, raw, device):
-    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate, fused_calibrate_plain
+    """K1 on epix10k2M (f32 raw to f32 and bf16, uint16 raw to bf16) and on
+    jungfrau4M (f32 raw to bf16, generated on the card)."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.ops import fused_calib as fc
 
     ped = torch.from_numpy(src.pedestal()).to(device)
     gain = torch.from_numpy(src.gain_map()).to(device)
     mask = torch.from_numpy(src.create_bad_pixel_mask()).to(device)
-    b, p, h, w = raw.shape
-    npix = b * p * h * w
-    result = {"shape": list(raw.shape)}
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        got = fused_calibrate(raw, ped, gain, mask, out_dtype=dt)
-        ref = fused_calibrate_plain(raw, ped, gain, mask, out_dtype=dt).float()
-        torch.cuda.synchronize()
-        diff = (got.float() - ref).abs()
-        tol = 1e-4 + 1e-5 * ref.abs()
-        if dt == torch.bfloat16:
-            # f32 values that differ by the f32 tolerance can round to
-            # neighbouring bf16 values: allow one bf16 ulp (8 significant
-            # bits) of the plain version's value on top
-            tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
-        ok = bool(torch.all(diff <= tol))
-        if not ok or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"calib_kernel ({name} out) disagrees with its plain version: "
-                                 f"max abs err {float(diff.max())}")
-        nbytes = raw.numel() * 4 + npix * got.element_size() + p * h * w * (4 + 4 + 1)
-        bms, by = bound_ms(nbytes, 7.0 * npix, F32_OPS_PER_S)
-        result[name] = {
-            "max_abs_err": float(diff.max()),
-            "ms": timer.ms(lambda: fused_calibrate(raw, ped, gain, mask, out_dtype=dt), iters=20),
-            "plain_ms": timer.ms(
-                lambda: fused_calibrate_plain(raw, ped, gain, mask, out_dtype=dt), iters=5),
-            "bound_ms": bms,
-            "bound_by": by,
-            "bytes": nbytes,
-        }
+    raw_u16 = torch.from_numpy(
+        np.clip(np.rint(raw.cpu().numpy()), 0, 65535).astype(np.uint16)).to(device)
+    result = {
+        "f32": calib_case(torch, fc, timer, raw, ped, gain, mask, torch.float32, "f32 out"),
+        "bf16": calib_case(torch, fc, timer, raw, ped, gain, mask, torch.bfloat16, "bf16 out"),
+        "u16_bf16": calib_case(torch, fc, timer, raw_u16, ped, gain, mask, torch.bfloat16,
+                               "uint16 raw, bf16 out"),
+    }
+    del raw_u16
+    # jungfrau4M: 2 MiB panels, more than a portable cluster of 8 holds
+    spec = pt.DETECTORS["jungfrau4M"]
+    p, h, w = spec.frame_shape
+    gen = torch.Generator(device=device).manual_seed(0)
+    jped = 100.0 + 3.0 * torch.randn((p, h, w), generator=gen, device=device)
+    jgain = 1.0 + 0.02 * torch.randn((p, h, w), generator=gen, device=device)
+    jmask = (torch.rand((p, h, w), generator=gen, device=device) > 0.003).to(torch.uint8)
+    shape = (JUNGFRAU_BATCH, p, h, w)
+    photons = torch.poisson(torch.full(shape, 0.1, device=device), generator=gen)
+    jraw = (jped + 35.0 * photons * jgain + 2.5 * torch.randn(shape, generator=gen, device=device))
+    del photons
+    result["jungfrau4M_bf16"] = calib_case(torch, fc, timer, jraw, jped, jgain, jmask,
+                                           torch.bfloat16, "jungfrau4M, bf16 out", routes=False)
     emit("calib_kernel", **result)
     return result, (ped, gain, mask)
 
@@ -1412,6 +1472,12 @@ def main() -> int:
                    or r["setmaxnreg_ignored"]
                    or (r["lib"] != "flash_bwd" and r.get("registers") != 168) for r in sm90)):
         raise AssertionError(f"the wgmma kernels spill, serialize or lose setmaxnreg: {sm90}")
+    # K1: both routes' kernels, every raw/output/load instantiation
+    k1 = [{k: r.get(k) for k in ("function", "registers", "spill_stores", "spill_loads",
+                                 "static_smem")} for r in info["ptxas"] if r["lib"] == "calib"]
+    emit("build_calib", kernels=k1)
+    if not k1 or any(r["spill_stores"] + r["spill_loads"] for r in k1):
+        raise AssertionError(f"calib.cu did not build clean (spills or no kernels): {k1}")
 
     t0 = time.monotonic()
     src = pt.SyntheticSource(num_events=POOL_EVENTS, detector_name="epix10k2M", seed=0)
@@ -1457,8 +1523,8 @@ def main() -> int:
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
         "launches": (counts["calib_kernel"] + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
                      + train_counts["calib_kernel"]),
-        "max_abs_err": max(calib["f32"]["max_abs_err"], c["max_abs_err"]),
-        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
+        "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
     }]
     replaces = {

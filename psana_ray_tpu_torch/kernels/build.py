@@ -49,8 +49,11 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "calib": {
-        # raw, pedestal, gain, mask, out, B, P, n, threshold, out_bf16, stream
-        "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        # raw, pedestal, gain, mask, out, B, P, H, W, threshold, raw_u16, out_bf16, load,
+        # cluster, rows_per_cta, clusters, stream
+        "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
+        # H, W, raw_u16, out_bf16, load, cluster, rows_per_cta, &active
+        "calib_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _P],
     },
     "conv_sm90": {
         # x, B, H, W, C, ksize, stride, wt, N, scale, bias, out, stream

@@ -13,7 +13,9 @@ kernels' tiles) so that the edge masking runs; the wgmma kernels
 64-channel quantum on zero-padded channels. The flash kernel runs one
 128-row tile, causal Sq != Sk and the ViT serving shape; the flash backward
 kernel also runs twice on the same inputs, and its dq rounding pass alone.
-Tolerances: calibration
+Calibration runs its cluster route on ragged, unaligned, partly empty and
+jungfrau4M-sized slices, with f32 and uint16 raw, twice on each input
+(bit-identical), and its two-pass route. Tolerances: calibration
 rtol 1e-5, atol 1e-4 in f32 (plus one bf16 ulp for bf16 output); the
 bottleneck and U-Net level kernels ``rel_err < 0.05``, the JAX package's
 bound for bf16 activations with f32 accumulation, as is the ViT with the
@@ -106,6 +108,68 @@ def test_calib_kernel_refuses_what_it_does_not_take(cuda):
         pt.fused_calibrate(raw, ped[:1], gain, mask)
     with pytest.raises(ValueError):
         pt.fused_calibrate(raw, ped.cpu(), gain, mask)
+
+
+# (B, P, H, W, cluster) for calib_kernel's cluster route; cluster None: the
+# plan's own choice. Panel 0 is all masked in every case.
+CALIB_CLUSTER_CASES = [
+    (2, 3, 301, 384, None),   # 8 CTAs of 38 rows, H % 8 != 0: the last holds 35
+    (3, 2, 64, 95, None),     # w = 95: scalar loads, one CTA a panel
+    (3, 2, 64, 95, 4),        # scalar loads across a cluster of 4
+    (2, 2, 9, 384, 8),        # 2 rows a CTA, the last three CTAs hold none
+    (2, 3, 352, 384, 4),      # epix10k2M panels at the other cluster size
+    (1, 2, 512, 1024, None),  # jungfrau4M panels: a cluster of 16, or the two-pass route
+]
+
+
+def _assert_calib_close(got, ref, out_dtype):
+    ref = ref.float()
+    tol = 1e-4 + 1e-5 * ref.abs()
+    if out_dtype == torch.bfloat16:
+        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    assert got.dtype == out_dtype
+    assert bool(torch.all((got.float() - ref).abs() <= tol))
+
+
+@pytest.mark.parametrize("b,p,h,w,cluster", CALIB_CLUSTER_CASES)
+@pytest.mark.parametrize("raw_dtype", [torch.float32, torch.uint16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_calib_cluster_route_matches_plain(cuda, b, p, h, w, cluster, raw_dtype, out_dtype):
+    from psana_ray_tpu_torch.ops import fused_calib as fc
+
+    raw, ped, gain, mask = _calib_inputs(cuda, b, p, h, w)
+    if raw_dtype == torch.uint16:
+        raw = torch.from_numpy(
+            np.clip(np.rint(raw.cpu().numpy()), 0, 65535).astype(np.uint16)).to(cuda)
+    plan = None if cluster is None else fc.calib_plan(h, w, cluster=cluster)
+    chosen, load, active = fc.runnable_plan(raw, ped, gain, mask, out_dtype, plan)
+    print(f"plan {chosen} load {load} active clusters {active}")  # pytest -rP
+    if (h, w) == (301, 384):
+        assert chosen.route == "cluster" and chosen.cluster == 8 and h % 8 != 0
+    got = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=plan)
+    again = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=plan)
+    ref = fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pt.counts()["calib_kernel"] == 2
+    _assert_calib_close(got, ref, out_dtype)
+    assert bool(torch.all(got[:, 0] == 0))  # the all-masked panel
+    assert torch.equal(got, again)  # the cluster's partials are summed in rank order
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_calib_cluster_route_single_frame_and_two_pass(cuda, out_dtype):
+    from psana_ray_tpu_torch.ops import fused_calib as fc
+
+    raw, ped, gain, mask = _calib_inputs(cuda, 2, 3, 301, 384)
+    one = pt.fused_calibrate(raw[1], ped, gain, mask, out_dtype=out_dtype)
+    assert one.shape == raw.shape[1:]
+    _assert_calib_close(one, fused_calibrate_plain(raw[1], ped, gain, mask, out_dtype=out_dtype),
+                        out_dtype)
+    both = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype)
+    assert torch.equal(one, both[1])
+    two_pass = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=fc.TWO_PASS)
+    _assert_calib_close(two_pass, both.float(), out_dtype)
+    assert pt.counts()["calib_kernel"] == 3
 
 
 def _operands(gen, cuda, b, h, w, cin, n):

@@ -269,7 +269,7 @@ def test_narrow_unet_pack_is_padded_and_passes_the_gates():
 
 
 def _ablation_edits():
-    """(tool, variant, file, old) for every text edit of the three ablation
+    """(tool, variant, file, old) for every text edit of the four ablation
     tools: each builds its variants from copies of ``csrc/`` with these
     edits, and raises on the card if one no longer applies."""
     import importlib.util
@@ -278,7 +278,8 @@ def _ablation_edits():
     root = Path(__file__).resolve().parent.parent
     cases = []
     for tool, default_file in (("conv_sm90_ablation", None), ("flash_ablation", "flash.cu"),
-                               ("flash_bwd_ablation", "flash_bwd.cu")):
+                               ("flash_bwd_ablation", "flash_bwd.cu"),
+                               ("calib_ablation", "calib.cu")):
         spec = importlib.util.spec_from_file_location(tool, root / "tools" / f"{tool}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
@@ -289,7 +290,8 @@ def _ablation_edits():
     return root / "psana_ray_tpu_torch" / "csrc", cases
 
 
-@pytest.mark.parametrize("tool", ["conv_sm90_ablation", "flash_ablation", "flash_bwd_ablation"])
+@pytest.mark.parametrize("tool", ["conv_sm90_ablation", "flash_ablation", "flash_bwd_ablation",
+                                  "calib_ablation"])
 def test_ablation_edits_apply_to_the_sources(tool):
     """Every variant of the tool edits text that the kernel sources hold,
     so a kernel edit that breaks a variant shows here and not on the card."""
