@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's three serving paths and its training path on one
-NVIDIA H100: the calibrated ResNet-50 classifier, the SFX Bragg-peak
-pipeline (PeakNet-TPU U-Net), the ViT hit classifier with the
-flash-attention trunk, and the ViT's training recipe with the flash
-backward kernels.
+NVIDIA H100: the calibrated ResNet-50 classifier (also fed by a producer
+process through the shared-memory ring), the SFX Bragg-peak pipeline
+(PeakNet-TPU U-Net), the ViT hit classifier with the flash-attention
+trunk, and the ViT's training recipe with the flash backward kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -47,17 +47,30 @@ one JSON line (``{"phase": ...}``):
    and TFLOP/s they reach, and for K2 the time y1's round trip through
    HBM takes at the card's memory rate (what fusing its two launches
    could save at most).
-5. ``end_to_end``: a producer thread feeds RAW events into the port's
-   ``RingBuffer``; ``InfeedPipeline(batch_size=32, prefetch_depth=2)`` ->
-   ``fused_calibrate(bf16)`` -> ``panels_to_nhwc`` -> ``resnet_fused_infer``
-   for 6 batches. Launch counts must be +1 ``calib_kernel``, +16
-   ``conv1x1_kernel``, +16 ``conv3x3_kernel`` and +16 ``back_kernel``
-   per batch; the last
-   batch's logits and pooled features are checked against the plain path
-   on the card.
-6. ``profile``: the same pipeline for 4 more batches under
-   ``torch.profiler``: device time by kernel, the device's idle share and
-   the busiest host ops.
+5. ``end_to_end``: a producer thread fills the port's ``RingBuffer`` with
+   RAW events; ``InfeedPipeline(batch_size=32, prefetch_depth=2,
+   batcher_buffers=6)`` (six pinned batch arenas, allocated at the first
+   record) -> ``fused_calibrate(bf16)`` -> ``panels_to_nhwc`` ->
+   ``resnet_fused_infer`` for 6 warm-up and 24 timed batches (the times,
+   fps and p50/p99 are the timed ones'). Launch counts must be +1
+   ``calib_kernel``, +16 ``conv1x1_kernel``, +16 ``conv3x3_kernel`` and
+   +16 ``back_kernel`` per batch; every batch must go to the card in one
+   H2D copy straight from its pinned arena with no host copy beside the
+   batcher's (host bytes copied a frame = one frame); the last batch's
+   logits and pooled features are checked against the plain path on the
+   card.
+6. ``profile``: the same pipeline for 4 timed batches after the warm-up
+   under ``torch.profiler``: device time by kernel, the device's idle
+   share and the busiest host ops.
+6b. ``shm_end_to_end``: the same serving path fed by another process: a
+   ``spawn`` producer process (``produce_synthetic``, which loads no
+   torch) draws the same pool from the same seed and writes it into a
+   ``ShmRingBuffer`` of 64 slots (``/dev/shm`` is checked for room
+   first); this process attaches and drains it with ``get_batch_view`` ->
+   ``push_view`` into the pinned arenas, 6 + 24 batches. Held as
+   ``end_to_end`` is, plus: produced = consumed, every arena pinned, no
+   byte copied out of a slot (``bytes_copied_out`` 0), and the last
+   batch's frames equal to the pool's. Prints ``/dev/shm``'s size.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -67,14 +80,16 @@ one JSON line (``{"phase": ...}``):
    (bf16 channels-last ``F.conv2d``) times, the TFLOP/s each launch and
    level reaches, the fused level's bound and the bound of the three
    launches (y1 and skip through HBM).
-8. ``sfx_end_to_end``: a producer thread feeds RAW events into a
-   ``RingBuffer``; ``SfxPipeline(SfxConfig(batch_size=8)).run`` drains
-   them (``calib_kernel`` -> ``peaknet_tpu_fused_infer`` -> ``find_peaks``
-   -> an in-memory writer) for 6 batches. Launch counts must be +1
-   ``calib_kernel`` and +8 ``conv_block_kernel`` per batch; the last
-   batch's logits are checked against the plain path on the card, and
-   the peaks written for it against a recomputation.
-9. ``sfx_profile``: the same pipeline for 4 more batches under
+8. ``sfx_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
+   events; ``SfxPipeline(SfxConfig(batch_size=8)).run`` drains them
+   through its six pinned arenas (``calib_kernel`` ->
+   ``peaknet_tpu_fused_infer`` -> ``find_peaks`` -> an in-memory writer)
+   for 6 warm-up and 24 timed batches. Launch counts must be +1
+   ``calib_kernel`` and +8 ``conv_block_kernel`` per batch, each batch one
+   H2D from its arena; the last batch's logits are checked against the
+   plain path on the card, and the peaks written for it against a
+   recomputation.
+9. ``sfx_profile``: the same pipeline for 4 timed batches under
    ``torch.profiler``.
 
 10. ``flash_kernel``: K5 against its plain version on ``[B, H, S, 128]``
@@ -89,17 +104,18 @@ one JSON line (``{"phase": ...}``):
    values, ``lse = log(keys)``). With kernel, plain and library
    (``F.scaled_dot_product_attention``) times and the bound of the work
    each case needs.
-11. ``vit_end_to_end``: a producer thread feeds RAW events into a
-   ``RingBuffer``; ``InfeedPipeline(batch_size=2, prefetch_depth=2)`` ->
-   ``vit_serve_step`` (``calib_kernel`` to bf16 -> ``ViTHitClassifier`` at
-   the reference's defaults: patch 16, embed 512, depth 4, 4 heads, 8448
-   tokens a frame) for 6 batches. Launch counts must be +1
-   ``calib_kernel`` and +4 ``flash_kernel`` per batch and nothing else;
-   the last batch's logits are checked against the plain path on the
-   card (``fused_calibrate_plain`` and the model with the plain
-   attention). The same model with score-blind attention (the flat
-   control above) gives the logits' sensitivity to attention.
-12. ``vit_profile``: the same pipeline for 4 more batches under
+11. ``vit_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
+   events; ``InfeedPipeline(batch_size=2, prefetch_depth=2,
+   batcher_buffers=6)`` -> ``vit_serve_step`` (``calib_kernel`` to bf16 ->
+   ``ViTHitClassifier`` at the reference's defaults: patch 16, embed 512,
+   depth 4, 4 heads, 8448 tokens a frame) for 6 warm-up and 24 timed
+   batches. Launch counts must be +1 ``calib_kernel`` and +4
+   ``flash_kernel`` per batch and nothing else, each batch one H2D from
+   its pinned arena; the last batch's logits are checked against the
+   plain path on the card (``fused_calibrate_plain`` and the model with
+   the plain attention). The same model with score-blind attention (the
+   flat control above) gives the logits' sensitivity to attention.
+12. ``vit_profile``: the same pipeline for 4 timed batches under
    ``torch.profiler``.
 13. ``flash_bwd``: ``flash_bwd_kernel`` (K6 and K7 in one pass) and its
    dq rounding ``flash_bwd_dq_convert`` against ``attention_bwd_plain`` on the same
@@ -150,9 +166,12 @@ one JSON line (``{"phase": ...}``):
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs and the training run (phases 5, 8, 11 and 14), the
-``flash_kernel`` launches those of the ViT's serving and training runs;
-every other kernel runs on one path only.
+serving runs, the shm-fed run and the training run (phases 5, 6b, 8, 11
+and 14), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
+``back_kernel`` the two ResNet runs' (5 and 6b), the ``flash_kernel``
+launches those of the ViT's serving and training runs; every other
+kernel runs on one path only. Each run sets the counts to 0 just before
+it and reads them just after.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up, with the card kept busy (a spin of about a
@@ -187,16 +206,21 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+DETECTOR = "epix10k2M"  # the serving paths' frames: [16, 352, 384]
 BATCH = 32
-E2E_BATCHES = 6
+E2E_BATCHES = 24  # timed batches of each serving run, after the warm-up
+PREFETCH_DEPTH = 2
+BUFFERS = PREFETCH_DEPTH + 4  # pinned batch arenas of each serving run
+WARMUP_BATCHES = BUFFERS  # untimed: every arena written once, the ring filled before them
+PROFILE_BATCHES = 4
 POOL_EVENTS = 64
 REL_TOL = 0.05
 JUNGFRAU_BATCH = 8  # frames of K1's jungfrau4M case
 SFX_BATCH = 8  # frames; 128 panel-rows of epix10k2M
 SFX_FEATURES = (64, 128, 256, 512)
-SFX_BATCHES = 6
+SFX_BATCHES = 24
 VIT_BATCH = 2  # frames; each one 8448-token sequence
-VIT_BATCHES = 6
+VIT_BATCHES = 24
 VIT_DEPTH = 4  # flash_kernel launches per batch
 FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
 BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
@@ -562,12 +586,11 @@ def make_step(torch, pt, consts, params):
     return step
 
 
-def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch=BATCH):
-    """A producer thread puts ``n_batches * batch`` RAW events (the pool,
-    cycled) and one EOS into a ``RingBuffer``; ``InfeedPipeline`` drives
-    ``step`` over them. Returns the pipeline and the wall seconds."""
-    n_events = n_batches * batch
-    ring = pt.RingBuffer(maxsize=3 * batch)
+def start_producer(pt, ring, pool, n_events):
+    """A producer thread puts ``n_events`` RAW events (the pool, cycled)
+    and one EOS into ``ring``; returns the thread and a dict that gets the
+    count. Returns once the ring is full (or the producer is done), so a
+    run starts at steady state."""
     events = ((i, pool[i % len(pool)], 10.0) for i in range(n_events))
     produced = {}
 
@@ -576,7 +599,54 @@ def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
-    pipe = pt.InfeedPipeline(ring, batch_size=batch, device=device, prefetch_depth=2)
+    wait_full(ring, thread.is_alive)
+    return thread, produced
+
+
+def wait_full(ring, alive, timeout=180.0):
+    deadline = time.monotonic() + timeout
+    while ring.size() < ring.maxsize and alive():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the producer filled {ring.size()} of {ring.maxsize} slots "
+                                 f"in {timeout} s")
+        time.sleep(0.01)
+
+
+def check_staging(pt, metrics, n_batches, frame_nbytes, batcher=None):
+    """Every batch went to the card straight from a pinned arena, and the
+    host copied each frame once: the counts of ``PipelineMetrics`` and,
+    its batcher's arenas (``arenas_pinned`` is null where no batcher was
+    given)."""
+    s = metrics.summary()
+    pinned = None
+    if batcher is not None:
+        pinned = [bool(t.is_pinned()) for a in batcher.pool for t in a.tensors]
+        if len(batcher.pool) != BUFFERS or not all(pinned):
+            raise AssertionError(f"{len(batcher.pool)} arenas, pinned {pinned}: expected "
+                                 f"{BUFFERS}, all pinned")
+    if s["arena_copies"] != n_batches or s["host_frame_bytes_per_frame"] != frame_nbytes:
+        raise AssertionError(f"{s['arena_copies']} of {n_batches} batches copied from their "
+                             f"arena, {s['host_frame_bytes_per_frame']} host bytes copied a "
+                             f"frame against {frame_nbytes}")
+    return {"arenas": BUFFERS, "arenas_pinned": None if pinned is None else all(pinned),
+            "arena_h2d_copies": s["arena_copies"],
+            "host_bytes_copied_per_batch": metrics.host_frame_bytes / n_batches,
+            "host_bytes_copied_per_frame": s["host_frame_bytes_per_frame"],
+            "frame_bytes": frame_nbytes}
+
+
+def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch=BATCH):
+    """A producer thread fills a ``RingBuffer`` with ``WARMUP_BATCHES +
+    n_batches`` batches of RAW events (the pool, cycled) and one EOS;
+    ``InfeedPipeline`` with pinned batch arenas drives ``step`` over them,
+    timing the last ``n_batches``. Returns the pipeline and the wall
+    seconds of the whole run."""
+    total = WARMUP_BATCHES + n_batches
+    ring = pt.RingBuffer(maxsize=3 * batch)
+    thread, produced = start_producer(pt, ring, pool, total * batch)
+    pipe = pt.InfeedPipeline(ring, batch_size=batch, device=device, prefetch_depth=PREFETCH_DEPTH,
+                             batcher_buffers=BUFFERS,
+                             metrics=pt.PipelineMetrics(warmup=WARMUP_BATCHES))
     t0 = time.monotonic()
     try:
         seen = pipe.run(step, on_result=on_result, block_until_ready=True)
@@ -584,18 +654,38 @@ def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch
         wall = time.monotonic() - t0
         ring.close()
         thread.join(timeout=60)
-    if produced.get("n") != n_events or seen != n_events or pipe.metrics.batches != n_batches:
+    if produced.get("n") != total * batch or seen != total * batch or pipe.metrics.batches != n_batches:
         raise AssertionError(f"produced {produced.get('n')}, consumed {seen} in "
-                             f"{pipe.metrics.batches} batches, expected {n_events}")
+                             f"{pipe.metrics.batches} timed batches, expected {total * batch}")
     return pipe, wall
+
+
+def profiled(torch, run, n_batches):
+    """``run(on_batch)`` under ``torch.profiler``, switched on when the
+    warm-up's last batch is done: the summary covers the ``n_batches``
+    timed batches only. ``run`` calls ``on_batch()`` after each batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    state = {"done": 0, "t0": None}
+
+    def on_batch():
+        state["done"] += 1
+        if state["done"] == WARMUP_BATCHES:
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"] = time.monotonic()
+
+    run(on_batch)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - state["t0"]
+    prof.stop()
+    return profile_summary(torch, prof, wall, n_batches)
 
 
 def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     import numpy as np
 
-    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
-
-    ped, gain, mask = consts
     step = make_step(torch, pt, consts, params)
     # warm-up outside the counted run (cuDNN picks the stem's algorithm)
     warm = torch.from_numpy(np.stack(pool[:BATCH])).to(device)
@@ -612,12 +702,36 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     pt.reset_counters()
     pipe, wall = run_pipeline(torch, pt, pool, step, device, E2E_BATCHES, on_result)
     counts = pt.counts()
-    nb = pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches
+    check_resnet_counts(counts, nb)
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    summary = pipe.metrics.summary()
+    result = {
+        "batches": nb, "timed_batches": summary["batches"], "frames": summary["frames"],
+        "wall_s": wall, "fps": summary["fps"],
+        "p50_batch_ms": summary["p50_ms"], "p99_batch_ms": summary["p99_ms"],
+        "host_batch_ms": summary["host_batch_ms"], "host_stage_ms": summary["host_stage_ms"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+        "launches": counts, **staging, **errs,
+    }
+    emit("end_to_end", **result)
+    return counts
+
+
+def check_resnet_counts(counts, nb):
     want = {"calib_kernel": nb, "conv1x1_kernel": 16 * nb, "conv3x3_kernel": 16 * nb,
             "back_kernel": 16 * nb, "conv_block_kernel": 0, "flash_kernel": 0, **NO_BWD}
     if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
 
+
+def check_resnet_result(torch, pt, model, consts, last):
+    """The last batch's logits and pooled features against the plain path
+    on the same frames."""
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+
+    ped, gain, mask = consts
     logits, feat = last["out"]
     if tuple(logits.shape) != (BATCH, 2) or not torch.isfinite(logits).all():
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
@@ -630,16 +744,7 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     if not (errs["logits_rel_err"] < REL_TOL and errs["features_rel_err"] < REL_TOL
             and errs["features_max_abs"] >= 1e-2):
         raise AssertionError(f"end-to-end result disagrees with the plain path: {errs}")
-    summary = pipe.metrics.summary()
-    result = {
-        "batches": nb, "frames": summary["frames"], "wall_s": wall, "fps": summary["fps"],
-        "p50_batch_ms": summary["p50_ms"], "p99_batch_ms": summary["p99_ms"],
-        "host_batch_ms": summary["host_batch_ms"], "host_stage_ms": summary["host_stage_ms"],
-        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-        "launches": counts, **errs,
-    }
-    emit("end_to_end", **result)
-    return counts
+    return errs
 
 
 def profile_summary(torch, prof, wall, n_batches, top=16) -> dict:
@@ -672,14 +777,98 @@ def profile_summary(torch, prof, wall, n_batches, top=16) -> dict:
     }
 
 
-def phase_profile(torch, pt, pool, consts, params, device, n_batches=4):
-    """The ResNet pipeline under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_profile(torch, pt, pool, consts, params, device, n_batches=PROFILE_BATCHES):
+    """The ResNet pipeline's timed batches under ``torch.profiler``."""
     step = make_step(torch, pt, consts, params)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_pipeline(torch, pt, pool, step, device, n_batches)
-    emit("profile", **profile_summary(torch, prof, wall, n_batches))
+
+    def run(on_batch):
+        run_pipeline(torch, pt, pool, step, device, n_batches, lambda out, batch: on_batch())
+
+    emit("profile", **profiled(torch, run, n_batches))
+
+
+def phase_shm_end_to_end(torch, pt, pool, consts, model, params, device):
+    """The ResNet serving path fed by another process: a ``spawn`` producer
+    process writes the pool (drawn again there from the same seed) into a
+    ``ShmRingBuffer``; this process attaches, drains it with
+    ``get_batch_view`` -> ``push_view`` into pinned arenas, and runs the
+    serving step. Held as ``end_to_end`` is, and to one host copy a frame."""
+    import multiprocessing as mp
+    import shutil
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.records import FrameRecord, encoded_size
+
+    total = WARMUP_BATCHES + E2E_BATCHES
+    n_events = total * BATCH
+    slot_bytes = 1 + encoded_size(FrameRecord(0, 0, pool[0], 0.0))
+    slots = 1 << (BATCH + 8 - 1).bit_length()  # the ring rounds up to a power of two
+    ring_bytes = slots * (slot_bytes + 64)
+    shm = shutil.disk_usage("/dev/shm")
+    if shm.free < ring_bytes:
+        raise AssertionError(f"/dev/shm has {shm.free} bytes free, the ring needs {ring_bytes}")
+    owner = pt.ShmRingBuffer.create(f"chip_smoke_{os.getpid()}", maxsize=BATCH + 8,
+                                    slot_bytes=slot_bytes)
+    ctx = mp.get_context("spawn")
+    produced = ctx.Value("q", 0)
+    proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
+                       args=(owner.name, DETECTOR, n_events, POOL_EVENTS),
+                       kwargs=dict(seed=0, produced=produced))
+    step = make_step(torch, pt, consts, params)
+    last = {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+
+    t_start = time.monotonic()
+    proc.start()
+    ring = None
+    try:
+        ring = pt.ShmRingBuffer.attach(owner.name)
+        wait_full(ring, proc.is_alive)
+        fill_s = time.monotonic() - t_start
+        pt.reset_counters()
+        pipe = pt.InfeedPipeline(ring, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=WARMUP_BATCHES))
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        wall = time.monotonic() - t0
+        counts = pt.counts()
+        proc.join(timeout=60)
+        ring_stats = ring.stats()
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        if ring is not None:
+            ring.disconnect()
+        owner.destroy()
+    if proc.exitcode != 0 or produced.value != n_events or seen != n_events:
+        raise AssertionError(f"producer exit {proc.exitcode}: produced {produced.value}, "
+                             f"consumed {seen}, expected {n_events}")
+    nb = WARMUP_BATCHES + pipe.metrics.batches
+    if nb != total:
+        raise AssertionError(f"{nb} batches, expected {total}")
+    check_resnet_counts(counts, nb)
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    if ring_stats["bytes_copied_out"] != 0:
+        raise AssertionError(f"frames were copied out of the ring's slots: {ring_stats}")
+    # the frames crossed the process boundary unchanged
+    idx = last["event_idx"].cpu().numpy()
+    want = torch.from_numpy(np.stack([pool[i % len(pool)] for i in idx])).to(device)
+    if not torch.equal(want, last["frames"]):
+        raise AssertionError("the last batch's frames differ from the producer's pool")
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    summary = pipe.metrics.summary()
+    emit("shm_end_to_end", batches=nb, timed_batches=summary["batches"], frames=summary["frames"],
+         wall_s=wall, fill_s=fill_s, fps=summary["fps"],
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         dev_shm_bytes=shm.total, dev_shm_free_bytes=shm.free, ring_slots=ring_stats["maxsize"],
+         slot_bytes=slot_bytes, ring=ring_stats, launches=counts, **staging, **errs)
+    return counts
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -794,31 +983,31 @@ def phase_conv_block(torch, F, fu, timer, uparams, device):
 
 
 class PeakSink:
-    """An in-memory writer: keeps every appended peak set."""
+    """An in-memory writer: keeps every appended peak set; ``on_batch``
+    (if set) is called after each append, one a batch."""
 
     max_peaks = 128
 
     def __init__(self):
         self.sets = []
+        self.on_batch = None
 
     def append(self, sets):
         self.sets.extend(sets)
+        if self.on_batch is not None:
+            self.on_batch()
 
 
-def run_sfx(torch, pt, pool, pipe, n_batches):
-    """A producer thread puts ``n_batches * SFX_BATCH`` RAW events and one
-    EOS into a ``RingBuffer``; ``pipe.run`` drains them. Returns the wall
-    seconds."""
-    n_events = n_batches * SFX_BATCH
+def run_sfx(torch, pt, pool, pipe, n_batches, on_batch=None):
+    """A producer thread fills a ``RingBuffer`` with ``WARMUP_BATCHES +
+    n_batches`` batches of RAW events and one EOS; ``pipe.run`` drains
+    them through pinned arenas, timing the last ``n_batches``. Returns the
+    wall seconds of the whole run."""
+    n_events = (WARMUP_BATCHES + n_batches) * SFX_BATCH
     ring = pt.RingBuffer(maxsize=3 * SFX_BATCH)
-    events = ((i, pool[i % len(pool)], 10.0) for i in range(n_events))
-    produced = {}
-
-    def producer():
-        produced["n"] = pt.produce(events, ring, timeout=120.0)
-
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
+    thread, produced = start_producer(pt, ring, pool, n_events)
+    pipe.metrics = pt.PipelineMetrics(warmup=WARMUP_BATCHES)
+    pipe.writer.on_batch = on_batch
     before = pipe.n_events
     t0 = time.monotonic()
     try:
@@ -827,6 +1016,7 @@ def run_sfx(torch, pt, pool, pipe, n_batches):
         wall = time.monotonic() - t0
         ring.close()
         thread.join(timeout=60)
+        pipe.writer.on_batch = None
     if produced.get("n") != n_events or written != n_events or pipe.n_events - before != n_events:
         raise AssertionError(f"produced {produced.get('n')}, wrote {written}, expected {n_events}")
     return wall
@@ -853,7 +1043,8 @@ def phase_sfx(torch, pt, pool, calib_np, device):
 
     params = pt.init_peaknet_tpu_params(SFX_FEATURES, seed=0)
     sink = PeakSink()
-    pipe = pt.SfxPipeline(params, sink, calib=calib_np, config=pt.SfxConfig(batch_size=SFX_BATCH))
+    pipe = pt.SfxPipeline(params, sink, calib=calib_np,
+                          config=pt.SfxConfig(batch_size=SFX_BATCH))
     if pipe.device != device:
         raise AssertionError(f"SfxPipeline chose {pipe.device}, not the card {device}")
     # warm-up outside the counted run (cuDNN picks the library convs' algorithms)
@@ -866,16 +1057,17 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     pt.reset_counters()
     wall = run_sfx(torch, pt, pool, pipe, SFX_BATCHES)
     counts = pt.counts()
-    nb = pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches
     want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 8 * nb, "flash_kernel": 0,
             **NO_BWD}
-    if nb != SFX_BATCHES or counts != want:
+    if pipe.metrics.batches != SFX_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
 
     # the last batch again: kernel-path logits against the plain path, and
     # the peaks the pipeline wrote against find_peaks of those logits
-    n_events = SFX_BATCHES * SFX_BATCH
+    n_events = nb * SFX_BATCH
     last = list(range(n_events - SFX_BATCH, n_events))
     frames = torch.from_numpy(np.stack([pool[i % len(pool)] for i in last])).to(device)
     ped, gain, mask = (torch.from_numpy(a).to(device) for a in calib_np)
@@ -910,10 +1102,11 @@ def phase_sfx(torch, pt, pool, calib_np, device):
                              f"share of written peaks found again {recomputed}, "
                              f"{len(sink.sets)} events written")
     summary = pipe.metrics.summary()
-    emit("sfx_end_to_end", batches=nb, frames=summary["frames"], wall_s=wall, fps=summary["fps"],
+    emit("sfx_end_to_end", batches=nb, timed_batches=summary["batches"], frames=summary["frames"],
+         wall_s=wall, fps=summary["fps"],
          p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
          host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
-         peak_mem_gib=peak_mem, peaks_written=pipe.n_peaks, launches=counts,
+         peak_mem_gib=peak_mem, peaks_written=pipe.n_peaks, launches=counts, **staging,
          logits_rel_err=err, logits_max_abs=float(ref.abs().max()),
          peak_agreement_kernel_vs_plain=_peak_agreement(peaks, ref_peaks),
          written_peaks_found_again=recomputed,
@@ -1060,11 +1253,12 @@ def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
     pipe, wall = run_pipeline(torch, pt, pool, step, device, VIT_BATCHES, on_result, batch=VIT_BATCH)
     counts = pt.counts()
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
-    nb = pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches
     want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 0,
             "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
-    if nb != VIT_BATCHES or counts != want:
+    if counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
 
     logits = last["out"]
     if tuple(logits.shape) != (VIT_BATCH, 2) or not torch.isfinite(logits).all():
@@ -1079,32 +1273,31 @@ def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
     if not err < REL_TOL:
         raise AssertionError(f"ViT logits disagree with the plain path: rel_err {err}")
     summary = pipe.metrics.summary()
-    emit("vit_end_to_end", batches=nb, frames=summary["frames"], wall_s=wall, fps=summary["fps"],
+    emit("vit_end_to_end", batches=nb, timed_batches=summary["batches"], frames=summary["frames"],
+         wall_s=wall, fps=summary["fps"],
          p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
          host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
-         peak_mem_gib=peak_mem, launches=counts, logits_rel_err=err,
+         peak_mem_gib=peak_mem, launches=counts, **staging, logits_rel_err=err,
          logits_max_abs=float(ref.abs().max()),
          logits_rel_err_flat_attention=rel_err(ref, ref_flat), tokens_per_frame=model.embed.pos_embed.shape[1])
     return model, counts
 
 
-def phase_vit_profile(torch, pt, pool, consts, model, device, n_batches=4):
-    """The ViT pipeline under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_vit_profile(torch, pt, pool, consts, model, device, n_batches=PROFILE_BATCHES):
+    """The ViT pipeline's timed batches under ``torch.profiler``."""
     step = make_vit_step(torch, pt, consts, model)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_pipeline(torch, pt, pool, step, device, n_batches, batch=VIT_BATCH)
-    emit("vit_profile", **profile_summary(torch, prof, wall, n_batches))
+
+    def run(on_batch):
+        run_pipeline(torch, pt, pool, step, device, n_batches, lambda out, batch: on_batch(),
+                     batch=VIT_BATCH)
+
+    emit("vit_profile", **profiled(torch, run, n_batches))
 
 
-def phase_sfx_profile(torch, pt, pool, pipe, n_batches=4):
-    """The SFX pipeline under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run_sfx(torch, pt, pool, pipe, n_batches)
-    emit("sfx_profile", **profile_summary(torch, prof, wall, n_batches))
+def phase_sfx_profile(torch, pt, pool, pipe, n_batches=PROFILE_BATCHES):
+    """The SFX pipeline's timed batches under ``torch.profiler``."""
+    emit("sfx_profile", **profiled(
+        torch, lambda on_batch: run_sfx(torch, pt, pool, pipe, n_batches, on_batch), n_batches))
 
 
 # -- phases 13-15 ----------------------------------------------------------
@@ -1436,6 +1629,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import psana_ray_tpu_torch as pt
+
     from psana_ray_tpu_torch.kernels import build
     from psana_ray_tpu_torch.models import fused_resnet as fr
     from psana_ray_tpu_torch.models import fused_unet as fu
@@ -1480,7 +1674,7 @@ def main() -> int:
         raise AssertionError(f"calib.cu did not build clean (spills or no kernels): {k1}")
 
     t0 = time.monotonic()
-    src = pt.SyntheticSource(num_events=POOL_EVENTS, detector_name="epix10k2M", seed=0)
+    src = pt.SyntheticSource(num_events=POOL_EVENTS, detector_name=DETECTOR, seed=0)
     pool = [src.event(i, pt.RetrievalMode.RAW)[0] for i in range(POOL_EVENTS)]
     emit("events", n=len(pool), shape=list(pool[0].shape), seconds=time.monotonic() - t0)
 
@@ -1497,6 +1691,7 @@ def main() -> int:
 
     counts = phase_end_to_end(torch, pt, pool, consts, model, params, device)
     phase_profile(torch, pt, pool, consts, params, device)
+    shm_counts = phase_shm_end_to_end(torch, pt, pool, consts, model, params, device)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -1521,7 +1716,8 @@ def main() -> int:
     kernels = [{
         "name": "calib_kernel", "route": "cuda", "source": f"{csrc}/calib.cu",
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
-        "launches": (counts["calib_kernel"] + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
+        "launches": (counts["calib_kernel"] + shm_counts["calib_kernel"]
+                     + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
                      + train_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1536,7 +1732,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{csrc}/conv_sm90.cu",
-            "replaces": replaces[name], "launches": counts[name],
+            "replaces": replaces[name], "launches": counts[name] + shm_counts[name],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

@@ -18,131 +18,115 @@ sm_90a, built with ``nvcc`` at first use
 (:mod:`psana_ray_tpu_torch.kernels.build`), and has a plain PyTorch
 version beside it that CPU tensors run.
 
+A producer process feeds the card's process through the shared-memory
+ring (:class:`ShmRingBuffer`, the JAX package's layout and wire format);
+the batcher copies each frame once, out of the ring's slot into a pinned
+batch arena, and one H2D copy takes the arena to the card.
+
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
-nothing of ``psana_ray_tpu``. Entry points run on the card unless the
+nothing of ``psana_ray_tpu``. Its names load at first use, so a producer
+process that imports only the host plane (records, transports, sources,
+the producer) never loads torch. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
-from psana_ray_tpu_torch.checkpoint import StreamCursor
-from psana_ray_tpu_torch.convert import resnet_from_flax, unet_from_flax, vit_from_flax, vit_to_flax
-from psana_ray_tpu_torch.cxi import CxiWriter, PeakSet
-from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.entry import entry, vit_serve_step
-from psana_ray_tpu_torch.infeed import (
-    Batch,
-    DevicePrefetcher,
-    FrameBatcher,
-    InfeedPipeline,
-    PipelineMetrics,
-    StopStream,
-    batches_from_queue,
-    drive_step,
-)
-from psana_ray_tpu_torch.kernels import LAUNCHES, counts, reset_counters
-from psana_ray_tpu_torch.models import (
-    FusedResNet,
-    FusedUNet,
-    PeakNetUNetTPU,
-    ResNet50,
-    ResNetClassifier,
-    ViTHitClassifier,
-    depth_to_space,
-    find_peaks,
-    fused_bottleneck,
-    fused_conv_block,
-    init_peaknet_tpu_params,
-    init_resnet_params,
-    init_vit_params,
-    masked_softmax_xent,
-    nhwc_to_panels,
-    pack_fused,
-    pack_unet,
-    panels_to_nhwc,
-    patchify_panels,
-    peak_metrics,
-    peaknet_tpu_fused_infer,
-    resnet_fused_infer,
-    space_to_depth,
-)
-from psana_ray_tpu_torch.ops import calibrate, common_mode, fused_calibrate
-from psana_ray_tpu_torch.optim import adamw, warmup_cosine_decay_schedule
-from psana_ray_tpu_torch.parallel import attention_with_stats, flash_attention, make_train_step
-from psana_ray_tpu_torch.producer import produce
-from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord
-from psana_ray_tpu_torch.sfx import DEFAULT_THRESHOLDS, SfxConfig, SfxPipeline, infer_features, infer_s2d
-from psana_ray_tpu_torch.sources import DETECTORS, DetectorSpec, RetrievalMode, SyntheticSource
-from psana_ray_tpu_torch.train import raw_hit_batch, train_hit_classifier
-from psana_ray_tpu_torch.transport import EMPTY, FULL, RingBuffer, TransportClosed
+from __future__ import annotations
 
-__all__ = [
-    "Batch",
-    "CxiWriter",
-    "DEFAULT_THRESHOLDS",
-    "DETECTORS",
-    "DetectorSpec",
-    "DevicePrefetcher",
-    "EMPTY",
-    "EndOfStream",
-    "EosTally",
-    "FULL",
-    "FrameBatcher",
-    "FrameRecord",
-    "FusedResNet",
-    "FusedUNet",
-    "InfeedPipeline",
-    "LAUNCHES",
-    "PeakNetUNetTPU",
-    "PeakSet",
-    "PipelineMetrics",
-    "ResNetClassifier",
-    "RetrievalMode",
-    "RingBuffer",
-    "SfxConfig",
-    "SfxPipeline",
-    "StopStream",
-    "StreamCursor",
-    "SyntheticSource",
-    "TransportClosed",
-    "ViTHitClassifier",
-    "adamw",
-    "attention_with_stats",
-    "batches_from_queue",
-    "calibrate",
-    "common_mode",
-    "counts",
-    "depth_to_space",
-    "drive_step",
-    "entry",
-    "find_peaks",
-    "flash_attention",
-    "fused_bottleneck",
-    "fused_calibrate",
-    "fused_conv_block",
-    "infer_features",
-    "infer_s2d",
-    "init_peaknet_tpu_params",
-    "init_resnet_params",
-    "init_vit_params",
-    "make_train_step",
-    "masked_softmax_xent",
-    "nhwc_to_panels",
-    "pack_fused",
-    "pack_unet",
-    "panels_to_nhwc",
-    "patchify_panels",
-    "peak_metrics",
-    "peaknet_tpu_fused_infer",
-    "produce",
-    "raw_hit_batch",
-    "reset_counters",
-    "resnet_from_flax",
-    "resnet_fused_infer",
-    "resolve_device",
-    "space_to_depth",
-    "train_hit_classifier",
-    "unet_from_flax",
-    "vit_from_flax",
-    "vit_serve_step",
-    "vit_to_flax",
-    "warmup_cosine_decay_schedule",
-]
+import importlib
+
+# the one name that is also a submodule's, bound here so that importing
+# the submodule later cannot hide the function (entry.py imports torch
+# only inside its functions)
+from psana_ray_tpu_torch.entry import entry, vit_serve_step
+
+# name -> the module that defines it, imported at first use
+_EXPORTS = {
+    "StreamCursor": "psana_ray_tpu_torch.checkpoint",
+    "resnet_from_flax": "psana_ray_tpu_torch.convert",
+    "unet_from_flax": "psana_ray_tpu_torch.convert",
+    "vit_from_flax": "psana_ray_tpu_torch.convert",
+    "vit_to_flax": "psana_ray_tpu_torch.convert",
+    "CxiWriter": "psana_ray_tpu_torch.cxi",
+    "PeakSet": "psana_ray_tpu_torch.cxi",
+    "resolve_device": "psana_ray_tpu_torch.device",
+    "Batch": "psana_ray_tpu_torch.infeed",
+    "batches_from_queue": "psana_ray_tpu_torch.infeed",
+    "DevicePrefetcher": "psana_ray_tpu_torch.infeed",
+    "drive_step": "psana_ray_tpu_torch.infeed",
+    "FrameBatcher": "psana_ray_tpu_torch.infeed",
+    "InfeedPipeline": "psana_ray_tpu_torch.infeed",
+    "PipelineMetrics": "psana_ray_tpu_torch.infeed",
+    "StopStream": "psana_ray_tpu_torch.infeed",
+    "counts": "psana_ray_tpu_torch.kernels",
+    "LAUNCHES": "psana_ray_tpu_torch.kernels",
+    "reset_counters": "psana_ray_tpu_torch.kernels",
+    "depth_to_space": "psana_ray_tpu_torch.models",
+    "find_peaks": "psana_ray_tpu_torch.models",
+    "fused_bottleneck": "psana_ray_tpu_torch.models",
+    "fused_conv_block": "psana_ray_tpu_torch.models",
+    "FusedResNet": "psana_ray_tpu_torch.models",
+    "FusedUNet": "psana_ray_tpu_torch.models",
+    "init_peaknet_tpu_params": "psana_ray_tpu_torch.models",
+    "init_resnet_params": "psana_ray_tpu_torch.models",
+    "init_vit_params": "psana_ray_tpu_torch.models",
+    "masked_softmax_xent": "psana_ray_tpu_torch.models",
+    "nhwc_to_panels": "psana_ray_tpu_torch.models",
+    "pack_fused": "psana_ray_tpu_torch.models",
+    "pack_unet": "psana_ray_tpu_torch.models",
+    "panels_to_nhwc": "psana_ray_tpu_torch.models",
+    "patchify_panels": "psana_ray_tpu_torch.models",
+    "peak_metrics": "psana_ray_tpu_torch.models",
+    "peaknet_tpu_fused_infer": "psana_ray_tpu_torch.models",
+    "PeakNetUNetTPU": "psana_ray_tpu_torch.models",
+    "ResNet50": "psana_ray_tpu_torch.models",
+    "resnet_fused_infer": "psana_ray_tpu_torch.models",
+    "ResNetClassifier": "psana_ray_tpu_torch.models",
+    "space_to_depth": "psana_ray_tpu_torch.models",
+    "ViTHitClassifier": "psana_ray_tpu_torch.models",
+    "calibrate": "psana_ray_tpu_torch.ops",
+    "common_mode": "psana_ray_tpu_torch.ops",
+    "fused_calibrate": "psana_ray_tpu_torch.ops",
+    "adamw": "psana_ray_tpu_torch.optim",
+    "warmup_cosine_decay_schedule": "psana_ray_tpu_torch.optim",
+    "attention_with_stats": "psana_ray_tpu_torch.parallel",
+    "flash_attention": "psana_ray_tpu_torch.parallel",
+    "make_train_step": "psana_ray_tpu_torch.parallel",
+    "produce": "psana_ray_tpu_torch.producer",
+    "produce_synthetic": "psana_ray_tpu_torch.producer",
+    "EndOfStream": "psana_ray_tpu_torch.records",
+    "EosTally": "psana_ray_tpu_torch.records",
+    "FrameRecord": "psana_ray_tpu_torch.records",
+    "DEFAULT_THRESHOLDS": "psana_ray_tpu_torch.sfx",
+    "infer_features": "psana_ray_tpu_torch.sfx",
+    "infer_s2d": "psana_ray_tpu_torch.sfx",
+    "SfxConfig": "psana_ray_tpu_torch.sfx",
+    "SfxPipeline": "psana_ray_tpu_torch.sfx",
+    "DETECTORS": "psana_ray_tpu_torch.sources",
+    "DetectorSpec": "psana_ray_tpu_torch.sources",
+    "RetrievalMode": "psana_ray_tpu_torch.sources",
+    "SyntheticSource": "psana_ray_tpu_torch.sources",
+    "raw_hit_batch": "psana_ray_tpu_torch.train",
+    "train_hit_classifier": "psana_ray_tpu_torch.train",
+    "EMPTY": "psana_ray_tpu_torch.transport",
+    "FULL": "psana_ray_tpu_torch.transport",
+    "RingBuffer": "psana_ray_tpu_torch.transport",
+    "ShmRingBuffer": "psana_ray_tpu_torch.transport",
+    "TransportClosed": "psana_ray_tpu_torch.transport",
+    "TransportWedged": "psana_ray_tpu_torch.transport",
+    "enable_large_alloc_reuse": "psana_ray_tpu_torch.utils",
+}
+
+__all__ = sorted([*_EXPORTS, "entry", "vit_serve_step"])
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -12,19 +12,9 @@ bf16 -> ``ViTHitClassifier``.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from psana_ray_tpu_torch.convert import resnet_from_flax
-from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.models import (
-    ViTHitClassifier,
-    init_resnet_params,
-    pack_fused,
-    panels_to_nhwc,
-    resnet_fused_infer,
-)
-from psana_ray_tpu_torch.ops import fused_calibrate
-from psana_ray_tpu_torch.sources import SyntheticSource
+# torch and the models are imported inside the functions: the package
+# imports this module eagerly, and a producer process must not load torch
 
 
 def entry(device=None):
@@ -32,7 +22,23 @@ def entry(device=None):
     ``[4, 16, 352, 384]`` frames with ``calib_kernel`` (bf16 out) and
     classifies them with the fused ResNet-50. On ``cuda`` (the default;
     ``RuntimeError`` without a card) it runs the kernels, on ``"cpu"`` their
-    plain versions."""
+    plain versions. Raises glibc's mmap threshold first
+    (``enable_large_alloc_reuse``), as the JAX package's consumer does."""
+    import torch
+
+    from psana_ray_tpu_torch.convert import resnet_from_flax
+    from psana_ray_tpu_torch.device import resolve_device
+    from psana_ray_tpu_torch.models import (
+        init_resnet_params,
+        pack_fused,
+        panels_to_nhwc,
+        resnet_fused_infer,
+    )
+    from psana_ray_tpu_torch.ops import fused_calibrate
+    from psana_ray_tpu_torch.sources import SyntheticSource
+    from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
+
+    enable_large_alloc_reuse()
     device = resolve_device(device)
     src = SyntheticSource(num_events=1, detector_name="epix10k2M", seed=0)
     rng = np.random.default_rng(0)
@@ -54,7 +60,6 @@ def entry(device=None):
     return forward, (params, frames)
 
 
-@torch.no_grad()
 def vit_serve_step(
     model: ViTHitClassifier,
     frames: torch.Tensor,
@@ -65,8 +70,13 @@ def vit_serve_step(
 ) -> torch.Tensor:
     """RAW ``[B, P, H, W]`` frames -> ``[B, classes]`` f32 logits:
     ``calib_kernel`` to bf16, then the ViT (one ``flash_kernel`` launch per
-    block on the card; the plain versions on CPU tensors)."""
-    cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
-                          out_dtype=torch.bfloat16)
-    return model(cal)
+    block on the card; the plain versions on CPU tensors), without
+    autograd."""
+    import torch
 
+    from psana_ray_tpu_torch.ops import fused_calibrate
+
+    with torch.no_grad():
+        cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
+                              out_dtype=torch.bfloat16)
+        return model(cal)

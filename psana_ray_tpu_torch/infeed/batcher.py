@@ -2,21 +2,34 @@
 
 The port's copy of what the serving path needs from
 ``psana_ray_tpu/infeed/batcher.py``. The batcher assembles ``[B, P, H, W]``
-stacks; at end of stream the tail batch is padded to B with zero rows and
-``valid`` marks the real ones, so the model always sees one shape.
-``num_valid`` is a host int, so counting rows never syncs the device.
+stacks in batch arenas; at end of stream the tail batch is padded to B
+with zero rows and ``valid`` marks the real ones, so the model always
+sees one shape. ``num_valid`` is a host int, so counting rows never syncs
+the device.
+
+A frame is copied once on the consumer's host: from the record (a view
+into a shm ring slot, for transports that hand out views) into its row
+of the arena, after which :meth:`FrameBatcher.push_view` releases the
+slot. An arena can be pinned memory that the prefetcher copies to the
+card directly (:func:`psana_ray_tpu_torch.infeed.pipeline.pinned_arena`);
+its ``fence`` is the event behind that copy, and the batcher waits on it
+before writing into the arena again.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord
-from psana_ray_tpu_torch.transport.ring import TransportClosed
+from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
+
+# the [B] metadata arrays of a batch, after the frames: valid, shard_rank,
+# event_idx, photon_energy
+META_DTYPES = (np.uint8, np.int32, np.int64, np.float32)
 
 
 @dataclasses.dataclass
@@ -30,6 +43,8 @@ class Batch:
     event_idx: object  # [B] int64
     photon_energy: object  # [B] float32
     num_valid: int = -1
+    arena: Optional["Arena"] = None  # the host memory a batcher assembled this batch in
+    copied_bytes: int = 0  # frame bytes the batcher copied into it
 
     def __post_init__(self):
         if self.num_valid < 0:
@@ -43,48 +58,82 @@ class Batch:
         return (self.frames, self.valid, self.shard_rank, self.event_idx, self.photon_energy)
 
 
+def arena_layout(batch_size: int, frame_shape: tuple, dtype) -> list:
+    """``(shape, dtype)`` of a batch's five arrays: the frames, then the
+    metadata."""
+    return [((batch_size, *frame_shape), np.dtype(dtype))] + [
+        ((batch_size,), np.dtype(d)) for d in META_DTYPES]
+
+
+class Arena:
+    """One batch's host memory: ``arrays`` (numpy: the frames and the four
+    metadata arrays) and, when the memory is pinned, ``tensors``: the same
+    memory as CPU torch tensors, which the prefetcher copies to the card
+    straight away. ``fence`` is the event recorded behind that copy (any
+    object with ``synchronize()``); :meth:`wait` blocks on it."""
+
+    __slots__ = ("arrays", "tensors", "fence")
+
+    def __init__(self, arrays: tuple, tensors: Optional[tuple] = None):
+        self.arrays = arrays
+        self.tensors = tensors
+        self.fence = None
+
+    def wait(self) -> None:
+        """Block until the last copy out of this arena has finished."""
+        fence, self.fence = self.fence, None
+        if fence is not None:
+            fence.synchronize()
+
+
+def host_arena(batch_size: int, frame_shape: tuple, dtype) -> Arena:
+    """A pageable numpy arena."""
+    return Arena(tuple(np.empty(shape, dt) for shape, dt in
+                       arena_layout(batch_size, frame_shape, dtype)))
+
+
 class FrameBatcher:
     """Accumulates FrameRecords into fixed-shape Batches.
 
-    ``push`` copies the record into the batch buffer at once and returns a
-    completed Batch or None; ``flush`` pads and returns the tail. The frame
-    shape and dtype are locked by the first record. ``n_buffers > 0``
-    reuses that many preallocated buffer sets round-robin: a pooled Batch
-    is overwritten
-    ``n_buffers`` batches later, so ``n_buffers`` must exceed the number of
-    batches alive downstream at once (``InfeedPipeline`` checks its bound).
+    ``push`` copies the record into the batch arena at once and returns a
+    completed Batch or None; ``push_view`` does the same and then releases
+    the record's transport lease; ``flush`` pads and returns the tail. The
+    frame shape and dtype are locked by the first record. ``new_arena``
+    makes an arena (``(batch_size, frame_shape, dtype) -> Arena``;
+    pageable numpy by default).
+
+    ``n_buffers > 0`` makes all ``n_buffers`` arenas at the first record
+    and reuses them round-robin; before writing into one the batcher waits
+    on its ``fence``. On the CPU a batch's tensors alias its arena, so
+    ``n_buffers`` must also exceed the number of batches alive downstream
+    at once (``InfeedPipeline`` checks its bound).
     """
 
-    def __init__(self, batch_size: int, n_buffers: int = 0):
+    def __init__(self, batch_size: int, n_buffers: int = 0,
+                 new_arena: Callable[..., Arena] = host_arena):
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         self.batch_size = batch_size
         self.n_buffers = n_buffers
+        self.new_arena = new_arena
         self.dtype: Optional[np.dtype] = None
         self._frame_shape: Optional[tuple] = None
-        self._pool: List[tuple] = []
+        self.pool: List[Arena] = []
         self._pool_i = 0
-        self._cur: Optional[tuple] = None
+        self._cur: Optional[Arena] = None
         self._fill = 0
+        self._copied = 0
 
-    def _alloc(self) -> tuple:
-        b = self.batch_size
-        return (
-            np.empty((b, *self._frame_shape), dtype=self.dtype),
-            np.empty((b,), np.uint8),
-            np.empty((b,), np.int32),
-            np.empty((b,), np.int64),
-            np.empty((b,), np.float32),
-        )
-
-    def _acquire(self) -> tuple:
-        if self.n_buffers > 0:
-            if not self._pool:
-                self._pool = [self._alloc() for _ in range(self.n_buffers)]
-            buf = self._pool[self._pool_i % self.n_buffers]
-            self._pool_i += 1
-            return buf
-        return self._alloc()
+    def _acquire(self) -> Arena:
+        if self.n_buffers <= 0:
+            return self.new_arena(self.batch_size, self._frame_shape, self.dtype)
+        if not self.pool:
+            self.pool = [self.new_arena(self.batch_size, self._frame_shape, self.dtype)
+                         for _ in range(self.n_buffers)]
+        arena = self.pool[self._pool_i % self.n_buffers]
+        self._pool_i += 1
+        arena.wait()  # its last copy to the card has finished
+        return arena
 
     def push(self, rec: FrameRecord) -> Optional[Batch]:
         if self._frame_shape is None:
@@ -95,9 +144,11 @@ class FrameBatcher:
         if self._cur is None:
             self._cur = self._acquire()
             self._fill = 0
-        frames, valid, rank, idx, energy = self._cur
+            self._copied = 0
+        frames, valid, rank, idx, energy = self._cur.arrays
         i = self._fill
-        frames[i] = rec.panels
+        frames[i] = rec.panels  # the consumer's one host copy of the frame
+        self._copied += rec.panels.nbytes
         valid[i] = 1
         rank[i] = rec.shard_rank
         idx[i] = rec.event_idx
@@ -106,6 +157,16 @@ class FrameBatcher:
         if self._fill == self.batch_size:
             return self._emit()
         return None
+
+    def push_view(self, rec: FrameRecord) -> Optional[Batch]:
+        """``push`` for zero-copy records: copy the panels into the arena,
+        then release the record's lease (its shm ring slot). The release
+        comes strictly after the copy, and also when the push raises; a
+        no-op for records that own their data."""
+        try:
+            return self.push(rec)
+        finally:
+            rec.release()
 
     def flush(self) -> Optional[Batch]:
         """Pad + emit the tail batch; None when nothing pends."""
@@ -118,14 +179,13 @@ class FrameBatcher:
         return self._fill if self._cur is not None else 0
 
     def _emit(self) -> Batch:
-        frames, valid, rank, idx, energy = self._cur
-        n = self._fill
+        arena, n = self._cur, self._fill
         if n < self.batch_size:  # padded tail: zero only the padding rows
-            for a in (frames, valid, rank, idx, energy):
+            for a in arena.arrays:
                 a[n:] = 0
         self._cur = None
         self._fill = 0
-        return Batch(frames, valid, rank, idx, energy, num_valid=n)
+        return Batch(*arena.arrays, num_valid=n, arena=arena, copied_bytes=self._copied)
 
 
 def batches_from_queue(
@@ -135,24 +195,34 @@ def batches_from_queue(
     max_wait_s: Optional[float] = None,
     stop=None,
     n_buffers: int = 0,
+    batcher: Optional[FrameBatcher] = None,
 ) -> Iterator[Batch]:
     """Drain a queue into fixed-shape batches until end of stream.
 
-    Pops with ``get_batch`` (one lock acquisition for many items). The
-    stream ends when the :class:`EosTally` covers every shard, or when the
-    transport closes; the padded tail is yielded first. ``max_wait_s``
-    bounds starvation (None: wait forever). ``stop`` (a
-    ``threading.Event``) cancels from another thread without a flush.
+    Pops with ``get_batch_view`` where the queue has it (the shm ring: each
+    frame views its slot until ``push_view`` has copied it into the arena
+    and released it), else ``get_batch``; either takes many items at once.
+    Every record of a pop is copied and released before any batch is
+    yielded, so a generator suspended at a yield holds no slot. The stream
+    ends when the :class:`EosTally` covers every shard, or when the
+    transport closes; the padded tail is yielded first. A wedged transport
+    (a crashed peer) raises instead. ``max_wait_s`` bounds starvation
+    (None: wait forever). ``stop`` (a ``threading.Event``) cancels from
+    another thread without a flush. ``batcher`` is the
+    :class:`FrameBatcher` to fill (default: one with ``n_buffers``, made at
+    the first record).
     """
-    batcher: Optional[FrameBatcher] = None
     starved_since: Optional[float] = None
     tally = EosTally()
+    pop = getattr(queue, "get_batch_view", None) or queue.get_batch
     try:
         while True:
             if stop is not None and stop.is_set():
                 return
             try:
-                items = queue.get_batch(batch_size, timeout=poll_interval_s)
+                items = pop(batch_size, timeout=poll_interval_s)
+            except TransportWedged:
+                raise  # lost data, not a clean end of stream
             except TransportClosed:
                 if batcher is not None and (tail := batcher.flush()) is not None:
                     yield tail
@@ -175,12 +245,18 @@ def batches_from_queue(
                 if isinstance(item, EndOfStream):
                     if tally.process(item):
                         # records popped after the completing marker belong
-                        # to the queue (or are sibling markers): hand back
-                        for rest in items[pos + 1:]:
-                            if isinstance(rest, EndOfStream):
-                                tally.process(rest)
+                        # to the queue (or are sibling markers): hand them
+                        # back, each copied out of its slot first, since a
+                        # put into a full ring would wait on that very slot
+                        rest = []
+                        for other in items[pos + 1:]:
+                            if isinstance(other, EndOfStream):
+                                tally.process(other)
                             else:
-                                queue.put_wait(rest, timeout=1.0)
+                                rest.append(other.materialize()
+                                            if isinstance(other, FrameRecord) else other)
+                        for other in rest:
+                            queue.put_wait(other, timeout=1.0)
                         if batcher is not None and (tail := batcher.flush()) is not None:
                             ready.append(tail)
                         done = True
@@ -188,7 +264,7 @@ def batches_from_queue(
                     continue
                 if batcher is None:
                     batcher = FrameBatcher(batch_size, n_buffers=n_buffers)
-                out = batcher.push(item)
+                out = batcher.push_view(item)
                 if out is not None:
                     ready.append(out)
             del items

@@ -4,12 +4,18 @@ The port's counterpart of ``psana_ray_tpu/infeed/pipeline.py``. A
 background thread stages the next ``prefetch_depth`` batches onto the
 card while the current batch computes:
 
-- each batch is copied into one of a small ring of **pinned** host
-  buffers, then to the card with ``non_blocking=True`` on a side stream;
-- a pinned buffer is refilled only after the event recorded behind its
-  last copy has completed;
-- the consumer's stream waits on that event (``wait_event``) before using
-  the batch, and every device tensor gets ``record_stream`` so the
+- with pooled batch arenas (``InfeedPipeline(batcher_buffers > 0)``) on
+  the card, the arenas are **pinned** and allocated once, at the first
+  record. The batcher copies each frame once, into its row of an arena;
+  the H2D copy goes straight from the arena with ``non_blocking=True`` on
+  a side stream, and the event recorded behind it is the arena's fence:
+  the batcher refills the arena only after it has fired;
+- without them (``batcher_buffers=0``, the JAX package's default) every
+  batch gets a fresh pageable arena, which is copied a second time on the
+  host, into one of a small ring of pinned buffers, and from there to the
+  card; a pinned buffer is refilled only after its last copy's event;
+- the consumer's stream waits on the copy's event (``wait_event``) before
+  using the batch, and every device tensor gets ``record_stream`` so the
   allocator does not recycle it under the consumer's work.
 
 On ``device="cpu"`` batches become CPU tensors (zero-copy views of the
@@ -19,7 +25,9 @@ device; the per-row metadata (``valid``, ``shard_rank``, ``event_idx``,
 on the host and must not read it back from the card. Errors in the
 staging thread surface in the consumer. The staging thread times its two
 host stages per batch (assembling the batch from the queue, staging it
-to the card) into the pipeline's :class:`PipelineMetrics`.
+to the card) into the pipeline's :class:`PipelineMetrics`, and counts the
+frame bytes the host copied and the batches copied to the card straight
+from their arena.
 """
 
 from __future__ import annotations
@@ -34,7 +42,25 @@ import numpy as np
 import torch
 
 from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.infeed.batcher import Batch, batches_from_queue
+from psana_ray_tpu_torch.infeed.batcher import (
+    Arena,
+    Batch,
+    FrameBatcher,
+    arena_layout,
+    batches_from_queue,
+    host_arena,
+)
+from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
+
+
+def pinned_arena(batch_size: int, frame_shape: tuple, dtype) -> Arena:
+    """A batch arena in pinned (page-locked) host memory: torch tensors
+    from ``pin_memory=True`` with numpy views of the same memory, which
+    the batcher writes and the prefetcher copies to the card."""
+    tensors = tuple(
+        torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dt)).dtype, pin_memory=True)
+        for shape, dt in arena_layout(batch_size, frame_shape, dtype))
+    return Arena(tuple(t.numpy() for t in tensors), tensors)
 
 
 class StopStream(Exception):
@@ -44,20 +70,38 @@ class StopStream(Exception):
 
 class PipelineMetrics:
     """Frames, bytes and per-batch step latency of one pipeline, and the
-    host seconds its staging thread spent assembling and staging batches."""
+    host seconds its staging thread spent assembling and staging batches.
 
-    def __init__(self, window: int = 4096):
+    The first ``warmup`` batches are left out of the frames, bytes, times
+    and rates (each batch's own allocations, a ring still filling), so a
+    run can be read at steady state. The copy counts cover every batch:
+    ``host_frame_bytes`` (frame bytes the consumer's host copied, into the
+    arena and, on the unpooled path, into a pinned buffer),
+    ``staged_frames`` and ``arena_copies`` (batches copied to the card
+    straight from their pinned arena)."""
+
+    def __init__(self, window: int = 4096, warmup: int = 0):
         self.frames = 0
         self.batches = 0
         self.bytes = 0
         self.staged = 0
         self.host_batch_s = 0.0
         self.host_stage_s = 0.0
+        self.host_frame_bytes = 0
+        self.staged_frames = 0
+        self.arena_copies = 0
         self.latencies_s = collections.deque(maxlen=window)
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+        # each skip is counted down by one thread only: the consumer's
+        # batches and the staging thread's host observations
+        self._skip_batches = warmup
+        self._skip_host = warmup
 
     def observe_batch(self, num_valid: int, latency_s: float, nbytes: int = 0) -> None:
+        if self._skip_batches > 0:
+            self._skip_batches -= 1
+            return
         now = time.monotonic()
         if self._t_first is None:
             self._t_first = now - latency_s
@@ -67,7 +111,15 @@ class PipelineMetrics:
         self.bytes += int(nbytes)
         self.latencies_s.append(latency_s)
 
+    def observe_copies(self, num_valid: int, frame_bytes: int, from_arena: bool) -> None:
+        self.staged_frames += int(num_valid)
+        self.host_frame_bytes += int(frame_bytes)
+        self.arena_copies += int(from_arena)
+
     def observe_host(self, batch_s: float, stage_s: float) -> None:
+        if self._skip_host > 0:
+            self._skip_host -= 1
+            return
         self.staged += 1
         self.host_batch_s += batch_s
         self.host_stage_s += stage_s
@@ -92,6 +144,8 @@ class PipelineMetrics:
             "p99_ms": self.latency_ms(0.99),
             "host_batch_ms": 1e3 * self.host_batch_s / max(self.staged, 1),
             "host_stage_ms": 1e3 * self.host_stage_s / max(self.staged, 1),
+            "host_frame_bytes_per_frame": self.host_frame_bytes / max(self.staged_frames, 1),
+            "arena_copies": self.arena_copies,
         }
 
 
@@ -121,7 +175,7 @@ class DevicePrefetcher:
         if prefetch_depth < 1:
             raise ValueError("prefetch_depth must be >= 1")
         self.device = resolve_device(device)
-        self.metrics = metrics
+        self.metrics = metrics if metrics is not None else PipelineMetrics()
         self.stage_meta = stage_meta
         self._src = batches
         self.prefetch_depth = prefetch_depth
@@ -138,17 +192,36 @@ class DevicePrefetcher:
         self._thread.start()
 
     def _stage(self, batch: Batch):
-        """Host batch -> (device batch, copy-done event or None)."""
+        """Host batch -> (device batch, copy-done event or None, frame
+        bytes copied on the host, whether it went straight from a pinned
+        arena)."""
+        arrays = batch.arrays() if self.stage_meta else batch.arrays()[:1]
+        arena = batch.arena
+        direct = self._cuda and arena is not None and arena.tensors is not None
+        if direct:  # one H2D from the pinned arena, no host copy
+            staged, event = self._to_device(arena.tensors[:len(arrays)])
+            arena.fence = event
+            copied = 0
+        else:
+            staged, event = self._stage_arrays(arrays)
+            copied = batch.frames.nbytes if self._cuda else 0
         if not self.stage_meta:
-            # the metadata is copied: a pooled batcher reuses its arrays
-            meta = [np.array(a) for a in batch.arrays()[1:]]
-            staged, event = self._stage_arrays([batch.frames])
-            return Batch(staged[0], *meta, num_valid=batch.num_valid), event
-        staged, event = self._stage_arrays(batch.arrays())
-        return Batch(*staged, num_valid=batch.num_valid), event
+            # the metadata stays on the host, copied: a pooled batcher reuses its arrays
+            staged = [staged[0], *(np.array(a) for a in batch.arrays()[1:])]
+        return Batch(*staged, num_valid=batch.num_valid), event, copied, direct
+
+    def _to_device(self, tensors):
+        """Pinned host tensors -> (tensors on the card, the copy's event),
+        copied on the side stream."""
+        with torch.cuda.stream(self._copy_stream):
+            dev = [t.to(self.device, non_blocking=True) for t in tensors]
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return dev, event
 
     def _stage_arrays(self, arrays):
-        """Host arrays -> (tensors on the device, copy-done event or None)."""
+        """Host arrays -> (tensors on the device, copy-done event or None);
+        on the card through the next pinned slot, a host copy."""
         if not self._cuda:
             return [torch.from_numpy(a) for a in arrays], None
         slot = self._slots[self._slot_i % len(self._slots)]
@@ -165,10 +238,7 @@ class DevicePrefetcher:
             )
         for h, a in zip(slot.host, arrays):
             h.copy_(torch.from_numpy(a))
-        with torch.cuda.stream(self._copy_stream):
-            dev = [h.to(self.device, non_blocking=True) for h in slot.host]
-            event = torch.cuda.Event()
-            event.record(self._copy_stream)
+        dev, event = self._to_device(slot.host)
         slot.event = event
         return dev, event
 
@@ -191,10 +261,10 @@ class DevicePrefetcher:
                 if batch is None:
                     break
                 t1 = time.monotonic()
-                item = self._stage(batch)  # pinned copy + H2D enqueue
-                if self.metrics is not None:
-                    self.metrics.observe_host(t1 - t0, time.monotonic() - t1)
-                if not self._put(item):
+                staged, event, copied, direct = self._stage(batch)  # H2D enqueue
+                self.metrics.observe_host(t1 - t0, time.monotonic() - t1)
+                self.metrics.observe_copies(batch.num_valid, batch.copied_bytes + copied, direct)
+                if not self._put((staged, event)):
                     return
         except BaseException as e:  # surfaced in the consumer's __next__
             self._err = e
@@ -276,8 +346,26 @@ def drive_step(
     return out
 
 
+class _Either:
+    """``is_set()`` of any of several events."""
+
+    def __init__(self, *events):
+        self.events = [e for e in events if e is not None]
+
+    def is_set(self) -> bool:
+        return any(e.is_set() for e in self.events)
+
+
 class InfeedPipeline:
-    """queue -> batcher -> device prefetch -> step function."""
+    """queue -> batcher -> device prefetch -> step function.
+
+    ``batcher_buffers > 0`` pools that many batch arenas, pinned on the
+    card (see the module docstring); it must be at least
+    ``prefetch_depth + 4``. ``stage_meta=False`` keeps the per-row
+    metadata on the host; ``stop`` (a ``threading.Event``) ends the stream
+    from another thread. The constructor raises glibc's mmap threshold
+    (:func:`enable_large_alloc_reuse`), as the JAX package's consumer
+    does at start."""
 
     def __init__(
         self,
@@ -289,27 +377,35 @@ class InfeedPipeline:
         max_wait_s: Optional[float] = None,
         metrics: Optional[PipelineMetrics] = None,
         batcher_buffers: int = 0,
+        stage_meta: bool = True,
+        stop=None,
     ):
         if batcher_buffers > 0 and batcher_buffers < prefetch_depth + 4:
-            # alive at once: prefetch_depth queued + 1 with the consumer +
-            # 1 being filled + 1 un-yielded in the batch source + 1 margin
-            # for the copy in flight
+            # the floor where tensors alias their arena (the CPU): alive at
+            # once are prefetch_depth queued + 1 with the consumer + 1 being
+            # filled + 1 un-yielded in the batch source + 1 margin. On the
+            # card the arena's fence is what guards it.
             raise ValueError(
                 f"batcher_buffers={batcher_buffers} can recycle a batch still alive "
                 f"downstream; need >= prefetch_depth + 4 = {prefetch_depth + 4}"
             )
+        enable_large_alloc_reuse()
+        device = resolve_device(device)
         self.queue = queue
         self.batch_size = batch_size
         self._batcher_buffers = batcher_buffers
         self.metrics = metrics if metrics is not None else PipelineMetrics()
-        stop = threading.Event()
+        halt = threading.Event()
+        pinned = device.type == "cuda" and batcher_buffers > 0
+        self.batcher = FrameBatcher(batch_size, n_buffers=batcher_buffers,
+                                    new_arena=pinned_arena if pinned else host_arena)
         self._batches = batches_from_queue(
             queue, batch_size, poll_interval_s=poll_interval_s, max_wait_s=max_wait_s,
-            stop=stop, n_buffers=batcher_buffers,
+            stop=_Either(halt, stop), batcher=self.batcher,
         )
         self._prefetcher = DevicePrefetcher(
-            self._batches, device=device, prefetch_depth=prefetch_depth, stop_event=stop,
-            metrics=self.metrics,
+            self._batches, device=device, prefetch_depth=prefetch_depth, stop_event=halt,
+            metrics=self.metrics, stage_meta=stage_meta,
         )
         self.device = self._prefetcher.device
 

@@ -1,0 +1,435 @@
+// Lock-free bounded MPMC ring over POSIX shared memory.
+//
+// The port's own copy of psana_ray_tpu/native/shmring.cpp: host C++, no
+// kernel. The shared-memory layout (struct Header, the slot layout) and
+// the magic are the JAX package's, byte for byte, so a producer of either
+// package and a consumer of the other share one ring. Contract
+// (psana_ray_tpu_torch/transport/shm_ring.py): put -> bool (false when
+// full, never drops), get -> length | -1 (empty), size, close with fault
+// propagation. Producer and consumer processes on one host share the ring
+// with no broker in between: a put is a memcpy into mapped memory.
+//
+// Algorithm: Vyukov bounded MPMC queue. Each slot carries an atomic
+// sequence number; producers CAS the head, consumers CAS the tail; the
+// sequence tells whose turn a slot is. All atomics are std::atomic<u64>
+// in the mapping: lock-free on x86_64/aarch64, valid across processes
+// (the mapping is MAP_SHARED).
+//
+// Layout:  [Header][Slot 0][Slot 1]...[Slot N-1],
+//          slot = [atomic seq][u32 len][payload bytes]
+//
+// Build (shm_ring.py does this at first use, into build/torch_native/):
+//   g++ -O2 -std=c++17 -fPIC -shared -o libshmring.so shmring.cpp -lrt
+
+#include <atomic>
+#include <cerrno>
+#include <cstdint>
+#include <cstring>
+#include <ctime>
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
+namespace {
+
+constexpr uint64_t kMagic = 0x50525452494E4732ULL;  // "PRTRING2"
+
+struct Header {
+  uint64_t magic;
+  uint64_t capacity;    // number of slots (power of two)
+  uint64_t slot_bytes;  // payload capacity per slot
+  std::atomic<uint64_t> head;  // next enqueue position
+  std::atomic<uint64_t> tail;  // next dequeue position
+  std::atomic<uint64_t> closed;
+  // draining: producers are refused (they see the closed signal and exit
+  // cleanly) while consumers keep reading — graceful-teardown half-close.
+  // Cross-process by design: local shm producers that bypass a TCP
+  // server must observe the drain too.
+  std::atomic<uint64_t> draining;
+  std::atomic<uint64_t> n_put;
+  std::atomic<uint64_t> n_get;
+  std::atomic<uint64_t> n_put_rejected;
+};
+
+struct Slot {
+  std::atomic<uint64_t> seq;
+  uint32_t len;
+  // payload follows
+};
+
+// Process-local stall-watch state: remembers one (pos, seq) pair that is
+// blocking progress and when it was first observed.  If the identical
+// claimed-but-unfinished slot still blocks after stall_timeout_ms, the
+// caller gets a distinct "wedged" code instead of an indefinite
+// empty/full answer — a peer that died between claim and commit/release
+// (see the zero-copy section below) must surface as an error, not as a
+// silent permanent stall.
+struct StallWatch {
+  uint64_t pos = 0;
+  uint64_t seq = 0;
+  uint64_t since_ms = 0;
+  bool armed = false;
+};
+
+struct Ring {
+  Header* hdr;
+  uint8_t* base;
+  size_t map_bytes;
+  int fd;
+  bool owner;
+  char name[256];
+  uint64_t stall_timeout_ms = 5000;  // 0 disables wedge detection
+  StallWatch get_watch;   // consumer side: claimed-but-uncommitted slot
+  StallWatch put_watch;   // producer side: acquired-but-unreleased slot
+};
+
+inline uint64_t now_ms() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (uint64_t)ts.tv_sec * 1000u + (uint64_t)(ts.tv_nsec / 1000000);
+}
+
+// Returns true when the same blocking (pos, seq) has persisted beyond the
+// ring's stall timeout.  Any change of pos or seq re-arms the watch: the
+// queue is making progress, however slowly.
+inline bool stall_check(Ring* r, StallWatch* w, uint64_t pos, uint64_t seq) {
+  if (r->stall_timeout_ms == 0) return false;
+  if (!w->armed || w->pos != pos || w->seq != seq) {
+    w->armed = true;
+    w->pos = pos;
+    w->seq = seq;
+    w->since_ms = now_ms();
+    return false;
+  }
+  return now_ms() - w->since_ms >= r->stall_timeout_ms;
+}
+
+inline size_t slot_stride(uint64_t slot_bytes) {
+  // keep slots cache-line aligned
+  size_t raw = sizeof(Slot) + slot_bytes;
+  return (raw + 63) & ~size_t(63);
+}
+
+inline Slot* slot_at(Ring* r, uint64_t i) {
+  size_t stride = slot_stride(r->hdr->slot_bytes);
+  return reinterpret_cast<Slot*>(r->base + sizeof(Header) +
+                                 (i & (r->hdr->capacity - 1)) * stride);
+}
+
+uint64_t round_pow2(uint64_t v) {
+  uint64_t p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Create (or replace) a ring named `name` with >=capacity slots of
+// slot_bytes payload each. Returns handle or null.
+void* shmring_create(const char* name, uint64_t capacity, uint64_t slot_bytes) {
+  capacity = round_pow2(capacity < 2 ? 2 : capacity);
+  size_t bytes = sizeof(Header) + capacity * slot_stride(slot_bytes);
+
+  shm_unlink(name);  // replace any stale ring of this name
+  int fd = shm_open(name, O_CREAT | O_EXCL | O_RDWR, 0600);
+  if (fd < 0) return nullptr;
+  if (ftruncate(fd, (off_t)bytes) != 0) {
+    close(fd);
+    shm_unlink(name);
+    return nullptr;
+  }
+  void* mem = mmap(nullptr, bytes, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  if (mem == MAP_FAILED) {
+    close(fd);
+    shm_unlink(name);
+    return nullptr;
+  }
+  Ring* r = new Ring();
+  r->base = static_cast<uint8_t*>(mem);
+  r->hdr = reinterpret_cast<Header*>(mem);
+  r->map_bytes = bytes;
+  r->fd = fd;
+  r->owner = true;
+  std::strncpy(r->name, name, sizeof(r->name) - 1);
+
+  r->hdr->capacity = capacity;
+  r->hdr->slot_bytes = slot_bytes;
+  r->hdr->head.store(0);
+  r->hdr->tail.store(0);
+  r->hdr->closed.store(0);
+  r->hdr->draining.store(0);
+  r->hdr->n_put.store(0);
+  r->hdr->n_get.store(0);
+  r->hdr->n_put_rejected.store(0);
+  for (uint64_t i = 0; i < capacity; i++) slot_at(r, i)->seq.store(i);
+  // publish magic last: attachers spin until it appears
+  reinterpret_cast<std::atomic<uint64_t>*>(&r->hdr->magic)
+      ->store(kMagic, std::memory_order_release);
+  return r;
+}
+
+// Attach to an existing ring. Returns handle or null.
+void* shmring_attach(const char* name) {
+  int fd = shm_open(name, O_RDWR, 0600);
+  if (fd < 0) return nullptr;
+  struct stat st;
+  if (fstat(fd, &st) != 0 || (size_t)st.st_size < sizeof(Header)) {
+    close(fd);
+    return nullptr;
+  }
+  void* mem = mmap(nullptr, st.st_size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  if (mem == MAP_FAILED) {
+    close(fd);
+    return nullptr;
+  }
+  Header* hdr = reinterpret_cast<Header*>(mem);
+  if (reinterpret_cast<std::atomic<uint64_t>*>(&hdr->magic)
+          ->load(std::memory_order_acquire) != kMagic) {
+    munmap(mem, st.st_size);
+    close(fd);
+    return nullptr;
+  }
+  Ring* r = new Ring();
+  r->base = static_cast<uint8_t*>(mem);
+  r->hdr = hdr;
+  r->map_bytes = st.st_size;
+  r->fd = fd;
+  r->owner = false;
+  std::strncpy(r->name, name, sizeof(r->name) - 1);
+  return r;
+}
+
+namespace {
+
+// Shared "full" handling for put/reserve: 0 = plain full, -4 = the slot
+// blocking us was CLAIMED by a consumer (tail moved past it) but never
+// released for stall_timeout_ms — that consumer is gone; the ring is
+// wedged and every producer will stall here forever.
+int full_or_wedged(Ring* r, Header* h, uint64_t pos, uint64_t seq) {
+  h->n_put_rejected.fetch_add(1, std::memory_order_relaxed);
+  uint64_t prev = pos - h->capacity;  // the enqueue this slot still holds
+  if (h->tail.load(std::memory_order_acquire) > prev) {
+    if (stall_check(r, &r->put_watch, pos, seq)) return -4;
+  } else {
+    r->put_watch.armed = false;  // normal full: consumers just behind
+  }
+  return 0;
+}
+
+// Shared "empty" handling for get/acquire: -1 = plain empty, -4 = the
+// slot was claimed by a producer (head moved past it) but never
+// committed for stall_timeout_ms — that producer is gone.
+int empty_or_wedged(Ring* r, Header* h, uint64_t pos, uint64_t seq) {
+  if (h->closed.load(std::memory_order_acquire)) return -2;
+  if (h->head.load(std::memory_order_acquire) > pos) {
+    if (stall_check(r, &r->get_watch, pos, seq)) return -4;
+  } else {
+    r->get_watch.armed = false;  // genuinely empty
+  }
+  return -1;
+}
+
+}  // namespace
+
+// put: 1 = enqueued, 0 = full, -1 = message too large, -2 = closed,
+// -4 = wedged (see full_or_wedged).
+int shmring_put(void* handle, const uint8_t* data, uint64_t len) {
+  Ring* r = static_cast<Ring*>(handle);
+  Header* h = r->hdr;
+  if (h->closed.load(std::memory_order_acquire) ||
+      h->draining.load(std::memory_order_acquire)) return -2;
+  if (len > h->slot_bytes) return -1;
+
+  uint64_t pos = h->head.load(std::memory_order_relaxed);
+  for (;;) {
+    Slot* s = slot_at(r, pos);
+    uint64_t seq = s->seq.load(std::memory_order_acquire);
+    intptr_t dif = (intptr_t)seq - (intptr_t)pos;
+    if (dif == 0) {
+      if (h->head.compare_exchange_weak(pos, pos + 1, std::memory_order_relaxed)) {
+        s->len = (uint32_t)len;
+        std::memcpy(reinterpret_cast<uint8_t*>(s) + sizeof(Slot), data, len);
+        s->seq.store(pos + 1, std::memory_order_release);
+        h->n_put.fetch_add(1, std::memory_order_relaxed);
+        r->put_watch.armed = false;
+        return 1;
+      }
+      // CAS failed: pos was reloaded, retry
+    } else if (dif < 0) {
+      return full_or_wedged(r, h, pos, seq);
+    } else {
+      pos = h->head.load(std::memory_order_relaxed);
+    }
+  }
+}
+
+// get: >=0 payload length copied into out, -1 = empty, -2 = closed,
+// -3 = out buffer too small (message left in place), -4 = wedged (see
+// empty_or_wedged).
+int64_t shmring_get(void* handle, uint8_t* out, uint64_t out_cap) {
+  Ring* r = static_cast<Ring*>(handle);
+  Header* h = r->hdr;
+  // closed-raises-immediately, matching transport/ring.py (dead transport
+  // must surface at once; EOS is an explicit record, not a drained tail)
+  if (h->closed.load(std::memory_order_acquire)) return -2;
+  uint64_t pos = h->tail.load(std::memory_order_relaxed);
+  for (;;) {
+    Slot* s = slot_at(r, pos);
+    uint64_t seq = s->seq.load(std::memory_order_acquire);
+    intptr_t dif = (intptr_t)seq - (intptr_t)(pos + 1);
+    if (dif == 0) {
+      if (s->len > out_cap) return -3;
+      if (h->tail.compare_exchange_weak(pos, pos + 1, std::memory_order_relaxed)) {
+        uint64_t len = s->len;
+        std::memcpy(out, reinterpret_cast<uint8_t*>(s) + sizeof(Slot), len);
+        s->seq.store(pos + h->capacity, std::memory_order_release);
+        h->n_get.fetch_add(1, std::memory_order_relaxed);
+        r->get_watch.armed = false;
+        return (int64_t)len;
+      }
+    } else if (dif < 0) {
+      return empty_or_wedged(r, h, pos, seq);
+    } else {
+      pos = h->tail.load(std::memory_order_relaxed);
+    }
+  }
+}
+
+// ---- zero-copy variants ----------------------------------------------
+//
+// put/get above copy through a caller buffer; for MB-scale frames the
+// Python side then pays several more copies (bytes assembly, ctypes
+// buffer, decode). reserve/commit + acquire/release expose the slot
+// memory itself so Python writes/reads payloads in place (numpy copyto:
+// ONE memcpy each way). Claim safety is identical to put/get — the slot
+// is claimed with the same head/tail CAS before the pointer is handed
+// out. Tradeoff: a process that crashes between claim and
+// commit/release leaves that slot permanently in-flight and the ring
+// wedges on it; the copying put/get have the same window, just narrower
+// (their memcpy). The StallWatch above turns that silent stall into a
+// loud -4 after stall_timeout_ms; recovery is destroy + recreate.
+
+// rc: 1 = claimed (out_ptr -> slot payload, ticket -> pass to commit),
+// 0 = full, -2 = closed, -4 = wedged (see full_or_wedged).
+int shmring_reserve(void* handle, uint8_t** out_ptr, uint64_t* ticket) {
+  Ring* r = static_cast<Ring*>(handle);
+  Header* h = r->hdr;
+  if (h->closed.load(std::memory_order_acquire) ||
+      h->draining.load(std::memory_order_acquire)) return -2;
+  uint64_t pos = h->head.load(std::memory_order_relaxed);
+  for (;;) {
+    Slot* s = slot_at(r, pos);
+    uint64_t seq = s->seq.load(std::memory_order_acquire);
+    intptr_t dif = (intptr_t)seq - (intptr_t)pos;
+    if (dif == 0) {
+      if (h->head.compare_exchange_weak(pos, pos + 1, std::memory_order_relaxed)) {
+        *out_ptr = reinterpret_cast<uint8_t*>(s) + sizeof(Slot);
+        *ticket = pos;
+        r->put_watch.armed = false;
+        return 1;
+      }
+    } else if (dif < 0) {
+      return full_or_wedged(r, h, pos, seq);
+    } else {
+      pos = h->head.load(std::memory_order_relaxed);
+    }
+  }
+}
+
+void shmring_commit(void* handle, uint64_t ticket, uint64_t len) {
+  Ring* r = static_cast<Ring*>(handle);
+  Slot* s = slot_at(r, ticket);
+  s->len = (uint32_t)len;
+  s->seq.store(ticket + 1, std::memory_order_release);
+  r->hdr->n_put.fetch_add(1, std::memory_order_relaxed);
+}
+
+// rc: payload length >= 0 (out_ptr -> slot payload, ticket -> pass to
+// release), -1 = empty, -2 = closed, -4 = wedged (see empty_or_wedged).
+int64_t shmring_acquire(void* handle, const uint8_t** out_ptr, uint64_t* ticket) {
+  Ring* r = static_cast<Ring*>(handle);
+  Header* h = r->hdr;
+  if (h->closed.load(std::memory_order_acquire)) return -2;
+  uint64_t pos = h->tail.load(std::memory_order_relaxed);
+  for (;;) {
+    Slot* s = slot_at(r, pos);
+    uint64_t seq = s->seq.load(std::memory_order_acquire);
+    intptr_t dif = (intptr_t)seq - (intptr_t)(pos + 1);
+    if (dif == 0) {
+      if (h->tail.compare_exchange_weak(pos, pos + 1, std::memory_order_relaxed)) {
+        *out_ptr = reinterpret_cast<uint8_t*>(s) + sizeof(Slot);
+        *ticket = pos;
+        r->get_watch.armed = false;
+        return (int64_t)s->len;
+      }
+    } else if (dif < 0) {
+      return empty_or_wedged(r, h, pos, seq);
+    } else {
+      pos = h->tail.load(std::memory_order_relaxed);
+    }
+  }
+}
+
+void shmring_release(void* handle, uint64_t ticket) {
+  Ring* r = static_cast<Ring*>(handle);
+  Slot* s = slot_at(r, ticket);
+  s->seq.store(ticket + r->hdr->capacity, std::memory_order_release);
+  r->hdr->n_get.fetch_add(1, std::memory_order_relaxed);
+}
+
+uint64_t shmring_size(void* handle) {
+  Header* h = static_cast<Ring*>(handle)->hdr;
+  uint64_t head = h->head.load(std::memory_order_acquire);
+  uint64_t tail = h->tail.load(std::memory_order_acquire);
+  return head > tail ? head - tail : 0;
+}
+
+uint64_t shmring_capacity(void* handle) {
+  return static_cast<Ring*>(handle)->hdr->capacity;
+}
+
+uint64_t shmring_slot_bytes(void* handle) {
+  return static_cast<Ring*>(handle)->hdr->slot_bytes;
+}
+
+int shmring_is_closed(void* handle) {
+  return (int)static_cast<Ring*>(handle)->hdr->closed.load(std::memory_order_acquire);
+}
+
+// Per-handle wedge-detection window (ms); 0 disables. Applies to this
+// process's view only — each attached process runs its own watch.
+void shmring_set_stall_timeout(void* handle, uint64_t ms) {
+  static_cast<Ring*>(handle)->stall_timeout_ms = ms;
+}
+
+void shmring_close(void* handle) {
+  static_cast<Ring*>(handle)->hdr->closed.store(1, std::memory_order_release);
+}
+
+// Half-close for graceful teardown: refuse producers, keep serving
+// consumers (see Header::draining).
+void shmring_begin_drain(void* handle) {
+  static_cast<Ring*>(handle)->hdr->draining.store(1, std::memory_order_release);
+}
+
+void shmring_stats(void* handle, uint64_t* out4) {
+  Header* h = static_cast<Ring*>(handle)->hdr;
+  out4[0] = shmring_size(handle);
+  out4[1] = h->n_put.load(std::memory_order_relaxed);
+  out4[2] = h->n_get.load(std::memory_order_relaxed);
+  out4[3] = h->n_put_rejected.load(std::memory_order_relaxed);
+}
+
+// Detach the mapping; destroy=1 also unlinks the shm object.
+void shmring_free(void* handle, int destroy) {
+  Ring* r = static_cast<Ring*>(handle);
+  if (destroy) shm_unlink(r->name);
+  munmap(r->base, r->map_bytes);
+  close(r->fd);
+  delete r;
+}
+
+}  // extern "C"

@@ -2,8 +2,10 @@
 
 The port's reduced counterpart of ``psana_ray_tpu/producer.py``: what a
 producer runtime does per event (stamp rank and index, put with
-backpressure) and at the end of its shard (one :class:`EndOfStream`).
-The full runtime, its CLI and the shm/TCP transports are a later slice.
+backpressure) and at the end of its shard (one :class:`EndOfStream`), and
+:func:`produce_synthetic`, a producer process that feeds a named shm ring
+from a seeded :class:`SyntheticSource`. The full runtime, its CLI and the
+TCP transport are a later slice (Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 
 from psana_ray_tpu_torch.records import EndOfStream, FrameRecord
+from psana_ray_tpu_torch.sources import SyntheticSource
+from psana_ray_tpu_torch.transport.shm_ring import ShmRingBuffer
 
 
 def produce(
@@ -37,4 +41,34 @@ def produce(
     eos = EndOfStream(producer_rank=shard_rank, total_events=n, total_shards=total_shards)
     if not queue.put_wait(eos, timeout=timeout):
         raise TimeoutError(f"queue full for {timeout} s at end of stream")
+    return n
+
+
+def produce_synthetic(
+    ring_name: str,
+    detector_name: str,
+    n_events: int,
+    pool_events: int,
+    seed: int = 0,
+    dtype: str = "float32",
+    produced=None,
+) -> int:
+    """A producer process's body, for ``multiprocessing``'s ``spawn``
+    start method: attach to the shm ring ``ring_name``, draw the RAW
+    events ``0 .. pool_events - 1`` of ``SyntheticSource(detector_name,
+    seed, dtype)``, put ``n_events`` of them (the pool cycled, event index
+    ``i`` carrying pool event ``i % pool_events``) and one EOS, then
+    detach. ``produced`` (a ``multiprocessing.Value``) receives the count.
+    Imports no torch, so the process never touches the card."""
+    src = SyntheticSource(num_events=pool_events, detector_name=detector_name, seed=seed,
+                          dtype=dtype)
+    pool = [src.event(i, "raw") for i in range(pool_events)]
+    ring = ShmRingBuffer.attach(ring_name, retries=100, interval_s=0.1)
+    try:
+        events = ((i, *pool[i % pool_events]) for i in range(n_events))
+        n = produce(events, ring, timeout=120.0)
+    finally:
+        ring.disconnect()
+    if produced is not None:
+        produced.value = n
     return n

@@ -1,31 +1,71 @@
-"""Frame records and the typed end-of-stream marker.
+"""Frame records, the typed end-of-stream marker and their wire format.
 
-A reduced copy of ``psana_ray_tpu/records.py``: the in-process record, the
-EOS marker with shard coverage, and the consumer-side tally. The wire
-format, buffer leases, hop stamps and trace context are left out: they
-arrive with the transport slices.
+The port's copy of ``psana_ray_tpu/records.py``: the record with its
+buffer lease, the EOS marker with shard coverage, the consumer-side
+tally, and the binary wire format that the shared-memory ring carries,
+byte for byte the JAX package's:
+
+- a frame is a fixed header (magic, version, shard rank, event index,
+  ndim, dtype code, photon energy, timestamp), the shape as ``ndim``
+  int64s, on version 3 a 25-byte trace context, then the panel bytes;
+- untraced frames encode as version 2, traced ones as version 3. The port
+  keeps the trace context as the opaque bytes it arrived with and writes
+  them back unchanged;
+- an EOS marker is its own small header.
+
+Hop stamps and the compressed wire form of the TCP transport are not
+ported (Queue 1 Item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import struct
+from typing import List, Optional
 
 import numpy as np
 
-from psana_ray_tpu_torch.transport.ring import TransportClosed
+SCHEMA_VERSION = 3
+_UNTRACED_WIRE_VERSION = 2  # frames without a trace context
+TRACE_WIRE_SIZE = 25  # the JAX package's packed trace context ("<QIB12s")
+
+_MAGIC = struct.Struct("<I")
+_FRAME_MAGIC = 0x50525446  # "PRTF"
+_EOS_MAGIC = 0x50525445  # "PRTE"
+# magic, version, shard_rank, event_idx, ndim, dtype_code, photon_energy, timestamp
+_FRAME_HEADER = struct.Struct("<IIqqII d d")
+_EOS_HEADER_V1 = struct.Struct("<IIqq")
+_EOS_HEADER = struct.Struct("<IIqqqq")  # v2+: shards_done, total_shards
+
+_DTYPE_CODES = {
+    np.dtype(np.float32): 0,
+    np.dtype(np.float64): 1,
+    np.dtype(np.uint16): 2,
+    np.dtype(np.int32): 3,
+    np.dtype(np.uint8): 4,
+    np.dtype(np.int16): 5,
+}
+_CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class FrameRecord:
     """One detector event: ``panels`` is always 3-D ``[P, H, W]`` (a 2-D
-    frame gets a leading panel axis)."""
+    frame gets a leading panel axis).
+
+    ``lease`` (never on the wire): when ``panels`` is a zero-copy view
+    into transport memory (a shm ring slot), the lease keeps that memory
+    checked out; :meth:`release` hands it back once the payload has been
+    copied onward (``FrameBatcher.push_view``). ``trace``: the 25 packed
+    bytes of a version-3 frame's trace context, kept as they came."""
 
     shard_rank: int
     event_idx: int
     panels: np.ndarray
     photon_energy: float
     timestamp: float = 0.0
+    lease: Optional[object] = dataclasses.field(default=None, repr=False)
+    trace: Optional[bytes] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         panels = np.asarray(self.panels)
@@ -34,10 +74,45 @@ class FrameRecord:
         if panels.ndim != 3:
             raise ValueError(f"panels must be 2-D or 3-D, got ndim={panels.ndim}")
         object.__setattr__(self, "panels", panels)
+        if self.trace is not None and len(self.trace) != TRACE_WIRE_SIZE:
+            raise ValueError(f"trace context must be {TRACE_WIRE_SIZE} bytes, got {len(self.trace)}")
 
     @property
     def nbytes(self) -> int:
         return int(self.panels.nbytes)
+
+    def equals(self, other: "FrameRecord") -> bool:
+        return (
+            isinstance(other, FrameRecord)
+            and self.shard_rank == other.shard_rank
+            and self.event_idx == other.event_idx
+            and self.photon_energy == other.photon_energy
+            and np.array_equal(self.panels, other.panels)
+        )
+
+    def release(self) -> None:
+        """Hand the leased transport buffer back. Call only after the
+        panels were copied onward: the view dies with the lease.
+        Idempotent; a no-op for records that own their data."""
+        lease = self.lease
+        if lease is not None:
+            object.__setattr__(self, "lease", None)
+            lease.release()
+
+    def materialize(self) -> "FrameRecord":
+        """Self if this record owns its data; else a copy that does, with
+        the lease released. Use before re-enqueueing or keeping a
+        view-backed record past its transport buffer."""
+        if self.lease is None:
+            return self
+        panels = self.panels.copy()
+        self.release()
+        return dataclasses.replace(self, panels=panels, lease=None)
+
+    def to_bytes(self) -> bytes:
+        buf = bytearray(encoded_size(self))
+        encode_into(self, buf)
+        return bytes(buf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +125,20 @@ class EndOfStream:
     total_events: int = -1  # -1 = unknown
     shards_done: int = 1
     total_shards: int = 1
+
+    def to_bytes(self) -> bytes:
+        return _EOS_HEADER.pack(_EOS_MAGIC, SCHEMA_VERSION, self.producer_rank,
+                                self.total_events, self.shards_done, self.total_shards)
+
+    @staticmethod
+    def from_bytes(buf) -> "EndOfStream":
+        magic, version, rank, total = _EOS_HEADER_V1.unpack_from(buf, 0)
+        if magic != _EOS_MAGIC:
+            raise ValueError(f"bad EOS magic {magic:#x}")
+        shards_done = total_shards = 1
+        if version >= 2:
+            shards_done, total_shards = struct.unpack_from("<qq", buf, _EOS_HEADER_V1.size)
+        return EndOfStream(rank, total, shards_done, total_shards)
 
 
 class EosTally:
@@ -87,11 +176,19 @@ class EosTally:
     def flush_duplicates(self, queue, final: bool = False) -> int:
         """Return held sibling markers to ``queue`` (non-blocking; with
         ``final`` a short blocking put each). Returns how many went back."""
+        # imported here: the transports import this module
+        from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
+
         placed = 0
         while self._pending_dups:
             eos = self._pending_dups[0]
             try:
                 ok = queue.put_wait(eos, timeout=1.0) if final else queue.put(eos)
+            except TransportWedged:
+                if not final:  # a crashed peer is an error, not a drained queue
+                    raise
+                self._pending_dups.clear()
+                break
             except TransportClosed:  # the sibling sees the dead queue itself
                 self._pending_dups.clear()
                 break
@@ -100,3 +197,97 @@ class EosTally:
             self._pending_dups.pop(0)
             placed += 1
         return placed
+
+
+# -- wire format -------------------------------------------------------------
+
+
+def _wire_version(rec: FrameRecord) -> int:
+    return SCHEMA_VERSION if rec.trace is not None else _UNTRACED_WIRE_VERSION
+
+
+def parse_frame_header(buf) -> tuple:
+    """Parse a frame's wire header without touching the payload:
+    ``(shard_rank, event_idx, shape, dtype, photon_energy, timestamp,
+    version, trace, header_len)``; ``trace`` is the v3 context's bytes or
+    None. Raises ``ValueError`` on bytes that are no frame."""
+    magic, version, rank, idx, ndim, dtype_code, energy, ts = _FRAME_HEADER.unpack_from(buf, 0)
+    if magic != _FRAME_MAGIC:
+        raise ValueError(f"bad frame magic {magic:#x}")
+    if version > SCHEMA_VERSION:
+        raise ValueError(f"unsupported schema version {version}")
+    if dtype_code not in _CODE_DTYPES:
+        raise ValueError(f"unknown dtype code {dtype_code}")
+    off = _FRAME_HEADER.size
+    shape = struct.unpack_from(f"<{ndim}q", buf, off)
+    off += 8 * ndim
+    trace = None
+    if version >= 3:
+        trace = bytes(memoryview(buf)[off:off + TRACE_WIRE_SIZE])
+        off += TRACE_WIRE_SIZE
+    return rank, idx, shape, _CODE_DTYPES[dtype_code], energy, ts, version, trace, off
+
+
+def encoded_size(item) -> int:
+    """The exact wire size of ``item``, so a transport can reserve its slot."""
+    if isinstance(item, FrameRecord):
+        trace = TRACE_WIRE_SIZE if item.trace is not None else 0
+        return _FRAME_HEADER.size + 8 * item.panels.ndim + trace + item.nbytes
+    if isinstance(item, EndOfStream):
+        return _EOS_HEADER.size
+    raise TypeError(f"not a wire record: {type(item)!r}")
+
+
+def encode_into(item, buf) -> int:
+    """Serialize ``item`` straight into the writable buffer ``buf`` (a shm
+    ring slot); the panels land with one ``np.copyto``. Returns the bytes
+    written."""
+    mv = memoryview(buf)
+    if isinstance(item, EndOfStream):
+        data = item.to_bytes()
+        mv[: len(data)] = data
+        return len(data)
+    if not isinstance(item, FrameRecord):
+        raise TypeError(f"not a wire record: {type(item)!r}")
+    panels = np.ascontiguousarray(item.panels)
+    if panels.dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype {panels.dtype} has no wire code")
+    _FRAME_HEADER.pack_into(mv, 0, _FRAME_MAGIC, _wire_version(item), item.shard_rank,
+                            item.event_idx, panels.ndim, _DTYPE_CODES[panels.dtype],
+                            float(item.photon_energy), float(item.timestamp))
+    off = _FRAME_HEADER.size
+    struct.pack_into(f"<{panels.ndim}q", mv, off, *panels.shape)
+    off += 8 * panels.ndim
+    if item.trace is not None:
+        mv[off:off + TRACE_WIRE_SIZE] = item.trace
+        off += TRACE_WIRE_SIZE
+    dst = np.frombuffer(mv, dtype=panels.dtype, count=panels.size, offset=off)
+    np.copyto(dst, panels.reshape(-1))
+    return off + panels.nbytes
+
+
+def decode(buf, lease=None):
+    """Decode one wire message into a :class:`FrameRecord` or
+    :class:`EndOfStream`; ``buf`` is any buffer (bytes, a memoryview into
+    shared memory).
+
+    Without ``lease`` the record owns its panels (copied out of ``buf``).
+    With ``lease`` (a checked-out buffer that ``buf`` views) a frame comes
+    back zero-copy: its panels view ``buf`` and the lease rides on the
+    record. An EOS never needs the buffer past decode, so its lease is
+    released here, after the parse."""
+    (magic,) = _MAGIC.unpack_from(buf, 0)
+    if magic == _FRAME_MAGIC:
+        rank, idx, shape, dtype, energy, ts, _, trace, off = parse_frame_header(buf)
+        panels = np.frombuffer(buf, dtype=dtype, count=int(np.prod(shape)), offset=off)
+        panels = panels.reshape(shape)
+        if lease is None:
+            panels = panels.copy()
+        return FrameRecord(rank, idx, panels, energy, ts, lease=lease, trace=trace)
+    try:
+        if magic == _EOS_MAGIC:
+            return EndOfStream.from_bytes(buf)
+        raise ValueError(f"unknown wire magic {magic:#x}")
+    finally:
+        if lease is not None:
+            lease.release()

@@ -27,7 +27,6 @@ transports, autotune) is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -37,7 +36,7 @@ import torch
 from psana_ray_tpu_torch.convert import infer_features, infer_s2d, unet_from_flax
 from psana_ray_tpu_torch.cxi import PeakSet
 from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.infeed import DevicePrefetcher, PipelineMetrics, batches_from_queue
+from psana_ray_tpu_torch.infeed import InfeedPipeline, PipelineMetrics
 from psana_ray_tpu_torch.models.fused_unet import pack_unet, peaknet_tpu_fused_infer
 from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
@@ -57,18 +56,12 @@ class SfxConfig:
     calib_threshold: float = 10.0  # common-mode threshold of fused_calibrate
 
 
+# batches staged ahead of the one computing; InfeedPipeline's floor of
+# pooled arenas is PREFETCH_DEPTH + 4
+PREFETCH_DEPTH = 2
+
 # find_peaks thresholds by s2d factor (the JAX package's calibrated defaults)
 DEFAULT_THRESHOLDS = {2: 0.5, 4: 0.5}
-
-
-class _Either:
-    """``is_set()`` of any of several events."""
-
-    def __init__(self, *events):
-        self.events = [e for e in events if e is not None]
-
-    def is_set(self) -> bool:
-        return any(e.is_set() for e in self.events)
 
 
 class Pending(NamedTuple):
@@ -123,6 +116,7 @@ class SfxPipeline:
         self.n_events = 0
         self.n_peaks = 0
         self.metrics = PipelineMetrics()
+        self.batcher = None  # the last run's FrameBatcher (its pooled arenas)
 
     @torch.no_grad()
     def device_step(self, frames: torch.Tensor):
@@ -209,18 +203,19 @@ class SfxPipeline:
         """Drain ``queue`` to end of stream (or ``stop``/``max_events``);
         returns the events written by this call.
 
-        Batches are staged onto the device through pinned memory by a
-        :class:`DevicePrefetcher` (frames only, two batches ahead). One
-        batch is in flight:
-        the in-flight batch is always drained before returning, so
+        Batches are staged onto the device by an :class:`InfeedPipeline`
+        (frames only, two batches ahead, each straight from one of
+        ``PREFETCH_DEPTH + 4`` pooled arenas, pinned on the card). One
+        batch is in flight: the in-flight batch is always drained before
+        returning, so
         ``stop`` and ``max_events`` may overshoot by up to
         ``2 * batch_size - 1`` events, as in the JAX package."""
         start = self.n_events
-        halt = threading.Event()
-        batches = batches_from_queue(queue, self.cfg.batch_size, poll_interval_s=poll_interval_s,
-                                     stop=_Either(halt, stop))
-        prefetcher = DevicePrefetcher(batches, device=self.device, prefetch_depth=2,
-                                      stop_event=halt, metrics=self.metrics, stage_meta=False)
+        prefetcher = InfeedPipeline(queue, self.cfg.batch_size, device=self.device,
+                                    prefetch_depth=PREFETCH_DEPTH, poll_interval_s=poll_interval_s,
+                                    metrics=self.metrics, batcher_buffers=PREFETCH_DEPTH + 4,
+                                    stage_meta=False, stop=stop)
+        self.batcher = prefetcher.batcher
 
         def drain_one(pending) -> bool:
             """Drain and save the cursor; True once ``max_events`` is reached."""

@@ -13,9 +13,7 @@ import threading
 from collections import deque
 from typing import Any, List, Optional
 
-
-class TransportClosed(RuntimeError):
-    """The transport was closed: no further puts or gets."""
+from psana_ray_tpu_torch.transport.registry import TransportClosed
 
 
 class _Sentinel:

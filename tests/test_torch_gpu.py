@@ -26,7 +26,15 @@ kernel's dq, dk and dv within 1e-2 of their own scale
 (``max|g - g_ref| / max|g_ref|``) on unit-scale inputs, where it rounds
 p and ds to bf16 and the plain version keeps f32; two of its launches give
 identical dk and dv and dq within one bf16 ulp of its largest value.
+The infeed's pinned batch arenas: pinned, one H2D a batch straight from
+the arena and no host copy beside the batcher's, and no arena rewritten
+while its copy is in flight (a checksum of every staged row); the shm
+ring feeding the pipeline from a producer process.
 """
+
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -665,3 +673,97 @@ def test_vit_train_step_on_the_card(cuda):
                            "flash_bwd_kernel": 2, "flash_bwd_dq_convert": 2}
     grads = [p.grad for p in model.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# -- the infeed: pinned batch arenas, one host copy a frame ------------------
+
+
+def _index_frames(n, shape):
+    """Events whose every pixel is the event's index."""
+    return ((i, np.full(shape, float(i), np.float32), 1.0) for i in range(n))
+
+
+def _rows_hold_their_index(batch):
+    """Per valid row: are all its pixels its event index (a checksum that
+    a rewritten arena breaks)?"""
+    rows = batch.frames.flatten(1)
+    idx = torch.as_tensor(batch.event_idx, device=rows.device).float()[:, None]
+    ok = (rows == idx).all(1)
+    valid = torch.as_tensor(batch.valid, device=rows.device).bool()
+    return ok[valid]
+
+
+def test_pinned_arenas_one_h2d_a_batch_and_no_host_copy(cuda, monkeypatch):
+    from psana_ray_tpu_torch.infeed.pipeline import DevicePrefetcher
+
+    def no_host_copy(self, arrays):
+        raise AssertionError("a batch from a pinned arena went through the pinned-slot copy")
+
+    monkeypatch.setattr(DevicePrefetcher, "_stage_arrays", no_host_copy)
+    shape, n, b = (2, 64, 96), 27, 4
+    ring = pt.RingBuffer(maxsize=3 * b)
+    thread = threading.Thread(target=pt.produce, args=(_index_frames(n, shape), ring), daemon=True)
+    thread.start()
+    pipe = pt.InfeedPipeline(ring, batch_size=b, device=cuda, prefetch_depth=2, batcher_buffers=6)
+    checks = []
+    assert pipe.run(lambda batch: _rows_hold_their_index(batch),
+                    on_result=lambda ok, batch: checks.append(ok)) == n
+    thread.join(timeout=10)
+    assert bool(torch.cat(checks).all()) and sum(len(c) for c in checks) == n
+    pool = pipe.batcher.pool
+    assert len(pool) == 6 and all(t.is_pinned() for a in pool for t in a.tensors)
+    s = pipe.metrics.summary()
+    assert s["arena_copies"] == s["batches"] == 7
+    assert s["host_frame_bytes_per_frame"] == 4 * np.prod(shape)  # the batcher's copy, only
+
+
+def test_an_arena_is_not_rewritten_while_its_copy_is_in_flight(cuda):
+    """Two arenas (below the pipeline's floor, so the fence alone guards
+    them) and every H2D copy held back ~25 ms on the copy stream: a
+    batcher that did not wait on the fence would overwrite an arena before
+    its copy ran. A slow consumer on top."""
+    from psana_ray_tpu_torch.infeed.batcher import FrameBatcher
+    from psana_ray_tpu_torch.infeed.pipeline import DevicePrefetcher, pinned_arena
+
+    class HeldCopies(DevicePrefetcher):
+        def _to_device(self, tensors):
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(50_000_000)
+            return super()._to_device(tensors)
+
+    shape, n, b = (4, 256, 256), 40, 8
+    ring = pt.RingBuffer(maxsize=n + 1)
+    pt.produce(_index_frames(n, shape), ring)
+    batcher = FrameBatcher(b, n_buffers=2, new_arena=pinned_arena)
+    batches = pt.batches_from_queue(ring, b, batcher=batcher)
+    checks = []
+    with HeldCopies(batches, device=cuda, prefetch_depth=1) as pf:
+        for batch in pf:
+            time.sleep(0.005)  # a slow consumer
+            checks.append(_rows_hold_their_index(batch))
+    assert len(checks) == n // b and bool(torch.cat(checks).all())
+    assert pf.metrics.arena_copies == n // b
+
+
+def test_shm_ring_feeds_the_pipeline_on_the_card(cuda):
+    import multiprocessing as mp
+
+    name, n, b = f"gpu_shm_{os.getpid()}", 10, 4
+    owner = pt.ShmRingBuffer.create(name, maxsize=8, slot_bytes=1 << 20)
+    try:
+        proc = mp.get_context("spawn").Process(target=pt.produce_synthetic,
+                                               args=(name, "smoke_a", n, 3))
+        proc.start()
+        pipe = pt.InfeedPipeline(owner, batch_size=b, device=cuda, batcher_buffers=6,
+                                 max_wait_s=60.0)
+        frames = []
+        assert pipe.run(lambda batch: batch.frames.clone(),
+                        on_result=lambda out, batch: frames.append(out[:batch.num_valid])) == n
+        proc.join(timeout=60)
+        assert proc.exitcode == 0 and owner.stats()["bytes_copied_out"] == 0
+    finally:
+        owner.destroy()
+    src = pt.SyntheticSource(num_events=3, detector_name="smoke_a", seed=0)
+    want = np.stack([src.event(i % 3, "raw")[0] for i in range(n)])
+    np.testing.assert_array_equal(torch.cat(frames).cpu().numpy(), want)
+    assert pipe.metrics.summary()["arena_copies"] == 3

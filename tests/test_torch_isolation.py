@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``psana_ray_tpu_torch``, and not
 ``chip_smoke.py``, imports JAX, flax or the JAX package, and the package
-imports with those modules made unimportable. ``chip_smoke.py`` refuses
-to run without a card and outside a checkout."""
+imports with those modules made unimportable. Its shm ring runs on the
+port's own library, built from ``native/shmring.cpp``, never the JAX
+package's; a producer process that imports the host plane loads no
+torch. ``chip_smoke.py`` refuses to run without a card and outside a
+checkout."""
 
 import ast
 import os
@@ -51,6 +54,10 @@ def test_package_imports_with_jax_unimportable():
         "    sys.modules[name] = None\n"
         "import psana_ray_tpu_torch as pt\n"
         "import psana_ray_tpu_torch.entry, psana_ray_tpu_torch.kernels.build\n"
+        "import psana_ray_tpu_torch.transport.shm_ring, psana_ray_tpu_torch.transport.codec\n"
+        "import psana_ray_tpu_torch.utils.hostmem, psana_ray_tpu_torch.infeed.pipeline\n"
+        "missing = [n for n in pt.__all__ if getattr(pt, n, None) is None]\n"
+        "assert not missing, missing\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'psana_ray_tpu')"
         " and sys.modules[m] is not None]\n"
         "print(len(pt.__all__))\n"
@@ -59,6 +66,45 @@ def test_package_imports_with_jax_unimportable():
                          timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 20
+
+
+def _run(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+def test_the_shm_ring_loads_the_ports_own_library():
+    code = (
+        "import os, numpy as np\n"
+        "from psana_ray_tpu_torch.transport import ShmRingBuffer\n"
+        "from psana_ray_tpu_torch.records import FrameRecord\n"
+        "r = ShmRingBuffer.create(f'isolation_{os.getpid()}', maxsize=2, slot_bytes=4096)\n"
+        "assert r.put(FrameRecord(0, 1, np.ones((1, 2, 2), np.float32), 1.0))\n"
+        "assert r.get().event_idx == 1\n"
+        "r.destroy()\n"
+        "libs = {l.split()[-1] for l in open('/proc/self/maps') if l.rstrip().endswith('.so')}\n"
+        "print('\\n'.join(sorted(l for l in libs if 'shmring' in l)))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    (lib,) = out.stdout.split()
+    assert lib.startswith(str(ROOT / "build" / "torch_native")) and lib.endswith("/libshmring.so")
+    assert "psana_ray_tpu/native" not in lib
+
+
+def test_the_host_plane_loads_no_torch():
+    code = (
+        "import sys\n"
+        "import psana_ray_tpu_torch\n"
+        "from psana_ray_tpu_torch.producer import produce, produce_synthetic\n"
+        "from psana_ray_tpu_torch.transport import ShmRingBuffer, RingBuffer\n"
+        "from psana_ray_tpu_torch.records import decode, encode_into\n"
+        "from psana_ray_tpu_torch.sources import SyntheticSource\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def _run_smoke(cwd):
