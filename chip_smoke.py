@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the port's three serving paths and its training path on one
+"""Drive the port's three serving paths and its training paths on one
 NVIDIA H100: the calibrated ResNet-50 classifier (also fed by a producer
 process through the shared-memory ring), the SFX Bragg-peak pipeline
 (PeakNet-TPU U-Net), the ViT hit classifier with the flash-attention
-trunk, and the ViT's training recipe with the flash backward kernels.
+trunk, the ViT's training recipe with the flash backward kernels, and
+train -> fold -> serve: PeakNet-TPU and ResNet-50 trained with BatchNorm,
+folded into frozen affines and served through the kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -162,16 +164,43 @@ one JSON line (``{"phase": ...}``):
    +16 ``back_kernel``) and PeakNet-TPU (32, 64, 128) on
    ``[2, 64, 128, 1]`` (+5 ``conv_block_kernel``), each within
    ``rel_err < 0.05`` of its plain model.
+17. ``peaknet_train``: train -> fold -> serve at PeakNet-TPU's full width
+   (64, 128, 256, 512), s2d 2: ``train_peaknet`` with ``norm="batch"``
+   (the recipe of ``examples/train_peaknet.py``: ``calib_kernel`` to f32,
+   labels ``x > 50`` photons, focal loss alpha 0.95, AdamW 3e-3) at batch
+   2 for 300 steps, the batches cycling over the 64-event RAW pool;
+   exactly one ``calib_kernel`` launch a step and nothing else, and the
+   mean loss of the last 20 steps below that of the first 20. Then, with
+   no JAX: ``unet_to_flax`` -> ``fold_batchnorm`` -> ``save_params`` /
+   ``load_params`` (bit-exact) -> ``SfxPipeline`` over 16 held-out RAW
+   events of run 2 (+1 ``calib_kernel`` and +8 ``conv_block_kernel`` a
+   batch, exactly), the folded fused logits of the first held-out batch
+   against the ``norm="batch_eval"`` model with the trained weights
+   (``rel_err < 0.05``). Prints p50/p99 step ms (synchronised after each
+   step), training frames/s, peak memory, the first and last losses, and
+   the written peaks' recall and precision against the planted truth
+   (recorded, not gated).
+17b. ``peaknet_train_profile``: 4 more steps of the trained model under
+   ``torch.profiler``.
+18. ``resnet_fold``: config 4's ResNet-50 (width 64, (3, 4, 6, 3)) with
+   ``norm="batch"`` trained 3 steps (``masked_softmax_xent``, full
+   batches of 8, +1 ``calib_kernel`` a step), then ``resnet_to_flax`` ->
+   ``fold_batchnorm`` -> ``resnet_from_flax`` -> ``pack_fused`` ->
+   ``resnet_fused_infer`` on 32 frames calibrated by K1 (+1
+   ``calib_kernel``, +16 ``conv1x1_kernel``, +16 ``conv3x3_kernel``, +16
+   ``back_kernel``, exactly), logits and pooled features against the
+   ``norm="batch_eval"`` model (``rel_err < 0.05``).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed run and the training run (phases 5, 6b, 8, 11
-and 14), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
-``back_kernel`` the two ResNet runs' (5 and 6b), the ``flash_kernel``
-launches those of the ViT's serving and training runs; every other
-kernel runs on one path only. Each run sets the counts to 0 just before
-it and reads them just after.
+serving runs, the shm-fed run, the training runs and the fold runs
+(phases 5, 6b, 8, 11, 14, 17 and 18), those of ``conv1x1_kernel``,
+``conv3x3_kernel`` and ``back_kernel`` the ResNet runs' (5, 6b and 18),
+those of ``conv_block_kernel`` the SFX runs' (8 and 17), the
+``flash_kernel`` launches those of the ViT's serving and training runs;
+every other kernel runs on one path only. Each run sets the counts to 0
+just before it and reads them just after.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up, with the card kept busy (a spin of about a
@@ -243,6 +272,17 @@ PROFILE_STEPS = 4
 FLASH_CASES = (("serving", 2, 4, 8448, 8448, False), ("training", 4, 4, 8448, 8448, False),
                ("causal", 2, 4, 1024, 1024, True), ("uneven", 2, 4, 256, 768, False),
                ("uneven_causal", 2, 4, 640, 384, True))
+# train -> fold -> serve: PeakNet-TPU at full width trained with norm="batch"
+# (examples/train_peaknet.py's recipe at its batch 2 for its convergence scale,
+# 300 steps), served over held-out events of another run; ResNet-50 at
+# config 4's width trained 3 steps at batch 8, folded and served at batch 32
+PEAKNET_STEPS = 300
+PEAKNET_BATCH = 2
+PEAKNET_EVAL_RUN = 2
+PEAKNET_EVAL_EVENTS = 16  # two SFX batches
+FOLD_STEPS = 3
+FOLD_BATCH = 8
+FOLD_LR = 1e-3
 # (level, index into FusedUNet.levels, h, w) at s2d 2 on 352x384 panels
 UNET_LEVELS = (("level1", 0, 88, 96), ("level2", 1, 44, 48), ("bottleneck", 2, 22, 24))
 
@@ -1611,6 +1651,216 @@ def phase_narrow(torch, pt, device):
          unet_launches=unet_counts, **errs)
 
 
+# -- phases 17 and 18 -------------------------------------------------------
+
+
+def peak_recall_precision(pt, sets, src):
+    """Recall and precision of written peak sets against the planted truth
+    of ``src``'s events (raw coordinates: panels stacked vertically),
+    as ``tests/test_torch_sfx.py`` scores them."""
+    import numpy as np
+
+    h = src.spec.height
+    k = max(1, max(len(s.y) for s in sets))
+    yx, n, truth = np.zeros((len(sets), k, 2), np.float32), np.zeros(len(sets), np.int64), []
+    for i, s in enumerate(sets):
+        yx[i, :len(s.y), 0], yx[i, :len(s.y), 1], n[i] = s.y, s.x, len(s.y)
+        t = src.event_with_truth(s.event_idx, pt.RetrievalMode.RAW)[2].copy()
+        t[:, 1] = t[:, 0] * h + t[:, 1]
+        t[:, 0] = 0
+        truth.append(t)
+    return pt.peak_metrics(yx, n, truth, tolerance=3.0, min_amplitude=100.0)
+
+
+def phase_peaknet_train(torch, pt, pool, calib_np, device, root):
+    """Train -> fold -> serve for PeakNet-TPU on the card: ``train_peaknet``
+    with ``norm="batch"`` for ``PEAKNET_STEPS`` steps on batches cycled over
+    the RAW pool, then ``unet_to_flax`` -> ``fold_batchnorm`` ->
+    ``save_params``/``load_params`` -> ``SfxPipeline`` over held-out RAW
+    events with planted truth."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.convert import flatten
+
+    model = pt.unet_from_flax(pt.init_peaknet_tpu_params(SFX_FEATURES, seed=0, norm="batch"),
+                              norm="batch", device=device)
+    frames = torch.from_numpy(np.stack(pool)).to(device)
+    n_batches = len(pool) // PEAKNET_BATCH
+    batches = (frames[PEAKNET_BATCH * (s % n_batches):PEAKNET_BATCH * (s % n_batches + 1)]
+               for s in range(PEAKNET_STEPS))
+    stamps = []
+
+    def on_step(n, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    t0 = time.perf_counter()
+    model, losses = pt.train_peaknet(model, batches, *calib_np, PEAKNET_STEPS, device=device,
+                                     on_step=on_step)
+    train_counts = pt.counts()
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    del frames, batches
+    want = {**dict.fromkeys(train_counts, 0), "calib_kernel": PEAKNET_STEPS}
+    first20, last20 = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    if (train_counts != want or len(losses) != PEAKNET_STEPS or not np.all(np.isfinite(losses))
+            or not last20 < first20):
+        raise AssertionError(f"PeakNet training: counts {train_counts} (expected {want}), "
+                             f"{len(losses)} losses, first 20 {first20}, last 20 {last20}")
+    step_ms = np.diff(stamps) * 1e3  # steps 1..: step 0 also builds the optimizer's state
+
+    # fold, and the serving tree through a parameter file
+    t1 = time.perf_counter()
+    variables = pt.unet_to_flax(model)
+    serving = pt.fold_batchnorm(variables)
+    fold_ms = (time.perf_counter() - t1) * 1e3
+    path = os.path.join(root, "build", "chip_smoke", "peaknet_serving.npz")
+    pt.save_params(path, serving)
+    loaded = pt.load_params(path)
+    a, b = flatten(serving), flatten(loaded)
+    exact = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+    if not exact:
+        raise AssertionError("the serving tree did not round-trip bit-exactly through its file")
+
+    # serve held-out events with planted truth through the folded tree
+    src = pt.SyntheticSource(run=PEAKNET_EVAL_RUN, num_events=PEAKNET_EVAL_EVENTS,
+                             detector_name=DETECTOR, seed=0)
+    events = list(src.iter_indexed_events(pt.RetrievalMode.RAW))
+    sink = PeakSink()
+    pipe = pt.SfxPipeline(loaded, sink, calib=calib_np, config=pt.SfxConfig(batch_size=SFX_BATCH),
+                          device=device)
+    held = torch.from_numpy(np.stack([e[1] for e in events[:SFX_BATCH]])).to(device)
+    pipe.device_step(held)  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    ring = pt.RingBuffer(maxsize=len(events) + 1)
+    pt.produce(events, ring)
+    pt.reset_counters()
+    written = pipe.run(ring)
+    serve_counts = pt.counts()
+    nb = -(-len(events) // SFX_BATCH)
+    want = {**dict.fromkeys(serve_counts, 0), "calib_kernel": nb, "conv_block_kernel": 8 * nb}
+    if serve_counts != want or written != len(events):
+        raise AssertionError(f"serving the trained tree: counts {serve_counts} (expected {want}), "
+                             f"{written} of {len(events)} events written")
+    physics = peak_recall_precision(pt, sink.sets, src)
+
+    # the folded, fused served logits against the batch_eval model with the
+    # same trained weights
+    eval_model = pt.unet_from_flax(variables, norm="batch_eval", device=device)
+    ped, gain, mask = (torch.from_numpy(x).to(device) for x in calib_np)
+    with torch.no_grad():
+        x = pt.panels_to_nhwc(pt.fused_calibrate(held, ped, gain, mask, threshold=10.0,
+                                                 out_dtype=torch.bfloat16), mode="batch")
+        fused = pt.peaknet_tpu_fused_infer(pipe.params, x)
+        ref = eval_model(x)
+    torch.cuda.synchronize()
+    err = rel_err(ref, fused)
+    if not (err < REL_TOL and torch.isfinite(fused).all() and float(ref.abs().max()) >= 1e-2):
+        raise AssertionError(f"folded fused logits vs batch_eval: rel_err {err}")
+    emit("peaknet_train", features=list(SFX_FEATURES), s2d=2, norm="batch", steps=PEAKNET_STEPS,
+         batch=PEAKNET_BATCH, panel_rows_per_step=PEAKNET_BATCH * pool[0].shape[0],
+         pool_events=len(pool), first_step_ms=(stamps[0] - t0) * 1e3,
+         p50_step_ms=float(np.percentile(step_ms, 50)),
+         p99_step_ms=float(np.percentile(step_ms, 99)), mean_step_ms=float(step_ms.mean()),
+         frames_per_s=PEAKNET_BATCH / (float(step_ms.mean()) / 1e3), peak_mem_gib=peak_mem,
+         loss_first=losses[0], loss_last=losses[-1], loss_first20=first20, loss_last20=last20,
+         train_launches=train_counts, fold_ms=fold_ms, params_file_bytes=os.path.getsize(path),
+         round_trip_exact=exact, eval_run=PEAKNET_EVAL_RUN, eval_events=len(events),
+         serve_launches=serve_counts, peaks_written=pipe.n_peaks, recall=physics["recall"],
+         precision=physics["precision"], n_truth=physics["n_truth"], n_pred=physics["n_pred"],
+         fused_vs_batch_eval_rel_err=err, logits_max_abs=float(ref.abs().max()))
+    return {name: train_counts[name] + serve_counts[name] for name in train_counts}, model
+
+
+def phase_peaknet_train_profile(torch, pt, model, pool, calib_np, device):
+    """``PROFILE_STEPS`` more recipe steps of the trained PeakNet-TPU on one
+    batch under ``torch.profiler`` (after its serving checks: these steps
+    move its weights)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    step = pt.make_peaknet_step(model, *calib_np, device=device)
+    batch = torch.from_numpy(np.stack(pool[:PEAKNET_BATCH])).to(device)
+    step(batch)  # warm-up: the optimizer's state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    emit("peaknet_train_profile", **profile_summary(torch, prof, wall, PROFILE_STEPS))
+
+
+def phase_resnet_fold(torch, pt, pool, consts, device):
+    """Config-4 ResNet-50 trained with ``norm="batch"`` for ``FOLD_STEPS``
+    steps (``masked_softmax_xent``, full batches of ``FOLD_BATCH``), then
+    ``resnet_to_flax`` -> ``fold_batchnorm`` -> ``resnet_from_flax`` ->
+    ``pack_fused`` -> ``resnet_fused_infer`` on a batch of ``BATCH``
+    frames calibrated by K1, against the ``norm="batch_eval"`` model."""
+    import numpy as np
+
+    ped, gain, mask = consts
+    model = pt.resnet_from_flax(pt.init_resnet_params(in_channels=pool[0].shape[0], seed=0,
+                                                      norm="batch"), norm="batch", device=device)
+    step = pt.make_train_step(model, pt.adamw(model.parameters(), lambda n: FOLD_LR),
+                              lambda logits, aux: pt.masked_softmax_xent(logits, *aux))
+    labels = torch.arange(FOLD_BATCH, device=device) % 2
+    valid = torch.ones(FOLD_BATCH, dtype=torch.uint8, device=device)
+
+    def calibrated(first, n):
+        raw = torch.from_numpy(np.stack(pool[first:first + n])).to(device)
+        return pt.panels_to_nhwc(pt.fused_calibrate(raw, ped, gain, mask, threshold=10.0,
+                                                    out_dtype=torch.bfloat16))
+
+    torch.cuda.synchronize()
+    pt.reset_counters()
+    losses, stamps = [], [time.perf_counter()]
+    for s in range(FOLD_STEPS):
+        losses.append(float(step(calibrated(s * FOLD_BATCH, FOLD_BATCH), (labels, valid))))
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    train_counts = pt.counts()
+    want = {**dict.fromkeys(train_counts, 0), "calib_kernel": FOLD_STEPS}
+    if train_counts != want or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ResNet training: counts {train_counts} (expected {want}), "
+                             f"losses {losses}")
+
+    t1 = time.perf_counter()
+    variables = pt.resnet_to_flax(model)
+    serving = pt.fold_batchnorm(variables)
+    fold_ms = (time.perf_counter() - t1) * 1e3
+    frozen = pt.resnet_from_flax(serving, device=device)
+    params = pt.pack_fused(frozen)
+    eval_model = pt.resnet_from_flax(variables, norm="batch_eval", device=device)
+    with torch.no_grad():
+        pt.resnet_fused_infer(params, calibrated(0, BATCH))  # warm-up outside the counted run
+        torch.cuda.synchronize()
+        pt.reset_counters()
+        x = calibrated(0, BATCH)
+        logits, feat = pt.resnet_fused_infer(params, x, return_features=True)
+        serve_counts = pt.counts()
+        ref_logits, ref_feat = eval_model(x, return_features=True)
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(serve_counts, 0), "calib_kernel": 1, "conv1x1_kernel": 16,
+            "conv3x3_kernel": 16, "back_kernel": 16}
+    errs = {"logits_rel_err": rel_err(ref_logits, logits),
+            "features_rel_err": rel_err(ref_feat, feat),
+            "features_max_abs": float(ref_feat.abs().max())}
+    if (serve_counts != want or not (errs["logits_rel_err"] < REL_TOL
+                                     and errs["features_rel_err"] < REL_TOL)
+            or errs["features_max_abs"] < 1e-2 or not torch.isfinite(logits).all()):
+        raise AssertionError(f"folded ResNet-50: counts {serve_counts} (expected {want}); {errs}")
+    emit("resnet_fold", width=64, stage_sizes=[3, 4, 6, 3], norm="batch", steps=FOLD_STEPS,
+         batch=FOLD_BATCH, step_ms=[float(d) for d in np.diff(stamps) * 1e3], losses=losses,
+         train_launches=train_counts, fold_ms=fold_ms, serve_batch=BATCH,
+         serve_launches=serve_counts, **errs)
+    return {name: train_counts[name] + serve_counts[name] for name in train_counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -1710,6 +1960,10 @@ def main() -> int:
     train, train_counts = phase_vit_train(torch, pt, tf, consts, src.spec.frame_shape, device)
     phase_vit_train_profile(torch, pt, train)
     phase_narrow(torch, pt, device)
+    peaknet_counts, peaknet = phase_peaknet_train(torch, pt, pool, calib_np, device, root)
+    phase_peaknet_train_profile(torch, pt, peaknet, pool, calib_np, device)
+    del peaknet
+    fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
 
     csrc = "psana_ray_tpu_torch/csrc"
     c = calib["bf16"]
@@ -1718,7 +1972,8 @@ def main() -> int:
         "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
         "launches": (counts["calib_kernel"] + shm_counts["calib_kernel"]
                      + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
-                     + train_counts["calib_kernel"]),
+                     + train_counts["calib_kernel"] + peaknet_counts["calib_kernel"]
+                     + fold_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -1732,7 +1987,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{csrc}/conv_sm90.cu",
-            "replaces": replaces[name], "launches": counts[name] + shm_counts[name],
+            "replaces": replaces[name],
+            "launches": counts[name] + shm_counts[name] + fold_counts[name],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -1740,7 +1996,8 @@ def main() -> int:
     kernels.append({
         "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/conv_sm90.cu",
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
-        "launches": sfx_counts["conv_block_kernel"], "max_abs_err": conv_block["max_abs_err"],
+        "launches": sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"],
+        "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],
         "library_ms": conv_block["library_ms"],

@@ -1,6 +1,6 @@
 """psana_ray_tpu_torch: the PyTorch + CUDA port of psana_ray_tpu for NVIDIA Hopper.
 
-Three serving paths and one training path. A synthetic detector source
+Three serving paths and two training paths. A synthetic detector source
 and a producer feed a ring buffer; the infeed batches frames and stages
 them onto the card through pinned memory; ``calib_kernel`` calibrates
 them. Then the fused ResNet-50 (``conv1x1_kernel`` / ``conv3x3_kernel``
@@ -13,8 +13,12 @@ extracts Bragg peaks and writes them to a CXI file.
 chunks kept on the device, ``masked_softmax_xent``, warmup-cosine AdamW,
 :func:`make_train_step`); its attention backward runs
 the single-pass ``flash_bwd_kernel`` (and ``flash_bwd_dq_convert``) behind a
-``torch.autograd.Function``. Every kernel is hand-written CUDA C++ for
-sm_90a, built with ``nvcc`` at first use
+``torch.autograd.Function``. :func:`train_peaknet` trains PeakNet-TPU
+(GroupNorm or BatchNorm, the focal loss, AdamW) on calibrated frames, and
+:func:`fold_batchnorm` folds a BatchNorm model's running statistics into
+the frozen affines the SFX pipeline serves: train -> fold -> serve, with
+:func:`save_params`/:func:`load_params` between them. Every kernel is
+hand-written CUDA C++ for sm_90a, built with ``nvcc`` at first use
 (:mod:`psana_ray_tpu_torch.kernels.build`), and has a plain PyTorch
 version beside it that CPU tensors run.
 
@@ -34,16 +38,26 @@ from __future__ import annotations
 
 import importlib
 
-# the one name that is also a submodule's, bound here so that importing
-# the submodule later cannot hide the function (entry.py imports torch
-# only inside its functions)
+# the names that are also submodules': importing a submodule binds its name
+# on the package, hiding a function of that name. So each is imported here,
+# once (neither loads torch at import), and the function takes its place:
+# ``entry`` bound now, ``train_peaknet`` (the function of ``train.py``, not
+# the CLI module) loaded at first use through ``_EXPORTS``
 from psana_ray_tpu_torch.entry import entry, vit_serve_step
+import psana_ray_tpu_torch.train_peaknet  # noqa: E402,F401
+
+del train_peaknet  # noqa: F821 (bound by the import above)
 
 # name -> the module that defines it, imported at first use
 _EXPORTS = {
+    "load_params": "psana_ray_tpu_torch.checkpoint",
+    "save_params": "psana_ray_tpu_torch.checkpoint",
     "StreamCursor": "psana_ray_tpu_torch.checkpoint",
+    "resnet18_from_flax": "psana_ray_tpu_torch.convert",
     "resnet_from_flax": "psana_ray_tpu_torch.convert",
+    "resnet_to_flax": "psana_ray_tpu_torch.convert",
     "unet_from_flax": "psana_ray_tpu_torch.convert",
+    "unet_to_flax": "psana_ray_tpu_torch.convert",
     "vit_from_flax": "psana_ray_tpu_torch.convert",
     "vit_to_flax": "psana_ray_tpu_torch.convert",
     "CxiWriter": "psana_ray_tpu_torch.cxi",
@@ -60,8 +74,11 @@ _EXPORTS = {
     "counts": "psana_ray_tpu_torch.kernels",
     "LAUNCHES": "psana_ray_tpu_torch.kernels",
     "reset_counters": "psana_ray_tpu_torch.kernels",
+    "BasicBlock": "psana_ray_tpu_torch.models",
     "depth_to_space": "psana_ray_tpu_torch.models",
+    "export_serving_params": "psana_ray_tpu_torch.models",
     "find_peaks": "psana_ray_tpu_torch.models",
+    "fold_batchnorm": "psana_ray_tpu_torch.models",
     "fused_bottleneck": "psana_ray_tpu_torch.models",
     "fused_conv_block": "psana_ray_tpu_torch.models",
     "FusedResNet": "psana_ray_tpu_torch.models",
@@ -69,6 +86,7 @@ _EXPORTS = {
     "init_peaknet_tpu_params": "psana_ray_tpu_torch.models",
     "init_resnet_params": "psana_ray_tpu_torch.models",
     "init_vit_params": "psana_ray_tpu_torch.models",
+    "masked_sigmoid_focal": "psana_ray_tpu_torch.models",
     "masked_softmax_xent": "psana_ray_tpu_torch.models",
     "nhwc_to_panels": "psana_ray_tpu_torch.models",
     "pack_fused": "psana_ray_tpu_torch.models",
@@ -78,6 +96,7 @@ _EXPORTS = {
     "peak_metrics": "psana_ray_tpu_torch.models",
     "peaknet_tpu_fused_infer": "psana_ray_tpu_torch.models",
     "PeakNetUNetTPU": "psana_ray_tpu_torch.models",
+    "ResNet18": "psana_ray_tpu_torch.models",
     "ResNet50": "psana_ray_tpu_torch.models",
     "resnet_fused_infer": "psana_ray_tpu_torch.models",
     "ResNetClassifier": "psana_ray_tpu_torch.models",
@@ -105,8 +124,10 @@ _EXPORTS = {
     "DetectorSpec": "psana_ray_tpu_torch.sources",
     "RetrievalMode": "psana_ray_tpu_torch.sources",
     "SyntheticSource": "psana_ray_tpu_torch.sources",
+    "make_peaknet_step": "psana_ray_tpu_torch.train",
     "raw_hit_batch": "psana_ray_tpu_torch.train",
     "train_hit_classifier": "psana_ray_tpu_torch.train",
+    "train_peaknet": "psana_ray_tpu_torch.train",
     "EMPTY": "psana_ray_tpu_torch.transport",
     "FULL": "psana_ray_tpu_torch.transport",
     "RingBuffer": "psana_ray_tpu_torch.transport",

@@ -1,9 +1,12 @@
-"""Stream cursors: per-shard watermarks of processed events.
+"""Stream cursors and parameter files.
 
 The port's own copy of ``StreamCursor`` from ``psana_ray_tpu/checkpoint.py``,
 with the same JSON file format, so that either package resumes from the
-other's cursor. Saving and loading model state (orbax in the JAX
-package) is not ported.
+other's cursor; and :func:`save_params`/:func:`load_params`, which keep a
+tree of arrays (a model's flax variables, a folded serving tree) as one
+self-describing ``.npz`` file that needs neither orbax nor torch to read.
+The orbax train state of the JAX package (``save_train_state``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -12,7 +15,63 @@ import dataclasses
 import json
 import os
 import tempfile
-from typing import Dict
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+
+def _atomic_write(path: str, suffix: str, write) -> None:
+    """``write(file)`` into a temporary file beside ``path``, then rename it
+    over ``path``: a reader sees the old file or the new one, never a part."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=suffix)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts -> ``{"a/b/leaf": array}``."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if "/" in str(k):
+            raise ValueError(f"tree key {k!r} holds '/', the path separator")
+        if isinstance(v, Mapping):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/leaf": array}`` -> nested dicts (the inverse of :func:`flatten`)."""
+    tree: Dict[str, Any] = {}
+    for path, a in flat.items():
+        *dirs, leaf = path.split("/")
+        node = tree
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = a
+    return tree
+
+
+def save_params(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a nested dict of arrays to ``path`` as an ``np.savez`` file of
+    its flattened ``a/b/leaf`` paths (dtypes and shapes kept), atomically."""
+    flat = flatten(tree)
+    _atomic_write(path, ".npz", lambda f: np.savez(f, **flat))
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """The nested dict of numpy arrays that :func:`save_params` wrote."""
+    with np.load(path, allow_pickle=False) as z:
+        return unflatten({key: z[key] for key in z.files})
 
 
 @dataclasses.dataclass
@@ -60,18 +119,8 @@ class StreamCursor:
 
     def save(self, path: str) -> None:
         """Write ``{"stride", "positions"}`` as JSON, atomically."""
-        d = os.path.dirname(os.path.abspath(path))
-        os.makedirs(d, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".cursor")
-        try:
-            with os.fdopen(fd, "w") as f:
-                json.dump({"stride": self.stride,
-                           "positions": {str(k): v for k, v in self.positions.items()}}, f)
-            os.replace(tmp, path)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
+        doc = {"stride": self.stride, "positions": {str(k): v for k, v in self.positions.items()}}
+        _atomic_write(path, ".cursor", lambda f: f.write(json.dumps(doc).encode()))
 
     @staticmethod
     def load(path: str) -> "StreamCursor":

@@ -1,27 +1,34 @@
-"""Flax parameter trees -> the port's ResNet, PeakNet-TPU U-Net and ViT.
+"""Flax variable trees <-> the port's ResNet, PeakNet-TPU U-Net and ViT.
 
-Takes the ``params`` tree of ``psana_ray_tpu``'s
-``ResNetClassifier(norm="frozen")`` or ``PeakNetUNetTPU(norm="frozen")``
-as nested dicts of numpy arrays (or of anything ``np.asarray`` accepts)
-and builds the port's model with the same weights. The ResNet's flax
-names (``pallas_resnet.py:498-518``):
+Takes the variables of ``psana_ray_tpu``'s ``ResNetClassifier``,
+``PeakNetUNetTPU`` (any norm kind) or ``ViTHitClassifier`` as nested dicts
+of numpy arrays (or of anything ``np.asarray`` accepts) and builds the
+port's model with the same weights; the ``*_to_flax`` functions give a
+(trained) port model's tree back, as numpy, in the reference's layout.
+The ResNet and the U-Net take either the ``params`` tree alone or
+``{"params": ..., "batch_stats": ...}`` (the ``norm="batch"`` and
+``"batch_eval"`` forms; the running statistics fill the norms' ``mean``
+and ``var`` buffers). The ResNet's flax names (``pallas_resnet.py:498-518``),
+``N`` being the norm kind's module name (``FrozenAffine``, ``GroupNorm``
+or ``BatchNorm``):
 
     stem/kernel                       -> stem.weight          (HWIO -> OIHW)
-    stem_norm/{scale,bias}            -> stem_norm.{scale,bias}
+    stem_norm/{scale,bias,mean,var}   -> stem_norm.*
     BottleneckBlock_i/Conv_{0,1,2}    -> blocks.i.conv{1,2,3}.weight
-    BottleneckBlock_i/FrozenAffine_k  -> blocks.i.norm{k+1}
+    BottleneckBlock_i/N_k             -> blocks.i.norm{k+1}
     BottleneckBlock_i/proj            -> blocks.i.proj.weight
     BottleneckBlock_i/proj_norm       -> blocks.i.proj_norm
     head/{kernel,bias}                -> head.{weight,bias}   (kernel transposed)
 
-The U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
+(``BasicBlock_i`` with ``Conv_{0,1}`` and ``N_{0,1}`` for ResNet-18.) The
+U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
 
     ConvBlock_i/Conv_{0,1}            -> enc.i.conv{1,2}.weight
-    ConvBlock_i/FrozenAffine_{0,1}    -> enc.i.norm{1,2}
+    ConvBlock_i/N_{0,1}               -> enc.i.norm{1,2}
     Conv_i (i < n_enc)                -> down.i.weight         (stride-2)
     Conv_{n_enc+i}                    -> up.i.weight
     MergeBlock_i/{merge_up,merge_skip,Conv_0} -> merge.i.{merge_up,merge_skip,conv}.weight
-    MergeBlock_i/FrozenAffine_{0,1}   -> merge.i.norm{1,2}
+    MergeBlock_i/N_{0,1}              -> merge.i.norm{1,2}
     logits/{kernel,bias}              -> logits_weight, logits_bias
 
 The ViT's (``vit.py:221-263``) keep their names and layouts: a flax path
@@ -29,71 +36,49 @@ The ViT's (``vit.py:221-263``) keep their names and layouts: a flax path
 ``[in, out]``), and :func:`vit_to_flax` maps a (trained) port ViT back to
 the flax tree.
 
-Every leaf must map and every port parameter must be filled: anything
-else raises. The kernels' bf16 GEMM layouts are packed from the models
-once, by :func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused` and
+Every leaf must map and every port parameter must be filled, in both
+directions: anything else raises. The kernels' bf16 GEMM layouts are
+packed from frozen models once, by
+:func:`psana_ray_tpu_torch.models.fused_resnet.pack_fused` and
 :func:`psana_ray_tpu_torch.models.fused_unet.pack_unet`.
 """
 
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from psana_ray_tpu_torch.models.resnet import BottleneckBlock, ResNetClassifier
+from psana_ray_tpu_torch.checkpoint import flatten, unflatten
+from psana_ray_tpu_torch.models.resnet import (
+    NORM_NAMES,
+    BasicBlock,
+    BottleneckBlock,
+    ResNetClassifier,
+    check_norm,
+)
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU
 from psana_ray_tpu_torch.models.vit import ViTHitClassifier
 
-_BLOCK = re.compile(r"^BottleneckBlock_(\d+)/(.+)$")
-_IN_BLOCK_LEAF = re.compile(r"^(Conv_[012]|FrozenAffine_[012]|proj|proj_norm)/(kernel|scale|bias)$")
-_TOP = {
-    "stem/kernel": "stem.weight",
-    "stem_norm/scale": "stem_norm.scale",
-    "stem_norm/bias": "stem_norm.bias",
-    "head/kernel": "head.weight",
-    "head/bias": "head.bias",
-}
-_IN_BLOCK = {
-    "Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
-    "FrozenAffine_0": "norm1", "FrozenAffine_1": "norm2", "FrozenAffine_2": "norm3",
-    "proj": "proj", "proj_norm": "proj_norm",
-}
-_LEAF = {"kernel": "weight", "scale": "scale", "bias": "bias"}
+_BF16 = torch.bfloat16
+_FLAX_LEAF = {"weight": "kernel", "scale": "scale", "bias": "bias", "mean": "mean", "var": "var"}
+_STATS = ("mean", "var")  # the leaves of the batch_stats collection
+# port module -> flax module inside a block; {n} is the norm kind's name
+_RESNET_BLOCK = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2", "norm1": "{n}_0",
+                 "norm2": "{n}_1", "norm3": "{n}_2", "proj": "proj", "proj_norm": "proj_norm"}
+_UNET_BLOCK = {"conv1": "Conv_0", "conv2": "Conv_1", "norm1": "{n}_0", "norm2": "{n}_1"}
+_UNET_MERGE = {"merge_up": "merge_up", "merge_skip": "merge_skip", "conv": "Conv_0",
+               "norm1": "{n}_0", "norm2": "{n}_1"}
 
 
-def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dicts -> ``{"a/b/leaf": array}``."""
-    out: Dict[str, np.ndarray] = {}
-    for k, v in tree.items():
-        path = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(flatten(v, path + "/"))
-        else:
-            out[path] = np.asarray(v)
-    return out
-
-
-def _block_key(path: str) -> str:
-    """The state_dict key inside one block of a flax block-relative path."""
-    m = _IN_BLOCK_LEAF.match(path)
-    if m is None:
-        raise KeyError(f"no port parameter for flax block leaf {path!r}")
-    module, leaf = m.groups()
-    return f"{_IN_BLOCK[module]}.{_LEAF[leaf]}"
-
-
-def port_key(path: str) -> str:
-    """The port's ``state_dict`` key of a flax leaf path; KeyError if none."""
-    if path in _TOP:
-        return _TOP[path]
-    m = _BLOCK.match(path)
-    if m is None:
-        raise KeyError(f"no port parameter for flax leaf {path!r}")
-    return f"blocks.{m.group(1)}.{_block_key(m.group(2))}"
+def split_variables(tree: Mapping) -> Tuple[Mapping, Mapping]:
+    """``(params, batch_stats)`` of ``{"params", "batch_stats"}`` or of a
+    bare ``params`` tree (whose batch_stats are empty)."""
+    if isinstance(tree.get("params"), Mapping):
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
 
 
 def port_tensor(path: str, arr: np.ndarray) -> torch.Tensor:
@@ -106,22 +91,81 @@ def port_tensor(path: str, arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def resnet_from_flax(
-    params: Mapping,
-    stage_sizes: Sequence[int] = (3, 4, 6, 3),
-    device: Optional[torch.device] = None,
-) -> ResNetClassifier:
-    """Build the port's frozen ResNet from a flax ``params`` tree."""
+def flax_array(path: str, t: torch.Tensor) -> np.ndarray:
+    """A port tensor in the flax leaf ``path``'s layout (f32 numpy): the
+    inverse of :func:`port_tensor`."""
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if path.endswith("/kernel") and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif path == "head/kernel":
+        a = a.T
+    return np.ascontiguousarray(a).copy()
+
+
+def _block_path(key: str, norm: str) -> str:
+    mod, leaf = key.split(".")
+    return f"{_RESNET_BLOCK[mod].format(n=NORM_NAMES[norm])}/{_FLAX_LEAF[leaf]}"
+
+
+def _resnet_path(key: str, norm: str, block: str) -> str:
+    mod, rest = key.split(".", 1)
+    if mod == "blocks":
+        i, rest = rest.split(".", 1)
+        return f"{block}_{i}/{_block_path(rest, norm)}"
+    return f"{mod}/{_FLAX_LEAF[rest]}"
+
+
+def _unet_path(key: str, n_enc: int, norm: str) -> str:
+    if key in ("logits_weight", "logits_bias"):
+        return f"logits/{_FLAX_LEAF[key[len('logits_'):]]}"
+    kind, i, *rest = key.split(".")
+    if kind == "down":
+        return f"Conv_{i}/kernel"
+    if kind == "up":
+        return f"Conv_{n_enc + int(i)}/kernel"
+    mod, leaf = rest
+    table, name = (_UNET_BLOCK, "ConvBlock") if kind == "enc" else (_UNET_MERGE, "MergeBlock")
+    return f"{name}_{i}/{table[mod].format(n=NORM_NAMES[norm])}/{_FLAX_LEAF[leaf]}"
+
+
+def flax_names(model: torch.nn.Module) -> Dict[str, str]:
+    """``{state_dict key: flax leaf path}`` of a port ResNet or PeakNet-TPU."""
+    if isinstance(model, ResNetClassifier):
+        return {k: _resnet_path(k, model.norm, model.block.__name__) for k in model.state_dict()}
+    if isinstance(model, PeakNetUNetTPU):
+        n_enc = len(model.features) - 1
+        return {k: _unet_path(k, n_enc, model.norm) for k in model.state_dict()}
+    raise TypeError(f"no flax names for {type(model).__name__}")
+
+
+def _fill(module: torch.nn.Module, tree: Mapping, names: Dict[str, str]) -> None:
+    """Load the flax variables ``tree`` into ``module`` through ``names``
+    (state_dict key -> flax path): a missing or misshapen leaf raises
+    ``ValueError``, then a leaf left over ``KeyError``."""
+    params, stats = split_variables(tree)
     flat = flatten(params)
-    stem = flat["stem/kernel"]
-    model = ResNetClassifier(
-        stage_sizes,
-        in_channels=stem.shape[2],
-        num_classes=flat["head/kernel"].shape[1],
-        width=stem.shape[3],
-    )
-    _load(model, {port_key(k): port_tensor(k, v) for k, v in flat.items()})
-    return model.to(device) if device is not None else model
+    for path, a in flatten(stats).items():
+        if path.rsplit("/", 1)[-1] not in _STATS:
+            raise KeyError(f"no port buffer for flax batch_stats leaf {path!r}")
+        flat[path] = a
+    _load(module, {key: port_tensor(path, flat[path]) for key, path in names.items()
+                   if path in flat})
+    unknown = sorted(set(flat) - set(names.values()))
+    if unknown:
+        raise KeyError(f"no port parameter for flax leaf {unknown[0]!r} "
+                       f"({len(unknown)} leaves unmapped)")
+
+
+def _to_flax(module: torch.nn.Module, names: Dict[str, str]) -> Dict[str, dict]:
+    """``{"params": ..., "batch_stats": ...}`` (numpy) of ``module``; the
+    batch_stats collection only where the model has running statistics."""
+    state = module.state_dict()
+    params = {p: flax_array(p, state[k]) for k, p in names.items() if p.rsplit("/", 1)[-1] not in _STATS}
+    stats = {p: flax_array(p, state[k]) for k, p in names.items() if p.rsplit("/", 1)[-1] in _STATS}
+    out = {"params": unflatten(params)}
+    if stats:
+        out["batch_stats"] = unflatten(stats)
+    return out
 
 
 def _load(module: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
@@ -136,13 +180,48 @@ def _load(module: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
     module.load_state_dict(state, strict=True)
 
 
-def block_from_flax(params: Mapping, stride: int = 1) -> BottleneckBlock:
-    """Build one port :class:`BottleneckBlock` from the ``params`` tree of a
-    flax ``BottleneckBlock(norm="frozen")``."""
-    flat = flatten(params)
-    w1 = flat["Conv_0/kernel"]
-    block = BottleneckBlock(w1.shape[2], w1.shape[3], stride)
-    _load(block, {_block_key(k): port_tensor(k, v) for k, v in flat.items()})
+def _placed(model: torch.nn.Module, device) -> torch.nn.Module:
+    return model.to(device) if device is not None else model
+
+
+def resnet_from_flax(
+    params: Mapping,
+    stage_sizes: Sequence[int] = (3, 4, 6, 3),
+    device: Optional[torch.device] = None,
+    norm: str = "frozen",
+    dtype: torch.dtype = _BF16,
+    block: type = BottleneckBlock,
+) -> ResNetClassifier:
+    """Build the port's ResNet with norms of kind ``norm`` from a flax
+    tree (``params``, or ``{"params", "batch_stats"}``)."""
+    flat = flatten(split_variables(params)[0])
+    stem = flat["stem/kernel"]
+    model = ResNetClassifier(stage_sizes, in_channels=stem.shape[2],
+                             num_classes=flat["head/kernel"].shape[1], width=stem.shape[3],
+                             norm=check_norm(norm), dtype=dtype, block=block)
+    _fill(model, params, flax_names(model))
+    return _placed(model, device)
+
+
+def resnet18_from_flax(params: Mapping, device: Optional[torch.device] = None,
+                       norm: str = "frozen", dtype: torch.dtype = _BF16) -> ResNetClassifier:
+    """Build the port's ResNet-18 (``BasicBlock_i``, stages (2, 2, 2, 2))
+    from a flax tree."""
+    return resnet_from_flax(params, (2, 2, 2, 2), device, norm, dtype, BasicBlock)
+
+
+def resnet_to_flax(model: ResNetClassifier) -> Dict[str, dict]:
+    """The flax variables of a port ResNet as numpy: the inverse of
+    :func:`resnet_from_flax`."""
+    return _to_flax(model, flax_names(model))
+
+
+def block_from_flax(params: Mapping, stride: int = 1, norm: str = "frozen") -> BottleneckBlock:
+    """Build one port :class:`BottleneckBlock` from the tree of a flax
+    ``BottleneckBlock``."""
+    w1 = flatten(split_variables(params)[0])["Conv_0/kernel"]
+    block = BottleneckBlock(w1.shape[2], w1.shape[3], stride, norm)
+    _fill(block, params, {k: _block_path(k, norm) for k in block.state_dict()})
     return block
 
 
@@ -177,53 +256,32 @@ def infer_features(params: Mapping) -> Tuple[int, ...]:
     return tuple(widths)
 
 
-_UNET_BLOCK = re.compile(r"^ConvBlock_(\d+)/(Conv_[01]|FrozenAffine_[01])/(kernel|scale|bias)$")
-_UNET_CONV = re.compile(r"^Conv_(\d+)/kernel$")
-_UNET_MERGE = re.compile(
-    r"^MergeBlock_(\d+)/(merge_up|merge_skip|Conv_0|FrozenAffine_[01])/(kernel|scale|bias)$")
-_UNET_IN_BLOCK = {"Conv_0": "conv1", "Conv_1": "conv2", "FrozenAffine_0": "norm1",
-                  "FrozenAffine_1": "norm2"}
-_UNET_IN_MERGE = {"merge_up": "merge_up", "merge_skip": "merge_skip", "Conv_0": "conv",
-                  "FrozenAffine_0": "norm1", "FrozenAffine_1": "norm2"}
-
-
-def unet_port_key(path: str, n_enc: int) -> str:
-    """The port's ``state_dict`` key of a PeakNet-TPU flax leaf path."""
-    if path == "logits/kernel":
-        return "logits_weight"
-    if path == "logits/bias":
-        return "logits_bias"
-    m = _UNET_BLOCK.match(path)
-    if m:
-        i, module, leaf = m.groups()
-        return f"enc.{i}.{_UNET_IN_BLOCK[module]}.{_LEAF[leaf]}"
-    m = _UNET_CONV.match(path)
-    if m:
-        i = int(m.group(1))
-        return f"down.{i}.weight" if i < n_enc else f"up.{i - n_enc}.weight"
-    m = _UNET_MERGE.match(path)
-    if m:
-        i, module, leaf = m.groups()
-        return f"merge.{i}.{_UNET_IN_MERGE[module]}.{_LEAF[leaf]}"
-    raise KeyError(f"no port parameter for flax leaf {path!r}")
-
-
 def unet_from_flax(
-    params: Mapping, device: Optional[torch.device] = None, num_classes: int = 1
+    params: Mapping,
+    device: Optional[torch.device] = None,
+    num_classes: int = 1,
+    norm: str = "frozen",
+    dtype: torch.dtype = _BF16,
 ) -> PeakNetUNetTPU:
-    """Build the port's frozen :class:`PeakNetUNetTPU` from a flax
-    ``params`` tree; features and s2d come from the tree itself."""
-    features = infer_features(params)
-    s2d = infer_s2d(params, num_classes)
-    flat = flatten(params)
-    cin = flat["ConvBlock_0/Conv_0/kernel"].shape[2]
+    """Build the port's :class:`PeakNetUNetTPU` with norms of kind
+    ``norm`` from a flax tree (``params``, or ``{"params",
+    "batch_stats"}``); features and s2d come from the tree itself."""
+    p = split_variables(params)[0]
+    features = infer_features(p)
+    s2d = infer_s2d(p, num_classes)
+    cin = np.shape(p["ConvBlock_0"]["Conv_0"]["kernel"])[2]
     if cin % (s2d * s2d):
         raise ValueError(f"ConvBlock_0 takes {cin} channels, not a multiple of s2d^2 = {s2d * s2d}")
     model = PeakNetUNetTPU(features, in_channels=cin // (s2d * s2d), num_classes=num_classes,
-                           s2d=s2d)
-    n_enc = len(features) - 1
-    _load(model, {unet_port_key(k, n_enc): port_tensor(k, v) for k, v in flat.items()})
-    return model.to(device) if device is not None else model
+                           s2d=s2d, norm=check_norm(norm), dtype=dtype)
+    _fill(model, params, flax_names(model))
+    return _placed(model, device)
+
+
+def unet_to_flax(model: PeakNetUNetTPU) -> Dict[str, dict]:
+    """The flax variables of a port PeakNet-TPU as numpy: the inverse of
+    :func:`unet_from_flax`."""
+    return _to_flax(model, flax_names(model))
 
 
 def load_flax(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
@@ -268,17 +326,11 @@ def vit_from_flax(
         dtype=dtype, attn_fn=attn_fn, input_norm=input_norm, head_pool=head_pool,
     )
     load_flax(model, params)
-    return model.to(device) if device is not None else model
+    return _placed(model, device)
 
 
 def vit_to_flax(model: ViTHitClassifier) -> Dict[str, dict]:
     """The flax ``params`` tree (nested dicts of f32 numpy arrays) of a
     port ViT: the inverse of :func:`vit_from_flax`."""
-    tree: Dict[str, dict] = {}
-    for key, value in model.state_dict().items():
-        *path, leaf = key.split(".")
-        node = tree
-        for name in path:
-            node = node.setdefault(name, {})
-        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
-    return tree
+    return unflatten({k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy().copy()
+                      for k, v in model.state_dict().items()})

@@ -1,5 +1,6 @@
-"""Models: the frozen ResNet and PeakNet-TPU U-Net, their fused kernel paths,
-the ViT hit classifier, layouts, peak extraction, losses and init."""
+"""Models: the ResNets and the PeakNet-TPU U-Net in every norm kind, the
+BatchNorm fold, their fused kernel paths, the ViT hit classifier, layouts,
+peak extraction, losses and init."""
 
 from psana_ray_tpu_torch.models.fused_resnet import (
     BlockWeights,
@@ -19,15 +20,22 @@ from psana_ray_tpu_torch.models.fused_unet import (
     pack_unet,
     peaknet_tpu_fused_infer,
 )
+from psana_ray_tpu_torch.models.fold import export_serving_params, fold_batchnorm
 from psana_ray_tpu_torch.models.heads import nhwc_to_panels, panels_to_nhwc
 from psana_ray_tpu_torch.models.init import (
     init_peaknet_tpu_params,
     init_resnet_params,
     init_vit_params,
 )
-from psana_ray_tpu_torch.models.losses import masked_softmax_xent
+from psana_ray_tpu_torch.models.losses import masked_sigmoid_focal, masked_softmax_xent
 from psana_ray_tpu_torch.models.peaks import find_peaks, peak_metrics, split_truth_by_panel
-from psana_ray_tpu_torch.models.resnet import ResNet50, ResNetClassifier
+from psana_ray_tpu_torch.models.resnet import (
+    BasicBlock,
+    BottleneckBlock,
+    ResNet18,
+    ResNet50,
+    ResNetClassifier,
+)
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
 from psana_ray_tpu_torch.models.vit import (
     TransformerBlock,
@@ -37,10 +45,13 @@ from psana_ray_tpu_torch.models.vit import (
 )
 
 __all__ = [
+    "BasicBlock",
     "BlockWeights",
+    "BottleneckBlock",
     "FusedResNet",
     "FusedUNet",
     "PeakNetUNetTPU",
+    "ResNet18",
     "ResNet50",
     "ResNetClassifier",
     "TransformerBlock",
@@ -50,13 +61,16 @@ __all__ = [
     "conv3x3",
     "conv3x3_plain",
     "depth_to_space",
+    "export_serving_params",
     "find_peaks",
+    "fold_batchnorm",
     "fused_bottleneck",
     "fused_conv_block",
     "fused_conv_block_plain",
     "init_peaknet_tpu_params",
     "init_resnet_params",
     "init_vit_params",
+    "masked_sigmoid_focal",
     "masked_softmax_xent",
     "nhwc_to_panels",
     "pack_fused",

@@ -142,9 +142,20 @@ def _f32(t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     return (t if n is None else _pad_to(t, (n,))).to(torch.float32).contiguous()
 
 
+def check_frozen(model, what: str) -> None:
+    """The kernels take frozen affines: a model of another norm kind is
+    folded first."""
+    if model.norm != "frozen":
+        raise ValueError(f"{what} takes a frozen model, not norm={model.norm!r}: fold the "
+                         f"trained tree into frozen affines first (fold_batchnorm)")
+
+
 def pack_block(blk: BottleneckBlock) -> BlockWeights:
-    """One block's weights in the kernels' layouts, channels zero-padded,
-    on the block's device."""
+    """One frozen bottleneck's weights in the kernels' layouts, channels
+    zero-padded, on the block's device."""
+    check_frozen(blk, "pack_block")
+    if not isinstance(blk, BottleneckBlock):
+        raise ValueError(f"the fused path takes bottleneck blocks, not {type(blk).__name__}")
     f, cin = blk.conv1.weight.shape[:2]
     cout = blk.conv3.weight.shape[0]
     fp, cp, np_ = padded(f), padded(cin), padded(cout)
@@ -164,8 +175,9 @@ def pack_block(blk: BottleneckBlock) -> BlockWeights:
 
 
 def pack_fused(model: ResNetClassifier) -> FusedResNet:
-    """Pack the model's weights into the kernels' layouts, once, on the
-    model's device."""
+    """Pack a frozen model's weights into the kernels' layouts, once, on
+    the model's device."""
+    check_frozen(model, "pack_fused")
     return FusedResNet(
         stem_w=model.stem.weight.to(_BF16).contiguous(),
         stem_scale=model.stem_norm.scale.to(_BF16),

@@ -49,6 +49,7 @@ from psana_ray_tpu_torch.models.fused_resnet import (
     _conv_f32,
     _f32,
     _pads3x3,
+    check_frozen,
     conv3x3_plain,
     conv_gate,
     launch_conv,
@@ -267,8 +268,9 @@ def _affine(norm, dtype) -> Affine:
 
 
 def pack_unet(model: PeakNetUNetTPU) -> FusedUNet:
-    """Pack the model's weights into the kernels' and the library
+    """Pack a frozen model's weights into the kernels' and the library
     convolutions' layouts, once, on the model's device."""
+    check_frozen(model, "pack_unet")
     if len(model.features) < 2:
         raise ValueError(f"need at least one encoder level, got features {model.features}")
     enc0 = model.enc[0]

@@ -1,16 +1,20 @@
 """PeakNet-TPU, the space-to-depth Bragg-peak U-Net, in PyTorch.
 
-Counterpart of ``psana_ray_tpu/models/unet_tpu.py`` with
-``norm="frozen"``: a 2x2 (``s2d``) pixel unshuffle, an encoder of
-:class:`ConvBlock` levels with strided-conv downsampling, a bottleneck
-block, a decoder of upsample + conv + :class:`MergeBlock`, and an f32 1x1
+Counterpart of ``psana_ray_tpu/models/unet_tpu.py``: a 2x2 (``s2d``)
+pixel unshuffle, an encoder of :class:`ConvBlock` levels with
+strided-conv downsampling, a bottleneck block, a decoder of upsample +
+conv + :class:`MergeBlock`, and an f32 1x1
 ``logits`` head that emits ``num_classes * s2d**2`` channels, shuffled
 back to one logit per original pixel. NHWC in (``[N, H, W, C_in]``),
-NHWC out (``[N, H, W, num_classes]``, f32).
+NHWC out (``[N, H, W, num_classes]``, f32). ``norm`` and ``dtype`` mean
+what they mean for the ResNet (:mod:`psana_ray_tpu_torch.models.resnet`):
+``"group"`` and ``"batch"`` train (the logits head too), ``"batch_eval"``
+runs a trained ``"batch"`` model on its running statistics.
 
-Its forward is the plain oracle of the whole network; the fused path with
-the Hopper kernels is
-:func:`psana_ray_tpu_torch.models.fused_unet.peaknet_tpu_fused_infer`.
+The frozen model's forward is the plain oracle of the whole network; the
+fused path with the Hopper kernels is
+:func:`psana_ray_tpu_torch.models.fused_unet.peaknet_tpu_fused_infer`,
+which takes a frozen (folded) model.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from psana_ray_tpu_torch.models.resnet import Conv2dSame, _frozen_only, _param
-from psana_ray_tpu_torch.models.unet import ConvBlock, MergeBlock, upsample2x
+from psana_ray_tpu_torch.models.resnet import check_norm
+from psana_ray_tpu_torch.models.unet import ConvBlock, MergeBlock, conv3x3, upsample2x
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -66,34 +70,37 @@ class PeakNetUNetTPU(nn.Module):
         num_classes: int = 1,
         s2d: int = 2,
         norm: str = "frozen",
+        dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
-        _frozen_only(norm)
+        self.norm = check_norm(norm)
+        self.dtype = dtype
         self.features = tuple(features)
         self.num_classes = num_classes
         self.s2d = s2d
         cin = in_channels * s2d * s2d
         enc, down = [], []
         for f in self.features[:-1]:
-            enc.append(ConvBlock(cin, f))
-            down.append(Conv2dSame(f, f, 3, 2))
+            enc.append(ConvBlock(cin, f, norm, dtype))
+            down.append(conv3x3(f, f, norm, dtype, stride=2))
             cin = f
-        enc.append(ConvBlock(cin, self.features[-1]))
+        enc.append(ConvBlock(cin, self.features[-1], norm, dtype))
         up, merge = [], []
         cin = self.features[-1]
         for f in reversed(self.features[:-1]):
-            up.append(Conv2dSame(cin, f, 3))
-            merge.append(MergeBlock(f, f, f))
+            up.append(conv3x3(cin, f, norm, dtype))
+            merge.append(MergeBlock(f, f, f, norm, dtype))
             cin = f
         self.enc, self.down = nn.ModuleList(enc), nn.ModuleList(down)
         self.up, self.merge = nn.ModuleList(up), nn.ModuleList(merge)
         k = num_classes * s2d * s2d
-        self.logits_weight = _param(k, cin, 1, 1)
-        self.logits_bias = _param(k)
+        self.logits_weight = nn.Parameter(torch.zeros(k, cin, 1, 1))
+        self.logits_bias = nn.Parameter(torch.zeros(k))
+        self.requires_grad_(norm != "frozen")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         check_extent(x.shape[1], x.shape[2], self.features, self.s2d)
-        y = space_to_depth(x, self.s2d).to(torch.bfloat16).permute(0, 3, 1, 2)
+        y = space_to_depth(x, self.s2d).to(self.dtype).permute(0, 3, 1, 2)
         skips = []
         for block, down in zip(self.enc[:-1], self.down):
             y = block(y)
@@ -102,6 +109,6 @@ class PeakNetUNetTPU(nn.Module):
         y = self.enc[-1](y)
         for up, merge, skip in zip(self.up, self.merge, reversed(skips)):
             y = merge(up(upsample2x(y)), skip)
-        # f32 head over the bf16 features, NHWC
+        # f32 head over the features, NHWC
         logits = y.permute(0, 2, 3, 1).float() @ self.logits_weight[:, :, 0, 0].t() + self.logits_bias
         return depth_to_space(logits, self.s2d)

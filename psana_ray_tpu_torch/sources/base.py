@@ -46,6 +46,7 @@ class DetectorSpec:
 DETECTORS = {
     "epix10k2M": DetectorSpec("epix10k2M", panels=16, height=352, width=384),
     "jungfrau4M": DetectorSpec("jungfrau4M", panels=8, height=512, width=1024),
+    "epix100": DetectorSpec("epix100", panels=1, height=704, width=768),
     # a tiny geometry for the CPU tests of the SFX path
     "smoke_a": DetectorSpec("smoke_a", panels=2, height=16, width=128),
 }

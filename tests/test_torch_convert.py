@@ -14,7 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 from flax.core import meta  # noqa: E402
 
 from psana_ray_tpu.models.resnet import ResNetClassifier as JaxResNet  # noqa: E402
-from psana_ray_tpu_torch.convert import flatten, port_key, resnet_from_flax  # noqa: E402
+from psana_ray_tpu_torch.convert import flatten, flax_names, resnet_from_flax  # noqa: E402
 from psana_ray_tpu_torch.models import fused_resnet as fr  # noqa: E402
 from psana_ray_tpu_torch.models.init import init_resnet_params  # noqa: E402
 
@@ -77,10 +77,10 @@ def test_init_is_seeded_and_perturbs_affines():
 def test_every_flax_leaf_maps(small_tree):
     model = resnet_from_flax(_nest(small_tree), stage_sizes=(2, 1))
     state = model.state_dict()
-    keys = {port_key(k) for k in small_tree}
-    assert keys == set(state)
+    port_key = {path: key for key, path in flax_names(model).items()}
+    assert set(port_key) == set(small_tree)
     for path, a in small_tree.items():
-        got = state[port_key(path)].numpy()
+        got = state[port_key[path]].numpy()
         if a.ndim == 4:
             want = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif path == "head/kernel":

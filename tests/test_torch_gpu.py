@@ -767,3 +767,55 @@ def test_shm_ring_feeds_the_pipeline_on_the_card(cuda):
     want = np.stack([src.event(i % 3, "raw")[0] for i in range(n)])
     np.testing.assert_array_equal(torch.cat(frames).cpu().numpy(), want)
     assert pipe.metrics.summary()["arena_copies"] == 3
+
+
+# -- train -> fold -> serve ------------------------------------------------------
+
+
+def test_batchnorm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``make_peaknet_step`` of a ``norm="batch"`` PeakNet-TPU (8, 16)
+    from the same init on the card (bf16 library convolutions, one
+    ``calib_kernel`` launch) and on the CPU (the plain versions): loss,
+    gradients (one whole-tree ``rel_err``) and running statistics within
+    the bf16 bound."""
+    from psana_ray_tpu_torch.convert import flatten, flax_array, flax_names
+
+    src = pt.SyntheticSource(num_events=1, detector_name="smoke_a", seed=5)
+    calib = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
+    frames = np.stack([src.event(i, "raw")[0] for i in range(4)])
+    tree = pt.init_peaknet_tpu_params((8, 16), seed=3, norm="batch")
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        model = pt.unet_from_flax(tree, norm="batch", device=dev)
+        loss = pt.make_peaknet_step(model, *calib, device=dev)(frames)
+        names = flax_names(model)
+        grads = np.concatenate([flax_array(names[n], p.grad).ravel()
+                                for n, p in sorted(model.named_parameters())])
+        out[dev.type] = (float(loss), grads, flatten(pt.unet_to_flax(model)["batch_stats"]))
+    assert pt.counts() == {"calib_kernel": 1, **NO_CONV, "flash_kernel": 0, **NO_BWD}
+    (loss_c, g_c, s_c), (loss_g, g_g, s_g) = out["cpu"], out["cuda"]
+    assert abs(loss_g - loss_c) <= REL_TOL * abs(loss_c)
+    assert rel_err(torch.from_numpy(g_c), torch.from_numpy(g_g)) < REL_TOL
+    assert max(rel_err(torch.from_numpy(s_c[k]), torch.from_numpy(s_g[k])) for k in s_c) < REL_TOL
+
+
+def test_folded_tree_through_the_kernels_matches_batch_eval(cuda):
+    """A ``norm="batch"`` PeakNet-TPU (64, 128, 256) whose running
+    statistics moved, folded and served through the kernels, against the
+    ``norm="batch_eval"`` model with the same weights."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    model = pt.unet_from_flax(pt.init_peaknet_tpu_params((64, 128, 256), seed=2, norm="batch"),
+                              norm="batch", device=cuda)
+    x = torch.randn((2, 64, 128, 1), generator=gen, device=cuda)
+    with torch.no_grad():
+        for _ in range(3):
+            model(x + 0.3 * torch.randn(x.shape, generator=gen, device=cuda))
+    variables = pt.unet_to_flax(model)
+    serving = pt.unet_from_flax(pt.fold_batchnorm(variables), device=cuda)
+    pt.reset_counters()
+    got = pt.peaknet_tpu_fused_infer(pt.pack_unet(serving), x)
+    assert pt.counts()["conv_block_kernel"] == 3 + 2
+    with torch.no_grad():
+        ref = pt.unet_from_flax(variables, norm="batch_eval", device=cuda)(x)
+    assert bool(torch.isfinite(got).all()) and float(ref.abs().max()) >= 1e-2
+    assert rel_err(ref, got) < REL_TOL

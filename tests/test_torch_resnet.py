@@ -24,28 +24,18 @@ from psana_ray_tpu.models.resnet import ResNetClassifier as JaxResNet  # noqa: E
 from psana_ray_tpu_torch.convert import block_from_flax, resnet_from_flax  # noqa: E402
 from psana_ray_tpu_torch.models import fused_resnet as fr  # noqa: E402
 from psana_ray_tpu_torch.models.resnet import ResNetClassifier  # noqa: E402
+from torch_parity import (  # noqa: E402
+    check_norm_kind,
+    norm_variables,
+    one_torch_thread,
+    perturbed,
+    rel_err,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REL_TOL = 0.05
 STAGES = (3, 4, 6, 3)
-
-
-def rel_err(ref, got):
-    ref = np.asarray(ref, np.float32)
-    got = np.asarray(got, np.float32)
-    return float(np.max(np.abs(ref - got)) / max(np.max(np.abs(ref)), 1e-3))
-
-
-def perturbed(tree, rng):
-    """numpy copy of a flax params tree with every f32 leaf moved by
-    0.1 N(0, 1), as the JAX package's ``_randomized`` does."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = perturbed(v, rng)
-        else:
-            a = np.asarray(v)
-            out[k] = (a + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-    return out
 
 
 def flax_params(module, x, rng):
@@ -164,10 +154,22 @@ def test_stage_sizes_must_match_packed_blocks():
         fr.resnet_fused_infer(params, torch.zeros(1, 32, 32, 2), stage_sizes=(1, 2))
 
 
-@pytest.mark.parametrize("norm", ["group", "batch"])
-def test_other_norms_are_not_ported(norm):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNetClassifier((1, 1), in_channels=2, width=8, norm=norm)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["group", "batch", "batch_eval"])
+def test_norm_kinds_match_flax(rng, kind, dtype):
+    """Every trainable norm kind of a two-stage ResNet against flax's."""
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jmodel = JaxResNet(stage_sizes=(1, 1), num_classes=2, width=8, norm=kind, dtype=jdt)
+    variables = norm_variables(jmodel, x, rng)
+    check_norm_kind(jmodel, lambda v: resnet_from_flax(v, (1, 1), norm=kind, dtype=tdt), x,
+                    variables, kind, dtype)
+
+
+def test_unknown_norm_kind_raises():
+    """The reference takes any unknown kind as "group"; the port refuses it."""
+    with pytest.raises(ValueError, match="norm kind"):
+        ResNetClassifier((1, 1), in_channels=2, width=8, norm="layer")
 
 
 def test_plain_versions_use_xla_same_padding(rng):

@@ -26,27 +26,17 @@ from psana_ray_tpu_torch.convert import unet_from_flax  # noqa: E402
 from psana_ray_tpu_torch.models import fused_unet as fu  # noqa: E402
 from psana_ray_tpu_torch.models import unet_tpu as tu  # noqa: E402
 from psana_ray_tpu_torch.models.init import init_peaknet_tpu_params  # noqa: E402
+from torch_parity import (  # noqa: E402
+    check_norm_kind,
+    norm_variables,
+    one_torch_thread,
+    perturbed,
+    rel_err,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REL_TOL = 0.05
-
-
-def rel_err(ref, got):
-    ref = np.asarray(ref, np.float32)
-    got = np.asarray(got, np.float32)
-    return float(np.max(np.abs(ref - got)) / max(np.max(np.abs(ref)), 1e-3))
-
-
-def perturbed(tree, rng):
-    """numpy copy of a flax params tree with every leaf moved by
-    0.1 N(0, 1), as the JAX package's ``_randomized`` does."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = perturbed(v, rng)
-        else:
-            a = np.asarray(v)
-            out[k] = (a + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-    return out
 
 
 def flax_params(module, x, rng):
@@ -184,10 +174,22 @@ def test_conversion_refuses_unmapped_and_missing_leaves():
         unet_from_flax(missing)
 
 
-@pytest.mark.parametrize("norm", ["group", "batch", "batch_eval"])
-def test_other_norms_are_not_ported(norm):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tu.PeakNetUNetTPU((8, 16), norm=norm)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["group", "batch", "batch_eval"])
+def test_norm_kinds_match_flax(rng, kind, dtype):
+    """Every trainable norm kind of a two-level PeakNet-TPU against flax's."""
+    x = rng.normal(size=(2, 16, 32, 1)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jmodel = ju.PeakNetUNetTPU(features=(8, 16), norm=kind, s2d=2, dtype=jdt)
+    variables = norm_variables(jmodel, x, rng)
+    check_norm_kind(jmodel, lambda v: unet_from_flax(v, norm=kind, dtype=tdt), x, variables,
+                    kind, dtype)
+
+
+def test_unknown_norm_kind_raises():
+    """The reference takes any unknown kind as "group"; the port refuses it."""
+    with pytest.raises(ValueError, match="norm kind"):
+        tu.PeakNetUNetTPU((8, 16), norm="layer")
 
 
 def test_conv_block_refuses_bad_inputs():
