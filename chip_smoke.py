@@ -3,9 +3,11 @@
 NVIDIA H100: the calibrated ResNet-50 classifier (also fed by a producer
 process through the shared-memory ring), the SFX Bragg-peak pipeline
 (PeakNet-TPU U-Net), the ViT hit classifier with the flash-attention
-trunk, the ViT's training recipe with the flash backward kernels, and
+trunk, the ViT's training recipe with the flash backward kernels,
 train -> fold -> serve: PeakNet-TPU and ResNet-50 trained with BatchNorm,
-folded into frozen affines and served through the kernels.
+folded into frozen affines and served through the kernels, the
+two-detector fan-in (BASELINE config 5) and the SFX operator CLI over
+``shm://``.
 
 Run from the root of a checkout, with no arguments:
 
@@ -182,6 +184,30 @@ one JSON line (``{"phase": ...}``):
    (recorded, not gated).
 17b. ``peaknet_train_profile``: 4 more steps of the trained model under
    ``torch.profiler``.
+17c. ``fanin``: BASELINE config 5's device leg at full detector geometry.
+   Two ``spawn`` producer processes (``produce_synthetic``) stream
+   epix10k2M and jungfrau4M f32 RAW frames into their own shm rings of 32
+   slots; one ``FanInPipeline`` (epix10k2M at batch 16, jungfrau4M at
+   batch 8, merge depth 2, pinned arenas at the fan-in floor of 10 a leg)
+   runs ``fused_calibrate`` (``calib_kernel``, f32) on each detector's
+   batches with its own constants, 30 batches a leg. Each detector's
+   count must equal its producer's events, ``calib_kernel`` must launch
+   exactly once a batch and nothing else, each leg's last batch must be
+   within K1's f32 tolerance of ``fused_calibrate_plain`` on the card, and
+   the consumer must see the legs interleaved. Prints each leg's frames/s
+   and its staging thread's host ms to assemble and to stage a batch after
+   its first 6 batches, the aggregate frames/s over the window where both
+   legs are past theirs, and the pinned bytes.
+17d. ``sfx_cli``: the operator CLI (``sfx.run(sfx.parse_args(...),
+   writer=<in-memory>)``) over ``shm://``, fed by a ``spawn`` producer,
+   serving ``peaknet_train``'s parameter file with ``--mode quality``,
+   ``--calib_npz`` and ``--cursor_path`` in a temporary directory under
+   ``build/chip_smoke/``. First the 16 held-out events ``peaknet_train``
+   served in-process: the peak sets must equal its, with exactly +1
+   ``calib_kernel`` and +8 ``conv_block_kernel`` a batch and a cursor
+   at 16. Then 240 events cut by ``--max_events 200``: 26 batches
+   written (the one in flight drained), their launches exact, the cursor
+   at 208; prints frames/s and p50/p99 batch ms after 6 warm-up batches.
 18. ``resnet_fold``: config 4's ResNet-50 (width 64, (3, 4, 6, 3)) with
    ``norm="batch"`` trained 3 steps (``masked_softmax_xent``, full
    batches of 8, +1 ``calib_kernel`` a step), then ``resnet_to_flax`` ->
@@ -194,10 +220,11 @@ one JSON line (``{"phase": ...}``):
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed run, the training runs and the fold runs
-(phases 5, 6b, 8, 11, 14, 17 and 18), those of ``conv1x1_kernel``,
-``conv3x3_kernel`` and ``back_kernel`` the ResNet runs' (5, 6b and 18),
-those of ``conv_block_kernel`` the SFX runs' (8 and 17), the
+serving runs, the shm-fed run, the training runs, the fan-in, the CLI
+and the fold runs (phases 5, 6b, 8, 11, 14, 17, 17c, 17d and 18), those
+of ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
+runs' (5, 6b and 18), those of ``conv_block_kernel`` the SFX runs' (8, 17
+and 17d), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
 just before it and reads them just after.
@@ -280,6 +307,14 @@ PEAKNET_STEPS = 300
 PEAKNET_BATCH = 2
 PEAKNET_EVAL_RUN = 2
 PEAKNET_EVAL_EVENTS = 16  # two SFX batches
+# config 5 (bench.py:4858-4925): each detector's RAW frames, its batch, its
+# ring's slots and its producer's pool of events
+FANIN_LEGS = (("epix10k2M", 16, 32, 16), ("jungfrau4M", 8, 32, 8))
+FANIN_BATCHES = 30  # a leg
+FANIN_WARMUP = 6  # batches of each leg left out of the rates
+FANIN_MERGE_DEPTH = 2
+CLI_BATCHES = 26  # batches the bounded CLI run writes: --max_events 8 * 25 + the one in flight
+UNET_LAUNCHES = 8  # conv_block_kernel launches a batch of SFX_FEATURES: 3 + 3 + 2
 FOLD_STEPS = 3
 FOLD_BATCH = 8
 FOLD_LR = 1e-3
@@ -1772,7 +1807,8 @@ def phase_peaknet_train(torch, pt, pool, calib_np, device, root):
          serve_launches=serve_counts, peaks_written=pipe.n_peaks, recall=physics["recall"],
          precision=physics["precision"], n_truth=physics["n_truth"], n_pred=physics["n_pred"],
          fused_vs_batch_eval_rel_err=err, logits_max_abs=float(ref.abs().max()))
-    return {name: train_counts[name] + serve_counts[name] for name in train_counts}, model
+    served = {"params": path, "sets": sink.sets, "calib": calib_np}
+    return {name: train_counts[name] + serve_counts[name] for name in train_counts}, model, served
 
 
 def phase_peaknet_train_profile(torch, pt, model, pool, calib_np, device):
@@ -1793,6 +1829,271 @@ def phase_peaknet_train_profile(torch, pt, model, pool, calib_np, device):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     emit("peaknet_train_profile", **profile_summary(torch, prof, wall, PROFILE_STEPS))
+
+
+
+def check_leg_staging(fan, det, floor, frame_nbytes) -> int:
+    """A fan-in leg kept ``floor`` pinned arenas, copied every batch to the
+    card straight from its arena and each frame once on the host; returns
+    the leg's pinned bytes."""
+    pool = fan.pipes[det].batcher.pool
+    arenas = [t for a in pool for t in a.tensors]
+    s = fan.metrics[det].summary()
+    if (len(pool) != floor or not all(t.is_pinned() for t in arenas)
+            or s["arena_copies"] != FANIN_BATCHES or s["host_frame_bytes_per_frame"] != frame_nbytes):
+        raise AssertionError(f"{det}: {len(pool)} arenas (expected {floor}), staging {s}")
+    return sum(t.numel() * t.element_size() for t in arenas)
+
+
+def phase_fanin(torch, pt, device):
+    """Config 5's device leg: two ``spawn`` producer processes stream
+    epix10k2M and jungfrau4M RAW frames into their own shm rings; one
+    ``FanInPipeline`` with pinned arenas at the fan-in floor runs K1 on each
+    detector's batches, each with its own constants."""
+    import multiprocessing as mp
+    import shutil
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.config import TransportConfig
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+    from psana_ray_tpu_torch.records import FrameRecord, encoded_size
+    from psana_ray_tpu_torch.transport.addressing import open_queue
+
+    t_phase = time.monotonic()
+    floor = 2 + FANIN_MERGE_DEPTH * len(FANIN_LEGS) + 4  # prefetch + merge + 4
+    ctx = mp.get_context("spawn")
+    owners, procs, produced, consts, slot_bytes = {}, {}, {}, {}, {}
+    need = 0
+    for det, _, slots, _ in FANIN_LEGS:
+        spec = pt.DETECTORS[det]
+        slot_bytes[det] = 1 + encoded_size(FrameRecord(0, 0, np.zeros(spec.frame_shape,
+                                                                      np.float32), 0.0))
+        need += slots * (slot_bytes[det] + 64)
+    shm = shutil.disk_usage("/dev/shm")
+    if shm.free < need:
+        raise AssertionError(f"/dev/shm has {shm.free} bytes free, the rings need {need}")
+    queues = {}
+    try:
+        for det, batch, slots, pool in FANIN_LEGS:
+            owners[det] = pt.ShmRingBuffer.create(f"chip_smoke_fanin_{det}_{os.getpid()}",
+                                                  maxsize=slots, slot_bytes=slot_bytes[det])
+            produced[det] = ctx.Value("q", 0)
+            procs[det] = ctx.Process(target=pt.produce_synthetic, daemon=True,
+                                     args=(owners[det].name, det, FANIN_BATCHES * batch, pool),
+                                     kwargs=dict(seed=0, produced=produced[det]))
+            procs[det].start()
+        for det, *_ in FANIN_LEGS:
+            src = pt.SyntheticSource(num_events=1, detector_name=det, seed=0)
+            consts[det] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+                src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask()))
+            queues[det] = open_queue(TransportConfig(address=f"shm://{owners[det].name}"))
+        for det, *_ in FANIN_LEGS:
+            wait_full(queues[det], procs[det].is_alive)
+        fill_s = time.monotonic() - t_phase
+        stamps = {det: [] for det, *_ in FANIN_LEGS}
+        order, last, snap = [], {}, {}
+
+        def on_result(name, out, batch):
+            stamps[name].append(time.monotonic())
+            order.append(name)
+            last[name] = (batch.frames, out)
+            if len(stamps[name]) == FANIN_WARMUP:  # the staging thread's sums so far
+                m = fan.metrics[name]
+                snap[name] = (m.host_batch_s, m.host_stage_s, m.staged)
+
+        steps = {det: (lambda batch, c=consts[det]: pt.fused_calibrate(batch.frames, *c,
+                                                                        threshold=10.0))
+                 for det, *_ in FANIN_LEGS}
+        pt.reset_counters()
+        t0 = time.monotonic()
+        fan = pt.FanInPipeline([pt.DetectorStream(det, queues[det], batch_size=batch,
+                                                  batcher_buffers=floor, max_wait_s=60.0)
+                                for det, batch, *_ in FANIN_LEGS],
+                               merge_depth=FANIN_MERGE_DEPTH)
+        counts = fan.run(steps, on_result=on_result, block_until_ready=True)
+        wall = time.monotonic() - t0
+        launches = pt.counts()
+        for det, *_ in FANIN_LEGS:
+            procs[det].join(timeout=60)
+    finally:
+        for det, proc in procs.items():
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+        for q in queues.values():
+            q.disconnect()
+        for owner in owners.values():
+            owner.destroy()
+
+    want_counts = {det: FANIN_BATCHES * batch for det, batch, *_ in FANIN_LEGS}
+    got_produced = {det: produced[det].value for det in produced}
+    if (counts != want_counts or got_produced != want_counts
+            or any(p.exitcode != 0 for p in procs.values())):
+        raise AssertionError(f"fan-in counts {counts}, produced {got_produced}, producer exits "
+                             f"{[p.exitcode for p in procs.values()]}, expected {want_counts}")
+    want = {**dict.fromkeys(launches, 0), "calib_kernel": FANIN_BATCHES * len(FANIN_LEGS)}
+    if launches != want:
+        raise AssertionError(f"fan-in launches {launches}, expected {want}")
+    legs, errs, pinned_bytes = {}, {}, 0
+    for det, batch, *_ in FANIN_LEGS:
+        frames, out = last[det]
+        ref = fused_calibrate_plain(frames, *consts[det], threshold=10.0)
+        err = (out - ref).abs()
+        if not (torch.isfinite(out).all() and bool((err <= 1e-4 + 1e-5 * ref.abs()).all())):
+            raise AssertionError(f"{det}: the last batch differs from fused_calibrate_plain by "
+                                 f"{float(err.max())}")
+        errs[det] = float(err.max())
+        leg_pinned = check_leg_staging(fan, det, floor, frames[0].numel() * 4)
+        pinned_bytes += leg_pinned
+        m, s = fan.metrics[det], fan.metrics[det].summary()
+        hb, hs, n0 = snap[det]
+        legs[det] = {
+            "batch": batch, "frame_shape": list(frames.shape[1:]), "batches": len(stamps[det]),
+            "fps": batch * (len(stamps[det]) - FANIN_WARMUP)  # after the warm-up
+                   / (stamps[det][-1] - stamps[det][FANIN_WARMUP - 1]),
+            "host_batch_ms": 1e3 * (m.host_batch_s - hb) / max(m.staged - n0, 1),
+            "host_stage_ms": 1e3 * (m.host_stage_s - hs) / max(m.staged - n0, 1),
+            "p50_step_ms": s["p50_ms"], "p99_step_ms": s["p99_ms"],
+            "pinned_bytes": leg_pinned,
+            "max_abs_err": errs[det],
+        }
+    # interleaved: each leg delivered a batch before the other's last one
+    firsts = {d: order.index(d) for d in legs}
+    lasts = {d: len(order) - 1 - order[::-1].index(d) for d in legs}
+    if any(firsts[a] > lasts[b] for a in legs for b in legs if a != b):
+        raise AssertionError(f"the legs were not interleaved: {''.join(d[0] for d in order)}")
+    # aggregate: every leg's batches after its warm-up, over the time from
+    # the first leg's warm-up end to the last batch; and over the window in
+    # which both legs are past their warm-up and still running (None if
+    # one leg ended before the other's warm-up did)
+    steady = {d: stamps[d][FANIN_WARMUP - 1] for d in legs}
+    t0, t1 = min(steady.values()), max(st[-1] for st in stamps.values())
+    frames_after = sum(legs[d]["batch"] * (len(stamps[d]) - FANIN_WARMUP) for d in legs)
+    w0, w1 = max(steady.values()), min(st[-1] for st in stamps.values())
+    both = sum(legs[d]["batch"] * sum(w0 < t <= w1 for t in stamps[d]) for d in legs)
+    emit("fanin", legs=legs, merge_depth=FANIN_MERGE_DEPTH, batcher_buffers=floor,
+         pinned_bytes=pinned_bytes, aggregate_fps=frames_after / (t1 - t0),
+         both_legs_fps=both / (w1 - w0) if w1 > w0 else None, both_legs_window_s=w1 - w0,
+         wall_s=wall, fill_s=fill_s, seconds=time.monotonic() - t_phase, frames=counts,
+         launches=launches,
+         order="".join(d[0] for d in order),
+         switches=sum(a != b for a, b in zip(order, order[1:])),
+         dev_shm_free_bytes=shm.free)
+    return launches
+
+
+def phase_sfx_cli(torch, pt, device, root, served):
+    """The operator CLI over ``shm://``, fed by a ``spawn`` producer: first
+    the held-out events that ``peaknet_train`` served in-process, through
+    the parameter file it wrote, whose peak sets must equal its; then a
+    longer stream cut by ``--max_events``."""
+    import multiprocessing as mp
+    import tempfile
+
+    import numpy as np
+
+    from psana_ray_tpu_torch import sfx
+    from psana_ray_tpu_torch.records import FrameRecord, encoded_size
+
+    spec = pt.DETECTORS[DETECTOR]
+    slot_bytes = 1 + encoded_size(FrameRecord(0, 0, np.zeros(spec.frame_shape, np.float32), 0.0))
+    ctx = mp.get_context("spawn")
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+
+    def start(tag, n_events):
+        """A fresh ring and a producer process that fills it."""
+        owner = pt.ShmRingBuffer.create(f"chip_smoke_cli_{tag}_{os.getpid()}", maxsize=32,
+                                        slot_bytes=slot_bytes)
+        proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
+                           args=(owner.name, DETECTOR, n_events, PEAKNET_EVAL_EVENTS),
+                           kwargs=dict(seed=0, run=PEAKNET_EVAL_RUN))
+        proc.start()
+        return owner, proc
+
+    def serve(tmp, tag, owner, proc, extra, metrics):
+        """One CLI run over ``owner``'s ring; returns the peak sets, the
+        launches, the cursor's resume point and the wall seconds of the
+        run. Stops the producer and destroys the ring."""
+        cursor = os.path.join(tmp, f"{tag}.cursor")
+        sink = PeakSink()
+        try:
+            wait_full(owner, proc.is_alive)
+            args = sfx.parse_args([
+                "--address", f"shm://{owner.name}", "--serving_params", served["params"],
+                "--output", os.path.join(tmp, f"{tag}.cxi"), "--mode", "quality",
+                "--calib_npz", calib, "--cursor_path", cursor, "--batch", str(SFX_BATCH),
+                "--log_level", "WARNING", *extra])
+            pt.reset_counters()
+            t0 = time.monotonic()
+            rc = sfx.run(args, writer=sink, metrics=metrics)
+            wall = time.monotonic() - t0
+            launches = pt.counts()
+        finally:
+            proc.terminate()  # a bounded run leaves it waiting on a full ring
+            proc.join(timeout=10)
+            owner.destroy()
+        if rc != 0:
+            raise AssertionError(f"the CLI's {tag} run exited {rc}")
+        return sink.sets, launches, pt.StreamCursor.load(cursor).resume_point(0), wall
+
+    t_phase = time.monotonic()
+    bound = (CLI_BATCHES - 1) * SFX_BATCH
+    # both producers start now: the second fills its ring during the first run
+    rings = {"held_out": start("held_out", PEAKNET_EVAL_EVENTS),
+             "bounded": start("bounded", (CLI_BATCHES + 4) * SFX_BATCH)}
+    try:
+        with tempfile.TemporaryDirectory(dir=work) as tmp:
+            calib = os.path.join(tmp, "calib.npz")
+            ped, gain, mask = served["calib"]
+            np.savez(calib, pedestal=ped, gain=gain, mask=mask)
+            # the held-out events of peaknet_train, through its parameter file
+            held = serve(tmp, "held_out", *rings.pop("held_out"), [], None)
+            # a longer stream, cut by --max_events: the batch in flight is drained
+            metrics = pt.PipelineMetrics(warmup=WARMUP_BATCHES)
+            bounded = serve(tmp, "bounded", *rings.pop("bounded"),
+                            ["--max_events", str(bound)], metrics)
+    finally:
+        for owner, proc in rings.values():  # a run that failed before its serve
+            proc.terminate()
+            proc.join(timeout=10)
+            owner.destroy()
+    seconds = time.monotonic() - t_phase
+
+    sets, launches, resume, _ = held
+    nb = PEAKNET_EVAL_EVENTS // SFX_BATCH
+    want = {**dict.fromkeys(launches, 0), "calib_kernel": nb,
+            "conv_block_kernel": UNET_LAUNCHES * nb}
+    ref = served["sets"]
+    same = len(sets) == len(ref) and all(
+        (a.event_idx, a.shard_rank, a.photon_energy) == (b.event_idx, b.shard_rank,
+                                                         b.photon_energy)
+        and np.array_equal(a.y, b.y) and np.array_equal(a.x, b.x)
+        and np.array_equal(a.intensity, b.intensity) for a, b in zip(sets, ref))
+    if launches != want or not same or resume != PEAKNET_EVAL_EVENTS:
+        raise AssertionError(f"CLI on the held-out events: launches {launches} (expected "
+                             f"{want}), peak sets equal to peaknet_train's: {same}, "
+                             f"cursor resumes at {resume}")
+    held = {"events": len(sets), "peaks": int(sum(s.n for s in sets)), "launches": launches,
+            "peak_sets_equal_peaknet_train": same, "cursor_resume_point": resume}
+
+    sets, launches, resume, wall = bounded
+    written = len(sets)
+    want = {**dict.fromkeys(launches, 0), "calib_kernel": CLI_BATCHES,
+            "conv_block_kernel": UNET_LAUNCHES * CLI_BATCHES}
+    if (not bound <= written <= bound + 2 * SFX_BATCH - 1 or written != CLI_BATCHES * SFX_BATCH
+            or [s.event_idx for s in sets] != list(range(written)) or resume != written
+            or launches != want):
+        raise AssertionError(f"bounded CLI run: {written} events for --max_events {bound}, "
+                             f"cursor resumes at {resume}, launches {launches} (expected {want})")
+    m = metrics.summary()
+    emit("sfx_cli", held_out=held, max_events=bound, events_written=written,
+         cursor_resume_point=resume, launches=launches, wall_s=wall, seconds=seconds,
+         timed_batches=m["batches"], fps=m["fps"], p50_batch_ms=m["p50_ms"],
+         p99_batch_ms=m["p99_ms"], host_batch_ms=m["host_batch_ms"],
+         host_stage_ms=m["host_stage_ms"], arena_h2d_copies=m["arena_copies"])
+    return {name: held["launches"][name] + launches[name] for name in launches}
 
 
 def phase_resnet_fold(torch, pt, pool, consts, device):
@@ -1960,9 +2261,12 @@ def main() -> int:
     train, train_counts = phase_vit_train(torch, pt, tf, consts, src.spec.frame_shape, device)
     phase_vit_train_profile(torch, pt, train)
     phase_narrow(torch, pt, device)
-    peaknet_counts, peaknet = phase_peaknet_train(torch, pt, pool, calib_np, device, root)
+    peaknet_counts, peaknet, served = phase_peaknet_train(torch, pt, pool, calib_np, device,
+                                                          root)
     phase_peaknet_train_profile(torch, pt, peaknet, pool, calib_np, device)
     del peaknet
+    fanin_counts = phase_fanin(torch, pt, device)
+    cli_counts = phase_sfx_cli(torch, pt, device, root, served)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -1973,6 +2277,7 @@ def main() -> int:
         "launches": (counts["calib_kernel"] + shm_counts["calib_kernel"]
                      + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
                      + train_counts["calib_kernel"] + peaknet_counts["calib_kernel"]
+                     + fanin_counts["calib_kernel"] + cli_counts["calib_kernel"]
                      + fold_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1996,7 +2301,8 @@ def main() -> int:
     kernels.append({
         "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/conv_sm90.cu",
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
-        "launches": sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"],
+        "launches": (sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"]
+                     + cli_counts["conv_block_kernel"]),
         "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],

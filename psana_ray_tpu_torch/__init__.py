@@ -51,8 +51,12 @@ del train_peaknet  # noqa: F821 (bound by the import above)
 # name -> the module that defines it, imported at first use
 _EXPORTS = {
     "load_params": "psana_ray_tpu_torch.checkpoint",
+    "load_train_state": "psana_ray_tpu_torch.checkpoint",
     "save_params": "psana_ray_tpu_torch.checkpoint",
+    "save_train_state": "psana_ray_tpu_torch.checkpoint",
     "StreamCursor": "psana_ray_tpu_torch.checkpoint",
+    "peaknet_from_flax": "psana_ray_tpu_torch.convert",
+    "peaknet_to_flax": "psana_ray_tpu_torch.convert",
     "resnet18_from_flax": "psana_ray_tpu_torch.convert",
     "resnet_from_flax": "psana_ray_tpu_torch.convert",
     "resnet_to_flax": "psana_ray_tpu_torch.convert",
@@ -61,12 +65,19 @@ _EXPORTS = {
     "vit_from_flax": "psana_ray_tpu_torch.convert",
     "vit_to_flax": "psana_ray_tpu_torch.convert",
     "CxiWriter": "psana_ray_tpu_torch.cxi",
+    "merge_cxi": "psana_ray_tpu_torch.cxi",
     "PeakSet": "psana_ray_tpu_torch.cxi",
+    "read_cxi_peaks": "psana_ray_tpu_torch.cxi",
+    "read_cxi_peaksets": "psana_ray_tpu_torch.cxi",
+    "unpad_peaks": "psana_ray_tpu_torch.cxi",
+    "TransportConfig": "psana_ray_tpu_torch.config",
     "resolve_device": "psana_ray_tpu_torch.device",
     "Batch": "psana_ray_tpu_torch.infeed",
     "batches_from_queue": "psana_ray_tpu_torch.infeed",
+    "DetectorStream": "psana_ray_tpu_torch.infeed",
     "DevicePrefetcher": "psana_ray_tpu_torch.infeed",
     "drive_step": "psana_ray_tpu_torch.infeed",
+    "FanInPipeline": "psana_ray_tpu_torch.infeed",
     "FrameBatcher": "psana_ray_tpu_torch.infeed",
     "InfeedPipeline": "psana_ray_tpu_torch.infeed",
     "PipelineMetrics": "psana_ray_tpu_torch.infeed",
@@ -83,6 +94,7 @@ _EXPORTS = {
     "fused_conv_block": "psana_ray_tpu_torch.models",
     "FusedResNet": "psana_ray_tpu_torch.models",
     "FusedUNet": "psana_ray_tpu_torch.models",
+    "init_peaknet_params": "psana_ray_tpu_torch.models",
     "init_peaknet_tpu_params": "psana_ray_tpu_torch.models",
     "init_resnet_params": "psana_ray_tpu_torch.models",
     "init_vit_params": "psana_ray_tpu_torch.models",
@@ -95,6 +107,7 @@ _EXPORTS = {
     "patchify_panels": "psana_ray_tpu_torch.models",
     "peak_metrics": "psana_ray_tpu_torch.models",
     "peaknet_tpu_fused_infer": "psana_ray_tpu_torch.models",
+    "PeakNetUNet": "psana_ray_tpu_torch.models",
     "PeakNetUNetTPU": "psana_ray_tpu_torch.models",
     "ResNet18": "psana_ray_tpu_torch.models",
     "ResNet50": "psana_ray_tpu_torch.models",
@@ -130,6 +143,9 @@ _EXPORTS = {
     "train_peaknet": "psana_ray_tpu_torch.train",
     "EMPTY": "psana_ray_tpu_torch.transport",
     "FULL": "psana_ray_tpu_torch.transport",
+    "open_queue": "psana_ray_tpu_torch.transport.addressing",
+    "Registry": "psana_ray_tpu_torch.transport",
+    "RendezvousTimeout": "psana_ray_tpu_torch.transport",
     "RingBuffer": "psana_ray_tpu_torch.transport",
     "ShmRingBuffer": "psana_ray_tpu_torch.transport",
     "TransportClosed": "psana_ray_tpu_torch.transport",

@@ -1,12 +1,18 @@
-"""Stream cursors and parameter files.
+"""Stream cursors, parameter files and train states.
 
 The port's own copy of ``StreamCursor`` from ``psana_ray_tpu/checkpoint.py``,
 with the same JSON file format, so that either package resumes from the
-other's cursor; and :func:`save_params`/:func:`load_params`, which keep a
+other's cursor; :func:`save_params`/:func:`load_params`, which keep a
 tree of arrays (a model's flax variables, a folded serving tree) as one
-self-describing ``.npz`` file that needs neither orbax nor torch to read.
-The orbax train state of the JAX package (``save_train_state``) is not
-ported.
+self-describing ``.npz`` file that needs neither orbax nor torch to read;
+and :func:`save_train_state`/:func:`load_train_state`, a train state in
+the same kind of file.
+
+The JAX package keeps its trees in orbax directories, and orbax needs
+JAX, which the port does not import. ``tools/convert_params.py`` carries
+``params`` and ``batch_stats`` trees between the two formats, bit for
+bit, where JAX and orbax are installed; :func:`load_params` refuses an
+orbax directory and names that tool.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import dataclasses
 import json
 import os
 import tempfile
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 
@@ -69,9 +75,38 @@ def save_params(path: str, tree: Mapping[str, Any]) -> None:
 
 
 def load_params(path: str) -> Dict[str, Any]:
-    """The nested dict of numpy arrays that :func:`save_params` wrote."""
+    """The nested dict of numpy arrays that :func:`save_params` wrote. A
+    directory (an orbax tree of the JAX package) raises ``ValueError``
+    naming the tool that converts it."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, not a parameter file: an orbax tree of the JAX package? "
+            f"Convert it where JAX and orbax are installed: "
+            f"python tools/convert_params.py orbax2npz {path} OUT.npz")
     with np.load(path, allow_pickle=False) as z:
         return unflatten({key: z[key] for key in z.files})
+
+
+def save_train_state(path: str, variables: Mapping[str, Any], opt_state: Mapping[str, Any],
+                     step: int) -> None:
+    """Write a train state as one parameter file: the model's flax
+    ``variables`` (``{"params"}``, with ``"batch_stats"`` for the batch
+    norm kinds), the optimizer's ``opt_state`` (a tree of arrays) and the
+    ``step`` count, under those three keys."""
+    tree = {**variables, "opt_state": opt_state, "step": np.asarray(step, np.int64)}
+    if set(tree) - {"params", "batch_stats", "opt_state", "step"}:
+        raise ValueError(f"variables hold {sorted(variables)}: expected params and batch_stats")
+    save_params(path, tree)
+
+
+def load_train_state(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+    """``(variables, opt_state, step)`` as :func:`save_train_state` wrote them."""
+    tree = load_params(path)
+    try:
+        step, opt_state = int(tree.pop("step")), tree.pop("opt_state")
+    except KeyError as e:
+        raise ValueError(f"{path} holds no train state (no {e.args[0]!r} entry)") from e
+    return tree, opt_state, step
 
 
 @dataclasses.dataclass

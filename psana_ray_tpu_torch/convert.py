@@ -1,7 +1,8 @@
 """Flax variable trees <-> the port's ResNet, PeakNet-TPU U-Net and ViT.
 
 Takes the variables of ``psana_ray_tpu``'s ``ResNetClassifier``,
-``PeakNetUNetTPU`` (any norm kind) or ``ViTHitClassifier`` as nested dicts
+``PeakNetUNetTPU`` or the classic ``PeakNetUNet`` (any norm kind), or
+``ViTHitClassifier``, as nested dicts
 of numpy arrays (or of anything ``np.asarray`` accepts) and builds the
 port's model with the same weights; the ``*_to_flax`` functions give a
 (trained) port model's tree back, as numpy, in the reference's layout.
@@ -21,7 +22,8 @@ or ``BatchNorm``):
     head/{kernel,bias}                -> head.{weight,bias}   (kernel transposed)
 
 (``BasicBlock_i`` with ``Conv_{0,1}`` and ``N_{0,1}`` for ResNet-18.) The
-U-Net's (``pallas_unet.py:324-331``; ``n_enc = len(features) - 1``):
+U-Nets' (``pallas_unet.py:324-331``, the same for the classic network;
+``n_enc = len(features) - 1``):
 
     ConvBlock_i/Conv_{0,1}            -> enc.i.conv{1,2}.weight
     ConvBlock_i/N_{0,1}               -> enc.i.norm{1,2}
@@ -59,6 +61,7 @@ from psana_ray_tpu_torch.models.resnet import (
     ResNetClassifier,
     check_norm,
 )
+from psana_ray_tpu_torch.models.unet import PeakNetUNet
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU
 from psana_ray_tpu_torch.models.vit import ViTHitClassifier
 
@@ -129,10 +132,10 @@ def _unet_path(key: str, n_enc: int, norm: str) -> str:
 
 
 def flax_names(model: torch.nn.Module) -> Dict[str, str]:
-    """``{state_dict key: flax leaf path}`` of a port ResNet or PeakNet-TPU."""
+    """``{state_dict key: flax leaf path}`` of a port ResNet or U-Net."""
     if isinstance(model, ResNetClassifier):
         return {k: _resnet_path(k, model.norm, model.block.__name__) for k in model.state_dict()}
-    if isinstance(model, PeakNetUNetTPU):
+    if isinstance(model, PeakNetUNet):
         n_enc = len(model.features) - 1
         return {k: _unet_path(k, n_enc, model.norm) for k in model.state_dict()}
     raise TypeError(f"no flax names for {type(model).__name__}")
@@ -281,6 +284,36 @@ def unet_from_flax(
 def unet_to_flax(model: PeakNetUNetTPU) -> Dict[str, dict]:
     """The flax variables of a port PeakNet-TPU as numpy: the inverse of
     :func:`unet_from_flax`."""
+    return _to_flax(model, flax_names(model))
+
+
+def peaknet_from_flax(
+    params: Mapping,
+    device: Optional[torch.device] = None,
+    norm: str = "frozen",
+    dtype: torch.dtype = _BF16,
+) -> PeakNetUNet:
+    """Build the port's classic :class:`PeakNetUNet` with norms of kind
+    ``norm`` from a flax tree (``params``, or ``{"params",
+    "batch_stats"}``); features, input channels and classes come from the
+    tree."""
+    p = split_variables(params)[0]
+    features = infer_features(p)
+    try:
+        cin = np.shape(p["ConvBlock_0"]["Conv_0"]["kernel"])[2]
+        num_classes = np.shape(p["logits"]["kernel"])[-1]
+    except (KeyError, TypeError) as e:
+        raise ValueError("params tree has no ConvBlock_0/Conv_0 or logits kernel: is this a "
+                         "PeakNetUNet tree?") from e
+    model = PeakNetUNet(features, in_channels=cin, num_classes=num_classes,
+                        norm=check_norm(norm), dtype=dtype)
+    _fill(model, params, flax_names(model))
+    return _placed(model, device)
+
+
+def peaknet_to_flax(model: PeakNetUNet) -> Dict[str, dict]:
+    """The flax variables of a port classic PeakNetUNet as numpy: the
+    inverse of :func:`peaknet_from_flax`."""
     return _to_flax(model, flax_names(model))
 
 

@@ -1,6 +1,8 @@
-"""Infeed: fixed-shape batching and pinned-memory device prefetch."""
+"""Infeed: fixed-shape batching, pinned-memory device prefetch and the
+multi-detector fan-in."""
 
 from psana_ray_tpu_torch.infeed.batcher import Batch, FrameBatcher, batches_from_queue
+from psana_ray_tpu_torch.infeed.fanin import DetectorStream, FanInPipeline
 from psana_ray_tpu_torch.infeed.pipeline import (
     DevicePrefetcher,
     InfeedPipeline,
@@ -11,7 +13,9 @@ from psana_ray_tpu_torch.infeed.pipeline import (
 
 __all__ = [
     "Batch",
+    "DetectorStream",
     "DevicePrefetcher",
+    "FanInPipeline",
     "FrameBatcher",
     "InfeedPipeline",
     "PipelineMetrics",

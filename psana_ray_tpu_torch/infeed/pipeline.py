@@ -306,6 +306,14 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> Batch:
+        return use_on_current_stream(*self.next_staged())
+
+    def next_staged(self) -> tuple:
+        """The next ``(batch, event)``: the batch on the device and the
+        event behind its copy (None off the card), without waiting on it;
+        the thread that uses the batch passes both to
+        :func:`use_on_current_stream`. Raises ``StopIteration`` at the end
+        of the stream, and the staging thread's error if it failed."""
         if self._done:
             raise StopIteration
         item = self._buf.get()
@@ -314,14 +322,21 @@ class DevicePrefetcher:
             if self._err is not None:
                 raise self._err
             raise StopIteration
-        batch, event = item
-        if event is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(event)
-            for t in batch.arrays():
-                if torch.is_tensor(t):
-                    t.record_stream(stream)
-        return batch
+        return item
+
+
+def use_on_current_stream(batch: Batch, event) -> Batch:
+    """Make the calling thread's current stream wait for ``event`` (the
+    batch's copy to the card) and mark every device tensor of the batch as
+    used on that stream, so that the allocator does not recycle it under
+    the consumer's work; returns the batch. A no-op for ``event=None``."""
+    if event is not None:
+        stream = torch.cuda.current_stream(batch.frames.device)
+        stream.wait_event(event)
+        for t in batch.arrays():
+            if torch.is_tensor(t):
+                t.record_stream(stream)
+    return batch
 
 
 def _frames_nbytes(frames) -> int:
@@ -411,6 +426,16 @@ class InfeedPipeline:
 
     def __iter__(self) -> Iterator[Batch]:
         return iter(self._prefetcher)
+
+    def staged(self) -> Iterator[tuple]:
+        """``(batch, event)`` pairs with no wait on the copy's event: for a
+        consumer that hands each batch to another thread, which calls
+        :func:`use_on_current_stream` on its own stream."""
+        while True:
+            try:
+                yield self._prefetcher.next_staged()
+            except StopIteration:
+                return
 
     @property
     def prefetch_depth(self) -> int:

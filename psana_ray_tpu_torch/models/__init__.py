@@ -1,4 +1,5 @@
-"""Models: the ResNets and the PeakNet-TPU U-Net in every norm kind, the
+"""Models: the ResNets, the PeakNet-TPU U-Net and the classic PeakNet
+U-Net in every norm kind, the
 BatchNorm fold, their fused kernel paths, the ViT hit classifier, layouts,
 peak extraction, losses and init."""
 
@@ -23,6 +24,7 @@ from psana_ray_tpu_torch.models.fused_unet import (
 from psana_ray_tpu_torch.models.fold import export_serving_params, fold_batchnorm
 from psana_ray_tpu_torch.models.heads import nhwc_to_panels, panels_to_nhwc
 from psana_ray_tpu_torch.models.init import (
+    init_peaknet_params,
     init_peaknet_tpu_params,
     init_resnet_params,
     init_vit_params,
@@ -36,6 +38,7 @@ from psana_ray_tpu_torch.models.resnet import (
     ResNet50,
     ResNetClassifier,
 )
+from psana_ray_tpu_torch.models.unet import PeakNetUNet
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
 from psana_ray_tpu_torch.models.vit import (
     TransformerBlock,
@@ -50,6 +53,7 @@ __all__ = [
     "BottleneckBlock",
     "FusedResNet",
     "FusedUNet",
+    "PeakNetUNet",
     "PeakNetUNetTPU",
     "ResNet18",
     "ResNet50",
@@ -67,6 +71,7 @@ __all__ = [
     "fused_bottleneck",
     "fused_conv_block",
     "fused_conv_block_plain",
+    "init_peaknet_params",
     "init_peaknet_tpu_params",
     "init_resnet_params",
     "init_vit_params",

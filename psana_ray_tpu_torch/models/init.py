@@ -1,8 +1,8 @@
 """Seeded numpy initialization of the ResNet, U-Net and ViT parameter trees.
 
 Builds the same trees, with the same names and shapes, that flax's
-``ResNetClassifier(norm=...).init``, ``PeakNetUNetTPU(norm=...).init`` and
-``ViTHitClassifier().init`` give, without JAX: nested dicts of numpy
+``ResNetClassifier(norm=...).init``, ``PeakNetUNetTPU(norm=...).init``,
+``PeakNetUNet(norm=...).init`` and ``ViTHitClassifier().init`` give, without JAX: nested dicts of numpy
 arrays that
 :func:`psana_ray_tpu_torch.convert.resnet_from_flax`,
 :func:`psana_ray_tpu_torch.convert.unet_from_flax` and
@@ -183,6 +183,20 @@ def init_peaknet_tpu_params(
         "bias": np.zeros(k, np.float32),
     }
     return _with_norm(p, norm)
+
+
+def init_peaknet_params(
+    features: Sequence[int] = (32, 64, 128, 256),
+    in_channels: int = 1,
+    num_classes: int = 1,
+    seed: int = 0,
+    norm: str = "frozen",
+) -> Dict[str, dict]:
+    """The tree of the classic full-resolution ``PeakNetUNet``: the names
+    and shapes of :func:`init_peaknet_tpu_params` with no space-to-depth
+    (``logits`` emits ``num_classes`` channels)."""
+    return init_peaknet_tpu_params(features, in_channels, num_classes, s2d=1, seed=seed,
+                                   norm=norm)
 
 
 def _dense(rng: np.random.Generator, fin: int, fout: int, bias: bool = True) -> Dict[str, np.ndarray]:

@@ -1,7 +1,15 @@
-"""U-Net building blocks in PyTorch, every norm kind.
+"""The classic PeakNet U-Net and its building blocks in PyTorch, every
+norm kind.
 
 Counterpart of ``psana_ray_tpu/models/unet.py`` (``_upsample2x``,
-``ConvBlock``, ``MergeBlock``). The modules work on NCHW tensors;
+``ConvBlock``, ``MergeBlock``, ``PeakNetUNet``). :class:`PeakNetUNet` is
+the full-resolution Bragg-peak U-Net: an encoder of :class:`ConvBlock`
+levels with strided-conv downsampling, a bottleneck block, a decoder of
+upsample + conv + :class:`MergeBlock`, and an f32 1x1 ``logits`` head;
+NHWC in, NHWC f32 logits out. No TPU kernel exists for it: in both
+packages its convolutions are library ones.
+:class:`~psana_ray_tpu_torch.models.unet_tpu.PeakNetUNetTPU` is the same
+network behind a space-to-depth stem. The blocks work on NCHW tensors;
 activations in ``dtype`` (bf16 by default), f32 parameters. ``norm`` is
 one of :data:`~psana_ray_tpu_torch.models.resnet.NORMS` and means what it
 means for the ResNet (:mod:`psana_ray_tpu_torch.models.resnet`): the
@@ -12,6 +20,8 @@ affines and SiLU run on bf16 values. They are the plain oracle that
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -70,3 +80,73 @@ class MergeBlock(nn.Module):
         y = self.merge_up(up) + self.merge_skip(skip)
         y = F.silu(self.norm1(y))
         return F.silu(self.norm2(self.conv(y)))
+
+
+class PeakNetUNet(nn.Module):
+    """U-Net ``[N, H, W, C_in] -> [N, H, W, num_classes]`` f32 logits.
+
+    Submodules, in flax's order: ``enc[i]`` = ``ConvBlock_i`` (the last is
+    the bottleneck), ``down[i]`` = ``Conv_i`` (stride 2), ``up[i]`` =
+    ``Conv_{n_enc+i}``, ``merge[i]`` = ``MergeBlock_i``, and the head
+    ``logits_weight``/``logits_bias`` = ``logits``. H and W must be
+    divisible by ``2**(len(features) - 1)``.
+    """
+
+    def __init__(
+        self,
+        features: Sequence[int] = (32, 64, 128, 256),
+        in_channels: int = 1,
+        num_classes: int = 1,
+        norm: str = "frozen",
+        dtype: torch.dtype = _BF16,
+    ):
+        super().__init__()
+        self.norm = check_norm(norm)
+        self.dtype = dtype
+        self.features = tuple(features)
+        self.num_classes = num_classes
+        cin = in_channels
+        enc, down = [], []
+        for f in self.features[:-1]:
+            enc.append(ConvBlock(cin, f, norm, dtype))
+            down.append(conv3x3(f, f, norm, dtype, stride=2))
+            cin = f
+        enc.append(ConvBlock(cin, self.features[-1], norm, dtype))
+        up, merge = [], []
+        cin = self.features[-1]
+        for f in reversed(self.features[:-1]):
+            up.append(conv3x3(cin, f, norm, dtype))
+            merge.append(MergeBlock(f, f, f, norm, dtype))
+            cin = f
+        self.enc, self.down = nn.ModuleList(enc), nn.ModuleList(down)
+        self.up, self.merge = nn.ModuleList(up), nn.ModuleList(merge)
+        self.logits_weight = nn.Parameter(torch.zeros(num_classes, cin, 1, 1))
+        self.logits_bias = nn.Parameter(torch.zeros(num_classes))
+        self.requires_grad_(norm != "frozen")
+
+    def check_extent(self, h: int, w: int) -> None:
+        quantum = 2 ** (len(self.features) - 1)
+        if h % quantum or w % quantum:
+            raise ValueError(
+                f"PeakNetUNet needs H, W divisible by {quantum} "
+                f"({len(self.features) - 1} stride-2 levels); got {h}x{w} — "
+                f"pad the panels or reduce depth"
+            )
+
+    def logits_of(self, x: torch.Tensor) -> torch.Tensor:
+        """The network on NHWC ``x``: NHWC f32 logits at ``x``'s extent."""
+        y = x.to(self.dtype).permute(0, 3, 1, 2)
+        skips = []
+        for block, down in zip(self.enc[:-1], self.down):
+            y = block(y)
+            skips.append(y)
+            y = down(y)
+        y = self.enc[-1](y)
+        for up, merge, skip in zip(self.up, self.merge, reversed(skips)):
+            y = merge(up(upsample2x(y)), skip)
+        # f32 head over the features, NHWC
+        return y.permute(0, 2, 3, 1).float() @ self.logits_weight[:, :, 0, 0].t() + self.logits_bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.check_extent(x.shape[1], x.shape[2])
+        return self.logits_of(x)

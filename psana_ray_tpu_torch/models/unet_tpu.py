@@ -1,11 +1,12 @@
 """PeakNet-TPU, the space-to-depth Bragg-peak U-Net, in PyTorch.
 
 Counterpart of ``psana_ray_tpu/models/unet_tpu.py``: a 2x2 (``s2d``)
-pixel unshuffle, an encoder of :class:`ConvBlock` levels with
-strided-conv downsampling, a bottleneck block, a decoder of upsample +
-conv + :class:`MergeBlock`, and an f32 1x1
-``logits`` head that emits ``num_classes * s2d**2`` channels, shuffled
-back to one logit per original pixel. NHWC in (``[N, H, W, C_in]``),
+pixel unshuffle in front of the classic network
+(:class:`~psana_ray_tpu_torch.models.unet.PeakNetUNet`: an encoder of
+``ConvBlock`` levels with strided-conv downsampling, a bottleneck block,
+a decoder of upsample + conv + ``MergeBlock``), whose f32 1x1 ``logits``
+head emits ``num_classes * s2d**2`` channels, shuffled back to one logit
+per original pixel. NHWC in (``[N, H, W, C_in]``),
 NHWC out (``[N, H, W, num_classes]``, f32). ``norm`` and ``dtype`` mean
 what they mean for the ResNet (:mod:`psana_ray_tpu_torch.models.resnet`):
 ``"group"`` and ``"batch"`` train (the logits head too), ``"batch_eval"``
@@ -22,10 +23,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch import nn
 
-from psana_ray_tpu_torch.models.resnet import check_norm
-from psana_ray_tpu_torch.models.unet import ConvBlock, MergeBlock, conv3x3, upsample2x
+from psana_ray_tpu_torch.models.unet import PeakNetUNet
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -55,7 +54,7 @@ def check_extent(h: int, w: int, features: Sequence[int], s2d: int) -> None:
         )
 
 
-class PeakNetUNetTPU(nn.Module):
+class PeakNetUNetTPU(PeakNetUNet):
     """U-Net ``[N, H, W, C_in] -> [N, H, W, num_classes]`` f32 logits.
 
     Submodules, in flax's order: ``enc[i]`` = ``ConvBlock_i`` (the last is
@@ -72,43 +71,13 @@ class PeakNetUNetTPU(nn.Module):
         norm: str = "frozen",
         dtype: torch.dtype = torch.bfloat16,
     ):
-        super().__init__()
-        self.norm = check_norm(norm)
-        self.dtype = dtype
-        self.features = tuple(features)
+        super().__init__(features, in_channels * s2d * s2d, num_classes * s2d * s2d, norm, dtype)
         self.num_classes = num_classes
         self.s2d = s2d
-        cin = in_channels * s2d * s2d
-        enc, down = [], []
-        for f in self.features[:-1]:
-            enc.append(ConvBlock(cin, f, norm, dtype))
-            down.append(conv3x3(f, f, norm, dtype, stride=2))
-            cin = f
-        enc.append(ConvBlock(cin, self.features[-1], norm, dtype))
-        up, merge = [], []
-        cin = self.features[-1]
-        for f in reversed(self.features[:-1]):
-            up.append(conv3x3(cin, f, norm, dtype))
-            merge.append(MergeBlock(f, f, f, norm, dtype))
-            cin = f
-        self.enc, self.down = nn.ModuleList(enc), nn.ModuleList(down)
-        self.up, self.merge = nn.ModuleList(up), nn.ModuleList(merge)
-        k = num_classes * s2d * s2d
-        self.logits_weight = nn.Parameter(torch.zeros(k, cin, 1, 1))
-        self.logits_bias = nn.Parameter(torch.zeros(k))
-        self.requires_grad_(norm != "frozen")
+
+    def check_extent(self, h: int, w: int) -> None:
+        check_extent(h, w, self.features, self.s2d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_extent(x.shape[1], x.shape[2], self.features, self.s2d)
-        y = space_to_depth(x, self.s2d).to(self.dtype).permute(0, 3, 1, 2)
-        skips = []
-        for block, down in zip(self.enc[:-1], self.down):
-            y = block(y)
-            skips.append(y)
-            y = down(y)
-        y = self.enc[-1](y)
-        for up, merge, skip in zip(self.up, self.merge, reversed(skips)):
-            y = merge(up(upsample2x(y)), skip)
-        # f32 head over the features, NHWC
-        logits = y.permute(0, 2, 3, 1).float() @ self.logits_weight[:, :, 0, 0].t() + self.logits_bias
-        return depth_to_space(logits, self.s2d)
+        self.check_extent(x.shape[1], x.shape[2])
+        return depth_to_space(self.logits_of(space_to_depth(x, self.s2d)), self.s2d)

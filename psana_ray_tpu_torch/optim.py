@@ -9,15 +9,19 @@ decoupled weight decay on every parameter, as optax applies it with no
 mask) whose learning rate is set from the schedule before each step:
 update ``n``, counted from 0, uses ``schedule(n)``, as optax's
 ``scale_by_learning_rate`` counts, so the recipe's first update has
-learning rate 0.
+learning rate 0. :func:`adam_moments` and :func:`load_adam_moments` take
+its moments out of and back into a model's optimizer as flax-layout
+trees (optax's ``mu`` and ``nu``), the form a train-state file keeps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import torch
+
+from psana_ray_tpu_torch.checkpoint import flatten, unflatten
 
 Schedule = Callable[[int], float]
 
@@ -65,3 +69,47 @@ def adamw(params: Iterable, schedule: Schedule, weight_decay: float = 1e-4) -> S
     """``optax.adamw(schedule, weight_decay=weight_decay)`` over ``params``
     (optax's default weight decay is 1e-4)."""
     return ScheduledAdamW(params, schedule, weight_decay)
+
+
+def _param_paths(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """``{flax path: parameter}`` of a port ResNet or U-Net."""
+    from psana_ray_tpu_torch.convert import flax_names
+
+    names = flax_names(model)
+    return {names[k]: p for k, p in model.named_parameters()}
+
+
+def adam_moments(model: torch.nn.Module, optimizer: ScheduledAdamW) -> Dict[str, dict]:
+    """``{"mu", "nu"}``: the first and second moments of every parameter of
+    ``model`` (a ResNet or U-Net) in ``optimizer``, as flax-layout numpy
+    trees (zeros before the first step)."""
+    from psana_ray_tpu_torch.convert import flax_array
+
+    mu, nu = {}, {}
+    for path, p in _param_paths(model).items():
+        state = optimizer.state.get(p, {})
+        zero = torch.zeros_like(p)
+        mu[path] = flax_array(path, state.get("exp_avg", zero))
+        nu[path] = flax_array(path, state.get("exp_avg_sq", zero))
+    return {"mu": unflatten(mu), "nu": unflatten(nu)}
+
+
+def load_adam_moments(model: torch.nn.Module, optimizer: ScheduledAdamW,
+                      moments: Mapping[str, Mapping], updates: int) -> None:
+    """Put :func:`adam_moments`' trees back into ``optimizer`` for
+    ``model``'s parameters, with ``updates`` steps taken: the next step
+    continues where the saved run stopped."""
+    from psana_ray_tpu_torch.convert import port_tensor
+
+    mu, nu = flatten(moments["mu"]), flatten(moments["nu"])
+    params = _param_paths(model)
+    if set(mu) != set(params) or set(nu) != set(params):
+        raise ValueError(f"the moments' leaves {sorted(set(mu) ^ set(params))[:3]} do not "
+                         f"match the model's parameters")
+    for path, p in params.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(updates)),
+            "exp_avg": port_tensor(path, mu[path]).to(p.device),
+            "exp_avg_sq": port_tensor(path, nu[path]).to(p.device),
+        }
+    optimizer.updates = updates

@@ -52,16 +52,17 @@ def produce_synthetic(
     seed: int = 0,
     dtype: str = "float32",
     produced=None,
+    run: int = 1,
 ) -> int:
     """A producer process's body, for ``multiprocessing``'s ``spawn``
     start method: attach to the shm ring ``ring_name``, draw the RAW
     events ``0 .. pool_events - 1`` of ``SyntheticSource(detector_name,
-    seed, dtype)``, put ``n_events`` of them (the pool cycled, event index
-    ``i`` carrying pool event ``i % pool_events``) and one EOS, then
+    seed, dtype, run)``, put ``n_events`` of them (the pool cycled, event
+    index ``i`` carrying pool event ``i % pool_events``) and one EOS, then
     detach. ``produced`` (a ``multiprocessing.Value``) receives the count.
     Imports no torch, so the process never touches the card."""
-    src = SyntheticSource(num_events=pool_events, detector_name=detector_name, seed=seed,
-                          dtype=dtype)
+    src = SyntheticSource(run=run, num_events=pool_events, detector_name=detector_name,
+                          seed=seed, dtype=dtype)
     pool = [src.event(i, "raw") for i in range(pool_events)]
     ring = ShmRingBuffer.attach(ring_name, retries=100, interval_s=0.1)
     try:

@@ -116,7 +116,9 @@ def make_peaknet_step(
     RAW frames (numpy or a tensor; ``valid`` the ``[B]`` real-row mask of a
     padded batch). The loss is a detached scalar on the device, or None
     for a partial batch that a ``norm="batch"`` model skips. ``gain`` is
-    the absolute gain, ADUs a photon (``adu_gain * gain_map``)."""
+    the absolute gain, ADUs a photon (``adu_gain * gain_map``). The step's
+    ``optimizer`` attribute is its AdamW, whose state a train-state file
+    keeps (:func:`psana_ray_tpu_torch.optim.adam_moments`)."""
     if model.norm not in ("group", "batch"):
         raise ValueError(f"model norm {model.norm!r} does not train: use 'group' or 'batch'")
     device = resolve_device(device)
@@ -139,6 +141,7 @@ def make_peaknet_step(
         row_valid = valid.to(torch.uint8).repeat_interleave(frames.shape[1])
         return train(x, (targets, row_valid))
 
+    step.optimizer = optimizer
     return step
 
 

@@ -16,9 +16,12 @@ Run (small, on the CPU):
 
     python -m psana_ray_tpu_torch.train_peaknet --steps 4 --device cpu
 
-Without ``--device`` it runs on the card. ``--checkpoint_dir`` (the orbax
-train state of the JAX package) is not ported yet (ROADMAP.md Queue 1
-Item 3). The module imports nothing but ``argparse`` until :func:`main`
+Without ``--device`` it runs on the card. ``--checkpoint_dir DIR`` saves
+the final train state, as the JAX package's example does at the end of
+training, into ``DIR/train_state.npz``: the port's own file
+(:func:`~psana_ray_tpu_torch.checkpoint.save_train_state`: params,
+``batch_stats``, the AdamW moments and the step), not an orbax
+directory. The module imports nothing but ``argparse`` until :func:`main`
 runs, so importing the package does not load torch through it. The
 package's ``train_peaknet`` is the training function of
 :mod:`psana_ray_tpu_torch.train`; take this module's names with
@@ -28,7 +31,10 @@ package's ``train_peaknet`` is the training function of
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional, Sequence
+
+TRAIN_STATE_FILE = "train_state.npz"  # the file --checkpoint_dir holds
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -38,7 +44,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--detector", default="epix100")
     ap.add_argument("--num_events", type=int, default=32)
     ap.add_argument("--checkpoint_dir", default=None,
-                    help="orbax train state: not ported yet (ROADMAP.md Queue 1 Item 3)")
+                    help="save the final train state (params, batch_stats, AdamW moments, "
+                         "step) into this directory as train_state.npz")
     ap.add_argument("--norm", default="group", choices=["group", "batch"],
                     help="'group' (row-independent) or 'batch' (running statistics, which "
                          "--export-serving folds)")
@@ -58,9 +65,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         args.features = tuple(int(f) for f in args.features.split(","))
     except ValueError:
         ap.error(f"--features {args.features!r} is not a comma-separated integer list")
-    if args.checkpoint_dir:
-        ap.error("--checkpoint_dir (the orbax train state) is not ported yet: ROADMAP.md "
-                 "Queue 1 Item 3")
     if args.export_serving:
         args.norm = "batch"
     return args
@@ -118,6 +122,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     trend = f"; loss {losses[0]:.5f} -> {losses[-1]:.5f}" if losses else ""
     print(f"trained {len(losses)} steps on {frames[0]} frames in {dt:.1f}s (device={device})"
           f"{trend}")
+    if args.checkpoint_dir:
+        from psana_ray_tpu_torch.optim import adam_moments
+
+        path = os.path.join(args.checkpoint_dir, TRAIN_STATE_FILE)
+        pt.save_train_state(path, pt.unet_to_flax(model), adam_moments(model, step.optimizer),
+                            step.optimizer.updates)
+        print(f"train state (step {step.optimizer.updates}) saved to {path}")
     if args.export_serving:
         pt.export_serving_params(pt.unet_to_flax(model), args.export_serving)
         print(f"serving params (norm='frozen' form) exported to {args.export_serving}: "

@@ -1,7 +1,15 @@
-"""Transports: the in-process bounded ring and the shared-memory ring."""
+"""Transports: the in-process bounded ring, the shared-memory ring, the
+in-process rendezvous registry and the address schemes that select them
+(:mod:`psana_ray_tpu_torch.transport.addressing`)."""
 
-from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
+from psana_ray_tpu_torch.transport.registry import (
+    Registry,
+    RendezvousTimeout,
+    TransportClosed,
+    TransportWedged,
+)
 from psana_ray_tpu_torch.transport.ring import EMPTY, FULL, RingBuffer
 from psana_ray_tpu_torch.transport.shm_ring import ShmRingBuffer
 
-__all__ = ["EMPTY", "FULL", "RingBuffer", "ShmRingBuffer", "TransportClosed", "TransportWedged"]
+__all__ = ["EMPTY", "FULL", "Registry", "RendezvousTimeout", "RingBuffer", "ShmRingBuffer",
+           "TransportClosed", "TransportWedged"]

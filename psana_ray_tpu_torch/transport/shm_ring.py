@@ -32,7 +32,11 @@ from typing import Any, List, Optional
 
 from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, encode_into, encoded_size
 from psana_ray_tpu_torch.transport.codec import TAG_PICKLE, TAG_RECORD, TAG_VOID, decode_payload
-from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
+from psana_ray_tpu_torch.transport.registry import (
+    RendezvousTimeout,
+    TransportClosed,
+    TransportWedged,
+)
 from psana_ray_tpu_torch.transport.ring import EMPTY
 
 logger = logging.getLogger(__name__)
@@ -183,7 +187,8 @@ class ShmRingBuffer:
     @classmethod
     def attach(cls, name: str, retries: int = 10, interval_s: float = 1.0) -> "ShmRingBuffer":
         """Attach to an existing ring, retrying until it appears; raises
-        ``TimeoutError`` after ``retries * interval_s`` seconds."""
+        :class:`RendezvousTimeout` (a ``TimeoutError``) after ``retries *
+        interval_s`` seconds."""
         lib = _load_lib()
         deadline = time.monotonic() + retries * interval_s
         while True:
@@ -191,7 +196,8 @@ class ShmRingBuffer:
             if h:
                 return cls(h, name)
             if time.monotonic() >= deadline:
-                raise TimeoutError(f"shm ring {name!r} not found after {retries} x {interval_s} s")
+                raise RendezvousTimeout(
+                    f"shm ring {name!r} not found after {retries} x {interval_s} s")
             time.sleep(interval_s)
 
     @staticmethod

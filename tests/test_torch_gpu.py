@@ -29,7 +29,11 @@ identical dk and dv and dq within one bf16 ulp of its largest value.
 The infeed's pinned batch arenas: pinned, one H2D a batch straight from
 the arena and no host copy beside the batcher's, and no arena rewritten
 while its copy is in flight (a checksum of every staged row); the shm
-ring feeding the pipeline from a producer process.
+ring feeding the pipeline from a producer process. The two-detector
+fan-in with its steps under a side stream (the consumer's stream waits
+for each copy: every frame reads its producer's values), and the
+classic ``PeakNetUNet`` on the card against the CPU (``rel_err <
+0.05``).
 """
 
 import os
@@ -819,3 +823,73 @@ def test_folded_tree_through_the_kernels_matches_batch_eval(cuda):
         ref = pt.unet_from_flax(variables, norm="batch_eval", device=cuda)(x)
     assert bool(torch.isfinite(got).all()) and float(ref.abs().max()) >= 1e-2
     assert rel_err(ref, got) < REL_TOL
+
+
+# -- the fan-in and the classic U-Net ----------------------------------------------
+
+
+def test_fanin_step_under_a_side_stream_reads_the_copied_frames(cuda):
+    """The consumer of a two-detector fan-in runs its steps under
+    ``torch.cuda.stream(side)``; each batch's copy to the card was made on
+    a leg's staging stream and waited for on the consumer's stream, so
+    every step reads the frames the producer sent (frame i is all-i) and
+    ``calib_kernel`` runs once a batch."""
+    shapes = {"epix": (2, 64, 96), "jungfrau": (1, 128, 64)}
+    n = {"epix": 40, "jungfrau": 48}
+    rings = {k: pt.RingBuffer(maxsize=8) for k in shapes}
+
+    def produce(name):
+        events = ((i, np.full(shapes[name], float(i), np.float32), 9.5) for i in range(n[name]))
+        pt.produce(events, rings[name], timeout=60.0)
+
+    producers = [threading.Thread(target=produce, args=(k,), daemon=True) for k in shapes]
+    for t in producers:
+        t.start()
+    consts = {k: (torch.zeros(s, device=cuda), torch.ones(s, device=cuda),
+                  torch.ones(s, dtype=torch.uint8, device=cuda)) for k, s in shapes.items()}
+    fan = pt.FanInPipeline([pt.DetectorStream(k, rings[k], batch_size=4, batcher_buffers=12)
+                            for k in shapes])
+    side = torch.cuda.Stream(cuda)
+    sums, bad = {k: 0.0 for k in shapes}, []
+
+    def step_for(name):
+        def step(batch):
+            # no pixel lies under a threshold of 0, so no common mode: x = raw
+            x = pt.fused_calibrate(batch.frames, *consts[name], threshold=0.0)
+            want = batch.event_idx.to(torch.float32).reshape(-1, 1, 1, 1).expand_as(x)
+            keep = batch.valid.bool().reshape(-1, 1, 1, 1).expand_as(x)
+            return (torch.where(keep, x - want, 0).abs().max(), torch.where(keep, x, 0).sum())
+
+        return step
+
+    def on_result(name, out, batch):
+        err, total = out
+        if float(err) != 0.0:
+            bad.append((name, float(err)))
+        sums[name] += float(total)
+
+    pt.reset_counters()
+    with torch.cuda.stream(side):
+        counts = fan.run({k: step_for(k) for k in shapes}, on_result=on_result,
+                         block_until_ready=True)
+    for t in producers:
+        t.join(timeout=30)
+    assert counts == n and not bad
+    for k, s in shapes.items():
+        assert sums[k] == sum(range(n[k])) * np.prod(s)
+    assert pt.counts()["calib_kernel"] == sum(-(-v // 4) for v in n.values())
+    assert all(t.is_pinned() for pipe in fan.pipes.values() for a in pipe.batcher.pool
+               for t in a.tensors)
+
+
+def test_classic_unet_on_the_card_matches_the_cpu(cuda):
+    """The classic PeakNetUNet (library convolutions in both packages) on
+    the card against the same model on the CPU, frozen bf16."""
+    tree = pt.init_peaknet_params((16, 32, 64), seed=4)
+    x = torch.randn((2, 64, 96, 1), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = pt.peaknet_from_flax(tree)(x)
+        got = pt.peaknet_from_flax(tree, device=cuda)(x.to(cuda))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 64, 96, 1)
+    assert bool(torch.isfinite(got).all()) and float(ref.abs().max()) >= 1e-2
+    assert rel_err(ref, got.cpu()) < REL_TOL

@@ -17,9 +17,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import _no_lingering_child  # noqa: E402,F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "psana_ray_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "psana_ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "psana_ray_tpu")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -66,6 +68,25 @@ def test_package_imports_with_jax_unimportable():
                          timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) > 20
+
+
+def test_cli_modules_import_with_jax_and_h5py_unimportable():
+    """The SFX CLI, the CXI tools, the config and the addressing load with
+    neither JAX nor h5py (the card's machine has no h5py: only a function
+    that opens a file imports it)."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'psana_ray_tpu', 'h5py'):\n"
+        "    sys.modules[name] = None\n"
+        "import psana_ray_tpu_torch.sfx, psana_ray_tpu_torch.cxi, psana_ray_tpu_torch.config\n"
+        "import psana_ray_tpu_torch.transport.addressing, psana_ray_tpu_torch.infeed.fanin\n"
+        "from psana_ray_tpu_torch.sfx import main, parse_args, run\n"
+        "from psana_ray_tpu_torch.cxi import merge_cxi, merge_cxi_main, read_cxi_peaksets\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def _run(code):

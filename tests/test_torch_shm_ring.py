@@ -16,7 +16,6 @@ import ctypes
 import multiprocessing as mp
 import os
 import signal
-import threading
 import time
 
 import numpy as np
@@ -45,39 +44,9 @@ from psana_ray_tpu_torch.transport.codec import (  # noqa: E402
     decode_payload,
 )
 from psana_ray_tpu_torch.transport.shm_ring import _load_lib  # noqa: E402
+from torch_parity import _no_lingering_child  # noqa: E402,F401 (autouse)
 
 SPAWN = mp.get_context("spawn")
-
-
-def _stop_the_resource_tracker():
-    from multiprocessing import resource_tracker
-
-    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
-    if stop is not None:
-        try:
-            stop()
-        except ChildProcessError:  # someone else reaped it already
-            pass
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _no_lingering_child():
-    """Keep this module's processes apart from a reaper of another test.
-
-    The first ``spawn`` starts ``multiprocessing``'s resource tracker as a
-    child of the test process, and it outlives the test that started it.
-    The JAX package's ``WorkerSupervisor`` reaps with ``waitpid(-1)`` and,
-    once stopped, stays parked while any child lives, reaping every child
-    that exits after (ROADMAP, Queue 3). So the tracker is stopped before
-    this module, which lets such a parked thread find no child and end,
-    and after it, so that it does not keep a later one parked."""
-    _stop_the_resource_tracker()
-    deadline = time.monotonic() + 2.0
-    while time.monotonic() < deadline and any(
-            t.name == "worker-supervisor" for t in threading.enumerate()):
-        time.sleep(0.05)
-    yield
-    _stop_the_resource_tracker()
 
 
 def _name(tag: str) -> str:

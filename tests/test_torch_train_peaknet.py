@@ -31,7 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 import psana_ray_tpu_torch as pt  # noqa: E402
 from psana_ray_tpu_torch.convert import flatten, flax_array, flax_names  # noqa: E402
 from psana_ray_tpu_torch.sources import SyntheticSource  # noqa: E402
-from torch_parity import one_torch_thread, perturbed, rel_err  # noqa: E402
+from torch_parity import _no_lingering_child, one_torch_thread, perturbed, rel_err  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -243,14 +243,14 @@ def test_train_peaknet_needs_a_card_unless_asked_for_the_cpu():
 def test_the_command_trains_and_exports_the_serving_tree(tmp_path):
     from psana_ray_tpu_torch.train_peaknet import parse_args
 
-    with pytest.raises(SystemExit):
-        parse_args(["--checkpoint_dir", str(tmp_path)])  # waits for ROADMAP Queue 1 Item 3
+    assert parse_args(["--checkpoint_dir", str(tmp_path)]).checkpoint_dir == str(tmp_path)
     assert parse_args(["--export-serving", "x.npz"]).norm == "batch"
 
-    path = str(tmp_path / "serving.npz")
+    path, ckpt = str(tmp_path / "serving.npz"), str(tmp_path / "ckpt")
     out = subprocess.run(
         [sys.executable, "-m", "psana_ray_tpu_torch.train_peaknet", "--steps", "3", "--device",
-         "cpu", "--detector", DET, "--features", "8,16", "--export-serving", path],
+         "cpu", "--detector", DET, "--features", "8,16", "--export-serving", path,
+         "--checkpoint_dir", ckpt],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
@@ -258,3 +258,8 @@ def test_the_command_trains_and_exports_the_serving_tree(tmp_path):
     tree = pt.load_params(path)
     assert "FrozenAffine_0" in tree["params"]["ConvBlock_0"]
     assert pt.infer_features(tree["params"]) == FEATURES
+    # --checkpoint_dir: the final train state, the batch kind's tree unfolded
+    variables, moments, step = pt.load_train_state(os.path.join(ckpt, "train_state.npz"))
+    assert step == 3 and sorted(variables) == ["batch_stats", "params"]
+    assert "BatchNorm_0" in variables["params"]["ConvBlock_0"]
+    assert pt.infer_features(moments["mu"]) == FEATURES

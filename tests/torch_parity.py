@@ -1,6 +1,11 @@
 """Helpers the port's parity tests share: the JAX package's error measure,
-perturbed flax variables, and one model of each norm kind held against
-flax's on the same variables."""
+perturbed flax variables, one model of each norm kind held against
+flax's on the same variables, one torch thread a test module, and the
+guard that keeps a module's child processes apart from another test's
+reaper."""
+
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +28,40 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _stop_the_resource_tracker():
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        try:
+            stop()
+        except ChildProcessError:  # someone else reaped it already
+            pass
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_lingering_child():
+    """Keep a module's processes apart from a reaper of another test. A
+    module that starts a child process imports this fixture, which then
+    runs around it (autouse).
+
+    The first ``spawn`` starts ``multiprocessing``'s resource tracker as a
+    child of the test process, and it outlives the test that started it.
+    The JAX package's ``WorkerSupervisor`` reaps with ``waitpid(-1)`` and,
+    once stopped, stays parked while any child lives, reaping every child
+    that exits after, so that a ``subprocess`` child it reaped reports exit
+    code 0. So the tracker is stopped before the module, which lets such a
+    parked thread find no child and end, and after it, so that it does not
+    keep a later one parked."""
+    _stop_the_resource_tracker()
+    deadline = time.monotonic() + 2.0
+    while time.monotonic() < deadline and any(
+            t.name == "worker-supervisor" for t in threading.enumerate()):
+        time.sleep(0.05)
+    yield
+    _stop_the_resource_tracker()
 
 
 def rel_err(ref, got):
