@@ -6,8 +6,10 @@ process through the shared-memory ring), the SFX Bragg-peak pipeline
 trunk, the ViT's training recipe with the flash backward kernels,
 train -> fold -> serve: PeakNet-TPU and ResNet-50 trained with BatchNorm,
 folded into frozen affines and served through the kernels, the
-two-detector fan-in (BASELINE config 5) and the SFX operator CLI over
-``shm://``.
+two-detector fan-in (BASELINE config 5), the SFX operator CLI over
+``shm://``, BASELINE config 1 through the producer and consumer CLIs,
+the stage ranges on the profiler's timeline, and the producer CLI
+feeding the SFX CLI.
 
 Run from the root of a checkout, with no arguments:
 
@@ -75,6 +77,32 @@ one JSON line (``{"phase": ...}``):
    ``end_to_end`` is, plus: produced = consumed, every arena pinned, no
    byte copied out of a slot (``bytes_copied_out`` 0), and the last
    batch's frames equal to the pool's. Prints ``/dev/shm``'s size.
+6c. ``passthrough_cli``: BASELINE config 1, producer -> queue -> consumer
+   no-op, through the programs a user runs. 128 epix10k2M f32 RAW events
+   of ``SyntheticSource(seed=0)`` with their photon energies go into an
+   uncompressed ``.npz`` under ``build/chip_smoke/`` (1.1 GB, deleted
+   after ``stage_trace``); a fresh 32-slot shm ring (``/dev/shm`` checked
+   for room first); two ``python -m psana_ray_tpu_torch.consumer --quiet
+   --status_interval 1`` processes start on it, and 1.5 s later ``python
+   -m psana_ray_tpu_torch.producer --exp replay:<npz> --num_shards 2
+   --num_consumers 2 --queue_size 32``. Every process runs with ``-X
+   importtime``: all three must exit 0 and import neither torch nor JAX,
+   and the consumers' "end of stream after k frames" must sum to 128.
+   Prints the aggregate frames/s and GB/s (every frame over the longest
+   consumer's first-to-last span, from their status lines), each
+   consumer's, the producer's, the ring's puts, gets and rejected puts;
+   then the same with ``--wire_dtype uint16`` on the producer, and the
+   bytes a frame of both. Then, on one thread of this process, the mean
+   ms a frame to copy it out of the mapped file, to put it into a fresh
+   and a used ring, and to get it back out.
+6d. ``stage_trace``: the ResNet pipeline of phase 5 for 4 batches
+   without, then with ``utils.trace.trace``: the exported Chrome trace
+   must hold 4 ``stage.device_put`` and 4 ``stage.dispatch`` ranges and
+   the device events of K1 (``calib_*_kernel``), K2 (``conv_sm90_kernel<N,
+   0>``, 128) and K3 (``conv_sm90_kernel<N, 2|3>``, 64), under the names
+   the profiler gives them; launches exact. Then phase 6c's consumer 0
+   alone with ``--profile_dir``, whose trace file must exist. Prints the
+   trace's size and the p50 batch ms without and with the capture.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -208,6 +236,13 @@ one JSON line (``{"phase": ...}``):
    at 16. Then 240 events cut by ``--max_events 200``: 26 batches
    written (the one in flight drained), their launches exact, the cursor
    at 208; prints frames/s and p50/p99 batch ms after 6 warm-up batches.
+17e. ``producer_cli_sfx``: config 3 through the two normal entry
+   points: ``peaknet_train``'s 16 held-out RAW events written to a replay
+   ``.npz``, replayed by the producer CLI (a process) over ``shm://`` into
+   the SFX CLI (in-process: the card's machine has no h5py). The peak
+   sets must equal ``peaknet_train``'s bit for bit, with exactly 2
+   ``calib_kernel`` and 16 ``conv_block_kernel`` launches; prints the
+   wall seconds.
 18. ``resnet_fold``: config 4's ResNet-50 (width 64, (3, 4, 6, 3)) with
    ``norm="batch"`` trained 3 steps (``masked_softmax_xent``, full
    batches of 8, +1 ``calib_kernel`` a step), then ``resnet_to_flax`` ->
@@ -220,11 +255,11 @@ one JSON line (``{"phase": ...}``):
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed run, the training runs, the fan-in, the CLI
-and the fold runs (phases 5, 6b, 8, 11, 14, 17, 17c, 17d and 18), those
-of ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b and 18), those of ``conv_block_kernel`` the SFX runs' (8, 17
-and 17d), the
+serving runs, the shm-fed run, the traced runs, the training runs, the
+fan-in, the CLIs and the fold runs (phases 5, 6b, 6d, 8, 11, 14, 17, 17c,
+17d, 17e and 18), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
+``back_kernel`` the ResNet runs' (5, 6b, 6d and 18), those of
+``conv_block_kernel`` the SFX runs' (8, 17, 17d and 17e), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
 just before it and reads them just after.
@@ -320,6 +355,10 @@ FOLD_BATCH = 8
 FOLD_LR = 1e-3
 # (level, index into FusedUNet.levels, h, w) at s2d 2 on 352x384 panels
 UNET_LEVELS = (("level1", 0, 88, 96), ("level2", 1, 44, 48), ("bottleneck", 2, 22, 24))
+CFG1_EVENTS = 128  # passthrough_cli: epix10k2M f32 RAW events in the replay file (1.1 GB)
+CFG1_SLOTS = 32  # the CLIs' shm ring: 32 slots of ShmRingBuffer.DEFAULT_SLOT_BYTES
+CONSUMER_LEAD_S = 1.5  # the consumers start and attach this long before the producer
+TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
 
 # (class name, block index in ResNet-50, blocks of that class in the network)
 BLOCK_CLASSES = (
@@ -729,9 +768,9 @@ def run_pipeline(torch, pt, pool, step, device, n_batches, on_result=None, batch
         wall = time.monotonic() - t0
         ring.close()
         thread.join(timeout=60)
-    if produced.get("n") != total * batch or seen != total * batch or pipe.metrics.batches != n_batches:
+    if produced.get("n") != total * batch or seen != total * batch or pipe.metrics.batches.count != n_batches:
         raise AssertionError(f"produced {produced.get('n')}, consumed {seen} in "
-                             f"{pipe.metrics.batches} timed batches, expected {total * batch}")
+                             f"{pipe.metrics.batches.count} timed batches, expected {total * batch}")
     return pipe, wall
 
 
@@ -777,7 +816,7 @@ def phase_end_to_end(torch, pt, pool, consts, model, params, device):
     pt.reset_counters()
     pipe, wall = run_pipeline(torch, pt, pool, step, device, E2E_BATCHES, on_result)
     counts = pt.counts()
-    nb = WARMUP_BATCHES + pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
     check_resnet_counts(counts, nb)
     staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
     errs = check_resnet_result(torch, pt, model, consts, last)
@@ -869,7 +908,6 @@ def phase_shm_end_to_end(torch, pt, pool, consts, model, params, device):
     ``get_batch_view`` -> ``push_view`` into pinned arenas, and runs the
     serving step. Held as ``end_to_end`` is, and to one host copy a frame."""
     import multiprocessing as mp
-    import shutil
 
     import numpy as np
 
@@ -879,10 +917,7 @@ def phase_shm_end_to_end(torch, pt, pool, consts, model, params, device):
     n_events = total * BATCH
     slot_bytes = 1 + encoded_size(FrameRecord(0, 0, pool[0], 0.0))
     slots = 1 << (BATCH + 8 - 1).bit_length()  # the ring rounds up to a power of two
-    ring_bytes = slots * (slot_bytes + 64)
-    shm = shutil.disk_usage("/dev/shm")
-    if shm.free < ring_bytes:
-        raise AssertionError(f"/dev/shm has {shm.free} bytes free, the ring needs {ring_bytes}")
+    shm = check_shm_room(slots * (slot_bytes + 64))
     owner = pt.ShmRingBuffer.create(f"chip_smoke_{os.getpid()}", maxsize=BATCH + 8,
                                     slot_bytes=slot_bytes)
     ctx = mp.get_context("spawn")
@@ -923,7 +958,7 @@ def phase_shm_end_to_end(torch, pt, pool, consts, model, params, device):
     if proc.exitcode != 0 or produced.value != n_events or seen != n_events:
         raise AssertionError(f"producer exit {proc.exitcode}: produced {produced.value}, "
                              f"consumed {seen}, expected {n_events}")
-    nb = WARMUP_BATCHES + pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
     if nb != total:
         raise AssertionError(f"{nb} batches, expected {total}")
     check_resnet_counts(counts, nb)
@@ -1132,10 +1167,10 @@ def phase_sfx(torch, pt, pool, calib_np, device):
     pt.reset_counters()
     wall = run_sfx(torch, pt, pool, pipe, SFX_BATCHES)
     counts = pt.counts()
-    nb = WARMUP_BATCHES + pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
     want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 8 * nb, "flash_kernel": 0,
             **NO_BWD}
-    if pipe.metrics.batches != SFX_BATCHES or counts != want:
+    if pipe.metrics.batches.count != SFX_BATCHES or counts != want:
         raise AssertionError(f"launch counts {counts} over {nb} batches, expected {want}")
     staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1328,7 +1363,7 @@ def phase_vit(torch, pt, tf, pool, consts, frame_shape, device):
     pipe, wall = run_pipeline(torch, pt, pool, step, device, VIT_BATCHES, on_result, batch=VIT_BATCH)
     counts = pt.counts()
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
-    nb = WARMUP_BATCHES + pipe.metrics.batches
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
     want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 0,
             "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
     if counts != want:
@@ -1851,7 +1886,6 @@ def phase_fanin(torch, pt, device):
     ``FanInPipeline`` with pinned arenas at the fan-in floor runs K1 on each
     detector's batches, each with its own constants."""
     import multiprocessing as mp
-    import shutil
 
     import numpy as np
 
@@ -1870,9 +1904,7 @@ def phase_fanin(torch, pt, device):
         slot_bytes[det] = 1 + encoded_size(FrameRecord(0, 0, np.zeros(spec.frame_shape,
                                                                       np.float32), 0.0))
         need += slots * (slot_bytes[det] + 64)
-    shm = shutil.disk_usage("/dev/shm")
-    if shm.free < need:
-        raise AssertionError(f"/dev/shm has {shm.free} bytes free, the rings need {need}")
+    shm = check_shm_room(need)
     queues = {}
     try:
         for det, batch, slots, pool in FANIN_LEGS:
@@ -2162,6 +2194,356 @@ def phase_resnet_fold(torch, pt, pool, consts, device):
     return {name: train_counts[name] + serve_counts[name] for name in train_counts}
 
 
+# -- phases 6c, 6d and 17e: the producer and consumer programs ---------------
+
+
+def cli_cmd(module, *args):
+    """``python -X importtime -m <module> <args>``: the command a user runs,
+    with the interpreter listing every module it imports on stderr."""
+    return [sys.executable, "-X", "importtime", "-m", module, *args]
+
+
+def run_clis(root, cmds, timeout=300.0, lead_s=0.0):
+    """Start the commands from the checkout's root, the first one ``lead_s``
+    seconds after the others, and wait for all; returns ``[(exit code,
+    output), ...]`` in the commands' order and the wall seconds from the
+    first command's start. Output goes to files, so no process blocks on a
+    pipe."""
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": root}
+    files = [tempfile.TemporaryFile("w+") for _ in cmds]
+
+    def start(i):
+        return subprocess.Popen(cmds[i], cwd=root, env=env, stdout=files[i],
+                                stderr=subprocess.STDOUT, text=True)
+
+    procs = [None] + [start(i) for i in range(1, len(cmds))]
+    try:
+        time.sleep(lead_s)
+        t0 = time.monotonic()
+        procs[0] = start(0)
+        codes = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    wall = time.monotonic() - t0
+    out = []
+    for code, f in zip(codes, files):
+        f.seek(0)
+        out.append((code, f.read()))
+        f.close()
+    return out, wall
+
+
+def imported_roots(text):
+    """The top-level packages a ``-X importtime`` process imported."""
+    return {line.rsplit("|", 1)[1].strip().split(".")[0] for line in text.splitlines()
+            if line.startswith("import time:") and line.count("|") == 2}
+
+
+def destroy_ring(pt, name):
+    """Destroy the shm ring ``name`` if it exists (the CLIs leave theirs)."""
+    try:
+        pt.ShmRingBuffer.attach(name, retries=0, interval_s=0.01).destroy()
+    except TimeoutError:
+        pass
+
+
+def check_shm_room(nbytes):
+    """``/dev/shm``'s usage, once it is known to have ``nbytes`` free."""
+    import shutil
+
+    shm = shutil.disk_usage("/dev/shm")
+    if shm.free < nbytes:
+        raise AssertionError(f"/dev/shm has {shm.free} bytes free, the rings need {nbytes}")
+    return shm
+
+
+def write_replay(path, frames, energies):
+    """An uncompressed ``.npz`` replay file: ``ReplaySource`` maps its
+    frames in place."""
+    import numpy as np
+
+    np.savez(path, frames=frames, photon_energy=np.asarray(energies, np.float64))
+
+
+_END = r"consumer (\d+): end of stream after (\d+) frames \(frames=(\d+) \(([\d.]+)/s, ([\d.]+) Gbit/s\)"
+_PRODUCED = r"producer done: frames=(\d+) \(([\d.]+)/s, ([\d.]+) Gbit/s\)"
+
+
+def passthrough(pt, root, npz, n_consumers, producer_args=(), consumer_args=()):
+    """BASELINE config 1 through the two CLIs over a fresh ``shm://`` ring
+    of ``CFG1_SLOTS`` default slots: ``n_consumers`` consumers start and
+    wait on it, as long-running consumers do, and ``CONSUMER_LEAD_S``
+    later the producer replays ``npz`` (two shards) into it. Checks every
+    exit code, each consumer's end-of-stream line, the frame count and
+    that no process imported torch or JAX (unless ``consumer_args`` ask
+    for a trace); returns the rates the status lines give, the ring's
+    counters and the wall seconds from the producer's start."""
+    import re
+
+    name = f"chip_smoke_cfg1_{os.getpid()}_{time.monotonic_ns() % 10**6}"
+    addr = ["--address", f"shm://{name}"]
+    cmds = [cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--num_shards", "2",
+                    "--num_consumers", str(n_consumers), "--queue_size", str(CFG1_SLOTS), *addr,
+                    *producer_args)]
+    cmds += [cli_cmd("psana_ray_tpu_torch.consumer", str(c), "--quiet", "--status_interval", "1",
+                     *addr, *consumer_args) for c in range(n_consumers)]
+    ring = pt.ShmRingBuffer.create(name, maxsize=CFG1_SLOTS)
+    try:
+        out, wall = run_clis(root, cmds, lead_s=CONSUMER_LEAD_S)
+        ring_stats = ring.stats()
+    finally:
+        ring.destroy()
+    tails = [text[-3000:] for _, text in out]
+    if [code for code, _ in out] != [0] * len(out):
+        raise AssertionError(f"config 1 exit codes {[c for c, _ in out]}: {tails}")
+    ends = [re.search(_END, text) for _, text in out[1:]]
+    produced = re.search(_PRODUCED, out[0][1])
+    if None in ends or produced is None:
+        raise AssertionError(f"config 1: no end-of-stream or producer line: {tails}")
+    counts = [int(m.group(2)) for m in ends]
+    if sum(counts) != CFG1_EVENTS or int(produced.group(1)) != CFG1_EVENTS:
+        raise AssertionError(f"config 1: consumers ended after {counts} frames, the producer "
+                             f"sent {produced.group(1)}, expected {CFG1_EVENTS} in all")
+    loaded = [sorted(imported_roots(text) & {"torch", "jax", "psana_ray_tpu"})
+              for _, text in out]
+    tracing = "--profile_dir" in consumer_args
+    if any(loaded[:1]) or (not tracing and any(loaded)):
+        raise AssertionError(f"config 1 processes imported {loaded}")
+    # a consumer's status line rates its frames from its first to its last:
+    # (n - 1) / span. The consumers read one stream at once, so the
+    # aggregate is every frame over the longest span
+    rates = [float(m.group(4)) for m in ends]
+    spans = [(n - 1) / r for n, r in zip(counts, rates) if n > 1 and r > 0]
+    fps = CFG1_EVENTS / max(spans)
+    bytes_per_frame = sum(float(m.group(5)) * 1e9 / 8 for m in ends) / sum(rates)
+    return {"frames_per_consumer": counts, "frames_per_s": fps,
+            "gbytes_per_s": fps * bytes_per_frame / 1e9, "bytes_per_frame": bytes_per_frame,
+            "consumer_frames_per_s": rates, "consumer_span_s": spans,
+            "producer_frames_per_s": float(produced.group(2)),
+            "producer_gbytes_per_s": float(produced.group(3)) / 8,
+            "ring": {k: ring_stats[k] for k in ("puts", "gets", "puts_rejected")},
+            "wall_s": wall, "imported": loaded, "outputs": out}
+
+
+def producer_breakdown(pt, npz, frame_shape, n=CFG1_SLOTS):
+    """Where a config-1 frame's host time goes, one thread, ``n`` frames:
+    copying it out of the mapped replay file, putting it into a fresh shm
+    ring (its slots' pages touched the first time) and into the same ring
+    again, and the consumer's owned get (a copy out of the slot). Mean ms
+    a frame."""
+    import numpy as np
+
+    src = pt.ReplaySource(npz)
+    buf = np.ones(frame_shape, np.float32)
+    t0 = time.perf_counter()
+    recs = []
+    for idx, data, energy in src.iter_indexed_events():
+        if idx == n:
+            break
+        np.copyto(buf, data)
+        recs.append(pt.FrameRecord(0, idx, data, energy))
+    read_ms = (time.perf_counter() - t0) * 1e3 / n
+    ring = pt.ShmRingBuffer.create(f"chip_smoke_breakdown_{os.getpid()}", maxsize=n)
+    try:
+        out = {"replay_read_ms": read_ms}
+        for tag in ("cold", "warm"):
+            t0 = time.perf_counter()
+            for r in recs:
+                if not ring.put(r):
+                    raise AssertionError("the breakdown's ring is full")
+            out[f"slot_put_ms_{tag}"] = (time.perf_counter() - t0) * 1e3 / n
+            t0 = time.perf_counter()
+            got = [ring.get() for _ in recs]
+            out[f"slot_get_ms_{tag}"] = (time.perf_counter() - t0) * 1e3 / n
+            if [g.event_idx for g in got] != list(range(n)):
+                raise AssertionError("the breakdown's ring lost frames")
+            del got
+    finally:
+        ring.destroy()
+    return out
+
+
+def phase_passthrough_cli(pt, src, pool, root):
+    """BASELINE config 1, producer -> queue -> consumer no-op: the
+    ``psana_ray_tpu_torch.producer`` CLI replays 128 epix10k2M f32 RAW
+    events from an uncompressed ``.npz`` (two shards) into a 32-slot shm
+    ring, and two ``psana_ray_tpu_torch.consumer`` CLIs read it to the end;
+    then again with ``--wire_dtype uint16``. Returns the replay file's
+    path (``stage_trace`` reads it once more)."""
+    import numpy as np
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(8) as ex:  # numpy's generators release the GIL
+        events = list(ex.map(lambda i: src.event(i, pt.RetrievalMode.RAW), range(CFG1_EVENTS)))
+    if not all(np.array_equal(pool[i], events[i][0]) for i in range(len(pool))):
+        raise AssertionError("the replay file's events differ from the source's pool")
+    frames = np.stack([e[0] for e in events])
+    npz = os.path.join(work, f"cfg1_{os.getpid()}.npz")
+    write_replay(npz, frames, [e[1] for e in events])
+    del events
+    write_s = time.monotonic() - t0
+    frame_bytes = frames[0].nbytes
+    del frames
+    shm = check_shm_room(CFG1_SLOTS * pt.ShmRingBuffer.DEFAULT_SLOT_BYTES)
+    runs = {}
+    for tag, extra in (("float32", ()), ("uint16", ("--wire_dtype", "uint16"))):
+        r = passthrough(pt, root, npz, 2, producer_args=extra)
+        r.pop("outputs")
+        r["frame_bytes"] = frame_bytes if tag == "float32" else frame_bytes // 2
+        runs[tag] = r
+    emit("passthrough_cli", events=CFG1_EVENTS, consumers=2, shards=2, ring_slots=CFG1_SLOTS,
+         replay_bytes=os.path.getsize(npz), replay_write_s=write_s,
+         dev_shm_free_bytes=shm.free, **runs,
+         host_ms_per_frame=producer_breakdown(pt, npz, pool[0].shape))
+    return npz
+
+
+def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
+    """The config-4 ResNet pipeline for ``TRACE_BATCHES`` batches without
+    and with ``utils.trace.trace``: the exported Chrome trace must hold one
+    ``stage.device_put`` and one ``stage.dispatch`` range a batch and the
+    device events of K1 (``calib_*_kernel``), K2 (``conv_sm90_kernel<N,
+    0>``, 32 a batch) and K3 (``conv_sm90_kernel<N, 2|3>``, 16 a batch).
+    Then ``passthrough_cli``'s consumer 0 with ``--profile_dir``."""
+    import glob
+    import re
+    import shutil
+
+    from psana_ray_tpu_torch.utils.trace import trace
+
+    step = make_step(torch, pt, consts, params)
+    logdir = os.path.join(root, "build", "chip_smoke", "trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    def run():
+        n = TRACE_BATCHES * BATCH
+        ring = pt.RingBuffer(maxsize=n + 1)
+        pt.produce(((i, pool[i % len(pool)], 10.0) for i in range(n)), ring)
+        pipe = pt.InfeedPipeline(ring, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS)
+        t0 = time.monotonic()
+        seen = pipe.run(step, block_until_ready=True)
+        wall = time.monotonic() - t0
+        if seen != n:
+            raise AssertionError(f"stage_trace: {seen} of {n} frames")
+        return pipe.metrics.summary(), wall
+
+    torch.cuda.synchronize()
+    pt.reset_counters()
+    plain, plain_wall = run()
+    with trace(logdir) as path:
+        traced, traced_wall = run()
+    counts = pt.counts()
+    check_resnet_counts(counts, 2 * TRACE_BATCHES)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    modes = [int(m.group(1)) for k in kernels if (m := re.search(r"conv_sm90_kernel<\d+, (\d)>", k))]
+    found = {
+        "stage.device_put": ranges.count("stage.device_put"),
+        "stage.dispatch": ranges.count("stage.dispatch"),
+        "K1": sum("calib_cluster_kernel" in k or "calib_two_pass_kernel" in k for k in kernels),
+        "K2": modes.count(0), "K3": modes.count(2) + modes.count(3),
+    }
+    want = {"stage.device_put": TRACE_BATCHES, "stage.dispatch": TRACE_BATCHES,
+            "K1": TRACE_BATCHES, "K2": 32 * TRACE_BATCHES, "K3": 16 * TRACE_BATCHES}
+    if found != want:
+        raise AssertionError(f"trace {path}: found {found}, expected {want}")
+    names = sorted({m.group(0) for k in kernels
+                    if (m := re.search(r"(calib_\w+kernel<[^>]*>|conv_sm90_kernel<[^>]*>)", k))})
+
+    cli_dir = os.path.join(root, "build", "chip_smoke", "trace_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli = passthrough(pt, root, npz, 1, consumer_args=("--profile_dir", cli_dir))
+    cli_traces = glob.glob(os.path.join(cli_dir, "*", "*.pt.trace.json"))
+    if len(cli_traces) != 1:
+        raise AssertionError(f"the consumer CLI's --profile_dir wrote {cli_traces}")
+    emit("stage_trace", batches=TRACE_BATCHES, trace_bytes=os.path.getsize(path), found=found,
+         kernel_names=names, p50_batch_ms=plain["p50_ms"], p50_batch_ms_traced=traced["p50_ms"],
+         wall_s=plain_wall, wall_s_traced=traced_wall, launches=counts,
+         cli_trace_bytes=os.path.getsize(cli_traces[0]), cli_consumer_imported=cli["imported"][1],
+         cli_frames_per_s=cli["frames_per_s"])
+    return counts
+
+
+def phase_producer_cli_sfx(pt, root, served):
+    """Config 3 through the two programs a user runs: the producer CLI
+    replays ``peaknet_train``'s 16 held-out RAW events over ``shm://`` into
+    the SFX CLI (in-process: the card's machine has no h5py), whose peak
+    sets must equal ``peaknet_train``'s bit for bit, with exactly one
+    ``calib_kernel`` and ``UNET_LAUNCHES`` ``conv_block_kernel`` a batch."""
+    import tempfile
+
+    import numpy as np
+
+    from psana_ray_tpu_torch import sfx
+
+    src = pt.SyntheticSource(run=PEAKNET_EVAL_RUN, num_events=PEAKNET_EVAL_EVENTS,
+                             detector_name=DETECTOR, seed=0)
+    events = list(src.iter_indexed_events(pt.RetrievalMode.RAW))
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    check_shm_room(CFG1_SLOTS * pt.ShmRingBuffer.DEFAULT_SLOT_BYTES)
+    name = f"chip_smoke_cli_sfx_{os.getpid()}"
+    sink = PeakSink()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        npz, calib = os.path.join(tmp, "held_out.npz"), os.path.join(tmp, "calib.npz")
+        write_replay(npz, np.stack([e[1] for e in events]), [e[2] for e in events])
+        ped, gain, mask = served["calib"]
+        np.savez(calib, pedestal=ped, gain=gain, mask=mask)
+        log = open(os.path.join(tmp, "producer.log"), "w+")
+        t0 = time.monotonic()
+        producer = subprocess.Popen(
+            [sys.executable, "-m", "psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}",
+             "--address", f"shm://{name}", "--queue_size", str(CFG1_SLOTS)],
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=log,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            args = sfx.parse_args([
+                "--address", f"shm://{name}", "--serving_params", served["params"],
+                "--output", os.path.join(tmp, "x.cxi"), "--mode", "quality", "--calib_npz", calib,
+                "--batch", str(SFX_BATCH), "--log_level", "WARNING"])
+            pt.reset_counters()
+            rc = sfx.run(args, writer=sink)
+            launches = pt.counts()
+            wall = time.monotonic() - t0
+            produced = producer.wait(timeout=120)
+        finally:
+            if producer.poll() is None:
+                producer.kill()
+                producer.wait(timeout=30)
+            destroy_ring(pt, name)
+            log.seek(0)
+            tail = log.read()[-3000:]
+            log.close()
+    nb = PEAKNET_EVAL_EVENTS // SFX_BATCH
+    want = {**dict.fromkeys(launches, 0), "calib_kernel": nb,
+            "conv_block_kernel": UNET_LAUNCHES * nb}
+    ref = served["sets"]
+    same = len(sink.sets) == len(ref) and all(
+        (a.event_idx, a.shard_rank, a.photon_energy) == (b.event_idx, b.shard_rank,
+                                                         b.photon_energy)
+        and np.array_equal(a.y, b.y) and np.array_equal(a.x, b.x)
+        and np.array_equal(a.intensity, b.intensity) for a, b in zip(sink.sets, ref))
+    if rc != 0 or produced != 0 or launches != want or not same:
+        raise AssertionError(f"producer CLI -> SFX CLI: exit codes {produced}, {rc}; launches "
+                             f"{launches} (expected {want}); peak sets equal to "
+                             f"peaknet_train's: {same}; producer: {tail}")
+    emit("producer_cli_sfx", events=len(sink.sets), peaks=int(sum(s.n for s in sink.sets)),
+         peak_sets_equal_peaknet_train=same, launches=launches, wall_s=wall)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2243,6 +2625,11 @@ def main() -> int:
     counts = phase_end_to_end(torch, pt, pool, consts, model, params, device)
     phase_profile(torch, pt, pool, consts, params, device)
     shm_counts = phase_shm_end_to_end(torch, pt, pool, consts, model, params, device)
+    npz = phase_passthrough_cli(pt, src, pool, root)
+    try:
+        trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
+    finally:
+        os.remove(npz)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -2267,6 +2654,7 @@ def main() -> int:
     del peaknet
     fanin_counts = phase_fanin(torch, pt, device)
     cli_counts = phase_sfx_cli(torch, pt, device, root, served)
+    cli_sfx_counts = phase_producer_cli_sfx(pt, root, served)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -2278,7 +2666,8 @@ def main() -> int:
                      + sfx_counts["calib_kernel"] + vit_counts["calib_kernel"]
                      + train_counts["calib_kernel"] + peaknet_counts["calib_kernel"]
                      + fanin_counts["calib_kernel"] + cli_counts["calib_kernel"]
-                     + fold_counts["calib_kernel"]),
+                     + fold_counts["calib_kernel"] + trace_counts["calib_kernel"]
+                     + cli_sfx_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -2293,7 +2682,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{csrc}/conv_sm90.cu",
             "replaces": replaces[name],
-            "launches": counts[name] + shm_counts[name] + fold_counts[name],
+            "launches": counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -2302,7 +2691,7 @@ def main() -> int:
         "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/conv_sm90.cu",
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
         "launches": (sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"]
-                     + cli_counts["conv_block_kernel"]),
+                     + cli_counts["conv_block_kernel"] + cli_sfx_counts["conv_block_kernel"]),
         "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],

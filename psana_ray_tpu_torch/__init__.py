@@ -25,12 +25,18 @@ version beside it that CPU tensors run.
 A producer process feeds the card's process through the shared-memory
 ring (:class:`ShmRingBuffer`, the JAX package's layout and wire format);
 the batcher copies each frame once, out of the ring's slot into a pinned
-batch arena, and one H2D copy takes the arena to the card.
+batch arena, and one H2D copy takes the arena to the card. The producer
+and consumer programs (:class:`ProducerRuntime`, :class:`DataReader`,
+``python -m psana_ray_tpu_torch.producer`` / ``.consumer``) run
+BASELINE config 1 (producer -> queue -> consumer) over ``auto`` and
+``shm://``, and :func:`trace` captures the card's profiler timeline with
+the pipeline's stages as named ranges.
 
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
 nothing of ``psana_ray_tpu``. Its names load at first use, so a producer
-process that imports only the host plane (records, transports, sources,
-the producer) never loads torch. Entry points run on the card unless the
+or consumer process that imports only the host plane (records,
+transports, sources, the producer, the consumer, the config and the
+metrics) never loads torch. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
@@ -70,7 +76,12 @@ _EXPORTS = {
     "read_cxi_peaks": "psana_ray_tpu_torch.cxi",
     "read_cxi_peaksets": "psana_ray_tpu_torch.cxi",
     "unpad_peaks": "psana_ray_tpu_torch.cxi",
+    "MaskConfig": "psana_ray_tpu_torch.config",
+    "PipelineConfig": "psana_ray_tpu_torch.config",
+    "SourceConfig": "psana_ray_tpu_torch.config",
     "TransportConfig": "psana_ray_tpu_torch.config",
+    "DataReader": "psana_ray_tpu_torch.consumer",
+    "DataReaderError": "psana_ray_tpu_torch.consumer",
     "resolve_device": "psana_ray_tpu_torch.device",
     "Batch": "psana_ray_tpu_torch.infeed",
     "batches_from_queue": "psana_ray_tpu_torch.infeed",
@@ -80,7 +91,7 @@ _EXPORTS = {
     "FanInPipeline": "psana_ray_tpu_torch.infeed",
     "FrameBatcher": "psana_ray_tpu_torch.infeed",
     "InfeedPipeline": "psana_ray_tpu_torch.infeed",
-    "PipelineMetrics": "psana_ray_tpu_torch.infeed",
+    "PipelineMetrics": "psana_ray_tpu_torch.utils.metrics",
     "StopStream": "psana_ray_tpu_torch.infeed",
     "counts": "psana_ray_tpu_torch.kernels",
     "LAUNCHES": "psana_ray_tpu_torch.kernels",
@@ -125,6 +136,7 @@ _EXPORTS = {
     "make_train_step": "psana_ray_tpu_torch.parallel",
     "produce": "psana_ray_tpu_torch.producer",
     "produce_synthetic": "psana_ray_tpu_torch.producer",
+    "ProducerRuntime": "psana_ray_tpu_torch.producer",
     "EndOfStream": "psana_ray_tpu_torch.records",
     "EosTally": "psana_ray_tpu_torch.records",
     "FrameRecord": "psana_ray_tpu_torch.records",
@@ -135,12 +147,15 @@ _EXPORTS = {
     "SfxPipeline": "psana_ray_tpu_torch.sfx",
     "DETECTORS": "psana_ray_tpu_torch.sources",
     "DetectorSpec": "psana_ray_tpu_torch.sources",
-    "RetrievalMode": "psana_ray_tpu_torch.sources",
+    "open_source": "psana_ray_tpu_torch.sources",
+    "ReplaySource": "psana_ray_tpu_torch.sources",
+    "RetrievalMode": "psana_ray_tpu_torch.config",
     "SyntheticSource": "psana_ray_tpu_torch.sources",
     "make_peaknet_step": "psana_ray_tpu_torch.train",
     "raw_hit_batch": "psana_ray_tpu_torch.train",
     "train_hit_classifier": "psana_ray_tpu_torch.train",
     "train_peaknet": "psana_ray_tpu_torch.train",
+    "BackoffPolicy": "psana_ray_tpu_torch.transport",
     "EMPTY": "psana_ray_tpu_torch.transport",
     "FULL": "psana_ray_tpu_torch.transport",
     "open_queue": "psana_ray_tpu_torch.transport.addressing",
@@ -151,6 +166,7 @@ _EXPORTS = {
     "TransportClosed": "psana_ray_tpu_torch.transport",
     "TransportWedged": "psana_ray_tpu_torch.transport",
     "enable_large_alloc_reuse": "psana_ray_tpu_torch.utils",
+    "trace": "psana_ray_tpu_torch.utils.trace",
 }
 
 __all__ = sorted([*_EXPORTS, "entry", "vit_serve_step"])

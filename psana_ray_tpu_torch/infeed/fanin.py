@@ -39,11 +39,11 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, T
 from psana_ray_tpu_torch.infeed.batcher import Batch
 from psana_ray_tpu_torch.infeed.pipeline import (
     InfeedPipeline,
-    PipelineMetrics,
     StopStream,
     drive_step,
     use_on_current_stream,
 )
+from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
 log = logging.getLogger(__name__)
 

@@ -27,12 +27,13 @@ staging thread surface in the consumer. The staging thread times its two
 host stages per batch (assembling the batch from the queue, staging it
 to the card) into the pipeline's :class:`PipelineMetrics`, and counts the
 frame bytes the host copied and the batches copied to the card straight
-from their arena.
+from their arena. On the profiler's timeline each batch's H2D enqueue is
+a ``stage.device_put`` range and each step a ``stage.dispatch`` range
+(:func:`~psana_ray_tpu_torch.utils.trace.annotate_stage`).
 """
 
 from __future__ import annotations
 
-import collections
 import queue as _queue
 import threading
 import time
@@ -50,7 +51,10 @@ from psana_ray_tpu_torch.infeed.batcher import (
     batches_from_queue,
     host_arena,
 )
+from psana_ray_tpu_torch.obs.stages import STAGE_DEVICE_PUT, STAGE_DISPATCH
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
+from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
+from psana_ray_tpu_torch.utils.trace import annotate_stage
 
 
 def pinned_arena(batch_size: int, frame_shape: tuple, dtype) -> Arena:
@@ -66,87 +70,6 @@ def pinned_arena(batch_size: int, frame_shape: tuple, dtype) -> Arena:
 class StopStream(Exception):
     """Raise from a ``run()`` step to end the loop early (consumer-side
     stop); ``run()`` closes the pipeline and returns the count so far."""
-
-
-class PipelineMetrics:
-    """Frames, bytes and per-batch step latency of one pipeline, and the
-    host seconds its staging thread spent assembling and staging batches.
-
-    The first ``warmup`` batches are left out of the frames, bytes, times
-    and rates (each batch's own allocations, a ring still filling), so a
-    run can be read at steady state. The copy counts cover every batch:
-    ``host_frame_bytes`` (frame bytes the consumer's host copied, into the
-    arena and, on the unpooled path, into a pinned buffer),
-    ``staged_frames`` and ``arena_copies`` (batches copied to the card
-    straight from their pinned arena)."""
-
-    def __init__(self, window: int = 4096, warmup: int = 0):
-        self.frames = 0
-        self.batches = 0
-        self.bytes = 0
-        self.staged = 0
-        self.host_batch_s = 0.0
-        self.host_stage_s = 0.0
-        self.host_frame_bytes = 0
-        self.staged_frames = 0
-        self.arena_copies = 0
-        self.latencies_s = collections.deque(maxlen=window)
-        self._t_first: Optional[float] = None
-        self._t_last: Optional[float] = None
-        # each skip is counted down by one thread only: the consumer's
-        # batches and the staging thread's host observations
-        self._skip_batches = warmup
-        self._skip_host = warmup
-
-    def observe_batch(self, num_valid: int, latency_s: float, nbytes: int = 0) -> None:
-        if self._skip_batches > 0:
-            self._skip_batches -= 1
-            return
-        now = time.monotonic()
-        if self._t_first is None:
-            self._t_first = now - latency_s
-        self._t_last = now
-        self.frames += int(num_valid)
-        self.batches += 1
-        self.bytes += int(nbytes)
-        self.latencies_s.append(latency_s)
-
-    def observe_copies(self, num_valid: int, frame_bytes: int, from_arena: bool) -> None:
-        self.staged_frames += int(num_valid)
-        self.host_frame_bytes += int(frame_bytes)
-        self.arena_copies += int(from_arena)
-
-    def observe_host(self, batch_s: float, stage_s: float) -> None:
-        if self._skip_host > 0:
-            self._skip_host -= 1
-            return
-        self.staged += 1
-        self.host_batch_s += batch_s
-        self.host_stage_s += stage_s
-
-    def latency_ms(self, q: float = 0.5) -> float:
-        if not self.latencies_s:
-            return float("nan")
-        return float(np.quantile(np.asarray(self.latencies_s), q) * 1e3)
-
-    def fps(self) -> float:
-        if self._t_first is None or self._t_last <= self._t_first:
-            return float("nan")
-        return self.frames / (self._t_last - self._t_first)
-
-    def summary(self) -> dict:
-        return {
-            "frames": self.frames,
-            "batches": self.batches,
-            "bytes": self.bytes,
-            "fps": self.fps(),
-            "p50_ms": self.latency_ms(0.5),
-            "p99_ms": self.latency_ms(0.99),
-            "host_batch_ms": 1e3 * self.host_batch_s / max(self.staged, 1),
-            "host_stage_ms": 1e3 * self.host_stage_s / max(self.staged, 1),
-            "host_frame_bytes_per_frame": self.host_frame_bytes / max(self.staged_frames, 1),
-            "arena_copies": self.arena_copies,
-        }
 
 
 class _PinnedSlot:
@@ -261,7 +184,8 @@ class DevicePrefetcher:
                 if batch is None:
                     break
                 t1 = time.monotonic()
-                staged, event, copied, direct = self._stage(batch)  # H2D enqueue
+                with annotate_stage(STAGE_DEVICE_PUT):
+                    staged, event, copied, direct = self._stage(batch)  # H2D enqueue
                 self.metrics.observe_host(t1 - t0, time.monotonic() - t1)
                 self.metrics.observe_copies(batch.num_valid, batch.copied_bytes + copied, direct)
                 if not self._put((staged, event)):
@@ -354,9 +278,10 @@ def drive_step(
     latency. ``block_until_ready`` synchronises the batch's stream, making
     the latency a true per-batch device latency instead of enqueue time."""
     t0 = time.monotonic()
-    out = step(batch)
-    if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
-        torch.cuda.current_stream(batch.frames.device).synchronize()
+    with annotate_stage(STAGE_DISPATCH):
+        out = step(batch)
+        if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
+            torch.cuda.current_stream(batch.frames.device).synchronize()
     metrics.observe_batch(batch.num_valid, time.monotonic() - t0, _frames_nbytes(batch.frames))
     return out
 

@@ -13,8 +13,9 @@ byte for byte the JAX package's:
   them back unchanged;
 - an EOS marker is its own small header.
 
-Hop stamps and the compressed wire form of the TCP transport are not
-ported (Queue 1 Item 8).
+:func:`narrow_panels` is the producer's opt-in lossy wire dtype
+(``--wire_dtype``). Hop stamps and the compressed wire form of the TCP
+transport are not ported (Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -199,7 +200,43 @@ class EosTally:
         return placed
 
 
+def is_eos(item) -> bool:
+    return isinstance(item, EndOfStream)
+
+
 # -- wire format -------------------------------------------------------------
+
+
+def validate_wire_dtype(dtype_str: str) -> np.dtype:
+    """The dtype named ``dtype_str`` if the wire format can carry it, else
+    ``ValueError``: the one rule the CLI's ``--wire_dtype`` and
+    :func:`narrow_panels` share."""
+    dtype = np.dtype(dtype_str)
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"wire dtype {dtype_str!r} is not wire-codable "
+            f"(supported: {sorted(str(d) for d in _DTYPE_CODES)})"
+        )
+    return dtype
+
+
+def narrow_panels(panels: np.ndarray, dtype_str: str) -> np.ndarray:
+    """Convert panels to a narrower wire dtype before they are encoded
+    (lossy, opt-in per stream): an integer target rounds to nearest and
+    clips to its range, NaN (a masked pixel) becomes 0. A no-op when the
+    panels already have that dtype."""
+    dtype = validate_wire_dtype(dtype_str)
+    if panels.dtype == dtype:
+        return panels
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        if np.issubdtype(panels.dtype, np.floating):
+            src = np.rint(panels)
+            np.copyto(src, 0.0, where=np.isnan(src))  # NaN -> int is undefined in numpy
+        else:
+            src = panels
+        return np.clip(src, info.min, info.max).astype(dtype)
+    return panels.astype(dtype)
 
 
 def _wire_version(rec: FrameRecord) -> int:

@@ -53,13 +53,15 @@ from psana_ray_tpu_torch.config import TransportConfig
 from psana_ray_tpu_torch.convert import infer_features, infer_s2d, unet_from_flax
 from psana_ray_tpu_torch.cxi import CxiWriter, PeakSet, unpad_peaks
 from psana_ray_tpu_torch.device import resolve_device
-from psana_ray_tpu_torch.infeed import InfeedPipeline, PipelineMetrics
+from psana_ray_tpu_torch.infeed import InfeedPipeline
 from psana_ray_tpu_torch.models.fused_unet import pack_unet, peaknet_tpu_fused_infer
 from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate
 from psana_ray_tpu_torch.transport.addressing import open_queue
+from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
+from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
 __all__ = ["DEFAULT_THRESHOLDS", "SfxConfig", "SfxPipeline", "infer_features", "infer_s2d", "main",
            "parse_args", "run"]
@@ -320,13 +322,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain versions; the card by default")
     ap.add_argument("--log_level", default="INFO")
-    for flag in NOT_PORTED_FLAGS:
-        ap.add_argument(flag, nargs="?", const="", default=None, help=argparse.SUPPRESS)
+    add_refused_flags(ap, NOT_PORTED_FLAGS)
     a = ap.parse_args(argv)
-    for flag in NOT_PORTED_FLAGS:
-        if getattr(a, flag[2:]) is not None:
-            ap.error(f"{flag} is not ported: the obs, autotune and cluster modules are "
-                     f"ROADMAP.md Queue 1 Item 8")
+    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
     return a
 
 

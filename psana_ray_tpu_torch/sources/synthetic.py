@@ -4,11 +4,12 @@ The port's own copy of ``psana_ray_tpu/sources/synthetic.py``: for the
 same (exp, run, detector, seed) it gives bit-identical frames, pedestal,
 gain map and bad-pixel mask. Frames model an area detector in ADUs:
 pedestal + Gaussian noise + Poisson photon background with bright
-Bragg-like peaks, and a per-panel common-mode offset in raw mode (the
-``calib`` and ``raw`` retrieval modes). Every event is generated from
-``seed ^ hash(exp, run, event_idx)``, so any rank can regenerate any
-event. With ``hit_fraction`` set, each event is a hit (peaks planted)
-with that probability and otherwise a miss (background only): the
+Bragg-like peaks, and a per-panel common-mode offset in raw mode; the
+``image`` mode tiles the panels into one 2-D mosaic. Every event is
+generated from ``seed ^ hash(exp, run, event_idx)``, so any rank can
+regenerate any event, and a shard resumes at ``start_event`` with the
+same frames. With ``hit_fraction`` set, each event is a hit (peaks
+planted) with that probability and otherwise a miss (background only): the
 labelled hit-finding corpus the classifiers train on.
 """
 
@@ -18,7 +19,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from psana_ray_tpu_torch.sources.base import DETECTORS, DetectorSpec, RetrievalMode, shard_indices
+from psana_ray_tpu_torch.config import RetrievalMode
+from psana_ray_tpu_torch.sources.base import DETECTORS, DetectorSpec, shard_indices
 
 
 def _stable_seed(exp: str, run: int, base_seed: int) -> int:
@@ -42,6 +44,7 @@ class SyntheticSource:
         num_shards: int = 1,
         dtype: str = "float32",
         peak_count: int = 24,
+        start_event: int = 0,
         hit_fraction: Optional[float] = None,
     ):
         if detector_name not in DETECTORS:
@@ -54,6 +57,7 @@ class SyntheticSource:
         self.num_shards = num_shards
         self.dtype = np.dtype(dtype)
         self.peak_count = peak_count
+        self.start_event = start_event  # resume floor: events below it are skipped
         # None keeps every event a hit and the frames bit-identical to a
         # source without the knob (no extra random draw)
         if hit_fraction is not None and not 0.0 <= hit_fraction <= 1.0:
@@ -128,6 +132,15 @@ class SyntheticSource:
             cm = rng.uniform(-8.0, 8.0, size=(p, 1, 1)).astype(np.float32)
             noise = 2.5 * rng.standard_normal((p, h, w)).astype(np.float32)
             data = self.pedestal() + spec.adu_gain * photons * self.gain_map() + cm + noise
+        elif mode == RetrievalMode.IMAGE:
+            # assembled mosaic: the panels tiled row-major into one 2-D image
+            cols = max(1, int(np.floor(np.sqrt(p))))
+            rows = (p + cols - 1) // cols
+            img = np.zeros((rows * h, cols * w), dtype=np.float32)
+            for pi in range(p):
+                r, c = divmod(pi, cols)
+                img[r * h: (r + 1) * h, c * w: (c + 1) * w] = photons[pi]
+            data = img
         else:
             raise ValueError(f"unknown mode {mode!r}")
         if np.issubdtype(self.dtype, np.integer):
@@ -135,6 +148,11 @@ class SyntheticSource:
             info = np.iinfo(self.dtype)
             data = np.clip(data, info.min, info.max)
         return data.astype(self.dtype, copy=False), photon_energy, truth
+
+    def iter_events(self, mode: str = RetrievalMode.CALIB) -> Iterator[Tuple[np.ndarray, float]]:
+        """Yield ``(data, photon_energy)`` for this shard."""
+        for idx in self.shard_event_indices():
+            yield self.event(int(idx), mode)
 
     def iter_indexed_events(
         self, mode: str = RetrievalMode.CALIB
@@ -145,7 +163,8 @@ class SyntheticSource:
             yield int(idx), data, energy
 
     def shard_event_indices(self) -> np.ndarray:
-        return shard_indices(self.num_events, self.shard_rank, self.num_shards)
+        idxs = shard_indices(self.num_events, self.shard_rank, self.num_shards)
+        return idxs[idxs >= self.start_event]
 
     def __len__(self) -> int:
         return len(self.shard_event_indices())

@@ -38,7 +38,7 @@ from psana_ray_tpu_torch.models.vit import ViTHitClassifier
 from psana_ray_tpu_torch.ops import fused_calibrate
 from psana_ray_tpu_torch.optim import adamw, warmup_cosine_decay_schedule
 from psana_ray_tpu_torch.parallel.steps import make_train_step
-from psana_ray_tpu_torch.sources.base import RetrievalMode
+from psana_ray_tpu_torch.config import RetrievalMode
 
 CHUNK = 4  # frames a step
 PEAK_LR, END_LR, WARMUP_STEPS, WEIGHT_DECAY = 6e-4, 1e-5, 20, 0.01

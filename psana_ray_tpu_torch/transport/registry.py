@@ -83,3 +83,11 @@ class Registry:
                         f"after {retries} x {interval_s}s")
                 self._cond.wait(timeout=min(remaining, interval_s))
             return self._objects[key]
+
+    def destroy(self, namespace: str, name: str) -> None:
+        """Unregister ``(namespace, name)`` and close it, waking every
+        producer and consumer blocked on it."""
+        with self._lock:
+            obj = self._objects.pop((namespace, name), None)
+        if obj is not None and hasattr(obj, "close"):
+            obj.close()

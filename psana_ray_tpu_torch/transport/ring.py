@@ -3,13 +3,15 @@
 The port's copy of ``psana_ray_tpu/transport/ring.py``: non-blocking
 ``put -> False`` when full and ``get -> EMPTY`` when empty, blocking
 ``put_wait``/``get_wait`` with timeouts, ``get_batch`` that drains up to N
-items in one lock acquisition, and ``close()``, which wakes every waiter
-and makes further operations raise :class:`TransportClosed`.
+items in one lock acquisition, ``close()``, which wakes every waiter
+and makes further operations raise :class:`TransportClosed`, and
+``stats()``: depth and lifetime counters.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, List, Optional
 
@@ -43,14 +45,22 @@ class RingBuffer:
         self._not_empty = threading.Condition(self._lock)
         self._not_full = threading.Condition(self._lock)
         self._closed = False  # guarded-by: _lock
+        self._n_put = 0  # guarded-by: _lock
+        self._n_get = 0  # guarded-by: _lock
+        self._n_put_rejected = 0  # guarded-by: _lock
+        self._high_water = 0  # guarded-by: _lock
+        self._last_put_t = -1.0  # guarded-by: _lock
+        self._last_get_t = -1.0  # guarded-by: _lock
 
     def put(self, item: Any) -> bool:
         """Append if not full; False when full (never drops)."""
         with self._lock:
             self._check_open()
             if len(self._q) >= self.maxsize:
+                self._n_put_rejected += 1
                 return False
             self._q.append(item)
+            self._note_put()
             self._not_empty.notify()
             return True
 
@@ -61,6 +71,7 @@ class RingBuffer:
             if not self._q:
                 return EMPTY
             item = self._q.popleft()
+            self._note_get()
             self._not_full.notify()
             return item
 
@@ -78,6 +89,7 @@ class RingBuffer:
             if not ok:
                 return False
             self._q.append(item)
+            self._note_put()
             self._not_empty.notify()
             return True
 
@@ -89,6 +101,7 @@ class RingBuffer:
             if not ok or not self._q:
                 return EMPTY
             item = self._q.popleft()
+            self._note_get()
             self._not_full.notify()
             return item
 
@@ -102,6 +115,7 @@ class RingBuffer:
                 return []
             out = [self._q.popleft() for _ in range(min(max_items, len(self._q)))]
             if out:
+                self._note_get(len(out))
                 self._not_full.notify_all()
             return out
 
@@ -116,6 +130,34 @@ class RingBuffer:
     def closed(self) -> bool:
         with self._lock:
             return self._closed
+
+    def _note_put(self) -> None:
+        # guarded-by-caller: _lock
+        self._n_put += 1
+        self._high_water = max(self._high_water, len(self._q))
+        self._last_put_t = time.monotonic()
+
+    def _note_get(self, n: int = 1) -> None:
+        # guarded-by-caller: _lock
+        self._n_get += n
+        self._last_get_t = time.monotonic()
+
+    def stats(self) -> dict:
+        """Depth, capacity, lifetime puts, gets and rejected puts, the
+        highest depth seen, and the seconds since the last put and get
+        (-1: never)."""
+        with self._lock:
+            now = time.monotonic()
+
+            def age(t):
+                return round(now - t, 3) if t >= 0 else -1.0
+
+            return {
+                "depth": len(self._q), "maxsize": self.maxsize, "puts": self._n_put,
+                "gets": self._n_get, "puts_rejected": self._n_put_rejected,
+                "high_water": self._high_water, "last_put_age_s": age(self._last_put_t),
+                "last_get_age_s": age(self._last_get_t), "closed": self._closed,
+            }
 
     def _check_open(self) -> None:
         # guarded-by-caller: _lock

@@ -89,6 +89,43 @@ def test_cli_modules_import_with_jax_and_h5py_unimportable():
     assert out.stdout.strip() == "ok"
 
 
+def test_the_producer_and_consumer_import_with_jax_and_h5py_unimportable():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'psana_ray_tpu', 'h5py'):\n"
+        "    sys.modules[name] = None\n"
+        "import psana_ray_tpu_torch.producer, psana_ray_tpu_torch.consumer\n"
+        "from psana_ray_tpu_torch.producer import ProducerRuntime, main, parse_arguments\n"
+        "from psana_ray_tpu_torch.consumer import DataReader, DataReaderError, main\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_the_cli_processes_load_no_torch():
+    """``--help`` of each CLI, and a short run over ``auto`` (the producer
+    CLI, then the consumer CLI, in one process), load neither torch nor
+    JAX."""
+    code = (
+        "import sys\n"
+        "from psana_ray_tpu_torch import consumer, producer\n"
+        "for main in (producer.main, consumer.main):\n"
+        "    try:\n"
+        "        main(['--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "producer.main(['--detector_name', 'smoke_a', '--num_events', '5', '--num_shards', '2'])\n"
+        "assert consumer.main(['0', '--quiet', '--status_interval', '0.05']) == 0\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert "end of stream after 5 frames" in out.stderr
+
+
 def _run(code):
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})

@@ -72,7 +72,7 @@ class Window:
         if self.done == WARMUP:
             self.torch.cuda.synchronize()
             m = self.metrics
-            self.snap = (m.host_batch_s, m.host_stage_s, m.staged, m.frames)
+            self.snap = (m.host_batch_s, m.host_stage_s, m.staged, int(m.frames))
             if self.prof is not None:
                 self.prof.start()
             self.start = time.monotonic()
@@ -88,7 +88,7 @@ class Window:
         import numpy as np
 
         lat = np.asarray(list(m.latencies_s)[-n_timed:]) * 1e3
-        return {"timed_batches": n_timed, "wall_s": wall, "fps": (m.frames - frames) / wall,
+        return {"timed_batches": n_timed, "wall_s": wall, "fps": (int(m.frames) - frames) / wall,
                 "host_batch_ms": 1e3 * (m.host_batch_s - hb) / n,
                 "host_stage_ms": 1e3 * (m.host_stage_s - hs) / n,
                 "p50_batch_ms": float(np.quantile(lat, 0.5)),
