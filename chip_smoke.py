@@ -9,7 +9,9 @@ folded into frozen affines and served through the kernels, the
 two-detector fan-in (BASELINE config 5), the SFX operator CLI over
 ``shm://``, BASELINE config 1 through the producer and consumer CLIs,
 the stage ranges on the profiler's timeline, and the producer CLI
-feeding the SFX CLI.
+feeding the SFX CLI; and across the TCP transport, through the queue
+server program: the ResNet path, config 1 and the producer CLI feeding
+the SFX CLI.
 
 Run from the root of a checkout, with no arguments:
 
@@ -103,6 +105,31 @@ one JSON line (``{"phase": ...}``):
    the profiler gives them; launches exact. Then phase 6c's consumer 0
    alone with ``--profile_dir``, whose trace file must exist. Prints the
    trace's size and the p50 batch ms without and with the capture.
+6e. ``passthrough_tcp``: config 1 over ``tcp://``: the queue server CLI
+   (``--queue_size 32``), the producer CLI replaying the same ``.npz`` in
+   two shards, two consumer CLIs with ``--stream`` started 1.5 s before
+   it; plain, then with ``--wire_codec shuffle-rle`` on the producer and
+   both consumers. Every process runs with ``-X importtime`` and none of
+   the four may import torch or JAX; the frame counts must be exact.
+   Then the 128 frames go through the same server and back in this
+   process, raw and with ``shuffle-rle`` negotiated on both clients (a
+   windowed producer client, a streamed consumer client): the CRC-32 of
+   the frames received must equal the file's. Prints each run's frames/s
+   and GB/s and the codec's wire bytes over raw bytes.
+6f. ``tcp_end_to_end``: phase 6b's serving path fed across the TCP
+   transport: ``python -m psana_ray_tpu_torch.queue_server --queue_size
+   40`` as a process on 127.0.0.1 (``--port 0 --port_file``), a ``spawn``
+   producer process (``produce_synthetic`` with a ``tcp://`` target, the
+   pool drawn again from the same seed) sending with windowed puts
+   (``put_pipelined``), and this process subscribed to the server's push
+   stream (``stream_open(32)``), ``InfeedPipeline`` draining it with
+   ``get_batch_stream`` -> ``push_view`` into the pinned arenas, 6 + 24
+   batches once the queue is full. Held as ``shm_end_to_end`` is (every
+   event, launches exact, one host copy a frame, the last batch's frames
+   equal to the pool's and its logits and features within ``rel_err <
+   0.05`` of the plain path). Prints frames/s, the relay's GB/s,
+   ``host_batch_ms``, ``host_stage_ms`` and the server's queue stats
+   (the 'T' RPC: depth, high-water mark, puts, gets, rejected puts).
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -243,6 +270,10 @@ one JSON line (``{"phase": ...}``):
    sets must equal ``peaknet_train``'s bit for bit, with exactly 2
    ``calib_kernel`` and 16 ``conv_block_kernel`` launches; prints the
    wall seconds.
+17f. ``producer_cli_sfx_tcp``: the same over ``tcp://``: producer CLI
+   (``--wire_codec shuffle-rle``) -> queue server CLI -> SFX CLI, whose
+   connection negotiates no codec, so the server hands it plain frames.
+   The same checks.
 18. ``resnet_fold``: config 4's ResNet-50 (width 64, (3, 4, 6, 3)) with
    ``norm="batch"`` trained 3 steps (``masked_softmax_xent``, full
    batches of 8, +1 ``calib_kernel`` a step), then ``resnet_to_flax`` ->
@@ -255,11 +286,12 @@ one JSON line (``{"phase": ...}``):
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed run, the traced runs, the training runs, the
-fan-in, the CLIs and the fold runs (phases 5, 6b, 6d, 8, 11, 14, 17, 17c,
-17d, 17e and 18), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
-``back_kernel`` the ResNet runs' (5, 6b, 6d and 18), those of
-``conv_block_kernel`` the SFX runs' (8, 17, 17d and 17e), the
+serving runs, the shm-fed and TCP-fed runs, the traced runs, the
+training runs, the fan-in, the CLIs and the fold runs (phases 5, 6b,
+6d, 6f, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
+``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
+runs' (5, 6b, 6d, 6f and 18), those of ``conv_block_kernel`` the SFX
+runs' (8, 17, 17d, 17e and 17f), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
 just before it and reads them just after.
@@ -357,6 +389,8 @@ FOLD_LR = 1e-3
 UNET_LEVELS = (("level1", 0, 88, 96), ("level2", 1, 44, 48), ("bottleneck", 2, 22, 24))
 CFG1_EVENTS = 128  # passthrough_cli: epix10k2M f32 RAW events in the replay file (1.1 GB)
 CFG1_SLOTS = 32  # the CLIs' shm ring: 32 slots of ShmRingBuffer.DEFAULT_SLOT_BYTES
+TCP_QUEUE_SIZE = 40  # tcp_end_to_end: the queue server's default queue
+TCP_STREAM_WINDOW = 32  # tcp_end_to_end: the consumer's stream credits
 CONSUMER_LEAD_S = 1.5  # the consumers start and attach this long before the producer
 TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
 
@@ -978,6 +1012,135 @@ def phase_shm_end_to_end(torch, pt, pool, consts, model, params, device):
          host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
          dev_shm_bytes=shm.total, dev_shm_free_bytes=shm.free, ring_slots=ring_stats["maxsize"],
          slot_bytes=slot_bytes, ring=ring_stats, launches=counts, **staging, **errs)
+    return counts
+
+
+class QueueServerCLI:
+    """``python -X importtime -m psana_ray_tpu_torch.queue_server`` on
+    127.0.0.1, a free port (``--port 0 --port_file``), started from the
+    checkout's root; ``stop()`` sends SIGTERM (the CLI drains, then
+    closes) and returns the exit code and the output."""
+
+    def __init__(self, root, *args):
+        import tempfile
+
+        work = os.path.join(root, "build", "chip_smoke")
+        os.makedirs(work, exist_ok=True)
+        self.port_file = os.path.join(work, f"queue_server_{os.getpid()}_{time.monotonic_ns()}.port")
+        self.log = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(
+            cli_cmd("psana_ray_tpu_torch.queue_server", "--host", "127.0.0.1", "--port", "0",
+                    "--port_file", self.port_file, "--drain_s", "2", *args),
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=self.log,
+            stderr=subprocess.STDOUT, text=True)
+        deadline = time.monotonic() + 60.0
+        while not os.path.exists(self.port_file):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                raise AssertionError(f"the queue server did not start: {self.output[-3000:]}")
+            time.sleep(0.05)
+        with open(self.port_file) as f:
+            self.port = int(f.read())
+        self.address = f"tcp://127.0.0.1:{self.port}"
+
+    def stop(self):
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self.code = self.proc.returncode
+        self.log.seek(0)
+        self.output = self.log.read()
+        self.log.close()
+        if os.path.exists(self.port_file):
+            os.remove(self.port_file)
+        return self.code, self.output
+
+
+def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """The ResNet serving path fed across the TCP transport: the queue
+    server CLI as a process (``--queue_size 40``), a ``spawn`` producer
+    process sending the pool over ``tcp://`` with windowed puts, and this
+    process streaming it (``stream_open(32)``) through ``InfeedPipeline``
+    into the serving step. Held as ``shm_end_to_end`` is."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    total = WARMUP_BATCHES + E2E_BATCHES
+    n_events = total * BATCH
+    server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--log_level", "WARNING")
+    ctx = mp.get_context("spawn")
+    produced = ctx.Value("q", 0)
+    proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
+                       args=(server.address, DETECTOR, n_events, POOL_EVENTS),
+                       kwargs=dict(seed=0, produced=produced))
+    step = make_step(torch, pt, consts, params)
+    last = {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+
+    client = monitor = None
+    t_start = time.monotonic()
+    proc.start()
+    try:
+        monitor = pt.TcpQueueClient("127.0.0.1", server.port)
+        deadline = time.monotonic() + 180.0
+        while monitor.size() < TCP_QUEUE_SIZE and proc.is_alive():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the producer filled {monitor.size()} of {TCP_QUEUE_SIZE}")
+            time.sleep(0.01)
+        fill_s = time.monotonic() - t_start
+        client = pt.TcpQueueClient("127.0.0.1", server.port)
+        client.stream_open(TCP_STREAM_WINDOW)
+        pt.reset_counters()
+        pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=WARMUP_BATCHES))
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        wall = time.monotonic() - t0
+        counts = pt.counts()
+        proc.join(timeout=60)
+        queue_stats = monitor.stats()
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        for c in (client, monitor):
+            if c is not None:
+                c.disconnect()
+        code, out = server.stop()
+    if proc.exitcode != 0 or produced.value != n_events or seen != n_events or code != 0:
+        raise AssertionError(f"producer exit {proc.exitcode}, server exit {code}: produced "
+                             f"{produced.value}, consumed {seen}, expected {n_events}; "
+                             f"server: {out[-2000:]}")
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
+    if nb != total:
+        raise AssertionError(f"{nb} batches, expected {total}")
+    check_resnet_counts(counts, nb)
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    idx = last["event_idx"].cpu().numpy()
+    want = torch.from_numpy(np.stack([pool[i % len(pool)] for i in idx])).to(device)
+    if not torch.equal(want, last["frames"]):
+        raise AssertionError("the last batch's frames differ from the producer's pool")
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    summary = pipe.metrics.summary()
+    emit("tcp_end_to_end", batches=nb, timed_batches=summary["batches"], frames=summary["frames"],
+         wall_s=wall, fill_s=fill_s, fps=summary["fps"],
+         relay_gbytes_per_s=summary["fps"] * pool[0].nbytes / 1e9,
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         queue_size=TCP_QUEUE_SIZE, stream_window=TCP_STREAM_WINDOW,
+         server_queue={k: queue_stats.get(k) for k in ("depth", "high_water", "puts", "gets",
+                                                        "puts_rejected")},
+         launches=counts, **staging, **errs)
     return counts
 
 
@@ -2274,30 +2437,32 @@ _END = r"consumer (\d+): end of stream after (\d+) frames \(frames=(\d+) \(([\d.
 _PRODUCED = r"producer done: frames=(\d+) \(([\d.]+)/s, ([\d.]+) Gbit/s\)"
 
 
-def passthrough(pt, root, npz, n_consumers, producer_args=(), consumer_args=()):
+def passthrough(pt, root, npz, n_consumers, producer_args=(), consumer_args=(), address=None):
     """BASELINE config 1 through the two CLIs over a fresh ``shm://`` ring
-    of ``CFG1_SLOTS`` default slots: ``n_consumers`` consumers start and
-    wait on it, as long-running consumers do, and ``CONSUMER_LEAD_S``
-    later the producer replays ``npz`` (two shards) into it. Checks every
-    exit code, each consumer's end-of-stream line, the frame count and
-    that no process imported torch or JAX (unless ``consumer_args`` ask
-    for a trace); returns the rates the status lines give, the ring's
-    counters and the wall seconds from the producer's start."""
+    of ``CFG1_SLOTS`` default slots (or ``address``, a queue server's):
+    ``n_consumers`` consumers start and wait on it, as long-running
+    consumers do, and ``CONSUMER_LEAD_S`` later the producer replays
+    ``npz`` (two shards) into it. Checks every exit code, each consumer's
+    end-of-stream line, the frame count and that no process imported torch
+    or JAX (unless ``consumer_args`` ask for a trace); returns the rates
+    the status lines give, the ring's counters (shm) and the wall seconds
+    from the producer's start."""
     import re
 
     name = f"chip_smoke_cfg1_{os.getpid()}_{time.monotonic_ns() % 10**6}"
-    addr = ["--address", f"shm://{name}"]
+    addr = ["--address", address or f"shm://{name}"]
     cmds = [cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--num_shards", "2",
                     "--num_consumers", str(n_consumers), "--queue_size", str(CFG1_SLOTS), *addr,
                     *producer_args)]
     cmds += [cli_cmd("psana_ray_tpu_torch.consumer", str(c), "--quiet", "--status_interval", "1",
                      *addr, *consumer_args) for c in range(n_consumers)]
-    ring = pt.ShmRingBuffer.create(name, maxsize=CFG1_SLOTS)
+    ring = pt.ShmRingBuffer.create(name, maxsize=CFG1_SLOTS) if address is None else None
     try:
         out, wall = run_clis(root, cmds, lead_s=CONSUMER_LEAD_S)
-        ring_stats = ring.stats()
+        ring_stats = ring.stats() if ring is not None else None
     finally:
-        ring.destroy()
+        if ring is not None:
+            ring.destroy()
     tails = [text[-3000:] for _, text in out]
     if [code for code, _ in out] != [0] * len(out):
         raise AssertionError(f"config 1 exit codes {[c for c, _ in out]}: {tails}")
@@ -2326,7 +2491,7 @@ def passthrough(pt, root, npz, n_consumers, producer_args=(), consumer_args=()):
             "consumer_frames_per_s": rates, "consumer_span_s": spans,
             "producer_frames_per_s": float(produced.group(2)),
             "producer_gbytes_per_s": float(produced.group(3)) / 8,
-            "ring": {k: ring_stats[k] for k in ("puts", "gets", "puts_rejected")},
+            "ring": ring_stats and {k: ring_stats[k] for k in ("puts", "gets", "puts_rejected")},
             "wall_s": wall, "imported": loaded, "outputs": out}
 
 
@@ -2407,6 +2572,108 @@ def phase_passthrough_cli(pt, src, pool, root):
     return npz
 
 
+def relay_check(pt, address, frames, energies, codec):
+    """The replay file's frames through the queue server and back in this
+    process: a windowed producer client and a streamed consumer client,
+    both with ``codec`` (None: raw), on a queue of their own. Returns the
+    CRC-32 of the frames received in event order, and the codec's wire
+    and raw bytes sent."""
+    import zlib
+
+    from psana_ray_tpu_torch.transport.codec import CODEC_STATS
+
+    host, port = address[len("tcp://"):].split(":")
+    queue = f"relay_{codec or 'raw'}_{os.getpid()}"
+    before = CODEC_STATS.stats()
+    producer = pt.TcpQueueClient(host, int(port), namespace="chip_smoke", queue_name=queue,
+                                 maxsize=CFG1_SLOTS, codec=codec)
+    consumer = pt.TcpQueueClient(host, int(port), namespace="chip_smoke", queue_name=queue,
+                                 codec=codec)
+    negotiated = (producer.codec_name, consumer.codec_name)
+    errors = []
+
+    def produce():
+        try:
+            for i in range(len(frames)):
+                producer.put_pipelined(pt.FrameRecord(0, i, frames[i], float(energies[i])))
+            producer.put_pipelined(pt.EndOfStream(total_events=len(frames)))
+            producer.flush_puts()
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    got = {}
+    try:
+        consumer.stream_open(TCP_STREAM_WINDOW)
+        done = False
+        while not done:
+            batch = consumer.get_batch_stream(TCP_STREAM_WINDOW, timeout=30.0)
+            if not batch:
+                raise AssertionError(f"relay {codec}: nothing for 30 s after {len(got)} frames")
+            for item in batch:
+                if isinstance(item, pt.EndOfStream):
+                    done = True
+                else:
+                    got[item.event_idx] = zlib.crc32(item.panels)
+                    item.release()
+        thread.join(timeout=60)
+    finally:
+        producer.disconnect()
+        consumer.disconnect()
+    if errors:
+        raise errors[0]
+    after = CODEC_STATS.stats()
+    crc = 0
+    for i in sorted(got):
+        crc = zlib.crc32(got[i].to_bytes(4, "little"), crc)
+    return {"frames": len(got), "crc32": crc, "codecs": negotiated,
+            "wire_bytes": after["bytes_wire_out_total"] - before["bytes_wire_out_total"],
+            "raw_bytes": after["bytes_raw_out_total"] - before["bytes_raw_out_total"],
+            "expansions": after["expansions_total"] - before["expansions_total"]}
+
+
+def phase_passthrough_tcp(pt, root, npz):
+    """Config 1 over ``tcp://``: the queue server CLI, the producer CLI
+    replaying ``passthrough_cli``'s ``.npz`` in two shards, two consumer
+    CLIs with ``--stream`` started first; plain, then ``--wire_codec
+    shuffle-rle`` on the producer and both consumers. No process of the
+    four may import torch or JAX. Then the same frames through the same
+    server in this process, raw and compressed: their CRC-32s must equal
+    the file's, and the codec's wire bytes over raw bytes are printed."""
+    import zlib
+
+    import numpy as np
+
+    server = QueueServerCLI(root, "--queue_size", str(CFG1_SLOTS), "--log_level", "WARNING")
+    runs = {}
+    try:
+        for tag, codec in (("plain", ()), ("shuffle_rle", ("--wire_codec", "shuffle-rle"))):
+            queue = ("--queue_name", f"cfg1_{tag}")
+            r = passthrough(pt, root, npz, 2, producer_args=(*codec, *queue),
+                            consumer_args=("--stream", *codec, *queue), address=server.address)
+            r.pop("outputs")
+            runs[tag] = r
+        with np.load(npz, mmap_mode="r") as f:
+            frames, energies = f["frames"], f["photon_energy"]
+            want = 0
+            for i in range(len(frames)):
+                want = zlib.crc32(zlib.crc32(np.ascontiguousarray(frames[i])).to_bytes(4, "little"),
+                                  want)
+            relay = {tag: relay_check(pt, server.address, frames, energies, codec)
+                     for tag, codec in (("raw", None), ("shuffle_rle", "shuffle-rle"))}
+    finally:
+        code, out = server.stop()
+    loaded = sorted(imported_roots(out) & {"torch", "jax", "psana_ray_tpu"})
+    bad = [tag for tag, r in relay.items() if r["crc32"] != want or r["frames"] != len(frames)]
+    if code != 0 or loaded or bad or relay["shuffle_rle"]["codecs"] != ("shuffle-rle",) * 2:
+        raise AssertionError(f"passthrough_tcp: server exit {code}, imported {loaded}; relay "
+                             f"{relay} against CRC {want}; server: {out[-2000:]}")
+    ratio = relay["shuffle_rle"]["wire_bytes"] / max(1, relay["shuffle_rle"]["raw_bytes"])
+    emit("passthrough_tcp", events=CFG1_EVENTS, consumers=2, shards=2, queue_size=CFG1_SLOTS,
+         server_imported=loaded, crc32=want, relay=relay, codec_wire_over_raw=ratio, **runs)
+
+
 def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
     """The config-4 ResNet pipeline for ``TRACE_BATCHES`` batches without
     and with ``utils.trace.trace``: the exported Chrome trace must hold one
@@ -2476,12 +2743,16 @@ def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
     return counts
 
 
-def phase_producer_cli_sfx(pt, root, served):
+def phase_producer_cli_sfx(pt, root, served, tcp=False):
     """Config 3 through the two programs a user runs: the producer CLI
     replays ``peaknet_train``'s 16 held-out RAW events over ``shm://`` into
     the SFX CLI (in-process: the card's machine has no h5py), whose peak
     sets must equal ``peaknet_train``'s bit for bit, with exactly one
-    ``calib_kernel`` and ``UNET_LAUNCHES`` ``conv_block_kernel`` a batch."""
+    ``calib_kernel`` and ``UNET_LAUNCHES`` ``conv_block_kernel`` a batch.
+    With ``tcp`` the events go producer CLI -> queue server CLI -> SFX
+    CLI instead, the producer compressing with ``shuffle-rle`` and the SFX
+    CLI's connection negotiating no codec, so the server hands it plain
+    frames."""
     import tempfile
 
     import numpy as np
@@ -2493,8 +2764,14 @@ def phase_producer_cli_sfx(pt, root, served):
     events = list(src.iter_indexed_events(pt.RetrievalMode.RAW))
     work = os.path.join(root, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    check_shm_room(CFG1_SLOTS * pt.ShmRingBuffer.DEFAULT_SLOT_BYTES)
     name = f"chip_smoke_cli_sfx_{os.getpid()}"
+    server = None
+    if tcp:
+        server = QueueServerCLI(root, "--log_level", "WARNING")
+        address, extra = server.address, ("--wire_codec", "shuffle-rle")
+    else:
+        check_shm_room(CFG1_SLOTS * pt.ShmRingBuffer.DEFAULT_SLOT_BYTES)
+        address, extra = f"shm://{name}", ()
     sink = PeakSink()
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         npz, calib = os.path.join(tmp, "held_out.npz"), os.path.join(tmp, "calib.npz")
@@ -2505,12 +2782,12 @@ def phase_producer_cli_sfx(pt, root, served):
         t0 = time.monotonic()
         producer = subprocess.Popen(
             [sys.executable, "-m", "psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}",
-             "--address", f"shm://{name}", "--queue_size", str(CFG1_SLOTS)],
+             "--address", address, "--queue_size", str(CFG1_SLOTS), *extra],
             cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=log,
             stderr=subprocess.STDOUT, text=True)
         try:
             args = sfx.parse_args([
-                "--address", f"shm://{name}", "--serving_params", served["params"],
+                "--address", address, "--serving_params", served["params"],
                 "--output", os.path.join(tmp, "x.cxi"), "--mode", "quality", "--calib_npz", calib,
                 "--batch", str(SFX_BATCH), "--log_level", "WARNING"])
             pt.reset_counters()
@@ -2522,7 +2799,10 @@ def phase_producer_cli_sfx(pt, root, served):
             if producer.poll() is None:
                 producer.kill()
                 producer.wait(timeout=30)
-            destroy_ring(pt, name)
+            if server is not None:
+                server_code, server_out = server.stop()
+            else:
+                destroy_ring(pt, name)
             log.seek(0)
             tail = log.read()[-3000:]
             log.close()
@@ -2535,12 +2815,16 @@ def phase_producer_cli_sfx(pt, root, served):
                                                          b.photon_energy)
         and np.array_equal(a.y, b.y) and np.array_equal(a.x, b.x)
         and np.array_equal(a.intensity, b.intensity) for a, b in zip(sink.sets, ref))
+    if server is not None and server_code != 0:
+        raise AssertionError(f"the queue server exited {server_code}: {server_out[-2000:]}")
     if rc != 0 or produced != 0 or launches != want or not same:
-        raise AssertionError(f"producer CLI -> SFX CLI: exit codes {produced}, {rc}; launches "
-                             f"{launches} (expected {want}); peak sets equal to "
+        raise AssertionError(f"producer CLI -> SFX CLI ({address}): exit codes {produced}, {rc}; "
+                             f"launches {launches} (expected {want}); peak sets equal to "
                              f"peaknet_train's: {same}; producer: {tail}")
-    emit("producer_cli_sfx", events=len(sink.sets), peaks=int(sum(s.n for s in sink.sets)),
-         peak_sets_equal_peaknet_train=same, launches=launches, wall_s=wall)
+    emit("producer_cli_sfx_tcp" if tcp else "producer_cli_sfx", events=len(sink.sets),
+         peaks=int(sum(s.n for s in sink.sets)), peak_sets_equal_peaknet_train=same,
+         launches=launches, wall_s=wall, transport=address.split(":")[0],
+         producer_codec=extra[1] if extra else None)
     return launches
 
 
@@ -2628,8 +2912,10 @@ def main() -> int:
     npz = phase_passthrough_cli(pt, src, pool, root)
     try:
         trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
+        phase_passthrough_tcp(pt, root, npz)
     finally:
         os.remove(npz)
+    tcp_counts = phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -2655,6 +2941,7 @@ def main() -> int:
     fanin_counts = phase_fanin(torch, pt, device)
     cli_counts = phase_sfx_cli(torch, pt, device, root, served)
     cli_sfx_counts = phase_producer_cli_sfx(pt, root, served)
+    cli_sfx_tcp_counts = phase_producer_cli_sfx(pt, root, served, tcp=True)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -2667,7 +2954,8 @@ def main() -> int:
                      + train_counts["calib_kernel"] + peaknet_counts["calib_kernel"]
                      + fanin_counts["calib_kernel"] + cli_counts["calib_kernel"]
                      + fold_counts["calib_kernel"] + trace_counts["calib_kernel"]
-                     + cli_sfx_counts["calib_kernel"]),
+                     + cli_sfx_counts["calib_kernel"] + tcp_counts["calib_kernel"]
+                     + cli_sfx_tcp_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -2682,7 +2970,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"{csrc}/conv_sm90.cu",
             "replaces": replaces[name],
-            "launches": counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name],
+            "launches": (counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name]
+                         + tcp_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -2691,7 +2980,8 @@ def main() -> int:
         "name": "conv_block_kernel", "route": "cuda", "source": f"{csrc}/conv_sm90.cu",
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
         "launches": (sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"]
-                     + cli_counts["conv_block_kernel"] + cli_sfx_counts["conv_block_kernel"]),
+                     + cli_counts["conv_block_kernel"] + cli_sfx_counts["conv_block_kernel"]
+                     + cli_sfx_tcp_counts["conv_block_kernel"]),
         "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],

@@ -28,9 +28,13 @@ the batcher copies each frame once, out of the ring's slot into a pinned
 batch arena, and one H2D copy takes the arena to the card. The producer
 and consumer programs (:class:`ProducerRuntime`, :class:`DataReader`,
 ``python -m psana_ray_tpu_torch.producer`` / ``.consumer``) run
-BASELINE config 1 (producer -> queue -> consumer) over ``auto`` and
-``shm://``, and :func:`trace` captures the card's profiler timeline with
-the pipeline's stages as named ranges.
+BASELINE config 1 (producer -> queue -> consumer) over ``auto``,
+``shm://`` and ``tcp://``: the queue server
+(``python -m psana_ray_tpu_torch.queue_server``, :class:`TcpQueueServer`)
+hosts named queues for producers and consumers on other hosts, with
+windowed puts, server-push streams and compressed frames, byte for byte
+the JAX package's protocol. :func:`trace` captures the card's profiler
+timeline with the pipeline's stages as named ranges.
 
 The package imports ``torch`` and ``numpy`` only: nothing of JAX and
 nothing of ``psana_ray_tpu``. Its names load at first use, so a producer
@@ -163,6 +167,8 @@ _EXPORTS = {
     "RendezvousTimeout": "psana_ray_tpu_torch.transport",
     "RingBuffer": "psana_ray_tpu_torch.transport",
     "ShmRingBuffer": "psana_ray_tpu_torch.transport",
+    "TcpQueueClient": "psana_ray_tpu_torch.transport",
+    "TcpQueueServer": "psana_ray_tpu_torch.transport",
     "TransportClosed": "psana_ray_tpu_torch.transport",
     "TransportWedged": "psana_ray_tpu_torch.transport",
     "enable_large_alloc_reuse": "psana_ray_tpu_torch.utils",

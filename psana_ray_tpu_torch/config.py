@@ -8,10 +8,10 @@ to read), :class:`MaskConfig` (host-side masking), :class:`TransportConfig`
 :class:`PipelineConfig` that holds them. The fields keep the JAX
 package's names and defaults (the reference's 13 producer flags among
 them). ``TransportConfig``'s fields of transports the port has not ported
-(the TCP transport's wire codec, tenants, consumer groups, the cluster
-and durable replay) raise ``NotImplementedError`` naming ROADMAP.md Queue
-1 Item 8. The JAX package's infeed and mesh sections are not carried: no
-ported component reads them.
+(consumer groups, the cluster and durable replay) raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 Item 8. The JAX
+package's infeed and mesh sections are not carried: no ported component
+reads them.
 """
 
 from __future__ import annotations
@@ -68,8 +68,7 @@ class MaskConfig:
 
 # the JAX package's TransportConfig fields that the port does not carry
 NOT_PORTED = frozenset({
-    "cluster_partitions", "group", "member_id", "replay_from", "replay_group", "wire_codec",
-    "tenant", "tenant_weight",
+    "cluster_partitions", "group", "member_id", "replay_from", "replay_group",
 })
 
 
@@ -81,8 +80,11 @@ class TransportConfig:
     emits (``num_consumers``), its backpressure envelope
     (``backoff_*_s``), the consumer's rendezvous loop
     (``rendezvous_retries`` x ``rendezvous_interval_s``) and poll interval,
-    the frames a batched put carries on transports that have one, and the
-    producer's lossy wire dtype (``""`` = off)."""
+    the frames a batched put carries on transports that have one, the
+    producer's lossy wire dtype (``""`` = off), the TCP connections' wire
+    codec (``""`` or ``"none"``: raw; ``"auto"``; or codec names) and
+    fair-share tenant (``""``: the shared default tenant) with its weight
+    (1-64)."""
 
     address: str = "auto"
     namespace: str = "default"
@@ -97,6 +99,9 @@ class TransportConfig:
     poll_interval_s: float = 0.01
     put_batch_size: int = 16
     wire_dtype: str = ""
+    wire_codec: str = ""
+    tenant: str = ""
+    tenant_weight: int = 1
 
     def __init__(self, address: str = "auto", namespace: str = "default",
                  queue_name: str = "shared_queue", queue_size: int = 100,
@@ -104,15 +109,16 @@ class TransportConfig:
                  backoff_cap_s: float = 2.0, backoff_jitter_s: float = 0.5,
                  rendezvous_retries: int = 10, rendezvous_interval_s: float = 1.0,
                  poll_interval_s: float = 0.01, put_batch_size: int = 16,
-                 wire_dtype: str = "", **not_ported):
+                 wire_dtype: str = "", wire_codec: str = "", tenant: str = "",
+                 tenant_weight: int = 1, **not_ported):
         unknown = sorted(set(not_ported) - NOT_PORTED)
         if unknown:
             raise TypeError(f"TransportConfig has no field {unknown[0]!r}")
         if not_ported:
             raise NotImplementedError(
                 f"TransportConfig field(s) {sorted(not_ported)} belong to transports the port "
-                f"has not ported (TCP, wire codecs, tenants, the cluster): ROADMAP.md Queue 1 "
-                f"Item 8")
+                f"has not ported (consumer groups, durable replay, the cluster): ROADMAP.md "
+                f"Queue 1 Item 8")
         self.address = address
         self.namespace = namespace
         self.queue_name = queue_name
@@ -126,6 +132,9 @@ class TransportConfig:
         self.poll_interval_s = poll_interval_s
         self.put_batch_size = put_batch_size
         self.wire_dtype = wire_dtype
+        self.wire_codec = wire_codec
+        self.tenant = tenant
+        self.tenant_weight = tenant_weight
 
 
 @dataclasses.dataclass

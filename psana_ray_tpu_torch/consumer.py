@@ -1,7 +1,7 @@
 """Consumer client and CLI: the reference's ``DataReader`` surface.
 
 The port's copy of ``psana_ray_tpu/consumer.py`` over the port's
-transports (``auto``/``local`` and ``shm://``):
+transports (``auto``/``local``, ``shm://`` and ``tcp://``):
 
 - ``DataReader(address, queue_name, namespace)``, a context manager;
   ``connect()`` resolves the named queue with the config's retry loop;
@@ -10,22 +10,27 @@ transports (``auto``/``local`` and ``shm://``):
   :class:`EndOfStream`, never None;
 - ``iter_records()`` yields frames until EOS markers cover every shard
   of every producer runtime, handing sibling consumers' markers back;
+- ``DataReader(streaming=True, stream_window=W)`` subscribes a TCP
+  connection to server-push delivery with W frames of credit;
 - a dead transport raises :class:`DataReaderError`.
 
 The CLI, with the JAX command's flags, defaults and log lines:
 
-    python -m psana_ray_tpu_torch.consumer 0 --address shm://run42 \\
-        --status_interval 1 --profile_dir traces/
+    python -m psana_ray_tpu_torch.consumer 0 --address tcp://ingest-head:6379 \\
+        --stream --wire_codec auto --status_interval 1
 
 It logs a line a frame (``--quiet`` drops them), a metrics heartbeat
 every ``--status_interval`` seconds, and ``end of stream after N
 frames``; ``--cursor_path`` keeps a resumable cursor and
 ``--profile_dir`` captures a ``torch.profiler`` trace of the consume
-loop (the only path that loads torch). The JAX CLI's obs, autotune,
-cluster, tenant and wire-codec flags are refused (ROADMAP.md Queue 1 Item
-8). ``--stream`` is taken and ignored, as the JAX package does on
-transports without streaming; ``--replay`` needs a durable TCP queue
-server and fails with ``DataReaderError``.
+loop (the only path that loads torch). ``--stream`` and
+``--stream_window`` subscribe to server-push delivery over ``tcp://``
+(ignored elsewhere, as the JAX package does); ``--wire_codec``,
+``--tenant`` and ``--tenant_weight`` ride the TCP connection's
+capability exchange. The JAX CLI's obs, autotune and cluster flags are
+refused (ROADMAP.md Queue 1 Item 8); ``--replay`` needs a durable queue
+server, which the port does not have, and fails with
+``DataReaderError``.
 """
 
 from __future__ import annotations
@@ -54,11 +59,14 @@ class DataReader:
         replay_from: Optional[str] = None,
         replay_group: Optional[str] = None,
     ):
-        """``streaming`` subscribes a TCP connection to server-push
-        delivery; the port's transports have none, so it is ignored.
-        ``replay_from`` (``"begin"``, ``"resume"`` or an offset) reads a
-        durable queue server's retained log; no transport of the port has
-        one, so :meth:`connect` raises :class:`DataReaderError`."""
+        """``streaming=True`` subscribes a TCP connection to server-push
+        delivery with ``stream_window`` frames of credit (reads drain the
+        pushes; frames read and not yet acked redeliver to another
+        consumer if this one dies); ignored on transports without
+        streaming. ``replay_from`` (``"begin"``, ``"resume"`` or an
+        offset) reads a durable queue server's retained log; no transport
+        of the port has one, so :meth:`connect` raises
+        :class:`DataReaderError`."""
         self.config = config or TransportConfig()
         self.address = address if address != "auto" else self.config.address
         self.queue_name = queue_name or self.config.queue_name
@@ -88,11 +96,21 @@ class DataReader:
             self._queue = self._open()
         except RendezvousTimeout as e:
             raise DataReaderError(f"could not find queue {self.queue_name!r}: {e}") from e
+        except TransportClosed as e:  # no queue server answered
+            raise DataReaderError(f"could not reach queue {self.queue_name!r}: {e}") from e
         if self.replay_from is not None and not hasattr(self._queue, "replay_open"):
+            q, self._queue = self._queue, None
+            if hasattr(q, "disconnect"):
+                q.disconnect()
             raise DataReaderError(
                 f"transport {self.address!r} does not support replay "
                 f"(need a tcp:// or cluster:// durable queue server)"
             )
+        if self.streaming and hasattr(self._queue, "stream_open"):
+            try:
+                self._queue.stream_open(self.stream_window)
+            except TransportClosed as e:
+                raise DataReaderError(str(e)) from e
         return self
 
     @property
@@ -194,12 +212,11 @@ class DataReader:
             raise DataReaderError("not connected — call connect() or use as context manager")
 
 
-# the JAX CLI's obs, autotune, cluster, tenant and wire-codec flags
+# the JAX CLI's obs, autotune and cluster flags
 NOT_PORTED_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--cluster", "--partitions",
-    "--group", "--member_id", "--wire_codec", "--tenant", "--tenant_weight", "--autotune",
-    "--autotune_interval",
+    "--group", "--member_id", "--autotune", "--autotune_interval",
 )
 
 
@@ -217,11 +234,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.consumer")
     p.add_argument("consumer_id", type=int, nargs="?", default=0)
     p.add_argument("--ray_address", "--address", dest="address", default="auto",
-                   help="auto (in-process) or shm://[name]")
+                   help="auto (in-process), shm://[name] or tcp://host:port")
     p.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     p.add_argument("--queue_name", default="shared_queue")
     p.add_argument("--stream", action="store_true",
-                   help="server-push streaming (TCP transports); ignored on auto and shm://")
+                   help="subscribe to server-push streaming (tcp://); ignored on auto and shm://")
     p.add_argument("--stream_window", type=int, default=32,
                    help="streaming credit window (TCP transports)")
     p.add_argument("--replay", default=None, metavar="from=<offset|begin|resume>",
@@ -250,18 +267,29 @@ def main(argv=None):
     p.add_argument("--cursor_save_every", type=int, default=32,
                    help="persist the cursor every N processed frames (and at exit); <= 0 "
                         "saves at exit only")
+    from psana_ray_tpu_torch.transport.addressing import (
+        add_tenant_args,
+        add_wire_args,
+        apply_tenant_args,
+        apply_wire_args,
+    )
     from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
+    add_wire_args(p)
+    add_tenant_args(p)
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS,
-                    "the obs, autotune, cluster, tenant and wire-codec modules")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
+    try:
+        reader_config = apply_tenant_args(apply_wire_args(TransportConfig(address=a.address), a),
+                                          a)
+    except (TypeError, ValueError) as e:
+        p.error(str(e))
     logging.basicConfig(
         level=getattr(logging, a.log_level.upper(), logging.INFO),
         format="%(asctime)s - %(levelname)s - %(message)s",
     )
     log = logging.getLogger("consumer")
-    reader_config = TransportConfig(address=a.address)
 
     stop = False
 

@@ -196,12 +196,17 @@ def batches_from_queue(
     stop=None,
     n_buffers: int = 0,
     batcher: Optional[FrameBatcher] = None,
+    prefer_stream: bool = True,
 ) -> Iterator[Batch]:
     """Drain a queue into fixed-shape batches until end of stream.
 
-    Pops with ``get_batch_view`` where the queue has it (the shm ring: each
-    frame views its slot until ``push_view`` has copied it into the arena
-    and released it), else ``get_batch``; either takes many items at once.
+    Pops with, in this order of preference: ``get_batch_stream`` (a TCP
+    client's server-push stream: no request round trip, no empty-queue
+    poll; ``prefer_stream=False`` pulls instead), ``get_batch_view`` (the
+    shm ring: each frame views its slot until ``push_view`` has copied it
+    into the arena and released it), ``get_batch``. Each takes many items
+    at once, and over TCP every frame views a pooled receive buffer that
+    ``push_view`` releases after the frame's one copy.
     Every record of a pop is copied and released before any batch is
     yielded, so a generator suspended at a yield holds no slot. The stream
     ends when the :class:`EosTally` covers every shard, or when the
@@ -214,7 +219,8 @@ def batches_from_queue(
     """
     starved_since: Optional[float] = None
     tally = EosTally()
-    pop = getattr(queue, "get_batch_view", None) or queue.get_batch
+    pop = ((getattr(queue, "get_batch_stream", None) if prefer_stream else None)
+           or getattr(queue, "get_batch_view", None) or queue.get_batch)
     try:
         while True:
             if stop is not None and stop.is_set():

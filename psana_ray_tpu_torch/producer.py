@@ -1,7 +1,7 @@
 """Producer runtime and CLI: sharded ingest into a named, backpressured queue.
 
 The port's copy of ``psana_ray_tpu/producer.py`` over the port's
-transports (``auto``/``local`` and ``shm://``). :class:`ProducerRuntime`
+transports (``auto``/``local``, ``shm://`` and ``tcp://``). :class:`ProducerRuntime`
 runs ``num_local_shards`` ingest threads into one queue: each opens its
 strided shard of a source (:func:`~psana_ray_tpu_torch.sources.open_source`:
 synthetic, ``replay:<path>`` or psana), applies the bad-pixel and manual
@@ -15,11 +15,11 @@ runtime covered of the global count. A shard resumes from a consumer's
 The CLI keeps the JAX command's flags, defaults and log lines:
 
     python -m psana_ray_tpu_torch.producer --exp replay:run42.npz \\
-        --address shm://run42 --num_shards 2 --num_consumers 2
+        --address tcp://ingest-head:6379 --wire_codec shuffle-rle \\
+        --num_shards 2 --num_consumers 2
 
-The JAX CLI's obs, autotune, cluster and wire-codec flags are refused
-(ROADMAP.md Queue 1 Item 8), as are ``tcp://`` and ``cluster://``
-addresses. Also here: :func:`produce`, the inner loop alone, and
+The JAX CLI's obs, autotune and cluster flags are refused (ROADMAP.md
+Queue 1 Item 8), as are ``cluster://`` addresses. Also here: :func:`produce`, the inner loop alone, and
 :func:`produce_synthetic`, a ``spawn`` producer process that feeds a
 named shm ring from a seeded :class:`SyntheticSource`.
 
@@ -40,10 +40,10 @@ import numpy as np
 
 from psana_ray_tpu_torch.config import MaskConfig, PipelineConfig, RetrievalMode, SourceConfig
 from psana_ray_tpu_torch.config import TransportConfig
-from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, narrow_panels, validate_wire_dtype
+from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, narrow_panels
 from psana_ray_tpu_torch.sources import SyntheticSource, open_source
 from psana_ray_tpu_torch.transport import BackoffPolicy, Registry, TransportClosed, TransportWedged
-from psana_ray_tpu_torch.transport.addressing import open_queue
+from psana_ray_tpu_torch.transport.addressing import add_wire_args, apply_wire_args, open_queue
 from psana_ray_tpu_torch.transport.shm_ring import ShmRingBuffer
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
@@ -60,23 +60,34 @@ def produce(
 ) -> int:
     """Put every ``(event_idx, panels, photon_energy)`` as a
     :class:`FrameRecord` with ``put_wait`` (blocking while the queue is
-    full), then one EOS covering this shard. Returns the events put.
-    ``events`` is e.g. ``SyntheticSource.iter_indexed_events("raw")``.
-    Raises ``TimeoutError`` if a put waits longer than ``timeout``."""
+    full), or with windowed ``put_pipelined`` where the queue has it (a
+    TCP client: every ack read back before it returns), then one EOS
+    covering this shard. Returns the events put. ``events`` is e.g.
+    ``SyntheticSource.iter_indexed_events("raw")``. Raises
+    ``TimeoutError`` if a put waits longer than ``timeout``."""
+    windowed = hasattr(queue, "put_pipelined")
+
+    def put(item, what):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        ok = (queue.put_pipelined(item, deadline=deadline) if windowed
+              else queue.put_wait(item, timeout=timeout))
+        if not ok:
+            raise TimeoutError(f"queue full for {timeout} s at {what}")
+
     n = 0
     for idx, panels, energy in events:
-        rec = FrameRecord(shard_rank, int(idx), panels, float(energy), time.time())
-        if not queue.put_wait(rec, timeout=timeout):
-            raise TimeoutError(f"queue full for {timeout} s at event {idx}")
+        put(FrameRecord(shard_rank, int(idx), panels, float(energy), time.time()), f"event {idx}")
         n += 1
-    eos = EndOfStream(producer_rank=shard_rank, total_events=n, total_shards=total_shards)
-    if not queue.put_wait(eos, timeout=timeout):
-        raise TimeoutError(f"queue full for {timeout} s at end of stream")
+    put(EndOfStream(producer_rank=shard_rank, total_events=n, total_shards=total_shards),
+        "end of stream")
+    if windowed and not queue.flush_puts(
+            deadline=None if timeout is None else time.monotonic() + timeout):
+        raise TimeoutError(f"windowed puts unacknowledged for {timeout} s at end of stream")
     return n
 
 
 def produce_synthetic(
-    ring_name: str,
+    target: str,
     detector_name: str,
     n_events: int,
     pool_events: int,
@@ -86,15 +97,23 @@ def produce_synthetic(
     run: int = 1,
 ) -> int:
     """A producer process's body, for ``multiprocessing``'s ``spawn``
-    start method: attach to the shm ring ``ring_name``, draw the RAW
-    events ``0 .. pool_events - 1`` of ``SyntheticSource(detector_name,
-    seed, dtype, run)``, put ``n_events`` of them (the pool cycled, event
-    index ``i`` carrying pool event ``i % pool_events``) and one EOS, then
-    detach. ``produced`` (a ``multiprocessing.Value``) receives the count."""
+    start method: draw the RAW events ``0 .. pool_events - 1`` of
+    ``SyntheticSource(detector_name, seed, dtype, run)``, then attach to
+    ``target`` (an shm ring's name, or ``tcp://host:port``: the queue
+    server's default queue, fed with windowed puts), put ``n_events`` of
+    them (the pool cycled, event index ``i`` carrying pool event ``i %
+    pool_events``) and one EOS, and detach. ``produced`` (a
+    ``multiprocessing.Value``) receives the count."""
     src = SyntheticSource(run=run, num_events=pool_events, detector_name=detector_name,
                           seed=seed, dtype=dtype)
     pool = [src.event(i, "raw") for i in range(pool_events)]
-    ring = ShmRingBuffer.attach(ring_name, retries=100, interval_s=0.1)
+    if target.startswith("tcp://"):
+        from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+
+        host, _, port = target[len("tcp://"):].partition(":")
+        ring = TcpQueueClient(host, int(port))
+    else:
+        ring = ShmRingBuffer.attach(target, retries=100, interval_s=0.1)
     try:
         events = ((i, *pool[i % pool_events]) for i in range(n_events))
         n = produce(events, ring, timeout=120.0)
@@ -106,33 +125,70 @@ def produce_synthetic(
 
 
 class _Sender:
-    """Backpressured frame sender: ``put_batch`` of up to ``batch_size``
-    records where the transport has it, one ``put`` a record otherwise
-    (the port's transports: a put is a memcpy). A refused or partly
-    accepted put waits the backoff and retries the rest, in order. The
-    TCP transport's windowed sender is not ported (ROADMAP.md Queue 1
-    Item 8)."""
+    """Backpressured frame sender, on the fastest path the transport has:
+
+    - windowed puts (TCP, ``put_pipelined``): each record leaves at once,
+      up to the client's window in flight before the sender waits for
+      acks; backpressure arrives as delayed acks, and a reconnect resends
+      exactly the unacked tail. :meth:`flush` (``flush_puts``) waits for
+      every ack: the end of a shard, before the barrier and the EOS;
+    - ``put_batch`` of up to ``batch_size`` records where the transport
+      has it, with the backoff envelope on a refused or partly accepted
+      put;
+    - one ``put`` a record otherwise (in-process and shm: a put is a
+      memcpy).
+
+    Over TCP every path sends scatter-gather from the record's panels: the
+    producer copies no payload."""
 
     def __init__(self, queue, backoff, stop_event, metrics, batch_size: int = 16):
         self.queue = queue
         self.backoff = backoff
         self.stop = stop_event
         self.metrics = metrics
-        self.batch_size = batch_size if hasattr(queue, "put_batch") else 1
+        self.windowed = hasattr(queue, "put_pipelined")
+        self.batch_size = (batch_size if not self.windowed and hasattr(queue, "put_batch")
+                           else 1)
         self.pending: List[FrameRecord] = []
 
     def send(self, rec) -> bool:
-        """Buffer ``rec`` and flush when the buffer is full. False: the
-        transport closed or the runtime stopped."""
+        """Send ``rec`` (windowed) or buffer it and flush a full buffer.
+        False: the transport closed or the runtime stopped."""
+        if self.windowed:
+            return self._send_windowed(rec)
         self.pending.append(rec)
         if len(self.pending) >= self.batch_size:
             return self.flush()
         return True
 
+    def _send_windowed(self, rec) -> bool:
+        while not self.stop.is_set():
+            try:
+                # bounded slices: stop() stays prompt while the window is full
+                if self.queue.put_pipelined(rec, deadline=time.monotonic() + 0.5):
+                    self.metrics.observe_frame(rec.nbytes)
+                    return True
+            except TransportWedged:
+                raise
+            except TransportClosed:
+                return False
+        return False
+
     def flush(self) -> bool:
-        """Put every buffered record with the backoff envelope. False: the
-        transport closed or the runtime stopped (records may remain
-        buffered; the stream is dead either way)."""
+        """Put every buffered record with the backoff envelope (windowed:
+        wait until every put in flight is acked). False: the transport
+        closed or the runtime stopped (records may remain buffered; the
+        stream is dead either way)."""
+        if self.windowed:
+            while not self.stop.is_set():
+                try:
+                    if self.queue.flush_puts(deadline=time.monotonic() + 0.5):
+                        return True
+                except TransportWedged:
+                    raise
+                except TransportClosed:
+                    return False
+            return False
         while self.pending:
             if self.stop.is_set():
                 return False
@@ -329,11 +385,11 @@ class ProducerRuntime:
         self._stop.set()
 
 
-# the JAX CLI's obs, autotune, cluster and wire-codec flags
+# the JAX CLI's obs, autotune and cluster flags
 NOT_PORTED_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--cluster",
-    "--partitions", "--wire_codec", "--autotune", "--autotune_interval",
+    "--partitions", "--autotune", "--autotune_interval",
 )
 
 
@@ -351,16 +407,14 @@ def parse_arguments(argv=None):
     p.add_argument("--uses_bad_pixel_mask", action="store_true")
     p.add_argument("--manual_mask_path", default=None)
     p.add_argument("--ray_address", "--address", dest="address", default="auto",
-                   help="auto (in-process) or shm://[name]")
+                   help="auto (in-process), shm://[name] or tcp://host:port")
     p.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     p.add_argument("--queue_name", default="shared_queue")
     p.add_argument("--queue_size", type=int, default=100)
     p.add_argument("--num_consumers", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--log_level", default="INFO")
-    p.add_argument("--wire_dtype", default="", metavar="DTYPE",
-                   help="lossy, opt-in: narrow panels to this dtype before they are encoded "
-                        "(uint16 halves f32 frames; integer targets round and clip)")
+    add_wire_args(p, producer=True)
     p.add_argument("--num_shards", type=int, default=1, help="local ingest workers")
     p.add_argument("--num_events", type=int, default=1024, help="synthetic events")
     p.add_argument(
@@ -380,13 +434,17 @@ def parse_arguments(argv=None):
     )
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS,
-                    "the obs, autotune, cluster and wire-codec modules")
-    if a.wire_dtype:
-        try:
-            validate_wire_dtype(a.wire_dtype)
-        except (TypeError, ValueError) as e:
-            p.error(f"--wire_dtype: {e}")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
+    try:
+        transport = apply_wire_args(TransportConfig(
+            address=a.address,
+            namespace=a.namespace,
+            queue_name=a.queue_name,
+            queue_size=a.queue_size,
+            num_consumers=a.num_consumers,
+        ), a)
+    except (TypeError, ValueError) as e:
+        p.error(f"--wire_codec/--wire_dtype: {e}")
     return PipelineConfig(
         source=SourceConfig(
             exp=a.exp,
@@ -401,14 +459,7 @@ def parse_arguments(argv=None):
             cursor_path=a.cursor_path,
         ),
         mask=MaskConfig(a.uses_bad_pixel_mask, a.manual_mask_path),
-        transport=TransportConfig(
-            address=a.address,
-            namespace=a.namespace,
-            queue_name=a.queue_name,
-            queue_size=a.queue_size,
-            num_consumers=a.num_consumers,
-            wire_dtype=a.wire_dtype,
-        ),
+        transport=transport,
     ), a
 
 
@@ -463,7 +514,12 @@ def main(argv=None):
         runtime.stop()
 
     signal.signal(signal.SIGINT, _sigint)
-    runtime.run(block=True)
+    try:
+        runtime.run(block=True)
+    finally:
+        queue = runtime._queue
+        if hasattr(queue, "flush_puts"):  # TCP: a clean goodbye to the server
+            queue.disconnect()
     logger.info("producer done: %s", runtime.metrics.status_line())
 
 

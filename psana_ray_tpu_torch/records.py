@@ -14,8 +14,11 @@ byte for byte the JAX package's:
 - an EOS marker is its own small header.
 
 :func:`narrow_panels` is the producer's opt-in lossy wire dtype
-(``--wire_dtype``). Hop stamps and the compressed wire form of the TCP
-transport are not ported (Queue 1 Item 8).
+(``--wire_dtype``). :meth:`FrameRecord.wire_parts` is the scatter-gather
+form the TCP transport sends from the panels' own memory, and
+:class:`LazyFrameRecord` a frame received compressed by the queue
+server, whose panels inflate at first touch. Hop stamps are not ported
+(Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -58,7 +61,11 @@ class FrameRecord:
     into transport memory (a shm ring slot), the lease keeps that memory
     checked out; :meth:`release` hands it back once the payload has been
     copied onward (``FrameBatcher.push_view``). ``trace``: the 25 packed
-    bytes of a version-3 frame's trace context, kept as they came."""
+    bytes of a version-3 frame's trace context, kept as they came.
+    ``wire_cache`` (never on the wire): ``(codec_id, lease, payload)``, the
+    exact compressed bytes a queue server received the frame as, which it
+    re-sends verbatim to a peer of the same codec; released with the
+    record."""
 
     shard_rank: int
     event_idx: int
@@ -67,6 +74,7 @@ class FrameRecord:
     timestamp: float = 0.0
     lease: Optional[object] = dataclasses.field(default=None, repr=False)
     trace: Optional[bytes] = dataclasses.field(default=None, repr=False)
+    wire_cache: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         panels = np.asarray(self.panels)
@@ -94,7 +102,12 @@ class FrameRecord:
     def release(self) -> None:
         """Hand the leased transport buffer back. Call only after the
         panels were copied onward: the view dies with the lease.
-        Idempotent; a no-op for records that own their data."""
+        Idempotent; a no-op for records that own their data. Drops the
+        ``wire_cache`` lease too."""
+        cache = self.wire_cache
+        if cache is not None:
+            object.__setattr__(self, "wire_cache", None)
+            cache[1].release()
         lease = self.lease
         if lease is not None:
             object.__setattr__(self, "lease", None)
@@ -104,16 +117,80 @@ class FrameRecord:
         """Self if this record owns its data; else a copy that does, with
         the lease released. Use before re-enqueueing or keeping a
         view-backed record past its transport buffer."""
-        if self.lease is None:
+        if self.lease is None and self.wire_cache is None:
             return self
-        panels = self.panels.copy()
+        panels = self.panels.copy() if self.lease is not None else self.panels
         self.release()
-        return dataclasses.replace(self, panels=panels, lease=None)
+        return dataclasses.replace(self, panels=panels, lease=None, wire_cache=None)
+
+    def wire_parts(self) -> tuple:
+        """``(header_bytes, payload_memoryview)``: :meth:`to_bytes` as two
+        parts, the payload a flat byte view of the panels themselves (one
+        copy only for strided panels), so a ``sendmsg`` sender never
+        builds the frame as one bytes object."""
+        panels = self.panels
+        if not panels.flags.c_contiguous:
+            panels = np.ascontiguousarray(panels)
+        if panels.dtype not in _DTYPE_CODES:
+            raise ValueError(f"dtype {panels.dtype} has no wire code")
+        header = _FRAME_HEADER.pack(
+            _FRAME_MAGIC, _wire_version(self), self.shard_rank, self.event_idx, panels.ndim,
+            _DTYPE_CODES[panels.dtype], float(self.photon_energy), float(self.timestamp),
+        ) + struct.pack(f"<{panels.ndim}q", *panels.shape)
+        if self.trace is not None:
+            header += self.trace
+        return header, panels.data.cast("B")
 
     def to_bytes(self) -> bytes:
         buf = bytearray(encoded_size(self))
         encode_into(self, buf)
         return bytes(buf)
+
+
+class LazyFrameRecord(FrameRecord):
+    """A frame the queue server received compressed and did not inflate.
+    Its header fields are real (they travel uncompressed); ``panels``
+    inflates at first touch through a closure of the codec layer. A relay
+    that re-sends the cached compressed bytes to a peer of the same codec
+    never touches the panels. Built by :func:`make_lazy_frame` only."""
+
+    @property
+    def panels(self):  # type: ignore[override]
+        p = self.__dict__.get("_panels")
+        if p is None:
+            # the closure knows nothing of the record: a closure holding the
+            # record would be a reference cycle, and the pool's leases would
+            # wait for a gc pass instead of the record's death
+            p, lease = self.__dict__["_inflate"]()
+            object.__setattr__(self, "_panels", p)
+            if lease is not None:
+                object.__setattr__(self, "lease", lease)
+        return p
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.__dict__["_panel_nbytes"])  # no inflate for a count
+
+    def materialize(self) -> "FrameRecord":
+        rec = FrameRecord(self.shard_rank, self.event_idx, self.panels.copy(),
+                          self.photon_energy, self.timestamp, trace=self.trace)
+        self.release()
+        return rec
+
+
+def make_lazy_frame(rank, idx, energy, ts, trace, panel_nbytes, inflate,
+                    wire_cache) -> LazyFrameRecord:
+    """A :class:`LazyFrameRecord` with its header fields set directly.
+    ``inflate`` is a closure of no arguments returning ``(panels, lease)``
+    (the lease backing the inflated panels, None off the pooled path); it
+    must not reference the record."""
+    rec = object.__new__(LazyFrameRecord)
+    for name, value in (("shard_rank", rank), ("event_idx", idx), ("photon_energy", energy),
+                        ("timestamp", ts), ("lease", None), ("trace", trace),
+                        ("wire_cache", wire_cache), ("_panel_nbytes", int(panel_nbytes)),
+                        ("_inflate", inflate)):
+        object.__setattr__(rec, name, value)
+    return rec
 
 
 @dataclasses.dataclass(frozen=True)

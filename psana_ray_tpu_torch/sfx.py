@@ -26,7 +26,8 @@ The operator CLI, with the JAX package's flags and refusals:
         --serving_params serving.npz --output run42.cxi \
         --cursor_path run42.cursor --cursor_stride 4
 
-It reads the stream over ``auto`` or ``shm://`` addresses, serves a
+It reads the stream over ``auto``, ``shm://`` or ``tcp://`` addresses
+(a queue server's connection, with no codec negotiated), serves a
 parameter file of the port (an orbax tree of the JAX package goes
 through ``tools/convert_params.py`` first) and writes CXI. The JAX CLI's
 obs, autotune and cluster flags are refused: their modules are not
@@ -59,6 +60,7 @@ from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate
 from psana_ray_tpu_torch.transport.addressing import open_queue
+from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
@@ -286,7 +288,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.sfx",
                                  description="stream -> calibrate -> PeakNet-TPU -> peaks -> CXI")
     ap.add_argument("--ray_address", "--address", dest="address", default="auto",
-                    help="auto (in-process) or shm://[name]")
+                    help="auto (in-process), shm://[name] or tcp://host:port")
     ap.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     ap.add_argument("--queue_name", default="shared_queue")
     ap.add_argument("--output", required=True, help="CXI (HDF5) output path")
@@ -400,7 +402,7 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
     config = TransportConfig(address=a.address, namespace=a.namespace, queue_name=a.queue_name)
     try:
         queue = open_queue(config, role="consumer")
-    except (NotImplementedError, TimeoutError, ValueError) as e:
+    except (NotImplementedError, TimeoutError, TransportClosed, ValueError) as e:
         log.error("could not open queue %s: %s", a.queue_name, e)
         return 1
     stop = threading.Event()

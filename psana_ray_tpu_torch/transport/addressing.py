@@ -1,7 +1,7 @@
 """Address schemes: one queue-opening surface for the port's transports.
 
-The port's own copy of ``shm_ring_name`` and ``open_queue`` from
-``psana_ray_tpu/transport/addressing.py``. The address string selects the
+The port's own copy of ``shm_ring_name``, ``open_queue`` and the wire and
+tenant flags of ``psana_ray_tpu/transport/addressing.py``. The address string selects the
 transport and the ``(namespace, queue_name)`` pair names the queue in it:
 
 - ``auto`` / ``local``: the in-process :class:`Registry` (threads of one
@@ -9,13 +9,17 @@ transport and the ``(namespace, queue_name)`` pair names the queue in it:
 - ``shm://`` or ``shm://<name>``: the cross-process shared-memory ring on
   one host. With no ``<name>`` the ring is named ``<namespace>__<queue_name>``,
   so a producer and a consumer rendezvous from their configs alone. The
-  ring outlives its creator until destroyed.
+  ring outlives its creator until destroyed;
+- ``tcp://host:port``: a queue server on another host
+  (``python -m psana_ray_tpu_torch.queue_server``, or the JAX package's);
+  the pair names a queue on that server, which the OPEN opcode gets or
+  creates. The config's ``wire_codec`` and ``tenant`` ride the
+  connection's capability exchange.
 
 Producers open with ``role="producer"`` (get-or-create), consumers with
-``role="consumer"`` (resolve with the config's retry loop). ``tcp://``
-and ``cluster://`` addresses (the queue server and the sharded queue
-service) are not ported: they raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 Item 8.
+``role="consumer"`` (resolve with the config's retry loop). ``cluster://``
+addresses (the sharded queue service) are not ported: they raise
+``NotImplementedError`` naming ROADMAP.md Queue 1 Item 8.
 """
 
 from __future__ import annotations
@@ -32,6 +36,69 @@ def shm_ring_name(config: TransportConfig, address: Optional[str] = None) -> str
     address = address or config.address
     explicit = address[len("shm://"):] if address.startswith("shm://") else ""
     return explicit or f"{config.namespace}__{config.queue_name}"
+
+
+def add_wire_args(parser, producer: bool = False) -> None:
+    """The wire-compression flag (and the producer's ``--wire_dtype``)."""
+    parser.add_argument(
+        "--wire_codec", default="", metavar="auto|none|NAME[,NAME]",
+        help="negotiate wire compression with the queue server (tcp://): 'auto' decides "
+             "at each connect from a short link-rate probe (on through slow links, off on "
+             "fast ones); a name advertises that codec (shuffle-rle always; lz4 and "
+             "bitshuffle-lz4 where installed). The server picks. Default: off")
+    if producer:
+        parser.add_argument(
+            "--wire_dtype", default="", metavar="DTYPE",
+            help="lossy, opt-in: narrow panels to this dtype before they are encoded "
+                 "(uint16 halves f32 frames; integer targets round and clip)")
+
+
+def add_tenant_args(parser) -> None:
+    """The fair-share tenant flags."""
+    parser.add_argument(
+        "--tenant", default="", metavar="NAME",
+        help="fair-share tenant of this endpoint's queue connections (tcp://): the "
+             "server's stream pump serves tenants by weighted deficit round-robin. "
+             "Default: the shared default tenant")
+    parser.add_argument("--tenant_weight", type=int, default=1, metavar="1-64",
+                        help="this tenant's fair-share weight")
+
+
+def apply_wire_args(config: TransportConfig, args) -> TransportConfig:
+    """Fold ``--wire_codec`` (and ``--wire_dtype``) into a config; an
+    unknown codec or dtype raises ValueError."""
+    import dataclasses
+
+    codec = getattr(args, "wire_codec", "") or ""
+    dtype = getattr(args, "wire_dtype", "") or ""
+    if not codec and not dtype:
+        return config
+    if codec and codec not in ("none", "auto"):
+        from psana_ray_tpu_torch.transport.codec import get_codec
+
+        for name in codec.split(","):
+            get_codec(name.strip())
+    if dtype:
+        from psana_ray_tpu_torch.records import validate_wire_dtype
+
+        validate_wire_dtype(dtype)
+    return dataclasses.replace(config, wire_codec=codec, wire_dtype=dtype)
+
+
+def apply_tenant_args(config: TransportConfig, args) -> TransportConfig:
+    """Fold ``--tenant``/``--tenant_weight`` into a config; a weight out
+    of [1, 64], or one without a tenant, raises ValueError."""
+    import dataclasses
+
+    tenant = getattr(args, "tenant", "") or ""
+    weight = int(getattr(args, "tenant_weight", 1) or 1)
+    if not 1 <= weight <= 64:
+        raise ValueError(f"--tenant_weight must be in [1, 64], got {weight}")
+    if not tenant:
+        if weight != 1:
+            raise ValueError("--tenant_weight requires --tenant")
+        return config
+    return dataclasses.replace(config, tenant=tenant, tenant_weight=weight)
 
 
 def open_queue(
@@ -78,9 +145,21 @@ def open_queue(
             return ShmRingBuffer.attach(name, retries=config.rendezvous_retries,
                                         interval_s=config.rendezvous_interval_s)
 
-    scheme = address.split("://", 1)[0] if "://" in address else address
-    if scheme in ("tcp", "cluster"):
+    if address.startswith("tcp://"):
+        from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+
+        host, _, port = address[len("tcp://"):].partition(":")
+        if not port:
+            raise ValueError(f"tcp address needs host:port, got {address!r}")
+        return TcpQueueClient(
+            host, int(port), namespace=config.namespace, queue_name=config.queue_name,
+            maxsize=config.queue_size,
+            codec=config.wire_codec if config.wire_codec not in ("", "none") else None,
+            tenant=config.tenant or None, tenant_weight=config.tenant_weight)
+
+    if address.startswith("cluster://"):
         raise NotImplementedError(
-            f"{scheme}:// addresses (the queue server and the sharded queue service) are not "
-            f"ported: ROADMAP.md Queue 1 Item 8; use auto or shm://")
-    raise ValueError(f"unknown address {address!r}: expected auto, local or shm://[name]")
+            "cluster:// addresses (the sharded queue service) are not ported: ROADMAP.md "
+            "Queue 1 Item 8; use auto, shm:// or tcp://")
+    raise ValueError(f"unknown address {address!r}: expected auto, local, shm://[name] or "
+                     f"tcp://host:port")

@@ -1,0 +1,1277 @@
+"""The TCP queue server's event loop: one thread, any number of
+connections.
+
+The port's copy of ``psana_ray_tpu/transport/evloop.py``.
+
+- One thread runs a ``selectors.DefaultSelector`` (epoll on Linux):
+  non-blocking accepts, incremental reads, non-blocking scatter-gather
+  writes that resume on ``EPOLLOUT`` after a partial send. The thread
+  count does not grow with the connections; memory is a small struct a
+  connection.
+- Each connection is an :class:`_EvConn` state machine over the wire
+  protocol of :mod:`psana_ray_tpu_torch.transport.tcp` (whose constants
+  and part-gathering helpers it imports, so the format cannot fork).
+  Control fields land in a reused scratch buffer, payloads straight into
+  pooled leases.
+- A wait is state, not a parked thread: a 'D' get-batch on an empty
+  queue, a 'U' put on a full one, a 'W' windowed put under backpressure
+  and a stream whose credits ran out park the connection as a waiter on
+  its queue. The pump serves waiters whenever queue state may have
+  changed (an enqueue or dequeue of the loop's own, a ``RingBuffer``
+  listener poking the waker, or, for queues without listeners such as
+  shm rings fed by other processes, a poll tick), and bounded waits
+  expire off a timer heap.
+- Streams sharing a queue are served in rotation under a weighted
+  deficit round-robin across tenants (:class:`_Wdrr`).
+- Delivery: popped items ride ``conn.in_flight`` until the next opcode
+  (the implicit ack) or BYE and go back to the queue's head when the
+  connection dies first; stream pushes ride the connection's unacked
+  window, whose exact tail redelivers on death. At least once:
+  duplicates possible, silent loss never.
+
+While a connection has a deferred op, its reads pause (one outstanding
+request a connection: what it pipelined waits in the kernel's buffer);
+a 1-byte ``MSG_PEEK`` probe, repeated every ``PROBE_INTERVAL_S``, keeps
+detecting a peer that died.
+
+Nothing reachable from :meth:`EventLoop.run` may block: no sleeps, no
+blocking socket calls, no unbounded waits. The one put-back that can
+block (a queue without ``put_front``) runs on a short-lived helper
+thread.
+
+Not ported (ROADMAP.md Queue 1 Item 8): the durable queues' replay
+cursors and ``splice`` of spilled records, replication, the worker
+fleet's connection migration and the metrics federation RPC.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+import json
+import selectors
+import socket
+import struct
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+from psana_ray_tpu_torch.transport.codec import (
+    CODEC_NONE,
+    CODEC_STATS,
+    decode_payload as _decode,
+    encode_for_wire as _wire_encode,
+    negotiate_codec,
+    payload_nbytes as _parts_nbytes,
+)
+from psana_ray_tpu_torch.transport.registry import TransportClosed
+from psana_ray_tpu_torch.transport.ring import EMPTY
+from psana_ray_tpu_torch.transport.tcp import (
+    _MAX_PAYLOAD,
+    _OP_ANCHOR,
+    _OP_BYE,
+    _OP_CLOSE,
+    _OP_CLUSTER,
+    _OP_CODEC,
+    _OP_COMMIT,
+    _OP_GET,
+    _OP_GET_BATCH,
+    _OP_GET_BATCH_WAIT,
+    _OP_OPEN,
+    _OP_PROMOTE,
+    _OP_PUT,
+    _OP_PUT_BATCH,
+    _OP_PUT_SEQ,
+    _OP_PUT_WAIT,
+    _OP_REPL_OPEN,
+    _OP_REPLAY,
+    _OP_SIZE,
+    _OP_STATS,
+    _OP_STREAM,
+    _OP_STREAM_ACK,
+    _SENDMSG_IOV,
+    _SERVER_WAIT_CAP_S,
+    _ST_CLOSED,
+    _ST_ERR,
+    _ST_NO,
+    _ST_OK,
+    STREAM,
+    _gather_parts,
+    _queue_stats_payload,
+    _refuse_conn,
+)
+
+# pump cadence for queues without a change listener (shm rings fed by
+# other processes); a listened queue pokes the waker on every change, so
+# its tick is only a safety net
+POLL_TICK_S = 0.02
+LISTENED_TICK_S = 0.25
+IDLE_TICK_S = 0.5
+# re-probe cadence of parked connections whose reads are paused
+PROBE_INTERVAL_S = 0.5
+# frames popped a stream visit: one wide window must not take a whole pass
+_STREAM_POP_MAX = 64
+# weighted deficit round-robin: frames of deficit a tenant earns a round
+# per unit of weight
+_WDRR_QUANTUM = 8
+_TENANT_DEFAULT = "default"
+_TENANT_WEIGHT_MAX = 64
+# a consumer-group RPC's answer: this server keeps no groups
+_NO_GROUPS = {"ok": False, "error": "consumer groups are not served by this queue server "
+                                    "(ROADMAP.md Queue 1 Item 8)"}
+
+
+class _Wdrr:
+    """A queue's weighted-deficit state for the stream pump: streams
+    sharing a queue are served in rotation, each pop capped by its
+    tenant's deficit. A round hands out ``_WDRR_QUANTUM`` frames for each
+    waiting stream connection, split across tenants by weight, so a
+    tenant's share follows its weight however many sockets it opens.
+    Loop-thread state: no lock."""
+
+    __slots__ = ("deficit",)
+
+    def __init__(self):
+        self.deficit: Dict[str, float] = {}
+
+    def allowance(self, tenant: str) -> float:
+        return self.deficit.get(tenant, 0.0)
+
+    def charge(self, tenant: str, n: int) -> None:
+        self.deficit[tenant] = self.deficit.get(tenant, 0.0) - n
+
+    def all_dry(self, tenant_weights: Dict[str, int]) -> bool:
+        return all(self.deficit.get(t, 0.0) < 1.0 for t in tenant_weights)
+
+    def replenish(self, tenant_weights: Dict[str, int], n_conns: int) -> None:
+        """A new round: ``quantum * n_conns`` frames, split by weight,
+        capped at two rounds of credit; tenants that left are dropped."""
+        if not tenant_weights:
+            return
+        for t in list(self.deficit):
+            if t not in tenant_weights:
+                del self.deficit[t]
+        total = float(_WDRR_QUANTUM * max(1, n_conns))
+        sum_w = sum(tenant_weights.values())
+        for t, w in tenant_weights.items():
+            earn = max(1.0, total * w / sum_w)
+            self.deficit[t] = min(2.0 * earn, max(0.0, self.deficit.get(t, 0.0)) + earn)
+
+
+def _stream_tenant_weights(get_waiters) -> Tuple[Dict[str, int], int]:
+    """``(tenant -> weight, live stream connections)`` over a queue's
+    waiters; of several connections of one tenant the largest weight
+    counts."""
+    out: Dict[str, int] = {}
+    n = 0
+    for conn in get_waiters:
+        if conn.stream is None or conn.closed:
+            continue
+        n += 1
+        if conn.weight > out.get(conn.tenant, 0):
+            out[conn.tenant] = conn.weight
+    return out, n
+
+
+class _StreamState:
+    """A streamed connection's credit window and unacked tail."""
+
+    __slots__ = ("window", "seq", "acked", "unacked", "queue_closed")
+
+    def __init__(self, window: int):
+        self.window = window
+        self.seq = 0
+        self.acked = 0
+        self.unacked: deque = deque()  # (seq, item) in push order
+        self.queue_closed = False
+
+    def budget(self) -> int:
+        return self.window - (self.seq - self.acked)
+
+
+class _QueueState:
+    """The loop's view of one backing queue: who waits on it."""
+
+    __slots__ = ("queue", "get_waiters", "put_waiters", "listened", "unlisten", "wdrr")
+
+    def __init__(self, queue):
+        self.queue = queue
+        self.get_waiters: deque = deque()  # 'D' waiters and stream connections
+        self.put_waiters: deque = deque()  # 'U'/'W' waiters, FIFO
+        self.listened = False
+        self.unlisten = None
+        self.wdrr = _Wdrr()
+
+
+class _QueueClosedSignal(Exception):
+    """The backing queue raised TransportClosed mid-pump."""
+
+
+class _EvConn:
+    """One connection: incremental reads, an outbound scatter-gather
+    queue, the in-flight deliveries and, once subscribed, the stream's
+    credit window."""
+
+    __slots__ = (
+        "loop", "sock", "srv", "queue", "in_flight", "out", "out_bytes", "closing", "closed",
+        "stream", "pending", "op_gen", "codec", "tenant", "weight", "_out_enq_total",
+        "_out_releases", "_hdr", "_hdr_mv", "_target", "_need", "_got", "_cb", "_lease",
+        "_want_read", "_want_write", "_mask", "_qb_remaining", "_qb_items", "_pw_wait_s",
+        "_w_seq", "_open_ns", "_open_buf",
+    )
+
+    def __init__(self, loop: "EventLoop", sock: socket.socket, srv):
+        self.loop = loop
+        self.sock = sock
+        self.srv = srv
+        self.queue = srv.queue  # until an OPEN binds another
+        # popped, unconfirmed deliveries: cleared at the next opcode (the
+        # implicit ack), requeued if the connection dies first
+        self.in_flight: List[Any] = []
+        self.out: deque = deque()  # memoryviews waiting to be sent
+        self.out_bytes = 0
+        self.closing = False  # flush what is queued, then close
+        self.closed = False
+        self.stream: Optional[_StreamState] = None
+        # the codec frames sent on this connection use ('Z'); a receive is
+        # driven by its tag and needs no state
+        self.codec = None
+        self.tenant = _TENANT_DEFAULT
+        self.weight = 1
+        # staging leases of compressed parts: (bytes-enqueued mark, lease),
+        # released once the bytes sent pass the mark
+        self._out_enq_total = 0
+        self._out_releases: deque = deque()
+        self.pending: Optional[dict] = None  # a deferred 'D'/'U'/'W'
+        self.op_gen = 0  # staleness guard of timer-heap entries
+        self._hdr = bytearray(64)  # control-field scratch
+        self._hdr_mv = memoryview(self._hdr)
+        self._target: Optional[memoryview] = None
+        self._need = 0
+        self._got = 0
+        self._cb = None
+        self._lease = None  # the pooled lease a payload is landing in
+        self._want_read = False
+        self._want_write = False
+        self._mask = 0
+        self._qb_remaining = 0
+        self._qb_items: List[Any] = []
+        self._pw_wait_s = 0.0
+        self._w_seq = 0
+        self._open_ns = ""
+        self._open_buf = bytearray()
+
+    # -- reads ----------------------------------------------------------
+    def _arm(self, mv: memoryview, cb, lease=None) -> None:
+        self._lease = lease
+        self._target = mv
+        self._need = mv.nbytes
+        self._got = 0
+        self._cb = cb
+
+    def _expect(self, n: int, cb) -> None:
+        self._arm(self._hdr_mv[:n], cb)
+
+    def _expect_payload(self, n: int, cb) -> None:
+        if n > _MAX_PAYLOAD:
+            raise ConnectionError(f"payload length {n} exceeds wire maximum {_MAX_PAYLOAD}")
+        lease = self.srv._pool.lease(n)
+        self._arm(lease.mv, cb, lease=lease)
+
+    def _expect_string(self, n: int, cb) -> None:
+        """A control string of ``n`` bytes (names, JSON) into its own buffer."""
+        self._open_buf = bytearray(n)
+        self._arm(memoryview(self._open_buf), cb)
+
+    def _await_op(self) -> None:
+        self._expect(1, self._on_op)
+
+    def on_readable(self) -> None:
+        if self.closed or self.closing:
+            return
+        if self.pending is not None:
+            self._probe_while_pending()
+            return
+        while True:
+            if self._got < self._need:
+                try:
+                    k = self.sock.recv_into(self._target[self._got:])
+                except (BlockingIOError, InterruptedError):
+                    return
+                if k == 0:
+                    raise ConnectionError("peer closed")
+                self._got += k
+                if self._got < self._need:
+                    continue
+            cb = self._cb
+            self._cb = None
+            cb()
+            if self.closed or self.closing or self.pending is not None or self._cb is None:
+                return
+
+    def _probe_while_pending(self) -> None:
+        """Readable during a deferred op: EOF (the peer died mid-wait:
+        the op is dropped with the connection) or pipelined bytes that
+        wait their turn. Reads pause then (level-triggered epoll would
+        spin), and a timer re-probes, so a peer that dies later is still
+        caught."""
+        try:
+            k = self.sock.recv_into(self._hdr_mv[:1], 1, socket.MSG_PEEK)
+        except (BlockingIOError, InterruptedError):
+            return
+        if k == 0:
+            raise ConnectionError("peer closed while op deferred")
+        self._set_interest(read=False)
+        self.loop.add_liveness_probe(self)
+
+    # -- writes ---------------------------------------------------------
+    def send_parts(self, parts, release=None) -> None:
+        """Queue parts to send. ``release`` (a lease or a list of them,
+        backing compressed parts) is released once every byte queued so
+        far has gone to the kernel."""
+        for m in _gather_parts(parts):
+            self.out.append(m)
+            self.out_bytes += m.nbytes
+            self._out_enq_total += m.nbytes
+        if release is not None:
+            for lease in release if isinstance(release, list) else (release,):
+                self._out_releases.append((self._out_enq_total, lease))
+        self.flush_out()
+
+    def _send_control(self, b: bytes) -> None:
+        self.send_parts([b])
+
+    def flush_out(self) -> None:
+        if self.closed:
+            return
+        try:
+            while self.out:
+                sent = self.sock.sendmsg(list(itertools.islice(self.out, _SENDMSG_IOV)))
+                if sent <= 0:
+                    raise ConnectionError("peer closed during send")
+                self.out_bytes -= sent
+                while sent:
+                    m = self.out[0]
+                    if sent >= m.nbytes:
+                        sent -= m.nbytes
+                        self.out.popleft()
+                    else:
+                        self.out[0] = m[sent:]
+                        sent = 0
+        except (BlockingIOError, InterruptedError):
+            pass
+        sent_total = self._out_enq_total - self.out_bytes
+        while self._out_releases and self._out_releases[0][0] <= sent_total:
+            self._out_releases.popleft()[1].release()
+        if not self.out and self.closing:
+            self.loop.kill_conn(self, None, requeue=False)
+            return
+        self._set_interest(write=bool(self.out))
+
+    def _set_interest(self, read: Optional[bool] = None, write: Optional[bool] = None) -> None:
+        if read is not None:
+            self._want_read = read
+        if write is not None:
+            self._want_write = write
+        mask = ((selectors.EVENT_READ if self._want_read else 0)
+                | (selectors.EVENT_WRITE if self._want_write else 0))
+        if mask == self._mask or self.closed:
+            return
+        sel = self.loop._sel
+        if self._mask == 0:
+            sel.register(self.sock, mask, self)
+        elif mask == 0:
+            sel.unregister(self.sock)
+        else:
+            sel.modify(self.sock, mask, self)
+        self._mask = mask
+
+    # -- deferred ops ---------------------------------------------------
+    def park(self, kind: str, **state) -> None:
+        self.pending = dict(state, kind=kind)
+        self.op_gen += 1
+
+    def unpark(self) -> None:
+        self.pending = None
+        self.op_gen += 1
+        self._await_op()
+        self._set_interest(read=True)
+
+    # -- dispatch -------------------------------------------------------
+    def _on_op(self) -> None:
+        op = self._hdr[0]
+        # the peer read the last response before it sent this: the implicit ack
+        self.in_flight = []
+        if self.stream is not None:
+            # a streamed connection's upstream: acks, window resizes, BYE
+            if op == _OP_STREAM_ACK[0]:
+                self._expect(8, self._on_stream_ack)
+                return
+            if op == _OP_STREAM[0]:
+                self._expect(4, self._stream_resize)
+                return
+            if op == _OP_BYE[0]:
+                self._finish_stream(clean=True)
+                self._begin_close()
+                return
+            raise ConnectionError(f"bad opcode {op:#04x} on streamed connection")
+        name = _OPS.get(op)
+        if name is None:
+            self._send_control(_ST_ERR)
+            self._begin_close()
+            return
+        getattr(self, name)()
+
+    def _begin_close(self) -> None:
+        """Flush queued bytes, then close without redelivery."""
+        if self.out:
+            self.closing = True
+            self._set_interest(read=False, write=True)
+        else:
+            self.loop.kill_conn(self, None, requeue=False)
+
+    # -- responses ------------------------------------------------------
+    def _encode_item_parts(self, item):
+        """The item's parts under this connection's codec, and the staging
+        lease to release after they are sent."""
+        return _wire_encode(item, self.codec, self.srv._pool)
+
+    def _respond_item(self, item) -> None:
+        parts, clease = self._encode_item_parts(item)
+        self.send_parts([_ST_OK + struct.pack("<I", _parts_nbytes(parts)), *parts],
+                        release=clease)
+
+    def _respond_batch(self, items) -> None:
+        self.in_flight = list(items)
+        parts: List[Any] = [_ST_OK, struct.pack("<I", len(self.in_flight))]
+        leases: List[Any] = []
+        try:
+            for item in self.in_flight:
+                item_parts, clease = self._encode_item_parts(item)
+                if clease is not None:
+                    leases.append(clease)
+                parts.append(struct.pack("<I", _parts_nbytes(item_parts)))
+                parts.extend(item_parts)
+        except BaseException:
+            for clease in leases:  # nothing queued yet: still ours
+                clease.release()
+            raise
+        self.send_parts(parts, release=leases or None)
+
+    def _take_item(self):
+        """Decode the payload just received, zero-copy off its lease. A
+        compressed frame is validated but not inflated (``lazy``): a peer
+        of the same codec gets its bytes verbatim."""
+        lease = self._lease
+        self._lease = None
+        try:
+            return _decode(lease.mv, lease=lease, lazy=True)
+        except BaseException:
+            lease.release()
+            raise
+
+    def _try_put(self, item) -> Optional[bool]:
+        """``queue.put`` with refusals answered ('X' closed, 'E' any other
+        error: a poison record must not kill the connection, or a windowed
+        producer would resend it on every reconnect). None when answered."""
+        try:
+            return self.queue.put(item)
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+        except Exception:  # noqa: BLE001 (answer, don't kill the connection)
+            self._send_control(_ST_ERR)
+        return None
+
+    def _put_refused(self) -> bool:
+        """A draining server answers a put 'X'."""
+        if self.srv._draining:
+            self._send_control(_ST_CLOSED)
+            self._await_op()
+            return True
+        return False
+
+    # -- opcodes --------------------------------------------------------
+    def _op_put(self) -> None:
+        self._expect(4, self._put_hdr)
+
+    def _put_hdr(self) -> None:
+        (n,) = struct.unpack_from("<I", self._hdr)
+        self._expect_payload(n, self._put_payload)
+
+    def _put_payload(self) -> None:
+        item = self._take_item()
+        if self._put_refused():
+            return
+        ok = self._try_put(item)
+        if ok is not None:
+            self._send_control(_ST_OK if ok else _ST_NO)
+        self._await_op()
+
+    def _op_get(self) -> None:
+        try:
+            item = self.queue.get()
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+        else:
+            if item is EMPTY:
+                self._send_control(_ST_NO)
+            else:
+                self.in_flight = [item]  # held until the next opcode
+                self._respond_item(item)
+        self._await_op()
+
+    def _op_get_batch(self) -> None:
+        self._expect(4, self._gb_hdr)
+
+    def _gb_hdr(self) -> None:
+        (max_items,) = struct.unpack_from("<I", self._hdr)
+        try:
+            items = self.queue.get_batch(min(max_items, 4096), timeout=0.0)
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+        else:
+            self._respond_batch(items)
+        self._await_op()
+
+    def _op_get_batch_wait(self) -> None:
+        self._expect(8, self._gbw_hdr)
+
+    def _gbw_hdr(self) -> None:
+        max_items, wait_ms = struct.unpack_from("<II", self._hdr)
+        max_items = min(max_items, 4096)
+        wait_s = min(wait_ms / 1000.0, _SERVER_WAIT_CAP_S)
+        try:
+            items = self.queue.get_batch(max_items, timeout=0.0)
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+            self._await_op()
+            return
+        if items or wait_s <= 0:
+            self._respond_batch(items)
+            self._await_op()
+            return
+        # an empty queue: served by the pump or answered empty by the timer
+        self.park("D", max_items=max_items)
+        self.loop.add_get_waiter(self, time.monotonic() + wait_s)
+
+    def _op_put_wait(self) -> None:
+        self._expect(8, self._pw_hdr)
+
+    def _pw_hdr(self) -> None:
+        wait_ms, n = struct.unpack_from("<II", self._hdr)
+        self._pw_wait_s = min(wait_ms / 1000.0, _SERVER_WAIT_CAP_S)
+        self._expect_payload(n, self._pw_payload)
+
+    def _pw_payload(self) -> None:
+        item = self._take_item()
+        if self._put_refused():
+            return
+        ok = self._try_put(item)
+        if ok is None:
+            self._await_op()
+            return
+        if ok or self._pw_wait_s <= 0:
+            self._send_control(_ST_OK if ok else _ST_NO)
+            self._await_op()
+            return
+        self.park("U", item=item)
+        self.loop.add_put_waiter(self, time.monotonic() + self._pw_wait_s)
+
+    def _op_put_seq(self) -> None:
+        self._expect(12, self._ws_hdr)
+
+    def _ws_hdr(self) -> None:
+        seq, n = struct.unpack_from("<QI", self._hdr)
+        self._w_seq = seq
+        self._expect_payload(n, self._ws_payload)
+
+    def _ws_payload(self) -> None:
+        item = self._take_item()
+        if self._put_refused():
+            return
+        ok = self._try_put(item)
+        if ok is None:
+            self._await_op()
+            return
+        if ok:
+            self._send_control(_ST_OK + struct.pack("<Q", self._w_seq))
+            self._await_op()
+            return
+        # backpressure: the ack waits for room, with no deadline (the delay
+        # is the signal)
+        self.park("W", item=item, seq=self._w_seq)
+        self.loop.add_put_waiter(self, None)
+
+    def _op_put_batch(self) -> None:
+        self._expect(4, self._qb_count)
+
+    def _qb_count(self) -> None:
+        (count,) = struct.unpack_from("<I", self._hdr)
+        self._qb_remaining = count
+        self._qb_items = []
+        self._qb_next()
+
+    def _qb_next(self) -> None:
+        if self._qb_remaining <= 0:
+            self._qb_finish()
+            return
+        self._qb_remaining -= 1
+        self._expect(4, self._qb_len)
+
+    def _qb_len(self) -> None:
+        (n,) = struct.unpack_from("<I", self._hdr)
+        self._expect_payload(n, self._qb_payload)
+
+    def _qb_payload(self) -> None:
+        self._qb_items.append(self._take_item())
+        self._qb_next()
+
+    def _qb_finish(self) -> None:
+        batch, self._qb_items = self._qb_items, []
+        if self._put_refused():
+            return
+        accepted = 0
+        for item in batch:
+            ok = self._try_put(item)
+            if ok is None:  # refusal already answered
+                self._await_op()
+                return
+            if not ok:
+                break  # full: the accepted prefix only (FIFO)
+            accepted += 1
+        self._send_control(_ST_OK + struct.pack("<I", accepted))
+        self._await_op()
+
+    def _op_stream(self) -> None:
+        self._expect(4, self._stream_hdr)
+
+    def _stream_hdr(self) -> None:
+        (window,) = struct.unpack_from("<I", self._hdr)
+        window = max(1, min(int(window), 4096))
+        self.stream = _StreamState(window)
+        STREAM.opened(window)
+        self.loop.add_stream(self)
+        self._await_op()  # from here: only 'K', 'M' and 'F' upstream
+
+    def _stream_resize(self) -> None:
+        """'M' on a streamed connection: resize the credit window in place
+        (no answer, as the subscribe has none)."""
+        (window,) = struct.unpack_from("<I", self._hdr)
+        window = max(1, min(int(window), 4096))
+        st = self.stream
+        old, st.window = st.window, window
+        if window != old:
+            STREAM.resized(old, window)
+        self._await_op()
+
+    def _on_stream_ack(self) -> None:
+        (seq,) = struct.unpack_from("<Q", self._hdr)
+        st = self.stream
+        if seq > st.acked:
+            st.acked = seq
+            STREAM.acked_msg()
+        n = 0
+        while st.unacked and st.unacked[0][0] <= st.acked:
+            st.unacked.popleft()  # credit returned: the lease may go
+            n += 1
+        if n:
+            STREAM.pruned(n)
+        self._await_op()
+
+    def push_stream_items(self, items) -> None:
+        st = self.stream
+        parts: List[Any] = []
+        leases: List[Any] = []
+        try:
+            for item in items:
+                st.seq += 1
+                st.unacked.append((st.seq, item))
+                item_parts, clease = self._encode_item_parts(item)
+                if clease is not None:
+                    leases.append(clease)
+                parts.append(_ST_OK + struct.pack("<QI", st.seq, _parts_nbytes(item_parts)))
+                parts.extend(item_parts)
+        except BaseException:
+            for clease in leases:
+                clease.release()
+            raise
+        self.send_parts(parts, release=leases or None)
+        STREAM.pushed(len(items))
+
+    def _finish_stream(self, clean: bool) -> None:
+        """Stream teardown: prune what the last cumulative ack covered and
+        requeue the rest at the head, unless the queue itself closed."""
+        st, self.stream = self.stream, None
+        if st is None:
+            return
+        while st.unacked and st.unacked[0][0] <= st.acked:
+            st.unacked.popleft()
+            STREAM.pruned(1)
+        lost = [item for (_s, item) in st.unacked]
+        st.unacked.clear()
+        if lost:
+            STREAM.pruned(len(lost))
+            if not st.queue_closed:
+                STREAM.redelivered_n(len(lost))
+                self.loop.requeue_items(self.queue, lost)
+        STREAM.closed(st.window)
+
+    def _op_size(self) -> None:
+        try:
+            n = self.queue.size()
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+        else:
+            self._send_control(_ST_OK + struct.pack("<I", n))
+        self._await_op()
+
+    def _send_json(self, obj) -> None:
+        payload = json.dumps(obj).encode()
+        self.send_parts([_ST_OK + struct.pack("<I", len(payload)), payload])
+
+    def _op_stats(self) -> None:
+        self._send_json(_queue_stats_payload(self.queue))
+        self._await_op()
+
+    def _op_anchor(self) -> None:
+        self._expect(16, self._anchor_reply)
+
+    def _anchor_reply(self) -> None:
+        self._send_control(_ST_OK + struct.pack("<dd", time.time(), time.monotonic()))
+        self._await_op()
+
+    def _op_close(self) -> None:
+        try:
+            self.queue.close()
+        except TransportClosed:
+            self._send_control(_ST_CLOSED)
+        else:
+            self._send_control(_ST_OK)
+        self._await_op()
+
+    def _op_bye(self) -> None:
+        self._begin_close()  # the last response was acked when this arrived
+
+    def _op_cluster(self) -> None:
+        self._expect(4, self._cluster_len)
+
+    def _cluster_len(self) -> None:
+        (n,) = struct.unpack_from("<I", self._hdr)
+        if n > 1 << 20:  # control-plane JSON: a MB is already absurd
+            raise ConnectionError(f"cluster RPC payload {n} bytes")
+        self._expect_string(n, self._cluster_finish)
+
+    def _cluster_finish(self) -> None:
+        """The link probe's ping answers in O(1) (its padded request is
+        what is timed); a malformed request or any consumer-group
+        operation gets ``{"ok": false, ...}``, as the JAX server answers a
+        group RPC it cannot serve."""
+        buf = self._open_buf
+        if buf[:13] == b'{"op": "ping"':
+            self._send_json({"ok": True, "nbytes": len(buf)})
+            self._await_op()
+            return
+        try:
+            req = json.loads(buf.decode())
+            if req.get("op") == "ping":
+                resp = {"ok": True, "nbytes": len(buf)}
+            elif not isinstance(req.get("group"), str) or not req.get("group"):
+                resp = {"ok": False, "error": "missing group"}
+            else:
+                resp = _NO_GROUPS
+        except Exception as e:  # noqa: BLE001 (a bad RPC must not kill the loop)
+            resp = {"ok": False, "error": repr(e)}
+        self._send_json(resp)
+        self._await_op()
+
+    def _op_replay(self) -> None:
+        """'R' and 'J' (offset:u64, group_len:u16, group): a memory queue
+        has no log, so the answer is '0'."""
+        self._expect(10, self._log_hdr)
+
+    _op_commit = _op_replay
+
+    def _log_hdr(self) -> None:
+        _, glen = struct.unpack_from("<QH", self._hdr)
+        self._expect_string(glen, self._answer_no)
+
+    def _answer_no(self) -> None:
+        self._send_control(_ST_NO)
+        self._await_op()
+
+    def _op_repl_open(self) -> None:
+        """'H' and 'Y' (ns_len:u16, ns, name_len:u16, name): this server
+        hosts no replica, so the answer is '0'."""
+        self._expect(2, self._named_ns_len)
+
+    _op_promote = _op_repl_open
+
+    def _named_ns_len(self) -> None:
+        (n,) = struct.unpack_from("<H", self._hdr)
+        self._expect_string(n, lambda: self._expect(2, self._named_nm_len))
+
+    def _named_nm_len(self) -> None:
+        (n,) = struct.unpack_from("<H", self._hdr)
+        self._expect_string(n, self._answer_no)
+
+    def _op_codec(self) -> None:
+        self._expect(2, self._codec_len)
+
+    def _codec_len(self) -> None:
+        (n,) = struct.unpack_from("<H", self._hdr)
+        if n > 4096:  # a codec list is tens of bytes
+            raise ConnectionError(f"codec negotiation payload {n} bytes")
+        self._expect_string(n, self._codec_finish)
+
+    def _codec_finish(self) -> None:
+        # codec names and key=value capability fields; a field this server
+        # does not know is ignored, a name it does not know skipped
+        names = []
+        for entry in self._open_buf.decode().split(","):
+            entry = entry.strip()
+            key, sep, value = entry.partition("=")
+            if not sep:
+                names.append(entry)
+                continue
+            if key == "tenant":
+                tenant, _, w = value.partition(":")
+                self.tenant = tenant or _TENANT_DEFAULT
+                try:
+                    self.weight = max(1, min(_TENANT_WEIGHT_MAX, int(w))) if w else 1
+                except ValueError:
+                    self.weight = 1
+        self.codec = negotiate_codec(names)
+        name = self.codec.name if self.codec is not None else CODEC_NONE
+        CODEC_STATS.negotiated(name)
+        nb = name.encode()
+        self._send_control(_ST_OK + struct.pack("<H", len(nb)) + nb)
+        self._await_op()
+
+    def _op_open(self) -> None:
+        self._expect(2, self._open_ns_len)
+
+    def _open_ns_len(self) -> None:
+        (n,) = struct.unpack_from("<H", self._hdr)
+        self._expect_string(n, self._open_ns_done)
+
+    def _open_ns_done(self) -> None:
+        self._open_ns = self._open_buf.decode()
+        self._expect(2, self._open_nm_len)
+
+    def _open_nm_len(self) -> None:
+        (n,) = struct.unpack_from("<H", self._hdr)
+        self._expect_string(n, lambda: self._expect(4, self._open_finish))
+
+    def _open_finish(self) -> None:
+        (maxsize,) = struct.unpack_from("<I", self._hdr)
+        self.queue = self.srv.open_named(self._open_ns, self._open_buf.decode(), maxsize or None)
+        self._send_control(_ST_OK)
+        self._await_op()
+
+_OPS: Dict[int, str] = {
+    _OP_PUT[0]: "_op_put",
+    _OP_GET[0]: "_op_get",
+    _OP_SIZE[0]: "_op_size",
+    _OP_CLOSE[0]: "_op_close",
+    _OP_GET_BATCH[0]: "_op_get_batch",
+    _OP_GET_BATCH_WAIT[0]: "_op_get_batch_wait",
+    _OP_PUT_BATCH[0]: "_op_put_batch",
+    _OP_PUT_WAIT[0]: "_op_put_wait",
+    _OP_PUT_SEQ[0]: "_op_put_seq",
+    _OP_STREAM[0]: "_op_stream",
+    _OP_OPEN[0]: "_op_open",
+    _OP_STATS[0]: "_op_stats",
+    _OP_ANCHOR[0]: "_op_anchor",
+    _OP_CLUSTER[0]: "_op_cluster",
+    _OP_REPLAY[0]: "_op_replay",
+    _OP_COMMIT[0]: "_op_commit",
+    _OP_CODEC[0]: "_op_codec",
+    _OP_REPL_OPEN[0]: "_op_repl_open",
+    _OP_PROMOTE[0]: "_op_promote",
+    _OP_BYE[0]: "_op_bye",
+}
+
+
+class EventLoop:
+    """The one loop of a :class:`~psana_ray_tpu_torch.transport.tcp.
+    TcpQueueServer`: accepts, reads, writes, fires bounded-wait timers and
+    pumps queue waiters."""
+
+    def __init__(self, server):
+        self._srv = server
+        self._sel = selectors.DefaultSelector()
+        self._conns: set = set()
+        self._queues: Dict[int, _QueueState] = {}
+        self._timers: List[tuple] = []  # heap: (deadline, tie, conn, gen, kind)
+        self._timer_tie = 0
+        # listeners and shutdown poke this pair so the selector wakes at once
+        self._waker_r, self._waker_w = socket.socketpair()
+        self._waker_r.setblocking(False)
+        self._waker_w.setblocking(False)
+        self._waker_buf = bytearray(512)
+        self._ACCEPT = object()
+        self._WAKER = object()
+        self._loop_tid: Optional[int] = None
+
+    def wake(self) -> None:
+        # the loop's own queue ops fire the listeners too; it is awake then,
+        # and pumps at the end of every pass, so only other threads poke
+        if threading.get_ident() == self._loop_tid:
+            return
+        try:
+            self._waker_w.send(b"w")
+        except OSError:
+            pass  # full: a wakeup is already pending; closed: exiting
+
+    # -- queue state ----------------------------------------------------
+    def _qs(self, queue) -> _QueueState:
+        qs = self._queues.get(id(queue))
+        if qs is None:
+            qs = _QueueState(queue)
+            self._queues[id(queue)] = qs
+            add = getattr(queue, "add_listener", None)
+            if add is not None:
+                try:
+                    add(self.wake)
+                    qs.listened = True
+                    remove = getattr(queue, "remove_listener", None)
+                    if remove is not None:
+                        qs.unlisten = lambda: remove(self.wake)
+                except Exception:
+                    qs.listened = False
+        return qs
+
+    def add_get_waiter(self, conn: _EvConn, deadline: Optional[float]) -> None:
+        self._qs(conn.queue).get_waiters.append(conn)
+        if deadline is not None:
+            self._add_timer(deadline, conn)
+
+    def add_put_waiter(self, conn: _EvConn, deadline: Optional[float]) -> None:
+        self._qs(conn.queue).put_waiters.append(conn)
+        if deadline is not None:
+            self._add_timer(deadline, conn)
+
+    def add_stream(self, conn: _EvConn) -> None:
+        self._qs(conn.queue).get_waiters.append(conn)
+
+    def add_liveness_probe(self, conn: _EvConn) -> None:
+        """Re-arm a parked, read-paused connection's reads after
+        ``PROBE_INTERVAL_S``, so the EOF probe runs again."""
+        self._add_timer(time.monotonic() + PROBE_INTERVAL_S, conn, kind="probe")
+
+    def _add_timer(self, deadline: float, conn: _EvConn, kind: str = "op") -> None:
+        self._timer_tie += 1
+        heapq.heappush(self._timers, (deadline, self._timer_tie, conn, conn.op_gen, kind))
+
+    def requeue_items(self, queue, items) -> None:
+        """Head-requeue through the recovery path. A queue without
+        ``put_front`` (an shm ring) takes timed retries that can block:
+        those run on a short-lived helper thread."""
+        if not items:
+            return
+        if getattr(queue, "put_front", None) is not None:
+            self._srv._requeue(queue, items)
+        else:
+            threading.Thread(target=self._srv._requeue, args=(queue, items), daemon=True,
+                             name="tcp-evloop-requeue").start()
+
+    def kill_conn(self, conn: _EvConn, cause, requeue: bool = True) -> None:
+        if conn.closed:
+            return
+        conn.closed = True
+        if conn._mask:
+            try:
+                self._sel.unregister(conn.sock)
+            except (KeyError, ValueError, OSError):
+                pass
+            conn._mask = 0
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+        self._conns.discard(conn)
+        if conn._lease is not None:  # a payload died mid-read
+            conn._lease.release()
+            conn._lease = None
+        while conn._out_releases:
+            conn._out_releases.popleft()[1].release()
+        # a parked 'U'/'W' item was never enqueued: drop it (a windowed
+        # producer resends it on reconnect; enqueueing it now would double it)
+        conn.pending = None
+        conn._qb_items = []
+        if requeue:
+            if conn.in_flight:
+                self.requeue_items(conn.queue, conn.in_flight)
+                conn.in_flight = []
+            conn._finish_stream(clean=False)
+        elif conn.stream is not None:
+            conn._finish_stream(clean=True)
+
+    # -- the loop -------------------------------------------------------
+    def run(self) -> None:
+        srv = self._srv
+        self._loop_tid = threading.get_ident()
+        try:
+            srv._sock.setblocking(False)
+        except OSError:
+            return  # shutdown() closed the socket first
+        self._sel.register(srv._sock, selectors.EVENT_READ, self._ACCEPT)
+        self._sel.register(self._waker_r, selectors.EVENT_READ, self._WAKER)
+        try:
+            while not srv._stop.is_set():
+                for key, mask in self._sel.select(self._select_timeout()):
+                    data = key.data
+                    if data is self._ACCEPT:
+                        self._accept()
+                    elif data is self._WAKER:
+                        self._drain_waker()
+                    else:
+                        self._dispatch_conn(data, mask)
+                self._fire_timers()
+                self._pump_all()
+        finally:
+            self._teardown()
+
+    def _dispatch_conn(self, conn: _EvConn, mask: int) -> None:
+        try:
+            if mask & selectors.EVENT_WRITE:
+                conn.flush_out()
+            if mask & selectors.EVENT_READ and not conn.closed:
+                conn.on_readable()
+        except Exception as e:  # noqa: BLE001 (one bad connection must not kill the loop)
+            self.kill_conn(conn, e)
+
+    def _accept(self) -> None:
+        srv = self._srv
+        while True:
+            try:
+                sock, _ = srv._sock.accept()
+            except OSError:  # BlockingIOError included: none left
+                return
+            if srv.max_conns and len(self._conns) >= srv.max_conns:
+                _refuse_conn(sock)
+                continue
+            sock.setblocking(False)
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                pass
+            conn = _EvConn(self, sock, srv)
+            self._conns.add(conn)
+            with srv._conns_lock:  # shutdown() closes them too
+                srv._conns = [c for c in srv._conns if c.fileno() != -1]
+                srv._conns.append(sock)
+            conn._await_op()
+            conn._set_interest(read=True)
+
+    def _drain_waker(self) -> None:
+        while True:
+            try:
+                if not self._waker_r.recv_into(self._waker_buf):
+                    return
+            except OSError:
+                return
+
+    def _select_timeout(self) -> float:
+        t = IDLE_TICK_S
+        if self._timers:
+            t = min(t, max(0.0, self._timers[0][0] - time.monotonic()))
+        for qs in self._queues.values():
+            if qs.get_waiters or qs.put_waiters:
+                t = min(t, LISTENED_TICK_S if qs.listened else POLL_TICK_S)
+        return t
+
+    def _fire_timers(self) -> None:
+        now = time.monotonic()
+        while self._timers and self._timers[0][0] <= now:
+            _deadline, _tie, conn, gen, kind = heapq.heappop(self._timers)
+            if conn.closed or conn.pending is None or gen != conn.op_gen:
+                continue  # served already or superseded
+            if kind == "probe":
+                conn._set_interest(read=True)  # the next pass probes again
+                continue
+            try:
+                if conn.pending["kind"] == "D":
+                    # one last look, then the (maybe empty) answer
+                    try:
+                        items = conn.queue.get_batch(conn.pending["max_items"], timeout=0.0)
+                    except TransportClosed:
+                        conn._send_control(_ST_CLOSED)
+                    else:
+                        conn._respond_batch(items)
+                    conn.unpark()
+                elif conn.pending["kind"] == "U":
+                    conn._send_control(_ST_NO)
+                    conn.unpark()
+                # "W" has no deadline: backpressure, not a timeout
+            except OSError as e:  # ConnectionError included
+                self.kill_conn(conn, e)
+
+    # -- the pump -------------------------------------------------------
+    def _pump_all(self) -> None:
+        for qs in list(self._queues.values()):
+            if not (qs.get_waiters or qs.put_waiters):
+                continue
+            try:
+                while self._pump_get(qs) | self._pump_put(qs):
+                    pass
+            except _QueueClosedSignal:
+                self._queue_closed(qs)
+
+    def _pump_get(self, qs: _QueueState) -> bool:
+        gw = qs.get_waiters
+        if not gw:
+            return False
+        # a depth check first: the pump runs every pass. size() answers 0 on
+        # a closed ring, so closed is checked on its own (streams must see 'X')
+        try:
+            if getattr(qs.queue, "closed", False):
+                raise _QueueClosedSignal
+            if not qs.queue.size():
+                return False
+        except TransportClosed:
+            raise _QueueClosedSignal from None
+        weights, n_stream = _stream_tenant_weights(gw)
+        if weights and qs.wdrr.all_dry(weights):
+            qs.wdrr.replenish(weights, n_stream)
+        did = False
+        visits = len(gw)
+        # streams skipped only for their tenant's spent deficit: if that is
+        # all that stopped the pass, a new round starts
+        blocked_on_allowance = False
+        while visits and gw:
+            visits -= 1
+            conn = gw[0]
+            if conn.closed:
+                gw.popleft()
+                continue
+            if conn.stream is not None:
+                allow = qs.wdrr.allowance(conn.tenant)
+                if allow < 1.0:
+                    blocked_on_allowance = True
+                    gw.rotate(-1)
+                    continue
+                # a quantum a visit, so connections of one tenant split its round
+                want = min(conn.stream.budget(), _STREAM_POP_MAX, int(allow),
+                           _WDRR_QUANTUM * conn.weight)
+                if want <= 0:
+                    gw.rotate(-1)  # window full: wait for credit
+                    continue
+            elif conn.pending is not None and conn.pending.get("kind") == "D":
+                want = conn.pending["max_items"]
+            else:
+                gw.popleft()  # answered by a timer
+                continue
+            try:
+                items = qs.queue.get_batch(min(want, 4096), timeout=0.0)
+            except TransportClosed:
+                raise _QueueClosedSignal from None
+            if not items:
+                break  # empty: every remaining waiter waits
+            try:
+                if conn.stream is not None:
+                    qs.wdrr.charge(conn.tenant, len(items))
+                    conn.push_stream_items(items)
+                    gw.rotate(-1)  # round robin across streams
+                else:
+                    conn._respond_batch(items)
+                    gw.popleft()
+                    conn.unpark()
+            except OSError as e:  # died with items popped: they redeliver
+                self.kill_conn(conn, e)
+            did = True
+        if not did and blocked_on_allowance:
+            # frames wait but every stream that could take them had spent
+            # its deficit: force a round (reporting progress re-runs the pump)
+            weights, n_stream = _stream_tenant_weights(gw)
+            qs.wdrr.replenish(weights, n_stream)
+            did = bool(weights)
+        return did
+
+    def _pump_put(self, qs: _QueueState) -> bool:
+        did = False
+        pw = qs.put_waiters
+        while pw:
+            conn = pw[0]
+            if conn.closed or conn.pending is None or conn.pending.get("kind") not in ("U", "W"):
+                pw.popleft()
+                continue
+            try:
+                ok = qs.queue.put(conn.pending["item"])
+            except TransportClosed:
+                raise _QueueClosedSignal from None
+            except Exception as e:  # noqa: BLE001 (answer this one, keep the loop)
+                pw.popleft()
+                try:
+                    conn._send_control(_ST_ERR)
+                    conn.unpark()
+                except OSError:
+                    self.kill_conn(conn, e)
+                did = True
+                continue
+            if not ok:
+                break  # still full: nobody behind may jump the line
+            pw.popleft()
+            reply = _ST_OK
+            if conn.pending["kind"] == "W":
+                reply += struct.pack("<Q", conn.pending["seq"])
+            try:
+                conn._send_control(reply)
+                conn.unpark()
+            except OSError as e:
+                self.kill_conn(conn, e)
+            did = True
+        return did
+
+    def _queue_closed(self, qs: _QueueState) -> None:
+        """The queue closed mid-pump: every waiter gets 'X' (bounded waits
+        resume the connection; streams end)."""
+        while qs.get_waiters:
+            conn = qs.get_waiters.popleft()
+            if conn.closed:
+                continue
+            try:
+                conn._send_control(_ST_CLOSED)
+                if conn.stream is not None:
+                    conn.stream.queue_closed = True
+                    conn._finish_stream(clean=False)
+                    conn._begin_close()
+                else:
+                    conn.unpark()
+            except OSError as e:
+                self.kill_conn(conn, e)
+        while qs.put_waiters:
+            conn = qs.put_waiters.popleft()
+            if conn.closed or conn.pending is None:
+                continue
+            try:
+                conn._send_control(_ST_CLOSED)
+                conn.unpark()
+            except OSError as e:
+                self.kill_conn(conn, e)
+
+    def _teardown(self) -> None:
+        for conn in list(self._conns):
+            # stopping: in-flight and unacked deliveries go back to their queues
+            self.kill_conn(conn, None, requeue=True)
+        for qs in self._queues.values():
+            if qs.unlisten is not None:
+                try:
+                    qs.unlisten()
+                except Exception:
+                    pass
+        for s in (self._waker_r, self._waker_w):
+            try:
+                self._sel.unregister(s)
+            except (KeyError, ValueError, OSError):
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+        try:
+            self._sel.unregister(self._srv._sock)
+        except (KeyError, ValueError, OSError):
+            pass
+        self._sel.close()

@@ -3,8 +3,9 @@
 ``open_queue`` over ``auto`` (the in-process ``Registry``: a producer
 get-or-creates the named ring, a consumer resolves it with the config's
 retry loop) and over ``shm://`` between two processes; the producer's
-create-or-attach race; the ``tcp://`` refusal and the JAX config fields
-the port does not carry, each naming ROADMAP.md Item 8; and the shm ring
+create-or-attach race; ``tcp://`` opening a client of the queue server;
+the ``cluster://`` refusal and the JAX config fields the port does not
+carry, each naming ROADMAP.md Item 8; and the shm ring
 names, which both packages must derive alike for their processes to
 rendezvous.
 """
@@ -167,8 +168,25 @@ def test_consumer_times_out_on_a_missing_ring():
 
 @pytest.mark.parametrize("address", ["tcp://localhost:5555", "cluster://a:1,b:2"])
 def test_tcp_and_cluster_are_refused_naming_item_8(address):
-    with pytest.raises(NotImplementedError, match="Item 8"):
-        open_queue(TransportConfig(address=address))
+    """``cluster://`` is refused naming Item 8; ``tcp://`` opens a client
+    bound to the config's named queue on a live server (the port of the
+    address is the server's)."""
+    if address.startswith("tcp://"):
+        from psana_ray_tpu_torch.transport.tcp import TcpQueueClient, TcpQueueServer
+
+        srv = TcpQueueServer(host="127.0.0.1", port=0).serve_background()
+        try:
+            cfg = TransportConfig(address=address.replace("5555", str(srv.port)),
+                                  namespace="ns", queue_name="q")
+            q = open_queue(cfg, role="producer")
+            assert isinstance(q, TcpQueueClient)
+            assert q.put(EndOfStream()) and srv.named_queues() == [("ns", "q")]
+            q.disconnect()
+        finally:
+            srv.shutdown()
+    else:
+        with pytest.raises(NotImplementedError, match="Item 8"):
+            open_queue(TransportConfig(address=address))
     with pytest.raises(ValueError, match="unknown address"):
         open_queue(TransportConfig(address="udp://x"))
     with pytest.raises(ValueError, match="role"):

@@ -3,8 +3,8 @@
 imports with those modules made unimportable. Its shm ring runs on the
 port's own library, built from ``native/shmring.cpp``, never the JAX
 package's; a producer process that imports the host plane loads no
-torch. ``chip_smoke.py`` refuses to run without a card and outside a
-checkout."""
+torch, and neither does the queue server process. ``chip_smoke.py``
+refuses to run without a card and outside a checkout."""
 
 import ast
 import os
@@ -163,6 +163,35 @@ def test_the_host_plane_loads_no_torch():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_queue_server_process_loads_no_torch():
+    """The queue server CLI serves a put and a streamed get over TCP,
+    drains on SIGTERM and exits 0 with neither torch nor JAX loaded."""
+    code = (
+        "import os, signal, sys, tempfile, threading, time\n"
+        "from psana_ray_tpu_torch import queue_server\n"
+        "from psana_ray_tpu_torch.transport.tcp import TcpQueueClient\n"
+        "port_file = os.path.join(tempfile.mkdtemp(), 'port')\n"
+        "def client():\n"
+        "    while not os.path.exists(port_file):\n"
+        "        time.sleep(0.02)\n"
+        "    port = int(open(port_file).read())\n"
+        "    c = TcpQueueClient('127.0.0.1', port, codec='shuffle-rle')\n"
+        "    assert c.put({'frame': 1})\n"
+        "    c.stream_open(2)\n"
+        "    assert c.get_wait(timeout=5) == {'frame': 1}\n"
+        "    c.disconnect()\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=client, daemon=True).start()\n"
+        "assert queue_server.main(['--host', '127.0.0.1', '--port', '0', '--port_file',\n"
+        "                          port_file, '--drain_s', '0.5']) == 0\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert "queue server stopped" in out.stderr
 
 
 def _run_smoke(cwd):

@@ -111,7 +111,7 @@ def test_ring_stats_equal_the_jax_ring(monkeypatch):
         clock.t += 0.016
         stats.append(q.stats())
     a, b = stats
-    assert set(a) == set(b) - {"draining"}  # the port's ring has no drain mode
+    assert set(a) == set(b)
     assert a == {k: b[k] for k in a}
     assert a["puts"] == 4 and a["gets"] == 4 and a["puts_rejected"] == 1 and a["high_water"] == 3
     fresh = RingBuffer(2).stats()
