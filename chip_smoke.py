@@ -97,26 +97,22 @@ one JSON line (``{"phase": ...}``):
    bytes a frame of both. Then, on one thread of this process, the mean
    ms a frame to copy it out of the mapped file, to put it into a fresh
    and a used ring, and to get it back out.
-6d. ``stage_trace``: the ResNet pipeline of phase 5 for 4 batches
-   without, then with ``utils.trace.trace``: the exported Chrome trace
-   must hold 4 ``stage.device_put`` and 4 ``stage.dispatch`` ranges and
-   the device events of K1 (``calib_*_kernel``), K2 (``conv_sm90_kernel<N,
-   0>``, 128) and K3 (``conv_sm90_kernel<N, 2|3>``, 64), under the names
-   the profiler gives them; launches exact. Then phase 6c's consumer 0
-   alone with ``--profile_dir``, whose trace file must exist. Prints the
-   trace's size and the p50 batch ms without and with the capture.
-6e. ``passthrough_tcp``: config 1 over ``tcp://``: the queue server CLI
+6d. ``passthrough_tcp``: config 1 over ``tcp://``: the queue server CLI
    (``--queue_size 32``), the producer CLI replaying the same ``.npz`` in
    two shards, two consumer CLIs with ``--stream`` started 1.5 s before
    it; plain, then with ``--wire_codec shuffle-rle`` on the producer and
    both consumers. Every process runs with ``-X importtime`` and none of
    the four may import torch or JAX; the frame counts must be exact.
-   Then the 128 frames go through the same server and back in this
-   process, raw and with ``shuffle-rle`` negotiated on both clients (a
-   windowed producer client, a streamed consumer client): the CRC-32 of
-   the frames received must equal the file's. Prints each run's frames/s
-   and GB/s and the codec's wire bytes over raw bytes.
-6f. ``tcp_end_to_end``: phase 6b's serving path fed across the TCP
+   The consumers run at ``--log_level DEBUG`` and log their connection's
+   codec (none, then ``shuffle-rle``) and the CRC-32 of every frame they
+   received: each event must arrive once, and the CRC-32 of the frames'
+   CRCs in event order must equal the file's, in both runs. Then the
+   codec alone in this process on the file's 128 frames, each encoded as
+   a sending connection does and decoded as a receiving one does, and
+   held against the file. Prints each run's frames/s and GB/s (the
+   consumers hash every frame), the codec's wire bytes over raw bytes and
+   its ms a frame each way.
+6e. ``tcp_end_to_end``: phase 6b's serving path fed across the TCP
    transport: ``python -m psana_ray_tpu_torch.queue_server --queue_size
    40`` as a process on 127.0.0.1 (``--port 0 --port_file``), a ``spawn``
    producer process (``produce_synthetic`` with a ``tcp://`` target, the
@@ -130,6 +126,19 @@ one JSON line (``{"phase": ...}``):
    0.05`` of the plain path). Prints frames/s, the relay's GB/s,
    ``host_batch_ms``, ``host_stage_ms`` and the server's queue stats
    (the 'T' RPC: depth, high-water mark, puts, gets, rejected puts).
+6f. ``stage_trace``: the ResNet pipeline of phase 5 for 4 batches
+   without, then with ``utils.trace.trace``: the exported Chrome trace
+   must hold 4 ``stage.device_put`` and 4 ``stage.dispatch`` ranges and
+   the device events of K1 (``calib_*_kernel``), K2 (``conv_sm90_kernel<N,
+   0>``, 128) and K3 (``conv_sm90_kernel<N, 2|3>``, 64), under the names
+   the profiler gives them, and every kernel launch and copy of the
+   capture must have its record on the device; launches exact. It runs
+   after the TCP phases and is the process's first capture (phase 19).
+   Then phase 6c's consumer 0 alone with ``--profile_dir``, whose trace
+   file must exist. Prints the process's age, the trace's size and the
+   p50 batch ms without and with the capture.
+6g. ``tcp_profile``: phase 6e's path again for 6 + 8 batches, the 8
+   under ``torch.profiler`` as in phase 6: the card's idle share there.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -282,15 +291,25 @@ one JSON line (``{"phase": ...}``):
    ``calib_kernel``, +16 ``conv1x1_kernel``, +16 ``conv3x3_kernel``, +16
    ``back_kernel``, exactly), logits and pooled features against the
    ``norm="batch_eval"`` model (``rel_err < 0.05``).
+19. ``profiler_loss``: a defect of ``torch.profiler`` on the card's
+   machine, measured and not gated: late in a process that has captured
+   before, a capture loses the device records (not the runtime calls) of
+   its first milliseconds of device work, more the longer since the
+   first capture (``tools/profiler_capture_probe.py``). A capture of 30
+   synchronised copies of distinct sizes, one every 2 ms; prints which
+   have no device record.
+
+Phase 6f's capture is the process's first, so the profiling phases (6,
+6g and the other ``*_profile`` phases) run after it.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
 serving runs, the shm-fed and TCP-fed runs, the traced runs, the
 training runs, the fan-in, the CLIs and the fold runs (phases 5, 6b,
-6d, 6f, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
+6e, 6f, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
 ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b, 6d, 6f and 18), those of ``conv_block_kernel`` the SFX
+runs' (5, 6b, 6e, 6f and 18), those of ``conv_block_kernel`` the SFX
 runs' (8, 17, 17d, 17e and 17f), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
@@ -391,8 +410,11 @@ CFG1_EVENTS = 128  # passthrough_cli: epix10k2M f32 RAW events in the replay fil
 CFG1_SLOTS = 32  # the CLIs' shm ring: 32 slots of ShmRingBuffer.DEFAULT_SLOT_BYTES
 TCP_QUEUE_SIZE = 40  # tcp_end_to_end: the queue server's default queue
 TCP_STREAM_WINDOW = 32  # tcp_end_to_end: the consumer's stream credits
+TCP_PROFILE_BATCHES = 8  # tcp_end_to_end: timed batches of the profiled run
 CONSUMER_LEAD_S = 1.5  # the consumers start and attach this long before the producer
 TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
+LOSS_MARKERS = 30  # profiler_loss: synchronised copies, one every 2 ms
+STARTED = time.monotonic()  # the process's age in stage_trace and profiler_loss
 
 # (class name, block index in ResNet-50, blocks of that class in the network)
 BLOCK_CLASSES = (
@@ -1062,17 +1084,18 @@ class QueueServerCLI:
         return self.code, self.output
 
 
-def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
-    """The ResNet serving path fed across the TCP transport: the queue
-    server CLI as a process (``--queue_size 40``), a ``spawn`` producer
-    process sending the pool over ``tcp://`` with windowed puts, and this
-    process streaming it (``stream_open(32)``) through ``InfeedPipeline``
-    into the serving step. Held as ``shm_end_to_end`` is."""
+def tcp_serving_run(torch, pt, pool, step, device, root, n_batches, on_result):
+    """One run of the ResNet serving path fed across the TCP transport:
+    the queue server CLI as a process (``--queue_size 40``), a ``spawn``
+    producer process sending ``WARMUP_BATCHES + n_batches`` batches of the
+    pool over ``tcp://`` with windowed puts into a named queue of 40
+    frames, and this process streaming it (``stream_open(32)``), once the
+    queue is full, through ``InfeedPipeline`` into ``step``. Checks every
+    exit code and count; returns the pipeline, the wall and fill seconds,
+    the launch counts and the server's stats of the queue."""
     import multiprocessing as mp
 
-    import numpy as np
-
-    total = WARMUP_BATCHES + E2E_BATCHES
+    total = WARMUP_BATCHES + n_batches
     n_events = total * BATCH
     server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--log_level", "WARNING")
     ctx = mp.get_context("spawn")
@@ -1080,24 +1103,21 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
     proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
                        args=(server.address, DETECTOR, n_events, POOL_EVENTS),
                        kwargs=dict(seed=0, produced=produced))
-    step = make_step(torch, pt, consts, params)
-    last = {}
-
-    def on_result(out, batch):
-        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
-
+    # the producer's named queue, open_queue's default pair: the monitor
+    # creates it, at TCP_QUEUE_SIZE frames, before the producer starts
+    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE)
     client = monitor = None
     t_start = time.monotonic()
-    proc.start()
     try:
-        monitor = pt.TcpQueueClient("127.0.0.1", server.port)
+        monitor = pt.open_queue(config, role="consumer")
+        proc.start()
         deadline = time.monotonic() + 180.0
         while monitor.size() < TCP_QUEUE_SIZE and proc.is_alive():
             if time.monotonic() > deadline:
                 raise AssertionError(f"the producer filled {monitor.size()} of {TCP_QUEUE_SIZE}")
             time.sleep(0.01)
         fill_s = time.monotonic() - t_start
-        client = pt.TcpQueueClient("127.0.0.1", server.port)
+        client = pt.open_queue(config, role="consumer")
         client.stream_open(TCP_STREAM_WINDOW)
         pt.reset_counters()
         pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
@@ -1124,6 +1144,23 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
     nb = WARMUP_BATCHES + pipe.metrics.batches.count
     if nb != total:
         raise AssertionError(f"{nb} batches, expected {total}")
+    return pipe, wall, fill_s, counts, queue_stats
+
+
+def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """The ResNet serving path fed across the TCP transport
+    (``tcp_serving_run``), held as ``shm_end_to_end`` is."""
+    import numpy as np
+
+    step = make_step(torch, pt, consts, params)
+    last = {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+
+    pipe, wall, fill_s, counts, queue_stats = tcp_serving_run(
+        torch, pt, pool, step, device, root, E2E_BATCHES, on_result)
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
     check_resnet_counts(counts, nb)
     staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
     idx = last["event_idx"].cpu().numpy()
@@ -1142,6 +1179,18 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
                                                         "puts_rejected")},
          launches=counts, **staging, **errs)
     return counts
+
+
+def phase_tcp_profile(torch, pt, pool, consts, params, device, root):
+    """The TCP-fed ResNet serving path again, its ``TCP_PROFILE_BATCHES``
+    timed batches under ``torch.profiler``: the card's idle share there."""
+    step = make_step(torch, pt, consts, params)
+
+    def run(on_batch):
+        tcp_serving_run(torch, pt, pool, step, device, root, TCP_PROFILE_BATCHES,
+                        lambda out, batch: on_batch())
+
+    emit("tcp_profile", **profiled(torch, run, TCP_PROFILE_BATCHES))
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -2357,7 +2406,7 @@ def phase_resnet_fold(torch, pt, pool, consts, device):
     return {name: train_counts[name] + serve_counts[name] for name in train_counts}
 
 
-# -- phases 6c, 6d and 17e: the producer and consumer programs ---------------
+# -- phases 6c, 6d, 6f and 17e: the producer and consumer programs -----------
 
 
 def cli_cmd(module, *args):
@@ -2572,65 +2621,44 @@ def phase_passthrough_cli(pt, src, pool, root):
     return npz
 
 
-def relay_check(pt, address, frames, energies, codec):
-    """The replay file's frames through the queue server and back in this
-    process: a windowed producer client and a streamed consumer client,
-    both with ``codec`` (None: raw), on a queue of their own. Returns the
-    CRC-32 of the frames received in event order, and the codec's wire
-    and raw bytes sent."""
-    import zlib
+def codec_check(pt, frames, energies, name="shuffle-rle"):
+    """The wire codec on the replay file's frames in this process: each
+    frame encoded as a connection that negotiated ``name`` sends it, then
+    decoded as the receiver does, and held against the file. Returns the
+    wire bytes over the raw bytes, the mean ms a frame of each side and
+    the frames the codec could not shrink (sent raw)."""
+    import numpy as np
 
-    from psana_ray_tpu_torch.transport.codec import CODEC_STATS
+    from psana_ray_tpu_torch.transport.codec import decode_payload, encode_for_wire, get_codec
+    from psana_ray_tpu_torch.utils.bufpool import BufferPool
 
-    host, port = address[len("tcp://"):].split(":")
-    queue = f"relay_{codec or 'raw'}_{os.getpid()}"
-    before = CODEC_STATS.stats()
-    producer = pt.TcpQueueClient(host, int(port), namespace="chip_smoke", queue_name=queue,
-                                 maxsize=CFG1_SLOTS, codec=codec)
-    consumer = pt.TcpQueueClient(host, int(port), namespace="chip_smoke", queue_name=queue,
-                                 codec=codec)
-    negotiated = (producer.codec_name, consumer.codec_name)
-    errors = []
+    codec = get_codec(name)
+    pool = BufferPool()
+    wire = raw = expanded = 0
+    encode_s = decode_s = 0.0
+    for i in range(len(frames)):
+        rec = pt.FrameRecord(0, i, np.ascontiguousarray(frames[i]), float(energies[i]))
+        t0 = time.perf_counter()
+        parts, lease = encode_for_wire(rec, codec, pool)
+        encode_s += time.perf_counter() - t0
+        payload = b"".join(bytes(part) for part in parts)
+        if lease is not None:
+            lease.release()
+        expanded += lease is None
+        t0 = time.perf_counter()
+        got = decode_payload(payload)
+        decode_s += time.perf_counter() - t0
+        if got.event_idx != i or not np.array_equal(got.panels, rec.panels):
+            raise AssertionError(f"{name}: frame {i} differs after a round trip")
+        wire += len(payload)
+        raw += rec.nbytes
+    n = len(frames)
+    return {"codec": name, "frames": n, "wire_over_raw": wire / raw, "expanded": expanded,
+            "encode_ms_per_frame": encode_s * 1e3 / n, "decode_ms_per_frame": decode_s * 1e3 / n}
 
-    def produce():
-        try:
-            for i in range(len(frames)):
-                producer.put_pipelined(pt.FrameRecord(0, i, frames[i], float(energies[i])))
-            producer.put_pipelined(pt.EndOfStream(total_events=len(frames)))
-            producer.flush_puts()
-        except BaseException as e:  # noqa: BLE001 (re-raised below)
-            errors.append(e)
 
-    thread = threading.Thread(target=produce, daemon=True)
-    thread.start()
-    got = {}
-    try:
-        consumer.stream_open(TCP_STREAM_WINDOW)
-        done = False
-        while not done:
-            batch = consumer.get_batch_stream(TCP_STREAM_WINDOW, timeout=30.0)
-            if not batch:
-                raise AssertionError(f"relay {codec}: nothing for 30 s after {len(got)} frames")
-            for item in batch:
-                if isinstance(item, pt.EndOfStream):
-                    done = True
-                else:
-                    got[item.event_idx] = zlib.crc32(item.panels)
-                    item.release()
-        thread.join(timeout=60)
-    finally:
-        producer.disconnect()
-        consumer.disconnect()
-    if errors:
-        raise errors[0]
-    after = CODEC_STATS.stats()
-    crc = 0
-    for i in sorted(got):
-        crc = zlib.crc32(got[i].to_bytes(4, "little"), crc)
-    return {"frames": len(got), "crc32": crc, "codecs": negotiated,
-            "wire_bytes": after["bytes_wire_out_total"] - before["bytes_wire_out_total"],
-            "raw_bytes": after["bytes_raw_out_total"] - before["bytes_raw_out_total"],
-            "expansions": after["expansions_total"] - before["expansions_total"]}
+_CRC = r"consumer (\d+): rank=(\d+) idx=(\d+) crc32=([0-9a-f]{8})"
+_CODEC = r"consumer \d+: wire codec (\S+)"
 
 
 def phase_passthrough_tcp(pt, root, npz):
@@ -2638,40 +2666,62 @@ def phase_passthrough_tcp(pt, root, npz):
     replaying ``passthrough_cli``'s ``.npz`` in two shards, two consumer
     CLIs with ``--stream`` started first; plain, then ``--wire_codec
     shuffle-rle`` on the producer and both consumers. No process of the
-    four may import torch or JAX. Then the same frames through the same
-    server in this process, raw and compressed: their CRC-32s must equal
-    the file's, and the codec's wire bytes over raw bytes are printed."""
+    four may import torch or JAX. The consumers run at ``--log_level
+    DEBUG``, so each logs its connection's codec and the CRC-32 of every
+    frame it received: every event must arrive once, and the CRC-32 of
+    the frames' CRCs in event order must equal the file's. Then the codec
+    alone on the file's frames: its wire bytes over raw bytes and its ms
+    a frame each way."""
+    import re
     import zlib
 
     import numpy as np
 
+    with np.load(npz, mmap_mode="r") as f:
+        frames, energies = f["frames"], f["photon_energy"]
+        crcs = [zlib.crc32(np.ascontiguousarray(frames[i])) for i in range(len(frames))]
+        codec = codec_check(pt, frames, energies)
+    want = 0
+    for c in crcs:
+        want = zlib.crc32(c.to_bytes(4, "little"), want)
     server = QueueServerCLI(root, "--queue_size", str(CFG1_SLOTS), "--log_level", "WARNING")
     runs = {}
     try:
-        for tag, codec in (("plain", ()), ("shuffle_rle", ("--wire_codec", "shuffle-rle"))):
+        for tag, flags, negotiated in (("plain", (), "None"),
+                                       ("shuffle_rle", ("--wire_codec", "shuffle-rle"),
+                                        "shuffle-rle")):
             queue = ("--queue_name", f"cfg1_{tag}")
-            r = passthrough(pt, root, npz, 2, producer_args=(*codec, *queue),
-                            consumer_args=("--stream", *codec, *queue), address=server.address)
-            r.pop("outputs")
+            r = passthrough(pt, root, npz, 2, producer_args=(*flags, *queue),
+                            consumer_args=("--stream", "--log_level", "DEBUG", *flags, *queue),
+                            address=server.address)
+            received = {}
+            for _, text in r.pop("outputs")[1:]:
+                codecs = re.findall(_CODEC, text)
+                if codecs != [negotiated]:
+                    raise AssertionError(f"passthrough_tcp {tag}: a consumer negotiated {codecs}")
+                for m in re.finditer(_CRC, text):
+                    idx = int(m.group(3))
+                    if idx in received:
+                        raise AssertionError(f"passthrough_tcp {tag}: event {idx} arrived twice")
+                    received[idx] = int(m.group(4), 16)
+            got = 0
+            for i in range(len(crcs)):
+                got = zlib.crc32(received.get(i, 0).to_bytes(4, "little"), got)
+            bad = [i for i in range(len(crcs)) if received.get(i) != crcs[i]]
+            if len(received) != len(crcs) or got != want:
+                raise AssertionError(f"passthrough_tcp {tag}: {len(received)} of {len(crcs)} "
+                                     f"events, CRC {got} against the file's {want}; events "
+                                     f"missing or differing: {bad[:16]}")
+            r["crc32"] = got
             runs[tag] = r
-        with np.load(npz, mmap_mode="r") as f:
-            frames, energies = f["frames"], f["photon_energy"]
-            want = 0
-            for i in range(len(frames)):
-                want = zlib.crc32(zlib.crc32(np.ascontiguousarray(frames[i])).to_bytes(4, "little"),
-                                  want)
-            relay = {tag: relay_check(pt, server.address, frames, energies, codec)
-                     for tag, codec in (("raw", None), ("shuffle_rle", "shuffle-rle"))}
     finally:
         code, out = server.stop()
     loaded = sorted(imported_roots(out) & {"torch", "jax", "psana_ray_tpu"})
-    bad = [tag for tag, r in relay.items() if r["crc32"] != want or r["frames"] != len(frames)]
-    if code != 0 or loaded or bad or relay["shuffle_rle"]["codecs"] != ("shuffle-rle",) * 2:
-        raise AssertionError(f"passthrough_tcp: server exit {code}, imported {loaded}; relay "
-                             f"{relay} against CRC {want}; server: {out[-2000:]}")
-    ratio = relay["shuffle_rle"]["wire_bytes"] / max(1, relay["shuffle_rle"]["raw_bytes"])
+    if code != 0 or loaded:
+        raise AssertionError(f"passthrough_tcp: server exit {code}, imported {loaded}; "
+                             f"server: {out[-2000:]}")
     emit("passthrough_tcp", events=CFG1_EVENTS, consumers=2, shards=2, queue_size=CFG1_SLOTS,
-         server_imported=loaded, crc32=want, relay=relay, codec_wire_over_raw=ratio, **runs)
+         server_imported=loaded, crc32=want, codec=codec, **runs)
 
 
 def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
@@ -2707,6 +2757,7 @@ def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
     torch.cuda.synchronize()
     pt.reset_counters()
     plain, plain_wall = run()
+    age = time.monotonic() - STARTED
     with trace(logdir) as path:
         traced, traced_wall = run()
     counts = pt.counts()
@@ -2715,15 +2766,23 @@ def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
         events = json.load(f)["traceEvents"]
     ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    # every launch and copy the host made has its record on the device
+    on_device = {e["args"].get("correlation") for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    missing = [e["name"] for e in events if e.get("cat") == "cuda_runtime"
+               and (e["name"].startswith("cudaLaunchKernel") or e["name"] == "cudaMemcpyAsync")
+               and e.get("args", {}).get("correlation") not in on_device]
     modes = [int(m.group(1)) for k in kernels if (m := re.search(r"conv_sm90_kernel<\d+, (\d)>", k))]
     found = {
         "stage.device_put": ranges.count("stage.device_put"),
         "stage.dispatch": ranges.count("stage.dispatch"),
         "K1": sum("calib_cluster_kernel" in k or "calib_two_pass_kernel" in k for k in kernels),
         "K2": modes.count(0), "K3": modes.count(2) + modes.count(3),
+        "without_device_record": len(missing),
     }
     want = {"stage.device_put": TRACE_BATCHES, "stage.dispatch": TRACE_BATCHES,
-            "K1": TRACE_BATCHES, "K2": 32 * TRACE_BATCHES, "K3": 16 * TRACE_BATCHES}
+            "K1": TRACE_BATCHES, "K2": 32 * TRACE_BATCHES, "K3": 16 * TRACE_BATCHES,
+            "without_device_record": 0}
     if found != want:
         raise AssertionError(f"trace {path}: found {found}, expected {want}")
     names = sorted({m.group(0) for k in kernels
@@ -2735,7 +2794,8 @@ def phase_stage_trace(torch, pt, pool, consts, params, device, root, npz):
     cli_traces = glob.glob(os.path.join(cli_dir, "*", "*.pt.trace.json"))
     if len(cli_traces) != 1:
         raise AssertionError(f"the consumer CLI's --profile_dir wrote {cli_traces}")
-    emit("stage_trace", batches=TRACE_BATCHES, trace_bytes=os.path.getsize(path), found=found,
+    emit("stage_trace", process_age_s=age, batches=TRACE_BATCHES,
+         trace_bytes=os.path.getsize(path), found=found,
          kernel_names=names, p50_batch_ms=plain["p50_ms"], p50_batch_ms_traced=traced["p50_ms"],
          wall_s=plain_wall, wall_s_traced=traced_wall, launches=counts,
          cli_trace_bytes=os.path.getsize(cli_traces[0]), cli_consumer_imported=cli["imported"][1],
@@ -2828,6 +2888,43 @@ def phase_producer_cli_sfx(pt, root, served, tcp=False):
     return launches
 
 
+def phase_profiler_loss(torch, device, root):
+    """A defect of ``torch.profiler`` on the card's machine, measured, not
+    gated: a capture of ``LOSS_MARKERS`` host-to-device copies of distinct
+    sizes, one every 2 ms, each synchronised, and which of them have a
+    device record in the exported trace. Late in a process that captured
+    before, the first milliseconds' records go missing (their runtime
+    calls stay); ``tools/profiler_capture_probe.py`` maps it by process
+    age and capture start."""
+    import shutil
+
+    from psana_ray_tpu_torch.utils.trace import trace
+
+    unit = 16384 * 4
+    src = [torch.ones((k + 1) * unit // 4).pin_memory() for k in range(LOSS_MARKERS)]
+    dst = [torch.empty_like(t, device=device) for t in src]
+    torch.cuda.synchronize()
+    logdir = os.path.join(root, "build", "chip_smoke", "trace_loss")
+    shutil.rmtree(logdir, ignore_errors=True)
+    age = time.monotonic() - STARTED
+    with trace(logdir) as path:
+        t0 = time.perf_counter()
+        for k in range(LOSS_MARKERS):
+            while time.perf_counter() - t0 < k * 0.002:
+                pass
+            dst[k].copy_(src[k], non_blocking=True)
+            torch.cuda.synchronize()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(logdir, ignore_errors=True)
+    sizes = {e["args"].get("bytes") for e in events if e.get("cat") == "gpu_memcpy"}
+    lost = [k for k in range(LOSS_MARKERS) if (k + 1) * unit not in sizes]
+    calls = sum(e.get("cat") == "cuda_runtime" and e["name"] == "cudaMemcpyAsync"
+                for e in events)
+    emit("profiler_loss", process_age_s=age, markers=LOSS_MARKERS, runtime_calls=calls,
+         lost=lost, lost_ms=[2.0 * k for k in lost])
+
+
 def main() -> int:
     try:
         import torch
@@ -2907,15 +3004,17 @@ def main() -> int:
         torch, F, fr, timer, params, (src.spec.height, src.spec.width), device)
 
     counts = phase_end_to_end(torch, pt, pool, consts, model, params, device)
-    phase_profile(torch, pt, pool, consts, params, device)
     shm_counts = phase_shm_end_to_end(torch, pt, pool, consts, model, params, device)
     npz = phase_passthrough_cli(pt, src, pool, root)
     try:
-        trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
         phase_passthrough_tcp(pt, root, npz)
+        tcp_counts = phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root)
+        # the process's first profiler capture, after the TCP phases
+        trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
     finally:
         os.remove(npz)
-    tcp_counts = phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root)
+    phase_profile(torch, pt, pool, consts, params, device)
+    phase_tcp_profile(torch, pt, pool, consts, params, device, root)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -2943,6 +3042,7 @@ def main() -> int:
     cli_sfx_counts = phase_producer_cli_sfx(pt, root, served)
     cli_sfx_tcp_counts = phase_producer_cli_sfx(pt, root, served, tcp=True)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
+    phase_profiler_loss(torch, device, root)
 
     csrc = "psana_ray_tpu_torch/csrc"
     c = calib["bf16"]

@@ -19,7 +19,9 @@ The CLI, with the JAX command's flags, defaults and log lines:
     python -m psana_ray_tpu_torch.consumer 0 --address tcp://ingest-head:6379 \\
         --stream --wire_codec auto --status_interval 1
 
-It logs a line a frame (``--quiet`` drops them), a metrics heartbeat
+It logs a line a frame (``--quiet`` drops them; at ``--log_level DEBUG``
+another with the CRC-32 of the frame's panels, and the connection's
+wire codec once), a metrics heartbeat
 every ``--status_interval`` seconds, and ``end of stream after N
 frames``; ``--cursor_path`` keeps a resumable cursor and
 ``--profile_dir`` captures a ``torch.profiler`` trace of the consume
@@ -337,6 +339,12 @@ def main(argv=None):
         heartbeat = threading.Thread(target=_heartbeat, daemon=True, name="consumer-heartbeat")
         heartbeat.start()
 
+    # a checksum of every frame's panels, at DEBUG only: it reads each frame once more
+    checksum = log.isEnabledFor(logging.DEBUG)
+    if checksum:
+        import zlib
+
+        import numpy as np
     monitor = None
     try:
         replay_from = None
@@ -351,6 +359,9 @@ def main(argv=None):
             streaming=a.stream, stream_window=a.stream_window,
             replay_from=replay_from, replay_group=a.replay_group,
         ) as reader:
+            if checksum:
+                log.debug("consumer %d: wire codec %s", a.consumer_id,
+                          getattr(reader.queue, "codec_name", None))
             if a.status_interval > 0:
                 # depth in the heartbeat, over a handle of its own
                 try:
@@ -372,6 +383,10 @@ def main(argv=None):
                             a.consumer_id, rec.shard_rank, rec.event_idx,
                             rec.panels.shape, rec.photon_energy,
                         )
+                    if checksum:
+                        log.debug("consumer %d: rank=%d idx=%d crc32=%08x", a.consumer_id,
+                                  rec.shard_rank, rec.event_idx,
+                                  zlib.crc32(np.ascontiguousarray(rec.panels)))
                     if cursor is not None:
                         # after the record is handled: the watermark never
                         # runs ahead; ValueError is a stride misconfiguration

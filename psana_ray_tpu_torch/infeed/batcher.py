@@ -196,13 +196,12 @@ def batches_from_queue(
     stop=None,
     n_buffers: int = 0,
     batcher: Optional[FrameBatcher] = None,
-    prefer_stream: bool = True,
 ) -> Iterator[Batch]:
     """Drain a queue into fixed-shape batches until end of stream.
 
     Pops with, in this order of preference: ``get_batch_stream`` (a TCP
     client's server-push stream: no request round trip, no empty-queue
-    poll; ``prefer_stream=False`` pulls instead), ``get_batch_view`` (the
+    poll), ``get_batch_view`` (the
     shm ring: each frame views its slot until ``push_view`` has copied it
     into the arena and released it), ``get_batch``. Each takes many items
     at once, and over TCP every frame views a pooled receive buffer that
@@ -219,8 +218,8 @@ def batches_from_queue(
     """
     starved_since: Optional[float] = None
     tally = EosTally()
-    pop = ((getattr(queue, "get_batch_stream", None) if prefer_stream else None)
-           or getattr(queue, "get_batch_view", None) or queue.get_batch)
+    pop = (getattr(queue, "get_batch_stream", None) or getattr(queue, "get_batch_view", None)
+           or queue.get_batch)
     try:
         while True:
             if stop is not None and stop.is_set():

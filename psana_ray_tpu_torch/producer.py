@@ -60,19 +60,22 @@ def produce(
 ) -> int:
     """Put every ``(event_idx, panels, photon_energy)`` as a
     :class:`FrameRecord` with ``put_wait`` (blocking while the queue is
-    full), or with windowed ``put_pipelined`` where the queue has it (a
-    TCP client: every ack read back before it returns), then one EOS
-    covering this shard. Returns the events put. ``events`` is e.g.
+    full), or through :class:`_Sender`'s windowed puts where the queue has
+    them (a TCP client: every ack read back before it returns), then one
+    EOS covering this shard. Returns the events put. ``events`` is e.g.
     ``SyntheticSource.iter_indexed_events("raw")``. Raises
-    ``TimeoutError`` if a put waits longer than ``timeout``."""
-    windowed = hasattr(queue, "put_pipelined")
+    ``TimeoutError`` if a put waits longer than ``timeout``, and
+    ``TransportClosed`` if the queue closes."""
+    sender = None
+    if hasattr(queue, "put_pipelined"):
+        sender = _Sender(queue, None, threading.Event(), PipelineMetrics(), timeout=timeout)
 
     def put(item, what):
-        deadline = None if timeout is None else time.monotonic() + timeout
-        ok = (queue.put_pipelined(item, deadline=deadline) if windowed
-              else queue.put_wait(item, timeout=timeout))
-        if not ok:
-            raise TimeoutError(f"queue full for {timeout} s at {what}")
+        if sender is None:
+            if not queue.put_wait(item, timeout=timeout):
+                raise TimeoutError(f"queue full for {timeout} s at {what}")
+        elif not sender.send(item):
+            raise TransportClosed(f"the queue closed at {what}")
 
     n = 0
     for idx, panels, energy in events:
@@ -80,9 +83,8 @@ def produce(
         n += 1
     put(EndOfStream(producer_rank=shard_rank, total_events=n, total_shards=total_shards),
         "end of stream")
-    if windowed and not queue.flush_puts(
-            deadline=None if timeout is None else time.monotonic() + timeout):
-        raise TimeoutError(f"windowed puts unacknowledged for {timeout} s at end of stream")
+    if sender is not None and not sender.flush():
+        raise TransportClosed("the queue closed before every put was acknowledged")
     return n
 
 
@@ -99,26 +101,23 @@ def produce_synthetic(
     """A producer process's body, for ``multiprocessing``'s ``spawn``
     start method: draw the RAW events ``0 .. pool_events - 1`` of
     ``SyntheticSource(detector_name, seed, dtype, run)``, then attach to
-    ``target`` (an shm ring's name, or ``tcp://host:port``: the queue
-    server's default queue, fed with windowed puts), put ``n_events`` of
-    them (the pool cycled, event index ``i`` carrying pool event ``i %
-    pool_events``) and one EOS, and detach. ``produced`` (a
-    ``multiprocessing.Value``) receives the count."""
+    ``target`` (an shm ring's name, or a ``tcp://host:port`` address:
+    :func:`open_queue`'s default named queue there, fed with windowed
+    puts), put ``n_events`` of them (the pool cycled, event index ``i``
+    carrying pool event ``i % pool_events``) and one EOS, and detach.
+    ``produced`` (a ``multiprocessing.Value``) receives the count."""
     src = SyntheticSource(run=run, num_events=pool_events, detector_name=detector_name,
                           seed=seed, dtype=dtype)
     pool = [src.event(i, "raw") for i in range(pool_events)]
     if target.startswith("tcp://"):
-        from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
-
-        host, _, port = target[len("tcp://"):].partition(":")
-        ring = TcpQueueClient(host, int(port))
+        queue = open_queue(TransportConfig(address=target), role="producer")
     else:
-        ring = ShmRingBuffer.attach(target, retries=100, interval_s=0.1)
+        queue = ShmRingBuffer.attach(target, retries=100, interval_s=0.1)
     try:
         events = ((i, *pool[i % pool_events]) for i in range(n_events))
-        n = produce(events, ring, timeout=120.0)
+        n = produce(events, queue, timeout=120.0)
     finally:
-        ring.disconnect()
+        queue.disconnect()
     if produced is not None:
         produced.value = n
     return n
@@ -139,13 +138,17 @@ class _Sender:
       memcpy).
 
     Over TCP every path sends scatter-gather from the record's panels: the
-    producer copies no payload."""
+    producer copies no payload. A windowed send or flush that waits longer
+    than ``timeout`` raises ``TimeoutError`` (None: it waits until the
+    transport closes or ``stop_event`` is set)."""
 
-    def __init__(self, queue, backoff, stop_event, metrics, batch_size: int = 16):
+    def __init__(self, queue, backoff, stop_event, metrics, batch_size: int = 16,
+                 timeout: Optional[float] = None):
         self.queue = queue
         self.backoff = backoff
         self.stop = stop_event
         self.metrics = metrics
+        self.timeout = timeout
         self.windowed = hasattr(queue, "put_pipelined")
         self.batch_size = (batch_size if not self.windowed and hasattr(queue, "put_batch")
                            else 1)
@@ -161,12 +164,17 @@ class _Sender:
             return self.flush()
         return True
 
-    def _send_windowed(self, rec) -> bool:
+    def _windowed(self, call) -> bool:
+        """Retry ``call(deadline)`` in bounded slices, so that stop() stays
+        prompt while the window is full. False: the transport closed or the
+        runtime stopped."""
+        end = None if self.timeout is None else time.monotonic() + self.timeout
         while not self.stop.is_set():
+            now = time.monotonic()
+            if end is not None and now >= end:
+                raise TimeoutError(f"windowed puts unacknowledged for {self.timeout} s")
             try:
-                # bounded slices: stop() stays prompt while the window is full
-                if self.queue.put_pipelined(rec, deadline=time.monotonic() + 0.5):
-                    self.metrics.observe_frame(rec.nbytes)
+                if call(min(now + 0.5, end) if end is not None else now + 0.5):
                     return True
             except TransportWedged:
                 raise
@@ -174,21 +182,20 @@ class _Sender:
                 return False
         return False
 
+    def _send_windowed(self, rec) -> bool:
+        if not self._windowed(lambda deadline: self.queue.put_pipelined(rec, deadline=deadline)):
+            return False
+        if isinstance(rec, FrameRecord):
+            self.metrics.observe_frame(rec.nbytes)
+        return True
+
     def flush(self) -> bool:
         """Put every buffered record with the backoff envelope (windowed:
         wait until every put in flight is acked). False: the transport
         closed or the runtime stopped (records may remain buffered; the
         stream is dead either way)."""
         if self.windowed:
-            while not self.stop.is_set():
-                try:
-                    if self.queue.flush_puts(deadline=time.monotonic() + 0.5):
-                        return True
-                except TransportWedged:
-                    raise
-                except TransportClosed:
-                    return False
-            return False
+            return self._windowed(lambda deadline: self.queue.flush_puts(deadline=deadline))
         while self.pending:
             if self.stop.is_set():
                 return False

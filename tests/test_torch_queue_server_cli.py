@@ -1,8 +1,10 @@
 """The port's queue server program, ``python -m
 psana_ray_tpu_torch.queue_server``, as a process.
 
-The port's producer CLI feeds two consumer CLIs with ``--stream`` through
-it, plain and with ``--wire_codec shuffle-rle`` or ``auto`` on all three;
+The port's producer CLI replays a seeded ``.npz`` into two consumer CLIs
+with ``--stream`` through it, plain and with ``--wire_codec shuffle-rle``
+or ``auto`` on all three, and the consumers' DEBUG lines carry each
+frame's CRC-32, held against the file's;
 the JAX producer CLI feeds the port's consumer through the port's
 server, and the port's producer feeds the JAX consumer through the JAX
 server. ``--shm`` backs a named queue with the ring a local consumer
@@ -19,7 +21,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -120,20 +124,41 @@ def _imported(text):
             if line.startswith("import time:") and line.count("|") == 2}
 
 
+def _replay(tmp_path, n=30, shape=(2, 48, 64)):
+    """A seeded replay file of ``n`` f32 frames (large enough that the
+    codec compresses them) and each frame's CRC-32."""
+    frames = np.random.default_rng(0).normal(100.0, 5.0, (n, *shape)).astype(np.float32)
+    path = str(tmp_path / "run.npz")
+    np.savez(path, frames=frames, photon_energy=np.full(n, 9.5))
+    return path, [zlib.crc32(f) for f in frames]
+
+
 @pytest.mark.parametrize("codec", ["", "shuffle-rle", "auto"])
-def test_producer_to_streamed_consumers_through_the_server(codec):
+def test_producer_to_streamed_consumers_through_the_server(codec, tmp_path):
+    npz, want = _replay(tmp_path)
     server = _Server(PORT)
     try:
         flags = ("--wire_codec", codec) if codec else ()
-        out = _run(_producer(PORT, server.address, *flags, events=30, shards=2, consumers=2),
+        out = _run(_producer(PORT, server.address, "--exp", f"replay:{npz}", *flags, events=30,
+                             shards=2, consumers=2),
                    [_consumer(PORT, server.address, c, "--stream", "--stream_window", "4",
-                              *flags) for c in (0, 1)])
+                              "--log_level", "DEBUG", *flags) for c in (0, 1)])
     finally:
         code, server_out = server.stop()
     tails = [text[-1500:] for _, text in out]
     assert [c for c, _ in out] == [0, 0, 0], tails
     assert "producer done: frames=30" in out[0][1]
     assert sum(n for _, text in out[1:] for n in _ends(text)) == 30, tails
+    received = {}
+    for _, text in out[1:]:
+        codecs = re.findall(r"consumer \d+: wire codec (\S+)", text)
+        assert len(codecs) == 1 and codecs[0] in {"": ["None"], "shuffle-rle": ["shuffle-rle"],
+                                                  "auto": ["None", "shuffle-rle"]}[codec]
+        for idx, crc in re.findall(r"consumer \d+: rank=\d+ idx=(\d+) crc32=([0-9a-f]{8})",
+                                   text):
+            assert int(idx) not in received
+            received[int(idx)] = int(crc, 16)
+    assert received == dict(enumerate(want))
     assert code == 0 and "queue server stopped" in server_out, server_out[-1500:]
     assert not _imported(server_out) & {"torch", "jax", "psana_ray_tpu"}
 

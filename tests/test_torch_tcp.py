@@ -326,6 +326,66 @@ def test_windowed_puts_under_backpressure():
         srv.shutdown()
 
 
+@pytest.mark.parametrize("drained", [True, False])
+def test_produce_sends_windowed_over_tcp_and_times_out_on_a_full_queue(drained):
+    """``produce`` on a TCP client goes through the producer's windowed
+    sender: every record and the EOS acked before it returns, or
+    ``TimeoutError`` once a full queue holds the window past ``timeout``."""
+    from psana_ray_tpu_torch.producer import produce
+
+    q, srv = _mk(maxsize=3)
+    try:
+        c = _client(srv, put_window=2)
+        events = ((i, np.full((1, 8, 8), i, np.float32), 1.0) for i in range(8))
+        if drained:
+            got = []
+
+            def consume():
+                while len(got) < 9:
+                    item = q.get_wait(timeout=0.2)
+                    if item is not EMPTY:
+                        got.append(item)
+
+            t = threading.Thread(target=consume, daemon=True)
+            t.start()
+            assert produce(events, c, timeout=10.0) == 8
+            t.join(timeout=10)
+            assert [r.event_idx for r in got[:8]] == list(range(8))
+            assert isinstance(got[8], EndOfStream) and got[8].total_events == 8
+        else:
+            with pytest.raises(TimeoutError):
+                produce(events, c, timeout=0.5)
+        c.disconnect()
+    finally:
+        srv.close_all()
+        srv.shutdown()
+
+
+def test_produce_synthetic_feeds_open_queues_named_queue_over_tcp():
+    """``produce_synthetic`` with a ``tcp://`` target puts into
+    ``open_queue``'s default named queue on the server: the pool cycled,
+    then one EOS."""
+    from psana_ray_tpu_torch.producer import produce_synthetic
+    from psana_ray_tpu_torch.sources import SyntheticSource
+
+    q, srv = _mk()
+    try:
+        address = f"tcp://127.0.0.1:{srv.port}"
+        assert produce_synthetic(address, "smoke_a", 5, 2, seed=3) == 5
+        c = open_queue(TransportConfig(address=address), role="consumer")
+        got = c.get_batch(6, timeout=5.0)
+        c.disconnect()
+    finally:
+        srv.close_all()
+        srv.shutdown()
+    pool = [SyntheticSource(num_events=2, detector_name="smoke_a", seed=3).event(i, "raw")[0]
+            for i in range(2)]
+    assert [r.event_idx for r in got[:5]] == list(range(5))
+    assert all(np.array_equal(r.panels, pool[r.event_idx % 2]) for r in got[:5])
+    assert isinstance(got[5], EndOfStream) and got[5].total_events == 5
+    assert q.size() == 0  # the server's default queue is another one
+
+
 # -- streams -------------------------------------------------------------
 
 
