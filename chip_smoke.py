@@ -9,9 +9,11 @@ folded into frozen affines and served through the kernels, the
 two-detector fan-in (BASELINE config 5), the SFX operator CLI over
 ``shm://``, BASELINE config 1 through the producer and consumer CLIs,
 the stage ranges on the profiler's timeline, and the producer CLI
-feeding the SFX CLI; and across the TCP transport, through the queue
+feeding the SFX CLI; across the TCP transport, through the queue
 server program: the ResNet path, config 1 and the producer CLI feeding
-the SFX CLI.
+the SFX CLI; and from durable queues on a two-worker server: the ResNet
+path, once clean and once through a worker killed mid-stream, and
+config 1 into a server killed and restarted, then replayed.
 
 Run from the root of a checkout, with no arguments:
 
@@ -139,6 +141,40 @@ one JSON line (``{"phase": ...}``):
    p50 batch ms without and with the capture.
 6g. ``tcp_profile``: phase 6e's path again for 6 + 8 batches, the 8
    under ``torch.profiler`` as in phase 6: the card's idle share there.
+6h. ``durable_end_to_end`` (after 6e, before 6f): phase 6e's path fed
+   from ``python -m psana_ray_tpu_torch.queue_server --workers 2
+   --durable_dir <fresh directory under build/chip_smoke/> --queue_size
+   40`` with the JAX defaults of the segment flags (64 MiB segments, 8
+   retained, fsync ``batch`` of 64); the directory's file system must
+   have room for 50 segments. The producer's named queue is one that
+   worker 1 owns by ``queue_owner`` (printed), so a connection the
+   kernel hands worker 0 migrates; 8 more connections after the run
+   make that very likely. Held as 6e is, and every event exactly once.
+   Prints frames/s, relay GB/s beside 6e's, ``host_batch_ms``,
+   ``host_stage_ms``, the owning worker's log counters (appended bytes,
+   fsyncs, segments rolled and recycled, spilled records) and bytes sent
+   by ``sendfile`` (from its stop line), the migrations, the directory's
+   peak size, and, timed alone in this process, the CRC-32 of a frame's
+   payload and a whole segment append under fsync ``none`` and ``batch``.
+6i. ``durable_failover``: the same server shape and model, 2 + 8
+   batches; after the third batch is consumed, ``SIGKILL`` of worker 1
+   (its pid from its start line) with the producer and this process's
+   stream mid-stream. The supervisor must fork worker 1 again, both
+   clients reconnect on their own, every event arrive at least once with
+   at most a put window plus a stream window (64) of duplicates, K1–K3
+   launch once a batch served, and the last batch agree within
+   ``rel_err < 0.05``. Prints the respawn's seconds, what the new
+   worker's log re-exposed and in how many ms, whether it cut a torn
+   tail, and the duplicates.
+6j. ``passthrough_durable``: config 1 over ``tcp://`` into a durable
+   server (``--workers 1``, ``--retain_segments 24``): the producer CLI
+   replays 6c's ``.npz`` in two shards with no consumer attached, the
+   server is killed (``SIGKILL``) and started again on the same
+   directory, two consumer CLIs with ``--stream`` drain it, and a third
+   with ``--replay from=begin --replay_group audit`` reads the retained
+   range; both reads' CRC-32s must equal the file's, every event once,
+   and no process may import torch or JAX. Prints the recovery's ms and
+   records, the producer's, the drain's and the replay's frames/s.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -305,11 +341,11 @@ Phase 6f's capture is the process's first, so the profiling phases (6,
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed and TCP-fed runs, the traced runs, the
-training runs, the fan-in, the CLIs and the fold runs (phases 5, 6b,
-6e, 6f, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
-``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b, 6e, 6f and 18), those of ``conv_block_kernel`` the SFX
+serving runs, the shm-fed, TCP-fed and durable-fed runs, the traced
+runs, the training runs, the fan-in, the CLIs and the fold runs (phases
+5, 6b, 6e, 6f, 6h, 6i, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those
+of ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
+runs' (5, 6b, 6e, 6f, 6h, 6i and 18), those of ``conv_block_kernel`` the SFX
 runs' (8, 17, 17d, 17e and 17f), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
@@ -412,6 +448,14 @@ TCP_QUEUE_SIZE = 40  # tcp_end_to_end: the queue server's default queue
 TCP_STREAM_WINDOW = 32  # tcp_end_to_end: the consumer's stream credits
 TCP_PROFILE_BATCHES = 8  # tcp_end_to_end: timed batches of the profiled run
 CONSUMER_LEAD_S = 1.5  # the consumers start and attach this long before the producer
+DURABLE_WORKERS = 2  # durable_end_to_end, durable_failover: the queue server's fleet
+DURABLE_SEGMENT_BYTES = 64 * 1024 * 1024  # the JAX defaults: 64 MiB segments, 8 retained
+DURABLE_RETAIN = 8
+FAILOVER_WARMUP, FAILOVER_BATCHES = 2, 8  # durable_failover's batches
+FAILOVER_KILL_AFTER = 3  # batches consumed before the queue's owner is killed
+CFG1_DURABLE_QUEUE = 160  # passthrough_durable: the 128 frames and their EOS markers fit
+CFG1_RETAIN = 24  # passthrough_durable: consumed segments kept, so the replay finds the run
+PROBE_CONNECTIONS = 8  # durable_end_to_end: connections opened after the run
 TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
 LOSS_MARKERS = 30  # profiler_loss: synchronised copies, one every 2 ms
 STARTED = time.monotonic()  # the process's age in stage_trace and profiler_loss
@@ -1083,29 +1127,43 @@ class QueueServerCLI:
             os.remove(self.port_file)
         return self.code, self.output
 
+    def text(self):
+        """The server's output so far (read through a descriptor of its own:
+        the server writes at the shared one's offset)."""
+        with open(f"/proc/self/fd/{self.log.fileno()}") as f:
+            return f.read()
 
-def tcp_serving_run(torch, pt, pool, step, device, root, n_batches, on_result):
+
+def tcp_serving_run(torch, pt, pool, step, device, root, n_batches, on_result, server=None,
+                    queue_name="shared_queue", warmup=WARMUP_BATCHES, exact=True):
     """One run of the ResNet serving path fed across the TCP transport:
-    the queue server CLI as a process (``--queue_size 40``), a ``spawn``
-    producer process sending ``WARMUP_BATCHES + n_batches`` batches of the
-    pool over ``tcp://`` with windowed puts into a named queue of 40
-    frames, and this process streaming it (``stream_open(32)``), once the
-    queue is full, through ``InfeedPipeline`` into ``step``. Checks every
-    exit code and count; returns the pipeline, the wall and fill seconds,
-    the launch counts and the server's stats of the queue."""
+    the queue server CLI as a process (``--queue_size 40``; or ``server``,
+    started and stopped by the caller), a ``spawn`` producer process
+    sending ``warmup + n_batches`` batches of the pool over ``tcp://``
+    with windowed puts into the named queue ``("default", queue_name)``
+    of 40 frames, and this process streaming it (``stream_open(32)``),
+    once the queue is full, through ``InfeedPipeline`` into ``step``.
+    Checks every exit code and count (``exact=False``: at least every
+    event, duplicates allowed); returns the pipeline, the wall and fill
+    seconds, the launch counts, the server's stats of the queue and the
+    frames the pipeline took."""
     import multiprocessing as mp
 
-    total = WARMUP_BATCHES + n_batches
+    total = warmup + n_batches
     n_events = total * BATCH
-    server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--log_level", "WARNING")
+    own = server is None
+    if own:
+        server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--log_level",
+                                "WARNING")
     ctx = mp.get_context("spawn")
     produced = ctx.Value("q", 0)
     proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
                        args=(server.address, DETECTOR, n_events, POOL_EVENTS),
-                       kwargs=dict(seed=0, produced=produced))
-    # the producer's named queue, open_queue's default pair: the monitor
-    # creates it, at TCP_QUEUE_SIZE frames, before the producer starts
-    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE)
+                       kwargs=dict(seed=0, produced=produced, queue_name=queue_name))
+    # the producer's named queue: the monitor creates it, at TCP_QUEUE_SIZE
+    # frames, before the producer starts
+    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE,
+                                queue_name=queue_name)
     client = monitor = None
     t_start = time.monotonic()
     try:
@@ -1122,7 +1180,7 @@ def tcp_serving_run(torch, pt, pool, step, device, root, n_batches, on_result):
         pt.reset_counters()
         pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
                                  prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
-                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=WARMUP_BATCHES))
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=warmup))
         t0 = time.monotonic()
         seen = pipe.run(step, on_result=on_result, block_until_ready=True)
         wall = time.monotonic() - t0
@@ -1136,15 +1194,16 @@ def tcp_serving_run(torch, pt, pool, step, device, root, n_batches, on_result):
         for c in (client, monitor):
             if c is not None:
                 c.disconnect()
-        code, out = server.stop()
-    if proc.exitcode != 0 or produced.value != n_events or seen != n_events or code != 0:
+        code, out = server.stop() if own else (0, "")
+    if (proc.exitcode != 0 or produced.value != n_events or code != 0
+            or (seen != n_events if exact else seen < n_events)):
         raise AssertionError(f"producer exit {proc.exitcode}, server exit {code}: produced "
                              f"{produced.value}, consumed {seen}, expected {n_events}; "
                              f"server: {out[-2000:]}")
-    nb = WARMUP_BATCHES + pipe.metrics.batches.count
-    if nb != total:
+    nb = warmup + pipe.metrics.batches.count
+    if exact and nb != total:
         raise AssertionError(f"{nb} batches, expected {total}")
-    return pipe, wall, fill_s, counts, queue_stats
+    return pipe, wall, fill_s, counts, queue_stats, seen
 
 
 def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
@@ -1158,7 +1217,7 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
     def on_result(out, batch):
         last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
 
-    pipe, wall, fill_s, counts, queue_stats = tcp_serving_run(
+    pipe, wall, fill_s, counts, queue_stats, _ = tcp_serving_run(
         torch, pt, pool, step, device, root, E2E_BATCHES, on_result)
     nb = WARMUP_BATCHES + pipe.metrics.batches.count
     check_resnet_counts(counts, nb)
@@ -1178,7 +1237,7 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
          server_queue={k: queue_stats.get(k) for k in ("depth", "high_water", "puts", "gets",
                                                         "puts_rejected")},
          launches=counts, **staging, **errs)
-    return counts
+    return counts, summary["fps"] * pool[0].nbytes / 1e9
 
 
 def phase_tcp_profile(torch, pt, pool, consts, params, device, root):
@@ -1191,6 +1250,425 @@ def phase_tcp_profile(torch, pt, pool, consts, params, device, root):
                         lambda out, batch: on_batch())
 
     emit("tcp_profile", **profiled(torch, run, TCP_PROFILE_BATCHES))
+
+
+# -- phases 6h-6j: the durable queues and the worker fleet -------------------
+_LOG_TIME = r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})"
+_WORKER = _LOG_TIME + r" - INFO - worker (\d+) of \d+ \(pid (\d+)\)"
+_RECOVERED = (_LOG_TIME + r" - INFO - durable queue \((\S+), (\S+)\): recovered (\d+) "
+              r"unconsumed record\(s\) of (\d+) from \S+ in ([\d.]+) ms \(committed offset "
+              r"(-?\d+)(, torn tail cut)?\)")
+_COUNTERS = r"(?:worker (\d+): )?durable log counters (\{.*?\}) sendfile (\{.*?\})"
+_MIGRATED = r"worker (\d+): connections migrated (\d+), adopted (\d+)"
+
+
+def log_time(stamp):
+    """Seconds since the epoch of a log line's ``asctime``."""
+    import datetime
+
+    return datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+def owned_queue(owner):
+    """The first queue name ``durable_<i>`` of namespace ``default`` that the
+    fleet's pinning gives worker ``owner``."""
+    from psana_ray_tpu_torch.transport.workers import queue_owner
+
+    i = 0
+    while queue_owner("default", f"durable_{i}", DURABLE_WORKERS) != owner:
+        i += 1
+    return f"durable_{i}"
+
+
+def worker_pids(text):
+    """``{worker id: [(log time, pid), ...]}`` in the order the fleet's
+    workers (and their respawns) logged their start."""
+    import re
+
+    out = {}
+    for stamp, wid, pid in re.findall(_WORKER, text):
+        out.setdefault(int(wid), []).append((log_time(stamp), int(pid)))
+    return out
+
+
+def durable_counters(text):
+    """``{worker id (None alone): (durable log counters, sendfile counters)}``
+    from the servers' stop lines, and ``{worker id: (migrated, adopted)}``."""
+    import re
+
+    counters = {(int(w) if w else None): (json.loads(a), json.loads(b))
+                for w, a, b in re.findall(_COUNTERS, text)}
+    migrations = {int(w): (int(m), int(a)) for w, m, a in re.findall(_MIGRATED, text)}
+    return counters, migrations
+
+
+def durable_dir(root, tag, segments):
+    """A fresh log directory under ``build/chip_smoke/``, once its file
+    system is known to have room for ``segments`` segments; returns it
+    and the free bytes."""
+    import shutil
+
+    d = os.path.join(root, "build", "chip_smoke", f"durable_{tag}_{os.getpid()}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    free = shutil.disk_usage(d).free
+    if free < segments * DURABLE_SEGMENT_BYTES:
+        raise AssertionError(f"{d}: {free} bytes free, {segments} segments of "
+                             f"{DURABLE_SEGMENT_BYTES} need more")
+    return d, free
+
+
+class DirPeak:
+    """The largest size of a directory's files while it runs: the bytes
+    allocated on disk (segments are sparse until written) and the files'
+    apparent sizes, sampled every 50 ms on a thread."""
+
+    def __init__(self, path):
+        self.path = path
+        self.peak = {"allocated_bytes": 0, "apparent_bytes": 0}
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        alloc = apparent = 0
+        for base, _, files in os.walk(self.path):
+            for f in files:
+                try:
+                    st = os.stat(os.path.join(base, f))
+                except OSError:
+                    continue
+                alloc += st.st_blocks * 512
+                apparent += st.st_size
+        self.peak["allocated_bytes"] = max(self.peak["allocated_bytes"], alloc)
+        self.peak["apparent_bytes"] = max(self.peak["apparent_bytes"], apparent)
+
+    def _run(self):
+        while not self._done.wait(0.05):
+            self._sample()
+
+    def stop(self):
+        self._done.set()
+        self._thread.join(timeout=10)
+        self._sample()
+        return self.peak
+
+
+def durable_server(root, tag, *extra):
+    """The queue server CLI with ``--workers 2 --durable_dir`` (a fresh
+    directory with room for the queue's depth, the retained segments and
+    two more, checked first) and the JAX defaults of the segment flags."""
+    d, free = durable_dir(root, tag, TCP_QUEUE_SIZE + DURABLE_RETAIN + 2)
+    server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--workers",
+                            str(DURABLE_WORKERS), "--durable_dir", d, *extra)
+    return server, d, free
+
+
+def log_path_costs(pt, pool):
+    """This process, one thread: the CRC-32 of a frame's tagged payload (what
+    a segment append computes on the worker's loop), and a whole append
+    (``encode_into`` the mapped segment, the CRC, rolls) into a fresh
+    ``SegmentLog`` with the server's segment size, under fsync ``none`` and
+    ``batch`` (the server's: an ``msync`` of the segment at each roll and
+    every 64 appends). Mean ms a frame over the pool's frames."""
+    import shutil
+    import tempfile
+    import zlib
+
+    from psana_ray_tpu_torch.storage import SegmentLog
+    from psana_ray_tpu_torch.transport.codec import encode_payload
+
+    recs = [pt.FrameRecord(0, i, f, 10.0) for i, f in enumerate(pool)]
+    payloads = [encode_payload(r) for r in recs[:16]]
+    zlib.crc32(payloads[0])
+    t0 = time.perf_counter()
+    for p in payloads:
+        zlib.crc32(p)
+    crc_ms = (time.perf_counter() - t0) * 1e3 / len(payloads)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    append_ms = {}
+    for fsync in ("none", "batch"):
+        d = tempfile.mkdtemp(dir=work)
+        try:
+            log = SegmentLog(d, fsync=fsync)
+            t0 = time.perf_counter()
+            for r in recs:
+                log.append(r)
+            append_ms[fsync] = (time.perf_counter() - t0) * 1e3 / len(recs)
+            log.close()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return {"crc32_ms_per_frame": crc_ms, "append_ms_per_frame": append_ms,
+            "payload_bytes": len(payloads[0]), "crc_frames": len(payloads),
+            "append_frames": len(recs), "zlib": zlib.ZLIB_RUNTIME_VERSION}
+
+
+def collect_batches(last, seen):
+    """An ``on_result`` that keeps the last batch and every event index."""
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+        last["valid"] = batch.num_valid
+        seen.extend(batch.event_idx[:batch.num_valid].tolist())
+
+    return on_result
+
+
+def check_last_frames(torch, pool, last, device):
+    import numpy as np
+
+    n = last["valid"]
+    idx = last["event_idx"][:n].cpu().numpy()
+    want = torch.from_numpy(np.stack([pool[i % len(pool)] for i in idx])).to(device)
+    if not torch.equal(want, last["frames"][:n]):
+        raise AssertionError("the last batch's frames differ from the producer's pool")
+
+
+def phase_durable_end_to_end(torch, pt, pool, consts, model, params, device, root, tcp_gbps):
+    """The ResNet serving path of ``tcp_end_to_end`` fed from a durable
+    two-worker queue server: ``--workers 2 --durable_dir`` (segment flags
+    at the JAX defaults), the producer's named queue one that worker 1
+    owns, so every connection the kernel hands worker 0 migrates. Every
+    event exactly once, launches exact, one host copy a frame, the last
+    batch's frames the pool's and its logits and features within
+    ``rel_err < 0.05`` of the plain path. Prints the rates beside
+    ``tcp_end_to_end``'s, the owner's log and ``sendfile`` counters, the
+    migrations, the log directory's peak size and the append path's
+    costs timed alone here."""
+    name = owned_queue(1)
+    server, d, free = durable_server(root, "e2e")
+    step = make_step(torch, pt, consts, params)
+    last, seen_idx = {}, []
+    peak = DirPeak(d)
+    try:
+        pipe, wall, fill_s, counts, queue_stats, seen = tcp_serving_run(
+            torch, pt, pool, step, device, root, E2E_BATCHES, collect_batches(last, seen_idx),
+            server=server, queue_name=name, warmup=WARMUP_BATCHES)
+        # more connections to the queue, so the kernel very likely hands
+        # some to worker 0, which migrates them (the run's three may all
+        # land on the owner)
+        for _ in range(PROBE_CONNECTIONS):
+            c = pt.open_queue(pt.TransportConfig(address=server.address, queue_name=name),
+                              role="consumer")
+            if c.size() != 0:
+                raise AssertionError("the drained queue is not empty")
+            c.disconnect()
+    finally:
+        dir_peak = peak.stop()
+        code, out = server.stop()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    n_events = (WARMUP_BATCHES + E2E_BATCHES) * BATCH
+    if code != 0 or sorted(seen_idx) != list(range(n_events)):
+        raise AssertionError(f"server exit {code}; {len(seen_idx)} deliveries of {n_events} "
+                             f"events, {len(set(seen_idx))} distinct: {out[-2000:]}")
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
+    check_resnet_counts(counts, nb)
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    check_last_frames(torch, pool, last, device)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    counters, migrations = durable_counters(out)
+    if 1 not in counters:
+        raise AssertionError(f"no counters from the owning worker: {out[-2000:]}")
+    log_counters, sendfile = counters[1]
+    summary = pipe.metrics.summary()
+    emit("durable_end_to_end", queue=name, owner=1, workers=DURABLE_WORKERS,
+         batches=nb, timed_batches=summary["batches"], frames=summary["frames"], wall_s=wall,
+         fill_s=fill_s, fps=summary["fps"],
+         relay_gbytes_per_s=summary["fps"] * pool[0].nbytes / 1e9,
+         tcp_relay_gbytes_per_s=tcp_gbps,
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         segment_bytes=DURABLE_SEGMENT_BYTES, retain_segments=DURABLE_RETAIN, fsync="batch",
+         log=log_counters, sendfile=sendfile,
+         migrations={w: {"migrated": m, "adopted": a} for w, (m, a) in migrations.items()},
+         dir_peak=dir_peak, dir_free_bytes=free,
+         server_queue={k: queue_stats.get(k) for k in (
+             "depth", "high_water", "puts", "gets", "puts_rejected", "spilled", "resident",
+             "committed_offset")},
+         append_path=log_path_costs(pt, pool), launches=counts, **staging, **errs)
+    return counts
+
+
+def phase_durable_failover(torch, pt, pool, consts, model, params, device, root):
+    """The same server shape and model, ``FAILOVER_WARMUP +
+    FAILOVER_BATCHES`` batches; once the pipeline has consumed
+    ``FAILOVER_KILL_AFTER`` batches, ``SIGKILL`` of the worker that owns the
+    queue (its pid from its start line), with the producer process and
+    this process's stream mid-stream. The supervisor must fork worker 1
+    again, both clients reconnect on their own, every event arrive at
+    least once with at most a put window and a stream window of
+    duplicates, the launches be one set a batch served and the last batch
+    within ``rel_err < 0.05``. Prints the respawn's seconds, what the new
+    worker's log re-exposed and whether it cut a torn tail, and the
+    duplicates."""
+    import signal
+
+    from psana_ray_tpu_torch.transport.tcp import DEFAULT_STREAM_WINDOW
+
+    name = owned_queue(1)
+    server, d, free = durable_server(root, "failover")
+    step = make_step(torch, pt, consts, params)
+    last, seen_idx, kill = {}, [], {}
+    keep = collect_batches(last, seen_idx)
+
+    def on_result(out, batch):
+        keep(out, batch)
+        kill["batches"] = kill.get("batches", 0) + 1
+        if kill["batches"] == FAILOVER_KILL_AFTER:
+            kill["pid"] = worker_pids(server.text())[1][-1][1]
+            kill["t"] = time.time()
+            os.kill(kill["pid"], signal.SIGKILL)
+
+    try:
+        pipe, wall, _, counts, queue_stats, seen = tcp_serving_run(
+            torch, pt, pool, step, device, root, FAILOVER_BATCHES, on_result, server=server,
+            queue_name=name, warmup=FAILOVER_WARMUP, exact=False)
+        deadline = time.monotonic() + 30
+        while len(worker_pids(server.text()).get(1, [])) < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        code, out = server.stop()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    import re
+
+    n_events = (FAILOVER_WARMUP + FAILOVER_BATCHES) * BATCH
+    starts = worker_pids(out).get(1, [])
+    respawn = [(t, pid) for t, pid in starts if pid != kill.get("pid") and t >= kill.get("t", 0)]
+    recovered = [m for m in re.findall(_RECOVERED, out) if log_time(m[0]) >= kill.get("t", 0)]
+    dups = len(seen_idx) - len(set(seen_idx))
+    window = DEFAULT_STREAM_WINDOW + TCP_STREAM_WINDOW
+    if code != 0 or "pid" not in kill or not respawn or not recovered:
+        raise AssertionError(f"server exit {code}, killed {kill}, worker 1 starts {starts}, "
+                             f"recoveries {recovered}: {out[-3000:]}")
+    if set(seen_idx) != set(range(n_events)) or dups > window:
+        raise AssertionError(f"{len(set(seen_idx))} of {n_events} events, {dups} duplicates "
+                             f"(at most {window}); missing "
+                             f"{sorted(set(range(n_events)) - set(seen_idx))[:16]}")
+    nb = FAILOVER_WARMUP + pipe.metrics.batches.count
+    check_resnet_counts(counts, nb)
+    check_last_frames(torch, pool, last, device)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    t_rec, _, _, n_rec, n_retained, rec_ms, floor, torn = recovered[0]
+    summary = pipe.metrics.summary()
+    emit("durable_failover", queue=name, owner=1, killed_pid=kill["pid"],
+         respawned_pid=respawn[0][1], respawn_s=respawn[0][0] - kill["t"],
+         first_reopen_s=log_time(t_rec) - kill["t"], reexposed_records=int(n_rec),
+         retained_records=int(n_retained), recovery_ms=float(rec_ms),
+         committed_offset_at_boot=int(floor), torn_tail_cut=bool(torn), events=n_events,
+         deliveries=len(seen_idx), duplicates=dups, duplicates_bound=window,
+         batches=nb, wall_s=wall, fps=summary["fps"],
+         server_queue={k: queue_stats.get(k) for k in ("depth", "puts", "gets", "spilled",
+                                                        "committed_offset")},
+         counters={w: c for w, c in durable_counters(out)[0].items()},
+         launches=counts, **errs)
+    return counts
+
+
+def phase_passthrough_durable(pt, root, npz):
+    """Config 1 through the three CLIs over ``tcp://`` into a durable
+    server (``--workers 1 --durable_dir``, ``--retain_segments 24`` so that
+    the drained run stays replayable): the producer CLI replays
+    ``passthrough_cli``'s ``.npz`` in two shards with no consumer attached,
+    the server is killed (``SIGKILL``) and started again on the same
+    directory, two consumer CLIs with ``--stream`` drain what it recovered,
+    and a third with ``--replay from=begin --replay_group audit`` reads
+    the retained range. The CRC-32s the consumers log must equal the
+    file's in both reads, and no process imports torch or JAX."""
+    import re
+    import shutil
+    import zlib
+
+    import numpy as np
+
+    with np.load(npz, mmap_mode="r") as f:
+        frames = f["frames"]
+        crcs = [zlib.crc32(np.ascontiguousarray(frames[i])) for i in range(len(frames))]
+    want = 0
+    for c in crcs:
+        want = zlib.crc32(c.to_bytes(4, "little"), want)
+    per_segment = DURABLE_SEGMENT_BYTES // (frames[0].nbytes + 512)
+    d, free = durable_dir(root, "cfg1", -(-CFG1_DURABLE_QUEUE // per_segment) + 2)
+    # the run's 19 segments stay retained once drained: the replay reads it all
+    args = ("--queue_size", str(CFG1_DURABLE_QUEUE), "--workers", "1", "--durable_dir", d,
+            "--retain_segments", str(CFG1_RETAIN))
+    queue = ("--queue_name", "cfg1_durable")
+    outputs = []
+
+    def consumers(n, address, *flags):
+        cmds = [cli_cmd("psana_ray_tpu_torch.consumer", str(c), "--quiet", "--status_interval",
+                        "1", "--log_level", "DEBUG", "--address", address, *queue, *flags)
+                for c in range(n)]
+        out, wall = run_clis(root, cmds)
+        outputs.extend(out)
+        received = {}
+        for code, text in out:
+            if code != 0:
+                raise AssertionError(f"passthrough_durable: a consumer exited {code}: "
+                                     f"{text[-2000:]}")
+            for m in re.finditer(_CRC, text):
+                idx = int(m.group(3))
+                if idx in received:
+                    raise AssertionError(f"passthrough_durable {flags}: event {idx} arrived "
+                                         f"twice: {[text[-1500:] for _, text in out]}")
+                received[idx] = int(m.group(4), 16)
+        got = 0
+        for i in range(len(crcs)):
+            got = zlib.crc32(received.get(i, 0).to_bytes(4, "little"), got)
+        ends = [re.search(_END, text) for _, text in out]
+        if len(received) != len(crcs) or got != want or None in ends:
+            raise AssertionError(f"passthrough_durable: {len(received)} of {len(crcs)} events, "
+                                 f"CRC {got} against the file's {want}")
+        counts = [int(m.group(2)) for m in ends]
+        # a status line rates a consumer's frames from its first to its last
+        spans = [(n - 1) / float(m.group(4)) for n, m in zip(counts, ends)
+                 if n > 1 and float(m.group(4)) > 0]
+        return {"frames_per_consumer": counts,
+                "frames_per_s": len(crcs) / max(spans) if spans else None, "wall_s": wall,
+                "crc32": got}
+
+    server = QueueServerCLI(root, *args)
+    try:
+        t0 = time.monotonic()
+        (code, text), = run_clis(root, [cli_cmd(
+            "psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--num_shards", "2",
+            "--num_consumers", "2", "--queue_size", str(CFG1_DURABLE_QUEUE), "--address",
+            server.address, *queue)])[0]
+        produce_s = time.monotonic() - t0
+        outputs.append((code, text))
+        produced = re.search(_PRODUCED, text)
+        if code != 0 or produced is None or int(produced.group(1)) != CFG1_EVENTS:
+            raise AssertionError(f"passthrough_durable: producer exit {code}: {text[-2000:]}")
+        dir_bytes = DirPeak(d).stop()
+        server.proc.kill()  # SIGKILL: the queue's depth is in the page cache and the log
+        server.proc.wait(timeout=30)
+        _, first_out = server.stop()
+        outputs.append((0, first_out))
+        server = QueueServerCLI(root, *args)
+        drain = consumers(2, server.address, "--stream")
+        replay = consumers(1, server.address, "--replay", "from=begin", "--replay_group", "audit")
+    finally:
+        code, out = server.stop()
+        outputs.append((code, out))
+        shutil.rmtree(d, ignore_errors=True)
+    recovered = re.findall(_RECOVERED, out)
+    loaded = sorted(set().union(*(imported_roots(text) for _, text in outputs))
+                    & {"torch", "jax", "psana_ray_tpu"})
+    if code != 0 or loaded or not recovered:
+        raise AssertionError(f"passthrough_durable: server exit {code}, imported {loaded}, "
+                             f"recoveries {recovered}: {out[-2000:]}")
+    _, _, _, n_rec, n_retained, rec_ms, floor, torn = recovered[0]
+    counters, _ = durable_counters(out)
+    emit("passthrough_durable", events=CFG1_EVENTS, shards=2, queue_size=CFG1_DURABLE_QUEUE,
+         produce_s=produce_s, producer_frames_per_s=float(produced.group(2)),
+         log_dir=dir_bytes, dir_free_bytes=free, recovery_ms=float(rec_ms),
+         recovered_records=int(n_rec), retained_records=int(n_retained),
+         committed_offset_at_boot=int(floor), torn_tail_cut=bool(torn), drain=drain,
+         replay=replay, counters=counters.get(None), imported=loaded, crc32=want)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -3008,7 +3486,13 @@ def main() -> int:
     npz = phase_passthrough_cli(pt, src, pool, root)
     try:
         phase_passthrough_tcp(pt, root, npz)
-        tcp_counts = phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root)
+        tcp_counts, tcp_gbps = phase_tcp_end_to_end(torch, pt, pool, consts, model, params,
+                                                    device, root)
+        durable_counts = phase_durable_end_to_end(torch, pt, pool, consts, model, params,
+                                                  device, root, tcp_gbps)
+        failover_counts = phase_durable_failover(torch, pt, pool, consts, model, params,
+                                                 device, root)
+        phase_passthrough_durable(pt, root, npz)
         # the process's first profiler capture, after the TCP phases
         trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
     finally:
@@ -3055,7 +3539,8 @@ def main() -> int:
                      + fanin_counts["calib_kernel"] + cli_counts["calib_kernel"]
                      + fold_counts["calib_kernel"] + trace_counts["calib_kernel"]
                      + cli_sfx_counts["calib_kernel"] + tcp_counts["calib_kernel"]
-                     + cli_sfx_tcp_counts["calib_kernel"]),
+                     + cli_sfx_tcp_counts["calib_kernel"] + durable_counts["calib_kernel"]
+                     + failover_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -3071,7 +3556,7 @@ def main() -> int:
             "source": f"{csrc}/conv_sm90.cu",
             "replaces": replaces[name],
             "launches": (counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name]
-                         + tcp_counts[name]),
+                         + tcp_counts[name] + durable_counts[name] + failover_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

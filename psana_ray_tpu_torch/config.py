@@ -4,14 +4,14 @@ addressing read.
 
 One set of dataclasses for every component: :class:`SourceConfig` (what
 to read), :class:`MaskConfig` (host-side masking), :class:`TransportConfig`
-(the queue and its rendezvous), :class:`LogConfig`, and
+(the queue and its rendezvous), :class:`DurabilityConfig` (the queue
+server's segment logs), :class:`LogConfig`, and
 :class:`PipelineConfig` that holds them. The fields keep the JAX
 package's names and defaults (the reference's 13 producer flags among
 them). ``TransportConfig``'s fields of transports the port has not ported
-(consumer groups, the cluster and durable replay) raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 Item 8. The JAX
-package's infeed and mesh sections are not carried: no ported component
-reads them.
+(consumer groups and the cluster) raise ``NotImplementedError`` naming
+ROADMAP.md Queue 1 Item 8. The JAX package's infeed and mesh sections are
+not carried: no ported component reads them.
 """
 
 from __future__ import annotations
@@ -67,9 +67,7 @@ class MaskConfig:
 
 
 # the JAX package's TransportConfig fields that the port does not carry
-NOT_PORTED = frozenset({
-    "cluster_partitions", "group", "member_id", "replay_from", "replay_group",
-})
+NOT_PORTED = frozenset({"cluster_partitions", "group", "member_id"})
 
 
 @dataclasses.dataclass(init=False)
@@ -84,7 +82,9 @@ class TransportConfig:
     producer's lossy wire dtype (``""`` = off), the TCP connections' wire
     codec (``""`` or ``"none"``: raw; ``"auto"``; or codec names) and
     fair-share tenant (``""``: the shared default tenant) with its weight
-    (1-64)."""
+    (1-64). ``replay_from`` reads a durable queue's retained log instead
+    of the live queue (``""``: live; ``"begin"``, ``"resume"`` or an
+    offset), for the consumer group ``replay_group``."""
 
     address: str = "auto"
     namespace: str = "default"
@@ -102,6 +102,8 @@ class TransportConfig:
     wire_codec: str = ""
     tenant: str = ""
     tenant_weight: int = 1
+    replay_from: str = ""
+    replay_group: str = "replay"
 
     def __init__(self, address: str = "auto", namespace: str = "default",
                  queue_name: str = "shared_queue", queue_size: int = 100,
@@ -110,15 +112,15 @@ class TransportConfig:
                  rendezvous_retries: int = 10, rendezvous_interval_s: float = 1.0,
                  poll_interval_s: float = 0.01, put_batch_size: int = 16,
                  wire_dtype: str = "", wire_codec: str = "", tenant: str = "",
-                 tenant_weight: int = 1, **not_ported):
+                 tenant_weight: int = 1, replay_from: str = "",
+                 replay_group: str = "replay", **not_ported):
         unknown = sorted(set(not_ported) - NOT_PORTED)
         if unknown:
             raise TypeError(f"TransportConfig has no field {unknown[0]!r}")
         if not_ported:
             raise NotImplementedError(
                 f"TransportConfig field(s) {sorted(not_ported)} belong to transports the port "
-                f"has not ported (consumer groups, durable replay, the cluster): ROADMAP.md "
-                f"Queue 1 Item 8")
+                f"has not ported (consumer groups, the cluster): ROADMAP.md Queue 1 Item 8")
         self.address = address
         self.namespace = namespace
         self.queue_name = queue_name
@@ -135,6 +137,25 @@ class TransportConfig:
         self.wire_codec = wire_codec
         self.tenant = tenant
         self.tenant_weight = tenant_weight
+        self.replay_from = replay_from
+        self.replay_group = replay_group
+
+
+@dataclasses.dataclass
+class DurabilityConfig:
+    """The queue server's segment logs (``queue_server --durable_dir``):
+    the segment size (a segment must hold the largest record), the
+    consumed segments kept for replay, the fsync policy (``none``,
+    ``batch`` or ``always``), the appends an fsync under ``batch``, and the
+    RAM-resident records a queue before delivery reads the log (0: the
+    queue's maxsize)."""
+
+    durable_dir: Optional[str] = None
+    segment_bytes: int = 64 * 1024 * 1024
+    retain_segments: int = 8
+    fsync: str = "batch"
+    fsync_batch_n: int = 64
+    ram_items: int = 0
 
 
 @dataclasses.dataclass

@@ -29,10 +29,10 @@ loop (the only path that loads torch). ``--stream`` and
 ``--stream_window`` subscribe to server-push delivery over ``tcp://``
 (ignored elsewhere, as the JAX package does); ``--wire_codec``,
 ``--tenant`` and ``--tenant_weight`` ride the TCP connection's
-capability exchange. The JAX CLI's obs, autotune and cluster flags are
-refused (ROADMAP.md Queue 1 Item 8); ``--replay`` needs a durable queue
-server, which the port does not have, and fails with
-``DataReaderError``.
+capability exchange. ``--replay from=<offset|begin|resume>`` (with
+``--replay_group``) reads a durable queue server's retained log over
+``tcp://`` without popping the live queue. The JAX CLI's obs, autotune and
+cluster flags are refused (ROADMAP.md Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -66,17 +66,22 @@ class DataReader:
         pushes; frames read and not yet acked redeliver to another
         consumer if this one dies); ignored on transports without
         streaming. ``replay_from`` (``"begin"``, ``"resume"`` or an
-        offset) reads a durable queue server's retained log; no transport
-        of the port has one, so :meth:`connect` raises
-        :class:`DataReaderError`."""
+        offset; default the config's) reads a durable queue server's
+        retained log over ``tcp://`` for the consumer group
+        ``replay_group``, non-destructively: live consumers keep their
+        frames, and what this reader consumed is committed for its group,
+        so a crashed reader resumes with ``"resume"``. Replay is pull-mode
+        (``streaming`` is ignored); a transport or queue without a log
+        raises :class:`DataReaderError` at :meth:`connect`."""
         self.config = config or TransportConfig()
         self.address = address if address != "auto" else self.config.address
         self.queue_name = queue_name or self.config.queue_name
         self.namespace = namespace or self.config.namespace
         self.streaming = streaming
         self.stream_window = stream_window
-        self.replay_from = replay_from
-        self.replay_group = replay_group or "replay"
+        self.replay_from = (replay_from if replay_from is not None
+                            else (self.config.replay_from or None))
+        self.replay_group = replay_group or self.config.replay_group
         if self.replay_from is not None:
             self.streaming = False  # replay is pull-mode
         self._queue = None
@@ -100,14 +105,21 @@ class DataReader:
             raise DataReaderError(f"could not find queue {self.queue_name!r}: {e}") from e
         except TransportClosed as e:  # no queue server answered
             raise DataReaderError(f"could not reach queue {self.queue_name!r}: {e}") from e
-        if self.replay_from is not None and not hasattr(self._queue, "replay_open"):
-            q, self._queue = self._queue, None
-            if hasattr(q, "disconnect"):
-                q.disconnect()
-            raise DataReaderError(
-                f"transport {self.address!r} does not support replay "
-                f"(need a tcp:// or cluster:// durable queue server)"
-            )
+        if self.replay_from is not None:
+            try:
+                if not hasattr(self._queue, "replay_open"):
+                    raise DataReaderError(f"transport {self.address!r} does not support replay "
+                                          f"(need a tcp:// durable queue server)")
+                start = (self.replay_from if self.replay_from in ("begin", "resume")
+                         else int(self.replay_from))
+                self._queue.replay_open(start, group=self.replay_group)
+            except (RuntimeError, ValueError) as e:  # DataReaderError, TransportClosed too
+                q, self._queue = self._queue, None
+                if hasattr(q, "disconnect"):
+                    q.disconnect()
+                if isinstance(e, DataReaderError):
+                    raise
+                raise DataReaderError(str(e)) from e
         if self.streaming and hasattr(self._queue, "stream_open"):
             try:
                 self._queue.stream_open(self.stream_window)
@@ -244,8 +256,9 @@ def main(argv=None):
     p.add_argument("--stream_window", type=int, default=32,
                    help="streaming credit window (TCP transports)")
     p.add_argument("--replay", default=None, metavar="from=<offset|begin|resume>",
-                   help="read a durable TCP queue server's retained log (not ported: fails "
-                        "on auto and shm://)")
+                   help="read a durable queue server's retained log (tcp://) instead of the "
+                        "live queue: from=begin replays all it retains, from=resume continues "
+                        "after --replay_group's committed offset, from=N starts at offset N")
     p.add_argument("--replay_group", default="replay",
                    help="consumer group whose committed offset --replay advances")
     p.add_argument("--max_frames", type=int, default=None)

@@ -97,12 +97,13 @@ def produce_synthetic(
     dtype: str = "float32",
     produced=None,
     run: int = 1,
+    queue_name: str = "shared_queue",
 ) -> int:
     """A producer process's body, for ``multiprocessing``'s ``spawn``
     start method: draw the RAW events ``0 .. pool_events - 1`` of
     ``SyntheticSource(detector_name, seed, dtype, run)``, then attach to
     ``target`` (an shm ring's name, or a ``tcp://host:port`` address:
-    :func:`open_queue`'s default named queue there, fed with windowed
+    the named queue ``("default", queue_name)`` there, fed with windowed
     puts), put ``n_events`` of them (the pool cycled, event index ``i``
     carrying pool event ``i % pool_events``) and one EOS, and detach.
     ``produced`` (a ``multiprocessing.Value``) receives the count."""
@@ -110,7 +111,8 @@ def produce_synthetic(
                           seed=seed, dtype=dtype)
     pool = [src.event(i, "raw") for i in range(pool_events)]
     if target.startswith("tcp://"):
-        queue = open_queue(TransportConfig(address=target), role="producer")
+        queue = open_queue(TransportConfig(address=target, queue_name=queue_name),
+                           role="producer")
     else:
         queue = ShmRingBuffer.attach(target, retries=100, interval_s=0.1)
     try:

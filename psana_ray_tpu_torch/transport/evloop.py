@@ -29,26 +29,39 @@ The port's copy of ``psana_ray_tpu/transport/evloop.py``.
   window, whose exact tail redelivers on death. At least once:
   duplicates possible, silent loss never.
 
+- Durable queues (:class:`~psana_ray_tpu_torch.storage.DurableRingBuffer`):
+  the implicit ack, a stream's cumulative ack and a clean BYE advance
+  the committed floor (``ack_delivered``). 'R' opens a replay cursor on
+  the connection, whose reads then serve the retained log; 'J' commits
+  it. A spilled record goes out as a :class:`~psana_ray_tpu_torch.
+  transport.splice.FileSpan` by ``sendfile`` on a plain connection and
+  is read into the interpreter on a compressed one.
+- A worker of a ``--workers`` fleet (``server.worker_ctx``) serves the
+  queues it owns and ships every other connection, at its first queue
+  op, to the owner over the adoption socket (:mod:`psana_ray_tpu_torch.
+  transport.workers`).
+
 While a connection has a deferred op, its reads pause (one outstanding
 request a connection: what it pipelined waits in the kernel's buffer);
 a 1-byte ``MSG_PEEK`` probe, repeated every ``PROBE_INTERVAL_S``, keeps
-detecting a peer that died.
+detecting a peer that died. Reads take exact sizes and never run past
+the current op, which is what lets a connection migrate with its fd.
 
 Nothing reachable from :meth:`EventLoop.run` may block: no sleeps, no
 blocking socket calls, no unbounded waits. The one put-back that can
 block (a queue without ``put_front``) runs on a short-lived helper
 thread.
 
-Not ported (ROADMAP.md Queue 1 Item 8): the durable queues' replay
-cursors and ``splice`` of spilled records, replication, the worker
-fleet's connection migration and the metrics federation RPC.
+Not ported (ROADMAP.md Queue 1 Item 8): replication and its replica
+links ('H', 'V', 'Y'), the consumer groups of 'N' and the metrics
+federation RPC.
 """
 
 from __future__ import annotations
 
 import heapq
-import itertools
 import json
+import os
 import selectors
 import socket
 import struct
@@ -57,6 +70,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from psana_ray_tpu_torch.storage.durable import SpilledRecord
+from psana_ray_tpu_torch.storage.log import COMMIT_DELIVERED
 from psana_ray_tpu_torch.transport.codec import (
     CODEC_NONE,
     CODEC_STATS,
@@ -67,6 +82,8 @@ from psana_ray_tpu_torch.transport.codec import (
 )
 from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.transport.ring import EMPTY
+from psana_ray_tpu_torch.transport.splice import SPLICE, FileSpan, fallback_errno
+from psana_ray_tpu_torch.transport.splice import sendfile_capable as _sendfile_capable
 from psana_ray_tpu_torch.transport.tcp import (
     _MAX_PAYLOAD,
     _OP_ANCHOR,
@@ -101,6 +118,7 @@ from psana_ray_tpu_torch.transport.tcp import (
     _queue_stats_payload,
     _refuse_conn,
 )
+from psana_ray_tpu_torch.transport.workers import MIGRATE_GRACE_S, MIGRATE_RETRY_S
 
 # pump cadence for queues without a change listener (shm rings fed by
 # other processes); a listened queue pokes the waker on every change, so
@@ -218,7 +236,7 @@ class _EvConn:
         "stream", "pending", "op_gen", "codec", "tenant", "weight", "_out_enq_total",
         "_out_releases", "_hdr", "_hdr_mv", "_target", "_need", "_got", "_cb", "_lease",
         "_want_read", "_want_write", "_mask", "_qb_remaining", "_qb_items", "_pw_wait_s",
-        "_w_seq", "_open_ns", "_open_buf",
+        "_w_seq", "_open_ns", "_open_buf", "replay", "_r_from", "_no_splice", "_migration",
     )
 
     def __init__(self, loop: "EventLoop", sock: socket.socket, srv):
@@ -261,6 +279,15 @@ class _EvConn:
         self._w_seq = 0
         self._open_ns = ""
         self._open_buf = bytearray()
+        # a durable queue's replay cursor ('R'): when set, this connection's
+        # reads serve the log without popping the queue
+        self.replay = None
+        self._r_from = 0
+        # this socket refused sendfile: spilled records materialize
+        self._no_splice = False
+        # a handoff to the queue's owning worker in progress: {"target",
+        # "ctx", "deadline"}; reads pause and queued bytes flush first
+        self._migration = None
 
     # -- reads ----------------------------------------------------------
     def _arm(self, mv: memoryview, cb, lease=None) -> None:
@@ -329,15 +356,30 @@ class _EvConn:
     def send_parts(self, parts, release=None) -> None:
         """Queue parts to send. ``release`` (a lease or a list of them,
         backing compressed parts) is released once every byte queued so
-        far has gone to the kernel."""
-        for m in _gather_parts(parts):
-            self.out.append(m)
-            self.out_bytes += m.nbytes
-            self._out_enq_total += m.nbytes
+        far has gone to the kernel. A :class:`FileSpan` queues as itself
+        (``sendfile`` moves it); the byte runs between spans gather as
+        usual."""
+        run: List[Any] = []
+        for p in parts:
+            if type(p) is FileSpan:
+                self._enqueue_bufs(run)
+                run = []
+                self.out.append(p)
+                self.out_bytes += p.nbytes
+                self._out_enq_total += p.nbytes
+            else:
+                run.append(p)
+        self._enqueue_bufs(run)
         if release is not None:
             for lease in release if isinstance(release, list) else (release,):
                 self._out_releases.append((self._out_enq_total, lease))
         self.flush_out()
+
+    def _enqueue_bufs(self, parts) -> None:
+        for m in _gather_parts(parts):
+            self.out.append(m)
+            self.out_bytes += m.nbytes
+            self._out_enq_total += m.nbytes
 
     def _send_control(self, b: bytes) -> None:
         self.send_parts([b])
@@ -347,7 +389,15 @@ class _EvConn:
             return
         try:
             while self.out:
-                sent = self.sock.sendmsg(list(itertools.islice(self.out, _SENDMSG_IOV)))
+                if type(self.out[0]) is FileSpan:
+                    self._pump_span(self.out[0])
+                    continue
+                bufs = []
+                for m in self.out:
+                    if type(m) is FileSpan or len(bufs) >= _SENDMSG_IOV:
+                        break  # a span goes alone, on the next turn
+                    bufs.append(m)
+                sent = self.sock.sendmsg(bufs)
                 if sent <= 0:
                     raise ConnectionError("peer closed during send")
                 self.out_bytes -= sent
@@ -367,7 +417,37 @@ class _EvConn:
         if not self.out and self.closing:
             self.loop.kill_conn(self, None, requeue=False)
             return
+        if not self.out and self._migration is not None:
+            self.loop._try_migrate(self)  # the handoff waited for the flush
+            return
         self._set_interest(write=bool(self.out))
+
+    def _pump_span(self, span) -> None:
+        """Send the head :class:`FileSpan` with ``os.sendfile``: the payload
+        never enters the interpreter. A short send or ``BlockingIOError``
+        is handled as a short ``sendmsg`` is; an errno that means this
+        socket cannot splice turns the rest of the span (and this
+        connection's later spilled records) into bytes for ``sendmsg``."""
+        try:
+            sent = os.sendfile(self.sock.fileno(), span.fileno(), span.pos, span.nbytes)
+        except (BlockingIOError, InterruptedError):
+            raise
+        except OSError as e:
+            if fallback_errno(e):
+                self._no_splice = True
+                SPLICE.note_fallback(f"sendfile_errno_{e.errno}")
+                self.out[0] = memoryview(span.materialize())
+                return
+            raise ConnectionError(f"sendfile failed: {e!r}") from e
+        if sent <= 0:
+            raise ConnectionError("peer closed during sendfile")
+        self.out_bytes -= sent
+        SPLICE.note_sendfile(sent)
+        if sent >= span.nbytes:
+            self.out.popleft()
+            SPLICE.note_frame()
+        else:
+            span.advance(sent)
 
     def _set_interest(self, read: Optional[bool] = None, write: Optional[bool] = None) -> None:
         if read is not None:
@@ -399,9 +479,19 @@ class _EvConn:
         self._set_interest(read=True)
 
     # -- dispatch -------------------------------------------------------
+    def _ack_in_flight(self) -> None:
+        """The implicit ack: a durable queue advances (and persists) its
+        committed floor over the deliveries, a replay cursor commits its
+        group's position. A memory queue has nothing to do."""
+        if self.in_flight:
+            self._ack_items(self.in_flight)
+        if self.replay is not None:
+            self.replay.commit()
+
     def _on_op(self) -> None:
         op = self._hdr[0]
         # the peer read the last response before it sent this: the implicit ack
+        self._ack_in_flight()
         self.in_flight = []
         if self.stream is not None:
             # a streamed connection's upstream: acks, window resizes, BYE
@@ -416,6 +506,15 @@ class _EvConn:
                 self._begin_close()
                 return
             raise ConnectionError(f"bad opcode {op:#04x} on streamed connection")
+        wctx = self.srv.worker_ctx
+        if (wctx is not None and self.queue is self.srv.queue
+                and wctx.worker_id != wctx.default_owner and op not in _WORKER_LOCAL_OPS):
+            # an op on the default queue, which another worker owns: ship
+            # the connection there. Only the opcode byte was read (it rides
+            # in the context); what the client pipelined behind it is still
+            # in the kernel's buffer and travels with the fd
+            self.loop.migrate_conn(self, wctx.default_owner, {"kind": "op", "op": op})
+            return
         name = _OPS.get(op)
         if name is None:
             self._send_control(_ST_ERR)
@@ -434,7 +533,19 @@ class _EvConn:
     # -- responses ------------------------------------------------------
     def _encode_item_parts(self, item):
         """The item's parts under this connection's codec, and the staging
-        lease to release after they are sent."""
+        lease to release after they are sent. A :class:`SpilledRecord` on
+        a plain connection is one :class:`FileSpan` (its payload on disk
+        is the wire payload); a compressed connection, or a socket that
+        refused ``sendfile``, reads it in first."""
+        if type(item) is SpilledRecord:
+            if self.codec is None and not self._no_splice and _sendfile_capable():
+                span = item.payload_span()
+                if span is not None:
+                    return [FileSpan(*span)], None
+                # not retained any more: the floor pin forbids it, but a
+                # broken contract costs a copy here, not the connection
+                SPLICE.note_fallback("span_unretained")
+            item = item.materialize()
         return _wire_encode(item, self.codec, self.srv._pool)
 
     def _respond_item(self, item) -> None:
@@ -510,7 +621,11 @@ class _EvConn:
 
     def _op_get(self) -> None:
         try:
-            item = self.queue.get()
+            if self.replay is not None:
+                items = self.replay.next_batch(1)
+                item = items[0] if items else EMPTY
+            else:
+                item = self.queue.get()
         except TransportClosed:
             self._send_control(_ST_CLOSED)
         else:
@@ -527,12 +642,19 @@ class _EvConn:
     def _gb_hdr(self) -> None:
         (max_items,) = struct.unpack_from("<I", self._hdr)
         try:
-            items = self.queue.get_batch(min(max_items, 4096), timeout=0.0)
+            items = self._read_batch(min(max_items, 4096))
         except TransportClosed:
             self._send_control(_ST_CLOSED)
         else:
             self._respond_batch(items)
         self._await_op()
+
+    def _read_batch(self, max_items: int) -> List[Any]:
+        """A non-blocking read: the replay cursor where one is open, else
+        the queue."""
+        if self.replay is not None:
+            return self.replay.next_batch(max_items)
+        return self.queue.get_batch(max_items, timeout=0.0)
 
     def _op_get_batch_wait(self) -> None:
         self._expect(8, self._gbw_hdr)
@@ -542,7 +664,7 @@ class _EvConn:
         max_items = min(max_items, 4096)
         wait_s = min(wait_ms / 1000.0, _SERVER_WAIT_CAP_S)
         try:
-            items = self.queue.get_batch(max_items, timeout=0.0)
+            items = self._read_batch(max_items)
         except TransportClosed:
             self._send_control(_ST_CLOSED)
             self._await_op()
@@ -648,6 +770,10 @@ class _EvConn:
 
     def _stream_hdr(self) -> None:
         (window,) = struct.unpack_from("<I", self._hdr)
+        if self.replay is not None:
+            # replay is pull-mode: stream seqs would need a second mapping
+            # to cursor offsets to commit on ack
+            raise ConnectionError("stream subscribe on a replay connection")
         window = max(1, min(int(window), 4096))
         self.stream = _StreamState(window)
         STREAM.opened(window)
@@ -671,13 +797,18 @@ class _EvConn:
         if seq > st.acked:
             st.acked = seq
             STREAM.acked_msg()
-        n = 0
+        acked = []
         while st.unacked and st.unacked[0][0] <= st.acked:
-            st.unacked.popleft()  # credit returned: the lease may go
-            n += 1
-        if n:
-            STREAM.pruned(n)
+            acked.append(st.unacked.popleft()[1])  # credit returned: the lease may go
+        if acked:
+            STREAM.pruned(len(acked))
+            self._ack_items(acked)  # a durable queue's commit point
         self._await_op()
+
+    def _ack_items(self, items) -> None:
+        ack = getattr(self.queue, "ack_delivered", None)
+        if ack is not None:
+            ack(items)
 
     def push_stream_items(self, items) -> None:
         st = self.stream
@@ -705,9 +836,12 @@ class _EvConn:
         st, self.stream = self.stream, None
         if st is None:
             return
+        acked = []
         while st.unacked and st.unacked[0][0] <= st.acked:
-            st.unacked.popleft()
-            STREAM.pruned(1)
+            acked.append(st.unacked.popleft()[1])
+        if acked:
+            STREAM.pruned(len(acked))
+            self._ack_items(acked)  # the last cumulative ack commits too
         lost = [item for (_s, item) in st.unacked]
         st.unacked.clear()
         if lost:
@@ -786,15 +920,48 @@ class _EvConn:
         self._await_op()
 
     def _op_replay(self) -> None:
-        """'R' and 'J' (offset:u64, group_len:u16, group): a memory queue
-        has no log, so the answer is '0'."""
-        self._expect(10, self._log_hdr)
+        """'R' (from:u64, group_len:u16, group): this connection's reads
+        switch to a replay cursor over the bound durable queue's retained
+        log; the answer carries the cursor's start and the log's tail. A
+        memory queue has no log: '0'."""
+        self._expect(10, lambda: self._log_hdr(self._replay_finish))
 
-    _op_commit = _op_replay
+    def _op_commit(self) -> None:
+        """'J' (offset:u64, group_len:u16, group): commit the replay
+        cursor (``COMMIT_DELIVERED``: all it delivered), or ``group``'s
+        offset on the bound durable queue; '0' where there is nothing to
+        commit against."""
+        self._expect(10, lambda: self._log_hdr(self._commit_finish))
 
-    def _log_hdr(self) -> None:
-        _, glen = struct.unpack_from("<QH", self._hdr)
-        self._expect_string(glen, self._answer_no)
+    def _log_hdr(self, then) -> None:
+        self._r_from, glen = struct.unpack_from("<QH", self._hdr)
+        self._expect_string(glen, then)
+
+    def _replay_finish(self) -> None:
+        group = self._open_buf.decode() or "replay"
+        open_replay = getattr(self.queue, "open_replay", None)
+        if open_replay is None:
+            self._answer_no()
+            return
+        self.replay = open_replay(group, self._r_from)
+        self._send_control(_ST_OK + struct.pack("<QQ", self.replay.position,
+                                                self.replay.log.next_offset))
+        self._await_op()
+
+    def _commit_finish(self) -> None:
+        offset, group = self._r_from, self._open_buf.decode()
+        if self.replay is not None:
+            self.replay.commit(None if offset == COMMIT_DELIVERED else offset)
+            self._send_control(_ST_OK)
+            self._await_op()
+            return
+        commit = getattr(self.queue, "commit_offset", None)
+        if commit is None or not group or offset == COMMIT_DELIVERED:
+            self._answer_no()
+            return
+        commit(offset, group)
+        self._send_control(_ST_OK)
+        self._await_op()
 
     def _answer_no(self) -> None:
         self._send_control(_ST_NO)
@@ -865,7 +1032,17 @@ class _EvConn:
 
     def _open_finish(self) -> None:
         (maxsize,) = struct.unpack_from("<I", self._hdr)
-        self.queue = self.srv.open_named(self._open_ns, self._open_buf.decode(), maxsize or None)
+        name = self._open_buf.decode()
+        wctx = self.srv.worker_ctx
+        if wctx is not None:
+            owner = wctx.owner_of(self._open_ns, name)
+            if owner != wctx.worker_id:
+                # the queue lives on its owner: the adopter opens it and
+                # answers the client
+                self.loop.migrate_conn(self, owner, {"kind": "open", "ns": self._open_ns,
+                                                     "nm": name, "maxsize": maxsize})
+                return
+        self.queue = self.srv.open_named(self._open_ns, name, maxsize or None)
         self._send_control(_ST_OK)
         self._await_op()
 
@@ -892,6 +1069,15 @@ _OPS: Dict[int, str] = {
     _OP_BYE[0]: "_op_bye",
 }
 
+# the ops a worker serves itself whatever queue it owns: the capability
+# exchange, the group RPC and the anchor (a worker's own answers), the
+# replica ops (refused anyway) and BYE. OPEN routes at its end, once the
+# name is read
+_WORKER_LOCAL_OPS = frozenset(
+    op for op, handler in _OPS.items()
+    if handler in ("_op_open", "_op_codec", "_op_cluster", "_op_anchor", "_op_repl_open",
+                   "_op_promote", "_op_bye"))
+
 
 class EventLoop:
     """The one loop of a :class:`~psana_ray_tpu_torch.transport.tcp.
@@ -912,6 +1098,7 @@ class EventLoop:
         self._waker_buf = bytearray(512)
         self._ACCEPT = object()
         self._WAKER = object()
+        self._ADOPT = object()
         self._loop_tid: Optional[int] = None
 
     def wake(self) -> None:
@@ -1000,6 +1187,11 @@ class EventLoop:
         # producer resends it on reconnect; enqueueing it now would double it)
         conn.pending = None
         conn._qb_items = []
+        if conn.replay is not None:
+            # a cursor's deliveries are not popped: what the dead client
+            # read and did not commit comes again when its group resumes
+            conn.in_flight = []
+            conn.replay = None
         if requeue:
             if conn.in_flight:
                 self.requeue_items(conn.queue, conn.in_flight)
@@ -1018,6 +1210,9 @@ class EventLoop:
             return  # shutdown() closed the socket first
         self._sel.register(srv._sock, selectors.EVENT_READ, self._ACCEPT)
         self._sel.register(self._waker_r, selectors.EVENT_READ, self._WAKER)
+        if srv.worker_ctx is not None:
+            # sibling workers ship the connections of this worker's queues here
+            self._sel.register(srv.worker_ctx.sock, selectors.EVENT_READ, self._ADOPT)
         try:
             while not srv._stop.is_set():
                 for key, mask in self._sel.select(self._select_timeout()):
@@ -1026,6 +1221,8 @@ class EventLoop:
                         self._accept()
                     elif data is self._WAKER:
                         self._drain_waker()
+                    elif data is self._ADOPT:
+                        self._adopt_conns()
                     else:
                         self._dispatch_conn(data, mask)
                 self._fire_timers()
@@ -1065,6 +1262,93 @@ class EventLoop:
             conn._await_op()
             conn._set_interest(read=True)
 
+    # -- the worker fleet's connection handoff ---------------------------
+    def migrate_conn(self, conn: _EvConn, target: int, ctx: dict) -> None:
+        """Begin shipping ``conn`` to worker ``target``: pause its reads,
+        flush what it has queued, then send the fd and ``ctx`` (with the
+        connection's codec and tenant) over the adoption socket."""
+        ctx = dict(ctx)
+        ctx["codec"] = conn.codec.name if conn.codec is not None else None
+        if conn.tenant != _TENANT_DEFAULT or conn.weight != 1:
+            ctx["tenant"] = conn.tenant
+            ctx["weight"] = conn.weight
+        conn._migration = {"target": int(target), "ctx": ctx,
+                           "deadline": time.monotonic() + MIGRATE_GRACE_S}
+        conn._set_interest(read=False)
+        if conn.out:
+            conn._set_interest(write=True)  # flush_out ships it once drained
+            return
+        self._try_migrate(conn)
+
+    def _try_migrate(self, conn: _EvConn) -> None:
+        """One handoff attempt. A refusal (the owner respawning, its buffer
+        full) retries on a timer within the grace period; past it the
+        connection dies with redelivery, and the client's reconnect takes
+        over."""
+        if conn.closed or conn._migration is None:
+            return
+        mig = conn._migration
+        try:
+            self._srv.worker_ctx.send_conn(mig["target"], conn.sock, mig["ctx"])
+        except OSError as e:
+            now = time.monotonic()
+            if now >= mig["deadline"]:
+                self.kill_conn(conn, e, requeue=True)
+                return
+            self._add_timer(now + MIGRATE_RETRY_S, conn, kind="migrate")
+            return
+        # the datagram holds its own reference to the fd; nothing is in
+        # flight at a migration point, so this close redelivers nothing
+        conn._migration = None
+        self.kill_conn(conn, None, requeue=False)
+
+    def _adopt_conns(self) -> None:
+        """Take the connections sibling workers shipped: rebuild each as
+        ``_accept`` would, restore its codec and tenant, then finish the
+        routed OPEN or run the opcode the sender read."""
+        srv = self._srv
+        for sock, ctx in srv.worker_ctx.recv_conns():
+            conn = None
+            try:
+                sock.setblocking(False)
+                try:
+                    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                except OSError:
+                    pass
+                conn = _EvConn(self, sock, srv)
+                if ctx.get("codec"):
+                    conn.codec = negotiate_codec([ctx["codec"]])
+                conn.tenant = ctx.get("tenant", _TENANT_DEFAULT)
+                try:
+                    conn.weight = max(1, min(_TENANT_WEIGHT_MAX, int(ctx.get("weight", 1))))
+                except (TypeError, ValueError):
+                    conn.weight = 1
+                self._conns.add(conn)
+                with srv._conns_lock:
+                    srv._conns = [c for c in srv._conns if c.fileno() != -1]
+                    srv._conns.append(sock)
+                if ctx.get("kind") == "open":
+                    conn._open_ns = ctx.get("ns", "")
+                    conn.queue = srv.open_named(conn._open_ns, ctx.get("nm", ""),
+                                                ctx.get("maxsize") or None)
+                    conn._send_control(_ST_OK)
+                    conn._await_op()
+                else:
+                    # the sender read exactly the opcode byte: run it here
+                    # (this worker owns the queue, so it cannot route again)
+                    conn._hdr[0] = int(ctx.get("op", 0))
+                    conn._on_op()
+                if not conn.closed:
+                    conn._set_interest(read=True)
+            except Exception as e:  # noqa: BLE001 (one bad adoption must not kill the loop)
+                if conn is not None:
+                    self.kill_conn(conn, e)
+                else:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+
     def _drain_waker(self) -> None:
         while True:
             try:
@@ -1086,6 +1370,11 @@ class EventLoop:
         now = time.monotonic()
         while self._timers and self._timers[0][0] <= now:
             _deadline, _tie, conn, gen, kind = heapq.heappop(self._timers)
+            if kind == "migrate":
+                # a handoff retry: a migrating connection has no pending op
+                if not conn.closed and conn._migration is not None and not conn.out:
+                    self._try_migrate(conn)
+                continue
             if conn.closed or conn.pending is None or gen != conn.op_gen:
                 continue  # served already or superseded
             if kind == "probe":
@@ -1095,7 +1384,7 @@ class EventLoop:
                 if conn.pending["kind"] == "D":
                     # one last look, then the (maybe empty) answer
                     try:
-                        items = conn.queue.get_batch(conn.pending["max_items"], timeout=0.0)
+                        items = conn._read_batch(conn.pending["max_items"])
                     except TransportClosed:
                         conn._send_control(_ST_CLOSED)
                     else:
@@ -1125,10 +1414,12 @@ class EventLoop:
             return False
         # a depth check first: the pump runs every pass. size() answers 0 on
         # a closed ring, so closed is checked on its own (streams must see 'X')
+        replaying = any(c.replay is not None for c in gw if not c.closed)
         try:
             if getattr(qs.queue, "closed", False):
                 raise _QueueClosedSignal
-            if not qs.queue.size():
+            # replay waiters read the log, not the queue
+            if not qs.queue.size() and not replaying:
                 return False
         except TransportClosed:
             raise _QueueClosedSignal from None
@@ -1145,6 +1436,23 @@ class EventLoop:
             conn = gw[0]
             if conn.closed:
                 gw.popleft()
+                continue
+            if conn.replay is not None:
+                # a replay waiter (a parked 'D'): served from its cursor
+                if conn.pending is None or conn.pending.get("kind") != "D":
+                    gw.popleft()
+                    continue
+                items = conn.replay.next_batch(conn.pending["max_items"])
+                if not items:
+                    gw.rotate(-1)  # caught up: its timer answers empty
+                    continue
+                try:
+                    conn._respond_batch(items)
+                    gw.popleft()
+                    conn.unpark()
+                except OSError as e:
+                    self.kill_conn(conn, e)
+                did = True
                 continue
             if conn.stream is not None:
                 allow = qs.wdrr.allowance(conn.tenant)
@@ -1167,7 +1475,20 @@ class EventLoop:
                 items = qs.queue.get_batch(min(want, 4096), timeout=0.0)
             except TransportClosed:
                 raise _QueueClosedSignal from None
+            except Exception as e:  # noqa: BLE001 (a corrupt spill read errs this waiter only)
+                gw.popleft()
+                try:
+                    conn._send_control(_ST_ERR)
+                    if conn.stream is None:
+                        conn.unpark()
+                except OSError:
+                    self.kill_conn(conn, e)
+                did = True
+                continue
             if not items:
+                if replaying:
+                    gw.rotate(-1)  # replay waiters behind may still be served
+                    continue
                 break  # empty: every remaining waiter waits
             try:
                 if conn.stream is not None:

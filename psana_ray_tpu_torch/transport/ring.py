@@ -76,16 +76,21 @@ class RingBuffer:
 
     def put(self, item: Any) -> bool:
         """Append if not full; False when full (never drops)."""
+        return self._admit(item) is not None
+
+    def _admit(self, item: Any) -> Any:
+        """``put``'s body: the item's stored form, or None when full."""
         with self._lock:
             self._check_open()
             self._check_accepting()
             if len(self._q) >= self.maxsize:
                 self._n_put_rejected += 1
-                return False
-            self._q.append(self._box(item))
+                return None
+            stored = self._box(item)
+            self._q.append(stored)
             self._note_put()
             self._not_empty.notify()
-            return True
+            return stored
 
     def get(self) -> Any:
         """Pop the oldest item, or :data:`EMPTY`."""

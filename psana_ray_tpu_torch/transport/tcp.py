@@ -31,9 +31,18 @@ Wire protocol (little-endian):
               'N' group RPC + len:u32 + JSON; this server answers the
                   link probe's ``{"op": "ping", ...}`` and refuses every
                   consumer-group operation with ``{"ok": false, ...}``
-              'R' replay-open and 'J' commit-offset + offset:u64
-                  + group_len:u16 + group: durable queues only, so this
-                  server always answers '0'
+              'R' replay-open + from:u64 + group_len:u16 + group: durable
+                  queues only. This connection's reads (G/B/D) switch to a
+                  non-destructive cursor over the bound queue's retained
+                  log for the named consumer group; ``from`` is an offset,
+                  u64 max (the earliest retained) or u64 max - 1 (resume
+                  after the group's committed offset). What the cursor
+                  delivers is committed for the group at the connection's
+                  implicit acks. '0' on a memory queue
+              'J' commit-offset + offset:u64 + group_len:u16 + group: the
+                  replay cursor's position (u64 max: all it delivered), or
+                  the group's committed offset on the bound durable queue;
+                  '0' when there is nothing to commit against
               'Z' capability exchange + len:u16 + comma-separated entries:
                   codec names the client decodes, in preference order,
                   and ``key=value`` fields (``tenant=<name>[:<weight>]``).
@@ -53,6 +62,7 @@ Wire protocol (little-endian):
               + [Q ok] accepted:u32   + [W ok] seq:u64
               + [T/N ok] len:u32 + JSON   + [A ok] wall:f64 + mono:f64
               + [Z ok] len:u16 + the chosen codec's name
+              + [R ok] start:u64 + the log's next offset:u64
     stream push (server -> client, after 'M'):
               '1' + seq:u64 + len:u32 + payload a frame; 'X' when the
               bound queue closes
@@ -77,7 +87,8 @@ views of them, the lease riding the record until the batcher's one copy
 (``FrameBatcher.push_view``).
 
 The server is one readiness loop (:mod:`psana_ray_tpu_torch.transport.
-evloop`); this module holds the protocol's constants and framing helpers
+evloop`), or one of a fleet of them sharing the port
+(:mod:`psana_ray_tpu_torch.transport.workers`); this module holds the protocol's constants and framing helpers
 and the client. :class:`TcpQueueClient` serializes every exchange under
 one lock (one outstanding request a connection); a reconnect holds that
 lock through its backoff, so give each thread its own client where that
@@ -332,6 +343,20 @@ def _recv_payload(sock: socket.socket, n: int, pool: BufferPool):
         raise
 
 
+def _discard_until_eof(sock: socket.socket, deadline: float) -> None:
+    """Half-close ``sock`` and read off whatever still arrives until the
+    peer closes or ``deadline`` (``time.monotonic()``) passes."""
+    sock.shutdown(socket.SHUT_WR)
+    buf = bytearray(1 << 20)
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return
+        sock.settimeout(remaining)
+        if not sock.recv_into(buf):
+            return
+
+
 def _refuse_conn(conn: socket.socket) -> None:
     """Admission control past ``max_conns``: accept, answer ``'E'`` and
     close, so the refused client's next status read fails at once."""
@@ -354,11 +379,17 @@ class TcpQueueServer:
     ``queue_factory(namespace, name, maxsize)`` makes an OPENed queue
     (default: a :class:`RingBuffer`; the CLI's ``--shm`` gives shm rings
     that local processes attach to directly). ``max_conns`` (0: no limit)
-    refuses connections past the limit with ``'E'``."""
+    refuses connections past the limit with ``'E'``. ``worker_ctx`` (a
+    :class:`~psana_ray_tpu_torch.transport.workers.WorkerContext`) makes
+    the server one worker of a ``--workers`` fleet: it binds the shared
+    port with ``SO_REUSEPORT`` and serves only the queues it owns,
+    shipping other connections to their owners."""
 
     def __init__(self, queue=None, host: str = "0.0.0.0", port: int = 0, maxsize: int = 100,
-                 queue_factory=None, pool: Optional[BufferPool] = None, max_conns: int = 0):
+                 queue_factory=None, pool: Optional[BufferPool] = None, max_conns: int = 0,
+                 worker_ctx=None):
         self.queue = queue if queue is not None else RingBuffer(maxsize)
+        self.worker_ctx = worker_ctx
         self._maxsize = maxsize
         # every received payload lands in a recycled lease of this pool and
         # decodes zero-copy: a PUT's buffer is the memory a later GET sends from
@@ -369,6 +400,10 @@ class TcpQueueServer:
         self._queues_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if worker_ctx is not None:
+            # every worker binds its own listener on the one port; the
+            # kernel spreads the connections across them
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         self._sock.bind((host, port))
         self._sock.listen(64)
         self.port = self._sock.getsockname()[1]
@@ -528,6 +563,7 @@ class TcpQueueClient:
         self._reconnect_tries = reconnect_tries
         self._reconnect_base_s = reconnect_base_s
         self._binding: Optional[tuple] = None  # (ns, name, maxsize) to replay
+        self._replay_group: Optional[str] = None  # a replay cursor to open again
         self._lock = threading.Lock()
         # set before the dial: _reconnect (reachable from here) reads them.
         # A streamed connection carries only pushes and acks; other
@@ -733,6 +769,8 @@ class TcpQueueClient:
                 if self._codec_names or self._hello_fields:
                     # before any payload: the resend below must know the codec
                     self._negotiate_raw()
+                if self._replay_group is not None:
+                    self._resume_replay_raw()
                 # the whole unacked tail, in order, before anything else:
                 # duplicates possible, holes never
                 if self._put_unacked:
@@ -878,6 +916,10 @@ class TcpQueueClient:
         with self._lock:
             if self._stream is not None:
                 return self._stream
+            if self._replay_group is not None:
+                # the server drops a replay connection that subscribes
+                raise RuntimeError("stream_open on a replay connection: replay is pull-mode; "
+                                   "use a client of its own")
             window = max(1, int(window))
 
             def _do():
@@ -893,6 +935,83 @@ class TcpQueueClient:
         at first use). The batcher prefers this to ``get_batch``: no
         request round trip, no empty-queue poll."""
         return self.stream_open().get_batch_stream(max_items, timeout)
+
+    # -- durable queues: replay ('R') and commits ('J') ---------------------
+    def replay_open(self, from_offset=None, group: str = "replay") -> dict:
+        """Switch this connection's reads to a non-destructive replay
+        cursor over the bound durable queue's retained log for ``group``.
+        ``from_offset``: None or ``"resume"`` (after the group's committed
+        offset), ``"begin"`` (the earliest retained record) or an offset.
+        Live consumers are undisturbed. What the cursor delivers is
+        committed for the group at this connection's implicit acks, so a
+        crashed reader resumes and loses nothing; a reconnect resumes by
+        itself. Returns ``{"start", "end"}``; RuntimeError when the queue
+        has no log (or the connection is streamed)."""
+        from psana_ray_tpu_torch.storage.log import REPLAY_BEGIN, REPLAY_RESUME
+
+        if self._stream is not None:
+            raise RuntimeError("replay_open on a streamed connection: replay is pull-mode; "
+                               "use a client of its own")
+        if from_offset is None or from_offset == "resume":
+            pos = REPLAY_RESUME
+        elif from_offset == "begin":
+            pos = REPLAY_BEGIN
+        else:
+            pos = int(from_offset)
+
+        def _do():
+            return self._replay_raw(pos, group)
+
+        with self._lock:
+            start, end = self._retrying(_do)
+            self._replay_group = group  # a reconnect resumes at the commit
+        return {"start": start, "end": end}
+
+    def _replay_raw(self, pos: int, group: str) -> tuple:
+        # guarded-by-caller: _lock
+        g = group.encode()
+        self._sock.sendall(_OP_REPLAY + struct.pack("<QH", pos, len(g)) + g)
+        if self._status() != _ST_OK:
+            raise RuntimeError(f"replay refused: queue {self._binding or 'default'} on "
+                               f"{self.host}:{self.port} has no segment log (start the server "
+                               f"with --durable_dir)")
+        return struct.unpack("<QQ", _recv_exact(self._sock, 16))
+
+    def _resume_replay_raw(self) -> None:
+        """After a reconnect: the cursor again, at the group's committed
+        offset. A server that came back without a log for the queue fails
+        the transport: reading on would pop live consumers' frames."""
+        # guarded-by-caller: _lock
+        from psana_ray_tpu_torch.storage.log import REPLAY_RESUME
+
+        try:
+            self._replay_raw(REPLAY_RESUME, self._replay_group)
+        except RuntimeError as e:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            raise TransportClosed(f"replay re-subscription refused by {self.host}:{self.port}: "
+                                  f"{e}") from e
+
+    def commit_offset(self, offset=None, group: str = "",
+                      deadline: Optional[float] = None) -> bool:
+        """Persist a committed offset for ``group`` on the bound durable
+        queue ('J'); ``offset=None`` commits all this connection's replay
+        cursor delivered. False when the queue has no log."""
+        from psana_ray_tpu_torch.storage.log import COMMIT_DELIVERED
+
+        if self._stream is not None:
+            return self._side_channel().commit_offset(offset, group, deadline)
+        pos = COMMIT_DELIVERED if offset is None else int(offset)
+        g = group.encode()
+
+        def _do():
+            self._sock.sendall(_OP_COMMIT + struct.pack("<QH", pos, len(g)) + g)
+            return self._status() == _ST_OK
+
+        with self._lock:
+            return self._retrying(_do, deadline)
 
     def _side_channel(self) -> "TcpQueueClient":
         """A second, plain connection for the request/response ops a
@@ -1154,7 +1273,11 @@ class TcpQueueClient:
     def disconnect(self):
         """Close cleanly: owed windowed-put acks are read (bounded), a
         streamed connection acks what it consumed, and BYE acks the last
-        delivery, so the server redelivers nothing this client had."""
+        delivery, so the server redelivers nothing this client had. A
+        streamed connection then reads off the pushes still in flight
+        until the server closes (bounded): closing with unread bytes would
+        reset the connection, and a server that meets the reset on a push
+        before it reads the ack requeues frames this client consumed."""
         side, self._side = self._side, None
         if side is not None:
             side.disconnect()
@@ -1163,11 +1286,14 @@ class TcpQueueClient:
             return
         try:
             with self._lock:
+                deadline = time.monotonic() + self.PROBE_DEADLINE_S
                 if self._put_unacked:
-                    self._drain_put_acks(0, time.monotonic() + self.PROBE_DEADLINE_S)
+                    self._drain_put_acks(0, deadline)
                 if self._stream is not None:
                     self._stream.ack_consumed()
                 sock.sendall(_OP_BYE)
+                if self._stream is not None:
+                    _discard_until_eof(sock, deadline)
         except (OSError, TransportClosed):
             pass
         try:

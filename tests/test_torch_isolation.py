@@ -3,8 +3,9 @@
 imports with those modules made unimportable. Its shm ring runs on the
 port's own library, built from ``native/shmring.cpp``, never the JAX
 package's; a producer process that imports the host plane loads no
-torch, and neither does the queue server process. ``chip_smoke.py``
-refuses to run without a card and outside a checkout."""
+torch, and neither does the queue server process, nor the parent and
+workers of a durable ``--workers 2`` fleet. ``chip_smoke.py`` refuses to
+run without a card and outside a checkout."""
 
 import ast
 import os
@@ -212,3 +213,69 @@ def test_chip_smoke_alone_fails(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.skipif(not (hasattr(os, "fork") and os.path.isdir("/proc")),
+                    reason="needs fork and /proc")
+def test_the_durable_worker_fleet_loads_no_torch(tmp_path):
+    """``--workers 2 --durable_dir``: the parent and both workers serve puts,
+    gets, a replay and a spilled record's ``sendfile`` on a queue of each
+    worker, and none of the three processes imports torch or JAX (``-X
+    importtime`` lines of the forked workers land in the same output) or
+    maps a torch library."""
+    import signal
+    import time
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.records import FrameRecord
+    from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+
+    port_file = tmp_path / "port"
+    log = open(tmp_path / "fleet.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m", "psana_ray_tpu_torch.queue_server",
+         "--workers", "2", "--host", "127.0.0.1", "--port", "0", "--port_file", str(port_file),
+         "--durable_dir", str(tmp_path / "log"), "--ram_items", "1", "--segment_bytes",
+         str(1 << 20), "--drain_s", "0.5"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        deadline = time.monotonic() + 30
+        while not port_file.exists():
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        port = int(port_file.read_text())
+        for name in ("q0", "q3"):  # worker 0's and worker 1's
+            c = TcpQueueClient("127.0.0.1", port, namespace="ns", queue_name=name)
+            for i in range(3):
+                assert c.put(FrameRecord(0, i, np.ones((1, 4, 4), np.float32), 1.0))
+            assert [r.event_idx for r in c.get_batch(8, timeout=2.0)] == [0, 1, 2]
+            c.disconnect()
+            r = TcpQueueClient("127.0.0.1", port, namespace="ns", queue_name=name)
+            r.replay_open("begin")
+            assert len(r.get_batch(8, timeout=2.0)) == 3
+            r.disconnect()
+        pids = [int(p) for p in os.listdir("/proc") if p.isdigit()
+                and _ppid(int(p)) == proc.pid]
+        assert len(pids) == 2
+        for pid in (proc.pid, *pids):
+            maps = open(f"/proc/{pid}/maps").read()
+            assert "libtorch" not in maps and "libjax" not in maps, pid
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+        log.seek(0)
+        out = log.read()
+        log.close()
+    assert proc.returncode == 0, out[-2000:]
+    roots = {line.rsplit("|", 1)[1].strip().split(".")[0] for line in out.splitlines()
+             if line.startswith("import time:") and line.count("|") == 2}
+    assert "psana_ray_tpu_torch" in roots and not roots & {"torch", "jax", "psana_ray_tpu"}
+
+
+def _ppid(pid):
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return int(f.read().decode("latin-1").rsplit(")", 1)[1].split()[1])
+    except (OSError, IndexError, ValueError):
+        return None

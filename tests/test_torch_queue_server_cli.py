@@ -231,3 +231,100 @@ def test_unported_flags_exit_2_naming_item_8(flag, capsys):
         assert e.value.code == 2
         err = capsys.readouterr().err
         assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+
+
+def _error_line(text):
+    return [line.split("error: ", 1)[1] for line in text.splitlines() if "error: " in line]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--durable_dir", "d", "--shm", "ring"],
+    ["--workers", "2", "--shm", "ring"],
+    ["--workers", "3", "--shm", "ring", "--durable_dir", "d"],
+])
+def test_refused_combinations_exit_2_with_the_jax_messages(argv, capsys):
+    import psana_ray_tpu.queue_server as jax_qs
+
+    errors = []
+    for main in (queue_server.main, jax_qs.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        errors.append(_error_line(capsys.readouterr().err))
+    assert errors[0] == errors[1] and len(errors[0]) == 1, errors
+
+
+def _durable_server(tmp_path, *extra):
+    return _Server(PORT, "--durable_dir", str(tmp_path / "log"), "--segment_bytes",
+                   str(1 << 20), *extra)
+
+
+def test_consumer_replay_from_begin_resume_and_an_offset(tmp_path):
+    """The producer CLI's 24 frames and EOS go into a durable server (offsets
+    0-24); ``--replay from=begin`` reads 10 of them for group g, ``from=resume``
+    the rest to the EOS, ``from=20`` for group h the last four; then a live
+    consumer still reads all 24, and each frame's CRC-32 is the same in
+    every read."""
+    server = _durable_server(tmp_path)
+    try:
+        # a queue of 32: the producer finishes with no consumer attached
+        out = _run(_producer(PORT, server.address, "--queue_size", "32"), [], lead_s=0,
+                   timeout=60)
+        assert out[0][0] == 0, out[0][1][-1500:]
+
+        def consumer(*extra):
+            (code, text), = _run(_consumer(PORT, server.address, 0, "--log_level", "DEBUG",
+                                           *extra), [], lead_s=0, timeout=60)
+            crcs = dict(re.findall(r"idx=(\d+) crc32=([0-9a-f]{8})", text))
+            return code, {int(k): v for k, v in crcs.items()}, text
+
+        runs = {
+            "begin": consumer("--replay", "from=begin", "--replay_group", "g",
+                              "--max_frames", "10"),
+            "resume": consumer("--replay", "from=resume", "--replay_group", "g"),
+            "offset": consumer("--replay", "from=20", "--replay_group", "h"),
+            "live": consumer(),
+        }
+        bad = consumer("--replay", "from=yesterday")
+    finally:
+        code, server_out = server.stop()
+    assert [r[0] for r in runs.values()] == [0, 0, 0, 0], [r[2][-1500:] for r in runs.values()]
+    assert sorted(runs["begin"][1]) == list(range(10))
+    assert sorted(runs["resume"][1]) == list(range(10, 24))
+    assert _ends(runs["resume"][2]) == [14]
+    assert sorted(runs["offset"][1]) == [20, 21, 22, 23]
+    assert sorted(runs["live"][1]) == list(range(24)) and _ends(runs["live"][2]) == [24]
+    for name in ("begin", "resume", "offset"):
+        assert all(runs["live"][1][i] == crc for i, crc in runs[name][1].items())
+    assert bad[0] == 1 and "--replay wants from=<offset|begin|resume>" in bad[2]
+    assert code == 0 and not _imported(server_out) & {"torch", "jax", "psana_ray_tpu"}
+
+
+def test_replay_refused_by_a_memory_server_names_the_cure():
+    server = _Server(PORT)
+    try:
+        (code, text), = _run(_consumer(PORT, server.address, 0, "--replay", "from=begin"), [],
+                             lead_s=0)
+    finally:
+        server.stop()
+    assert code == 1 and "no segment log" in text and "--durable_dir" in text
+
+
+def test_jax_producer_into_a_port_durable_fleet_into_a_port_consumer(tmp_path):
+    """A JAX producer CLI and a port consumer CLI through the port's
+    ``--workers 2 --durable_dir`` fleet: every frame once, CRCs intact, and
+    the fleet's processes load neither torch nor JAX."""
+    npz, want = _replay(tmp_path, n=24)
+    server = _durable_server(tmp_path, "--workers", "2")
+    try:
+        out = _run(_producer(JAX, server.address, "--exp", f"replay:{npz}", events=24),
+                   [_consumer(PORT, server.address, 0, "--stream", "--log_level", "DEBUG")],
+                   lead_s=1.5)
+    finally:
+        code, server_out = server.stop()
+    assert [c for c, _ in out] == [0, 0], [text[-1500:] for _, text in out]
+    received = {int(i): int(c, 16) for i, c in
+                re.findall(r"consumer \d+: rank=\d+ idx=(\d+) crc32=([0-9a-f]{8})", out[1][1])}
+    assert received == dict(enumerate(want)) and _ends(out[1][1]) == [24]
+    assert code == 0 and server_out.count("queue server stopped") == 3, server_out[-2000:]
+    assert not _imported(server_out) & {"torch", "jax", "psana_ray_tpu"}

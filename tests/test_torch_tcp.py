@@ -600,3 +600,40 @@ def test_datareader_streaming_iterates_with_a_sibling_eos():
         assert _wait(lambda: q.size() == 1)  # the sibling's marker went back
     finally:
         srv.shutdown()
+
+
+@pytest.mark.parametrize("server_pkg", ["port", "jax"])
+def test_a_streamed_clean_disconnect_mid_window_redelivers_nothing_it_consumed(server_pkg):
+    """A streamed client that stops while pushes of 2 MB frames are still in
+    flight: its disconnect acks what it consumed, says BYE and reads off the
+    rest until the server closes. Closing at once would reset the
+    connection, and a server meeting the reset on a push before it read the
+    ack requeued frames the client had consumed (duplicates at the next
+    consumer, nearly every time at these sizes, with either package's
+    server)."""
+    if server_pkg == "jax":
+        from psana_ray_tpu.transport.ring import RingBuffer as Ring
+        from psana_ray_tpu.transport.tcp import TcpQueueServer as Server
+    else:
+        Ring, Server = RingBuffer, TcpQueueServer
+    frame = np.ones((8, 256, 256), np.float32)
+    for _ in range(3):
+        srv = Server(Ring(64), host="127.0.0.1").serve_background()
+        try:
+            p = TcpQueueClient("127.0.0.1", srv.port)
+            for i in range(40):
+                assert p.put(FrameRecord(0, i, frame, 1.0))
+            a = TcpQueueClient("127.0.0.1", srv.port)
+            a.stream_open(16)
+            got_a = []
+            while len(got_a) < 10:
+                got_a += [r.event_idx for r in a.get_batch_stream(1, timeout=2.0)]
+            a.disconnect()
+            b = TcpQueueClient("127.0.0.1", srv.port)
+            got_b = [r.event_idx for r in b.get_batch(64, timeout=2.0)]
+            assert not set(got_a) & set(got_b), sorted(set(got_a) & set(got_b))
+            assert sorted(got_a + got_b) == list(range(40))
+            for c in (p, b):
+                c.disconnect()
+        finally:
+            srv.shutdown()

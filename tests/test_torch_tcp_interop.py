@@ -6,14 +6,21 @@ client sends: P, G, S, B, D, Q, U, W, M, K, O, T, A, Z (and C and F).
 Seeded f32 and uint16 frames cross raw and compressed (``shuffle-rle``
 negotiated on both connections, or on the producer's alone, so the server
 inflates them for a raw consumer) and arrive bit-identical. The opcodes
-the port leaves out (R, J, H, Y, V; the consumer-group RPCs of N) get the
-answers the JAX server gives where that feature is not configured, and
-``codec="auto"``'s link probe (A and the N ping) works against both.
+the port leaves out (H, Y, V; the consumer-group RPCs of N), and R and J
+on a memory queue, get the answers the JAX server gives where that
+feature is not configured, and ``codec="auto"``'s link probe (A and the N
+ping) works against both. R and J work against a durable server of either
+package, and a client of either package reaches both workers' queues of
+the other's ``--workers 2`` fleet.
 """
 
 import json
+import os
+import signal
 import socket
 import struct
+import subprocess
+import sys
 import threading
 import time
 
@@ -31,8 +38,10 @@ from psana_ray_tpu_torch.records import EndOfStream, FrameRecord  # noqa: E402
 from psana_ray_tpu_torch.transport import EMPTY, TransportClosed  # noqa: E402
 from psana_ray_tpu_torch.transport import tcp as port_tcp  # noqa: E402
 from psana_ray_tpu_torch.transport.ring import RingBuffer  # noqa: E402
+from torch_parity import _no_lingering_child  # noqa: E402,F401 (autouse)
 
 FAST = dict(reconnect_tries=3, reconnect_base_s=0.05)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (server module, its ring, client module, the client's record classes)
 PAIRS = {
     "jax_server-port_client": (jax_tcp, JaxRing, port_tcp, FrameRecord, EndOfStream),
@@ -215,3 +224,141 @@ def test_group_rpc_answers():
     finally:
         for s in servers:
             s.shutdown()
+
+
+# -- durable queues ('R', 'J') and the worker fleet, both ways -----------------
+def _durable_backing(mod_storage, root, ns, name, maxsize):
+    log = mod_storage.SegmentLog(os.path.join(str(root), f"{ns}__{name}"), name=name,
+                                 segment_bytes=1 << 20, fsync="none")
+    return mod_storage.DurableRingBuffer(log, maxsize=maxsize, name=name, ram_items=2,
+                                         lazy_spill=True)
+
+
+DURABLE_PAIRS = {
+    "jax_server-port_client": ("jax", port_tcp, FrameRecord, EndOfStream),
+    "port_server-jax_client": ("port", jax_tcp, JaxRecord, JaxEos),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DURABLE_PAIRS))
+def test_replay_and_commit_across_the_packages(tmp_path, case):
+    """R from begin and from resume, J for the cursor and for a named group,
+    and the implicit ack's committed floor, between a durable server of one
+    package and the other's client; spilled records (sent by sendfile from
+    the port's server) arrive bit-identical."""
+    import psana_ray_tpu.storage as jax_storage
+
+    import psana_ray_tpu_torch.storage as port_storage
+
+    server_pkg, cli_mod, rec, eos = DURABLE_PAIRS[case]
+    srv_mod, mod_storage = ((jax_tcp, jax_storage) if server_pkg == "jax"
+                            else (port_tcp, port_storage))
+
+    def factory(ns, name, maxsize):
+        return _durable_backing(mod_storage, tmp_path, ns, name, maxsize)
+
+    srv = srv_mod.TcpQueueServer(factory("default", "default", 64), host="127.0.0.1",
+                                 queue_factory=factory).serve_background()
+
+    def client(**kw):
+        return cli_mod.TcpQueueClient("127.0.0.1", srv.port, timeout_s=10.0, namespace="ns",
+                                      queue_name="d", **{**FAST, **kw})
+
+    try:
+        frames = _frames(8, np.uint16, seed=3)
+        prod = client()
+        for i, f in enumerate(frames):
+            assert prod.put(rec(0, i, f, 1.0 + i))
+        assert prod.put(eos(total_events=8))
+        live = client()
+        assert [r.event_idx for r in live.get_batch(3, timeout=1.0)] == [0, 1, 2]
+        live.size()  # the implicit ack
+        queue = srv.open_named("ns", "d")
+        assert queue.stats()["committed_offset"] == 2
+        rep = client()
+        assert rep.replay_open("begin", group="audit") == {"start": 0, "end": 9}
+        got = rep.get_batch(5, timeout=1.0)
+        assert [r.event_idx for r in got] == [0, 1, 2, 3, 4]
+        assert all(r.panels.tobytes() == frames[r.event_idx].tobytes() for r in got)
+        assert rep.commit_offset() is True  # J: what the cursor delivered
+        assert queue.log.committed("audit") == 4
+        rep.disconnect()
+        again = client()
+        assert again.replay_open("resume", group="audit")["start"] == 5
+        rest = again.get_batch(8, timeout=1.0)
+        assert [getattr(r, "event_idx", "EOS") for r in rest] == [5, 6, 7, "EOS"]
+        assert prod.commit_offset(6, group="ops") is True  # J for a named group
+        assert queue.log.committed("ops") == 6
+        # the live queue is undisturbed by the replays
+        assert [getattr(r, "event_idx", "EOS") for r in live.get_batch(8, timeout=1.0)] == [
+            3, 4, 5, 6, 7, "EOS"]
+        for c in (prod, live, again):
+            c.disconnect()
+    finally:
+        srv.close_all()
+        srv.shutdown()
+
+
+def _fleet(pkg, tmp_path):
+    """A ``--workers 2 --durable_dir`` fleet of ``pkg``'s queue server
+    program; returns the process and its port."""
+    port_file = str(tmp_path / f"{pkg}.port")
+    extra = ["--stall_poll_s", "0"] if pkg == "psana_ray_tpu" else []
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{pkg}.queue_server", "--workers", "2", "--host", "127.0.0.1",
+         "--port", "0", "--port_file", port_file, "--durable_dir", str(tmp_path / pkg),
+         "--segment_bytes", str(1 << 20), "--drain_s", "1", *extra],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"})
+    deadline = time.monotonic() + 60
+    while not os.path.exists(port_file):
+        assert proc.poll() is None and time.monotonic() < deadline
+        time.sleep(0.05)
+    time.sleep(0.3)  # the JAX parent writes its port file before its workers bind
+    with open(port_file) as f:
+        return proc, int(f.read())
+
+
+@pytest.mark.skipif(not hasattr(socket, "SO_REUSEPORT"), reason="needs SO_REUSEPORT")
+@pytest.mark.parametrize("case", ["jax_fleet-port_client", "port_fleet-jax_client"])
+def test_clients_of_either_package_reach_the_other_fleets_queues(tmp_path, case):
+    """Several connections (the kernel hands each to either worker) on a
+    queue each worker owns and on the default queue: every frame arrives
+    once, in order, whichever worker took the connection, and a replay
+    ('R') migrates with its connection."""
+    from psana_ray_tpu_torch.transport.workers import queue_owner
+
+    fleet_pkg, cli_mod, rec = (("psana_ray_tpu", port_tcp, FrameRecord)
+                               if case.startswith("jax") else
+                               ("psana_ray_tpu_torch", jax_tcp, JaxRecord))
+    assert [queue_owner("ns", q, 2) for q in ("q0", "q3")] == [0, 1]
+    proc, port = _fleet(fleet_pkg, tmp_path)
+    try:
+        for ns, name in (("ns", "q0"), ("ns", "q3"), (None, None)):
+            prods = [cli_mod.TcpQueueClient("127.0.0.1", port, timeout_s=10.0, namespace=ns,
+                                            queue_name=name, reconnect_tries=6)
+                     for _ in range(4)]
+            frames = _frames(8, np.float32, seed=5)
+            for i, f in enumerate(frames):
+                assert prods[i % 4].put(rec(0, i, f, 1.0))
+            cons = cli_mod.TcpQueueClient("127.0.0.1", port, timeout_s=10.0, namespace=ns,
+                                          queue_name=name, reconnect_tries=6)
+            got = cons.get_batch(16, timeout=2.0)
+            assert [r.event_idx for r in got] == list(range(8)), name
+            assert all(r.panels.tobytes() == frames[r.event_idx].tobytes() for r in got)
+            if name is not None:
+                rep = cli_mod.TcpQueueClient("127.0.0.1", port, timeout_s=10.0, namespace=ns,
+                                             queue_name=name, reconnect_tries=6)
+                assert rep.replay_open("begin", group="g")["start"] == 0
+                assert [r.event_idx for r in rep.get_batch(16, timeout=2.0)] == list(range(8))
+                rep.disconnect()
+            for c in (*prods, cons):
+                c.disconnect()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+    assert proc.returncode == 0
