@@ -148,8 +148,9 @@ one JSON line (``{"phase": ...}``):
    retained, fsync ``batch`` of 64); the directory's file system must
    have room for 50 segments. The producer's named queue is one that
    worker 1 owns by ``queue_owner`` (printed), so a connection the
-   kernel hands worker 0 migrates; 8 more connections after the run
-   make that very likely. Held as 6e is, and every event exactly once.
+   kernel hands worker 0 migrates; 16 more connections after the run
+   make that all but certain, and the phase fails unless one migrated.
+   Held as 6e is, and every event exactly once.
    Prints frames/s, relay GB/s beside 6e's, ``host_batch_ms``,
    ``host_stage_ms``, the owning worker's log counters (appended bytes,
    fsyncs, segments rolled and recycled, spilled records) and bytes sent
@@ -455,7 +456,7 @@ FAILOVER_WARMUP, FAILOVER_BATCHES = 2, 8  # durable_failover's batches
 FAILOVER_KILL_AFTER = 3  # batches consumed before the queue's owner is killed
 CFG1_DURABLE_QUEUE = 160  # passthrough_durable: the 128 frames and their EOS markers fit
 CFG1_RETAIN = 24  # passthrough_durable: consumed segments kept, so the replay finds the run
-PROBE_CONNECTIONS = 8  # durable_end_to_end: connections opened after the run
+PROBE_CONNECTIONS = 16  # durable_end_to_end: connections opened after the run
 TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
 LOSS_MARKERS = 30  # profiler_loss: synchronised copies, one every 2 ms
 STARTED = time.monotonic()  # the process's age in stage_trace and profiler_loss
@@ -1269,6 +1270,14 @@ def log_time(stamp):
     return datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
 
 
+def recoveries(out, name, since=0.0):
+    """The ``recovered`` lines of queue ``name`` logged at or after
+    ``since`` (every durable open logs one, the default queue's too)."""
+    import re
+
+    return [m for m in re.findall(_RECOVERED, out) if m[2] == name and log_time(m[0]) >= since]
+
+
 def owned_queue(owner):
     """The first queue name ``durable_<i>`` of namespace ``default`` that the
     fleet's pinning gives worker ``owner``."""
@@ -1429,7 +1438,9 @@ def phase_durable_end_to_end(torch, pt, pool, consts, model, params, device, roo
     """The ResNet serving path of ``tcp_end_to_end`` fed from a durable
     two-worker queue server: ``--workers 2 --durable_dir`` (segment flags
     at the JAX defaults), the producer's named queue one that worker 1
-    owns, so every connection the kernel hands worker 0 migrates. Every
+    owns, so every connection the kernel hands worker 0 migrates, and at
+    least one must (``PROBE_CONNECTIONS`` more after the run: a
+    connection misses worker 0 with odds of one half each). Every
     event exactly once, launches exact, one host copy a frame, the last
     batch's frames the pool's and its logits and features within
     ``rel_err < 0.05`` of the plain path. Prints the rates beside
@@ -1445,7 +1456,7 @@ def phase_durable_end_to_end(torch, pt, pool, consts, model, params, device, roo
         pipe, wall, fill_s, counts, queue_stats, seen = tcp_serving_run(
             torch, pt, pool, step, device, root, E2E_BATCHES, collect_batches(last, seen_idx),
             server=server, queue_name=name, warmup=WARMUP_BATCHES)
-        # more connections to the queue, so the kernel very likely hands
+        # more connections to the queue, so the kernel all but surely hands
         # some to worker 0, which migrates them (the run's three may all
         # land on the owner)
         for _ in range(PROBE_CONNECTIONS):
@@ -1473,6 +1484,11 @@ def phase_durable_end_to_end(torch, pt, pool, consts, model, params, device, roo
     if 1 not in counters:
         raise AssertionError(f"no counters from the owning worker: {out[-2000:]}")
     log_counters, sendfile = counters[1]
+    migrated = sum(m for m, _ in migrations.values())
+    adopted = sum(a for _, a in migrations.values())
+    if migrated < 1 or adopted != migrated:
+        raise AssertionError(f"{migrated} connections migrated, {adopted} adopted, of "
+                             f"{PROBE_CONNECTIONS + 3}: {migrations}")
     summary = pipe.metrics.summary()
     emit("durable_end_to_end", queue=name, owner=1, workers=DURABLE_WORKERS,
          batches=nb, timed_batches=summary["batches"], frames=summary["frames"], wall_s=wall,
@@ -1534,12 +1550,10 @@ def phase_durable_failover(torch, pt, pool, consts, model, params, device, root)
         import shutil
 
         shutil.rmtree(d, ignore_errors=True)
-    import re
-
     n_events = (FAILOVER_WARMUP + FAILOVER_BATCHES) * BATCH
     starts = worker_pids(out).get(1, [])
     respawn = [(t, pid) for t, pid in starts if pid != kill.get("pid") and t >= kill.get("t", 0)]
-    recovered = [m for m in re.findall(_RECOVERED, out) if log_time(m[0]) >= kill.get("t", 0)]
+    recovered = recoveries(out, name, kill.get("t", 0))
     dups = len(seen_idx) - len(set(seen_idx))
     window = DEFAULT_STREAM_WINDOW + TCP_STREAM_WINDOW
     if code != 0 or "pid" not in kill or not respawn or not recovered:
@@ -1655,7 +1669,7 @@ def phase_passthrough_durable(pt, root, npz):
         code, out = server.stop()
         outputs.append((code, out))
         shutil.rmtree(d, ignore_errors=True)
-    recovered = re.findall(_RECOVERED, out)
+    recovered = recoveries(out, queue[1])
     loaded = sorted(set().union(*(imported_roots(text) for _, text in outputs))
                     & {"torch", "jax", "psana_ray_tpu"})
     if code != 0 or loaded or not recovered:

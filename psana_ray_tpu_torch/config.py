@@ -150,7 +150,6 @@ class DurabilityConfig:
     RAM-resident records a queue before delivery reads the log (0: the
     queue's maxsize)."""
 
-    durable_dir: Optional[str] = None
     segment_bytes: int = 64 * 1024 * 1024
     retain_segments: int = 8
     fsync: str = "batch"

@@ -147,12 +147,13 @@ def _durable_factory(a):
                          fsync=a.fsync, fsync_batch_n=a.fsync_batch_n, name=f"{ns}/{name}")
         # spilled records are delivered unread: the loop sends them by sendfile
         q = DurableRingBuffer(log, maxsize=maxsize, name=f"{ns}__{name}",
-                              ram_items=a.ram_items or None, lazy_spill=True)
-        if q.reexposed or log.torn_tail_repaired:
-            logger.info("durable queue (%s, %s): recovered %d unconsumed record(s) of %d from "
-                        "%s in %.1f ms (committed offset %d%s)", ns, name, q.reexposed,
-                        log.recovered_records, qdir, log.recovery_ms, log.committed(""),
-                        ", torn tail cut" if log.torn_tail_repaired else "")
+                              ram_items=a.ram_items or None)
+        # one line every open, a fresh directory's too: a respawned worker
+        # reports its recovery whether or not anything was left unconsumed
+        logger.info("durable queue (%s, %s): recovered %d unconsumed record(s) of %d from "
+                    "%s in %.1f ms (committed offset %d%s)", ns, name, q.reexposed,
+                    log.recovered_records, qdir, log.recovery_ms, log.committed(""),
+                    ", torn tail cut" if log.torn_tail_repaired else "")
         return q
 
     return factory
@@ -241,11 +242,12 @@ def _serve(a, worker_ctx=None, port=None) -> int:
     shared port with ``SO_REUSEPORT`` and owns only its queues."""
     from psana_ray_tpu_torch.transport.ring import RingBuffer
     from psana_ray_tpu_torch.transport.tcp import TcpQueueServer
+    from psana_ray_tpu_torch.transport.workers import DEFAULT_QUEUE_WORKER
 
     queue_factory = None
     if a.durable_dir:
         queue_factory = _durable_factory(a)
-        if worker_ctx is None or worker_ctx.worker_id == worker_ctx.default_owner:
+        if worker_ctx is None or worker_ctx.worker_id == DEFAULT_QUEUE_WORKER:
             backing = queue_factory("default", "default", a.queue_size)
         else:
             # ops on the default queue migrate to its owner: a plain ring

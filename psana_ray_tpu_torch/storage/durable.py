@@ -10,9 +10,8 @@ The port's copy of ``psana_ray_tpu/storage/durable.py``, on the port's
 - **Bounded spill.** While the RAM-resident count is under ``ram_items``
   the item itself stays queued; past it the RAM copy is released (its
   pooled lease goes back at once: a deep queue must not pin the pool)
-  and delivery reads the record from the log, or, with ``lazy_spill``,
-  hands out a :class:`SpilledRecord` that the queue server sends from the
-  file with ``sendfile``.
+  and delivery hands out a :class:`SpilledRecord` that the queue server
+  sends from the file with ``sendfile``, or materializes.
 - **Committed offsets.** A popped item stays outstanding until
   :meth:`ack_delivered` (the queue server calls it at its implicit-ACK
   points); the committed floor, the offset below every queued or
@@ -48,15 +47,14 @@ class _Entry:
 
 
 class SpilledRecord:
-    """A delivered spilled record not read into the interpreter
-    (``lazy_spill`` queues only).
+    """A delivered spilled record not read into the interpreter.
 
     The queue server frames and relays items without looking inside, so
     delivery can hand it this handle: on a plain connection it asks
     :meth:`payload_span` for a ``(file, pos, nbytes)`` span and the payload
     goes from the page cache to the socket by ``sendfile``;
     :meth:`materialize` (a compressed connection, a socket that refuses
-    ``sendfile``) reads it as the eager path does. Every delivery contract
+    ``sendfile``) reads and decodes it from the log. Every delivery contract
     of the server is keyed by ``id(item)``, and while this handle is
     outstanding the committed floor stays at or below ``offset``, which
     keeps the span's segment from being recycled mid-send."""
@@ -83,16 +81,10 @@ class SpilledRecord:
 
 class DurableRingBuffer(RingBuffer):
     def __init__(self, log: SegmentLog, maxsize: int = 100, name: str = "durable_queue",
-                 ram_items: Optional[int] = None, commit_on_get: bool = False,
-                 lazy_spill: bool = False):
+                 ram_items: Optional[int] = None):
         super().__init__(maxsize=maxsize, name=name)
         self.log = log
         self.ram_items = int(ram_items) if ram_items else int(maxsize)
-        self.commit_on_get = commit_on_get
-        # handles instead of decoded spilled records: only with ack-based
-        # commits (a commit-on-get floor passes the offset before the
-        # handle is read)
-        self.lazy_spill = bool(lazy_spill) and not commit_on_get
         self._resident = 0  # RAM-held entries in _q  # guarded-by: _lock
         self._spilled = 0  # log-only entries in _q  # guarded-by: _lock
         # delivered, not acked: id(item) -> entry. The strong references
@@ -153,25 +145,15 @@ class DurableRingBuffer(RingBuffer):
         # guarded-by-caller: _lock
         entry: _Entry = stored
         if entry.item is None:
-            if self.lazy_spill:
-                # no read: the server sends the payload from the file, or
-                # materializes (which counts the spill read then)
-                entry.item = SpilledRecord(self.log, entry.offset)
-            else:
-                DURABLE.spill_read()
-                entry.item = self.log.read(entry.offset)
+            # no read: the server sends the payload from the file, or
+            # materializes (which counts the spill read then)
+            entry.item = SpilledRecord(self.log, entry.offset)
             self._spilled -= 1
             DURABLE.spill_delta(-1)
         else:
             self._resident -= 1
         item = entry.item
-        if self.commit_on_get:
-            # the floor stays min-pending-based: a head-requeued fresh item
-            # carries a high offset at the head. This entry is excluded: the
-            # get unboxes before it pops, so it is still in _q here
-            self._commit_floor(exclude=entry)
-        else:
-            self._outstanding[id(item)] = entry
+        self._outstanding[id(item)] = entry
         return item
 
     def put_offset(self, item: Any):
@@ -196,12 +178,12 @@ class DurableRingBuffer(RingBuffer):
                 self._commit_floor()
             return self._floor
 
-    def _commit_floor(self, exclude=None) -> None:
+    def _commit_floor(self) -> None:
         """floor = (the lowest offset queued or outstanding) - 1, or the
         last offset assigned when nothing is pending. O(depth) an ack
         batch, bounded by maxsize."""
         # guarded-by-caller: _lock
-        pending = [e.offset for e in self._q if e is not exclude]
+        pending = [e.offset for e in self._q]
         pending.extend(e.offset for e in self._outstanding.values())
         floor = (min(pending) - 1) if pending else (self.log.next_offset - 1)
         if floor > self._floor:

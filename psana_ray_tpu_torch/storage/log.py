@@ -439,9 +439,6 @@ class ReplayCursor:
             self.position += 1
         return out
 
-    def caught_up(self) -> bool:
-        return self.position >= self.log.next_offset
-
     def commit(self, through: Optional[int] = None) -> bool:
         """Persist the group's position (default: everything delivered)."""
         through = self.delivered if through is None else through

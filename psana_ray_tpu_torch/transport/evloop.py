@@ -118,7 +118,11 @@ from psana_ray_tpu_torch.transport.tcp import (
     _queue_stats_payload,
     _refuse_conn,
 )
-from psana_ray_tpu_torch.transport.workers import MIGRATE_GRACE_S, MIGRATE_RETRY_S
+from psana_ray_tpu_torch.transport.workers import (
+    DEFAULT_QUEUE_WORKER,
+    MIGRATE_GRACE_S,
+    MIGRATE_RETRY_S,
+)
 
 # pump cadence for queues without a change listener (shm rings fed by
 # other processes); a listened queue pokes the waker on every change, so
@@ -508,12 +512,12 @@ class _EvConn:
             raise ConnectionError(f"bad opcode {op:#04x} on streamed connection")
         wctx = self.srv.worker_ctx
         if (wctx is not None and self.queue is self.srv.queue
-                and wctx.worker_id != wctx.default_owner and op not in _WORKER_LOCAL_OPS):
+                and wctx.worker_id != DEFAULT_QUEUE_WORKER and op not in _WORKER_LOCAL_OPS):
             # an op on the default queue, which another worker owns: ship
             # the connection there. Only the opcode byte was read (it rides
             # in the context); what the client pipelined behind it is still
             # in the kernel's buffer and travels with the fd
-            self.loop.migrate_conn(self, wctx.default_owner, {"kind": "op", "op": op})
+            self.loop.migrate_conn(self, DEFAULT_QUEUE_WORKER, {"kind": "op", "op": op})
             return
         name = _OPS.get(op)
         if name is None:

@@ -94,7 +94,6 @@ class WorkerContext:
         self.worker_id = int(worker_id)
         self.n_workers = int(n_workers)
         self.sock_dir = sock_dir
-        self.default_owner = DEFAULT_QUEUE_WORKER
         self.migrated = 0
         self.adopted = 0
         path = self._peer_path(self.worker_id)
@@ -244,11 +243,6 @@ class WorkerSupervisor:
                 with self._lock:
                     self.respawns += 1
                     self.last_respawn_s = time.monotonic() - t_dead
-
-    def pids(self) -> Dict[int, int]:
-        """``{worker id: pid}`` of the live fleet."""
-        with self._lock:
-            return {wid: pid for pid, wid in self._pids.items()}
 
     def stop(self, sig: int = signal.SIGTERM, timeout_s: float = 10.0) -> None:
         """Send ``sig`` to every worker and reap them; a worker still alive

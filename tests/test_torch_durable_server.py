@@ -40,14 +40,13 @@ def _rec(i, shape=(1, 16, 16)):
     return FrameRecord(0, i, np.full(shape, i, np.uint16), 9.5)
 
 
-def _durable_server(root, maxsize=500, ram_items=None, lazy_spill=False, **log_kw):
+def _durable_server(root, maxsize=500, ram_items=None, **log_kw):
     log_kw.setdefault("segment_bytes", 1 << 20)
     log_kw.setdefault("fsync", "none")
 
     def factory(ns, name, maxsize_):
         log = SegmentLog(os.path.join(str(root), f"{ns}__{name}"), name=name, **log_kw)
-        return DurableRingBuffer(log, maxsize=maxsize_, name=name, ram_items=ram_items,
-                                 lazy_spill=lazy_spill)
+        return DurableRingBuffer(log, maxsize=maxsize_, name=name, ram_items=ram_items)
 
     return TcpQueueServer(factory("default", "default", maxsize), host="127.0.0.1",
                           maxsize=maxsize, queue_factory=factory).serve_background()
@@ -211,7 +210,9 @@ class TestCrashRestart:
         assert log2.recovered_records == 4
         # the four intact records come back; the torn fifth is the producer's
         # to resend, never served
-        assert [r.event_idx for r in q2.get_batch(16, timeout=0)] == [0, 1, 2, 3]
+        # (spilled: delivered as handles on the log)
+        got = [r.materialize().event_idx for r in q2.get_batch(16, timeout=0)]
+        assert got == [0, 1, 2, 3]
         log2.close()
 
 
@@ -339,10 +340,9 @@ class TestReplay:
 
 
 class TestSpillThroughRelay:
-    @pytest.mark.parametrize("lazy,codec", [(False, None), (True, None),
-                                            (True, "shuffle-rle")])
-    def test_depth_beyond_ram_arrives_intact(self, tmp_path, lazy, codec):
-        srv = _durable_server(tmp_path, maxsize=300, ram_items=8, lazy_spill=lazy)
+    @pytest.mark.parametrize("codec", [None, "shuffle-rle"])
+    def test_depth_beyond_ram_arrives_intact(self, tmp_path, codec):
+        srv = _durable_server(tmp_path, maxsize=300, ram_items=8)
         try:
             before = SPLICE.snapshot()["spliced_frames_total"]
             prod = _client(srv.port)
@@ -362,8 +362,8 @@ class TestSpillThroughRelay:
             assert all(np.array_equal(r.panels, _rec(r.event_idx).panels) for r in got)
             spliced = SPLICE.snapshot()["spliced_frames_total"] - before
             # a plain connection sends the spilled records from the file; a
-            # compressed one (and the eager queue) reads them in
-            if lazy and codec is None and sendfile_capable():
+            # compressed one reads them in
+            if codec is None and sendfile_capable():
                 assert spliced >= 100
             else:
                 assert spliced == 0

@@ -135,7 +135,9 @@ def test_durable_fleet_fed_slice_survives_a_worker_kill(tmp_path):
         out = log.read()
         log.close()
     assert fleet.returncode == 0 and killed and respawned not in (None, killed[0]), out[-3000:]
-    assert "recovered" in out, out[-3000:]  # the new worker 1 re-exposed its log
+    # the queue's log opened twice: at the first put, and by the new worker
+    # 1 when the clients came back (its recovery line, whatever it re-exposed)
+    assert out.count(f"durable queue ({NS}, {QUEUE}): recovered") == 2, out[-3000:]
     seen = {idx for idxs, _ in batches for idx in idxs}
     assert seen == set(range(EVENTS)), f"missing {sorted(set(range(EVENTS)) - seen)}"
     ref_by_batch = dict(reference)

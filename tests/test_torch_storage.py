@@ -190,17 +190,24 @@ class TestDurableRingBuffer:
         assert stats["durable"] is True and stats["puts"] == 2
         assert q.put_offset(_rec(3)) == (True, 2)
 
-    @pytest.mark.parametrize("lazy", [False, True])
-    def test_spill_beyond_ram_bounded_depth(self, tmp_path, lazy):
-        q = DurableRingBuffer(_log(tmp_path), maxsize=64, ram_items=4, name="t", lazy_spill=lazy)
+    @pytest.mark.parametrize("read", ["materialize", "span"])
+    def test_spill_beyond_ram_bounded_depth(self, tmp_path, read):
+        from psana_ray_tpu_torch.transport.codec import decode_payload
+
+        q = DurableRingBuffer(_log(tmp_path), maxsize=64, ram_items=4, name="t")
         for i in range(40):
             assert q.put(_rec(i))
         st = q.stats()
         assert st["resident"] == 4 and st["spilled"] == 36
         out = q.get_batch(64, timeout=0)
-        if lazy:  # spilled records come as unread handles
-            assert all(type(r) is SpilledRecord for r in out[4:])
+        # spilled records come as unread handles, read in by the server or
+        # sent from the file
+        assert all(type(r) is SpilledRecord for r in out[4:])
+        if read == "materialize":
             out = out[:4] + [r.materialize() for r in out[4:]]
+        else:
+            spans = [r.payload_span() for r in out[4:]]
+            out = out[:4] + [decode_payload(os.pread(f.fileno(), n, pos)) for f, pos, n in spans]
         assert [r.event_idx for r in out] == list(range(40))
         assert np.array_equal(out[20].panels, _rec(20).panels)
         assert q.stats()["spilled"] == 0
@@ -208,7 +215,7 @@ class TestDurableRingBuffer:
     def test_spilled_record_span_is_the_wire_payload(self, tmp_path):
         from psana_ray_tpu_torch.transport.codec import encode_payload
 
-        q = DurableRingBuffer(_log(tmp_path), maxsize=8, ram_items=1, name="t", lazy_spill=True)
+        q = DurableRingBuffer(_log(tmp_path), maxsize=8, ram_items=1, name="t")
         q.put(_rec(0))
         q.put(_rec(1))
         _, spilled = q.get_batch(2, timeout=0)
@@ -251,18 +258,37 @@ class TestDurableRingBuffer:
         q.log.close()  # a crash: nothing graceful beyond the page cache
         q2 = DurableRingBuffer(_log(tmp_path), maxsize=32, name="t")
         assert q2.reexposed == 7
-        idxs = [getattr(r, "event_idx", "EOS") for r in q2.get_batch(32, timeout=0)]
+        # re-exposed records are spilled: delivered as handles on the log
+        idxs = [getattr(r.materialize(), "event_idx", "EOS")
+                for r in q2.get_batch(32, timeout=0)]
         # from the committed offset: the unacked 4, 5 come again, nothing lost
         assert idxs == [4, 5, 6, 7, 8, 9, "EOS"]
         q2.log.close()
 
-    def test_commit_on_get_mode(self, tmp_path):
-        q = DurableRingBuffer(_log(tmp_path), maxsize=8, name="t", commit_on_get=True)
+    def test_spilled_handle_holds_the_floor_until_acked(self, tmp_path):
+        # the handle's segment must outlive the send: the committed floor
+        # stays below an outstanding spilled record
+        q = DurableRingBuffer(_log(tmp_path), maxsize=8, ram_items=1, name="t")
         q.put(_rec(0))
         q.put(_rec(1))
-        q.get()
+        first, spilled = q.get_batch(2, timeout=0)
+        assert type(spilled) is SpilledRecord and spilled.offset == 1
+        q.ack_delivered([first])
         assert q.stats()["committed_offset"] == 0
-        assert q.stats()["outstanding"] == 0  # nothing tracked
+        assert q.stats()["outstanding"] == 1
+        q.ack_delivered([spilled])
+        assert q.stats()["committed_offset"] == 1
+
+    def test_spilled_handle_materializes_once(self, tmp_path):
+        q = DurableRingBuffer(_log(tmp_path), maxsize=8, ram_items=1, name="t")
+        q.put(_rec(0))
+        q.put(_rec(1))
+        _, spilled = q.get_batch(2, timeout=0)
+        before = DURABLE.stats()["spill_reads_total"]
+        rec = spilled.materialize()
+        assert spilled.materialize() is rec  # cached: the log is read once
+        assert DURABLE.stats()["spill_reads_total"] == before + 1
+        assert rec.event_idx == 1 and np.array_equal(rec.panels, _rec(1).panels)
 
     def test_replay_cursor_begin_and_resume(self, tmp_path):
         q = DurableRingBuffer(_log(tmp_path), maxsize=32, name="t")
@@ -274,7 +300,7 @@ class TestDurableRingBuffer:
         assert cur.commit() is True
         cur2 = q.open_replay("model-v2", REPLAY_RESUME)  # after the commit
         assert [r.event_idx for r in cur2.next_batch(32)] == [3, 4, 5, 6, 7]
-        assert cur2.caught_up()
+        assert cur2.position == q.log.next_offset  # caught up
         cur3 = q.open_replay("model-v3", REPLAY_RESUME)  # another group: its own
         assert [r.event_idx for r in cur3.next_batch(2)] == [0, 1]
         cur4 = q.open_replay("g", 5)  # an explicit offset
@@ -373,7 +399,9 @@ def test_a_log_boots_in_the_other_package(tmp_path, writer, reader, dtype):
     log_cls, ring_cls = PACKAGES[reader][:2]
     log = log_cls(copy, segment_bytes=4096, retain_segments=1, fsync="none", name="interop")
     q = ring_cls(log, maxsize=256, name="interop")
-    assert [getattr(r, "event_idx", None) for r in q.get_batch(64, timeout=0)][:3] == [30, 31, 32]
+    # the port hands re-exposed (spilled) records out as handles on the log
+    got = [r.materialize() if type(r) is SpilledRecord else r for r in q.get_batch(64, timeout=0)]
+    assert [getattr(r, "event_idx", None) for r in got][:3] == [30, 31, 32]
     log.close()
 
 

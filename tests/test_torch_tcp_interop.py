@@ -230,8 +230,10 @@ def test_group_rpc_answers():
 def _durable_backing(mod_storage, root, ns, name, maxsize):
     log = mod_storage.SegmentLog(os.path.join(str(root), f"{ns}__{name}"), name=name,
                                  segment_bytes=1 << 20, fsync="none")
-    return mod_storage.DurableRingBuffer(log, maxsize=maxsize, name=name, ram_items=2,
-                                         lazy_spill=True)
+    # spilled records delivered unread, as each package's queue server
+    # builds its queues (the port's always does)
+    lazy = {"lazy_spill": True} if mod_storage.__name__ == "psana_ray_tpu.storage" else {}
+    return mod_storage.DurableRingBuffer(log, maxsize=maxsize, name=name, ram_items=2, **lazy)
 
 
 DURABLE_PAIRS = {

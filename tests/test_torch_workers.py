@@ -178,6 +178,12 @@ def _sleeper(worker_id):
         time.sleep(3600)
 
 
+def _live(sup):
+    """``{worker id: pid}`` of the supervisor's live fleet."""
+    with sup._lock:
+        return {wid: pid for pid, wid in sup._pids.items()}
+
+
 def _wait(cond, timeout=15.0):
     deadline = time.monotonic() + timeout
     while not cond() and time.monotonic() < deadline:
@@ -192,11 +198,11 @@ def test_respawn_keeps_worker_id_and_leaves_other_children_alone():
                                                     "sys.exit(7)"])
     sup = WorkerSupervisor(2, _sleeper).start()
     try:
-        pids = sup.pids()
+        pids = _live(sup)
         assert set(pids) == {0, 1}
         os.kill(pids[1], signal.SIGKILL)
-        assert _wait(lambda: set(sup.pids()) == {0, 1} and sup.pids()[1] != pids[1])
-        assert sup.pids()[0] == pids[0]  # the survivor undisturbed
+        assert _wait(lambda: set(_live(sup)) == {0, 1} and _live(sup)[1] != pids[1])
+        assert _live(sup)[0] == pids[0]  # the survivor undisturbed
         snap = sup.snapshot()
         assert snap["respawns_total"] == 1 and 0 <= snap["last_respawn_s"] < 5
         # the supervisor reaped only its own: the exit code is still ours
@@ -206,16 +212,16 @@ def test_respawn_keeps_worker_id_and_leaves_other_children_alone():
         if other.poll() is None:
             other.kill()
             other.wait()
-    assert sup.pids() == {}
+    assert _live(sup) == {}
 
 
 @pytest.mark.skipif(not hasattr(os, "fork"), reason="needs os.fork")
 def test_stop_reaps_the_fleet():
     sup = WorkerSupervisor(3, _sleeper).start()
-    pids = list(sup.pids().values())
+    pids = list(_live(sup).values())
     assert len(pids) == 3
     sup.stop(timeout_s=10.0)
-    assert sup.pids() == {}
+    assert _live(sup) == {}
     for pid in pids:
         with pytest.raises(ChildProcessError):  # reaped: no child of that pid
             os.waitpid(pid, os.WNOHANG)
@@ -256,7 +262,7 @@ def test_fallback_errno_probe_and_port():
             s.close()
 
 
-def _lazy_spill_server(root, ram_items=1):
+def _spill_server(root, ram_items=1):
     """A durable server whose queues spill at once and deliver spilled
     records unread: every frame past the first rides ``sendfile`` on a
     plain connection."""
@@ -264,8 +270,7 @@ def _lazy_spill_server(root, ram_items=1):
     def factory(ns, name, maxsize):
         log = SegmentLog(os.path.join(str(root), f"{ns}__{name}"), name=name,
                          segment_bytes=1 << 20, fsync="none")
-        return DurableRingBuffer(log, maxsize=maxsize, name=name, ram_items=ram_items,
-                                 lazy_spill=True)
+        return DurableRingBuffer(log, maxsize=maxsize, name=name, ram_items=ram_items)
 
     return TcpQueueServer(factory("default", "default", 500), host="127.0.0.1", maxsize=500,
                           queue_factory=factory).serve_background()
@@ -273,7 +278,7 @@ def _lazy_spill_server(root, ram_items=1):
 
 @pytest.mark.parametrize("codec", [None, "shuffle-rle"])
 def test_spliced_relay_roundtrips(tmp_path, codec):
-    srv = _lazy_spill_server(tmp_path)
+    srv = _spill_server(tmp_path)
     try:
         before = SPLICE.snapshot()
         prod = _client(srv.port, namespace="ns", queue_name="sp")
@@ -397,7 +402,8 @@ def test_kill9_each_worker_mid_stream_zero_loss(tmp_path):
     finally:
         out = fleet.stop()
     assert fleet.proc.returncode == 0, out[-3000:]
-    assert "recovered" in out  # the respawned owner re-exposed the log
+    # the queue's log opened twice: at the first put, and by the respawned owner
+    assert out.count("durable queue (ns, q3): recovered") == 2, out[-3000:]
 
 
 @pytest.mark.parametrize("extra,word", [
