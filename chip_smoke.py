@@ -11,9 +11,12 @@ two-detector fan-in (BASELINE config 5), the SFX operator CLI over
 the stage ranges on the profiler's timeline, and the producer CLI
 feeding the SFX CLI; across the TCP transport, through the queue
 server program: the ResNet path, config 1 and the producer CLI feeding
-the SFX CLI; and from durable queues on a two-worker server: the ResNet
+the SFX CLI; from durable queues on a two-worker server: the ResNet
 path, once clean and once through a worker killed mid-stream, and
-config 1 into a server killed and restarted, then replayed.
+config 1 into a server killed and restarted, then replayed; and through
+the sharded queue cluster of two queue servers: the ResNet path, once
+clean and once through a consumer-group member joining and a server
+killed mid-stream, and config 1 to a consumer group of two.
 
 Run from the root of a checkout, with no arguments:
 
@@ -176,6 +179,53 @@ one JSON line (``{"phase": ...}``):
    range; both reads' CRC-32s must equal the file's, every event once,
    and no process may import torch or JAX. Prints the recovery's ms and
    records, the producer's, the drain's and the replay's frames/s.
+6k. ``cluster_end_to_end``: phase 6e's serving path fed through
+   ``cluster://``: two ``python -m psana_ray_tpu_torch.queue_server
+   --workers 1 --queue_size 16`` processes (the first, started first, the
+   groups' coordinator), a queue name whose 4 partitions split 2 + 2
+   over the servers (the map printed), a ``spawn`` producer process putting through
+   ``cluster://A,B`` with windowed puts and ``retain`` 80 a partition (the
+   partition's queue, the put window and the stream window: the zero-loss
+   bound), and this process the single member ``m0`` of group ``serve``
+   (``open_queue`` with the config's ``group``), streamed
+   (``stream_open(32)``), 6 + 24 batches once the partitions are full.
+   Every event exactly once, one EOS, launches exact, one host copy a
+   frame, the last batch's frames the pool's and its logits and features
+   within ``rel_err < 0.05``. Prints frames/s, ``host_batch_ms`` and
+   ``host_stage_ms`` beside ``tcp_end_to_end``'s, each server's relayed
+   frames (its stop line), the consumer's and the producer's ``CLUSTER``
+   counters, and the largest resident set the producer process sampled
+   (retained records held) beside the pool's bytes: a retained record
+   holds the pool's array.
+6l. ``cluster_failover``: the same shape, 2 + 10 batches, the producer
+   at 60 Hz (under the consumer's rate, so it is still sending at the
+   kill), the queue name one that splits 2 + 2 and whose second server
+   hosts a partition of ``m0``'s share after the join. After batch 2 a consumer CLI process joins group
+   ``serve`` (``--cluster A,B --partitions 4 --group serve --stream``, no
+   torch); after batch 5 the second server (not the coordinator) is
+   killed with ``SIGKILL``. The generation must rise at the join, the
+   members hold disjoint partitions covering the four, the dead server's
+   partitions land on the first (map version 2) with no client process
+   restarted, every event arrive at least once across the members (the
+   CLI's frames with the pool's CRC-32) with at most ``retain`` plus both
+   windows of duplicates for each moved partition, each member end on one
+   EOS, K1–K3 launch once a batch served and the last batch agree within
+   ``rel_err < 0.05``. Prints the failover's detection (the kill to this
+   process's map change) and latency (the kill to the first frame it
+   reads from a moved partition's new owner), both from its ``CLUSTER``
+   counters and required, the duplicates and the producer's
+   ``retained_resent``/``tail_resent``.
+6m. ``passthrough_cluster``: config 1 through the three CLIs over
+   ``cluster://``: two durable queue servers (``--workers 1
+   --durable_dir``), the producer CLI replaying 6c's ``.npz`` in two shards
+   with ``--cluster A,B --partitions 4`` on a queue name that splits 2 +
+   2, and two consumer CLIs of group ``audit`` (``--stream --log_level
+   DEBUG``) started 3 s before it. Each frame's CRC-32 arrives once
+   across the consumers, equal to the file's;
+   each consumer exits 0 on one EOS; the coordinator's ``groups.json``
+   holds the group at generation 2 or more with every partition drained;
+   no process imports torch or JAX. Prints frames/s and the members'
+   partitions and frames.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -342,11 +392,12 @@ Phase 6f's capture is the process's first, so the profiling phases (6,
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed, TCP-fed and durable-fed runs, the traced
-runs, the training runs, the fan-in, the CLIs and the fold runs (phases
-5, 6b, 6e, 6f, 6h, 6i, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those
-of ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b, 6e, 6f, 6h, 6i and 18), those of ``conv_block_kernel`` the SFX
+serving runs, the shm-fed, TCP-fed, durable-fed and cluster-fed runs,
+the traced runs, the training runs, the fan-in, the CLIs and the fold
+runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 8, 11, 14, 17, 17c, 17d, 17e,
+17f and 18), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
+``back_kernel`` the ResNet runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l and 18),
+those of ``conv_block_kernel`` the SFX
 runs' (8, 17, 17d, 17e and 17f), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
@@ -450,6 +501,17 @@ TCP_STREAM_WINDOW = 32  # tcp_end_to_end: the consumer's stream credits
 TCP_PROFILE_BATCHES = 8  # tcp_end_to_end: timed batches of the profiled run
 CONSUMER_LEAD_S = 1.5  # the consumers start and attach this long before the producer
 DURABLE_WORKERS = 2  # durable_end_to_end, durable_failover: the queue server's fleet
+CLUSTER_PARTITIONS = 4  # the cluster phases: the logical queue's partitions over two servers
+CLUSTER_QUEUE_SIZE = 16  # the cluster phases: a partition's queue on its server
+# the producer's retained frames a partition: the partition's queue, the put
+# window (the client's default, 32) and the stream window, the zero-loss bound
+CLUSTER_RETAIN = CLUSTER_QUEUE_SIZE + 32 + TCP_STREAM_WINDOW
+CLUSTER_FAILOVER_WARMUP, CLUSTER_FAILOVER_BATCHES = 2, 10  # cluster_failover's batches
+CLUSTER_JOIN_AFTER, CLUSTER_KILL_AFTER = 2, 5  # cluster_failover: batches before each event
+# cluster_failover's producer pace: under the consumer's rate, so the producer is
+# still sending at the kill
+CLUSTER_RATE_HZ = 60.0
+CLUSTER_LEAD_S = 3.0  # passthrough_cluster: both members join before the first frame
 DURABLE_SEGMENT_BYTES = 64 * 1024 * 1024  # the JAX defaults: 64 MiB segments, 8 retained
 DURABLE_RETAIN = 8
 FAILOVER_WARMUP, FAILOVER_BATCHES = 2, 8  # durable_failover's batches
@@ -1238,7 +1300,10 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
          server_queue={k: queue_stats.get(k) for k in ("depth", "high_water", "puts", "gets",
                                                         "puts_rejected")},
          launches=counts, **staging, **errs)
-    return counts, summary["fps"] * pool[0].nbytes / 1e9
+    return counts, {"fps": summary["fps"],
+                    "relay_gbytes_per_s": summary["fps"] * pool[0].nbytes / 1e9,
+                    "host_batch_ms": summary["host_batch_ms"],
+                    "host_stage_ms": summary["host_stage_ms"]}
 
 
 def phase_tcp_profile(torch, pt, pool, consts, params, device, root):
@@ -1683,6 +1748,446 @@ def phase_passthrough_durable(pt, root, npz):
          recovered_records=int(n_rec), retained_records=int(n_retained),
          committed_offset_at_boot=int(floor), torn_tail_cut=bool(torn), drain=drain,
          replay=replay, counters=counters.get(None), imported=loaded, crc32=want)
+
+
+# -- phases 6k-6m: the sharded queue cluster ---------------------------------
+def cluster_servers(root, *extra):
+    """Two queue server CLIs (``--workers 1``, ``--queue_size 16``), the
+    coordinator first: ``(servers, cluster address list)``."""
+    servers = []
+    try:
+        for _ in range(2):
+            servers.append(QueueServerCLI(root, "--queue_size", str(CLUSTER_QUEUE_SIZE),
+                                          "--workers", "1", *extra))
+    except BaseException:
+        for s in servers:
+            s.stop()
+        raise
+    return servers, ",".join(f"127.0.0.1:{s.port}" for s in servers)
+
+
+def cluster_queue(addrs, prefix="cluster", want=lambda m: True):
+    """The first queue name ``<prefix>_<i>`` whose partition map puts the
+    same number of partitions on every server (2 + 2: the servers' ports
+    change from run to run, the split does not) and meets ``want``;
+    returns its map."""
+    from psana_ray_tpu_torch.cluster import PartitionMap
+
+    for i in range(4096):
+        m = PartitionMap.compute(addrs, f"{prefix}_{i}", CLUSTER_PARTITIONS)
+        if (all(len(m.partitions_on(a)) == CLUSTER_PARTITIONS // len(addrs) for a in addrs)
+                and want(m)):
+            return m
+    raise AssertionError(f"no queue name splits evenly over {addrs}")
+
+
+def group_info(addr, group):
+    """The coordinator's answer to ``{"op": "info"}`` for ``group``."""
+    from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+
+    host, _, port = addr.rpartition(":")
+    c = TcpQueueClient(host, int(port), timeout_s=5.0)
+    try:
+        return c.cluster_rpc({"op": "info", "group": group})
+    finally:
+        c.disconnect()
+
+
+def relayed_frames(out, queue_name):
+    """The frames a stopped server handed out of the partitions of
+    ``queue_name`` (its ``queue server stopped`` line's ``gets``)."""
+    import ast
+    import re
+
+    m = re.search(r"queue server stopped: (\{.*\})", out)
+    if m is None:
+        return None
+    stats = ast.literal_eval(m.group(1))
+    return sum(v.get("gets", 0) for k, v in stats.items()
+               if k.startswith(f"default/{queue_name}#p"))
+
+
+def cluster_serving_run(torch, pt, pool, step, device, pmap, cluster, n_batches, on_result,
+                        warmup, exact=True, interval_s=0.0, on_client=None):
+    """One run of the ResNet serving path fed through ``cluster://``: a
+    ``spawn`` producer process (``produce_synthetic``) putting ``warmup +
+    n_batches`` batches of the pool into ``CLUSTER_PARTITIONS`` partitions
+    of ``pmap.queue_name`` with windowed puts, keeping ``CLUSTER_RETAIN``
+    frames a partition, and this process the single member ``m0`` of group
+    ``serve``, streamed (``stream_open(32)``), once the partitions are
+    full, through ``InfeedPipeline`` into ``step``. Returns the pipeline,
+    the wall and fill seconds, the launch counts, the producer's stats and
+    the frames the pipeline took."""
+    import multiprocessing as mp
+
+    from psana_ray_tpu_torch.cluster import CLUSTER
+
+    n_events = (warmup + n_batches) * BATCH
+    address = f"cluster://{cluster}"
+    ctx = mp.get_context("spawn")
+    produced = ctx.Value("q", 0)
+    stats = ctx.Queue()
+    proc = ctx.Process(target=pt.produce_synthetic, daemon=True,
+                       args=(address, DETECTOR, n_events, POOL_EVENTS),
+                       kwargs=dict(seed=0, produced=produced, queue_name=pmap.queue_name,
+                                   partitions=CLUSTER_PARTITIONS, retain=CLUSTER_RETAIN,
+                                   stats=stats, interval_s=interval_s))
+    config = pt.TransportConfig(address=address, queue_name=pmap.queue_name,
+                                cluster_partitions=CLUSTER_PARTITIONS,
+                                queue_size=CLUSTER_QUEUE_SIZE)
+    full = CLUSTER_PARTITIONS * CLUSTER_QUEUE_SIZE
+    client = monitor = None
+    producer_stats = {}
+    eos_before = CLUSTER.stats()["eos_aggregated_total"]
+    t_start = time.monotonic()
+    try:
+        monitor = pt.open_queue(config, role="consumer")  # no group: a probe
+        proc.start()
+        deadline = time.monotonic() + 180.0
+        while (interval_s == 0 and monitor.size() < full and proc.is_alive()
+               or monitor.size() == 0 and proc.is_alive()):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the producer filled {monitor.size()} of {full}")
+            time.sleep(0.01)
+        fill_s = time.monotonic() - t_start
+        import dataclasses
+
+        client = pt.open_queue(dataclasses.replace(config, group="serve", member_id="m0"),
+                               role="consumer")
+        client.stream_open(TCP_STREAM_WINDOW)
+        if on_client is not None:
+            on_client(client, proc)
+        pt.reset_counters()
+        pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=warmup))
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        wall = time.monotonic() - t0
+        counts = pt.counts()
+        proc.join(timeout=60)
+        producer_stats = stats.get(timeout=10)
+        eos_once = CLUSTER.stats()["eos_aggregated_total"] - eos_before == 1
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        for c in (client, monitor):
+            if c is not None:
+                c.disconnect()
+    if (proc.exitcode != 0 or produced.value != n_events or not eos_once
+            or (seen != n_events if exact else seen < 1)):
+        raise AssertionError(f"producer exit {proc.exitcode}: produced {produced.value}, "
+                             f"consumed {seen}, expected {n_events}, EOS {eos_once}")
+    return pipe, wall, fill_s, counts, producer_stats, seen
+
+
+def phase_cluster_end_to_end(torch, pt, pool, consts, model, params, device, root, tcp):
+    """Config 4 fed through ``cluster://`` from two queue server processes
+    (``cluster_serving_run``): both servers host partitions, every event
+    exactly once and one EOS, launches exact, one host copy a frame, the
+    last batch's frames the pool's and its logits and features within
+    ``rel_err < 0.05`` of the plain path. Prints the map, the rates
+    beside ``tcp_end_to_end``'s, each server's relayed frames, and the
+    consumer's and the producer's ``CLUSTER`` counters."""
+    from psana_ray_tpu_torch.cluster import CLUSTER
+
+    servers, cluster = cluster_servers(root)
+    addrs = cluster.split(",")
+    pmap = cluster_queue(addrs)
+    print(f"cluster_end_to_end: queue {pmap.queue_name}, partitions "
+          f"{ {a: list(pmap.partitions_on(a)) for a in addrs} }", flush=True)
+    step = make_step(torch, pt, consts, params)
+    last, seen_idx = {}, []
+    eos_before = CLUSTER.stats()["eos_aggregated_total"]
+    try:
+        pipe, wall, fill_s, counts, producer, seen = cluster_serving_run(
+            torch, pt, pool, step, device, pmap, cluster, E2E_BATCHES,
+            collect_batches(last, seen_idx), WARMUP_BATCHES)
+        consumer = CLUSTER.stats()
+    finally:
+        stopped = [s.stop() for s in servers]
+    n_events = (WARMUP_BATCHES + E2E_BATCHES) * BATCH
+    if any(code != 0 for code, _ in stopped) or sorted(seen_idx) != list(range(n_events)):
+        raise AssertionError(f"server exits {[c for c, _ in stopped]}; {len(seen_idx)} "
+                             f"deliveries of {n_events} events, {len(set(seen_idx))} distinct")
+    if consumer["eos_aggregated_total"] - eos_before != 1:
+        raise AssertionError(f"{consumer['eos_aggregated_total'] - eos_before} EOS surfaced")
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
+    check_resnet_counts(counts, nb)
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    check_last_frames(torch, pool, last, device)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    relayed = {a: relayed_frames(out, pmap.queue_name) for a, (_, out) in zip(addrs, stopped)}
+    if sum(v or 0 for v in relayed.values()) < n_events or not all(relayed.values()):
+        raise AssertionError(f"relayed frames {relayed} of {n_events}")
+    summary = pipe.metrics.summary()
+    emit("cluster_end_to_end", servers=addrs, queue=pmap.queue_name,
+         partitions=CLUSTER_PARTITIONS,
+         partition_map={a: list(pmap.partitions_on(a)) for a in addrs},
+         batches=nb, timed_batches=summary["batches"], frames=summary["frames"], wall_s=wall,
+         fill_s=fill_s, fps=summary["fps"],
+         relay_gbytes_per_s=summary["fps"] * pool[0].nbytes / 1e9,
+         p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         tcp_end_to_end=tcp, queue_size=CLUSTER_QUEUE_SIZE, stream_window=TCP_STREAM_WINDOW,
+         retain=CLUSTER_RETAIN, relayed_frames=relayed, consumer_cluster=consumer,
+         producer_cluster=producer.get("cluster"),
+         producer_peak_rss_bytes=producer.get("peak_rss_bytes"),
+         pool_bytes=len(pool) * pool[0].nbytes, launches=counts, **staging, **errs)
+    return counts
+
+
+def phase_cluster_failover(torch, pt, pool, consts, model, params, device, root):
+    """The same servers' shape and model, ``CLUSTER_FAILOVER_WARMUP +
+    CLUSTER_FAILOVER_BATCHES`` batches, the producer at a detector's pace
+    (``CLUSTER_RATE_HZ``, so it is still sending at the kill). After
+    batch ``CLUSTER_JOIN_AFTER`` a consumer CLI process joins group
+    ``serve``; after batch ``CLUSTER_KILL_AFTER``, ``SIGKILL`` of the second
+    server (not the coordinator). The generation must rise at the join and
+    the members hold disjoint partitions covering all four; after the kill
+    the dead server's partitions land on the first (map version + 1) with
+    no client process restarted; every event arrives at least once across
+    the members (the CLI's frames with the pool's CRC-32), with at most
+    ``retain`` plus the put and stream windows of duplicates for each
+    partition that moved; each member ends on one EOS; launches once a
+    batch served, the last batch within ``rel_err < 0.05``. Prints the
+    failover latency (the kill to the first frame this process reads from
+    a moved partition's new owner), the duplicates and the producer's
+    resends."""
+    import re
+    import tempfile
+    import zlib
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.cluster import CLUSTER, assign_group_partitions
+    from psana_ray_tpu_torch.transport.tcp import DEFAULT_STREAM_WINDOW
+
+    servers, cluster = cluster_servers(root)
+    addrs = cluster.split(",")
+    # the moved partitions include one of m0's share after the join, so that
+    # this process reads a frame from a new owner
+    share = set(assign_group_partitions(["m0", "m1"], "m0", CLUSTER_PARTITIONS))
+    pmap = cluster_queue(addrs, want=lambda m: set(m.partitions_on(addrs[1])) & share)
+    moved = set(pmap.partitions_on(addrs[1]))
+    print(f"cluster_failover: queue {pmap.queue_name}, partitions "
+          f"{ {a: list(pmap.partitions_on(a)) for a in addrs} }, m0's share after the join "
+          f"{sorted(share)}", flush=True)
+    step = make_step(torch, pt, consts, params)
+    last, seen_idx, state = {}, [], {"batches": 0}
+    keep = collect_batches(last, seen_idx)
+    member_cmd = cli_cmd("psana_ray_tpu_torch.consumer", "1", "--cluster", cluster,
+                         "--partitions", str(CLUSTER_PARTITIONS), "--group", "serve",
+                         "--member_id", "m1", "--queue_name", pmap.queue_name, "--stream",
+                         "--quiet", "--log_level", "DEBUG")
+    member_log = tempfile.TemporaryFile("w+")
+
+    def on_client(client, producer):
+        state["client"], state["producer"] = client, producer
+
+    joined = threading.Event()
+
+    def watch_join():
+        # the generation at which the coordinator holds the second member
+        deadline = time.monotonic() + 60
+        info = group_info(addrs[0], "serve")
+        while len(info.get("members", ())) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+            info = group_info(addrs[0], "serve")
+        state["gen_after"], state["members"] = info.get("generation"), info.get("members")
+        joined.set()
+
+    def on_result(out, batch):
+        keep(out, batch)
+        state["batches"] += 1
+        if state["batches"] == CLUSTER_JOIN_AFTER:
+            state["gen_before"] = group_info(addrs[0], "serve")["generation"]
+            state["member"] = subprocess.Popen(member_cmd, cwd=root,
+                                               env={**os.environ, "PYTHONPATH": root},
+                                               stdout=member_log, stderr=subprocess.STDOUT,
+                                               text=True)
+            threading.Thread(target=watch_join, daemon=True).start()
+        if state["batches"] == CLUSTER_KILL_AFTER:
+            joined.wait(60)  # the kill comes after the join
+            state["producer_alive_at_kill"] = state["producer"].is_alive()
+            state["t_kill"] = time.time()
+            servers[1].proc.kill()
+
+    try:
+        pipe, wall, _, counts, producer, seen = cluster_serving_run(
+            torch, pt, pool, step, device, pmap, cluster, CLUSTER_FAILOVER_BATCHES, on_result,
+            CLUSTER_FAILOVER_WARMUP, exact=False, interval_s=1.0 / CLUSTER_RATE_HZ,
+            on_client=on_client)
+        client = state["client"]
+        final_map = client.partition_map
+        telemetry = CLUSTER.stats()
+        member = state.get("member")
+        if member is not None:
+            member.wait(timeout=120)
+    finally:
+        member = state.get("member")
+        if member is not None and member.poll() is None:
+            member.kill()
+            member.wait(timeout=30)
+        stopped = [s.stop() for s in servers]
+        member_log.seek(0)
+        member_out = member_log.read()
+        member_log.close()
+    n_events = (CLUSTER_FAILOVER_WARMUP + CLUSTER_FAILOVER_BATCHES) * BATCH
+    crcs = [zlib.crc32(np.ascontiguousarray(f)) for f in pool]
+    theirs = []
+    for _, _, idx, crc in re.findall(_CRC, member_out):
+        if int(crc, 16) != crcs[int(idx) % len(pool)]:
+            raise AssertionError(f"member m1: event {idx} arrived with CRC {crc}")
+        theirs.append(int(idx))
+    deliveries = seen_idx + theirs
+    dups = len(deliveries) - len(set(deliveries))
+    bound = (CLUSTER_RETAIN + DEFAULT_STREAM_WINDOW + TCP_STREAM_WINDOW) * len(moved)
+    split = [sorted(assign_group_partitions(state.get("members", ()), m, CLUSTER_PARTITIONS))
+             for m in ("m0", "m1")]
+    loaded = sorted(imported_roots(member_out) & {"torch", "jax", "psana_ray_tpu"})
+    if (stopped[0][0] != 0 or member is None or member.returncode != 0 or loaded
+            or member_out.count("end of stream after") != 1):
+        raise AssertionError(f"coordinator exit {stopped[0][0]}, member exit "
+                             f"{None if member is None else member.returncode}, imported "
+                             f"{loaded}: {member_out[-3000:]}")
+    if not (state.get("gen_after", -1) > state["gen_before"]
+            and state.get("members") == ["m0", "m1"]
+            and not set(split[0]) & set(split[1])
+            and sorted(split[0] + split[1]) == list(range(CLUSTER_PARTITIONS))):
+        raise AssertionError(f"the join: generation {state['gen_before']} -> "
+                             f"{state.get('gen_after')}, members {state.get('members')}, "
+                             f"split {split}")
+    if not state.get("producer_alive_at_kill"):
+        raise AssertionError("the producer process had ended before the kill: the phase "
+                             "needs it mid-stream")
+    if not (final_map.version == 2 and set(final_map.assignments.values()) == {addrs[0]}):
+        raise AssertionError(f"after the kill: map version {final_map.version}, "
+                             f"{final_map.assignments}")
+    t_map, t_first = telemetry["failover_at"], telemetry["first_moved_frame_at"]
+    if t_map is None or t_first is None or not state["t_kill"] < t_map <= t_first:
+        raise AssertionError(f"the failover's times: kill {state['t_kill']}, map change "
+                             f"{t_map}, first frame from a new owner {t_first}")
+    if set(deliveries) != set(range(n_events)) or dups > bound:
+        raise AssertionError(f"{len(set(deliveries))} of {n_events} events, {dups} duplicates "
+                             f"(at most {bound}); missing "
+                             f"{sorted(set(range(n_events)) - set(deliveries))[:16]}")
+    nb = CLUSTER_FAILOVER_WARMUP + pipe.metrics.batches.count
+    check_resnet_counts(counts, nb)
+    check_last_frames(torch, pool, last, device)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    consumer = CLUSTER.stats()
+    pc = producer.get("cluster") or {}
+    emit("cluster_failover", servers=addrs, queue=pmap.queue_name,
+         partition_map={a: list(pmap.partitions_on(a)) for a in addrs},
+         moved_partitions=sorted(moved), rate_hz=CLUSTER_RATE_HZ,
+         generation_before_join=state["gen_before"], generation_after_join=state["gen_after"],
+         members=state["members"], split={"m0": split[0], "m1": split[1]},
+         map_version_after_kill=final_map.version,
+         failover_detect_s=t_map - state["t_kill"], failover_latency_s=t_first - state["t_kill"],
+         events=n_events, deliveries_m0=len(seen_idx), deliveries_m1=len(theirs),
+         duplicates=dups, duplicates_bound=bound, retain=CLUSTER_RETAIN,
+         producer_retained_resent=pc.get("retained_resent_total"),
+         producer_tail_resent=pc.get("tail_resent_total"), producer_cluster=pc,
+         consumer_cluster=consumer, batches=nb, wall_s=wall,
+         fps=pipe.metrics.summary()["fps"], launches=counts, **errs)
+    return counts
+
+
+def phase_passthrough_cluster(pt, root, npz):
+    """Config 1 through the three CLIs over ``cluster://``: two durable
+    queue servers (``--workers 1 --durable_dir``, the coordinator first),
+    the producer CLI replaying ``passthrough_cli``'s ``.npz`` in two shards
+    with ``--cluster A,B --partitions 4``, and two consumer CLIs of group
+    ``audit`` with ``--stream`` (started ``CLUSTER_LEAD_S`` before it, so
+    both have joined before the first frame). Each frame's CRC-32 arrives
+    once across the consumers, equal to the file's; each consumer exits 0
+    on one EOS; the coordinator's ``groups.json`` holds the group at
+    generation 2 or more; no process imports torch or JAX. Prints frames/s
+    and how the partitions split between the members."""
+    import re
+    import shutil
+    import zlib
+
+    import numpy as np
+
+    with np.load(npz, mmap_mode="r") as f:
+        frames = f["frames"]
+        crcs = [zlib.crc32(np.ascontiguousarray(frames[i])) for i in range(len(frames))]
+        per_segment = DURABLE_SEGMENT_BYTES // (frames[0].nbytes + 512)
+    dirs = [durable_dir(root, f"cluster{i}", -(-CFG1_EVENTS // per_segment) + DURABLE_RETAIN + 2)
+            for i in range(2)]
+    servers, stopped, store = [], [], None
+    try:
+        for d, _ in dirs:
+            servers.append(QueueServerCLI(root, "--queue_size", str(CLUSTER_QUEUE_SIZE),
+                                          "--workers", "1", "--durable_dir", d))
+        cluster = ",".join(f"127.0.0.1:{s.port}" for s in servers)
+        pmap = cluster_queue(cluster.split(","), prefix="cfg1_cluster")
+        print(f"passthrough_cluster: queue {pmap.queue_name}, partitions "
+              f"{ {a: list(pmap.partitions_on(a)) for a in pmap.servers} }", flush=True)
+        flags = ("--cluster", cluster, "--partitions", str(CLUSTER_PARTITIONS),
+                 "--queue_name", pmap.queue_name)
+        # the producer first: run_clis starts it CLUSTER_LEAD_S after the consumers
+        cmds = [cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}",
+                        "--num_shards", "2", "--num_consumers", "2", "--queue_size",
+                        str(CLUSTER_QUEUE_SIZE), *flags)]
+        cmds += [cli_cmd("psana_ray_tpu_torch.consumer", str(c), "--quiet", "--status_interval",
+                         "1", "--log_level", "DEBUG", "--group", "audit", "--member_id", f"m{c}",
+                         "--stream", *flags) for c in range(2)]
+        out, wall = run_clis(root, cmds, lead_s=CLUSTER_LEAD_S)
+        stopped = [s.stop() for s in servers]
+        store_path = os.path.join(dirs[0][0], "groups.json")
+        if os.path.exists(store_path):
+            with open(store_path) as f:
+                store = json.load(f)
+    finally:
+        if not stopped:  # a failure before the servers were stopped
+            for s in servers:
+                s.stop()
+        for d, _ in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    texts = [text for _, text in out] + [text for _, text in stopped]
+    loaded = sorted(set().union(*(imported_roots(t) for t in texts))
+                    & {"torch", "jax", "psana_ray_tpu"})
+    codes = [code for code, _ in out] + [code for code, _ in stopped]
+    if any(codes) or loaded:
+        raise AssertionError(f"passthrough_cluster: exits {codes}, imported {loaded}: "
+                             f"{[t[-1500:] for t in texts]}")
+    received, split = {}, {}
+    for c, (_, text) in enumerate(out[1:]):
+        if len(re.findall(_END, text)) != 1:
+            raise AssertionError(f"consumer {c}: not one end of stream: {text[-1500:]}")
+        for m in re.finditer(_CRC, text):
+            idx = int(m.group(3))
+            if idx in received:
+                raise AssertionError(f"passthrough_cluster: event {idx} arrived twice")
+            received[idx] = int(m.group(4), 16)
+        split[f"m{c}"] = sum(1 for _ in re.finditer(_CRC, text))
+    if received != dict(enumerate(crcs)):
+        wrong = [i for i, c in enumerate(crcs) if received.get(i, c) != c]
+        raise AssertionError(f"passthrough_cluster: {len(received)} of {len(crcs)} events, "
+                             f"CRCs differing at {wrong[:16]}")
+    group = (store or {}).get("groups", {}).get("audit", {})
+    if group.get("generation", 0) < 2 or group.get("drained") != list(range(CLUSTER_PARTITIONS)):
+        raise AssertionError(f"groups.json under the coordinator's --durable_dir: {store}")
+    ends = [re.search(_END, text) for _, text in out[1:]]
+    spans = [(int(m.group(2)) - 1) / float(m.group(4)) for m in ends
+             if int(m.group(2)) > 1 and float(m.group(4)) > 0]
+    produced = re.search(_PRODUCED, out[0][1])
+    from psana_ray_tpu_torch.cluster import assign_group_partitions
+
+    emit("passthrough_cluster", events=CFG1_EVENTS, shards=2, partitions=CLUSTER_PARTITIONS,
+         servers=cluster.split(","), queue=pmap.queue_name,
+         partition_map={a: list(pmap.partitions_on(a)) for a in pmap.servers},
+         frames_per_member=split,
+         partitions_per_member={m: list(assign_group_partitions(["m0", "m1"], m,
+                                                                 CLUSTER_PARTITIONS))
+                                for m in ("m0", "m1")},
+         frames_per_s=len(crcs) / max(spans) if spans else None, wall_s=wall,
+         producer_frames_per_s=float(produced.group(2)) if produced else None,
+         group_store=group, imported=loaded)
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -3500,13 +4005,18 @@ def main() -> int:
     npz = phase_passthrough_cli(pt, src, pool, root)
     try:
         phase_passthrough_tcp(pt, root, npz)
-        tcp_counts, tcp_gbps = phase_tcp_end_to_end(torch, pt, pool, consts, model, params,
-                                                    device, root)
+        tcp_counts, tcp = phase_tcp_end_to_end(torch, pt, pool, consts, model, params,
+                                               device, root)
         durable_counts = phase_durable_end_to_end(torch, pt, pool, consts, model, params,
-                                                  device, root, tcp_gbps)
+                                                  device, root, tcp["relay_gbytes_per_s"])
         failover_counts = phase_durable_failover(torch, pt, pool, consts, model, params,
                                                  device, root)
         phase_passthrough_durable(pt, root, npz)
+        cluster_counts = phase_cluster_end_to_end(torch, pt, pool, consts, model, params,
+                                                  device, root, tcp)
+        cluster_failover_counts = phase_cluster_failover(torch, pt, pool, consts, model,
+                                                         params, device, root)
+        phase_passthrough_cluster(pt, root, npz)
         # the process's first profiler capture, after the TCP phases
         trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
     finally:
@@ -3554,7 +4064,8 @@ def main() -> int:
                      + fold_counts["calib_kernel"] + trace_counts["calib_kernel"]
                      + cli_sfx_counts["calib_kernel"] + tcp_counts["calib_kernel"]
                      + cli_sfx_tcp_counts["calib_kernel"] + durable_counts["calib_kernel"]
-                     + failover_counts["calib_kernel"]),
+                     + failover_counts["calib_kernel"] + cluster_counts["calib_kernel"]
+                     + cluster_failover_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -3570,7 +4081,8 @@ def main() -> int:
             "source": f"{csrc}/conv_sm90.cu",
             "replaces": replaces[name],
             "launches": (counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name]
-                         + tcp_counts[name] + durable_counts[name] + failover_counts[name]),
+                         + tcp_counts[name] + durable_counts[name] + failover_counts[name]
+                         + cluster_counts[name] + cluster_failover_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

@@ -8,10 +8,8 @@ to read), :class:`MaskConfig` (host-side masking), :class:`TransportConfig`
 server's segment logs), :class:`LogConfig`, and
 :class:`PipelineConfig` that holds them. The fields keep the JAX
 package's names and defaults (the reference's 13 producer flags among
-them). ``TransportConfig``'s fields of transports the port has not ported
-(consumer groups and the cluster) raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 Item 8. The JAX package's infeed and mesh sections are
-not carried: no ported component reads them.
+them). The JAX package's infeed and mesh sections are not carried: no
+ported component reads them.
 """
 
 from __future__ import annotations
@@ -66,11 +64,7 @@ class MaskConfig:
     manual_mask_path: Optional[str] = None
 
 
-# the JAX package's TransportConfig fields that the port does not carry
-NOT_PORTED = frozenset({"cluster_partitions", "group", "member_id"})
-
-
-@dataclasses.dataclass(init=False)
+@dataclasses.dataclass
 class TransportConfig:
     """Queue and rendezvous: the transport an address selects, the
     ``(namespace, queue_name)`` pair that names the queue in it, the
@@ -79,12 +73,16 @@ class TransportConfig:
     (``backoff_*_s``), the consumer's rendezvous loop
     (``rendezvous_retries`` x ``rendezvous_interval_s``) and poll interval,
     the frames a batched put carries on transports that have one, the
-    producer's lossy wire dtype (``""`` = off), the TCP connections' wire
-    codec (``""`` or ``"none"``: raw; ``"auto"``; or codec names) and
-    fair-share tenant (``""``: the shared default tenant) with its weight
-    (1-64). ``replay_from`` reads a durable queue's retained log instead
-    of the live queue (``""``: live; ``"begin"``, ``"resume"`` or an
-    offset), for the consumer group ``replay_group``."""
+    partitions a ``cluster://`` queue shards into (every producer and
+    consumer of a stream must agree), the consumer group (``""``: none,
+    compete on every partition) and this member's id (``""``: random per
+    process), the producer's lossy wire dtype (``""`` = off), the TCP
+    connections' wire codec (``""`` or ``"none"``: raw; ``"auto"``; or
+    codec names) and fair-share tenant (``""``: the shared default
+    tenant) with its weight (1-64). ``replay_from`` reads a durable
+    queue's retained log instead of the live queue (``""``: live;
+    ``"begin"``, ``"resume"`` or an offset), for the consumer group
+    ``replay_group``."""
 
     address: str = "auto"
     namespace: str = "default"
@@ -98,47 +96,15 @@ class TransportConfig:
     rendezvous_interval_s: float = 1.0
     poll_interval_s: float = 0.01
     put_batch_size: int = 16
-    wire_dtype: str = ""
-    wire_codec: str = ""
-    tenant: str = ""
-    tenant_weight: int = 1
+    cluster_partitions: int = 8
+    group: str = ""
+    member_id: str = ""
     replay_from: str = ""
     replay_group: str = "replay"
-
-    def __init__(self, address: str = "auto", namespace: str = "default",
-                 queue_name: str = "shared_queue", queue_size: int = 100,
-                 num_consumers: int = 1, backoff_base_s: float = 0.1,
-                 backoff_cap_s: float = 2.0, backoff_jitter_s: float = 0.5,
-                 rendezvous_retries: int = 10, rendezvous_interval_s: float = 1.0,
-                 poll_interval_s: float = 0.01, put_batch_size: int = 16,
-                 wire_dtype: str = "", wire_codec: str = "", tenant: str = "",
-                 tenant_weight: int = 1, replay_from: str = "",
-                 replay_group: str = "replay", **not_ported):
-        unknown = sorted(set(not_ported) - NOT_PORTED)
-        if unknown:
-            raise TypeError(f"TransportConfig has no field {unknown[0]!r}")
-        if not_ported:
-            raise NotImplementedError(
-                f"TransportConfig field(s) {sorted(not_ported)} belong to transports the port "
-                f"has not ported (consumer groups, the cluster): ROADMAP.md Queue 1 Item 8")
-        self.address = address
-        self.namespace = namespace
-        self.queue_name = queue_name
-        self.queue_size = queue_size
-        self.num_consumers = num_consumers
-        self.backoff_base_s = backoff_base_s
-        self.backoff_cap_s = backoff_cap_s
-        self.backoff_jitter_s = backoff_jitter_s
-        self.rendezvous_retries = rendezvous_retries
-        self.rendezvous_interval_s = rendezvous_interval_s
-        self.poll_interval_s = poll_interval_s
-        self.put_batch_size = put_batch_size
-        self.wire_dtype = wire_dtype
-        self.wire_codec = wire_codec
-        self.tenant = tenant
-        self.tenant_weight = tenant_weight
-        self.replay_from = replay_from
-        self.replay_group = replay_group
+    wire_codec: str = ""
+    wire_dtype: str = ""
+    tenant: str = ""
+    tenant_weight: int = 1
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Consumer client and CLI: the reference's ``DataReader`` surface.
 
 The port's copy of ``psana_ray_tpu/consumer.py`` over the port's
-transports (``auto``/``local``, ``shm://`` and ``tcp://``):
+transports (``auto``/``local``, ``shm://``, ``tcp://`` and ``cluster://``):
 
 - ``DataReader(address, queue_name, namespace)``, a context manager;
   ``connect()`` resolves the named queue with the config's retry loop;
@@ -11,7 +11,8 @@ transports (``auto``/``local``, ``shm://`` and ``tcp://``):
 - ``iter_records()`` yields frames until EOS markers cover every shard
   of every producer runtime, handing sibling consumers' markers back;
 - ``DataReader(streaming=True, stream_window=W)`` subscribes a TCP
-  connection to server-push delivery with W frames of credit;
+  connection (each of a cluster's partition connections) to server-push
+  delivery with W frames of credit;
 - a dead transport raises :class:`DataReaderError`.
 
 The CLI, with the JAX command's flags, defaults and log lines:
@@ -27,12 +28,15 @@ frames``; ``--cursor_path`` keeps a resumable cursor and
 ``--profile_dir`` captures a ``torch.profiler`` trace of the consume
 loop (the only path that loads torch). ``--stream`` and
 ``--stream_window`` subscribe to server-push delivery over ``tcp://``
-(ignored elsewhere, as the JAX package does); ``--wire_codec``,
-``--tenant`` and ``--tenant_weight`` ride the TCP connection's
-capability exchange. ``--replay from=<offset|begin|resume>`` (with
-``--replay_group``) reads a durable queue server's retained log over
-``tcp://`` without popping the live queue. The JAX CLI's obs, autotune and
-cluster flags are refused (ROADMAP.md Queue 1 Item 8).
+and ``cluster://`` (ignored elsewhere, as the JAX package does);
+``--wire_codec``, ``--tenant`` and ``--tenant_weight`` ride the TCP
+connections' capability exchange. ``--replay from=<offset|begin|resume>``
+(with ``--replay_group``) reads a durable queue server's retained log
+over ``tcp://`` or ``cluster://`` without popping the live queue.
+``--cluster host:port,host:port --partitions P`` reads a sharded queue,
+``--group`` and ``--member_id`` as a member of a consumer group (one EOS
+a member). The JAX CLI's obs and autotune flags are refused (ROADMAP.md
+Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -109,7 +113,7 @@ class DataReader:
             try:
                 if not hasattr(self._queue, "replay_open"):
                     raise DataReaderError(f"transport {self.address!r} does not support replay "
-                                          f"(need a tcp:// durable queue server)")
+                                          f"(need a tcp:// or cluster:// durable queue server)")
                 start = (self.replay_from if self.replay_from in ("begin", "resume")
                          else int(self.replay_from))
                 self._queue.replay_open(start, group=self.replay_group)
@@ -226,11 +230,11 @@ class DataReader:
             raise DataReaderError("not connected — call connect() or use as context manager")
 
 
-# the JAX CLI's obs, autotune and cluster flags
+# the JAX CLI's obs and autotune flags
 NOT_PORTED_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
-    "--history_interval", "--history_samples", "--profile_hz", "--cluster", "--partitions",
-    "--group", "--member_id", "--autotune", "--autotune_interval",
+    "--history_interval", "--history_samples", "--profile_hz", "--autotune",
+    "--autotune_interval",
 )
 
 
@@ -248,17 +252,20 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.consumer")
     p.add_argument("consumer_id", type=int, nargs="?", default=0)
     p.add_argument("--ray_address", "--address", dest="address", default="auto",
-                   help="auto (in-process), shm://[name] or tcp://host:port")
+                   help="auto (in-process), shm://[name], tcp://host:port or "
+                        "cluster://host:port,... (or --cluster)")
     p.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     p.add_argument("--queue_name", default="shared_queue")
     p.add_argument("--stream", action="store_true",
-                   help="subscribe to server-push streaming (tcp://); ignored on auto and shm://")
+                   help="subscribe to server-push streaming (tcp://, cluster://); ignored on auto "
+                        "and shm://")
     p.add_argument("--stream_window", type=int, default=32,
                    help="streaming credit window (TCP transports)")
     p.add_argument("--replay", default=None, metavar="from=<offset|begin|resume>",
-                   help="read a durable queue server's retained log (tcp://) instead of the "
-                        "live queue: from=begin replays all it retains, from=resume continues "
-                        "after --replay_group's committed offset, from=N starts at offset N")
+                   help="read a durable queue server's retained log (tcp://, cluster://) "
+                        "instead of the live queue: from=begin replays all it retains, "
+                        "from=resume continues after --replay_group's committed offset, from=N "
+                        "starts at offset N")
     p.add_argument("--replay_group", default="replay",
                    help="consumer group whose committed offset --replay advances")
     p.add_argument("--max_frames", type=int, default=None)
@@ -283,23 +290,28 @@ def main(argv=None):
                    help="persist the cursor every N processed frames (and at exit); <= 0 "
                         "saves at exit only")
     from psana_ray_tpu_torch.transport.addressing import (
+        add_cluster_args,
         add_tenant_args,
         add_wire_args,
+        apply_cluster_args,
         apply_tenant_args,
         apply_wire_args,
     )
     from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
+    add_cluster_args(p, consumer=True)
     add_wire_args(p)
     add_tenant_args(p)
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
     try:
-        reader_config = apply_tenant_args(apply_wire_args(TransportConfig(address=a.address), a),
-                                          a)
+        # --cluster rewrites the address and carries the partitions and group
+        reader_config = apply_tenant_args(apply_wire_args(
+            apply_cluster_args(TransportConfig(address=a.address), a), a), a)
     except (TypeError, ValueError) as e:
         p.error(str(e))
+    a.address = reader_config.address
     logging.basicConfig(
         level=getattr(logging, a.log_level.upper(), logging.INFO),
         format="%(asctime)s - %(levelname)s - %(message)s",

@@ -1,7 +1,7 @@
 """Producer runtime and CLI: sharded ingest into a named, backpressured queue.
 
 The port's copy of ``psana_ray_tpu/producer.py`` over the port's
-transports (``auto``/``local``, ``shm://`` and ``tcp://``). :class:`ProducerRuntime`
+transports (``auto``/``local``, ``shm://``, ``tcp://`` and ``cluster://``). :class:`ProducerRuntime`
 runs ``num_local_shards`` ingest threads into one queue: each opens its
 strided shard of a source (:func:`~psana_ray_tpu_torch.sources.open_source`:
 synthetic, ``replay:<path>`` or psana), applies the bad-pixel and manual
@@ -18,10 +18,12 @@ The CLI keeps the JAX command's flags, defaults and log lines:
         --address tcp://ingest-head:6379 --wire_codec shuffle-rle \\
         --num_shards 2 --num_consumers 2
 
-The JAX CLI's obs, autotune and cluster flags are refused (ROADMAP.md
-Queue 1 Item 8), as are ``cluster://`` addresses. Also here: :func:`produce`, the inner loop alone, and
-:func:`produce_synthetic`, a ``spawn`` producer process that feeds a
-named shm ring from a seeded :class:`SyntheticSource`.
+``--cluster host:port,host:port --partitions P`` shards the queue over a
+cluster of queue servers. The JAX CLI's obs and autotune flags are
+refused (ROADMAP.md Queue 1 Item 8). Also here: :func:`produce`, the
+inner loop alone, and :func:`produce_synthetic`, a ``spawn`` producer
+process that feeds a named shm ring, a queue server or a cluster from a
+seeded :class:`SyntheticSource`.
 
 Nothing here imports torch: a producer process never touches the card.
 """
@@ -43,7 +45,13 @@ from psana_ray_tpu_torch.config import TransportConfig
 from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, narrow_panels
 from psana_ray_tpu_torch.sources import SyntheticSource, open_source
 from psana_ray_tpu_torch.transport import BackoffPolicy, Registry, TransportClosed, TransportWedged
-from psana_ray_tpu_torch.transport.addressing import add_wire_args, apply_wire_args, open_queue
+from psana_ray_tpu_torch.transport.addressing import (
+    add_cluster_args,
+    add_wire_args,
+    apply_cluster_args,
+    apply_wire_args,
+    open_queue,
+)
 from psana_ray_tpu_torch.transport.shm_ring import ShmRingBuffer
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
@@ -98,31 +106,78 @@ def produce_synthetic(
     produced=None,
     run: int = 1,
     queue_name: str = "shared_queue",
+    partitions: int = 8,
+    retain: Optional[int] = None,
+    stats=None,
+    interval_s: float = 0.0,
 ) -> int:
     """A producer process's body, for ``multiprocessing``'s ``spawn``
     start method: draw the RAW events ``0 .. pool_events - 1`` of
     ``SyntheticSource(detector_name, seed, dtype, run)``, then attach to
-    ``target`` (an shm ring's name, or a ``tcp://host:port`` address:
-    the named queue ``("default", queue_name)`` there, fed with windowed
-    puts), put ``n_events`` of them (the pool cycled, event index ``i``
-    carrying pool event ``i % pool_events``) and one EOS, and detach.
-    ``produced`` (a ``multiprocessing.Value``) receives the count."""
+    ``target`` (an shm ring's name; a ``tcp://host:port`` address: the
+    named queue ``("default", queue_name)`` there; or a
+    ``cluster://host:port,...`` address: that queue in ``partitions``
+    partitions, keeping ``retain`` acknowledged frames a partition for a
+    failover's resend, the client's default where None), put ``n_events``
+    of them (the pool cycled, event index ``i`` carrying pool event
+    ``i % pool_events``; over TCP with windowed puts) and one EOS, and
+    detach, waiting ``interval_s`` before each event (a detector's pace;
+    0: as fast as the transport takes them). ``produced`` (a
+    ``multiprocessing.Value``) receives the count, ``stats`` (a
+    ``multiprocessing`` queue, optional) the largest resident set of the
+    process sampled every 16 events and once the last put is acknowledged
+    (the retained records still held), and, over a cluster, the client's
+    ``CLUSTER`` counters. A retained record holds the pool's array, not a
+    copy."""
     src = SyntheticSource(run=run, num_events=pool_events, detector_name=detector_name,
                           seed=seed, dtype=dtype)
     pool = [src.event(i, "raw") for i in range(pool_events)]
-    if target.startswith("tcp://"):
+    if target.startswith("cluster://"):
+        from psana_ray_tpu_torch.cluster.client import ClusterClient
+
+        kw = {} if retain is None else {"retain": retain}
+        queue = ClusterClient(target, queue_name=queue_name, n_partitions=partitions, **kw)
+    elif target.startswith("tcp://"):
         queue = open_queue(TransportConfig(address=target, queue_name=queue_name),
                            role="producer")
     else:
         queue = ShmRingBuffer.attach(target, retries=100, interval_s=0.1)
+
+    rss = [_rss_bytes()]
+
+    def events():
+        for i in range(n_events):
+            if interval_s > 0:
+                time.sleep(interval_s)
+            if i % 16 == 0:
+                rss.append(_rss_bytes())
+            yield (i, *pool[i % pool_events])
+
     try:
-        events = ((i, *pool[i % pool_events]) for i in range(n_events))
-        n = produce(events, queue, timeout=120.0)
+        n = produce(events(), queue, timeout=120.0)
+        rss.append(_rss_bytes())
     finally:
         queue.disconnect()
     if produced is not None:
         produced.value = n
+    if stats is not None:
+        from psana_ray_tpu_torch.cluster.telemetry import CLUSTER
+
+        sampled = [r for r in rss if r is not None]
+        stats.put({"peak_rss_bytes": max(sampled) if sampled else None,
+                   "cluster": CLUSTER.stats() if target.startswith("cluster://") else None})
     return n
+
+
+def _rss_bytes() -> Optional[int]:
+    """This process's resident set now, from ``/proc/self/statm`` (None
+    without it). ``ru_maxrss`` would not do: a ``spawn`` child's holds its
+    parent's peak at the fork, which the exec keeps."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
 
 
 class _Sender:
@@ -394,11 +449,11 @@ class ProducerRuntime:
         self._stop.set()
 
 
-# the JAX CLI's obs, autotune and cluster flags
+# the JAX CLI's obs and autotune flags
 NOT_PORTED_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
-    "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--cluster",
-    "--partitions", "--autotune", "--autotune_interval",
+    "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
+    "--autotune_interval",
 )
 
 
@@ -416,13 +471,15 @@ def parse_arguments(argv=None):
     p.add_argument("--uses_bad_pixel_mask", action="store_true")
     p.add_argument("--manual_mask_path", default=None)
     p.add_argument("--ray_address", "--address", dest="address", default="auto",
-                   help="auto (in-process), shm://[name] or tcp://host:port")
+                   help="auto (in-process), shm://[name], tcp://host:port or "
+                        "cluster://host:port,... (or --cluster)")
     p.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     p.add_argument("--queue_name", default="shared_queue")
     p.add_argument("--queue_size", type=int, default=100)
     p.add_argument("--num_consumers", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--log_level", default="INFO")
+    add_cluster_args(p)
     add_wire_args(p, producer=True)
     p.add_argument("--num_shards", type=int, default=1, help="local ingest workers")
     p.add_argument("--num_events", type=int, default=1024, help="synthetic events")
@@ -443,17 +500,17 @@ def parse_arguments(argv=None):
     )
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
     try:
-        transport = apply_wire_args(TransportConfig(
+        transport = apply_wire_args(apply_cluster_args(TransportConfig(
             address=a.address,
             namespace=a.namespace,
             queue_name=a.queue_name,
             queue_size=a.queue_size,
             num_consumers=a.num_consumers,
-        ), a)
+        ), a), a)
     except (TypeError, ValueError) as e:
-        p.error(f"--wire_codec/--wire_dtype: {e}")
+        p.error(f"--cluster/--wire_codec/--wire_dtype: {e}")
     return PipelineConfig(
         source=SourceConfig(
             exp=a.exp,
@@ -527,7 +584,7 @@ def main(argv=None):
         runtime.run(block=True)
     finally:
         queue = runtime._queue
-        if hasattr(queue, "flush_puts"):  # TCP: a clean goodbye to the server
+        if hasattr(queue, "flush_puts"):  # TCP, a cluster: a clean goodbye to the servers
             queue.disconnect()
     logger.info("producer done: %s", runtime.metrics.status_line())
 

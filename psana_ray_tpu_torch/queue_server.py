@@ -21,7 +21,10 @@ once the server listens. ``--shm NAME`` backs the queues with shm rings
 survive ``kill -9`` and restart (the boot re-exposes what lies above the
 committed offset, cutting a torn tail), depth beyond ``--ram_items``
 spills to the log and goes out by ``sendfile``, and consumers can
-``--replay`` the retained range. ``--workers N`` forks N servers that
+``--replay`` the retained range; the consumer groups that clients of
+``cluster://`` coordinate through this server (the 'N' RPC) are stored
+in ``DIR/groups.json`` (``DIR/groups-w<id>.json`` for a fleet's worker)
+and recovered at boot, in the JAX package's format. ``--workers N`` forks N servers that
 share the port by ``SO_REUSEPORT``; each named queue lives on one worker
 (rendezvous-pinned), connections migrate to it over ``SCM_RIGHTS``, and a
 worker that dies is forked again under its id, its queues recovered from
@@ -35,7 +38,10 @@ are flushed and unmapped, and the server stops. A second signal skips
 the rest of the drain. A fleet's parent forwards the signal to its
 workers, each of which drains so.
 
-The JAX command's replica, stall, obs and autotune flags are refused
+A cluster of these servers is an address list on the clients
+(``--cluster host:port,host:port``), the first server being the groups'
+coordinator; start it first. The JAX command's replica, stall, obs and
+autotune flags are refused
 (ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
 imports no torch.
 """
@@ -245,7 +251,11 @@ def _serve(a, worker_ctx=None, port=None) -> int:
     from psana_ray_tpu_torch.transport.workers import DEFAULT_QUEUE_WORKER
 
     queue_factory = None
+    group_store_path = None
     if a.durable_dir:
+        group_store_path = os.path.join(
+            a.durable_dir, "groups.json" if worker_ctx is None
+            else f"groups-w{worker_ctx.worker_id}.json")
         queue_factory = _durable_factory(a)
         if worker_ctx is None or worker_ctx.worker_id == DEFAULT_QUEUE_WORKER:
             backing = queue_factory("default", "default", a.queue_size)
@@ -269,7 +279,8 @@ def _serve(a, worker_ctx=None, port=None) -> int:
         backing = RingBuffer(a.queue_size)
     server = TcpQueueServer(backing, host=a.host, port=a.port if port is None else port,
                             maxsize=a.queue_size, queue_factory=queue_factory,
-                            max_conns=a.max_conns, worker_ctx=worker_ctx).serve_background()
+                            max_conns=a.max_conns, worker_ctx=worker_ctx,
+                            group_store_path=group_store_path).serve_background()
     if worker_ctx is not None:
         logger.info("worker %d of %d (pid %d) listening on %s:%d", worker_ctx.worker_id,
                     worker_ctx.n_workers, os.getpid(), a.host, server.port)

@@ -233,6 +233,14 @@ class EosTally:
         self._total = 1
         self._pending_dups: List[EndOfStream] = []
 
+    def markers(self) -> List[EndOfStream]:
+        """One marker for each producer rank observed: what a consumer hands
+        back to a queue it gives up mid-tally (a cluster rebalance revoking
+        a partly drained partition), so the new owner's tally sees the same
+        coverage. Held duplicates stay with :meth:`flush_duplicates`."""
+        return [EndOfStream(producer_rank=rank, shards_done=done, total_shards=self._total)
+                for rank, done in sorted(self._shards_by_rank.items())]
+
     @property
     def complete(self) -> bool:
         return sum(self._shards_by_rank.values()) >= self._total

@@ -27,11 +27,13 @@ The operator CLI, with the JAX package's flags and refusals:
         --cursor_path run42.cursor --cursor_stride 4
 
 It reads the stream over ``auto``, ``shm://`` or ``tcp://`` addresses
-(a queue server's connection, with no codec negotiated), serves a
+(a queue server's connection, with no codec negotiated), or from a
+cluster of queue servers (``--cluster host:port,host:port --partitions P``,
+``--group`` and ``--member_id`` for a consumer group), serves a
 parameter file of the port (an orbax tree of the JAX package goes
 through ``tools/convert_params.py`` first) and writes CXI. The JAX CLI's
-obs, autotune and cluster flags are refused: their modules are not
-ported (ROADMAP.md Queue 1 Item 8).
+obs and autotune flags are refused: their modules are not ported
+(ROADMAP.md Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -59,7 +61,11 @@ from psana_ray_tpu_torch.models.fused_unet import pack_unet, peaknet_tpu_fused_i
 from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate
-from psana_ray_tpu_torch.transport.addressing import open_queue
+from psana_ray_tpu_torch.transport.addressing import (
+    add_cluster_args,
+    apply_cluster_args,
+    open_queue,
+)
 from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
@@ -273,12 +279,12 @@ class SfxPipeline:
         return self.n_events - start
 
 
-# the JAX CLI's obs, autotune and cluster flags: refused, naming the item
-# that ports their modules
+# the JAX CLI's obs and autotune flags: refused, naming the item that
+# ports their modules
 NOT_PORTED_FLAGS = (
     "--metrics_port", "--metrics_host", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
-    "--autotune_interval", "--cluster", "--partitions", "--group", "--member_id",
+    "--autotune_interval",
 )
 
 
@@ -288,7 +294,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.sfx",
                                  description="stream -> calibrate -> PeakNet-TPU -> peaks -> CXI")
     ap.add_argument("--ray_address", "--address", dest="address", default="auto",
-                    help="auto (in-process), shm://[name] or tcp://host:port")
+                    help="auto (in-process), shm://[name], tcp://host:port or "
+                         "cluster://host:port,... (or --cluster)")
     ap.add_argument("--ray_namespace", "--namespace", dest="namespace", default="default")
     ap.add_argument("--queue_name", default="shared_queue")
     ap.add_argument("--output", required=True, help="CXI (HDF5) output path")
@@ -324,9 +331,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain versions; the card by default")
     ap.add_argument("--log_level", default="INFO")
+    add_cluster_args(ap, consumer=True)
     add_refused_flags(ap, NOT_PORTED_FLAGS)
     a = ap.parse_args(argv)
-    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the obs, autotune and cluster modules")
+    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
     return a
 
 
@@ -399,10 +407,12 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
         log.error("%s", e)
         return 1
 
-    config = TransportConfig(address=a.address, namespace=a.namespace, queue_name=a.queue_name)
     try:
+        # --cluster rewrites the address and carries the partitions and group
+        config = apply_cluster_args(TransportConfig(address=a.address, namespace=a.namespace,
+                                                    queue_name=a.queue_name), a)
         queue = open_queue(config, role="consumer")
-    except (NotImplementedError, TimeoutError, TransportClosed, ValueError) as e:
+    except (TimeoutError, TransportClosed, ValueError) as e:
         log.error("could not open queue %s: %s", a.queue_name, e)
         return 1
     stop = threading.Event()

@@ -1,7 +1,7 @@
 """Address schemes: one queue-opening surface for the port's transports.
 
-The port's own copy of ``shm_ring_name``, ``open_queue`` and the wire and
-tenant flags of ``psana_ray_tpu/transport/addressing.py``. The address string selects the
+The port's own copy of ``shm_ring_name``, ``open_queue`` and the cluster,
+wire and tenant flags of ``psana_ray_tpu/transport/addressing.py``. The address string selects the
 transport and the ``(namespace, queue_name)`` pair names the queue in it:
 
 - ``auto`` / ``local``: the in-process :class:`Registry` (threads of one
@@ -14,12 +14,17 @@ transport and the ``(namespace, queue_name)`` pair names the queue in it:
   (``python -m psana_ray_tpu_torch.queue_server``, or the JAX package's);
   the pair names a queue on that server, which the OPEN opcode gets or
   creates. The config's ``wire_codec`` and ``tenant`` ride the
-  connection's capability exchange.
+  connection's capability exchange;
+- ``cluster://host:port,host:port,...``: a sharded queue over N queue
+  servers (:mod:`psana_ray_tpu_torch.cluster`). The logical queue splits
+  into ``config.cluster_partitions`` partitions placed by rendezvous
+  hashing over the list, and the :class:`~psana_ray_tpu_torch.cluster.
+  client.ClusterClient` returned keeps the transport contract.
+  ``config.group`` enrolls a consumer in a consumer group; a producer
+  never joins one.
 
 Producers open with ``role="producer"`` (get-or-create), consumers with
-``role="consumer"`` (resolve with the config's retry loop). ``cluster://``
-addresses (the sharded queue service) are not ported: they raise
-``NotImplementedError`` naming ROADMAP.md Queue 1 Item 8.
+``role="consumer"`` (resolve with the config's retry loop).
 """
 
 from __future__ import annotations
@@ -36,6 +41,51 @@ def shm_ring_name(config: TransportConfig, address: Optional[str] = None) -> str
     address = address or config.address
     explicit = address[len("shm://"):] if address.startswith("shm://") else ""
     return explicit or f"{config.namespace}__{config.queue_name}"
+
+
+def add_cluster_args(parser, consumer: bool = False) -> None:
+    """The ``--cluster`` flags of the producer, consumer and SFX CLIs, with
+    the JAX package's spellings, defaults and help: pointing a CLI at a
+    sharded queue is an address-list change."""
+    parser.add_argument(
+        "--cluster", default=None, metavar="HOST:PORT,HOST:PORT",
+        help="queue-server cluster: shard the logical queue over these "
+        "servers (overrides --address with cluster://...). The FIRST "
+        "server doubles as the consumer-group coordinator. Every "
+        "producer and consumer of one stream must pass the same list "
+        "and --partitions",
+    )
+    parser.add_argument(
+        "--partitions", type=int, default=8,
+        help="partitions the logical queue shards into across the "
+        "cluster (fixed for the life of a stream)",
+    )
+    if consumer:
+        parser.add_argument(
+            "--group", default="",
+            help="consumer-group name: members share the stream with "
+            "disjoint partition assignments, rebalancing on "
+            "join/leave/death; empty = compete on all partitions",
+        )
+        parser.add_argument(
+            "--member_id", default="",
+            help="stable member id within --group (default: random per "
+            "process — fine unless you want sticky assignment)",
+        )
+
+
+def apply_cluster_args(config: TransportConfig, args) -> TransportConfig:
+    """Fold the ``--cluster`` flags into a config (as it is without
+    ``--cluster``); ``--partitions`` below 1 raises ValueError."""
+    import dataclasses
+
+    if not getattr(args, "cluster", None):
+        return config
+    if args.partitions < 1:
+        raise ValueError(f"--partitions must be at least 1, got {args.partitions}")
+    return dataclasses.replace(
+        config, address=f"cluster://{args.cluster}", cluster_partitions=args.partitions,
+        group=getattr(args, "group", "") or "", member_id=getattr(args, "member_id", "") or "")
 
 
 def add_wire_args(parser, producer: bool = False) -> None:
@@ -145,6 +195,7 @@ def open_queue(
             return ShmRingBuffer.attach(name, retries=config.rendezvous_retries,
                                         interval_s=config.rendezvous_interval_s)
 
+    codec = config.wire_codec if config.wire_codec not in ("", "none") else None
     if address.startswith("tcp://"):
         from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
 
@@ -153,13 +204,18 @@ def open_queue(
             raise ValueError(f"tcp address needs host:port, got {address!r}")
         return TcpQueueClient(
             host, int(port), namespace=config.namespace, queue_name=config.queue_name,
-            maxsize=config.queue_size,
-            codec=config.wire_codec if config.wire_codec not in ("", "none") else None,
-            tenant=config.tenant or None, tenant_weight=config.tenant_weight)
+            maxsize=config.queue_size, codec=codec, tenant=config.tenant or None,
+            tenant_weight=config.tenant_weight)
 
     if address.startswith("cluster://"):
-        raise NotImplementedError(
-            "cluster:// addresses (the sharded queue service) are not ported: ROADMAP.md "
-            "Queue 1 Item 8; use auto, shm:// or tcp://")
-    raise ValueError(f"unknown address {address!r}: expected auto, local, shm://[name] or "
-                     f"tcp://host:port")
+        from psana_ray_tpu_torch.cluster.client import ClusterClient
+
+        # a producer in the member list would hold partitions it never reads
+        group = config.group if role == "consumer" else ""
+        return ClusterClient(
+            address, namespace=config.namespace, queue_name=config.queue_name,
+            n_partitions=config.cluster_partitions, maxsize=config.queue_size,
+            group=group or None, member_id=config.member_id or None, codec=codec,
+            tenant=config.tenant or None, tenant_weight=config.tenant_weight)
+    raise ValueError(f"unknown address {address!r}: expected auto, local, shm://[name], "
+                     f"tcp://host:port or cluster://host:port,host:port,...")

@@ -52,9 +52,16 @@ blocking socket calls, no unbounded waits. The one put-back that can
 block (a queue without ``put_front``) runs on a short-lived helper
 thread.
 
+- 'N' carries the link probe's ping, answered in O(1), and the
+  consumer-group RPCs, which the server's :class:`~psana_ray_tpu_torch.
+  cluster.coordinator.GroupRegistry` answers. On a fleet, a group RPC on
+  a connection bound to no queue (the cluster client's coordinator link)
+  goes to the default queue's worker like any default-queue op, so one
+  registry serves every member.
+
 Not ported (ROADMAP.md Queue 1 Item 8): replication and its replica
-links ('H', 'V', 'Y'), the consumer groups of 'N' and the metrics
-federation RPC.
+links ('H', 'V', 'Y'), and the metrics federation RPC (answered as a
+request that names no group).
 """
 
 from __future__ import annotations
@@ -139,9 +146,6 @@ _STREAM_POP_MAX = 64
 _WDRR_QUANTUM = 8
 _TENANT_DEFAULT = "default"
 _TENANT_WEIGHT_MAX = 64
-# a consumer-group RPC's answer: this server keeps no groups
-_NO_GROUPS = {"ok": False, "error": "consumer groups are not served by this queue server "
-                                    "(ROADMAP.md Queue 1 Item 8)"}
 
 
 class _Wdrr:
@@ -902,9 +906,8 @@ class _EvConn:
 
     def _cluster_finish(self) -> None:
         """The link probe's ping answers in O(1) (its padded request is
-        what is timed); a malformed request or any consumer-group
-        operation gets ``{"ok": false, ...}``, as the JAX server answers a
-        group RPC it cannot serve."""
+        what is timed); every other request goes to the server's group
+        registry, and a malformed one gets ``{"ok": false, ...}``."""
         buf = self._open_buf
         if buf[:13] == b'{"op": "ping"':
             self._send_json({"ok": True, "nbytes": len(buf)})
@@ -914,10 +917,8 @@ class _EvConn:
             req = json.loads(buf.decode())
             if req.get("op") == "ping":
                 resp = {"ok": True, "nbytes": len(buf)}
-            elif not isinstance(req.get("group"), str) or not req.get("group"):
-                resp = {"ok": False, "error": "missing group"}
             else:
-                resp = _NO_GROUPS
+                resp = self.srv.groups.handle(req)
         except Exception as e:  # noqa: BLE001 (a bad RPC must not kill the loop)
             resp = {"ok": False, "error": repr(e)}
         self._send_json(resp)
@@ -1074,13 +1075,14 @@ _OPS: Dict[int, str] = {
 }
 
 # the ops a worker serves itself whatever queue it owns: the capability
-# exchange, the group RPC and the anchor (a worker's own answers), the
-# replica ops (refused anyway) and BYE. OPEN routes at its end, once the
-# name is read
+# exchange and the anchor (a worker's own answers), the replica ops
+# (refused anyway) and BYE. OPEN routes at its end, once the name is
+# read. The group RPC is not among them: on an unbound connection it
+# goes to the default queue's worker, whose registry is the fleet's one
 _WORKER_LOCAL_OPS = frozenset(
     op for op, handler in _OPS.items()
-    if handler in ("_op_open", "_op_codec", "_op_cluster", "_op_anchor", "_op_repl_open",
-                   "_op_promote", "_op_bye"))
+    if handler in ("_op_open", "_op_codec", "_op_anchor", "_op_repl_open", "_op_promote",
+                   "_op_bye"))
 
 
 class EventLoop:

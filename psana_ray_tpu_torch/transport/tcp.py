@@ -28,9 +28,10 @@ Wire protocol (little-endian):
               'O' open + ns_len:u16 + ns + name_len:u16 + name + maxsize:u32
               'T' stats of the bound queue
               'A' anchor + wall:f64 + mono:f64 (a clock exchange)
-              'N' group RPC + len:u32 + JSON; this server answers the
-                  link probe's ``{"op": "ping", ...}`` and refuses every
-                  consumer-group operation with ``{"ok": false, ...}``
+              'N' group RPC + len:u32 + JSON: the link probe's
+                  ``{"op": "ping", ...}``, or a consumer-group request to
+                  the server's :class:`~psana_ray_tpu_torch.cluster.
+                  coordinator.GroupRegistry` (its JSON answer)
               'R' replay-open + from:u64 + group_len:u16 + group: durable
                   queues only. This connection's reads (G/B/D) switch to a
                   non-destructive cursor over the bound queue's retained
@@ -387,9 +388,15 @@ class TcpQueueServer:
 
     def __init__(self, queue=None, host: str = "0.0.0.0", port: int = 0, maxsize: int = 100,
                  queue_factory=None, pool: Optional[BufferPool] = None, max_conns: int = 0,
-                 worker_ctx=None):
+                 worker_ctx=None, group_store_path: Optional[str] = None):
+        # imported here: the cluster's client half imports this module
+        from psana_ray_tpu_torch.cluster.coordinator import GroupRegistry
+
         self.queue = queue if queue is not None else RingBuffer(maxsize)
         self.worker_ctx = worker_ctx
+        # the consumer groups of the 'N' RPC; with a store path (the CLI's
+        # --durable_dir) they survive a restart
+        self.groups = GroupRegistry(store_path=group_store_path)
         self._maxsize = maxsize
         # every received payload lands in a recycled lease of this pool and
         # decodes zero-copy: a PUT's buffer is the memory a later GET sends from
@@ -929,6 +936,19 @@ class TcpQueueClient:
             self._stream = TcpStreamReader(self, window)
             return self._stream
 
+    def take_pushed(self, settle_s: float) -> List[Any]:
+        """Before a clean close of a streamed connection: the frames the
+        server has pushed and the caller has not been given yet, up to the
+        credit window, waiting at most ``settle_s`` for each one still in
+        transit. The caller owns them: :meth:`disconnect` acks them, so the
+        server does not put them back. [] when not streamed or the
+        connection is gone."""
+        st = self._stream
+        if st is None:
+            return []
+        with self._lock:
+            return st.take_pushed(settle_s)
+
     def get_batch_stream(self, max_items: int, timeout: Optional[float] = None) -> List[Any]:
         """What the server has pushed, up to ``max_items``, waiting at
         most ``timeout`` for the first (subscribing with the default window
@@ -1010,6 +1030,53 @@ class TcpQueueClient:
             self._sock.sendall(_OP_COMMIT + struct.pack("<QH", pos, len(g)) + g)
             return self._status() == _ST_OK
 
+        with self._lock:
+            return self._retrying(_do, deadline)
+
+    # -- the cluster's control plane ('N', 'Y') ------------------------------
+    def cluster_rpc(self, payload: dict, deadline: Optional[float] = None) -> dict:
+        """One consumer-group RPC ('N'): ``payload`` to the server's
+        :class:`~psana_ray_tpu_torch.cluster.coordinator.GroupRegistry`,
+        its JSON answer back. Control plane: fails fast
+        (``PROBE_DEADLINE_S``) so that a dead coordinator shows at once."""
+        if self._stream is not None:  # would break the push framing
+            return self._side_channel().cluster_rpc(payload, deadline)
+        body = json.dumps(payload).encode()
+
+        def _do():
+            self._sock.sendall(_OP_CLUSTER + struct.pack("<I", len(body)) + body)
+            self._status()
+            (n,) = struct.unpack("<I", _recv_exact(self._sock, 4))
+            return json.loads(_recv_exact(self._sock, n).decode())
+
+        if deadline is None:
+            deadline = time.monotonic() + self.PROBE_DEADLINE_S
+        with self._lock:
+            return self._retrying(_do, deadline)
+
+    def promote(self, namespace: str, queue_name: str,
+                deadline: Optional[float] = None) -> Optional[dict]:
+        """Ask the server to promote its replica log of ``(namespace,
+        queue_name)`` into the live queue ('Y'), as the cluster client does
+        on a partition's new owner before it opens the partition. Returns
+        the retained range ``{"start", "end"}``, or None when the server
+        holds no replica (every server of the port: replication is
+        ROADMAP.md Queue 1 Item 8), and then the partition starts empty
+        there. Control plane: fails fast."""
+        if self._stream is not None:
+            return self._side_channel().promote(namespace, queue_name, deadline)
+        ns, nm = namespace.encode(), queue_name.encode()
+
+        def _do():
+            self._sock.sendall(_OP_PROMOTE + struct.pack("<H", len(ns)) + ns
+                               + struct.pack("<H", len(nm)) + nm)
+            if self._status() != _ST_OK:
+                return None
+            start, end = struct.unpack("<QQ", _recv_exact(self._sock, 16))
+            return {"start": start, "end": end}
+
+        if deadline is None:
+            deadline = time.monotonic() + self.PROBE_DEADLINE_S
         with self._lock:
             return self._retrying(_do, deadline)
 
@@ -1289,9 +1356,10 @@ class TcpQueueClient:
                 deadline = time.monotonic() + self.PROBE_DEADLINE_S
                 if self._put_unacked:
                     self._drain_put_acks(0, deadline)
-                if self._stream is not None:
-                    self._stream.ack_consumed()
-                sock.sendall(_OP_BYE)
+                # the last ack and BYE in one write: the server reads both
+                # in one pass, so it pushes nothing between them
+                ack = b"" if self._stream is None else self._stream.consumed_ack()
+                sock.sendall(ack + _OP_BYE)
                 if self._stream is not None:
                     _discard_until_eof(sock, deadline)
         except (OSError, TransportClosed):
@@ -1335,10 +1403,35 @@ class TcpStreamReader:
 
     def ack_consumed(self):
         """Cumulative credit for everything returned so far."""
-        if self.delivered_seq > self.acked_seq:
-            self._c._sock.sendall(_OP_STREAM_ACK + struct.pack("<Q", self.delivered_seq))
-            self.acked_seq = self.delivered_seq
-            STREAM.acked_msg()
+        ack = self.consumed_ack()
+        if ack:
+            self._c._sock.sendall(ack)
+
+    def consumed_ack(self) -> bytes:
+        """The cumulative ack owed for what was returned (b"" if none),
+        counted as sent: the caller writes it."""
+        if self.delivered_seq <= self.acked_seq:
+            return b""
+        self.acked_seq = self.delivered_seq
+        STREAM.acked_msg()
+        return _OP_STREAM_ACK + struct.pack("<Q", self.delivered_seq)
+
+    def take_pushed(self, settle_s: float) -> List[Any]:
+        """See :meth:`TcpQueueClient.take_pushed`. The server pushes at
+        most ``window`` frames past the last ack, so reading stops there,
+        at the first ``settle_s`` that brings nothing, or at a dead or
+        closed connection."""
+        # guarded-by-caller: the client's _lock
+        out: List[Any] = []
+        while self.delivered_seq < self.acked_seq + self.window:
+            try:
+                item = self._read_push(settle_s)
+            except (TransportClosed, ConnectionError, socket.timeout, OSError):
+                break
+            if item is EMPTY:
+                break
+            out.append(item)
+        return out
 
     def _read_push(self, first_timeout: Optional[float]):
         """One pushed frame, or EMPTY when none starts within

@@ -4,7 +4,8 @@ imports with those modules made unimportable. Its shm ring runs on the
 port's own library, built from ``native/shmring.cpp``, never the JAX
 package's; a producer process that imports the host plane loads no
 torch, and neither does the queue server process, nor the parent and
-workers of a durable ``--workers 2`` fleet. ``chip_smoke.py`` refuses to
+workers of a durable ``--workers 2`` fleet, nor the cluster's client and
+coordinator. ``chip_smoke.py`` refuses to
 run without a card and outside a checkout."""
 
 import ast
@@ -164,6 +165,37 @@ def test_the_host_plane_loads_no_torch():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_cluster_loads_no_torch_and_nothing_of_the_jax_package():
+    """``cluster/`` with JAX and the JAX package unimportable: a producer
+    and a group member over two in-process servers, and the coordinator's
+    store, load neither torch nor JAX."""
+    code = (
+        "import os, sys, tempfile\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'psana_ray_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from psana_ray_tpu_torch.cluster import ClusterClient, GroupSession, PartitionMap\n"
+        "from psana_ray_tpu_torch.records import EndOfStream\n"
+        "from psana_ray_tpu_torch.transport.tcp import TcpQueueServer\n"
+        "store = os.path.join(tempfile.mkdtemp(), 'groups.json')\n"
+        "srvs = [TcpQueueServer(host='127.0.0.1', group_store_path=store).serve_background(),\n"
+        "        TcpQueueServer(host='127.0.0.1').serve_background()]\n"
+        "addrs = [f'127.0.0.1:{s.port}' for s in srvs]\n"
+        "p = ClusterClient(addrs, n_partitions=2)\n"
+        "assert p.put({'frame': 1}) and p.put(EndOfStream())\n"
+        "m = ClusterClient(addrs, n_partitions=2, group='g')\n"
+        "assert m.get_batch_stream(4, timeout=5) == [{'frame': 1}]\n"
+        "while not m.get_batch_stream(4, timeout=1):\n"
+        "    pass\n"
+        "p.disconnect(); m.disconnect()\n"
+        "assert os.path.exists(store)\n"
+        "print(sorted(m for m, v in sys.modules.items()\n"
+        "             if v is not None and m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_the_queue_server_process_loads_no_torch():

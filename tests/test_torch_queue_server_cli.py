@@ -10,7 +10,10 @@ server, and the port's producer feeds the JAX consumer through the JAX
 server. ``--shm`` backs a named queue with the ring a local consumer
 attaches to. SIGTERM drains and exits 0, and the server process loads no
 torch. The flags are the JAX command's; those of modules the port has not
-ported exit 2 naming ROADMAP.md Item 8.
+ported exit 2 naming ROADMAP.md Item 8. Over ``cluster://`` (two servers,
+``--cluster A,B --partitions 4``) the producer CLI feeds a consumer group
+of two consumer CLIs, of the port or one of each package, every frame
+once; the cluster flags are the JAX command's.
 """
 
 import argparse
@@ -328,3 +331,72 @@ def test_jax_producer_into_a_port_durable_fleet_into_a_port_consumer(tmp_path):
     assert received == dict(enumerate(want)) and _ends(out[1][1]) == [24]
     assert code == 0 and server_out.count("queue server stopped") == 3, server_out[-2000:]
     assert not _imported(server_out) & {"torch", "jax", "psana_ray_tpu"}
+
+
+# -- cluster:// through the CLIs -----------------------------------------------
+@pytest.mark.parametrize("consumers", [(PORT, PORT), (JAX, PORT)])
+def test_clis_over_a_two_server_cluster(consumers, tmp_path):
+    """``--cluster A,B --partitions 4``: the port's producer CLI replays the
+    file in two shards into 4 partitions over two port servers (the first
+    with ``--durable_dir``, so the group's store is written), and two
+    consumer CLIs of group ``audit`` (``--stream``) take two partitions
+    each: every frame's CRC-32 arrives once across them, each ends on one
+    EOS, and no port process loads torch or JAX."""
+    npz, want = _replay(tmp_path, n=32)
+    servers = [_Server(PORT, "--durable_dir", str(tmp_path / "a"), "--segment_bytes",
+                       str(1 << 20)), _Server(PORT)]
+    cluster = ",".join(f"127.0.0.1:{s.port}" for s in servers)
+    flags = ("--cluster", cluster, "--partitions", "4")
+    try:
+        out = _run(
+            [sys.executable, "-X", "importtime", *_producer(PORT, "auto", "--exp",
+                                                            f"replay:{npz}", *flags, events=32,
+                                                            shards=2)[1:]],
+            # the JAX consumer logs each frame (no CRC); the port's its CRC-32 at DEBUG
+            [[sys.executable, "-X", "importtime",
+              *[f for f in _consumer(pkg, "auto", c, *flags, "--group", "audit", "--member_id",
+                                     f"m{c}", "--stream", "--log_level", "DEBUG")[1:]
+                if pkg == PORT or f != "--quiet"]]
+             for c, pkg in enumerate(consumers)], lead_s=3.0)
+    finally:
+        stopped = [s.stop() for s in servers]
+    tails = [text[-1500:] for _, text in out]
+    assert [c for c, _ in out] == [0, 0, 0], tails
+    received = {}
+    for (_, text), pkg in zip(out[1:], consumers):
+        assert len(_ends(text)) == 1, text[-1500:]
+        lines = (re.findall(r"consumer \d+: rank=\d+ idx=(\d+) crc32=([0-9a-f]{8})", text)
+                 if pkg == PORT else
+                 [(i, None) for i in re.findall(r"consumer \d+: rank=\d+ idx=(\d+) shape=",
+                                                text)])
+        assert lines, f"a member got no partition: {text[-1500:]}"
+        for idx, crc in lines:
+            assert int(idx) not in received
+            received[int(idx)] = want[int(idx)] if crc is None else int(crc, 16)
+    assert received == dict(enumerate(want))
+    for code, text in stopped:
+        assert code == 0 and not _imported(text) & {"torch", "jax", "psana_ray_tpu"}
+    for (_, text), pkg in zip(out, (PORT, *consumers)):
+        if pkg == PORT:
+            assert not _imported(text) & {"torch", "jax", "psana_ray_tpu"}
+    with open(tmp_path / "a" / "groups.json") as f:
+        group = __import__("json").load(f)["groups"]["audit"]
+    assert group["drained"] == [0, 1, 2, 3] and group["generation"] >= 2
+
+
+@pytest.mark.parametrize("consumer", [False, True])
+def test_cluster_flags_match_the_jax_command(consumer):
+    """``--cluster``, ``--partitions`` (8), ``--group`` and ``--member_id``:
+    the JAX command's spellings, defaults, types and help."""
+    from psana_ray_tpu.transport.addressing import add_cluster_args as jax_args
+    from psana_ray_tpu_torch.transport.addressing import add_cluster_args
+
+    def actions(add):
+        p = argparse.ArgumentParser()
+        add(p, consumer=consumer)
+        return [(a.option_strings, a.dest, a.default, a.type, a.help, a.metavar)
+                for a in p._actions if a.option_strings != ["-h", "--help"]]
+
+    ours = actions(add_cluster_args)
+    assert ours == actions(jax_args)
+    assert len(ours) == (4 if consumer else 2) and ours[1][2] == 8

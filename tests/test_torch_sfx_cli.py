@@ -11,8 +11,9 @@ match a peak of the other within 1 px (the SFX tolerance of
 ``tests/test_torch_sfx.py``). In-process: the ``--mode`` and
 ``--features`` refusals and the h5py check come before any queue is
 opened; a fresh run refuses an existing output and a resumed one appends;
-``--max_events`` drains the batch in flight; each obs, autotune and
-cluster flag of the JAX CLI is refused naming ROADMAP.md Item 8.
+``--max_events`` drains the batch in flight; each obs and autotune flag
+of the JAX CLI is refused naming ROADMAP.md Item 8, and the cluster
+flags serve a consumer group over two queue servers.
 """
 
 import importlib.util
@@ -225,19 +226,17 @@ def test_an_orbax_tree_is_refused_naming_the_tool(trees, tmp_path, no_queue, cap
     assert "tools/convert_params.py" in caplog.text
 
 
-@pytest.mark.parametrize("address", ["tcp://localhost:5555", "cluster://a:1"])
+@pytest.mark.parametrize("address", ["tcp://localhost:5555"])
 def test_tcp_address_refused_naming_item_8(init_params, tmp_path, address, caplog):
-    """``cluster://`` is refused naming Item 8. ``tcp://`` is served now:
-    with no server listening on the address's port (a port just bound and
-    closed) the CLI exits 1 naming the queue it could not open."""
-    if address.startswith("tcp://"):
-        import socket
+    """With no server listening on the address's port (a port just bound
+    and closed) the CLI exits 1 naming the queue it could not open."""
+    import socket
 
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            address = address.replace("localhost:5555", f"127.0.0.1:{s.getsockname()[1]}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = address.replace("localhost:5555", f"127.0.0.1:{s.getsockname()[1]}")
     assert sfx.main(_args(init_params, tmp_path / "x.cxi", "--address", address)) == 1
-    assert ("Item 8" if address.startswith("cluster") else "could not open queue") in caplog.text
+    assert "could not open queue" in caplog.text
 
 
 @pytest.mark.parametrize("flag", sfx.NOT_PORTED_FLAGS)
@@ -252,6 +251,44 @@ def test_obs_autotune_and_cluster_flags_refused_naming_item_8(init_params, tmp_p
         sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag))
     assert e.value.code != 0
     assert "Item 8" in capsys.readouterr().err
+
+
+def test_cluster_flags_serve_one_group_member(init_params, stream, tmp_path):
+    """``--cluster A,B --partitions 2 --group sfx`` reads a queue sharded
+    over two queue servers as a member of group ``sfx``: every event is
+    written once, and the coordinator (the first server) holds the group."""
+    from psana_ray_tpu_torch.cluster import ClusterClient
+    from psana_ray_tpu_torch.transport.tcp import TcpQueueServer
+
+    events, calib_npz = stream
+    servers = [TcpQueueServer(host="127.0.0.1", port=0).serve_background() for _ in range(2)]
+    addrs = ",".join(f"127.0.0.1:{s.port}" for s in servers)
+    try:
+        prod = ClusterClient(addrs, queue_name="sfx_cluster", n_partitions=2)
+        pt.produce(events, prod)
+        prod.disconnect()
+
+        class Sink:
+            max_peaks = 32
+
+            def __init__(self):
+                self.sets = []
+
+            def append(self, sets):
+                self.sets.extend(sets)
+
+        sink = Sink()
+        args = sfx.parse_args(_args(init_params, tmp_path / "x.cxi", "--queue_name",
+                                    "sfx_cluster", "--calib_npz", calib_npz, "--batch", "2",
+                                    "--cluster", addrs, "--partitions", "2", "--group", "sfx",
+                                    "--member_id", "m0"))
+        assert sfx.run(args, writer=sink) == 0
+        assert sorted(s.event_idx for s in sink.sets) == list(range(N_EVENTS))
+        info = servers[0].groups.handle({"op": "info", "group": "sfx"})
+        assert info["drained"] == [0, 1] and info["members"] == []  # it left at the end
+    finally:
+        for srv in servers:
+            srv.shutdown()
 
 
 def _feed(events, queue_name):

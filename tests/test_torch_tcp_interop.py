@@ -203,10 +203,9 @@ def test_left_out_opcodes_answer_as_the_jax_server_without_the_feature(case):
 
 
 def test_group_rpc_answers():
-    """N: the link probe's ping and a request naming no group are
-    answered exactly as the JAX server answers them; a consumer-group
-    operation gets ``{"ok": false, ...}`` (this server keeps no groups),
-    which the JAX client's ``cluster_rpc`` decodes."""
+    """N: the link probe's ping, a request naming no group and a
+    consumer-group join (through the JAX client's ``cluster_rpc``) are
+    answered exactly as the JAX server answers them."""
     servers = [mod.TcpQueueServer(ring(4), host="127.0.0.1").serve_background()
                for mod, ring in ((jax_tcp, JaxRing), (port_tcp, RingBuffer))]
     try:
@@ -217,10 +216,13 @@ def test_group_rpc_answers():
                 assert jax_answer["ok"] is port_answer["ok"] is False
             else:
                 assert jax_answer == port_answer, req
-        c = jax_tcp.TcpQueueClient("127.0.0.1", servers[1].port, **FAST)
-        answer = c.cluster_rpc({"op": "join", "group": "g", "member": "m"})
-        assert answer["ok"] is False and "Item 8" in answer["error"]
-        c.disconnect()
+        joined = []
+        for s in servers:
+            c = jax_tcp.TcpQueueClient("127.0.0.1", s.port, **FAST)
+            joined.append(c.cluster_rpc({"op": "join", "group": "g", "member": "m",
+                                         "n_partitions": 2}))
+            c.disconnect()
+        assert joined[0] == joined[1] and joined[1]["ok"] and joined[1]["members"] == ["m"]
     finally:
         for s in servers:
             s.shutdown()
