@@ -226,6 +226,31 @@ one JSON line (``{"phase": ...}``):
    holds the group at generation 2 or more with every partition drained;
    no process imports torch or JAX. Prints frames/s and the members'
    partitions and frames.
+6n. ``replicated_end_to_end``: two durable queue servers (``--workers 1
+   --durable_dir``) on ports chosen before they start, each with
+   ``--replicate_peers A,B --advertise <its own>``, a queue name that
+   splits 2 + 2; then the same pair without ``--replicate_peers``. In
+   each turn this process puts 6 batches and an EOS with windowed puts
+   and ends (timed: the put rate, each answer held until the follower
+   logged the frame when replicated; and each server's CPU over the puts,
+   in cores), then serves them as the one member of group ``serve``:
+   every event once, one EOS, launches exact, one host copy a frame, the
+   last batch within ``rel_err < 0.05``; the replicated servers may not
+   degrade. Prints both turns' put rates, served frames/s and their
+   ratios, ``host_batch_ms``, the records and bytes shipped (the
+   servers' ``replication counters`` lines) and each log directory's peak
+   bytes.
+6o. ``replicated_failover``: a replicated pair whose partitions hold the
+   whole stream (10 batches): a ``spawn`` producer process puts every
+   frame and its EOS and exits; then this process serves as member
+   ``m0`` (stream window 8), and after its first batch the second server
+   (not the coordinator) is killed with ``SIGKILL``. Each moved
+   partition's 'Y' must answer a range, every event arrive with its
+   frame equal to the pool's on the card, the duplicates stay within the
+   put and stream windows plus ``FLOOR_COMMIT_STRIDE`` a moved partition,
+   one EOS, K1–K3 once a batch, the last batch within ``rel_err < 0.05``.
+   Prints the promotions' ms, the failover's detection and latency and
+   the duplicates.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -512,6 +537,13 @@ CLUSTER_JOIN_AFTER, CLUSTER_KILL_AFTER = 2, 5  # cluster_failover: batches befor
 # still sending at the kill
 CLUSTER_RATE_HZ = 60.0
 CLUSTER_LEAD_S = 3.0  # passthrough_cluster: both members join before the first frame
+REPL_WARMUP, REPL_BATCHES = 2, 4  # replicated_end_to_end: each turn's batches
+# replicated_failover: the whole stream fits the partitions, and is longer than
+# what the member can have taken in at the kill (a batch served, the arenas and
+# the stream windows)
+REPL_FAILOVER_BATCHES = 10
+REPL_KILL_AFTER = 1  # replicated_failover: batches served before the owner is killed
+REPL_STREAM_WINDOW = 8  # replicated_failover: the member's stream credits a partition
 DURABLE_SEGMENT_BYTES = 64 * 1024 * 1024  # the JAX defaults: 64 MiB segments, 8 retained
 DURABLE_RETAIN = 8
 FAILOVER_WARMUP, FAILOVER_BATCHES = 2, 8  # durable_failover's batches
@@ -1808,14 +1840,16 @@ def relayed_frames(out, queue_name):
 
 
 def cluster_serving_run(torch, pt, pool, step, device, pmap, cluster, n_batches, on_result,
-                        warmup, exact=True, interval_s=0.0, on_client=None):
+                        warmup, exact=True, interval_s=0.0, on_client=None,
+                        queue_size=CLUSTER_QUEUE_SIZE, stream_window=TCP_STREAM_WINDOW):
     """One run of the ResNet serving path fed through ``cluster://``: a
     ``spawn`` producer process (``produce_synthetic``) putting ``warmup +
     n_batches`` batches of the pool into ``CLUSTER_PARTITIONS`` partitions
     of ``pmap.queue_name`` with windowed puts, keeping ``CLUSTER_RETAIN``
     frames a partition, and this process the single member ``m0`` of group
-    ``serve``, streamed (``stream_open(32)``), once the partitions are
-    full, through ``InfeedPipeline`` into ``step``. Returns the pipeline,
+    ``serve``, streamed (``stream_open(stream_window)``), once the partitions are
+    full (``queue_size`` frames each), through ``InfeedPipeline`` into
+    ``step``. Returns the pipeline,
     the wall and fill seconds, the launch counts, the producer's stats and
     the frames the pipeline took."""
     import multiprocessing as mp
@@ -1833,9 +1867,8 @@ def cluster_serving_run(torch, pt, pool, step, device, pmap, cluster, n_batches,
                                    partitions=CLUSTER_PARTITIONS, retain=CLUSTER_RETAIN,
                                    stats=stats, interval_s=interval_s))
     config = pt.TransportConfig(address=address, queue_name=pmap.queue_name,
-                                cluster_partitions=CLUSTER_PARTITIONS,
-                                queue_size=CLUSTER_QUEUE_SIZE)
-    full = CLUSTER_PARTITIONS * CLUSTER_QUEUE_SIZE
+                                cluster_partitions=CLUSTER_PARTITIONS, queue_size=queue_size)
+    full = CLUSTER_PARTITIONS * queue_size
     client = monitor = None
     producer_stats = {}
     eos_before = CLUSTER.stats()["eos_aggregated_total"]
@@ -1854,7 +1887,7 @@ def cluster_serving_run(torch, pt, pool, step, device, pmap, cluster, n_batches,
 
         client = pt.open_queue(dataclasses.replace(config, group="serve", member_id="m0"),
                                role="consumer")
-        client.stream_open(TCP_STREAM_WINDOW)
+        client.stream_open(stream_window)
         if on_client is not None:
             on_client(client, proc)
         pt.reset_counters()
@@ -2191,6 +2224,304 @@ def phase_passthrough_cluster(pt, root, npz):
 
 
 # -- phase 7 ---------------------------------------------------------------
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def replicated_pair(root, tag, replicate=True, queue_size=CLUSTER_QUEUE_SIZE, segments=40):
+    """Two queue server CLIs (``--workers 1 --durable_dir``, the coordinator
+    first) on ports chosen before they start, so that with ``replicate``
+    each is given ``--replicate_peers A,B --advertise <its own>`` spelled as
+    in the list. Returns the servers, the addresses, the log directories
+    and a :class:`DirPeak` on each."""
+    ports = [free_port(), free_port()]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    servers, dirs = [], []
+    try:
+        for i, port in enumerate(ports):
+            d, _ = durable_dir(root, f"{tag}{i}", segments)
+            dirs.append(d)
+            extra = (["--replicate_peers", ",".join(addrs), "--advertise", addrs[i]]
+                     if replicate else [])
+            servers.append(QueueServerCLI(root, "--queue_size", str(queue_size), "--workers", "1",
+                                          "--port", str(port), "--durable_dir", d, *extra))
+    except BaseException:
+        for srv in servers:
+            srv.stop()
+        raise
+    return servers, addrs, dirs, [DirPeak(d) for d in dirs]
+
+
+def repl_counters(out):
+    """A stopped server's ``REPL`` counters (its ``replication counters`` line)."""
+    import re
+
+    m = re.search(r"replication counters (\{.*\})", out)
+    return json.loads(m.group(1)) if m else None
+
+
+def cpu_seconds(pid):
+    """User + system CPU seconds of process ``pid`` so far (every thread),
+    from ``/proc/<pid>/stat``; None without it."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def put_stream(pt, pool, pmap, addrs, n):
+    """The producer's side of a turn: ``n`` frames of the pool and one EOS
+    into ``pmap.queue_name``'s partitions with windowed puts from this
+    process, flushed, then the client closed (the producer has ended).
+    Returns its put rate, frames/s: no consumer runs meanwhile and the
+    partitions hold every frame, so nothing but the servers paces it."""
+    from psana_ray_tpu_torch.cluster import ClusterClient
+
+    client = ClusterClient(addrs, queue_name=pmap.queue_name, n_partitions=CLUSTER_PARTITIONS)
+    try:
+        records = [pt.FrameRecord(0, i, pool[i % len(pool)], 9.0) for i in range(n)]
+        t0 = time.monotonic()
+        for r in records:
+            if not client.put_pipelined(r, deadline=time.monotonic() + 60):
+                raise AssertionError("a windowed put was refused")
+        if not client.flush_puts(time.monotonic() + 60):
+            raise AssertionError("the windowed puts were not all answered")
+        fps = n / (time.monotonic() - t0)
+        if not client.put_wait(pt.EndOfStream(0, -1, 1, 1), timeout=60):
+            raise AssertionError("the EOS was refused")
+        return fps
+    finally:
+        client.disconnect()
+
+
+def serve_member(torch, pt, step, device, pmap, addrs, queue_size, on_result, warmup):
+    """The consumer's side of a turn: this process the single member
+    ``m0`` of group ``serve``, streamed, through ``InfeedPipeline`` into
+    ``step`` until the group's EOS. Returns the pipeline, the wall
+    seconds, the launch counts and the frames taken."""
+    import dataclasses
+
+    from psana_ray_tpu_torch.cluster import CLUSTER
+
+    config = pt.TransportConfig(address="cluster://" + ",".join(addrs),
+                                queue_name=pmap.queue_name, cluster_partitions=CLUSTER_PARTITIONS,
+                                queue_size=queue_size, group="serve", member_id="m0")
+    eos_before = CLUSTER.stats()["eos_aggregated_total"]
+    client = pt.open_queue(config, role="consumer")
+    try:
+        client.stream_open(TCP_STREAM_WINDOW)
+        pt.reset_counters()
+        pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=warmup))
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        wall = time.monotonic() - t0
+        counts = pt.counts()
+    finally:
+        client.disconnect()
+    if CLUSTER.stats()["eos_aggregated_total"] - eos_before != 1:
+        raise AssertionError("the member did not end on one EOS")
+    return pipe, wall, counts, seen
+
+
+def phase_replicated_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """Config 4 through two queue servers that chain-replicate their
+    durable partition logs (``--replicate_peers A,B``), then through the
+    same pair without replication, one turn each. A turn: this process
+    puts ``(REPL_WARMUP + REPL_BATCHES)`` batches of the pool and an EOS
+    with windowed puts (every answer waits until the follower has logged
+    the frame when replicated) and ends, timed; then serves them as the
+    group's one member: every event once and one EOS, launches once a
+    batch, one host copy a frame, the last batch's frames the pool's and
+    its logits within ``rel_err < 0.05`` of the plain path. The replicated
+    servers may not degrade. Prints the put rates, the served frames/s and
+    their ratios, each server's CPU over the puts (in cores),
+    ``host_batch_ms``, the records and bytes shipped, and each log
+    directory's peak size."""
+    import shutil
+
+    step = make_step(torch, pt, consts, params)
+    n_events = (REPL_WARMUP + REPL_BATCHES) * BATCH
+    queue_size = n_events // CLUSTER_PARTITIONS + 4  # a partition's frames, its EOS, room
+    frames_a_segment = DURABLE_SEGMENT_BYTES // pool[0].nbytes
+    segments = CLUSTER_PARTITIONS * (queue_size // frames_a_segment + 3)
+    runs, counts_all = {}, None
+    for replicate in (True, False):
+        label = "replicated" if replicate else "unreplicated"
+        servers, addrs, dirs, peaks = replicated_pair(root, f"r2e_{label}", replicate,
+                                                      queue_size, segments)
+        pmap = cluster_queue(addrs, prefix="repl")
+        last, seen_idx = {}, []
+        try:
+            cpu0 = [cpu_seconds(srv.proc.pid) for srv in servers]
+            t_put = time.monotonic()
+            put_fps = put_stream(pt, pool, pmap, addrs, n_events)
+            put_wall = time.monotonic() - t_put
+            # each server's CPU over the puts, in cores: near 1 means its
+            # one loop thread was the bound
+            put_cores = [None if a is None or b is None else (b - a) / put_wall
+                         for a, b in zip(cpu0, (cpu_seconds(srv.proc.pid) for srv in servers))]
+            pipe, wall, counts, seen = serve_member(torch, pt, step, device, pmap, addrs,
+                                                    queue_size, collect_batches(last, seen_idx),
+                                                    REPL_WARMUP)
+        finally:
+            stopped = [srv.stop() for srv in servers]
+            dir_peaks = [pk.stop() for pk in peaks]
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+        if any(code != 0 for code, _ in stopped) or sorted(seen_idx) != list(range(n_events)):
+            raise AssertionError(f"{label}: server exits {[c for c, _ in stopped]}; "
+                                 f"{len(seen_idx)} deliveries of {n_events} events")
+        nb = REPL_WARMUP + pipe.metrics.batches.count
+        check_resnet_counts(counts, nb)
+        staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+        check_last_frames(torch, pool, last, device)
+        errs = check_resnet_result(torch, pt, model, consts, last)
+        repl = [repl_counters(out) for _, out in stopped]
+        if replicate:
+            if any(r is None for r in repl) or any(r["degrades"] for r in repl):
+                raise AssertionError(f"replication counters {repl}: a link degraded")
+            if sum(r["records_shipped"] for r in repl) < n_events:
+                raise AssertionError(f"{sum(r['records_shipped'] for r in repl)} records "
+                                     f"shipped for {n_events} put")
+        elif any(r is not None for r in repl):
+            raise AssertionError(f"an unreplicated server logged replication: {repl}")
+        summary = pipe.metrics.summary()
+        runs[label] = dict(
+            put_fps=put_fps, put_server_cores=put_cores, served_fps=summary["fps"],
+            served_wall_fps=seen / wall, batches=nb,
+            wall_s=wall, p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+            host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+            records_shipped=sum(r["records_shipped"] for r in repl) if replicate else 0,
+            bytes_shipped=sum(r["bytes_shipped"] for r in repl) if replicate else 0,
+            degraded=sum(r["degrades"] for r in repl) if replicate else 0,
+            floor_refreshes=sum(r["floor_refreshes"] for r in repl) if replicate else 0,
+            dir_peak_bytes=[pk["allocated_bytes"] for pk in dir_peaks],
+            dirs_peak_bytes=sum(pk["allocated_bytes"] for pk in dir_peaks),
+            launches=counts, **staging, **errs)
+        counts_all = counts if counts_all is None else {
+            k: counts_all[k] + counts[k] for k in counts}
+    r, u = runs["replicated"], runs["unreplicated"]
+    emit("replicated_end_to_end", partitions=CLUSTER_PARTITIONS, queue_size=queue_size,
+         events=n_events, frame_bytes=pool[0].nbytes, put_fps_ratio=r["put_fps"] / u["put_fps"],
+         served_fps_ratio=r["served_fps"] / u["served_fps"], **runs)
+    return counts_all
+
+
+def phase_replicated_failover(torch, pt, pool, consts, model, params, device, root):
+    """Config 4 through a replicated pair whose partitions hold the whole
+    stream (``REPL_FAILOVER_BATCHES`` batches): the ``spawn`` producer puts
+    every frame and its EOS and exits; the member ``m0`` then serves, and
+    after ``REPL_KILL_AFTER`` batches the second server (not the
+    coordinator, owner of two partitions) is killed with ``SIGKILL``. The
+    member fails over and each moved partition's 'Y' must answer a range;
+    every event must arrive, each frame the pool's byte for byte on the
+    card, with at most the put and stream windows plus
+    ``FLOOR_COMMIT_STRIDE`` of duplicates a moved partition, and one EOS;
+    launches once a batch, the last batch within ``rel_err < 0.05``. Prints
+    the promotions' ms on the survivor, the failover latency (the kill to
+    the first frame read from a moved partition's new owner) and the
+    duplicates."""
+    import re
+    import shutil
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.cluster import CLUSTER
+    from psana_ray_tpu_torch.cluster.replication import FLOOR_COMMIT_STRIDE
+    from psana_ray_tpu_torch.transport.tcp import DEFAULT_STREAM_WINDOW
+
+    n_events = REPL_FAILOVER_BATCHES * BATCH
+    per_partition = n_events // CLUSTER_PARTITIONS
+    # the frames, their EOS markers and a little room; each server holds two
+    # partitions' logs and two replicas
+    queue_size = per_partition + 4
+    frames_a_segment = DURABLE_SEGMENT_BYTES // pool[0].nbytes
+    segments = CLUSTER_PARTITIONS * (per_partition // frames_a_segment + 3)
+    servers, addrs, dirs, peaks = replicated_pair(root, "rfo", True, queue_size, segments)
+    pmap = cluster_queue(addrs, prefix="rfo")
+    moved = sorted(pmap.partitions_on(addrs[1]))
+    print(f"replicated_failover: queue {pmap.queue_name}, partitions "
+          f"{ {a: list(pmap.partitions_on(a)) for a in addrs} }", flush=True)
+    step = make_step(torch, pt, consts, params)
+    pool_dev = torch.from_numpy(np.stack(pool)).to(device)
+    last, seen_idx, state = {}, [], {"batches": 0, "mismatch": []}
+    keep = collect_batches(last, seen_idx)
+    before = CLUSTER.stats()
+
+    def on_client(client, producer):
+        producer.join(timeout=120)  # every frame and EOS put: the producer has ended
+        state["producer_exit"] = producer.exitcode
+
+    def on_result(out, batch):
+        keep(out, batch)
+        n = batch.num_valid
+        idx = batch.event_idx[:n]
+        want = pool_dev[idx.to(device) % len(pool)]
+        if not torch.equal(want, batch.frames[:n]):
+            state["mismatch"].append(idx.tolist())
+        state["batches"] += 1
+        if state["batches"] == REPL_KILL_AFTER:
+            state["t_kill"] = time.time()
+            servers[1].proc.kill()
+
+    try:
+        pipe, wall, _, counts, producer, seen = cluster_serving_run(
+            torch, pt, pool, step, device, pmap, ",".join(addrs), REPL_FAILOVER_BATCHES,
+            on_result, 0, exact=False, on_client=on_client, queue_size=queue_size,
+            stream_window=REPL_STREAM_WINDOW)
+        telemetry = CLUSTER.stats()
+    finally:
+        stopped = [srv.stop() for srv in servers]
+        dir_peaks = [pk.stop() for pk in peaks]
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    survivor = stopped[0][1]
+    promotes = [json.loads(m) for m in re.findall(r"replica_promote (\{.*?\})", survivor)]
+    requested = telemetry["promotes_requested_total"] - before["promotes_requested_total"]
+    served = telemetry["promotes_served_total"] - before["promotes_served_total"]
+    if state.get("producer_exit") != 0 or stopped[0][0] != 0:
+        raise AssertionError(f"producer exit {state.get('producer_exit')}, survivor exit "
+                             f"{stopped[0][0]}: {survivor[-3000:]}")
+    if not (requested == served == len(moved) and len(promotes) == len(moved)
+            and all(p["end"] > p["start"] for p in promotes)):
+        raise AssertionError(f"promotions: {requested} asked, {served} answered with a range, "
+                             f"{promotes} on the survivor, {len(moved)} partitions moved")
+    t_map, t_first = telemetry["failover_at"], telemetry["first_moved_frame_at"]
+    if t_map is None or t_first is None or not state["t_kill"] < t_map <= t_first:
+        raise AssertionError(f"the failover's times: kill {state['t_kill']}, map change "
+                             f"{t_map}, first frame from a new owner {t_first}")
+    dups = len(seen_idx) - len(set(seen_idx))
+    bound = (DEFAULT_STREAM_WINDOW + REPL_STREAM_WINDOW + FLOOR_COMMIT_STRIDE) * len(moved)
+    if set(seen_idx) != set(range(n_events)) or dups > bound or state["mismatch"]:
+        raise AssertionError(f"{len(set(seen_idx))} of {n_events} events, {dups} duplicates "
+                             f"(at most {bound}), frames unlike the pool's in "
+                             f"{state['mismatch'][:2]}; missing "
+                             f"{sorted(set(range(n_events)) - set(seen_idx))[:16]}")
+    if telemetry["eos_aggregated_total"] - before["eos_aggregated_total"] != 1:
+        raise AssertionError("the member did not end on one EOS")
+    nb = pipe.metrics.batches.count
+    check_resnet_counts(counts, nb)
+    errs = check_resnet_result(torch, pt, model, consts, last)
+    emit("replicated_failover", servers=addrs, queue=pmap.queue_name,
+         partition_map={a: list(pmap.partitions_on(a)) for a in addrs}, moved_partitions=moved,
+         events=n_events, queue_size=queue_size, producer_ended_before_kill=True,
+         promotes=promotes, promote_ms=[p["ms"] for p in promotes],
+         failover_detect_s=t_map - state["t_kill"], failover_latency_s=t_first - state["t_kill"],
+         deliveries=len(seen_idx), duplicates=dups, duplicates_bound=bound,
+         survivor_replication=repl_counters(survivor),
+         dir_peak_bytes=[pk["allocated_bytes"] for pk in dir_peaks], batches=nb, wall_s=wall,
+         fps=pipe.metrics.summary()["fps"], launches=counts, **errs)
+    return counts
 
 
 def _conv3x3_cost(m_out, cin, n, m_in, affine=True):
@@ -4017,6 +4348,10 @@ def main() -> int:
         cluster_failover_counts = phase_cluster_failover(torch, pt, pool, consts, model,
                                                          params, device, root)
         phase_passthrough_cluster(pt, root, npz)
+        repl_counts = phase_replicated_end_to_end(torch, pt, pool, consts, model, params,
+                                                  device, root)
+        repl_failover_counts = phase_replicated_failover(torch, pt, pool, consts, model,
+                                                         params, device, root)
         # the process's first profiler capture, after the TCP phases
         trace_counts = phase_stage_trace(torch, pt, pool, consts, params, device, root, npz)
     finally:
@@ -4065,7 +4400,8 @@ def main() -> int:
                      + cli_sfx_counts["calib_kernel"] + tcp_counts["calib_kernel"]
                      + cli_sfx_tcp_counts["calib_kernel"] + durable_counts["calib_kernel"]
                      + failover_counts["calib_kernel"] + cluster_counts["calib_kernel"]
-                     + cluster_failover_counts["calib_kernel"]),
+                     + cluster_failover_counts["calib_kernel"] + repl_counts["calib_kernel"]
+                     + repl_failover_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -4082,7 +4418,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name]
                          + tcp_counts[name] + durable_counts[name] + failover_counts[name]
-                         + cluster_counts[name] + cluster_failover_counts[name]),
+                         + cluster_counts[name] + cluster_failover_counts[name]
+                         + repl_counts[name] + repl_failover_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

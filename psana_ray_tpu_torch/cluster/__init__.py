@@ -10,20 +10,26 @@ The port's copy of ``psana_ray_tpu/cluster/``:
 - :mod:`~psana_ray_tpu_torch.cluster.group`: a member's fenced lease;
 - :mod:`~psana_ray_tpu_torch.cluster.client`: ``ClusterClient``, the
   routing client behind ``cluster://host:port,host:port`` addresses;
-- :mod:`~psana_ray_tpu_torch.cluster.telemetry`: the ``CLUSTER`` counters.
+- :mod:`~psana_ray_tpu_torch.cluster.telemetry`: the ``CLUSTER`` counters;
+- :mod:`~psana_ray_tpu_torch.cluster.replication`: chain replication of
+  durable partition logs, the replicated ack floor, promotion and the
+  coordinator's leader lease (the ``REPL`` counters).
 
 ``ClusterClient`` and ``GroupSession`` load lazily: ``transport.tcp``
 imports the coordinator (the server hosts the groups) and the client
-imports ``transport.tcp``. Replication (``cluster/replication.py``) is
-not ported (ROADMAP.md Queue 1 Item 8). Imports no torch.
+imports ``transport.tcp``; so does replication, which is imported from
+its module. Imports no torch.
 """
 
 from psana_ray_tpu_torch.cluster.coordinator import GroupRegistry, coordinator_address
 from psana_ray_tpu_torch.cluster.hashring import (
     PartitionMap,
     assign_group_partitions,
+    next_in_chain,
+    partition_follower,
     partition_owner,
     partition_queue_name,
+    ranked_owners,
 )
 from psana_ray_tpu_torch.cluster.telemetry import CLUSTER
 
@@ -35,9 +41,12 @@ __all__ = [
     "PartitionMap",
     "assign_group_partitions",
     "coordinator_address",
+    "next_in_chain",
     "parse_cluster_address",
+    "partition_follower",
     "partition_owner",
     "partition_queue_name",
+    "ranked_owners",
 ]
 
 

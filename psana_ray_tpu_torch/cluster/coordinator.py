@@ -26,9 +26,16 @@ of the member list, so agreeing on membership is agreeing on assignment.
   liveness and are not stored: members rejoin. The file is the JAX
   package's, byte for byte, so either package recovers the other's.
 
-The replication control operations ``lease`` and ``sync`` are refused
-(ROADMAP.md Queue 1 Item 8). This module is stdlib-only: the server hands
-it decoded JSON and sends back what it returns.
+- **The leader lease** (replication, :mod:`psana_ray_tpu_torch.cluster.
+  replication`). ``lease`` takes or renews the lease for a ``holder``
+  (refused while another holder's lease is live); ``sync`` absorbs the
+  holder's snapshot of the control state, group by group, never lowering
+  a group's generation, so a stale snapshot cannot undo a fence. An
+  absorbed sync is persisted but never fires ``on_mutate`` (relaying it
+  would loop).
+
+This module is stdlib-only: the server hands it decoded JSON and sends
+back what it returns.
 """
 
 from __future__ import annotations
@@ -43,9 +50,9 @@ from typing import Dict, Optional
 # from a thread every second), short enough that a dead member's
 # partitions move within seconds
 DEFAULT_SESSION_TIMEOUT_S = 10.0
-
-_NO_REPLICATION = {"ok": False, "error": "coordinator replication ('lease', 'sync') is not "
-                                         "ported: ROADMAP.md Queue 1 Item 8"}
+# the leader lease the acting coordinator holds on the registry it syncs
+# into: a failed-over coordinator takes over once it lapses
+DEFAULT_LEASE_TTL_S = 10.0
 
 
 class _Group:
@@ -77,7 +84,12 @@ class GroupRegistry:
     - ``{"op": "drained", "group", "member", "generation", "partition"[,
       "offset"]}``: a fenced commit that the partition saw its whole EOS
       tally, kept group-wide across rebalances;
-    - ``{"op": "info", "group"}``: the state, no mutation.
+    - ``{"op": "info", "group"}``: the state, no mutation;
+    - ``{"op": "lease", "holder"[, "ttl"]}`` -> ``{"ok": true, "holder"}``,
+      or ``{"ok": false, "fenced": true, "holder", "expires_in_s"}`` while
+      another holder's lease is live;
+    - ``{"op": "sync", "holder", "groups"}`` -> ``{"ok": true, "absorbed"}``
+      under the same lease rule.
     """
 
     def __init__(self, session_timeout_s: float = DEFAULT_SESSION_TIMEOUT_S,
@@ -87,6 +99,12 @@ class GroupRegistry:
         self._groups: Dict[str, _Group] = {}  # guarded-by: _lock
         self._store_path = store_path
         self._dirty = False  # guarded-by: _lock
+        # the leader lease: (holder address, monotonic expiry)
+        self._lease = ("", 0.0)  # guarded-by: _lock
+        # called after a client's mutation is persisted, never after an
+        # absorbed sync; it runs under the lock, so it must not block (the
+        # replication manager sets an Event)
+        self.on_mutate = None
         if store_path:
             self._load()
 
@@ -140,7 +158,13 @@ class GroupRegistry:
     def handle(self, req: dict) -> dict:
         op = req.get("op")
         if op in ("lease", "sync"):
-            return dict(_NO_REPLICATION)
+            with self._lock:
+                try:
+                    return self._control(op, req)
+                finally:
+                    if self._dirty:
+                        self._dirty = False
+                        self._persist()
         group = req.get("group")
         if not isinstance(group, str) or not group:
             return {"ok": False, "error": "missing group"}
@@ -151,6 +175,11 @@ class GroupRegistry:
                 if self._dirty:
                     self._dirty = False
                     self._persist()
+                    if self.on_mutate is not None:
+                        try:
+                            self.on_mutate()
+                        except Exception:  # a broken hook must not break the RPC
+                            pass
 
     def _dispatch(self, op, group, member, req: dict) -> dict:
         # guarded-by-caller: _lock
@@ -204,6 +233,49 @@ class GroupRegistry:
         if op == "info":
             return self._state(g, ok=True)
         return {"ok": False, "error": f"unknown op {op!r}"}
+
+    def _control(self, op: str, req: dict) -> dict:
+        """``lease`` and ``sync`` (see the class docstring)."""
+        # guarded-by-caller: _lock
+        holder = str(req.get("holder") or "")
+        if not holder:
+            return {"ok": False, "error": "missing holder"}
+        now = time.monotonic()
+        cur, expires = self._lease
+        if cur and cur != holder and expires > now:
+            return {"ok": False, "fenced": True, "holder": cur,
+                    "expires_in_s": round(expires - now, 3)}
+        if cur != holder:
+            from psana_ray_tpu_torch.cluster.replication import REPL
+
+            REPL.note("lease_transfer", prev=cur or None, holder=holder)
+        self._lease = (holder, now + float(req.get("ttl") or DEFAULT_LEASE_TTL_S))
+        if op == "lease":
+            return {"ok": True, "holder": holder}
+        absorbed = 0
+        for name, st in (req.get("groups") or {}).items():
+            try:
+                gen = int(st.get("generation", 0))
+            except (TypeError, ValueError, AttributeError):
+                continue
+            g = self._groups.get(name)
+            if g is None:
+                g = self._groups[name] = _Group()
+            elif gen < g.generation:
+                continue  # a stale snapshot never lowers the fence
+            g.generation = gen
+            g.n_partitions = int(st.get("n_partitions", g.n_partitions) or 0)
+            g.drained = {int(p) for p in st.get("drained", ())}
+            g.offsets = {int(p): int(o) for p, o in (st.get("offsets") or {}).items()}
+            if not g.members and g.drained and not (
+                    g.n_partitions and len(g.drained) >= g.n_partitions):
+                # as after a recovery from the store: members will rejoin
+                # mid-stream, so the new-epoch wipe must not fire
+                g.recovered_pending = True
+            absorbed += 1
+        if absorbed:
+            self._dirty = True
+        return {"ok": True, "absorbed": absorbed}
 
     def _sweep(self, g: _Group) -> None:
         """Expire lapsed leases; each expiry bumps the generation."""

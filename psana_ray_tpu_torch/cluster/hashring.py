@@ -15,16 +15,18 @@ the same owner: clients of either package place partitions on servers of
 either package. Server strings are used as the address list spells them
 (``localhost`` and ``127.0.0.1`` are different servers here).
 
-The replication chain's ranking (``ranked_owners``, ``partition_follower``,
-``next_in_chain``, ``PartitionMap.follower_of``) is not ported
-(ROADMAP.md Queue 1 Item 8).
+The whole ranking is the replication chain (:mod:`psana_ray_tpu_torch.
+cluster.replication`): rank 0 owns a partition, rank 1 holds its replica,
+and when rank 0 dies the recomputed map hands the partition to rank 1,
+the server that already holds the bytes (``ranked_owners``,
+``partition_follower``, ``next_in_chain``, ``PartitionMap.follower_of``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 
 def partition_queue_name(queue_name: str, partition: int) -> str:
@@ -43,6 +45,35 @@ def partition_owner(servers: Sequence[str], queue_name: str, partition: int) -> 
     if not servers:
         raise ValueError("no live servers to place partitions on")
     return max(servers, key=lambda s: (_score(s, queue_name, partition), s))
+
+
+def ranked_owners(servers: Sequence[str], queue_name: str, partition: int) -> Tuple[str, ...]:
+    """Every server ranked by score for ``(queue_name, partition)``, best
+    first: the replication chain. A server that mounts the partition
+    replicates to the next rank after itself, so the chain extends again
+    after every promotion."""
+    return tuple(sorted(dict.fromkeys(servers),
+                        key=lambda s: (_score(s, queue_name, partition), s), reverse=True))
+
+
+def partition_follower(servers: Sequence[str], queue_name: str,
+                       partition: int) -> Optional[str]:
+    """The partition's replica holder: the runner-up (None on one server)."""
+    ranked = ranked_owners(servers, queue_name, partition)
+    return ranked[1] if len(ranked) > 1 else None
+
+
+def next_in_chain(servers: Sequence[str], self_addr: str, queue_name: str,
+                  partition: int) -> Optional[str]:
+    """Where ``self_addr`` replicates ``(queue_name, partition)`` when it
+    mounts it: the next server after itself in the ranking (None when it
+    is last, or not in the list)."""
+    ranked = ranked_owners(servers, queue_name, partition)
+    try:
+        i = ranked.index(self_addr)
+    except ValueError:
+        return None
+    return ranked[i + 1] if i + 1 < len(ranked) else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +105,10 @@ class PartitionMap:
 
     def partitions_on(self, server: str) -> Tuple[int, ...]:
         return tuple(p for p, s in sorted(self.assignments.items()) if s == server)
+
+    def follower_of(self, partition: int) -> Optional[str]:
+        """The partition's replica holder over this map's live set."""
+        return partition_follower(self.servers, self.queue_name, partition)
 
     def moved_from(self, prev: "PartitionMap") -> Tuple[int, ...]:
         """The partitions whose owner differs from ``prev``'s."""

@@ -40,9 +40,14 @@ workers, each of which drains so.
 
 A cluster of these servers is an address list on the clients
 (``--cluster host:port,host:port``), the first server being the groups'
-coordinator; start it first. The JAX command's replica, stall, obs and
-autotune flags are refused
-(ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
+coordinator; start it first. ``--replicate_peers A,B,... --advertise A``
+(with ``--durable_dir``; not with ``--workers``) chain-replicates each
+durable partition log to the next server of its rendezvous ranking, holds
+producer answers until the follower has logged the frame, and keeps the
+coordinator's group state on the next peer under a leader lease
+(:mod:`psana_ray_tpu_torch.cluster.replication`); ``--replica_codec``
+compresses the links. The JAX command's stall, obs and autotune flags are
+refused (ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
 imports no torch.
 """
 
@@ -66,7 +71,7 @@ logger = logging.getLogger(__name__)
 
 # the JAX command's flags of modules the port has not ported
 NOT_PORTED_FLAGS = (
-    "--replicate_peers", "--advertise", "--replica_codec", "--metrics_host", "--metrics_port",
+    "--metrics_host", "--metrics_port",
     "--trace_dir", "--trace_sample", "--flight_dir", "--history_interval", "--history_samples",
     "--profile_hz", "--profile_dir", "--autotune", "--autotune_interval", "--stall_poll_s",
     "--stall_full_s", "--stall_idle_s",
@@ -109,6 +114,20 @@ def parse_args(argv=None):
     p.add_argument("--ram_items", type=int, default=dur.ram_items,
                    help="RAM-resident records a durable queue before delivery reads the log "
                         "(0: the queue's size)")
+    p.add_argument("--replicate_peers", default=None, metavar="HOST:PORT,...",
+                   help="chain-replicate durable partition logs across this static server "
+                        "list: each durable queue this server owns ships its segment log to "
+                        "the next server in the partition's rendezvous ranking, producer "
+                        "answers wait for the follower (the replicated ack floor), and the "
+                        "consumer-group coordinator's state replicates under a leader lease. "
+                        "Start every server of the cluster with the same list. Requires "
+                        "--durable_dir and --advertise")
+    p.add_argument("--advertise", default=None, metavar="HOST:PORT",
+                   help="this server's own address as --replicate_peers spells it (placement "
+                        "is computed from the list, so the spelling must match exactly)")
+    p.add_argument("--replica_codec", default=None,
+                   help="wire codec of the replication links ('auto', a codec name, or unset "
+                        "for raw)")
     p.add_argument("--port_file", default=None,
                    help="write the bound port to this file once listening")
     p.add_argument("--max_conns", type=int, default=0,
@@ -119,10 +138,19 @@ def parse_args(argv=None):
     p.add_argument("--log_level", default="INFO")
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "replication, stall detection, obs and autotune")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "stall detection, obs and autotune")
     if a.durable_dir and a.shm:
         p.error("--durable_dir and --shm are mutually exclusive (the segment log backs "
                 "in-process queues; shm rings have their own lifetime)")
+    if a.replicate_peers and not (a.durable_dir and a.advertise):
+        p.error("--replicate_peers requires --durable_dir (the segment log is what replicates) "
+                "and --advertise (this server's own address in the peer list)")
+    if a.replicate_peers:
+        peers = _peer_list(a.replicate_peers)
+        if a.advertise not in peers:
+            # a spelling mismatch would leave every queue unreplicated, quietly
+            p.error(f"--advertise {a.advertise!r} does not appear in --replicate_peers {peers} "
+                    f"— the spellings must match exactly or no queue will ever replicate")
     if a.workers > 1:
         if not hasattr(socket, "SO_REUSEPORT"):
             p.error("--workers needs SO_REUSEPORT, which this platform does not expose — "
@@ -130,7 +158,15 @@ def parse_args(argv=None):
         if a.shm:
             p.error("--workers is incompatible with --shm (shm rings already give local "
                     "processes multi-process access; pick one data plane)")
+        if a.replicate_peers:
+            p.error("--workers is incompatible with --replicate_peers (replica links bind "
+                    "queues directly to one serving process; run replicated servers "
+                    "single-worker)")
     return a
+
+
+def _peer_list(spec: str):
+    return [s.strip() for s in spec.split(",") if s.strip()]
 
 
 def _shm_backing(name: str, maxsize: int):
@@ -252,6 +288,7 @@ def _serve(a, worker_ctx=None, port=None) -> int:
 
     queue_factory = None
     group_store_path = None
+    replication = None
     if a.durable_dir:
         group_store_path = os.path.join(
             a.durable_dir, "groups.json" if worker_ctx is None
@@ -265,6 +302,19 @@ def _serve(a, worker_ctx=None, port=None) -> int:
             backing = RingBuffer(a.queue_size)
         logger.info("backing queues: segment logs under %s (segment_bytes=%d, retain=%d, "
                     "fsync=%s)", a.durable_dir, a.segment_bytes, a.retain_segments, a.fsync)
+        if a.replicate_peers:
+            from psana_ray_tpu_torch.cluster.replication import ReplicationManager
+
+            peers = _peer_list(a.replicate_peers)
+            # an unknown codec raises here, at start
+            replication = ReplicationManager(a.durable_dir, peers, a.advertise,
+                                             codec=a.replica_codec,
+                                             segment_bytes=a.segment_bytes,
+                                             retain_segments=a.retain_segments, fsync=a.fsync,
+                                             fsync_batch_n=a.fsync_batch_n)
+            logger.info("replication: chain over %s (advertise=%s, codec=%s) — owned durable "
+                        "queues ship to their rendezvous runner-up; producer acks ride the "
+                        "replicated floor", peers, a.advertise, a.replica_codec or "raw")
     elif a.shm:
         backing = _shm_backing(a.shm, a.queue_size)
 
@@ -280,7 +330,8 @@ def _serve(a, worker_ctx=None, port=None) -> int:
     server = TcpQueueServer(backing, host=a.host, port=a.port if port is None else port,
                             maxsize=a.queue_size, queue_factory=queue_factory,
                             max_conns=a.max_conns, worker_ctx=worker_ctx,
-                            group_store_path=group_store_path).serve_background()
+                            group_store_path=group_store_path,
+                            replication=replication).serve_background()
     if worker_ctx is not None:
         logger.info("worker %d of %d (pid %d) listening on %s:%d", worker_ctx.worker_id,
                     worker_ctx.n_workers, os.getpid(), a.host, server.port)
@@ -336,6 +387,10 @@ def _serve(a, worker_ctx=None, port=None) -> int:
 
         logger.info("%sdurable log counters %s sendfile %s", who, json.dumps(DURABLE.stats()),
                     json.dumps(SPLICE.snapshot()))
+    if replication is not None:
+        from psana_ray_tpu_torch.cluster.replication import REPL
+
+        logger.info("replication counters %s", json.dumps(REPL.stats()))
     logger.info("queue server stopped: %s", stats)
     return 0
 

@@ -162,6 +162,13 @@ class DurableRingBuffer(RingBuffer):
         entry = self._admit(item)
         return (False, None) if entry is None else (True, entry.offset)
 
+    @property
+    def committed_floor(self) -> int:
+        """The live committed offset: it rides on replica appends, so a
+        promoted replica re-exposes only what lies above it."""
+        with self._lock:
+            return self._floor
+
     # -- committed offsets -------------------------------------------------
     def ack_delivered(self, items) -> int:
         """The delivery of ``items`` is confirmed (the server's

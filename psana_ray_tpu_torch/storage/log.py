@@ -218,37 +218,109 @@ class SegmentLog:
     # -- append ------------------------------------------------------------
     def append(self, item) -> int:
         """Append one record; returns its offset."""
+        need = self._check_fits(item)
+        with self._lock:
+            self._check_open()
+            offset = self._next_offset
+            self._append_locked(offset, item, need)
+            self._next_offset = offset + 1
+            return offset
+
+    def append_at(self, offset: int, item) -> int:
+        """Append one record under an explicit offset: a replica mirrors
+        its owner's offsets, so a promoted replica serves the same ones.
+        ``offset`` must be the tail; the caller reconciles first
+        (:meth:`truncate_to`, :meth:`reset_to`)."""
+        need = self._check_fits(item)
+        with self._lock:
+            self._check_open()
+            if offset != self._next_offset:
+                raise ValueError(f"append_at out of order: offset {offset} vs tail "
+                                 f"{self._next_offset} (reconcile with truncate_to/reset_to "
+                                 f"first)")
+            self._append_locked(offset, item, need)
+            self._next_offset = offset + 1
+            return offset
+
+    def _check_fits(self, item) -> int:
         need = record_nbytes(item)
         if need > self.segment_bytes:
             raise ValueError(f"record of {need} framed bytes exceeds segment_bytes="
                              f"{self.segment_bytes}")
-        with self._lock:
-            self._check_open()
-            offset = self._next_offset
-            try:
-                _disk_fault_check("append")
-                seg = self._segments[-1]
+        return need
+
+    def _append_locked(self, offset: int, item, need: int) -> None:
+        # guarded-by-caller: _lock
+        try:
+            _disk_fault_check("append")
+            seg = self._segments[-1]
+            if seg.append(offset, item) is None:
+                seg = self._roll()
                 if seg.append(offset, item) is None:
-                    seg = self._roll()
-                    if seg.append(offset, item) is None:
-                        raise RuntimeError(f"record did not fit a fresh segment ({need} bytes)")
-                DURABLE.appended(need)
-                if self.fsync == FSYNC_ALWAYS:
+                    raise RuntimeError(f"record did not fit a fresh segment ({need} bytes)")
+            DURABLE.appended(need)
+            if self.fsync == FSYNC_ALWAYS:
+                seg.sync()
+                DURABLE.fsynced()
+            elif self.fsync == FSYNC_BATCH:
+                self._appends_since_sync += 1
+                if self._appends_since_sync >= self.fsync_batch_n:
+                    self._appends_since_sync = 0
                     seg.sync()
                     DURABLE.fsynced()
-                elif self.fsync == FSYNC_BATCH:
-                    self._appends_since_sync += 1
-                    if self._appends_since_sync >= self.fsync_batch_n:
-                        self._appends_since_sync = 0
-                        seg.sync()
-                        DURABLE.fsynced()
-            except OSError:
-                # a failing or full disk fails this append, counted; the
-                # server answers the producer 'E' and serves on
-                DURABLE.disk_faulted()
-                raise
-            self._next_offset = offset + 1
-            return offset
+        except OSError:
+            # a failing or full disk fails this append, counted; the
+            # server answers the producer (or the owner's link) 'E' and
+            # serves on
+            DURABLE.disk_faulted()
+            raise
+
+    # -- replica reconciliation --------------------------------------------
+    def truncate_to(self, offset: int) -> None:
+        """Drop every record at ``offset`` or above, so the next append
+        lands there: after an owner reconnects, its view of the unacked
+        suffix wins. The cut leaves a clean end for a later boot scan.
+        Committed offsets are untouched."""
+        with self._lock:
+            self._check_open()
+            if offset >= self._next_offset:
+                return
+            if offset <= self.first_retained_offset():
+                self._reset_locked(offset)
+            else:
+                while self._segments:
+                    seg = self._segments[-1]
+                    first = seg.first_offset
+                    if first is not None and first < offset:
+                        pos = seg.find(offset)
+                        if pos is not None:
+                            seg.truncate_from(pos)
+                        break
+                    # the whole tail segment goes, an empty one too
+                    self._segments.pop()
+                    seg.close()
+                    os.unlink(seg.path)
+                if not self._segments:
+                    self._segments.append(self._new_segment(offset))
+                self._next_offset = offset
+            DURABLE.truncated()
+
+    def reset_to(self, offset: int) -> None:
+        """Forget every record and start the offsets again at ``offset``:
+        the owner's earliest record lies past this log's tail (its
+        retention passed a lagging replica, over consumed history only),
+        so a contiguous copy cannot be had."""
+        with self._lock:
+            self._check_open()
+            self._reset_locked(offset)
+
+    def _reset_locked(self, offset: int) -> None:
+        # guarded-by-caller: _lock
+        for seg in self._segments:
+            seg.close()
+            os.unlink(seg.path)
+        self._segments = [self._new_segment(offset)]
+        self._next_offset = offset
 
     # -- read --------------------------------------------------------------
     def read(self, offset: int):

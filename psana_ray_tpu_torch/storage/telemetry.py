@@ -29,6 +29,7 @@ class DurabilityTelemetry:
         self.torn_tail_repairs = 0  # guarded-by: _lock
         self.replay_opens = 0  # guarded-by: _lock
         self.disk_faults_total = 0  # guarded-by: _lock
+        self.replica_truncates = 0  # guarded-by: _lock
 
     def appended(self, nbytes: int):
         with self._lock:
@@ -75,6 +76,10 @@ class DurabilityTelemetry:
         with self._lock:
             self.disk_faults_total += 1
 
+    def truncated(self):
+        with self._lock:
+            self.replica_truncates += 1
+
     def stats(self) -> dict:
         with self._lock:
             return {
@@ -93,6 +98,7 @@ class DurabilityTelemetry:
                 "torn_tail_repairs": self.torn_tail_repairs,
                 "replay_opens": self.replay_opens,
                 "disk_faults_total": self.disk_faults_total,
+                "replica_truncates": self.replica_truncates,
             }
 
 

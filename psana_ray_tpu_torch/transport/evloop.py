@@ -59,9 +59,20 @@ thread.
   goes to the default queue's worker like any default-queue op, so one
   registry serves every member.
 
-Not ported (ROADMAP.md Queue 1 Item 8): replication and its replica
-links ('H', 'V', 'Y'), and the metrics federation RPC (answered as a
-request that names no group).
+- Replication (``server.replication``, a :class:`~psana_ray_tpu_torch.
+  cluster.replication.ReplicationManager`): 'H' switches a connection to
+  replica mode (only 'V' appends and 'F' from then on), 'V' logs a record
+  at the owner's offset, 'Y' promotes a replica log. A put on a chained
+  durable queue goes through ``put_offset``, and its answer waits in the
+  connection's ``held`` queue until the follower has logged that offset
+  (the replicated ack floor), released by the pump when the sender's acks
+  wake the loop. A held 'W' answer does not stop the connection's next
+  'W' puts (the window stays full); any other op waits until the held
+  answers have gone, so answers keep their order. A server without a
+  manager answers 'H' and 'Y' with '0'.
+
+Not ported (ROADMAP.md Queue 1 Item 8): the metrics federation RPC
+(answered as a request that names no group).
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from psana_ray_tpu_torch.cluster.replication import REPL
 from psana_ray_tpu_torch.storage.durable import SpilledRecord
 from psana_ray_tpu_torch.storage.log import COMMIT_DELIVERED
 from psana_ray_tpu_torch.transport.codec import (
@@ -108,6 +120,7 @@ from psana_ray_tpu_torch.transport.tcp import (
     _OP_PUT_BATCH,
     _OP_PUT_SEQ,
     _OP_PUT_WAIT,
+    _OP_REPL_APPEND,
     _OP_REPL_OPEN,
     _OP_REPLAY,
     _OP_SIZE,
@@ -219,15 +232,27 @@ class _StreamState:
 class _QueueState:
     """The loop's view of one backing queue: who waits on it."""
 
-    __slots__ = ("queue", "get_waiters", "put_waiters", "listened", "unlisten", "wdrr")
+    __slots__ = ("queue", "get_waiters", "put_waiters", "ra_waiters", "repl", "listened",
+                 "unlisten", "wdrr")
 
     def __init__(self, queue):
         self.queue = queue
         self.get_waiters: deque = deque()  # 'D' waiters and stream connections
         self.put_waiters: deque = deque()  # 'U'/'W' waiters, FIFO
+        # connections whose put answers wait on the replicated ack floor
+        self.ra_waiters: deque = deque()
+        self.repl = None  # the queue's ReplicationSender, if it is chained
         self.listened = False
         self.unlisten = None
         self.wdrr = _Wdrr()
+
+
+def _put_offset(queue, item) -> Tuple[bool, Optional[int]]:
+    """``(ok, log offset)`` of a put; the offset is None on a memory queue."""
+    put_offset = getattr(queue, "put_offset", None)
+    if put_offset is not None:
+        return put_offset(item)
+    return queue.put(item), None
 
 
 class _QueueClosedSignal(Exception):
@@ -245,6 +270,7 @@ class _EvConn:
         "_out_releases", "_hdr", "_hdr_mv", "_target", "_need", "_got", "_cb", "_lease",
         "_want_read", "_want_write", "_mask", "_qb_remaining", "_qb_items", "_pw_wait_s",
         "_w_seq", "_open_ns", "_open_buf", "replay", "_r_from", "_no_splice", "_migration",
+        "replica", "held", "_v_off", "_v_floor",
     )
 
     def __init__(self, loop: "EventLoop", sock: socket.socket, srv):
@@ -296,6 +322,13 @@ class _EvConn:
         # a handoff to the queue's owning worker in progress: {"target",
         # "ctx", "deadline"}; reads pause and queued bytes flush first
         self._migration = None
+        # replica mode ('H'): the replica log this owner's link appends to
+        self.replica = None
+        self._v_off = 0
+        self._v_floor = 0
+        # put answers waiting on the replicated ack floor: (offset, answer
+        # bytes), in the order they must go out
+        self.held: deque = deque()
 
     # -- reads ----------------------------------------------------------
     def _arm(self, mv: memoryview, cb, lease=None) -> None:
@@ -501,6 +534,22 @@ class _EvConn:
         # the peer read the last response before it sent this: the implicit ack
         self._ack_in_flight()
         self.in_flight = []
+        self._dispatch(op)
+
+    def _dispatch(self, op: int) -> None:
+        if self.replica is not None:
+            # a replica link carries appends and BYE only
+            if op == _OP_REPL_APPEND[0]:
+                self._expect(20, self._va_hdr)
+                return
+            if op == _OP_BYE[0]:
+                self._begin_close()
+                return
+            raise ConnectionError(f"bad opcode {op:#04x} on a replica connection")
+        if self.held and op != _OP_PUT_SEQ[0]:
+            # answers held on the floor go out first: the op waits for them
+            self.park("RA", op=op)
+            return
         if self.stream is not None:
             # a streamed connection's upstream: acks, window resizes, BYE
             if op == _OP_STREAM_ACK[0]:
@@ -590,17 +639,65 @@ class _EvConn:
             lease.release()
             raise
 
-    def _try_put(self, item) -> Optional[bool]:
+    def _try_put(self, item) -> Tuple[Optional[bool], Optional[int]]:
         """``queue.put`` with refusals answered ('X' closed, 'E' any other
         error: a poison record must not kill the connection, or a windowed
-        producer would resend it on every reconnect). None when answered."""
+        producer would resend it on every reconnect). ``(ok, offset)``:
+        the durable log's offset (None on a memory queue), which the
+        replicated ack floor holds the answer on; ``(None, None)`` when
+        answered."""
         try:
-            return self.queue.put(item)
+            return _put_offset(self.queue, item)
         except TransportClosed:
             self._send_control(_ST_CLOSED)
         except Exception:  # noqa: BLE001 (answer, don't kill the connection)
             self._send_control(_ST_ERR)
-        return None
+        return None, None
+
+    def _answer_put(self, reply: bytes, offset: Optional[int], pipelined: bool = False,
+                    parked: bool = False) -> None:
+        """Send a put's answer, or hold it until the queue's follower has
+        logged ``offset`` (the replicated ack floor; the pump sends it).
+        A held windowed answer (``pipelined``) lets reads go on; any other
+        parks the connection. ``parked``: the pump is resolving this
+        connection's deferred op."""
+        repl = self.loop.repl_sender(self.queue)
+        if self.held or (offset is not None and repl is not None
+                         and not repl.reached(offset)):
+            self.held.append((offset, reply))
+            self.loop.add_rack_waiter(self)
+            if not pipelined:
+                self.park("RA")
+                return
+        else:
+            self._send_control(reply)
+        if parked:
+            self.unpark()
+        else:
+            self._await_op()
+
+    def release_held(self, repl) -> bool:
+        """Send the held answers the follower has reached, in order. When
+        none is left, resume a parked connection (running the op that
+        waited for them). True when anything went out."""
+        did = False
+        while self.held:
+            offset = self.held[0][0]
+            if offset is not None and repl is not None and not repl.reached(offset):
+                return did
+            self._send_control(self.held.popleft()[1])
+            did = True
+        if self.pending is not None and self.pending.get("kind") == "RA":
+            op = self.pending.get("op")
+            if op is None:
+                self.unpark()
+            else:
+                self.pending = None
+                self.op_gen += 1
+                self._set_interest(read=True)
+                self._dispatch(op)
+            did = True
+        return did
 
     def _put_refused(self) -> bool:
         """A draining server answers a put 'X'."""
@@ -622,9 +719,12 @@ class _EvConn:
         item = self._take_item()
         if self._put_refused():
             return
-        ok = self._try_put(item)
+        ok, offset = self._try_put(item)
+        if ok:
+            self._answer_put(_ST_OK, offset)
+            return
         if ok is not None:
-            self._send_control(_ST_OK if ok else _ST_NO)
+            self._send_control(_ST_NO)
         self._await_op()
 
     def _op_get(self) -> None:
@@ -697,12 +797,15 @@ class _EvConn:
         item = self._take_item()
         if self._put_refused():
             return
-        ok = self._try_put(item)
+        ok, offset = self._try_put(item)
         if ok is None:
             self._await_op()
             return
-        if ok or self._pw_wait_s <= 0:
-            self._send_control(_ST_OK if ok else _ST_NO)
+        if ok:
+            self._answer_put(_ST_OK, offset)
+            return
+        if self._pw_wait_s <= 0:
+            self._send_control(_ST_NO)
             self._await_op()
             return
         self.park("U", item=item)
@@ -720,13 +823,12 @@ class _EvConn:
         item = self._take_item()
         if self._put_refused():
             return
-        ok = self._try_put(item)
+        ok, offset = self._try_put(item)
         if ok is None:
             self._await_op()
             return
         if ok:
-            self._send_control(_ST_OK + struct.pack("<Q", self._w_seq))
-            self._await_op()
+            self._answer_put(_ST_OK + struct.pack("<Q", self._w_seq), offset, pipelined=True)
             return
         # backpressure: the ack waits for room, with no deadline (the delay
         # is the signal)
@@ -762,16 +864,18 @@ class _EvConn:
         if self._put_refused():
             return
         accepted = 0
+        high = None  # the highest log offset (offsets increase)
         for item in batch:
-            ok = self._try_put(item)
+            ok, offset = self._try_put(item)
             if ok is None:  # refusal already answered
                 self._await_op()
                 return
             if not ok:
                 break  # full: the accepted prefix only (FIFO)
             accepted += 1
-        self._send_control(_ST_OK + struct.pack("<I", accepted))
-        self._await_op()
+            if offset is not None:
+                high = offset
+        self._answer_put(_ST_OK + struct.pack("<I", accepted), high)
 
     def _op_stream(self) -> None:
         self._expect(4, self._stream_hdr)
@@ -972,20 +1076,71 @@ class _EvConn:
         self._send_control(_ST_NO)
         self._await_op()
 
+    def _read_names(self, then) -> None:
+        """ns_len:u16, ns, name_len:u16, name; then ``then(ns, name)``."""
+        def ns_len():
+            (n,) = struct.unpack_from("<H", self._hdr)
+            self._expect_string(n, ns_done)
+
+        def ns_done():
+            self._open_ns = self._open_buf.decode()
+            self._expect(2, nm_len)
+
+        def nm_len():
+            (n,) = struct.unpack_from("<H", self._hdr)
+            self._expect_string(n, lambda: then(self._open_ns, self._open_buf.decode()))
+
+        self._expect(2, ns_len)
+
     def _op_repl_open(self) -> None:
-        """'H' and 'Y' (ns_len:u16, ns, name_len:u16, name): this server
-        hosts no replica, so the answer is '0'."""
-        self._expect(2, self._named_ns_len)
+        """'H': switch to replica mode for the named queue's replica log,
+        answering its tail; '0' when this server cannot host it (no
+        replication, the queue is live here, or it was promoted)."""
+        self._read_names(self._repl_open_finish)
 
-    _op_promote = _op_repl_open
+    def _repl_open_finish(self, ns: str, nm: str) -> None:
+        repl = self.srv.replication
+        entry = repl.replica_open(ns, nm) if repl is not None else None
+        if entry is None:
+            self._answer_no()
+            return
+        self.replica = entry
+        tail = entry.log.next_offset
+        REPL.note("replica_subscribe", port=self.srv.port, queue=f"{ns}/{nm}", tail=tail)
+        self._send_control(_ST_OK + struct.pack("<Q", tail))
+        self._await_op()
 
-    def _named_ns_len(self) -> None:
-        (n,) = struct.unpack_from("<H", self._hdr)
-        self._expect_string(n, lambda: self._expect(2, self._named_nm_len))
+    def _va_hdr(self) -> None:
+        self._v_off, self._v_floor, n = struct.unpack_from("<QQI", self._hdr)
+        self._expect_payload(n, self._va_payload)
 
-    def _named_nm_len(self) -> None:
-        (n,) = struct.unpack_from("<H", self._hdr)
-        self._expect_string(n, self._answer_no)
+    def _va_payload(self) -> None:
+        item = self._take_item()
+        try:
+            ok = self.srv.replication.replica_append(self.replica, self._v_off, self._v_floor,
+                                                     item)
+        except Exception:  # noqa: BLE001 (a replica disk fault answers 'E'; the loop lives)
+            ok = False
+        finally:
+            release = getattr(item, "release", None)
+            if release is not None:
+                release()  # the record is in the log now, or refused
+        self._send_control(_ST_OK + struct.pack("<Q", self._v_off) if ok else _ST_ERR)
+        self._await_op()
+
+    def _op_promote(self) -> None:
+        """'Y': promote the named replica log, answering its retained
+        range; '0' when no replica is here."""
+        self._read_names(self._promote_finish)
+
+    def _promote_finish(self, ns: str, nm: str) -> None:
+        repl = self.srv.replication
+        rng = repl.promote(ns, nm) if repl is not None else None
+        if rng is None:
+            self._answer_no()
+            return
+        self._send_control(_ST_OK + struct.pack("<QQ", *rng))
+        self._await_op()
 
     def _op_codec(self) -> None:
         self._expect(2, self._codec_len)
@@ -1076,8 +1231,8 @@ _OPS: Dict[int, str] = {
 
 # the ops a worker serves itself whatever queue it owns: the capability
 # exchange and the anchor (a worker's own answers), the replica ops
-# (refused anyway) and BYE. OPEN routes at its end, once the name is
-# read. The group RPC is not among them: on an unbound connection it
+# (refused: a fleet does not replicate) and BYE. OPEN routes at its end,
+# once the name is read. The group RPC is not among them: on an unbound connection it
 # goes to the default queue's worker, whose registry is the fleet's one
 _WORKER_LOCAL_OPS = frozenset(
     op for op, handler in _OPS.items()
@@ -1123,6 +1278,11 @@ class EventLoop:
         if qs is None:
             qs = _QueueState(queue)
             self._queues[id(queue)] = qs
+            repl = self._srv.replication
+            if repl is not None:
+                # the sender was mounted at open_named, before any
+                # connection bound the queue
+                qs.repl = repl.sender_for(queue)
             add = getattr(queue, "add_listener", None)
             if add is not None:
                 try:
@@ -1147,6 +1307,19 @@ class EventLoop:
 
     def add_stream(self, conn: _EvConn) -> None:
         self._qs(conn.queue).get_waiters.append(conn)
+
+    def add_rack_waiter(self, conn: _EvConn) -> None:
+        """A connection whose answers wait on the replicated ack floor; no
+        deadline (the sender's degrade grace bounds a dead link's wait)."""
+        rw = self._qs(conn.queue).ra_waiters
+        if conn not in rw:
+            rw.append(conn)
+
+    def repl_sender(self, queue):
+        """The queue's ReplicationSender, or None when it is not chained."""
+        if self._srv.replication is None:
+            return None
+        return self._qs(queue).repl
 
     def add_liveness_probe(self, conn: _EvConn) -> None:
         """Re-arm a parked, read-paused connection's reads after
@@ -1190,8 +1363,11 @@ class EventLoop:
         while conn._out_releases:
             conn._out_releases.popleft()[1].release()
         # a parked 'U'/'W' item was never enqueued: drop it (a windowed
-        # producer resends it on reconnect; enqueueing it now would double it)
+        # producer resends it on reconnect; enqueueing it now would double it).
+        # Held answers die too: their producer resends what went unanswered
         conn.pending = None
+        conn.held.clear()
+        conn.replica = None
         conn._qb_items = []
         if conn.replay is not None:
             # a cursor's deliveries are not popped: what the dead client
@@ -1406,10 +1582,10 @@ class EventLoop:
     # -- the pump -------------------------------------------------------
     def _pump_all(self) -> None:
         for qs in list(self._queues.values()):
-            if not (qs.get_waiters or qs.put_waiters):
+            if not (qs.get_waiters or qs.put_waiters or qs.ra_waiters):
                 continue
             try:
-                while self._pump_get(qs) | self._pump_put(qs):
+                while self._pump_get(qs) | self._pump_put(qs) | self._pump_rack(qs):
                     pass
             except _QueueClosedSignal:
                 self._queue_closed(qs)
@@ -1525,7 +1701,7 @@ class EventLoop:
                 pw.popleft()
                 continue
             try:
-                ok = qs.queue.put(conn.pending["item"])
+                ok, offset = _put_offset(qs.queue, conn.pending["item"])
             except TransportClosed:
                 raise _QueueClosedSignal from None
             except Exception as e:  # noqa: BLE001 (answer this one, keep the loop)
@@ -1540,15 +1716,28 @@ class EventLoop:
             if not ok:
                 break  # still full: nobody behind may jump the line
             pw.popleft()
-            reply = _ST_OK
-            if conn.pending["kind"] == "W":
-                reply += struct.pack("<Q", conn.pending["seq"])
+            windowed = conn.pending["kind"] == "W"
+            reply = _ST_OK + struct.pack("<Q", conn.pending["seq"]) if windowed else _ST_OK
             try:
-                conn._send_control(reply)
-                conn.unpark()
+                # the answer may wait on the replicated ack floor now
+                conn._answer_put(reply, offset, pipelined=windowed, parked=True)
             except OSError as e:
                 self.kill_conn(conn, e)
             did = True
+        return did
+
+    def _pump_rack(self, qs: _QueueState) -> bool:
+        """Send the held answers whose offsets the follower has logged (all
+        of them once the sender degraded)."""
+        did = False
+        for conn in list(qs.ra_waiters):
+            if not conn.closed:
+                try:
+                    did |= conn.release_held(qs.repl)
+                except Exception as e:  # noqa: BLE001 (a failing waiting op kills its conn only)
+                    self.kill_conn(conn, e)
+            if conn.closed or not conn.held:
+                qs.ra_waiters.remove(conn)
         return did
 
     def _queue_closed(self, qs: _QueueState) -> None:
@@ -1575,6 +1764,16 @@ class EventLoop:
             try:
                 conn._send_control(_ST_CLOSED)
                 conn.unpark()
+            except OSError as e:
+                self.kill_conn(conn, e)
+        while qs.ra_waiters:
+            # their frames were logged before the close: the true answer
+            # goes now, not against a floor that may never move
+            conn = qs.ra_waiters.popleft()
+            if conn.closed:
+                continue
+            try:
+                conn.release_held(None)
             except OSError as e:
                 self.kill_conn(conn, e)
 

@@ -52,10 +52,32 @@ Wire protocol (little-endian):
                   this connection from the next message on (payload tag
                   'C', :mod:`psana_ray_tpu_torch.transport.codec`).
                   Entries the server does not know are skipped
-              'H' replica-subscribe and 'Y' promote + ns_len:u16 + ns
-                  + name_len:u16 + name: this server hosts no replicas
-                  and answers '0'; 'V' (replica append) outside a replica
-                  connection is a protocol error
+              'H' replica-subscribe + ns_len:u16 + ns + name_len:u16 + name:
+                  switch this connection to replica mode for the named
+                  queue's replica log on a replicating durable server
+                  (:mod:`psana_ray_tpu_torch.cluster.replication`). The
+                  answer carries the replica's tail:u64, where the owner's
+                  shipper resumes; from here the connection carries only
+                  'V' and 'F'. '0' when this server cannot host the
+                  replica (no replication, the queue is mounted live
+                  here, or the replica was promoted: the fencing answer a
+                  zombie owner sees)
+              'V' replica-append + offset:u64 + floor:u64 + len:u32 +
+                  payload: one record at the owner's offset (a divergence
+                  truncates to the offset, a gap resets); ``floor`` is the
+                  owner's committed offset (u64 max: none), so a promoted
+                  replica re-exposes only what lies above it. Windowed
+                  like 'W': the answer is '1' + offset:u64, cumulative,
+                  and it is the replicated ack floor that holds the
+                  producers' answers on the owner. 'E' when refused
+                  (promoted, or a disk fault); a protocol error outside a
+                  replica connection
+              'Y' promote + ns_len:u16 + ns + name_len:u16 + name: fence
+                  the named replica log against further appends, flush it
+                  and release it, so the next OPEN mounts it as the live
+                  durable queue. The answer is '1' + the retained range
+                  start:u64 + end:u64, or '0' when no replica is here
+                  (the partition then starts empty)
               'F' bye: no answer; acks the last delivery
     response: status:u8 ('1' ok | '0' full/empty | 'X' closed | 'E' error)
               + [G ok] len:u32 + payload   + [S] size:u32
@@ -78,7 +100,9 @@ upstream carries only 'K', 'M' and 'F'. Windowed puts keep up to W
 sequence-numbered puts in flight; the server answers each once it is
 enqueued (a full queue delays the answer: that is the backpressure), and
 on reconnect the client resends the whole unacked tail in order before
-anything else.
+anything else. On a replicating server a put's answer waits until the
+follower has logged the record (the replicated ack floor); a windowed
+put's wait does not stop the connection's next puts.
 
 Payloads are the codec's tagged payloads. Sends go out with
 ``socket.sendmsg`` scatter-gather straight from a record's panel memory;
@@ -148,6 +172,8 @@ _ST_OK = b"1"
 _ST_NO = b"0"
 _ST_CLOSED = b"X"
 _ST_ERR = b"E"
+# the 'V' floor field when the owner has no committed floor to send
+_REPL_NO_FLOOR = (1 << 64) - 1
 
 # the longest one bounded-wait request ('D'/'U') may wait server-side:
 # an idle consumer costs about one round trip an interval, and drain,
@@ -388,7 +414,7 @@ class TcpQueueServer:
 
     def __init__(self, queue=None, host: str = "0.0.0.0", port: int = 0, maxsize: int = 100,
                  queue_factory=None, pool: Optional[BufferPool] = None, max_conns: int = 0,
-                 worker_ctx=None, group_store_path: Optional[str] = None):
+                 worker_ctx=None, group_store_path: Optional[str] = None, replication=None):
         # imported here: the cluster's client half imports this module
         from psana_ray_tpu_torch.cluster.coordinator import GroupRegistry
 
@@ -421,6 +447,12 @@ class TcpQueueServer:
         self.max_conns = int(max_conns)
         self._loop = None
         self._thread: Optional[threading.Thread] = None
+        # a cluster.replication.ReplicationManager makes this server both an
+        # owner that ships its durable queues' logs to their followers and a
+        # follower that hosts replica logs ('H', 'V', 'Y')
+        self.replication = replication
+        if replication is not None:
+            replication.attach(self)
 
     def open_named(self, namespace: str, queue_name: str, maxsize: Optional[int] = None):
         """Get or create the named queue (the OPEN opcode; also callable
@@ -430,9 +462,23 @@ class TcpQueueServer:
         with self._queues_lock:
             q = self._queues.get(key)
             if q is None:
+                if self.replication is not None:
+                    # a queue this server holds a replica of lands here on a
+                    # failover: fence and release the replica first, so the
+                    # factory's boot scan mounts the replicated backlog
+                    self.replication.ensure_promoted(namespace, queue_name)
                 q = self._queue_factory(namespace, queue_name, maxsize or self._maxsize)
                 self._queues[key] = q
+                if self.replication is not None:
+                    # where this server has a next link in the chain, ship there
+                    self.replication.queue_mounted(namespace, queue_name, q)
             return q
+
+    def has_named_queue(self, namespace: str, queue_name: str) -> bool:
+        """Is the queue mounted live here? (A server never hosts a replica
+        of a queue it serves.)"""
+        with self._queues_lock:
+            return (namespace, queue_name) in self._queues
 
     def named_queues(self) -> List[tuple]:
         with self._queues_lock:
@@ -509,6 +555,10 @@ class TcpQueueServer:
         t = self._thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=2.0)  # before the close: a restart may rebind the port at once
+        if self.replication is not None:
+            # the senders, the coordinator sync and the replica logs stop
+            # once the loop is down (no more 'V' appends)
+            self.replication.shutdown()
         try:
             self._sock.close()
         except OSError:
@@ -1060,9 +1110,9 @@ class TcpQueueClient:
         queue_name)`` into the live queue ('Y'), as the cluster client does
         on a partition's new owner before it opens the partition. Returns
         the retained range ``{"start", "end"}``, or None when the server
-        holds no replica (every server of the port: replication is
-        ROADMAP.md Queue 1 Item 8), and then the partition starts empty
-        there. Control plane: fails fast."""
+        holds no replica (it does not replicate, or another promotion took
+        it), and then the partition starts empty there. Control plane:
+        fails fast."""
         if self._stream is not None:
             return self._side_channel().promote(namespace, queue_name, deadline)
         ns, nm = namespace.encode(), queue_name.encode()

@@ -163,7 +163,8 @@ def test_keyed_puts_land_where_the_jax_clients_do(server_pkg):
 def test_failover_across_packages(client_pkg, server_pkg):
     """A server of the other package killed mid-stream: its partitions move
     to the survivors and the retained frames are resent there; every frame
-    arrives (the 'Y' promote answered '0' by both packages' servers)."""
+    arrives (these servers do not replicate, so both packages' answer the
+    'Y' promote with '0')."""
     srvs = [_server(server_pkg) for _ in range(3)]
     addrs = [f"127.0.0.1:{s.port}" for s in srvs]
     client_cls, rec, eos_cls = PKG[client_pkg][2:]

@@ -9,7 +9,8 @@ assignment and the coordinator held to the JAX package's answers.
   answers (generation, members, fenced, drained, offsets), lease expiry
   and the drain epoch included; a store written by either package is
   recovered by the other, and both write the same bytes; ``lease`` and
-  ``sync`` are refused naming Item 8.
+  ``sync`` answer as the JAX registry's (a second holder fenced, a stale
+  snapshot absorbed never).
 - ``ClusterClient`` over two or three port servers: the round trip
   spreads, EOS waits for every partition and producer, ``DataReader`` and
   ``batches_from_queue`` read a cluster, consumer groups (disjoint
@@ -333,12 +334,38 @@ def test_stores_are_recovered_across_packages(tmp_path, writer):
 
 
 def test_memory_only_registry_forgets_and_replication_ops_are_refused():
+    """A registry without a store forgets; ``lease`` and ``sync`` without a
+    holder, or from a second holder while the first's lease is live, are
+    refused as the JAX registry refuses them, and an accepted ``sync``
+    never lowers a group's generation nor fires ``on_mutate``."""
     reg = GroupRegistry()
     reg.handle({"op": "join", "group": "g", "member": "m", "n_partitions": 2})
     assert GroupRegistry().handle({"op": "info", "group": "g"}).get("unknown_group")
+    regs = _registries()
+    fired = []
+    for r in regs:
+        r.on_mutate = lambda: fired.append(1)
     for op in ("lease", "sync"):
-        answer = reg.handle({"op": op, "holder": "127.0.0.1:1", "groups": {}})
-        assert answer["ok"] is False and "Item 8" in answer["error"]
+        assert _both(regs, {"op": op, "groups": {}}) == {"ok": False, "error": "missing holder"}
+    assert _both(regs, {"op": "lease", "holder": "a:1", "ttl": 30}) == {"ok": True,
+                                                                      "holder": "a:1"}
+    for op in ("lease", "sync"):
+        answers = [r.handle({"op": op, "holder": "b:2", "groups": {}}) for r in regs]
+        for a in answers:
+            assert a["ok"] is False and a["fenced"] and a["holder"] == "a:1"
+            assert 0 < a["expires_in_s"] <= 30
+    snap = {"g": {"generation": 7, "n_partitions": 4, "drained": [1], "offsets": {"1": 9}}}
+    assert _both(regs, {"op": "sync", "holder": "a:1", "groups": snap}) == {"ok": True,
+                                                                          "absorbed": 1}
+    stale = {"g": {"generation": 5, "n_partitions": 4, "drained": [], "offsets": {}}}
+    assert _both(regs, {"op": "sync", "holder": "a:1", "groups": stale})["absorbed"] == 0
+    info = _both(regs, {"op": "info", "group": "g"})
+    assert (info["generation"], info["drained"], info["offsets"]) == (7, [1], {"1": 9})
+    assert _both(regs, {"op": "drained", "group": "g", "member": "z", "generation": 6,
+                        "partition": 0})["fenced"]
+    assert not fired  # absorbed syncs are not relayed
+    _both(regs, {"op": "join", "group": "g", "member": "m", "n_partitions": 4})
+    assert len(fired) == 2  # a client's mutation is
 
 
 def test_group_rpc_over_the_wire():
@@ -539,6 +566,8 @@ class TestConsumerGroups:
                 c.disconnect()
             _shutdown(servers)
 
+    N_STALLED = 128
+
     def test_a_stalled_owners_pushed_frames_outlive_the_new_owners_drain(self):
         """m1 reads a frame of every partition, so each stream holds pushed
         frames, and stops reading. m2 joins and reads its share through the
@@ -552,7 +581,9 @@ class TestConsumerGroups:
             m1 = ClusterClient(addrs, n_partitions=4, maxsize=128, group="g6", member_id="m1",
                                heartbeat_s=0.1).stream_open(2)
             clients = [prod, m1]
-            for i in range(32):  # event i on partition i % 4
+            # event i on partition i % 4; deep enough that m1 cannot read a
+            # partition to its EOS while another's stream is still opening
+            for i in range(self.N_STALLED):
                 assert prod.put(_frame(i))
             assert prod.put_wait(EndOfStream(0, -1, 1, 1), timeout=10)
             seen = [[], []]
@@ -576,7 +607,7 @@ class TestConsumerGroups:
             assert m2._drained == set(m2.assigned()) and len(m2._drained) == 2
             eos = _drain_members([m1, m2], seen)
             assert [eos[0], eos[1] + eos2] == [1, 1]
-            assert sorted(seen[0] + seen[1]) == list(range(32))
+            assert sorted(seen[0] + seen[1]) == list(range(self.N_STALLED))
         finally:
             for c in clients:
                 c.disconnect()

@@ -10,7 +10,9 @@ server, and the port's producer feeds the JAX consumer through the JAX
 server. ``--shm`` backs a named queue with the ring a local consumer
 attaches to. SIGTERM drains and exits 0, and the server process loads no
 torch. The flags are the JAX command's; those of modules the port has not
-ported exit 2 naming ROADMAP.md Item 8. Over ``cluster://`` (two servers,
+ported exit 2 naming ROADMAP.md Item 8, and the replication flags are
+checked as the JAX command checks them (an unknown ``--replica_codec``
+fails at start). Over ``cluster://`` (two servers,
 ``--cluster A,B --partitions 4``) the producer CLI feeds a consumer group
 of two consumer CLIs, of the port or one of each package, every frame
 once; the cluster flags are the JAX command's.
@@ -244,6 +246,11 @@ def _error_line(text):
     ["--durable_dir", "d", "--shm", "ring"],
     ["--workers", "2", "--shm", "ring"],
     ["--workers", "3", "--shm", "ring", "--durable_dir", "d"],
+    ["--replicate_peers", "a:1,b:2", "--advertise", "a:1"],
+    ["--replicate_peers", "a:1,b:2", "--durable_dir", "d"],
+    ["--replicate_peers", "a:1,b:2", "--durable_dir", "d", "--advertise", "c:3"],
+    ["--workers", "2", "--replicate_peers", "a:1,b:2", "--durable_dir", "d", "--advertise",
+     "a:1"],
 ])
 def test_refused_combinations_exit_2_with_the_jax_messages(argv, capsys):
     import psana_ray_tpu.queue_server as jax_qs
@@ -255,6 +262,13 @@ def test_refused_combinations_exit_2_with_the_jax_messages(argv, capsys):
         assert e.value.code == 2
         errors.append(_error_line(capsys.readouterr().err))
     assert errors[0] == errors[1] and len(errors[0]) == 1, errors
+
+
+def test_an_unknown_replica_codec_fails_at_start(tmp_path):
+    argv = ["--port", "0", "--durable_dir", str(tmp_path / "log"), "--replicate_peers",
+            "127.0.0.1:1,127.0.0.1:2", "--advertise", "127.0.0.1:1", "--replica_codec", "nope"]
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        queue_server.main(argv)
 
 
 def _durable_server(tmp_path, *extra):

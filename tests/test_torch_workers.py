@@ -335,6 +335,11 @@ class _Fleet:
         with open(port_file) as f:
             self.port = int(f.read())
 
+    def listening(self, pid):
+        """Has worker ``pid`` bound the port? (Its ``listening`` line.)"""
+        with open(self.log.name) as f:
+            return f"(pid {pid}) listening" in f.read()
+
     def stop(self):
         if self.proc.poll() is None:
             self.proc.send_signal(signal.SIGTERM)
@@ -393,6 +398,10 @@ def test_kill9_each_worker_mid_stream_zero_loss(tmp_path):
             os.kill(victim, signal.SIGKILL)
             assert _wait(lambda: victim not in _children(fleet.proc.pid)
                          and len(_children(fleet.proc.pid)) == 2, timeout=20)
+            # forked is not serving: the next kill must find the new worker
+            # listening, or no worker holds the port and a dial is refused
+            new = set(_children(fleet.proc.pid)) - {victim}
+            assert _wait(lambda: all(fleet.listening(pid) for pid in new), timeout=20)
         seen = {r.event_idx for r in first}
         deadline = time.monotonic() + 30
         while seen != set(range(20)) and time.monotonic() < deadline:
@@ -409,7 +418,8 @@ def test_kill9_each_worker_mid_stream_zero_loss(tmp_path):
 @pytest.mark.parametrize("extra,word", [
     (["--shm", "ring"], "--workers"),
     (["--durable_dir", "d", "--shm", "ring"], "--durable_dir"),
-    (["--replicate_peers", "a:1,b:2", "--advertise", "a:1"], "Item 8"),
+    (["--replicate_peers", "a:1,b:2", "--advertise", "a:1", "--durable_dir", "d"],
+     "--workers is incompatible with --replicate_peers"),
 ])
 def test_cli_refuses_incompatible_planes(extra, word):
     out = subprocess.run([sys.executable, "-m", "psana_ray_tpu_torch.queue_server", "--workers",
