@@ -16,7 +16,9 @@ path, once clean and once through a worker killed mid-stream, and
 config 1 into a server killed and restarted, then replayed; and through
 the sharded queue cluster of two queue servers: the ResNet path, once
 clean and once through a consumer-group member joining and a server
-killed mid-stream, and config 1 to a consumer group of two.
+killed mid-stream, and config 1 to a consumer group of two; and config
+4 traced frame by frame across the producer CLI, the queue server CLI
+and this process, then stalled.
 
 Run from the root of a checkout, with no arguments:
 
@@ -251,6 +253,33 @@ one JSON line (``{"phase": ...}``):
    one EOS, K1–K3 once a batch, the last batch within ``rel_err < 0.05``.
    Prints the promotions' ms, the failover's detection and latency and
    the duplicates.
+6p. ``observed_end_to_end``: the observability plane on config 4 (batch
+   32, ResNet-50 at width 64, K1–K3): the producer CLI replays 192 of the
+   pool's RAW frames from an ``.npz`` through a queue server CLI
+   (``--queue_size 40``) to ``InfeedPipeline`` here (stream window 32),
+   in three turns: untraced, ``--trace_sample 100`` and ``--trace_sample
+   1``, where all three processes get ``--trace_dir`` and
+   ``--flight_dir``, the server ``--metrics_port`` and
+   ``--history_interval 0.5``, and this process ``configure_from_args``
+   and ``exchange_anchors``. Every turn: every frame served, K1–K3 once a
+   batch, the last batch within ``rel_err < 0.05`` of the plain path and
+   its logits within 1e-6 of the untraced turn's; at sample 1 every one
+   of the 192 frames holds ``produce``, ``enqueue``, ``queue_dwell``,
+   ``relay``, ``dequeue``, ``batch``, ``device_put`` and ``dispatch`` in
+   the merged trace, their starts in that order within 100 us; a
+   ``/metrics`` scrape parses as Prometheus text and gives the queue's
+   puts and gets of the 'T' stats; the 'N' ``{"op": "metrics"}`` answer
+   has ``ok``, ``host``, ``pid`` and ``metrics``. Then a stall: a server
+   with ``--stall_poll_s 0.2 --stall_full_s 1 --flight_dir``, and this
+   process stops reading (8 credits) after 32 frames for at least 3 s
+   while the producer still puts: the server must log ``backpressure``
+   and dump with reason ``stall`` (the event, a metrics snapshot, a
+   history tail, the stacks), and a ``SIGUSR2`` to the producer must
+   dump with reason ``signal``. Prints frames/s a turn, the serving
+   process's stage histograms, the stages' p50/p99 from the merged trace
+   and what no span covers, spool bytes a process, the merged spans, each
+   process's skew against the server, the scrape's ms and bytes, and the
+   dumps' delays.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -417,11 +446,12 @@ Phase 6f's capture is the process's first, so the profiling phases (6,
 Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
-serving runs, the shm-fed, TCP-fed, durable-fed and cluster-fed runs,
-the traced runs, the training runs, the fan-in, the CLIs and the fold
-runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 8, 11, 14, 17, 17c, 17d, 17e,
-17f and 18), those of ``conv1x1_kernel``, ``conv3x3_kernel`` and
-``back_kernel`` the ResNet runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l and 18),
+serving runs, the shm-fed, TCP-fed, durable-fed, cluster-fed and
+replicated runs, the traced runs, the training runs, the fan-in, the
+CLIs and the fold runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o,
+6p, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
+``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
+runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p and 18),
 those of ``conv_block_kernel`` the SFX
 runs' (8, 17, 17d, 17e and 17f), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
@@ -2524,6 +2554,397 @@ def phase_replicated_failover(torch, pt, pool, consts, model, params, device, ro
     return counts
 
 
+OBS_QUEUE = "observed"  # observed_end_to_end: the named queue of every turn
+OBS_FRAMES = 192  # observed_end_to_end: frames a turn (6 batches), the pool cycled
+OBS_TURNS = (("off", None), ("sample_100", 100), ("sample_1", 1))  # (tag, --trace_sample)
+OBS_STAGES = ("enqueue", "queue_dwell", "dequeue", "batch", "device_put", "dispatch", "e2e")
+OBS_SPANS = ("produce", "enqueue", "queue_dwell", "relay", "dequeue", "batch", "device_put",
+             "dispatch")
+OBS_ALIGN_TOL_US = 100.0  # one host: spans may not step back in time past this
+OBS_LOGIT_TOL = 1e-6  # a traced turn's last logits against the untraced turn's
+OBS_STALL_WINDOW = 8  # the stall run's stream credits
+OBS_STALL_S = 3.0  # the stall run reads nothing for at least this long
+OBS_STALL_WAIT_S = 15.0  # ... and at most this long for the dumps
+
+
+def observed_npz(root, pool):
+    """``OBS_FRAMES`` RAW frames, the pool cycled, as a replay ``.npz``
+    under ``build/chip_smoke/``."""
+    import numpy as np
+
+    frames = np.empty((OBS_FRAMES, *pool[0].shape), pool[0].dtype)
+    for i in range(OBS_FRAMES):
+        frames[i] = pool[i % len(pool)]
+    path = os.path.join(root, "build", "chip_smoke", f"observed_{os.getpid()}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_replay(path, frames, [10.0] * OBS_FRAMES)
+    return path
+
+
+class ProducerCLI:
+    """``python -X importtime -m psana_ray_tpu_torch.producer`` replaying
+    ``npz`` into the named queue ``OBS_QUEUE`` of ``address``, from the
+    checkout's root; its output goes to a file."""
+
+    def __init__(self, root, npz, address, *args):
+        import tempfile
+
+        self.log = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(
+            cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--address",
+                    address, "--queue_name", OBS_QUEUE, "--queue_size", str(TCP_QUEUE_SIZE),
+                    *args),
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=self.log,
+            stderr=subprocess.STDOUT, text=True)
+
+    def wait(self, timeout=120.0):
+        """The exit code and the output; kills a process still running at
+        the timeout."""
+        try:
+            code = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            code = self.proc.wait(timeout=30)
+        self.log.seek(0)
+        out = self.log.read()
+        self.log.close()
+        return code, out
+
+
+def obs_flags(turn_dir, sample):
+    """``--trace_dir``/``--flight_dir`` under ``turn_dir``, and the rate."""
+    return ["--trace_dir", os.path.join(turn_dir, "trace"), "--trace_sample", str(sample),
+            "--flight_dir", os.path.join(turn_dir, "flight")]
+
+
+def scrape_metrics(port, stats):
+    """One ``/metrics`` scrape of the queue server: its ms and bytes; the
+    text must parse as Prometheus exposition text, and its puts and gets
+    of ``OBS_QUEUE`` must equal the server's 'T' ``stats``."""
+    import re
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        body = r.read()
+        ctype = r.headers.get("Content-Type", "")
+    ms = (time.perf_counter() - t0) * 1e3
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)\{source="((?:[^"\\]|\\.)*)"\} (\S+)$')
+    values = {}
+    for line in body.decode().splitlines():
+        if line.startswith("# HELP ") or re.match(r"^# TYPE \S+ (counter|gauge)$", line):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"/metrics line is no Prometheus sample: {line!r}")
+        values[(m.group(1), m.group(2))] = float(m.group(3))
+    key = f"default_{OBS_QUEUE}"
+    got = {k: values.get((f"psana_ray_{key}_{k}", "queue_server")) for k in ("puts", "gets")}
+    if not ctype.startswith("text/plain; version=0.0.4") or got != {
+            k: float(stats[k]) for k in ("puts", "gets")}:
+        raise AssertionError(f"/metrics ({ctype}) gives {got} for the queue, 'T' gives "
+                             f"{ {k: stats[k] for k in ('puts', 'gets')} }")
+    return {"ms": ms, "bytes": len(body), "samples": len(values), "queue": got}
+
+
+def spool_bytes(trace_dir):
+    """Each process's spool bytes, by its process name."""
+    out = {}
+    for name in os.listdir(trace_dir):
+        out[name.split("-", 1)[0]] = os.path.getsize(os.path.join(trace_dir, name))
+    return out
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    if not xs:
+        return None
+    a = np.asarray(xs)
+    return {"p50_ms": float(np.quantile(a, 0.5)), "p99_ms": float(np.quantile(a, 0.99)),
+            "n": len(xs)}
+
+
+def merged_frames(pt, trace_dir, complete):
+    """Merge the turn's spools: the merged spans and instants, each track's
+    skew against the server, and with ``complete`` every one of the
+    ``OBS_FRAMES`` frames holding each of ``OBS_SPANS``, their starts in
+    that order within ``OBS_ALIGN_TOL_US``, and the stages' p50 and p99
+    from the merged trace (``e2e``: ``produce`` to the end of ``dispatch``)."""
+    from psana_ray_tpu_torch.obs import trace_merge
+
+    t0 = time.perf_counter()
+    doc = trace_merge.merge([trace_dir])
+    merge_s = time.perf_counter() - t0
+    tracks = doc["otherData"]["tracks"]
+    out = {"merge_s": merge_s, "tracks": len(tracks),
+           "spans": sum(t["spans"] for t in tracks),
+           "instants": sum(t["instants"] for t in tracks),
+           "skew_ms": {t["process"].split()[0]: t["skew_vs_server_s"] * 1e3 for t in tracks},
+           "anchor_exchanges": {t["process"].split()[0]: t["peer_anchor_exchanges"]
+                                for t in tracks}}
+    frames = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "frame":
+            frames.setdefault(e["args"]["trace_id"], {})[e["name"]] = (e["ts"], e.get("dur", 0.0))
+    out["frames_traced"] = len(frames)
+    if not complete:
+        return out
+    missing = {tid: sorted(set(OBS_SPANS) - set(sp)) for tid, sp in frames.items()
+               if set(sp) != set(OBS_SPANS)}
+    if len(frames) != OBS_FRAMES or missing:
+        raise AssertionError(f"{len(frames)} traced frames of {OBS_FRAMES}; missing spans: "
+                             f"{dict(list(missing.items())[:4])}")
+    back = max(max(sp[a][0] - sp[b][0] for a, b in zip(OBS_SPANS, OBS_SPANS[1:]))
+               for sp in frames.values())
+    if back > OBS_ALIGN_TOL_US:
+        raise AssertionError(f"a frame's spans go back {back} us in time once aligned")
+    out["largest_step_back_us"] = back
+    durs = {name: [sp[name][1] / 1e3 for sp in frames.values()] for name in OBS_SPANS}
+    durs["e2e"] = [(sp["dispatch"][0] + sp["dispatch"][1] - sp["produce"][0]) / 1e3
+                   for sp in frames.values()]
+    out["stages_from_trace"] = {name: _quantiles(durs[name])
+                                for name in (*OBS_STAGES, "relay")}
+    # what no span covers: the put's wire time (and window waits) before
+    # the server's arrival stamp, and the push's before the consumer's pop
+    out["unspanned"] = {
+        "put_to_arrival": _quantiles([(sp["queue_dwell"][0] - sum(sp["enqueue"])) / 1e3
+                                      for sp in frames.values()]),
+        "send_to_pop": _quantiles([(sp["dequeue"][0] - sum(sp["relay"])) / 1e3
+                                   for sp in frames.values()])}
+    return out
+
+
+def observed_turn(torch, pt, step, device, root, npz, work, tag, sample):
+    """One turn of ``observed_end_to_end``: a queue server CLI, the producer
+    CLI replaying ``npz`` and this process serving the ResNet path over
+    ``tcp://``; with ``sample`` every process traces 1 frame in ``sample``
+    and arms its flight recorder, and the server serves ``/metrics`` and
+    samples its history."""
+    import argparse
+
+    from psana_ray_tpu_torch.obs.flight import FLIGHT
+    from psana_ray_tpu_torch.obs.tracing import TRACER, configure_from_args, exchange_anchors
+
+    traced = sample is not None
+    turn_dir = os.path.join(work, tag)
+    metrics_port = free_port() if traced else None
+    srv_obs = prod_obs = []
+    if traced:
+        prod_obs = obs_flags(turn_dir, sample)
+        srv_obs = [*prod_obs, "--metrics_port", str(metrics_port), "--history_interval", "0.5"]
+    server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--log_level", "WARNING",
+                            *srv_obs)
+    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE,
+                                queue_name=OBS_QUEUE)
+    producer = client = monitor = None
+    last, result = {}, {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+
+    try:
+        monitor = pt.open_queue(config, role="consumer")  # creates the queue, 40 frames
+        client = pt.open_queue(config, role="consumer")
+        if traced:
+            args = argparse.Namespace(trace_dir=os.path.join(turn_dir, "trace"),
+                                      trace_sample=sample,
+                                      flight_dir=os.path.join(turn_dir, "flight"))
+            configure_from_args(args, "serving")
+            result["anchor_exchanges"] = exchange_anchors(monitor)
+        client.stream_open(TCP_STREAM_WINDOW)
+        pt.reset_counters()
+        producer = ProducerCLI(root, npz, server.address, *prod_obs)
+        pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=pt.PipelineMetrics(warmup=1))
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        result["wall_s"] = time.monotonic() - t0
+        counts = pt.counts()
+        code, out = producer.wait()
+        producer = None
+        stats = monitor.stats()
+        if traced:
+            result["scrape"] = scrape_metrics(metrics_port, stats)
+            fed = monitor.cluster_rpc({"op": "metrics"})
+            if not (fed.get("ok") is True and {"host", "pid", "metrics"} <= set(fed)
+                    and "queue_server" in fed["metrics"]):
+                raise AssertionError(f"the 'N' metrics answer lacks keys: {sorted(fed)}")
+            result["federation_keys"] = sorted(fed)
+    finally:
+        if traced:
+            TRACER.close()
+            FLIGHT.uninstall()
+        for c in (client, monitor):
+            if c is not None:
+                c.disconnect()
+        if producer is not None:
+            producer.proc.kill()
+            producer.wait(timeout=30)
+        srv_code, srv_out = server.stop()
+    roots = imported_roots(out) & {"torch", "jax"}
+    if seen != OBS_FRAMES or code != 0 or srv_code != 0 or roots:
+        raise AssertionError(f"{tag}: consumed {seen} of {OBS_FRAMES}, producer exit {code} "
+                             f"(imported {roots}), server exit {srv_code}: {out[-1500:]} "
+                             f"{srv_out[-1500:]}")
+    check_resnet_counts(counts, OBS_FRAMES // BATCH)
+    summary = pipe.metrics.summary()
+    stages = pipe.metrics.stages.snapshot()
+    result.update(
+        fps=summary["fps"], frames=OBS_FRAMES, timed_batches=summary["batches"],
+        p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+        host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+        server_queue={k: stats.get(k) for k in ("puts", "gets", "high_water")},
+        stages_serving={name: ({k: stages[name][k] for k in ("count", "p50_ms", "p99_ms")}
+                               if name in stages else None) for name in OBS_STAGES},
+        launches=counts)
+    if traced:
+        tdir = os.path.join(turn_dir, "trace")
+        result["spool_bytes"] = spool_bytes(tdir)
+        if set(result["spool_bytes"]) != {"producer", "queue_server", "serving"}:
+            raise AssertionError(f"{tag}: spools {result['spool_bytes']}")
+        result["merged"] = merged_frames(pt, tdir, complete=sample == 1)
+    return result, last, counts
+
+
+def observed_stall(pt, root, npz, work):
+    """The stall of ``observed_end_to_end``: a queue server CLI with
+    ``--stall_poll_s 0.2 --stall_full_s 1 --flight_dir``, the producer CLI
+    with ``--flight_dir``, and this process reading the stream (8 credits),
+    which stops reading after the first batch's frames for at least
+    ``OBS_STALL_S`` while the producer still has frames to put: the
+    server must log a ``backpressure`` event and write a flight dump with
+    reason ``stall`` holding the event, a metrics snapshot, a history tail
+    and the thread stacks; a ``SIGUSR2`` to the producer must then give a
+    dump with reason ``signal``. Then the rest is read to the end."""
+    import json as _json
+    import signal
+
+    sdir, pdir = (os.path.join(work, "stall", n) for n in ("server", "producer"))
+    server = QueueServerCLI(root, "--queue_size", str(TCP_QUEUE_SIZE), "--stall_poll_s", "0.2",
+                            "--stall_full_s", "1", "--flight_dir", sdir, "--history_interval",
+                            "0.5", "--log_level", "INFO")
+    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE,
+                                queue_name=OBS_QUEUE)
+    producer = client = None
+    frames = eos = 0
+    found = {}
+
+    def dumps(d):
+        if not os.path.isdir(d):
+            return []
+        return [_json.loads(open(os.path.join(d, f)).read()) for f in sorted(os.listdir(d))
+                if f.endswith(".json")]
+
+    def read(max_items, timeout):
+        nonlocal frames, eos
+        for item in client.get_batch_stream(max_items, timeout=timeout):
+            if isinstance(item, pt.EndOfStream):
+                eos += 1
+            else:
+                frames += 1
+                item.release()
+
+    try:
+        client = pt.open_queue(config, role="consumer")
+        client.stream_open(OBS_STALL_WINDOW)
+        producer = ProducerCLI(root, npz, server.address, "--flight_dir", pdir)
+        deadline = time.monotonic() + 120.0
+        while frames < BATCH:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"stall run: {frames} frames before the stall")
+            read(BATCH - frames, 1.0)
+        t_stall = time.monotonic()
+        while time.monotonic() - t_stall < OBS_STALL_WAIT_S:
+            if "stall" not in found and '"kind": "backpressure"' in server.text():
+                stall_dumps = [d for d in dumps(sdir) if d["reason"] == "stall"]
+                if stall_dumps:
+                    found["stall"] = (time.monotonic() - t_stall, stall_dumps[0])
+                    producer.proc.send_signal(signal.SIGUSR2)
+            if "stall" in found and "signal" not in found:
+                signal_dumps = [d for d in dumps(pdir) if d["reason"] == "signal"]
+                if signal_dumps:
+                    found["signal"] = (time.monotonic() - t_stall, signal_dumps[0])
+            if len(found) == 2 and time.monotonic() - t_stall >= OBS_STALL_S:
+                break
+            time.sleep(0.05)
+        stall_s = time.monotonic() - t_stall
+        deadline = time.monotonic() + 120.0
+        while not eos and time.monotonic() < deadline:
+            read(64, 1.0)
+        code, out = producer.wait()
+        producer = None
+    finally:
+        if client is not None:
+            client.disconnect()
+        if producer is not None:
+            producer.proc.kill()
+            producer.wait(timeout=30)
+        srv_code, srv_out = server.stop()
+    if len(found) != 2 or frames != OBS_FRAMES or eos != 1 or code != 0 or srv_code != 0:
+        raise AssertionError(f"stall run: dumps {sorted(found)}, {frames} frames, {eos} EOS, "
+                             f"producer exit {code}, server exit {srv_code}: {srv_out[-2000:]}")
+    t_dump, doc = found["stall"]
+    checks = {
+        "trigger_backpressure": (doc.get("trigger") or {}).get("kind") == "backpressure",
+        "event_in_ring": any(e.get("kind") == "stall" and e.get("stall_kind") == "backpressure"
+                             for e in doc["events"]),
+        "metrics_snapshot": "queue_server" in (doc.get("metrics") or {}),
+        "timeseries_tail": bool(doc.get("timeseries_tail")),
+        "thread_stacks": bool(doc.get("threads")),
+        "signal_dump_stacks": bool(found["signal"][1].get("threads")),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"stall dump lacks: {[k for k, v in checks.items() if not v]}")
+    line = next(ln for ln in srv_out.splitlines() if '"kind": "backpressure"' in ln)
+    return {"stall_s": stall_s, "stall_dump_after_s": t_dump,
+            "signal_dump_after_s": found["signal"][0], "stall_log": line.split(" - ", 2)[-1],
+            "stall_dump_keys": sorted(doc), "timeseries_tail_keys": len(doc["timeseries_tail"]),
+            "frames": frames, **checks}
+
+
+def phase_observed_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """Config 4 at full width (batch 32, ResNet-50 at width 64, K1–K3)
+    from the producer CLI through the queue server CLI over
+    ``tcp://127.0.0.1`` to the serving pipeline here, in three turns of
+    ``OBS_FRAMES`` frames: tracing off, 1 frame in 100, every frame; then
+    a stall. Returns the three turns' launch counts, summed."""
+    import shutil
+
+    step = make_step(torch, pt, consts, params)
+    npz = observed_npz(root, pool)
+    work = os.path.join(root, "build", "chip_smoke", f"observed_{os.getpid()}")
+    t_phase = time.monotonic()
+    turns, lasts = {}, {}
+    total = {}
+    try:
+        for tag, sample in OBS_TURNS:
+            turns[tag], lasts[tag], counts = observed_turn(torch, pt, step, device, root, npz,
+                                                           work, tag, sample)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        stall = observed_stall(pt, root, npz, work)
+    finally:
+        os.remove(npz)
+        shutil.rmtree(work, ignore_errors=True)
+    base = lasts["off"]
+    for tag, last in lasts.items():
+        turns[tag].update(check_resnet_result(torch, pt, model, consts, last))
+        if not torch.equal(last["event_idx"], base["event_idx"]):
+            raise AssertionError(f"{tag}: the last batch holds other events than the untraced")
+        diff = float((last["out"][0].float() - base["out"][0].float()).abs().max())
+        turns[tag]["logits_max_abs_diff_vs_off"] = diff
+        if diff > OBS_LOGIT_TOL:
+            raise AssertionError(f"{tag}: logits differ from the untraced turn's by {diff}")
+    emit("observed_end_to_end", frames_per_turn=OBS_FRAMES, batch=BATCH,
+         queue_size=TCP_QUEUE_SIZE, stream_window=TCP_STREAM_WINDOW,
+         fps={tag: turns[tag]["fps"] for tag in turns},
+         fps_ratio_vs_off={tag: turns[tag]["fps"] / turns["off"]["fps"] for tag in turns},
+         turns=turns, stall=stall, phase_s=time.monotonic() - t_phase)
+    return total
+
+
 def _conv3x3_cost(m_out, cin, n, m_in, affine=True):
     """(bytes, ops) of one bf16 3x3 convolution: input, weight, affines,
     output, each once."""
@@ -4358,6 +4779,8 @@ def main() -> int:
         os.remove(npz)
     phase_profile(torch, pt, pool, consts, params, device)
     phase_tcp_profile(torch, pt, pool, consts, params, device, root)
+    observed_counts = phase_observed_end_to_end(torch, pt, pool, consts, model, params, device,
+                                                root)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -4401,7 +4824,8 @@ def main() -> int:
                      + cli_sfx_tcp_counts["calib_kernel"] + durable_counts["calib_kernel"]
                      + failover_counts["calib_kernel"] + cluster_counts["calib_kernel"]
                      + cluster_failover_counts["calib_kernel"] + repl_counts["calib_kernel"]
-                     + repl_failover_counts["calib_kernel"]),
+                     + repl_failover_counts["calib_kernel"]
+                     + observed_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -4419,7 +4843,8 @@ def main() -> int:
             "launches": (counts[name] + shm_counts[name] + fold_counts[name] + trace_counts[name]
                          + tcp_counts[name] + durable_counts[name] + failover_counts[name]
                          + cluster_counts[name] + cluster_failover_counts[name]
-                         + repl_counts[name] + repl_failover_counts[name]),
+                         + repl_counts[name] + repl_failover_counts[name]
+                         + observed_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

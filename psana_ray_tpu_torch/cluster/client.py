@@ -62,6 +62,7 @@ from psana_ray_tpu_torch.cluster.coordinator import coordinator_address
 from psana_ray_tpu_torch.cluster.group import GroupSession
 from psana_ray_tpu_torch.cluster.hashring import PartitionMap, partition_queue_name
 from psana_ray_tpu_torch.cluster.telemetry import CLUSTER
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, is_eos
 from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.transport.ring import EMPTY
@@ -234,6 +235,7 @@ class ClusterClient:
             deadline = time.monotonic() + self._MIGRATE_DEADLINE_S
             try:
                 if not old.stats().get("durable"):
+                    FLIGHT.record("cluster_migrate_skipped", partition=p, reason="memory-only")
                     continue  # memory-only: not migrated
                 while time.monotonic() < deadline:
                     batch = old.get_batch(64, timeout=0.25)
@@ -263,8 +265,11 @@ class ClusterClient:
                         _close_quietly(old)
                 else:
                     _close_quietly(old)  # never BYE: it would ack the unconfirmed
+                    FLIGHT.record("cluster_migrate_deferred", partition=p, migrated=migrated)
             if migrated:
                 CLUSTER.resent(0, migrated)
+                FLIGHT.record("cluster_partition_migrated", partition=p, frames=migrated,
+                              from_server=addr)
 
     def _apply_map(self, new_map: PartitionMap) -> int:
         """Swap in a recomputed map: drop the moved partitions' connections
@@ -293,6 +298,9 @@ class ClusterClient:
                     pending_ids.add(id(x))
         CLUSTER.map_changed(new_map.version, len(new_map.servers), len(self._dead),
                             new_map.n_partitions, len(moved))
+        if moved:
+            FLIGHT.record("cluster_reassign", version=new_map.version, partitions=len(moved),
+                          live=len(new_map.servers))
         return len(moved)
 
     def _server_alive(self, addr: str) -> bool:
@@ -325,6 +333,7 @@ class ClusterClient:
             self._coord, self._coord_addr = None, None
         if not survivors:
             raise TransportClosed(f"every cluster server is dead (last: {addr})")
+        FLIGHT.record("cluster_server_dead", server=addr)
         new_map = self._map.recompute(survivors)
         moved = new_map.moved_from(self._map)
         self._apply_map(new_map)
@@ -358,6 +367,8 @@ class ClusterClient:
                 except RuntimeError:
                     rng = None  # a server without the opcode: a plain failover
                 CLUSTER.promoted(served=rng is not None)
+                FLIGHT.record("replica_promote", partition=p, server=addr,
+                              served=rng is not None, **(rng or {}))
                 c.open(self.namespace, qname, self._maxsize)
             except TransportClosed:
                 _close_quietly(c)  # the new owner died too: its successor promotes
@@ -382,6 +393,9 @@ class ClusterClient:
         finally:
             if not pending:
                 self._resend_pending.pop(p, None)
+                FLIGHT.record("cluster_resend_flushed", partition=p)
+            else:
+                FLIGHT.record("cluster_resend_deferred", partition=p, left=len(pending))
 
     def _with_failover(self, p: int, fn):
         """``fn(partition client)``; when the owner is dead for good,
@@ -622,6 +636,8 @@ class ClusterClient:
             self._commit_retry.discard(p)
         self._applied_gen = self._session.generation
         CLUSTER.rebalanced(self._session.generation)
+        FLIGHT.record("cluster_rebalance", generation=self._session.generation,
+                      assigned=len(assigned), revoked=len(revoked))
 
     def _pop(self, p: int, n: int, timeout: float) -> List[Any]:
         def _do(c: TcpQueueClient):
@@ -662,6 +678,7 @@ class ClusterClient:
                 return
             self._drained.add(p)
         CLUSTER.drained()
+        FLIGHT.record("cluster_partition_drained", partition=p)
         # sibling markers back to the partition, then stop reading it
         try:
             self._with_failover(p, lambda c: tally.flush_duplicates(c, final=True))
@@ -698,6 +715,7 @@ class ClusterClient:
                 return out
             self._eos_emitted = True
         CLUSTER.eos_emitted()
+        FLIGHT.record("cluster_eos", queue=self.queue_name)
         out.append(EndOfStream(producer_rank=0, shards_done=1, total_shards=1))
         return out
 

@@ -62,6 +62,8 @@ import time
 from typing import Dict, Optional, Tuple
 
 from psana_ray_tpu_torch.cluster.hashring import next_in_chain
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.registry import ensure_registered
 from psana_ray_tpu_torch.storage.log import (
     DEFAULT_FSYNC_BATCH_N,
     DEFAULT_RETAIN_SEGMENTS,
@@ -138,16 +140,19 @@ class ReplicationTelemetry:
         self._senders: list = []  # guarded-by: _lock
 
     def note(self, name: str, level: int = logging.INFO, **fields) -> None:
-        """Count one event and log it as ``name {fields}``."""
+        """Count one event, log it as ``name {fields}`` and record it in the
+        flight recorder."""
         with self._lock:
             self.events[name] = self.events.get(name, 0) + 1
         logger.log(level, "%s %s", name, json.dumps(fields, default=str))
+        FLIGHT.record(name, **fields)
 
     def count_of(self, name: str) -> int:
         with self._lock:
             return self.events.get(name, 0)
 
     def track(self, sender) -> None:
+        ensure_registered("replication", self)  # a process's first link comes here
         with self._lock:
             self._senders.append(sender)
 

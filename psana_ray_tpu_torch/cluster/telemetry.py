@@ -8,7 +8,7 @@ came from its new owner.
 
 The port's copy of ``psana_ray_tpu/cluster/telemetry.py`` as counters
 and :meth:`ClusterTelemetry.stats`: one process-wide :data:`CLUSTER`,
-with no metrics-registry self-registration.
+registered as the ``cluster`` metrics source at its first map.
 """
 
 from __future__ import annotations
@@ -41,6 +41,9 @@ class ClusterTelemetry:
         self.first_moved_frame_at = None  # guarded-by: _lock
 
     def map_changed(self, version: int, live: int, dead: int, partitions: int, moved: int = 0):
+        from psana_ray_tpu_torch.obs.registry import ensure_registered
+
+        ensure_registered("cluster", self)  # every client's first map comes here
         with self._lock:
             self.map_version = version
             self.servers_live = live

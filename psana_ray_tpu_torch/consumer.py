@@ -35,8 +35,13 @@ connections' capability exchange. ``--replay from=<offset|begin|resume>``
 over ``tcp://`` or ``cluster://`` without popping the live queue.
 ``--cluster host:port,host:port --partitions P`` reads a sharded queue,
 ``--group`` and ``--member_id`` as a member of a consumer group (one EOS
-a member). The JAX CLI's obs and autotune flags are refused (ROADMAP.md
-Queue 1 Item 8).
+a member). ``--metrics_port`` serves the consumer's metrics (with the
+wall-clock queue dwell of each frame), ``--history_interval`` samples
+them, ``--trace_dir`` spools a ``dequeue`` span for each sampled frame
+(after clock exchanges with the queue server over a connection of its
+own) and ``--flight_dir`` arms the flight recorder; the heartbeat line
+ends with the tracer's and the flight recorder's counts. The profiler and
+autotune flags are refused (ROADMAP.md Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import time
 from typing import Any, Optional
 
 from psana_ray_tpu_torch.config import TransportConfig
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 from psana_ray_tpu_torch.records import EosTally, is_eos
 from psana_ray_tpu_torch.transport import EMPTY, RendezvousTimeout, TransportClosed
 
@@ -207,6 +213,7 @@ class DataReader:
                 tally.flush_duplicates(self._queue)  # a slot just freed
                 if is_eos(item):
                     if tally.process(item):
+                        FLIGHT.record("eos_complete", queue=self.queue_name)
                         return
                     continue
                 yield item
@@ -230,12 +237,8 @@ class DataReader:
             raise DataReaderError("not connected — call connect() or use as context manager")
 
 
-# the JAX CLI's obs and autotune flags
-NOT_PORTED_FLAGS = (
-    "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
-    "--history_interval", "--history_samples", "--profile_hz", "--autotune",
-    "--autotune_interval",
-)
+# the JAX CLI's profiler and autotune flags
+NOT_PORTED_FLAGS = ("--profile_hz", "--autotune", "--autotune_interval")
 
 
 def main(argv=None):
@@ -297,14 +300,20 @@ def main(argv=None):
         apply_tenant_args,
         apply_wire_args,
     )
+    from psana_ray_tpu_torch.obs.exporter import add_metrics_args
+    from psana_ray_tpu_torch.obs.timeseries import add_history_args
+    from psana_ray_tpu_torch.obs.tracing import add_trace_args
     from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
+    add_metrics_args(p)
+    add_trace_args(p)
+    add_history_args(p)
     add_cluster_args(p, consumer=True)
     add_wire_args(p)
     add_tenant_args(p)
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
     try:
         # --cluster rewrites the address and carries the partitions and group
         reader_config = apply_tenant_args(apply_wire_args(
@@ -349,17 +358,28 @@ def main(argv=None):
             return 1
 
     # per-frame counters always (they feed the final line); the heartbeat
-    # thread only when asked for, and after every early return above
-    from psana_ray_tpu_torch.obs.stages import STAGE_QUEUE_DWELL
+    # thread, the endpoint and the history only when asked for, and after
+    # every early return above
+    from psana_ray_tpu_torch.obs.exporter import start_metrics_server
+    from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+    from psana_ray_tpu_torch.obs.stages import STAGE_DEQUEUE, STAGE_QUEUE_DWELL
+    from psana_ray_tpu_torch.obs.timeseries import configure_history_from_args
+    from psana_ray_tpu_torch.obs.tracing import TRACER, configure_from_args, obs_status_suffix
     from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
     metrics = PipelineMetrics()
+    observe_dwell = a.status_interval > 0 or a.metrics_port > 0
+    MetricsRegistry.default().register("consumer", metrics)
+    metrics_server = start_metrics_server(a.metrics_port, host=a.metrics_host)
+    history = configure_history_from_args(a)
     heartbeat_done = threading.Event()
     heartbeat = None
     if a.status_interval > 0:
         def _heartbeat():
+            # the suffix shows tracing on in a live run: rate, spans, events
             while not heartbeat_done.wait(a.status_interval):
-                log.info("consumer %d status: %s", a.consumer_id, metrics.status_line())
+                log.info("consumer %d status: %s%s", a.consumer_id, metrics.status_line(),
+                         obs_status_suffix())
 
         heartbeat = threading.Thread(target=_heartbeat, daemon=True, name="consumer-heartbeat")
         heartbeat.start()
@@ -387,21 +407,28 @@ def main(argv=None):
             if checksum:
                 log.debug("consumer %d: wire codec %s", a.consumer_id,
                           getattr(reader.queue, "codec_name", None))
-            if a.status_interval > 0:
-                # depth in the heartbeat, over a handle of its own
+            if observe_dwell or a.trace_dir:
+                # the depth, and the tracer's clock exchanges, over a handle
+                # of its own: an op on the data connection acks its deliveries
                 try:
                     monitor = reader.open_monitor()
                     metrics.attach_queue(monitor)
                 except Exception as e:  # noqa: BLE001 (depth is optional)
                     log.debug("queue monitor unavailable: %s", e)
+            configure_from_args(a, "consumer", queue=monitor)
             try:
                 for rec in reader.iter_records(stop=_should_stop):
+                    t_rec = time.monotonic()
                     n += 1
                     metrics.observe_frame(rec.nbytes)
-                    if a.status_interval > 0 and rec.timestamp:
-                        # wall-clock dwell, the producer's stamp to this read
-                        metrics.stages.observe(STAGE_QUEUE_DWELL,
-                                               max(0.0, time.time() - rec.timestamp))
+                    rec_trace = rec.trace
+                    if observe_dwell and rec.timestamp:
+                        # wall-clock dwell, the producer's stamp to this read;
+                        # a sampled frame's trace id is its bucket's exemplar
+                        metrics.stages.observe(
+                            STAGE_QUEUE_DWELL, max(0.0, time.time() - rec.timestamp),
+                            exemplar=rec_trace.trace_id
+                            if rec_trace is not None and rec_trace.sampled else None)
                     if not a.quiet:
                         log.info(
                             "consumer %d: rank=%d idx=%d shape=%s energy=%.2f",
@@ -418,6 +445,9 @@ def main(argv=None):
                         cursor.advance(rec.shard_rank, rec.event_idx)
                         if a.cursor_save_every > 0 and n % a.cursor_save_every == 0:
                             cursor.save(a.cursor_path)
+                    if rec_trace is not None and rec_trace.sampled and TRACER.enabled:
+                        # read done -> the record handled (log line, cursor)
+                        TRACER.span(rec_trace.trace_id, STAGE_DEQUEUE, t_rec, time.monotonic())
             finally:
                 if cursor is not None:
                     cursor.save(a.cursor_path)
@@ -433,8 +463,12 @@ def main(argv=None):
         return 1
     finally:
         heartbeat_done.set()
+        if history is not None:
+            history.stop()
         if heartbeat is not None:
             heartbeat.join(timeout=1.0)
+        if metrics_server is not None:
+            metrics_server.close()
         metrics.attach_queue(None)  # the monitor handle is about to go
         if monitor is not None and hasattr(monitor, "disconnect"):
             try:

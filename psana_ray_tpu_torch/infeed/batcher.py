@@ -14,6 +14,11 @@ slot. An arena can be pinned memory that the prefetcher copies to the
 card directly (:func:`psana_ray_tpu_torch.infeed.pipeline.pinned_arena`);
 its ``fence`` is the event behind that copy, and the batcher waits on it
 before writing into the arena again.
+
+A record with hop stamps (a producer in this process stamped it, or it
+came over the wire with a sampled trace context while the process's
+tracer is on) gets its ``deq``, ``push`` and ``batch`` stamps here; the
+batch carries the stamp dicts of its records in ``hops``.
 """
 
 from __future__ import annotations
@@ -24,8 +29,12 @@ from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
-from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.stages import HOP_BATCH, HOP_DEQ, HOP_PUSH
+from psana_ray_tpu_torch.obs.tracing import TRACE_KEY, TRACER
+from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord, mark_hop
 from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
+from psana_ray_tpu_torch.utils.bufpool import WIRE
 
 # the [B] metadata arrays of a batch, after the frames: valid, shard_rank,
 # event_idx, photon_energy
@@ -45,6 +54,7 @@ class Batch:
     num_valid: int = -1
     arena: Optional["Arena"] = None  # the host memory a batcher assembled this batch in
     copied_bytes: int = 0  # frame bytes the batcher copied into it
+    hops: Optional[List[dict]] = None  # the stamp dicts of its stamped records
 
     def __post_init__(self):
         if self.num_valid < 0:
@@ -123,6 +133,7 @@ class FrameBatcher:
         self._cur: Optional[Arena] = None
         self._fill = 0
         self._copied = 0
+        self._hops: Optional[List[dict]] = None  # stamps of the current batch
 
     def _acquire(self) -> Arena:
         if self.n_buffers <= 0:
@@ -149,6 +160,13 @@ class FrameBatcher:
         i = self._fill
         frames[i] = rec.panels  # the consumer's one host copy of the frame
         self._copied += rec.panels.nbytes
+        WIRE.add(rec.panels.nbytes)
+        hops = rec.hops
+        if hops is not None:  # a timed record: its copy into the batch is done
+            hops[HOP_PUSH] = time.monotonic()
+            if self._hops is None:
+                self._hops = []
+            self._hops.append(hops)
         valid[i] = 1
         rank[i] = rec.shard_rank
         idx[i] = rec.event_idx
@@ -185,7 +203,13 @@ class FrameBatcher:
                 a[n:] = 0
         self._cur = None
         self._fill = 0
-        return Batch(*arena.arrays, num_valid=n, arena=arena, copied_bytes=self._copied)
+        hops, self._hops = self._hops, None
+        if hops is not None:  # one emit stamp for every record of the batch
+            t = time.monotonic()
+            for h in hops:
+                h[HOP_BATCH] = t
+        return Batch(*arena.arrays, num_valid=n, arena=arena, copied_bytes=self._copied,
+                     hops=hops)
 
 
 def batches_from_queue(
@@ -211,7 +235,9 @@ def batches_from_queue(
     ends when the :class:`EosTally` covers every shard, or when the
     transport closes; the padded tail is yielded first. A wedged transport
     (a crashed peer) raises instead. ``max_wait_s`` bounds starvation
-    (None: wait forever). ``stop`` (a ``threading.Event``) cancels from
+    (None: wait forever; a stream that ends so is a ``stream_stalled``
+    flight-recorder event, one the EOS markers complete ``eos_complete``).
+    ``stop`` (a ``threading.Event``) cancels from
     another thread without a flush. ``batcher`` is the
     :class:`FrameBatcher` to fill (default: one with ``n_buffers``, made at
     the first record).
@@ -238,11 +264,13 @@ def batches_from_queue(
                 now = time.monotonic()
                 starved_since = starved_since if starved_since is not None else now
                 if max_wait_s is not None and now - starved_since >= max_wait_s:
+                    FLIGHT.record("stream_stalled", max_wait_s=max_wait_s)
                     if batcher is not None and (tail := batcher.flush()) is not None:
                         yield tail
                     return
                 continue
             starved_since = None
+            t_deq = time.monotonic()
             tally.flush_duplicates(queue)
             ready: List[Batch] = []
             done = False
@@ -264,11 +292,20 @@ def batches_from_queue(
                             queue.put_wait(other, timeout=1.0)
                         if batcher is not None and (tail := batcher.flush()) is not None:
                             ready.append(tail)
+                        FLIGHT.record("eos_complete", source="batches_from_queue")
                         done = True
                         break
                     continue
                 if batcher is None:
                     batcher = FrameBatcher(batch_size, n_buffers=n_buffers)
+                trace = item.trace
+                if trace is not None and trace.sampled and TRACER.enabled:
+                    # a traced frame from the wire: its stamps start here and
+                    # become spans at the step's end (emit_batch_spans)
+                    mark_hop(item, HOP_DEQ, t_deq)
+                    item.hops[TRACE_KEY] = trace.trace_id
+                elif item.hops is not None:  # a timed stream: stamp the pop
+                    item.hops[HOP_DEQ] = t_deq
                 out = batcher.push_view(item)
                 if out is not None:
                     ready.append(out)

@@ -23,9 +23,10 @@ EOS: each leg ends on its own queue's EOS; the loop ends when every leg
 has. A leg's error is raised to the consumer as soon as that leg winds
 down (batches of it still in the merge may be dropped), not deferred
 until the healthy detectors also finish: a dead detector in a continuous
-multi-run deployment must surface at once. The JAX package also records
-leg errors in its flight recorder and exports per-leg metrics series;
-the port logs the error (the obs plane is ROADMAP.md Queue 1 Item 8).
+multi-run deployment must surface at once. A leg's error and its end
+are flight-recorder events (``fanin_leg_error``, ``fanin_leg_done``), and
+each leg's metrics are the ``infeed.<detector>`` source of the process's
+metrics registry while the leg runs.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from psana_ray_tpu_torch.infeed.pipeline import (
     drive_step,
     use_on_current_stream,
 )
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
 log = logging.getLogger(__name__)
@@ -109,6 +111,7 @@ class FanInPipeline:
                     poll_interval_s=s.poll_interval_s,
                     max_wait_s=s.max_wait_s,
                     batcher_buffers=s.batcher_buffers,
+                    name=s.name,  # the infeed.<detector> metrics source
                 )
         except BaseException:
             # a later leg failed to build; already-started legs are live
@@ -142,8 +145,10 @@ class FanInPipeline:
                     return
         except BaseException as e:  # noqa: BLE001 (re-raised in the consumer)
             log.error("fan-in leg %r failed: %r", name, e)
+            FLIGHT.record("fanin_leg_error", leg=name, error=repr(e))
             self._errors.append(e)
         finally:
+            FLIGHT.record("fanin_leg_done", leg=name)
             pipe.close()
             self._put((name, self._DONE, None), force=True)
 

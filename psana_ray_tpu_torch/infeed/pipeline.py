@@ -30,6 +30,14 @@ frame bytes the host copied and the batches copied to the card straight
 from their arena. On the profiler's timeline each batch's H2D enqueue is
 a ``stage.device_put`` range and each step a ``stage.dispatch`` range
 (:func:`~psana_ray_tpu_torch.utils.trace.annotate_stage`).
+
+A batch of stamped records (``Batch.hops``) gets each record's
+``device_put`` stamp once its copy to the device is enqueued, and at the
+step's end (where :func:`drive_step` already returns, after the wait for
+the step when ``block_until_ready`` asks for it; no synchronisation is
+added for a stamp) its stamps go into the per-stage histograms of the
+pipeline's metrics and, for traced records, become spans on the process's
+tracer (:func:`~psana_ray_tpu_torch.obs.tracing.emit_batch_spans`).
 """
 
 from __future__ import annotations
@@ -51,7 +59,14 @@ from psana_ray_tpu_torch.infeed.batcher import (
     batches_from_queue,
     host_arena,
 )
-from psana_ray_tpu_torch.obs.stages import STAGE_DEVICE_PUT, STAGE_DISPATCH
+from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+from psana_ray_tpu_torch.obs.stages import (
+    HOP_DEVICE_PUT,
+    STAGE_DEVICE_PUT,
+    STAGE_DISPATCH,
+    observe_batch_stages,
+)
+from psana_ray_tpu_torch.obs.tracing import emit_batch_spans
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 from psana_ray_tpu_torch.utils.trace import annotate_stage
@@ -131,7 +146,12 @@ class DevicePrefetcher:
         if not self.stage_meta:
             # the metadata stays on the host, copied: a pooled batcher reuses its arrays
             staged = [staged[0], *(np.array(a) for a in batch.arrays()[1:])]
-        return Batch(*staged, num_valid=batch.num_valid), event, copied, direct
+        if batch.hops:  # stamped records: their copy to the device is enqueued
+            t = time.monotonic()
+            for h in batch.hops:
+                h[HOP_DEVICE_PUT] = t
+        return (Batch(*staged, num_valid=batch.num_valid, hops=batch.hops), event, copied,
+                direct)
 
     def _to_device(self, tensors):
         """Pinned host tensors -> (tensors on the card, the copy's event),
@@ -276,13 +296,19 @@ def drive_step(
 ):
     """Run one step over a device batch and record frames, bytes and
     latency. ``block_until_ready`` synchronises the batch's stream, making
-    the latency a true per-batch device latency instead of enqueue time."""
+    the latency a true per-batch device latency instead of enqueue time.
+    A batch's hop stamps end here: per-stage histograms, and spans for the
+    traced records."""
     t0 = time.monotonic()
     with annotate_stage(STAGE_DISPATCH):
         out = step(batch)
         if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
             torch.cuda.current_stream(batch.frames.device).synchronize()
-    metrics.observe_batch(batch.num_valid, time.monotonic() - t0, _frames_nbytes(batch.frames))
+    t1 = time.monotonic()
+    metrics.observe_batch(batch.num_valid, t1 - t0, _frames_nbytes(batch.frames))
+    if batch.hops:
+        observe_batch_stages(metrics.stages, batch, t1)
+        emit_batch_spans(batch, t1)
     return out
 
 
@@ -305,7 +331,9 @@ class InfeedPipeline:
     metadata on the host; ``stop`` (a ``threading.Event``) ends the stream
     from another thread. The constructor raises glibc's mmap threshold
     (:func:`enable_large_alloc_reuse`), as the JAX package's consumer
-    does at start."""
+    does at start. ``name`` registers the pipeline's metrics as the
+    ``infeed.<name>`` source of the process's metrics registry until
+    :meth:`close`."""
 
     def __init__(
         self,
@@ -319,6 +347,7 @@ class InfeedPipeline:
         batcher_buffers: int = 0,
         stage_meta: bool = True,
         stop=None,
+        name: Optional[str] = None,
     ):
         if batcher_buffers > 0 and batcher_buffers < prefetch_depth + 4:
             # the floor where tensors alias their arena (the CPU): alive at
@@ -348,6 +377,9 @@ class InfeedPipeline:
             metrics=self.metrics, stage_meta=stage_meta,
         )
         self.device = self._prefetcher.device
+        self._obs_name = f"infeed.{name}" if name else None
+        if self._obs_name:
+            MetricsRegistry.default().register(self._obs_name, self.metrics)
 
     def __iter__(self) -> Iterator[Batch]:
         return iter(self._prefetcher)
@@ -376,6 +408,9 @@ class InfeedPipeline:
 
     def close(self):
         self._prefetcher.close()
+        if self._obs_name:
+            MetricsRegistry.default().unregister(self._obs_name)
+            self._obs_name = None
 
     def __enter__(self):
         return self

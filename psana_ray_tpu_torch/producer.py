@@ -19,8 +19,13 @@ The CLI keeps the JAX command's flags, defaults and log lines:
         --num_shards 2 --num_consumers 2
 
 ``--cluster host:port,host:port --partitions P`` shards the queue over a
-cluster of queue servers. The JAX CLI's obs and autotune flags are
-refused (ROADMAP.md Queue 1 Item 8). Also here: :func:`produce`, the
+cluster of queue servers. ``--metrics_port`` serves the producer's
+metrics, ``--history_interval`` samples them, ``--trace_dir`` and
+``--trace_sample`` trace 1 frame in N (the ``produce`` instant and the
+``enqueue`` span of each sampled frame, its ``src`` and ``enq`` hop
+stamps) and ``--flight_dir`` arms the flight recorder, as in the JAX
+package; the profiler and autotune flags are refused (ROADMAP.md Queue 1
+Item 8). Also here: :func:`produce`, the
 inner loop alone, and :func:`produce_synthetic`, a ``spawn`` producer
 process that feeds a named shm ring, a queue server or a cluster from a
 seeded :class:`SyntheticSource`.
@@ -42,7 +47,19 @@ import numpy as np
 
 from psana_ray_tpu_torch.config import MaskConfig, PipelineConfig, RetrievalMode, SourceConfig
 from psana_ray_tpu_torch.config import TransportConfig
-from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, narrow_panels
+from psana_ray_tpu_torch.obs.exporter import add_metrics_args, start_metrics_server
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+from psana_ray_tpu_torch.obs.stages import HOP_ENQ, HOP_SRC, STAGE_ENQUEUE
+from psana_ray_tpu_torch.obs.timeseries import add_history_args, configure_history_from_args
+from psana_ray_tpu_torch.obs.tracing import (
+    SPAN_PRODUCE,
+    TRACER,
+    add_trace_args,
+    configure_from_args,
+    exchange_anchors,
+)
+from psana_ray_tpu_torch.records import EndOfStream, FrameRecord, mark_hop, narrow_panels
 from psana_ray_tpu_torch.sources import SyntheticSource, open_source
 from psana_ray_tpu_torch.transport import BackoffPolicy, Registry, TransportClosed, TransportWedged
 from psana_ray_tpu_torch.transport.addressing import (
@@ -240,11 +257,29 @@ class _Sender:
         return False
 
     def _send_windowed(self, rec) -> bool:
+        t_try = time.monotonic()
+        hops = getattr(rec, "hops", None)
+        if hops is not None:
+            hops[HOP_ENQ] = t_try
         if not self._windowed(lambda deadline: self.queue.put_pipelined(rec, deadline=deadline)):
             return False
         if isinstance(rec, FrameRecord):
             self.metrics.observe_frame(rec.nbytes)
+            self._observe_enqueue(rec, t_try)
         return True
+
+    def _observe_enqueue(self, rec: FrameRecord, t_try: float) -> None:
+        """The enqueue stage of an accepted record (source read done ->
+        the put that took it, backpressure included): the histogram, and
+        for a sampled frame the ``produce`` instant and ``enqueue`` span."""
+        h = rec.hops
+        if h is not None and HOP_SRC in h:
+            self.metrics.stages.observe(STAGE_ENQUEUE, t_try - h[HOP_SRC])
+        trace = rec.trace
+        if trace is not None and trace.sampled and TRACER.enabled:
+            t_src = h[HOP_SRC] if h and HOP_SRC in h else t_try
+            TRACER.instant(trace.trace_id, SPAN_PRODUCE, t_src)
+            TRACER.span(trace.trace_id, STAGE_ENQUEUE, t_src, t_try)
 
     def flush(self) -> bool:
         """Put every buffered record with the backoff envelope (windowed:
@@ -256,6 +291,12 @@ class _Sender:
         while self.pending:
             if self.stop.is_set():
                 return False
+            # the enqueue stamp goes on before the put, so an in-process
+            # consumer never pops a record without it (a retry re-stamps)
+            t_try = time.monotonic()
+            for r in (self.pending if self.batch_size > 1 else self.pending[:1]):
+                if getattr(r, "hops", None) is not None:
+                    r.hops[HOP_ENQ] = t_try
             try:
                 if self.batch_size > 1:
                     accepted = self.queue.put_batch(self.pending)
@@ -268,6 +309,8 @@ class _Sender:
             if accepted:
                 for r in self.pending[:accepted]:
                     self.metrics.observe_frame(r.nbytes)
+                    if isinstance(r, FrameRecord):
+                        self._observe_enqueue(r, t_try)
                 del self.pending[:accepted]
                 self.backoff.reset()
             else:
@@ -287,12 +330,16 @@ class ProducerRuntime:
         num_local_shards: int = 1,
         shard_rank_offset: int = 0,
         total_shards: Optional[int] = None,
+        stage_timing: bool = False,
     ):
+        """``stage_timing`` stamps the hops of every record (the CLI turns
+        it on with ``--metrics_port``); a sampled frame is stamped anyway."""
         self.config = config
         self.registry = registry or Registry.default()
         self.num_local_shards = num_local_shards
         self.shard_rank_offset = shard_rank_offset
         self.total_shards = total_shards or num_local_shards
+        self.stage_timing = stage_timing
         self.metrics = PipelineMetrics()
         self._queue = None
         self._barrier = threading.Barrier(num_local_shards)
@@ -349,7 +396,11 @@ class ProducerRuntime:
                     data = np.where(mask, data, 0)
                 if t.wire_dtype:  # lossy, opt-in: narrowed before the encode
                     data = narrow_panels(np.asarray(data), t.wire_dtype)
-                rec = FrameRecord(rank, int(idx), data, energy, timestamp=time.time())
+                trace_ctx = TRACER.maybe_trace()  # None on the unsampled path
+                rec = FrameRecord(rank, int(idx), data, energy, timestamp=time.time(),
+                                  trace=trace_ctx)
+                if self.stage_timing or trace_ctx is not None:
+                    mark_hop(rec, HOP_SRC)  # source read done
                 if not sender.send(rec):
                     logger.warning("rank %d: queue dead, exiting", rank)
                     return
@@ -393,6 +444,8 @@ class ProducerRuntime:
             except TransportClosed:
                 logger.warning("queue died before EOS could be delivered")
                 return
+        FLIGHT.record("eos_emitted", producer_rank=self.shard_rank_offset,
+                      consumers=t.num_consumers)
         logger.info("EOS delivered to %d consumer(s)", t.num_consumers)
 
     def _resume_point(self, rank: int) -> int:
@@ -449,12 +502,8 @@ class ProducerRuntime:
         self._stop.set()
 
 
-# the JAX CLI's obs and autotune flags
-NOT_PORTED_FLAGS = (
-    "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
-    "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
-    "--autotune_interval",
-)
+# the JAX CLI's profiler and autotune flags
+NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
 
 
 def parse_arguments(argv=None):
@@ -479,6 +528,9 @@ def parse_arguments(argv=None):
     p.add_argument("--num_consumers", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--log_level", default="INFO")
+    add_metrics_args(p)
+    add_trace_args(p)
+    add_history_args(p)
     add_cluster_args(p)
     add_wire_args(p, producer=True)
     p.add_argument("--num_shards", type=int, default=1, help="local ingest workers")
@@ -500,7 +552,7 @@ def parse_arguments(argv=None):
     )
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
     try:
         transport = apply_wire_args(apply_cluster_args(TransportConfig(
             address=a.address,
@@ -573,6 +625,7 @@ def main(argv=None):
         num_local_shards=args.num_shards,
         shard_rank_offset=offset,
         total_shards=total,
+        stage_timing=args.metrics_port > 0,
     )
 
     def _sigint(signum, frame):
@@ -580,12 +633,42 @@ def main(argv=None):
         runtime.stop()
 
     signal.signal(signal.SIGINT, _sigint)
+    MetricsRegistry.default().register("producer", runtime.metrics)
+    metrics_server = start_metrics_server(args.metrics_port, host=args.metrics_host)
+    history = configure_history_from_args(args)
+    monitor = None
+    observed = (metrics_server is not None or history is not None or args.trace_dir
+                or args.flight_dir)
+    if observed and str(config.transport.address).startswith(("tcp://", "cluster://")):
+        # the depth for scrapes, history samples and flight dumps over a
+        # connection of its own: on the data connection a stats() probe
+        # waits behind a put held by backpressure or a reconnect, and a
+        # dump asked for during a stall would wait for the stall's end
+        try:
+            monitor = open_queue(config.transport, role="consumer",
+                                 address=config.transport.address)
+            runtime.metrics.attach_queue(monitor)
+        except Exception as e:  # noqa: BLE001 (the depth is optional)
+            logger.debug("queue monitor unavailable: %s", e)
+    tracer = configure_from_args(args, "producer", queue=monitor)
     try:
+        if tracer is not None and monitor is None:
+            # the clock exchanges over the data connection, before the stream
+            exchange_anchors(runtime.bootstrap())
         runtime.run(block=True)
     finally:
         queue = runtime._queue
         if hasattr(queue, "flush_puts"):  # TCP, a cluster: a clean goodbye to the servers
             queue.disconnect()
+        if history is not None:
+            history.stop()
+        if metrics_server is not None:
+            metrics_server.close()
+        if monitor is not None and hasattr(monitor, "disconnect"):
+            try:
+                monitor.disconnect()
+            except Exception:  # noqa: BLE001 (already closing)
+                pass
     logger.info("producer done: %s", runtime.metrics.status_line())
 
 

@@ -46,8 +46,19 @@ durable partition log to the next server of its rendezvous ranking, holds
 producer answers until the follower has logged the frame, and keeps the
 coordinator's group state on the next peer under a leader lease
 (:mod:`psana_ray_tpu_torch.cluster.replication`); ``--replica_codec``
-compresses the links. The JAX command's stall, obs and autotune flags are
-refused (ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
+compresses the links.
+
+Observability, with the JAX command's flags and defaults: every queue is
+the ``queue_server`` source of the process's metrics registry, served as
+Prometheus text on ``--metrics_port`` (worker i of a fleet on
+``--metrics_port + i``) and answered to the 'N' ``{"op": "metrics"}``
+RPC; ``--history_interval`` samples the registry; ``--trace_dir`` spools
+each sampled frame's ``queue_dwell`` and ``relay`` spans; ``--flight_dir``
+arms the flight recorder; and a stall detector watches every queue by
+default (``--stall_poll_s 1.0``, ``--stall_full_s 5.0``, ``--stall_idle_s
+10.0``; 0 turns it off), logging each episode as ``STALL {...}`` and
+dumping the flight recorder. The profiler and autotune flags are refused
+(ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
 imports no torch.
 """
 
@@ -65,17 +76,15 @@ import threading
 import time
 
 from psana_ray_tpu_torch.config import DurabilityConfig
+from psana_ray_tpu_torch.obs.exporter import add_metrics_args
+from psana_ray_tpu_torch.obs.timeseries import add_history_args
+from psana_ray_tpu_torch.obs.tracing import add_trace_args
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
 logger = logging.getLogger(__name__)
 
 # the JAX command's flags of modules the port has not ported
-NOT_PORTED_FLAGS = (
-    "--metrics_host", "--metrics_port",
-    "--trace_dir", "--trace_sample", "--flight_dir", "--history_interval", "--history_samples",
-    "--profile_hz", "--profile_dir", "--autotune", "--autotune_interval", "--stall_poll_s",
-    "--stall_full_s", "--stall_idle_s",
-)
+NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
 
 
 def parse_args(argv=None):
@@ -135,10 +144,21 @@ def parse_args(argv=None):
     p.add_argument("--drain_s", type=float, default=10.0,
                    help="on SIGINT/SIGTERM: refuse puts and let consumers drain for up to this "
                         "many seconds before the queues close (0: close at once)")
+    add_metrics_args(p)
+    add_trace_args(p)
+    add_history_args(p)
+    p.add_argument("--stall_poll_s", type=float, default=1.0,
+                   help="queue-health poll interval of the stall detector (backpressure, "
+                        "consumer-stall and producer-idle warnings); 0 = detector off")
+    p.add_argument("--stall_full_s", type=float, default=5.0,
+                   help="warn 'backpressure' after a queue sits at maxsize this long")
+    p.add_argument("--stall_idle_s", type=float, default=10.0,
+                   help="warn 'consumer_stall'/'producer_idle' after put/get counters freeze "
+                        "this long")
     p.add_argument("--log_level", default="INFO")
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "stall detection, obs and autotune")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
     if a.durable_dir and a.shm:
         p.error("--durable_dir and --shm are mutually exclusive (the segment log backs "
                 "in-process queues; shm rings have their own lifetime)")
@@ -199,6 +219,40 @@ def _durable_factory(a):
         return q
 
     return factory
+
+
+def _start_obs(a, server, worker_ctx) -> list:
+    """The server's observability: its queues as the ``queue_server``
+    registry source, the metrics endpoint (staggered by worker id on a
+    fleet), the history sampler, the tracer and flight recorder, and the
+    stall detector over every queue, each event recorded and dumped by the
+    flight recorder. Returns the stops :func:`_serve` calls at shutdown."""
+    from psana_ray_tpu_torch.obs.exporter import start_metrics_server
+    from psana_ray_tpu_torch.obs.flight import FLIGHT
+    from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+    from psana_ray_tpu_torch.obs.stall import StallDetector
+    from psana_ray_tpu_torch.obs.timeseries import configure_history_from_args
+    from psana_ray_tpu_torch.obs.tracing import configure_from_args
+
+    wid = None if worker_ctx is None else worker_ctx.worker_id
+    reg = MetricsRegistry.default()
+    reg.register("queue_server", server.stats_all)
+    metrics_port = a.metrics_port + (wid or 0) if a.metrics_port else 0
+    stops = []
+    metrics_server = start_metrics_server(metrics_port, host=a.metrics_host)
+    if metrics_server is not None:
+        stops.append(metrics_server.close)
+    history = configure_history_from_args(a)
+    if history is not None:
+        stops.append(history.stop)
+    configure_from_args(a, "queue_server" if wid is None else f"queue_server-w{wid}")
+    if a.stall_poll_s > 0:
+        stall = StallDetector(poll_interval_s=a.stall_poll_s, full_threshold_s=a.stall_full_s,
+                              idle_threshold_s=a.stall_idle_s, on_event=FLIGHT.on_stall)
+        stall.watch_provider(server.queues_by_name)
+        reg.register("stalls", stall)
+        stops.append(stall.start().stop)
+    return stops
 
 
 def _write_port_file(path: str, port: int) -> None:
@@ -332,6 +386,8 @@ def _serve(a, worker_ctx=None, port=None) -> int:
                             max_conns=a.max_conns, worker_ctx=worker_ctx,
                             group_store_path=group_store_path,
                             replication=replication).serve_background()
+    # up before the port file names the server ready
+    obs_stops = _start_obs(a, server, worker_ctx)
     if worker_ctx is not None:
         logger.info("worker %d of %d (pid %d) listening on %s:%d", worker_ctx.worker_id,
                     worker_ctx.n_workers, os.getpid(), a.host, server.port)
@@ -367,6 +423,8 @@ def _serve(a, worker_ctx=None, port=None) -> int:
         else:
             logger.warning("drain window ended with %d item(s) still queued", server.depth())
     stats = server.stats_all()
+    for stop in obs_stops:
+        stop()
     server.close_all()  # every blocked client sees a dead transport
     server.shutdown()
     for q in server.all_queues():

@@ -8,30 +8,35 @@ byte for byte the JAX package's:
 - a frame is a fixed header (magic, version, shard rank, event index,
   ndim, dtype code, photon energy, timestamp), the shape as ``ndim``
   int64s, on version 3 a 25-byte trace context, then the panel bytes;
-- untraced frames encode as version 2, traced ones as version 3. The port
-  keeps the trace context as the opaque bytes it arrived with and writes
-  them back unchanged;
+- untraced frames encode as version 2, traced ones as version 3, whose
+  header carries the frame's :class:`~psana_ray_tpu_torch.obs.tracing.
+  TraceContext`;
 - an EOS marker is its own small header.
 
 :func:`narrow_panels` is the producer's opt-in lossy wire dtype
 (``--wire_dtype``). :meth:`FrameRecord.wire_parts` is the scatter-gather
 form the TCP transport sends from the panels' own memory, and
 :class:`LazyFrameRecord` a frame received compressed by the queue
-server, whose panels inflate at first touch. Hop stamps are not ported
-(Queue 1 Item 8).
+server, whose panels inflate at first touch. :func:`mark_hop` stamps a
+record's process-local ``hops`` (never on the wire), from which
+:mod:`psana_ray_tpu_torch.obs.stages` takes per-stage latencies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from typing import List, Optional
 
 import numpy as np
 
+from psana_ray_tpu_torch.obs.tracing import TraceContext
+from psana_ray_tpu_torch.utils.bufpool import WIRE
+
 SCHEMA_VERSION = 3
 _UNTRACED_WIRE_VERSION = 2  # frames without a trace context
-TRACE_WIRE_SIZE = 25  # the JAX package's packed trace context ("<QIB12s")
+TRACE_WIRE_SIZE = TraceContext.WIRE_SIZE  # 25 bytes, "<QIB12s"
 
 _MAGIC = struct.Struct("<I")
 _FRAME_MAGIC = 0x50525446  # "PRTF"
@@ -60,12 +65,13 @@ class FrameRecord:
     ``lease`` (never on the wire): when ``panels`` is a zero-copy view
     into transport memory (a shm ring slot), the lease keeps that memory
     checked out; :meth:`release` hands it back once the payload has been
-    copied onward (``FrameBatcher.push_view``). ``trace``: the 25 packed
-    bytes of a version-3 frame's trace context, kept as they came.
+    copied onward (``FrameBatcher.push_view``). ``trace``: the frame's
+    :class:`TraceContext` (a sampled frame's; None encodes as version 2).
     ``wire_cache`` (never on the wire): ``(codec_id, lease, payload)``, the
     exact compressed bytes a queue server received the frame as, which it
     re-sends verbatim to a peer of the same codec; released with the
-    record."""
+    record. ``hops`` (never on the wire): ``{hop: time.monotonic()}``
+    stamped by :func:`mark_hop`; None until a stamp, and after decode."""
 
     shard_rank: int
     event_idx: int
@@ -73,8 +79,9 @@ class FrameRecord:
     photon_energy: float
     timestamp: float = 0.0
     lease: Optional[object] = dataclasses.field(default=None, repr=False)
-    trace: Optional[bytes] = dataclasses.field(default=None, repr=False)
+    trace: Optional[TraceContext] = dataclasses.field(default=None, repr=False)
     wire_cache: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    hops: Optional[dict] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         panels = np.asarray(self.panels)
@@ -83,8 +90,6 @@ class FrameRecord:
         if panels.ndim != 3:
             raise ValueError(f"panels must be 2-D or 3-D, got ndim={panels.ndim}")
         object.__setattr__(self, "panels", panels)
-        if self.trace is not None and len(self.trace) != TRACE_WIRE_SIZE:
-            raise ValueError(f"trace context must be {TRACE_WIRE_SIZE} bytes, got {len(self.trace)}")
 
     @property
     def nbytes(self) -> int:
@@ -119,8 +124,12 @@ class FrameRecord:
         view-backed record past its transport buffer."""
         if self.lease is None and self.wire_cache is None:
             return self
-        panels = self.panels.copy() if self.lease is not None else self.panels
+        panels = self.panels
+        if self.lease is not None:
+            panels = panels.copy()
+            WIRE.add(panels.nbytes)
         self.release()
+        # replace() keeps the hops dict: stage timing survives the copy
         return dataclasses.replace(self, panels=panels, lease=None, wire_cache=None)
 
     def wire_parts(self) -> tuple:
@@ -131,6 +140,7 @@ class FrameRecord:
         panels = self.panels
         if not panels.flags.c_contiguous:
             panels = np.ascontiguousarray(panels)
+            WIRE.add(panels.nbytes)
         if panels.dtype not in _DTYPE_CODES:
             raise ValueError(f"dtype {panels.dtype} has no wire code")
         header = _FRAME_HEADER.pack(
@@ -138,7 +148,7 @@ class FrameRecord:
             _DTYPE_CODES[panels.dtype], float(self.photon_energy), float(self.timestamp),
         ) + struct.pack(f"<{panels.ndim}q", *panels.shape)
         if self.trace is not None:
-            header += self.trace
+            header += self.trace.pack()
         return header, panels.data.cast("B")
 
     def to_bytes(self) -> bytes:
@@ -172,8 +182,10 @@ class LazyFrameRecord(FrameRecord):
         return int(self.__dict__["_panel_nbytes"])  # no inflate for a count
 
     def materialize(self) -> "FrameRecord":
-        rec = FrameRecord(self.shard_rank, self.event_idx, self.panels.copy(),
-                          self.photon_energy, self.timestamp, trace=self.trace)
+        panels = self.panels.copy()
+        WIRE.add(panels.nbytes)
+        rec = FrameRecord(self.shard_rank, self.event_idx, panels, self.photon_energy,
+                          self.timestamp, trace=self.trace, hops=self.hops)
         self.release()
         return rec
 
@@ -187,7 +199,8 @@ def make_lazy_frame(rank, idx, energy, ts, trace, panel_nbytes, inflate,
     rec = object.__new__(LazyFrameRecord)
     for name, value in (("shard_rank", rank), ("event_idx", idx), ("photon_energy", energy),
                         ("timestamp", ts), ("lease", None), ("trace", trace),
-                        ("wire_cache", wire_cache), ("_panel_nbytes", int(panel_nbytes)),
+                        ("wire_cache", wire_cache), ("hops", None),
+                        ("_panel_nbytes", int(panel_nbytes)),
                         ("_inflate", inflate)):
         object.__setattr__(rec, name, value)
     return rec
@@ -285,6 +298,20 @@ class EosTally:
         return placed
 
 
+def mark_hop(rec, hop: str, t: Optional[float] = None) -> None:
+    """Stamp ``time.monotonic()`` (or ``t``) on ``rec`` under ``hop``: the
+    producer stamps source read and enqueue, the batcher dequeue and
+    assembly, the prefetcher the device copy. A no-op on anything but a
+    frame; the dict is attached once and then mutated in place."""
+    if not isinstance(rec, FrameRecord):
+        return
+    hops = rec.hops
+    if hops is None:
+        hops = {}
+        object.__setattr__(rec, "hops", hops)
+    hops[hop] = time.monotonic() if t is None else t
+
+
 def is_eos(item) -> bool:
     return isinstance(item, EndOfStream)
 
@@ -320,8 +347,11 @@ def narrow_panels(panels: np.ndarray, dtype_str: str) -> np.ndarray:
             np.copyto(src, 0.0, where=np.isnan(src))  # NaN -> int is undefined in numpy
         else:
             src = panels
-        return np.clip(src, info.min, info.max).astype(dtype)
-    return panels.astype(dtype)
+        out = np.clip(src, info.min, info.max).astype(dtype)
+    else:
+        out = panels.astype(dtype)
+    WIRE.add(out.nbytes)
+    return out
 
 
 def _wire_version(rec: FrameRecord) -> int:
@@ -331,8 +361,8 @@ def _wire_version(rec: FrameRecord) -> int:
 def parse_frame_header(buf) -> tuple:
     """Parse a frame's wire header without touching the payload:
     ``(shard_rank, event_idx, shape, dtype, photon_energy, timestamp,
-    version, trace, header_len)``; ``trace`` is the v3 context's bytes or
-    None. Raises ``ValueError`` on bytes that are no frame."""
+    version, trace, header_len)``; ``trace`` is the v3 header's
+    :class:`TraceContext` or None. Raises ``ValueError`` on bytes that are no frame."""
     magic, version, rank, idx, ndim, dtype_code, energy, ts = _FRAME_HEADER.unpack_from(buf, 0)
     if magic != _FRAME_MAGIC:
         raise ValueError(f"bad frame magic {magic:#x}")
@@ -345,7 +375,7 @@ def parse_frame_header(buf) -> tuple:
     off += 8 * ndim
     trace = None
     if version >= 3:
-        trace = bytes(memoryview(buf)[off:off + TRACE_WIRE_SIZE])
+        trace = TraceContext.unpack_from(buf, off)
         off += TRACE_WIRE_SIZE
     return rank, idx, shape, _CODE_DTYPES[dtype_code], energy, ts, version, trace, off
 
@@ -381,10 +411,11 @@ def encode_into(item, buf) -> int:
     struct.pack_into(f"<{panels.ndim}q", mv, off, *panels.shape)
     off += 8 * panels.ndim
     if item.trace is not None:
-        mv[off:off + TRACE_WIRE_SIZE] = item.trace
+        mv[off:off + TRACE_WIRE_SIZE] = item.trace.pack()
         off += TRACE_WIRE_SIZE
     dst = np.frombuffer(mv, dtype=panels.dtype, count=panels.size, offset=off)
     np.copyto(dst, panels.reshape(-1))
+    WIRE.add(panels.nbytes)
     return off + panels.nbytes
 
 
@@ -405,6 +436,7 @@ def decode(buf, lease=None):
         panels = panels.reshape(shape)
         if lease is None:
             panels = panels.copy()
+            WIRE.add(panels.nbytes)
         return FrameRecord(rank, idx, panels, energy, ts, lease=lease, trace=trace)
     try:
         if magic == _EOS_MAGIC:

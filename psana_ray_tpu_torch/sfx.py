@@ -31,9 +31,12 @@ It reads the stream over ``auto``, ``shm://`` or ``tcp://`` addresses
 cluster of queue servers (``--cluster host:port,host:port --partitions P``,
 ``--group`` and ``--member_id`` for a consumer group), serves a
 parameter file of the port (an orbax tree of the JAX package goes
-through ``tools/convert_params.py`` first) and writes CXI. The JAX CLI's
-obs and autotune flags are refused: their modules are not ported
-(ROADMAP.md Queue 1 Item 8).
+through ``tools/convert_params.py`` first) and writes CXI.
+``--metrics_port`` serves the pipeline's metrics as the ``sfx`` source,
+``--history_interval`` samples them, ``--trace_dir`` spools the spans of
+each sampled frame at its batch's dispatch and ``--flight_dir`` arms the
+flight recorder, as in the JAX package; the profiler and autotune flags
+are refused (ROADMAP.md Queue 1 Item 8).
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ from psana_ray_tpu_torch.infeed import InfeedPipeline
 from psana_ray_tpu_torch.models.fused_unet import pack_unet, peaknet_tpu_fused_infer
 from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
+from psana_ray_tpu_torch.obs.exporter import add_metrics_args, start_metrics_server
+from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+from psana_ray_tpu_torch.obs.timeseries import add_history_args, configure_history_from_args
+from psana_ray_tpu_torch.obs.tracing import add_trace_args, configure_from_args, emit_batch_spans
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate
 from psana_ray_tpu_torch.transport.addressing import (
     add_cluster_args,
@@ -260,6 +267,8 @@ class SfxPipeline:
         try:
             for batch in prefetcher:
                 nxt = self.dispatch(batch)
+                if batch.hops:  # traced records: their spans end at the dispatch
+                    emit_batch_spans(batch, time.monotonic())
                 # clear ``pending`` before draining it: a drain that raises
                 # after its append must not be drained again below
                 prev, pending = pending, None
@@ -279,13 +288,9 @@ class SfxPipeline:
         return self.n_events - start
 
 
-# the JAX CLI's obs and autotune flags: refused, naming the item that
+# the JAX CLI's profiler and autotune flags: refused, naming the item that
 # ports their modules
-NOT_PORTED_FLAGS = (
-    "--metrics_port", "--metrics_host", "--trace_dir", "--trace_sample", "--flight_dir",
-    "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
-    "--autotune_interval",
-)
+NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
 
 
 def parse_args(argv=None):
@@ -331,10 +336,13 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain versions; the card by default")
     ap.add_argument("--log_level", default="INFO")
+    add_metrics_args(ap)
+    add_trace_args(ap)
+    add_history_args(ap)
     add_cluster_args(ap, consumer=True)
     add_refused_flags(ap, NOT_PORTED_FLAGS)
     a = ap.parse_args(argv)
-    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the obs and autotune modules")
+    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
     return a
 
 
@@ -415,6 +423,17 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
     except (TimeoutError, TransportClosed, ValueError) as e:
         log.error("could not open queue %s: %s", a.queue_name, e)
         return 1
+    metrics_server = start_metrics_server(a.metrics_port, host=a.metrics_host)
+    history = configure_history_from_args(a)
+    # the depth for scrapes and the tracer's clock exchanges over a handle of
+    # its own: an op on the data connection acks the deliveries it holds
+    monitor = None
+    if metrics_server is not None or a.trace_dir:
+        try:
+            monitor = open_queue(config, role="consumer")
+        except Exception as e:  # noqa: BLE001 (the depth is optional)
+            log.debug("queue monitor unavailable: %s", e)
+    configure_from_args(a, "sfx", queue=monitor)
     stop = threading.Event()
     main_thread = threading.current_thread() is threading.main_thread()
     previous = signal.signal(signal.SIGINT, lambda *_: stop.set()) if main_thread else None
@@ -428,6 +447,9 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
             pipe = SfxPipeline(variables, writer, calib=calib, config=cfg, device=device)
             if metrics is not None:
                 pipe.metrics = metrics
+            MetricsRegistry.default().register("sfx", pipe.metrics)
+            if monitor is not None:
+                pipe.metrics.attach_queue(monitor)
             log.info("sfx pipeline up on %s: s2d=%d, features %s, threshold %.3f, calib %s",
                      pipe.device, s2d, trained, a.peak_threshold,
                      "on the device" if calib else "upstream")
@@ -449,6 +471,15 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
             signal.signal(signal.SIGINT, previous)
         if hasattr(queue, "disconnect"):
             queue.disconnect()
+        if history is not None:
+            history.stop()
+        if metrics_server is not None:
+            metrics_server.close()
+        if monitor is not None and hasattr(monitor, "disconnect"):
+            try:
+                monitor.disconnect()
+            except Exception:  # noqa: BLE001 (already closing)
+                pass
     return 0
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 from psana_ray_tpu_torch.storage.log import ReplayCursor, SegmentLog
 from psana_ray_tpu_torch.storage.telemetry import DURABLE
 from psana_ray_tpu_torch.transport.ring import RingBuffer
@@ -111,6 +112,8 @@ class DurableRingBuffer(RingBuffer):
             self._not_empty.notify_all()
             self._notify_listeners()
         DURABLE.spill_delta(len(offsets))
+        FLIGHT.record("durable_reexpose", queue=self.name, records=len(offsets),
+                      from_offset=offsets[0], to_offset=offsets[-1])
 
     # -- the storage hooks (see RingBuffer._box/_unbox) ---------------------
     def _box(self, item: Any) -> Any:
@@ -120,6 +123,8 @@ class DurableRingBuffer(RingBuffer):
             self._resident += 1
             return _Entry(offset, item)
         # spill: the log holds the bytes; the RAM copy's lease goes back now
+        if self._spilled == 0:
+            FLIGHT.record("spill_enter", queue=self.name, depth=len(self._q))
         self._spilled += 1
         DURABLE.spill_delta(1)
         release = getattr(item, "release", None)
@@ -150,6 +155,8 @@ class DurableRingBuffer(RingBuffer):
             entry.item = SpilledRecord(self.log, entry.offset)
             self._spilled -= 1
             DURABLE.spill_delta(-1)
+            if self._spilled == 0:
+                FLIGHT.record("spill_exit", queue=self.name)
         else:
             self._resident -= 1
         item = entry.item

@@ -49,6 +49,7 @@ from psana_ray_tpu_torch.storage.segment import (
     record_nbytes,
     segment_filename,
 )
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 from psana_ray_tpu_torch.storage.telemetry import DURABLE
 from psana_ray_tpu_torch.transport.codec import decode_payload
 
@@ -170,6 +171,13 @@ class SegmentLog:
         self.recovered_records = records
         self.recovery_ms = (time.monotonic() - t0) * 1000.0
         DURABLE.recovered(self.recovery_ms, records, torn)
+        if records or torn:
+            FLIGHT.record("recovery_scan", log=self.name, records=records,
+                          next_offset=self._next_offset, torn_tail=torn,
+                          ms=round(self.recovery_ms, 3))
+        if torn:
+            FLIGHT.record("torn_tail_repair", log=self.name,
+                          truncated_at_offset=self._next_offset)
 
     # -- the segment ring --------------------------------------------------
     def _new_segment(self, base_offset: int) -> Segment:
@@ -191,6 +199,8 @@ class SegmentLog:
             DURABLE.fsynced()
         seg = self._new_segment(self._next_offset)
         self._segments.append(seg)
+        FLIGHT.record("segment_rollover", log=self.name, base_offset=self._next_offset,
+                      segments=len(self._segments))
         self._maybe_recycle()
         return seg
 
@@ -268,11 +278,12 @@ class SegmentLog:
                     self._appends_since_sync = 0
                     seg.sync()
                     DURABLE.fsynced()
-        except OSError:
+        except OSError as e:
             # a failing or full disk fails this append, counted; the
             # server answers the producer (or the owner's link) 'E' and
             # serves on
             DURABLE.disk_faulted()
+            FLIGHT.record("disk_fault", log=self.name, op="append", error=repr(e))
             raise
 
     # -- replica reconciliation --------------------------------------------
@@ -304,6 +315,7 @@ class SegmentLog:
                     self._segments.append(self._new_segment(offset))
                 self._next_offset = offset
             DURABLE.truncated()
+        FLIGHT.record("replica_truncate", log=self.name, to_offset=offset)
 
     def reset_to(self, offset: int) -> None:
         """Forget every record and start the offsets again at ``offset``:
@@ -313,6 +325,7 @@ class SegmentLog:
         with self._lock:
             self._check_open()
             self._reset_locked(offset)
+        FLIGHT.record("replica_reset", log=self.name, to_offset=offset)
 
     def _reset_locked(self, offset: int) -> None:
         # guarded-by-caller: _lock
@@ -433,8 +446,9 @@ class SegmentLog:
             try:
                 _disk_fault_check("sync")
                 self._segments[-1].sync()
-            except OSError:
+            except OSError as e:
                 DURABLE.disk_faulted()
+                FLIGHT.record("disk_fault", log=self.name, op="sync", error=repr(e))
                 raise
             DURABLE.fsynced()
             self._appends_since_sync = 0
@@ -488,6 +502,8 @@ class ReplayCursor:
         self.position = start  # the next offset to read
         self.delivered = start - 1  # the last offset handed out
         DURABLE.replay_opened()
+        FLIGHT.record("replay_open", log=log.name, group=group, start=start,
+                      end=log.next_offset)
 
     def next_batch(self, max_items: int) -> list:
         out = []
@@ -499,6 +515,8 @@ class ReplayCursor:
                 if self.position < earliest:
                     # retention passed a lagging cursor: skip ahead (over
                     # consumed history only, never unconsumed records)
+                    FLIGHT.record("replay_gap", log=self.log.name, group=self.group,
+                                  skipped_from=self.position, resumed_at=earliest)
                     self.position = earliest
                     continue
                 try:

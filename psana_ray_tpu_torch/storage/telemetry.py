@@ -3,7 +3,8 @@
 The port's copy of ``psana_ray_tpu/storage/telemetry.py``, reduced to its
 counters and :meth:`DurabilityTelemetry.stats`: one instance,
 :data:`DURABLE`, shared by every :class:`SegmentLog` and
-``DurableRingBuffer`` of the process.
+``DurableRingBuffer`` of the process, registered as the ``durable``
+metrics source when the first log boots.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ class DurabilityTelemetry:
             self.spill_reads_total += 1
 
     def recovered(self, ms: float, records: int, torn: bool):
+        from psana_ray_tpu_torch.obs.registry import ensure_registered
+
+        ensure_registered("durable", self)  # every log boots through here
         with self._lock:
             self.recovery_scans += 1
             self.recovery_ms_last = ms

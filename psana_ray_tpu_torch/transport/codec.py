@@ -698,6 +698,9 @@ class CodecTelemetry:
         self.decompress_s = 0.0  # guarded-by: _lock
 
     def negotiated(self, name: str):
+        from psana_ray_tpu_torch.obs.registry import ensure_registered
+
+        ensure_registered("wire_codec", self)
         with self._lock:
             self.negotiations[name] = self.negotiations.get(name, 0) + 1
 

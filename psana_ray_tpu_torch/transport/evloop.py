@@ -71,8 +71,14 @@ thread.
   answers have gone, so answers keep their order. A server without a
   manager answers 'H' and 'Y' with '0'.
 
-Not ported (ROADMAP.md Queue 1 Item 8): the metrics federation RPC
-(answered as a request that names no group).
+- 'N' ``{"op": "metrics"}`` answers the process's federation payload
+  (:func:`~psana_ray_tpu_torch.obs.registry.federation_payload`): its
+  metrics registry's snapshot, host-tagged.
+
+While the process's tracer is on, a sampled frame gets its arrival stamp
+at the put and its ``queue_dwell`` and ``relay`` spans when it goes out;
+control-plane events (stream opens and redeliveries, codec and tenant
+hellos, migrations and adoptions) are flight-recorder events.
 """
 
 from __future__ import annotations
@@ -89,6 +95,9 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from psana_ray_tpu_torch.cluster.replication import REPL
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.registry import ensure_registered, federation_payload
+from psana_ray_tpu_torch.obs.tracing import TRACER
 from psana_ray_tpu_torch.storage.durable import SpilledRecord
 from psana_ray_tpu_torch.storage.log import COMMIT_DELIVERED
 from psana_ray_tpu_torch.transport.codec import (
@@ -135,8 +144,10 @@ from psana_ray_tpu_torch.transport.tcp import (
     _ST_OK,
     STREAM,
     _gather_parts,
+    _emit_relay_spans,
     _queue_stats_payload,
     _refuse_conn,
+    _stamp_relay_arrival,
 )
 from psana_ray_tpu_torch.transport.workers import (
     DEFAULT_QUEUE_WORKER,
@@ -625,7 +636,10 @@ class _EvConn:
             for clease in leases:  # nothing queued yet: still ours
                 clease.release()
             raise
+        t_send0 = time.monotonic() if TRACER.enabled else 0.0
         self.send_parts(parts, release=leases or None)
+        if TRACER.enabled:
+            _emit_relay_spans(self.in_flight, t_send0)
 
     def _take_item(self):
         """Decode the payload just received, zero-copy off its lease. A
@@ -717,6 +731,8 @@ class _EvConn:
 
     def _put_payload(self) -> None:
         item = self._take_item()
+        if TRACER.enabled:
+            _stamp_relay_arrival(item)
         if self._put_refused():
             return
         ok, offset = self._try_put(item)
@@ -741,7 +757,10 @@ class _EvConn:
                 self._send_control(_ST_NO)
             else:
                 self.in_flight = [item]  # held until the next opcode
+                t_send0 = time.monotonic() if TRACER.enabled else 0.0
                 self._respond_item(item)
+                if TRACER.enabled:
+                    _emit_relay_spans(self.in_flight, t_send0)
         self._await_op()
 
     def _op_get_batch(self) -> None:
@@ -795,6 +814,8 @@ class _EvConn:
 
     def _pw_payload(self) -> None:
         item = self._take_item()
+        if TRACER.enabled:
+            _stamp_relay_arrival(item)
         if self._put_refused():
             return
         ok, offset = self._try_put(item)
@@ -821,6 +842,8 @@ class _EvConn:
 
     def _ws_payload(self) -> None:
         item = self._take_item()
+        if TRACER.enabled:
+            _stamp_relay_arrival(item)
         if self._put_refused():
             return
         ok, offset = self._try_put(item)
@@ -861,6 +884,9 @@ class _EvConn:
 
     def _qb_finish(self) -> None:
         batch, self._qb_items = self._qb_items, []
+        if TRACER.enabled:
+            for item in batch:
+                _stamp_relay_arrival(item)
         if self._put_refused():
             return
         accepted = 0
@@ -889,6 +915,7 @@ class _EvConn:
         window = max(1, min(int(window), 4096))
         self.stream = _StreamState(window)
         STREAM.opened(window)
+        FLIGHT.record("stream_open", port=self.srv.port, window=window)
         self.loop.add_stream(self)
         self._await_op()  # from here: only 'K', 'M' and 'F' upstream
 
@@ -901,6 +928,7 @@ class _EvConn:
         old, st.window = st.window, window
         if window != old:
             STREAM.resized(old, window)
+            FLIGHT.record("stream_resize", port=self.srv.port, old=old, window=window)
         self._await_op()
 
     def _on_stream_ack(self) -> None:
@@ -924,6 +952,7 @@ class _EvConn:
 
     def push_stream_items(self, items) -> None:
         st = self.stream
+        t_send0 = time.monotonic() if TRACER.enabled else 0.0
         parts: List[Any] = []
         leases: List[Any] = []
         try:
@@ -941,6 +970,8 @@ class _EvConn:
             raise
         self.send_parts(parts, release=leases or None)
         STREAM.pushed(len(items))
+        if TRACER.enabled:
+            _emit_relay_spans(items, t_send0)
 
     def _finish_stream(self, clean: bool) -> None:
         """Stream teardown: prune what the last cumulative ack covered and
@@ -960,6 +991,7 @@ class _EvConn:
             STREAM.pruned(len(lost))
             if not st.queue_closed:
                 STREAM.redelivered_n(len(lost))
+                FLIGHT.record("stream_redelivery", count=len(lost), clean_bye=clean)
                 self.loop.requeue_items(self.queue, lost)
         STREAM.closed(st.window)
 
@@ -1010,8 +1042,9 @@ class _EvConn:
 
     def _cluster_finish(self) -> None:
         """The link probe's ping answers in O(1) (its padded request is
-        what is timed); every other request goes to the server's group
-        registry, and a malformed one gets ``{"ok": false, ...}``."""
+        what is timed); ``{"op": "metrics"}`` gets the federation payload;
+        every other request goes to the server's group registry, and a
+        malformed one gets ``{"ok": false, ...}``."""
         buf = self._open_buf
         if buf[:13] == b'{"op": "ping"':
             self._send_json({"ok": True, "nbytes": len(buf)})
@@ -1019,7 +1052,9 @@ class _EvConn:
             return
         try:
             req = json.loads(buf.decode())
-            if req.get("op") == "ping":
+            if req.get("op") == "metrics":
+                resp = federation_payload()
+            elif req.get("op") == "ping":
                 resp = {"ok": True, "nbytes": len(buf)}
             else:
                 resp = self.srv.groups.handle(req)
@@ -1168,9 +1203,12 @@ class _EvConn:
                     self.weight = max(1, min(_TENANT_WEIGHT_MAX, int(w))) if w else 1
                 except ValueError:
                     self.weight = 1
+                FLIGHT.record("tenant_hello", port=self.srv.port, tenant=self.tenant,
+                              weight=self.weight)
         self.codec = negotiate_codec(names)
         name = self.codec.name if self.codec is not None else CODEC_NONE
         CODEC_STATS.negotiated(name)
+        FLIGHT.record("codec_negotiated", port=self.srv.port, codec=name, server=True)
         nb = name.encode()
         self._send_control(_ST_OK + struct.pack("<H", len(nb)) + nb)
         self._await_op()
@@ -1246,6 +1284,7 @@ class EventLoop:
     pumps queue waiters."""
 
     def __init__(self, server):
+        ensure_registered("splice", SPLICE)
         self._srv = server
         self._sel = selectors.DefaultSelector()
         self._conns: set = set()
@@ -1429,7 +1468,7 @@ class EventLoop:
             except OSError:  # BlockingIOError included: none left
                 return
             if srv.max_conns and len(self._conns) >= srv.max_conns:
-                _refuse_conn(sock)
+                _refuse_conn(sock, srv.port, len(self._conns), srv.max_conns)
                 continue
             sock.setblocking(False)
             try:
@@ -1475,10 +1514,16 @@ class EventLoop:
         except OSError as e:
             now = time.monotonic()
             if now >= mig["deadline"]:
+                FLIGHT.record("migrate_gave_up", target=mig["target"],
+                              err=e.__class__.__name__)
                 self.kill_conn(conn, e, requeue=True)
                 return
+            if not mig.get("retried"):
+                mig["retried"] = True
+                FLIGHT.record("migrate_retry", target=mig["target"], err=e.__class__.__name__)
             self._add_timer(now + MIGRATE_RETRY_S, conn, kind="migrate")
             return
+        FLIGHT.record("conn_migrated", target=mig["target"], kind=mig["ctx"].get("kind"))
         # the datagram holds its own reference to the fd; nothing is in
         # flight at a migration point, so this close redelivers nothing
         conn._migration = None
@@ -1509,6 +1554,8 @@ class EventLoop:
                 with srv._conns_lock:
                     srv._conns = [c for c in srv._conns if c.fileno() != -1]
                     srv._conns.append(sock)
+                FLIGHT.record("conn_adopted", worker=srv.worker_ctx.worker_id,
+                              kind=ctx.get("kind"))
                 if ctx.get("kind") == "open":
                     conn._open_ns = ctx.get("ns", "")
                     conn.queue = srv.open_named(conn._open_ns, ctx.get("nm", ""),

@@ -27,6 +27,9 @@ import tempfile
 import threading
 from typing import Dict, Optional
 
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.utils.bufpool import WIRE
+
 __all__ = ["FileSpan", "SPLICE", "fallback_errno", "probe_report", "sendfile_capable",
            "zerocopy_capable"]
 
@@ -62,7 +65,9 @@ class FileSpan:
     def materialize(self) -> bytes:
         """The rest of the span as bytes (one ``pread``: the file's own
         position is untouched): the ``sendmsg`` fallback."""
-        return os.pread(self._file.fileno(), self.nbytes, self.pos)
+        buf = os.pread(self._file.fileno(), self.nbytes, self.pos)
+        WIRE.add(len(buf))  # the bytes the spliced path keeps out of the interpreter
+        return buf
 
     def __repr__(self) -> str:
         return f"FileSpan(fd={self._file.fileno()}, pos={self.pos}, nbytes={self.nbytes})"
@@ -88,8 +93,13 @@ class SpliceTelemetry:
             self.spliced_frames += 1
 
     def note_fallback(self, reason: str) -> None:
+        """Count a fallback to ``sendmsg``; a reason's first sight is also a
+        flight-recorder event."""
         with self._lock:
+            first = reason not in self.fallbacks
             self.fallbacks[reason] = self.fallbacks.get(reason, 0) + 1
+        if first:
+            FLIGHT.record("splice_fallback", reason=reason)
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -141,6 +141,11 @@ from psana_ray_tpu_torch.transport.codec import (
     get_codec,
     payload_nbytes as _parts_nbytes,
 )
+from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.registry import ensure_registered
+from psana_ray_tpu_torch.obs.stages import HOP_ENQ, STAGE_QUEUE_DWELL
+from psana_ray_tpu_torch.obs.tracing import SPAN_RELAY, TRACER
+from psana_ray_tpu_torch.records import mark_hop
 from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.transport.ring import EMPTY, RingBuffer
 from psana_ray_tpu_torch.utils.bufpool import BufferPool
@@ -214,6 +219,7 @@ class StreamTelemetry:
         self.put_resent = 0  # guarded-by: _lock
 
     def opened(self, window: int):
+        ensure_registered("stream", self)
         with self._lock:
             self.streams_opened += 1
             self.credit_window += window
@@ -245,6 +251,7 @@ class StreamTelemetry:
             self.redelivered += n
 
     def put_depth(self, depth: int):
+        ensure_registered("stream", self)
         with self._lock:
             self.put_window_depth = depth
             self.put_window_peak = max(self.put_window_peak, depth)
@@ -384,9 +391,10 @@ def _discard_until_eof(sock: socket.socket, deadline: float) -> None:
             return
 
 
-def _refuse_conn(conn: socket.socket) -> None:
+def _refuse_conn(conn: socket.socket, port: int, active: int, limit: int) -> None:
     """Admission control past ``max_conns``: accept, answer ``'E'`` and
     close, so the refused client's next status read fails at once."""
+    FLIGHT.record("conn_refused", port=port, active=active, max_conns=limit)
     try:
         conn.send(_ST_ERR)
     except OSError:
@@ -395,6 +403,31 @@ def _refuse_conn(conn: socket.socket) -> None:
         conn.close()
     except OSError:
         pass
+
+
+# -- the relay's spans (sampled frames only, while TRACER.enabled) ----------
+def _stamp_relay_arrival(item) -> None:
+    """Stamp a sampled frame's arrival at the relay: the start of its
+    ``queue_dwell`` span. The stamp rides the record's process-local hops
+    through the in-memory queue to the read that delivers it."""
+    trace = getattr(item, "trace", None)
+    if trace is not None and trace.sampled:
+        mark_hop(item, HOP_ENQ)
+
+
+def _emit_relay_spans(items, t_send0: float) -> None:
+    """After a response went out: each sampled frame's ``queue_dwell`` span
+    (arrival -> response start) and ``relay`` span (serialization + send)."""
+    t_done = time.monotonic()
+    for item in items:
+        trace = getattr(item, "trace", None)
+        if trace is None or not trace.sampled:
+            continue
+        hops = getattr(item, "hops", None)
+        t_arrived = hops.get(HOP_ENQ) if hops else None
+        if t_arrived is not None:
+            TRACER.span(trace.trace_id, STAGE_QUEUE_DWELL, t_arrived, t_send0)
+        TRACER.span(trace.trace_id, SPAN_RELAY, t_send0, t_done)
 
 
 class TcpQueueServer:
@@ -472,6 +505,7 @@ class TcpQueueServer:
                 if self.replication is not None:
                     # where this server has a next link in the chain, ship there
                     self.replication.queue_mounted(namespace, queue_name, q)
+                FLIGHT.record("queue_opened", namespace=namespace, name=queue_name)
             return q
 
     def has_named_queue(self, namespace: str, queue_name: str) -> bool:
@@ -484,13 +518,18 @@ class TcpQueueServer:
         with self._queues_lock:
             return sorted(self._queues)
 
-    def stats_all(self) -> dict:
-        """``{label: stats}`` of every queue, labelled ``default`` and
-        ``<namespace>/<queue_name>``."""
+    def queues_by_name(self) -> dict:
+        """``{label: queue}`` of every queue, labelled ``default`` and
+        ``<namespace>/<queue_name>``: the stall detector's population."""
         with self._queues_lock:
             queues = {f"{ns}/{nm}": q for (ns, nm), q in self._queues.items()}
         queues["default"] = self.queue
-        return {label: _queue_stats_payload(q) for label, q in queues.items()}
+        return queues
+
+    def stats_all(self) -> dict:
+        """``{label: stats}`` of every queue (:meth:`queues_by_name`): the
+        ``queue_server`` metrics source."""
+        return {label: _queue_stats_payload(q) for label, q in self.queues_by_name().items()}
 
     def all_queues(self) -> List[Any]:
         with self._queues_lock:
@@ -501,6 +540,7 @@ class TcpQueueServer:
         and exit) while gets go on: consumers drain what is queued. The
         backing queues are told too, so producers that bypass TCP (a
         ``--shm`` ring) are refused as well."""
+        FLIGHT.record("begin_drain", port=self.port)
         self._draining = True
         for q in self.all_queues():
             drain = getattr(q, "begin_drain", None)
@@ -526,6 +566,7 @@ class TcpQueueServer:
 
     def close_all(self):
         """Close every queue: each blocked client sees a dead transport."""
+        FLIGHT.record("close_all", port=self.port)
         for q in self.all_queues():
             try:
                 q.close()
@@ -546,6 +587,8 @@ class TcpQueueServer:
         queued, through the shared recovery path."""
         from psana_ray_tpu_torch.transport.recovery import return_to_queue
 
+        if items:
+            FLIGHT.record("requeue_in_flight", count=len(items))
         return_to_queue(queue, items, what="in-flight frame")
 
     def shutdown(self):
@@ -706,9 +749,10 @@ class TcpQueueClient:
         self._sock.sendall(_OP_CODEC + struct.pack("<H", len(names)) + names)
         try:
             self._status()
-        except RuntimeError:
+        except RuntimeError:  # a peer without 'Z': raw from here on
             self._codec = None
             self._codec_refused = True
+            FLIGHT.record("codec_refused", host=self.host, port=self.port)
             return
         (n,) = struct.unpack("<H", _recv_exact(self._sock, 2))
         try:
@@ -717,8 +761,10 @@ class TcpQueueClient:
         except ValueError:  # a name never advertised: as a refusal
             self._codec = None
             self._codec_refused = True
+            FLIGHT.record("codec_refused", host=self.host, port=self.port)
             return
         CODEC_STATS.negotiated(chosen)
+        FLIGHT.record("codec_negotiated", host=self.host, port=self.port, codec=chosen)
 
     def _probe_link_raw(self) -> tuple:
         """``(link MB/s, RTT s)`` of the current socket: the RTT from two
@@ -750,9 +796,9 @@ class TcpQueueClient:
         """``codec="auto"``: probe the link and set what the next 'Z'
         advertises. A probe the peer refuses decides for compression."""
         # guarded-by-caller: _lock
-        mb_s = None
+        mb_s = rtt = None
         try:
-            mb_s, _ = self._probe_link_raw()
+            mb_s, rtt = self._probe_link_raw()
         except (ConnectionError, socket.timeout, OSError):
             raise  # a dead socket: the caller reconnects
         except Exception:  # noqa: BLE001 (a refused probe decides, never fails)
@@ -766,6 +812,10 @@ class TcpQueueClient:
         self._codec_names = (available_codecs() or None) if slow else None
         if self._codec_names is None:
             self._codec = None  # no 'Z' follows: a stale codec must not stay
+        FLIGHT.record("codec_auto_decision", host=self.host, port=self.port,
+                      link_mb_s=round(mb_s, 1) if mb_s is not None else None,
+                      rtt_ms=round(rtt * 1e3, 2) if rtt is not None else None,
+                      threshold_mb_s=threshold, codec_on=bool(self._codec_names))
 
     def _encode_for_wire(self, item):
         # guarded-by-caller: _lock (the codec is the connection's, and a
@@ -787,6 +837,8 @@ class TcpQueueClient:
         attempt fails, or when ``deadline`` (``time.monotonic()``) passes,
         so callers with a timeout keep it."""
         # guarded-by-caller: _lock
+        # reconnect storms lead most wedged-run postmortems
+        FLIGHT.record("reconnect", host=self.host, port=self.port, cause=repr(cause))
         sock = getattr(self, "_sock", None)
         if sock is not None:
             try:
@@ -837,6 +889,7 @@ class TcpQueueClient:
                 if self._stream is not None:
                     self._sock.sendall(_OP_STREAM + struct.pack("<I", self._stream.window))
                     self._stream.reset_after_reconnect()
+                    FLIGHT.record("stream_resubscribe", host=self.host, port=self.port)
                 # the connection runs under the configured timeout, not the
                 # clipped dial timeout (a later 'D' wait would read as death)
                 self._sock.settimeout(self._timeout_s)
@@ -882,6 +935,8 @@ class TcpQueueClient:
                     clease.release()
         if self._put_unacked:
             STREAM.resent(len(self._put_unacked))
+            FLIGHT.record("put_window_resend", count=len(self._put_unacked), host=self.host,
+                          port=self.port)
 
     def _drain_put_acks(self, max_unacked: int, deadline: Optional[float]) -> bool:
         """Read windowed-put acks until at most ``max_unacked`` remain in
@@ -1035,6 +1090,9 @@ class TcpQueueClient:
         with self._lock:
             start, end = self._retrying(_do)
             self._replay_group = group  # a reconnect resumes at the commit
+        # the consumer's own breadcrumb, wherever the server runs
+        FLIGHT.record("replay_open", host=self.host, port=self.port, group=group, start=start,
+                      end=end)
         return {"start": start, "end": end}
 
     def _replay_raw(self, pos: int, group: str) -> tuple:
@@ -1057,6 +1115,7 @@ class TcpQueueClient:
         try:
             self._replay_raw(REPLAY_RESUME, self._replay_group)
         except RuntimeError as e:
+            FLIGHT.record("replay_resubscribe_refused", host=self.host, port=self.port)
             try:
                 self._sock.close()
             except OSError:

@@ -41,9 +41,10 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from psana_ray_tpu_torch.cluster.hashring import partition_owner
+from psana_ray_tpu_torch.obs.flight import FLIGHT
 
 __all__ = ["DEFAULT_QUEUE_WORKER", "MIGRATE_GRACE_S", "MIGRATE_RETRY_S", "WorkerContext",
-           "WorkerSupervisor", "queue_owner", "resolve_port"]
+           "WorkerSupervisor", "current_worker_id", "queue_owner", "resolve_port"]
 
 #: the worker that owns the default (never OPENed) queue
 DEFAULT_QUEUE_WORKER = 0
@@ -56,6 +57,14 @@ MIGRATE_RETRY_S = 0.25
 #: adoption datagram: u32 JSON length + JSON; the fd rides the ancillary data
 _ADOPT_HDR = struct.Struct("<I")
 _ADOPT_MAX = 16 * 1024
+
+_CURRENT_WORKER_ID: Optional[int] = None
+
+
+def current_worker_id() -> Optional[int]:
+    """This process's worker id (None outside a ``--workers`` fleet)."""
+    return _CURRENT_WORKER_ID
+
 
 #: the supervisor's reaping cadence
 _REAP_TICK_S = 0.05
@@ -91,6 +100,7 @@ class WorkerContext:
     send and receive the event loop calls."""
 
     def __init__(self, worker_id: int, n_workers: int, sock_dir: str):
+        global _CURRENT_WORKER_ID
         self.worker_id = int(worker_id)
         self.n_workers = int(n_workers)
         self.sock_dir = sock_dir
@@ -106,6 +116,7 @@ class WorkerContext:
         self.sock.setblocking(False)
         self._send_sock = socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM)
         self._send_sock.setblocking(False)
+        _CURRENT_WORKER_ID = self.worker_id
 
     def _peer_path(self, wid: int) -> str:
         return os.path.join(self.sock_dir, f"worker-{wid}.sock")
@@ -149,6 +160,10 @@ class WorkerContext:
             if not isinstance(ctx, dict) or len(fds) != 1:
                 for fd in fds:
                     os.close(fd)
+                if not isinstance(ctx, dict):
+                    FLIGHT.record("adopt_bad_datagram", worker=self.worker_id)
+                else:
+                    FLIGHT.record("adopt_bad_fd_count", worker=self.worker_id, fds=len(fds))
                 continue
             self.adopted += 1
             out.append((socket.socket(fileno=fds[0]), ctx))
@@ -217,6 +232,7 @@ class WorkerSupervisor:
             os._exit(code)
         with self._lock:
             self._pids[pid] = worker_id
+        FLIGHT.record("worker_spawned", worker=worker_id, pid=pid)
 
     def _reap(self, pid: int) -> Optional[int]:
         """The exit status of ``pid`` once it has ended (reaped now), else
@@ -232,13 +248,16 @@ class WorkerSupervisor:
             with self._lock:
                 pids = list(self._pids)
             for pid in pids:
-                if self._reap(pid) is None:
+                status = self._reap(pid)
+                if status is None:
                     continue
                 t_dead = time.monotonic()
                 with self._lock:
                     wid = self._pids.pop(pid, None)
                 if wid is None or self._stop.is_set():
                     continue
+                FLIGHT.record("worker_died", worker=wid, pid=pid,
+                              status=os.waitstatus_to_exitcode(status) if status >= 0 else status)
                 self._spawn(wid)
                 with self._lock:
                     self.respawns += 1

@@ -97,10 +97,16 @@ class BufferPool:
 
     @classmethod
     def default(cls) -> "BufferPool":
-        """The process-wide pool every transport shares."""
+        """The process-wide pool every transport shares, registered with
+        :data:`WIRE` as the ``bufpool`` and ``wire`` sources of the
+        process's metrics registry when first made."""
         with cls._default_lock:
             if cls._default is None:
                 cls._default = BufferPool()
+                from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+
+                MetricsRegistry.default().register("bufpool", cls._default)
+                MetricsRegistry.default().register("wire", WIRE)
             return cls._default
 
     def lease(self, nbytes: int) -> Lease:
@@ -151,3 +157,31 @@ class BufferPool:
         with self._lock:
             return {"leases": self._leases, "hits": self._hits, "misses": self._misses,
                     "bytes_pooled": self._bytes_pooled, "classes": len(self._free)}
+
+
+class WireCounters:
+    """The process's frame-sized host copies on the wire datapath (a decode
+    with a copy, an encode into a slot, the batcher's arena copy), counted
+    as the JAX package counts them."""
+
+    __slots__ = ("_lock", "bytes_copied", "copies")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.bytes_copied = 0  # guarded-by: _lock
+        self.copies = 0  # guarded-by: _lock
+
+    def add(self, nbytes: int):
+        with self._lock:
+            self.bytes_copied += int(nbytes)
+            self.copies += 1
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"bytes_copied_total": self.bytes_copied, "copies_total": self.copies}
+
+    def snapshot(self) -> dict:
+        return self.stats()
+
+
+WIRE = WireCounters()

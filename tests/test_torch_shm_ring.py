@@ -27,6 +27,7 @@ from psana_ray_tpu import records as ref_records  # noqa: E402
 from psana_ray_tpu.obs.tracing import TraceContext  # noqa: E402
 from psana_ray_tpu.transport.shm_ring import ShmRingBuffer as RefShmRing  # noqa: E402
 from psana_ray_tpu_torch import records  # noqa: E402
+from psana_ray_tpu_torch.obs.tracing import TraceContext as PortTraceContext  # noqa: E402
 from psana_ray_tpu_torch.infeed import batches_from_queue  # noqa: E402
 from psana_ray_tpu_torch.producer import produce_synthetic  # noqa: E402
 from psana_ray_tpu_torch.sources import SyntheticSource  # noqa: E402
@@ -83,7 +84,8 @@ def test_wire_bytes_match_the_reference(kind, traced):
     ctx = TraceContext(trace_id=0x1234_5678_9ABC, origin_host="node7", origin_pid=4242) if traced else None
     ref = ref_records.FrameRecord(5, 77, panels, 9.5, timestamp=1234.25, trace=ctx)
     ours = records.FrameRecord(5, 77, panels, 9.5, timestamp=1234.25,
-                               trace=ctx.pack() if traced else None)
+                               trace=PortTraceContext(trace_id=ctx.trace_id, origin_host="node7",
+                                                      origin_pid=4242) if traced else None)
     ref_wire = _ref_bytes(ref)
     assert records.encoded_size(ours) == len(ref_wire)
     assert ours.to_bytes() == ref_wire
@@ -93,7 +95,8 @@ def test_wire_bytes_match_the_reference(kind, traced):
     assert (got.shard_rank, got.event_idx, got.photon_energy, got.timestamp) == (5, 77, 9.5, 1234.25)
     assert got.panels.dtype == panels.dtype and got.panels.shape == ref.panels.shape
     np.testing.assert_array_equal(got.panels, ref.panels)
-    assert got.trace == (ctx.pack() if traced else None)
+    assert got.trace == ours.trace  # the port decodes a TraceContext
+    assert (got.trace.pack() if traced else None) == (ctx.pack() if traced else None)
 
     back = ref_records.decode(ours.to_bytes())  # and the other way round
     assert back.equals(ref) and back.timestamp == 1234.25
@@ -139,8 +142,9 @@ def test_decode_with_a_lease_is_zero_copy():
     assert eos_lease.released == 1
     with pytest.raises(ValueError, match="magic"):
         records.decode(b"\0" * 48)
-    with pytest.raises(ValueError, match="25 bytes"):
-        records.FrameRecord(0, 0, panels, 1.0, trace=b"short")
+    # a trace context adds its 25 packed bytes to the wire size
+    traced = records.FrameRecord(0, 0, panels, 1.0, trace=PortTraceContext(trace_id=9))
+    assert records.encoded_size(traced) - records.encoded_size(owned) == 25
 
 
 def test_payload_tags_match_the_reference():
@@ -221,7 +225,7 @@ def test_reference_producer_process_feeds_the_port_consumer():
         np.testing.assert_array_equal(f.panels, _ref_frame(i))
         assert (f.shard_rank, f.photon_energy, f.timestamp) == (1, 7.0 + i, float(i))
         want = TraceContext(trace_id=i + 1, origin_pid=proc.pid).pack() if i % 3 == 0 else None
-        assert f.trace == want
+        assert (f.trace.pack() if f.trace is not None else None) == want
 
 
 def test_port_producer_process_feeds_the_reference_consumer():
