@@ -18,7 +18,8 @@ the sharded queue cluster of two queue servers: the ResNet path, once
 clean and once through a consumer-group member joining and a server
 killed mid-stream, and config 1 to a consumer group of two; and config
 4 traced frame by frame across the producer CLI, the queue server CLI
-and this process, then stalled.
+and this process, then stalled, and with every one of those processes
+profiled and the profiles merged.
 
 Run from the root of a checkout, with no arguments:
 
@@ -280,6 +281,32 @@ one JSON line (``{"phase": ...}``):
    and what no span covers, spool bytes a process, the merged spans, each
    process's skew against the server, the scrape's ms and bytes, and the
    dumps' delays.
+6q. ``profiled_end_to_end``: the continuous profiler on the same path, in
+   four turns of 192 frames: ``--profile_hz 0`` everywhere; the default
+   97 Hz in all three processes (a sampler here too); with
+   ``--profile_dir`` and ``--trace_dir --trace_sample 1`` in all three;
+   and the default through a ``--workers 1 --durable_dir`` server. In
+   every turn a ``ClusterCollector`` polls the server over 'N' and the
+   producer's ``/federate`` (``--metrics_port``) every 0.25 s. Every
+   turn: every frame served, K1–K3 once a batch, the last batch within
+   ``rel_err < 0.05`` of the plain path and within 1e-6 of the first
+   turn's logits; with the profiler on, the collector's store of the
+   server holds ``prof.cpu_frac`` and ``evloop.busy_frac``, and in the
+   memory-queue turns at least 0.8 of the server's on-CPU samples bill to
+   a known stage. Turn 2: a second producer CLI, held by backpressure,
+   and ``python -m psana_ray_tpu_torch.obs.top --once`` (a child process)
+   must show it and the server ``up``, the server with CPU% and BUSY%;
+   then a ``SIGUSR2`` to the server must dump a ``profile_top`` with hot
+   frames. Turn 3: each process's spool loads with both of the port's
+   ``load_spool`` s and has samples, and ``prof_merge`` over the spools
+   and the trace spools holds the three processes and all 192 frames.
+   Prints frames/s a turn; for each process and turn its on-CPU ms a
+   frame by stage, cpu_frac, CPU ns a frame and five hottest frames; the
+   server's ``evloop`` numbers; this process's threads without a procfs
+   entry and its ``dispatch`` samples whose leaf is a synchronise; spool
+   bytes, each spool's sampled on-CPU seconds beside its ``os.times``
+   CPU seconds; the merged document's rows, spans and bytes; the
+   console's frame and the dump's delay.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -2945,6 +2972,343 @@ def phase_observed_end_to_end(torch, pt, pool, consts, model, params, device, ro
     return total
 
 
+# profiled_end_to_end: (tag, --profile_hz, spools and traces, durable server);
+# None is the default rate (97 Hz), with a sampler in this process too
+PROF_TURNS = (("off", "0", False, False), ("default", None, False, False),
+              ("spooled_traced", None, True, False), ("durable", None, False, True))
+PROF_POLL_S = 0.25  # profiled_end_to_end: the collector's sweep interval
+PROF_ATTRIBUTED = 0.8  # ... the least share of the server's on-CPU samples billed to a stage
+PROF_PROCESSES = ("producer", "queue_server", "serving")
+
+
+def prof_view(summary, frames):
+    """A process's profile summary (the federation payload's ``profile``)
+    over ``frames``: on-CPU ms a frame by stage and in all, the share billed
+    to a known stage, cpu_frac and CPU ns a frame of its last tick, and its
+    five hottest frames with their share of the on-CPU samples."""
+    if not summary:
+        return None
+    ms = summary["stage_cpu_ms"]
+    total = sum(ms.values())
+    return {"frames": frames, "samples": summary["samples"], "on_cpu": summary["on_cpu"],
+            "stage_cpu_ms_per_frame": {k: v / frames for k, v in ms.items()} if frames else None,
+            "cpu_ms_per_frame": total / frames if frames else None,
+            "attributed": 1.0 - ms.get("untagged", 0.0) / total if total else None,
+            "cpu_frac": summary["cpu_frac"], "cpu_ns_per_frame": summary["cpu_ns_per_frame"],
+            "hot": [[h["frame"], h["pct"]] for h in summary["hot"][:5]]}
+
+
+def serving_threads(sampler):
+    """This process's sampler: the threads with no procfs entry (counted
+    on-CPU at every sample) by their outermost frames, and the ``dispatch``
+    stage's on-CPU samples with the ones whose leaf is a synchronise."""
+    frames = sys._current_frames()
+    untracked = []
+    for ident in sampler.untracked_threads():
+        f, names = frames.get(ident), []
+        while f is not None:
+            names.append(f.f_code.co_name)
+            f = f.f_back
+        untracked.append(" > ".join(reversed(names[-3:])) or "ended")
+    rows = [r for r in sampler.trie.rows() if r["stage"] == "dispatch" and r["on"]]
+    return {"untracked_threads": untracked,
+            "dispatch_on_cpu": sum(r["on"] for r in rows),
+            "dispatch_on_cpu_leaf_synchronize": sum(r["on"] for r in rows
+                                                    if "synchronize" in r["frames"][-1])}
+
+
+def await_http(url, timeout=60.0):
+    import urllib.request
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=2) as r:
+                return r.status
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)
+
+
+def console_and_dump(root, npz, server, flight_dir):
+    """After the measured run of the ``default`` turn: a second producer CLI
+    (default profiler, ``--metrics_port``) fills the queue and is held
+    there by backpressure; ``python -m psana_ray_tpu_torch.obs.top --once``
+    over the server and that producer, as a child process, must show both
+    ``up``, the server's CPU% and BUSY%; then a ``SIGUSR2`` to the server
+    must write a flight dump whose ``profile_top`` holds hot frames."""
+    import json as _json
+    import signal
+
+    mport = free_port()
+    held = ProducerCLI(root, npz, server.address, "--metrics_port", str(mport))
+    try:
+        await_http(f"http://127.0.0.1:{mport}/federate")
+        peers = [f"127.0.0.1:{server.port}", f"http://127.0.0.1:{mport}"]
+        top = subprocess.run(cli_cmd("psana_ray_tpu_torch.obs.top", "--peers", ",".join(peers),
+                                     "--once", "--settle", "0.5"),
+                             cwd=root, env={**os.environ, "PYTHONPATH": root},
+                             capture_output=True, text=True, timeout=120)
+        t0 = time.monotonic()
+        server.proc.send_signal(signal.SIGUSR2)
+        dump = None
+        while dump is None and time.monotonic() - t0 < 15.0:
+            names = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) else []
+            for name in names:
+                if name.endswith(".json"):
+                    doc = _json.loads(open(os.path.join(flight_dir, name)).read())
+                    if doc["reason"] == "signal":
+                        dump = doc
+            time.sleep(0.05)
+        dump_s = time.monotonic() - t0
+    finally:
+        held.proc.kill()
+        held.wait(timeout=30)
+    lines = top.stdout.splitlines()
+    if top.returncode != 0 or imported_roots(top.stderr) & {"torch", "jax"}:
+        raise AssertionError(f"obs.top exit {top.returncode}: {top.stderr[-2000:]}")
+    head = next(ln for ln in lines if ln.startswith("PEER")).split()
+    rows = {ln.split()[0]: ln.split() for ln in lines if ln.split() and ln.split()[0] in peers}
+    srv = rows.get(peers[0])
+    if (set(rows) != set(peers) or any(r[1] != "up" for r in rows.values())
+            or srv[head.index("CPU%")] == "-" or srv[head.index("BUSY%")] == "-"):
+        raise AssertionError(f"the console lacks a row, a state or a column:\n{top.stdout}")
+    top_doc = (dump or {}).get("profile_top") or {}
+    if dump is None or not top_doc.get("hot"):
+        raise AssertionError(f"the server's SIGUSR2 dump lacks profile_top: {top_doc}")
+    return {"console": top.stdout, "dump_after_s": dump_s,
+            "dump_profile_top": {"samples": top_doc["samples"], "on_cpu": top_doc["on_cpu"],
+                                 "hot": top_doc["hot"][:5],
+                                 "stage_cpu_ms": top_doc["stage_cpu_ms"]}}
+
+
+def spooled_merge(pt, prof_dir, trace_dir, out_path):
+    """Turn 3's spools: each process's present, loaded by both of the port's
+    ``load_spool`` s with samples, its sampled on-CPU seconds beside its
+    CPU seconds from ``os.times``; then ``prof_merge`` over them and the
+    trace spools, written to ``out_path``: its process rows, frame spans
+    and bytes."""
+    import json as _json
+
+    from psana_ray_tpu_torch.obs import prof_merge
+    from psana_ray_tpu_torch.obs.profiling import export
+
+    spools = {}
+    for name in sorted(os.listdir(prof_dir)):
+        path = os.path.join(prof_dir, name)
+        doc = export.load_spool(path)
+        if prof_merge.load_spool(path)["totals"] != doc["totals"] or doc["totals"]["samples"] <= 0:
+            raise AssertionError(f"{name}: a spool the merge reads otherwise, or no samples")
+        series = doc["cpu_series"]
+        spools[name.split("-")[0]] = {
+            "bytes": os.path.getsize(path), "totals": doc["totals"],
+            "stage_totals": doc["stage_totals"],
+            # the sampler's on-CPU seconds against the process's CPU seconds
+            # from os.times over the same ticks (cpu_frac x each tick's span)
+            "on_cpu_s_sampled": doc["totals"]["on_cpu"] / doc["meta"]["hz"],
+            "cpu_s_os_times": sum(v * (t - t0) for (t0, _), (t, v) in zip(series, series[1:]))}
+    if sorted(spools) != sorted(PROF_PROCESSES):
+        raise AssertionError(f"spools {sorted(spools)}, expected {PROF_PROCESSES}")
+    t0 = time.perf_counter()
+    doc = prof_merge.merge([prof_dir], trace_inputs=[trace_dir])
+    merge_s = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        _json.dump(doc, f)
+    frames = [e for e in doc["traceEvents"] if e.get("cat") == "frame"]
+    procs = sorted(p["process"].split(":")[0] for p in doc["profile"]["processes"])
+    traced = {e["args"]["trace_id"] for e in frames}
+    if procs != sorted(PROF_PROCESSES) or len(traced) != OBS_FRAMES:
+        raise AssertionError(f"the merged profile holds {procs} and {len(traced)} traced frames")
+    return spools, {"rows": len(procs), "spans": len(frames),
+                    "counters": sum(e.get("ph") == "C" for e in doc["traceEvents"]),
+                    "bytes": os.path.getsize(out_path), "merge_s": merge_s,
+                    "hot": doc["profile"]["hot"][:5]}
+
+
+def profiled_turn(torch, pt, step, device, root, npz, work, tag, hz, spooled, durable):
+    """One turn of ``profiled_end_to_end``: a queue server CLI, the producer
+    CLI replaying ``npz`` with ``--metrics_port`` and this process serving
+    the ResNet path over ``tcp://``, a ``ClusterCollector`` polling the
+    server over 'N' and the producer's ``/federate``. ``hz`` is the CLIs'
+    ``--profile_hz`` (None: their default, and a sampler here); ``spooled``
+    adds ``--profile_dir`` and ``--trace_dir --trace_sample 1`` to all three
+    processes; ``durable`` serves from a ``--workers 1 --durable_dir``
+    server."""
+    import argparse
+    import json as _json
+
+    from psana_ray_tpu_torch.obs import profiling as prof
+    from psana_ray_tpu_torch.obs.collector import ClusterCollector
+    from psana_ray_tpu_torch.obs.tracing import TRACER, configure_from_args, exchange_anchors
+
+    turn_dir = os.path.join(work, tag)
+    prof_dir, trace_dir = os.path.join(turn_dir, "prof"), os.path.join(turn_dir, "trace")
+    flight_dir = os.path.join(turn_dir, "flight")
+    mport = free_port()
+    both = [] if hz is None else ["--profile_hz", hz]
+    if spooled:
+        both += ["--profile_dir", prof_dir, "--trace_dir", trace_dir, "--trace_sample", "1"]
+    srv_args = ["--queue_size", str(TCP_QUEUE_SIZE), "--log_level", "WARNING", *both]
+    if tag == "default":
+        srv_args += ["--flight_dir", flight_dir]
+    if durable:
+        d, _ = durable_dir(root, "profiled", TCP_QUEUE_SIZE + DURABLE_RETAIN + 2)
+        srv_args += ["--workers", "1", "--durable_dir", d]
+    server = QueueServerCLI(root, *srv_args)
+    config = pt.TransportConfig(address=server.address, queue_size=TCP_QUEUE_SIZE,
+                                queue_name=OBS_QUEUE)
+    peers = [f"127.0.0.1:{server.port}", f"http://127.0.0.1:{mport}"]
+    collector = ClusterCollector(peers, interval_s=PROF_POLL_S, register=False)
+    metrics = pt.PipelineMetrics(warmup=1)
+    producer = client = monitor = sampler = None
+    last, result = {}, {"tag": tag}
+
+    def on_result(out, batch):
+        last["out"], last["frames"], last["event_idx"] = out, batch.frames, batch.event_idx
+
+    try:
+        monitor = pt.open_queue(config, role="consumer")  # creates the queue, 40 frames
+        client = pt.open_queue(config, role="consumer")
+        if spooled:
+            configure_from_args(argparse.Namespace(trace_dir=trace_dir, trace_sample=1,
+                                                   flight_dir=None), "serving")
+            exchange_anchors(monitor)
+        if hz is None:
+            sampler = prof.start_default_profiler(
+                spool_dir=prof_dir if spooled else None, process="serving",
+                frames_fn=lambda: metrics.staged_frames, bytes_fn=prof.wire_bytes)
+        client.stream_open(TCP_STREAM_WINDOW)
+        pt.reset_counters()
+        collector.start()
+        producer = ProducerCLI(root, npz, server.address, "--metrics_port", str(mport), *both)
+        pipe = pt.InfeedPipeline(client, batch_size=BATCH, device=device,
+                                 prefetch_depth=PREFETCH_DEPTH, batcher_buffers=BUFFERS,
+                                 max_wait_s=60.0, metrics=metrics)
+        t0 = time.monotonic()
+        seen = pipe.run(step, on_result=on_result, block_until_ready=True)
+        result["wall_s"] = time.monotonic() - t0
+        counts = pt.counts()
+        code, out = producer.wait()
+        producer = None
+        collector.stop()
+        collector.poll_once()  # the server, after the run
+        if sampler is not None:
+            result["serving_threads"] = serving_threads(sampler)
+            result["serving"] = prof_view(prof.profile_summary(), OBS_FRAMES)
+            prof.stop_default_profiler()  # writes the spool when spooled
+            sampler = None
+        if tag == "default":
+            result.update(console_and_dump(root, npz, server, flight_dir))
+        stats = monitor.stats()
+    finally:
+        collector.stop()
+        if sampler is not None:
+            prof.stop_default_profiler()
+        if spooled:
+            TRACER.close()
+        for c in (client, monitor):
+            if c is not None:
+                c.disconnect()
+        if producer is not None:
+            producer.proc.kill()
+            producer.wait(timeout=30)
+        srv_code, srv_out = server.stop()
+        if durable:
+            import shutil
+
+            shutil.rmtree(d, ignore_errors=True)
+    roots = (imported_roots(out) | imported_roots(srv_out)) & {"torch", "jax"}
+    if seen != OBS_FRAMES or code != 0 or srv_code != 0 or roots:
+        raise AssertionError(f"{tag}: consumed {seen} of {OBS_FRAMES}, producer exit {code}, "
+                             f"server exit {srv_code}, imported {roots}: {out[-1500:]} "
+                             f"{srv_out[-1500:]}")
+    check_resnet_counts(counts, OBS_FRAMES // BATCH)
+    states = {p.label: p for p in collector.peers()}
+    srv_store, prod_store = collector.store(peers[0]), collector.store(peers[1])
+    ev = {k: srv_store.last(f"evloop.{k}") for k in ("busy_frac", "busy_frac_ewma",
+                                                     "dispatch_ms_ewma", "dispatch_ms_max",
+                                                     "loops_total")}
+    srv_frames = srv_store.last(f"queue_server.default/{OBS_QUEUE}.puts")
+    summary = metrics.summary()
+    result.update(
+        fps=summary["fps"], frames=OBS_FRAMES, p50_batch_ms=summary["p50_ms"],
+        host_batch_ms=summary["host_batch_ms"], launches=counts,
+        server_queue={k: stats.get(k) for k in ("puts", "gets", "high_water")},
+        queue_server=prof_view(states[peers[0]].profile, srv_frames),
+        producer=prof_view(states[peers[1]].profile, prod_store.last("producer.frames_total")),
+        server_worker=states[peers[0]].worker, evloop=ev,
+        # the loop's dispatch a frame, two ways: the passes' EWMA times their
+        # count, and the dispatch stage's on-CPU ms from the profiler
+        evloop_dispatch_ms_per_frame=(ev["dispatch_ms_ewma"] * ev["loops_total"] / srv_frames
+                                      if srv_frames and ev["loops_total"] else None),
+        collector=collector.snapshot())
+    if hz is None:
+        if srv_store.last("prof.cpu_frac") is None or ev["busy_frac"] is None:
+            raise AssertionError(f"{tag}: the collector's store of the server lacks prof.cpu_frac "
+                                 f"or evloop.busy_frac: {sorted(srv_store.keys())[:60]}")
+        for name in ("queue_server", "producer", "serving"):
+            if result.get(name) is None:
+                raise AssertionError(f"{tag}: no profile of the {name} process")
+        attributed = result["queue_server"]["attributed"]
+        if not durable and not attributed >= PROF_ATTRIBUTED:
+            raise AssertionError(f"{tag}: {attributed} of the server's on-CPU samples billed "
+                                 f"to known stages, below {PROF_ATTRIBUTED}")
+    if spooled:
+        result["spools"], result["merged"] = spooled_merge(
+            pt, prof_dir, trace_dir, os.path.join(turn_dir, "merged_prof.json"))
+        result["spool_bytes"] = {k: v["bytes"] for k, v in result["spools"].items()}
+        srv_totals = result["spools"]["queue_server"]["stage_totals"]
+        on = sum(t["on"] for t in srv_totals.values())
+        result["queue_server_spool_attributed"] = (
+            1.0 - srv_totals.get("untagged", {"on": 0})["on"] / on if on else None)
+        if not result["queue_server_spool_attributed"] >= PROF_ATTRIBUTED:
+            raise AssertionError(f"{tag}: the server's spool bills "
+                                 f"{result['queue_server_spool_attributed']} to known stages")
+    return result, last, counts
+
+
+def phase_profiled_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """Config 4 at full width (batch 32, ResNet-50 at width 64, K1–K3) from
+    the producer CLI through the queue server CLI over ``tcp://127.0.0.1``
+    to the serving pipeline here, in four turns of ``OBS_FRAMES`` frames:
+    the profiler off everywhere, at its default 97 Hz in all three
+    processes, with spools and every frame traced, and the default through
+    a durable ``--workers 1`` server. Returns the turns' launch counts,
+    summed."""
+    import shutil
+
+    step = make_step(torch, pt, consts, params)
+    npz = observed_npz(root, pool)
+    work = os.path.join(root, "build", "chip_smoke", f"profiled_{os.getpid()}")
+    t_phase = time.monotonic()
+    turns, lasts, total = {}, {}, {}
+    try:
+        for tag, hz, spooled, durable in PROF_TURNS:
+            turns[tag], lasts[tag], counts = profiled_turn(torch, pt, step, device, root, npz,
+                                                           work, tag, hz, spooled, durable)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        os.remove(npz)
+        shutil.rmtree(work, ignore_errors=True)
+    base = lasts["off"]
+    for tag, last in lasts.items():
+        turns[tag].update(check_resnet_result(torch, pt, model, consts, last))
+        if not torch.equal(last["event_idx"], base["event_idx"]):
+            raise AssertionError(f"{tag}: the last batch holds other events than turn off's")
+        diff = float((last["out"][0].float() - base["out"][0].float()).abs().max())
+        turns[tag]["logits_max_abs_diff_vs_off"] = diff
+        if diff > OBS_LOGIT_TOL:
+            raise AssertionError(f"{tag}: logits differ from the unprofiled turn's by {diff}")
+    emit("profiled_end_to_end", frames_per_turn=OBS_FRAMES, batch=BATCH,
+         queue_size=TCP_QUEUE_SIZE, stream_window=TCP_STREAM_WINDOW,
+         fps={tag: turns[tag]["fps"] for tag in turns},
+         fps_ratio_vs_off={tag: turns[tag]["fps"] / turns["off"]["fps"] for tag in turns},
+         turns=turns, phase_s=time.monotonic() - t_phase)
+    return total
+
+
 def _conv3x3_cost(m_out, cin, n, m_in, affine=True):
     """(bytes, ops) of one bf16 3x3 convolution: input, weight, affines,
     output, each once."""
@@ -4781,6 +5145,8 @@ def main() -> int:
     phase_tcp_profile(torch, pt, pool, consts, params, device, root)
     observed_counts = phase_observed_end_to_end(torch, pt, pool, consts, model, params, device,
                                                 root)
+    profiled_counts = phase_profiled_end_to_end(torch, pt, pool, consts, model, params, device,
+                                                root)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -4825,7 +5191,7 @@ def main() -> int:
                      + failover_counts["calib_kernel"] + cluster_counts["calib_kernel"]
                      + cluster_failover_counts["calib_kernel"] + repl_counts["calib_kernel"]
                      + repl_failover_counts["calib_kernel"]
-                     + observed_counts["calib_kernel"]),
+                     + observed_counts["calib_kernel"] + profiled_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -4844,7 +5210,7 @@ def main() -> int:
                          + tcp_counts[name] + durable_counts[name] + failover_counts[name]
                          + cluster_counts[name] + cluster_failover_counts[name]
                          + repl_counts[name] + repl_failover_counts[name]
-                         + observed_counts[name]),
+                         + observed_counts[name] + profiled_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],

@@ -26,7 +26,8 @@ wire codec once), a metrics heartbeat
 every ``--status_interval`` seconds, and ``end of stream after N
 frames``; ``--cursor_path`` keeps a resumable cursor and
 ``--profile_dir`` captures a ``torch.profiler`` trace of the consume
-loop (the only path that loads torch). ``--stream`` and
+loop (the only path that loads torch) and gets the continuous profiler's
+spool (``--profile_hz``, 97 by default, 0 off) beside it. ``--stream`` and
 ``--stream_window`` subscribe to server-push delivery over ``tcp://``
 and ``cluster://`` (ignored elsewhere, as the JAX package does);
 ``--wire_codec``, ``--tenant`` and ``--tenant_weight`` ride the TCP
@@ -40,8 +41,8 @@ wall-clock queue dwell of each frame), ``--history_interval`` samples
 them, ``--trace_dir`` spools a ``dequeue`` span for each sampled frame
 (after clock exchanges with the queue server over a connection of its
 own) and ``--flight_dir`` arms the flight recorder; the heartbeat line
-ends with the tracer's and the flight recorder's counts. The profiler and
-autotune flags are refused (ROADMAP.md Queue 1 Item 8).
+ends with the tracer's and the flight recorder's counts. The autotune
+flags are refused (ROADMAP.md Queue 1 Item 8.4).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from typing import Any, Optional
 
 from psana_ray_tpu_torch.config import TransportConfig
 from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.profiling.stagetag import TAG_DEQUEUE, set_stage, swap_stage
 from psana_ray_tpu_torch.records import EosTally, is_eos
 from psana_ray_tpu_torch.transport import EMPTY, RendezvousTimeout, TransportClosed
 
@@ -155,31 +157,41 @@ class DataReader:
         self.close()
 
     # Over ``shm://`` a frame's panels are the reader's own copy: the
-    # zero-copy slot views are the batcher's (``get_batch_view``).
+    # zero-copy slot views are the batcher's (``get_batch_view``). The
+    # profiler bills each read to "dequeue".
     def read(self) -> Any:
         """Non-blocking read: FrameRecord | EndOfStream | None (empty)."""
         self._check_connected()
+        prev = swap_stage(TAG_DEQUEUE)
         try:
             item = self._queue.get()
         except TransportClosed as e:
             raise DataReaderError(str(e)) from e
+        finally:
+            set_stage(prev)
         return None if item is EMPTY else item
 
     def read_wait(self, timeout: Optional[float] = None) -> Any:
         """Blocking read; None only on timeout."""
         self._check_connected()
+        prev = swap_stage(TAG_DEQUEUE)
         try:
             item = self._queue.get_wait(timeout=timeout)
         except TransportClosed as e:
             raise DataReaderError(str(e)) from e
+        finally:
+            set_stage(prev)
         return None if item is EMPTY else item
 
     def read_batch(self, max_items: int, timeout: Optional[float] = None) -> list:
         self._check_connected()
+        prev = swap_stage(TAG_DEQUEUE)
         try:
             return self._queue.get_batch(max_items, timeout=timeout)
         except TransportClosed as e:
             raise DataReaderError(str(e)) from e
+        finally:
+            set_stage(prev)
 
     def __iter__(self):
         """Iterate FrameRecords until the stream completes."""
@@ -237,8 +249,8 @@ class DataReader:
             raise DataReaderError("not connected — call connect() or use as context manager")
 
 
-# the JAX CLI's profiler and autotune flags
-NOT_PORTED_FLAGS = ("--profile_hz", "--autotune", "--autotune_interval")
+# the JAX CLI's autotune flags
+NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
 
 
 def main(argv=None):
@@ -276,7 +288,8 @@ def main(argv=None):
     p.add_argument("--log_level", default="INFO")
     p.add_argument("--profile_dir", default=None,
                    help="capture a torch.profiler trace of the consume loop into a "
-                        "timestamped subdirectory of this directory (Chrome trace format)")
+                        "timestamped subdirectory of this directory (Chrome trace format), "
+                        "and write the continuous profiler's spool beside it")
     p.add_argument("--status_interval", type=float, default=0.0,
                    help="log a metrics heartbeat (frames/s, Gbit/s, queue depth) every N "
                         "seconds; 0 = off")
@@ -301,6 +314,7 @@ def main(argv=None):
         apply_wire_args,
     )
     from psana_ray_tpu_torch.obs.exporter import add_metrics_args
+    from psana_ray_tpu_torch.obs.profiling import add_profile_args
     from psana_ray_tpu_torch.obs.timeseries import add_history_args
     from psana_ray_tpu_torch.obs.tracing import add_trace_args
     from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
@@ -308,12 +322,13 @@ def main(argv=None):
     add_metrics_args(p)
     add_trace_args(p)
     add_history_args(p)
+    add_profile_args(p)  # takes --profile_hz; --profile_dir is the parser's already
     add_cluster_args(p, consumer=True)
     add_wire_args(p)
     add_tenant_args(p)
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     try:
         # --cluster rewrites the address and carries the partitions and group
         reader_config = apply_tenant_args(apply_wire_args(
@@ -361,6 +376,7 @@ def main(argv=None):
     # thread, the endpoint and the history only when asked for, and after
     # every early return above
     from psana_ray_tpu_torch.obs.exporter import start_metrics_server
+    from psana_ray_tpu_torch.obs.profiling import configure_profiling_from_args, wire_bytes
     from psana_ray_tpu_torch.obs.registry import MetricsRegistry
     from psana_ray_tpu_torch.obs.stages import STAGE_DEQUEUE, STAGE_QUEUE_DWELL
     from psana_ray_tpu_torch.obs.timeseries import configure_history_from_args
@@ -372,6 +388,9 @@ def main(argv=None):
     MetricsRegistry.default().register("consumer", metrics)
     metrics_server = start_metrics_server(a.metrics_port, host=a.metrics_host)
     history = configure_history_from_args(a)
+    # a frame read over TCP is no WIRE copy: the cost model divides by the reads
+    configure_profiling_from_args(a, "consumer", frames_fn=lambda: metrics.frames.count,
+                                  bytes_fn=wire_bytes)
     heartbeat_done = threading.Event()
     heartbeat = None
     if a.status_interval > 0:

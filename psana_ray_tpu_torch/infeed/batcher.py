@@ -30,6 +30,12 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 
 from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.profiling.stagetag import (
+    TAG_BATCH,
+    TAG_DEQUEUE,
+    TAG_UNTAGGED,
+    set_stage,
+)
 from psana_ray_tpu_torch.obs.stages import HOP_BATCH, HOP_DEQ, HOP_PUSH
 from psana_ray_tpu_torch.obs.tracing import TRACE_KEY, TRACER
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord, mark_hop
@@ -250,6 +256,7 @@ def batches_from_queue(
         while True:
             if stop is not None and stop.is_set():
                 return
+            set_stage(TAG_DEQUEUE)  # the profiler bills the pop to "dequeue"
             try:
                 items = pop(batch_size, timeout=poll_interval_s)
             except TransportWedged:
@@ -274,6 +281,7 @@ def batches_from_queue(
             tally.flush_duplicates(queue)
             ready: List[Batch] = []
             done = False
+            set_stage(TAG_BATCH)  # ... and the copies into the arena to "batch"
             for pos, item in enumerate(items):
                 if isinstance(item, EndOfStream):
                     if tally.process(item):
@@ -310,8 +318,10 @@ def batches_from_queue(
                 if out is not None:
                     ready.append(out)
             del items
+            set_stage(TAG_UNTAGGED)  # suspended at a yield: the caller's time
             yield from ready
             if done:
                 return
     finally:
+        set_stage(TAG_UNTAGGED)
         tally.flush_duplicates(queue, final=True)

@@ -16,12 +16,18 @@ The port's copy of ``psana_ray_tpu/obs/``:
 - :mod:`.flight`: the bounded event ring dumped on a stall, an exception
   or SIGUSR2;
 - :mod:`.timeseries`: the process's bounded history of registry
-  snapshots, whose tail every flight dump carries.
+  snapshots, whose tail every flight dump carries;
+- :mod:`.profiling` and :mod:`.prof_merge`: the continuous profiler (each
+  process's CPU by stage, its hot frames, its CPU a frame) and the merge
+  of its spools, ``python -m psana_ray_tpu_torch.obs.prof_merge``;
+- :mod:`.collector`, :mod:`.console` and :mod:`.top`: the federation
+  collector and the console over it, ``python -m
+  psana_ray_tpu_torch.obs.top``.
 
 Names, defaults, spool lines, dump documents, Prometheus text and the
-federation payload are the JAX package's. The continuous profiler, the
-federation collector and console, and autotune are not ported (ROADMAP.md
-Queue 1 Item 8). Everything here is pure stdlib and loads lazily.
+federation payload are the JAX package's. Autotune is not ported
+(ROADMAP.md Queue 1 Item 8.4). Everything here is pure stdlib and loads
+lazily.
 """
 
 import importlib
@@ -63,6 +69,17 @@ _EXPORTS = {
     "emit_batch_spans": "tracing",
     "exchange_anchors": "tracing",
     "obs_status_suffix": "tracing",
+    "ClusterCollector": "collector",
+    "FlameSampler": "profiling",
+    "ProfTelemetry": "profiling",
+    "StackTrie": "profiling",
+    "add_profile_args": "profiling",
+    "configure_profiling_from_args": "profiling",
+    "default_profiler": "profiling",
+    "profile_summary": "profiling",
+    "profile_top": "profiling",
+    "start_default_profiler": "profiling",
+    "stop_default_profiler": "profiling",
 }
 
 __all__ = sorted([*_EXPORTS, "StageTimes", "configure_tracing_from_args"])

@@ -19,8 +19,9 @@ Dump triggers:
 
 A dump document has the JAX package's keys. It is written under a
 temporary name in the dump directory and renamed into place, so a reader
-never sees a half-written file. ``profile_top`` is null: the continuous
-profiler is not ported. Pure stdlib.
+never sees a half-written file. ``profile_top`` holds the continuous
+profiler's hottest frames and each stage's on-CPU ms (null while it is
+off). Pure stdlib.
 """
 
 from __future__ import annotations
@@ -260,6 +261,13 @@ class FlightRecorder:
                     tail = hist.tail(TAIL_SAMPLES)
             except Exception as e:  # noqa: BLE001
                 tail = {"error": repr(e)}
+            # what the process burned its CPU on: null while the profiler is off
+            try:
+                from psana_ray_tpu_torch.obs.profiling import profile_top
+
+                prof_top = profile_top(16)
+            except Exception as e:  # noqa: BLE001
+                prof_top = {"error": repr(e)}
             doc = {
                 "reason": reason,
                 "trigger": trigger,
@@ -272,7 +280,7 @@ class FlightRecorder:
                 "events": events,
                 "metrics": metrics,
                 "timeseries_tail": tail,
-                "profile_top": None,  # the continuous profiler is not ported
+                "profile_top": prof_top,
                 "threads": _thread_stacks(),
             }
             if path is None:

@@ -168,8 +168,10 @@ def _format_value(v: float) -> str:
 def federation_payload(registry: Optional[MetricsRegistry] = None) -> dict:
     """One host-tagged registry snapshot: ``ok``, ``host``, ``pid``,
     ``wall``, ``mono``, ``metrics``, on a ``--workers`` fleet the
-    ``worker`` id, and ``profile``, null while the continuous profiler is
-    not ported."""
+    ``worker`` id, and ``profile``: the continuous profiler's summary
+    (:func:`~psana_ray_tpu_torch.obs.profiling.profile_summary`), outside
+    ``metrics`` because its frame names are strings; null while the
+    profiler is off."""
     reg = registry if registry is not None else MetricsRegistry.default()
     payload = {
         "ok": True,
@@ -184,7 +186,9 @@ def federation_payload(registry: Optional[MetricsRegistry] = None) -> dict:
     wid = current_worker_id()
     if wid is not None:
         payload["worker"] = wid
-    payload["profile"] = None
+    from psana_ray_tpu_torch.obs.profiling import profile_summary
+
+    payload["profile"] = profile_summary()
     return payload
 
 

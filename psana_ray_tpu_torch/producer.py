@@ -23,12 +23,13 @@ cluster of queue servers. ``--metrics_port`` serves the producer's
 metrics, ``--history_interval`` samples them, ``--trace_dir`` and
 ``--trace_sample`` trace 1 frame in N (the ``produce`` instant and the
 ``enqueue`` span of each sampled frame, its ``src`` and ``enq`` hop
-stamps) and ``--flight_dir`` arms the flight recorder, as in the JAX
-package; the profiler and autotune flags are refused (ROADMAP.md Queue 1
-Item 8). Also here: :func:`produce`, the
-inner loop alone, and :func:`produce_synthetic`, a ``spawn`` producer
-process that feeds a named shm ring, a queue server or a cluster from a
-seeded :class:`SyntheticSource`.
+stamps), ``--flight_dir`` arms the flight recorder and ``--profile_hz``
+(97 by default; 0 turns it off) runs the continuous profiler, its spool
+written into ``--profile_dir`` at exit, as in the JAX package; the
+autotune flags are refused (ROADMAP.md Queue 1 Item 8.4). Also here:
+:func:`produce`, the inner loop alone, and :func:`produce_synthetic`, a
+``spawn`` producer process that feeds a named shm ring, a queue server or
+a cluster from a seeded :class:`SyntheticSource`.
 
 Nothing here imports torch: a producer process never touches the card.
 """
@@ -49,6 +50,14 @@ from psana_ray_tpu_torch.config import MaskConfig, PipelineConfig, RetrievalMode
 from psana_ray_tpu_torch.config import TransportConfig
 from psana_ray_tpu_torch.obs.exporter import add_metrics_args, start_metrics_server
 from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.profiling import (
+    TAG_ENQUEUE,
+    add_profile_args,
+    configure_profiling_from_args,
+    set_stage,
+    swap_stage,
+    wire_bytes,
+)
 from psana_ray_tpu_torch.obs.registry import MetricsRegistry
 from psana_ray_tpu_torch.obs.stages import HOP_ENQ, HOP_SRC, STAGE_ENQUEUE
 from psana_ray_tpu_torch.obs.timeseries import add_history_args, configure_history_from_args
@@ -97,7 +106,12 @@ def produce(
 
     def put(item, what):
         if sender is None:
-            if not queue.put_wait(item, timeout=timeout):
+            prev = swap_stage(TAG_ENQUEUE)
+            try:
+                ok = queue.put_wait(item, timeout=timeout)
+            finally:
+                set_stage(prev)
+            if not ok:
                 raise TimeoutError(f"queue full for {timeout} s at {what}")
         elif not sender.send(item):
             raise TransportClosed(f"the queue closed at {what}")
@@ -230,13 +244,18 @@ class _Sender:
 
     def send(self, rec) -> bool:
         """Send ``rec`` (windowed) or buffer it and flush a full buffer.
-        False: the transport closed or the runtime stopped."""
-        if self.windowed:
-            return self._send_windowed(rec)
-        self.pending.append(rec)
-        if len(self.pending) >= self.batch_size:
-            return self.flush()
-        return True
+        False: the transport closed or the runtime stopped. The profiler
+        bills the call to "enqueue"."""
+        prev = swap_stage(TAG_ENQUEUE)
+        try:
+            if self.windowed:
+                return self._send_windowed(rec)
+            self.pending.append(rec)
+            if len(self.pending) >= self.batch_size:
+                return self._flush()
+            return True
+        finally:
+            set_stage(prev)
 
     def _windowed(self, call) -> bool:
         """Retry ``call(deadline)`` in bounded slices, so that stop() stays
@@ -285,7 +304,14 @@ class _Sender:
         """Put every buffered record with the backoff envelope (windowed:
         wait until every put in flight is acked). False: the transport
         closed or the runtime stopped (records may remain buffered; the
-        stream is dead either way)."""
+        stream is dead either way). The profiler bills it to "enqueue"."""
+        prev = swap_stage(TAG_ENQUEUE)
+        try:
+            return self._flush()
+        finally:
+            set_stage(prev)
+
+    def _flush(self) -> bool:
         if self.windowed:
             return self._windowed(lambda deadline: self.queue.flush_puts(deadline=deadline))
         while self.pending:
@@ -502,14 +528,14 @@ class ProducerRuntime:
         self._stop.set()
 
 
-# the JAX CLI's profiler and autotune flags
-NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
+# the JAX CLI's autotune flags
+NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
 
 
 def parse_arguments(argv=None):
     """The JAX CLI's flags, same spellings and defaults: ``(PipelineConfig,
     args)``. A flag of :data:`NOT_PORTED_FLAGS` exits non-zero naming
-    ROADMAP.md Item 8."""
+    ROADMAP.md Item 8.4."""
     p = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.producer")
     p.add_argument("--exp", default="synthetic",
                    help="synthetic[-*], replay:<path.npz|.npy>, or a psana experiment")
@@ -531,6 +557,7 @@ def parse_arguments(argv=None):
     add_metrics_args(p)
     add_trace_args(p)
     add_history_args(p)
+    add_profile_args(p)
     add_cluster_args(p)
     add_wire_args(p, producer=True)
     p.add_argument("--num_shards", type=int, default=1, help="local ingest workers")
@@ -552,7 +579,7 @@ def parse_arguments(argv=None):
     )
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     try:
         transport = apply_wire_args(apply_cluster_args(TransportConfig(
             address=a.address,
@@ -636,6 +663,10 @@ def main(argv=None):
     MetricsRegistry.default().register("producer", runtime.metrics)
     metrics_server = start_metrics_server(args.metrics_port, host=args.metrics_host)
     history = configure_history_from_args(args)
+    # the cost model divides by the frames sent: a TCP put copies nothing
+    configure_profiling_from_args(args, "producer",
+                                  frames_fn=lambda: runtime.metrics.frames.count,
+                                  bytes_fn=wire_bytes)
     monitor = None
     observed = (metrics_server is not None or history is not None or args.trace_dir
                 or args.flight_dir)

@@ -57,9 +57,12 @@ each sampled frame's ``queue_dwell`` and ``relay`` spans; ``--flight_dir``
 arms the flight recorder; and a stall detector watches every queue by
 default (``--stall_poll_s 1.0``, ``--stall_full_s 5.0``, ``--stall_idle_s
 10.0``; 0 turns it off), logging each episode as ``STALL {...}`` and
-dumping the flight recorder. The profiler and autotune flags are refused
-(ROADMAP.md Queue 1 Item 8). The process, and every worker it forks,
-imports no torch.
+dumping the flight recorder. The continuous profiler runs by default
+(``--profile_hz 97``; 0 turns it off), in each worker of a fleet after the
+fork as ``queue_server-w<id>``, and writes its spool into
+``--profile_dir`` at stop; the event loop publishes its busy fraction as
+the ``evloop`` source. The autotune flags are refused (ROADMAP.md Queue 1
+Item 8.4). The process, and every worker it forks, imports no torch.
 """
 
 from __future__ import annotations
@@ -77,14 +80,15 @@ import time
 
 from psana_ray_tpu_torch.config import DurabilityConfig
 from psana_ray_tpu_torch.obs.exporter import add_metrics_args
+from psana_ray_tpu_torch.obs.profiling import add_profile_args
 from psana_ray_tpu_torch.obs.timeseries import add_history_args
 from psana_ray_tpu_torch.obs.tracing import add_trace_args
 from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
 logger = logging.getLogger(__name__)
 
-# the JAX command's flags of modules the port has not ported
-NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
+# the JAX command's flags of modules the port has not ported: autotune's
+NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
 
 
 def parse_args(argv=None):
@@ -147,6 +151,7 @@ def parse_args(argv=None):
     add_metrics_args(p)
     add_trace_args(p)
     add_history_args(p)
+    add_profile_args(p)
     p.add_argument("--stall_poll_s", type=float, default=1.0,
                    help="queue-health poll interval of the stall detector (backpressure, "
                         "consumer-stall and producer-idle warnings); 0 = detector off")
@@ -158,7 +163,7 @@ def parse_args(argv=None):
     p.add_argument("--log_level", default="INFO")
     add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
+    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     if a.durable_dir and a.shm:
         p.error("--durable_dir and --shm are mutually exclusive (the segment log backs "
                 "in-process queues; shm rings have their own lifetime)")
@@ -224,11 +229,18 @@ def _durable_factory(a):
 def _start_obs(a, server, worker_ctx) -> list:
     """The server's observability: its queues as the ``queue_server``
     registry source, the metrics endpoint (staggered by worker id on a
-    fleet), the history sampler, the tracer and flight recorder, and the
-    stall detector over every queue, each event recorded and dumped by the
-    flight recorder. Returns the stops :func:`_serve` calls at shutdown."""
+    fleet), the history sampler, the continuous profiler, the tracer and
+    flight recorder, and the stall detector over every queue, each event
+    recorded and dumped by the flight recorder. Returns the stops
+    :func:`_serve` calls at shutdown (a worker ends by ``os._exit``, so the
+    profiler's spool is written there, not at exit)."""
     from psana_ray_tpu_torch.obs.exporter import start_metrics_server
     from psana_ray_tpu_torch.obs.flight import FLIGHT
+    from psana_ray_tpu_torch.obs.profiling import (
+        configure_profiling_from_args,
+        stop_default_profiler,
+        wire_bytes,
+    )
     from psana_ray_tpu_torch.obs.registry import MetricsRegistry
     from psana_ray_tpu_torch.obs.stall import StallDetector
     from psana_ray_tpu_torch.obs.timeseries import configure_history_from_args
@@ -245,7 +257,14 @@ def _start_obs(a, server, worker_ctx) -> list:
     history = configure_history_from_args(a)
     if history is not None:
         stops.append(history.stop)
-    configure_from_args(a, "queue_server" if wid is None else f"queue_server-w{wid}")
+    name = "queue_server" if wid is None else f"queue_server-w{wid}"
+
+    def frames():  # the relay copies no frame: divide by the frames put
+        return sum(int(s.get("puts") or 0) for s in server.stats_all().values())
+
+    if configure_profiling_from_args(a, name, frames_fn=frames, bytes_fn=wire_bytes):
+        stops.append(stop_default_profiler)
+    configure_from_args(a, name)
     if a.stall_poll_s > 0:
         stall = StallDetector(poll_interval_s=a.stall_poll_s, full_threshold_s=a.stall_full_s,
                               idle_threshold_s=a.stall_idle_s, on_event=FLIGHT.on_stall)

@@ -34,9 +34,11 @@ parameter file of the port (an orbax tree of the JAX package goes
 through ``tools/convert_params.py`` first) and writes CXI.
 ``--metrics_port`` serves the pipeline's metrics as the ``sfx`` source,
 ``--history_interval`` samples them, ``--trace_dir`` spools the spans of
-each sampled frame at its batch's dispatch and ``--flight_dir`` arms the
-flight recorder, as in the JAX package; the profiler and autotune flags
-are refused (ROADMAP.md Queue 1 Item 8).
+each sampled frame at its batch's dispatch, ``--flight_dir`` arms the
+flight recorder and ``--profile_hz`` (97 by default, 0 off) runs the
+continuous profiler for the run, its spool written into
+``--profile_dir``, as in the JAX package; the autotune flags are refused
+(ROADMAP.md Queue 1 Item 8.4).
 """
 
 from __future__ import annotations
@@ -64,6 +66,13 @@ from psana_ray_tpu_torch.models.fused_unet import pack_unet, peaknet_tpu_fused_i
 from psana_ray_tpu_torch.models.heads import panels_to_nhwc
 from psana_ray_tpu_torch.models.peaks import find_peaks
 from psana_ray_tpu_torch.obs.exporter import add_metrics_args, start_metrics_server
+from psana_ray_tpu_torch.obs.profiling import (
+    add_profile_args,
+    configure_profiling_from_args,
+    default_profiler,
+    stop_default_profiler,
+    wire_bytes,
+)
 from psana_ray_tpu_torch.obs.registry import MetricsRegistry
 from psana_ray_tpu_torch.obs.timeseries import add_history_args, configure_history_from_args
 from psana_ray_tpu_torch.obs.tracing import add_trace_args, configure_from_args, emit_batch_spans
@@ -288,14 +297,13 @@ class SfxPipeline:
         return self.n_events - start
 
 
-# the JAX CLI's profiler and autotune flags: refused, naming the item that
-# ports their modules
-NOT_PORTED_FLAGS = ("--profile_hz", "--profile_dir", "--autotune", "--autotune_interval")
+# the JAX CLI's autotune flags: refused, naming the item that ports autotune
+NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
 
 
 def parse_args(argv=None):
     """The CLI's flags, with the JAX package's names and defaults; a flag of
-    :data:`NOT_PORTED_FLAGS` exits non-zero naming ROADMAP.md Item 8."""
+    :data:`NOT_PORTED_FLAGS` exits non-zero naming ROADMAP.md Item 8.4."""
     ap = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.sfx",
                                  description="stream -> calibrate -> PeakNet-TPU -> peaks -> CXI")
     ap.add_argument("--ray_address", "--address", dest="address", default="auto",
@@ -339,10 +347,11 @@ def parse_args(argv=None):
     add_metrics_args(ap)
     add_trace_args(ap)
     add_history_args(ap)
+    add_profile_args(ap)
     add_cluster_args(ap, consumer=True)
     add_refused_flags(ap, NOT_PORTED_FLAGS)
     a = ap.parse_args(argv)
-    refuse_unported(ap, a, NOT_PORTED_FLAGS, "the continuous profiler and autotune")
+    refuse_unported(ap, a, NOT_PORTED_FLAGS, "autotune")
     return a
 
 
@@ -439,6 +448,7 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
     previous = signal.signal(signal.SIGINT, lambda *_: stop.set()) if main_thread else None
     cfg = SfxConfig(batch_size=a.batch, peak_threshold=a.peak_threshold,
                     max_peaks=a.panel_max_peaks, min_distance=a.min_distance)
+    profiler = None
     try:
         with contextlib.ExitStack() as stack:
             if writer is None:
@@ -448,6 +458,9 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
             if metrics is not None:
                 pipe.metrics = metrics
             MetricsRegistry.default().register("sfx", pipe.metrics)
+            if default_profiler() is None:  # a caller's own sampler stays the caller's
+                profiler = configure_profiling_from_args(
+                    a, "sfx", frames_fn=lambda: pipe.metrics.frames.count, bytes_fn=wire_bytes)
             if monitor is not None:
                 pipe.metrics.attach_queue(monitor)
             log.info("sfx pipeline up on %s: s2d=%d, features %s, threshold %.3f, calib %s",
@@ -471,6 +484,8 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
             signal.signal(signal.SIGINT, previous)
         if hasattr(queue, "disconnect"):
             queue.disconnect()
+        if profiler is not None:
+            stop_default_profiler()  # writes the spool
         if history is not None:
             history.stop()
         if metrics_server is not None:

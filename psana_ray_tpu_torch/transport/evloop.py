@@ -79,6 +79,11 @@ While the process's tracer is on, a sampled frame gets its arrival stamp
 at the put and its ``queue_dwell`` and ``relay`` spans when it goes out;
 control-plane events (stream opens and redeliveries, codec and tenant
 hellos, migrations and adoptions) are flight-recorder events.
+
+:data:`EVLOOP` (the ``evloop`` registry source) times each pass, its
+dispatch against its wait in ``select`` (``busy_frac``), and counts the
+connections. The loop's thread carries the continuous profiler's
+``dispatch`` tag for its whole life.
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from psana_ray_tpu_torch.cluster.replication import REPL
 from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.profiling.stagetag import TAG_DISPATCH, clear_thread, set_stage
 from psana_ray_tpu_torch.obs.registry import ensure_registered, federation_payload
 from psana_ray_tpu_torch.obs.tracing import TRACER
 from psana_ray_tpu_torch.storage.durable import SpilledRecord
@@ -1278,6 +1284,87 @@ _WORKER_LOCAL_OPS = frozenset(
                    "_op_bye"))
 
 
+class EvLoopTelemetry:
+    """The loop's health, the ``evloop`` registry source: connections,
+    refusals, passes, and how long a dispatch pass holds the loop against
+    how long it waits in ``select`` (``busy_frac``: dispatch over dispatch
+    plus select, cumulative, and its EWMA over passes; 1.0 is a loop that
+    never waits). One a process (:data:`EVLOOP`), registered by the first
+    loop."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.connections = 0  # guarded-by: _lock
+        self.connections_peak = 0  # guarded-by: _lock
+        self.accepted_total = 0  # guarded-by: _lock
+        self.refused_total = 0  # guarded-by: _lock
+        self.loops_total = 0  # guarded-by: _lock
+        self.dispatch_ms_last = 0.0  # guarded-by: _lock
+        self.dispatch_ms_max = 0.0  # guarded-by: _lock
+        self.dispatch_ms_ewma = 0.0  # guarded-by: _lock
+        self.timer_lag_ms_max = 0.0  # guarded-by: _lock
+        self.dispatch_s_total = 0.0  # guarded-by: _lock
+        self.select_s_total = 0.0  # guarded-by: _lock
+        self.busy_frac_ewma = 0.0  # guarded-by: _lock
+
+    def conn_opened(self):
+        with self._lock:
+            self.accepted_total += 1
+            self.connections += 1
+            if self.connections > self.connections_peak:
+                self.connections_peak = self.connections
+
+    def conn_closed(self):
+        with self._lock:
+            self.connections -= 1
+
+    def refused(self):
+        with self._lock:
+            self.refused_total += 1
+
+    def loop_pass(self, dispatch_ms: float, select_ms: float = 0.0):
+        with self._lock:
+            self.loops_total += 1
+            self.dispatch_ms_last = dispatch_ms
+            if dispatch_ms > self.dispatch_ms_max:
+                self.dispatch_ms_max = dispatch_ms
+            self.dispatch_ms_ewma += 0.05 * (dispatch_ms - self.dispatch_ms_ewma)
+            self.dispatch_s_total += dispatch_ms * 1e-3
+            self.select_s_total += select_ms * 1e-3
+            span_ms = dispatch_ms + select_ms
+            if span_ms > 0.0:
+                frac = dispatch_ms / span_ms
+                self.busy_frac_ewma += 0.05 * (frac - self.busy_frac_ewma)
+
+    def timer_lag(self, lag_ms: float):
+        with self._lock:
+            if lag_ms > self.timer_lag_ms_max:
+                self.timer_lag_ms_max = lag_ms
+
+    def stats(self) -> dict:
+        with self._lock:
+            busy_s = self.dispatch_s_total + self.select_s_total
+            return {
+                "connections": self.connections,
+                "connections_peak": self.connections_peak,
+                "accepted_total": self.accepted_total,
+                "refused_total": self.refused_total,
+                "loops_total": self.loops_total,
+                "dispatch_ms_last": round(self.dispatch_ms_last, 3),
+                "dispatch_ms_max": round(self.dispatch_ms_max, 3),
+                "dispatch_ms_ewma": round(self.dispatch_ms_ewma, 3),
+                "timer_lag_ms_max": round(self.timer_lag_ms_max, 3),
+                "busy_frac": round(self.dispatch_s_total / busy_s if busy_s > 0.0 else 0.0, 6),
+                "busy_frac_ewma": round(self.busy_frac_ewma, 6),
+            }
+
+    def snapshot(self) -> dict:
+        return self.stats()
+
+
+EVLOOP = EvLoopTelemetry()
+
+
 class EventLoop:
     """The one loop of a :class:`~psana_ray_tpu_torch.transport.tcp.
     TcpQueueServer`: accepts, reads, writes, fires bounded-wait timers and
@@ -1285,6 +1372,7 @@ class EventLoop:
 
     def __init__(self, server):
         ensure_registered("splice", SPLICE)
+        ensure_registered("evloop", EVLOOP)
         self._srv = server
         self._sel = selectors.DefaultSelector()
         self._conns: set = set()
@@ -1396,6 +1484,7 @@ class EventLoop:
         except OSError:
             pass
         self._conns.discard(conn)
+        EVLOOP.conn_closed()
         if conn._lease is not None:  # a payload died mid-read
             conn._lease.release()
             conn._lease = None
@@ -1434,9 +1523,17 @@ class EventLoop:
         if srv.worker_ctx is not None:
             # sibling workers ship the connections of this worker's queues here
             self._sel.register(srv.worker_ctx.sock, selectors.EVENT_READ, self._ADOPT)
+        # the loop thread bills to "dispatch" for its whole life, select
+        # included: the sampler reads a thread's CPU ticks as a delta since
+        # its last sample, so a sample that lands in select bills the CPU of
+        # the pass before it (the waiting samples, the select waits)
+        set_stage(TAG_DISPATCH)
         try:
             while not srv._stop.is_set():
-                for key, mask in self._sel.select(self._select_timeout()):
+                t_sel = time.monotonic()
+                events = self._sel.select(self._select_timeout())
+                t0 = time.monotonic()
+                for key, mask in events:
                     data = key.data
                     if data is self._ACCEPT:
                         self._accept()
@@ -1448,8 +1545,10 @@ class EventLoop:
                         self._dispatch_conn(data, mask)
                 self._fire_timers()
                 self._pump_all()
+                EVLOOP.loop_pass((time.monotonic() - t0) * 1000.0, (t0 - t_sel) * 1000.0)
         finally:
             self._teardown()
+            clear_thread()
 
     def _dispatch_conn(self, conn: _EvConn, mask: int) -> None:
         try:
@@ -1468,6 +1567,7 @@ class EventLoop:
             except OSError:  # BlockingIOError included: none left
                 return
             if srv.max_conns and len(self._conns) >= srv.max_conns:
+                EVLOOP.refused()
                 _refuse_conn(sock, srv.port, len(self._conns), srv.max_conns)
                 continue
             sock.setblocking(False)
@@ -1477,6 +1577,7 @@ class EventLoop:
                 pass
             conn = _EvConn(self, sock, srv)
             self._conns.add(conn)
+            EVLOOP.conn_opened()
             with srv._conns_lock:  # shutdown() closes them too
                 srv._conns = [c for c in srv._conns if c.fileno() != -1]
                 srv._conns.append(sock)
@@ -1551,6 +1652,7 @@ class EventLoop:
                 except (TypeError, ValueError):
                     conn.weight = 1
                 self._conns.add(conn)
+                EVLOOP.conn_opened()
                 with srv._conns_lock:
                     srv._conns = [c for c in srv._conns if c.fileno() != -1]
                     srv._conns.append(sock)
@@ -1598,7 +1700,7 @@ class EventLoop:
     def _fire_timers(self) -> None:
         now = time.monotonic()
         while self._timers and self._timers[0][0] <= now:
-            _deadline, _tie, conn, gen, kind = heapq.heappop(self._timers)
+            deadline, _tie, conn, gen, kind = heapq.heappop(self._timers)
             if kind == "migrate":
                 # a handoff retry: a migrating connection has no pending op
                 if not conn.closed and conn._migration is not None and not conn.out:
@@ -1609,6 +1711,7 @@ class EventLoop:
             if kind == "probe":
                 conn._set_interest(read=True)  # the next pass probes again
                 continue
+            EVLOOP.timer_lag((now - deadline) * 1000.0)
             try:
                 if conn.pending["kind"] == "D":
                     # one last look, then the (maybe empty) answer

@@ -142,6 +142,7 @@ from psana_ray_tpu_torch.transport.codec import (
     payload_nbytes as _parts_nbytes,
 )
 from psana_ray_tpu_torch.obs.flight import FLIGHT
+from psana_ray_tpu_torch.obs.profiling.stagetag import TAG_ENQUEUE, set_stage, swap_stage
 from psana_ray_tpu_torch.obs.registry import ensure_registered
 from psana_ray_tpu_torch.obs.stages import HOP_ENQ, STAGE_QUEUE_DWELL
 from psana_ray_tpu_torch.obs.tracing import SPAN_RELAY, TRACER
@@ -1338,6 +1339,8 @@ class TcpQueueClient:
         if self._stream is not None:
             return self._side_channel().put_wait(item, timeout, poll_s)
         deadline = None if timeout is None else time.monotonic() + timeout
+        # the profiler bills this thread to "enqueue" until the put resolves
+        prev_tag = swap_stage(TAG_ENQUEUE)
         # the encode is kept across full-queue retries (the codec once a
         # frame) until a reconnect changes the codec
         cached = None  # (codec, parts, staging lease)
@@ -1370,6 +1373,7 @@ class TcpQueueClient:
                     return False
                 time.sleep(poll_s)
         finally:
+            set_stage(prev_tag)
             if cached is not None and cached[2] is not None:
                 cached[2].release()
 

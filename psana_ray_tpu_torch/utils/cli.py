@@ -1,8 +1,9 @@
-"""The JAX package's CLI flags whose modules the port has not ported.
+"""The JAX package's CLI flags whose modules the port has not ported
+(autotune's).
 
 The port's CLIs take each such flag with its JAX spelling, so that a
 command line written for the JAX package parses, and refuse it: argparse
-exits non-zero with a message that names ROADMAP.md Queue 1 Item 8."""
+exits non-zero with a message that names ROADMAP.md Queue 1 Item 8.4."""
 
 from __future__ import annotations
 
@@ -23,4 +24,4 @@ def refuse_unported(parser: argparse.ArgumentParser, args, flags: Iterable[str],
     ``flags``; ``what`` names the unported modules in the message."""
     for flag in flags:
         if getattr(args, flag[2:]) is not None:
-            parser.error(f"{flag} is not ported: {what} are ROADMAP.md Queue 1 Item 8")
+            parser.error(f"{flag} is not ported: {what} is ROADMAP.md Queue 1 Item 8.4")

@@ -27,6 +27,8 @@ import os
 import time
 from typing import Iterator, Optional
 
+from psana_ray_tpu_torch.obs.profiling.stagetag import stage_region
+
 logger = logging.getLogger(__name__)
 
 
@@ -82,5 +84,7 @@ def annotate(name: str) -> Iterator[None]:
 
 def annotate_stage(stage: str):
     """The range of one pipeline stage
-    (:data:`psana_ray_tpu_torch.obs.stages.STAGES`), named ``stage.<name>``."""
-    return annotate(f"stage.{stage}")
+    (:data:`psana_ray_tpu_torch.obs.stages.STAGES`), named ``stage.<name>``.
+    It also tags the calling thread for the continuous profiler, so the
+    samples taken inside bill to the same stage."""
+    return stage_region(stage, annotate(f"stage.{stage}"))

@@ -1,8 +1,9 @@
 """The port's producer and consumer CLIs against the JAX package's.
 
 Parsing: the same flags, spellings and defaults as the JAX CLIs, the
-same ``PipelineConfig`` from the same command line, and each flag of a
-module the port has not ported refused naming ROADMAP.md Item 8. Then
+same ``PipelineConfig`` from the same command line, the profiler on by
+default, and each flag of a module the port has not ported (autotune's)
+refused naming ROADMAP.md Item 8.4. Then
 the commands as processes over one ``shm://`` ring: the port's producer
 and consumer end the stream with "end of stream after 24 frames"; the
 JAX producer feeds the port's consumer and the port's producer the JAX
@@ -36,8 +37,8 @@ from torch_parity import _no_lingering_child  # noqa: E402,F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the JAX CLIs' obs, profiler and autotune flags: the obs flags are taken,
-# the profiler and autotune ones refused naming ROADMAP.md Item 8
+# the JAX CLIs' obs, profiler and autotune flags: the obs and profiler flags
+# are taken, the autotune ones refused naming ROADMAP.md Item 8.4
 PRODUCER_OBS_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
@@ -137,6 +138,14 @@ def test_consumer_refuses_unported_flags_naming_item_8(flag, capsys):
         assert e.value.code != 0
         err = capsys.readouterr().err
         assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+
+
+@pytest.mark.parametrize("cli", sorted(CLIS))
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(cli):
+    entry, _, _, refused = CLIS[cli]
+    assert refused == ("--autotune", "--autotune_interval")
+    opts = _options(_parser_of(entry, []))
+    assert opts["--profile_hz"].default == 97.0 and opts["--profile_dir"].default is None
 
 
 def test_reference_flag_spellings():

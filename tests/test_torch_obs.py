@@ -444,7 +444,11 @@ def test_ensure_registered_keeps_the_first_source():
 
 
 @pytest.mark.parametrize("module", ["__init__", "exporter", "flight", "registry", "stages",
-                                    "stall", "timeseries", "trace_merge", "tracing"])
+                                    "stall", "timeseries", "trace_merge", "tracing",
+                                    "collector", "console", "top", "prof_merge",
+                                    "profiling/__init__", "profiling/stagetag",
+                                    "profiling/costmodel", "profiling/sampler",
+                                    "profiling/export"])
 def test_the_observability_plane_imports_no_torch_and_nothing_of_the_jax_package(module):
     import ast
 

@@ -141,8 +141,8 @@ def test_the_jax_collector_pulls_the_port_server_over_n(tmp_path):
         for i in range(5):
             assert c.put(FrameRecord(0, i, [[float(i)]], 1.0))
         payload = c.cluster_rpc({"op": "metrics"})
-        assert payload["ok"] and payload["profile"] is None and "worker" not in payload
-        assert {"queue_server", "stalls"} <= set(payload["metrics"])
+        assert payload["ok"] and payload["profile"]["hz"] == 97.0 and "worker" not in payload
+        assert {"queue_server", "stalls", "prof", "evloop"} <= set(payload["metrics"])
         col = ClusterCollector([f"127.0.0.1:{srv.port}"], register=False)
         col.poll_once(now=1000.0)
         assert c.get() is not None

@@ -10,7 +10,7 @@ server, and the port's producer feeds the JAX consumer through the JAX
 server. ``--shm`` backs a named queue with the ring a local consumer
 attaches to. SIGTERM drains and exits 0, and the server process loads no
 torch. The flags are the JAX command's; those of modules the port has not
-ported exit 2 naming ROADMAP.md Item 8, and the replication flags are
+ported (autotune's) exit 2 naming ROADMAP.md Item 8.4, and the replication flags are
 checked as the JAX command checks them (an unknown ``--replica_codec``
 fails at start). Over ``cluster://`` (two servers,
 ``--cluster A,B --partitions 4``) the producer CLI feeds a consumer group
@@ -228,8 +228,8 @@ def test_flags_match_the_jax_command():
             assert action.default == opts["jax"][opt].default, opt
 
 
-# the JAX command's obs, stall, profiler and autotune flags: the obs and stall
-# flags are taken, the profiler and autotune ones refused naming Item 8
+# the JAX command's obs, stall, profiler and autotune flags: the obs, stall and
+# profiler flags are taken, the autotune ones refused naming Item 8.4
 OBS_FLAGS = (
     "--metrics_host", "--metrics_port",
     "--trace_dir", "--trace_sample", "--flight_dir", "--history_interval", "--history_samples",
@@ -249,6 +249,15 @@ def test_unported_flags_exit_2_naming_item_8(flag, capsys):
         assert e.value.code == 2
         err = capsys.readouterr().err
         assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+
+
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default():
+    assert queue_server.NOT_PORTED_FLAGS == ("--autotune", "--autotune_interval")
+    a = queue_server.parse_args([])
+    assert a.profile_hz == 97.0 and a.profile_dir is None
+    with pytest.raises(SystemExit) as e:
+        queue_server.parse_args(["--autotune"])
+    assert e.value.code == 2
 
 
 def _error_line(text):

@@ -11,8 +11,9 @@ match a peak of the other within 1 px (the SFX tolerance of
 ``tests/test_torch_sfx.py``). In-process: the ``--mode`` and
 ``--features`` refusals and the h5py check come before any queue is
 opened; a fresh run refuses an existing output and a resumed one appends;
-``--max_events`` drains the batch in flight; each obs and autotune flag
-of the JAX CLI is refused naming ROADMAP.md Item 8, and the cluster
+``--max_events`` drains the batch in flight; the obs and profiler flags
+of the JAX CLI are taken, each autotune flag refused naming ROADMAP.md
+Item 8.4, and the cluster
 flags serve a consumer group over two queue servers.
 """
 
@@ -239,8 +240,8 @@ def test_tcp_address_refused_naming_item_8(init_params, tmp_path, address, caplo
     assert "could not open queue" in caplog.text
 
 
-# the JAX CLI's obs, profiler and autotune flags: the obs flags are taken,
-# the profiler and autotune ones refused naming ROADMAP.md Item 8
+# the JAX CLI's obs, profiler and autotune flags: the obs and profiler flags
+# are taken, the autotune ones refused naming ROADMAP.md Item 8.4
 OBS_FLAGS = (
     "--metrics_port", "--metrics_host", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
@@ -264,6 +265,13 @@ def test_obs_autotune_and_cluster_flags_refused_naming_item_8(init_params, tmp_p
         sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag))
     assert e.value.code != 0
     assert "Item 8" in capsys.readouterr().err
+
+
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(init_params,
+                                                                             tmp_path):
+    assert sfx.NOT_PORTED_FLAGS == ("--autotune", "--autotune_interval")
+    a = sfx.parse_args(_args(init_params, tmp_path / "x.cxi"))
+    assert a.profile_hz == 97.0 and a.profile_dir is None
 
 
 def test_cluster_flags_serve_one_group_member(init_params, stream, tmp_path):

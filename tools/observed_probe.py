@@ -24,7 +24,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def main(runs: int) -> int:
+def main(runs: int, phase: str = "observed_end_to_end") -> int:
+    """Build, set up, and run ``chip_smoke.phase_<phase>`` ``runs`` times."""
     import numpy as np
     import torch
 
@@ -33,7 +34,7 @@ def main(runs: int) -> int:
     from psana_ray_tpu_torch.kernels import build
 
     if not torch.cuda.is_available():
-        print("observed_probe: no CUDA device", file=sys.stderr)
+        print(f"{phase} probe: no CUDA device", file=sys.stderr)
         return 1
     t0 = time.monotonic()
     device = torch.device("cuda", 0)
@@ -49,7 +50,7 @@ def main(runs: int) -> int:
     print(json.dumps({"setup_s": time.monotonic() - t0}), flush=True)
     for run in range(runs):
         t1 = time.monotonic()
-        cs.phase_observed_end_to_end(torch, pt, pool, consts, model, params, device, ROOT)
+        getattr(cs, f"phase_{phase}")(torch, pt, pool, consts, model, params, device, ROOT)
         print(json.dumps({"run": run, "phase_seconds": time.monotonic() - t1}), flush=True)
     return 0
 
