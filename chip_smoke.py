@@ -16,10 +16,12 @@ path, once clean and once through a worker killed mid-stream, and
 config 1 into a server killed and restarted, then replayed; and through
 the sharded queue cluster of two queue servers: the ResNet path, once
 clean and once through a consumer-group member joining and a server
-killed mid-stream, and config 1 to a consumer group of two; and config
+killed mid-stream, and config 1 to a consumer group of two; config
 4 traced frame by frame across the producer CLI, the queue server CLI
 and this process, then stalled, and with every one of those processes
-profiled and the profiles merged.
+profiled and the profiles merged; config 4 behind the serving gateway
+(overloaded by three tenants, then idle over TCP); and config 3 with
+every process under autotune.
 
 Run from the root of a checkout, with no arguments:
 
@@ -307,6 +309,29 @@ one JSON line (``{"phase": ...}``):
    bytes, each spool's sampled on-CPU seconds beside its ``os.times``
    CPU seconds; the merged document's rows, spans and bytes; the
    console's frame and the dump's delay.
+6r. ``gateway_end_to_end``: config 4 behind the serving gateway
+   (``psana_ray_tpu_torch.serving``). The device time of each operating
+   point, 1, 2, 4, 8, 16 and 32 frames (the H2D copy from pinned memory,
+   K1, the ResNet; CUDA events), seeds ``SloPolicy``; six B32 dispatches
+   through ``make_batch_dispatch`` (two pinned arenas a batch size, an
+   arena refilled only after its copy's event) give the capacity, host
+   copies included, and the SLO is 8 times one of them. (a) Overload: three shard
+   threads put the pool's frames, cycled, into an in-process ring in
+   bursts every 0.2 s at twice the capacity for 5 s; ``serve_queue``
+   admits them as tenants t0, t1, t2 (by ``shard_rank``, weights 2:1:1)
+   with a ``StallDetector`` bound, while an autotune registry holding the
+   drain knobs, the gateway noted, ticks every 0.1 s. (b) Idle: the
+   producer CLI replays 24 frames into the queue server CLI, and
+   ``serve_queue`` drains a tenanted client with one stream credit. Gates:
+   offered == completed + shed with no backlog, every admitted frame
+   completed or shed at dequeue (the device saw every completed one),
+   every shed counted on a path, K1–K3 once a dispatch, each point's last
+   batch within ``rel_err < 0.05`` of the plain path, (b) every frame at
+   B1 with 1.00 host copies a frame, and ``drain_chunk`` never actuated.
+   Prints each point's device ms, the capacity, the pinned bytes, the
+   admitted p99 a tenant against the SLO, the goodput shares against
+   the weights, goodput against capacity, dispatches by size, the
+   degraded episodes and the registry's actuations.
 7. ``conv_block``: the three K4 encoder levels of PeakNet-TPU at full width
    (features 64-128-256-512, s2d 2) and batch 128 (8 epix10k2M frames x
    16 panels): level 1 88x96 64->128, level 2 44x48 128->256, bottleneck
@@ -451,6 +476,22 @@ one JSON line (``{"phase": ...}``):
    (``--wire_codec shuffle-rle``) -> queue server CLI -> SFX CLI, whose
    connection negotiates no codec, so the server hands it plain frames.
    The same checks.
+17g. ``tuned_end_to_end``: config 3 under autotune in every process. The
+   producer CLI replays 384 frames (the pool cycled, a 3.3 GB ``.npz``)
+   into a ``--workers 1 --durable_dir`` queue server CLI, which the SFX
+   CLI (in-process) serves with ``peaknet_train``'s tree through K1 and
+   K4, in three turns, every process with ``--autotune_interval 0.25
+   --history_interval 0.1``: ``--autotune on`` (the producer with
+   ``--wire_codec none``, which pins its codec knob), ``observe`` and
+   ``off``. Every turn writes each frame once, with K1 and K4's launches
+   exact and peak sets equal to turn ``off``'s; in ``on`` each process's
+   ``autotune`` source (the server's over 'N', the producer's over
+   ``/federate``, the SFX's in its registry) shows a resolved probe and
+   the pinned knob never moved; in ``observe`` no knob moved. Then config
+   1: the producer CLI (320 frames) into a durable server and one consumer
+   CLI with ``--stream --autotune on`` at DEBUG: its ``stream_window``
+   must have moved live, with every frame's CRC-32 equal to the file's.
+   Prints frames/s a turn, each process's knobs and decisions.
 18. ``resnet_fold``: config 4's ResNet-50 (width 64, (3, 4, 6, 3)) with
    ``norm="batch"`` trained 3 steps (``masked_softmax_xent``, full
    batches of 8, +1 ``calib_kernel`` a step), then ``resnet_to_flax`` ->
@@ -474,13 +515,13 @@ Then a ``{"kernels": [...]}`` line and, last, the device line. Any failure
 raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
 serving runs, the shm-fed, TCP-fed, durable-fed, cluster-fed and
-replicated runs, the traced runs, the training runs, the fan-in, the
-CLIs and the fold runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o,
-6p, 8, 11, 14, 17, 17c, 17d, 17e, 17f and 18), those of
-``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p and 18),
-those of ``conv_block_kernel`` the SFX
-runs' (8, 17, 17d, 17e and 17f), the
+replicated runs, the traced and profiled runs, the gateway's, the
+training runs, the fan-in, the CLIs, the tuned runs and the fold runs
+(phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 8, 11, 14,
+17, 17c, 17d, 17e, 17f, 17g and 18), those of ``conv1x1_kernel``,
+``conv3x3_kernel`` and ``back_kernel`` the ResNet runs' (5, 6b, 6e, 6f,
+6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r and 18), those of
+``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and 17g), the
 ``flash_kernel`` launches those of the ViT's serving and training runs;
 every other kernel runs on one path only. Each run sets the counts to 0
 just before it and reads them just after.
@@ -5001,6 +5042,589 @@ def phase_producer_cli_sfx(pt, root, served, tcp=False):
     return launches
 
 
+# -- phases 6r and 17g: the serving gateway and autotune ----------------------
+
+TUNED_FRAMES = 384  # tuned_end_to_end: epix10k2M f32 RAW frames a turn (3.3 GB, the pool cycled)
+TUNED_CFG1_FRAMES = 320  # tuned_end_to_end: the config-1 turn's frames (--max_steps)
+TUNED_QUEUE_SIZE = 16  # tuned_end_to_end: the named queue's depth on the durable server
+TUNE_FLAGS = ("--autotune_interval", "0.25", "--history_interval", "0.1")
+TUNED_TURNS = (("on", ("--wire_codec", "none")), ("observe", ()), ("off", ()))
+GW_POINTS = (1, 2, 4, 8, 16, 32)  # gateway_end_to_end: the operating points
+# the SLO: this many times a B32 dispatch's measured time (the host copies
+# into the pinned arena, the H2D copy and K1–K3), what an admitted frame
+# waits for and what the policy's EWMA learns. At 8 a quarter share (t1,
+# t2) fits one B32 batch ahead inside the 0.9 budget and t0's half three,
+# as the JAX package's acceptance sizes it (bench.py: 300 ms over B8's
+# 35 ms)
+GW_SLO_X = 8.0
+GW_WEIGHTS = {"t0": 2, "t1": 1, "t2": 1}  # tenants by shard_rank
+GW_OVERLOAD = 2.0  # offered load over the measured capacity
+GW_OVERLOAD_S = 5.0  # seconds of bursts
+GW_PERIOD_S = 0.2  # a burst's period: its frames put at once, then a pause
+GW_BUFFERS = 2  # pinned arenas a batch size
+GW_IDLE_FRAMES = 24  # the idle run's frames
+
+
+def federate_poller(port, interval_s=0.25):
+    """Poll ``/federate`` on ``port`` on a thread until ``stop()``; keeps
+    the last payload's ``metrics`` (what a process's registry held last
+    before it exited)."""
+    import urllib.request
+
+    last, done = {}, threading.Event()
+
+    def run():
+        while not done.wait(interval_s):
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/federate",
+                                            timeout=2) as r:
+                    last["metrics"] = json.loads(r.read())["metrics"]
+            except (OSError, ValueError):
+                pass
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def stop():
+        done.set()
+        thread.join(timeout=10)
+        return last.get("metrics", {})
+
+    return stop
+
+
+def server_metrics(port):
+    """The queue server's registry over its 'N' metrics RPC."""
+    from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+
+    c = TcpQueueClient("127.0.0.1", port)
+    try:
+        return c.cluster_rpc({"op": "metrics"})["metrics"]
+    finally:
+        c.disconnect()
+
+
+def knob_table(source):
+    """A process's ``autotune`` source cut to what the phase prints: its
+    counters and each knob's final value, actuations and reverts."""
+    if not source:
+        return None
+    out = {k: source.get(k) for k in ("mode", "decisions_total", "guardrail_trips_total",
+                                      "observed_total", "ticks_total", "pinned_total")}
+    out["knobs"] = {k: {f: v[f] for f in ("current", "pinned", "actuations_total",
+                                          "reverts_total", "kept_total")}
+                    for k, v in source.items() if isinstance(v, dict)}
+    return out
+
+
+def tuned_turn(pt, root, npz, calib, served, mode, producer_args):
+    """One turn of ``tuned_end_to_end``: a ``--workers 1 --durable_dir``
+    queue server CLI, the producer CLI replaying ``npz`` into its named
+    queue and the SFX CLI in this process, all three with ``--autotune
+    mode``. Returns the peak sets, the SFX's metrics summary and launches,
+    and each process's ``autotune`` source."""
+    import tempfile
+
+    from psana_ray_tpu_torch import sfx
+    from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+    from psana_ray_tpu_torch.obs.timeseries import stop_default_history
+
+    # an earlier phase's sampler, stopped, stays the process's default: the
+    # SFX CLI's history would then take no samples and its tuner starve
+    stop_default_history()
+    d, _ = durable_dir(root, f"tuned_{mode}", TUNED_QUEUE_SIZE + DURABLE_RETAIN + 2)
+    tune = ("--autotune", mode, *TUNE_FLAGS)
+    server = QueueServerCLI(root, "--workers", "1", "--durable_dir", d, "--log_level", "WARNING",
+                            *tune)
+    mport = free_port()
+    queue = f"tuned_{mode}"
+    log = tempfile.TemporaryFile("w+")
+    producer = subprocess.Popen(
+        cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--address",
+                server.address, "--queue_name", queue, "--queue_size", str(TUNED_QUEUE_SIZE),
+                "--metrics_port", str(mport), *tune, *producer_args),
+        cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=log, stderr=subprocess.STDOUT,
+        text=True)
+    poll = federate_poller(mport)
+    sink, metrics = PeakSink(), pt.PipelineMetrics(warmup=1)
+    srv_tuned = None
+    try:
+        args = sfx.parse_args([
+            "--address", server.address, "--queue_name", queue, "--serving_params",
+            served["params"], "--output", os.path.join(d, "x.cxi"), "--mode", "quality",
+            "--calib_npz", calib, "--batch", str(SFX_BATCH), "--log_level", "WARNING", *tune])
+        pt.reset_counters()
+        t0 = time.monotonic()
+        rc = sfx.run(args, writer=sink, metrics=metrics)
+        wall = time.monotonic() - t0
+        launches = pt.counts()
+        sfx_tuned = MetricsRegistry.default().snapshot().get("autotune")
+        produced = producer.wait(timeout=120)
+        prod_tuned = poll().get("autotune")
+        if mode != "off":
+            srv_tuned = server_metrics(server.port).get("autotune")
+    finally:
+        poll()
+        stop_default_history()  # the SFX CLI's sampler: the next turn starts its own
+        MetricsRegistry.default().unregister("autotune")
+        if producer.poll() is None:
+            producer.kill()
+            producer.wait(timeout=30)
+        code, out = server.stop()
+        log.seek(0)
+        prod_out = log.read()
+        log.close()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    roots = (imported_roots(prod_out) | imported_roots(out)) & {"torch", "jax"}
+    if rc != 0 or produced != 0 or code != 0 or roots:
+        raise AssertionError(f"tuned {mode}: SFX exit {rc}, producer {produced}, server {code}, "
+                             f"imported {roots}: {prod_out[-1500:]} {out[-1500:]}")
+    return {"sets": sink.sets, "summary": metrics.summary(), "wall_s": wall,
+            "launches": launches, "autotune": {"sfx": sfx_tuned, "producer": prod_tuned,
+                                               "queue_server": srv_tuned}}
+
+
+def tuned_cfg1(pt, root, npz):
+    """The config-1 turn of ``tuned_end_to_end``: the producer CLI
+    (``--max_steps``) into a ``--workers 1 --durable_dir`` queue server CLI
+    and one consumer CLI with ``--stream --autotune on`` at DEBUG, which
+    logs every frame's CRC-32. Returns the CRCs by event, the consumer's
+    ``autotune`` source from its ``/federate`` and its frames/s."""
+    import re
+
+    d, _ = durable_dir(root, "tuned_cfg1", TUNED_QUEUE_SIZE + DURABLE_RETAIN + 2)
+    server = QueueServerCLI(root, "--workers", "1", "--durable_dir", d, "--log_level", "WARNING")
+    mport = free_port()
+    queue = ("--queue_name", "tuned_cfg1")
+    poll = None
+    try:
+        cmds = [cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--address",
+                        server.address, "--queue_size", str(TUNED_QUEUE_SIZE), "--max_steps",
+                        str(TUNED_CFG1_FRAMES), *queue),
+                cli_cmd("psana_ray_tpu_torch.consumer", "0", "--address", server.address,
+                        "--stream", "--log_level", "DEBUG", "--metrics_port", str(mport),
+                        "--autotune", "on", "--autotune_interval", "0.1",
+                        "--history_interval", "0.1", *queue)]
+        poll = federate_poller(mport)
+        (pc, pout), (cc, cout) = run_clis(root, cmds, lead_s=CONSUMER_LEAD_S)[0]
+        tuned = poll()
+        poll = None
+    finally:
+        if poll is not None:
+            poll()
+        code, out = server.stop()
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+    roots = (imported_roots(pout) | imported_roots(cout) | imported_roots(out)) & {"torch",
+                                                                                 "jax"}
+    if pc != 0 or cc != 0 or code != 0 or roots:
+        raise AssertionError(f"tuned cfg1: producer {pc}, consumer {cc}, server {code}, "
+                             f"imported {roots}: {cout[-1500:]} {out[-1500:]}")
+    crcs = {}
+    for m in re.finditer(_CRC, cout):
+        idx = int(m.group(3))
+        if idx in crcs:
+            raise AssertionError(f"tuned cfg1: event {idx} arrived twice")
+        crcs[idx] = int(m.group(4), 16)
+    end = re.search(_END, cout)
+    return crcs, tuned.get("autotune"), float(end.group(4)) if end else None
+
+
+def phase_tuned_end_to_end(pt, pool, root, served):
+    """Config 3 under autotune in every process: the producer CLI replays
+    ``TUNED_FRAMES`` RAW frames (the pool cycled) into a ``--workers 1
+    --durable_dir`` queue server CLI over ``tcp://127.0.0.1``, which the
+    SFX CLI (in-process) serves through K1 and K4 with ``peaknet_train``'s
+    tree, in three turns: ``--autotune on`` (the producer with an
+    explicit ``--wire_codec none``, which pins its codec knob), ``observe``
+    and ``off``. Then config 1 with ``--stream --autotune on`` on the
+    consumer CLI. Returns the turns' launch counts, summed."""
+    import zlib
+
+    import numpy as np
+
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    npz = os.path.join(work, f"tuned_{os.getpid()}.npz")
+    calib = os.path.join(work, f"tuned_calib_{os.getpid()}.npz")
+    frames = np.empty((TUNED_FRAMES, *pool[0].shape), pool[0].dtype)
+    for i in range(TUNED_FRAMES):
+        frames[i] = pool[i % len(pool)]
+    write_replay(npz, frames, [10.0] * TUNED_FRAMES)
+    pool_crcs = [zlib.crc32(np.ascontiguousarray(p)) for p in pool]
+    crcs = [pool_crcs[i % len(pool)] for i in range(TUNED_CFG1_FRAMES)]
+    del frames
+    ped, gain, mask = served["calib"]
+    np.savez(calib, pedestal=ped, gain=gain, mask=mask)
+    t_phase = time.monotonic()
+    turns, total = {}, {}
+    try:
+        for mode, producer_args in TUNED_TURNS:
+            turns[mode] = tuned_turn(pt, root, npz, calib, served, mode, producer_args)
+            for k, v in turns[mode]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        cfg1_crcs, cfg1_tuned, cfg1_fps = tuned_cfg1(pt, root, npz)
+    finally:
+        for path in (npz, calib):
+            if os.path.exists(path):
+                os.remove(path)
+    nb = -(-TUNED_FRAMES // SFX_BATCH)
+    want = {**dict.fromkeys(total, 0), "calib_kernel": nb, "conv_block_kernel": UNET_LAUNCHES * nb}
+    failures = []
+    base = {s.event_idx: s for s in turns["off"]["sets"]}
+    for mode, turn in turns.items():
+        idx = sorted(s.event_idx for s in turn["sets"])
+        if idx != list(range(TUNED_FRAMES)):
+            failures.append(f"{mode}: {len(idx)} events written, not each of {TUNED_FRAMES} once")
+        elif any(not (np.array_equal(s.y, base[s.event_idx].y)
+                      and np.array_equal(s.x, base[s.event_idx].x)
+                      and np.array_equal(s.intensity, base[s.event_idx].intensity))
+                 for s in turn["sets"]):
+            failures.append(f"{mode}: peak sets differ from turn off's")
+        if turn["launches"] != want:
+            failures.append(f"{mode}: launches {turn['launches']}, expected {want}")
+    for proc, src in turns["on"]["autotune"].items():
+        if not src or src.get("decisions_total", 0) < 1:
+            failures.append(f"on: the {proc}'s autotune source shows no resolved probe: "
+                            f"{knob_table(src)}")
+    for proc, src in turns["observe"]["autotune"].items():
+        moved = {k: v["actuations_total"] for k, v in (src or {}).items()
+                 if isinstance(v, dict) and v["actuations_total"]}
+        if not src or moved:
+            failures.append(f"observe: the {proc}'s knobs moved {moved} (source {bool(src)})")
+    sfx_obs = turns["observe"]["autotune"]["sfx"] or {}
+    if (sfx_obs.get("drain_chunk", {}).get("current") != SFX_BATCH
+            or sfx_obs.get("drain_poll_s", {}).get("current") != 0.01):
+        failures.append(f"observe: the SFX drain dials left their start: {knob_table(sfx_obs)}")
+    codec = (turns["on"]["autotune"]["producer"] or {}).get("wire_codec_on", {})
+    if codec.get("pinned") != 1 or codec.get("actuations_total") != 0:
+        failures.append(f"on: the producer's pinned wire_codec_on moved or was not pinned: {codec}")
+    sw = (cfg1_tuned or {}).get("stream_window", {})
+    bad = [i for i in range(TUNED_CFG1_FRAMES) if cfg1_crcs.get(i) != crcs[i]]
+    if not sw.get("actuations_total") or bad or len(cfg1_crcs) != TUNED_CFG1_FRAMES:
+        failures.append(f"cfg1: stream_window {sw}; {len(cfg1_crcs)} of {TUNED_CFG1_FRAMES} "
+                        f"frames, CRC-32 differing at {bad[:16]}")
+    if failures:
+        raise AssertionError("tuned_end_to_end: " + "; ".join(failures))
+    emit("tuned_end_to_end", frames_per_turn=TUNED_FRAMES, batch=SFX_BATCH,
+         features=list(SFX_FEATURES), queue_size=TUNED_QUEUE_SIZE, server="--workers 1 "
+         "--durable_dir", flags=list(TUNE_FLAGS),
+         fps={m: t["summary"]["fps"] for m, t in turns.items()},
+         p50_batch_ms={m: t["summary"]["p50_ms"] for m, t in turns.items()},
+         wall_s={m: t["wall_s"] for m, t in turns.items()},
+         peaks={m: int(sum(s.n for s in t["sets"])) for m, t in turns.items()},
+         launches={m: t["launches"] for m, t in turns.items()},
+         autotune={m: {p: knob_table(s) for p, s in t["autotune"].items()}
+                   for m, t in turns.items() if m != "off"},
+         cfg1={"frames": TUNED_CFG1_FRAMES, "crc32_intact": True, "consumer_fps": cfg1_fps,
+               "autotune": knob_table(cfg1_tuned)},
+         phase_s=time.monotonic() - t_phase)
+    return total
+
+
+def gateway_dispatch(torch, pt, consts, params, device, last, counts):
+    """``make_batch_dispatch`` over pinned arenas (``GW_BUFFERS`` a batch
+    size) into config 4's step: each batch goes to the card in one H2D
+    copy from its arena, the copy's event fenced on the arena, then K1 ->
+    ResNet-50 (K2, K3); the dispatch waits for the logits, so the gateway
+    times the whole dispatch. ``last[b]`` keeps batch size b's last
+    frames on the card and its logits; ``counts`` the batches and frames
+    each size carried."""
+    from psana_ray_tpu_torch.infeed.batcher import host_arena
+    from psana_ray_tpu_torch.infeed.pipeline import pinned_arena
+    from psana_ray_tpu_torch.serving import make_batch_dispatch
+
+    ped, gain, mask = consts
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+
+    def consume(batch):
+        arena = batch.arena
+        src = arena.tensors[0] if arena.tensors else torch.from_numpy(batch.frames)
+        if cuda:
+            with torch.cuda.stream(stream):
+                x = src.to(device, non_blocking=True)
+                fence = torch.cuda.Event()
+                fence.record(stream)
+            arena.fence = fence  # the batcher waits on it before refilling the arena
+            torch.cuda.current_stream(device).wait_stream(stream)
+        else:
+            x = src.clone()
+        cal = pt.fused_calibrate(x, ped, gain, mask, threshold=10.0, out_dtype=torch.bfloat16)
+        logits = pt.resnet_fused_infer(params, pt.panels_to_nhwc(cal))
+        if cuda:
+            torch.cuda.synchronize(device)
+        b = batch.batch_size
+        last[b] = (x, logits, batch.num_valid)
+        n, f = counts.get(b, (0, 0))
+        counts[b] = (n + 1, f + batch.num_valid)
+
+    return make_batch_dispatch(consume, n_buffers=GW_BUFFERS,
+                               new_arena=pinned_arena if cuda else host_arena)
+
+
+def gw_records(pt, pool, shard, n, start=0):
+    """``n`` records of shard ``shard``: the pool's RAW frames, cycled,
+    each viewing its pool array (no copy until a batcher's)."""
+    return [pt.FrameRecord(shard, start + i, pool[(start + i) % len(pool)], 10.0)
+            for i in range(n)]
+
+
+def phase_gateway_end_to_end(torch, pt, pool, consts, model, params, device, root):
+    """Config 4 (ResNet-50, width 64, frozen affines, K1–K3) behind the
+    serving gateway. The device time of each operating point (H2D from a
+    pinned buffer, K1, the ResNet) seeds ``SloPolicy``; B32 dispatches
+    through ``make_batch_dispatch`` measure the capacity, and the SLO is
+    ``GW_SLO_X`` times one of them. (a) Overload: three
+    shard threads put frames into a ring in bursts at ``GW_OVERLOAD`` times
+    the capacity, ``serve_queue`` admits them as tenants t0:t1:t2 at
+    weights 2:1:1, a ``StallDetector`` bound, and an autotune registry
+    with the gateway noted ticks beside it (c). (b) Idle: the producer CLI
+    -> queue server CLI -> ``serve_queue`` on a tenanted client with one
+    credit, every frame at B1. Returns the launch counts of (a) and (b)."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.autotune import AutotuneDaemon, HillClimber, Objective
+    from psana_ray_tpu_torch.autotune.knobs import (
+        KnobRegistry,
+        drain_chunk_knob,
+        drain_poll_knob,
+    )
+    from psana_ray_tpu_torch.infeed.batcher import DrainControl
+    from psana_ray_tpu_torch.obs.stall import StallDetector
+    from psana_ray_tpu_torch.obs.timeseries import start_default_history, stop_default_history
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+    from psana_ray_tpu_torch.serving import GatewayTelemetry, ServingGateway, SloPolicy
+    from psana_ray_tpu_torch.transport.tcp import TcpQueueClient
+    from psana_ray_tpu_torch.utils.bufpool import WIRE
+
+    ped, gain, mask = consts
+    t_phase = time.monotonic()
+    # the device time of each operating point: H2D from pinned memory + K1 + ResNet
+    host = torch.from_numpy(np.stack([pool[i % len(pool)] for i in range(max(GW_POINTS))]))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    device_ms = {}
+    for b in GW_POINTS:
+        src = host[:b]
+
+        def run(src=src):
+            x = src.to(device, non_blocking=True)
+            cal = pt.fused_calibrate(x, ped, gain, mask, threshold=10.0,
+                                     out_dtype=torch.bfloat16)
+            return pt.resnet_fused_infer(params, pt.panels_to_nhwc(cal))
+
+        device_ms[b] = Timer(torch, device).ms_cold(run, iters=5)
+    del host
+    points = tuple((b, device_ms[b]) for b in GW_POINTS)
+
+    last, per_size = {}, {}
+    dispatch = gateway_dispatch(torch, pt, consts, params, device, last, per_size)
+    # every point once through the dispatch path (its arenas pinned), then
+    # B32 dispatches timed: the capacity, host copies included
+    for b in GW_POINTS:
+        dispatch(gw_records(pt, pool, 0, b), b)
+    t0 = time.monotonic()
+    n_cap = 6
+    for k in range(n_cap):
+        dispatch(gw_records(pt, pool, 0, 32, 32 * k), 32)
+    capacity_fps = 32 * n_cap / (time.monotonic() - t0)
+    slo_ms = GW_SLO_X * 32 / capacity_fps * 1000.0
+    arenas = [a for bt in dispatch.batchers.values() for a in bt.pool]
+    pinned_bytes = sum(t.numel() * t.element_size() for a in arenas for t in a.tensors or ())
+    all_pinned = all(a.tensors and all(t.is_pinned() for t in a.tensors) for a in arenas)
+
+    # (a) overload, with (c) the registry beside it; each dispatch's wall
+    # time is kept (one slow dispatch moves the policy's table for long)
+    dispatch_times = []
+
+    def timed(records, b):
+        t = time.perf_counter()
+        dispatch(records, b)
+        dispatch_times.append((b, (time.perf_counter() - t) * 1e3))
+
+    gw = ServingGateway(timed, policy=SloPolicy(slo_ms=slo_ms, operating_points=points),
+                        weights=GW_WEIGHTS)
+    ring = pt.RingBuffer(maxsize=100_000)  # references to the pool's arrays
+    detector = StallDetector(poll_interval_s=0.25, full_threshold_s=1.0,
+                             idle_threshold_s=5.0).watch("overload", ring)
+    detector.bind_gateway(gw)
+    control = DrainControl(chunk=32, poll_s=0.01)
+    registry = KnobRegistry()
+    registry.register(drain_chunk_knob(control))
+    registry.register(drain_poll_knob(control))
+    registry.note_gateway(gw)
+    stop_default_history()  # an earlier phase's sampler, stopped, would starve the tuner
+    start_default_history(interval_s=0.1)
+    tuner = AutotuneDaemon(HillClimber(registry, Objective("gateway.completed_total",
+                                                           window_s=2.0),
+                                       guardrails=[], hold_ticks=2, settle_ticks=1,
+                                       cooldown_ticks=2), interval_s=0.1)
+    per_tenant_fps = GW_OVERLOAD * capacity_fps / len(GW_WEIGHTS)
+    per_burst = max(1, int(per_tenant_fps * GW_PERIOD_S))
+    bursts = int(GW_OVERLOAD_S / GW_PERIOD_S)
+    put = {}
+
+    def shard(rank):
+        recs = gw_records(pt, pool, rank, per_burst * bursts)
+        t_start = time.monotonic()
+        for k in range(bursts):
+            for rec in recs[k * per_burst:(k + 1) * per_burst]:
+                ring.put(rec)
+            time.sleep(max(0.0, t_start + (k + 1) * GW_PERIOD_S - time.monotonic()))
+        put[rank] = len(recs)
+        ring.put(pt.EndOfStream(producer_rank=rank, total_events=len(recs), shards_done=1,
+                                total_shards=len(GW_WEIGHTS)))
+
+    threads = [threading.Thread(target=shard, args=(r,), daemon=True)
+               for r in range(len(GW_WEIGHTS))]
+    for size in per_size:
+        per_size[size] = (0, 0)
+    torch.cuda.synchronize()
+    pt.reset_counters()
+    detector.start()
+    tuner.start()
+    t0 = time.monotonic()
+    try:
+        for t in threads:
+            t.start()
+        gw.serve_queue(ring, tenant_of=lambda r: f"t{r.shard_rank}", max_wait_s=60.0)
+        elapsed = time.monotonic() - t0
+    finally:
+        tuner.stop()
+        detector.stop()
+        for t in threads:
+            t.join(timeout=60)
+        stop_default_history()
+    overload_counts = pt.counts()
+    s = gw.telemetry.stats()
+    by_path = gw.telemetry.shed_by_path()
+    completed_seen = sum(f for _, f in per_size.values())
+    dispatches = sum(n for n, _ in per_size.values())
+    offered = sum(put.values())
+    goodput = gw.telemetry.tenant_goodput()
+    good_total = max(1, sum(goodput.values()))
+    knobs = registry.snapshot()
+    overload = {
+        "offered": offered, "offered_fps": offered / elapsed, "capacity_fps": capacity_fps,
+        "admitted": s["admitted_total"], "completed": s["completed_total"],
+        "shed": s["shed_total"], "shed_by_path": by_path, "backlog_left": gw.backlog(),
+        "goodput_fps": s["goodput_total"] / elapsed,
+        "goodput_over_capacity": s["goodput_total"] / elapsed / capacity_fps,
+        "p99_admitted_ms": {t: s[t]["p99_ms"] for t in GW_WEIGHTS if t in s},
+        "slo_ms": slo_ms, "slo_attainment": s["slo_attainment"],
+        "tenant_goodput_share": {t: goodput.get(t, 0) / good_total for t in GW_WEIGHTS},
+        "weight_share": {t: w / sum(GW_WEIGHTS.values()) for t, w in GW_WEIGHTS.items()},
+        "dispatches_by_size": {str(b): per_size.get(b, (0, 0))[0] for b in GW_POINTS},
+        "degraded_episodes": s["escalations"], "restores": s["restores"],
+        "stall_events": [e.kind for e in detector.events],
+        "policy_service_ms": gw.policy.snapshot()["service_ms"], "elapsed_s": elapsed,
+        "dispatch_ms": {str(b): {"n": len(ts), "p50": float(np.median(ts)), "max": max(ts)}
+                        for b in GW_POINTS
+                        for ts in [[ms for size, ms in dispatch_times if size == b]] if ts},
+    }
+    registry_row = {"drain_chunk_actuations": knobs["drain_chunk"]["actuations_total"],
+                    "drain_poll_s_actuations": knobs["drain_poll_s"]["actuations_total"],
+                    "eligible": registry.eligible(),
+                    "decisions": tuner.controller.decisions}
+    failures = []
+    if not (s["offered_total"] == offered == s["completed_total"] + s["shed_total"]
+            and gw.backlog() == 0):
+        failures.append(f"overload: offered {offered} (counted {s['offered_total']}) against "
+                        f"completed {s['completed_total']} + shed {s['shed_total']}, backlog "
+                        f"{gw.backlog()}")
+    if not (s["admitted_total"] == s["completed_total"] + by_path["deadline"]
+            and completed_seen == s["completed_total"]):
+        failures.append(f"overload: admitted {s['admitted_total']}, completed "
+                        f"{s['completed_total']} (the device saw {completed_seen}), shed at "
+                        f"dequeue {by_path['deadline']}")
+    if s["shed_total"] != sum(by_path.values()):
+        failures.append(f"overload: shed {s['shed_total']} against its paths {by_path}")
+    want = {**dict.fromkeys(overload_counts, 0), "calib_kernel": dispatches,
+            "conv1x1_kernel": 16 * dispatches, "conv3x3_kernel": 16 * dispatches,
+            "back_kernel": 16 * dispatches}
+    if overload_counts != want:
+        failures.append(f"overload: launches {overload_counts}, expected {want}")
+    if knobs["drain_chunk"]["actuations_total"] != 0 or "drain_chunk" in registry.eligible():
+        failures.append(f"registry: drain_chunk actuated with a gateway noted: {registry_row}")
+
+    # (b) idle, over TCP: one credit, so one frame a pop and every dispatch at B1
+    work = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    npz = os.path.join(work, f"gateway_idle_{os.getpid()}.npz")
+    write_replay(npz, np.stack([pool[i % len(pool)] for i in range(GW_IDLE_FRAMES)]),
+                 [10.0] * GW_IDLE_FRAMES)
+    server = QueueServerCLI(root, "--log_level", "WARNING")
+    sizes = {}
+    idle_dispatch = gateway_dispatch(torch, pt, consts, params, device, last, sizes)
+    idle = ServingGateway(idle_dispatch, policy=SloPolicy(slo_ms=slo_ms, operating_points=points),
+                          telemetry=GatewayTelemetry(register=False))
+    client = producer = None
+    try:
+        client = TcpQueueClient("127.0.0.1", server.port, namespace="default",
+                                queue_name="gateway_idle", tenant="idle", tenant_weight=1)
+        client.stream_open(1)
+        producer = subprocess.Popen(
+            cli_cmd("psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}", "--address",
+                    server.address, "--queue_name", "gateway_idle", "--queue_size", "8"),
+            cwd=root, env={**os.environ, "PYTHONPATH": root}, stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)
+        c0 = WIRE.stats()["copies_total"]
+        pt.reset_counters()
+        t0 = time.monotonic()
+        idle.serve_queue(client, tenant_of=lambda r: "idle", max_wait_s=60.0)
+        idle_s = time.monotonic() - t0
+        idle_counts = pt.counts()
+        copies = (WIRE.stats()["copies_total"] - c0) / GW_IDLE_FRAMES
+        produced = producer.wait(timeout=60)
+    finally:
+        if client is not None:
+            client.disconnect()
+        if producer is not None and producer.poll() is None:
+            producer.kill()
+            producer.wait(timeout=30)
+        code, out = server.stop()
+        os.remove(npz)
+    si = idle.telemetry.stats()
+    idle_row = {"frames": GW_IDLE_FRAMES, "completed": si["completed_total"],
+                "shed": si["shed_total"], "dispatches_by_size": {str(b): n for b, (n, _)
+                                                                 in sizes.items()},
+                "host_copies_per_frame": copies, "p99_ms": si.get("idle", {}).get("p99_ms"),
+                "frames_per_s": GW_IDLE_FRAMES / idle_s}
+    if (produced != 0 or code != 0 or si["completed_total"] != GW_IDLE_FRAMES
+            or set(sizes) != {1} or copies != 1.0):
+        failures.append(f"idle: producer {produced}, server {code}, {idle_row}")
+    nb = sum(n for n, _ in sizes.values())
+    want = {**dict.fromkeys(idle_counts, 0), "calib_kernel": nb, "conv1x1_kernel": 16 * nb,
+            "conv3x3_kernel": 16 * nb, "back_kernel": 16 * nb}
+    if idle_counts != want:
+        failures.append(f"idle: launches {idle_counts}, expected {want}")
+
+    # each operating point's last batch against the plain path on its frames
+    errs = {}
+    for b in GW_POINTS:
+        x, logits, n = last[b]
+        cal = fused_calibrate_plain(x, ped, gain, mask, out_dtype=torch.bfloat16)
+        with torch.no_grad():
+            ref = model(pt.panels_to_nhwc(cal))
+        torch.cuda.synchronize()
+        errs[str(b)] = rel_err(ref[:n], logits[:n])
+        if not (errs[str(b)] < REL_TOL and torch.isfinite(logits).all()):
+            failures.append(f"B{b}: last batch's logits rel_err {errs[str(b)]}")
+    if failures:
+        raise AssertionError("gateway_end_to_end: " + "; ".join(failures))
+    emit("gateway_end_to_end", operating_points=list(GW_POINTS), device_ms=device_ms,
+         b32_dispatch_ms=32 / capacity_fps * 1000.0, slo_ms=slo_ms,
+         slo_x_b32_dispatch=GW_SLO_X, capacity_fps=capacity_fps,
+         pinned_arena_bytes=pinned_bytes, arenas_pinned=all_pinned, buffers_per_size=GW_BUFFERS,
+         weights=GW_WEIGHTS, overload=overload, idle=idle_row, registry=registry_row,
+         logits_rel_err=errs, phase_s=time.monotonic() - t_phase)
+    return {k: overload_counts[k] + idle_counts[k] for k in overload_counts}
+
+
 def phase_profiler_loss(torch, device, root):
     """A defect of ``torch.profiler`` on the card's machine, measured, not
     gated: a capture of ``LOSS_MARKERS`` host-to-device copies of distinct
@@ -5147,6 +5771,8 @@ def main() -> int:
                                                 root)
     profiled_counts = phase_profiled_end_to_end(torch, pt, pool, consts, model, params, device,
                                                 root)
+    gateway_counts = phase_gateway_end_to_end(torch, pt, pool, consts, model, params, device,
+                                              root)
     del model, params
 
     calib_np = (src.pedestal(), src.spec.adu_gain * src.gain_map(), src.create_bad_pixel_mask())
@@ -5173,6 +5799,7 @@ def main() -> int:
     cli_counts = phase_sfx_cli(torch, pt, device, root, served)
     cli_sfx_counts = phase_producer_cli_sfx(pt, root, served)
     cli_sfx_tcp_counts = phase_producer_cli_sfx(pt, root, served, tcp=True)
+    tuned_counts = phase_tuned_end_to_end(pt, pool, root, served)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
     phase_profiler_loss(torch, device, root)
 
@@ -5191,7 +5818,8 @@ def main() -> int:
                      + failover_counts["calib_kernel"] + cluster_counts["calib_kernel"]
                      + cluster_failover_counts["calib_kernel"] + repl_counts["calib_kernel"]
                      + repl_failover_counts["calib_kernel"]
-                     + observed_counts["calib_kernel"] + profiled_counts["calib_kernel"]),
+                     + observed_counts["calib_kernel"] + profiled_counts["calib_kernel"]
+                     + gateway_counts["calib_kernel"] + tuned_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -5210,7 +5838,8 @@ def main() -> int:
                          + tcp_counts[name] + durable_counts[name] + failover_counts[name]
                          + cluster_counts[name] + cluster_failover_counts[name]
                          + repl_counts[name] + repl_failover_counts[name]
-                         + observed_counts[name] + profiled_counts[name]),
+                         + observed_counts[name] + profiled_counts[name]
+                         + gateway_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -5220,7 +5849,8 @@ def main() -> int:
         "replaces": "psana_ray_tpu/models/pallas_unet.py:55",
         "launches": (sfx_counts["conv_block_kernel"] + peaknet_counts["conv_block_kernel"]
                      + cli_counts["conv_block_kernel"] + cli_sfx_counts["conv_block_kernel"]
-                     + cli_sfx_tcp_counts["conv_block_kernel"]),
+                     + cli_sfx_tcp_counts["conv_block_kernel"]
+                     + tuned_counts["conv_block_kernel"]),
         "max_abs_err": conv_block["max_abs_err"],
         "ms": conv_block["ms"], "plain_ms": conv_block["plain_ms"],
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],

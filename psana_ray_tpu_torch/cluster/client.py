@@ -45,9 +45,9 @@ packages, and clients of both may share one.
   outside the client's lock.
 
 Every wait is a slice bounded by the caller's deadline (socket timeouts)
-or an interruptible ``Event.wait``. The live knobs ``set_put_window`` and
-``set_stream_window`` are not ported (ROADMAP.md Queue 1 Item 8); the
-windows are read-only properties.
+or an interruptible ``Event.wait``. The live dials ``set_put_window`` and
+``set_stream_window`` fan out to every partition connection; partitions
+dialled later take the stored values.
 """
 
 from __future__ import annotations
@@ -122,6 +122,7 @@ class ClusterClient:
         self._partition_key = partition_key
         self._retain = max(0, int(retain))
         self._stream_window = stream_window
+        self._put_window = DEFAULT_STREAM_WINDOW
         self._timeout_s = timeout_s
         self._reconnect_tries = reconnect_tries
         self._reconnect_base_s = reconnect_base_s
@@ -347,7 +348,8 @@ class ClusterClient:
         return TcpQueueClient(host, port, timeout_s=self._timeout_s, maxsize=self._maxsize,
                               reconnect_tries=self._reconnect_tries,
                               reconnect_base_s=self._reconnect_base_s, codec=self._codec,
-                              tenant=self._tenant, tenant_weight=self._tenant_weight, **kw)
+                              tenant=self._tenant, tenant_weight=self._tenant_weight,
+                              put_window=self._put_window, **kw)
 
     def _client(self, p: int) -> TcpQueueClient:
         # guarded-by-caller: _lock
@@ -527,16 +529,46 @@ class ClusterClient:
                 self._stream_window = window
         return self
 
+    # -- live dials (the autotune knobs) -------------------------------------
     @property
     def put_window(self) -> int:
-        """Each partition connection's windowed-put depth (the transport's
-        default)."""
-        return DEFAULT_STREAM_WINDOW
+        with self._lock:
+            return self._put_window
+
+    def set_put_window(self, n: int) -> None:
+        """Fan the windowed-put depth out to every live partition
+        connection; partitions dialled later take it. A partition in
+        failover is skipped (its new connection dials with the value)."""
+        n = max(1, int(n))
+        with self._lock:
+            self._put_window = n
+            clients = list(self._clients.values())
+        for c in clients:
+            try:
+                c.set_put_window(n)
+            except (TransportClosed, OSError):
+                continue  # the failover dials again with the stored value
 
     @property
     def stream_window(self) -> int:
         with self._lock:
             return self._stream_window
+
+    def set_stream_window(self, n: int) -> None:
+        """Fan the stream credit window out to every subscribed partition
+        connection (a live 'M' each); partitions not streaming yet
+        subscribe with the stored value."""
+        n = max(1, int(n))
+        with self._lock:
+            self._stream_window = n
+            clients = list(self._clients.values())
+        for c in clients:
+            try:
+                c.set_stream_window(n)
+            except RuntimeError:
+                continue  # not subscribed yet: it subscribes with the new value
+            except (TransportClosed, OSError):
+                continue
 
     def _ensure_joined(self) -> None:
         # guarded-by-caller: _lock

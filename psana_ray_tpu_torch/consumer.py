@@ -41,8 +41,11 @@ wall-clock queue dwell of each frame), ``--history_interval`` samples
 them, ``--trace_dir`` spools a ``dequeue`` span for each sampled frame
 (after clock exchanges with the queue server over a connection of its
 own) and ``--flight_dir`` arms the flight recorder; the heartbeat line
-ends with the tracer's and the flight recorder's counts. The autotune
-flags are refused (ROADMAP.md Queue 1 Item 8.4).
+ends with the tracer's and the flight recorder's counts. ``--autotune
+on|observe`` tunes the receive pool's retention floor and the stream
+credit window (``--stream``) or the wire codec (pull mode), judged by the
+consume rate; an explicit ``--stream_window`` or ``--wire_codec`` pins its
+knob.
 """
 
 from __future__ import annotations
@@ -249,8 +252,33 @@ class DataReader:
             raise DataReaderError("not connected — call connect() or use as context manager")
 
 
-# the JAX CLI's autotune flags
-NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
+def _configure_autotune(a, p, reader):
+    """The consumer's knobs: the receive pool's retention floor, and the
+    stream credit window under ``--stream`` or the wire codec in pull mode
+    (a streamed connection's codec is decided at each connect), judged by
+    the consume rate. An explicit ``--stream_window`` pins its knob, as
+    does an explicit ``--wire_codec`` (a name or "none"; "auto"
+    delegates)."""
+    from psana_ray_tpu_torch.autotune import Objective, configure_autotune_from_args
+    from psana_ray_tpu_torch.autotune.knobs import (
+        bufpool_retention_knob,
+        stream_window_knob,
+        wire_codec_knob,
+    )
+    from psana_ray_tpu_torch.utils.bufpool import BufferPool
+
+    knobs = [bufpool_retention_knob(BufferPool.default())]
+    pinned = {}
+    if a.stream:
+        knobs.append(stream_window_knob(reader.queue))
+        if a.stream_window != p.get_default("stream_window"):
+            pinned["stream_window"] = "--stream_window set explicitly"
+    else:
+        knobs.append(wire_codec_knob(reader.queue))
+        if a.wire_codec and a.wire_codec != "auto":
+            pinned["wire_codec_on"] = "--wire_codec set explicitly"
+    return configure_autotune_from_args(a, knobs, Objective("consumer.frames_total"),
+                                        pinned=pinned)
 
 
 def main(argv=None):
@@ -317,18 +345,17 @@ def main(argv=None):
     from psana_ray_tpu_torch.obs.profiling import add_profile_args
     from psana_ray_tpu_torch.obs.timeseries import add_history_args
     from psana_ray_tpu_torch.obs.tracing import add_trace_args
-    from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
+    from psana_ray_tpu_torch.autotune import add_autotune_args
 
     add_metrics_args(p)
     add_trace_args(p)
     add_history_args(p)
     add_profile_args(p)  # takes --profile_hz; --profile_dir is the parser's already
+    add_autotune_args(p)
     add_cluster_args(p, consumer=True)
     add_wire_args(p)
     add_tenant_args(p)
-    add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     try:
         # --cluster rewrites the address and carries the partitions and group
         reader_config = apply_tenant_args(apply_wire_args(
@@ -410,6 +437,7 @@ def main(argv=None):
 
         import numpy as np
     monitor = None
+    autotune = None
     try:
         replay_from = None
         if a.replay is not None:
@@ -435,6 +463,8 @@ def main(argv=None):
                 except Exception as e:  # noqa: BLE001 (depth is optional)
                     log.debug("queue monitor unavailable: %s", e)
             configure_from_args(a, "consumer", queue=monitor)
+            if a.autotune != "off":
+                autotune = _configure_autotune(a, p, reader)
             try:
                 for rec in reader.iter_records(stop=_should_stop):
                     t_rec = time.monotonic()
@@ -482,6 +512,8 @@ def main(argv=None):
         return 1
     finally:
         heartbeat_done.set()
+        if autotune is not None:
+            autotune.stop()
         if history is not None:
             history.stop()
         if heartbeat is not None:

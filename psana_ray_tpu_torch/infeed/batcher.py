@@ -47,6 +47,21 @@ from psana_ray_tpu_torch.utils.bufpool import WIRE
 META_DTYPES = (np.uint8, np.int32, np.int64, np.float32)
 
 
+class DrainControl:
+    """Live dials of :func:`batches_from_queue` (autotune's drain knobs):
+    ``chunk`` is the most items a pop takes (None: the batch size) and
+    ``poll_s`` the starved poll interval (None: the call's
+    ``poll_interval_s``). The drain loop reads both afresh each pop, plain
+    attribute reads, so the controller sets them from its own thread with
+    no lock on the hot path."""
+
+    __slots__ = ("chunk", "poll_s")
+
+    def __init__(self, chunk: Optional[int] = None, poll_s: Optional[float] = None):
+        self.chunk = chunk
+        self.poll_s = poll_s
+
+
 @dataclasses.dataclass
 class Batch:
     """One fixed-shape batch of frames + aligned per-row metadata. The
@@ -226,6 +241,7 @@ def batches_from_queue(
     stop=None,
     n_buffers: int = 0,
     batcher: Optional[FrameBatcher] = None,
+    control: Optional[DrainControl] = None,
 ) -> Iterator[Batch]:
     """Drain a queue into fixed-shape batches until end of stream.
 
@@ -246,7 +262,8 @@ def batches_from_queue(
     ``stop`` (a ``threading.Event``) cancels from
     another thread without a flush. ``batcher`` is the
     :class:`FrameBatcher` to fill (default: one with ``n_buffers``, made at
-    the first record).
+    the first record). ``control`` (a :class:`DrainControl`) makes the pop
+    size and the poll interval live dials; the batch shape stays fixed.
     """
     starved_since: Optional[float] = None
     tally = EosTally()
@@ -256,9 +273,17 @@ def batches_from_queue(
         while True:
             if stop is not None and stop.is_set():
                 return
+            # the live dials, read afresh each pop; the call's own values
+            # where no controller is attached
+            chunk, poll_s = batch_size, poll_interval_s
+            if control is not None:
+                if control.chunk:
+                    chunk = max(1, int(control.chunk))
+                if control.poll_s:
+                    poll_s = float(control.poll_s)
             set_stage(TAG_DEQUEUE)  # the profiler bills the pop to "dequeue"
             try:
-                items = pop(batch_size, timeout=poll_interval_s)
+                items = pop(chunk, timeout=poll_s)
             except TransportWedged:
                 raise  # lost data, not a clean end of stream
             except TransportClosed:
@@ -267,7 +292,7 @@ def batches_from_queue(
                 return
             if not items:
                 if tally.flush_duplicates(queue):
-                    time.sleep(max(poll_interval_s, 0.02))
+                    time.sleep(max(poll_s, 0.02))
                 now = time.monotonic()
                 starved_since = starved_since if starved_since is not None else now
                 if max_wait_s is not None and now - starved_since >= max_wait_s:

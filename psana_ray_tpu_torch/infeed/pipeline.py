@@ -333,7 +333,9 @@ class InfeedPipeline:
     (:func:`enable_large_alloc_reuse`), as the JAX package's consumer
     does at start. ``name`` registers the pipeline's metrics as the
     ``infeed.<name>`` source of the process's metrics registry until
-    :meth:`close`."""
+    :meth:`close`. ``drain_control`` (a
+    :class:`~psana_ray_tpu_torch.infeed.batcher.DrainControl`) hands the
+    drain's pop size and poll interval to a controller."""
 
     def __init__(
         self,
@@ -348,6 +350,7 @@ class InfeedPipeline:
         stage_meta: bool = True,
         stop=None,
         name: Optional[str] = None,
+        drain_control=None,
     ):
         if batcher_buffers > 0 and batcher_buffers < prefetch_depth + 4:
             # the floor where tensors alias their arena (the CPU): alive at
@@ -370,7 +373,7 @@ class InfeedPipeline:
                                     new_arena=pinned_arena if pinned else host_arena)
         self._batches = batches_from_queue(
             queue, batch_size, poll_interval_s=poll_interval_s, max_wait_s=max_wait_s,
-            stop=_Either(halt, stop), batcher=self.batcher,
+            stop=_Either(halt, stop), batcher=self.batcher, control=drain_control,
         )
         self._prefetcher = DevicePrefetcher(
             self._batches, device=device, prefetch_depth=prefetch_depth, stop_event=halt,

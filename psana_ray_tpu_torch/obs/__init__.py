@@ -25,8 +25,10 @@ The port's copy of ``psana_ray_tpu/obs/``:
   psana_ray_tpu_torch.obs.top``.
 
 Names, defaults, spool lines, dump documents, Prometheus text and the
-federation payload are the JAX package's. Autotune is not ported
-(ROADMAP.md Queue 1 Item 8.4). Everything here is pure stdlib and loads
+federation payload are the JAX package's; a serving gateway
+(:mod:`psana_ray_tpu_torch.serving`) and the autotune daemon
+(:mod:`psana_ray_tpu_torch.autotune`) register their ``gateway`` and
+``autotune`` sources here. Everything here is pure stdlib and loads
 lazily.
 """
 

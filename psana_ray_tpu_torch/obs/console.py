@@ -8,8 +8,8 @@ RPC, the CLIs over ``/federate``; either package's) with fps, queue depth,
 stream credits, the codec's ratio, the gateway's shed rate, replication
 lag, CPU% (the profiler's ``cpu_frac``), BUSY% (the event loop's
 ``busy_frac``) and the hottest frame, an fps sparkline from the history,
-and the active alerts. The shed column stays empty for the port's
-processes: the port has no serving gateway.
+and the active alerts. The shed column reads a process's ``gateway``
+source (a :class:`~psana_ray_tpu_torch.serving.ServingGateway`'s).
 
 Plain ANSI (home and clear between frames, no curses); ``--once`` prints
 one frame without escapes, for scripts and tests.

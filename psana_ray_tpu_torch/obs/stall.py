@@ -17,9 +17,9 @@ An event is logged once an episode (it re-arms when the condition
 clears), handed to ``on_event``, kept in a bounded ``events`` deque and
 counted; the detector is a registry source. While any episode is active
 the ``degraded`` gauge is up; ``on_clear`` fires when the last one
-clears. The JAX detector also escalates a serving gateway
-(``bind_gateway``); the port has no serving gateway yet, so that hook is
-left out. ``poll_once(now=...)`` lets tests drive time.
+clears. A bound serving gateway (:meth:`StallDetector.bind_gateway`) is
+escalated on the first firing and restored when the last episode clears.
+``poll_once(now=...)`` lets tests drive time.
 """
 
 from __future__ import annotations
@@ -105,6 +105,7 @@ class StallDetector:
         self._provider: Optional[Callable[[], Dict[str, Any]]] = None
         self._states: Dict[str, _QueueState] = {}  # guarded-by: _lock
         self._degraded = False  # guarded-by: _lock
+        self._gateways: list = []  # escalate/restore targets  # guarded-by: _lock
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -119,6 +120,18 @@ class StallDetector:
         queue}`` at each poll (a queue server's named queues appear as
         clients open them)."""
         self._provider = provider
+        return self
+
+    def bind_gateway(self, gateway) -> "StallDetector":
+        """Escalate a :class:`~psana_ray_tpu_torch.serving.gateway.
+        ServingGateway` while any stall episode is active: its shed
+        threshold rises on the first firing and comes back when the last
+        episode clears. Bound mid-episode, it is escalated at once."""
+        with self._lock:
+            self._gateways.append(gateway)
+            degraded = self._degraded
+        if degraded:
+            gateway.escalate("stall-detector (bound mid-episode)")
         return self
 
     def start(self) -> "StallDetector":
@@ -190,7 +203,13 @@ class StallDetector:
                    for st in self._states.values()):
                 return
             self._degraded = False
+            gateways = list(self._gateways)
         logger.info("STALL cleared: all episodes resolved")
+        for gw in gateways:
+            try:
+                gw.restore()
+            except Exception:  # noqa: BLE001 (the watchdog outlives faults)
+                logger.exception("stall gateway restore failed")
         if self.on_clear is not None:
             try:
                 self.on_clear()
@@ -255,8 +274,14 @@ class StallDetector:
         with self._lock:
             self._counts[event.kind] = self._counts.get(event.kind, 0) + 1
             self._degraded = True
+            gateways = list(self._gateways)
         self.events.append(event)
         logger.warning("STALL %s", event.to_json())
+        for gw in gateways:  # a firing acts, not only warns
+            try:
+                gw.escalate(f"{event.kind}:{event.queue}")
+            except Exception:  # noqa: BLE001 (the watchdog outlives faults)
+                logger.exception("stall gateway escalate failed")
         if self.on_event is not None:
             try:
                 self.on_event(event)

@@ -25,8 +25,9 @@ metrics, ``--history_interval`` samples them, ``--trace_dir`` and
 ``enqueue`` span of each sampled frame, its ``src`` and ``enq`` hop
 stamps), ``--flight_dir`` arms the flight recorder and ``--profile_hz``
 (97 by default; 0 turns it off) runs the continuous profiler, its spool
-written into ``--profile_dir`` at exit, as in the JAX package; the
-autotune flags are refused (ROADMAP.md Queue 1 Item 8.4). Also here:
+written into ``--profile_dir`` at exit, and ``--autotune on|observe``
+closes the loop on the put window and the wire codec, judged by the
+produce rate, as in the JAX package. Also here:
 :func:`produce`, the inner loop alone, and :func:`produce_synthetic`, a
 ``spawn`` producer process that feeds a named shm ring, a queue server or
 a cluster from a seeded :class:`SyntheticSource`.
@@ -79,7 +80,6 @@ from psana_ray_tpu_torch.transport.addressing import (
     open_queue,
 )
 from psana_ray_tpu_torch.transport.shm_ring import ShmRingBuffer
-from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
 logger = logging.getLogger(__name__)
@@ -528,14 +528,11 @@ class ProducerRuntime:
         self._stop.set()
 
 
-# the JAX CLI's autotune flags
-NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
-
-
 def parse_arguments(argv=None):
     """The JAX CLI's flags, same spellings and defaults: ``(PipelineConfig,
-    args)``. A flag of :data:`NOT_PORTED_FLAGS` exits non-zero naming
-    ROADMAP.md Item 8.4."""
+    args)``."""
+    from psana_ray_tpu_torch.autotune import add_autotune_args
+
     p = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.producer")
     p.add_argument("--exp", default="synthetic",
                    help="synthetic[-*], replay:<path.npz|.npy>, or a psana experiment")
@@ -558,6 +555,7 @@ def parse_arguments(argv=None):
     add_trace_args(p)
     add_history_args(p)
     add_profile_args(p)
+    add_autotune_args(p)
     add_cluster_args(p)
     add_wire_args(p, producer=True)
     p.add_argument("--num_shards", type=int, default=1, help="local ingest workers")
@@ -577,9 +575,7 @@ def parse_arguments(argv=None):
         help="StreamCursor JSON written by a consumer (its --cursor_path): each shard "
              "resumes past its contiguous processed watermark (at least once)",
     )
-    add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     try:
         transport = apply_wire_args(apply_cluster_args(TransportConfig(
             address=a.address,
@@ -682,12 +678,30 @@ def main(argv=None):
         except Exception as e:  # noqa: BLE001 (the depth is optional)
             logger.debug("queue monitor unavailable: %s", e)
     tracer = configure_from_args(args, "producer", queue=monitor)
+    # autotune: the put window and the wire codec on/off, judged by the
+    # produce rate; an explicit --wire_codec (a name or "none") pins the
+    # codec's knob ("auto" delegates, "" is the default)
+    autotune = None
+    if args.autotune != "off":
+        from psana_ray_tpu_torch.autotune import Objective, configure_autotune_from_args
+        from psana_ray_tpu_torch.autotune.knobs import put_window_knob, wire_codec_knob
+
+        q = runtime.bootstrap()
+        pinned = {}
+        wc = config.transport.wire_codec
+        if wc and wc != "auto":
+            pinned["wire_codec_on"] = "--wire_codec set explicitly"
+        autotune = configure_autotune_from_args(
+            args, [put_window_knob(q), wire_codec_knob(q)], Objective("producer.frames_total"),
+            pinned=pinned)
     try:
         if tracer is not None and monitor is None:
             # the clock exchanges over the data connection, before the stream
             exchange_anchors(runtime.bootstrap())
         runtime.run(block=True)
     finally:
+        if autotune is not None:
+            autotune.stop()
         queue = runtime._queue
         if hasattr(queue, "flush_puts"):  # TCP, a cluster: a clean goodbye to the servers
             queue.disconnect()

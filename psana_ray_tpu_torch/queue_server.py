@@ -61,8 +61,13 @@ dumping the flight recorder. The continuous profiler runs by default
 (``--profile_hz 97``; 0 turns it off), in each worker of a fleet after the
 fork as ``queue_server-w<id>``, and writes its spool into
 ``--profile_dir`` at stop; the event loop publishes its busy fraction as
-the ``evloop`` source. The autotune flags are refused (ROADMAP.md Queue 1
-Item 8.4). The process, and every worker it forks, imports no torch.
+the ``evloop`` source. ``--autotune on|observe`` tunes the receive
+pool's retention floor, fsync batching and the spill threshold of the
+default durable queue and, as each opens, of every named durable queue
+(``fsync_batch_n:<ns>/<queue>``, ``ram_items:<ns>/<queue>``), and
+recommends a ``--workers`` width, judged by the default queue's get rate;
+a flag set explicitly pins its knob, and each worker of a fleet runs its
+own daemon. The process, and every worker it forks, imports no torch.
 """
 
 from __future__ import annotations
@@ -83,15 +88,12 @@ from psana_ray_tpu_torch.obs.exporter import add_metrics_args
 from psana_ray_tpu_torch.obs.profiling import add_profile_args
 from psana_ray_tpu_torch.obs.timeseries import add_history_args
 from psana_ray_tpu_torch.obs.tracing import add_trace_args
-from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 
 logger = logging.getLogger(__name__)
 
-# the JAX command's flags of modules the port has not ported: autotune's
-NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
-
-
 def parse_args(argv=None):
+    from psana_ray_tpu_torch.autotune import add_autotune_args
+
     p = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.queue_server")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=6379, help="listening port (0: a free one)")
@@ -152,6 +154,7 @@ def parse_args(argv=None):
     add_trace_args(p)
     add_history_args(p)
     add_profile_args(p)
+    add_autotune_args(p)
     p.add_argument("--stall_poll_s", type=float, default=1.0,
                    help="queue-health poll interval of the stall detector (backpressure, "
                         "consumer-stall and producer-idle warnings); 0 = detector off")
@@ -161,9 +164,7 @@ def parse_args(argv=None):
                    help="warn 'consumer_stall'/'producer_idle' after put/get counters freeze "
                         "this long")
     p.add_argument("--log_level", default="INFO")
-    add_refused_flags(p, NOT_PORTED_FLAGS)
     a = p.parse_args(argv)
-    refuse_unported(p, a, NOT_PORTED_FLAGS, "autotune")
     if a.durable_dir and a.shm:
         p.error("--durable_dir and --shm are mutually exclusive (the segment log backs "
                 "in-process queues; shm rings have their own lifetime)")
@@ -203,10 +204,15 @@ def _shm_backing(name: str, maxsize: int):
         return ShmRingBuffer.attach(name, retries=1, interval_s=0.1)
 
 
-def _durable_factory(a):
+def _durable_factory(a, tune_box=None):
     """The queue factory of ``--durable_dir``: one segment log a queue,
-    recovered (its boot scan) when the queue is first opened."""
+    recovered (its boot scan) when the queue is first opened. Once
+    ``tune_box["daemon"]`` holds a running autotune daemon, each named
+    queue opened registers its own fsync and spill dials with it."""
+    from psana_ray_tpu_torch.autotune.knobs import fsync_batch_knob, ram_items_knob
     from psana_ray_tpu_torch.storage import DurableRingBuffer, SegmentLog
+
+    defaults = DurabilityConfig()
 
     def factory(ns, name, maxsize):
         qdir = os.path.join(a.durable_dir, f"{ns}__{name}")
@@ -221,6 +227,21 @@ def _durable_factory(a):
                     "%s in %.1f ms (committed offset %d%s)", ns, name, q.reexposed,
                     log.recovered_records, qdir, log.recovery_ms, log.committed(""),
                     ", torn tail cut" if log.torn_tail_repaired else "")
+        daemon = (tune_box or {}).get("daemon")
+        if daemon is not None and (ns, name) != ("default", "default"):
+            # named queues open after the daemon starts: each durable log
+            # tunes its fsync batching and spill threshold to its own
+            # producer, under names that cannot collide
+            reg = daemon.controller.registry
+            try:
+                reg.register(fsync_batch_knob(log, name=f"fsync_batch_n:{ns}/{name}"),
+                             "--fsync_batch_n set explicitly"
+                             if a.fsync_batch_n != defaults.fsync_batch_n else None)
+                reg.register(ram_items_knob(q, name=f"ram_items:{ns}/{name}"),
+                             "--ram_items set explicitly"
+                             if a.ram_items != defaults.ram_items else None)
+            except ValueError:
+                pass  # the same queue opened again in this process: its dials exist
         return q
 
     return factory
@@ -272,6 +293,37 @@ def _start_obs(a, server, worker_ctx) -> list:
         reg.register("stalls", stall)
         stops.append(stall.start().stop)
     return stops
+
+
+def _configure_autotune(a, backing):
+    """The server's knobs, judged by the default queue's get rate: the
+    receive pool's retention floor, the recommendation-only ``--workers``
+    width, and fsync batching and the spill threshold of a durable default
+    queue. A flag set explicitly pins its knob (one passed at its default
+    value reads as unset)."""
+    from psana_ray_tpu_torch.autotune import Objective, configure_autotune_from_args
+    from psana_ray_tpu_torch.autotune.knobs import (
+        bufpool_retention_knob,
+        fsync_batch_knob,
+        ram_items_knob,
+        workers_knob,
+    )
+    from psana_ray_tpu_torch.utils.bufpool import BufferPool
+
+    defaults = DurabilityConfig()
+    knobs = [bufpool_retention_knob(BufferPool.default()), workers_knob(current=a.workers)]
+    pinned = {}
+    if a.workers > 1:
+        pinned["workers"] = "--workers set explicitly"
+    if a.durable_dir and getattr(backing, "log", None) is not None:
+        knobs.append(fsync_batch_knob(backing.log))
+        knobs.append(ram_items_knob(backing))
+        if a.fsync_batch_n != defaults.fsync_batch_n:
+            pinned["fsync_batch_n"] = "--fsync_batch_n set explicitly"
+        if a.ram_items != defaults.ram_items:
+            pinned["ram_items"] = "--ram_items set explicitly"
+    return configure_autotune_from_args(a, knobs, Objective("queue_server.default.gets"),
+                                        pinned=pinned)
 
 
 def _write_port_file(path: str, port: int) -> None:
@@ -362,11 +414,13 @@ def _serve(a, worker_ctx=None, port=None) -> int:
     queue_factory = None
     group_store_path = None
     replication = None
+    # the autotune daemon, bound late: named queues open after it starts
+    tune_box = {"daemon": None}
     if a.durable_dir:
         group_store_path = os.path.join(
             a.durable_dir, "groups.json" if worker_ctx is None
             else f"groups-w{worker_ctx.worker_id}.json")
-        queue_factory = _durable_factory(a)
+        queue_factory = _durable_factory(a, tune_box)
         if worker_ctx is None or worker_ctx.worker_id == DEFAULT_QUEUE_WORKER:
             backing = queue_factory("default", "default", a.queue_size)
         else:
@@ -407,6 +461,10 @@ def _serve(a, worker_ctx=None, port=None) -> int:
                             replication=replication).serve_background()
     # up before the port file names the server ready
     obs_stops = _start_obs(a, server, worker_ctx)
+    autotune = None
+    if a.autotune != "off":
+        autotune = _configure_autotune(a, backing)
+        tune_box["daemon"] = autotune
     if worker_ctx is not None:
         logger.info("worker %d of %d (pid %d) listening on %s:%d", worker_ctx.worker_id,
                     worker_ctx.n_workers, os.getpid(), a.host, server.port)
@@ -442,6 +500,8 @@ def _serve(a, worker_ctx=None, port=None) -> int:
         else:
             logger.warning("drain window ended with %d item(s) still queued", server.depth())
     stats = server.stats_all()
+    if autotune is not None:
+        autotune.stop()
     for stop in obs_stops:
         stop()
     server.close_all()  # every blocked client sees a dead transport

@@ -37,8 +37,9 @@ through ``tools/convert_params.py`` first) and writes CXI.
 each sampled frame at its batch's dispatch, ``--flight_dir`` arms the
 flight recorder and ``--profile_hz`` (97 by default, 0 off) runs the
 continuous profiler for the run, its spool written into
-``--profile_dir``, as in the JAX package; the autotune flags are refused
-(ROADMAP.md Queue 1 Item 8.4).
+``--profile_dir``, and ``--autotune on|observe`` tunes the drain's pop
+size and poll interval and the receive pool's retention floor, judged by
+the event rate, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -83,7 +84,6 @@ from psana_ray_tpu_torch.transport.addressing import (
     open_queue,
 )
 from psana_ray_tpu_torch.transport.registry import TransportClosed
-from psana_ray_tpu_torch.utils.cli import add_refused_flags, refuse_unported
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
 
@@ -246,9 +246,12 @@ class SfxPipeline:
         cursor_save_every: int = 32,
         stop=None,
         max_events: Optional[int] = None,
+        drain_control=None,
     ) -> int:
         """Drain ``queue`` to end of stream (or ``stop``/``max_events``);
-        returns the events written by this call.
+        returns the events written by this call. ``drain_control`` (a
+        :class:`~psana_ray_tpu_torch.infeed.batcher.DrainControl`) makes
+        the drain's pop size and poll interval live dials.
 
         Batches are staged onto the device by an :class:`InfeedPipeline`
         (frames only, two batches ahead, each straight from one of
@@ -261,7 +264,7 @@ class SfxPipeline:
         prefetcher = InfeedPipeline(queue, self.cfg.batch_size, device=self.device,
                                     prefetch_depth=PREFETCH_DEPTH, poll_interval_s=poll_interval_s,
                                     metrics=self.metrics, batcher_buffers=PREFETCH_DEPTH + 4,
-                                    stage_meta=False, stop=stop)
+                                    stage_meta=False, stop=stop, drain_control=drain_control)
         self.batcher = prefetcher.batcher
 
         def drain_one(pending) -> bool:
@@ -297,13 +300,10 @@ class SfxPipeline:
         return self.n_events - start
 
 
-# the JAX CLI's autotune flags: refused, naming the item that ports autotune
-NOT_PORTED_FLAGS = ("--autotune", "--autotune_interval")
-
-
 def parse_args(argv=None):
-    """The CLI's flags, with the JAX package's names and defaults; a flag of
-    :data:`NOT_PORTED_FLAGS` exits non-zero naming ROADMAP.md Item 8.4."""
+    """The CLI's flags, with the JAX package's names and defaults."""
+    from psana_ray_tpu_torch.autotune import add_autotune_args
+
     ap = argparse.ArgumentParser(prog="python -m psana_ray_tpu_torch.sfx",
                                  description="stream -> calibrate -> PeakNet-TPU -> peaks -> CXI")
     ap.add_argument("--ray_address", "--address", dest="address", default="auto",
@@ -348,11 +348,9 @@ def parse_args(argv=None):
     add_trace_args(ap)
     add_history_args(ap)
     add_profile_args(ap)
+    add_autotune_args(ap)
     add_cluster_args(ap, consumer=True)
-    add_refused_flags(ap, NOT_PORTED_FLAGS)
-    a = ap.parse_args(argv)
-    refuse_unported(ap, a, NOT_PORTED_FLAGS, "autotune")
-    return a
+    return ap.parse_args(argv)
 
 
 def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
@@ -449,6 +447,8 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
     cfg = SfxConfig(batch_size=a.batch, peak_threshold=a.peak_threshold,
                     max_peaks=a.panel_max_peaks, min_distance=a.min_distance)
     profiler = None
+    autotune = None
+    drain_control = None
     try:
         with contextlib.ExitStack() as stack:
             if writer is None:
@@ -463,13 +463,34 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
                     a, "sfx", frames_fn=lambda: pipe.metrics.frames.count, bytes_fn=wire_bytes)
             if monitor is not None:
                 pipe.metrics.attach_queue(monitor)
+            if a.autotune != "off":
+                # the drain's pop size (group ``serving``: it defers to a
+                # bound gateway's policy) and poll interval, and the pool's
+                # retention floor, judged by the event rate
+                from psana_ray_tpu_torch.autotune import (
+                    Objective,
+                    configure_autotune_from_args,
+                )
+                from psana_ray_tpu_torch.autotune.knobs import (
+                    bufpool_retention_knob,
+                    drain_chunk_knob,
+                    drain_poll_knob,
+                )
+                from psana_ray_tpu_torch.infeed.batcher import DrainControl
+                from psana_ray_tpu_torch.utils.bufpool import BufferPool
+
+                drain_control = DrainControl(chunk=a.batch, poll_s=0.01)
+                autotune = configure_autotune_from_args(
+                    a, [drain_chunk_knob(drain_control), drain_poll_knob(drain_control),
+                        bufpool_retention_knob(BufferPool.default())],
+                    Objective("sfx.frames_total"))
             log.info("sfx pipeline up on %s: s2d=%d, features %s, threshold %.3f, calib %s",
                      pipe.device, s2d, trained, a.peak_threshold,
                      "on the device" if calib else "upstream")
             t0 = time.monotonic()
             n = pipe.run(queue, cursor=cursor, cursor_path=a.cursor_path,
                          cursor_save_every=a.cursor_save_every, stop=stop,
-                         max_events=a.max_events)
+                         max_events=a.max_events, drain_control=drain_control)
             dt = time.monotonic() - t0
             m = pipe.metrics.summary()
             log.info("end of stream: %d events, %d peaks (%.1f s, %.1f events/s; batch p50 "
@@ -480,6 +501,8 @@ def run(a, writer=None, metrics: Optional[PipelineMetrics] = None) -> int:
         log.error("%s", e)
         return 1
     finally:
+        if autotune is not None:
+            autotune.stop()
         if main_thread:
             signal.signal(signal.SIGINT, previous)
         if hasattr(queue, "disconnect"):

@@ -132,6 +132,14 @@ class DurableRingBuffer(RingBuffer):
             release()
         return _Entry(offset, None)
 
+    def set_ram_items(self, n: int) -> None:
+        """Live spill-threshold dial (an autotune knob): the RAM-resident
+        records admitted before new puts spill to log-only entries. It
+        applies to later puts; a shrink evicts nothing already resident
+        (those drain through delivery)."""
+        with self._lock:
+            self.ram_items = max(1, int(n))
+
     def _box_front(self, item: Any) -> Any:
         """Head re-insertion: an outstanding item comes back under its
         original offset; anything else (a sibling's EOS marker handed

@@ -225,6 +225,15 @@ class SegmentLog:
                 seg.close()
                 os.unlink(seg.path)
 
+    def set_fsync_batch_n(self, n: int) -> None:
+        """Live fsync-batching dial (an autotune knob): appends per fsync
+        under the ``batch`` policy. The pending-appends count is kept, so a
+        shrink acts at the next append and a grow stretches the current
+        batch; what a machine crash can lose scales with the value, as
+        ``--fsync_batch_n`` documents."""
+        with self._lock:
+            self.fsync_batch_n = max(1, int(n))
+
     # -- append ------------------------------------------------------------
     def append(self, item) -> int:
         """Append one record; returns its offset."""

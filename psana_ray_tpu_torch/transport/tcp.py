@@ -830,6 +830,74 @@ class TcpQueueClient:
             codec = self._codec
         return codec.name if codec is not None else None
 
+    # -- live dials (the autotune knobs) -------------------------------------
+    @property
+    def put_window(self) -> int:
+        with self._lock:
+            return self._put_window
+
+    def set_put_window(self, n: int) -> None:
+        """Resize the windowed-put depth live. Client state only: a shrink
+        waits for more acks before the next send, a grow lets more puts
+        fly."""
+        with self._lock:
+            self._put_window = max(1, int(n))
+
+    @property
+    def stream_window(self) -> int:
+        with self._lock:
+            st = self._stream
+            return st.window if st is not None else 0
+
+    def set_stream_window(self, n: int) -> bool:
+        """Resize the stream's credit window live: one 'M' with the new
+        count on the streamed connection, which the server applies in
+        place (no answer, as for the subscribe); the next cumulative 'K'
+        returns credit against the new window. Needs an open subscription;
+        a replay connection (pull mode) refuses."""
+        n = max(1, min(int(n), 4096))
+        with self._lock:
+            if self._replay_group is not None:
+                # the server drops a replay connection that sends 'M'
+                raise RuntimeError("set_stream_window on a replay connection: replay is "
+                                   "pull-mode")
+            if self._stream is None:
+                raise RuntimeError("set_stream_window needs an open stream subscription "
+                                   "(call stream_open first)")
+            st = self._stream
+            if n == st.window:
+                return True
+            st.window = n  # before the send: a reconnect resubscribes with it
+            try:
+                self._sock.sendall(_OP_STREAM + struct.pack("<I", n))
+            except (ConnectionError, socket.timeout, OSError) as e:
+                self._reconnect(e)  # resubscribes at the new window
+            return True
+
+    def renegotiate_codec(self, names=None) -> bool:
+        """Turn wire compression on or off live with a fresh 'Z' exchange:
+        ``names`` is the codec list to advertise, None or empty goes back
+        to raw. Refused on a streamed connection (a 'Z' between pushes
+        would break their framing; the codec there is decided at each
+        connect) and a no-op once a peer without 'Z' was latched. Windowed
+        puts still unacked drain first, within ``PROBE_DEADLINE_S``: their
+        acks come before the 'Z' answer on the wire. True when a codec is
+        negotiated after it."""
+        if self._stream is not None:
+            raise RuntimeError("renegotiate_codec on a streamed connection: the codec there "
+                               "is decided at (re)connect, not between pushes")
+        if names:
+            names = [str(n) for n in names]
+            for n in names:
+                get_codec(n)  # unknown names fail here
+        deadline = time.monotonic() + self.PROBE_DEADLINE_S
+        with self._lock:
+            if self._codec_refused:
+                return False
+            self._codec_names = names or None
+            self._retrying(self._negotiate_raw, deadline)
+            return self._codec is not None
+
     # -- reconnect ----------------------------------------------------------
     def _reconnect(self, cause: BaseException, deadline: Optional[float] = None):
         """Dial again with jittered exponential backoff; replay the

@@ -151,6 +151,14 @@ class BufferPool:
                 free.append(buf)
                 self._bytes_pooled += cls_bytes
 
+    def set_min_per_class(self, n: int) -> None:
+        """Live retention-floor dial (an autotune knob): the least number
+        of free buffers each size class keeps whatever its peak. A shrink
+        trims on the next release (the decay path), a grow keeps more on
+        later releases; nothing is allocated here."""
+        with self._lock:
+            self.min_per_class = max(0, int(n))
+
     def stats(self) -> dict:
         """Outstanding leases, hits, misses, bytes held in free lists and
         the number of size classes seen."""

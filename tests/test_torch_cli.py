@@ -2,8 +2,8 @@
 
 Parsing: the same flags, spellings and defaults as the JAX CLIs, the
 same ``PipelineConfig`` from the same command line, the profiler on by
-default, and each flag of a module the port has not ported (autotune's)
-refused naming ROADMAP.md Item 8.4. Then
+default, and the autotune flags taken with the JAX defaults (``off``,
+2.0 s), an explicit ``--autotune off`` building no daemon. Then
 the commands as processes over one ``shm://`` ring: the port's producer
 and consumer end the stream with "end of stream after 24 frames"; the
 JAX producer feeds the port's consumer and the port's producer the JAX
@@ -37,8 +37,7 @@ from torch_parity import _no_lingering_child  # noqa: E402,F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the JAX CLIs' obs, profiler and autotune flags: the obs and profiler flags
-# are taken, the autotune ones refused naming ROADMAP.md Item 8.4
+# the JAX CLIs' obs, profiler and autotune flags: each is taken with its value
 PRODUCER_OBS_FLAGS = (
     "--metrics_host", "--metrics_port", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
@@ -83,9 +82,9 @@ def _options(parser):
 
 CLIS = {
     "producer": (lambda argv: port_producer.parse_arguments(argv),
-                 "psana_ray_tpu.producer", "parse_arguments", port_producer.NOT_PORTED_FLAGS),
+                 "psana_ray_tpu.producer", "parse_arguments"),
     "consumer": (lambda argv: port_consumer.main(argv),
-                 "psana_ray_tpu.consumer", "main", port_consumer.NOT_PORTED_FLAGS),
+                 "psana_ray_tpu.consumer", "main"),
 }
 
 
@@ -93,15 +92,14 @@ CLIS = {
 def test_every_jax_flag_with_its_spelling_and_default(cli):
     import importlib
 
-    entry, jax_mod, jax_fn, refused = CLIS[cli]
+    entry, jax_mod, jax_fn = CLIS[cli]
     ours = _options(_parser_of(entry, []))
     theirs = _options(_parser_of(getattr(importlib.import_module(jax_mod), jax_fn), []))
     assert set(ours) == set(theirs)
     for opt, action in ours.items():
-        if opt in refused:
-            assert action.help == argparse.SUPPRESS
-            continue
+        assert action.help != argparse.SUPPRESS, opt  # nothing is taken only to be refused
         assert action.default == theirs[opt].default, opt
+        assert action.choices == theirs[opt].choices, opt
         assert action.dest == theirs[opt].dest, opt
     # the positional consumer id
     assert [a.dest for a in _parser_of(entry, [])._actions if not a.option_strings] == [
@@ -110,42 +108,91 @@ def test_every_jax_flag_with_its_spelling_and_default(cli):
 
 
 def _taken(args, flag):
-    """The value ``[flag, "1"]`` parsed to, as the flag's type gives it."""
+    """The value ``[flag, "1"]`` parsed to, as the flag's type gives it
+    (``--autotune`` takes a mode: ``on``)."""
+    if flag == "--autotune":
+        return args.autotune == "on"
     return str(getattr(args, flag[2:])) in ("1", "1.0")
 
 
+def _value(flag):
+    return "on" if flag == "--autotune" else "1"
+
+
+def _daemons_started(monkeypatch):
+    """Count the autotune daemons started from here on."""
+    from psana_ray_tpu_torch.autotune import daemon
+
+    started = []
+    real = daemon.AutotuneDaemon.start
+
+    def start(self):
+        started.append(self)
+        return real(self)
+
+    monkeypatch.setattr(daemon.AutotuneDaemon, "start", start)
+    return started
+
+
+def _producer_run(argv):
+    """The producer CLI in-process over ``auto``: two smoke_a events."""
+    port_producer.main(["--exp", "synthetic", "--detector_name", "smoke_a", "--num_events", "2",
+                        "--queue_name", "cli_autotune", "--profile_hz", "0", *argv])
+
+
+def _consumer_run(argv):
+    """The consumer CLI in-process over ``auto``, on a queue that holds
+    one end-of-stream marker."""
+    from psana_ray_tpu_torch.records import EndOfStream
+    from psana_ray_tpu_torch.transport.ring import RingBuffer
+
+    q = Registry.default().get_or_create("default", "cli_autotune", lambda: RingBuffer(4))
+    q.put(EndOfStream())
+    assert port_consumer.main(["--queue_name", "cli_autotune", "--quiet", "--profile_hz", "0",
+                               *argv]) == 0
+
+
 @pytest.mark.parametrize("flag", PRODUCER_OBS_FLAGS)
-def test_producer_refuses_unported_flags_naming_item_8(flag, capsys):
-    if flag not in port_producer.NOT_PORTED_FLAGS:  # ported: taken with its value
-        assert _taken(port_producer.parse_arguments([flag, "1"])[1], flag)
-        return
-    for argv in ([flag, "1"], [flag]):
-        with pytest.raises(SystemExit) as e:
-            port_producer.parse_arguments(argv)
-        assert e.value.code != 0
-        err = capsys.readouterr().err
-        assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+def test_producer_refuses_unported_flags_naming_item_8(flag):
+    """Every obs, profiler and autotune flag of the JAX CLI is taken with
+    its value; none is refused."""
+    assert _taken(port_producer.parse_arguments([flag, _value(flag)])[1], flag)
+    if flag.startswith("--autotune"):
+        assert port_producer.parse_arguments([])[1].autotune == "off"
+        assert port_producer.parse_arguments([])[1].autotune_interval == 2.0
 
 
 @pytest.mark.parametrize("flag", CONSUMER_OBS_FLAGS)
-def test_consumer_refuses_unported_flags_naming_item_8(flag, capsys):
-    if flag not in port_consumer.NOT_PORTED_FLAGS:  # ported: taken with its value
-        assert _taken(_parser_of(port_consumer.main, []).parse_args([flag, "1"]), flag)
-        return
-    for argv in ([flag, "1"], [flag]):
-        with pytest.raises(SystemExit) as e:
-            port_consumer.main(argv)
-        assert e.value.code != 0
-        err = capsys.readouterr().err
-        assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+def test_consumer_refuses_unported_flags_naming_item_8(flag):
+    """As for the producer: every flag is taken with its value."""
+    parser = _parser_of(port_consumer.main, [])
+    assert _taken(parser.parse_args([flag, _value(flag)]), flag)
+    if flag.startswith("--autotune"):
+        assert parser.parse_args([]).autotune == "off"
+        assert parser.parse_args([]).autotune_interval == 2.0
 
 
 @pytest.mark.parametrize("cli", sorted(CLIS))
-def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(cli):
-    entry, _, _, refused = CLIS[cli]
-    assert refused == ("--autotune", "--autotune_interval")
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(cli, monkeypatch):
+    """No flag is refused any more: ``--autotune`` parses with the JAX
+    default, an explicit ``--autotune off`` builds no daemon and ``on``
+    builds one; the profiler is on by default."""
+    entry = CLIS[cli][0]
     opts = _options(_parser_of(entry, []))
+    assert opts["--autotune"].default == "off" and opts["--autotune_interval"].default == 2.0
     assert opts["--profile_hz"].default == 97.0 and opts["--profile_dir"].default is None
+    run = _producer_run if cli == "producer" else _consumer_run
+    started = _daemons_started(monkeypatch)
+    run(["--autotune", "off"])
+    assert started == []
+    try:
+        run(["--autotune", "on", "--history_interval", "0"])
+    finally:
+        # the daemon started the process's history sampler: stop it
+        from psana_ray_tpu_torch.obs.timeseries import stop_default_history
+
+        stop_default_history()
+    assert len(started) == 1 and started[0]._thread is None  # stopped at the CLI's exit
 
 
 def test_reference_flag_spellings():

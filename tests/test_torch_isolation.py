@@ -128,6 +128,35 @@ def test_the_cli_processes_load_no_torch():
     assert "end of stream after 5 frames" in out.stderr
 
 
+def test_the_host_clis_load_no_torch_with_autotune_on():
+    """The producer, consumer and queue server CLIs with ``--autotune on``
+    (a daemon each, its history sampler started for it) load neither
+    torch nor JAX."""
+    code = (
+        "import os, signal, sys, tempfile, threading, time\n"
+        "from psana_ray_tpu_torch import consumer, producer, queue_server\n"
+        "from psana_ray_tpu_torch.obs.timeseries import stop_default_history\n"
+        "tune = ['--autotune', 'on', '--autotune_interval', '0.1', '--profile_hz', '0']\n"
+        "producer.main(['--detector_name', 'smoke_a', '--num_events', '5', *tune])\n"
+        "assert consumer.main(['0', '--quiet', *tune]) == 0\n"
+        "stop_default_history()\n"
+        "port_file = os.path.join(tempfile.mkdtemp(), 'port')\n"
+        "def stop():\n"
+        "    while not os.path.exists(port_file):\n"
+        "        time.sleep(0.02)\n"
+        "    time.sleep(0.5)\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=stop, daemon=True).start()\n"
+        "assert queue_server.main(['--host', '127.0.0.1', '--port', '0', '--port_file',\n"
+        "                          port_file, '--drain_s', '0', *tune]) == 0\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert "end of stream after 5 frames" in out.stderr
+
+
 def _run(code):
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})

@@ -9,8 +9,8 @@ the JAX producer CLI feeds the port's consumer through the port's
 server, and the port's producer feeds the JAX consumer through the JAX
 server. ``--shm`` backs a named queue with the ring a local consumer
 attaches to. SIGTERM drains and exits 0, and the server process loads no
-torch. The flags are the JAX command's; those of modules the port has not
-ported (autotune's) exit 2 naming ROADMAP.md Item 8.4, and the replication flags are
+torch. The flags are the JAX command's (``--autotune`` with its JAX
+default; an explicit ``off`` builds no daemon), and the replication flags are
 checked as the JAX command checks them (an unknown ``--replica_codec``
 fails at start). Over ``cluster://`` (two servers,
 ``--cluster A,B --partitions 4``) the producer CLI feeds a consumer group
@@ -222,14 +222,12 @@ def test_flags_match_the_jax_command():
             for n, p in parsers.items()}
     assert set(opts["port"]) == set(opts["jax"])
     for opt, action in opts["port"].items():
-        if opt in queue_server.NOT_PORTED_FLAGS:
-            assert action.help == argparse.SUPPRESS
-        else:
-            assert action.default == opts["jax"][opt].default, opt
+        assert action.help != argparse.SUPPRESS, opt  # nothing is taken only to be refused
+        assert action.default == opts["jax"][opt].default, opt
+        assert action.choices == opts["jax"][opt].choices, opt
 
 
-# the JAX command's obs, stall, profiler and autotune flags: the obs, stall and
-# profiler flags are taken, the autotune ones refused naming Item 8.4
+# the JAX command's obs, stall, profiler and autotune flags: each is taken
 OBS_FLAGS = (
     "--metrics_host", "--metrics_port",
     "--trace_dir", "--trace_sample", "--flight_dir", "--history_interval", "--history_samples",
@@ -239,25 +237,48 @@ OBS_FLAGS = (
 
 
 @pytest.mark.parametrize("flag", OBS_FLAGS)
-def test_unported_flags_exit_2_naming_item_8(flag, capsys):
-    if flag not in queue_server.NOT_PORTED_FLAGS:  # ported: taken with its value
+def test_unported_flags_exit_2_naming_item_8(flag):
+    """Every flag is taken with its value (``--autotune`` takes a mode);
+    the autotune pair defaults as the JAX command's."""
+    if flag == "--autotune":
+        assert queue_server.parse_args([flag, "observe"]).autotune == "observe"
+    else:
         assert str(getattr(queue_server.parse_args([flag, "1"]), flag[2:])) in ("1", "1.0")
-        return
-    for argv in ([flag, "1"], [flag]):
-        with pytest.raises(SystemExit) as e:
-            queue_server.main(argv)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
+    a = queue_server.parse_args([])
+    assert (a.autotune, a.autotune_interval) == ("off", 2.0)
 
 
-def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default():
-    assert queue_server.NOT_PORTED_FLAGS == ("--autotune", "--autotune_interval")
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(tmp_path):
+    """An explicit ``--autotune off`` builds no daemon; ``on`` builds one
+    over the default durable queue's dials, and a named durable queue
+    opened later registers its own pair."""
+    from psana_ray_tpu_torch.obs.timeseries import stop_default_history
+    from psana_ray_tpu_torch.transport.ring import RingBuffer
+
     a = queue_server.parse_args([])
     assert a.profile_hz == 97.0 and a.profile_dir is None
-    with pytest.raises(SystemExit) as e:
-        queue_server.parse_args(["--autotune"])
-    assert e.value.code == 2
+    off = queue_server.parse_args(["--autotune", "off"])
+    assert queue_server._configure_autotune(off, RingBuffer(4)) is None
+    on = queue_server.parse_args(["--autotune", "on", "--durable_dir", str(tmp_path),
+                                  "--fsync_batch_n", "24"])
+    box = {"daemon": None}
+    factory = queue_server._durable_factory(on, box)
+    backing = factory("default", "default", 8)
+    daemon = queue_server._configure_autotune(on, backing)
+    try:
+        box["daemon"] = daemon
+        named = factory("ns", "q", 8)
+        snap = daemon.snapshot()
+        assert {"fsync_batch_n", "ram_items", "bufpool_min_per_class",
+                "fsync_batch_n:ns/q", "ram_items:ns/q"} <= set(snap)
+        # the explicit --fsync_batch_n pins both fsync dials
+        assert snap["fsync_batch_n"]["pinned"] == snap["fsync_batch_n:ns/q"]["pinned"] == 1
+        assert snap["ram_items:ns/q"]["pinned"] == 0
+    finally:
+        daemon.stop()
+        stop_default_history()
+        backing.log.close()
+        named.log.close()
 
 
 def _error_line(text):

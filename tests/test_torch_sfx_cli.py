@@ -11,9 +11,9 @@ match a peak of the other within 1 px (the SFX tolerance of
 ``tests/test_torch_sfx.py``). In-process: the ``--mode`` and
 ``--features`` refusals and the h5py check come before any queue is
 opened; a fresh run refuses an existing output and a resumed one appends;
-``--max_events`` drains the batch in flight; the obs and profiler flags
-of the JAX CLI are taken, each autotune flag refused naming ROADMAP.md
-Item 8.4, and the cluster
+``--max_events`` drains the batch in flight; the obs, profiler and
+autotune flags of the JAX CLI are taken (``--autotune`` with its JAX
+default, an explicit ``off`` building no daemon), and the cluster
 flags serve a consumer group over two queue servers.
 """
 
@@ -240,8 +240,7 @@ def test_tcp_address_refused_naming_item_8(init_params, tmp_path, address, caplo
     assert "could not open queue" in caplog.text
 
 
-# the JAX CLI's obs, profiler and autotune flags: the obs and profiler flags
-# are taken, the autotune ones refused naming ROADMAP.md Item 8.4
+# the JAX CLI's obs, profiler and autotune flags: each is taken with its value
 OBS_FLAGS = (
     "--metrics_port", "--metrics_host", "--trace_dir", "--trace_sample", "--flight_dir",
     "--history_interval", "--history_samples", "--profile_hz", "--profile_dir", "--autotune",
@@ -250,28 +249,62 @@ OBS_FLAGS = (
 
 
 @pytest.mark.parametrize("flag", OBS_FLAGS)
-def test_obs_autotune_and_cluster_flags_refused_naming_item_8(init_params, tmp_path, flag,
-                                                               capsys):
-    if flag not in sfx.NOT_PORTED_FLAGS:  # ported: taken with its value
+def test_obs_autotune_and_cluster_flags_refused_naming_item_8(init_params, tmp_path, flag):
+    """Every flag is taken with its value (``--autotune`` takes a mode);
+    the autotune pair defaults as the JAX CLI's."""
+    if flag == "--autotune":
+        a = sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag, "observe"))
+        assert a.autotune == "observe"
+        with pytest.raises(SystemExit):  # a mode outside off|on|observe
+            sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag, "1"))
+    else:
         a = sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag, "1"))
         assert str(getattr(a, flag[2:])) in ("1", "1.0")
-        return
-    with pytest.raises(SystemExit) as e:
-        sfx.main(_args(init_params, tmp_path / "x.cxi", flag, "1"))
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP.md Queue 1 Item 8" in err
-    with pytest.raises(SystemExit) as e:  # the bare flag, with no value
-        sfx.parse_args(_args(init_params, tmp_path / "x.cxi", flag))
-    assert e.value.code != 0
-    assert "Item 8" in capsys.readouterr().err
+    d = sfx.parse_args(_args(init_params, tmp_path / "x.cxi"))
+    assert (d.autotune, d.autotune_interval) == ("off", 2.0)
 
 
-def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(init_params,
-                                                                             tmp_path):
-    assert sfx.NOT_PORTED_FLAGS == ("--autotune", "--autotune_interval")
+def test_only_the_autotune_flags_are_refused_and_the_profiler_is_on_by_default(
+        init_params, stream, tmp_path, registry, monkeypatch):
+    """No flag is refused: an explicit ``--autotune off`` runs the stream
+    and builds no daemon, ``on`` builds one (stopped at the run's end)
+    whose registry holds the drain and pool knobs."""
+    from psana_ray_tpu_torch.autotune import daemon
+    from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+    from psana_ray_tpu_torch.obs.timeseries import stop_default_history
+
     a = sfx.parse_args(_args(init_params, tmp_path / "x.cxi"))
     assert a.profile_hz == 97.0 and a.profile_dir is None
+    started = []
+    real = daemon.AutotuneDaemon.start
+    monkeypatch.setattr(daemon.AutotuneDaemon, "start",
+                        lambda self: started.append(self) or real(self))
+    events, calib_npz = stream
+
+    class Sink:
+        max_peaks = 32
+
+        def __init__(self):
+            self.sets = []
+
+        def append(self, sets):
+            self.sets.extend(sets)
+
+    for mode in ("off", "on"):
+        _feed(events[:4], f"tune_{mode}")
+        sink = Sink()
+        args = sfx.parse_args(_args(init_params, tmp_path / f"{mode}.cxi", "--queue_name",
+                                    f"tune_{mode}", "--calib_npz", calib_npz, "--batch", "2",
+                                    "--autotune", mode, "--profile_hz", "0"))
+        try:
+            assert sfx.run(args, writer=sink) == 0
+        finally:
+            stop_default_history()
+        assert len(sink.sets) == 4
+        assert len(started) == (mode == "on")
+    assert started[0]._thread is None
+    knobs = MetricsRegistry.default().snapshot()["autotune"]
+    assert {"drain_chunk", "drain_poll_s", "bufpool_min_per_class"} <= set(knobs)
 
 
 def test_cluster_flags_serve_one_group_member(init_params, stream, tmp_path):
