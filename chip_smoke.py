@@ -20,8 +20,12 @@ killed mid-stream, and config 1 to a consumer group of two; config
 4 traced frame by frame across the producer CLI, the queue server CLI
 and this process, then stalled, and with every one of those processes
 profiled and the profiles merged; config 4 behind the serving gateway
-(overloaded by three tenants, then idle over TCP); and config 3 with
-every process under autotune.
+(overloaded by three tenants, then idle over TCP); config 3 with
+every process under autotune; and the multi-device layer on a one-rank
+NCCL group: the five legs of ``dryrun_multichip``, config 4 through
+``make_infer_step``, the full-width ViT through Ulysses, ring-flash, the
+GPipe pipeline and the switch MoE, and a ViT training step with and
+without ``remat``.
 
 Run from the root of a checkout, with no arguments:
 
@@ -507,6 +511,39 @@ one JSON line (``{"phase": ...}``):
    first capture (``tools/profiler_capture_probe.py``). A capture of 30
    synchronised copies of distinct sizes, one every 2 ms; prints which
    have no device record.
+20. ``multichip`` (before 19; phases 20-22 run on a one-rank NCCL group
+   that this process starts from a ``TCPStore`` on a free localhost port
+   and destroys after them): the five legs of ``dryrun_multichip(1)`` on
+   that group (DP x TP ResNet-18 training, config 4 serving over
+   ``data``, the Ulysses-flash ViT trained and served, the pipelined ViT,
+   the MoE ViT on an ``expert`` axis; the ViT legs at the flash kernel's
+   shapes: bf16, heads of 128, 256 and 1,152 tokens), each checked against
+   its single-device result; K1-K3 and K5-K7 must launch. Then config 4
+   through ``make_infer_step`` on a one-wide ``data`` axis at batch 32:
+   launches +1 ``calib_kernel`` and +16 of each of K2's two and K3's, the
+   logits equal to the ``end_to_end`` step's on the same frames. Prints the
+   ``COLLECTIVES`` counts (by op and backend: ``nccl``, or ``self`` for a
+   ``ppermute`` to one's own rank, a local copy).
+21. ``vit_parallel``: the full-width ViT (8,448 tokens, embed 512, 4 heads
+   of 128, depth 4, bf16) at batch 2 on calibrated frames, through
+   ``ulysses_attention(impl="flash")`` and ``ring_flash_attention`` on a
+   ``("data", "seq")`` (1, 1) mesh, ``vit_pipelined_apply`` (2
+   microbatches) on ``("data", "pipe")`` (1, 1), and ``moe_experts=4``
+   (grouped dispatch, G = ``pick_group_size(8448, 512)``), each against its
+   plain-attention forward (``rel_err < 0.05``), ``flash_kernel`` launched
+   depth x calls (x 2 microbatches for the pipeline) and nothing else;
+   p50 batch ms and peak GiB of 8 timed calls after 2. Then the gradient
+   of ``sum(logits**2)`` through ``ring_flash_attention`` (K5's lse enters
+   the hop combine, so K6/K7 run with an lse cotangent, one launch a
+   layer) against K5's forward with ``attention_bwd_plain`` behind it (the
+   same activations: the bf16 max-pool head makes gradients from another
+   forward tie-sensitive), leaf by leaf (``rel_err < 0.05``).
+22. ``remat``: one ViT training step at batch 4 (SGD at learning rate 0,
+   so each step sees the same weights) with ``remat=False`` and
+   ``remat=True``: step ms and peak GiB of each, the launches (remat runs
+   K5 twice a layer), the gradients' largest relative difference
+   (``< 0.05``); then K6/K7 (``launch_flash_bwd``) against
+   ``attention_bwd_plain`` at the step's shape (``BWD_TOL``).
 
 Phase 6f's capture is the process's first, so the profiling phases (6,
 6g and the other ``*_profile`` phases) run after it.
@@ -516,14 +553,15 @@ raises and exits non-zero before the device line is printed. The
 ``calib_kernel`` launches in the kernels line are those of the three
 serving runs, the shm-fed, TCP-fed, durable-fed, cluster-fed and
 replicated runs, the traced and profiled runs, the gateway's, the
-training runs, the fan-in, the CLIs, the tuned runs and the fold runs
-(phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 8, 11, 14,
-17, 17c, 17d, 17e, 17f, 17g and 18), those of ``conv1x1_kernel``,
-``conv3x3_kernel`` and ``back_kernel`` the ResNet runs' (5, 6b, 6e, 6f,
-6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r and 18), those of
-``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and 17g), the
-``flash_kernel`` launches those of the ViT's serving and training runs;
-every other kernel runs on one path only. Each run sets the counts to 0
+training runs, the fan-in, the CLIs, the tuned runs, the fold runs and
+the multi-device runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p,
+6q, 6r, 8, 11, 14, 17, 17c, 17d, 17e, 17f, 17g, 18 and 20), those of
+``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
+runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 18 and 20),
+those of ``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and
+17g), the ``flash_kernel`` launches those of the ViT's serving and
+training runs (11, 14, 20, 21 and 22), ``flash_bwd_kernel``'s those of
+its training runs (14, 20 and 22). Each run sets the counts to 0
 just before it and reads them just after.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
@@ -5625,6 +5663,278 @@ def phase_gateway_end_to_end(torch, pt, pool, consts, model, params, device, roo
     return {k: overload_counts[k] + idle_counts[k] for k in overload_counts}
 
 
+# -- phases 20-22 ----------------------------------------------------------
+
+VIT_PARALLEL_BATCHES = 8  # timed batches of each vit_parallel form, after 2 warm-up
+VIT_PARALLEL_MICROBATCHES = 2
+VIT_MOE_EXPERTS = 4
+REMAT_STEPS = 3  # timed train steps of each remat setting, after 1 warm-up
+
+
+def check_counts(counts, want, what):
+    """``counts`` (the kernels' launches) against ``want`` for each named
+    kernel, and 0 for every other."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {full}")
+
+
+def step_times(torch, fn, n, warmup=2):
+    """CUDA-event ms of ``n`` calls of ``fn`` after ``warmup`` (each call
+    synchronised), and the peak memory of the timed calls in GiB."""
+    import numpy as np
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return {"p50_ms": float(np.percentile(times, 50)), "min_ms": float(min(times)),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_multichip(torch, pt, timer, pool, consts, src, device):
+    """The five legs of ``dryrun_multichip`` on the one-rank NCCL group this
+    process holds, then config 4 through ``make_infer_step`` on a one-wide
+    ``data`` axis at batch 32 against the ``end_to_end`` step on the same
+    frames."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.parallel import compat
+
+    pt.reset_counters()
+    compat.reset_collectives()
+    t0 = time.monotonic()
+    legs = pt.dryrun_multichip(1)
+    legs_s = time.monotonic() - t0
+    leg_counts = pt.counts()
+    missing = [k for k in ("calib_kernel", "conv1x1_kernel", "conv3x3_kernel", "back_kernel",
+                           "flash_kernel", "flash_bwd_kernel", "flash_bwd_dq_convert")
+               if not leg_counts[k]]
+    if missing:
+        raise AssertionError(f"the dry run's legs launched no {missing}: {leg_counts}")
+    emit("multichip_legs", seconds=legs_s, launches=leg_counts,
+         collectives=legs.pop("collectives"), legs=legs)
+
+    params = pt.pack_fused(pt.resnet_from_flax(
+        pt.init_resnet_params(in_channels=src.spec.panels, seed=0), device=device))
+    ped, gain, mask = consts
+
+    def serve(frames):
+        cal = pt.fused_calibrate(frames, ped, gain, mask, threshold=10.0,
+                                 out_dtype=torch.bfloat16)
+        return pt.resnet_fused_infer(params, pt.panels_to_nhwc(cal))
+
+    mesh = pt.create_mesh(("data",), (1,), device_type=device.type)
+    infer = pt.make_infer_step(serve, mesh)
+    frames = torch.from_numpy(np.stack(pool[:BATCH])).to(device)
+    step = make_step(torch, pt, consts, params)
+    with torch.no_grad():
+        want = step(pt.Batch(frames, *(torch.zeros(BATCH, device=device) for _ in range(4)),
+                             num_valid=BATCH))[0]
+        compat.reset_collectives()
+        pt.reset_counters()
+        got = infer(frames)
+        torch.cuda.synchronize()
+        counts = pt.counts()
+        collectives = compat.collective_counts()
+    check_resnet_counts(counts, 1)
+    if tuple(got.shape) != (BATCH, 2) or not torch.equal(got, want):
+        raise AssertionError(f"make_infer_step's logits differ from the end_to_end step's: "
+                             f"max |diff| {float((got.float() - want.float()).abs().max())}")
+    emit("multichip_infer_step", batch=BATCH, mesh={"data": 1}, logits_equal=True,
+         launches=counts, collectives=collectives,
+         infer_step_ms=timer.ms_cold(lambda: infer(frames), iters=5),
+         end_to_end_step_ms=timer.ms_cold(lambda: serve(frames), iters=5))
+    return {k: leg_counts[k] + counts[k] for k in counts}
+
+
+def phase_vit_parallel(torch, pt, tf, pool, consts, frame_shape, device):
+    """The full-width ViT (8,448 tokens, embed 512, 4 heads of 128, depth
+    4, bf16) served at batch 2 through ``ulysses_attention(impl="flash")``,
+    ``ring_flash_attention``, ``vit_pipelined_apply`` (2 microbatches) and
+    ``moe_experts=4`` on one-wide meshes, each against its plain-attention
+    forward on the same calibrated frames."""
+    import functools
+
+    import numpy as np
+
+    from psana_ray_tpu_torch.parallel import compat
+    from psana_ray_tpu_torch.parallel.moe import pick_group_size
+
+    ped, gain, mask = consts
+
+    def plain_attn(q, k, v):
+        o = tf.attention_with_stats_plain(*(t.transpose(1, 2) for t in (q, k, v)))[0]
+        return o.transpose(1, 2)
+
+    with torch.no_grad():
+        x = pt.fused_calibrate(torch.from_numpy(np.stack(pool[:VIT_BATCH])).to(device), ped, gain,
+                               mask, threshold=10.0, out_dtype=torch.bfloat16)
+    dense = pt.init_vit_params(frame_shape, seed=0)
+    scanned = pt.init_vit_params(frame_shape, seed=0, scan_trunk=True)
+    moe = pt.init_vit_params(frame_shape, seed=0, moe_experts=VIT_MOE_EXPERTS)
+    tokens = dense["embed"]["pos_embed"].shape[1]
+    sp = pt.create_mesh(("data", "seq"), (1, 1), device_type=device.type)
+    pp = pt.create_mesh(("data", "pipe"), (1, 1), device_type=device.type)
+    scan_model = pt.vit_from_flax(scanned, device=device)
+    forms = {
+        "ulysses_flash": (pt.vit_from_flax(dense, device=device, attn_fn=functools.partial(
+            pt.ulysses_attention, mesh=sp, seq_axis="seq", data_axis="data", impl="flash")),
+            dense, VIT_DEPTH),
+        "ring_flash": (pt.vit_from_flax(dense, device=device, attn_fn=functools.partial(
+            pt.ring_flash_attention, mesh=sp, seq_axis="seq", data_axis="data")),
+            dense, VIT_DEPTH),
+        "pipelined": (lambda x: pt.vit_pipelined_apply(
+            scan_model, x, pp, data_axis="data", microbatches=VIT_PARALLEL_MICROBATCHES),
+            dense, VIT_DEPTH * VIT_PARALLEL_MICROBATCHES),
+        "moe": (pt.vit_from_flax(moe, device=device), moe, VIT_DEPTH),
+    }
+    if pick_group_size(tokens, 512) >= tokens:
+        raise AssertionError("the MoE's grouped dispatch is not active")
+    totals = {}
+    for name, (fn, tree, per_batch) in forms.items():
+        with torch.no_grad():
+            ref = pt.vit_from_flax(tree, device=device, attn_fn=plain_attn)(x)
+            compat.reset_collectives()
+            pt.reset_counters()
+            timing = step_times(torch, lambda: fn(x), VIT_PARALLEL_BATCHES)
+            counts = pt.counts()
+            collectives = compat.collective_counts()
+            got = fn(x)
+        torch.cuda.synchronize()
+        calls = VIT_PARALLEL_BATCHES + 2
+        check_counts(counts, {"flash_kernel": per_batch * calls}, f"vit_parallel {name}")
+        err = rel_err(ref, got)
+        if tuple(got.shape) != (VIT_BATCH, 2) or not err < REL_TOL:
+            raise AssertionError(f"vit_parallel {name}: rel_err {err} against the plain path")
+        emit("vit_parallel", form=name, batch=VIT_BATCH, tokens=tokens, calls=calls,
+             launches=counts, collectives=collectives, logits_rel_err=err,
+             logits_max_abs=float(ref.abs().max()),
+             moe_group_size=pick_group_size(tokens, 512) if name == "moe" else None,
+             **timing)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del ref, got
+    # the ring-flash gradient: K5's lse enters the hop combine, so the
+    # backward runs K6/K7 with an lse cotangent; against K5's forward with
+    # the plain backward, so that only the backward differs
+    grads = {}
+    compat.reset_collectives()
+    for name, attn in (("ring_flash", forms["ring_flash"][0].trunk.block0.attn_fn),
+                       ("plain", reference_attention(torch, tf, kernel_forward=True))):
+        model = pt.vit_from_flax(dense, device=device, attn_fn=attn)
+        pt.reset_counters()
+        model(x).float().pow(2).sum().backward()
+        torch.cuda.synchronize()
+        if name == "ring_flash":
+            counts = pt.counts()
+            check_counts(counts, {"flash_kernel": VIT_DEPTH, "flash_bwd_kernel": VIT_DEPTH,
+                                  "flash_bwd_dq_convert": VIT_DEPTH}, "ring_flash gradient")
+            for k, v in counts.items():
+                totals[k] += v
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+    errs = {k: rel_err(grads["plain"][k], grads["ring_flash"][k]) for k in grads["plain"]}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] < REL_TOL:
+        raise AssertionError(f"ring_flash gradient: {worst} rel_err {errs[worst]}")
+    emit("vit_parallel_ring_flash_grad", batch=VIT_BATCH, tokens=tokens,
+         grad_worst_leaf=worst, grad_worst_rel_err=errs[worst],
+         grad_median_rel_err=float(np.median(list(errs.values()))),
+         collectives=compat.collective_counts())
+    return totals
+
+
+def phase_remat(torch, pt, tf, pool, consts, frame_shape, device):
+    """One ViT training step at batch 4 with ``remat=False`` and
+    ``remat=True`` from the same weights (step ms, peak GiB, the gradients'
+    largest relative difference), and K6/K7 against
+    ``attention_bwd_plain`` at the step's shape."""
+    import numpy as np
+
+    ped, gain, mask = consts
+    params = pt.init_vit_params(frame_shape, seed=0)
+    with torch.no_grad():
+        x = pt.fused_calibrate(torch.from_numpy(np.stack(pool[:TRAIN_BATCH])).to(device), ped,
+                               gain, mask, threshold=10.0, out_dtype=torch.bfloat16)
+    aux = (torch.arange(TRAIN_BATCH, device=device) % 2,
+           torch.ones(TRAIN_BATCH, dtype=torch.uint8, device=device))
+    from psana_ray_tpu_torch.parallel import compat
+
+    runs, grads, totals = {}, {}, {}
+    compat.reset_collectives()
+    for remat in (False, True):
+        model = pt.vit_from_flax(params, device=device)
+        # learning rate 0: every step sees the same weights, so the steps'
+        # gradients are one gradient
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = pt.make_train_step(model, opt, lambda lg, a: pt.masked_softmax_xent(lg, *a),
+                                  remat=remat)
+        pt.reset_counters()
+        timing = step_times(torch, lambda: step(x, aux), REMAT_STEPS, warmup=1)
+        counts = pt.counts()
+        n = REMAT_STEPS + 1
+        fwd = VIT_DEPTH * n * (2 if remat else 1)  # the recomputed forward runs K5 again
+        check_counts(counts, {"flash_kernel": fwd, "flash_bwd_kernel": VIT_DEPTH * n,
+                              "flash_bwd_dq_convert": VIT_DEPTH * n}, f"remat={remat}")
+        grads[remat] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        runs["remat" if remat else "plain"] = {**timing, "launches": counts}
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del model, opt, step
+    diff = {k: rel_err(grads[False][k], grads[True][k]) for k in grads[False]}
+    worst = max(diff, key=diff.get)
+    if not diff[worst] < REL_TOL or not all(bool(torch.isfinite(g).all())
+                                            for g in grads[True].values()):
+        raise AssertionError(f"remat gradients differ from the plain step's: {worst} {diff[worst]}")
+    gen = torch.Generator(device=device).manual_seed(3)
+    tokens = params["embed"]["pos_embed"].shape[1]
+    q, k, v, do = (torch.randn(TRAIN_BATCH, 4, tokens, 128, generator=gen, device=device)
+                   .bfloat16() for _ in range(4))
+    o, lse = tf.launch_flash(q, k, v)
+    errs = bwd_errors(tf.launch_flash_bwd(q, k, v, o, lse, do),
+                      tf.attention_bwd_plain(q, k, v, o, lse, do))
+    torch.cuda.synchronize()
+    if not bwd_ok(errs):
+        raise AssertionError(f"K6/K7 disagree with attention_bwd_plain: {errs}")
+    emit("remat", batch=TRAIN_BATCH, steps=REMAT_STEPS, **runs,
+         peak_ratio=runs["remat"]["peak_gib"] / runs["plain"]["peak_gib"],
+         step_ratio=runs["remat"]["p50_ms"] / runs["plain"]["p50_ms"],
+         grad_worst_leaf=worst, grad_worst_rel_err=diff[worst],
+         grad_median_rel_err=float(np.median(list(diff.values()))), bwd_rel_err=errs,
+         collectives=compat.collective_counts())
+    return totals
+
+
+def phase_multi_device(torch, pt, tf, timer, pool, consts, src, device):
+    """Phases 20-22 on a one-rank NCCL group (``TCPStore`` on a free
+    localhost port), destroyed after them."""
+    import torch.distributed as dist
+
+    from psana_ray_tpu_torch.parallel import compat
+
+    from psana_ray_tpu_torch.parallel import mesh
+
+    mesh.init_process_group(0, 1, mesh.free_port(), device=device)
+    try:
+        emit("nccl_group", backend=compat.backend_of(None), world_size=dist.get_world_size(),
+             nccl_version=str(torch.cuda.nccl.version()))
+        multichip = phase_multichip(torch, pt, timer, pool, consts, src, device)
+        vit_parallel = phase_vit_parallel(torch, pt, tf, pool, consts, src.spec.frame_shape,
+                                          device)
+        remat = phase_remat(torch, pt, tf, pool, consts, src.spec.frame_shape, device)
+    finally:
+        dist.destroy_process_group()
+    return {k: multichip[k] + vit_parallel.get(k, 0) + remat.get(k, 0) for k in multichip}
+
+
 def phase_profiler_loss(torch, device, root):
     """A defect of ``torch.profiler`` on the card's machine, measured, not
     gated: a capture of ``LOSS_MARKERS`` host-to-device copies of distinct
@@ -5801,6 +6111,7 @@ def main() -> int:
     cli_sfx_tcp_counts = phase_producer_cli_sfx(pt, root, served, tcp=True)
     tuned_counts = phase_tuned_end_to_end(pt, pool, root, served)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
+    md_counts = phase_multi_device(torch, pt, tf, timer, pool, consts, src, device)
     phase_profiler_loss(torch, device, root)
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -5819,7 +6130,8 @@ def main() -> int:
                      + cluster_failover_counts["calib_kernel"] + repl_counts["calib_kernel"]
                      + repl_failover_counts["calib_kernel"]
                      + observed_counts["calib_kernel"] + profiled_counts["calib_kernel"]
-                     + gateway_counts["calib_kernel"] + tuned_counts["calib_kernel"]),
+                     + gateway_counts["calib_kernel"] + tuned_counts["calib_kernel"]
+                     + md_counts["calib_kernel"]),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -5839,7 +6151,7 @@ def main() -> int:
                          + cluster_counts[name] + cluster_failover_counts[name]
                          + repl_counts[name] + repl_failover_counts[name]
                          + observed_counts[name] + profiled_counts[name]
-                         + gateway_counts[name]),
+                         + gateway_counts[name] + md_counts[name]),
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -5860,7 +6172,8 @@ def main() -> int:
     kernels.append({
         "name": "flash_kernel", "route": "cuda", "source": f"{csrc}/flash.cu",
         "replaces": "psana_ray_tpu/parallel/flash.py:155",
-        "launches": vit_counts["flash_kernel"] + train_counts["flash_kernel"],
+        "launches": (vit_counts["flash_kernel"] + train_counts["flash_kernel"]
+                     + md_counts["flash_kernel"]),
         "max_abs_err": max(r["max_abs_err_o"] for r in flash.values()),
         "ms": VIT_DEPTH * f["ms"], "plain_ms": VIT_DEPTH * f["plain_ms"],
         "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
@@ -5873,7 +6186,7 @@ def main() -> int:
         kernels.append({
             "name": "flash_bwd_kernel", "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
             "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
-            "launches": train_counts["flash_bwd_kernel"],
+            "launches": train_counts["flash_bwd_kernel"] + md_counts["flash_bwd_kernel"],
             "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values() for g in grads),
             "ms": VIT_DEPTH * tb["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
             "bound_ms": VIT_DEPTH * tb["bound_ms"], "bound_by": tb["bound_by"],

@@ -53,7 +53,7 @@ import importlib
 # once (neither loads torch at import), and the function takes its place:
 # ``entry`` bound now, ``train_peaknet`` (the function of ``train.py``, not
 # the CLI module) loaded at first use through ``_EXPORTS``
-from psana_ray_tpu_torch.entry import entry, vit_serve_step
+from psana_ray_tpu_torch.entry import dryrun_multichip, entry, vit_serve_step
 import psana_ray_tpu_torch.train_peaknet  # noqa: E402,F401
 
 del train_peaknet  # noqa: F821 (bound by the import above)
@@ -83,6 +83,7 @@ _EXPORTS = {
     "MaskConfig": "psana_ray_tpu_torch.config",
     "PipelineConfig": "psana_ray_tpu_torch.config",
     "SourceConfig": "psana_ray_tpu_torch.config",
+    "MeshConfig": "psana_ray_tpu_torch.config",
     "TransportConfig": "psana_ray_tpu_torch.config",
     "DataReader": "psana_ray_tpu_torch.consumer",
     "DataReaderError": "psana_ray_tpu_torch.consumer",
@@ -130,6 +131,7 @@ _EXPORTS = {
     "ResNetClassifier": "psana_ray_tpu_torch.models",
     "space_to_depth": "psana_ray_tpu_torch.models",
     "ViTHitClassifier": "psana_ray_tpu_torch.models",
+    "vit_pipelined_apply": "psana_ray_tpu_torch.models",
     "calibrate": "psana_ray_tpu_torch.ops",
     "common_mode": "psana_ray_tpu_torch.ops",
     "fused_calibrate": "psana_ray_tpu_torch.ops",
@@ -137,7 +139,18 @@ _EXPORTS = {
     "warmup_cosine_decay_schedule": "psana_ray_tpu_torch.optim",
     "attention_with_stats": "psana_ray_tpu_torch.parallel",
     "flash_attention": "psana_ray_tpu_torch.parallel",
+    "create_mesh": "psana_ray_tpu_torch.parallel",
+    "create_train_state": "psana_ray_tpu_torch.parallel",
+    "init_sharded": "psana_ray_tpu_torch.parallel",
+    "make_infer_step": "psana_ray_tpu_torch.parallel",
     "make_train_step": "psana_ray_tpu_torch.parallel",
+    "pipeline_apply": "psana_ray_tpu_torch.parallel",
+    "ring_attention": "psana_ray_tpu_torch.parallel",
+    "ring_flash_attention": "psana_ray_tpu_torch.parallel",
+    "ShardingRules": "psana_ray_tpu_torch.parallel",
+    "SwitchMoEMlp": "psana_ray_tpu_torch.parallel",
+    "TrainState": "psana_ray_tpu_torch.parallel",
+    "ulysses_attention": "psana_ray_tpu_torch.parallel",
     "produce": "psana_ray_tpu_torch.producer",
     "produce_synthetic": "psana_ray_tpu_torch.producer",
     "ProducerRuntime": "psana_ray_tpu_torch.producer",
@@ -175,7 +188,7 @@ _EXPORTS = {
     "trace": "psana_ray_tpu_torch.utils.trace",
 }
 
-__all__ = sorted([*_EXPORTS, "entry", "vit_serve_step"])
+__all__ = sorted([*_EXPORTS, "dryrun_multichip", "entry", "vit_serve_step"])
 
 
 def __getattr__(name: str):

@@ -5,17 +5,17 @@ addressing read.
 One set of dataclasses for every component: :class:`SourceConfig` (what
 to read), :class:`MaskConfig` (host-side masking), :class:`TransportConfig`
 (the queue and its rendezvous), :class:`DurabilityConfig` (the queue
-server's segment logs), :class:`LogConfig`, and
-:class:`PipelineConfig` that holds them. The fields keep the JAX
-package's names and defaults (the reference's 13 producer flags among
-them). The JAX package's infeed and mesh sections are not carried: no
-ported component reads them.
+server's segment logs), :class:`MeshConfig` (the device mesh of the
+parallel layer), :class:`LogConfig`, and :class:`PipelineConfig` that
+holds them. The fields keep the JAX package's names and defaults (the
+reference's 13 producer flags among them). The JAX package's infeed
+section is not carried: no ported component reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 class RetrievalMode:
@@ -124,6 +124,17 @@ class DurabilityConfig:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """Device mesh layout of the parallel layer
+    (:func:`psana_ray_tpu_torch.parallel.create_mesh`): ``data`` (batch
+    rows over ranks), ``model`` (tensor sharding within the model)."""
+
+    axis_names: Tuple[str, ...] = ("data", "model")
+    # -1 = infer that axis so prod(shape) == world size
+    axis_shape: Tuple[int, ...] = (-1, 1)
+
+
+@dataclasses.dataclass
 class LogConfig:
     """--log_level and the log line format."""
 
@@ -138,6 +149,7 @@ class PipelineConfig:
     source: SourceConfig = dataclasses.field(default_factory=SourceConfig)
     mask: MaskConfig = dataclasses.field(default_factory=MaskConfig)
     transport: TransportConfig = dataclasses.field(default_factory=TransportConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     log: LogConfig = dataclasses.field(default_factory=LogConfig)
 
     def replace(self, **kw) -> "PipelineConfig":

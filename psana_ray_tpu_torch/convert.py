@@ -35,8 +35,17 @@ U-Nets' (``pallas_unet.py:324-331``, the same for the classic network;
 
 The ViT's (``vit.py:221-263``) keep their names and layouts: a flax path
 ``a/b/leaf`` is the ``state_dict`` key ``a.b.leaf`` (Dense kernels stay
-``[in, out]``), and :func:`vit_to_flax` maps a (trained) port ViT back to
-the flax tree.
+``[in, out]``), also for a scanned trunk (``trunk/blocks/block/...``,
+every leaf stacked along depth) and the MoE blocks (``moe/router``,
+``w_up``, ``b_up``, ``w_dn``, ``b_dn``), and :func:`vit_to_flax` maps a
+(trained) port ViT back to the flax tree.
+
+The port's modules carry no partitioning metadata; :func:`logical_axes`
+gives, in the port's layouts, the logical axes that flax's
+``nn.with_logical_partitioning`` puts on the ResNet's convolutions,
+norms and head (``resnet.py:44-111, 187-193``) and on the MoE experts
+(``moe.py:122-139``; ``layers`` first in a scanned trunk). Every other
+parameter and buffer is unannotated, replicated by ``init_sharded``.
 
 Every leaf must map and every port parameter must be filled, in both
 directions: anything else raises. The kernels' bf16 GEMM layouts are
@@ -74,6 +83,14 @@ _RESNET_BLOCK = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2", "norm1
 _UNET_BLOCK = {"conv1": "Conv_0", "conv2": "Conv_1", "norm1": "{n}_0", "norm2": "{n}_1"}
 _UNET_MERGE = {"merge_up": "merge_up", "merge_skip": "merge_skip", "conv": "Conv_0",
                "norm1": "{n}_0", "norm2": "{n}_1"}
+# flax's logical axes in the port's layouts: a convolution's HWIO
+# ("height", "width", "channels_in", "channels_out") as OIHW, the head's
+# [in, classes] as nn.Linear's [classes, in]
+CONV_AXES = ("channels_out", "channels_in", "height", "width")
+NORM_AXES = ("channels_out",)
+HEAD_AXES = {"head.weight": ("classes", "channels_in"), "head.bias": ("classes",)}
+MOE_AXES = {"w_up": ("expert", "embed", "mlp"), "b_up": ("expert", "mlp"),
+            "w_dn": ("expert", "mlp", "embed"), "b_dn": ("expert", "embed")}
 
 
 def split_variables(tree: Mapping) -> Tuple[Mapping, Mapping]:
@@ -334,11 +351,13 @@ def vit_from_flax(
     input_norm: str = "log1p",
     head_pool: str = "max",
     device: Optional[torch.device] = None,
+    moe_capacity_factor: float = 2.0,
 ) -> ViTHitClassifier:
     """Build the port's :class:`ViTHitClassifier` from a flax ``params``
-    tree. Patch, width, depth, MLP ratio, class and token counts come from
-    the tree; ``num_heads`` cannot (``qkv`` is ``[E, 3E]`` whatever the
-    head count) and is an argument with the flax default."""
+    tree. Patch, width, depth, MLP ratio, class and token counts, a
+    scanned trunk and the experts come from the tree; ``num_heads`` and
+    the MoE capacity factor cannot (``qkv`` is ``[E, 3E]`` whatever the
+    head count) and are arguments with the flax defaults."""
     flat = flatten(params)
     try:
         proj, pos, out = flat["embed/proj/kernel"], flat["embed/pos_embed"], flat["head/out/kernel"]
@@ -349,14 +368,22 @@ def vit_from_flax(
     if patch * patch != proj.shape[0]:
         raise ValueError(f"embed/proj takes {proj.shape[0]} inputs, not a square patch")
     embed_dim = proj.shape[1]
-    depth = 0
-    while f"trunk/block{depth}/qkv/kernel" in flat:
-        depth += 1
-    up = flat.get("trunk/block0/up/kernel")
+    scan = "trunk/blocks/block/qkv/kernel" in flat
+    if scan:
+        block = "trunk/blocks/block"
+        depth = flat[f"{block}/qkv/kernel"].shape[0]
+    else:
+        block, depth = "trunk/block0", 0
+        while f"trunk/block{depth}/qkv/kernel" in flat:
+            depth += 1
+    router = flat.get(f"{block}/moe/router/kernel")
+    up = flat.get(f"{block}/moe/w_up" if router is not None else f"{block}/up/kernel")
     model = ViTHitClassifier(
         pos.shape[1], patch=patch, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-        mlp_ratio=4 if up is None else up.shape[1] // embed_dim, num_classes=out.shape[1],
+        mlp_ratio=4 if up is None else up.shape[-1] // embed_dim, num_classes=out.shape[1],
         dtype=dtype, attn_fn=attn_fn, input_norm=input_norm, head_pool=head_pool,
+        scan_trunk=scan, moe_experts=0 if router is None else router.shape[-1],
+        moe_capacity_factor=moe_capacity_factor,
     )
     load_flax(model, params)
     return _placed(model, device)
@@ -367,3 +394,28 @@ def vit_to_flax(model: ViTHitClassifier) -> Dict[str, dict]:
     port ViT: the inverse of :func:`vit_from_flax`."""
     return unflatten({k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy().copy()
                       for k, v in model.state_dict().items()})
+
+
+def logical_axes(model: torch.nn.Module) -> Dict[str, Tuple[Optional[str], ...]]:
+    """``{state_dict key: logical axes}`` of the annotated parameters of a
+    port ResNet (convolutions, norm scales and biases, the head) or ViT
+    (the MoE experts), in the port's layouts; the others are unannotated."""
+    out: Dict[str, Tuple[Optional[str], ...]] = {}
+    if isinstance(model, ResNetClassifier):
+        for key, t in model.state_dict().items():
+            leaf = key.rsplit(".", 1)[-1]
+            if key in HEAD_AXES:
+                out[key] = HEAD_AXES[key]
+            elif leaf == "weight" and t.dim() == 4:
+                out[key] = CONV_AXES
+            elif leaf in ("scale", "bias"):
+                out[key] = NORM_AXES
+        return out
+    if isinstance(model, ViTHitClassifier):
+        for key in model.state_dict():
+            mod, _, leaf = key.rpartition(".")
+            if mod.endswith(".moe") and leaf in MOE_AXES:
+                scanned = key.startswith("trunk.blocks.")
+                out[key] = (("layers",) if scanned else ()) + MOE_AXES[leaf]
+        return out
+    raise TypeError(f"no logical axes for {type(model).__name__}")

@@ -1,12 +1,15 @@
-"""Entry points: the flagship forward step (calibration + ResNet-50) and
-the ViT hit classifier's serving step (calibration + ViT).
+"""Entry points: the flagship forward step (calibration + ResNet-50),
+the ViT hit classifier's serving step (calibration + ViT) and the
+multi-device dry run.
 
 :func:`entry` mirrors ``__graft_entry__.entry`` of the JAX package: the
 ResNet-50 hit/miss classifier over epix10k2M panel stacks (BASELINE
 config 4), at batch 4 of full frames, with weights from the seeded numpy
 init. :func:`vit_serve_step` is the counterpart of ``infer2`` in the JAX
 package's ``bench.py:_bench_vit``: RAW frames -> ``fused_calibrate`` to
-bf16 -> ``ViTHitClassifier``.
+bf16 -> ``ViTHitClassifier``. :func:`dryrun_multichip` is
+``__graft_entry__.dryrun_multichip``: its five legs
+(:mod:`psana_ray_tpu_torch.parallel.dryrun`) on ``n`` ranks.
 """
 
 from __future__ import annotations
@@ -80,3 +83,34 @@ def vit_serve_step(
         cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
                               out_dtype=torch.bfloat16)
         return model(cal)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """Run the five legs of the multi-device dry run (DP x TP ResNet-18
+    training, config 4 serving over ``data``, Ulysses-flash ViT training
+    and serving, the pipelined ViT, the MoE ViT on an ``expert`` axis) on
+    ``n_devices`` ranks, each leg checked against its single-device
+    result; returns rank 0's results. On the card (the default) one NCCL
+    rank a card, raising when ``n_devices`` exceeds the cards; on
+    ``"cpu"``, ``n_devices`` gloo ranks. Each rank is a ``spawn`` process,
+    except where the default group is up already (a caller that is one
+    rank of its own group, such as a one-rank NCCL group): then the legs
+    run here, on that group."""
+    import torch
+    import torch.distributed as dist
+
+    from psana_ray_tpu_torch.device import resolve_device
+    from psana_ray_tpu_torch.parallel.dryrun import run_legs
+    from psana_ray_tpu_torch.parallel.mesh import run_ranks
+
+    device = resolve_device(device)
+    if device.type == "cuda" and n_devices > torch.cuda.device_count():
+        raise RuntimeError(f"dryrun_multichip({n_devices}) needs a card a rank; "
+                           f"{torch.cuda.device_count()} visible")
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() != n_devices:
+            raise ValueError(f"the default group has {dist.get_world_size()} ranks, not "
+                             f"{n_devices}")
+        return run_legs(device)
+    return run_ranks(n_devices, "psana_ray_tpu_torch.parallel.dryrun:rank_legs", device.type,
+                     device_type=device.type, threads=1 if device.type == "cpu" else None)[0]

@@ -1,7 +1,8 @@
 """Models: the ResNets, the PeakNet-TPU U-Net and the classic PeakNet
 U-Net in every norm kind, the
-BatchNorm fold, their fused kernel paths, the ViT hit classifier, layouts,
-peak extraction, losses and init."""
+BatchNorm fold, their fused kernel paths, the ViT hit classifier (with
+its MoE blocks, scanned trunk and pipelined apply), layouts, peak
+extraction, losses and init."""
 
 from psana_ray_tpu_torch.models.fused_resnet import (
     BlockWeights,
@@ -41,6 +42,7 @@ from psana_ray_tpu_torch.models.resnet import (
 from psana_ray_tpu_torch.models.unet import PeakNetUNet
 from psana_ray_tpu_torch.models.unet_tpu import PeakNetUNetTPU, depth_to_space, space_to_depth
 from psana_ray_tpu_torch.models.vit import (
+    StackedBlocks,
     TransformerBlock,
     ViTHitClassifier,
     patchify_panels,
@@ -58,6 +60,7 @@ __all__ = [
     "ResNet18",
     "ResNet50",
     "ResNetClassifier",
+    "StackedBlocks",
     "TransformerBlock",
     "ViTHitClassifier",
     "conv1x1",

@@ -206,6 +206,26 @@ def _dense(rng: np.random.Generator, fin: int, fout: int, bias: bool = True) -> 
     return out
 
 
+def _experts(rng: np.random.Generator, e: int, d: int, f: int) -> Dict[str, np.ndarray]:
+    """A ``SwitchMoEMlp``'s tree: ``router`` (a Dense), the experts'
+    kernels as variance_scaling(2.0, fan_in, truncated_normal) over fan-in
+    ``E * in`` (flax's fans for ``[E, in, out]``) and biases 0.1*N(0,1)."""
+    return {
+        "router": _dense(rng, d, e),
+        "w_up": _truncated_normal(rng, (e, d, f), np.sqrt(2.0 / (e * d))),
+        "b_up": (0.1 * rng.standard_normal((e, f))).astype(np.float32),
+        "w_dn": _truncated_normal(rng, (e, f, d), np.sqrt(2.0 / (e * f))),
+        "b_dn": (0.1 * rng.standard_normal((e, d))).astype(np.float32),
+    }
+
+
+def _stacked(trees):
+    """The leaves of equally shaped trees stacked along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stacked([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def init_vit_params(
     frame_shape: Tuple[int, int, int] = (16, 352, 384),
     patch: int = 16,
@@ -214,11 +234,16 @@ def init_vit_params(
     mlp_ratio: int = 4,
     num_classes: int = 2,
     seed: int = 0,
+    moe_experts: int = 0,
+    scan_trunk: bool = False,
 ) -> Dict[str, dict]:
     """The ``params`` tree of ``ViTHitClassifier`` for ``[P, H, W]``
     frames: ``embed/{proj, pos_embed}``, ``trunk/block{i}/{LayerNorm_0,
-    qkv, proj, LayerNorm_1, up, down}`` and ``head/{LayerNorm_0, out}``.
-    The head count does not show in the tree (``qkv`` is ``[E, 3E]``)."""
+    qkv, proj, LayerNorm_1, up, down}`` and ``head/{LayerNorm_0, out}``;
+    with ``moe_experts`` a block's ``moe`` takes the place of ``up`` and
+    ``down``, with ``scan_trunk`` the blocks are one ``trunk/blocks/block``
+    whose leaves are stacked along depth. The head count does not show in
+    the tree (``qkv`` is ``[E, 3E]``)."""
     p, h, w = frame_shape
     if h % patch or w % patch:
         raise ValueError(f"frame {h}x{w} is not a whole number of {patch}x{patch} patches")
@@ -232,14 +257,23 @@ def init_vit_params(
         },
         "trunk": {},
     }
-    for i in range(depth):
-        params["trunk"][f"block{i}"] = {
+    blocks = []
+    for _ in range(depth):
+        block = {
             "LayerNorm_0": _affine(rng, e),
             "qkv": _dense(rng, e, 3 * e, bias=False),
             "proj": _dense(rng, e, e, bias=False),
             "LayerNorm_1": _affine(rng, e),
-            "up": _dense(rng, e, mlp_ratio * e),
-            "down": _dense(rng, mlp_ratio * e, e),
         }
+        if moe_experts:
+            block["moe"] = _experts(rng, moe_experts, e, mlp_ratio * e)
+        else:
+            block["up"] = _dense(rng, e, mlp_ratio * e)
+            block["down"] = _dense(rng, mlp_ratio * e, e)
+        blocks.append(block)
+    if scan_trunk:
+        params["trunk"] = {"blocks": {"block": _stacked(blocks)}}
+    else:
+        params["trunk"] = {f"block{i}": b for i, b in enumerate(blocks)}
     params["head"] = {"LayerNorm_0": _affine(rng, e), "out": _dense(rng, e, num_classes)}
     return params

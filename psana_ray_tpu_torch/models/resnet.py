@@ -49,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from psana_ray_tpu_torch.parallel.compat import batch_sum, data_group
+
 _BF16 = torch.bfloat16
 NORMS = ("frozen", "group", "batch", "batch_eval")
 # the flax module name of each kind's norm layers (``FrozenAffine_k``, ...)
@@ -173,7 +175,10 @@ class BatchNorm(nn.Module):
     ``running = 0.9 * running + 0.1 * batch`` (``nn.BatchNorm2d`` would
     take the unbiased variance); ``False`` (``"batch_eval"``) normalizes
     with the running buffers. Statistics and the normalization in f32, the
-    result in the activation dtype."""
+    result in the activation dtype. Where the batch is split over ranks
+    (:func:`~psana_ray_tpu_torch.parallel.compat.data_parallel`) the
+    statistics are the whole batch's, ``E[x]`` and ``E[x^2] - E[x]^2``
+    summed over the group (flax's, over the global batch)."""
 
     def __init__(self, features: int, batch_stats: bool):
         super().__init__()
@@ -188,9 +193,19 @@ class BatchNorm(nn.Module):
         if not self.batch_stats:
             y = F.batch_norm(xf, self.mean, self.var, self.scale, self.bias, False, 0.0, BN_EPS)
             return y.to(x.dtype)
-        y = F.batch_norm(xf, None, None, self.scale, self.bias, True, 0.0, BN_EPS)
+        if data_group() is None:
+            y = F.batch_norm(xf, None, None, self.scale, self.bias, True, 0.0, BN_EPS)
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        else:
+            sums, ranks = batch_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                                 (xf * xf).sum(dim=(0, 2, 3))]))
+            moments = sums / (ranks * xf.numel() / xf.shape[1])
+            mean, var = moments[0], (moments[1] - moments[0] ** 2).clamp_min(0.0)
+            inv = torch.rsqrt(var + BN_EPS) * self.scale
+            y = (xf - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+            mean, var = mean.detach(), var.detach()
         with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
             self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         return y.to(x.dtype)

@@ -24,22 +24,33 @@ Numerics follow flax at ``dtype`` (bf16 by default) with f32 parameters:
 Parameters keep flax's names and layouts (``Dense`` kernels ``[in, out]``),
 so a flax tree maps onto ``state_dict`` by replacing ``/`` with ``.``
 (:func:`psana_ray_tpu_torch.convert.vit_from_flax`). Attention is
-non-causal. The multi-device forms of the reference (``scan_trunk``,
-``vit_pipelined_apply``, MoE blocks) raise ``NotImplementedError``.
+non-causal.
+
+The reference's multi-device forms:
+
+- ``moe_experts=E``: every block's MLP is a
+  :class:`~psana_ray_tpu_torch.parallel.moe.SwitchMoEMlp` named ``moe``;
+- ``scan_trunk=True``: the block parameters are stacked along a leading
+  depth axis under ``trunk.blocks.block`` (flax ``nn.scan``'s
+  ``trunk/blocks/block/...``), and layer ``i`` runs the one block module
+  on the ``i``-th slice (``torch.func.functional_call``);
+- :func:`vit_pipelined_apply`: a scanned trunk served and trained as
+  GPipe stages over a ``pipe`` mesh axis.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from psana_ray_tpu_torch.parallel.flash import flash_attention
 
 _BF16 = torch.bfloat16
-_MULTI_DEVICE = "the multi-device layer (ROADMAP.md Queue 1 item 6)"
 
 
 def _param(*shape) -> nn.Parameter:
@@ -92,7 +103,7 @@ class Dense(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN attention and dense MLP (``vit.py:67-109``)."""
+    """Pre-LN attention and a dense or switch-MoE MLP (``vit.py:67-109``)."""
 
     def __init__(
         self,
@@ -102,11 +113,9 @@ class TransformerBlock(nn.Module):
         dtype: torch.dtype = _BF16,
         attn_fn: Optional[Callable] = None,
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
     ):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(f"moe_experts={moe_experts}: the switch-MoE MLP is part of "
-                                      f"{_MULTI_DEVICE}; only the dense MLP is ported")
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of num_heads {num_heads}")
         e = embed_dim
@@ -116,8 +125,13 @@ class TransformerBlock(nn.Module):
         self.qkv = Dense(e, 3 * e, bias=False, dtype=dtype)
         self.proj = Dense(e, e, bias=False, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(e, dtype)
-        self.up = Dense(e, mlp_ratio * e, dtype=dtype)
-        self.down = Dense(mlp_ratio * e, e, dtype=dtype)
+        if moe_experts:
+            from psana_ray_tpu_torch.parallel.moe import SwitchMoEMlp
+
+            self.moe = SwitchMoEMlp(e, moe_experts, mlp_ratio, moe_capacity_factor, dtype)
+        else:
+            self.up = Dense(e, mlp_ratio * e, dtype=dtype)
+            self.down = Dense(mlp_ratio * e, e, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn = self.attn_fn or flash_attention
@@ -125,8 +139,10 @@ class TransformerBlock(nn.Module):
         h = self.num_heads
         q, k, v = self.qkv(self.LayerNorm_0(x)).reshape(b, s, 3 * h, e // h).split(h, dim=2)
         x = x + self.proj(attn(q, k, v).reshape(b, s, e))
-        y = F.gelu(self.up(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.down(y)
+        y = self.LayerNorm_1(x)
+        if hasattr(self, "moe"):
+            return x + self.moe(y)
+        return x + self.down(F.gelu(self.up(y), approximate="tanh"))
 
 
 class Embed(nn.Module):
@@ -154,19 +170,55 @@ class Embed(nn.Module):
         return x + self.pos_embed.to(self.dtype)
 
 
+class StackedBlocks(nn.Module):
+    """One :class:`TransformerBlock` (``block``) whose parameters carry a
+    leading depth axis; layer ``i`` runs the block on the ``i``-th slice
+    of each (flax ``nn.scan`` over ``_BlockCarry``)."""
+
+    def __init__(self, depth: int, **block_kwargs):
+        super().__init__()
+        self.depth = depth
+        self.block = TransformerBlock(**block_kwargs)
+        for mod in self.block.modules():
+            for name, p in list(mod.named_parameters(recurse=False)):
+                setattr(mod, name, nn.Parameter(p.detach().expand(depth, *p.shape).clone()))
+        self.names = [name for name, _ in self.block.named_parameters()]
+
+    def layer_params(self, params: Optional[Dict[str, torch.Tensor]] = None):
+        """The block's parameters of each layer: ``[{name: slice}]``, from
+        ``params`` (stacked, ``[L, ...]``) or the module's own (read by
+        attribute, so that a ``functional_call`` around the model holds)."""
+        stacked = params if params is not None else {
+            name: functools.reduce(getattr, name.split("."), self.block) for name in self.names}
+        n = next(iter(stacked.values())).shape[0]
+        return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+    def run(self, x: torch.Tensor,
+            params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        for layer in self.layer_params(params):
+            x = functional_call(self.block, layer, (x,))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run(x)
+
+
 class Trunk(nn.Module):
-    """``depth`` blocks named ``block{i}``, applied in order."""
+    """``depth`` blocks named ``block{i}``, applied in order; or, with
+    ``scan``, one :class:`StackedBlocks` named ``blocks``."""
 
     def __init__(self, depth: int, embed_dim: int, num_heads: int, mlp_ratio: int = 4,
                  dtype: torch.dtype = _BF16, attn_fn: Optional[Callable] = None,
-                 scan: bool = False, moe_experts: int = 0):
+                 scan: bool = False, moe_experts: int = 0, moe_capacity_factor: float = 2.0):
         super().__init__()
+        kwargs = dict(embed_dim=embed_dim, num_heads=num_heads, mlp_ratio=mlp_ratio, dtype=dtype,
+                      attn_fn=attn_fn, moe_experts=moe_experts,
+                      moe_capacity_factor=moe_capacity_factor)
         if scan:
-            raise NotImplementedError(f"scan_trunk=True (stacked block params for pipeline "
-                                      f"parallelism) is part of {_MULTI_DEVICE}")
+            self.blocks = StackedBlocks(depth, **kwargs)
+            return
         for i in range(depth):
-            self.add_module(f"block{i}", TransformerBlock(embed_dim, num_heads, mlp_ratio, dtype,
-                                                          attn_fn, moe_experts))
+            self.add_module(f"block{i}", TransformerBlock(**kwargs))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.children():
@@ -216,20 +268,78 @@ class ViTHitClassifier(nn.Module):
         attn_fn: Optional[Callable] = None,
         scan_trunk: bool = False,
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
         input_norm: str = "log1p",
         head_pool: str = "max",
     ):
         super().__init__()
         self.patch = patch
+        self.scan_trunk = scan_trunk
+        self.moe_experts = moe_experts
         self.embed = Embed(patch, embed_dim, num_tokens, dtype, input_norm)
         self.trunk = Trunk(depth, embed_dim, num_heads, mlp_ratio, dtype, attn_fn, scan_trunk,
-                           moe_experts)
+                           moe_experts, moe_capacity_factor)
         self.head = Head(embed_dim, num_classes, dtype, head_pool)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(self.embed(frames)))
 
 
-def vit_pipelined_apply(*args, **kwargs):
-    """The GPipe-pipelined trunk of the reference (``vit.py:297``)."""
-    raise NotImplementedError(f"vit_pipelined_apply is part of {_MULTI_DEVICE}")
+class _RejectUnbalancedMoeTraining(torch.autograd.Function):
+    """Identity whose backward raises (``vit.py:267-294``): a gradient
+    through :func:`vit_pipelined_apply` of an MoE model would train the
+    router without its load-balancing loss."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise ValueError(
+            "training through vit_pipelined_apply with moe_experts>0 silently "
+            "drops the router's load-balancing aux loss (blocks run with only "
+            "'params' bound). Train via the model's forward + "
+            "make_train_step(aux_loss_weight=...) and pipeline at serve time, "
+            "or pass allow_unbalanced_moe=True to accept unbalanced-router "
+            "training explicitly."
+        )
+
+
+def vit_pipelined_apply(
+    model: ViTHitClassifier,
+    frames: torch.Tensor,
+    mesh,
+    pipe_axis: str = "pipe",
+    data_axis: Optional[str] = None,
+    microbatches: Optional[int] = None,
+    allow_unbalanced_moe: bool = False,
+) -> torch.Tensor:
+    """Serve (and train) a ``scan_trunk=True`` ViT with its trunk as GPipe
+    stages over ``mesh[pipe_axis]`` (``vit.py:297-368``): embed and head
+    run on every rank, the trunk's ``depth`` layers split into
+    ``mesh[pipe_axis]`` stages of consecutive layers
+    (:func:`~psana_ray_tpu_torch.parallel.pp.pipeline_apply`). ``frames``
+    are this rank's rows (its data group's, with ``data_axis``). Differentiable: autograd through
+    the pipeline gives the reverse schedule. With ``moe_experts > 0`` a
+    gradient raises unless ``allow_unbalanced_moe``: the blocks' router
+    loss is not surfaced here. The attention must be device-local (the
+    default flash path)."""
+    from psana_ray_tpu_torch.parallel.compat import group_size
+    from psana_ray_tpu_torch.parallel.pp import pipeline_apply, stack_stages
+
+    if not model.scan_trunk:
+        raise ValueError("vit_pipelined_apply needs a scan_trunk=True model "
+                         "(stacked block params)")
+    own = dict(model.named_parameters())
+    prefix = "trunk.blocks.block."
+    x = functional_call(model.embed, {k[len("embed."):]: v for k, v in own.items()
+                                      if k.startswith("embed.")}, (frames,))
+    stacked = stack_stages({k[len(prefix):]: v for k, v in own.items() if k.startswith(prefix)},
+                           group_size(mesh.get_group(pipe_axis)))
+    x = pipeline_apply(lambda p, h: model.trunk.blocks.run(h, p), stacked, x, mesh,
+                       pipe_axis=pipe_axis, microbatches=microbatches, data_axis=data_axis)
+    out = functional_call(model.head, {k[len("head."):]: v for k, v in own.items()
+                                       if k.startswith("head.")}, (x,))
+    guard = model.moe_experts and not allow_unbalanced_moe
+    return _RejectUnbalancedMoeTraining.apply(out) if guard else out

@@ -303,3 +303,62 @@ def flash_attention(
     """Single-device attention in the repo's ``[B, S, H, D]`` layout."""
     o, _ = attention_with_stats(*(t.transpose(1, 2) for t in (q, k, v)), causal=causal)
     return o.transpose(1, 2)
+
+
+def ring_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh,
+    seq_axis: str = "seq",
+    causal: bool = False,
+    data_axis: Optional[str] = None,
+) -> torch.Tensor:
+    """Exact ring attention with a flash hop per K/V block and f32 LSE
+    combining (``flash.py:575-658``), ``[B, S, H, D]`` in the layout of
+    :func:`~psana_ray_tpu_torch.parallel.ring_attention.ring_attention`.
+
+    Each hop is :func:`attention_with_stats` (``flash_kernel`` on the
+    card; its gradient runs ``flash_bwd_kernel`` with the lse cotangent),
+    and the hops combine in f32 with the reference's ``NEG_INF`` guards.
+    Under a causal mask a hop whose K/V block lies wholly in this shard's
+    future is skipped (no kernel), a past block runs unmasked and only the
+    diagonal hop runs masked: the branch is taken on the host, since the
+    source rank of every hop is known there."""
+    from psana_ray_tpu_torch.parallel.compat import (
+        all_gather,
+        axis_index,
+        group_size,
+        keep_in_graph,
+        shard,
+    )
+    from psana_ray_tpu_torch.parallel.ring_attention import _check_axes, rotate
+
+    _check_axes(mesh, seq_axis, data_axis)
+    group = mesh.get_group(seq_axis)
+    n, idx = group_size(group), axis_index(group)
+    qh, kh, vh = (shard(t, group, 1).transpose(1, 2) for t in (q, k, v))  # [B, H, S/P, D]
+    b, h, sq, d = qh.shape
+    mx = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    num = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    den = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for step in range(n):
+        src = (idx - step) % n
+        if causal and src > idx:  # wholly in the future: nothing to add
+            # (K/V stay in the graph: every rank runs every hop's transpose)
+            o_i = keep_in_graph(torch.zeros_like(qh), kh, vh)
+            lse_i = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+        else:
+            o_i, lse_i = attention_with_stats(qh, kh, vh, causal=causal and src == idx)
+        m_new = torch.maximum(mx, lse_i)
+        # exp(NEG_INF - NEG_INF) = 1 would pollute the sums on skipped hops
+        # and before the first contributing one
+        alpha = torch.where(mx <= NEG_INF / 2, torch.zeros_like(mx), torch.exp(mx - m_new))
+        w = torch.where(lse_i <= NEG_INF / 2, torch.zeros_like(lse_i), torch.exp(lse_i - m_new))
+        num = num * alpha[..., None] + o_i.float() * w[..., None]
+        den = den * alpha + w
+        mx = m_new
+        if step + 1 < n:
+            kh, vh = rotate(kh, vh, group)
+    o = (num / den.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return all_gather(o.transpose(1, 2), group, dim=1)

@@ -1,20 +1,220 @@
-"""The single-device training step: counterpart of ``make_train_step`` in
+"""Sharded init, inference and training steps over a mesh: counterpart of
 ``psana_ray_tpu/parallel/steps.py``.
 
-The reference jits ``(state, x, batch_aux) -> (state, loss)`` and donates
-the state so parameters update in place. The port runs eagerly on one
-card: forward, loss, backward (through the flash backward kernels for the
-ViT) and the optimizer step, updating the model's parameters in place.
-Mesh and sharding (``init_sharded``, ``create_train_state``) belong to the
-multi-device layer (ROADMAP.md Queue 1 item 6).
+- :func:`init_sharded` distributes a model's parameters and buffers as
+  DTensors: each annotated parameter (:func:`psana_ray_tpu_torch.convert.logical_axes`)
+  by the :class:`ShardingRules`, everything else replicated. A step
+  gathers each sharded parameter whole for its compute (the port's
+  kernels and convolutions take plain tensors) and keeps its gradient,
+  and the optimizer's state, sharded as the parameter is.
+- :func:`make_infer_step`: the batch's rows over ``data``, the logits
+  gathered back on every rank.
+- :func:`make_train_step`: forward (under ``torch.utils.checkpoint`` with
+  ``remat``), loss, backward and one optimizer step. On a mesh the rows
+  split over ``data``; the logits are gathered so that ``loss_fn`` sees
+  the global batch (its normaliser, the valid count, is global), every
+  rank backpropagates the loss over the world size, and each parameter's
+  gradient is summed over the world: it is the single-device gradient of
+  the global batch's loss, as XLA's sharding propagation gives it in the
+  reference. BatchNorm statistics and the MoE router's loss are taken
+  over the global batch there too (:func:`~psana_ray_tpu_torch.parallel.compat.data_parallel`).
+- :class:`TrainState` and :func:`create_train_state`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+import dataclasses
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from psana_ray_tpu_torch.parallel.compat import (
+    COLLECTIVES,
+    DeviceMesh,
+    DTensor,
+    Replicate,
+    Shard,
+    all_gather,
+    backend_of,
+    block_of,
+    data_parallel,
+    distribute_tensor,
+)
+from psana_ray_tpu_torch.parallel.mesh import local_rows
+from psana_ray_tpu_torch.parallel.moe import _SOWN, collect_intermediates, total_aux_loss
+from psana_ray_tpu_torch.parallel.sharding import ShardingRules
+
+
+def _members(model: nn.Module):
+    """``(module, name, key, is_param)`` of every parameter and buffer."""
+    for prefix, mod in model.named_modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                yield mod, name, f"{prefix}.{name}" if prefix else name, True
+        for name, b in list(mod._buffers.items()):
+            if b is not None:
+                yield mod, name, f"{prefix}.{name}" if prefix else name, False
+
+
+def mesh_of(model: nn.Module) -> Optional[DeviceMesh]:
+    """The mesh of a model :func:`init_sharded` distributed, or ``None``."""
+    for p in model.parameters():
+        if isinstance(p, DTensor):
+            return p.device_mesh
+    return None
+
+
+def init_sharded(
+    model: nn.Module,
+    mesh: DeviceMesh,
+    rules: Optional[ShardingRules] = None,
+) -> nn.Module:
+    """Distribute ``model``'s parameters and buffers over ``mesh`` in place
+    and return it: a parameter that
+    :func:`~psana_ray_tpu_torch.convert.logical_axes` annotates is placed
+    by ``rules``, every other tensor is replicated. Rank 0's values are the
+    ones kept, as one initialisation in the reference."""
+    from psana_ray_tpu_torch.convert import logical_axes
+
+    rules = rules or ShardingRules()
+    try:
+        axes = logical_axes(model)
+    except TypeError:  # a model with no annotated parameter
+        axes = {}
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    for mod, name, key, is_param in _members(model):
+        t = getattr(mod, name)
+        if isinstance(t, DTensor):
+            raise ValueError(f"{key} is distributed already")
+        placements = (rules.placements(axes[key], mesh) if key in axes
+                      else [Replicate()] * mesh.ndim)
+        dt = distribute_tensor(t.detach().to(device), mesh, placements)
+        if is_param:
+            mod._parameters[name] = nn.Parameter(dt, requires_grad=t.requires_grad)
+        else:
+            mod._buffers[name] = dt
+    return model
+
+
+def _whole(p: torch.Tensor) -> torch.Tensor:
+    """A parameter or buffer as one plain tensor: a sharded DTensor
+    gathered (counted as one ``all_gather`` a sharded mesh dim), a
+    replicated one's local tensor (its storage)."""
+    if not isinstance(p, DTensor):
+        return p
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard):
+            COLLECTIVES[f"all_gather/{backend_of(p.device_mesh.get_group(i))}"] += 1
+    if any(isinstance(pl, Shard) for pl in p.placements):
+        return p.full_tensor()
+    return p.to_local()
+
+
+def _state(model: nn.Module):
+    """``(params, buffers)``: leaf tensors holding every parameter whole
+    (gradients land on them) and every buffer's tensor."""
+    params = {k: _whole(p).detach().requires_grad_(p.requires_grad)
+              for k, p in model.named_parameters()}
+    buffers = {k: _whole(b) for k, b in model.named_buffers()}
+    return params, buffers
+
+
+def _reduce_grads(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Sum every parameter's gradient over the world in one ``all_reduce``
+    and keep, as the parameter's ``.grad``, the part of it the parameter's
+    placement gives this rank."""
+    named = [(k, p) for k, p in model.named_parameters() if params[k].grad is not None]
+    if not named:
+        return
+    flat = torch.cat([params[k].grad.reshape(-1).float() for k, _ in named])
+    dist.all_reduce(flat)
+    COLLECTIVES[f"all_reduce/{backend_of(None)}"] += 1
+    off = 0
+    for k, p in named:
+        n = p.numel()
+        g = flat[off:off + n].view(p.shape).to(p.dtype)
+        off += n
+        p.grad = block_of(g, p.device_mesh, p.placements)
+
+
+def _gather_rows(out: Any, group) -> Any:
+    if isinstance(out, (tuple, list)):
+        return type(out)(_gather_rows(o, group) for o in out)
+    return all_gather(out, group, 0)
+
+
+def _data_group(mesh: Optional[DeviceMesh], data_axis: Optional[str]):
+    if mesh is None or data_axis is None or data_axis not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group(data_axis)
+
+
+def make_infer_step(model: Callable, mesh: DeviceMesh, data_axis: str = "data"):
+    """``step(x) -> logits`` without autograd: ``x`` is the global batch
+    (the same on every rank), each rank runs its rows of ``data_axis`` and
+    the outputs are gathered back in row order on every rank. ``model``
+    is a module (distributed by :func:`init_sharded` or not) or any
+    function of the batch."""
+    group = _data_group(mesh, data_axis)
+
+    def step(x: torch.Tensor):
+        xl = local_rows(x, mesh, data_axis)
+        with torch.no_grad(), data_parallel(group):
+            if isinstance(model, nn.Module) and mesh_of(model) is not None:
+                params, buffers = _state(model)
+                out = functional_call(model, {**params, **buffers}, (xl,))
+            else:
+                out = model(xl)
+            return out if group is None else _gather_rows(out, group)
+
+    return step
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The reference's ``(variables, opt_state, step)``: the model (its
+    parameters and buffers, DTensors on a mesh), the optimizer (its state
+    placed as the parameters are) and the count of steps taken (an int32
+    scalar, replicated on a mesh)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: torch.Tensor
+
+
+def create_train_state(
+    model: nn.Module,
+    make_optimizer: Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer],
+    mesh: Optional[DeviceMesh] = None,
+    rules: Optional[ShardingRules] = None,
+) -> TrainState:
+    """Distribute ``model`` over ``mesh`` (:func:`init_sharded`; ``None``:
+    one device), build its optimizer with ``make_optimizer(parameters)``
+    (e.g. ``lambda ps: adamw(ps, schedule)``) and a step count of 0."""
+    step = torch.zeros((), dtype=torch.int32)
+    if mesh is not None:
+        init_sharded(model, mesh, rules)
+        step = distribute_tensor(step.to(next(model.parameters()).device), mesh,
+                                 [Replicate()] * mesh.ndim)
+    return TrainState(model, make_optimizer(model.parameters()), step)
+
+
+@contextlib.contextmanager
+def _recomputing(group):
+    """The context of a checkpointed forward's recomputation: the same
+    data group, and nothing recorded twice."""
+    token = _SOWN.set(None)
+    try:
+        with data_parallel(group):
+            yield
+    finally:
+        _SOWN.reset(token)
 
 
 def make_train_step(
@@ -23,24 +223,75 @@ def make_train_step(
     loss_fn: Callable[[torch.Tensor, Any], torch.Tensor],
     remat: bool = False,
     aux_loss_weight: float = 0.0,
-) -> Callable[[torch.Tensor, Any], torch.Tensor]:
-    """Build ``step(x, batch_aux) -> loss`` (a detached scalar tensor):
-    ``loss_fn(model(x), batch_aux)``, its gradient, one ``optimizer`` step.
-    ``remat`` (recompute activations in the backward) and
-    ``aux_loss_weight > 0`` (the MoE router's load-balancing loss) are not
-    ported."""
-    if remat:
-        raise NotImplementedError("remat=True (activation recomputation) is not ported")
-    if aux_loss_weight:
-        raise NotImplementedError(
-            "aux_loss_weight > 0 needs the MoE blocks of the multi-device layer "
-            "(ROADMAP.md Queue 1 item 6)")
+):
+    """Build ``step(x, batch_aux) -> loss`` (a detached scalar):
+    ``loss_fn(model(x), batch_aux)``, its gradient, one ``optimizer``
+    step. ``step(state, x, batch_aux) -> (state, loss)`` does the same for
+    a :class:`TrainState` of this model and optimizer and counts
+    ``state.step``, as the reference's step does.
 
-    def step(x: torch.Tensor, batch_aux: Any) -> torch.Tensor:
+    ``remat=True`` runs the forward under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes the activations instead of
+    keeping them. Running statistics (BatchNorm's buffers) move once, as
+    ``jax.checkpoint`` moves them: the recomputation's move is undone.
+    ``aux_loss_weight > 0`` adds ``weight * total_aux_loss`` of what the
+    forward recorded (the MoE router's load-balancing loss).
+
+    A model distributed by :func:`init_sharded` trains over its mesh:
+    ``x`` and ``batch_aux`` are the global batch on every rank, the rows
+    split over the mesh's ``data`` axis (see the module docstring)."""
+
+    def _forward(fwd, x, group):
+        sown = contextlib.nullcontext({}) if not aux_loss_weight else \
+            collect_intermediates(model)
+        with sown as inter, data_parallel(group):
+            if remat:
+                out = checkpoint(fwd, x, use_reentrant=False,
+                                 context_fn=lambda: (contextlib.nullcontext(),
+                                                     _recomputing(group)))
+            else:
+                out = fwd(x)
+        return out, inter
+
+    def _step(x: torch.Tensor, batch_aux: Any) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x), batch_aux)
-        loss.backward()
+        mesh = mesh_of(model)
+        group = _data_group(mesh, "data")
+        if mesh is None:
+            params, buffers = None, dict(model.named_buffers())
+            fwd = model
+        else:
+            params, buffers = _state(model)
+            x = local_rows(x, mesh, "data")
+
+            def fwd(x):
+                return functional_call(model, {**params, **buffers}, (x,))
+
+        logits, inter = _forward(fwd, x, group)
+        stats = {k: b.clone() for k, b in buffers.items()} if remat else {}
+        if group is not None:
+            logits = _gather_rows(logits, group)
+        loss = loss_fn(logits, batch_aux)
+        if aux_loss_weight:
+            loss = loss + aux_loss_weight * total_aux_loss(inter).to(loss.device)
+        world = 1 if mesh is None else dist.get_world_size()
+        (loss / world).backward()
+        with torch.no_grad():
+            for k, b in stats.items():  # the recomputation moved them again
+                buffers[k].copy_(b)
+        if mesh is not None:
+            _reduce_grads(model, params)
         optimizer.step()
         return loss.detach()
+
+    def step(*args):
+        if len(args) == 3:
+            state, x, batch_aux = args
+            if state.model is not model or state.optimizer is not optimizer:
+                raise ValueError("the state holds another model or optimizer than this step's")
+            loss = _step(x, batch_aux)
+            state.step += 1
+            return state, loss
+        return _step(*args)
 
     return step

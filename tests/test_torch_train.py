@@ -233,12 +233,18 @@ def test_train_steps_match_jax(rng, dtype, n_steps):
 
 
 def test_train_step_options_not_ported():
-    model = torch.nn.Linear(2, 2)
-    opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="remat"):
-        pt.make_train_step(model, opt, xent, remat=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pt.make_train_step(model, opt, xent, aux_loss_weight=0.01)
+    """``remat`` and ``aux_loss_weight`` are ported (the multi-device
+    layer): on a model that records no router loss the weight adds 0, and
+    a remat step equals a plain one."""
+    losses = []
+    for kw in ({}, {"remat": True}, {"aux_loss_weight": 0.01}):
+        torch.manual_seed(0)
+        model = torch.nn.Linear(2, 2)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        step = pt.make_train_step(model, opt, lambda lg, aux: lg.pow(2).sum(), **kw)
+        losses.append([float(step(torch.ones(3, 2), None)) for _ in range(2)])
+    assert losses[0] == losses[1] == losses[2]
+    assert losses[0][1] < losses[0][0]
 
 
 def test_train_hit_classifier_matches_the_jax_recipe():

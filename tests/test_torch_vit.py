@@ -219,12 +219,14 @@ def test_serving_step_at_the_reference_defaults_runs_on_the_cpu():
 
 
 def test_multi_device_forms_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ViTHitClassifier(64, scan_trunk=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.ViTHitClassifier(64, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv.vit_pipelined_apply(None, None, None, None)
+    """The multi-device forms are ported now (``tests/test_torch_pp.py``,
+    ``tests/test_torch_moe.py`` hold them to JAX): they build, and the
+    pipelined apply still refuses a loop trunk; the argument checks hold."""
+    scanned = pt.ViTHitClassifier(64, scan_trunk=True)
+    assert scanned.trunk.blocks.block.qkv.kernel.shape == (4, 512, 1536)
+    assert pt.ViTHitClassifier(64, moe_experts=4).trunk.block0.moe.w_up.shape == (4, 512, 2048)
+    with pytest.raises(ValueError, match="scan_trunk"):
+        tv.vit_pipelined_apply(pt.ViTHitClassifier(64), None, None)
     with pytest.raises(ValueError, match="input_norm"):
         pt.ViTHitClassifier(64, input_norm="sqrt")
     with pytest.raises(ValueError, match="pool"):
