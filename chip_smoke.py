@@ -23,9 +23,11 @@ profiled and the profiles merged; config 4 behind the serving gateway
 (overloaded by three tenants, then idle over TCP); config 3 with
 every process under autotune; and the multi-device layer on a one-rank
 NCCL group: the five legs of ``dryrun_multichip``, config 4 through
-``make_infer_step``, the full-width ViT through Ulysses, ring-flash, the
-GPipe pipeline and the switch MoE, and a ViT training step with and
-without ``remat``.
+``make_infer_step``, config 4 through the multi-host
+``GlobalStreamConsumer`` (with two detectors through
+``MultiDetectorGlobalConsumer``, and beside a stalled leg), the
+full-width ViT through Ulysses, ring-flash, the GPipe pipeline and the
+switch MoE, and a ViT training step with and without ``remat``.
 
 Run from the root of a checkout, with no arguments:
 
@@ -524,6 +526,25 @@ one JSON line (``{"phase": ...}``):
    logits equal to the ``end_to_end`` step's on the same frames. Prints the
    ``COLLECTIVES`` counts (by op and backend: ``nccl``, or ``self`` for a
    ``ppermute`` to one's own rank, a local copy).
+20b. ``multihost`` (on the same group, after ``multichip``): config 4
+   through ``GlobalStreamConsumer`` on a ``("data",)`` mesh of 1 at local
+   batch 32: a producer thread puts ``3 * 32 + 5`` RAW frames of the pool
+   and an EOS into a ``RingBuffer``; 4 rounds, 101 frames, each round's
+   real rows of logits (a DTensor sharded on ``data``) equal to the
+   ``end_to_end`` step's on the same frames, launches +1 ``calib_kernel``
+   and +16 of each of K2's two and K3's a round. Then epix10k2M (the same
+   ResNet step, 40 frames) and jungfrau4M (K1 alone at batch 8, 20
+   frames, its last round within K1's f32 tolerance of the plain version)
+   through ``MultiDetectorGlobalConsumer``: the rounds in the fixed order,
+   each leg's count exact, launches exact; then the same two beside a
+   silent third leg (``stall_timeout_s=0.5``): the healthy legs finish and
+   ``StreamStalled`` is raised after the loop (the phase expects that
+   exception and no other). Prints the frames and rounds, p50 and p90 of
+   the round time, the host time of one global valid count (its
+   ``all_reduce`` and read-back, apart), a round's parts measured apart
+   (the batcher's copies of 32 frames into a fresh pageable arena, the
+   synchronous copy of that batch to the card, the step's p50), the
+   ``COLLECTIVES`` counts and the launches.
 21. ``vit_parallel``: the full-width ViT (8,448 tokens, embed 512, 4 heads
    of 128, depth 4, bf16) at batch 2 on calibrated frames, through
    ``ulysses_attention(impl="flash")`` and ``ring_flash_attention`` on a
@@ -555,9 +576,9 @@ serving runs, the shm-fed, TCP-fed, durable-fed, cluster-fed and
 replicated runs, the traced and profiled runs, the gateway's, the
 training runs, the fan-in, the CLIs, the tuned runs, the fold runs and
 the multi-device runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p,
-6q, 6r, 8, 11, 14, 17, 17c, 17d, 17e, 17f, 17g, 18 and 20), those of
+6q, 6r, 8, 11, 14, 17, 17c, 17d, 17e, 17f, 17g, 18, 20 and 20b), those of
 ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
-runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 18 and 20),
+runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 18, 20 and 20b),
 those of ``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and
 17g), the ``flash_kernel`` launches those of the ViT's serving and
 training runs (11, 14, 20, 21 and 22), ``flash_bwd_kernel``'s those of
@@ -5756,6 +5777,192 @@ def phase_multichip(torch, pt, timer, pool, consts, src, device):
     return {k: leg_counts[k] + counts[k] for k in counts}
 
 
+MH_EXTRA = 5  # multihost: frames past 3 full batches (an uneven tail on purpose)
+MH_LEGS = (("epix10k2M", 2 * BATCH - 24), ("jungfrau4M", 2 * JUNGFRAU_BATCH + 4))  # frames
+MH_STALL_S = 0.5  # multihost: the silent leg's stall timeout
+
+
+def _mh_produce(pt, ring, frames, n):
+    """A producer thread puts ``n`` frames (``frames`` cycled) and one EOS."""
+    events = ((i, frames[i % len(frames)], 10.0) for i in range(n))
+    thread = threading.Thread(target=pt.produce, args=(events, ring), kwargs={"timeout": 120.0},
+                              daemon=True)
+    thread.start()
+    return thread
+
+
+def _mh_order(rounds):
+    """The fixed round-robin: each leg, in order, while it has rounds."""
+    left, order = dict(rounds), []
+    while any(left.values()):
+        for name in rounds:
+            if left[name]:
+                order.append(name)
+                left[name] -= 1
+    return order
+
+
+def phase_multihost(torch, pt, pool, consts, src, device):
+    """Config 4 through ``GlobalStreamConsumer`` on the one-rank NCCL group:
+    ``3 * BATCH + MH_EXTRA`` frames in 4 rounds, the logits equal to the
+    ``end_to_end`` step's; then epix10k2M (ResNet-50) and jungfrau4M (K1)
+    through ``MultiDetectorGlobalConsumer`` in the fixed order, and the
+    same two beside a silent third leg, whose ``StreamStalled`` is raised
+    after the healthy legs finish."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.infeed import multihost as mh
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+    from psana_ray_tpu_torch.parallel import compat
+
+    t_phase = time.monotonic()
+    params = pt.pack_fused(pt.resnet_from_flax(
+        pt.init_resnet_params(in_channels=src.spec.panels, seed=0), device=device))
+    ped, gain, mask = consts
+
+    def serve(frames):
+        cal = pt.fused_calibrate(frames, ped, gain, mask, threshold=10.0,
+                                 out_dtype=torch.bfloat16)
+        return pt.resnet_fused_infer(params, pt.panels_to_nhwc(cal))
+
+    mesh = pt.create_mesh(("data",), (1,), device_type=device.type)
+    infer = pt.make_infer_step(serve, mesh)
+    frame_shape = tuple(src.spec.frame_shape)
+
+    # 1. one stream, an uneven tail
+    n_frames = 3 * BATCH + MH_EXTRA
+    ring = pt.RingBuffer(maxsize=3 * BATCH)
+    thread = _mh_produce(pt, ring, pool, n_frames)
+    seen, stamps = [], []
+    consumer = pt.GlobalStreamConsumer(ring, local_batch_size=BATCH, mesh=mesh,
+                                       frame_shape=frame_shape, frame_dtype=pool[0].dtype)
+    torch.cuda.synchronize()
+    compat.reset_collectives()
+    pt.reset_counters()
+    t0 = time.monotonic()
+    n_local = consumer.run(lambda b: infer(b.frames), block_until_ready=True,
+                           on_result=lambda out, g: (seen.append((out, g)),
+                                                     stamps.append(time.monotonic())))
+    wall = time.monotonic() - t0
+    counts = pt.counts()
+    collectives = compat.collective_counts()
+    thread.join(timeout=60)
+    ring.close()
+    check_resnet_counts(counts, 4)
+    if n_local != n_frames or len(seen) != 4:
+        raise AssertionError(f"{n_local} frames in {len(seen)} rounds, expected {n_frames} in 4")
+    step = make_step(torch, pt, consts, params)
+    with torch.no_grad():
+        for out, g in seen:
+            frames = g.frames.to_local()
+            want = step(pt.Batch(frames, *(torch.zeros(BATCH, device=device) for _ in range(4)),
+                                 num_valid=BATCH))[0]
+            got = out.to_local()
+            if tuple(got.shape) != (BATCH, 2) or not torch.equal(got[:g.num_valid],
+                                                                 want[:g.num_valid]):
+                raise AssertionError("GlobalStreamConsumer's logits differ from the end_to_end "
+                                     "step's on the same frames")
+    rounds_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+    g = seen[-1][1]
+    mh.global_valid(g)  # warm
+    t1 = time.perf_counter()
+    for _ in range(20):
+        mh.global_valid(g)
+    valid_ms = 1e3 * (time.perf_counter() - t1) / 20
+    del seen
+    # a round's host parts, measured apart (the median of 3): the batcher's
+    # copies of 32 frames into a fresh pageable arena, and the copy of
+    # that batch to the card (make_global_Batch, synchronous)
+    recs = [pt.FrameRecord(0, i, pool[i % len(pool)], 10.0) for i in range(BATCH)]
+    assemble, h2d = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        fb = pt.FrameBatcher(BATCH)
+        local = [fb.push(rec) for rec in recs][-1]
+        t2 = time.perf_counter()
+        mh.make_global_Batch(local, mesh)
+        torch.cuda.synchronize()
+        assemble.append(1e3 * (t2 - t1))
+        h2d.append(1e3 * (time.perf_counter() - t2))
+    parts = {"assemble_ms": float(np.median(assemble)), "h2d_ms": float(np.median(h2d)),
+             "step_ms": consumer.metrics.summary()["p50_ms"], "valid_count_ms": valid_ms}
+
+    # 2. two detectors, streams of different lengths, the fixed order
+    jsrc = pt.SyntheticSource(num_events=4, detector_name="jungfrau4M", seed=0)
+    jpool = [jsrc.event(i, pt.RetrievalMode.RAW)[0] for i in range(4)]
+    jconsts = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        jsrc.pedestal(), jsrc.spec.adu_gain * jsrc.gain_map(), jsrc.create_bad_pixel_mask()))
+    jinfer = pt.make_infer_step(lambda f: pt.fused_calibrate(f, *jconsts, threshold=10.0), mesh)
+    batches = {"epix10k2M": BATCH, "jungfrau4M": JUNGFRAU_BATCH}
+    frames_of = {"epix10k2M": pool, "jungfrau4M": jpool}
+    steps = {"epix10k2M": lambda b: infer(b.frames), "jungfrau4M": lambda b: jinfer(b.frames)}
+
+    def two_legs(silent):
+        rings = {det: pt.RingBuffer(maxsize=3 * batches[det]) for det, _ in MH_LEGS}
+        threads = [_mh_produce(pt, rings[det], frames_of[det], n) for det, n in MH_LEGS]
+        legs = {det: pt.GlobalStreamConsumer(rings[det], local_batch_size=batches[det], mesh=mesh,
+                                             frame_shape=frames_of[det][0].shape,
+                                             frame_dtype=frames_of[det][0].dtype)
+                for det, _ in MH_LEGS}
+        if silent:  # a live producer that sends nothing: no data, no EOS
+            legs["silent"] = pt.GlobalStreamConsumer(
+                pt.RingBuffer(maxsize=4), local_batch_size=JUNGFRAU_BATCH, mesh=mesh,
+                frame_shape=jpool[0].shape, stall_timeout_s=MH_STALL_S)
+        order, got, last = [], {}, {}
+
+        def on_result(name, out, g):
+            order.append(name)
+            got[name] = got.get(name, 0) + g.num_valid
+            last[name] = (out, g)
+
+        torch.cuda.synchronize()
+        pt.reset_counters()
+        t = time.monotonic()
+        stalled = None
+        try:
+            counts = pt.MultiDetectorGlobalConsumer(legs).run(
+                {**steps, "silent": steps["jungfrau4M"]}, on_result=on_result,
+                block_until_ready=True)
+        except pt.StreamStalled as e:  # expected of the silent leg only
+            if not silent:
+                raise
+            stalled, counts = str(e), None
+        seconds = time.monotonic() - t
+        launches = pt.counts()
+        for th in threads:
+            th.join(timeout=60)
+        want = {det: n for det, n in MH_LEGS}
+        rounds = {det: -(-n // batches[det]) for det, n in MH_LEGS}
+        if (got != want or (counts is not None and counts != want) or order != _mh_order(rounds)
+                or (silent and stalled is None)):
+            raise AssertionError(f"legs {got} (run {counts}) in order {order}, stalled "
+                                 f"{stalled!r}: expected {want} in {_mh_order(rounds)}")
+        check_counts(launches, {"calib_kernel": sum(rounds.values()),
+                                **{k: 16 * rounds["epix10k2M"] for k in
+                                   ("conv1x1_kernel", "conv3x3_kernel", "back_kernel")}},
+                     "multihost legs")
+        out, g = last["jungfrau4M"]
+        frames = g.frames.to_local()
+        err = calib_err(torch, out.to_local(), fused_calibrate_plain(frames, *jconsts,
+                                                                     threshold=10.0),
+                        "jungfrau4M leg")
+        return {"order": "".join(d[0] for d in order), "frames": got, "seconds": seconds,
+                "jungfrau_max_abs_err": err, "stalled": stalled}, launches
+
+    legs2, legs2_counts = two_legs(silent=False)
+    legs3, legs3_counts = two_legs(silent=True)
+    emit("multihost", frames=n_local, rounds=len(stamps), batch=BATCH, mesh={"data": 1},
+         logits_equal=True, wall_s=wall,
+         round_ms={"p50": float(np.percentile(rounds_ms, 50)),
+                   "p90": float(np.percentile(rounds_ms, 90)), "all": rounds_ms},
+         valid_count_ms=valid_ms, round_parts=parts, collectives=collectives, launches=counts,
+         host_bytes=consumer.metrics.bytes.count, two_detectors=legs2,
+         two_detectors_launches=legs2_counts, stalled_leg=legs3,
+         stalled_leg_launches=legs3_counts, stall_timeout_s=MH_STALL_S,
+         phase_s=time.monotonic() - t_phase)
+    return {k: counts[k] + legs2_counts[k] + legs3_counts[k] for k in counts}
+
+
 def phase_vit_parallel(torch, pt, tf, pool, consts, frame_shape, device):
     """The full-width ViT (8,448 tokens, embed 512, 4 heads of 128, depth
     4, bf16) served at batch 2 through ``ulysses_attention(impl="flash")``,
@@ -5914,8 +6121,8 @@ def phase_remat(torch, pt, tf, pool, consts, frame_shape, device):
 
 
 def phase_multi_device(torch, pt, tf, timer, pool, consts, src, device):
-    """Phases 20-22 on a one-rank NCCL group (``TCPStore`` on a free
-    localhost port), destroyed after them."""
+    """Phases 20-22 (and 20b) on a one-rank NCCL group (``TCPStore`` on a
+    free localhost port), destroyed after them."""
     import torch.distributed as dist
 
     from psana_ray_tpu_torch.parallel import compat
@@ -5927,12 +6134,14 @@ def phase_multi_device(torch, pt, tf, timer, pool, consts, src, device):
         emit("nccl_group", backend=compat.backend_of(None), world_size=dist.get_world_size(),
              nccl_version=str(torch.cuda.nccl.version()))
         multichip = phase_multichip(torch, pt, timer, pool, consts, src, device)
+        multihost = phase_multihost(torch, pt, pool, consts, src, device)
         vit_parallel = phase_vit_parallel(torch, pt, tf, pool, consts, src.spec.frame_shape,
                                           device)
         remat = phase_remat(torch, pt, tf, pool, consts, src.spec.frame_shape, device)
     finally:
         dist.destroy_process_group()
-    return {k: multichip[k] + vit_parallel.get(k, 0) + remat.get(k, 0) for k in multichip}
+    return {k: multichip[k] + multihost[k] + vit_parallel.get(k, 0) + remat.get(k, 0)
+            for k in multichip}
 
 
 def phase_profiler_loss(torch, device, root):

@@ -98,6 +98,12 @@ _EXPORTS = {
     "InfeedPipeline": "psana_ray_tpu_torch.infeed",
     "PipelineMetrics": "psana_ray_tpu_torch.utils.metrics",
     "StopStream": "psana_ray_tpu_torch.infeed",
+    "StreamStalled": "psana_ray_tpu_torch.infeed",
+    "GlobalStreamConsumer": "psana_ray_tpu_torch.infeed",
+    "MultiDetectorGlobalConsumer": "psana_ray_tpu_torch.infeed",
+    "batch_sharding": "psana_ray_tpu_torch.infeed",
+    "make_global_batch": "psana_ray_tpu_torch.infeed",
+    "make_global_Batch": "psana_ray_tpu_torch.infeed",
     "counts": "psana_ray_tpu_torch.kernels",
     "LAUNCHES": "psana_ray_tpu_torch.kernels",
     "reset_counters": "psana_ray_tpu_torch.kernels",

@@ -47,6 +47,13 @@ from psana_ray_tpu_torch.utils.bufpool import WIRE
 META_DTYPES = (np.uint8, np.int32, np.int64, np.float32)
 
 
+class StreamStalled(RuntimeError):
+    """A stream went silent: no data and no end of stream for longer than
+    the caller's ``max_wait_s``. Apart from :class:`TransportClosed` (the
+    transport is up; nothing feeds it), so that a multi-host consumer can
+    degrade the leg instead of hanging every host's collectives."""
+
+
 class DrainControl:
     """Live dials of :func:`batches_from_queue` (autotune's drain knobs):
     ``chunk`` is the most items a pop takes (None: the batch size) and
@@ -242,6 +249,8 @@ def batches_from_queue(
     n_buffers: int = 0,
     batcher: Optional[FrameBatcher] = None,
     control: Optional[DrainControl] = None,
+    raise_on_stall: bool = False,
+    prefer_stream: bool = True,
 ) -> Iterator[Batch]:
     """Drain a queue into fixed-shape batches until end of stream.
 
@@ -257,9 +266,11 @@ def batches_from_queue(
     ends when the :class:`EosTally` covers every shard, or when the
     transport closes; the padded tail is yielded first. A wedged transport
     (a crashed peer) raises instead. ``max_wait_s`` bounds starvation
-    (None: wait forever; a stream that ends so is a ``stream_stalled``
-    flight-recorder event, one the EOS markers complete ``eos_complete``).
-    ``stop`` (a ``threading.Event``) cancels from
+    (None: wait forever); past it the stream ends, or, with
+    ``raise_on_stall``, raises :class:`StreamStalled` after yielding the
+    pending tail, a ``stream_stalled`` flight-recorder event (a stream the
+    EOS markers complete is ``eos_complete``). ``prefer_stream=False``
+    skips ``get_batch_stream`` (the request/response pull). ``stop`` (a ``threading.Event``) cancels from
     another thread without a flush. ``batcher`` is the
     :class:`FrameBatcher` to fill (default: one with ``n_buffers``, made at
     the first record). ``control`` (a :class:`DrainControl`) makes the pop
@@ -267,8 +278,8 @@ def batches_from_queue(
     """
     starved_since: Optional[float] = None
     tally = EosTally()
-    pop = (getattr(queue, "get_batch_stream", None) or getattr(queue, "get_batch_view", None)
-           or queue.get_batch)
+    pop = ((getattr(queue, "get_batch_stream", None) if prefer_stream else None)
+           or getattr(queue, "get_batch_view", None) or queue.get_batch)
     try:
         while True:
             if stop is not None and stop.is_set():
@@ -296,9 +307,12 @@ def batches_from_queue(
                 now = time.monotonic()
                 starved_since = starved_since if starved_since is not None else now
                 if max_wait_s is not None and now - starved_since >= max_wait_s:
-                    FLIGHT.record("stream_stalled", max_wait_s=max_wait_s)
                     if batcher is not None and (tail := batcher.flush()) is not None:
                         yield tail
+                    if raise_on_stall:
+                        FLIGHT.record("stream_stalled", max_wait_s=max_wait_s)
+                        raise StreamStalled(f"stream silent for {max_wait_s:.1f}s: no data, "
+                                            f"no EOS (producer stalled or unreachable)")
                     return
                 continue
             starved_since = None

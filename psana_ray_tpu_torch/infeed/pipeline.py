@@ -293,10 +293,14 @@ def drive_step(
     step: Callable[[Batch], Any],
     batch: Batch,
     block_until_ready: bool = False,
+    nbytes: Optional[int] = None,
 ):
     """Run one step over a device batch and record frames, bytes and
     latency. ``block_until_ready`` synchronises the batch's stream, making
     the latency a true per-batch device latency instead of enqueue time.
+    ``nbytes`` is the frame bytes to count (default: those of
+    ``batch.frames``); the multi-host loop passes this host's ingest
+    bytes, since a global batch's frames hold every host's.
     A batch's hop stamps end here: per-stage histograms, and spans for the
     traced records."""
     t0 = time.monotonic()
@@ -305,7 +309,8 @@ def drive_step(
         if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
             torch.cuda.current_stream(batch.frames.device).synchronize()
     t1 = time.monotonic()
-    metrics.observe_batch(batch.num_valid, t1 - t0, _frames_nbytes(batch.frames))
+    metrics.observe_batch(batch.num_valid, t1 - t0,
+                          _frames_nbytes(batch.frames) if nbytes is None else nbytes)
     if batch.hops:
         observe_batch_stages(metrics.stages, batch, t1)
         emit_batch_spans(batch, t1)

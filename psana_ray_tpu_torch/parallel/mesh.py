@@ -10,6 +10,18 @@ the default group from an explicit ``TCPStore`` (nothing is read from
 the environment), NCCL on the card, gloo on the CPU, and
 :func:`run_ranks` starts a function on ``n`` such ranks, a ``spawn``
 process each.
+
+Hosts. The reference's *process* (``jax.process_index()``, a host with
+its own ingest) is, in the port, the set of ranks that share one
+coordinate on the ``data`` axis: they hold the same rows of a global
+batch. So a mesh has as many hosts as its ``data`` axis is long,
+:func:`local_batch_slice` divides a global batch by them, and with the
+usual ``("data", "model")`` of shape ``(-1, 1)`` every rank is a host
+that reads its own queue. With ``model > 1`` the first of a host's ranks
+(:func:`host_ranks`) reads the host's queue and broadcasts each local
+batch over :func:`host_group`, as JAX replicates a host's rows
+over its model-axis devices (``psana_ray_tpu_torch.infeed.multihost``).
+A rank's card is ``cuda:local_rank``, its index on its own machine.
 """
 
 from __future__ import annotations
@@ -65,17 +77,21 @@ def init_process_group(
     port: int,
     host: str = "localhost",
     device: Optional[torch.device] = None,
+    local_rank: Optional[int] = None,
 ) -> torch.device:
     """Start the default process group of ``world_size`` ranks, this
     process being ``rank``, over a ``TCPStore`` that rank 0 serves on
-    ``host:port``. ``device`` ``None`` or ``cuda``: NCCL, rank ``r`` on
-    card ``r``; ``cpu``: gloo. Returns the rank's device."""
+    ``host:port``. ``device`` ``None`` or ``cuda``: NCCL, the rank on card
+    ``local_rank`` of its machine (default ``rank``: every rank on one
+    machine); ``cpu``: gloo. Returns the rank's device."""
     device = torch.device("cuda" if device is None else device)
+    local_rank = rank if local_rank is None else local_rank
     if device.type == "cuda":
-        if rank >= torch.cuda.device_count():
-            raise RuntimeError(f"rank {rank} has no card: {torch.cuda.device_count()} visible "
+        if not 0 <= local_rank < torch.cuda.device_count():
+            raise RuntimeError(f"local rank {local_rank} has no card: "
+                               f"{torch.cuda.device_count()} visible on this machine "
                                f"(one NCCL rank a card)")
-        device = torch.device("cuda", rank)
+        device = torch.device("cuda", local_rank)
         torch.cuda.set_device(device)
     timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
     store = dist.TCPStore(host, port, world_size, is_master=rank == 0, timeout=timeout)
@@ -105,16 +121,39 @@ def data_axis_size(mesh: DeviceMesh, data_axis: str = "data") -> int:
     return axis_size(mesh, data_axis)
 
 
+def rank_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on ``mesh``: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def host_ranks(mesh: DeviceMesh, data_axis: str = "data") -> List[int]:
+    """The global ranks of this rank's host (module docstring) in mesh
+    order; the first reads the host's queue."""
+    di = list(mesh.mesh_dim_names).index(data_axis)
+    return mesh.mesh.select(di, mesh.get_local_rank(data_axis)).flatten().tolist()
+
+
+def host_group(mesh: DeviceMesh, data_axis: str = "data"):
+    """The process group of this rank's host: ``None`` when the host is
+    this rank alone, else the group of the mesh's one other axis."""
+    others = [n for n in mesh.mesh_dim_names if n != data_axis]
+    if mesh.mesh.numel() == data_axis_size(mesh, data_axis):
+        return None
+    if len(others) != 1:
+        raise ValueError(f"hosts of several ranks need a mesh of {data_axis!r} and one other "
+                         f"axis, not {list(mesh.mesh_dim_names)}")
+    return mesh.get_group(others[0])
+
+
 def local_batch_slice(global_batch: int, mesh: DeviceMesh, data_axis: str = "data") -> int:
-    """Rows this *process* contributes to a global batch: rows must split
-    evenly over the mesh's data axis and over the processes (one a rank)."""
+    """Rows this *host* contributes to a global batch: rows must split
+    evenly over the mesh's data axis, whose coordinates are the hosts."""
     d = data_axis_size(mesh, data_axis)
     if global_batch % d != 0:
         raise ValueError(f"global batch {global_batch} not divisible by data axis size {d}")
-    n = dist.get_world_size()
-    if global_batch % n != 0:
-        raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
-    return global_batch // n
+    return global_batch // d
 
 
 def local_rows(x: torch.Tensor, mesh: DeviceMesh,

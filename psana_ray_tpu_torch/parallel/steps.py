@@ -8,7 +8,10 @@
   kernels and convolutions take plain tensors) and keeps its gradient,
   and the optimizer's state, sharded as the parameter is.
 - :func:`make_infer_step`: the batch's rows over ``data``, the logits
-  gathered back on every rank.
+  gathered back on every rank; or, for a global batch that is a DTensor
+  sharded on ``data`` (``infeed.multihost.make_global_batch``: each rank
+  holds only its own rows), the rank's rows in and its rows out, as a
+  DTensor sharded the same way, with no gather.
 - :func:`make_train_step`: forward (under ``torch.utils.checkpoint`` with
   ``remat``), loss, backward and one optimizer step. On a mesh the rows
   split over ``data``; the logits are gathered so that ``loss_fn`` sees
@@ -45,7 +48,7 @@ from psana_ray_tpu_torch.parallel.compat import (
     data_parallel,
     distribute_tensor,
 )
-from psana_ray_tpu_torch.parallel.mesh import local_rows
+from psana_ray_tpu_torch.parallel.mesh import local_rows, rank_device
 from psana_ray_tpu_torch.parallel.moe import _SOWN, collect_intermediates, total_aux_loss
 from psana_ray_tpu_torch.parallel.sharding import ShardingRules
 
@@ -86,8 +89,7 @@ def init_sharded(
         axes = logical_axes(model)
     except TypeError:  # a model with no annotated parameter
         axes = {}
-    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
-        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    device = rank_device(mesh)
     for mod, name, key, is_param in _members(model):
         t = getattr(mod, name)
         if isinstance(t, DTensor):
@@ -155,23 +157,73 @@ def _data_group(mesh: Optional[DeviceMesh], data_axis: Optional[str]):
     return mesh.get_group(data_axis)
 
 
+def row_placements(mesh: DeviceMesh, data_axis: str = "data") -> list:
+    """Rows split over ``data_axis``, replicated over every other axis:
+    the reference's ``P(data_axis)``."""
+    return [Shard(0) if n == data_axis else Replicate() for n in mesh.mesh_dim_names]
+
+
+def _row_sharded(x: Any, mesh: DeviceMesh, data_axis: str) -> bool:
+    """Whether ``x`` is a DTensor on ``mesh`` sharded on dim 0 over
+    ``data_axis`` and replicated over every other axis; raises for a
+    DTensor placed any other way."""
+    if not isinstance(x, DTensor):
+        return False
+    if data_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"a DTensor batch needs a {data_axis!r} axis on the step's mesh")
+    want = row_placements(mesh, data_axis)
+    if x.device_mesh != mesh or list(x.placements) != want:
+        raise ValueError(f"a DTensor batch must be {want} on the step's mesh, "
+                         f"not {list(x.placements)} on {x.device_mesh}")
+    return True
+
+
+def shard_rows(out: Any, mesh: DeviceMesh, data_axis: str = "data") -> Any:
+    """This rank's rows of a global result (a tensor, or a tuple or list
+    of them) as DTensors sharded on dim 0 over ``data_axis``, replicated
+    over the other axes. The global shape and stride are given, so
+    ``from_local`` runs no collective (``run_check=False``)."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(shard_rows(o, mesh, data_axis) for o in out)
+    rows = out.shape[0] * mesh.size(list(mesh.mesh_dim_names).index(data_axis))
+    shape = (rows, *out.shape[1:])
+    return DTensor.from_local(out, mesh, row_placements(mesh, data_axis), run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
 def make_infer_step(model: Callable, mesh: DeviceMesh, data_axis: str = "data"):
     """``step(x) -> logits`` without autograd: ``x`` is the global batch
     (the same on every rank), each rank runs its rows of ``data_axis`` and
     the outputs are gathered back in row order on every rank. ``model``
     is a module (distributed by :func:`init_sharded` or not) or any
-    function of the batch."""
+    function of the batch.
+
+    A global batch that is a DTensor sharded on ``data_axis`` (each rank
+    holds its own rows only, as a multi-host consumer does) is not cut
+    again: the rank runs its local rows, and the outputs come back as
+    DTensors sharded the same way, with no gather."""
     group = _data_group(mesh, data_axis)
 
-    def step(x: torch.Tensor):
-        xl = local_rows(x, mesh, data_axis)
+    def run(xl):
         with torch.no_grad(), data_parallel(group):
             if isinstance(model, nn.Module) and mesh_of(model) is not None:
                 params, buffers = _state(model)
-                out = functional_call(model, {**params, **buffers}, (xl,))
-            else:
-                out = model(xl)
-            return out if group is None else _gather_rows(out, group)
+                return functional_call(model, {**params, **buffers}, (xl,))
+            return model(xl)
+
+    def step(x: torch.Tensor):
+        if _row_sharded(x, mesh, data_axis):
+            return shard_rows(run(x.to_local()), mesh, data_axis)
+        out = run(local_rows(x, mesh, data_axis))
+        return out if group is None else _gather_rows(out, group)
 
     return step
 
@@ -203,6 +255,16 @@ def create_train_state(
         step = distribute_tensor(step.to(next(model.parameters()).device), mesh,
                                  [Replicate()] * mesh.ndim)
     return TrainState(model, make_optimizer(model.parameters()), step)
+
+
+def _whole_tree(t: Any) -> Any:
+    """Every DTensor in ``t`` (a tensor, tuple, list or dict) gathered
+    whole: the loss sees the global batch."""
+    if isinstance(t, (tuple, list)):
+        return type(t)(_whole_tree(v) for v in t)
+    if isinstance(t, dict):
+        return {k: _whole_tree(v) for k, v in t.items()}
+    return _whole(t)
 
 
 @contextlib.contextmanager
@@ -239,7 +301,10 @@ def make_train_step(
 
     A model distributed by :func:`init_sharded` trains over its mesh:
     ``x`` and ``batch_aux`` are the global batch on every rank, the rows
-    split over the mesh's ``data`` axis (see the module docstring)."""
+    split over the mesh's ``data`` axis (see the module docstring). ``x``
+    may also be a DTensor sharded on ``data`` (a rank holds its own rows):
+    then it is not cut again, and each DTensor of ``batch_aux`` is
+    gathered whole for the loss."""
 
     def _forward(fwd, x, group):
         sown = contextlib.nullcontext({}) if not aux_loss_weight else \
@@ -262,7 +327,11 @@ def make_train_step(
             fwd = model
         else:
             params, buffers = _state(model)
-            x = local_rows(x, mesh, "data")
+            if _row_sharded(x, mesh, "data"):  # a rank's rows already
+                x = x.to_local()
+                batch_aux = _whole_tree(batch_aux)
+            else:
+                x = local_rows(x, mesh, "data")
 
             def fwd(x):
                 return functional_call(model, {**params, **buffers}, (x,))

@@ -29,7 +29,8 @@ identical dk and dv and dq within one bf16 ulp of its largest value.
 The infeed's pinned batch arenas: pinned, one H2D a batch straight from
 the arena and no host copy beside the batcher's, and no arena rewritten
 while its copy is in flight (a checksum of every staged row); the shm
-ring feeding the pipeline from a producer process. The two-detector
+ring feeding the pipeline from a producer process. ``GlobalStreamConsumer``
+on a one-rank NCCL group, its logits equal to the plain step's. The two-detector
 fan-in with its steps under a side stream (the consumer's stream waits
 for each copy: every frame reads its producer's values), and the
 classic ``PeakNetUNet`` on the card against the CPU (``rel_err <
@@ -719,6 +720,50 @@ def test_pinned_arenas_one_h2d_a_batch_and_no_host_copy(cuda, monkeypatch):
     s = pipe.metrics.summary()
     assert s["arena_copies"] == s["batches"] == 7
     assert s["host_frame_bytes_per_frame"] == 4 * np.prod(shape)  # the batcher's copy, only
+
+
+def test_global_stream_consumer_on_a_one_rank_nccl_group(cuda):
+    """Config 4's chain (K1 to bf16, the fused ResNet) through
+    ``GlobalStreamConsumer`` on a one-rank NCCL group: three rounds of
+    rows (the last one padded), each round's logits a DTensor whose rows
+    equal the plain step's on the same frames, and the valid count through
+    NCCL once a round and once more at the end."""
+    import torch.distributed as dist
+
+    from psana_ray_tpu_torch.parallel import compat
+    from psana_ray_tpu_torch.parallel import mesh as pm
+
+    shape, n, b = (4, 64, 64), 10, 4
+    rng = np.random.default_rng(5)
+    ped, gain = np.full(shape, 100.0, np.float32), np.ones(shape, np.float32)
+    consts = [torch.from_numpy(a).to(cuda) for a in (ped, gain, np.ones(shape, np.uint8))]
+    packed = pt.pack_fused(pt.resnet_from_flax(pt.init_resnet_params(in_channels=4, width=16,
+                                                                      seed=3), device=cuda))
+
+    def serve(frames):
+        cal = pt.fused_calibrate(frames, *consts, threshold=10.0, out_dtype=torch.bfloat16)
+        return pt.resnet_fused_infer(packed, pt.panels_to_nhwc(cal))
+
+    ring = pt.RingBuffer(maxsize=n + 1)
+    pt.produce(((i, (100.0 + 30.0 * rng.random(shape)).astype(np.float32), 9.5)
+                for i in range(n)), ring)
+    pm.init_process_group(0, 1, pm.free_port(), device=cuda)
+    try:
+        mesh = pt.create_mesh(("data",), (1,), device_type="cuda")
+        infer = pt.make_infer_step(serve, mesh)
+        seen = []
+        compat.reset_collectives()
+        consumer = pt.GlobalStreamConsumer(ring, local_batch_size=b, mesh=mesh, frame_shape=shape)
+        assert consumer.run(lambda batch: infer(batch.frames),
+                            on_result=lambda out, g: seen.append((out, g))) == n
+        assert compat.collective_counts() == {"all_reduce/nccl": 4}
+    finally:
+        dist.destroy_process_group()
+    assert [g.num_valid for _, g in seen] == [4, 4, 2]
+    for out, g in seen:
+        assert isinstance(out, compat.DTensor) and out.to_local().is_cuda
+        assert torch.equal(out.to_local(), serve(g.frames.to_local()))
+    assert pt.counts()["calib_kernel"] == 3 + 3
 
 
 def test_an_arena_is_not_rewritten_while_its_copy_is_in_flight(cuda):

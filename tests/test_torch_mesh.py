@@ -164,10 +164,12 @@ def test_sharded_leaves_hold_a_block_a_rank(placed):
 def test_mesh_helpers_on_ranks(placed):
     _, ours = placed
     assert ours[0]["inferred"] == {"data": 2, "model": 2}
-    assert [r["local_batch_slice"] for r in ours] == [4] * 4
-    five, six = ours[0]["local_batch_slice_errors"]
+    # a host is a coordinate on data (two here, of two ranks each): the
+    # reference's processes, each contributing its rows
+    assert [r["local_batch_slice"] for r in ours] == [8] * 4
+    five, six = ours[0]["local_batch_slice_of"]
     assert "global batch 5 not divisible by data axis size 2" in five
-    assert "global batch 6 not divisible by 4 processes" in six
+    assert six == 3
     assert [r["local_rows"] for r in ours] == [[0, 1, 2, 3]] * 2 + [[4, 5, 6, 7]] * 2
 
 

@@ -66,12 +66,12 @@ def mesh_cases(rank, cases):
     mesh = pm.create_mesh(("data", "model"), (-1, 2), device_type="cpu")
     out["inferred"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
     out["local_batch_slice"] = pm.local_batch_slice(16, mesh)
-    out["local_batch_slice_errors"] = []
+    out["local_batch_slice_of"] = []
     for rows in (5, 6):
         try:
-            pm.local_batch_slice(rows, mesh)
+            out["local_batch_slice_of"].append(pm.local_batch_slice(rows, mesh))
         except ValueError as e:
-            out["local_batch_slice_errors"].append(str(e))
+            out["local_batch_slice_of"].append(str(e))
     out["local_rows"] = pm.local_rows(torch.arange(8), mesh).tolist()
     return out
 
@@ -214,3 +214,186 @@ def ring_flash_bf16(rank, q, k, v):
                              causal=True)
     assert o.dtype == torch.bfloat16
     return o.float().numpy()
+
+
+class ScriptedQueue:
+    """A host's queue for the multi-host cases: hands out ``items`` (records
+    and markers) in order, then raises ``then`` (an exception class: a
+    wedge) or, with ``then=None``, goes silent (a stalled producer: no
+    data, no EOS). Both packages' batchers drain it with ``get_batch``."""
+
+    def __init__(self, items, then=None):
+        self.items = list(items)
+        self.then = then
+
+    def get_batch(self, n, timeout=None):
+        import time
+
+        out, self.items = self.items[:n], self.items[n:]
+        if not out:
+            if self.then is not None:
+                raise self.then("peer crashed mid-claim")
+            if timeout:
+                time.sleep(timeout)
+        return out
+
+    def size(self):
+        return len(self.items)
+
+
+def host_items(records, frames, end, eos):
+    """``ScriptedQueue`` items of one host: a record a frame (shard rank,
+    event index, frame, photon energy), then an ``EndOfStream`` when
+    ``end`` is ``"eos"``."""
+    items = [records(r, i, f, 9.5) for r, i, f in frames]
+    return items + ([eos(total_events=len(items))] if end == "eos" else [])
+
+
+def _row_sums(frames):
+    return frames.sum(tuple(range(1, frames.dim())))
+
+
+def masked_rows_step(mesh):
+    """The reference tests' step, the masked per-row frame sums: the mask
+    applied to the global batch (DTensor ops, no collective: both are
+    sharded alike), the sums through ``make_infer_step``."""
+    from psana_ray_tpu_torch.parallel.steps import make_infer_step
+
+    infer = make_infer_step(_row_sums, mesh)
+
+    def step(b):
+        m = b.valid.to(b.frames.dtype).reshape(-1, *[1] * (b.frames.dim() - 1))
+        return infer(b.frames * m)
+
+    return step
+
+
+def _port_host_queue(host, then):
+    from psana_ray_tpu_torch.records import EndOfStream, FrameRecord
+    from psana_ray_tpu_torch.transport.registry import TransportWedged
+
+    return ScriptedQueue(host_items(FrameRecord, host["frames"], host["end"], EndOfStream),
+                         then=TransportWedged if then == "wedge" else None)
+
+
+def multihost_cases(rank, cases):
+    """Each case's ``GlobalStreamConsumer`` (one leg) or
+    ``MultiDetectorGlobalConsumer`` (several) over ``make_infer_step`` of
+    the masked row sums: per leg the rank's rows of every round's output
+    and valid mask, its count, and the type of what the run raised."""
+    from psana_ray_tpu_torch.infeed.multihost import (
+        GlobalStreamConsumer,
+        MultiDetectorGlobalConsumer,
+    )
+    from psana_ray_tpu_torch.parallel import compat
+    from psana_ray_tpu_torch.parallel.mesh import host_ranks
+
+    out = {}
+    for name, (names, shape, local_bs, legs) in cases.items():
+        mesh = _mesh(names, shape)
+        host = mesh.get_local_rank("data")
+        leader = rank == host_ranks(mesh)[0]
+        consumers = {}
+        for leg, (frame_shape, hosts) in legs.items():
+            h = hosts[host]
+            queue = _port_host_queue(h, h["end"]) if leader else None
+            consumers[leg] = GlobalStreamConsumer(queue, local_batch_size=local_bs, mesh=mesh,
+                                                  frame_shape=frame_shape,
+                                                  stall_timeout_s=h.get("stall_s"))
+        step = masked_rows_step(mesh)
+        seen = {leg: [] for leg in legs}
+        compat.reset_collectives()
+        raised = None
+        try:
+            if len(consumers) == 1:
+                (leg, c), = consumers.items()
+                counts = {leg: c.run(step,
+                                     on_result=lambda o, g, leg=leg: seen[leg].append((o, g)))}
+            else:
+                counts = MultiDetectorGlobalConsumer(consumers).run(
+                    {leg: step for leg in legs},
+                    on_result=lambda leg, o, g: seen[leg].append((o, g)))
+        except BaseException as e:  # noqa: BLE001 (its type goes back to the test)
+            raised, counts = type(e).__name__, None
+        out[name] = {
+            "host": host, "raised": raised, "counts": counts,
+            "collectives": compat.collective_counts(),
+            "rows": {leg: [o.to_local().numpy() for o, _ in s] for leg, s in seen.items()},
+            "valid": {leg: [g.valid.to_local().numpy() for _, g in s] for leg, s in seen.items()},
+            "shape": {leg: [tuple(o.shape) for o, _ in s] for leg, s in seen.items()},
+        }
+    return out
+
+
+def multihost_slice(rank, hosts, consts, params, stages, local_bs):
+    """Config 4's chain at a small size (K1 to bf16, ``panels_to_nhwc``, the
+    fused frozen-affine ResNet; K1 to f32 beside it) served through
+    ``GlobalStreamConsumer`` on a ``("data",)`` mesh of the world: this
+    rank's real rows of logits and calibrated frames, by event index."""
+    import psana_ray_tpu_torch as pt
+    from psana_ray_tpu_torch.infeed.multihost import GlobalStreamConsumer
+    from psana_ray_tpu_torch.parallel.steps import make_infer_step
+
+    mesh = _mesh(("data",), (dist.get_world_size(),))
+    packed = pt.pack_fused(pt.resnet_from_flax(params, stages, device="cpu"))
+    ped, gain, mask = (torch.from_numpy(a) for a in consts)
+
+    def serve(frames):
+        cal = pt.fused_calibrate(frames, ped, gain, mask, threshold=10.0,
+                                 out_dtype=torch.bfloat16)
+        cal32 = pt.fused_calibrate(frames, ped, gain, mask, threshold=10.0,
+                                   out_dtype=torch.float32)
+        return pt.resnet_fused_infer(packed, pt.panels_to_nhwc(cal), stages), cal32
+
+    infer = make_infer_step(serve, mesh)
+    rows = {}
+
+    def keep(o, g):
+        logits, cal = (t.to_local() for t in o)
+        for j in range(g.num_valid):
+            rows[int(g.event_idx.to_local()[j])] = (logits[j].float().numpy(), cal[j].numpy())
+
+    h = hosts[rank]
+    c = GlobalStreamConsumer(_port_host_queue(h, None), local_batch_size=local_bs, mesh=mesh,
+                             frame_shape=h["frames"][0][2].shape)
+    n = c.run(lambda b: infer(b.frames), on_result=keep)
+    return {"n_local": n, "rows": rows}
+
+
+def train_from_rows(rank):
+    """One ``make_train_step`` step (SGD) of a small linear model on a
+    ``("data",)`` mesh of the world, fed the global batch on every rank,
+    then each rank's rows as DTensors (``make_global_batch``): the loss
+    and the updated weight of each."""
+    import torch.nn.functional as F
+
+    from psana_ray_tpu_torch.infeed.multihost import make_global_batch
+    from psana_ray_tpu_torch.parallel.steps import create_train_state, make_train_step
+
+    n = dist.get_world_size()
+    mesh = _mesh(("data",), (n,))
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=(2 * n, 6)).astype(np.float32)
+    labels = rng.integers(0, 3, 2 * n)
+    w = rng.normal(size=(3, 6)).astype(np.float32)
+    rows = slice(2 * rank, 2 * rank + 2)
+    out = {}
+    for how in ("global", "rows"):
+        model = torch.nn.Linear(6, 3)
+        with torch.no_grad():
+            model.weight.copy_(torch.from_numpy(w))
+            model.bias.zero_()
+        state = create_train_state(model, lambda ps: torch.optim.SGD(ps, lr=0.1), mesh)
+        step = make_train_step(model, state.optimizer, lambda lg, aux: F.cross_entropy(lg, aux))
+        if how == "global":
+            xs, aux = torch.from_numpy(x), torch.from_numpy(labels)
+        else:
+            xs, aux = make_global_batch(x[rows], mesh), make_global_batch(labels[rows], mesh)
+        state, loss = step(state, xs, aux)
+        out[how] = {"loss": float(loss), "weight": model.weight.to_local().detach().numpy()}
+    return out
+
+
+def two_rank_cases(rank, cases):
+    """``multihost_cases`` and ``train_from_rows`` in one spawn."""
+    return {**multihost_cases(rank, cases), "train": train_from_rows(rank)}
