@@ -38,6 +38,17 @@ one JSON line (``{"phase": ...}``):
 
 1. ``device``: the card's name and count, and ``nvidia-smi``'s name and
    power limit (also printed alone on a line of their own).
+1b. ``lint``: the port's static analysis, before the kernel build, in
+   child processes started with ``-X importtime`` from the checkout's
+   root. ``python -m psana_ray_tpu_torch.lint --json`` must exit 0 with
+   ``clean`` true, all 17 rules run, no ``allowlist-rot`` and every
+   ``.py`` file of the package plus this script scanned; ``python -m
+   psana_ray_tpu_torch.lint --model --json`` must exit 0 with its five
+   protocol models exhausted, no counterexample and no drift. Neither
+   child may import torch or JAX. Prints the files, findings, the full
+   run's seconds (its own ``duration_s`` and the child's wall time) and
+   the models' states. (``--changed`` needs git history, which a
+   ``git archive`` checkout lacks, so it is not run here.)
 2. ``build``: compiles ``psana_ray_tpu_torch/csrc/*.cu`` with ``nvcc``
    (one process per source, all at once) and reports the seconds and each
    kernel's registers and spills from ``-Xptxas -v``, and for each kernel
@@ -610,6 +621,7 @@ from __future__ import annotations
 
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import threading
@@ -711,6 +723,8 @@ PROBE_CONNECTIONS = 16  # durable_end_to_end: connections opened after the run
 TRACE_BATCHES = 4  # stage_trace: ResNet-50 batches under the capture
 LOSS_MARKERS = 30  # profiler_loss: synchronised copies, one every 2 ms
 STARTED = time.monotonic()  # the process's age in stage_trace and profiler_loss
+LINT_RULES = 17  # lint: the registry's rules, every one run over the port
+LINT_MODELS = 5  # lint --model: windowed, stream, durable, chain, fencing
 
 # (class name, block index in ResNet-50, blocks of that class in the network)
 BLOCK_CLASSES = (
@@ -4663,6 +4677,39 @@ def run_clis(root, cmds, timeout=300.0, lead_s=0.0):
     return out, wall
 
 
+def phase_lint(root):
+    """Phase 1b: the linter over the port's tree and its protocol models,
+    each in a child process that must import neither torch nor JAX."""
+    def run(*args):
+        t0 = time.monotonic()
+        out = subprocess.run([sys.executable, "-X", "importtime", "-m", "psana_ray_tpu_torch.lint",
+                              *args], cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.monotonic() - t0
+        heavy = imported_roots(out.stderr) & {"torch", "jax", "jaxlib", "psana_ray_tpu"}
+        if out.returncode != 0 or heavy:
+            raise AssertionError(f"lint {' '.join(args)}: exit {out.returncode}, imported "
+                                 f"{sorted(heavy)}\n{out.stdout[-4000:]}\n{out.stderr[-2000:]}")
+        return json.loads(out.stdout), wall
+
+    full, wall = run("--json")
+    files = len(list(pathlib.Path(root, "psana_ray_tpu_torch").rglob("*.py"))) + 1
+    counts = full["counts_by_checker"]
+    if (not full["clean"] or full["findings"] or len(full["checkers_run"]) != LINT_RULES
+            or counts.get("allowlist-rot") or full["files_scanned"] != files):
+        raise AssertionError(f"lint is not clean over the port's {files} files: {full}")
+    model, model_wall = run("--model", "--json")
+    models = model["models"]
+    if (len(models) != LINT_MODELS or model["drift"]
+            or any(not m["exhausted"] or m["violation"] for m in models)):
+        raise AssertionError(f"lint --model: {model}")
+    emit("lint", clean=True, files=full["files_scanned"], findings=len(full["findings"]),
+         checkers=len(full["checkers_run"]), seconds=full["duration_s"], wall_s=wall,
+         model_states=sum(m["states"] for m in models),
+         models={m["model"]: m["states"] for m in models},
+         model_seconds=sum(m["duration_s"] for m in models), model_wall_s=model_wall,
+         imports_torch=False)
+
+
 def imported_roots(text):
     """The top-level packages a ``-X importtime`` process imported."""
     return {line.rsplit("|", 1)[1].strip().split(".")[0] for line in text.splitlines()
@@ -6214,6 +6261,7 @@ def main() -> int:
     print(smi, flush=True)
     emit("device", kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
+    phase_lint(root)
 
     info = build.build()
     emit("build", seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])

@@ -131,8 +131,9 @@ class ClusterClient:
         self._tenant = tenant
         self._tenant_weight = tenant_weight
         self._lock = threading.RLock()
-        # guarded-by: _lock
-        self._map = PartitionMap.compute(self._addresses, queue_name, n_partitions)
+        self._map = PartitionMap.compute(
+            self._addresses, queue_name, n_partitions
+        )  # guarded-by: _lock
         self._dead: set = set()  # guarded-by: _lock
         self._clients: Dict[int, TcpQueueClient] = {}  # guarded-by: _lock
         # partitions whose owner died: the next dial to the new owner sends
@@ -345,6 +346,7 @@ class ClusterClient:
 
     # -- per-partition plumbing ----------------------------------------------
     def _dial(self, host: str, port: int, **kw) -> TcpQueueClient:
+        # guarded-by-caller: _lock
         return TcpQueueClient(host, port, timeout_s=self._timeout_s, maxsize=self._maxsize,
                               reconnect_tries=self._reconnect_tries,
                               reconnect_base_s=self._reconnect_base_s, codec=self._codec,

@@ -195,6 +195,16 @@ class ReplicaRefused(RuntimeError):
     retries through it."""
 
 
+class _ReplicaSub:
+    """One link's subscription, the client's replica-mode state: the
+    follower's tail when it subscribed."""
+
+    __slots__ = ("tail",)
+
+    def __init__(self, tail: int):
+        self.tail = tail
+
+
 class ReplicaLink:
     """The owner's end of one chain hop: a connection of its own to the
     follower, subscribed ('H') to one replica log, shipping pipelined 'V'
@@ -216,7 +226,7 @@ class ReplicaLink:
             self._codec_names = [codec]
         else:
             self._codec_names = None
-        self.tail: Optional[int] = None  # the follower's tail once subscribed
+        self._stream: Optional[_ReplicaSub] = None  # replica mode, once subscribed
         self._sock = socket.create_connection((host, port), timeout=timeout_s)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
@@ -224,8 +234,8 @@ class ReplicaLink:
         """The 'H' exchange: bind this connection to the follower's replica
         log and learn its tail, where shipping resumes. Raises
         :class:`ReplicaRefused` on '0'."""
-        if self.tail is not None:
-            return self.tail
+        if self._stream is not None:
+            return self._stream.tail
         if self._codec_names:
             self._negotiate()
         ns, nm = self._ns.encode(), self._nm.encode()
@@ -237,8 +247,9 @@ class ReplicaLink:
                 f"follower {self.host}:{self.port} refused the replica subscription for "
                 f"{self._ns}/{self._nm} ({st!r}): no durable backing there, the queue is "
                 f"mounted live, or it was promoted")
-        (self.tail,) = struct.unpack("<Q", _recv_exact(self._sock, 8))
-        return self.tail
+        (tail,) = struct.unpack("<Q", _recv_exact(self._sock, 8))
+        self._stream = _ReplicaSub(tail)
+        return tail
 
     def _negotiate(self) -> None:
         """'Z' on the link: the shipped records travel compressed. Any
@@ -257,7 +268,7 @@ class ReplicaLink:
         """One pipelined 'V' append at ``offset`` with the owner's
         committed floor; acks are read by :meth:`read_ack`. Returns the
         payload's size on the wire."""
-        if self.tail is None:
+        if self._stream is None:
             self.subscribe()
         parts, clease = _wire_encode(item, self._codec, self._pool)
         try:
@@ -292,7 +303,7 @@ class ReplicaLink:
 
     def hang_up(self) -> None:
         """Close the link, with a BYE when subscribed."""
-        if self.tail is not None:
+        if self._stream is not None:
             try:
                 self._sock.sendall(_OP_BYE)
             except OSError:
@@ -725,7 +736,8 @@ class ReplicationManager:
         follower = next_in_chain(self.peers, self.advertise, base, part)
         if follower is None or follower == self.advertise:
             return
-        # lock order: ReplicationManager._lock, then ReplicationSender._lock
+        # lock-order: ReplicationManager._lock -> ReplicationSender._lock
+        # (the sender never calls back into the manager while holding its own)
         with self._lock:
             if self._stop.is_set() or id(queue) in self._senders:
                 return

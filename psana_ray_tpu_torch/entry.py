@@ -14,10 +14,16 @@ bf16 -> ``ViTHitClassifier``. :func:`dryrun_multichip` is
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 
 # torch and the models are imported inside the functions: the package
 # imports this module eagerly, and a producer process must not load torch
+if TYPE_CHECKING:
+    import torch
+
+    from psana_ray_tpu_torch.models.vit import ViTHitClassifier
 
 
 def entry(device=None):

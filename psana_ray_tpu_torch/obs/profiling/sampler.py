@@ -120,7 +120,7 @@ class StackTrie:
         self._n = n + 1
         return n
 
-    def sample(self, frame, on_cpu, tag):
+    def sample(self, frame, on_cpu, tag):  # lint: sample-path
         """Fold one thread's stack (the sampler thread only)."""
         stack = self._stack
         code_of = self._code
@@ -335,7 +335,7 @@ class FlameSampler:
         self._threads.clear()
 
     # -- the sampling loop ------------------------------------------------
-    def _run(self):
+    def _run(self):  # lint: sample-path
         self._own_ident = threading.get_ident()
         period = self.period_s
         nxt = time.monotonic() + period
@@ -355,7 +355,7 @@ class FlameSampler:
                 last_house = now
                 self._housekeep(now)
 
-    def _sample_once(self):
+    def _sample_once(self):  # lint: sample-path
         frames = sys._current_frames()
         trie = self.trie
         own = self._own_ident
@@ -371,7 +371,7 @@ class FlameSampler:
         # drop it, or every sample leaves a cycle for the collector
         frames = None
 
-    def _thread_on_cpu(self, ident):
+    def _thread_on_cpu(self, ident):  # lint: sample-path
         """Did this thread's CPU time advance since its last sample? One
         pread of its cached stat descriptor (procfs rebuilds the file at
         offset 0)."""

@@ -1,3 +1,4 @@
+# lint: hot-path
 """The process's metrics history: a bounded ring of registry snapshots.
 
 The port's copy of ``psana_ray_tpu/obs/timeseries.py``. A
@@ -57,7 +58,7 @@ class SeriesRing:
         self._n = 0  # samples held (saturates at _cap)
         self._i = 0  # next write slot
 
-    def append(self, t: float, v: float) -> None:
+    def append(self, t: float, v: float) -> None:  # lint: sample-path
         i = self._i
         self._t[i] = t
         self._v[i] = v

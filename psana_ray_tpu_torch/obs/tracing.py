@@ -1,3 +1,4 @@
+# lint: hot-path
 """Sampled per-frame distributed tracing across the pipeline's processes.
 
 The port's copy of ``psana_ray_tpu/obs/tracing.py``: where did this frame

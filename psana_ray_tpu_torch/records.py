@@ -152,9 +152,8 @@ class FrameRecord:
         return header, panels.data.cast("B")
 
     def to_bytes(self) -> bytes:
-        buf = bytearray(encoded_size(self))
-        encode_into(self, buf)
-        return bytes(buf)
+        header, payload = self.wire_parts()
+        return header + payload.tobytes()
 
 
 class LazyFrameRecord(FrameRecord):
@@ -396,7 +395,7 @@ def encode_into(item, buf) -> int:
     written."""
     mv = memoryview(buf)
     if isinstance(item, EndOfStream):
-        data = item.to_bytes()
+        data = item.to_bytes()  # header-only, tiny
         mv[: len(data)] = data
         return len(data)
     if not isinstance(item, FrameRecord):

@@ -341,7 +341,8 @@ class SegmentLog:
         for seg in self._segments:
             seg.close()
             os.unlink(seg.path)
-        self._segments = [self._new_segment(offset)]
+        self._segments = []
+        self._segments.append(self._new_segment(offset))
         self._next_offset = offset
 
     # -- read --------------------------------------------------------------

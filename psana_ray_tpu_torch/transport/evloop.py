@@ -1,3 +1,4 @@
+# lint: hot-path
 """The TCP queue server's event loop: one thread, any number of
 connections.
 

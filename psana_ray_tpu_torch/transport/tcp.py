@@ -1158,7 +1158,6 @@ class TcpQueueClient:
 
         with self._lock:
             start, end = self._retrying(_do)
-            self._replay_group = group  # a reconnect resumes at the commit
         # the consumer's own breadcrumb, wherever the server runs
         FLIGHT.record("replay_open", host=self.host, port=self.port, group=group, start=start,
                       end=end)
@@ -1172,7 +1171,9 @@ class TcpQueueClient:
             raise RuntimeError(f"replay refused: queue {self._binding or 'default'} on "
                                f"{self.host}:{self.port} has no segment log (start the server "
                                f"with --durable_dir)")
-        return struct.unpack("<QQ", _recv_exact(self._sock, 16))
+        start_end = struct.unpack("<QQ", _recv_exact(self._sock, 16))
+        self._replay_group = group  # the connection's mode: a reconnect resumes at the commit
+        return start_end
 
     def _resume_replay_raw(self) -> None:
         """After a reconnect: the cursor again, at the group's committed
@@ -1266,14 +1267,15 @@ class TcpQueueClient:
         if side is None:
             ns, nm, ms = self._binding or (None, None, 0)
             codec_arg = self._codec_arg
+            with self._lock:
+                names = self._codec_names
+                put_window = self._put_window
             if self._codec_auto:  # the side channel shares the link: no new probe
-                with self._lock:
-                    names = self._codec_names
                 codec_arg = ",".join(names) if names else None
             side = TcpQueueClient(self.host, self.port, timeout_s=self._timeout_s, namespace=ns,
                                   queue_name=nm, maxsize=ms, reconnect_tries=self._reconnect_tries,
                                   reconnect_base_s=self._reconnect_base_s, pool=self._pool,
-                                  put_window=self._put_window, codec=codec_arg)
+                                  put_window=put_window, codec=codec_arg)
             self._side = side
         return side
 

@@ -205,10 +205,10 @@ class StageTimes:
         self._stats: Dict[str, LatencyStats] = {}  # guarded-by: _lock
 
     def observe(self, stage: str, seconds: float, exemplar: Optional[int] = None):
-        st = self._stats.get(stage)
-        if st is None:
-            with self._lock:
-                st = self._stats.setdefault(stage, LatencyStats())
+        with self._lock:
+            st = self._stats.get(stage)
+            if st is None:
+                st = self._stats[stage] = LatencyStats()
         st.observe(seconds, exemplar=exemplar)
 
     def stat(self, stage: str) -> Optional[LatencyStats]:

@@ -2,8 +2,10 @@
 observations on the same clock give the same ``status_line`` and
 ``snapshot``; the infeed's warm-up, copy counts and ``summary()`` ride on
 the same class; the meters read as integers; and ``RingBuffer.stats()``
-gives the JAX ring's counters."""
+gives the JAX ring's counters; ``StageTimes`` reads its map only under
+its lock."""
 
+import threading
 import time
 
 import pytest
@@ -117,3 +119,39 @@ def test_ring_stats_equal_the_jax_ring(monkeypatch):
     fresh = RingBuffer(2).stats()
     assert fresh["last_put_age_s"] == fresh["last_get_age_s"] == -1.0
     assert metrics.probe_queue_stats(ours) == a
+
+
+def test_stage_times_reads_its_map_only_under_its_lock():
+    """``StageTimes._stats`` is declared ``# guarded-by: _lock``: every
+    lookup, the first observation of a stage included, holds the lock, and
+    concurrent first observations of one stage land in one histogram with
+    none lost."""
+    st = metrics.StageTimes()
+    held = []
+
+    class Watched(dict):
+        def get(self, *args):
+            held.append(st._lock.locked())
+            return super().get(*args)
+
+    st._stats = Watched()
+    st.observe("decode", 0.001)
+    st.observe("decode", 0.002)
+    assert held and all(held), held
+    assert st.stat("decode").snapshot()["count"] == 2
+
+    st = metrics.StageTimes()
+    start = threading.Barrier(8)
+
+    def observe():
+        start.wait()
+        for i in range(500):
+            st.observe(f"s{i % 4}", 1e-3)
+
+    threads = [threading.Thread(target=observe) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert st.stages() == ["s0", "s1", "s2", "s3"]
+    assert sum(st.stat(s).snapshot()["count"] for s in st.stages()) == 8 * 500

@@ -244,6 +244,31 @@ class TestLogReconciliation:
         assert log2.read(100) == {"i": 100}
         log2.close()
 
+    def test_reset_to_after_a_failed_segment_mint_starts_clean(self, tmp_path, monkeypatch):
+        """A reset whose new segment cannot be made (a full disk) leaves no
+        closed, unlinked segment behind: the next reset, and appends after
+        it, work (the JAX package's ``_reset_locked`` empties the ring before
+        it mints, and so does the port's)."""
+        log = self._log(tmp_path)
+        for i in range(5):
+            log.append({"i": i})
+        mint = log._new_segment
+
+        def full_disk(offset):
+            raise OSError(28, "No space left on device")
+
+        monkeypatch.setattr(log, "_new_segment", full_disk)
+        with pytest.raises(OSError):
+            log.reset_to(100)
+        monkeypatch.setattr(log, "_new_segment", mint)
+        log.reset_to(100)
+        assert log.append_at(100, {"i": 100}) == 100
+        assert log.read(100) == {"i": 100}
+        log.close()
+        log2 = self._log(tmp_path)
+        assert log2.next_offset == 101 and log2.read(100) == {"i": 100}
+        log2.close()
+
     def test_append_at_enforces_contiguity(self, tmp_path):
         log = self._log(tmp_path)
         log.append_at(0, {"i": 0})

@@ -215,6 +215,39 @@ def test_lease_and_sync_across_packages(tmp_path, coord_pkg, peer_pkg):
             assert '"g"' in f.read()
 
 
+@pytest.mark.parametrize("codec", [None, "shuffle-rle"])
+def test_a_replica_link_keeps_its_mode_as_the_jax_link_does(tmp_path, codec):
+    """Both packages' ``ReplicaLink`` against one port follower: the link
+    negotiates ('Z', when it has a codec) before it subscribes ('H') and
+    never after, subscribes once however often it is asked, and keeps the
+    subscription as its replica-mode state (``_stream``) exactly as the JAX
+    link does; a second 'H' or a 'Z' on the subscribed connection would be
+    refused there, and the appends after it would fail."""
+    root = str(tmp_path / "f")
+    port = _free_port()
+    peers = [f"127.0.0.1:{port}", "127.0.0.1:1"]
+    srv = _server("port", root, peers, peers[0], port)
+    payload = FrameRecord(0, 0, _frames(1)[0], 1.0)
+    try:
+        tails = {}
+        for pkg, name in (("jax", "q_jax"), ("port", "q_port")):
+            repl = PKG[pkg][1]
+            link = repl.ReplicaLink("127.0.0.1", port, "ns", name, codec=codec)
+            assert link._stream is None
+            assert link.subscribe() == link.subscribe() == 0
+            assert type(link._stream).__name__ == "_ReplicaSub"
+            for off in range(3):
+                link.ship(off, NO_FLOOR, payload if pkg == "port" else JaxRecord(
+                    0, 0, payload.panels, 1.0))
+                assert link.read_ack(5.0) == off
+            assert link.subscribe() == 0
+            tails[pkg] = link._stream.tail
+            link.hang_up()
+        assert tails["port"] == tails["jax"] == 0
+    finally:
+        srv.shutdown()
+
+
 def _replica_exchange(port: int, payload: bytes) -> list:
     """'H', two 'V' (the second a repeat of offset 0: an overlap), BYE; then
     'Y' twice and 'H' again on a second connection: the raw answers."""

@@ -417,6 +417,39 @@ def test_stream_fifo_late_frames_and_side_channel():
         srv.shutdown()
 
 
+def test_side_channel_takes_the_put_window_under_the_lock():
+    """A streamed client's side channel is dialled with the put window
+    read under the client's lock, the lock ``set_put_window`` (the autotune
+    dial) writes it under, as the JAX client's ``_side_channel`` reads it."""
+    q, srv = _mk()
+    try:
+        c = _pushed(q, srv, 0)
+        c.set_put_window(5)
+        held = []
+
+        class Watched(TcpQueueClient):
+            @property
+            def _put_window(self):
+                held.append(self._lock.locked())
+                return self.__dict__["_put_window"]
+
+            @_put_window.setter
+            def _put_window(self, n):
+                self.__dict__["_put_window"] = n
+
+        c.__class__ = Watched
+        try:
+            assert c.put(_rec(0))  # a streamed client's put dials the side channel
+        finally:
+            c.__class__ = TcpQueueClient
+        assert held and all(held), held
+        assert c._side.put_window == 5
+        assert [r.event_idx for r in c.get_batch_stream(1, timeout=2.0)] == [0]
+        c.disconnect()
+    finally:
+        srv.shutdown()
+
+
 def test_stream_credit_window_bounds_pushes():
     q, srv = _mk()
     try:
