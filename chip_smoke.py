@@ -3,7 +3,9 @@
 NVIDIA H100: the calibrated ResNet-50 classifier (also fed by a producer
 process through the shared-memory ring), the SFX Bragg-peak pipeline
 (PeakNet-TPU U-Net), the ViT hit classifier with the flash-attention
-trunk, the ViT's training recipe with the flash backward kernels,
+trunk, the ViT's training recipe with the flash backward kernels, the
+f32 ViT and a ViT of head dim 256 served and trained through the f32
+and wide flash kernels,
 train -> fold -> serve: PeakNet-TPU and ResNet-50 trained with BatchNorm,
 folded into frozen affines and served through the kernels, the
 two-detector fan-in (BASELINE config 5), the SFX operator CLI over
@@ -55,10 +57,15 @@ one JSON line (``{"phase": ...}``):
    whether ``ptxas`` advised that its ``wgmma.mma_async`` instructions
    are serialized or that its ``setmaxnreg`` was ignored. A
    ``build_sm90`` line sums that up for the ``wgmma`` kernels of
-   ``conv_sm90.cu``, ``flash.cu`` and ``flash_bwd.cu``; a spill, a
-   serialization or an ignored ``setmaxnreg`` there fails the run, and so
-   does a launch register count other than 168 in the two that move
-   registers with ``setmaxnreg``.
+   ``conv_sm90.cu``, ``flash.cu``, ``flash_bwd.cu``, ``flash_wide.cu`` and
+   ``flash_bwd_wide.cu``; a spill, a serialization or an ignored
+   ``setmaxnreg`` there fails the run, and so does a launch register count
+   other than 168 in the two that move registers with ``setmaxnreg``
+   (``conv_sm90.cu``, ``flash.cu``). A ``build_f32`` line gives
+   ``flash_f32.cu``'s kernels' registers and spills and counts, in their
+   machine code (``cuobjdump -sass``), the FFMA instructions and the
+   tensor-core ones (``HMMA``, ``HGMMA``, any TF32 operand): a spill, a
+   tensor-core instruction or no FFMA fails the run.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
    f32 RAW frames from ``SyntheticSource`` with f32 and bf16 output, the
    same frames as uint16 ADUs with bf16 output, and ``[8, 8, 512, 1024]``
@@ -381,7 +388,17 @@ one JSON line (``{"phase": ...}``):
    zeros, and attention that ignores the scores (the mean of the allowed
    values, ``lse = log(keys)``). With kernel, plain and library
    (``F.scaled_dot_product_attention``) times and the bound of the work
-   each case needs.
+   each case needs. Then the other variants of K5 (``VARIANT_CASES``):
+   ``flash_wide_kernel`` (bf16) and ``flash_f32_kernel`` at every head
+   dim of 128 to 1024 (B 2, H 4, S 1024; bf16 at 128 is ``flash_kernel``
+   again), a causal case and an uneven one (Sq 256, Sk 768) at head dim
+   256 in each dtype, and the serving shapes of ``vit_f32`` (f32, B 2, H
+   4, D 128, S 8448) and ``vit_wide`` (bf16, B 2, H 2, D 256), each held
+   the same way (f32 at the JAX package's f32 tolerances: ``o`` 2e-5,
+   ``lse`` 1e-4, each 1e-4 of its scale), both controls rejected. Each
+   row names its Hopper kernel and the SDPA backend its library time
+   used; the bound counts the function's work at its dtype's peak (989
+   TFLOP/s bf16, 67 f32), not the kernels' recompute of the scores.
 11. ``vit_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
    events; ``InfeedPipeline(batch_size=2, prefetch_depth=2,
    batcher_buffers=6)`` -> ``vit_serve_step`` (``calib_kernel`` to bf16 ->
@@ -414,7 +431,11 @@ one JSON line (``{"phase": ...}``):
    backward of ``F.scaled_dot_product_attention`` from a saved forward,
    one call for the three), and the bound of the five products the
    function needs, with that of the seven of a two-kernel design beside
-   it.
+   it. Then ``flash_bwd_wide_kernel`` (bf16, then ``flash_bwd_dq_convert``)
+   and ``flash_bwd_f32_kernel`` (f32, dq summed straight in f32: no
+   rounding launch) in the cases of ``VARIANT_CASES``, each with an lse
+   cotangent, held the same way (f32: ``<= 1e-4`` of each gradient's
+   scale; the repeat's dq within 2**-16 of its largest value).
 14. ``vit_train``: the training recipe of the JAX package's
    ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
    epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
@@ -434,6 +455,20 @@ one JSON line (``{"phase": ...}``):
    training frames/s, peak memory, the first and last 20-step mean
    loss, and accuracy on 16 held-out events through ``vit_serve_step``.
 15. ``vit_train_profile``: 4 more train steps under ``torch.profiler``.
+15b. ``vit_f32`` and 15c. ``vit_wide``: the full-width ViT (patch 16,
+   embed 512, depth 4, 8448 tokens) in f32 with 4 heads of 128 and in
+   bf16 with 2 heads of 256. Each is served through the infeed as in 11
+   (batch 2, 6 warm-up and 8 timed batches; ``vit_serve_step``
+   calibrates to the model's dtype): +1 ``calib_kernel`` and +4
+   ``flash_kernel`` a batch, all of them its variant (``flash_f32_kernel``
+   or ``flash_wide_kernel``), the last batch's logits against the plain
+   path (``rel_err < 1e-4`` in f32, ``< 0.05`` in bf16). Then one train
+   step's parity from the same init against the plain attention (f32: the
+   loss and the whole gradient within 1e-4; bf16: as 14), and 12 steps of
+   the recipe's loss and AdamW at batch 2 on 16 labelled events
+   calibrated to the model's dtype: +4 ``flash_kernel`` and +4
+   ``flash_bwd_kernel`` a step (their variants), +4
+   ``flash_bwd_dq_convert`` in bf16 and none in f32, the losses finite.
 16. ``narrow``: models narrower than the kernels' 64-channel quantum run
    through the kernels on zero-padded channels: ResNet-50 at width 16
    on ``[2, 64, 64, 4]`` (+16 ``conv1x1_kernel``, +16 ``conv3x3_kernel``,
@@ -529,9 +564,12 @@ one JSON line (``{"phase": ...}``):
    and destroys after them): the five legs of ``dryrun_multichip(1)`` on
    that group (DP x TP ResNet-18 training, config 4 serving over
    ``data``, the Ulysses-flash ViT trained and served, the pipelined ViT,
-   the MoE ViT on an ``expert`` axis; the ViT legs at the flash kernel's
-   shapes: bf16, heads of 128, 256 and 1,152 tokens), each checked against
-   its single-device result; K1-K3 and K5-K7 must launch. Then config 4
+   the MoE ViT on an ``expert`` axis; the ViT legs in f32, the
+   reference's dtype, at the flash kernels' shapes: heads of 128, 256
+   and 1,152 tokens), each checked against its single-device result (the
+   ViT legs at the reference's f32 tolerances); K1-K3 and K5-K7 must
+   launch, every attention launch of the legs ``flash_f32_kernel`` and
+   ``flash_bwd_f32_kernel``. Then config 4
    through ``make_infer_step`` on a one-wide ``data`` axis at batch 32:
    launches +1 ``calib_kernel`` and +16 of each of K2's two and K3's, the
    logits equal to the ``end_to_end`` step's on the same frames. Prints the
@@ -591,10 +629,14 @@ the multi-device runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p,
 ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
 runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 18, 20 and 20b),
 those of ``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and
-17g), the ``flash_kernel`` launches those of the ViT's serving and
-training runs (11, 14, 20, 21 and 22), ``flash_bwd_kernel``'s those of
-its training runs (14, 20 and 22). Each run sets the counts to 0
-just before it and reads them just after.
+17g, and 15b and 15c), the ``flash_kernel`` launches those of the bf16
+head-dim-128 ViT's serving and training runs (11, 14, 21 and 22),
+``flash_bwd_kernel``'s those of its training runs (14 and 22), the
+``flash_f32_kernel`` and ``flash_bwd_f32_kernel`` ones those of 15b and
+of the dry run's f32 legs (20), ``flash_wide_kernel`` and
+``flash_bwd_wide_kernel`` those of 15c, each from the tally by variant
+(``pt.variant_counts()``). Each run sets the counts to 0 just before it
+and reads them just after.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
 it, after warm-up, with the card kept busy (a spin of about a
@@ -608,13 +650,15 @@ path (each block class's time times the number of blocks of that class);
 for ``conv_block_kernel`` the 8 launches of one SFX batch; for
 ``flash_kernel`` one batch is 4 launches at the serving shape, and for
 ``flash_bwd_kernel``, which both K6's and K7's rows name, one train step
-is 4 launches of the pair (kernel and dq rounding) at the training shape
+is 4 launches of the pair (kernel and dq rounding) at the training shape;
+for the wide and f32 kernels the same at their ViT's shape, batch 2
 (``plain_ms`` is the plain version's one call for dq, dk and dv;
 ``library_ms``, the SDPA backward's one call for the three, is given
 once, with K6). ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16
-tensor cores; 67 TFLOP/s f32 for the calibration arithmetic), counting
-each input byte read once and each output byte written once.
+tensor cores; 67 TFLOP/s f32 for the calibration arithmetic and the f32
+attention kernels), counting each input byte read once and each output
+byte written once.
 """
 
 from __future__ import annotations
@@ -647,7 +691,11 @@ VIT_BATCH = 2  # frames; each one 8448-token sequence
 VIT_BATCHES = 24
 VIT_DEPTH = 4  # flash_kernel launches per batch
 FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
+# f32: the JAX package's f32 tolerances (tests/test_ring_attention.py:235, :316)
+FLASH_TOL_F32 = {"o": 2e-5, "lse": 1e-4, "o_rel": 1e-4, "lse_rel": 1e-4}
 BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
+BWD_TOL_F32 = 1e-4
+F32_REL_TOL = 1e-4  # the f32 ViT's logits against the plain path
 NO_BWD = {"flash_bwd_kernel": 0, "flash_bwd_dq_convert": 0}  # serving paths launch none
 NO_RESNET = {"conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0}  # other paths
 # (case, B, H, Sq, Sk, causal, with an lse cotangent); the first is the ViT training shape
@@ -667,6 +715,26 @@ PROFILE_STEPS = 4
 FLASH_CASES = (("serving", 2, 4, 8448, 8448, False), ("training", 4, 4, 8448, 8448, False),
                ("causal", 2, 4, 1024, 1024, True), ("uneven", 2, 4, 256, 768, False),
                ("uneven_causal", 2, 4, 640, 384, True))
+# the other variants of K5-K7: (case, dtype, head dim, B, H, Sq, Sk, causal) for
+# the forward, and the same with an lse cotangent for the backward. Every
+# (dtype, head dim) the TPU kernels take at BH 8 and S 1024, a causal and an
+# uneven case at head dim 256 in each dtype, and the serving shapes of the f32
+# ViT (4 heads of 128) and the wide ViT (2 heads of 256), batch 2
+HEAD_DIMS = tuple(range(128, 1025, 128))
+VARIANT_CASES = tuple(
+    [("grid", dt, d, 2, 4, 1024, 1024, False) for dt in ("bf16", "f32") for d in HEAD_DIMS]
+    + [(c, dt, 256, 2, 4, sq, sk, causal) for dt in ("bf16", "f32")
+       for c, sq, sk, causal in (("causal", 1024, 1024, True), ("uneven", 256, 768, False))]
+    + [("serving", "f32", 128, VIT_BATCH, 4, 8448, 8448, False),
+       ("serving", "bf16", 256, VIT_BATCH, 2, 8448, 8448, False)])
+VARIANT_ITERS = 5  # timed launches of each variant case (10 for the bf16 head-dim-128 cases)
+# vit_f32 and vit_wide: the full-width ViT (patch 16, embed 512, depth 4) in f32 with
+# 4 heads of 128 and in bf16 with 2 heads of 256, served at batch 2 through the
+# infeed and trained at batch 2: (phase, dtype, heads)
+VIT_VARIANTS = (("vit_f32", "f32", 4), ("vit_wide", "bf16", 2))
+VARIANT_BATCHES = 8  # timed serving batches of each, after the warm-up
+VARIANT_TRAIN_STEPS = 12
+VARIANT_TRAIN_EVENTS = 16  # 8 batches of 2
 # train -> fold -> serve: PeakNet-TPU at full width trained with norm="batch"
 # (examples/train_peaknet.py's recipe at its batch 2 for its convergence scale,
 # 300 steps), served over held-out events of another run; ResNet-50 at
@@ -3672,11 +3740,24 @@ def _flash_pairs(sq: int, sk: int, causal: bool) -> int:
     return n * (n + 1) // 2 + (sq - n) * sk
 
 
-def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False):
-    """(bytes, ops) of K5: q, k, v read once and o (bf16) and lse (f32)
-    written once; two products of 2*d operations per (query, key) pair."""
-    nbytes = bh * (2 * sq * d + 2 * 2 * sk * d + 2 * sq * d + 4 * sq)
+def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False, elem: int = 2):
+    """(bytes, ops) of K5: q, k, v read once and o (``elem`` bytes each:
+    2 bf16, 4 f32) and lse (f32) written once; two products of 2*d
+    operations per (query, key) pair: the function's work, not the
+    D/128-fold recompute of s in the wide and f32 kernels."""
+    nbytes = bh * (elem * sq * d + 2 * elem * sk * d + elem * sq * d + 4 * sq)
     return nbytes, 2.0 * 2 * d * bh * _flash_pairs(sq, sk, causal)
+
+
+def sdpa_backend(torch, q, k, v, causal):
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    inputs (its own dispatch, ``torch._fused_sdp_choice``), or None."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
+    except Exception:  # the query is private: its absence only loses the label
+        return None
 
 
 # -- phases 10-12 ----------------------------------------------------------
@@ -3705,54 +3786,78 @@ def flash_errors(o, lse, o_ref, lse_ref, lse_flat) -> dict:
             "lse_rel": d_lse / float((lse_ref - lse_flat).abs().max())}
 
 
-def flash_ok(errs) -> bool:
-    return all(errs[key] <= FLASH_TOL[key] for key in FLASH_TOL)
+def flash_ok(errs, tol=FLASH_TOL) -> bool:
+    return all(errs[key] <= tol[key] for key in tol)
+
+
+def _dtype(torch, name):
+    return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+
+
+def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal, iters):
+    """One K5 case: the forward kernel for (dtype, head dim) against its
+    plain version, the two controls rejected, both timers, the plain
+    version, SDPA at the same dtype (and the backend it picked), the bound."""
+    bf16 = dtype == "bf16"
+    tol = FLASH_TOL if bf16 else FLASH_TOL_F32
+
+    def mk(s):
+        return torch.randn((b, h, s, d), generator=gen, device=device).to(_dtype(torch, dtype))
+
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    o, lse = tf.launch_flash(q, k, v, causal)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal)
+    o_flat, lse_flat = flat_attention(torch, v, sq, causal)
+    torch.cuda.synchronize()
+    errs = flash_errors(o, lse, o_ref, lse_ref, lse_flat)
+    kernel = tf.forward_kernel(q)
+    if (not flash_ok(errs, tol) or not torch.isfinite(o.float()).all()
+            or not torch.isfinite(lse).all()):
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) disagrees with its plain "
+                             f"version: {errs}")
+    controls = {"zeros": flash_errors(torch.zeros_like(o), torch.zeros_like(lse), o_ref,
+                                      lse_ref, lse_flat),
+                "flat": flash_errors(o_flat, lse_flat, o_ref, lse_ref, lse_flat)}
+    passed = [c for c, e in controls.items() if flash_ok(e, tol)]
+    if passed:
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
+                             f"{passed} control(s): {controls}")
+    del o, o_ref, lse, lse_ref, o_flat, lse_flat
+    nbytes, ops = flash_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
+    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+    row = {
+        "case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
+        "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
+        "max_abs_err_o": errs["o"], "max_abs_err_lse": errs["lse"],
+        "rel_err_o": errs["o_rel"], "rel_err_lse": errs["lse_rel"], "controls": controls,
+        "ms": timer.ms(lambda: tf.launch_flash(q, k, v, causal), iters=iters),
+        "ms_cold": timer.ms_cold(lambda: tf.launch_flash(q, k, v, causal), iters=iters),
+        "plain_ms": timer.ms(lambda: tf.attention_with_stats_plain(q, k, v, causal),
+                             iters=3, warmup=1),
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                               iters=iters),
+        "library_backend": sdpa_backend(torch, q, k, v, causal),
+        "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+    }
+    row["tflops"] = ops / row["ms"] / 1e9
+    return row
 
 
 def phase_flash(torch, F, tf, timer, device):
-    """K5 against its plain version in each case of ``FLASH_CASES``, and
-    two controls that the same check must reject."""
+    """K5 against its plain version in each case of ``FLASH_CASES`` (bf16,
+    head dim 128: ``flash_kernel``) and of ``VARIANT_CASES`` (the wide and
+    f32 kernels), and two controls that the same check must reject.
+    Results by case name, the variants' as ``case/dtype/head dim``."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
-    for name, b, h, sq, sk, causal in FLASH_CASES:
-        def mk(s):
-            return torch.randn((b, h, s, 128), generator=gen, device=device).bfloat16()
-
-        q, k, v = mk(sq), mk(sk), mk(sk)
-        o, lse = tf.launch_flash(q, k, v, causal)
-        o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal)
-        o_flat, lse_flat = flat_attention(torch, v, sq, causal)
-        torch.cuda.synchronize()
-        errs = flash_errors(o, lse, o_ref, lse_ref, lse_flat)
-        if (not flash_ok(errs) or not torch.isfinite(o.float()).all()
-                or not torch.isfinite(lse).all()):
-            raise AssertionError(f"flash_kernel ({name}) disagrees with its plain version: {errs}")
-        controls = {"zeros": flash_errors(torch.zeros_like(o), torch.zeros_like(lse), o_ref,
-                                          lse_ref, lse_flat),
-                    "flat": flash_errors(o_flat, lse_flat, o_ref, lse_ref, lse_flat)}
-        passed = [c for c, e in controls.items() if flash_ok(e)]
-        if passed:
-            raise AssertionError(f"flash_kernel ({name}): the check passes the {passed} "
-                                 f"control(s): {controls}")
-        del o, o_ref, lse, lse_ref, o_flat, lse_flat
-        nbytes, ops = flash_cost(b * h, sq, sk, causal=causal)
-        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        row = {
-            "case": name, "shape_q": [b, h, sq, 128], "sk": sk, "causal": causal,
-            "max_abs_err_o": errs["o"], "max_abs_err_lse": errs["lse"],
-            "rel_err_o": errs["o_rel"], "rel_err_lse": errs["lse_rel"], "controls": controls,
-            "ms": timer.ms(lambda: tf.launch_flash(q, k, v, causal), iters=10),
-            "ms_cold": timer.ms_cold(lambda: tf.launch_flash(q, k, v, causal), iters=10),
-            "plain_ms": timer.ms(lambda: tf.attention_with_stats_plain(q, k, v, causal),
-                                 iters=3, warmup=1),
-            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-                                   iters=10),
-            "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
-        }
-        row["tflops"] = ops / row["ms"] / 1e9
+    cases = [(name, "bf16", 128, b, h, sq, sk, causal, 10)
+             for name, b, h, sq, sk, causal in FLASH_CASES]
+    cases += [(*c, VARIANT_ITERS) for c in VARIANT_CASES]
+    for i, (name, dtype, d, b, h, sq, sk, causal, iters) in enumerate(cases):
+        row = flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
+                         iters)
         emit("flash_kernel", **row)
-        results[name] = row
-        del q, k, v
+        results[name if i < len(FLASH_CASES) else f"{name}/{dtype}/{d}"] = row
     return results
 
 
@@ -3852,14 +3957,14 @@ def phase_sfx_profile(torch, pt, pool, pipe, n_batches=PROFILE_BATCHES):
 # -- phases 13-15 ----------------------------------------------------------
 
 
-def flash_bwd_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False):
-    """(bytes, ops, ops_7) of the backward: q, k, v and do (bf16) and lse
-    and delta (f32) read once, dq, dk and dv (bf16) written once; five
+def flash_bwd_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False, elem: int = 2):
+    """(bytes, ops, ops_7) of the backward: q, k, v and do (``elem`` bytes
+    each) and lse and delta (f32) read once, dq, dk and dv written once; five
     products of 2*d operations per (query, key) pair (s, dp, dv, dk, dq),
     what the function needs and ``flash_bwd_kernel`` does, and ``ops_7``
     for the seven of a two-kernel design that computes s and dp twice (the
     TPU kernels' split, ``flash.py:284-287``)."""
-    t_q, t_k = 2 * bh * sq * d, 2 * bh * sk * d
+    t_q, t_k = elem * bh * sq * d, elem * bh * sk * d
     nbytes = 2 * t_q + 2 * t_k + 2 * 4 * bh * sq + t_q + 2 * t_k
     ops = 2.0 * d * bh * _flash_pairs(sq, sk, causal)
     return nbytes, 5 * ops, 7 * ops
@@ -3870,8 +3975,8 @@ def bwd_errors(got, ref) -> dict:
     return {n: rel_err(r, g) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
 
 
-def bwd_ok(errs) -> bool:
-    return all(errs[n] <= BWD_TOL for n in ("dq", "dk", "dv"))
+def bwd_ok(errs, tol=BWD_TOL) -> bool:
+    return all(errs[n] <= tol for n in ("dq", "dk", "dv"))
 
 
 def flat_attention_bwd(torch, do, sk, causal):
@@ -3891,86 +3996,112 @@ def flat_attention_bwd(torch, do, sk, causal):
     return torch.zeros_like(do), torch.zeros_like(dv), dv
 
 
+def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
+                   with_dlse, iters):
+    """One K6/K7 case: the backward kernel for (dtype, head dim) against
+    ``attention_bwd_plain``, two controls that the same check must reject,
+    a repeat launch, the errors of a backward that drops delta or ignores
+    dlse (printed), the timers, the plain version, SDPA's backward at the
+    same dtype and the bound."""
+    bf16 = dtype == "bf16"
+    tol = BWD_TOL if bf16 else BWD_TOL_F32
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v, do = (mk(b, h, s_, d).to(_dtype(torch, dtype)) for s_ in (sq, sk, sk, sq))
+    dlse = mk(b, h, sq) if with_dlse else None
+    o, lse = tf.launch_flash(q, k, v, causal)
+    got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
+    ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
+    torch.cuda.synchronize()
+    kernel = tf.backward_kernel(q)
+    errs = bwd_errors(got, ref)
+    abs_err = {n: float((g.float() - r.float()).abs().max())
+               for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    if not bwd_ok(errs, tol) or not all(bool(torch.isfinite(g.float()).all()) for g in got):
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) disagrees with its plain "
+                             f"version: {errs}")
+    controls = {"zeros": bwd_errors([torch.zeros_like(g) for g in got], ref),
+                "flat": bwd_errors(flat_attention_bwd(torch, do, sk, causal), ref)}
+    passed = [c for c, e in controls.items() if bwd_ok(e, tol)]
+    if passed:
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
+                             f"{passed} control(s): {controls}")
+    sens = {"drop_delta": tf.attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal)}
+    if with_dlse:
+        sens["ignore_dlse"] = tf.attention_bwd_plain(q, k, v, o, lse, do, causal)
+    sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
+    for e in sens.values():
+        e["rejected"] = not bwd_ok(e, tol)
+    # the repeat check: dk and dv identical, dq within one bf16 ulp of its
+    # largest value (2**-16 of it in f32): its f32 sums arrive in another
+    # order each run
+    again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
+    torch.cuda.synchronize()
+    repeat = {"dk_equal": bool(torch.equal(got[1], again[1])),
+              "dv_equal": bool(torch.equal(got[2], again[2])),
+              "dq_max_diff": float((got[0].float() - again[0].float()).abs().max()),
+              "dq_ulp": 2.0 ** (-8 if bf16 else -16) * float(ref[0].float().abs().max())}
+    if not (repeat["dk_equal"] and repeat["dv_equal"]
+            and repeat["dq_max_diff"] <= repeat["dq_ulp"]):
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): two launches disagree: "
+                             f"{repeat}")
+    del got, ref, again
+    delta = tf.flash_bwd_delta(o, do, dlse)
+    # the library yardstick, never called by the port: the backward of
+    # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
+    peak = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    bms, by = bound_ms(nbytes, ops, peak)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
+
+    def pair():  # what the backward launches: dq_acc zeroed, the kernel, the dq rounding (bf16)
+        acc = tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)[0]
+        return tf.launch_flash_bwd_dq_convert(acc) if bf16 else acc
+
+    ms = timer.ms(pair, iters=iters)
+    row = {"case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
+           "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
+           "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
+           "sensitivity": sens, "repeat": repeat,
+           "ms": ms, "ms_cold": timer.ms_cold(pair, iters=iters),
+           # the kernel alone (adding into a dq_acc that is not re-zeroed) and the rounding alone
+           "kernel_ms": timer.ms(
+               lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal, dq_acc),
+               iters=iters),
+           "convert_ms": (timer.ms(lambda: tf.launch_flash_bwd_dq_convert(dq_acc), iters=iters)
+                          if bf16 else None),
+           "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+           "tflops": ops / ms / 1e9,
+           "bound_ms_7_products": bound_ms(nbytes, ops7, peak)[0],
+           "library_backend": sdpa_backend(torch, q, k, v, causal)}
+    # the plain version computes dq, dk and dv in one call
+    row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
+                               iters=3, warmup=1)
+    row["library_ms"] = timer.ms(
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=iters)
+    return row
+
+
 def phase_flash_bwd(torch, F, tf, timer, device):
-    """``flash_bwd_kernel`` (K6 and K7 in one pass) against
-    ``attention_bwd_plain`` in each case of ``BWD_CASES``, two controls
-    that the same check must reject, a repeat launch, and the errors of a
-    backward that drops delta or ignores dlse (printed)."""
+    """K6/K7 (the backward kernel for each dtype and head dim) against
+    ``attention_bwd_plain`` in each case of ``BWD_CASES`` (bf16, head dim
+    128: ``flash_bwd_kernel``) and of ``VARIANT_CASES`` with an lse
+    cotangent (the wide and f32 kernels). Results by case name, the
+    variants' as ``case/dtype/head dim``."""
     gen = torch.Generator(device=device).manual_seed(1)
     results = {}
-    for name, b, h, sq, sk, causal, with_dlse in BWD_CASES:
-        def mk(*shape):
-            return torch.randn(shape, generator=gen, device=device)
-
-        q, k, v, do = (mk(b, h, s_, 128).bfloat16() for s_ in (sq, sk, sk, sq))
-        dlse = mk(b, h, sq) if with_dlse else None
-        o, lse = tf.launch_flash(q, k, v, causal)
-        got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
-        ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
-        torch.cuda.synchronize()
-        errs = bwd_errors(got, ref)
-        abs_err = {n: float((g.float() - r.float()).abs().max())
-                   for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
-        if not bwd_ok(errs) or not all(bool(torch.isfinite(g.float()).all()) for g in got):
-            raise AssertionError(f"flash backward ({name}) disagrees with its plain version: {errs}")
-        controls = {"zeros": bwd_errors([torch.zeros_like(g) for g in got], ref),
-                    "flat": bwd_errors(flat_attention_bwd(torch, do, sk, causal), ref)}
-        passed = [c for c, e in controls.items() if bwd_ok(e)]
-        if passed:
-            raise AssertionError(f"flash backward ({name}): the check passes the {passed} "
-                                 f"control(s): {controls}")
-        sens = {"drop_delta": tf.attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal)}
-        if with_dlse:
-            sens["ignore_dlse"] = tf.attention_bwd_plain(q, k, v, o, lse, do, causal)
-        sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
-        for e in sens.values():
-            e["rejected"] = not bwd_ok(e)
-        # the repeat check: dk and dv identical, dq within one bf16 ulp of
-        # its largest value (its f32 sums arrive in another order each run)
-        again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
-        torch.cuda.synchronize()
-        repeat = {"dk_equal": bool(torch.equal(got[1], again[1])),
-                  "dv_equal": bool(torch.equal(got[2], again[2])),
-                  "dq_max_diff": float((got[0].float() - again[0].float()).abs().max()),
-                  "dq_ulp": 2.0 ** -8 * float(ref[0].float().abs().max())}
-        if not (repeat["dk_equal"] and repeat["dv_equal"]
-                and repeat["dq_max_diff"] <= repeat["dq_ulp"]):
-            raise AssertionError(f"flash backward ({name}): two launches disagree: {repeat}")
-        del got, ref, again
-        delta = tf.flash_bwd_delta(o, do, dlse)
-        # the library yardstick, never called by the port: the backward of
-        # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, causal=causal)
-        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
-
-        def pair():  # what the backward launches: dq_acc zeroed, the kernel, the dq rounding
-            return tf.launch_flash_bwd_dq_convert(
-                tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)[0])
-
-        ms = timer.ms(pair, iters=10)
-        row = {"case": name, "shape_q": [b, h, sq, 128], "sk": sk, "causal": causal,
-               "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
-               "sensitivity": sens, "repeat": repeat,
-               "ms": ms, "ms_cold": timer.ms_cold(pair, iters=10),
-               # the kernel alone (adding into a dq_acc that is not re-zeroed) and the rounding alone
-               "kernel_ms": timer.ms(
-                   lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal, dq_acc),
-                   iters=10),
-               "convert_ms": timer.ms(lambda: tf.launch_flash_bwd_dq_convert(dq_acc), iters=10),
-               "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
-               "tflops": ops / ms / 1e9,
-               "bound_ms_7_products": bound_ms(nbytes, ops7, BF16_OPS_PER_S)[0]}
-        # the plain version computes dq, dk and dv in one call
-        row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
-                                   iters=3, warmup=1)
-        row["library_ms"] = timer.ms(
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=10)
+    cases = [(name, "bf16", 128, b, h, sq, sk, causal, with_dlse, 10)
+             for name, b, h, sq, sk, causal, with_dlse in BWD_CASES]
+    cases += [(*c, True, VARIANT_ITERS) for c in VARIANT_CASES]
+    for i, (name, dtype, d, b, h, sq, sk, causal, with_dlse, iters) in enumerate(cases):
+        row = flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk,
+                             causal, with_dlse, iters)
         emit("flash_bwd", **row)
-        results[name] = row
-        del q, k, v, do, o, lse, delta, leaves, out, dq_acc
+        results[name if i < len(BWD_CASES) else f"{name}/{dtype}/{d}"] = row
     return results
 
 
@@ -4120,6 +4251,172 @@ def phase_vit_train_profile(torch, pt, train):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     emit("vit_train_profile", **profile_summary(torch, prof, wall, PROFILE_STEPS))
+
+
+def variant_sum(variants, kernel) -> int:
+    """Launches of ``kernel`` in a ``pt.variant_counts()`` tally."""
+    return sum(n for (name, _, _), n in variants.items() if name == kernel)
+
+
+def add_counts(*tallies) -> dict:
+    out = {}
+    for tally in tallies:
+        for key, n in tally.items():
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, dtype_name, heads):
+    """The full-width ViT (patch 16, embed 512, depth 4) in ``dtype_name``
+    with ``heads`` heads: served through the infeed at batch 2 for
+    ``VARIANT_BATCHES`` timed batches (calibration to the model's dtype,
+    the forward kernel of its dtype and head dim, every launch counted),
+    the last batch's logits against the plain path (``rel_err < 1e-4`` in
+    f32, ``< 0.05`` in bf16); then one train step's parity against the
+    plain attention, and ``VARIANT_TRAIN_STEPS`` steps at batch 2 of the
+    recipe's loss and optimizer. Returns the launch counts and the
+    variants' tally of both runs."""
+    import numpy as np
+
+    from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
+
+    dtype = _dtype(torch, dtype_name)
+    f32 = dtype_name == "f32"
+    tol = F32_REL_TOL if f32 else REL_TOL
+    ped, gain, mask = consts
+    params = pt.init_vit_params(frame_shape, seed=0)
+    model = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, device=device)
+    d = model.embed.pos_embed.shape[-1] // heads
+    probe = torch.empty((1, heads, 128, d), dtype=dtype, device="meta")
+    fwd, bwd = tf.forward_kernel(probe), tf.backward_kernel(probe)
+
+    def plain_attn(q, k, v):
+        return tf.attention_with_stats_plain(*(t.transpose(1, 2) for t in (q, k, v)))[0].transpose(1, 2)
+
+    plain = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, attn_fn=plain_attn,
+                             device=device)
+    step = make_vit_step(torch, pt, consts, model)
+    warm = torch.from_numpy(np.stack(pool[:VIT_BATCH])).to(device)
+    step(pt.Batch(warm, *(torch.zeros(VIT_BATCH, device=device) for _ in range(4)),
+                  num_valid=VIT_BATCH))
+    torch.cuda.synchronize()
+    del warm
+    last = {}
+
+    def on_result(out, batch):
+        last["out"], last["frames"] = out, batch.frames
+
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    pipe, wall = run_pipeline(torch, pt, pool, step, device, VARIANT_BATCHES, on_result,
+                              batch=VIT_BATCH)
+    serve_counts, serve_variants = pt.counts(), pt.variant_counts()
+    peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
+    nb = WARMUP_BATCHES + pipe.metrics.batches.count
+    want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 0,
+            "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
+    if serve_counts != want or serve_variants != {(fwd, dtype_name, d): VIT_DEPTH * nb}:
+        raise AssertionError(f"{phase}: launch counts {serve_counts} {serve_variants} over {nb} "
+                             f"batches, expected {want} and {VIT_DEPTH * nb} of {fwd}")
+    staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
+    logits = last["out"]
+    if tuple(logits.shape) != (VIT_BATCH, 2) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: bad logits {tuple(logits.shape)}")
+    with torch.no_grad():
+        cal = fused_calibrate_plain(last["frames"], ped, gain, mask, threshold=10.0,
+                                    out_dtype=dtype)
+        ref = plain(cal)
+    torch.cuda.synchronize()
+    err = rel_err(ref, logits)
+    if not err < tol:
+        raise AssertionError(f"{phase}: logits disagree with the plain path: rel_err {err}")
+    summary = pipe.metrics.summary()
+    emit(f"{phase}_serve", dtype=dtype_name, heads=heads, head_dim=d, kernel=fwd, batches=nb,
+         timed_batches=summary["batches"], frames=summary["frames"], wall_s=wall,
+         fps=summary["fps"], p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
+         host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
+         peak_mem_gib=peak_mem, launches=serve_counts,
+         variants={"/".join(map(str, k)): n for k, n in serve_variants.items()}, **staging,
+         logits_rel_err=err, logits_max_abs=float(ref.abs().max()),
+         tokens_per_frame=model.embed.pos_embed.shape[1])
+    del plain, ref, cal, pipe, last
+
+    # training at batch 2: the labelled corpus calibrated to the model's dtype
+    src = pt.SyntheticSource(num_events=1, detector_name=TRAIN_DETECTOR, seed=7, hit_fraction=0.5)
+    frames, labels = pt.raw_hit_batch(src, 0, VARIANT_TRAIN_EVENTS)
+    with torch.no_grad():
+        xs = [pt.fused_calibrate(torch.from_numpy(frames[i:i + VIT_BATCH]).to(device), ped, gain,
+                                 mask, threshold=10.0, out_dtype=dtype)
+              for i in range(0, VARIANT_TRAIN_EVENTS, VIT_BATCH)]
+    ys = [torch.from_numpy(labels[i:i + VIT_BATCH]).to(device)
+          for i in range(0, VARIANT_TRAIN_EVENTS, VIT_BATCH)]
+    valid = torch.ones(VIT_BATCH, dtype=torch.uint8, device=device)
+
+    def grads(attn_fn):
+        m = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, attn_fn=attn_fn, device=device)
+        loss = pt.masked_softmax_xent(m(xs[0]), ys[0], valid)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in m.named_parameters()}
+
+    def compare(ref, got):
+        errs = {n: rel_err(ref[n], got[n]) for n in ref}
+        worst = max(errs, key=errs.get)
+        whole = rel_err(torch.cat([ref[n].flatten() for n in ref]),
+                        torch.cat([got[n].flatten() for n in ref]))
+        return {"worst_leaf": worst, "worst_rel_err": errs[worst],
+                "median_rel_err": float(np.median(list(errs.values()))), "whole_rel_err": whole}
+
+    # the kernel path against the plain path, and (to tell the backward
+    # kernel from the forward's rounding) against the kernel forward with
+    # the plain backward
+    loss_k, g_k = grads(None)
+    loss_p, g_p = grads(reference_attention(torch, tf))
+    loss_f, g_f = grads(reference_attention(torch, tf, kernel_forward=True))
+    torch.cuda.synchronize()
+    parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_kernel_forward": loss_f,
+              "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+              "backward_kernels": compare(g_f, g_k), "kernel_vs_plain_path": compare(g_p, g_k)}
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    # f32: the two paths differ only in the order of their f32 sums
+    ok = (parity["kernel_vs_plain_path"]["whole_rel_err"] < F32_REL_TOL
+          and parity["loss_rel_err"] < F32_REL_TOL) if f32 else (
+        parity["loss_rel_err"] <= REL_TOL and parity["backward_kernels"]["worst_rel_err"] < REL_TOL)
+    if not (ok and finite):
+        raise AssertionError(f"{phase}: the train step disagrees with the plain attention: {parity}")
+    del g_k, g_p, g_f
+
+    model = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, device=device)
+    schedule = pt.warmup_cosine_decay_schedule(0.0, 6e-4, 2, VARIANT_TRAIN_STEPS, 1e-5)
+    train_step = pt.make_train_step(model, pt.adamw(model.parameters(), schedule, 0.01),
+                                    lambda lg, aux: pt.masked_softmax_xent(lg, *aux))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pt.reset_counters()
+    losses, stamps = [], [time.perf_counter()]
+    for n in range(VARIANT_TRAIN_STEPS):
+        losses.append(float(train_step(xs[n % len(xs)], (ys[n % len(ys)], valid))))
+        stamps.append(time.perf_counter())
+    train_counts, train_variants = pt.counts(), pt.variant_counts()
+    peak_train = torch.cuda.max_memory_allocated(device) / 2**30
+    n = VIT_DEPTH * VARIANT_TRAIN_STEPS
+    want = {"calib_kernel": 0, **NO_RESNET, "conv_block_kernel": 0, "flash_kernel": n,
+            "flash_bwd_kernel": n, "flash_bwd_dq_convert": 0 if f32 else n}
+    want_v = {(fwd, dtype_name, d): n, (bwd, dtype_name, d): n}
+    if not f32:
+        want_v[("flash_bwd_dq_convert", "bf16", d)] = n
+    if train_counts != want or train_variants != want_v:
+        raise AssertionError(f"{phase}: launch counts {train_counts} {train_variants} over "
+                             f"{VARIANT_TRAIN_STEPS} steps, expected {want} {want_v}")
+    if not np.all(np.isfinite(losses)) or not all(bool(torch.isfinite(p).all())
+                                                  for p in model.parameters()):
+        raise AssertionError(f"{phase}: training diverged: losses {losses}")
+    step_ms = np.diff(stamps)[1:] * 1e3  # each step synchronised by its loss' float()
+    emit(f"{phase}_train", dtype=dtype_name, heads=heads, head_dim=d, kernel=bwd, batch=VIT_BATCH,
+         steps=VARIANT_TRAIN_STEPS, parity=parity, losses=losses,
+         p50_step_ms=float(np.percentile(step_ms, 50)), mean_step_ms=float(step_ms.mean()),
+         peak_mem_gib=peak_train, launches=train_counts,
+         variants={"/".join(map(str, k)): v for k, v in train_variants.items()})
+    return add_counts(serve_counts, train_counts), add_counts(serve_variants, train_variants)
 
 
 # -- phase 16 ------------------------------------------------------------
@@ -5782,13 +6079,18 @@ def phase_multichip(torch, pt, timer, pool, consts, src, device):
     t0 = time.monotonic()
     legs = pt.dryrun_multichip(1)
     legs_s = time.monotonic() - t0
-    leg_counts = pt.counts()
+    leg_counts, leg_variants = pt.counts(), pt.variant_counts()
+    # the ViT legs run in f32 (the reference's dtype): flash_f32_kernel and
+    # flash_bwd_f32_kernel, no dq rounding launch
     missing = [k for k in ("calib_kernel", "conv1x1_kernel", "conv3x3_kernel", "back_kernel",
-                           "flash_kernel", "flash_bwd_kernel", "flash_bwd_dq_convert")
-               if not leg_counts[k]]
-    if missing:
-        raise AssertionError(f"the dry run's legs launched no {missing}: {leg_counts}")
+                           "flash_kernel", "flash_bwd_kernel") if not leg_counts[k]]
+    missing += [k for k in ("flash_f32_kernel", "flash_bwd_f32_kernel")
+                if not variant_sum(leg_variants, k)]
+    if missing or variant_sum(leg_variants, "flash_f32_kernel") != leg_counts["flash_kernel"]:
+        raise AssertionError(f"the dry run's legs launched no {missing}, or not only f32 "
+                             f"attention: {leg_counts} {leg_variants}")
     emit("multichip_legs", seconds=legs_s, launches=leg_counts,
+         variants={"/".join(map(str, k)): n for k, n in leg_variants.items()},
          collectives=legs.pop("collectives"), legs=legs)
 
     params = pt.pack_fused(pt.resnet_from_flax(
@@ -5821,7 +6123,7 @@ def phase_multichip(torch, pt, timer, pool, consts, src, device):
          launches=counts, collectives=collectives,
          infer_step_ms=timer.ms_cold(lambda: infer(frames), iters=5),
          end_to_end_step_ms=timer.ms_cold(lambda: serve(frames), iters=5))
-    return {k: leg_counts[k] + counts[k] for k in counts}
+    return {k: leg_counts[k] + counts[k] for k in counts}, leg_variants
 
 
 MH_EXTRA = 5  # multihost: frames past 3 full batches (an uneven tail on purpose)
@@ -6169,7 +6471,8 @@ def phase_remat(torch, pt, tf, pool, consts, frame_shape, device):
 
 def phase_multi_device(torch, pt, tf, timer, pool, consts, src, device):
     """Phases 20-22 (and 20b) on a one-rank NCCL group (``TCPStore`` on a
-    free localhost port), destroyed after them."""
+    free localhost port), destroyed after them. Returns the launch counts
+    and the dry run's tally by variant (its ViT legs run in f32)."""
     import torch.distributed as dist
 
     from psana_ray_tpu_torch.parallel import compat
@@ -6180,15 +6483,16 @@ def phase_multi_device(torch, pt, tf, timer, pool, consts, src, device):
     try:
         emit("nccl_group", backend=compat.backend_of(None), world_size=dist.get_world_size(),
              nccl_version=str(torch.cuda.nccl.version()))
-        multichip = phase_multichip(torch, pt, timer, pool, consts, src, device)
+        multichip, variants = phase_multichip(torch, pt, timer, pool, consts, src, device)
         multihost = phase_multihost(torch, pt, pool, consts, src, device)
         vit_parallel = phase_vit_parallel(torch, pt, tf, pool, consts, src.spec.frame_shape,
                                           device)
         remat = phase_remat(torch, pt, tf, pool, consts, src.spec.frame_shape, device)
     finally:
         dist.destroy_process_group()
-    return {k: multichip[k] + multihost[k] + vit_parallel.get(k, 0) + remat.get(k, 0)
-            for k in multichip}
+    counts = {k: multichip[k] + multihost[k] + vit_parallel.get(k, 0) + remat.get(k, 0)
+              for k in multichip}
+    return counts, variants
 
 
 def phase_profiler_loss(torch, device, root):
@@ -6226,6 +6530,31 @@ def phase_profiler_loss(torch, device, root):
                 for e in events)
     emit("profiler_loss", process_age_s=age, markers=LOSS_MARKERS, runtime_calls=calls,
          lost=lost, lost_ms=[2.0 * k for k in lost])
+
+
+def phase_build_f32(info):
+    """``flash_f32.cu``'s kernels: registers and spills from ``-Xptxas -v``
+    (a spill fails the run), and their machine code from ``cuobjdump
+    -sass``: FFMA and no tensor-core instruction (``HMMA``, ``HGMMA``, a
+    TF32 operand), since TF32 would break the f32 tolerances."""
+    import re
+
+    from psana_ray_tpu_torch.kernels import build
+
+    rows = [{k: r.get(k) for k in ("function", "registers", "spill_stores", "spill_loads")}
+            for r in info["ptxas"] if r["lib"] == "flash_f32"]
+    cuobjdump = os.path.join(os.path.dirname(build._find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", os.path.join(info["dir"], "libflash_f32.so")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    tensor = [line.strip() for line in sass.splitlines()
+              if re.search(r"\b(HMMA|HGMMA|IMMA)\b|TF32", line)]
+    ffma = len(re.findall(r"\bFFMA\b", sass))
+    emit("build_f32", kernels=rows, ffma=ffma, tensor_core_instructions=len(tensor),
+         sass_bytes=len(sass))
+    if (len(rows) != 4 or any(r["spill_stores"] + r["spill_loads"] for r in rows) or tensor
+            or ffma == 0):
+        raise AssertionError(f"flash_f32.cu: spills, tensor-core instructions or no FFMA: "
+                             f"{rows}, {tensor[:4]}, FFMA {ffma}")
 
 
 def main() -> int:
@@ -6268,11 +6597,11 @@ def main() -> int:
     # the wgmma kernels: none may spill or serialize its wgmma; those of
     # conv_sm90.cu and flash.cu move 384 threads' 168 registers to their
     # consumers with setmaxnreg, so each must launch with exactly 168
-    # (flash_bwd_kernel runs 256 threads without setmaxnreg, and the dq
-    # rounding pass of flash_bwd.cu is no wgmma kernel)
-    wgmma_libs = ("conv_sm90", "flash", "flash_bwd")
+    # (flash_bwd_kernel and the wide kernels run 256 threads without
+    # setmaxnreg, and the dq rounding pass of flash_bwd.cu is no wgmma kernel)
+    wgmma_libs = ("conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide")
     sm90 = [r for r in info["ptxas"] if r["lib"] in wgmma_libs
-            and (r["lib"] != "flash_bwd" or "flash_bwd_kernel" in r["function"])]
+            and "dq_convert" not in r["function"]]
     emit("build_sm90", libraries={lib: sum(r["lib"] == lib for r in sm90) for lib in wgmma_libs},
          registers={lib: sorted({r.get("registers") for r in sm90 if r["lib"] == lib})
                     for lib in wgmma_libs},
@@ -6282,8 +6611,10 @@ def main() -> int:
     if ({r["lib"] for r in sm90} != set(wgmma_libs)
             or any(r["spill_stores"] + r["spill_loads"] or r["wgmma_serialized"]
                    or r["setmaxnreg_ignored"]
-                   or (r["lib"] != "flash_bwd" and r.get("registers") != 168) for r in sm90)):
+                   or (r["lib"] in ("conv_sm90", "flash") and r.get("registers") != 168)
+                   for r in sm90)):
         raise AssertionError(f"the wgmma kernels spill, serialize or lose setmaxnreg: {sm90}")
+    phase_build_f32(info)
     # K1: both routes' kernels, every raw/output/load instantiation
     k1 = [{k: r.get(k) for k in ("function", "registers", "spill_stores", "spill_loads",
                                  "static_smem")} for r in info["ptxas"] if r["lib"] == "calib"]
@@ -6357,6 +6688,10 @@ def main() -> int:
     flash_bwd = phase_flash_bwd(torch, F, tf, timer, device)
     train, train_counts = phase_vit_train(torch, pt, tf, consts, src.spec.frame_shape, device)
     phase_vit_train_profile(torch, pt, train)
+    del train
+    variant_runs = {phase: phase_vit_variant(torch, pt, tf, pool, consts, src.spec.frame_shape,
+                                             device, phase, dtype, heads)
+                    for phase, dtype, heads in VIT_VARIANTS}
     phase_narrow(torch, pt, device)
     peaknet_counts, peaknet, served = phase_peaknet_train(torch, pt, pool, calib_np, device,
                                                           root)
@@ -6368,7 +6703,7 @@ def main() -> int:
     cli_sfx_tcp_counts = phase_producer_cli_sfx(pt, root, served, tcp=True)
     tuned_counts = phase_tuned_end_to_end(pt, pool, root, served)
     fold_counts = phase_resnet_fold(torch, pt, pool, consts, device)
-    md_counts = phase_multi_device(torch, pt, tf, timer, pool, consts, src, device)
+    md_counts, md_variants = phase_multi_device(torch, pt, tf, timer, pool, consts, src, device)
     phase_profiler_loss(torch, device, root)
 
     csrc = "psana_ray_tpu_torch/csrc"
@@ -6388,7 +6723,8 @@ def main() -> int:
                      + repl_failover_counts["calib_kernel"]
                      + observed_counts["calib_kernel"] + profiled_counts["calib_kernel"]
                      + gateway_counts["calib_kernel"] + tuned_counts["calib_kernel"]
-                     + md_counts["calib_kernel"]),
+                     + md_counts["calib_kernel"]
+                     + sum(c["calib_kernel"] for c, _ in variant_runs.values())),
         "max_abs_err": max(case["max_abs_err"] for case in calib.values()),
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
@@ -6425,30 +6761,56 @@ def main() -> int:
         "bound_ms": conv_block["bound_ms"], "bound_by": conv_block["bound_by"],
         "library_ms": conv_block["library_ms"],
     })
+    # launches by Hopper kernel: the bf16 head-dim-128 ViT's phases launch
+    # only flash_kernel and flash_bwd_kernel; the dry run's f32 ViT legs and
+    # the vit_f32 and vit_wide phases are tallied by variant
+    variants = add_counts(md_variants, *(v for _, v in variant_runs.values()))
+    md_f32 = {k: variant_sum(md_variants, k) for k in ("flash_f32_kernel", "flash_bwd_f32_kernel")}
     f = flash["serving"]  # one batch of the main path: VIT_DEPTH launches at this shape
     kernels.append({
         "name": "flash_kernel", "route": "cuda", "source": f"{csrc}/flash.cu",
         "replaces": "psana_ray_tpu/parallel/flash.py:155",
         "launches": (vit_counts["flash_kernel"] + train_counts["flash_kernel"]
-                     + md_counts["flash_kernel"]),
-        "max_abs_err": max(r["max_abs_err_o"] for r in flash.values()),
+                     + md_counts["flash_kernel"] - md_f32["flash_f32_kernel"]),
+        "max_abs_err": max(r["max_abs_err_o"] for r in flash.values() if r["kernel"] == "flash_kernel"),
         "ms": VIT_DEPTH * f["ms"], "plain_ms": VIT_DEPTH * f["plain_ms"],
         "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": VIT_DEPTH * f["library_ms"],
     })
-    tb = flash_bwd["training"]  # one train step: VIT_DEPTH launches at this shape
-    # K6 and K7 are one kernel: both rows give the pair's numbers, and the
-    # SDPA backward (dq, dk and dv in one call) is given once, with K6
-    for line, grads in ((314, ("dk", "dv")), (354, ("dq",))):
+    # the wide and f32 forwards: one batch of their ViT at the serving shape
+    for name, source, key in (("flash_wide_kernel", "flash_wide.cu", "serving/bf16/256"),
+                              ("flash_f32_kernel", "flash_f32.cu", "serving/f32/128")):
+        r = flash[key]
         kernels.append({
-            "name": "flash_bwd_kernel", "route": "cuda", "source": f"{csrc}/flash_bwd.cu",
-            "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
-            "launches": train_counts["flash_bwd_kernel"] + md_counts["flash_bwd_kernel"],
-            "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values() for g in grads),
-            "ms": VIT_DEPTH * tb["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
-            "bound_ms": VIT_DEPTH * tb["bound_ms"], "bound_by": tb["bound_by"],
-            "library_ms": VIT_DEPTH * tb["library_ms"] if line == 314 else None,
+            "name": name, "route": "cuda", "source": f"{csrc}/{source}",
+            "replaces": "psana_ray_tpu/parallel/flash.py:155",
+            "launches": variant_sum(variants, name),
+            "max_abs_err": max(x["max_abs_err_o"] for x in flash.values() if x["kernel"] == name),
+            "ms": VIT_DEPTH * r["ms"], "plain_ms": VIT_DEPTH * r["plain_ms"],
+            "bound_ms": VIT_DEPTH * r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": VIT_DEPTH * r["library_ms"],
         })
+    # K6 and K7 are one kernel in each variant: both rows give the pair's
+    # numbers (one train step: VIT_DEPTH launches at the training shape), and
+    # the SDPA backward (dq, dk and dv in one call) is given once, with K6
+    for name, source, key in (("flash_bwd_kernel", "flash_bwd.cu", "training"),
+                              ("flash_bwd_wide_kernel", "flash_bwd_wide.cu", "serving/bf16/256"),
+                              ("flash_bwd_f32_kernel", "flash_f32.cu", "serving/f32/128")):
+        tb = flash_bwd[key]
+        launches = (train_counts["flash_bwd_kernel"] + md_counts["flash_bwd_kernel"]
+                    - md_f32["flash_bwd_f32_kernel"] if name == "flash_bwd_kernel"
+                    else variant_sum(variants, name))
+        for line, grads in ((314, ("dk", "dv")), (354, ("dq",))):
+            kernels.append({
+                "name": name, "route": "cuda", "source": f"{csrc}/{source}",
+                "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values()
+                                   if r["kernel"] == name for g in grads),
+                "ms": VIT_DEPTH * tb["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
+                "bound_ms": VIT_DEPTH * tb["bound_ms"], "bound_by": tb["bound_by"],
+                "library_ms": VIT_DEPTH * tb["library_ms"] if line == 314 else None,
+            })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -7,7 +7,7 @@ ResNet-50 hit/miss classifier over epix10k2M panel stacks (BASELINE
 config 4), at batch 4 of full frames, with weights from the seeded numpy
 init. :func:`vit_serve_step` is the counterpart of ``infer2`` in the JAX
 package's ``bench.py:_bench_vit``: RAW frames -> ``fused_calibrate`` to
-bf16 -> ``ViTHitClassifier``. :func:`dryrun_multichip` is
+bf16 (f32 for an f32 ViT) -> ``ViTHitClassifier``. :func:`dryrun_multichip` is
 ``__graft_entry__.dryrun_multichip``: its five legs
 (:mod:`psana_ray_tpu_torch.parallel.dryrun`) on ``n`` ranks.
 """
@@ -78,16 +78,18 @@ def vit_serve_step(
     threshold: float = 10.0,
 ) -> torch.Tensor:
     """RAW ``[B, P, H, W]`` frames -> ``[B, classes]`` f32 logits:
-    ``calib_kernel`` to bf16, then the ViT (one ``flash_kernel`` launch per
-    block on the card; the plain versions on CPU tensors), without
-    autograd."""
+    ``calib_kernel`` to the model's dtype (f32 frames for an f32 ViT, as
+    ``fused_calibrate``'s default gives them, ``bench.py:807``; bf16
+    otherwise), then the ViT (one flash-attention forward launch per block
+    on the card; the plain versions on CPU tensors), without autograd."""
     import torch
 
     from psana_ray_tpu_torch.ops import fused_calibrate
 
+    out_dtype = torch.float32 if model.embed.dtype == torch.float32 else torch.bfloat16
     with torch.no_grad():
         cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
-                              out_dtype=torch.bfloat16)
+                              out_dtype=out_dtype)
         return model(cal)
 
 

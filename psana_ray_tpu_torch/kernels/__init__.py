@@ -11,12 +11,19 @@ bottleneck's front half (K2), ``back_kernel`` its back step (K3);
 made by the U-Net's encoder levels (K4); ``flash_kernel`` the
 flash-attention forward launches (K5), ``flash_bwd_kernel`` the
 single-pass backward's (K6 and K7 in one kernel, ``csrc/flash_bwd.cu``)
-and ``flash_bwd_dq_convert`` those of its dq rounding pass.
+and ``flash_bwd_dq_convert`` those of its dq rounding pass. Each of these
+three counts every variant of its TPU function: ``flash_kernel`` also
+counts ``flash_wide_kernel`` (bf16 at head dims 256-1024,
+``csrc/flash_wide.cu``) and ``flash_f32_kernel`` (f32,
+``csrc/flash_f32.cu``), ``flash_bwd_kernel`` also
+``flash_bwd_wide_kernel`` and ``flash_bwd_f32_kernel``. :data:`VARIANTS`
+tallies the same launches by ``(kernel, dtype, head dim)``, the kernel
+being the Hopper kernel that ran.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 LAUNCHES: Dict[str, int] = {
     "calib_kernel": 0, "conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0,
@@ -25,11 +32,26 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# (Hopper kernel, "bf16" or "f32", head dim) -> launches
+VARIANTS: Dict[Tuple[str, str, int], int] = {}
+
+
+def count_variant(kernel: str, dtype: str, head_dim: int) -> None:
+    key = (kernel, dtype, int(head_dim))
+    VARIANTS[key] = VARIANTS.get(key, 0) + 1
+
+
 def reset_counters() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANTS.clear()
 
 
 def counts() -> Dict[str, int]:
     """A copy of the launch counts, by kernel name."""
     return dict(LAUNCHES)
+
+
+def variant_counts() -> Dict[Tuple[str, str, int], int]:
+    """A copy of the launch tally by ``(kernel, dtype, head dim)``."""
+    return dict(VARIANTS)

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-LIBS = ("calib", "conv_sm90", "flash", "flash_bwd")
+LIBS = ("calib", "conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide", "flash_f32")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -71,6 +71,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         # dq_acc, dq, n, stream
         "flash_bwd_dq_convert_launch": [_P, _P, _L, _P],
+    },
+    "flash_wide": {
+        # q, k, v, o, lse, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_wide_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_bwd_wide": {
+        # q, k, v, do, lse, delta, dk, dv, dq_acc, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_bwd_wide_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_f32": {
+        # q, k, v, o, lse, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_f32_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, do, lse, delta, dk, dv, dq, BH, Sq, Sk, D, sm_scale, causal, stream
+        "flash_bwd_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     },
 }
 

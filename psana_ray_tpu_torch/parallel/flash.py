@@ -1,6 +1,6 @@
-"""Flash attention: the ``flash_kernel`` forward (K5) and the
-single-pass ``flash_bwd_kernel`` backward (K6 and K7 in one kernel, with
-``flash_bwd_dq_convert`` rounding its f32 dq) CUDA kernels, behind a
+"""Flash attention: the flash-attention forward (K5) and the single-pass
+backward (K6 and K7 in one kernel, with ``flash_bwd_dq_convert`` rounding
+a bf16 backward's f32 dq) CUDA kernels, behind a
 ``torch.autograd.Function``.
 
 Counterpart of the single-device surface of
@@ -20,10 +20,24 @@ On a CPU tensor the wrappers run the plain versions:
 (``_xla_attention_with_stats``, ``flash.py:96-113``), and
 :func:`attention_bwd_plain` (``_xla_attention_bwd``, ``flash.py:461-485``),
 which materialise the ``[B, H, Sq, Sk]`` f32 scores. On a CUDA tensor
-they launch the kernels (``csrc/flash.cu``, ``csrc/flash_bwd.cu``) or
-raise: the kernels take bf16 with head dim 128 and sequence lengths that
-are multiples of 128 (the TPU kernel's ``_kernel_shapes_ok``), and
-anything else on the card raises instead of running the plain version.
+they launch a kernel or raise. The kernels take what the TPU kernels'
+``_kernel_shapes_ok`` takes (``flash.py:255-270``), in bf16 or f32: a
+head dim that is a multiple of 128 up to :data:`MAX_HEAD_DIM` (1024) and
+sequence lengths that are multiples of 128. Which kernel runs
+(:func:`forward_kernel`, :func:`backward_kernel`):
+
+- bf16 at head dim 128: ``flash_kernel`` (``csrc/flash.cu``) and
+  ``flash_bwd_kernel`` (``csrc/flash_bwd.cu``), the tuned pair;
+- bf16 at head dims 256-1024: ``flash_wide_kernel``
+  (``csrc/flash_wide.cu``) and ``flash_bwd_wide_kernel``
+  (``csrc/flash_bwd_wide.cu``), whose dq goes through the same
+  ``flash_bwd_dq_convert``;
+- f32 at every head dim: ``flash_f32_kernel`` and
+  ``flash_bwd_f32_kernel`` (``csrc/flash_f32.cu``, FFMA, no TF32), whose
+  dq is summed straight into an f32 tensor (no rounding launch).
+
+Anything else on the card (f16, other head dims, other lengths: ROADMAP.md
+Item 12) raises instead of running the plain version.
 
 The backward, like the reference's, keeps no score matrix: the Function
 saves ``(q, k, v, o, lse)`` and the kernels regenerate each probability
@@ -39,11 +53,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from psana_ray_tpu_torch.kernels import LAUNCHES, build
+from psana_ray_tpu_torch.kernels import LAUNCHES, build, count_variant
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIM = 128  # the tuned bf16 pair's head dim
+# flash.py:255-259 _MAX_HEAD_DIM = _MAX_KV_TILE_ELEMS // (2 * _BLOCK_MIN): the
+# widest head the TPU kernels take
+MAX_HEAD_DIM = 1024
+KERNEL_HEAD_DIMS = tuple(range(KERNEL_HEAD_DIM, MAX_HEAD_DIM + 1, KERNEL_HEAD_DIM))
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 SEQ_QUANTUM = 128  # flash.py _BLOCK_MIN: the TPU kernel's divisibility floor
+# Hopper kernel -> (library, C entry point)
+_FORWARD = {"flash_kernel": ("flash", "flash_fwd_launch"),
+            "flash_wide_kernel": ("flash_wide", "flash_wide_launch"),
+            "flash_f32_kernel": ("flash_f32", "flash_f32_launch")}
+_BACKWARD = {"flash_bwd_kernel": ("flash_bwd", "flash_bwd_launch"),
+             "flash_bwd_wide_kernel": ("flash_bwd_wide", "flash_bwd_wide_launch"),
+             "flash_bwd_f32_kernel": ("flash_f32", "flash_bwd_f32_launch")}
 
 
 @contextlib.contextmanager
@@ -75,21 +101,24 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kernel: str = "flash_kernel") -> None:
-    """Raise unless ``kernel`` (the forward or a backward kernel) takes
-    these ``[B, H, S, D]`` inputs. Reads shapes, dtypes and devices only,
-    so it runs without a card."""
+    """Raise unless the kernels (``kernel`` names the forward or the
+    backward in the message) take these ``[B, H, S, D]`` inputs: bf16 or
+    f32, a head dim in :data:`KERNEL_HEAD_DIMS`, Sq and Sk positive
+    multiples of 128, at most 65535 batch x heads. Reads shapes, dtypes
+    and devices only, so it runs without a card."""
     _check_layout(q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{kernel} takes bf16 q, k, v on the card, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"{kernel} takes bf16 or f32 q, k, v on the card, got "
+                                  f"{q.dtype} (other dtypes: ROADMAP.md Item 12)")
     d = q.shape[3]
-    if d != KERNEL_HEAD_DIM:
+    if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
-            f"{kernel} takes head dim {KERNEL_HEAD_DIM} for now, got {d} "
-            "(other head dims: ROADMAP.md Queue 1 item 4)")
+            f"{kernel} takes a head dim that is a multiple of {KERNEL_HEAD_DIM} up to "
+            f"{MAX_HEAD_DIM}, got {d} (other head dims: ROADMAP.md Item 12)")
     sq, sk = q.shape[2], k.shape[2]
     if sq <= 0 or sk <= 0 or sq % SEQ_QUANTUM or sk % SEQ_QUANTUM:
         raise ValueError(f"{kernel} needs Sq and Sk positive multiples of {SEQ_QUANTUM}, "
-                         f"got Sq={sq}, Sk={sk}")
+                         f"got Sq={sq}, Sk={sk} (other lengths: ROADMAP.md Item 12)")
     if q.shape[0] * q.shape[1] > 65535:
         raise ValueError(f"{kernel} takes at most 65535 batch x heads, got "
                          f"{q.shape[0] * q.shape[1]}")
@@ -97,10 +126,24 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
 
 
+def forward_kernel(q: torch.Tensor) -> str:
+    """The Hopper kernel that runs the forward on ``q``'s dtype and head
+    dim (inputs that :func:`check_kernel_inputs` takes)."""
+    if q.dtype == torch.float32:
+        return "flash_f32_kernel"
+    return "flash_kernel" if q.shape[3] == KERNEL_HEAD_DIM else "flash_wide_kernel"
+
+
+def backward_kernel(q: torch.Tensor) -> str:
+    """The Hopper kernel that runs the backward on ``q``'s dtype and head dim."""
+    return {"flash_kernel": "flash_bwd_kernel", "flash_wide_kernel": "flash_bwd_wide_kernel",
+            "flash_f32_kernel": "flash_bwd_f32_kernel"}[forward_kernel(q)]
+
+
 def attention_with_stats_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``flash_kernel``: f32 scores ``(q.k^T) * D**-0.5``,
+    """Plain version of the forward kernels: f32 scores ``(q.k^T) * D**-0.5``,
     softmax over the whole row, ``p`` rounded to the value dtype for the
     ``p.v`` product (f32 accumulation), ``o`` in the query dtype and the
     f32 ``lse``, as ``_xla_attention_with_stats`` computes them."""
@@ -123,21 +166,26 @@ def attention_with_stats_plain(
 def launch_flash(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``flash_kernel`` on CUDA tensors: ``(o, lse)``."""
+    """One launch of the forward kernel for these inputs
+    (:func:`forward_kernel`) on CUDA tensors: ``(o, lse)``. Counted as
+    ``flash_kernel`` whichever variant ran, and by variant."""
     check_kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = build.library("flash")
-    err = lib.flash_fwd_launch(
+    name = forward_kernel(q)
+    libname, entry = _FORWARD[name]
+    lib = build.library(libname)
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b * h, sq, sk, d, float(d ** -0.5), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    build.check(lib, err, "flash_kernel")
+    build.check(lib, err, name)
     LAUNCHES["flash_kernel"] += 1
+    count_variant(name, KERNEL_DTYPES[q.dtype], d)
     return o, lse
 
 
@@ -203,11 +251,13 @@ def launch_flash_bwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, causal: bool = False, dq_acc: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of ``flash_bwd_kernel`` (K6 and K7 in one pass) on CUDA
-    tensors: ``(dq_acc, dk, dv)``. The kernel adds dq's f32 sums into
-    ``dq_acc`` (``[B, H, Sq, D]`` f32, zeroed here when not given) in an
-    order that changes from run to run; :func:`launch_flash_bwd_dq_convert`
-    rounds it to dq."""
+    """One launch of the backward kernel for these inputs
+    (:func:`backward_kernel`: K6 and K7 in one pass) on CUDA tensors:
+    ``(dq_acc, dk, dv)``. The kernel adds dq's f32 sums into ``dq_acc``
+    (``[B, H, Sq, D]`` f32, zeroed here when not given) in an order that
+    changes from run to run; for bf16 inputs :func:`launch_flash_bwd_dq_convert`
+    rounds it to dq, for f32 inputs it is dq. Counted as
+    ``flash_bwd_kernel`` whichever variant ran, and by variant."""
     if dq_acc is not None and (dq_acc.shape != q.shape or dq_acc.dtype != torch.float32
                                or not dq_acc.is_contiguous() or dq_acc.device != q.device):
         raise ValueError(f"dq_acc must be a contiguous f32 {tuple(q.shape)} on {q.device}, got "
@@ -217,11 +267,14 @@ def launch_flash_bwd_kernel(
     if dq_acc is None:
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(tensors[1]), torch.empty_like(tensors[2])
-    lib = build.library("flash_bwd")
-    err = lib.flash_bwd_launch(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(),
-                               dq_acc.data_ptr(), bh, sq, sk, d, scale, int(bool(causal)), stream)
-    build.check(lib, err, "flash_bwd_kernel")
+    name = backward_kernel(q)
+    libname, entry = _BACKWARD[name]
+    lib = build.library(libname)
+    err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(),
+                              dq_acc.data_ptr(), bh, sq, sk, d, scale, int(bool(causal)), stream)
+    build.check(lib, err, name)
     LAUNCHES["flash_bwd_kernel"] += 1
+    count_variant(name, KERNEL_DTYPES[q.dtype], d)
     return dq_acc, dk, dv
 
 
@@ -237,6 +290,7 @@ def launch_flash_bwd_dq_convert(dq_acc: torch.Tensor) -> torch.Tensor:
                                           torch.cuda.current_stream(dq_acc.device).cuda_stream)
     build.check(lib, err, "flash_bwd_dq_convert")
     LAUNCHES["flash_bwd_dq_convert"] += 1
+    count_variant("flash_bwd_dq_convert", "bf16", dq_acc.shape[-1])
     return dq
 
 
@@ -245,12 +299,14 @@ def launch_flash_bwd(
     do: torch.Tensor, causal: bool = False, dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward on CUDA tensors: ``delta`` (:func:`flash_bwd_delta`),
-    one launch of ``flash_bwd_kernel``, then one of ``flash_bwd_dq_convert``.
-    Returns ``(dq, dk, dv)``."""
+    one launch of the backward kernel, then, for bf16 inputs, one of
+    ``flash_bwd_dq_convert``. Returns ``(dq, dk, dv)``."""
     if o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} is not shaped like q {tuple(q.shape)}")
     delta = flash_bwd_delta(o, do, dlse)
     dq_acc, dk, dv = launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)
+    if q.dtype == torch.float32:
+        return dq_acc, dk, dv
     return launch_flash_bwd_dq_convert(dq_acc), dk, dv
 
 
@@ -262,8 +318,9 @@ def _forward(q, k, v, causal):
 
 class FlashAttention(torch.autograd.Function):
     """``(q, k, v) -> (o, lse)`` in ``[B, H, S, D]``, differentiable in both
-    outputs: ``flash_kernel`` forward and ``flash_bwd_kernel`` backward on CUDA
-    tensors, the plain versions on CPU tensors. Saves ``(q, k, v, o,
+    outputs: the forward and backward kernels on CUDA tensors
+    (:func:`forward_kernel`, :func:`backward_kernel`), the plain versions on
+    CPU tensors. Saves ``(q, k, v, o,
     lse)``; ``dlse`` enters the backward as ``delta - dlse``
     (``flash.py:498-529``)."""
 
@@ -288,8 +345,8 @@ class FlashAttention(torch.autograd.Function):
 def attention_with_stats(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention and row log-sum-exp, ``[B, H, S, D]`` layout:
-    ``flash_kernel`` on a CUDA tensor, the plain version on a CPU one;
+    """Attention and row log-sum-exp, ``[B, H, S, D]`` layout: the forward
+    kernel on a CUDA tensor, the plain version on a CPU one;
     through :class:`FlashAttention` when a gradient is wanted."""
     _check_layout(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -318,8 +375,8 @@ def ring_flash_attention(
     combining (``flash.py:575-658``), ``[B, S, H, D]`` in the layout of
     :func:`~psana_ray_tpu_torch.parallel.ring_attention.ring_attention`.
 
-    Each hop is :func:`attention_with_stats` (``flash_kernel`` on the
-    card; its gradient runs ``flash_bwd_kernel`` with the lse cotangent),
+    Each hop is :func:`attention_with_stats` (the forward kernel on the
+    card; its gradient runs the backward kernel with the lse cotangent),
     and the hops combine in f32 with the reference's ``NEG_INF`` guards.
     Under a causal mask a hop whose K/V block lies wholly in this shard's
     future is skipped (no kernel), a past block runs unmasked and only the

@@ -5,9 +5,11 @@ formulation (``_xla_attention_with_stats``), on the same numpy inputs.
 
 Tolerances are those of ``tests/test_ring_attention.py:235-257``: ``o``
 atol 2e-5 in f32 and 2e-2 in bf16 (3e-5 for Sq != Sk in f32), ``lse``
-atol 1e-2 (1e-3 for Sq != Sk). ``flash_kernel`` itself runs only on the
-card (``tests/test_torch_gpu.py``); here its input checks run, which need
-no card.
+atol 1e-2 (1e-3 for Sq != Sk). The kernels themselves run only on the
+card (``tests/test_torch_gpu.py``); here their input checks run, which
+need no card: bf16 and f32 at head dims 128 to 1024 (the TPU kernels'
+``_kernel_shapes_ok``), nothing else. The wide head dims the kernels
+take (256 and 384 here) are held against the Pallas kernel too.
 """
 
 import numpy as np
@@ -92,11 +94,12 @@ def test_plain_masks_only_the_causal_future(rng):
 @pytest.mark.parametrize(
     "shape,kshape,dtype,err,match",
     [
-        ((1, 2, 128, 128), (1, 2, 128, 128), torch.float32, NotImplementedError, "bf16"),
+        ((1, 2, 128, 128), (1, 2, 128, 128), torch.float16, NotImplementedError, "bf16"),
         ((1, 2, 128, 64), (1, 2, 128, 64), torch.bfloat16, NotImplementedError, "head dim"),
         ((1, 2, 192, 128), (1, 2, 128, 128), torch.bfloat16, ValueError, "multiples of 128"),
         ((1, 2, 128, 128), (1, 2, 320, 128), torch.bfloat16, ValueError, "multiples of 128"),
         ((1, 2, 128, 128), (1, 3, 128, 128), torch.bfloat16, ValueError, "differ"),
+        ((1, 2, 128, 1152), (1, 2, 128, 1152), torch.float32, NotImplementedError, "head dim"),
     ],
 )
 def test_kernel_refuses_what_it_does_not_take(shape, kshape, dtype, err, match):
@@ -110,6 +113,40 @@ def test_kernel_refuses_what_it_does_not_take(shape, kshape, dtype, err, match):
     with pytest.raises(err, match=match):
         tf.launch_flash(q, k, k)
     assert pt.counts()["flash_kernel"] == 0
+
+
+@pytest.mark.parametrize("d", tf.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_takes_bf16_and_f32_at_every_head_dim(dtype, d):
+    """The 16 cases of (dtype x D) the TPU kernels take: the checks pass,
+    and each case names the Hopper kernel that runs it: the tuned pair at
+    bf16 D 128, the wide pair at bf16 D 256-1024, the f32 pair in f32."""
+    q = torch.zeros((2, 3, 256, d), dtype=dtype)
+    k = torch.zeros((2, 3, 384, d), dtype=dtype)
+    tf.check_kernel_inputs(q, k, k)
+    tf.check_kernel_inputs(q, k, k, "flash_bwd_kernel")
+    want = ("flash_f32_kernel" if dtype == torch.float32
+            else "flash_kernel" if d == 128 else "flash_wide_kernel")
+    assert tf.forward_kernel(q) == want
+    assert tf.backward_kernel(q) == want.replace("flash_", "flash_bwd_", 1)
+    assert tf.MAX_HEAD_DIM == jf._MAX_HEAD_DIM == 1024
+    assert jf._kernel_shapes_ok(jnp.zeros(q.shape), jnp.zeros(k.shape))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 384])
+def test_plain_matches_jax_kernel_at_wide_head_dims(rng, d, dtype, causal):
+    """Head dims 256 and 384 (the wide and f32 kernels' domain), S 256:
+    the plain version against the Pallas kernel in interpret mode, at the
+    tolerances above."""
+    (jq, jk, jv), (q, k, v) = _both(_inputs(rng, 1, 2, 256, 256, d), dtype)
+    o, lse = pt.attention_with_stats(q, k, v, causal=causal)
+    assert o.dtype == q.dtype and tuple(o.shape) == (1, 2, 256, d)
+    o_ref, lse_ref = jf._pallas_attention_with_stats(jq, jk, jv, causal, interpret=True)
+    tol = 2e-2 if dtype == "bf16" else 2e-5
+    np.testing.assert_allclose(_np(o), _np(o_ref), rtol=0.0, atol=tol)
+    np.testing.assert_allclose(_np(lse), _np(lse_ref), rtol=0.0, atol=1e-2)
 
 
 def test_plain_takes_shapes_the_kernel_does_not(rng):

@@ -205,6 +205,25 @@ def _fused_emulation(q, k, v, do, lse, delta, causal, seed):
     return dq_acc.to(bf), dk, dv
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 384])
+def test_plain_bwd_matches_jax_kernels_at_wide_head_dims(rng, d, dtype, causal):
+    """Head dims 256 and 384 (the wide and f32 kernels' domain), S 256:
+    the plain backward against the Pallas backward kernels in interpret
+    mode on the same residuals, at the tolerances above (5e-2 in bf16,
+    1e-4 in f32)."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, o, lse, do = _residuals(rng, 1, 2, 256, 256, d, 0.3, jdt, causal)
+    got = tf.attention_bwd_plain(*(_t(a, tdt) for a in (q, k, v, o)), _t(lse), _t(do, tdt), causal)
+    want = jf._pallas_attention_bwd(q, k, v, o, lse, do, causal, interpret=True)
+    tol = 5e-2 if dtype == "bf16" else 1e-4
+    for g, w, grad in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == tdt and tuple(g.shape) == (1, 2, 256, d), grad
+        np.testing.assert_allclose(_np(g), np.asarray(w, np.float32), rtol=0.0, atol=tol,
+                                   err_msg=grad)
+
+
 @pytest.mark.parametrize("dlse", [False, True])
 @pytest.mark.parametrize("sq,sk", [(256, 256), (128, 384), (384, 128)])
 @pytest.mark.parametrize("causal", [False, True])
@@ -235,10 +254,11 @@ def test_fused_kernel_tiling_matches_jax_kernels(rng, causal, sq, sk, dlse):
 @pytest.mark.parametrize(
     "shape,kshape,dtype,err,match",
     [
-        ((1, 2, 128, 128), (1, 2, 128, 128), torch.float32, NotImplementedError, "bf16"),
+        ((1, 2, 128, 128), (1, 2, 128, 128), torch.float16, NotImplementedError, "bf16"),
         ((1, 2, 128, 64), (1, 2, 128, 64), torch.bfloat16, NotImplementedError, "head dim"),
         ((1, 2, 192, 128), (1, 2, 128, 128), torch.bfloat16, ValueError, "multiples of 128"),
         ((1, 2, 128, 128), (1, 2, 320, 128), torch.bfloat16, ValueError, "multiples of 128"),
+        ((1, 2, 128, 1152), (1, 2, 128, 1152), torch.float32, NotImplementedError, "head dim"),
     ],
 )
 def test_backward_kernels_refuse_what_they_do_not_take(shape, kshape, dtype, err, match):

@@ -26,6 +26,14 @@ kernel's dq, dk and dv within 1e-2 of their own scale
 (``max|g - g_ref| / max|g_ref|``) on unit-scale inputs, where it rounds
 p and ds to bf16 and the plain version keeps f32; two of its launches give
 identical dk and dv and dq within one bf16 ulp of its largest value.
+The other variants of K5-K7 (``flash_wide_kernel`` and
+``flash_bwd_wide_kernel`` in bf16 at head dims 256-1024,
+``flash_f32_kernel`` and ``flash_bwd_f32_kernel`` in f32 at 128-1024)
+are held to the same plain versions, the bf16 ones at the tolerances
+above and the f32 ones at the JAX package's f32 tolerances (``o`` atol
+2e-5, ``lse`` atol 1e-4, dq, dk and dv within 1e-4 of their own scale);
+each counts as its TPU function's counter and by variant. The f32 ViT
+and a one-head ViT of head dim 256 are served and trained through them.
 The infeed's pinned batch arenas: pinned, one H2D a batch straight from
 the arena and no host copy beside the batcher's, and no arena rewritten
 while its copy is in flight (a checksum of every staged row); the shm
@@ -501,7 +509,7 @@ def test_flash_kernel_takes_the_repo_layout(cuda, gen):
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     from psana_ray_tpu_torch.parallel import flash as tf
 
-    z = torch.zeros((1, 2, 128, 128), device=cuda)
+    z = torch.zeros((1, 2, 128, 128), device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="bf16"):
         tf.attention_with_stats(z, z, z)
     with pytest.raises(NotImplementedError, match="head dim"):
@@ -632,7 +640,7 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(cuda):
         return tf.launch_flash_bwd(z, z, z, z, torch.zeros(shape[:3], device=cuda), z)
 
     with pytest.raises(NotImplementedError, match="bf16"):
-        call((1, 2, 128, 128), torch.float32)
+        call((1, 2, 128, 128), torch.float16)
     with pytest.raises(NotImplementedError, match="head dim"):
         call((1, 2, 128, 64))
     with pytest.raises(ValueError, match="multiples of 128"):
@@ -678,6 +686,179 @@ def test_vit_train_step_on_the_card(cuda):
                            "flash_bwd_kernel": 2, "flash_bwd_dq_convert": 2}
     grads = [p.grad for p in model.parameters()]
     assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# -- the other variants of K5-K7: bf16 at head dims 256-1024, f32 ------------
+
+F32_O_TOL, F32_LSE_TOL, F32_BWD_TOL = 2e-5, 1e-4, 1e-4
+VARIANT_CASES = [  # (dtype, d, bh, sq, sk, causal)
+    (torch.bfloat16, 256, 3, 256, 256, False), (torch.bfloat16, 256, 2, 384, 128, True),
+    (torch.bfloat16, 384, 2, 256, 768, True), (torch.bfloat16, 512, 2, 256, 256, False),
+    (torch.bfloat16, 1024, 2, 256, 384, False), (torch.bfloat16, 1024, 1, 256, 256, True),
+    (torch.float32, 128, 3, 256, 256, False), (torch.float32, 128, 2, 640, 384, True),
+    (torch.float32, 256, 2, 128, 384, True), (torch.float32, 640, 2, 256, 256, False),
+    (torch.float32, 1024, 1, 256, 384, False), (torch.float32, 1024, 1, 256, 256, True),
+]
+
+
+def _variant_inputs(gen, cuda, dtype, d, bh, sq, sk):
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    return mk(1, bh, sq, d), mk(1, bh, sk, d), mk(1, bh, sk, d), mk(1, bh, sq, d)
+
+
+@pytest.mark.parametrize("dtype,d,bh,sq,sk,causal", VARIANT_CASES)
+def test_flash_variants_match_plain(cuda, gen, dtype, d, bh, sq, sk, causal):
+    """``flash_wide_kernel`` (bf16) and ``flash_f32_kernel`` against
+    ``attention_with_stats_plain``: unit-scale inputs, causal and uneven
+    lengths; one launch, counted as ``flash_kernel`` and by variant."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, _ = _variant_inputs(gen, cuda, dtype, d, bh, sq, sk)
+    o, lse = tf.attention_with_stats(q, k, v, causal=causal)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    name = tf.forward_kernel(q)
+    assert name == ("flash_f32_kernel" if dtype == torch.float32 else "flash_wide_kernel")
+    assert pt.counts()["flash_kernel"] == 1
+    assert pt.variant_counts() == {(name, tf.KERNEL_DTYPES[dtype], d): 1}
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    d_o = float((o.float() - o_ref.float()).abs().max())
+    d_lse = float((lse - lse_ref).abs().max())
+    if dtype == torch.float32:
+        assert d_o <= F32_O_TOL and d_lse <= F32_LSE_TOL, (d_o, d_lse)
+    else:
+        assert d_o <= 2e-2 and d_lse <= 1e-2, (d_o, d_lse)
+        assert d_o <= 1e-2 * float(o_ref.float().abs().max())
+        assert d_lse <= 1e-2 * float((lse_ref - _flat_lse(sq, sk, causal, cuda)).abs().max())
+
+
+@pytest.mark.parametrize("dtype,d,bh,sq,sk,causal", VARIANT_CASES)
+def test_flash_bwd_variants_match_plain(cuda, gen, dtype, d, bh, sq, sk, causal):
+    """``flash_bwd_wide_kernel`` (bf16, then ``flash_bwd_dq_convert``) and
+    ``flash_bwd_f32_kernel`` (dq summed in f32, no rounding launch) against
+    ``attention_bwd_plain`` with an lse cotangent; a second launch gives
+    identical dk and dv and dq within one ulp of its largest value (bf16;
+    2**-16 of it in f32, whose sums arrive in another order)."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do = _variant_inputs(gen, cuda, dtype, d, bh, sq, sk)
+    dl = torch.randn((1, bh, sq), generator=gen, device=cuda)
+    o, lse = tf.launch_flash(q, k, v, causal)
+    pt.reset_counters()
+    got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dl)
+    ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dl)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    name = tf.backward_kernel(q)
+    assert name == ("flash_bwd_f32_kernel" if f32 else "flash_bwd_wide_kernel")
+    assert pt.counts()["flash_bwd_kernel"] == 1
+    assert pt.counts()["flash_bwd_dq_convert"] == (0 if f32 else 1)
+    assert pt.variant_counts().get((name, tf.KERNEL_DTYPES[dtype], d)) == 1
+    for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and g.shape == r.shape, grad
+        assert bool(torch.isfinite(g.float()).all()), grad
+        assert rel_err(r, g) <= (F32_BWD_TOL if f32 else BWD_TOL), (grad, rel_err(r, g))
+    again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dl)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    scale = float(got[0].float().abs().max())
+    assert float((got[0].float() - again[0].float()).abs().max()) <= 2.0 ** (-16 if f32 else -8) * scale
+
+
+def test_flash_variants_refuse_what_they_do_not_take(cuda):
+    """f16 and head dim 1152 raise before any launch; the C entry points
+    refuse what their kernel does not take (the wide pair head dim 128,
+    the f32 pair head dim 64)."""
+    from psana_ray_tpu_torch.kernels import build
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    for shape, dtype, match in (((1, 2, 128, 256), torch.float16, "bf16"),
+                                ((1, 2, 128, 1152), torch.float32, "head dim"),
+                                ((1, 2, 128, 1152), torch.bfloat16, "head dim")):
+        z = torch.zeros(shape, device=cuda, dtype=dtype)
+        with pytest.raises(NotImplementedError, match=match):
+            tf.attention_with_stats(z, z, z)
+        with pytest.raises(NotImplementedError, match=match):
+            tf.launch_flash_bwd(z, z, z, z, torch.zeros(shape[:3], device=cuda), z)
+    assert sum(pt.counts().values()) == 0 and pt.variant_counts() == {}
+    stream = torch.cuda.current_stream().cuda_stream
+    zb = torch.zeros((1, 128, 128), device=cuda).bfloat16()
+    zf = torch.zeros((1, 128, 128), device=cuda)
+    lse = torch.zeros(128, device=cuda)
+    assert build.library("flash_wide").flash_wide_launch(
+        *(zb.data_ptr(),) * 4, lse.data_ptr(), 1, 128, 128, 128, 0.1, 0, stream) != 0
+    assert build.library("flash_bwd_wide").flash_bwd_wide_launch(
+        *(zb.data_ptr(),) * 4, lse.data_ptr(), lse.data_ptr(), *(zb.data_ptr(),) * 2,
+        zf.data_ptr(), 1, 128, 128, 128, 0.1, 0, stream) != 0
+    assert build.library("flash_f32").flash_f32_launch(
+        *(zf.data_ptr(),) * 4, lse.data_ptr(), 1, 128, 128, 64, 0.1, 0, stream) != 0
+    assert build.library("flash_f32").flash_bwd_f32_launch(
+        *(zf.data_ptr(),) * 4, lse.data_ptr(), lse.data_ptr(), *(zf.data_ptr(),) * 3,
+        2, 128, 128, 64, 0.1, 0, stream) != 0
+
+
+@pytest.mark.parametrize("dtype,num_heads", [(torch.float32, 2), (torch.bfloat16, 1)])
+def test_f32_and_wide_vit_on_the_card(cuda, dtype, num_heads):
+    """The small ViT (patch 8, embed 256, depth 2, 256 tokens) in f32 with
+    2 heads of 128 and in bf16 with one head of 256: served against the
+    plain attention (``rel_err`` 1e-4 in f32, 0.05 in bf16) and one train
+    step, each block launching its variant's forward and backward once."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    params = pt.init_vit_params((2, 64, 128), patch=8, embed_dim=256, depth=2, seed=1)
+    model = pt.vit_from_flax(params, num_heads=num_heads, dtype=dtype, device=cuda)
+    plain = pt.vit_from_flax(
+        params, num_heads=num_heads, dtype=dtype, device=cuda,
+        attn_fn=lambda q, k, v: tf.attention_with_stats_plain(
+            *(t.transpose(1, 2) for t in (q, k, v)))[0].transpose(1, 2))
+    x = torch.randn((2, 2, 64, 128), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        got, ref = model(x), plain(x)
+    d = 256 // num_heads
+    fwd = "flash_f32_kernel" if dtype == torch.float32 else "flash_wide_kernel"
+    key = tf.KERNEL_DTYPES[dtype]
+    assert pt.variant_counts() == {(fwd, key, d): 2}
+    assert tuple(got.shape) == (2, 2) and bool(torch.isfinite(got).all())
+    assert rel_err(ref, got) <= (1e-4 if dtype == torch.float32 else REL_TOL)
+    pt.reset_counters()
+    opt = pt.adamw(model.parameters(), pt.warmup_cosine_decay_schedule(0.0, 6e-4, 2, 10, 1e-5),
+                   weight_decay=0.01)
+    step = pt.make_train_step(model, opt, lambda lg, aux: pt.masked_softmax_xent(lg, *aux))
+    loss = step(x, (torch.tensor([0, 1], device=cuda), torch.ones(2, dtype=torch.uint8, device=cuda)))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    f32 = dtype == torch.float32
+    assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "flash_kernel": 2, "flash_bwd_kernel": 2,
+                           "flash_bwd_dq_convert": 0 if f32 else 2}
+    assert pt.variant_counts()[(fwd.replace("flash_", "flash_bwd_", 1), key, d)] == 2
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
+def test_vit_serve_step_calibrates_to_the_model_dtype(cuda):
+    """An f32 ViT is served from f32 calibrated frames (``calib_kernel``
+    with f32 output), a bf16 one from bf16 frames: 2 RAW epix100 frames
+    at patch 8 (8,448 tokens), against the same model on the plain
+    calibration's output in its dtype."""
+    src = pt.SyntheticSource(num_events=2, detector_name="epix100", seed=0)
+    frames = torch.from_numpy(
+        np.stack([src.event(i, pt.RetrievalMode.RAW)[0] for i in range(2)])).to(cuda)
+    ped, gain, mask = (torch.from_numpy(a).to(cuda) for a in
+                       (src.pedestal(), src.gain_map(), src.create_bad_pixel_mask()))
+    tree = pt.init_vit_params(src.spec.frame_shape, patch=8, embed_dim=256, depth=2, seed=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        pt.reset_counters()
+        model = pt.vit_from_flax(tree, num_heads=2, dtype=dtype, device=cuda)
+        logits = pt.vit_serve_step(model, frames, ped, gain, mask)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ref = model(fused_calibrate_plain(frames, ped, gain, mask, threshold=10.0,
+                                              out_dtype=dtype))
+        assert tuple(logits.shape) == (2, 2) and bool(torch.isfinite(logits).all())
+        assert pt.counts()["calib_kernel"] == 1 and pt.counts()["flash_kernel"] == 4
+        assert rel_err(ref, logits) <= (1e-4 if dtype == torch.float32 else REL_TOL)
 
 
 # -- the infeed: pinned batch arenas, one host copy a frame ------------------

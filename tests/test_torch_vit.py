@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from flax.core import meta  # noqa: E402
 
 from psana_ray_tpu.models import vit as jv  # noqa: E402
+from psana_ray_tpu.models.losses import masked_softmax_xent as jax_xent  # noqa: E402
 from psana_ray_tpu.ops.pallas_calib import fused_calibrate as jax_calibrate  # noqa: E402
 from psana_ray_tpu.parallel.flash import _pallas_attention_with_stats  # noqa: E402
 import psana_ray_tpu_torch as pt  # noqa: E402
@@ -163,6 +164,55 @@ def test_model_matches_flax(rng, dtype, attn):
     print(f"rel_err {err} max|ref| {np.abs(ref).max()}")  # observed values: pytest -rP
     assert np.abs(ref).max() >= 1e-2
     assert err <= (F32_TOL if dtype == "f32" else REL_TOL), err
+
+
+@pytest.mark.parametrize("dtype,num_heads", [("f32", 2), ("f32", 1), ("bf16", 1)])
+def test_f32_and_wide_head_models_match_flax(rng, dtype, num_heads):
+    """The f32 ViT (head dim 128) and a one-head ViT of head dim 256 (the
+    f32 and wide flash kernels' models on the card) at embed 256 and 2
+    layers against ``ViTHitClassifier``: the logits (``rel_err <= 1e-4``
+    in f32, ``< 0.05`` in bf16), and in f32 one train step's gradients
+    (the recipe's masked cross-entropy; per leaf ``rel_err <= 1e-4``). In
+    bf16 the gradients are only checked finite: at this init the JAX
+    package's own bf16 gradient of the one-head model is 0.12 of the
+    scale from its f32 gradient (0.06 with two heads), so a comparison
+    of two bf16 gradients measures rounding, not the algorithm, which the
+    f32 case holds."""
+    jdt, tdt = DTYPES[dtype]
+    kw = dict(SMALL, num_heads=num_heads)
+    x = photon_frames(rng, FRAMES)
+    jmodel = jv.ViTHitClassifier(dtype=jdt, **kw)
+    params = flax_params(jmodel, x[:1], rng)
+
+    labels, valid = np.array([0, 1], np.int32), np.array([1, 1], np.uint8)
+
+    def loss_of(p):
+        return jax_xent(jmodel.apply({"params": p}, jnp.asarray(x)), jnp.asarray(labels),
+                        jnp.asarray(valid))
+
+    ref = np.asarray(jmodel.apply(jax_tree(params), jnp.asarray(x)))
+    _, jgrads = jax.value_and_grad(loss_of)(jax.tree.map(jnp.asarray, params))
+    port = pt.vit_from_flax(params, num_heads=num_heads, dtype=tdt)
+    assert port.trunk.block0.num_heads == num_heads
+    got = port(torch.from_numpy(x))
+    pt.masked_softmax_xent(got, torch.from_numpy(labels), torch.from_numpy(valid)).backward()
+    err = rel_err(ref, got.detach().numpy())
+    want = {k.replace("/", "."): v for k, v in flatten(jax.tree.map(np.asarray, jgrads)).items()}
+    grads = {n: p.grad.numpy() for n, p in port.named_parameters()}
+    assert set(grads) == set(want)
+    errs = {n: rel_err(want[n], grads[n]) for n in want}
+    worst = max(errs, key=errs.get)
+    whole = rel_err(np.concatenate([want[n].ravel() for n in want]),
+                    np.concatenate([grads[n].ravel() for n in want]))
+    print(f"logits rel_err {err}, worst leaf {worst} rel_err {errs[worst]}, "
+          f"whole gradient {whole}")  # observed values: pytest -rP
+    assert np.abs(ref).max() >= 1e-2
+    if dtype == "f32":
+        assert err <= F32_TOL, err
+        assert errs[worst] <= F32_TOL, (worst, errs[worst])
+    else:
+        assert err < REL_TOL, err
+        assert all(np.isfinite(g).all() for g in grads.values())
 
 
 @pytest.mark.parametrize("input_norm,head_pool", [("none", "max"), ("log1p", "mean"), ("none", "mean")])

@@ -59,8 +59,10 @@ def main(runs: int) -> int:
     print(json.dumps({"setup_s": time.monotonic() - t0}), flush=True)
     for run in range(runs):
         t1 = time.monotonic()
-        counts = cs.phase_multi_device(torch, pt, tf, timer, pool, consts, src, device)
+        counts, variants = cs.phase_multi_device(torch, pt, tf, timer, pool, consts, src, device)
         print(json.dumps({"run": run, "launches": counts,
+                          "dryrun_variants": {"/".join(map(str, k)): n
+                                              for k, n in variants.items()},
                           "phase_seconds": time.monotonic() - t1}), flush=True)
     return 0
 
