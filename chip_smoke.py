@@ -63,9 +63,9 @@ one JSON line (``{"phase": ...}``):
    other than 168 in the two that move registers with ``setmaxnreg``
    (``conv_sm90.cu``, ``flash.cu``). A ``build_f32`` line gives
    ``flash_f32.cu``'s kernels' registers and spills and counts, in their
-   machine code (``cuobjdump -sass``), the FFMA instructions and the
-   tensor-core ones (``HMMA``, ``HGMMA``, any TF32 operand): a spill, a
-   tensor-core instruction or no FFMA fails the run.
+   machine code (``cuobjdump -sass``), the TF32 tensor-core instructions
+   (``HMMA…TF32``, ``HGMMA…TF32``) by opcode: a spill, or a kernel
+   without them, fails the run.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
    f32 RAW frames from ``SyntheticSource`` with f32 and bf16 output, the
    same frames as uint16 ADUs with bf16 output, and ``[8, 8, 512, 1024]``
@@ -395,10 +395,15 @@ one JSON line (``{"phase": ...}``):
    256 in each dtype, and the serving shapes of ``vit_f32`` (f32, B 2, H
    4, D 128, S 8448) and ``vit_wide`` (bf16, B 2, H 2, D 256), each held
    the same way (f32 at the JAX package's f32 tolerances: ``o`` 2e-5,
-   ``lse`` 1e-4, each 1e-4 of its scale), both controls rejected. Each
-   row names its Hopper kernel and the SDPA backend its library time
-   used; the bound counts the function's work at its dtype's peak (989
-   TFLOP/s bf16, 67 f32), not the kernels' recompute of the scores.
+   ``lse`` 1e-4, each 1e-4 of its scale), both controls rejected; in f32
+   a third control must fail too: the same attention with its two
+   products as one TF32 pass each (the plain version under
+   ``allow_tf32``, a yardstick the port never runs), which the kernels'
+   three-product split must beat. Each row names its Hopper kernel and
+   the SDPA backend its library time used; the bound counts the
+   function's work at its dtype's peak (989 TFLOP/s bf16; f32-accurate
+   products on the TF32 tensor cores at 495 / 3 TFLOP/s, with the old
+   67 TFLOP/s CUDA-core bound beside it), not a recompute of the scores.
 11. ``vit_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
    events; ``InfeedPipeline(batch_size=2, prefetch_depth=2,
    batcher_buffers=6)`` -> ``vit_serve_step`` (``calib_kernel`` to bf16 ->
@@ -435,7 +440,8 @@ one JSON line (``{"phase": ...}``):
    and ``flash_bwd_f32_kernel`` (f32, dq summed straight in f32: no
    rounding launch) in the cases of ``VARIANT_CASES``, each with an lse
    cotangent, held the same way (f32: ``<= 1e-4`` of each gradient's
-   scale; the repeat's dq within 2**-16 of its largest value).
+   scale, and the one-TF32-pass plain backward rejected; the repeat's dq
+   within 2**-16 of its largest value).
 14. ``vit_train``: the training recipe of the JAX package's
    ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
    epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
@@ -656,9 +662,10 @@ for the wide and f32 kernels the same at their ViT's shape, batch 2
 ``library_ms``, the SDPA backward's one call for the three, is given
 once, with K6). ``bound_ms`` is
 the larger of bytes / 3.35 TB/s and operations / peak (989 TFLOP/s bf16
-tensor cores; 67 TFLOP/s f32 for the calibration arithmetic and the f32
-attention kernels), counting each input byte read once and each output
-byte written once.
+tensor cores; 67 TFLOP/s f32 for the calibration arithmetic; for the f32
+attention kernels, whose f32-accurate products are three TF32 ones on
+the tensor cores, 3 x operations / 495 TFLOP/s), counting each input
+byte read once and each output byte written once.
 """
 
 from __future__ import annotations
@@ -673,7 +680,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+# f32 on the CUDA cores: K1's arithmetic, and the f32 attention rows' old bound
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# an f32-accurate product on the TF32 tensor cores: three TF32 products
+# (the f32 attention kernels' split)
+F32_SPLIT_OPS_PER_S = TF32_OPS_PER_S / 3
 DETECTOR = "epix10k2M"  # the serving paths' frames: [16, 352, 384]
 BATCH = 32
 E2E_BATCHES = 24  # timed batches of each serving run, after the warm-up
@@ -3794,10 +3806,36 @@ def _dtype(torch, name):
     return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
 
 
+def tf32_once(torch, tf, plain, *args):
+    """A plain attention function (``tf.attention_with_stats_plain`` or
+    ``tf.attention_bwd_plain``) with each of its f32 matrix products as one
+    TF32 pass (``torch.matmul`` under ``allow_tf32``): the control that the
+    f32 kernels' three-product split must beat. A yardstick only: the
+    port never runs it."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def one_pass():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    full = tf._full_f32_matmul
+    tf._full_f32_matmul = one_pass
+    try:
+        return plain(*args)
+    finally:
+        tf._full_f32_matmul = full
+
+
 def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal, iters):
     """One K5 case: the forward kernel for (dtype, head dim) against its
-    plain version, the two controls rejected, both timers, the plain
-    version, SDPA at the same dtype (and the backend it picked), the bound."""
+    plain version, the two controls rejected (three in f32: one TF32 pass
+    too), both timers, the plain version, SDPA at the same dtype (and the
+    backend it picked), the bound."""
     bf16 = dtype == "bf16"
     tol = FLASH_TOL if bf16 else FLASH_TOL_F32
 
@@ -3818,13 +3856,17 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
     controls = {"zeros": flash_errors(torch.zeros_like(o), torch.zeros_like(lse), o_ref,
                                       lse_ref, lse_flat),
                 "flat": flash_errors(o_flat, lse_flat, o_ref, lse_ref, lse_flat)}
+    if not bf16:
+        controls["tf32_once"] = flash_errors(
+            *tf32_once(torch, tf, tf.attention_with_stats_plain, q, k, v, causal), o_ref, lse_ref,
+            lse_flat)
     passed = [c for c, e in controls.items() if flash_ok(e, tol)]
     if passed:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
                              f"{passed} control(s): {controls}")
     del o, o_ref, lse, lse_ref, o_flat, lse_flat
     nbytes, ops = flash_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
-    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S)
     row = {
         "case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
         "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
@@ -3839,6 +3881,8 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
         "library_backend": sdpa_backend(torch, q, k, v, causal),
         "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
     }
+    if not bf16:  # the bound before the split: f32 on the CUDA cores
+        row["bound_ms_cuda_cores"] = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
     row["tflops"] = ops / row["ms"] / 1e9
     return row
 
@@ -3999,7 +4043,8 @@ def flat_attention_bwd(torch, do, sk, causal):
 def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
                    with_dlse, iters):
     """One K6/K7 case: the backward kernel for (dtype, head dim) against
-    ``attention_bwd_plain``, two controls that the same check must reject,
+    ``attention_bwd_plain``, two controls that the same check must reject
+    (three in f32: the plain backward as one TF32 pass too),
     a repeat launch, the errors of a backward that drops delta or ignores
     dlse (printed), the timers, the plain version, SDPA's backward at the
     same dtype and the bound."""
@@ -4024,6 +4069,9 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
                              f"version: {errs}")
     controls = {"zeros": bwd_errors([torch.zeros_like(g) for g in got], ref),
                 "flat": bwd_errors(flat_attention_bwd(torch, do, sk, causal), ref)}
+    if not bf16:
+        controls["tf32_once"] = bwd_errors(
+            tf32_once(torch, tf, tf.attention_bwd_plain, q, k, v, o, lse, do, causal, dlse), ref)
     passed = [c for c, e in controls.items() if bwd_ok(e, tol)]
     if passed:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
@@ -4054,7 +4102,7 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
-    peak = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    peak = BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S
     bms, by = bound_ms(nbytes, ops, peak)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
 
@@ -4078,6 +4126,8 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
            "tflops": ops / ms / 1e9,
            "bound_ms_7_products": bound_ms(nbytes, ops7, peak)[0],
            "library_backend": sdpa_backend(torch, q, k, v, causal)}
+    if not bf16:  # the bound before the split: f32 on the CUDA cores
+        row["bound_ms_cuda_cores"] = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
     # the plain version computes dq, dk and dv in one call
     row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
                                iters=3, warmup=1)
@@ -6535,8 +6585,9 @@ def phase_profiler_loss(torch, device, root):
 def phase_build_f32(info):
     """``flash_f32.cu``'s kernels: registers and spills from ``-Xptxas -v``
     (a spill fails the run), and their machine code from ``cuobjdump
-    -sass``: FFMA and no tensor-core instruction (``HMMA``, ``HGMMA``, a
-    TF32 operand), since TF32 would break the f32 tolerances."""
+    -sass``: every product is a TF32 tensor-core instruction (``HMMA`` or
+    ``HGMMA`` with a TF32 operand; the kernels' three-product split), so a
+    kernel without them fails the run too. Counts by opcode, FFMA beside."""
     import re
 
     from psana_ray_tpu_torch.kernels import build
@@ -6546,15 +6597,24 @@ def phase_build_f32(info):
     cuobjdump = os.path.join(os.path.dirname(build._find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", os.path.join(info["dir"], "libflash_f32.so")],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    tensor = [line.strip() for line in sass.splitlines()
-              if re.search(r"\b(HMMA|HGMMA|IMMA)\b|TF32", line)]
-    ffma = len(re.findall(r"\bFFMA\b", sass))
-    emit("build_f32", kernels=rows, ffma=ffma, tensor_core_instructions=len(tensor),
-         sass_bytes=len(sass))
-    if (len(rows) != 4 or any(r["spill_stores"] + r["spill_loads"] for r in rows) or tensor
-            or ffma == 0):
-        raise AssertionError(f"flash_f32.cu: spills, tensor-core instructions or no FFMA: "
-                             f"{rows}, {tensor[:4]}, FFMA {ffma}")
+    tf32 = {}  # TF32 tensor-core opcodes by kernel
+    func = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        m = re.search(r"\b(H(?:G)?MMA\S*TF32\S*)", line)
+        if m and func:
+            ops = tf32.setdefault(func, {})
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    for r in rows:
+        r["tf32_tensor_core"] = tf32.get(r["function"], {})
+    emit("build_f32", kernels=rows, ffma=len(re.findall(r"\bFFMA\b", sass)), sass_bytes=len(sass))
+    if (len(rows) != 4 or any(r["spill_stores"] + r["spill_loads"] for r in rows)
+            or not all(r["tf32_tensor_core"] for r in rows)):
+        raise AssertionError(f"flash_f32.cu: spills, or a kernel without TF32 tensor-core "
+                             f"instructions: {rows}")
 
 
 def main() -> int:

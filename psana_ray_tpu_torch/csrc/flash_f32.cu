@@ -1,6 +1,6 @@
 // flash_f32_kernel and flash_bwd_f32_kernel: flash attention forward and
-// backward in f32 on the CUDA cores (FFMA), for every head dim the TPU
-// kernels take (128 to 1024 in steps of 128).
+// backward in f32, for every head dim the TPU kernels take (128 to 1024 in
+// steps of 128), on the TF32 tensor cores with a three-product split.
 //
 // Replace the TPU kernels, on f32 inputs:
 //   psana_ray_tpu/parallel/flash.py:_flash_kernel (K5), and
@@ -13,148 +13,305 @@
 //             o = (sum p v) / max(l, 1e-30), lse = m + log(max(l, 1e-30))
 //   backward: p = exp(s - lse), ds = p (dp - delta) scale (flash.py:293-311),
 //             dv = p^T dO, dk = ds^T q, dq = ds k
-// all in f32. No tensor core is used: TF32 rounds its operands to 10
-// mantissa bits (2^-11), which would break the tolerances the JAX package
-// holds its own f32 kernels to (o atol 2e-5, tests/test_ring_attention.py:
-// 235; dq, dk, dv atol 1e-4, :316). (A 3xTF32 split on mma.sync is a later
-// speed-up, if it holds them.)
+// with f32 scores, softmax and accumulators.
 //
-// What bounds them on this card: f32 operations on the CUDA cores (67
-// TFLOP/s). The design is the plain shared-memory tiling of an SGEMM:
-// 256 threads as a 16 x 16 grid, each holding a 4 x 4 block of scores
-// and a 4 x 8 block of its output in registers, fed by float4 reads of
-// operand tiles stored so that a thread's four rows (or columns) are
-// contiguous. As in the bf16 wide kernels (flash_wide.cu,
-// flash_bwd_wide.cu) the head dim is sliced: a CTA owns one 128-column
-// slice of o (of dk, dv and dq in the backward) and computes the scores
-// over all of D, in 32-column chunks, once a slice: D/128 times in all.
-// - Forward: the grid is (Sq/64, BH, D/128); a CTA owns 64 query rows and
-//   walks 64-key tiles (those wholly in the causal future skipped). Shared
-//   memory (65 KB): a Q and a K chunk transposed ([32][64] each), P
-//   transposed ([64 keys][68]) and the tile's V slice [64][128]. The row
-//   max and sum reduce over the 16 threads of a row with shuffles. Slice
-//   0 writes lse.
-// - Backward: the grid is (Sk/64, BH, D/128); a CTA owns 64 keys and
-//   walks the 64-query tiles at or after them (causal) or all of them.
-//   Shared memory (163 KB): K, Q, V and dO chunks transposed, the K slice
-//   (loaded once), the query tile's Q and dO slices, P and dS ([64
-//   queries][68]), the tile's lse and delta. dk and dv (4 x 8 a thread)
-//   stay in registers; each tile's dq slice is added straight into the
-//   f32 dq with atomic adds (RED), in an order that changes from run to
-//   run, so there is no dq rounding launch.
+// Products: 3xTF32. One TF32 pass rounds each operand to 10 mantissa bits
+// (2^-11), which breaks the tolerances the JAX package holds its own f32
+// kernels to (o atol 2e-5, tests/test_ring_attention.py:235; dq, dk, dv
+// atol 1e-4, :314). So each f32 operand x is split into big = tf32(x)
+// (rounded as cvt.rna rounds) and small = tf32(x - big), and every product is
+// small.big + big.small + big.big (the small terms first), accumulated in
+// f32: the dropped small.small term and the rounding of small are near
+// 2^-22 of x, close to f32's own 2^-24. The same split as CUTLASS's
+// OpMultiplyAddFastF32, written here on mma.sync.m16n8k8.tf32: it takes
+// both operands from registers, so the softmax's p (and the backward's
+// ds) feed the next product from the score fragments with no trip
+// through shared memory, and V, dO and Q serve as the row-major B operand
+// of p.V, p^T.dO and ds^T.Q as they lie. wgmma's tf32 form wants both
+// operands K-major in shared memory, which would need transposed copies
+// of V, dO and Q and a store of every p tile. The score fragment's
+// columns (2t, 2t+1 of thread t) are read as the A fragment's k indices
+// t and t + 4, so the B operand's rows are taken in that order too
+// (load_b_kn): no shuffle.
+//
+// What bounds them: the tensor cores' TF32 rate, three products for one
+// f32-accurate product: 3 x operations / 495 TFLOP/s (165 TFLOP/s f32-
+// accurate), above the bytes at every shape the ViT runs. mma.sync takes
+// its operands from registers, so the split's rounding, the fragment
+// loads and the softmax share the issue slots with the products; the
+// rounding is done in two integer instructions, not cvt.rna's four (see
+// split). At the f32 ViT's serving shape (BH 8, S 8448, D 128) the
+// forward runs 5.96 ms against a 1.77 ms bound (147 TFLOP/s of TF32
+// products) and the backward 14.2 against 4.43 (155), on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py's flash_kernel and flash_bwd rows);
+// tools/flash_f32_ablation.py prices dq's atomic adds, the cluster's
+// exchange and the rounding.
+//
+// Accuracy: the tensor core adds into its f32 accumulator with less care
+// than an FFMA, so a sum carried in the accumulator across the whole
+// sequence (o in the forward, dk and dv in the backward: thousands of
+// products at S 8448) drifts farther from f32 than one formed a tile at
+// a time and added in f32 (the ablation's tile_sums variant, whose
+// registers this kernel does not have to spare). The JAX package's f32
+// tolerances hold; chip_smoke.py prints the errors.
+//
+// Scores once per tile at every head dim. A CTA owns one 128-column slice
+// of D (of o; of dk, dv and dq in the backward), and the D/128 CTAs that
+// share a query tile (forward) or a key tile (backward) are one thread-
+// block cluster (dims (1, 1, D/128), at most 8). Each CTA forms the
+// partial s (and dp) over its own 128 columns only; the partials are
+// summed through distributed shared memory (cluster_sum: each CTA sums
+// 1/C of the tile over the C ranks in rank order, then every CTA gathers
+// the sums), so every CTA holds the same full s, formed once, and applies
+// p (ds) to its own slice. Cost: two cluster barriers (three in the
+// forward) and 2 x 16 KB (32 KB in the backward) of shared-memory
+// traffic a tile, most of it remote, and in the backward 48 KB more
+// shared memory. At D 128 the cluster is 1 and no exchange runs.
+//
+// - Forward: grid (Sq/64, BH, D/128); 128 threads, a warp owning 16 query
+//   rows (its o slice 16 x 128 in registers), walking 64-key tiles (those
+//   wholly in the causal future skipped). Shared memory: the Q slice, a
+//   K slice and a V slice (64 x 132 floats each, rows padded so that
+//   every fragment read is free of bank conflicts; padding, not a
+//   swizzle, since mma.sync's fragments are read by plain loads), by
+//   cp.async, one buffer each: K of the next tile loads during the
+//   softmax and p.V, V during the next s (room for two buffers would
+//   cost the second CTA on the SM). With
+//   a cluster, K's room holds the exchange once s is formed (a third
+//   cluster barrier, split around the softmax, frees it for the next K),
+//   so 99 KB at every head dim: two CTAs an SM, whose barriers the other
+//   CTA's work covers. Cluster rank 0 writes lse.
+// - Backward: grid (Sk/64, BH, D/128); 256 threads: warp w owns 16 keys
+//   (w % 4) and one half of each 64-query tile (w / 4), and holds dk and
+//   dv of its keys over its half's queries in registers (the halves are
+//   summed through shared memory at the end), walking the query tiles at
+//   or after its keys (causal) or all of them. Shared memory: the K and V
+//   slices (loaded once), the tile's Q and dO slices, lse and delta, and
+//   ds^T for dq: 150 KB, 197 KB with a cluster, one CTA an SM. Per tile:
+//   s^T then dp^T (keys x queries; one A fragment live at a time beside dk
+//   and dv: 255 registers, no spill), p^T and ds^T in registers, dv +=
+//   p^T.dO and dk += ds^T.Q, then dq's slice = ds.K (a warp: 16 queries,
+//   64 columns) added into the f32 dq with float4 atomic adds (RED), in
+//   an order that changes from run to run; the next tile's Q and dO load
+//   during that product. tools/flash_f32_ablation.py prices the adds and
+//   the cluster's exchange.
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kB = 64;        // query rows (forward) or keys (backward) a CTA, and a tile
-constexpr int kDC = 32;       // columns of D a chunk
-constexpr int kSlice = 128;   // output columns a CTA
-constexpr int kMaxD = 1024;   // flash.py:255-259 _MAX_HEAD_DIM
-constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16 owns rows 4ty.., tx = tid % 16
-constexpr int kPad = kB + 4;  // a P or dS row: 68 floats (16-byte aligned, fewer bank conflicts)
-constexpr float kNegInf = -1e30f;  // flash.py NEG_INF
+constexpr int kB = 64;                       // rows a CTA owns, and the tile it walks
+constexpr int kSlice = 128;                  // columns of D a CTA
+constexpr int kMaxD = 1024;                  // flash.py:255-259 _MAX_HEAD_DIM
+constexpr int kFwdThreads = 128;             // forward: 4 warps of 16 query rows
+constexpr int kBwdThreads = 256;             // backward: 8 warps of 16 keys x 32 queries
+constexpr int kLd = kSlice + 4;              // an operand tile's row: 132 floats
+constexpr int kDsLd = kB + 4;                // a row of ds^T: 68 floats
+constexpr int kTile = kB * kLd;              // floats of an operand tile
+constexpr int kFrag4 = kB * kB / 4;          // float4s of a 64 x 64 score tile
+constexpr float kNegInf = -1e30f;            // flash.py NEG_INF
 
-// forward shared memory, in floats
-constexpr int kFQt = 0;                    // Q chunk transposed [kDC][kB]
-constexpr int kFKt = kFQt + kDC * kB;      // K chunk transposed [kDC][kB]
-constexpr int kFPt = kFKt + kDC * kB;      // P transposed [kB keys][kPad]
-constexpr int kFV = kFPt + kB * kPad;      // V slice [kB keys][kSlice]
-constexpr int kFwdSmem = (kFV + kB * kSlice) * 4;
-// backward shared memory, in floats
-constexpr int kBKt = 0;                    // K, Q, V, dO chunks transposed [kDC][kB] each
-constexpr int kBQt = kBKt + kDC * kB;
-constexpr int kBVt = kBQt + kDC * kB;
-constexpr int kBOt = kBVt + kDC * kB;
-constexpr int kBKs = kBOt + kDC * kB;      // K slice [kB keys][kSlice]
-constexpr int kBQs = kBKs + kB * kSlice;   // Q slice [kB queries][kSlice]
-constexpr int kBOs = kBQs + kB * kSlice;   // dO slice
-constexpr int kBP = kBOs + kB * kSlice;    // P [kB queries][kPad]
-constexpr int kBDs = kBP + kB * kPad;      // dS [kB queries][kPad]
-constexpr int kBRows = kBDs + kB * kPad;   // lse [kB], delta [kB]
-constexpr int kBwdSmem = (kBRows + 2 * kB) * 4;
-static_assert(kFwdSmem <= 232448 && kBwdSmem <= 232448, "shared memory");
+// forward shared memory, in floats: Q, K, V slices; with a cluster the
+// K slice's room holds the partial and the summed score tiles once s is
+// formed, until the next K
+constexpr int kFQ = 0, kFK = kTile, kFV = 2 * kTile;
+constexpr int kFwdSmem = 3 * kTile * 4;
+static_assert(8 * kFrag4 <= kTile, "the cluster's exchange fits K's room");
+// backward: K, V, Q, dO slices, lse and delta rows, then the partial s^T
+// and dp^T (whose room ds^T takes once they are summed) and the sums
+constexpr int kBK = 0, kBV = kTile, kBQ = 2 * kTile, kBO = 3 * kTile, kBRows = 4 * kTile;
+constexpr int kBPart = kBRows + 2 * kB;
+constexpr int kBFull = kBPart + 8 * kFrag4;
+constexpr int kBwdSmem = (kBPart + kB * kDsLd) * 4, kBwdClusterSmem = (kBFull + 8 * kFrag4) * 4;
+static_assert(kB * kDsLd <= 8 * kFrag4, "ds^T fits the partials' room");
+static_assert(kBwdClusterSmem <= 232448, "shared memory");
 
-// rows r0..r0+63 and columns c..c+31 of a row-major [., D] matrix into a
-// transposed chunk t[32][64] (t[d][r] = x[r0 + r][c + d]): thread i reads
-// float4s of row i % 64
-__device__ __forceinline__ void load_chunk_t(float* __restrict__ t, const float* __restrict__ x,
-                                             long long r0, int c, int D) {
-#pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    const int idx = threadIdx.x + kThreads * it;
-    const int r = idx % kB, d4 = 4 * (idx / kB);
-    const float4 v = *reinterpret_cast<const float4*>(x + (r0 + r) * D + c + d4);
-    t[(d4 + 0) * kB + r] = v.x;
-    t[(d4 + 1) * kB + r] = v.y;
-    t[(d4 + 2) * kB + r] = v.z;
-    t[(d4 + 3) * kB + r] = v.w;
-  }
+// -- copies ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows r0..r0+63 and columns c0..c0+127 of a row-major [., D] matrix into
-// s[64][128]
-__device__ __forceinline__ void load_slice(float* __restrict__ s, const float* __restrict__ x,
-                                           long long r0, int c0, int D) {
+// t[64][kLd] by T threads: a warp copies one row's 512 bytes
+template <int T>
+__device__ __forceinline__ void load_tile(float* t, const float* x, long long r0, int c0, int D) {
 #pragma unroll
-  for (int it = 0; it < kB * kSlice / 4 / kThreads; ++it) {
-    const int idx = threadIdx.x + kThreads * it;
+  for (int it = 0; it < kB * kSlice / 4 / T; ++it) {
+    const int idx = threadIdx.x + T * it;
     const int r = idx / (kSlice / 4), c4 = 4 * (idx % (kSlice / 4));
-    *reinterpret_cast<float4*>(s + r * kSlice + c4) =
-        *reinterpret_cast<const float4*>(x + (r0 + r) * D + c0 + c4);
+    cp_async16(t + r * kLd + c4, x + (r0 + r) * D + c0 + c4);
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float get(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+// -- 3xTF32 products ------------------------------------------------------------
+
+struct FragA {  // m16 x k8: rows g, g + 8 at k t, t + 4 (t = lane % 4, g = lane / 4)
+  uint32_t big[4], small[4];
+};
+struct FragB {  // k8 x n8: k t, t + 4 at column g
+  uint32_t big[2], small[2];
+};
+
+// x ~ big + small, each rounded to TF32 as cvt.rna.tf32.f32 rounds
+// (nearest, halves away from zero) but in integer arithmetic: add half of
+// the 13 dropped bits' range to the magnitude, then clear them. On this
+// card cvt.rna compiles to four instructions (an infinity test and a
+// select besides these two), and the split's rounding is the largest
+// share of the kernels' instructions (tools/flash_f32_ablation.py's
+// cvt_rna variant prices the difference). The two differ only in a NaN's
+// payload; a NaN or an infinity still reaches the product.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+__device__ __forceinline__ FragA frag_a(float x0, float x1, float x2, float x3) {
+  FragA a;
+  split(x0, a.big[0], a.small[0]);
+  split(x1, a.big[1], a.small[1]);
+  split(x2, a.big[2], a.small[2]);
+  split(x3, a.big[3], a.small[3]);
+  return a;
+}
+__device__ __forceinline__ FragB frag_b(float x0, float x1) {
+  FragB b;
+  split(x0, b.big[0], b.small[0]);
+  split(x1, b.big[1], b.small[1]);
+  return b;
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a.b in three TF32 products, the two small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
 }
 
-// acc[i][j] += a[i] * b[j] over the 32 columns of a transposed chunk pair
-__device__ __forceinline__ void chunk_product(float (&acc)[4][4], const float* at, const float* bt,
-                                              int ra, int rb) {
-#pragma unroll 2
-  for (int d = 0; d < kDC; ++d) {
-    const float4 a = ld4(at + d * kB + ra), b = ld4(bt + d * kB + rb);
+// A from a row-major [row][k] tile: rows r0 + g (+8), columns kk + t (+4)
+__device__ __forceinline__ FragA load_a(const float* s, int r0, int kk, int g, int t) {
+  const float* p = s + (r0 + g) * kLd + kk + t;
+  return frag_a(p[0], p[8 * kLd], p[4], p[8 * kLd + 4]);
+}
+// B = X^T from a row-major [n][k] tile X (K for q.k^T): column n0 + g
+__device__ __forceinline__ FragB load_b_nk(const float* s, int n0, int kk, int g, int t) {
+  const float* p = s + (n0 + g) * kLd + kk + t;
+  return frag_b(p[0], p[4]);
+}
+// B from a row-major [k][n] tile (V, dO, Q, K as the right operand), with
+// k index t read from row kk + 2t and t + 4 from row kk + 2t + 1: the
+// order in which a score fragment holds its columns (a_from_scores)
+__device__ __forceinline__ FragB load_b_kn(const float* s, int kk, int n0, int g, int t) {
+  const float* p = s + (kk + 2 * t) * kLd + n0 + g;
+  return frag_b(p[0], p[kLd]);
+}
+// A from the score fragment c of one 16 x 8 block (c0, c1 at row g,
+// columns 2t, 2t + 1; c2, c3 at row g + 8): k index t is column 2t
+__device__ __forceinline__ FragA a_from_scores(const float (&c)[4]) {
+  return frag_a(c[0], c[2], c[1], c[3]);
+}
+
+// -- the cluster's score sum ----------------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// x holds this CTA's partial 64 x 64 tiles (N of them) over its slice of
+// D, as the fragments of T threads (NB blocks of 16 x 8 a warp); on return
+// it holds their sums over the cluster's C ranks, the same in every CTA.
+// part and full are this CTA's rooms of N x kFrag4 float4s. Each CTA sums
+// its 1/C of the fragment-ordered tiles over the ranks in rank order into
+// full; every CTA then reads each sum from the CTA that formed it.
+template <int T, int N, int NB>
+__device__ __forceinline__ void cluster_sum(float (&x)[N][NB][4], float* part, float* full,
+                                            int rank, int nc) {
+  static_assert(T / 32 * NB * 32 == kFrag4, "the warps' fragments tile 64 x 64");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int base = (threadIdx.x / 32) * NB * 32 + threadIdx.x % 32;  // (warp * NB + nb) * 32 + lane
+  float4* p4 = reinterpret_cast<float4*>(part);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float ai = get(a, i);
-      acc[i][0] = fmaf(ai, b.x, acc[i][0]);
-      acc[i][1] = fmaf(ai, b.y, acc[i][1]);
-      acc[i][2] = fmaf(ai, b.z, acc[i][2]);
-      acc[i][3] = fmaf(ai, b.w, acc[i][3]);
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      p4[i * kFrag4 + base + 32 * nb] = make_float4(x[i][nb][0], x[i][nb][1], x[i][nb][2], x[i][nb][3]);
+  cluster.sync();  // every rank's partials are written
+  const int chunk = (N * kFrag4 + nc - 1) / nc;
+  const int lo = rank * chunk, hi = min(N * kFrag4, lo + chunk);
+  for (int i = lo + static_cast<int>(threadIdx.x); i < hi; i += T) {
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int r = 0; r < nc; ++r) {
+      const float4 y = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r))[i];
+      s.x += y.x;
+      s.y += y.y;
+      s.z += y.z;
+      s.w += y.w;
     }
+    reinterpret_cast<float4*>(full)[i] = s;
+  }
+  cluster.sync();  // every sum is formed (and every partial read)
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int idx = i * kFrag4 + base + 32 * nb;
+      const float4 y =
+          reinterpret_cast<const float4*>(cluster.map_shared_rank(full, idx / chunk))[idx];
+      x[i][nb][0] = y.x;
+      x[i][nb][1] = y.y;
+      x[i][nb][2] = y.z;
+      x[i][nb][3] = y.w;
+    }
+}
+
+// dq rows g (+8), columns 8 nb + 2t (+1) of a 16 x 8 NB block held as
+// fragments, added into dq: pairs traded with the neighbouring thread so
+// that each adds float4s, even threads row g, odd ones row g + 8
+template <int NB>
+__device__ __forceinline__ void add_dq(float* dq, const float (&part)[NB][4], int D, int g, int t) {
+  const bool odd = t & 1;
+  float* row = dq + static_cast<long long>(g + (odd ? 8 : 0)) * D + 4 * (t >> 1);
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const float y0 = __shfl_xor_sync(0xffffffffu, odd ? part[nb][0] : part[nb][2], 1);
+    const float y1 = __shfl_xor_sync(0xffffffffu, odd ? part[nb][1] : part[nb][3], 1);
+    const float4 val = odd ? make_float4(y0, y1, part[nb][2], part[nb][3])
+                           : make_float4(part[nb][0], part[nb][1], y0, y1);
+    atomicAdd(reinterpret_cast<float4*>(row + 8 * nb), val);
   }
 }
 
-// acc[i][h * 4 + e] += a[i] * row[4 tx + 64 h + e] over 64 rows: a from
-// column-contiguous rows (a_rows[r * kPad + 4 ty + i]), the other
-// operand's rows of 128
-__device__ __forceinline__ void slice_product(float (&acc)[4][8], const float* a_rows, int ra,
-                                              const float* rows, int tx) {
-#pragma unroll 4
-  for (int r = 0; r < kB; ++r) {
-    const float4 a = ld4(a_rows + r * kPad + ra);
-    const float4 b0 = ld4(rows + r * kSlice + 4 * tx), b1 = ld4(rows + r * kSlice + 64 + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float ai = get(a, i);
-      acc[i][0] = fmaf(ai, b0.x, acc[i][0]);
-      acc[i][1] = fmaf(ai, b0.y, acc[i][1]);
-      acc[i][2] = fmaf(ai, b0.z, acc[i][2]);
-      acc[i][3] = fmaf(ai, b0.w, acc[i][3]);
-      acc[i][4] = fmaf(ai, b1.x, acc[i][4]);
-      acc[i][5] = fmaf(ai, b1.y, acc[i][5]);
-      acc[i][6] = fmaf(ai, b1.z, acc[i][6]);
-      acc[i][7] = fmaf(ai, b1.w, acc[i][7]);
-    }
-  }
-}
+// -- forward --------------------------------------------------------------------
 
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  const int Sq, const int Sk, const int D, const float sm_scale) {
@@ -162,89 +319,118 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sm = reinterpret_cast<float*>(smem4);
   const int q0 = blockIdx.x * kB;
   const int bh = blockIdx.y;
-  const int c0 = blockIdx.z * kSlice;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int rank = blockIdx.z, nc = gridDim.z;  // the cluster spans z
+  const int c0 = rank * kSlice;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;
   const long long qrow = static_cast<long long>(bh) * Sq + q0;
+  const long long kbase = static_cast<long long>(bh) * Sk;
   int n_tiles = Sk / kB;
   if (kCausal) n_tiles = min(n_tiles, (q0 + 2 * kB - 1) / kB);  // flash.py:147-152
 
-  float acc[4][8] = {};  // o rows 4ty + i, columns 4tx + 64h + e (index 4h + e)
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
+  load_tile<kFwdThreads>(sm + kFQ, q, qrow, c0, D);
+  load_tile<kFwdThreads>(sm + kFK, k, kbase, c0, D);
+  cp_async_commit();
+  load_tile<kFwdThreads>(sm + kFV, v, kbase, c0, D);
+  cp_async_commit();
 
+  float acc[16][4] = {};  // o rows r0 + g (+8), columns 8 nb + 2t (+1)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};  // rows g, g + 8; l: this thread's columns
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kB;
-    const long long krow = static_cast<long long>(bh) * Sk + k0;
-    float s[4][4] = {};  // rows 4ty + i, keys 4tx + jj
-    for (int c = 0; c < D; c += kDC) {
-      __syncthreads();  // the last chunk's (and the last tile's P and V) readers are done
-      load_chunk_t(sm + kFQt, q, qrow, c, D);
-      load_chunk_t(sm + kFKt, k, krow, c, D);
-      if (c == 0) load_slice(sm + kFV, v, krow, c0, D);
-      __syncthreads();
-      chunk_product(s, sm + kFQt, sm + kFKt, 4 * ty, 4 * tx);
+    cp_async_wait<1>();  // Q and this tile's K
+    __syncthreads();
+    float s[1][8][4] = {};  // rows r0 + g (+8), keys 8 nb + 2t (+1)
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 8) {
+      const FragA a = load_a(sm + kFQ, r0, kk, g, t);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) mma3(s[0][nb], a, load_b_nk(sm + kFK, 8 * nb, kk, g, t));
+    }
+    __syncthreads();  // every warp has read K
+    if (nc == 1) {
+      if (j + 1 < n_tiles) load_tile<kFwdThreads>(sm + kFK, k, kbase + k0 + kB, c0, D);
+      cp_async_commit();
+    } else {
+      // K's room holds the exchange until every rank has read its sums
+      cluster_sum<kFwdThreads>(s, sm + kFK, sm + kFK + 4 * kFrag4, rank, nc);
+      cluster_arrive_release();  // this CTA has read its peers' sums
     }
     // scale and mask (masked scores -inf: p = 0 below), the row max over
-    // the 16 threads of the row, the online update (flash.py:180-197)
-    float mr[4];
+    // the four threads of a row, the online update (flash.py:180-197)
+    float mr[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      mr[i] = -INFINITY;
+    for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float x = s[i][jj] * sm_scale;
-        if (kCausal && k0 + 4 * tx + jj > q0 + 4 * ty + i) x = -INFINITY;
-        s[i][jj] = x;
-        mr[i] = fmaxf(mr[i], x);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[0][nb][e] * sm_scale;
+        if (kCausal && k0 + 8 * nb + 2 * t + (e & 1) > q0 + r0 + g + 8 * (e >> 1)) x = -INFINITY;
+        s[0][nb][e] = x;
+        mr[e >> 1] = fmaxf(mr[e >> 1], x);
       }
 #pragma unroll
-      for (int w = 1; w < 16; w <<= 1) mr[i] = fmaxf(mr[i], __shfl_xor_sync(0xffffffffu, mr[i], w));
-    }
-    float* pt = sm + kFPt;
+    for (int h = 0; h < 2; ++h) {
+      mr[h] = fmaxf(mr[h], __shfl_xor_sync(0xffffffffu, mr[h], 1));
+      mr[h] = fmaxf(mr[h], __shfl_xor_sync(0xffffffffu, mr[h], 2));
+      const float mx = fmaxf(m[h], mr[h]);
+      const float alpha = m[h] <= kNegInf / 2 ? 0.0f : expf(m[h] - mx);
+      m[h] = mx;
+      l[h] *= alpha;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mx = fmaxf(m[i], mr[i]);
-      const float alpha = m[i] <= kNegInf / 2 ? 0.0f : expf(m[i] - mx);
-      float rs = 0.0f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - mx);
-        s[i][jj] = p;
-        rs += p;
+      for (int nb = 0; nb < 16; ++nb) {
+        acc[nb][2 * h] *= alpha;
+        acc[nb][2 * h + 1] *= alpha;
       }
-#pragma unroll
-      for (int w = 1; w < 16; w <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      l[i] = l[i] * alpha + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
     }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      *reinterpret_cast<float4*>(pt + (4 * tx + jj) * kPad + 4 * ty) =
-          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[0][nb][e] - m[e >> 1]);
+        s[0][nb][e] = p;
+        l[e >> 1] += p;
+      }
+    if (nc > 1) {
+      cluster_wait_acquire();  // every rank has read this CTA's sums: K's room is free
+      if (j + 1 < n_tiles) load_tile<kFwdThreads>(sm + kFK, k, kbase + k0 + kB, c0, D);
+      cp_async_commit();
+    }
+    cp_async_wait<1>();  // this tile's V
     __syncthreads();
     // o += p . v over the tile's 64 keys
-    slice_product(acc, pt, 4 * ty, sm + kFV, tx);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const FragA a = a_from_scores(s[0][ks]);
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) mma3(acc[nb], a, load_b_kn(sm + kFV, 8 * ks, 8 * nb, g, t));
+    }
+    __syncthreads();  // every warp has read V
+    if (j + 1 < n_tiles) load_tile<kFwdThreads>(sm + kFV, v, kbase + k0 + kB, c0, D);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
 
-  // o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)) from slice 0
+  // o = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)) from rank 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float ls = fmaxf(l[i], 1e-30f);
-    float* orow = o + (qrow + 4 * ty + i) * D + c0 + 4 * tx;
+  for (int h = 0; h < 2; ++h) {
+    float ls = l[h];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    ls = fmaxf(ls, 1e-30f);
+    const long long row = qrow + r0 + g + 8 * h;
+    float* orow = o + row * D + c0 + 2 * t;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float4*>(orow + 64 * h) =
-          make_float4(acc[i][4 * h] / ls, acc[i][4 * h + 1] / ls, acc[i][4 * h + 2] / ls,
-                      acc[i][4 * h + 3] / ls);
-    if (blockIdx.z == 0 && tx == 0) lse[qrow + 4 * ty + i] = m[i] + logf(ls);
+    for (int nb = 0; nb < 16; ++nb)
+      *reinterpret_cast<float2*>(orow + 8 * nb) =
+          make_float2(acc[nb][2 * h] / ls, acc[nb][2 * h + 1] / ls);
+    if (rank == 0 && t == 0) lse[row] = m[h] + logf(ls);
   }
 }
 
+// -- backward -------------------------------------------------------------------
+
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -254,99 +440,134 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sm = reinterpret_cast<float*>(smem4);
   const int k0 = blockIdx.x * kB;
   const int bh = blockIdx.y;
-  const int c0 = blockIdx.z * kSlice;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int rank = blockIdx.z, nc = gridDim.z;
+  const int c0 = rank * kSlice;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int kr = 16 * (warp % 4);  // this warp's keys (and, for dq, its queries)
+  const int qh = 32 * (warp / 4);  // its half of a query tile (and, for dq, of the columns)
   const long long krow = static_cast<long long>(bh) * Sk + k0;
+  const long long qbase = static_cast<long long>(bh) * Sq;
   // query tiles with a query at or after k0 are live (flash.py:147-152)
   const int first = kCausal ? k0 / kB : 0;
   const int n_tiles = max(Sq / kB - first, 0);
 
-  float gk[4][8] = {}, gv[4][8] = {};  // dk, dv: keys 4ty + i, columns 4tx + 64h + e
-  load_slice(sm + kBKs, k, krow, c0, D);
+  auto load_query_tile = [&](int j) {
+    const long long qrow = qbase + (first + j) * kB;
+    load_tile<kBwdThreads>(sm + kBQ, q, qrow, c0, D);
+    load_tile<kBwdThreads>(sm + kBO, dout, qrow, c0, D);
+    if (threadIdx.x < kB) cp_async4(sm + kBRows + threadIdx.x, lse + qrow + threadIdx.x);
+    else if (threadIdx.x < 2 * kB)
+      cp_async4(sm + kBRows + threadIdx.x, delta + qrow + threadIdx.x - kB);
+  };
+  load_tile<kBwdThreads>(sm + kBK, k, krow, c0, D);
+  load_tile<kBwdThreads>(sm + kBV, v, krow, c0, D);
+  if (n_tiles > 0) load_query_tile(0);
+  cp_async_commit();
+
+  // dk, dv over this warp's half of each query tile: keys kr + g (+8),
+  // columns 8 nb + 2t (+1)
+  float gk[16][4] = {}, gv[16][4] = {};
   for (int j = 0; j < n_tiles; ++j) {
     const int q0 = (first + j) * kB;
-    const long long qrow = static_cast<long long>(bh) * Sq + q0;
-    // s^T and dp^T: keys 4ty + i, queries 4tx + jj, over all of D
-    float st[4][4] = {}, dpt[4][4] = {};
-    for (int c = 0; c < D; c += kDC) {
-      __syncthreads();  // the last chunk's (and the last tile's P, dS and slices) readers are done
-      load_chunk_t(sm + kBKt, k, krow, c, D);
-      load_chunk_t(sm + kBQt, q, qrow, c, D);
-      load_chunk_t(sm + kBVt, v, krow, c, D);
-      load_chunk_t(sm + kBOt, dout, qrow, c, D);
-      if (c == 0) {
-        load_slice(sm + kBQs, q, qrow, c0, D);
-        load_slice(sm + kBOs, dout, qrow, c0, D);
-        if (threadIdx.x < kB) {
-          sm[kBRows + threadIdx.x] = lse[qrow + threadIdx.x];
-          sm[kBRows + kB + threadIdx.x] = delta[qrow + threadIdx.x];
-        }
-      }
-      __syncthreads();
-      chunk_product(st, sm + kBKt, sm + kBQt, 4 * ty, 4 * tx);
-      chunk_product(dpt, sm + kBVt, sm + kBOt, 4 * ty, 4 * tx);
-    }
-    // p = exp(s * scale - lse), zero in the causal future; ds = p (dp -
-    // delta) scale, both f32 (flash.py:293-311), into P and dS [query][key]
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int qi = 4 * tx + jj;
-      const float lq = sm[kBRows + qi], dl = sm[kBRows + kB + qi];
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = expf(st[i][jj] * sm_scale - lq);
-        if (kCausal && k0 + 4 * ty + i > q0 + qi) x = 0.0f;
-        p[i] = x;
-        ds[i] = x * (dpt[i][jj] - dl) * sm_scale;
-      }
-      *reinterpret_cast<float4*>(sm + kBP + qi * kPad + 4 * ty) = make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(sm + kBDs + qi * kPad + 4 * ty) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
+    cp_async_wait<0>();  // this tile's Q, dO, lse, delta (and K, V)
     __syncthreads();
-    // dv += p^T . dO_slice, dk += ds^T . Q_slice over the tile's 64 queries
-    slice_product(gv, sm + kBP, 4 * ty, sm + kBOs, tx);
-    slice_product(gk, sm + kBDs, 4 * ty, sm + kBQs, tx);
-    // dq_slice = dS . K_slice over the CTA's 64 keys for queries 4ty + i,
-    // added into dq
-    float part[4][8] = {};
-#pragma unroll 4
-    for (int r = 0; r < kB; ++r) {
-      const float4 b0 = ld4(sm + kBKs + r * kSlice + 4 * tx);
-      const float4 b1 = ld4(sm + kBKs + r * kSlice + 64 + 4 * tx);
+    // s^T and dp^T: keys kr + g (+8), queries qh + 8 nb + 2t (+1)
+    // (one product at a time: one A fragment live beside dk and dv)
+    float x[2][4][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = sm[kBDs + (4 * ty + i) * kPad + r];
-        part[i][0] = fmaf(ai, b0.x, part[i][0]);
-        part[i][1] = fmaf(ai, b0.y, part[i][1]);
-        part[i][2] = fmaf(ai, b0.z, part[i][2]);
-        part[i][3] = fmaf(ai, b0.w, part[i][3]);
-        part[i][4] = fmaf(ai, b1.x, part[i][4]);
-        part[i][5] = fmaf(ai, b1.y, part[i][5]);
-        part[i][6] = fmaf(ai, b1.z, part[i][6]);
-        part[i][7] = fmaf(ai, b1.w, part[i][7]);
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll 4
+      for (int kk = 0; kk < kSlice; kk += 8) {
+        const FragA a = load_a(sm + (i ? kBV : kBK), kr, kk, g, t);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          mma3(x[i][nb], a, load_b_nk(sm + (i ? kBO : kBQ), qh + 8 * nb, kk, g, t));
       }
     }
+    if (nc > 1) cluster_sum<kBwdThreads>(x, sm + kBPart, sm + kBFull, rank, nc);
+    // p = exp(s * scale - lse), zero in the causal future; ds = p (dp -
+    // delta) scale, both f32 (flash.py:293-311)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* row = dq + (qrow + 4 * ty + i) * D + c0 + 4 * tx;
+    for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) atomicAdd(row + 64 * (e >> 2) + (e & 3), part[i][e]);
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qh + 8 * nb + 2 * t + (e & 1);
+        float p = expf(x[0][nb][e] * sm_scale - sm[kBRows + qi]);
+        if (kCausal && k0 + kr + g + 8 * (e >> 1) > q0 + qi) p = 0.0f;
+        x[0][nb][e] = p;
+        x[1][nb][e] = p * (x[1][nb][e] - sm[kBRows + kB + qi]) * sm_scale;
+      }
+    // dv += p^T . dO, dk += ds^T . Q over this warp's 32 queries
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const FragA a = a_from_scores(x[0][ks]);
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) mma3(gv[nb], a, load_b_kn(sm + kBO, qh + 8 * ks, 8 * nb, g, t));
     }
-  }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long off = (krow + 4 * ty + i) * D + c0 + 4 * tx;
+    for (int ks = 0; ks < 4; ++ks) {
+      const FragA a = a_from_scores(x[1][ks]);
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) mma3(gk[nb], a, load_b_kn(sm + kBQ, qh + 8 * ks, 8 * nb, g, t));
+    }
+    // ds^T [key][query] for dq (in the partials' room: every rank has
+    // read them)
+    float* dst = sm + kBPart;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[(kr + g + 8 * (e >> 1)) * kDsLd + qh + 8 * nb + 2 * t + (e & 1)] = x[1][nb][e];
+    __syncthreads();  // ds^T written; every warp is done with Q, dO, lse and delta
+    if (j + 1 < n_tiles) load_query_tile(j + 1);
+    cp_async_commit();
+    // dq for queries q0 + kr + g (+8), columns c0 + 2 qh + 8 nb + 2t (+1):
+    // ds . K over this CTA's 64 keys, k index t read from key 2t
+    // (a_from_scores' order)
+    float part[8][4] = {};
+#pragma unroll 1  // unrolled, the hoisted fragment loads spill beside dk and dv
+    for (int ks = 0; ks < 8; ++ks) {
+      const float* p = dst + (8 * ks + 2 * t) * kDsLd + kr + g;
+      const FragA a = frag_a(p[0], p[8], p[kDsLd], p[kDsLd + 8]);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        mma3(part[nb], a, load_b_kn(sm + kBK, 8 * ks, 2 * qh + 8 * nb, g, t));
+    }
+    add_dq(dq + (qbase + q0 + kr) * D + c0 + 2 * qh, part, D, g, t);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the Q and dO rooms
+
+  // the two query halves' dk and dv: the second half's through shared
+  // memory (the Q and dO rooms), added to the first's, which stores them
+  float* hk = sm + kBQ + (kr + g) * kLd + 2 * t;
+  float* hv = sm + kBO + (kr + g) * kLd + 2 * t;
+  if (qh != 0) {
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(hk + 8 * h * kLd + 8 * nb) = make_float2(gk[nb][2 * h], gk[nb][2 * h + 1]);
+        *reinterpret_cast<float2*>(hv + 8 * h * kLd + 8 * nb) = make_float2(gv[nb][2 * h], gv[nb][2 * h + 1]);
+      }
+  }
+  __syncthreads();
+  if (qh == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<float4*>(dk + off + 64 * h) =
-          make_float4(gk[i][4 * h], gk[i][4 * h + 1], gk[i][4 * h + 2], gk[i][4 * h + 3]);
-      *reinterpret_cast<float4*>(dv + off + 64 * h) =
-          make_float4(gv[i][4 * h], gv[i][4 * h + 1], gv[i][4 * h + 2], gv[i][4 * h + 3]);
+      const long long off = (krow + kr + g + 8 * h) * D + c0 + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const float2 ok = *reinterpret_cast<const float2*>(hk + 8 * h * kLd + 8 * nb);
+        const float2 ov = *reinterpret_cast<const float2*>(hv + 8 * h * kLd + 8 * nb);
+        *reinterpret_cast<float2*>(dk + off + 8 * nb) =
+            make_float2(gk[nb][2 * h] + ok.x, gk[nb][2 * h + 1] + ok.y);
+        *reinterpret_cast<float2*>(dv + off + 8 * nb) =
+            make_float2(gv[nb][2 * h] + ov.x, gv[nb][2 * h + 1] + ov.y);
+      }
     }
   }
+  if (nc > 1) cg::this_cluster().sync();  // the peers have read this CTA's sums
 }
 
 bool shapes_ok(int BH, int Sq, int Sk, int D, int causal) {
@@ -358,9 +579,37 @@ bool shapes_ok(int BH, int Sq, int Sk, int D, int causal) {
 
 bool aligned(const void* p) { return p && reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// once a kernel: the dynamic shared memory of a cluster launch, and the
+// whole shared/L1 carveout as shared memory (two CTAs an SM at D 128)
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t configure(Kernel kernel, int bytes) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err != cudaSuccess ? err
+                            : cudaFuncSetAttribute(kernel,
+                                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                   cudaSharedmemCarveoutMaxShared);
+}
+
+// grid (x, BH, D/128), the D/128 CTAs of a z column one cluster, with
+// room for the cluster's exchange only where it has more than one CTA
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int x, int BH, int D, int threads, int smem, int cluster_smem,
+                   void* stream, Args... args) {
+  const int nc = D / kSlice;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(x, BH, nc);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = nc > 1 ? cluster_smem : smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = nc;
+  cfg.attrs = &attr;
+  cfg.numAttrs = nc > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace
@@ -376,15 +625,16 @@ extern "C" int flash_f32_launch(const void* q, const void* k, const void* v, voi
       !aligned(o) || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = [] {
-    const cudaError_t a = allow_smem(flash_f32_kernel<false>, kFwdSmem);
-    return a != cudaSuccess ? a : allow_smem(flash_f32_kernel<true>, kFwdSmem);
+    const cudaError_t a = configure(flash_f32_kernel<false>, kFwdSmem);
+    return a != cudaSuccess ? a : configure(flash_f32_kernel<true>, kFwdSmem);
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const auto kernel = causal ? flash_f32_kernel<true> : flash_f32_kernel<false>;
-  kernel<<<dim3(Sq / kB, BH, D / kSlice), kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, D, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = launch(kernel, Sq / kB, BH, D, kFwdThreads, kFwdSmem, kFwdSmem, stream,
+                           static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o),
+                           static_cast<float*>(lse), Sq, Sk, D, sm_scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The flash backward in f32. q, dO [BH, Sq, D] and k, v [BH, Sk, D]
@@ -399,15 +649,16 @@ extern "C" int flash_bwd_f32_launch(const void* q, const void* k, const void* v,
       !aligned(dout) || !aligned(dk) || !aligned(dv) || !aligned(dq) || !lse || !delta)
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = [] {
-    const cudaError_t a = allow_smem(flash_bwd_f32_kernel<false>, kBwdSmem);
-    return a != cudaSuccess ? a : allow_smem(flash_bwd_f32_kernel<true>, kBwdSmem);
+    const cudaError_t a = configure(flash_bwd_f32_kernel<false>, kBwdClusterSmem);
+    return a != cudaSuccess ? a : configure(flash_bwd_f32_kernel<true>, kBwdClusterSmem);
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const auto kernel = causal ? flash_bwd_f32_kernel<true> : flash_bwd_f32_kernel<false>;
-  kernel<<<dim3(Sk / kB, BH, D / kSlice), kThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dq), Sq, Sk, D, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = launch(kernel, Sk / kB, BH, D, kBwdThreads, kBwdSmem, kBwdClusterSmem, stream,
+                           static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<const float*>(dout),
+                           static_cast<const float*>(lse), static_cast<const float*>(delta),
+                           static_cast<float*>(dk), static_cast<float*>(dv),
+                           static_cast<float*>(dq), Sq, Sk, D, sm_scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

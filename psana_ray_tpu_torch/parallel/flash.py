@@ -33,8 +33,11 @@ sequence lengths that are multiples of 128. Which kernel runs
   (``csrc/flash_bwd_wide.cu``), whose dq goes through the same
   ``flash_bwd_dq_convert``;
 - f32 at every head dim: ``flash_f32_kernel`` and
-  ``flash_bwd_f32_kernel`` (``csrc/flash_f32.cu``, FFMA, no TF32), whose
-  dq is summed straight into an f32 tensor (no rounding launch).
+  ``flash_bwd_f32_kernel`` (``csrc/flash_f32.cu``: every product on the
+  TF32 tensor cores as three TF32 products of each operand's TF32 part
+  and remainder, which holds f32's tolerances; at head dims above 128 the
+  scores formed once per tile by a cluster of CTAs), whose dq is summed
+  straight into an f32 tensor (no rounding launch).
 
 Anything else on the card (f16, other head dims, other lengths: ROADMAP.md
 Item 12) raises instead of running the plain version.

@@ -698,6 +698,7 @@ VARIANT_CASES = [  # (dtype, d, bh, sq, sk, causal)
     (torch.float32, 128, 3, 256, 256, False), (torch.float32, 128, 2, 640, 384, True),
     (torch.float32, 256, 2, 128, 384, True), (torch.float32, 640, 2, 256, 256, False),
     (torch.float32, 1024, 1, 256, 384, False), (torch.float32, 1024, 1, 256, 256, True),
+    (torch.float32, 1024, 2, 384, 256, True),  # a cluster of 8, causal, Sq != Sk
 ]
 
 
@@ -732,6 +733,22 @@ def test_flash_variants_match_plain(cuda, gen, dtype, d, bh, sq, sk, causal):
         assert d_o <= 2e-2 and d_lse <= 1e-2, (d_o, d_lse)
         assert d_o <= 1e-2 * float(o_ref.float().abs().max())
         assert d_lse <= 1e-2 * float((lse_ref - _flat_lse(sq, sk, causal, cuda)).abs().max())
+
+
+def test_flash_f32_at_the_serving_width(cuda, gen):
+    """``flash_f32_kernel`` at the f32 ViT's serving shape (BH 8, S 8448,
+    D 128: 132 query tiles a head) against ``attention_with_stats_plain``
+    at the f32 tolerances."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, _ = _variant_inputs(gen, cuda, torch.float32, 128, 8, 8448, 8448)
+    o, lse = tf.attention_with_stats(q, k, v)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert pt.variant_counts() == {("flash_f32_kernel", "f32", 128): 1}
+    d_o = float((o - o_ref).abs().max())
+    d_lse = float((lse - lse_ref).abs().max())
+    assert d_o <= F32_O_TOL and d_lse <= F32_LSE_TOL, (d_o, d_lse)
 
 
 @pytest.mark.parametrize("dtype,d,bh,sq,sk,causal", VARIANT_CASES)
