@@ -404,6 +404,13 @@ one JSON line (``{"phase": ...}``):
    function's work at its dtype's peak (989 TFLOP/s bf16; f32-accurate
    products on the TF32 tensor cores at 495 / 3 TFLOP/s, with the old
    67 TFLOP/s CUDA-core bound beside it), not a recompute of the scores.
+   Every case also launches the kernel a second time, which must give the
+   same ``o`` and ``lse`` bit for bit, and once more from its counting
+   build (``build.counting``: each ``wgmma`` adds its 2 M N K operations
+   to a device counter), which gives ``issued_over_work``: the tensor-core
+   operations the kernel issued over the function's, at most 1.05 in every
+   case without the causal mask (each score tile formed once, at every
+   head dim); None for the f32 pair, whose ``mma.sync`` has no counter.
 11. ``vit_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
    events; ``InfeedPipeline(batch_size=2, prefetch_depth=2,
    batcher_buffers=6)`` -> ``vit_serve_step`` (``calib_kernel`` to bf16 ->
@@ -428,8 +435,10 @@ one JSON line (``{"phase": ...}``):
    of score-blind attention (p = 1/keys: dq = dk = 0). The errors of a
    backward that drops delta, and of one that ignores dlse, are printed.
    A second launch on the same inputs must give identical dk and dv and
-   dq within one bf16 ulp of its largest value (dq's f32 sums across key
-   tiles arrive in another order each run). Times: the pair as the
+   dq within one bf16 ulp of its largest value (2**-8 of the reference's;
+   dq's f32 sums across key tiles arrive in another order each run), and
+   two more launches of the kernel alone f32 dq sums (dq_acc) within
+   2**-16 of their largest value. Times: the pair as the
    backward launches it (dq_acc zeroed, the kernel, the dq rounding;
    ``ms`` and ``ms_cold``), the kernel alone and the rounding alone, the
    plain version's (one call for dq, dk and dv), the library's (the
@@ -441,7 +450,10 @@ one JSON line (``{"phase": ...}``):
    rounding launch) in the cases of ``VARIANT_CASES``, each with an lse
    cotangent, held the same way (f32: ``<= 1e-4`` of each gradient's
    scale, and the one-TF32-pass plain backward rejected; the repeat's dq
-   within 2**-16 of its largest value).
+   within 2**-16 of its largest value; the wide kernel's repeat held by
+   its dq_acc alone, whose sums arrive in twice as many reductions), and
+   each with its counted ``issued_over_work`` (at most 1.05 without the
+   causal mask).
 14. ``vit_train``: the training recipe of the JAX package's
    ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
    epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
@@ -707,6 +719,9 @@ FLASH_TOL = {"o": 2e-2, "lse": 1e-2, "o_rel": 1e-2, "lse_rel": 1e-2}
 FLASH_TOL_F32 = {"o": 2e-5, "lse": 1e-4, "o_rel": 1e-4, "lse_rel": 1e-4}
 BWD_TOL = 1e-2  # max|g - g_ref| / max|g_ref| for each of dq, dk, dv
 BWD_TOL_F32 = 1e-4
+# the most tensor-core work a kernel may issue over the function's, without
+# the causal mask: every score tile formed once, whatever the head dim
+ISSUED_TOL = 1.05
 F32_REL_TOL = 1e-4  # the f32 ViT's logits against the plain path
 NO_BWD = {"flash_bwd_kernel": 0, "flash_bwd_dq_convert": 0}  # serving paths launch none
 NO_RESNET = {"conv1x1_kernel": 0, "conv3x3_kernel": 0, "back_kernel": 0}  # other paths
@@ -3761,6 +3776,25 @@ def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False, el
     return nbytes, 2.0 * 2 * d * bh * _flash_pairs(sq, sk, causal)
 
 
+def issued_over_work(torch, tf, kernel: str, launch, ops: float):
+    """The tensor-core operations one ``launch()`` of ``kernel`` issues over
+    the function's ``ops``, read from the kernel's counting build
+    (``build.counting``: every ``wgmma`` it runs adds 2 M N K to a device
+    counter, so the loops it takes and the tiles it visits count, and a
+    score tile formed twice counts twice). None for a kernel without one
+    (the f32 pair, on ``mma.sync``). Above 1: the masked part of the causal
+    diagonal's tiles, or products formed more than once."""
+    from psana_ray_tpu_torch.kernels import build
+
+    lib = {**tf._FORWARD, **tf._BACKWARD}[kernel][0]
+    if lib not in build.COUNTED:
+        return None
+    with build.counting(lib) as take:
+        launch()
+        torch.cuda.synchronize()
+        return take() / ops
+
+
 def sdpa_backend(torch, q, k, v, causal):
     """The backend ``F.scaled_dot_product_attention`` picks for these
     inputs (its own dispatch, ``torch._fused_sdp_choice``), or None."""
@@ -3864,14 +3898,25 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
     if passed:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
                              f"{passed} control(s): {controls}")
-    del o, o_ref, lse, lse_ref, o_flat, lse_flat
+    # the repeat check: a second launch gives the same o and lse bit for bit
+    again = tf.launch_flash(q, k, v, causal)
+    torch.cuda.synchronize()
+    repeat = {"o_equal": bool(torch.equal(o, again[0])), "lse_equal": bool(torch.equal(lse, again[1]))}
+    if not all(repeat.values()):
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): two launches disagree: {repeat}")
+    del o, o_ref, lse, lse_ref, o_flat, lse_flat, again
     nbytes, ops = flash_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
+    issued = issued_over_work(torch, tf, kernel, lambda: tf.launch_flash(q, k, v, causal), ops)
+    if issued is not None and not causal and issued > ISSUED_TOL:
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) issues {issued:.3f} of the "
+                             f"function's tensor-core work")
     bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S)
     row = {
         "case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
         "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
         "max_abs_err_o": errs["o"], "max_abs_err_lse": errs["lse"],
         "rel_err_o": errs["o_rel"], "rel_err_lse": errs["lse_rel"], "controls": controls,
+        "repeat": repeat, "issued_over_work": issued,
         "ms": timer.ms(lambda: tf.launch_flash(q, k, v, causal), iters=iters),
         "ms_cold": timer.ms_cold(lambda: tf.launch_flash(q, k, v, causal), iters=iters),
         "plain_ms": timer.ms(lambda: tf.attention_with_stats_plain(q, k, v, causal),
@@ -4082,26 +4127,39 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
     sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
     for e in sens.values():
         e["rejected"] = not bwd_ok(e, tol)
-    # the repeat check: dk and dv identical, dq within one bf16 ulp of its
-    # largest value (2**-16 of it in f32): its f32 sums arrive in another
-    # order each run
+    # the repeat check: dk and dv identical; dq's f32 sums arrive in
+    # another order each run, so two launches' f32 dq_acc (before the
+    # rounding; dq itself in f32) agree within 2**-16 of its largest value,
+    # and the bf16 head-dim-128 kernel's rounded dq within 2**-8 of the
+    # reference's largest value (2**-16 in f32)
+    delta = tf.flash_bwd_delta(o, do, dlse)
+    raw = [tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal) for _ in range(2)]
     again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
     torch.cuda.synchronize()
-    repeat = {"dk_equal": bool(torch.equal(got[1], again[1])),
-              "dv_equal": bool(torch.equal(got[2], again[2])),
+    acc_scale = float(raw[0][0].abs().max())
+    repeat = {"dk_equal": all(bool(torch.equal(got[1], x)) for x in (again[1], raw[0][1], raw[1][1])),
+              "dv_equal": all(bool(torch.equal(got[2], x)) for x in (again[2], raw[0][2], raw[1][2])),
+              "dq_acc_max_diff": float((raw[0][0] - raw[1][0]).abs().max()),
+              "dq_acc_tol": 2.0 ** -16 * acc_scale,
               "dq_max_diff": float((got[0].float() - again[0].float()).abs().max()),
               "dq_ulp": 2.0 ** (-8 if bf16 else -16) * float(ref[0].float().abs().max())}
-    if not (repeat["dk_equal"] and repeat["dv_equal"]
-            and repeat["dq_max_diff"] <= repeat["dq_ulp"]):
+    dq_gated = kernel != "flash_bwd_wide_kernel"  # its rounded dq: the dq_acc check above
+    if not (repeat["dk_equal"] and repeat["dv_equal"] and acc_scale > 0.0
+            and repeat["dq_acc_max_diff"] <= repeat["dq_acc_tol"]
+            and (not dq_gated or repeat["dq_max_diff"] <= repeat["dq_ulp"])):
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): two launches disagree: "
                              f"{repeat}")
-    del got, ref, again
-    delta = tf.flash_bwd_delta(o, do, dlse)
+    del got, ref, again, raw
     # the library yardstick, never called by the port: the backward of
     # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
+    issued = issued_over_work(
+        torch, tf, kernel, lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal), ops)
+    if issued is not None and not causal and issued > ISSUED_TOL:
+        raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) issues {issued:.3f} of the "
+                             f"function's tensor-core work")
     peak = BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S
     bms, by = bound_ms(nbytes, ops, peak)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
@@ -4114,7 +4172,7 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
     row = {"case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
            "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
            "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
-           "sensitivity": sens, "repeat": repeat,
+           "sensitivity": sens, "repeat": repeat, "issued_over_work": issued,
            "ms": ms, "ms_cold": timer.ms_cold(pair, iters=iters),
            # the kernel alone (adding into a dq_acc that is not re-zeroed) and the rounding alone
            "kernel_ms": timer.ms(
@@ -6652,7 +6710,7 @@ def main() -> int:
          cuda=torch.version.cuda)
     phase_lint(root)
 
-    info = build.build()
+    info = build.build(counted=True)  # the counting builds for flash_kernel and flash_bwd
     emit("build", seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
     # the wgmma kernels: none may spill or serialize its wgmma; those of
     # conv_sm90.cu and flash.cu move 384 threads' 168 registers to their

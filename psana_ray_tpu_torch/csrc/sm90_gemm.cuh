@@ -224,6 +224,21 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Counting builds (-DSM90_COUNT_OPS: kernels/build.py's counting
+// libraries, which the port never launches) add every wgmma's tensor-core
+// operations, 2 * 64 * N * 16, to a device counter, once for the warpgroup
+// that issues it; sm90_ops_take reads and zeroes it.
+#ifdef SM90_COUNT_OPS
+__device__ unsigned long long ops_issued;
+template <int N>
+__device__ __forceinline__ void count_wgmma() {
+  if ((threadIdx.x & 127) == 0) atomicAdd(&ops_issued, 2ull * 64 * N * 16);
+}
+#else
+template <int N>
+__device__ __forceinline__ void count_wgmma() {}
+#endif
+
 // two f32 as a bf16 pair, lo in the low half: the A fragment's element order
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -236,6 +251,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
                                                 int scale_d = 1) {
+  count_wgmma<64>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -255,6 +271,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
 template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b,
                                                  int scale_d = 1) {
+  count_wgmma<128>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -276,6 +293,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
 }
 
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  count_wgmma<256>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -314,6 +332,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
 // MN-major in shared memory (the transpose bit set: N contiguous)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0, uint32_t a1,
                                                     uint32_t a2, uint32_t a3, uint64_t b) {
+  count_wgmma<128>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -434,3 +453,14 @@ __device__ __forceinline__ int c_offset(int row, int col) {
 }
 
 }  // namespace sm90
+
+#ifdef SM90_COUNT_OPS
+// the operations counted since the last call into *ops, then zeroed; the
+// cudaError_t of the copies
+extern "C" int sm90_ops_take(unsigned long long* ops) {
+  const unsigned long long zero = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(ops, sm90::ops_issued, sizeof(*ops));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(sm90::ops_issued, &zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

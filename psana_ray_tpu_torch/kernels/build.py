@@ -18,10 +18,17 @@ counts) for integers, launches on the stream
 it is given, and returns the launch's ``cudaError_t``; :func:`check`
 raises on anything but 0. A build or load failure raises ``RuntimeError``:
 there is no fallback to the plain versions for a CUDA tensor.
+
+The flash libraries also build as counting libraries on request
+(``lib<name>_count.so``, ``-DSM90_COUNT_OPS``): each ``wgmma`` they issue
+adds its tensor-core operations to a device counter (``csrc/sm90_gemm.cuh``).
+Within :func:`counting`, :func:`library` hands out that build; the port
+never launches it otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,12 +38,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIBS = ("calib", "conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide", "flash_f32")
+COUNTED = ("flash", "flash_bwd", "flash_wide", "flash_bwd_wide")  # their counting builds
+COUNT_FLAG = "-DSM90_COUNT_OPS"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,37 +124,41 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_hash()
 
 
-def build() -> Dict[str, object]:
-    """Compile every library that is not built yet; returns the build info
-    (directory, seconds, and per-kernel registers/spills from ptxas)."""
+def build(counted: bool = False) -> Dict[str, object]:
+    """Compile every library that is not built yet (with ``counted``, the
+    counting builds of ``COUNTED`` too, all in parallel); returns the build
+    info (directory, seconds, and per-kernel registers/spills from ptxas)."""
     with _lock:
-        return _build_locked()
+        return _build_locked(counted)
 
 
-def _build_locked() -> Dict[str, object]:
+def _build_locked(counted: bool) -> Dict[str, object]:
     out = build_dir()
-    todo = [n for n in LIBS if not (out / f"lib{n}.so").exists()]
+    targets = [(n, n, []) for n in LIBS] + ([(n, f"{n}_count", [COUNT_FLAG]) for n in COUNTED]
+                                            if counted else [])
+    todo = [t for t in targets if not (out / f"lib{t[1]}.so").exists()]
     t0 = time.monotonic()
     if todo:
         nvcc = _find_nvcc()
         out.mkdir(parents=True, exist_ok=True)
         procs = []
-        for name in todo:
-            tmp = out / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs.append((name, tmp, subprocess.Popen(
+        for name, lib, flags in todo:
+            tmp = out / f"lib{lib}.so.tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs.append((lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for name, tmp, proc in procs:
+        for lib, tmp, proc in procs:
             log, _ = proc.communicate()
-            (out / f"{name}.ptxas.log").write_text(log)
+            (out / f"{lib}.ptxas.log").write_text(log)
             if proc.returncode != 0:
-                failed.append(f"{name}.cu (rc {proc.returncode}):\n{log[-4000:]}")
+                failed.append(f"{lib} (rc {proc.returncode}):\n{log[-4000:]}")
             else:
-                os.replace(tmp, out / f"lib{name}.so")
+                os.replace(tmp, out / f"lib{lib}.so")
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return {"dir": str(out), "built": todo, "seconds": time.monotonic() - t0,
+    return {"dir": str(out), "built": [t[1] for t in todo], "seconds": time.monotonic() - t0,
             "ptxas": ptxas_report(out)}
 
 
@@ -187,15 +200,20 @@ def ptxas_report(out: Optional[Path] = None) -> List[dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>.so``, built first if needed."""
+    """The loaded library ``lib<name>.so``, built first if needed (within
+    :func:`counting` of ``name``, its counting build)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     build()
+    return _load(name, name)
+
+
+def _load(name: str, lib_name: str) -> ctypes.CDLL:
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(lib_name)
         if lib is None:
-            path = build_dir() / f"lib{name}.so"
+            path = build_dir() / f"lib{lib_name}.so"
             try:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
@@ -206,8 +224,43 @@ def library(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            if lib_name != name:
+                lib.sm90_ops_take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+                lib.sm90_ops_take.restype = ctypes.c_int
+            _loaded[lib_name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def counting(name: str) -> Iterator[Callable[[], int]]:
+    """Within the block, :func:`library` of ``name`` (one of ``COUNTED``) is
+    its counting build, whose every ``wgmma`` adds its tensor-core
+    operations (2 M N K) to a device counter. Yields ``take``: the
+    operations counted since the block began or the last ``take``, after
+    which the count starts again from 0. The launches read from the
+    kernel's own loops what it issues; one ``take`` synchronises the card."""
+    if name not in COUNTED:
+        raise ValueError(f"{name} has no counting build; those of {COUNTED} do")
+    build(counted=True)
+    lib = _load(name, f"{name}_count")
+
+    def take() -> int:
+        ops = ctypes.c_ulonglong(0)
+        check(lib, lib.sm90_ops_take(ctypes.byref(ops)), "sm90_ops_take")
+        return ops.value
+
+    take()
+    with _lock:
+        prev = _loaded.get(name)
+        _loaded[name] = lib
+    try:
+        yield take
+    finally:
+        with _lock:
+            if prev is None:
+                _loaded.pop(name, None)
+            else:
+                _loaded[name] = prev
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -32,7 +32,8 @@ The other variants of K5-K7 (``flash_wide_kernel`` and
 are held to the same plain versions, the bf16 ones at the tolerances
 above and the f32 ones at the JAX package's f32 tolerances (``o`` atol
 2e-5, ``lse`` atol 1e-4, dq, dk and dv within 1e-4 of their own scale);
-each counts as its TPU function's counter and by variant. The f32 ViT
+each counts as its TPU function's counter and by variant; two launches
+of the wide pair give the same o, lse, dk and dv bit for bit. The f32 ViT
 and a one-head ViT of head dim 256 are served and trained through them.
 The infeed's pinned batch arenas: pinned, one H2D a batch straight from
 the arena and no host copy beside the batcher's, and no arena rewritten
@@ -755,9 +756,10 @@ def test_flash_f32_at_the_serving_width(cuda, gen):
 def test_flash_bwd_variants_match_plain(cuda, gen, dtype, d, bh, sq, sk, causal):
     """``flash_bwd_wide_kernel`` (bf16, then ``flash_bwd_dq_convert``) and
     ``flash_bwd_f32_kernel`` (dq summed in f32, no rounding launch) against
-    ``attention_bwd_plain`` with an lse cotangent; a second launch gives
-    identical dk and dv and dq within one ulp of its largest value (bf16;
-    2**-16 of it in f32, whose sums arrive in another order)."""
+    ``attention_bwd_plain`` with an lse cotangent; two more launches of the
+    kernel give identical dk and dv and f32 dq sums (dq_acc, before any
+    rounding) within 2**-16 of their largest value: they arrive in
+    another order."""
     from psana_ray_tpu_torch.parallel import flash as tf
 
     q, k, v, do = _variant_inputs(gen, cuda, dtype, d, bh, sq, sk)
@@ -777,11 +779,42 @@ def test_flash_bwd_variants_match_plain(cuda, gen, dtype, d, bh, sq, sk, causal)
         assert g.dtype == dtype and g.shape == r.shape, grad
         assert bool(torch.isfinite(g.float()).all()), grad
         assert rel_err(r, g) <= (F32_BWD_TOL if f32 else BWD_TOL), (grad, rel_err(r, g))
-    again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dl)
+    _assert_repeat_agrees(tf, q, k, v, o, lse, do, causal, dl, got)
+
+
+def _assert_repeat_agrees(tf, q, k, v, o, lse, do, causal, dlse, got):
+    """Two more launches of the backward kernel on the inputs that gave
+    ``got``: dk and dv identical to it, their f32 dq sums within 2**-16 of
+    the largest (an unzeroed dq_acc or a lost reduction differs by far
+    more)."""
+    delta = tf.flash_bwd_delta(o, do, dlse)
+    (acc1, dk1, dv1), (acc2, dk2, dv2) = (
+        tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal) for _ in range(2))
     torch.cuda.synchronize()
-    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
-    scale = float(got[0].float().abs().max())
-    assert float((got[0].float() - again[0].float()).abs().max()) <= 2.0 ** (-16 if f32 else -8) * scale
+    assert all(torch.equal(got[1], x) for x in (dk1, dk2))
+    assert all(torch.equal(got[2], x) for x in (dv1, dv2))
+    scale = float(acc1.abs().max())
+    assert scale > 0.0
+    assert float((acc1 - acc2).abs().max()) <= 2.0 ** -16 * scale
+
+
+@pytest.mark.parametrize("d,causal", [(256, False), (256, True), (640, True), (1024, False)])
+def test_wide_pair_repeat_launches_agree_bit_for_bit(cuda, gen, d, causal):
+    """The wide pair forms each score tile once, its slices' partials summed
+    in a fixed order (one CTA's two warpgroups at D 256, a cluster's CTAs
+    above): two launches on the same inputs give the same o, lse, dk and
+    dv bit for bit, and dq's f32 sums within 2**-16 of their largest value
+    (they arrive in another order each run)."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do = _variant_inputs(gen, cuda, torch.bfloat16, d, 2, 384, 256)
+    o1, lse1 = tf.launch_flash(q, k, v, causal)
+    o2, lse2 = tf.launch_flash(q, k, v, causal)
+    got = tf.launch_flash_bwd(q, k, v, o1, lse1, do, causal)
+    torch.cuda.synchronize()
+    assert tf.forward_kernel(q) == "flash_wide_kernel"
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    _assert_repeat_agrees(tf, q, k, v, o1, lse1, do, causal, None, got)
 
 
 def test_flash_variants_refuse_what_they_do_not_take(cuda):
