@@ -4,8 +4,9 @@ NVIDIA H100: the calibrated ResNet-50 classifier (also fed by a producer
 process through the shared-memory ring), the SFX Bragg-peak pipeline
 (PeakNet-TPU U-Net), the ViT hit classifier with the flash-attention
 trunk, the ViT's training recipe with the flash backward kernels, the
-f32 ViT and a ViT of head dim 256 served and trained through the f32
-and wide flash kernels,
+f32 ViT, a ViT of head dim 256 and an f16 ViT served and trained through
+the f32, wide and f16 flash kernels, a ViT of head dim 64 served and
+trained through the reference's XLA route,
 train -> fold -> serve: PeakNet-TPU and ResNet-50 trained with BatchNorm,
 folded into frozen affines and served through the kernels, the
 two-detector fan-in (BASELINE config 5), the SFX operator CLI over
@@ -58,20 +59,21 @@ one JSON line (``{"phase": ...}``):
    are serialized or that its ``setmaxnreg`` was ignored. A
    ``build_sm90`` line sums that up for the ``wgmma`` kernels of
    ``conv_sm90.cu``, ``flash.cu``, ``flash_bwd.cu``, ``flash_wide.cu`` and
-   ``flash_bwd_wide.cu``; a spill, a serialization or an ignored
-   ``setmaxnreg`` there fails the run, and so does a launch register count
-   other than 168 in the two that move registers with ``setmaxnreg``
-   (``conv_sm90.cu``, ``flash.cu``). A ``build_f32`` line gives
+   ``flash_bwd_wide.cu`` and of the last four's f16 builds
+   (``lib<name>_f16.so``, ``-DSM90_F16``); a spill, a serialization or an
+   ignored ``setmaxnreg`` there fails the run, and so does a launch
+   register count other than 168 in those that move registers with
+   ``setmaxnreg`` (``conv_sm90.cu``, ``flash.cu`` in both builds). A ``build_f32`` line gives
    ``flash_f32.cu``'s kernels' registers and spills and counts, in their
    machine code (``cuobjdump -sass``), the TF32 tensor-core instructions
    (``HMMA…TF32``, ``HGMMA…TF32``) by opcode: a spill, or a kernel
    without them, fails the run.
 3. ``calib_kernel``: K1 against its plain version on ``[32, 16, 352, 384]``
-   f32 RAW frames from ``SyntheticSource`` with f32 and bf16 output, the
-   same frames as uint16 ADUs with bf16 output, and ``[8, 8, 512, 1024]``
-   jungfrau4M frames drawn on the card from a seeded generator with bf16
-   output (f32: rtol 1e-5, atol 1e-4; bf16: that plus one bf16 ulp; two
-   launches on one input bit-identical). Each case gives the plan it ran
+   f32 RAW frames from ``SyntheticSource`` with f32, bf16 and f16 output,
+   the same frames as uint16 ADUs with bf16 output, and ``[8, 8, 512,
+   1024]`` jungfrau4M frames drawn on the card from a seeded generator
+   with bf16 output (f32: rtol 1e-5, atol 1e-4; bf16 and f16: that plus
+   one ulp of the type; two launches on one input bit-identical). Each case gives the plan it ran
    (route, cluster size, rows and shared memory a CTA, the card's
    ``cudaOccupancyMaxActiveClusters``, the load mode), both timers and
    GB/s on the bound's bytes; the epix10k2M cases also time the two-pass
@@ -389,12 +391,15 @@ one JSON line (``{"phase": ...}``):
    values, ``lse = log(keys)``). With kernel, plain and library
    (``F.scaled_dot_product_attention``) times and the bound of the work
    each case needs. Then the other variants of K5 (``VARIANT_CASES``):
-   ``flash_wide_kernel`` (bf16) and ``flash_f32_kernel`` at every head
-   dim of 128 to 1024 (B 2, H 4, S 1024; bf16 at 128 is ``flash_kernel``
-   again), a causal case and an uneven one (Sq 256, Sk 768) at head dim
-   256 in each dtype, and the serving shapes of ``vit_f32`` (f32, B 2, H
-   4, D 128, S 8448) and ``vit_wide`` (bf16, B 2, H 2, D 256), each held
-   the same way (f32 at the JAX package's f32 tolerances: ``o`` 2e-5,
+   ``flash_wide_kernel`` (bf16), ``flash_f32_kernel`` and the f16 builds
+   of ``flash_kernel`` and ``flash_wide_kernel`` at every head dim of 128
+   to 1024 (B 2, H 4, S 1024; bf16 at 128 is ``flash_kernel`` again), a
+   causal case and an uneven one (Sq 256, Sk 768) at head dim 256 in bf16
+   and f32, the serving shapes of ``vit_f32`` (f32, B 2, H 4, D 128, S
+   8448), ``vit_wide`` (bf16, B 2, H 2, D 256) and ``vit_f16`` (f16, B 2,
+   H 4, D 128), and 65536 + 128 batch x heads at S 128, D 128 in bf16 and
+   f32 (two launches a call: CUDA's gridDim.y holds 65535), each held
+   the same way (f16 at the bf16 tolerances) (f32 at the JAX package's f32 tolerances: ``o`` 2e-5,
    ``lse`` 1e-4, each 1e-4 of its scale), both controls rejected; in f32
    a third control must fail too: the same attention with its two
    products as one TF32 pass each (the plain version under
@@ -411,6 +416,12 @@ one JSON line (``{"phase": ...}``):
    operations the kernel issued over the function's, at most 1.05 in every
    case without the causal mask (each score tile formed once, at every
    head dim); None for the f32 pair, whose ``mma.sync`` has no counter.
+   Then the XLA route (``flash_xla_route`` lines): the shapes the
+   reference's ``_kernel_shapes_ok`` refuses, head dim 64 at
+   ``vit_heads8``'s attention shape (B 2, H 8, S 8448, bf16) and S 2112
+   (B 2, H 4, D 128), through ``attention_with_stats``: no kernel launch,
+   one route call, the plain version's ``o`` and ``lse`` bit for bit; the
+   route's time beside SDPA's and the bound.
 11. ``vit_end_to_end``: a producer thread fills a ``RingBuffer`` with RAW
    events; ``InfeedPipeline(batch_size=2, prefetch_depth=2,
    batcher_buffers=6)`` -> ``vit_serve_step`` (``calib_kernel`` to bf16 ->
@@ -453,7 +464,11 @@ one JSON line (``{"phase": ...}``):
    within 2**-16 of its largest value; the wide kernel's repeat held by
    its dq_acc alone, whose sums arrive in twice as many reductions), and
    each with its counted ``issued_over_work`` (at most 1.05 without the
-   causal mask).
+   causal mask); the f16 builds (``flash_bwd_dq_convert`` rounding to
+   f16) at the bf16 tolerances; 65536 + 128 batch x heads without the SDPA
+   yardstick. Then the XLA route's backward (``flash_bwd_xla_route``) in
+   the same two cases with an lse cotangent: no kernel, one route call a
+   direction, the plain backward's dq, dk and dv bit for bit.
 14. ``vit_train``: the training recipe of the JAX package's
    ``bench.py:_train_hit_classifier`` at the ViT's full defaults: 80 RAW
    epix10k2M events of ``SyntheticSource(hit_fraction=0.5, seed=7)``,
@@ -473,20 +488,27 @@ one JSON line (``{"phase": ...}``):
    training frames/s, peak memory, the first and last 20-step mean
    loss, and accuracy on 16 held-out events through ``vit_serve_step``.
 15. ``vit_train_profile``: 4 more train steps under ``torch.profiler``.
-15b. ``vit_f32`` and 15c. ``vit_wide``: the full-width ViT (patch 16,
-   embed 512, depth 4, 8448 tokens) in f32 with 4 heads of 128 and in
-   bf16 with 2 heads of 256. Each is served through the infeed as in 11
+15b. ``vit_f32``, 15c. ``vit_wide``, 15d. ``vit_f16`` and 15e.
+   ``vit_heads8``: the full-width ViT (patch 16, embed 512, depth 4, 8448
+   tokens) in f32 with 4 heads of 128, in bf16 with 2 heads of 256, in
+   f16 with 4 heads of 128, and in bf16 with 8 heads of 64, a head dim
+   the reference's gate refuses (the XLA route: no K5-K7 launch, 4 route
+   calls a batch and 4 + 4 a step, its logits against the same weights
+   in f32, ``rel_err < 0.05``, and its train step against the plain
+   attention). Each is served through the infeed as in 11
    (batch 2, 6 warm-up and 8 timed batches; ``vit_serve_step``
    calibrates to the model's dtype): +1 ``calib_kernel`` and +4
-   ``flash_kernel`` a batch, all of them its variant (``flash_f32_kernel``
-   or ``flash_wide_kernel``), the last batch's logits against the plain
-   path (``rel_err < 1e-4`` in f32, ``< 0.05`` in bf16). Then one train
+   ``flash_kernel`` a batch, all of them its variant (``flash_f32_kernel``,
+   ``flash_wide_kernel`` or the f16 ``flash_kernel``), the last batch's
+   logits against the plain path (``rel_err < 1e-4`` in f32, ``< 0.05`` in
+   bf16 and f16). Then one train
    step's parity from the same init against the plain attention (f32: the
    loss and the whole gradient within 1e-4; bf16: as 14), and 12 steps of
    the recipe's loss and AdamW at batch 2 on 16 labelled events
    calibrated to the model's dtype: +4 ``flash_kernel`` and +4
    ``flash_bwd_kernel`` a step (their variants), +4
-   ``flash_bwd_dq_convert`` in bf16 and none in f32, the losses finite.
+   ``flash_bwd_dq_convert`` in bf16 and f16 and none in f32, the losses
+   finite.
 16. ``narrow``: models narrower than the kernels' 64-channel quantum run
    through the kernels on zero-padded channels: ResNet-50 at width 16
    on ``[2, 64, 64, 4]`` (+16 ``conv1x1_kernel``, +16 ``conv3x3_kernel``,
@@ -647,13 +669,14 @@ the multi-device runs (phases 5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p,
 ``conv1x1_kernel``, ``conv3x3_kernel`` and ``back_kernel`` the ResNet
 runs' (5, 6b, 6e, 6f, 6h, 6i, 6k, 6l, 6n, 6o, 6p, 6q, 6r, 18, 20 and 20b),
 those of ``conv_block_kernel`` the SFX runs' (8, 17, 17d, 17e, 17f and
-17g, and 15b and 15c), the ``flash_kernel`` launches those of the bf16
+17g, and 15b-15e), the ``flash_kernel`` launches those of the bf16
 head-dim-128 ViT's serving and training runs (11, 14, 21 and 22),
 ``flash_bwd_kernel``'s those of its training runs (14 and 22), the
 ``flash_f32_kernel`` and ``flash_bwd_f32_kernel`` ones those of 15b and
 of the dry run's f32 legs (20), ``flash_wide_kernel`` and
-``flash_bwd_wide_kernel`` those of 15c, each from the tally by variant
-(``pt.variant_counts()``). Each run sets the counts to 0 just before it
+``flash_bwd_wide_kernel`` those of 15c, ``flash_kernel_f16`` and
+``flash_bwd_kernel_f16`` (the f16 builds) those of 15d, each from the
+tally by variant (``pt.variant_counts()``). Each run sets the counts to 0 just before it
 and reads them just after.
 
 Times are CUDA-event times of one launch with the 50 MB L2 flushed before
@@ -669,7 +692,7 @@ for ``conv_block_kernel`` the 8 launches of one SFX batch; for
 ``flash_kernel`` one batch is 4 launches at the serving shape, and for
 ``flash_bwd_kernel``, which both K6's and K7's rows name, one train step
 is 4 launches of the pair (kernel and dq rounding) at the training shape;
-for the wide and f32 kernels the same at their ViT's shape, batch 2
+for the wide, f32 and f16 kernels the same at their ViT's shape, batch 2
 (``plain_ms`` is the plain version's one call for dq, dk and dv;
 ``library_ms``, the SDPA backward's one call for the three, is given
 once, with K6). ``bound_ms`` is
@@ -744,21 +767,31 @@ FLASH_CASES = (("serving", 2, 4, 8448, 8448, False), ("training", 4, 4, 8448, 84
                ("uneven_causal", 2, 4, 640, 384, True))
 # the other variants of K5-K7: (case, dtype, head dim, B, H, Sq, Sk, causal) for
 # the forward, and the same with an lse cotangent for the backward. Every
-# (dtype, head dim) the TPU kernels take at BH 8 and S 1024, a causal and an
-# uneven case at head dim 256 in each dtype, and the serving shapes of the f32
-# ViT (4 heads of 128) and the wide ViT (2 heads of 256), batch 2
+# (dtype, head dim) the TPU kernels take at BH 8 and S 1024 (f16: the bf16
+# kernels' f16 builds), a causal and an uneven case at head dim 256 in bf16
+# and f32, the serving shapes of the f32 ViT (4 heads of 128), the wide ViT (2
+# heads of 256) and the f16 ViT (4 heads of 128), batch 2, and 65536 + 128
+# batch x heads (two launches of each kernel: gridDim.y holds 65535)
 HEAD_DIMS = tuple(range(128, 1025, 128))
 VARIANT_CASES = tuple(
-    [("grid", dt, d, 2, 4, 1024, 1024, False) for dt in ("bf16", "f32") for d in HEAD_DIMS]
+    [("grid", dt, d, 2, 4, 1024, 1024, False) for dt in ("bf16", "f32", "f16") for d in HEAD_DIMS]
     + [(c, dt, 256, 2, 4, sq, sk, causal) for dt in ("bf16", "f32")
        for c, sq, sk, causal in (("causal", 1024, 1024, True), ("uneven", 256, 768, False))]
     + [("serving", "f32", 128, VIT_BATCH, 4, 8448, 8448, False),
-       ("serving", "bf16", 256, VIT_BATCH, 2, 8448, 8448, False)])
+       ("serving", "bf16", 256, VIT_BATCH, 2, 8448, 8448, False),
+       ("serving", "f16", 128, VIT_BATCH, 4, 8448, 8448, False)]
+    + [("bh_65664", dt, 128, 4, 16416, 128, 128, False) for dt in ("bf16", "f32")])
+# shapes the reference's gate (_kernel_shapes_ok) sends to its XLA formulation:
+# (case, dtype, head dim, B, H, Sq, Sk, causal); the first is vit_heads8's attention
+XLA_CASES = (("xla_d64", "bf16", 64, VIT_BATCH, 8, 8448, 8448, False),
+             ("xla_s2112", "bf16", 128, 2, 4, 2112, 2112, False))
 VARIANT_ITERS = 5  # timed launches of each variant case (10 for the bf16 head-dim-128 cases)
-# vit_f32 and vit_wide: the full-width ViT (patch 16, embed 512, depth 4) in f32 with
-# 4 heads of 128 and in bf16 with 2 heads of 256, served at batch 2 through the
-# infeed and trained at batch 2: (phase, dtype, heads)
-VIT_VARIANTS = (("vit_f32", "f32", 4), ("vit_wide", "bf16", 2))
+# vit_f32, vit_wide, vit_f16, vit_heads8: the full-width ViT (patch 16, embed 512,
+# depth 4) in f32 with 4 heads of 128, in bf16 with 2 heads of 256, in f16 with 4
+# heads of 128 and in bf16 with 8 heads of 64 (the XLA route), served at batch 2
+# through the infeed and trained at batch 2: (phase, dtype, heads)
+VIT_VARIANTS = (("vit_f32", "f32", 4), ("vit_wide", "bf16", 2), ("vit_f16", "f16", 4),
+                ("vit_heads8", "bf16", 8))
 VARIANT_BATCHES = 8  # timed serving batches of each, after the warm-up
 VARIANT_TRAIN_STEPS = 12
 VARIANT_TRAIN_EVENTS = 16  # 8 batches of 2
@@ -835,7 +868,9 @@ BLOCK_CLASSES = (
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields, and the seconds since the
+    script started (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.monotonic() - STARTED}), flush=True)
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
@@ -904,16 +939,17 @@ def nvidia_smi_line() -> str:
 
 def calib_err(torch, got, ref, what: str) -> float:
     """Max abs error of ``got`` against the plain version ``ref``; raises
-    outside rtol 1e-5 / atol 1e-4 (bf16 output: plus one bf16 ulp) or on a
-    non-finite value."""
+    outside rtol 1e-5 / atol 1e-4 (bf16 or f16 output: plus one ulp of
+    that type) or on a non-finite value."""
     ref = ref.float()
     diff = (got.float() - ref).abs()
     tol = 1e-4 + 1e-5 * ref.abs()
-    if got.dtype == torch.bfloat16:
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(got.dtype)
+    if bits is not None:
         # f32 values that differ by the f32 tolerance can round to
-        # neighbouring bf16 values: allow one bf16 ulp (8 significant
-        # bits) of the plain version's value on top
-        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+        # neighbouring 16-bit values: allow one ulp (8 significant bits
+        # in bf16, 11 in f16) of the plain version's value on top
+        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - bits)
     if not bool(torch.all(diff <= tol)) or not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"calib_kernel ({what}) disagrees with its plain version: "
                              f"max abs err {float(diff.max())}")
@@ -955,8 +991,8 @@ def calib_case(torch, fc, timer, raw, ped, gain, mask, out_dtype, what, routes=T
 
 
 def phase_calib(torch, pt, timer, src, raw, device):
-    """K1 on epix10k2M (f32 raw to f32 and bf16, uint16 raw to bf16) and on
-    jungfrau4M (f32 raw to bf16, generated on the card)."""
+    """K1 on epix10k2M (f32 raw to f32, bf16 and f16, uint16 raw to bf16)
+    and on jungfrau4M (f32 raw to bf16, generated on the card)."""
     import numpy as np
 
     from psana_ray_tpu_torch.ops import fused_calib as fc
@@ -969,6 +1005,7 @@ def phase_calib(torch, pt, timer, src, raw, device):
     result = {
         "f32": calib_case(torch, fc, timer, raw, ped, gain, mask, torch.float32, "f32 out"),
         "bf16": calib_case(torch, fc, timer, raw, ped, gain, mask, torch.bfloat16, "bf16 out"),
+        "f16": calib_case(torch, fc, timer, raw, ped, gain, mask, torch.float16, "f16 out"),
         "u16_bf16": calib_case(torch, fc, timer, raw_u16, ped, gain, mask, torch.bfloat16,
                                "uint16 raw, bf16 out"),
     }
@@ -3776,9 +3813,10 @@ def flash_cost(bh: int, sq: int, sk: int, d: int = 128, causal: bool = False, el
     return nbytes, 2.0 * 2 * d * bh * _flash_pairs(sq, sk, causal)
 
 
-def issued_over_work(torch, tf, kernel: str, launch, ops: float):
-    """The tensor-core operations one ``launch()`` of ``kernel`` issues over
-    the function's ``ops``, read from the kernel's counting build
+def issued_over_work(torch, tf, kernel: str, dtype, launch, ops: float):
+    """The tensor-core operations one ``launch()`` of ``kernel`` (on
+    operands of ``dtype``) issues over the function's ``ops``, read from
+    the kernel's counting build
     (``build.counting``: every ``wgmma`` it runs adds 2 M N K to a device
     counter, so the loops it takes and the tiles it visits count, and a
     score tile formed twice counts twice). None for a kernel without one
@@ -3786,7 +3824,7 @@ def issued_over_work(torch, tf, kernel: str, launch, ops: float):
     diagonal's tiles, or products formed more than once."""
     from psana_ray_tpu_torch.kernels import build
 
-    lib = {**tf._FORWARD, **tf._BACKWARD}[kernel][0]
+    lib = tf.kernel_library(kernel, dtype)
     if lib not in build.COUNTED:
         return None
     with build.counting(lib) as take:
@@ -3837,7 +3875,7 @@ def flash_ok(errs, tol=FLASH_TOL) -> bool:
 
 
 def _dtype(torch, name):
-    return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+    return {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[name]
 
 
 def tf32_once(torch, tf, plain, *args):
@@ -3869,9 +3907,9 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
     """One K5 case: the forward kernel for (dtype, head dim) against its
     plain version, the two controls rejected (three in f32: one TF32 pass
     too), both timers, the plain version, SDPA at the same dtype (and the
-    backend it picked), the bound."""
-    bf16 = dtype == "bf16"
-    tol = FLASH_TOL if bf16 else FLASH_TOL_F32
+    backend it picked), the bound. bf16 and f16 are held alike."""
+    half = dtype != "f32"
+    tol = FLASH_TOL if half else FLASH_TOL_F32
 
     def mk(s):
         return torch.randn((b, h, s, d), generator=gen, device=device).to(_dtype(torch, dtype))
@@ -3890,7 +3928,7 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
     controls = {"zeros": flash_errors(torch.zeros_like(o), torch.zeros_like(lse), o_ref,
                                       lse_ref, lse_flat),
                 "flat": flash_errors(o_flat, lse_flat, o_ref, lse_ref, lse_flat)}
-    if not bf16:
+    if not half:
         controls["tf32_once"] = flash_errors(
             *tf32_once(torch, tf, tf.attention_with_stats_plain, q, k, v, causal), o_ref, lse_ref,
             lse_flat)
@@ -3905,14 +3943,16 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
     if not all(repeat.values()):
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): two launches disagree: {repeat}")
     del o, o_ref, lse, lse_ref, o_flat, lse_flat, again
-    nbytes, ops = flash_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
-    issued = issued_over_work(torch, tf, kernel, lambda: tf.launch_flash(q, k, v, causal), ops)
+    nbytes, ops = flash_cost(b * h, sq, sk, d, causal, elem=2 if half else 4)
+    issued = issued_over_work(torch, tf, kernel, q.dtype, lambda: tf.launch_flash(q, k, v, causal),
+                              ops)
     if issued is not None and not causal and issued > ISSUED_TOL:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) issues {issued:.3f} of the "
                              f"function's tensor-core work")
-    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S)
+    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S if half else F32_SPLIT_OPS_PER_S)
     row = {
         "case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
+        "launches_a_call": len(tf._bh_slices(b * h)),
         "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
         "max_abs_err_o": errs["o"], "max_abs_err_lse": errs["lse"],
         "rel_err_o": errs["o_rel"], "rel_err_lse": errs["lse_rel"], "controls": controls,
@@ -3926,17 +3966,79 @@ def flash_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, c
         "library_backend": sdpa_backend(torch, q, k, v, causal),
         "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
     }
-    if not bf16:  # the bound before the split: f32 on the CUDA cores
+    if not half:  # the bound before the split: f32 on the CUDA cores
         row["bound_ms_cuda_cores"] = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
     row["tflops"] = ops / row["ms"] / 1e9
     return row
 
 
+def xla_route_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
+                   backward=False):
+    """One shape the reference's gate refuses, on the card: forward (and,
+    with ``backward``, the gradient with an lse cotangent) through
+    ``attention_with_stats``, which takes the XLA route: no kernel launch,
+    one route call a direction, and the plain versions' results bit for
+    bit (the route is the plain formulation). Times: the route, SDPA at the
+    same dtype (its forward, or its backward from a saved forward) and the
+    bound of the function's work."""
+    from psana_ray_tpu_torch import kernels
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v, do = (mk(b, h, s_, d).to(_dtype(torch, dtype)) for s_ in (sq, sk, sk, sq))
+    dlse = mk(b, h, sq)
+    if tf.attention_route(q.shape, k.shape) != "xla":
+        raise AssertionError(f"{name}: the gate takes {tuple(q.shape)}; not an XLA-route case")
+    leaves = [t.clone().requires_grad_(backward) for t in (q, k, v)]
+    kernels.reset_counters()
+    o, lse = tf.attention_with_stats(*leaves, causal=causal)
+    if backward:
+        torch.autograd.backward((o, lse), (do, dlse))
+    torch.cuda.synchronize()
+    counts, routes, variants = kernels.counts(), kernels.route_counts(), kernels.variant_counts()
+    o, lse = o.detach(), lse.detach()
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal)
+    same = {"o": bool(torch.equal(o, o_ref)), "lse": bool(torch.equal(lse, lse_ref))}
+    key = tf.KERNEL_DTYPES[q.dtype]
+    want_routes = {"attention_xla_route": 1, "attention_bwd_xla_route": int(backward)}
+    want_v = {("attention_xla_route", key, d): 1}
+    if backward:
+        ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
+        same.update({n: bool(torch.equal(t.grad, r)) for n, t, r in zip(("dq", "dk", "dv"), leaves,
+                                                                        ref)})
+        want_v[("attention_bwd_xla_route", key, d)] = 1
+    if sum(counts.values()) or routes != want_routes or variants != want_v or not all(same.values()):
+        raise AssertionError(f"{name}: the XLA route launched {counts}, counted {routes} "
+                             f"{variants}, or differs from the plain version: {same}")
+    if backward:
+        nbytes, ops, _ = flash_bwd_cost(b * h, sq, sk, d, causal)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        route_ms = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
+                            iters=3, warmup=1)
+        library_ms = timer.ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                              iters=3, warmup=1)
+    else:
+        nbytes, ops = flash_cost(b * h, sq, sk, d, causal)
+        route_ms = timer.ms(lambda: tf.attention_with_stats(q, k, v, causal), iters=3, warmup=1)
+        library_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                              iters=3, warmup=1)
+    bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    return {"case": name, "dtype": dtype, "head_dim": d, "route": "xla",
+            "shape_q": [b, h, sq, d], "sk": sk, "causal": causal, "launches": counts,
+            "route_calls": routes, "plain_bit_for_bit": same, "route_ms": route_ms,
+            "library_ms": library_ms, "library_backend": sdpa_backend(torch, q, k, v, causal),
+            "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
 def phase_flash(torch, F, tf, timer, device):
     """K5 against its plain version in each case of ``FLASH_CASES`` (bf16,
     head dim 128: ``flash_kernel``) and of ``VARIANT_CASES`` (the wide and
-    f32 kernels), and two controls that the same check must reject.
-    Results by case name, the variants' as ``case/dtype/head dim``."""
+    f32 kernels, the f16 builds, more than 65535 batch x heads), and two
+    controls that the same check must reject; then the XLA route in each
+    case of ``XLA_CASES``. Results by case name, the variants' and the
+    route's as ``case/dtype/head dim``."""
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
     cases = [(name, "bf16", 128, b, h, sq, sk, causal, 10)
@@ -3947,6 +4049,10 @@ def phase_flash(torch, F, tf, timer, device):
                          iters)
         emit("flash_kernel", **row)
         results[name if i < len(FLASH_CASES) else f"{name}/{dtype}/{d}"] = row
+    for name, dtype, d, b, h, sq, sk, causal in XLA_CASES:
+        row = xla_route_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal)
+        emit("flash_xla_route", **row)
+        results[f"{name}/{dtype}/{d}"] = row
     return results
 
 
@@ -4086,15 +4192,17 @@ def flat_attention_bwd(torch, do, sk, causal):
 
 
 def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
-                   with_dlse, iters):
+                   with_dlse, iters, full=True):
     """One K6/K7 case: the backward kernel for (dtype, head dim) against
     ``attention_bwd_plain``, two controls that the same check must reject
     (three in f32: the plain backward as one TF32 pass too),
-    a repeat launch, the errors of a backward that drops delta or ignores
-    dlse (printed), the timers, the plain version, SDPA's backward at the
-    same dtype and the bound."""
-    bf16 = dtype == "bf16"
-    tol = BWD_TOL if bf16 else BWD_TOL_F32
+    a repeat launch, the timers, the plain version and the bound; with
+    ``full``, the errors of a backward that drops delta or ignores dlse
+    (printed) and SDPA's backward at the same dtype. bf16 and f16 are held
+    alike. Tensors are freed as soon as their check is done (the f32 case
+    at 65,664 batch x heads holds 4.3 GB a tensor)."""
+    half = dtype != "f32"
+    tol = BWD_TOL if half else BWD_TOL_F32
 
     def mk(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -4112,64 +4220,73 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
     if not bwd_ok(errs, tol) or not all(bool(torch.isfinite(g.float()).all()) for g in got):
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) disagrees with its plain "
                              f"version: {errs}")
-    controls = {"zeros": bwd_errors([torch.zeros_like(g) for g in got], ref),
+    controls = {"zeros": bwd_errors((torch.zeros_like(g) for g in got), ref),
                 "flat": bwd_errors(flat_attention_bwd(torch, do, sk, causal), ref)}
-    if not bf16:
+    if not half:
         controls["tf32_once"] = bwd_errors(
             tf32_once(torch, tf, tf.attention_bwd_plain, q, k, v, o, lse, do, causal, dlse), ref)
     passed = [c for c, e in controls.items() if bwd_ok(e, tol)]
     if passed:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): the check passes the "
                              f"{passed} control(s): {controls}")
-    sens = {"drop_delta": tf.attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal)}
-    if with_dlse:
-        sens["ignore_dlse"] = tf.attention_bwd_plain(q, k, v, o, lse, do, causal)
-    sens = {c: bwd_errors(g, ref) for c, g in sens.items()}
+    sens = {}
+    if full:
+        sens["drop_delta"] = bwd_errors(
+            tf.attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal), ref)
+        if with_dlse:
+            sens["ignore_dlse"] = bwd_errors(tf.attention_bwd_plain(q, k, v, o, lse, do, causal),
+                                             ref)
     for e in sens.values():
         e["rejected"] = not bwd_ok(e, tol)
+    dq_ulp = 2.0 ** (-8 if half else -16) * float(ref[0].float().abs().max())
+    del ref
     # the repeat check: dk and dv identical; dq's f32 sums arrive in
     # another order each run, so two launches' f32 dq_acc (before the
     # rounding; dq itself in f32) agree within 2**-16 of its largest value,
-    # and the bf16 head-dim-128 kernel's rounded dq within 2**-8 of the
-    # reference's largest value (2**-16 in f32)
+    # and the head-dim-128 kernel's rounded dq (bf16 or f16) within 2**-8
+    # of the reference's largest value (2**-16 in f32)
     delta = tf.flash_bwd_delta(o, do, dlse)
-    raw = [tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal) for _ in range(2)]
+    accs, same_dk, same_dv = [], True, True
+    for _ in range(2):
+        acc, dk_, dv_ = tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)
+        same_dk &= bool(torch.equal(got[1], dk_))
+        same_dv &= bool(torch.equal(got[2], dv_))
+        accs.append(acc)
+        del dk_, dv_
     again = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
     torch.cuda.synchronize()
-    acc_scale = float(raw[0][0].abs().max())
-    repeat = {"dk_equal": all(bool(torch.equal(got[1], x)) for x in (again[1], raw[0][1], raw[1][1])),
-              "dv_equal": all(bool(torch.equal(got[2], x)) for x in (again[2], raw[0][2], raw[1][2])),
-              "dq_acc_max_diff": float((raw[0][0] - raw[1][0]).abs().max()),
+    acc_scale = float(accs[0].abs().max())
+    repeat = {"dk_equal": same_dk and bool(torch.equal(got[1], again[1])),
+              "dv_equal": same_dv and bool(torch.equal(got[2], again[2])),
+              "dq_acc_max_diff": float((accs[0] - accs[1]).abs().max()),
               "dq_acc_tol": 2.0 ** -16 * acc_scale,
               "dq_max_diff": float((got[0].float() - again[0].float()).abs().max()),
-              "dq_ulp": 2.0 ** (-8 if bf16 else -16) * float(ref[0].float().abs().max())}
+              "dq_ulp": dq_ulp}
     dq_gated = kernel != "flash_bwd_wide_kernel"  # its rounded dq: the dq_acc check above
     if not (repeat["dk_equal"] and repeat["dv_equal"] and acc_scale > 0.0
             and repeat["dq_acc_max_diff"] <= repeat["dq_acc_tol"]
             and (not dq_gated or repeat["dq_max_diff"] <= repeat["dq_ulp"])):
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}): two launches disagree: "
                              f"{repeat}")
-    del got, ref, again, raw
-    # the library yardstick, never called by the port: the backward of
-    # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, d, causal, elem=2 if bf16 else 4)
+    del got, again, accs
+    nbytes, ops, ops7 = flash_bwd_cost(b * h, sq, sk, d, causal, elem=2 if half else 4)
     issued = issued_over_work(
-        torch, tf, kernel, lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal), ops)
+        torch, tf, kernel, q.dtype,
+        lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal), ops)
     if issued is not None and not causal and issued > ISSUED_TOL:
         raise AssertionError(f"{kernel} ({name}, {dtype}, D {d}) issues {issued:.3f} of the "
                              f"function's tensor-core work")
-    peak = BF16_OPS_PER_S if bf16 else F32_SPLIT_OPS_PER_S
+    peak = BF16_OPS_PER_S if half else F32_SPLIT_OPS_PER_S
     bms, by = bound_ms(nbytes, ops, peak)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=device)
 
-    def pair():  # what the backward launches: dq_acc zeroed, the kernel, the dq rounding (bf16)
+    def pair():  # what the backward launches: dq_acc zeroed, the kernel, the dq rounding (16-bit)
         acc = tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)[0]
-        return tf.launch_flash_bwd_dq_convert(acc) if bf16 else acc
+        return tf.launch_flash_bwd_dq_convert(acc, q.dtype) if half else acc
 
     ms = timer.ms(pair, iters=iters)
     row = {"case": name, "dtype": dtype, "head_dim": d, "kernel": kernel,
+           "launches_a_call": len(tf._bh_slices(b * h)),
            "shape_q": [b, h, sq, d], "sk": sk, "causal": causal,
            "dlse": with_dlse, "rel_err": errs, "max_abs_err": abs_err, "controls": controls,
            "sensitivity": sens, "repeat": repeat, "issued_over_work": issued,
@@ -4178,19 +4295,26 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
            "kernel_ms": timer.ms(
                lambda: tf.launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal, dq_acc),
                iters=iters),
-           "convert_ms": (timer.ms(lambda: tf.launch_flash_bwd_dq_convert(dq_acc), iters=iters)
-                          if bf16 else None),
+           "convert_ms": (timer.ms(lambda: tf.launch_flash_bwd_dq_convert(dq_acc, q.dtype),
+                                   iters=iters) if half else None),
            "bound_ms": bms, "bound_by": by, "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
            "tflops": ops / ms / 1e9,
            "bound_ms_7_products": bound_ms(nbytes, ops7, peak)[0],
            "library_backend": sdpa_backend(torch, q, k, v, causal)}
-    if not bf16:  # the bound before the split: f32 on the CUDA cores
+    if not half:  # the bound before the split: f32 on the CUDA cores
         row["bound_ms_cuda_cores"] = bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
+    del dq_acc
     # the plain version computes dq, dk and dv in one call
     row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
                                iters=3, warmup=1)
-    row["library_ms"] = timer.ms(
-        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=iters)
+    row["library_ms"] = None
+    if full:
+        # the library yardstick, never called by the port: the backward of
+        # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        row["library_ms"] = timer.ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=iters)
     return row
 
 
@@ -4198,8 +4322,12 @@ def phase_flash_bwd(torch, F, tf, timer, device):
     """K6/K7 (the backward kernel for each dtype and head dim) against
     ``attention_bwd_plain`` in each case of ``BWD_CASES`` (bf16, head dim
     128: ``flash_bwd_kernel``) and of ``VARIANT_CASES`` with an lse
-    cotangent (the wide and f32 kernels). Results by case name, the
-    variants' as ``case/dtype/head dim``."""
+    cotangent (the wide and f32 kernels, the f16 builds, more than 65535
+    batch x heads: there without the printed sensitivities and the SDPA
+    yardstick, whose f32 tensors beside the case's would pass the card's
+    80 GB); then the XLA route's
+    backward in each case of ``XLA_CASES``. Results by case name, the
+    variants' and the route's as ``case/dtype/head dim``."""
     gen = torch.Generator(device=device).manual_seed(1)
     results = {}
     cases = [(name, "bf16", 128, b, h, sq, sk, causal, with_dlse, 10)
@@ -4207,9 +4335,14 @@ def phase_flash_bwd(torch, F, tf, timer, device):
     cases += [(*c, True, VARIANT_ITERS) for c in VARIANT_CASES]
     for i, (name, dtype, d, b, h, sq, sk, causal, with_dlse, iters) in enumerate(cases):
         row = flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk,
-                             causal, with_dlse, iters)
+                             causal, with_dlse, iters, full=not name.startswith("bh_"))
         emit("flash_bwd", **row)
         results[name if i < len(BWD_CASES) else f"{name}/{dtype}/{d}"] = row
+    for name, dtype, d, b, h, sq, sk, causal in XLA_CASES:
+        row = xla_route_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, sk, causal,
+                             backward=True)
+        emit("flash_bwd_xla_route", **row)
+        results[f"{name}/{dtype}/{d}"] = row
     return results
 
 
@@ -4361,9 +4494,11 @@ def phase_vit_train_profile(torch, pt, train):
     emit("vit_train_profile", **profile_summary(torch, prof, wall, PROFILE_STEPS))
 
 
-def variant_sum(variants, kernel) -> int:
-    """Launches of ``kernel`` in a ``pt.variant_counts()`` tally."""
-    return sum(n for (name, _, _), n in variants.items() if name == kernel)
+def variant_sum(variants, kernel, dtype=None) -> int:
+    """Launches of ``kernel`` (in ``dtype``, or any) in a
+    ``pt.variant_counts()`` tally."""
+    return sum(n for (name, dt, _), n in variants.items()
+               if name == kernel and dtype in (None, dt))
 
 
 def add_counts(*tallies) -> dict:
@@ -4378,12 +4513,16 @@ def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, d
     """The full-width ViT (patch 16, embed 512, depth 4) in ``dtype_name``
     with ``heads`` heads: served through the infeed at batch 2 for
     ``VARIANT_BATCHES`` timed batches (calibration to the model's dtype,
-    the forward kernel of its dtype and head dim, every launch counted),
-    the last batch's logits against the plain path (``rel_err < 1e-4`` in
-    f32, ``< 0.05`` in bf16); then one train step's parity against the
+    the forward kernel of its dtype and head dim, every launch counted;
+    where the reference's gate refuses the head dim, the XLA route: no
+    kernel, every route call counted), the last batch's logits against the
+    plain path (``rel_err < 1e-4`` in f32, ``< 0.05`` in bf16 and f16; on
+    the XLA route, whose forward is the plain path's, against the same
+    weights in f32, ``< 0.05``); then one train step's parity against the
     plain attention, and ``VARIANT_TRAIN_STEPS`` steps at batch 2 of the
     recipe's loss and optimizer. Returns the launch counts and the
-    variants' tally of both runs."""
+    variants' tally of both runs (the route's calls under their own
+    names)."""
     import numpy as np
 
     from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate_plain
@@ -4394,9 +4533,12 @@ def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, d
     ped, gain, mask = consts
     params = pt.init_vit_params(frame_shape, seed=0)
     model = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, device=device)
-    d = model.embed.pos_embed.shape[-1] // heads
-    probe = torch.empty((1, heads, 128, d), dtype=dtype, device="meta")
-    fwd, bwd = tf.forward_kernel(probe), tf.backward_kernel(probe)
+    tokens, width = model.embed.pos_embed.shape[1:]
+    d = width // heads
+    probe = torch.empty((1, heads, tokens, d), dtype=dtype, device="meta")
+    xla = tf.attention_route(probe.shape, probe.shape) == "xla"
+    fwd, bwd = (("attention_xla_route", "attention_bwd_xla_route") if xla
+                else (tf.forward_kernel(probe), tf.backward_kernel(probe)))
 
     def plain_attn(q, k, v):
         return tf.attention_with_stats_plain(*(t.transpose(1, 2) for t in (q, k, v)))[0].transpose(1, 2)
@@ -4419,27 +4561,37 @@ def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, d
     pipe, wall = run_pipeline(torch, pt, pool, step, device, VARIANT_BATCHES, on_result,
                               batch=VIT_BATCH)
     serve_counts, serve_variants = pt.counts(), pt.variant_counts()
+    serve_routes = pt.route_counts()
     peak_mem = torch.cuda.max_memory_allocated(device) / 2**30
     nb = WARMUP_BATCHES + pipe.metrics.batches.count
     want = {"calib_kernel": nb, **NO_RESNET, "conv_block_kernel": 0,
-            "flash_kernel": VIT_DEPTH * nb, **NO_BWD}
-    if serve_counts != want or serve_variants != {(fwd, dtype_name, d): VIT_DEPTH * nb}:
-        raise AssertionError(f"{phase}: launch counts {serve_counts} {serve_variants} over {nb} "
-                             f"batches, expected {want} and {VIT_DEPTH * nb} of {fwd}")
+            "flash_kernel": 0 if xla else VIT_DEPTH * nb, **NO_BWD}
+    want_routes = {"attention_xla_route": VIT_DEPTH * nb if xla else 0,
+                   "attention_bwd_xla_route": 0}
+    if (serve_counts != want or serve_routes != want_routes
+            or serve_variants != {(fwd, dtype_name, d): VIT_DEPTH * nb}):
+        raise AssertionError(f"{phase}: launch counts {serve_counts} {serve_routes} "
+                             f"{serve_variants} over {nb} batches, expected {want} "
+                             f"{want_routes} and {VIT_DEPTH * nb} of {fwd}")
     staging = check_staging(pt, pipe.metrics, nb, pool[0].nbytes, pipe.batcher)
     logits = last["out"]
     if tuple(logits.shape) != (VIT_BATCH, 2) or not torch.isfinite(logits).all():
         raise AssertionError(f"{phase}: bad logits {tuple(logits.shape)}")
     with torch.no_grad():
+        if xla:  # the plain path is the served one: hold it against f32
+            plain = pt.vit_from_flax(params, num_heads=heads, dtype=torch.float32, device=device)
         cal = fused_calibrate_plain(last["frames"], ped, gain, mask, threshold=10.0,
-                                    out_dtype=dtype)
+                                    out_dtype=torch.float32 if xla else dtype)
         ref = plain(cal)
     torch.cuda.synchronize()
     err = rel_err(ref, logits)
     if not err < tol:
-        raise AssertionError(f"{phase}: logits disagree with the plain path: rel_err {err}")
+        raise AssertionError(f"{phase}: logits disagree with the "
+                             f"{'f32 model' if xla else 'plain path'}: rel_err {err}")
     summary = pipe.metrics.summary()
-    emit(f"{phase}_serve", dtype=dtype_name, heads=heads, head_dim=d, kernel=fwd, batches=nb,
+    emit(f"{phase}_serve", dtype=dtype_name, heads=heads, head_dim=d, kernel=fwd,
+         route="xla" if xla else "kernel", logits_against="f32 model" if xla else "plain path",
+         route_calls=serve_routes, batches=nb,
          timed_batches=summary["batches"], frames=summary["frames"], wall_s=wall,
          fps=summary["fps"], p50_batch_ms=summary["p50_ms"], p99_batch_ms=summary["p99_ms"],
          host_batch_ms=summary["host_batch_ms"], host_stage_ms=summary["host_stage_ms"],
@@ -4476,22 +4628,27 @@ def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, d
 
     # the kernel path against the plain path, and (to tell the backward
     # kernel from the forward's rounding) against the kernel forward with
-    # the plain backward
+    # the plain backward; on the XLA route both directions are the plain
+    # ones, so the path against the plain path alone
     loss_k, g_k = grads(None)
     loss_p, g_p = grads(reference_attention(torch, tf))
-    loss_f, g_f = grads(reference_attention(torch, tf, kernel_forward=True))
-    torch.cuda.synchronize()
-    parity = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_kernel_forward": loss_f,
+    parity = {"loss_kernel": loss_k, "loss_plain": loss_p,
               "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
-              "backward_kernels": compare(g_f, g_k), "kernel_vs_plain_path": compare(g_p, g_k)}
+              "kernel_vs_plain_path": compare(g_p, g_k)}
+    if not xla:
+        loss_f, g_f = grads(reference_attention(torch, tf, kernel_forward=True))
+        parity.update(loss_kernel_forward=loss_f, backward_kernels=compare(g_f, g_k))
+        del g_f
+    torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
     # f32: the two paths differ only in the order of their f32 sums
     ok = (parity["kernel_vs_plain_path"]["whole_rel_err"] < F32_REL_TOL
           and parity["loss_rel_err"] < F32_REL_TOL) if f32 else (
-        parity["loss_rel_err"] <= REL_TOL and parity["backward_kernels"]["worst_rel_err"] < REL_TOL)
+        parity["loss_rel_err"] <= REL_TOL
+        and parity["kernel_vs_plain_path" if xla else "backward_kernels"]["worst_rel_err"] < REL_TOL)
     if not (ok and finite):
         raise AssertionError(f"{phase}: the train step disagrees with the plain attention: {parity}")
-    del g_k, g_p, g_f
+    del g_k, g_p
 
     model = pt.vit_from_flax(params, num_heads=heads, dtype=dtype, device=device)
     schedule = pt.warmup_cosine_decay_schedule(0.0, 6e-4, 2, VARIANT_TRAIN_STEPS, 1e-5)
@@ -4505,21 +4662,26 @@ def phase_vit_variant(torch, pt, tf, pool, consts, frame_shape, device, phase, d
         losses.append(float(train_step(xs[n % len(xs)], (ys[n % len(ys)], valid))))
         stamps.append(time.perf_counter())
     train_counts, train_variants = pt.counts(), pt.variant_counts()
+    train_routes = pt.route_counts()
     peak_train = torch.cuda.max_memory_allocated(device) / 2**30
     n = VIT_DEPTH * VARIANT_TRAIN_STEPS
-    want = {"calib_kernel": 0, **NO_RESNET, "conv_block_kernel": 0, "flash_kernel": n,
-            "flash_bwd_kernel": n, "flash_bwd_dq_convert": 0 if f32 else n}
+    k = 0 if xla else n
+    want = {"calib_kernel": 0, **NO_RESNET, "conv_block_kernel": 0, "flash_kernel": k,
+            "flash_bwd_kernel": k, "flash_bwd_dq_convert": 0 if f32 else k}
+    want_routes = {"attention_xla_route": n - k, "attention_bwd_xla_route": n - k}
     want_v = {(fwd, dtype_name, d): n, (bwd, dtype_name, d): n}
-    if not f32:
-        want_v[("flash_bwd_dq_convert", "bf16", d)] = n
-    if train_counts != want or train_variants != want_v:
-        raise AssertionError(f"{phase}: launch counts {train_counts} {train_variants} over "
-                             f"{VARIANT_TRAIN_STEPS} steps, expected {want} {want_v}")
+    if not (f32 or xla):
+        want_v[("flash_bwd_dq_convert", dtype_name, d)] = n
+    if train_counts != want or train_routes != want_routes or train_variants != want_v:
+        raise AssertionError(f"{phase}: launch counts {train_counts} {train_routes} "
+                             f"{train_variants} over {VARIANT_TRAIN_STEPS} steps, expected "
+                             f"{want} {want_routes} {want_v}")
     if not np.all(np.isfinite(losses)) or not all(bool(torch.isfinite(p).all())
                                                   for p in model.parameters()):
         raise AssertionError(f"{phase}: training diverged: losses {losses}")
     step_ms = np.diff(stamps)[1:] * 1e3  # each step synchronised by its loss' float()
-    emit(f"{phase}_train", dtype=dtype_name, heads=heads, head_dim=d, kernel=bwd, batch=VIT_BATCH,
+    emit(f"{phase}_train", dtype=dtype_name, heads=heads, head_dim=d, kernel=bwd,
+         route="xla" if xla else "kernel", route_calls=train_routes, batch=VIT_BATCH,
          steps=VARIANT_TRAIN_STEPS, parity=parity, losses=losses,
          p50_step_ms=float(np.percentile(step_ms, 50)), mean_step_ms=float(step_ms.mean()),
          peak_mem_gib=peak_train, launches=train_counts,
@@ -6712,12 +6874,14 @@ def main() -> int:
 
     info = build.build(counted=True)  # the counting builds for flash_kernel and flash_bwd
     emit("build", seconds=info["seconds"], dir=info["dir"], ptxas=info["ptxas"])
-    # the wgmma kernels: none may spill or serialize its wgmma; those of
-    # conv_sm90.cu and flash.cu move 384 threads' 168 registers to their
-    # consumers with setmaxnreg, so each must launch with exactly 168
-    # (flash_bwd_kernel and the wide kernels run 256 threads without
-    # setmaxnreg, and the dq rounding pass of flash_bwd.cu is no wgmma kernel)
-    wgmma_libs = ("conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide")
+    # the wgmma kernels, the attention ones in their bf16 and f16 builds:
+    # none may spill or serialize its wgmma; those of conv_sm90.cu and
+    # flash.cu move 384 threads' 168 registers to their consumers with
+    # setmaxnreg, so each must launch with exactly 168 (flash_bwd_kernel and
+    # the wide kernels run 256 threads without setmaxnreg, and the dq
+    # rounding pass of flash_bwd.cu is no wgmma kernel)
+    wgmma_libs = ("conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide",
+                  *build.F16_LIBS)
     sm90 = [r for r in info["ptxas"] if r["lib"] in wgmma_libs
             and "dq_convert" not in r["function"]]
     emit("build_sm90", libraries={lib: sum(r["lib"] == lib for r in sm90) for lib in wgmma_libs},
@@ -6729,7 +6893,7 @@ def main() -> int:
     if ({r["lib"] for r in sm90} != set(wgmma_libs)
             or any(r["spill_stores"] + r["spill_loads"] or r["wgmma_serialized"]
                    or r["setmaxnreg_ignored"]
-                   or (r["lib"] in ("conv_sm90", "flash") and r.get("registers") != 168)
+                   or (r["lib"] in ("conv_sm90", "flash", "flash_f16") and r.get("registers") != 168)
                    for r in sm90)):
         raise AssertionError(f"the wgmma kernels spill, serialize or lose setmaxnreg: {sm90}")
     phase_build_f32(info)
@@ -6881,7 +7045,8 @@ def main() -> int:
     })
     # launches by Hopper kernel: the bf16 head-dim-128 ViT's phases launch
     # only flash_kernel and flash_bwd_kernel; the dry run's f32 ViT legs and
-    # the vit_f32 and vit_wide phases are tallied by variant
+    # the vit_f32, vit_wide and vit_f16 phases are tallied by variant
+    # (vit_heads8 takes the XLA route and launches none)
     variants = add_counts(md_variants, *(v for _, v in variant_runs.values()))
     md_f32 = {k: variant_sum(md_variants, k) for k in ("flash_f32_kernel", "flash_bwd_f32_kernel")}
     f = flash["serving"]  # one batch of the main path: VIT_DEPTH launches at this shape
@@ -6890,20 +7055,25 @@ def main() -> int:
         "replaces": "psana_ray_tpu/parallel/flash.py:155",
         "launches": (vit_counts["flash_kernel"] + train_counts["flash_kernel"]
                      + md_counts["flash_kernel"] - md_f32["flash_f32_kernel"]),
-        "max_abs_err": max(r["max_abs_err_o"] for r in flash.values() if r["kernel"] == "flash_kernel"),
+        "max_abs_err": max(r["max_abs_err_o"] for r in flash.values()
+                           if r.get("kernel") == "flash_kernel" and r["dtype"] == "bf16"),
         "ms": VIT_DEPTH * f["ms"], "plain_ms": VIT_DEPTH * f["plain_ms"],
         "bound_ms": VIT_DEPTH * f["bound_ms"], "bound_by": f["bound_by"],
         "library_ms": VIT_DEPTH * f["library_ms"],
     })
-    # the wide and f32 forwards: one batch of their ViT at the serving shape
-    for name, source, key in (("flash_wide_kernel", "flash_wide.cu", "serving/bf16/256"),
-                              ("flash_f32_kernel", "flash_f32.cu", "serving/f32/128")):
+    # the wide, f32 and f16 forwards: one batch of their ViT at the serving
+    # shape (f16: the f16 build of flash_kernel, row flash_kernel_f16)
+    for name, source, key, dt in (("flash_wide_kernel", "flash_wide.cu", "serving/bf16/256", "bf16"),
+                                  ("flash_f32_kernel", "flash_f32.cu", "serving/f32/128", "f32"),
+                                  ("flash_kernel", "flash.cu", "serving/f16/128", "f16")):
         r = flash[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{csrc}/{source}",
+            "name": f"{name}_f16" if dt == "f16" else name, "route": "cuda",
+            "source": f"{csrc}/{source}",
             "replaces": "psana_ray_tpu/parallel/flash.py:155",
-            "launches": variant_sum(variants, name),
-            "max_abs_err": max(x["max_abs_err_o"] for x in flash.values() if x["kernel"] == name),
+            "launches": variant_sum(variants, name, dt),
+            "max_abs_err": max(x["max_abs_err_o"] for x in flash.values()
+                               if x.get("kernel") == name and x["dtype"] == dt),
             "ms": VIT_DEPTH * r["ms"], "plain_ms": VIT_DEPTH * r["plain_ms"],
             "bound_ms": VIT_DEPTH * r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": VIT_DEPTH * r["library_ms"],
@@ -6911,20 +7081,24 @@ def main() -> int:
     # K6 and K7 are one kernel in each variant: both rows give the pair's
     # numbers (one train step: VIT_DEPTH launches at the training shape), and
     # the SDPA backward (dq, dk and dv in one call) is given once, with K6
-    for name, source, key in (("flash_bwd_kernel", "flash_bwd.cu", "training"),
-                              ("flash_bwd_wide_kernel", "flash_bwd_wide.cu", "serving/bf16/256"),
-                              ("flash_bwd_f32_kernel", "flash_f32.cu", "serving/f32/128")):
+    for name, source, key, dt in (
+            ("flash_bwd_kernel", "flash_bwd.cu", "training", "bf16"),
+            ("flash_bwd_wide_kernel", "flash_bwd_wide.cu", "serving/bf16/256", "bf16"),
+            ("flash_bwd_f32_kernel", "flash_f32.cu", "serving/f32/128", "f32"),
+            ("flash_bwd_kernel", "flash_bwd.cu", "serving/f16/128", "f16")):
         tb = flash_bwd[key]
         launches = (train_counts["flash_bwd_kernel"] + md_counts["flash_bwd_kernel"]
-                    - md_f32["flash_bwd_f32_kernel"] if name == "flash_bwd_kernel"
-                    else variant_sum(variants, name))
+                    - md_f32["flash_bwd_f32_kernel"] if (name, dt) == ("flash_bwd_kernel", "bf16")
+                    else variant_sum(variants, name, dt))
         for line, grads in ((314, ("dk", "dv")), (354, ("dq",))):
             kernels.append({
-                "name": name, "route": "cuda", "source": f"{csrc}/{source}",
+                "name": f"{name}_f16" if dt == "f16" else name, "route": "cuda",
+                "source": f"{csrc}/{source}",
                 "replaces": f"psana_ray_tpu/parallel/flash.py:{line}",
                 "launches": launches,
                 "max_abs_err": max(r["max_abs_err"][g] for r in flash_bwd.values()
-                                   if r["kernel"] == name for g in grads),
+                                   if r.get("kernel") == name and r["dtype"] == dt
+                                   for g in grads),
                 "ms": VIT_DEPTH * tb["ms"], "plain_ms": VIT_DEPTH * tb["plain_ms"],
                 "bound_ms": VIT_DEPTH * tb["bound_ms"], "bound_by": tb["bound_by"],
                 "library_ms": VIT_DEPTH * tb["library_ms"] if line == 314 else None,

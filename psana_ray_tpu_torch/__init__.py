@@ -107,6 +107,7 @@ _EXPORTS = {
     "counts": "psana_ray_tpu_torch.kernels",
     "LAUNCHES": "psana_ray_tpu_torch.kernels",
     "reset_counters": "psana_ray_tpu_torch.kernels",
+    "route_counts": "psana_ray_tpu_torch.kernels",
     "variant_counts": "psana_ray_tpu_torch.kernels",
     "BasicBlock": "psana_ray_tpu_torch.models",
     "depth_to_space": "psana_ray_tpu_torch.models",

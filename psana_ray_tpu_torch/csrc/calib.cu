@@ -5,9 +5,11 @@
 //
 //   x        = (raw - pedestal) / gain                       (f32, IEEE div)
 //   baseline = sum(x * bg) / max(sum(bg), 1),  bg = |x| < thr && mask != 0
-//   out      = mask != 0 ? x - baseline : 0                  (f32 or bf16)
+//   out      = mask != 0 ? x - baseline : 0                  (f32, bf16 or f16)
 //
-// raw is f32 or uint16 ADUs (converted to f32 in registers, exactly).
+// raw is f32 or uint16 ADUs (converted to f32 in registers, exactly). As
+// in the TPU kernel (pallas_calib.py:61-62, :83), everything is f32 up to
+// the final store, which rounds to the output type.
 //
 // What bounds it on this card: bytes. It does ~7 flops per pixel against
 // 2-4 B of raw + 2-4 B of output + 9 B of constants, so HBM bandwidth
@@ -49,7 +51,7 @@
 // - pass 2: out = mask ? x - baseline : 0 from the slice in shared
 //   memory, the mask again from L2 (x keeps no mask code: a good pixel
 //   with gain 0 is legitimately non-finite), stored as float4 or packed
-//   bf16x2.
+//   bf16x2 or f16x2.
 // What still costs: pass 1 reads pedestal and gain, 2.25x the raw bytes,
 // from L2 for every frame.
 //
@@ -60,6 +62,7 @@
 // same (panel, frame) order and the same arithmetic.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <map>
@@ -83,6 +86,8 @@ constexpr int kMaxCluster = 16;   // Hopper's largest (non-portable above 8)
 // on the cluster route); bulk copies into shared memory (f32 raw, aligned
 // operands; cluster route)
 enum Load : int { kScalar = 0, kVector = 1, kBulk = 2 };
+// the output's element type (calib_launch's out_type)
+enum OutType : int { kOutF32 = 0, kOutBf16 = 1, kOutF16 = 2 };
 
 // read-only loads (the non-coherent path); raw converted to f32 in
 // registers (exact for uint16)
@@ -110,8 +115,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, float a, float b, flo
   *reinterpret_cast<uint2*>(out) = v;
 }
 
+__device__ __forceinline__ void store4(__half* out, float a, float b, float c, float d) {
+  __half2 lo = __floats2half2_rn(a, b);
+  __half2 hi = __floats2half2_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<uint32_t*>(&lo);
+  v.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out) = v;
+}
+
 __device__ __forceinline__ void store1(float* out, float a) { *out = a; }
 __device__ __forceinline__ void store1(__nv_bfloat16* out, float a) { *out = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store1(__half* out, float a) { *out = __float2half_rn(a); }
 
 __device__ __forceinline__ void accumulate(float x, uint8_t m, float thr, float& s, float& c) {
   if (fabsf(x) < thr && m != 0) {
@@ -353,13 +368,17 @@ ClusterKernel cluster_kernel_for(int load) {
   return nullptr;
 }
 
-ClusterKernel cluster_kernel_for(int raw_u16, int out_bf16, int load) {
-  if (raw_u16) {
-    return out_bf16 ? cluster_kernel_for<uint16_t, __nv_bfloat16>(load)
-                    : cluster_kernel_for<uint16_t, float>(load);
-  }
-  return out_bf16 ? cluster_kernel_for<float, __nv_bfloat16>(load)
-                  : cluster_kernel_for<float, float>(load);
+// out_type: 0 f32, 1 bf16, 2 f16 (the output's element type)
+template <typename RawT>
+ClusterKernel cluster_kernel_for(int out_type, int load) {
+  if (out_type == kOutBf16) return cluster_kernel_for<RawT, __nv_bfloat16>(load);
+  if (out_type == kOutF16) return cluster_kernel_for<RawT, __half>(load);
+  return out_type == kOutF32 ? cluster_kernel_for<RawT, float>(load) : nullptr;
+}
+
+ClusterKernel cluster_kernel_for(int raw_u16, int out_type, int load) {
+  return raw_u16 ? cluster_kernel_for<uint16_t>(out_type, load)
+                 : cluster_kernel_for<float>(out_type, load);
 }
 
 template <typename RawT, typename OutT>
@@ -367,13 +386,16 @@ TwoPassKernel two_pass_kernel_for(bool vec) {
   return vec ? calib_two_pass_kernel<RawT, OutT, true> : calib_two_pass_kernel<RawT, OutT, false>;
 }
 
-TwoPassKernel two_pass_kernel_for(int raw_u16, int out_bf16, bool vec) {
-  if (raw_u16) {
-    return out_bf16 ? two_pass_kernel_for<uint16_t, __nv_bfloat16>(vec)
-                    : two_pass_kernel_for<uint16_t, float>(vec);
-  }
-  return out_bf16 ? two_pass_kernel_for<float, __nv_bfloat16>(vec)
-                  : two_pass_kernel_for<float, float>(vec);
+template <typename RawT>
+TwoPassKernel two_pass_kernel_for(int out_type, bool vec) {
+  if (out_type == kOutBf16) return two_pass_kernel_for<RawT, __nv_bfloat16>(vec);
+  if (out_type == kOutF16) return two_pass_kernel_for<RawT, __half>(vec);
+  return out_type == kOutF32 ? two_pass_kernel_for<RawT, float>(vec) : nullptr;
+}
+
+TwoPassKernel two_pass_kernel_for(int raw_u16, int out_type, bool vec) {
+  return raw_u16 ? two_pass_kernel_for<uint16_t>(out_type, vec)
+                 : two_pass_kernel_for<float>(out_type, vec);
 }
 
 // once per kernel and device: the most dynamic shared memory a CTA may
@@ -408,10 +430,10 @@ cudaError_t configure(ClusterKernel kernel, int* max_dynamic_smem) {
 
 // the cluster route's kernel, configured, and its launch configuration;
 // cudaErrorInvalidValue for a plan or load mode it does not take
-cudaError_t cluster_setup(int H, int W, int raw_u16, int out_bf16, int load, int cluster, int rows,
+cudaError_t cluster_setup(int H, int W, int raw_u16, int out_type, int load, int cluster, int rows,
                           unsigned clusters, cudaStream_t stream, ClusterKernel* kernel,
                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  *kernel = cluster_kernel_for(raw_u16, out_bf16, load);
+  *kernel = cluster_kernel_for(raw_u16, out_type, load);
   if (*kernel == nullptr || cluster < 1 || cluster > kMaxCluster || rows < 1 ||
       static_cast<long long>(rows) * cluster < H || (load != kScalar && W % 4 != 0) ||
       clusters < 1) {
@@ -440,16 +462,16 @@ cudaError_t cluster_setup(int H, int W, int raw_u16, int out_bf16, int load, int
 
 // raw [B, P, H, W] f32 (raw_u16 == 0) or uint16 (raw_u16 == 1),
 // pedestal/gain [P, H, W] f32, mask [P, H, W] u8,
-// out [B, P, H, W] f32 (out_bf16 == 0) or bf16 (out_bf16 == 1).
+// out [B, P, H, W] f32 (out_type 0), bf16 (1) or f16 (2).
 // load: 0 scalar, 1 16-byte vectors, 2 bulk copies (f32 raw, cluster
 // route); 1 and 2 need W % 4 == 0 and 16-byte aligned operands (8 bytes
-// for uint16 raw and bf16 out, 4 for the mask).
+// for uint16 raw and 16-bit out, 4 for the mask).
 // cluster == 0: the two-pass route; else the cluster route: `clusters`
 // clusters (at most B * P) of `cluster` CTAs walk the (panel, frame) items,
 // each CTA holding rows_per_cta rows of an item (the last ones fewer).
 extern "C" int calib_launch(const void* raw, const void* ped, const void* gain, const void* mask,
                             void* out, int B, int P, int H, int W, float threshold, int raw_u16,
-                            int out_bf16, int load, int cluster, int rows_per_cta, int clusters,
+                            int out_type, int load, int cluster, int rows_per_cta, int clusters,
                             void* stream) {
   if (B <= 0 || P <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -459,16 +481,16 @@ extern "C" int calib_launch(const void* raw, const void* ped, const void* gain, 
   const unsigned panels = static_cast<unsigned>(B) * static_cast<unsigned>(P);
   if (cluster == 0) {
     const bool vec = load != kScalar;
-    if (vec && W % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    two_pass_kernel_for(raw_u16, out_bf16, vec)<<<panels, kThreads, 0, s>>>(
-        raw, pd, g, m, out, B, P, H * W, threshold);
+    const TwoPassKernel kernel = two_pass_kernel_for(raw_u16, out_type, vec);
+    if ((vec && W % 4 != 0) || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<panels, kThreads, 0, s>>>(raw, pd, g, m, out, B, P, H * W, threshold);
     return static_cast<int>(cudaGetLastError());
   }
   ClusterKernel kernel;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   if (clusters > static_cast<long long>(panels)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cluster_setup(H, W, raw_u16, out_bf16, load, cluster, rows_per_cta,
+  cudaError_t err = cluster_setup(H, W, raw_u16, out_type, load, cluster, rows_per_cta,
                                   static_cast<unsigned>(clusters), s, &kernel, &cfg, &attr);
   if (err == cudaSuccess) {
     err = cudaLaunchKernelEx(&cfg, kernel, raw, pd, g, m, out, B, P, H, W, rows_per_cta, threshold);
@@ -478,12 +500,12 @@ extern "C" int calib_launch(const void* raw, const void* ped, const void* gain, 
 
 // cudaOccupancyMaxActiveClusters of the cluster route's kernel for this
 // plan (how many of its clusters the card holds at once; 0: it cannot run)
-extern "C" int calib_active_clusters(int H, int W, int raw_u16, int out_bf16, int load, int cluster,
+extern "C" int calib_active_clusters(int H, int W, int raw_u16, int out_type, int load, int cluster,
                                      int rows_per_cta, int* active) {
   ClusterKernel kernel;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_setup(H, W, raw_u16, out_bf16, load, cluster, rows_per_cta, 1, nullptr,
+  cudaError_t err = cluster_setup(H, W, raw_u16, out_type, load, cluster, rows_per_cta, 1, nullptr,
                                   &kernel, &cfg, &attr);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
   return static_cast<int>(err);

@@ -1,15 +1,18 @@
 // flash_kernel: flash-attention forward for Hopper (sm_90a) on wgmma and
-// TMA, bf16 q/k/v, f32 softmax statistics.
+// TMA, bf16 q/k/v (f16 in the f16 build, lib flash_f16: -DSM90_F16, see
+// sm90_gemm.cuh), f32 softmax statistics.
 //
 // Replaces the TPU kernel
 //   psana_ray_tpu/parallel/flash.py:_flash_kernel (K5),
 // entry _pallas_attention_with_stats. For q [BH, Sq, D] and k, v [BH, Sk, D]
 // (D = 128, Sq and Sk multiples of 128) it computes, per query row,
-//   s   = (q . k^T) * sm_scale                        f32 (no bf16 rounding)
+//   s   = (q . k^T) * sm_scale                        f32 (never rounded)
 //   m   = running max, l = running sum of the f32 p, acc = f32 p.v sum
 //   p   = exp(s - m_new), rounded to bf16 only as the A operand of p.v
 //   o   = acc / max(l, 1e-30)                         rounded to bf16
 //   lse = m + log(max(l, 1e-30))                       f32, [BH, Sq]
+// (in the f16 build each bf16 above is f16: the TPU kernel rounds p and o
+// to the operands' own type, flash.py:189, :204)
 // exactly the online softmax of flash.py:170-208. causal=1 masks
 // k_index > q_index (top-left aligned, flash.py:134-152): key tiles wholly
 // in the causal future are not visited, masked scores become -1e30 and are
@@ -55,8 +58,7 @@
 
 namespace {
 
-using sm90::bf16;
-using sm90::pack_bf16;
+using sm90::pack_elem;
 
 constexpr int kD = 128;       // head dim
 constexpr int kBQ = 128;      // query rows a CTA: two consumer warpgroups of 64
@@ -225,8 +227,8 @@ flash_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__ CUt
         pe[e] = __expf(acc[4 * n + e] * sm_scale - mx[e >> 1]);
         rs[e >> 1] += pe[e];
       }
-      p[2 * n] = pack_bf16(pe[0], pe[1]);
-      p[2 * n + 1] = pack_bf16(pe[2], pe[3]);
+      p[2 * n] = pack_elem(pe[0], pe[1]);
+      p[2 * n + 1] = pack_elem(pe[2], pe[3]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -255,7 +257,7 @@ flash_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__ CUt
   sm90::fence_acc(o);
   fence_regs(p);
 
-  // o = acc / max(l, 1e-30) in bf16 into this warpgroup's rows of the Q
+  // o = acc / max(l, 1e-30) in bf16 (f16) into this warpgroup's rows of the Q
   // tile, swizzled as the TMA store reads it; lse = m + log(max(l, 1e-30))
   // (flash.py:201-208)
   const float ls[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
@@ -263,8 +265,8 @@ flash_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__ CUt
   for (int n = 0; n < 16; ++n) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<__nv_bfloat162*>(qs + sm90::c_offset(r0 + 8 * h, 8 * n + 2 * t)) =
-          __floats2bfloat162_rn(o[4 * n + 2 * h] / ls[h], o[4 * n + 2 * h + 1] / ls[h]);
+      *reinterpret_cast<sm90::elem2*>(qs + sm90::c_offset(r0 + 8 * h, 8 * n + 2 * t)) =
+          sm90::to_elem2(o[4 * n + 2 * h] / ls[h], o[4 * n + 2 * h + 1] / ls[h]);
     }
   }
   sm90::fence_async_shared();
@@ -306,9 +308,10 @@ cudaError_t launch(const CUtensorMap (&maps)[4], float* lse, int BH, int Sq, int
 }  // namespace
 
 // Flash attention forward. q [BH, Sq, D], k and v [BH, Sk, D], contiguous
-// bf16, 16-byte aligned; o [BH, Sq, D] bf16 and lse [BH, Sq] f32 out. D
-// must be 128 and Sq, Sk positive multiples of 128; causal 0 or 1
-// (top-left aligned mask).
+// bf16 (f16 in the f16 build), 16-byte aligned; o [BH, Sq, D] of the same
+// type and lse [BH, Sq] f32 out. D must be 128, BH at most 65535 (the
+// wrapper launches larger batches in slices) and Sq, Sk positive multiples
+// of 128; causal 0 or 1 (top-left aligned mask).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                 int BH, int Sq, int Sk, int D, float sm_scale, int causal,
                                 void* stream) {

@@ -1,6 +1,7 @@
 // flash_bwd_kernel: the flash-attention backward for Hopper (sm_90a) in a
-// single pass on wgmma and TMA, bf16 q/k/v/dO, f32 lse and delta; and
-// flash_bwd_dq_convert, which rounds its f32 dq sums to bf16 once.
+// single pass on wgmma and TMA, bf16 q/k/v/dO (f16 in the f16 build, lib
+// flash_bwd_f16: -DSM90_F16, see sm90_gemm.cuh), f32 lse and delta; and
+// flash_bwd_dq_convert, which rounds its f32 dq sums to bf16 (f16) once.
 //
 // Replaces the TPU kernels
 //   psana_ray_tpu/parallel/flash.py:_flash_bwd_dkv_kernel (K6) and
@@ -17,7 +18,8 @@
 // and accumulates dv += bf16(p)^T . dO, dk += bf16(ds)^T . q (over query
 // tiles, in registers) and dq += bf16(ds) . k (over key tiles, in an f32
 // scratch in global memory), rounding each to bf16 once at the end: the
-// TPU kernels' rounding points (flash.py:335, :339, :373). With causal,
+// TPU kernels' rounding points (flash.py:335, :339, :373; f16 in the f16
+// build, where the TPU kernels round to the operands' type). With causal,
 // query tiles wholly before a key tile are not visited (_tile_live,
 // flash.py:147-152), top-left aligned also when Sq != Sk; a key tile that
 // no query sees gets dk = dv = 0 and adds nothing to dq.
@@ -79,8 +81,11 @@
 
 namespace {
 
+// (bf16 and pack_bf16: named by the dq kernel that
+// tools/flash_bwd_ablation.py's two_kernel variant appends)
 using sm90::bf16;
 using sm90::pack_bf16;
+using sm90::pack_elem;
 
 constexpr int kD = 128;        // head dim
 constexpr int kBK = 128;       // keys a CTA: two warpgroups of 64
@@ -234,7 +239,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__
     sm90::fence_acc(dpt);
 
     // p^T = exp(s^T * scale - lse) and ds^T = p^T * (dp^T - delta) * scale
-    // in f32, rounded to bf16 into the p^T and ds^T tiles (pt_off)
+    // in f32, rounded to bf16 (f16) into the p^T and ds^T tiles (pt_off)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int c = 8 * n + 2 * t;  // this thread's query columns c, c + 1
@@ -251,8 +256,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint32_t off = pt_off + 1024 * h + ((n ^ g) << 4);
-        st_shared_u32(pt_a + off, pack_bf16(pe[2 * h], pe[2 * h + 1]));
-        st_shared_u32(ds_a + off, pack_bf16(de[2 * h], de[2 * h + 1]));
+        st_shared_u32(pt_a + off, pack_elem(pe[2 * h], pe[2 * h + 1]));
+        st_shared_u32(ds_a + off, pack_elem(de[2 * h], de[2 * h + 1]));
       }
     }
     sm90::fence_async_shared();  // the p^T, ds^T stores before the wgmma (async proxy) reads them
@@ -312,7 +317,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__
     }
   }
 
-  // dk and dv in bf16 into this warpgroup's rows of the K and V tiles
+  // dk and dv in bf16 (f16) into this warpgroup's rows of the K and V tiles
   // (every wgmma that read them finished before the last kTileDone),
   // swizzled as the TMA store reads them
 #pragma unroll
@@ -320,10 +325,10 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int off = sm90::c_offset(64 * wg + kr + 8 * h, 8 * n + 2 * t);
-      *reinterpret_cast<__nv_bfloat162*>(ks + off) =
-          __floats2bfloat162_rn(dk[4 * n + 2 * h], dk[4 * n + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vs + off) =
-          __floats2bfloat162_rn(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
+      *reinterpret_cast<sm90::elem2*>(ks + off) =
+          sm90::to_elem2(dk[4 * n + 2 * h], dk[4 * n + 2 * h + 1]);
+      *reinterpret_cast<sm90::elem2*>(vs + off) =
+          sm90::to_elem2(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
     }
   }
   sm90::fence_async_shared();
@@ -339,14 +344,14 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_constant__
   }
 }
 
-// dq = bf16(dq_acc), four values a thread and step
+// dq = bf16(dq_acc) (f16 in the f16 build), four values a thread and step
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_convert(const float4* __restrict__ acc, uint2* __restrict__ dq, const long long n4) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += gridDim.x * 256LL) {
     const float4 a = acc[i];
     uint2 o;
-    o.x = pack_bf16(a.x, a.y);
-    o.y = pack_bf16(a.z, a.w);
+    o.x = pack_elem(a.x, a.y);
+    o.y = pack_elem(a.z, a.w);
     dq[i] = o;
   }
 }
@@ -367,11 +372,12 @@ cudaError_t launch(const CUtensorMap (&maps)[7], const float* lse, const float* 
 }  // namespace
 
 // The flash backward. q, dO [BH, Sq, D] and k, v [BH, Sk, D] contiguous
-// bf16; lse, delta [BH, Sq] contiguous f32; all 16-byte aligned. Out: dk,
-// dv [BH, Sk, D] bf16, and dq's f32 sums added into dq_acc [BH, Sq, D]
-// (which the caller zeroes first; flash_bwd_dq_convert_launch rounds it).
-// D must be 128 and Sq, Sk positive multiples of 128; causal 0 or 1
-// (top-left aligned mask).
+// bf16 (f16 in the f16 build); lse, delta [BH, Sq] contiguous f32; all
+// 16-byte aligned. Out: dk, dv [BH, Sk, D] of the operands' type, and dq's
+// f32 sums added into dq_acc [BH, Sq, D] (which the caller zeroes first;
+// flash_bwd_dq_convert_launch rounds it). D must be 128, BH at most 65535
+// (the wrapper launches larger batches in slices) and Sq, Sk positive
+// multiples of 128; causal 0 or 1 (top-left aligned mask).
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 void* dq_acc, int BH, int Sq, int Sk, int D, float sm_scale,
@@ -397,7 +403,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
 }
 
 // dq [n] bf16 = dq_acc [n] f32 rounded; n a positive multiple of 4, both
-// 16-byte aligned.
+// 16-byte aligned (f16 in the f16 build).
 extern "C" int flash_bwd_dq_convert_launch(const void* dq_acc, void* dq, long long n,
                                            void* stream) {
   if (!dq_acc || !dq || n <= 0 || n % 4 || reinterpret_cast<uintptr_t>(dq_acc) % 16 ||

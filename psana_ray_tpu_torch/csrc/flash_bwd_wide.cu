@@ -1,7 +1,8 @@
 // flash_bwd_wide_kernel: the flash-attention backward for Hopper (sm_90a)
 // at head dims 256 to 1024 in a single pass on wgmma and TMA, bf16
-// q/k/v/dO, f32 lse and delta. Its f32 dq sums are rounded by
-// flash_bwd.cu's flash_bwd_dq_convert.
+// q/k/v/dO (f16 in the f16 build, lib flash_bwd_wide_f16: -DSM90_F16, see
+// sm90_gemm.cuh), f32 lse and delta. Its f32 dq sums are rounded by
+// flash_bwd.cu's flash_bwd_dq_convert (of the same element type).
 //
 // Replaces the TPU kernels
 //   psana_ray_tpu/parallel/flash.py:_flash_bwd_dkv_kernel (K6) and
@@ -17,7 +18,8 @@
 // and dv += bf16(p)^T . dO, dk += bf16(ds)^T . q over query tiles (in
 // registers), dq += bf16(ds) . k over key tiles (TMA reductions into an
 // f32 dq_acc), each rounded to bf16 once at the end: the TPU kernels'
-// rounding points (flash.py:335, :339, :373).
+// rounding points (flash.py:335, :339, :373; f16 for each bf16 in the f16
+// build).
 //
 // What bounds it on this card: tensor-core operations, as
 // flash_bwd_kernel. What the width changes: dk and dv of 64 keys take D
@@ -91,7 +93,7 @@
 
 namespace {
 
-using sm90::pack_bf16;
+using sm90::pack_elem;
 
 constexpr int kBQ = 64;        // queries a tile of the loop
 constexpr int kSlice = 128;    // columns of dk, dv and dq a warpgroup
@@ -363,7 +365,7 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_const
           p_room[n * 128 + tid] = make_float4(pe[0], pe[1], pe[2], pe[3]);
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            st_shared_u32(pt_a + ds_off + 1024 * h + ((n ^ g8) << 4), pack_bf16(pe[2 * h], pe[2 * h + 1]));
+            st_shared_u32(pt_a + ds_off + 1024 * h + ((n ^ g8) << 4), pack_elem(pe[2 * h], pe[2 * h + 1]));
         }
       } else {
         sm90::named_barrier_sync(kPReady, 256);  // warpgroup 0's p is in the room
@@ -378,7 +380,7 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_const
           for (int e = 0; e < 4; ++e) de[e] = pe[e] * (sd[0][4 * n + e] - ((e & 1) ? d2.y : d2.x)) * sm_scale;
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            st_shared_u32(ds_a + ds_off + 1024 * h + ((n ^ g8) << 4), pack_bf16(de[2 * h], de[2 * h + 1]));
+            st_shared_u32(ds_a + ds_off + 1024 * h + ((n ^ g8) << 4), pack_elem(de[2 * h], de[2 * h + 1]));
         }
       }
       sm90::fence_async_shared();  // the tiles' stores before the wgmma (async proxy) reads them
@@ -440,10 +442,10 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_const
           pe[e] = p;
           de[e] = p * (sd[1][4 * n + e] - ((e & 1) ? d2.y : d2.x)) * sm_scale;
         }
-        pt[2 * n] = pack_bf16(pe[0], pe[1]);
-        pt[2 * n + 1] = pack_bf16(pe[2], pe[3]);
-        dst[2 * n] = pack_bf16(de[0], de[1]);
-        dst[2 * n + 1] = pack_bf16(de[2], de[3]);
+        pt[2 * n] = pack_elem(pe[0], pe[1]);
+        pt[2 * n + 1] = pack_elem(pe[2], pe[3]);
+        dst[2 * n] = pack_elem(de[0], de[1]);
+        dst[2 * n + 1] = pack_elem(de[2], de[3]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) st_shared_u32(ds_a + ds_off + 1024 * h + ((n ^ g8) << 4), dst[2 * n + h]);
       }
@@ -530,7 +532,7 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_const
     }
   }
 
-  // dk in bf16 into the warpgroup's part of the K tile, dv into its part of
+  // dk in bf16 (f16) into the warpgroup's part of the K tile, dv into its part of
   // the V tile (only its own products read them), swizzled as the TMA
   // store reads them
   unsigned char* ks = smem;
@@ -542,10 +544,10 @@ flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap mQ, const __grid_const
       const int row = kr + 8 * h, col = 8 * n + 2 * t;
       const int off = (cp + (col >> 6)) * R::kKPanel + (kw + row) * 128 +
                       ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(ks + off) =
-          __floats2bfloat162_rn(dk[4 * n + 2 * h], dk[4 * n + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vs + off) =
-          __floats2bfloat162_rn(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
+      *reinterpret_cast<sm90::elem2*>(ks + off) =
+          sm90::to_elem2(dk[4 * n + 2 * h], dk[4 * n + 2 * h + 1]);
+      *reinterpret_cast<sm90::elem2*>(vs + off) =
+          sm90::to_elem2(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
     }
   }
   sm90::fence_async_shared();
@@ -598,12 +600,14 @@ bool pair_route(int D) { return D % (2 * kSlice) == 0; }
 }  // namespace
 
 // The flash backward at head dims 256..1024. q, dO [BH, Sq, D] and k, v
-// [BH, Sk, D] contiguous bf16; lse, delta [BH, Sq] contiguous f32; all
-// 16-byte aligned. Out: dk, dv [BH, Sk, D] bf16, and dq's f32 sums added
-// into dq_acc [BH, Sq, D] (which the caller zeroes first;
-// flash_bwd_dq_convert_launch of libflash_bwd rounds it). D must be a
-// multiple of 128 from 256 to 1024 and Sq, Sk positive multiples of 128;
-// causal 0 or 1 (top-left aligned mask).
+// [BH, Sk, D] contiguous bf16 (f16 in the f16 build); lse, delta [BH, Sq]
+// contiguous f32; all 16-byte aligned. Out: dk, dv [BH, Sk, D] of the
+// operands' type, and dq's f32 sums added into dq_acc [BH, Sq, D] (which
+// the caller zeroes first; flash_bwd_dq_convert_launch of libflash_bwd, or
+// of libflash_bwd_f16, rounds it). D must be a multiple of 128 from 256 to
+// 1024, BH at most 65535 (the wrapper launches larger batches in slices)
+// and Sq, Sk positive multiples of 128; causal 0 or 1 (top-left aligned
+// mask).
 extern "C" int flash_bwd_wide_launch(const void* q, const void* k, const void* v, const void* dout,
                                      const void* lse, const void* delta, void* dk, void* dv,
                                      void* dq_acc, int BH, int Sq, int Sk, int D, float sm_scale,

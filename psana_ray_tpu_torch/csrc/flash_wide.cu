@@ -1,5 +1,6 @@
 // flash_wide_kernel: the flash-attention forward for Hopper (sm_90a) on
-// wgmma and TMA at head dims 256 to 1024, bf16 q/k/v, f32 softmax
+// wgmma and TMA at head dims 256 to 1024, bf16 q/k/v (f16 in the f16
+// build, lib flash_wide_f16: -DSM90_F16, see sm90_gemm.cuh), f32 softmax
 // statistics.
 //
 // Replaces the TPU kernel
@@ -14,7 +15,7 @@
 //   p   = exp(s - m_new), rounded to bf16 only as the A operand of p.v
 //   o   = acc / max(l, 1e-30)                         rounded to bf16
 //   lse = m + log(max(l, 1e-30))                       f32, [BH, Sq]
-// the online softmax of flash.py:170-208, causal top-left aligned
+// (f16 for each bf16 in the f16 build) the online softmax of flash.py:170-208, causal top-left aligned
 // (flash.py:134-152): key tiles wholly in the future are not visited,
 // masked scores give p = 0, alpha is 0 while m is still -1e30.
 //
@@ -78,7 +79,7 @@
 
 namespace {
 
-using sm90::pack_bf16;
+using sm90::pack_elem;
 
 constexpr int kBQ = 128;       // query rows a CTA: two consumer warpgroups of 64
 constexpr int kBKV = 64;       // keys a tile
@@ -263,8 +264,8 @@ __device__ __forceinline__ void forward(const CUtensorMap* mQ, const CUtensorMap
         pe[e] = __expf(acc[4 * n + e] * sm_scale - mx[e >> 1]);
         rs[e >> 1] += pe[e];
       }
-      p[2 * n] = pack_bf16(pe[0], pe[1]);
-      p[2 * n + 1] = pack_bf16(pe[2], pe[3]);
+      p[2 * n] = pack_elem(pe[0], pe[1]);
+      p[2 * n + 1] = pack_elem(pe[2], pe[3]);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -306,7 +307,7 @@ __device__ __forceinline__ void forward(const CUtensorMap* mQ, const CUtensorMap
   for (int h = 0; h < kH; ++h) sm90::fence_acc(o[h]);
   fence_regs(p);
 
-  // o = acc / max(l, 1e-30) in bf16 into this warpgroup's rows of the Q
+  // o = acc / max(l, 1e-30) in bf16 (f16) into this warpgroup's rows of the Q
   // tile, swizzled as the TMA store reads it; lse = m + log(max(l, 1e-30))
   // (flash.py:201-208) from rank 0
   const float ls[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
@@ -316,8 +317,8 @@ __device__ __forceinline__ void forward(const CUtensorMap* mQ, const CUtensorMap
     for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<__nv_bfloat162*>(qs + sm90::c_offset(r0 + 8 * hh, 128 * h + 8 * n + 2 * t)) =
-            __floats2bfloat162_rn(o[h][4 * n + 2 * hh] / ls[hh], o[h][4 * n + 2 * hh + 1] / ls[hh]);
+        *reinterpret_cast<sm90::elem2*>(qs + sm90::c_offset(r0 + 8 * hh, 128 * h + 8 * n + 2 * t)) =
+            sm90::to_elem2(o[h][4 * n + 2 * hh] / ls[hh], o[h][4 * n + 2 * hh + 1] / ls[hh]);
   sm90::fence_async_shared();
   sm90::named_barrier_sync(kEpilogue + wg, 128);
   if (tid == 0) {
@@ -378,9 +379,11 @@ cudaError_t launch(const CUtensorMap (&maps)[4], float* lse, int BH, int Sq, int
 }  // namespace
 
 // Flash attention forward at head dims 256..1024. q [BH, Sq, D], k and v
-// [BH, Sk, D], contiguous bf16, 16-byte aligned; o [BH, Sq, D] bf16 and
-// lse [BH, Sq] f32 out. D must be a multiple of 128 from 256 to 1024 and
-// Sq, Sk positive multiples of 128; causal 0 or 1 (top-left aligned mask).
+// [BH, Sk, D], contiguous bf16 (f16 in the f16 build), 16-byte aligned; o
+// [BH, Sq, D] of the same type and lse [BH, Sq] f32 out. D must be a
+// multiple of 128 from 256 to 1024, BH at most 65535 (the wrapper launches
+// larger batches in slices) and Sq, Sk positive multiples of 128; causal 0
+// or 1 (top-left aligned mask).
 extern "C" int flash_wide_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                  int BH, int Sq, int Sk, int D, float sm_scale, int causal,
                                  void* stream) {

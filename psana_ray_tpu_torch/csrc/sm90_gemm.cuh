@@ -19,16 +19,40 @@
 // The output tile uses the same layout in 64-column panels, so that
 // stores from the accumulator fragments hit 32 distinct banks and TMA
 // stores it straight to global memory.
+//
+// The attention kernels (flash*.cu) take their 16-bit operand type from
+// the build: bf16, or f16 where the library is built with -DSM90_F16
+// (kernels/build.py's lib<name>_f16.so, from the same sources). Their
+// element type `elem`, its pairs, the wgmma type qualifiers (SM90_AB) and
+// the TMA data type (tensor_map.cuh) follow that one switch, so the bf16
+// build compiles the code it compiled before. conv_sm90.cu is bf16 only.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifdef SM90_F16
+#define SM90_AB ".f16.f16"  // wgmma's A and B types
+#else
+#define SM90_AB ".bf16.bf16"
+#endif
 
 namespace sm90 {
 
 using bf16 = __nv_bfloat16;
+#ifdef SM90_F16
+using elem = __half;
+using elem2 = __half2;
+// two f32 rounded to the element type (round to nearest even), lo first
+__device__ __forceinline__ elem2 to_elem2(float lo, float hi) { return __floats2half2_rn(lo, hi); }
+#else
+using elem = bf16;
+using elem2 = __nv_bfloat162;
+__device__ __forceinline__ elem2 to_elem2(float lo, float hi) { return __floats2bfloat162_rn(lo, hi); }
+#endif
 
 constexpr int kBM = 128;           // M tile: two consumer warpgroups of 64 rows
 constexpr int kBK = 64;            // K tile: 64 bf16 = one 128-byte swizzle row
@@ -184,7 +208,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // -- wgmma --------------------------------------------------------------------
 
-// descriptor of a K-major [rows][64] bf16 tile with the 128-byte swizzle,
+// descriptor of a K-major [rows][64] 16-bit tile with the 128-byte swizzle,
 // at shared address a
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
   uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);  // start address
@@ -244,6 +268,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// the same in the build's element type
+__device__ __forceinline__ uint32_t pack_elem(float lo, float hi) {
+  elem2 v = to_elem2(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // d[64 x BN] += a[64 x 16] . b[16 x BN]^T, both K-major in shared memory;
 // kTransB 1 reads b MN-major instead (N contiguous), and scale_d 0
@@ -254,7 +283,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
   count_wgmma<64>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" SM90_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -274,7 +303,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
   count_wgmma<128>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" SM90_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -296,7 +325,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, ui
   count_wgmma<256>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32" SM90_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -335,7 +364,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], uint32_t a0,
   count_wgmma<128>();
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" SM90_AB " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "

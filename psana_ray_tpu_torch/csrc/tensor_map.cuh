@@ -1,8 +1,9 @@
 // Host-side TMA tensor maps for the wgmma kernels (conv_sm90.cu, flash.cu,
-// flash_bwd.cu): libcuda's encoders, found through the runtime's
-// entry-point query (the libraries do not link libcuda), and the row-major
-// map that every 2-D operand, residual and output of those kernels uses
-// (bf16, or f32 for the backward's dq sums).
+// flash_bwd.cu and the wide pair): libcuda's encoders, found through the
+// runtime's entry-point query (the libraries do not link libcuda), and the
+// row-major map that every 2-D operand, residual and output of those
+// kernels uses (bf16, f16 in a -DSM90_F16 build, or f32 for the backward's
+// dq sums).
 #pragma once
 
 #include <cuda.h>
@@ -32,10 +33,17 @@ inline void* cuda_entry_point(const char* name) {
   return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? p : nullptr;
 }
 
-// a row-major bf16 [rows, cols] matrix, boxes of [box_rows, 64] with the
-// 128-byte swizzle, rows past the end read as zeros and not written; with
-// f32, a row-major f32 matrix in boxes of [box_rows, 32] (128 bytes a
-// box row, the same swizzle)
+// the 16-bit element type of a build (sm90_gemm.cuh's elem)
+#ifdef SM90_F16
+constexpr CUtensorMapDataType kElemType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+#else
+constexpr CUtensorMapDataType kElemType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+#endif
+
+// a row-major [rows, cols] matrix of the build's 16-bit elements, boxes of
+// [box_rows, 64] with the 128-byte swizzle, rows past the end read as
+// zeros and not written; with f32, a row-major f32 matrix in boxes of
+// [box_rows, 32] (128 bytes a box row, the same swizzle)
 inline bool make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols,
                      int box_rows, bool f32 = false) {
   static const auto fn = reinterpret_cast<EncodeTiled>(cuda_entry_point("cuTensorMapEncodeTiled"));
@@ -46,7 +54,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, long long rows, long lon
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : kElemType, 2,
             const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

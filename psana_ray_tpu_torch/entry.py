@@ -79,14 +79,17 @@ def vit_serve_step(
 ) -> torch.Tensor:
     """RAW ``[B, P, H, W]`` frames -> ``[B, classes]`` f32 logits:
     ``calib_kernel`` to the model's dtype (f32 frames for an f32 ViT, as
-    ``fused_calibrate``'s default gives them, ``bench.py:807``; bf16
-    otherwise), then the ViT (one flash-attention forward launch per block
-    on the card; the plain versions on CPU tensors), without autograd."""
+    ``fused_calibrate``'s default gives them, ``bench.py:807``; f16 for an
+    f16 ViT; bf16 otherwise), then the ViT (one flash-attention forward per
+    block: a kernel launch on the card where the reference's gate takes the
+    shapes, else its XLA route; the plain versions on CPU tensors), without
+    autograd."""
     import torch
 
     from psana_ray_tpu_torch.ops import fused_calibrate
 
-    out_dtype = torch.float32 if model.embed.dtype == torch.float32 else torch.bfloat16
+    out_dtype = (model.embed.dtype if model.embed.dtype in (torch.float32, torch.float16)
+                 else torch.bfloat16)
     with torch.no_grad():
         cal = fused_calibrate(frames, pedestal, gain, mask, threshold=threshold,
                               out_dtype=out_dtype)

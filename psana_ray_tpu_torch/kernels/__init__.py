@@ -16,9 +16,17 @@ three counts every variant of its TPU function: ``flash_kernel`` also
 counts ``flash_wide_kernel`` (bf16 at head dims 256-1024,
 ``csrc/flash_wide.cu``) and ``flash_f32_kernel`` (f32,
 ``csrc/flash_f32.cu``), ``flash_bwd_kernel`` also
-``flash_bwd_wide_kernel`` and ``flash_bwd_f32_kernel``. :data:`VARIANTS`
-tallies the same launches by ``(kernel, dtype, head dim)``, the kernel
-being the Hopper kernel that ran.
+``flash_bwd_wide_kernel`` and ``flash_bwd_f32_kernel``, in bf16 and f16
+(the f16 builds of the same kernels) and f32. :data:`VARIANTS` tallies
+the same launches by ``(kernel, dtype, head dim)``, the kernel being the
+Hopper kernel that ran.
+
+:data:`ROUTES` counts the attention calls that the reference's gate
+(``_kernel_shapes_ok``) sends to its XLA formulation, which the port runs
+as plain PyTorch on the card: ``attention_xla_route`` the forwards,
+``attention_bwd_xla_route`` the backwards. They launch no kernel of this
+repository, so :data:`LAUNCHES` leaves them out; :data:`VARIANTS` tallies
+them by dtype and head dim under the same names.
 """
 
 from __future__ import annotations
@@ -32,7 +40,10 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
-# (Hopper kernel, "bf16" or "f32", head dim) -> launches
+# calls of the XLA route, forward and backward
+ROUTES: Dict[str, int] = {"attention_xla_route": 0, "attention_bwd_xla_route": 0}
+
+# (Hopper kernel or route, "bf16", "f16" or "f32", head dim) -> launches or calls
 VARIANTS: Dict[Tuple[str, str, int], int] = {}
 
 
@@ -42,14 +53,20 @@ def count_variant(kernel: str, dtype: str, head_dim: int) -> None:
 
 
 def reset_counters() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in (LAUNCHES, ROUTES):
+        for name in counter:
+            counter[name] = 0
     VARIANTS.clear()
 
 
 def counts() -> Dict[str, int]:
     """A copy of the launch counts, by kernel name."""
     return dict(LAUNCHES)
+
+
+def route_counts() -> Dict[str, int]:
+    """A copy of the XLA route's call counts."""
+    return dict(ROUTES)
 
 
 def variant_counts() -> Dict[Tuple[str, str, int], int]:

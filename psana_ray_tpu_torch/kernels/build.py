@@ -19,11 +19,18 @@ it is given, and returns the launch's ``cudaError_t``; :func:`check`
 raises on anything but 0. A build or load failure raises ``RuntimeError``:
 there is no fallback to the plain versions for a CUDA tensor.
 
+The four bf16 attention libraries of :data:`F16` also build in f16
+(``lib<name>_f16.so``, ``-DSM90_F16``): the same sources with f16
+operands, wgmma types and TMA maps (``csrc/sm90_gemm.cuh``); the bf16
+builds compile the code they compiled before. :func:`library` takes
+either name.
+
 The flash libraries also build as counting libraries on request
-(``lib<name>_count.so``, ``-DSM90_COUNT_OPS``): each ``wgmma`` they issue
-adds its tensor-core operations to a device counter (``csrc/sm90_gemm.cuh``).
-Within :func:`counting`, :func:`library` hands out that build; the port
-never launches it otherwise.
+(``lib<name>_count.so`` and ``lib<name>_f16_count.so``,
+``-DSM90_COUNT_OPS``): each ``wgmma`` they issue adds its tensor-core
+operations to a device counter (``csrc/sm90_gemm.cuh``). Within
+:func:`counting`, :func:`library` hands out that build; the port never
+launches it otherwise.
 """
 
 from __future__ import annotations
@@ -44,7 +51,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIBS = ("calib", "conv_sm90", "flash", "flash_bwd", "flash_wide", "flash_bwd_wide", "flash_f32")
-COUNTED = ("flash", "flash_bwd", "flash_wide", "flash_bwd_wide")  # their counting builds
+F16 = ("flash", "flash_bwd", "flash_wide", "flash_bwd_wide")  # also built as lib<name>_f16.so
+F16_FLAG = "-DSM90_F16"
+F16_LIBS = tuple(f"{n}_f16" for n in F16)
+COUNTED = F16 + F16_LIBS  # their counting builds, lib<name>_count.so
 COUNT_FLAG = "-DSM90_COUNT_OPS"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,10 +68,10 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "calib": {
-        # raw, pedestal, gain, mask, out, B, P, H, W, threshold, raw_u16, out_bf16, load,
+        # raw, pedestal, gain, mask, out, B, P, H, W, threshold, raw_u16, out_type, load,
         # cluster, rows_per_cta, clusters, stream
         "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
-        # H, W, raw_u16, out_bf16, load, cluster, rows_per_cta, &active
+        # H, W, raw_u16, out_type, load, cluster, rows_per_cta, &active
         "calib_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _P],
     },
     "conv_sm90": {
@@ -124,6 +134,20 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_hash()
 
 
+def _source(lib_name: str) -> str:
+    """The source (``csrc/<source>.cu``, the key of :data:`SIGNATURES`)
+    that library ``lib<lib_name>.so`` is built from."""
+    for suffix in ("_count", "_f16"):
+        if lib_name.endswith(suffix):
+            lib_name = lib_name[:-len(suffix)]
+    return lib_name
+
+
+def _flags(lib_name: str) -> List[str]:
+    return ([F16_FLAG] if lib_name.removesuffix("_count").endswith("_f16") else []) + (
+        [COUNT_FLAG] if lib_name.endswith("_count") else [])
+
+
 def build(counted: bool = False) -> Dict[str, object]:
     """Compile every library that is not built yet (with ``counted``, the
     counting builds of ``COUNTED`` too, all in parallel); returns the build
@@ -134,8 +158,8 @@ def build(counted: bool = False) -> Dict[str, object]:
 
 def _build_locked(counted: bool) -> Dict[str, object]:
     out = build_dir()
-    targets = [(n, n, []) for n in LIBS] + ([(n, f"{n}_count", [COUNT_FLAG]) for n in COUNTED]
-                                            if counted else [])
+    names = list(LIBS + F16_LIBS) + ([f"{n}_count" for n in COUNTED] if counted else [])
+    targets = [(_source(n), n, _flags(n)) for n in names]
     todo = [t for t in targets if not (out / f"lib{t[1]}.so").exists()]
     t0 = time.monotonic()
     if todo:
@@ -169,7 +193,7 @@ def ptxas_report(out: Optional[Path] = None) -> List[dict]:
     serialized or that its ``setmaxnreg`` was ignored."""
     out = out or build_dir()
     rows = []
-    for name in LIBS:
+    for name in LIBS + F16_LIBS:
         log_path = out / f"{name}.ptxas.log"
         if not log_path.exists():
             continue
@@ -200,8 +224,9 @@ def ptxas_report(out: Optional[Path] = None) -> List[dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>.so``, built first if needed (within
-    :func:`counting` of ``name``, its counting build)."""
+    """The loaded library ``lib<name>.so`` (one of :data:`LIBS` or
+    :data:`F16_LIBS`), built first if needed (within :func:`counting` of
+    ``name``, its counting build)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -218,13 +243,13 @@ def _load(name: str, lib_name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
                 raise RuntimeError(f"cannot load kernel library {path}: {e}") from e
-            for fn, argtypes in SIGNATURES[name].items():
+            for fn, argtypes in SIGNATURES[_source(name)].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
-            if lib_name != name:
+            if lib_name.endswith("_count"):
                 lib.sm90_ops_take.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
                 lib.sm90_ops_take.restype = ctypes.c_int
             _loaded[lib_name] = lib

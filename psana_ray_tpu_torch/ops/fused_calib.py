@@ -37,6 +37,10 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is Hopper's non-portable maximum
 SLICE_TARGET = (SMEM_MAX // 3) - STATIC_SMEM
 # how the kernel reads its operands (csrc/calib.cu:Load)
 LOAD_SCALAR, LOAD_VECTOR, LOAD_BULK = 0, 1, 2
+# the output types the kernel stores, by its code (csrc/calib.cu:OutType):
+# f32, and the 16-bit types a model calibrates to; the TPU kernel takes any
+# out_dtype (pallas_calib.py:86-95), of which JAX's 32-bit mode gives these
+OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +139,7 @@ def active_clusters(plan: CalibPlan, h: int, w: int, raw_dtype: torch.dtype,
     active = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.calib_active_clusters(
-            h, w, int(raw_dtype == torch.uint16), int(out_dtype == torch.bfloat16), load,
+            h, w, int(raw_dtype == torch.uint16), OUT_TYPES[out_dtype], load,
             plan.cluster, plan.rows_per_cta, ctypes.byref(active))
     build.check(lib, err, "calib_kernel occupancy")
     return active.value
@@ -173,7 +177,8 @@ def fused_calibrate(
 ) -> torch.Tensor:
     """``[B, P, H, W]`` (or ``[P, H, W]``, auto-batched) raw ADUs ->
     calibrated frames in ``out_dtype`` (default: the raw float dtype, f32
-    for integer raw; bf16 on the model path). ``pedestal``/``gain``/
+    for integer raw; the model's dtype on the model path: f32, bf16 or
+    f16). ``pedestal``/``gain``/
     ``mask``: ``[P, H, W]``. ``plan`` overrides :func:`calib_plan`'s
     choice on a CUDA tensor (to time the routes against each other).
     """
@@ -181,11 +186,10 @@ def fused_calibrate(
         return fused_calibrate_plain(raw, pedestal, gain, mask, threshold, out_dtype)
     raw, pedestal, gain, squeeze = _prepare(raw, pedestal, gain, keep_u16=True)
     out_dtype = out_dtype or (raw.dtype if raw.is_floating_point() else torch.float32)
-    if raw.dtype not in (torch.float32, torch.uint16) or out_dtype not in (torch.float32,
-                                                                           torch.bfloat16):
+    if raw.dtype not in (torch.float32, torch.uint16) or out_dtype not in OUT_TYPES:
         raise NotImplementedError(
-            f"calib_kernel takes f32 or uint16 raw and f32/bf16 output, got {raw.dtype} -> "
-            f"{out_dtype}"
+            f"calib_kernel takes f32 or uint16 raw and f32, bf16 or f16 output, got "
+            f"{raw.dtype} -> {out_dtype}"
         )
     b, p, h, w = raw.shape
     if pedestal.shape != (p, h, w) or gain.shape != (p, h, w) or mask.shape != (p, h, w):
@@ -206,7 +210,7 @@ def fused_calibrate(
     err = lib.calib_launch(
         raw.data_ptr(), pedestal.data_ptr(), gain.data_ptr(), mask.data_ptr(), out.data_ptr(),
         b, p, h, w, float(threshold), int(raw.dtype == torch.uint16),
-        int(out_dtype == torch.bfloat16), load, plan.cluster, plan.rows_per_cta,
+        OUT_TYPES[out_dtype], load, plan.cluster, plan.rows_per_cta,
         min(b * p, active), stream,
     )
     build.check(lib, err, "calib_kernel")

@@ -15,32 +15,52 @@ Counterpart of the single-device surface of
 ``causal=True`` masks ``k_index > q_index`` with top-left aligned
 indices, also when ``Sq != Sk`` (``flash.py:544-550``).
 
-On a CPU tensor the wrappers run the plain versions:
-:func:`attention_with_stats_plain`, the reference's XLA formulation
-(``_xla_attention_with_stats``, ``flash.py:96-113``), and
-:func:`attention_bwd_plain` (``_xla_attention_bwd``, ``flash.py:461-485``),
-which materialise the ``[B, H, Sq, Sk]`` f32 scores. On a CUDA tensor
-they launch a kernel or raise. The kernels take what the TPU kernels'
-``_kernel_shapes_ok`` takes (``flash.py:255-270``), in bf16 or f32: a
-head dim that is a multiple of 128 up to :data:`MAX_HEAD_DIM` (1024) and
-sequence lengths that are multiples of 128. Which kernel runs
-(:func:`forward_kernel`, :func:`backward_kernel`):
+The route is the reference's (``_attention_core``, ``flash.py:488-495``,
+and its backward rules, ``flash.py:524``, ``:565``): :func:`kernel_shapes_ok`,
+the port's copy of ``_kernel_shapes_ok`` (``flash.py:262-270``: a head dim
+that is a multiple of 128 up to :data:`MAX_HEAD_DIM` (1024), sequence
+lengths that are multiples of 128, no dtype term), read from shapes
+before anything launches, sends a call to the kernels or to the XLA
+formulation (:func:`attention_route`), and forward and backward always
+take the same route:
 
-- bf16 at head dim 128: ``flash_kernel`` (``csrc/flash.cu``) and
-  ``flash_bwd_kernel`` (``csrc/flash_bwd.cu``), the tuned pair;
-- bf16 at head dims 256-1024: ``flash_wide_kernel``
-  (``csrc/flash_wide.cu``) and ``flash_bwd_wide_kernel``
-  (``csrc/flash_bwd_wide.cu``), whose dq goes through the same
-  ``flash_bwd_dq_convert``;
-- f32 at every head dim: ``flash_f32_kernel`` and
-  ``flash_bwd_f32_kernel`` (``csrc/flash_f32.cu``: every product on the
-  TF32 tensor cores as three TF32 products of each operand's TF32 part
-  and remainder, which holds f32's tolerances; at head dims above 128 the
-  scores formed once per tile by a cluster of CTAs), whose dq is summed
-  straight into an f32 tensor (no rounding launch).
+- the XLA formulation: :func:`attention_with_stats_plain`, the
+  reference's ``_xla_attention_with_stats`` (``flash.py:96-113``), and
+  :func:`attention_bwd_plain`, its ``_xla_attention_bwd``
+  (``flash.py:461-485``), which materialise the ``[B, H, Sq, Sk]`` f32
+  scores. The reference computes these shapes outside any Pallas kernel,
+  so the port computes them with PyTorch's products too, on the card as
+  on the CPU; each such call counts in ``kernels.ROUTES``. On a CPU
+  tensor every call takes them (the reference off the TPU);
+- the kernels, on a CUDA tensor where the gate holds. They launch or
+  raise: a kernel that fails to build or to launch is an error, never
+  a reason to take the other route. Which kernel runs
+  (:func:`forward_kernel`, :func:`backward_kernel`):
 
-Anything else on the card (f16, other head dims, other lengths: ROADMAP.md
-Item 12) raises instead of running the plain version.
+  - bf16 or f16 at head dim 128: ``flash_kernel`` (``csrc/flash.cu``)
+    and ``flash_bwd_kernel`` (``csrc/flash_bwd.cu``), the tuned pair;
+  - bf16 or f16 at head dims 256-1024: ``flash_wide_kernel``
+    (``csrc/flash_wide.cu``) and ``flash_bwd_wide_kernel``
+    (``csrc/flash_bwd_wide.cu``), whose dq goes through the same
+    ``flash_bwd_dq_convert``;
+  - f32 at every head dim: ``flash_f32_kernel`` and
+    ``flash_bwd_f32_kernel`` (``csrc/flash_f32.cu``: every product on
+    the TF32 tensor cores as three TF32 products of each operand's TF32
+    part and remainder, which holds f32's tolerances; at head dims above
+    128 the scores formed once per tile by a cluster of CTAs), whose dq
+    is summed straight into an f32 tensor (no rounding launch).
+
+  f16 runs the bf16 kernels' sources built with f16 operands (the
+  ``_f16`` libraries, ``kernels/build.py``): the reference's kernels read
+  no dtype and round ``p``, ``ds``, ``o`` and the gradients to the
+  operands' own type, and so do these. Any batch x heads runs: the
+  kernels' grids hold at most 65535 on ``gridDim.y``, so the wrappers
+  launch larger batches in slices of :data:`MAX_BH`.
+
+f64 is refused on the card (``NotImplementedError``) on either route: the
+reference's default 32-bit mode never produces it. The direct ``launch_*``
+wrappers check their inputs with :func:`check_kernel_inputs` and raise on
+shapes the gate refuses.
 
 The backward, like the reference's, keeps no score matrix: the Function
 saves ``(q, k, v, o, lse)`` and the kernels regenerate each probability
@@ -56,7 +76,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from psana_ray_tpu_torch.kernels import LAUNCHES, build, count_variant
+from psana_ray_tpu_torch.kernels import LAUNCHES, ROUTES, build, count_variant
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128  # the tuned bf16 pair's head dim
@@ -64,8 +84,9 @@ KERNEL_HEAD_DIM = 128  # the tuned bf16 pair's head dim
 # widest head the TPU kernels take
 MAX_HEAD_DIM = 1024
 KERNEL_HEAD_DIMS = tuple(range(KERNEL_HEAD_DIM, MAX_HEAD_DIM + 1, KERNEL_HEAD_DIM))
-KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 SEQ_QUANTUM = 128  # flash.py _BLOCK_MIN: the TPU kernel's divisibility floor
+MAX_BH = 65535  # batch x heads a launch takes: the kernels' gridDim.y
 # Hopper kernel -> (library, C entry point)
 _FORWARD = {"flash_kernel": ("flash", "flash_fwd_launch"),
             "flash_wide_kernel": ("flash_wide", "flash_wide_launch"),
@@ -102,36 +123,59 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def kernel_shapes_ok(q_shape, k_shape) -> bool:
+    """The reference's ``_kernel_shapes_ok`` (``flash.py:262-270``) on
+    ``[B, H, Sq, D]`` and ``[B, H, Sk, D]`` shapes: a head dim that is a
+    multiple of 128 up to :data:`MAX_HEAD_DIM`, Sq and Sk multiples of
+    128. No dtype term. Shapes alone, so it runs without a card."""
+    sq, d = q_shape[2], q_shape[3]
+    sk = k_shape[2]
+    return (d % KERNEL_HEAD_DIM == 0 and d <= MAX_HEAD_DIM and sq % SEQ_QUANTUM == 0
+            and sk % SEQ_QUANTUM == 0)
+
+
+def attention_route(q_shape, k_shape) -> str:
+    """Where the reference's ``_attention_core`` sends these shapes on its
+    accelerator: ``"kernel"`` where :func:`kernel_shapes_ok` holds, else
+    ``"xla"`` (its XLA formulation, here the plain PyTorch versions)."""
+    return "kernel" if kernel_shapes_ok(q_shape, k_shape) else "xla"
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kernel: str = "flash_kernel") -> None:
     """Raise unless the kernels (``kernel`` names the forward or the
-    backward in the message) take these ``[B, H, S, D]`` inputs: bf16 or
-    f32, a head dim in :data:`KERNEL_HEAD_DIMS`, Sq and Sk positive
-    multiples of 128, at most 65535 batch x heads. Reads shapes, dtypes
-    and devices only, so it runs without a card."""
+    backward in the message) take these ``[B, H, S, D]`` inputs: bf16, f16
+    or f32, a head dim in :data:`KERNEL_HEAD_DIMS`, Sq and Sk positive
+    multiples of 128. Reads shapes, dtypes and devices only, so it runs
+    without a card. :func:`attention_with_stats` sends the shapes this
+    refuses to the XLA route before any launch; the direct ``launch_*``
+    calls raise here."""
     _check_layout(q, k, v)
-    if q.dtype not in KERNEL_DTYPES:
-        raise NotImplementedError(f"{kernel} takes bf16 or f32 q, k, v on the card, got "
-                                  f"{q.dtype} (other dtypes: ROADMAP.md Item 12)")
+    _check_card_dtype(q, kernel)
     d = q.shape[3]
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"{kernel} takes a head dim that is a multiple of {KERNEL_HEAD_DIM} up to "
-            f"{MAX_HEAD_DIM}, got {d} (other head dims: ROADMAP.md Item 12)")
+            f"{MAX_HEAD_DIM}, got {d} (attention_with_stats takes it by the XLA route)")
     sq, sk = q.shape[2], k.shape[2]
     if sq <= 0 or sk <= 0 or sq % SEQ_QUANTUM or sk % SEQ_QUANTUM:
         raise ValueError(f"{kernel} needs Sq and Sk positive multiples of {SEQ_QUANTUM}, "
-                         f"got Sq={sq}, Sk={sk} (other lengths: ROADMAP.md Item 12)")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError(f"{kernel} takes at most 65535 batch x heads, got "
-                         f"{q.shape[0] * q.shape[1]}")
+                         f"got Sq={sq}, Sk={sk} (attention_with_stats takes them by the "
+                         f"XLA route)")
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
 
 
+def _check_card_dtype(q: torch.Tensor, what: str) -> None:
+    if q.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"{what} takes bf16, f16 or f32 q, k, v on the card, got {q.dtype} (the "
+            f"reference's default 32-bit mode never gives it f64)")
+
+
 def forward_kernel(q: torch.Tensor) -> str:
     """The Hopper kernel that runs the forward on ``q``'s dtype and head
-    dim (inputs that :func:`check_kernel_inputs` takes)."""
+    dim (inputs that :func:`check_kernel_inputs` takes): f16 as bf16."""
     if q.dtype == torch.float32:
         return "flash_f32_kernel"
     return "flash_kernel" if q.shape[3] == KERNEL_HEAD_DIM else "flash_wide_kernel"
@@ -141,6 +185,20 @@ def backward_kernel(q: torch.Tensor) -> str:
     """The Hopper kernel that runs the backward on ``q``'s dtype and head dim."""
     return {"flash_kernel": "flash_bwd_kernel", "flash_wide_kernel": "flash_bwd_wide_kernel",
             "flash_f32_kernel": "flash_bwd_f32_kernel"}[forward_kernel(q)]
+
+
+def kernel_library(kernel: str, dtype: torch.dtype) -> str:
+    """The library (``kernels/build.py``) that holds ``kernel`` for
+    operands of ``dtype``: the ``_f16`` build of a bf16 kernel's for f16."""
+    lib = {**_FORWARD, **_BACKWARD, "flash_bwd_dq_convert": ("flash_bwd",)}[kernel][0]
+    return f"{lib}_f16" if dtype == torch.float16 else lib
+
+
+def _bh_slices(bh: int):
+    """``(first, count)`` of each launch over ``bh`` batch x heads rows:
+    slices of at most :data:`MAX_BH`, each launch with its own tensor maps
+    over its rows."""
+    return [(b0, min(MAX_BH, bh - b0)) for b0 in range(0, bh, MAX_BH)]
 
 
 def attention_with_stats_plain(
@@ -169,9 +227,10 @@ def attention_with_stats_plain(
 def launch_flash(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward kernel for these inputs
-    (:func:`forward_kernel`) on CUDA tensors: ``(o, lse)``. Counted as
-    ``flash_kernel`` whichever variant ran, and by variant."""
+    """The forward kernel for these inputs (:func:`forward_kernel`) on
+    CUDA tensors: ``(o, lse)``. One launch, or one a slice of
+    :data:`MAX_BH` batch x heads rows; each counted as ``flash_kernel``
+    whichever variant ran, and by variant."""
     check_kernel_inputs(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -179,16 +238,17 @@ def launch_flash(
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     name = forward_kernel(q)
-    libname, entry = _FORWARD[name]
-    lib = build.library(libname)
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b * h, sq, sk, d, float(d ** -0.5), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(lib, err, name)
-    LAUNCHES["flash_kernel"] += 1
-    count_variant(name, KERNEL_DTYPES[q.dtype], d)
+    lib = build.library(kernel_library(name, q.dtype))
+    entry = getattr(lib, _FORWARD[name][1])
+    es, stream = q.element_size(), torch.cuda.current_stream(q.device).cuda_stream
+    for b0, n in _bh_slices(b * h):
+        qo, ko = b0 * sq * d * es, b0 * sk * d * es
+        err = entry(q.data_ptr() + qo, k.data_ptr() + ko, v.data_ptr() + ko, o.data_ptr() + qo,
+                    lse.data_ptr() + 4 * b0 * sq, n, sq, sk, d, float(d ** -0.5),
+                    int(bool(causal)), stream)
+        build.check(lib, err, name)
+        LAUNCHES["flash_kernel"] += 1
+        count_variant(name, KERNEL_DTYPES[q.dtype], d)
     return o, lse
 
 
@@ -244,56 +304,65 @@ def _bwd_args(q, k, v, do, lse, delta, kernel):
     tensors += [t.float().contiguous() for t in (lse, delta)]
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{kernel} needs 16-byte aligned inputs")
-    b, h, sq, d = q.shape
-    shape = (b * h, sq, k.shape[2], d, float(d ** -0.5),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    return tensors, shape
+    return tensors
 
 
 def launch_flash_bwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, causal: bool = False, dq_acc: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of the backward kernel for these inputs
-    (:func:`backward_kernel`: K6 and K7 in one pass) on CUDA tensors:
-    ``(dq_acc, dk, dv)``. The kernel adds dq's f32 sums into ``dq_acc``
-    (``[B, H, Sq, D]`` f32, zeroed here when not given) in an order that
-    changes from run to run; for bf16 inputs :func:`launch_flash_bwd_dq_convert`
-    rounds it to dq, for f32 inputs it is dq. Counted as
-    ``flash_bwd_kernel`` whichever variant ran, and by variant."""
+    """The backward kernel for these inputs (:func:`backward_kernel`: K6
+    and K7 in one pass) on CUDA tensors: ``(dq_acc, dk, dv)``. The kernel
+    adds dq's f32 sums into ``dq_acc`` (``[B, H, Sq, D]`` f32, zeroed here
+    when not given) in an order that changes from run to run; for bf16 and
+    f16 inputs :func:`launch_flash_bwd_dq_convert` rounds it to dq, for f32
+    inputs it is dq. One launch, or one a slice of :data:`MAX_BH` batch x
+    heads rows; each counted as ``flash_bwd_kernel`` whichever variant
+    ran, and by variant."""
     if dq_acc is not None and (dq_acc.shape != q.shape or dq_acc.dtype != torch.float32
                                or not dq_acc.is_contiguous() or dq_acc.device != q.device):
         raise ValueError(f"dq_acc must be a contiguous f32 {tuple(q.shape)} on {q.device}, got "
                          f"{dq_acc.dtype} {tuple(dq_acc.shape)} on {dq_acc.device}")
-    tensors, (bh, sq, sk, d, scale, stream) = _bwd_args(q, k, v, do, lse, delta,
-                                                        "flash_bwd_kernel")
+    tensors = _bwd_args(q, k, v, do, lse, delta, "flash_bwd_kernel")
     if dq_acc is None:
         dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(tensors[1]), torch.empty_like(tensors[2])
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     name = backward_kernel(q)
-    libname, entry = _BACKWARD[name]
-    lib = build.library(libname)
-    err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), dk.data_ptr(), dv.data_ptr(),
-                              dq_acc.data_ptr(), bh, sq, sk, d, scale, int(bool(causal)), stream)
-    build.check(lib, err, name)
-    LAUNCHES["flash_bwd_kernel"] += 1
-    count_variant(name, KERNEL_DTYPES[q.dtype], d)
+    lib = build.library(kernel_library(name, q.dtype))
+    entry = getattr(lib, _BACKWARD[name][1])
+    es, stream = q.element_size(), torch.cuda.current_stream(q.device).cuda_stream
+    q_, k_, v_, do_, lse_, delta_ = (t.data_ptr() for t in tensors)
+    for b0, n in _bh_slices(b * h):
+        # byte offsets of the slice's rows: q, do, lse, delta and dq_acc by
+        # query, k, v, dk and dv by key
+        qo, ko, ro = b0 * sq * d * es, b0 * sk * d * es, 4 * b0 * sq
+        err = entry(q_ + qo, k_ + ko, v_ + ko, do_ + qo, lse_ + ro, delta_ + ro,
+                    dk.data_ptr() + ko, dv.data_ptr() + ko, dq_acc.data_ptr() + 4 * b0 * sq * d,
+                    n, sq, sk, d, float(d ** -0.5), int(bool(causal)), stream)
+        build.check(lib, err, name)
+        LAUNCHES["flash_bwd_kernel"] += 1
+        count_variant(name, KERNEL_DTYPES[q.dtype], d)
     return dq_acc, dk, dv
 
 
-def launch_flash_bwd_dq_convert(dq_acc: torch.Tensor) -> torch.Tensor:
+def launch_flash_bwd_dq_convert(dq_acc: torch.Tensor,
+                                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """One launch of ``flash_bwd_dq_convert`` on a CUDA tensor: the f32
-    ``dq_acc`` rounded to bf16, once."""
+    ``dq_acc`` rounded to ``dtype`` (bf16 or f16), once."""
     if dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous() or dq_acc.numel() % 4:
         raise ValueError(f"flash_bwd_dq_convert takes a contiguous f32 tensor of a multiple of 4 "
                          f"elements, got {dq_acc.dtype} {tuple(dq_acc.shape)}")
-    dq = torch.empty(dq_acc.shape, dtype=torch.bfloat16, device=dq_acc.device)
-    lib = build.library("flash_bwd")
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"flash_bwd_dq_convert rounds to bf16 or f16, not {dtype}")
+    dq = torch.empty(dq_acc.shape, dtype=dtype, device=dq_acc.device)
+    lib = build.library(kernel_library("flash_bwd_dq_convert", dtype))
     err = lib.flash_bwd_dq_convert_launch(dq_acc.data_ptr(), dq.data_ptr(), dq_acc.numel(),
                                           torch.cuda.current_stream(dq_acc.device).cuda_stream)
     build.check(lib, err, "flash_bwd_dq_convert")
     LAUNCHES["flash_bwd_dq_convert"] += 1
-    count_variant("flash_bwd_dq_convert", "bf16", dq_acc.shape[-1])
+    count_variant("flash_bwd_dq_convert", KERNEL_DTYPES[dtype], dq_acc.shape[-1])
     return dq
 
 
@@ -302,7 +371,7 @@ def launch_flash_bwd(
     do: torch.Tensor, causal: bool = False, dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward on CUDA tensors: ``delta`` (:func:`flash_bwd_delta`),
-    one launch of the backward kernel, then, for bf16 inputs, one of
+    the backward kernel, then, for bf16 and f16 inputs, one launch of
     ``flash_bwd_dq_convert``. Returns ``(dq, dk, dv)``."""
     if o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} is not shaped like q {tuple(q.shape)}")
@@ -310,22 +379,50 @@ def launch_flash_bwd(
     dq_acc, dk, dv = launch_flash_bwd_kernel(q, k, v, do, lse, delta, causal)
     if q.dtype == torch.float32:
         return dq_acc, dk, dv
-    return launch_flash_bwd_dq_convert(dq_acc), dk, dv
+    return launch_flash_bwd_dq_convert(dq_acc, q.dtype), dk, dv
+
+
+def _xla_route(q: torch.Tensor, counter: str) -> None:
+    """Count a call that the gate sends to the XLA route on the card."""
+    ROUTES[counter] += 1
+    count_variant(counter, KERNEL_DTYPES[q.dtype], q.shape[3])
 
 
 def _forward(q, k, v, causal):
+    """The counterpart of the reference's ``_attention_core``
+    (``flash.py:488-495``): on a CUDA tensor the forward kernel where the
+    gate takes the shapes, else the XLA formulation; the plain version on
+    a CPU tensor."""
     if not q.is_cuda:
         return attention_with_stats_plain(q, k, v, causal)
-    return launch_flash(q, k, v, causal)
+    _check_card_dtype(q, "attention")
+    if attention_route(q.shape, k.shape) == "kernel":
+        return launch_flash(q, k, v, causal)
+    _xla_route(q, "attention_xla_route")
+    return attention_with_stats_plain(q, k, v, causal)
+
+
+def _backward(q, k, v, o, lse, do, causal, dlse):
+    """The backward on the forward's route (``flash.py:524``, ``:565``):
+    the backward kernels where the gate takes the shapes, else
+    ``_xla_attention_bwd``'s counterpart; the plain version on a CPU
+    tensor."""
+    if not q.is_cuda:
+        return attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
+    _check_card_dtype(q, "attention")
+    if attention_route(q.shape, k.shape) == "kernel":
+        return launch_flash_bwd(q, k, v, o, lse, do, causal, dlse)
+    _xla_route(q, "attention_bwd_xla_route")
+    return attention_bwd_plain(q, k, v, o, lse, do, causal, dlse)
 
 
 class FlashAttention(torch.autograd.Function):
     """``(q, k, v) -> (o, lse)`` in ``[B, H, S, D]``, differentiable in both
-    outputs: the forward and backward kernels on CUDA tensors
-    (:func:`forward_kernel`, :func:`backward_kernel`), the plain versions on
-    CPU tensors. Saves ``(q, k, v, o,
-    lse)``; ``dlse`` enters the backward as ``delta - dlse``
-    (``flash.py:498-529``)."""
+    outputs: on CUDA tensors the forward and backward kernels
+    (:func:`forward_kernel`, :func:`backward_kernel`) or, where the gate
+    refuses the shapes, the XLA formulation in both directions; the plain
+    versions on CPU tensors. Saves ``(q, k, v, o, lse)``; ``dlse`` enters
+    the backward as ``delta - dlse`` (``flash.py:498-529``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -340,17 +437,18 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        bwd = launch_flash_bwd if q.is_cuda else attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.causal, dlse)
+        dq, dk, dv = _backward(q, k, v, o, lse, do, ctx.causal, dlse)
         return dq, dk, dv, None
 
 
 def attention_with_stats(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention and row log-sum-exp, ``[B, H, S, D]`` layout: the forward
-    kernel on a CUDA tensor, the plain version on a CPU one;
-    through :class:`FlashAttention` when a gradient is wanted."""
+    """Attention and row log-sum-exp, ``[B, H, S, D]`` layout: on a CUDA
+    tensor the forward kernel, or the XLA formulation where the
+    reference's gate refuses the shapes (:func:`attention_route`); the
+    plain version on a CPU one; through :class:`FlashAttention` when a
+    gradient is wanted."""
     _check_layout(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal)
@@ -379,7 +477,8 @@ def ring_flash_attention(
     :func:`~psana_ray_tpu_torch.parallel.ring_attention.ring_attention`.
 
     Each hop is :func:`attention_with_stats` (the forward kernel on the
-    card; its gradient runs the backward kernel with the lse cotangent),
+    card, or the XLA route for a shard whose shapes the gate refuses; its
+    gradient takes the same route with the lse cotangent),
     and the hops combine in f32 with the reference's ``NEG_INF`` guards.
     Under a causal mask a hop whose K/V block lies wholly in this shard's
     future is skipped (no kernel), a past block runs unmasked and only the

@@ -35,6 +35,12 @@ above and the f32 ones at the JAX package's f32 tolerances (``o`` atol
 each counts as its TPU function's counter and by variant; two launches
 of the wide pair give the same o, lse, dk and dv bit for bit. The f32 ViT
 and a one-head ViT of head dim 256 are served and trained through them.
+f16 runs the bf16 kernels' f16 builds at the bf16 tolerances (their dq
+rounding pass exactly as ``Tensor.to(torch.float16)``), and calibrates to
+f16 with one f16 ulp beside the f32 tolerance; shapes the reference's gate
+sends to its XLA formulation (head dim 64, S 2112) launch no kernel and
+count the route; more than 65535 batch x heads run in slices; an f16 call
+whose library cannot load raises.
 The infeed's pinned batch arenas: pinned, one H2D a batch straight from
 the arena and no host copy beside the batcher's, and no arena rewritten
 while its copy is in flight (a checksum of every staged row); the shm
@@ -98,17 +104,23 @@ def _calib_inputs(cuda, b, p, h, w, seed=0):
             for a in (raw, ped, gain, mask)]
 
 
+def _ulp_tol(ref, out_dtype):
+    """One ulp of ``ref`` in a 16-bit output type (0 for f32)."""
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(out_dtype)
+    if bits is None:
+        return torch.zeros_like(ref)
+    return torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - bits)
+
+
 @pytest.mark.parametrize("w", [96, 95])  # 95: the scalar path (pixels % 4 != 0)
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_calib_kernel_matches_plain(cuda, w, out_dtype):
     raw, ped, gain, mask = _calib_inputs(cuda, 3, 4, 64, w)
     got = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype)
     ref = fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype).float()
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and pt.counts()["calib_kernel"] == 1
-    tol = 1e-4 + 1e-5 * ref.abs()
-    if out_dtype == torch.bfloat16:
-        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    tol = 1e-4 + 1e-5 * ref.abs() + _ulp_tol(ref, out_dtype)
     assert bool(torch.all((got.float() - ref).abs() <= tol))
     assert bool(torch.all(got[:, 0] == 0))  # the all-masked panel
 
@@ -146,16 +158,14 @@ CALIB_CLUSTER_CASES = [
 
 def _assert_calib_close(got, ref, out_dtype):
     ref = ref.float()
-    tol = 1e-4 + 1e-5 * ref.abs()
-    if out_dtype == torch.bfloat16:
-        tol = tol + torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    tol = 1e-4 + 1e-5 * ref.abs() + _ulp_tol(ref, out_dtype)
     assert got.dtype == out_dtype
     assert bool(torch.all((got.float() - ref).abs() <= tol))
 
 
 @pytest.mark.parametrize("b,p,h,w,cluster", CALIB_CLUSTER_CASES)
 @pytest.mark.parametrize("raw_dtype", [torch.float32, torch.uint16])
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_calib_cluster_route_matches_plain(cuda, b, p, h, w, cluster, raw_dtype, out_dtype):
     from psana_ray_tpu_torch.ops import fused_calib as fc
 
@@ -178,7 +188,7 @@ def test_calib_cluster_route_matches_plain(cuda, b, p, h, w, cluster, raw_dtype,
     assert torch.equal(got, again)  # the cluster's partials are summed in rank order
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_calib_cluster_route_single_frame_and_two_pass(cuda, out_dtype):
     from psana_ray_tpu_torch.ops import fused_calib as fc
 
@@ -508,15 +518,17 @@ def test_flash_kernel_takes_the_repo_layout(cuda, gen):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    """f64 raises on the card; the direct launch raises on the shapes the
+    gate sends to the XLA route (head dim 64, S 192)."""
     from psana_ray_tpu_torch.parallel import flash as tf
 
-    z = torch.zeros((1, 2, 128, 128), device=cuda, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    z = torch.zeros((1, 2, 128, 128), device=cuda, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="f64"):
         tf.attention_with_stats(z, z, z)
     with pytest.raises(NotImplementedError, match="head dim"):
-        tf.attention_with_stats(*(torch.zeros((1, 2, 128, 64), device=cuda).bfloat16(),) * 3)
+        tf.launch_flash(*(torch.zeros((1, 2, 128, 64), device=cuda).bfloat16(),) * 3)
     with pytest.raises(ValueError, match="multiples of 128"):
-        tf.attention_with_stats(*(torch.zeros((1, 2, 192, 128), device=cuda).bfloat16(),) * 3)
+        tf.launch_flash(*(torch.zeros((1, 2, 192, 128), device=cuda).bfloat16(),) * 3)
     assert pt.counts()["flash_kernel"] == 0
     # the C entry point checks the 128-row tiles itself
     from psana_ray_tpu_torch.kernels import build
@@ -640,8 +652,8 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(cuda):
         z = torch.zeros(shape, device=cuda, dtype=dtype)
         return tf.launch_flash_bwd(z, z, z, z, torch.zeros(shape[:3], device=cuda), z)
 
-    with pytest.raises(NotImplementedError, match="bf16"):
-        call((1, 2, 128, 128), torch.float16)
+    with pytest.raises(NotImplementedError, match="f64"):
+        call((1, 2, 128, 128), torch.float64)
     with pytest.raises(NotImplementedError, match="head dim"):
         call((1, 2, 128, 64))
     with pytest.raises(ValueError, match="multiples of 128"):
@@ -818,18 +830,19 @@ def test_wide_pair_repeat_launches_agree_bit_for_bit(cuda, gen, d, causal):
 
 
 def test_flash_variants_refuse_what_they_do_not_take(cuda):
-    """f16 and head dim 1152 raise before any launch; the C entry points
-    refuse what their kernel does not take (the wide pair head dim 128,
-    the f32 pair head dim 64)."""
+    """f64 and, in the direct launches, head dim 1152 raise before any
+    launch; the C entry points refuse what their kernel does not take (the
+    wide pair head dim 128, the f32 pair head dim 64)."""
     from psana_ray_tpu_torch.kernels import build
     from psana_ray_tpu_torch.parallel import flash as tf
 
-    for shape, dtype, match in (((1, 2, 128, 256), torch.float16, "bf16"),
+    for shape, dtype, match in (((1, 2, 128, 256), torch.float64, "f64"),
                                 ((1, 2, 128, 1152), torch.float32, "head dim"),
+                                ((1, 2, 128, 1152), torch.float16, "head dim"),
                                 ((1, 2, 128, 1152), torch.bfloat16, "head dim")):
         z = torch.zeros(shape, device=cuda, dtype=dtype)
         with pytest.raises(NotImplementedError, match=match):
-            tf.attention_with_stats(z, z, z)
+            tf.launch_flash(z, z, z)
         with pytest.raises(NotImplementedError, match=match):
             tf.launch_flash_bwd(z, z, z, z, torch.zeros(shape[:3], device=cuda), z)
     assert sum(pt.counts().values()) == 0 and pt.variant_counts() == {}
@@ -889,16 +902,16 @@ def test_f32_and_wide_vit_on_the_card(cuda, dtype, num_heads):
 
 def test_vit_serve_step_calibrates_to_the_model_dtype(cuda):
     """An f32 ViT is served from f32 calibrated frames (``calib_kernel``
-    with f32 output), a bf16 one from bf16 frames: 2 RAW epix100 frames
-    at patch 8 (8,448 tokens), against the same model on the plain
-    calibration's output in its dtype."""
+    with f32 output), a bf16 one from bf16 frames, an f16 one from f16
+    frames: 2 RAW epix100 frames at patch 8 (8,448 tokens), against the
+    same model on the plain calibration's output in its dtype."""
     src = pt.SyntheticSource(num_events=2, detector_name="epix100", seed=0)
     frames = torch.from_numpy(
         np.stack([src.event(i, pt.RetrievalMode.RAW)[0] for i in range(2)])).to(cuda)
     ped, gain, mask = (torch.from_numpy(a).to(cuda) for a in
                        (src.pedestal(), src.gain_map(), src.create_bad_pixel_mask()))
     tree = pt.init_vit_params(src.spec.frame_shape, patch=8, embed_dim=256, depth=2, seed=0)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         pt.reset_counters()
         model = pt.vit_from_flax(tree, num_heads=2, dtype=dtype, device=cuda)
         logits = pt.vit_serve_step(model, frames, ped, gain, mask)
@@ -909,6 +922,202 @@ def test_vit_serve_step_calibrates_to_the_model_dtype(cuda):
         assert tuple(logits.shape) == (2, 2) and bool(torch.isfinite(logits).all())
         assert pt.counts()["calib_kernel"] == 1 and pt.counts()["flash_kernel"] == 4
         assert rel_err(ref, logits) <= (1e-4 if dtype == torch.float32 else REL_TOL)
+
+
+# -- the rest of K5-K7's domain: f16, the XLA route, any batch x heads ------
+
+F16_CASES = [  # (d, bh, sq, sk, causal): every f16 library, causal and uneven lengths
+    (128, 3, 256, 256, False), (128, 2, 640, 384, True), (256, 3, 256, 256, False),
+    (256, 2, 384, 128, True), (384, 2, 256, 768, True), (512, 2, 256, 256, False),
+    (1024, 2, 256, 384, False), (1024, 1, 256, 256, True),
+]
+
+
+@pytest.mark.parametrize("d,bh,sq,sk,causal", F16_CASES)
+def test_flash_f16_kernels_match_plain(cuda, gen, d, bh, sq, sk, causal):
+    """The f16 builds of ``flash_kernel`` and ``flash_wide_kernel`` against
+    ``attention_with_stats_plain`` (p rounded to f16 for p.v) at the bf16
+    tolerances; one launch, counted as ``flash_kernel`` and by variant."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, _ = _variant_inputs(gen, cuda, torch.float16, d, bh, sq, sk)
+    o, lse = tf.attention_with_stats(q, k, v, causal=causal)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    name = tf.forward_kernel(q)
+    assert name == ("flash_kernel" if d == 128 else "flash_wide_kernel")
+    assert pt.counts()["flash_kernel"] == 1 and pt.variant_counts() == {(name, "f16", d): 1}
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    d_o = float((o.float() - o_ref.float()).abs().max())
+    d_lse = float((lse - lse_ref).abs().max())
+    assert d_o <= 2e-2 and d_lse <= 1e-2, (d_o, d_lse)
+    assert d_o <= 1e-2 * float(o_ref.float().abs().max())
+    assert d_lse <= 1e-2 * float((lse_ref - _flat_lse(sq, sk, causal, cuda)).abs().max())
+    again = tf.launch_flash(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("d,bh,sq,sk,causal", F16_CASES)
+def test_flash_bwd_f16_kernels_match_plain(cuda, gen, d, bh, sq, sk, causal):
+    """The f16 builds of ``flash_bwd_kernel`` and ``flash_bwd_wide_kernel``
+    (then the f16 ``flash_bwd_dq_convert``) against ``attention_bwd_plain``
+    with an lse cotangent (p and ds rounded to f16 in the kernels, f32 in
+    the plain version), within 1e-2 of each gradient's scale; two more
+    launches agree as the bf16 kernels' do."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do = _variant_inputs(gen, cuda, torch.float16, d, bh, sq, sk)
+    dl = torch.randn((1, bh, sq), generator=gen, device=cuda)
+    o, lse = tf.launch_flash(q, k, v, causal)
+    pt.reset_counters()
+    got = tf.launch_flash_bwd(q, k, v, o, lse, do, causal, dl)
+    ref = tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dl)
+    torch.cuda.synchronize()
+    name = tf.backward_kernel(q)
+    assert name == ("flash_bwd_kernel" if d == 128 else "flash_bwd_wide_kernel")
+    assert pt.counts()["flash_bwd_kernel"] == 1 and pt.counts()["flash_bwd_dq_convert"] == 1
+    assert pt.variant_counts() == {(name, "f16", d): 1, ("flash_bwd_dq_convert", "f16", d): 1}
+    for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float16 and g.shape == r.shape, grad
+        assert bool(torch.isfinite(g.float()).all()), grad
+        assert rel_err(r, g) <= BWD_TOL, (grad, rel_err(r, g))
+    _assert_repeat_agrees(tf, q, k, v, o, lse, do, causal, dl, got)
+
+
+def test_flash_bwd_dq_convert_rounds_to_f16_once(cuda, gen):
+    """The f16 build's ``flash_bwd_dq_convert``: the f32 sums rounded as
+    ``Tensor.to(torch.float16)`` rounds them (nearest even; overflow to
+    inf past 65504, as the reference's cast), exactly."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    acc = torch.randn((3, 5, 132), generator=gen, device=cuda) * torch.exp2(
+        torch.randint(-30, 18, (3, 5, 132), generator=gen, device=cuda).float())
+    acc[0, 0, :4] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -11, 70000.0], device=cuda)
+    dq = tf.launch_flash_bwd_dq_convert(acc, torch.float16)
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.float16 and dq.shape == acc.shape
+    assert torch.equal(dq.view(torch.int16), acc.to(torch.float16).view(torch.int16))
+    assert pt.variant_counts() == {("flash_bwd_dq_convert", "f16", 132): 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d,s", [(64, 256), (128, 2112)])
+def test_xla_route_runs_the_plain_formulation_and_no_kernel(cuda, gen, dtype, d, s):
+    """Head dim 64 and S 2112 (not multiples of 128: the reference's
+    ``_kernel_shapes_ok`` refuses them): forward and backward through
+    ``attention_with_stats`` are the plain versions' results, no kernel
+    launches, and each direction counts one XLA-route call."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    q, k, v, do = _variant_inputs(gen, cuda, dtype, d, 2, s, s)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = tf.attention_with_stats(*leaves, causal=True)
+    o.backward(do)
+    o_ref, lse_ref = tf.attention_with_stats_plain(q, k, v, causal=True)
+    ref = tf.attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal=True)
+    torch.cuda.synchronize()
+    assert sum(pt.counts().values()) == 0
+    assert pt.route_counts() == {"attention_xla_route": 1, "attention_bwd_xla_route": 1}
+    key = tf.KERNEL_DTYPES[dtype]
+    assert pt.variant_counts() == {("attention_xla_route", key, d): 1,
+                                   ("attention_bwd_xla_route", key, d): 1}
+    assert torch.equal(o.detach(), o_ref) and torch.equal(lse.detach(), lse_ref)
+    for t, r in zip(leaves, ref):
+        assert torch.equal(t.grad, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_more_than_65535_batch_by_heads_run_in_slices(cuda, gen, dtype):
+    """BH 65664 at S 128, D 128: two launches of each kernel (65535 rows,
+    then 129), the rows on both sides of the seam and the last ones against
+    the plain versions on those rows."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    bh = 65536 + 128
+    q, k, v, do = _variant_inputs(gen, cuda, dtype, 128, bh, 128, 128)
+    o, lse = tf.launch_flash(q, k, v)
+    got = tf.launch_flash_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    slices = 2
+    f32 = dtype == torch.float32
+    assert pt.counts()["flash_kernel"] == slices and pt.counts()["flash_bwd_kernel"] == slices
+    assert pt.counts()["flash_bwd_dq_convert"] == (0 if f32 else 1)
+    for rows in (slice(0, 4), slice(65535 - 4, 65535 + 4), slice(bh - 4, bh)):
+        part = [t[:, rows] for t in (q, k, v, do)]
+        o_ref, lse_ref = tf.attention_with_stats_plain(*part[:3])
+        ref = tf.attention_bwd_plain(*part[:3], o[:, rows], lse[:, rows], part[3])
+        d_o = float((o[:, rows].float() - o_ref.float()).abs().max())
+        d_lse = float((lse[:, rows] - lse_ref).abs().max())
+        assert d_o <= (F32_O_TOL if f32 else 2e-2) and d_lse <= (F32_LSE_TOL if f32 else 1e-2)
+        for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert rel_err(r, g[:, rows]) <= (F32_BWD_TOL if f32 else BWD_TOL), (grad, rows)
+
+
+def test_an_in_domain_f16_call_raises_when_its_library_fails(cuda, monkeypatch):
+    """Nothing falls back: an f16 shape the gate takes, whose f16 library
+    cannot load, raises from the forward and from the backward, and takes
+    no XLA route."""
+    from psana_ray_tpu_torch.kernels import build
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    load = build.library
+
+    def broken(name):
+        if name.endswith("_f16"):
+            raise RuntimeError(f"cannot load kernel library lib{name}.so")
+        return load(name)
+
+    monkeypatch.setattr(build, "library", broken)
+    z = torch.zeros((1, 2, 128, 128), device=cuda, dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="libflash_f16"):
+        tf.attention_with_stats(z, z, z)
+    with pytest.raises(RuntimeError, match="libflash_bwd_f16"):
+        tf.FlashAttention.backward(
+            type("Ctx", (), {"saved_tensors": (z, z, z, z, torch.zeros((1, 2, 128), device=cuda)),
+                             "causal": False})(), z, None)
+    assert sum(pt.counts().values()) == 0
+    assert pt.route_counts() == {"attention_xla_route": 0, "attention_bwd_xla_route": 0}
+
+
+@pytest.mark.parametrize("dtype,num_heads", [(torch.float16, 2), (torch.bfloat16, 4)])
+def test_f16_and_head_dim_64_vit_on_the_card(cuda, dtype, num_heads):
+    """The small ViT (patch 8, embed 256, depth 2, 256 tokens) in f16 with 2
+    heads of 128 (the f16 kernels) and in bf16 with 4 heads of 64 (the XLA
+    route): served against the same weights in f32 (``rel_err < 0.05``) and
+    one train step with its launches or route calls counted."""
+    from psana_ray_tpu_torch.parallel import flash as tf
+
+    params = pt.init_vit_params((2, 64, 128), patch=8, embed_dim=256, depth=2, seed=1)
+    model = pt.vit_from_flax(params, num_heads=num_heads, dtype=dtype, device=cuda)
+    f32 = pt.vit_from_flax(params, num_heads=num_heads, dtype=torch.float32, device=cuda)
+    x = torch.randn((2, 2, 64, 128), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    with torch.no_grad():
+        got = model(x)
+        pt.reset_counters()
+        ref = f32(x)
+    d = 256 // num_heads
+    xla = d == 64
+    assert tuple(got.shape) == (2, 2) and bool(torch.isfinite(got).all())
+    assert rel_err(ref, got) < REL_TOL
+    pt.reset_counters()
+    opt = pt.adamw(model.parameters(), pt.warmup_cosine_decay_schedule(0.0, 6e-4, 2, 10, 1e-5),
+                   weight_decay=0.01)
+    step = pt.make_train_step(model, opt, lambda lg, aux: pt.masked_softmax_xent(lg, *aux))
+    loss = step(x, (torch.tensor([0, 1], device=cuda), torch.ones(2, dtype=torch.uint8, device=cuda)))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    key = tf.KERNEL_DTYPES[dtype]
+    if xla:
+        assert sum(pt.counts().values()) == 0
+        assert pt.route_counts() == {"attention_xla_route": 2, "attention_bwd_xla_route": 2}
+    else:
+        assert pt.counts() == {"calib_kernel": 0, **NO_CONV, "flash_kernel": 2,
+                               "flash_bwd_kernel": 2, "flash_bwd_dq_convert": 2}
+        assert pt.variant_counts() == {("flash_kernel", key, d): 2, ("flash_bwd_kernel", key, d): 2,
+                                       ("flash_bwd_dq_convert", key, d): 2}
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
 
 
 # -- the infeed: pinned batch arenas, one host copy a frame ------------------

@@ -134,6 +134,21 @@ def _payload(rng, t, profile=True):
     }
 
 
+class _StoppedClock:
+    """The ``time`` module with a wall clock that stands still: both
+    collectors read ``time.time()`` for their alerts' ages and peer
+    states, so each package's frames are rendered at the same instant."""
+
+    def __init__(self, now):
+        self._now = now
+
+    def time(self):
+        return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_the_collector_and_console_match_the_jax_ones_over_scripted_payloads(seed,
                                                                             monkeypatch):
@@ -143,6 +158,7 @@ def test_the_collector_and_console_match_the_jax_ones_over_scripted_payloads(see
     for pkg, (col_mod, con_mod) in COLLECTORS.items():
         feed = iter(payloads)
         monkeypatch.setattr(col_mod._Peer, "pull", lambda self, t, feed=feed: next(feed))
+        monkeypatch.setattr(col_mod, "time", _StoppedClock(1010.0))
         c = col_mod.ClusterCollector(["127.0.0.1:1"], register=False, burn_window_s=3.0,
                                      repl_lag_records=1000)
         alerts, frames = [], []

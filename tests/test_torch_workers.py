@@ -290,6 +290,14 @@ def test_spliced_relay_roundtrips(tmp_path, codec):
         assert all(np.array_equal(r.panels, _rec(r.event_idx).panels) for r in got)
         after = SPLICE.snapshot()
         if codec is None and sendfile_capable():
+            # the server counts a frame once os.sendfile has returned, which
+            # can be after the consumer already holds its bytes: wait for the
+            # loop's count (bounded), then hold it to exactly 23
+            deadline = time.monotonic() + 10.0
+            while (after["spliced_frames_total"] - before["spliced_frames_total"] < 23
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+                after = SPLICE.snapshot()
             assert after["spliced_frames_total"] - before["spliced_frames_total"] == 23
             assert after["spliced_bytes_total"] > before["spliced_bytes_total"]
         else:  # a compressed connection reads the spilled records in
