@@ -80,7 +80,19 @@ one JSON line (``{"phase": ...}``):
    route on the same input, checked too (``two_pass_ms``; other cluster
    sizes are ``tools/calib_ablation.py``'s). A ``build_calib`` line after the
    build gives K1's registers, spills and static shared memory from
-   ``-Xptxas -v`` and fails the run on a spill.
+   ``-Xptxas -v`` and fails the run on a spill. ``calib_kernel_raw16``:
+   the same epix10k2M frames as bf16 and as f16 raw (pedestal and gain in
+   the raw dtype) to bf16, f16 and f32 output on both routes, and
+   ``[32, 1, 704, 768]`` epix100 frames drawn on the card as f16 raw to
+   f16 (two of the reference's tiles a panel), each against its plain
+   version at the f32 tolerance plus one ulp of the narrower of the raw
+   and output types; a ``calib_raw16_means`` line before it gives each
+   case's mean output over good pixels beside the f64 steps in numpy on
+   its first frames. ``raw16_serving`` (after ``bottleneck``): the ResNet
+   serving step of ``end_to_end`` on the batch as bf16 and as f16 raw
+   frames, 2 steps each with the counts from zero (+1 ``calib_kernel``,
+   +16 of each of K2's and K3's a step), the last against the plain path
+   (``rel_err < 0.05``): the main-path launches of K1's 16-bit-raw rows.
 4. ``bottleneck``: each of the 8 bottleneck block classes of ResNet-50 at
    batch 32 and full width, every kernel launch against its plain version
    on the same inputs (``rel_err < 0.05``), and the whole block against
@@ -731,6 +743,9 @@ PROFILE_BATCHES = 4
 POOL_EVENTS = 64
 REL_TOL = 0.05
 JUNGFRAU_BATCH = 8  # frames of K1's jungfrau4M case
+EPIX100_SHAPE = (1, 704, 768)  # K1's 16-bit-raw epix100 case: [P, H, W]
+RAW16_MEAN_FRAMES = 4  # K1's 16-bit-raw cases: frames of the f64 mean beside the kernel's
+RAW16_BATCHES = 2  # raw16_serving: ResNet steps on bf16 and on f16 raw frames
 SFX_BATCH = 8  # frames; 128 panel-rows of epix10k2M
 SFX_FEATURES = (64, 128, 256, 512)
 SFX_BATCHES = 24
@@ -937,14 +952,16 @@ def nvidia_smi_line() -> str:
 # -- phase 3 ---------------------------------------------------------------
 
 
-def calib_err(torch, got, ref, what: str) -> float:
+def calib_err(torch, got, ref, what: str, raw_dtype=None) -> float:
     """Max abs error of ``got`` against the plain version ``ref``; raises
-    outside rtol 1e-5 / atol 1e-4 (bf16 or f16 output: plus one ulp of
-    that type) or on a non-finite value."""
+    outside rtol 1e-5 / atol 1e-4 (bf16 or f16 output, or bf16 or f16
+    ``raw_dtype``: plus one ulp of the narrower of the two) or on a
+    non-finite value."""
     ref = ref.float()
     diff = (got.float() - ref).abs()
     tol = 1e-4 + 1e-5 * ref.abs()
-    bits = {torch.bfloat16: 8, torch.float16: 11}.get(got.dtype)
+    sig = {torch.bfloat16: 8, torch.float16: 11}
+    bits = min((sig[t] for t in (got.dtype, raw_dtype) if t in sig), default=None)
     if bits is not None:
         # f32 values that differ by the f32 tolerance can round to
         # neighbouring 16-bit values: allow one ulp (8 significant bits
@@ -968,11 +985,12 @@ def calib_case(torch, fc, timer, raw, ped, gain, mask, out_dtype, what, routes=T
 
     got = call()
     err = calib_err(torch, got, fc.fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype),
-                    what)
+                    what, raw.dtype)
     if not torch.equal(got, call()):
         raise AssertionError(f"calib_kernel ({what}): two launches on one input differ")
     plan, load, active = fc.runnable_plan(raw, ped, gain, mask, out_dtype)
-    nbytes = raw.numel() * raw.element_size() + npix * got.element_size() + p * h * w * (4 + 4 + 1)
+    nbytes = (raw.numel() * raw.element_size() + npix * got.element_size()
+              + p * h * w * (ped.element_size() + gain.element_size() + 1))
     bms, by = bound_ms(nbytes, 7.0 * npix, F32_OPS_PER_S)
     ms = timer.ms(call, iters=20)
     res = {
@@ -985,7 +1003,7 @@ def calib_case(torch, fc, timer, raw, ped, gain, mask, out_dtype, what, routes=T
         "bound_ms": bms, "bound_by": by, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
     }
     if routes:
-        calib_err(torch, call(fc.TWO_PASS), got.float(), f"{what}, two-pass route")
+        calib_err(torch, call(fc.TWO_PASS), got.float(), f"{what}, two-pass route", raw.dtype)
         res["two_pass_ms"] = timer.ms(lambda: call(fc.TWO_PASS), iters=20)
     return res
 
@@ -1025,6 +1043,88 @@ def phase_calib(torch, pt, timer, src, raw, device):
                                            torch.bfloat16, "jungfrau4M, bf16 out", routes=False)
     emit("calib_kernel", **result)
     return result, (ped, gain, mask)
+
+
+def steps_f64_mean(raw, ped, gain, mask, thr=10.0) -> float:
+    """The mean output over good pixels of the three steps in f64 numpy
+    (``x = (raw - ped) / gain``, the background mean a panel, ``x -
+    baseline``), from the same 16-bit values."""
+    import numpy as np
+
+    x = (raw.double().cpu().numpy() - ped.double().cpu().numpy()) / gain.double().cpu().numpy()
+    m = mask.cpu().numpy() != 0
+    bg = (np.abs(x) < thr) & m
+    base = (x * bg).sum(axis=(-2, -1), keepdims=True) / np.maximum(
+        bg.sum(axis=(-2, -1), keepdims=True), 1)
+    good = np.broadcast_to(m, x.shape)
+    return float((x - base)[good].mean())
+
+
+def phase_calib_raw16(torch, timer, raw, consts, device):
+    """K1 on bf16 and f16 raw frames (pedestal and gain in the raw dtype):
+    epix10k2M batch 32 to bf16, f16 and f32 out on both routes, and an
+    epix100 batch at f16 raw (two of the reference's tiles a panel). Each
+    case against the plain version; then each case's mean output over good
+    pixels beside the f64 steps on its first RAW16_MEAN_FRAMES frames."""
+    from psana_ray_tpu_torch.ops import fused_calib as fc
+
+    ped, gain, mask = consts
+    dtypes = {"bf16": torch.bfloat16, "f16": torch.float16}
+    inputs = {f"epix10k2M_{rd}": (raw.to(dt), ped.to(dt), gain.to(dt), mask)
+              for rd, dt in dtypes.items()}
+    # epix100 at f16 raw, drawn on the card: pedestal N(1000, 5), gain
+    # U(0.9, 1.1), 2% bad pixels, 3 ADU common mode, 2 ADU noise
+    p, h, w = EPIX100_SHAPE
+    gen = torch.Generator(device=device).manual_seed(0)
+    eped = 1000.0 + 5.0 * torch.randn((p, h, w), generator=gen, device=device)
+    egain = 0.9 + 0.2 * torch.rand((p, h, w), generator=gen, device=device)
+    emask = (torch.rand((p, h, w), generator=gen, device=device) > 0.02).to(torch.uint8)
+    eraw = eped + egain * (3.0 + 2.0 * torch.randn((BATCH, p, h, w), generator=gen, device=device))
+    inputs["epix100_f16"] = (eraw.half(), eped.half(), egain.half(), emask)
+    del eraw
+    cases = [(det, od) for det in ("epix10k2M_bf16", "epix10k2M_f16")
+             for od in ("bf16", "f16", "f32")] + [("epix100_f16", "f16")]
+    out_types = {"f32": torch.float32, **dtypes}
+    result, means = {}, {}
+    for det, od in cases:
+        r, pd, g, m = inputs[det]
+        key = f"{det}_to_{od}"
+        result[key] = calib_case(torch, fc, timer, r, pd, g, m, out_types[od], key)
+        got = fc.fused_calibrate(r, pd, g, m, out_dtype=out_types[od])
+        good = (m != 0).expand_as(got)
+        n = RAW16_MEAN_FRAMES
+        means[key] = {"batch": float(got.double()[good].mean()),
+                      "frames": float(got[:n].double()[good[:n]].mean())}
+    for det in inputs:
+        r, pd, g, m = inputs[det]
+        means[det] = {"f64_steps_frames": steps_f64_mean(r[:RAW16_MEAN_FRAMES], pd, g, m)}
+    emit("calib_raw16_means", frames=RAW16_MEAN_FRAMES, **means)
+    emit("calib_kernel_raw16", **result)
+    return result
+
+
+def phase_raw16_serving(torch, pt, raw, consts, model, params):
+    """The ResNet serving step on bf16 and f16 raw frames (a batch whose
+    frames came narrowed): RAW16_BATCHES steps each, counted from zero, so
+    calib_kernel's 16-bit-raw instantiations run on the main path; the last
+    batch against the plain path."""
+    step = make_step(torch, pt, consts, params)
+    result = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        frames = raw.to(dt)
+        batch = pt.Batch(frames, *(torch.zeros(BATCH, device=raw.device) for _ in range(4)),
+                         num_valid=BATCH)
+        torch.cuda.synchronize()
+        pt.reset_counters()
+        for _ in range(RAW16_BATCHES):
+            out = step(batch)
+        torch.cuda.synchronize()
+        counts = pt.counts()
+        check_resnet_counts(counts, RAW16_BATCHES)
+        errs = check_resnet_result(torch, pt, model, consts, {"out": out, "frames": frames})
+        result[name] = {"launches": counts, **errs}
+    emit("raw16_serving", **result)
+    return {name: r["launches"]["calib_kernel"] for name, r in result.items()}
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -4307,15 +4407,42 @@ def flash_bwd_case(torch, F, tf, timer, gen, device, name, dtype, d, b, h, sq, s
     # the plain version computes dq, dk and dv in one call
     row["plain_ms"] = timer.ms(lambda: tf.attention_bwd_plain(q, k, v, o, lse, do, causal, dlse),
                                iters=3, warmup=1)
-    row["library_ms"] = None
-    if full:
-        # the library yardstick, never called by the port: the backward of
-        # F.scaled_dot_product_attention from a saved forward (dq, dk, dv)
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        row["library_ms"] = timer.ms(
-            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters=iters)
+    del o, lse, delta
+    # the library yardstick, never called by the port: the backward of
+    # F.scaled_dot_product_attention from a saved forward (dq, dk, dv); at
+    # the batch x heads no single call takes, the fewest calls over slices
+    # of the batch that run, timed one by one and summed
+    row["library_ms"], row["library_calls"], row["library_refused"] = sdpa_bwd_ms(
+        torch, F, timer, q, k, v, do, causal, iters, slices=(1,) if full else (1, 2, 4))
     return row
+
+
+def sdpa_bwd_ms(torch, F, timer, q, k, v, do, causal, iters, slices=(1,)):
+    """``(ms, calls, why the fewer calls failed)`` of SDPA's backward over
+    ``q``'s batch in the first count of ``slices`` whose calls all run
+    (each slice of the batch its own saved forward, freed before the next);
+    ``(None, None, why)`` if none runs."""
+    b = q.shape[0]
+    refused = None
+    for n in slices:
+        if b % n:
+            continue
+        try:
+            total = 0.0
+            for i in range(n):
+                part = slice(i * b // n, (i + 1) * b // n)
+                leaves = [t[part].detach().clone().requires_grad_() for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+                total += timer.ms(lambda: torch.autograd.grad(out, leaves, do[part],
+                                                              retain_graph=True), iters=iters)
+                del leaves, out
+            return total, n, refused
+        except RuntimeError as e:  # out of memory, or a grid its kernels cannot launch
+            refused = refused or f"{n} call(s): {str(e).splitlines()[0][:300]}"
+            leaves = out = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return None, None, refused
 
 
 def phase_flash_bwd(torch, F, tf, timer, device):
@@ -4323,9 +4450,9 @@ def phase_flash_bwd(torch, F, tf, timer, device):
     ``attention_bwd_plain`` in each case of ``BWD_CASES`` (bf16, head dim
     128: ``flash_bwd_kernel``) and of ``VARIANT_CASES`` with an lse
     cotangent (the wide and f32 kernels, the f16 builds, more than 65535
-    batch x heads: there without the printed sensitivities and the SDPA
-    yardstick, whose f32 tensors beside the case's would pass the card's
-    80 GB); then the XLA route's
+    batch x heads: there without the printed sensitivities, whose f32
+    tensors beside the case's would pass the card's 80 GB, and with the
+    SDPA yardstick in the fewest calls that run); then the XLA route's
     backward in each case of ``XLA_CASES``. Results by case name, the
     variants' and the route's as ``case/dtype/head dim``."""
     gen = torch.Generator(device=device).manual_seed(1)
@@ -6912,13 +7039,15 @@ def main() -> int:
     timer = Timer(torch, device)
     raw = torch.from_numpy(np.stack(pool[:BATCH])).to(device)
     calib, consts = phase_calib(torch, pt, timer, src, raw, device)
-    del raw
+    calib16 = phase_calib_raw16(torch, timer, raw, consts, device)
 
     model = pt.resnet_from_flax(
         pt.init_resnet_params(in_channels=src.spec.panels, seed=0), device=device)
     params = pt.pack_fused(model)
     per_kernel, _ = phase_bottleneck(
         torch, F, fr, timer, params, (src.spec.height, src.spec.width), device)
+    raw16_counts = phase_raw16_serving(torch, pt, raw, consts, model, params)
+    del raw
 
     counts = phase_end_to_end(torch, pt, pool, consts, model, params, device)
     shm_counts = phase_shm_end_to_end(torch, pt, pool, consts, model, params, device)
@@ -7011,6 +7140,18 @@ def main() -> int:
         "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
     }]
+    # K1's 16-bit-raw instantiations: the serving step's bf16 output, their
+    # launches those of raw16_serving
+    for dt in ("bf16", "f16"):
+        c = calib16[f"epix10k2M_{dt}_to_bf16"]
+        kernels.append({
+            "name": f"calib_kernel_{dt}_raw", "route": "cuda", "source": f"{csrc}/calib.cu",
+            "replaces": "psana_ray_tpu/ops/pallas_calib.py:60",
+            "launches": raw16_counts[dt],
+            "max_abs_err": max(r["max_abs_err"] for key, r in calib16.items() if f"_{dt}_to_" in key),
+            "ms": c["ms"], "ms_cold": c["ms_cold"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+        })
     replaces = {
         "conv1x1_kernel": "psana_ray_tpu/models/pallas_resnet.py:95",
         "conv3x3_kernel": "psana_ray_tpu/models/pallas_resnet.py:95",

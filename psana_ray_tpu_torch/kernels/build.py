@@ -68,10 +68,10 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "calib": {
-        # raw, pedestal, gain, mask, out, B, P, H, W, threshold, raw_u16, out_type, load,
+        # raw, pedestal, gain, mask, out, B, P, H, W, threshold, raw_type, out_type, load,
         # cluster, rows_per_cta, clusters, stream
         "calib_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
-        # H, W, raw_u16, out_type, load, cluster, rows_per_cta, &active
+        # H, W, raw_type, out_type, load, cluster, rows_per_cta, &active
         "calib_active_clusters": [_I, _I, _I, _I, _I, _I, _I, _P],
     },
     "conv_sm90": {

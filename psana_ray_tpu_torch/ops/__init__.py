@@ -4,6 +4,7 @@ from psana_ray_tpu_torch.ops.calib import (
     apply_mask,
     calibrate,
     common_mode,
+    common_mode_baseline,
     gain_correct,
     subtract_pedestal,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "apply_mask",
     "calibrate",
     "common_mode",
+    "common_mode_baseline",
     "fused_calibrate",
     "fused_calibrate_plain",
     "gain_correct",

@@ -11,6 +11,12 @@ each raw panel in its CTAs' shared memory, so the panel is read once), or,
 for a panel no cluster holds, the two-pass route (the panel streamed
 twice). Both count as ``calib_kernel`` launches.
 
+Raw frames may be f32, uint16, bf16 or f16 (other integers and f64 are
+promoted to f32). bf16 and f16 raw compute as the reference does, in the
+raw dtype, except for the background sum and count, which are f32: the
+reference's 16-bit ones overflow (f16, an epix10k2M panel's count passes
+65504) or drift (bf16, 8 significant bits).
+
 On a CPU tensor the wrapper runs :func:`fused_calibrate_plain`, the mean
 path of :func:`~psana_ray_tpu_torch.ops.calib.calibrate`; on a CUDA tensor
 it launches the kernel or raises.
@@ -37,6 +43,8 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is Hopper's non-portable maximum
 SLICE_TARGET = (SMEM_MAX // 3) - STATIC_SMEM
 # how the kernel reads its operands (csrc/calib.cu:Load)
 LOAD_SCALAR, LOAD_VECTOR, LOAD_BULK = 0, 1, 2
+# the raw types the kernel reads, by its code (csrc/calib.cu:RawType)
+RAW_TYPES = {torch.float32: 0, torch.uint16: 1, torch.bfloat16: 2, torch.float16: 3}
 # the output types the kernel stores, by its code (csrc/calib.cu:OutType):
 # f32, and the 16-bit types a model calibrates to; the TPU kernel takes any
 # out_dtype (pallas_calib.py:86-95), of which JAX's 32-bit mode gives these
@@ -91,7 +99,8 @@ def _prepare(raw, pedestal, gain, keep_u16=False):
         raise ValueError(f"raw must be [B, P, H, W] or [P, H, W], got {tuple(raw.shape)}")
     # promote integer ADUs to float: demoting the calibration constants
     # would truncate them (pallas_calib.py:107-113); f64 follows JAX's
-    # default 32-bit mode. The kernel reads uint16 itself (exactly).
+    # default 32-bit mode. The kernel reads uint16 itself (exactly). The
+    # constants take a float raw's dtype (pallas_calib.py:112-113).
     if raw.dtype == torch.float64 or not (
             raw.is_floating_point() or (keep_u16 and raw.dtype == torch.uint16)):
         raw = raw.to(torch.float32)
@@ -107,7 +116,9 @@ def fused_calibrate_plain(
     threshold: float = 10.0,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The plain version of the kernel: the mean path of ``calibrate``."""
+    """The plain version of the kernel: the mean path of ``calibrate``
+    (bf16 and f16 raw computed in the raw dtype, with the background sum
+    and count in f32), converted to ``out_dtype``."""
     raw, pedestal, gain, squeeze = _prepare(raw, pedestal, gain)
     out = calibrate(raw, pedestal, gain, mask, cm_threshold=threshold, cm_algorithm="mean")
     out = out.to(out_dtype or raw.dtype)
@@ -116,13 +127,12 @@ def fused_calibrate_plain(
 
 def load_mode(raw: torch.Tensor, pedestal: torch.Tensor, gain: torch.Tensor,
               mask: torch.Tensor) -> int:
-    """How the kernel reads these operands: 16-byte vectors (bulk copies
-    for f32 raw) where rows hold whole vectors and every operand is
+    """How the kernel reads these operands: vectors of four elements (bulk
+    copies for f32 raw) where rows hold whole vectors and every operand is
     aligned for them, else scalar loads."""
-    vec_bytes = 16 if raw.dtype == torch.float32 else 8
-    aligned = (raw.shape[-1] % 4 == 0 and raw.data_ptr() % vec_bytes == 0
-               and pedestal.data_ptr() % 16 == 0 and gain.data_ptr() % 16 == 0
-               and mask.data_ptr() % 4 == 0)
+    aligned = (raw.shape[-1] % 4 == 0
+               and all(t.data_ptr() % (4 * t.element_size()) == 0
+                       for t in (raw, pedestal, gain, mask)))
     if not aligned:
         return LOAD_SCALAR
     return LOAD_BULK if raw.dtype == torch.float32 else LOAD_VECTOR
@@ -139,7 +149,7 @@ def active_clusters(plan: CalibPlan, h: int, w: int, raw_dtype: torch.dtype,
     active = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.calib_active_clusters(
-            h, w, int(raw_dtype == torch.uint16), OUT_TYPES[out_dtype], load,
+            h, w, RAW_TYPES[raw_dtype], OUT_TYPES[out_dtype], load,
             plan.cluster, plan.rows_per_cta, ctypes.byref(active))
     build.check(lib, err, "calib_kernel occupancy")
     return active.value
@@ -165,6 +175,14 @@ def runnable_plan(raw: torch.Tensor, pedestal: torch.Tensor, gain: torch.Tensor,
     return chosen, load, active
 
 
+def _threshold(threshold: float, raw_dtype: torch.dtype) -> float:
+    """The background threshold as the kernel compares it: rounded to a
+    16-bit float raw's dtype, which ``|x| < threshold`` computes in."""
+    if raw_dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(float(threshold), dtype=raw_dtype))
+    return float(threshold)
+
+
 def fused_calibrate(
     raw: torch.Tensor,
     pedestal: torch.Tensor,
@@ -178,7 +196,8 @@ def fused_calibrate(
     """``[B, P, H, W]`` (or ``[P, H, W]``, auto-batched) raw ADUs ->
     calibrated frames in ``out_dtype`` (default: the raw float dtype, f32
     for integer raw; the model's dtype on the model path: f32, bf16 or
-    f16). ``pedestal``/``gain``/
+    f16). bf16 and f16 raw compare ``threshold`` rounded to the raw dtype,
+    as the reference does. ``pedestal``/``gain``/
     ``mask``: ``[P, H, W]``. ``plan`` overrides :func:`calib_plan`'s
     choice on a CUDA tensor (to time the routes against each other).
     """
@@ -186,11 +205,9 @@ def fused_calibrate(
         return fused_calibrate_plain(raw, pedestal, gain, mask, threshold, out_dtype)
     raw, pedestal, gain, squeeze = _prepare(raw, pedestal, gain, keep_u16=True)
     out_dtype = out_dtype or (raw.dtype if raw.is_floating_point() else torch.float32)
-    if raw.dtype not in (torch.float32, torch.uint16) or out_dtype not in OUT_TYPES:
+    if out_dtype not in OUT_TYPES:
         raise NotImplementedError(
-            f"calib_kernel takes f32 or uint16 raw and f32, bf16 or f16 output, got "
-            f"{raw.dtype} -> {out_dtype}"
-        )
+            f"calib_kernel stores f32, bf16 or f16 output, got {raw.dtype} -> {out_dtype}")
     b, p, h, w = raw.shape
     if pedestal.shape != (p, h, w) or gain.shape != (p, h, w) or mask.shape != (p, h, w):
         raise ValueError(
@@ -209,7 +226,7 @@ def fused_calibrate(
     stream = torch.cuda.current_stream(raw.device).cuda_stream
     err = lib.calib_launch(
         raw.data_ptr(), pedestal.data_ptr(), gain.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, p, h, w, float(threshold), int(raw.dtype == torch.uint16),
+        b, p, h, w, _threshold(threshold, raw.dtype), RAW_TYPES[raw.dtype],
         OUT_TYPES[out_dtype], load, plan.cluster, plan.rows_per_cta,
         min(b * p, active), stream,
     )

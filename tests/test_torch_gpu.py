@@ -37,7 +37,10 @@ of the wide pair give the same o, lse, dk and dv bit for bit. The f32 ViT
 and a one-head ViT of head dim 256 are served and trained through them.
 f16 runs the bf16 kernels' f16 builds at the bf16 tolerances (their dq
 rounding pass exactly as ``Tensor.to(torch.float16)``), and calibrates to
-f16 with one f16 ulp beside the f32 tolerance; shapes the reference's gate
+f16 with one f16 ulp beside the f32 tolerance; bf16 and f16 raw frames
+calibrate on both routes, aligned and not, to all three output types, with
+one ulp of the output at the narrower of the raw and output precisions
+beside the f32 tolerance; shapes the reference's gate
 sends to its XLA formulation (head dim 64, S 2112) launch no kernel and
 count the route; more than 65535 batch x heads run in slices; an f16 call
 whose library cannot load raises.
@@ -137,7 +140,7 @@ def test_calib_kernel_auto_batch_and_integer_raw(cuda):
 def test_calib_kernel_refuses_what_it_does_not_take(cuda):
     raw, ped, gain, mask = _calib_inputs(cuda, 1, 2, 8, 8)
     with pytest.raises(NotImplementedError):
-        pt.fused_calibrate(raw.half(), ped, gain, mask)
+        pt.fused_calibrate(raw, ped, gain, mask, out_dtype=torch.float64)
     with pytest.raises(ValueError):
         pt.fused_calibrate(raw, ped[:1], gain, mask)
     with pytest.raises(ValueError):
@@ -202,6 +205,88 @@ def test_calib_cluster_route_single_frame_and_two_pass(cuda, out_dtype):
     two_pass = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=fc.TWO_PASS)
     _assert_calib_close(two_pass, both.float(), out_dtype)
     assert pt.counts()["calib_kernel"] == 3
+
+
+# (B, P, H, W, plan) for 16-bit raw: "auto" is the plan's own choice
+CALIB_RAW16_CASES = [
+    (2, 3, 301, 384, "auto"),      # cluster of 8, ragged last slice, vector loads
+    (3, 2, 64, 95, "auto"),        # w = 95: scalar loads, one CTA a panel
+    (2, 3, 352, 384, 4),           # epix10k2M panels, a cluster of 4
+    (2, 3, 301, 384, "two_pass"),  # the two-pass route, vector loads
+    (3, 2, 64, 95, "two_pass"),    # the two-pass route, scalar loads
+]
+
+
+def _raw16(raw, raw_dtype, aligned):
+    """``raw`` in ``raw_dtype``, contiguous; ``aligned`` False: at an
+    address two bytes past a vector boundary (scalar loads)."""
+    if aligned:
+        return raw.to(raw_dtype)
+    buf = torch.empty(raw.numel() + 1, dtype=raw_dtype, device=raw.device)
+    out = buf[1:].view(raw.shape)
+    out.copy_(raw)
+    return out
+
+
+@pytest.mark.parametrize("b,p,h,w,plan", CALIB_RAW16_CASES)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("raw_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_calib_kernel_takes_16_bit_raw(cuda, b, p, h, w, plan, aligned, raw_dtype, out_dtype):
+    """bf16 and f16 raw against the plain version (each op in the raw
+    dtype, the background sum and count in f32): f32 tolerance plus one ulp
+    at the narrower of the raw and output precisions; two launches equal."""
+    from psana_ray_tpu_torch.ops import fused_calib as fc
+
+    raw, ped, gain, mask = _calib_inputs(cuda, b, p, h, w)
+    raw = _raw16(raw, raw_dtype, aligned)
+    ped, gain = ped.to(raw_dtype), gain.to(raw_dtype)
+    plan = {"auto": None, "two_pass": fc.TWO_PASS}[plan] if isinstance(plan, str) else (
+        fc.calib_plan(h, w, cluster=plan))
+    chosen, load, _ = fc.runnable_plan(raw, ped, gain, mask, out_dtype, plan)
+    assert (load == fc.LOAD_SCALAR) == (not aligned or w % 4 != 0)
+    if plan is fc.TWO_PASS:
+        assert chosen.route == "two_pass"
+    got = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=plan)
+    again = pt.fused_calibrate(raw, ped, gain, mask, out_dtype=out_dtype, plan=plan)
+    ref = fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype).float()
+    torch.cuda.synchronize()
+    assert pt.counts()["calib_kernel"] == 2 and got.dtype == out_dtype
+    narrow = max(raw_dtype, out_dtype, key=lambda t: torch.finfo(t).eps)
+    tol = 1e-4 + 1e-5 * ref.abs() + _ulp_tol(ref, narrow)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(torch.all((got.float() - ref).abs() <= tol))
+    assert bool(torch.all(got[:, 0] == 0))  # the all-masked panel
+    assert torch.equal(got, again)
+
+
+def test_calib_kernel_16_bit_raw_at_a_real_panel_count(cuda):
+    """An epix10k2M panel in f16: a count past 65504, which the f32 sums
+    take (the reference's f16 ones overflow); the output finite and equal
+    to the plain version's within one f16 ulp."""
+    raw, ped, gain, mask = _calib_inputs(cuda, 2, 2, 352, 384)
+    raw, ped, gain = raw.half(), ped.half(), gain.half()
+    got = pt.fused_calibrate(raw, ped, gain, mask)
+    ref = fused_calibrate_plain(raw, ped, gain, mask).float()
+    assert got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+    tol = 1e-4 + 1e-5 * ref.abs() + _ulp_tol(ref, torch.float16)
+    assert bool(torch.all((got.float() - ref).abs() <= tol))
+
+
+def test_calib_kernel_16_bit_raw_raises_when_its_library_fails(cuda, monkeypatch):
+    """No fallback: a bf16 raw call whose library cannot load raises."""
+    from psana_ray_tpu_torch.ops import fused_calib as fc
+
+    raw, ped, gain, mask = _calib_inputs(cuda, 1, 2, 32, 64)
+
+    def broken(name):
+        raise RuntimeError(f"cannot load lib{name}.so")
+
+    monkeypatch.setattr(fc.build, "library", broken)
+    fc.active_clusters.cache_clear()
+    with pytest.raises(RuntimeError, match="cannot load"):
+        pt.fused_calibrate(raw.bfloat16(), ped, gain, mask)
+    assert pt.counts()["calib_kernel"] == 0
 
 
 def _operands(gen, cuda, b, h, w, cin, n):

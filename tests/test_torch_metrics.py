@@ -144,7 +144,7 @@ def test_stage_times_reads_its_map_only_under_its_lock():
     start = threading.Barrier(8)
 
     def observe():
-        start.wait()
+        start.wait(timeout=30)
         for i in range(500):
             st.observe(f"s{i % 4}", 1e-3)
 

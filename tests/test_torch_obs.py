@@ -369,7 +369,8 @@ def test_flight_hooks_dump_on_an_unhandled_thread_exception(tmp_path):
     try:
         t = threading.Thread(target=lambda: 1 / 0, name="worker-x")
         t.start()
-        t.join()
+        t.join(30)
+        assert not t.is_alive()
         (path,) = [tmp_path / f for f in os.listdir(tmp_path)]
         doc = json.loads(path.read_text())
         assert doc["reason"] == "thread_exception"

@@ -35,6 +35,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL_TOL = 0.05
 STAGES = (1, 1, 1, 1)
 N, B, P, H, W = 8, 4, 2, 32, 32
+# the server's queue holds fewer frames than the producer sends, so the
+# producer waits on a full queue, its sampler running, for at least
+# HOLD_S before the pipeline drains it: replaying N frames alone ends
+# within a sampling period, and under load with no sample taken
+QUEUE = 2
+HOLD_S = 0.5
+WAIT_S = 60.0  # the bound of every wait on another process
 
 
 def _env():
@@ -59,7 +66,7 @@ def _serve(prof_dir, npz, consts, packed):
     """One run: a queue server process, the producer CLI replaying ``npz``
     and the pipeline here, all three profiled into ``prof_dir`` (None:
     ``--profile_hz 0``). Returns the logits by event index and, profiled,
-    the console's frame over the server."""
+    the console's first frame that shows the server's CPU% and BUSY%."""
     port_file = os.path.join(tempfile.mkdtemp(dir=os.path.dirname(npz)), "port")
     prof = ["--profile_hz", "0"] if prof_dir is None else ["--profile_dir", prof_dir]
     server = subprocess.Popen(
@@ -69,21 +76,27 @@ def _serve(prof_dir, npz, consts, packed):
     producer = client = None
     frame = None
     try:
-        deadline = time.monotonic() + 60
+        deadline = time.monotonic() + WAIT_S
         while not os.path.exists(port_file):
             assert server.poll() is None and time.monotonic() < deadline
             time.sleep(0.05)
         port = int(open(port_file).read())
-        client = TcpQueueClient("127.0.0.1", port, queue_name="shared_queue", maxsize=8)
+        client = TcpQueueClient("127.0.0.1", port, queue_name="shared_queue", maxsize=QUEUE)
         metrics = pt.PipelineMetrics()
         if prof_dir is not None:
             profiling.start_default_profiler(spool_dir=prof_dir, process="serving",
                                              frames_fn=lambda: metrics.frames.count)
-        client.stream_open(4)
         producer = subprocess.Popen(
             [sys.executable, "-m", "psana_ray_tpu_torch.producer", "--exp", f"replay:{npz}",
-             "--address", f"tcp://127.0.0.1:{port}", "--queue_size", "8", *prof],
+             "--address", f"tcp://127.0.0.1:{port}", "--queue_size", str(QUEUE), *prof],
             env=_env(), cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        deadline = time.monotonic() + WAIT_S
+        while client.size() < QUEUE:
+            assert producer.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        time.sleep(HOLD_S)
+        assert producer.poll() is None  # still waiting on the full queue
+        client.stream_open(4)
 
         def step(batch):
             cal = pt.fused_calibrate(batch.frames, *consts, threshold=10.0,
@@ -99,16 +112,22 @@ def _serve(prof_dir, npz, consts, packed):
         pipe = pt.InfeedPipeline(client, batch_size=B, device="cpu", batcher_buffers=6,
                                  metrics=metrics, max_wait_s=60.0)
         assert pipe.run(step, on_result=keep) == N
-        out, _ = producer.communicate(timeout=60)
+        out, _ = producer.communicate(timeout=WAIT_S)
         assert producer.returncode == 0, out[-2000:]
         if prof_dir is not None:
-            time.sleep(1.2)  # a cost-model tick in the server
-            top = subprocess.run(
-                [sys.executable, "-m", "psana_ray_tpu_torch.obs.top", "--peers",
-                 f"127.0.0.1:{port}", "--once", "--settle", "0.3"],
-                env=_env(), cwd=REPO, capture_output=True, text=True, timeout=120)
-            assert top.returncode == 0, top.stderr[-2000:]
-            frame = top.stdout
+            # the server's CPU% and BUSY% come with its first cost-model
+            # tick: poll the console until a frame shows them
+            deadline = time.monotonic() + WAIT_S
+            while True:
+                top = subprocess.run(
+                    [sys.executable, "-m", "psana_ray_tpu_torch.obs.top", "--peers",
+                     f"127.0.0.1:{port}", "--once", "--settle", "0.3"],
+                    env=_env(), cwd=REPO, capture_output=True, text=True, timeout=WAIT_S)
+                assert top.returncode == 0, top.stderr[-2000:]
+                frame = top.stdout
+                if _server_row(frame)[0] or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
     finally:
         profiling.stop_default_profiler()
         if client is not None:
@@ -116,10 +135,19 @@ def _serve(prof_dir, npz, consts, packed):
         for proc in (producer, server):
             if proc is not None and proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
-                proc.wait(timeout=30)
-    out, _ = server.communicate(timeout=30)
+                proc.wait(timeout=WAIT_S)
+    out, _ = server.communicate(timeout=WAIT_S)
     assert server.returncode == 0, out[-2000:]
     return np.stack([got[i] for i in range(N)]), frame
+
+
+def _server_row(frame):
+    """(CPU% and BUSY% both shown, the row's fields) of the server's row
+    in an ``obs.top`` frame."""
+    lines = frame.splitlines()
+    head = next(ln for ln in lines if ln.startswith("PEER")).split()
+    row = next(ln for ln in lines if ln.startswith("127.0.0.1:")).split()
+    return row[head.index("CPU%")] != "-" and row[head.index("BUSY%")] != "-", row
 
 
 def _jax_logits(ped, gain, mask, raw, params):
@@ -162,10 +190,8 @@ def test_profiled_slice_equals_unprofiled_and_every_process_spools(one_torch_thr
     assert "dispatch" in procs["queue_server"]["stage_cpu_ms"]
     print({name: p["stage_cpu_ms"] for name, p in procs.items()})  # pytest -rP
 
-    lines = frame.splitlines()
-    head = next(ln for ln in lines if ln.startswith("PEER")).split()
-    row = next(ln for ln in lines if ln.startswith("127.0.0.1:")).split()
-    assert row[1] == "up" and row[head.index("CPU%")] != "-" and row[head.index("BUSY%")] != "-"
+    shown, row = _server_row(frame)
+    assert row[1] == "up" and shown
 
 
 def _imported_roots(stderr):

@@ -40,6 +40,30 @@ from psana_ray_tpu_torch.transport import (  # noqa: E402
 
 DETECTOR = "smoke_a"  # the IMAGE mosaic of one event is [1, 32, 128] f32, 16 KiB
 SLOT_BYTES = 64 * 1024
+JOIN_S = 60.0  # the bound of every wait on a runtime or a thread: past it the test fails
+
+
+def _within(call, *runtimes):
+    """``call()`` (a runtime's blocking ``run`` or ``join``, either
+    package's) within JOIN_S: past it the runtimes are stopped and the
+    test fails. Re-raises what the call raised."""
+    errors = []
+
+    def target():
+        try:
+            call()
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(JOIN_S)
+    if t.is_alive():
+        for rt in runtimes:
+            rt.stop()
+        pytest.fail(f"{getattr(call, '__qualname__', call)} still waiting after {JOIN_S} s")
+    if errors:
+        raise errors[0]
 
 
 @pytest.fixture(autouse=True)
@@ -132,21 +156,21 @@ class TestProducerRuntime:
                     eos.append(item)
                     break
                 got.append(item)
-        rt.join()
+        _within(rt.join, rt)
         assert sorted(r.event_idx for r in got) == list(range(10))  # each once, EOS last
         assert len(eos) == 1
         assert rt.metrics.frames.count == 10
 
     def test_eos_per_consumer(self, stream):
         rt = ProducerRuntime(stream.config(num_events=4, num_consumers=3), num_local_shards=1)
-        rt.run(block=True)
+        _within(rt.run, rt)
         q = stream.attach()
         items = [q.get_wait(timeout=1.0) for _ in range(7)]
         assert sum(is_eos(i) for i in items) == 3
 
     def test_max_steps(self, stream):
         rt = ProducerRuntime(stream.config(num_events=100, max_steps=5), num_local_shards=1)
-        rt.run(block=True)
+        _within(rt.run, rt)
         assert rt.metrics.frames.count == 5
 
     def test_mask_applied_host_side(self, stream, tmp_path):
@@ -155,7 +179,8 @@ class TestProducerRuntime:
         cfg = stream.config(num_events=2)
         cfg = PipelineConfig(source=cfg.source, mask=MaskConfig(manual_mask_path=str(path)),
                              transport=cfg.transport)
-        ProducerRuntime(cfg, num_local_shards=1).run(block=True)
+        rt = ProducerRuntime(cfg, num_local_shards=1)
+        _within(rt.run, rt)
         with stream.reader() as reader:
             rec = reader.read_wait(timeout=2.0)
         assert rec.panels.shape == (2, 16, 128) and rec.panels.sum() == 0
@@ -167,11 +192,11 @@ class TestProducerRuntime:
         rt.run(block=False)
         time.sleep(0.2)
         stream.kill()
-        rt.join()  # returns: neither raises nor hangs
+        _within(rt.join, rt)  # returns: neither raises nor hangs
 
     def test_sharded_ranks_disjoint(self, stream):
         rt = ProducerRuntime(stream.config(num_events=9), num_local_shards=3)
-        rt.run(block=True)
+        _within(rt.run, rt)
         by_rank = {}
         for r in stream.drain():
             if not is_eos(r):
@@ -245,14 +270,16 @@ class TestMultiRuntimeEos:
         rts, tb = self._two_runtimes(stream, num_events=10, delay_b=0.5)
         with stream.reader() as reader:
             got = [r.event_idx for r in reader]
-        rts[0].join()
-        tb.join()
+        _within(rts[0].join, *rts)
+        tb.join(JOIN_S)
+        assert not tb.is_alive()
         assert sorted(got) == list(range(10))
 
     def test_eos_records_carry_coverage(self, stream):
         rts, tb = self._two_runtimes(stream, num_events=4)
-        rts[0].join()
-        tb.join()
+        _within(rts[0].join, *rts)
+        tb.join(JOIN_S)
+        assert not tb.is_alive()
         eos = [i for i in stream.drain() if is_eos(i)]
         assert {e.producer_rank for e in eos} == {0, 1}
         assert all(e.total_shards == 2 and e.shards_done == 1 for e in eos)
@@ -274,8 +301,9 @@ class TestMultiRuntimeEos:
             t.join(timeout=max(0.1, deadline - time.monotonic()))
         assert not any(t.is_alive() for t in threads), (
             f"competing consumers starved past the {join_s:.0f}s join deadline")
-        rts[0].join()
-        tb.join()
+        _within(rts[0].join, *rts)
+        tb.join(JOIN_S)
+        assert not tb.is_alive()
         assert sorted(results[0] + results[1]) == list(range(12))  # no loss, no duplicate
 
 
@@ -401,7 +429,8 @@ class TestBatchedSender:
         for r in recs:
             assert sender.send(r)
         assert sender.flush()
-        t.join()
+        t.join(JOIN_S)
+        assert not t.is_alive()
         assert [r.event_idx for r in drained] == list(range(8))  # FIFO kept
         assert sender.metrics.frames.count == 8
 
@@ -448,7 +477,7 @@ def _run_and_collect(runtime_cls, config_mod, registry, mode, wire_dtype, mask_p
                                              wire_dtype=wire_dtype),
     )
     rt = runtime_cls(cfg, registry=registry, num_local_shards=2)
-    rt.run(block=True)
+    _within(rt.run, rt)
     q = registry.resolve("default", "shared_queue", retries=1, interval_s=0.1)
     items = []
     while q.size():

@@ -217,7 +217,8 @@ def test_dead_server_raises_transport_closed_and_restart_is_ridden_out():
     t = threading.Thread(target=restart, daemon=True)
     t.start()
     assert c.put(2)  # rides the restart out
-    t.join()
+    t.join(30)
+    assert not t.is_alive()
     assert holder["q"].get() == 2
     c.disconnect()
     holder["srv"].shutdown()

@@ -98,7 +98,8 @@ def test_pinning_is_exact_and_survives_the_process_boundary():
     code = ("from psana_ray_tpu_torch.transport.workers import queue_owner;"
             "print({f'q{i}': queue_owner('ns', f'q{i}', 3) for i in range(16)})")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+                         check=True, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                         timeout=120)
     assert eval(out.stdout.strip()) == here
 
 
@@ -211,7 +212,7 @@ def test_respawn_keeps_worker_id_and_leaves_other_children_alone():
         sup.stop(timeout_s=10.0)
         if other.poll() is None:
             other.kill()
-            other.wait()
+            other.wait(timeout=30)
     assert _live(sup) == {}
 
 

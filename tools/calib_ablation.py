@@ -2,7 +2,7 @@
 """What K1's cluster design buys: time ``csrc/calib.cu`` as it is and with
 one part of its design changed, on one CUDA card.
 
-    python3 tools/calib_ablation.py [variant ...]
+    python3 tools/calib_ablation.py [--raw f32|bf16|f16] [variant ...]
 
 Variants (default: all), each built by ``nvcc`` from a copy of the sources
 with its edits, into ``build/torch_kernels/ablation/calib_<variant>/``:
@@ -16,14 +16,19 @@ with its edits, into ``build/torch_kernels/ablation/calib_<variant>/``:
   its slice (from L1) for every pixel instead of each pixel's own from L2:
   the arithmetic stays, the constants' L2 traffic (2.25x the raw bytes a
   batch) goes. Its output is wrong by design and is not checked: it
-  prices what reading the constants for every frame costs.
+  prices what reading the constants for every frame costs;
+- ``unroll1``: pass 1's vector loop (16-bit raw) kept rolled;
+- ``per_pixel``: a vector step of 16-bit raw computes each pixel's
+  difference and division in turn, as f32 raw does, in place of the
+  four differences before any division.
 
 Each variant runs the cluster route under each launch of ``RUNS``: the
 cluster size, and whether the clusters walk the items (as many clusters
 as the card holds at once) or each take one item (one cluster per
 (panel, frame)); ``base`` also runs the two-pass route.
 
-Input: ``[32, 16, 352, 384]`` epix10k2M-shaped f32 raw frames, drawn on
+Input: ``[32, 16, 352, 384]`` epix10k2M-shaped raw frames (f32, or with
+``--raw`` bf16 or f16, pedestal and gain in the same type), drawn on
 the card from a seeded generator with the statistics of
 ``SyntheticSource`` (pedestal 100 ± 3, gain 1 ± 0.02, 0.3% bad pixels,
 0.08 photons of 35 ADU a pixel, ± 8 ADU common mode a panel, 2.5 ADU
@@ -51,14 +56,26 @@ sys.path.insert(0, ROOT)
 CTAS_PER_SM = "constexpr int kClusterCtasPerSm = 3;"
 PASS1 = """      for (int i = threadIdx.x; i < n4; i += kThreads) {
         const uchar4 mv = mask4(m + 4 * i);  // every load issued before the divisions"""
+VECTOR_PASS1 = """      __syncthreads();  // every thread is done with the last item's x
+      for (int i = threadIdx.x; i < n4; i += kThreads) {"""
+SUB_FIRST = """    const float4 d = make_float4(rnd<RawT>(r.x - pv.x), rnd<RawT>(r.y - pv.y),
+                                 rnd<RawT>(r.z - pv.z), rnd<RawT>(r.w - pv.w));
+    const float4 gv = load4(g);
+    return make_float4(rnd<RawT>(d.x / gv.x), rnd<RawT>(d.y / gv.y), rnd<RawT>(d.z / gv.z),
+                       rnd<RawT>(d.w / gv.w));"""
+PER_PIXEL = """    const float4 gv = load4(g);
+    return make_float4(calibrate1<RawT>(r.x, pv.x, gv.x), calibrate1<RawT>(r.y, pv.y, gv.y),
+                       calibrate1<RawT>(r.z, pv.z, gv.z), calibrate1<RawT>(r.w, pv.w, gv.w));"""
 VARIANTS = {
     "base": [],
     "min2": [(CTAS_PER_SM, CTAS_PER_SM.replace("3", "2"))],
     "unroll2": [(PASS1, "#pragma unroll 2\n" + PASS1)],
     "threads256": [("constexpr int kThreads = 512;", "constexpr int kThreads = 256;"),
                    (CTAS_PER_SM, CTAS_PER_SM.replace("3", "6"))],
-    "consts_once": [("const float4 x = calibrate4(xs4[i], pd + 4 * i, g + 4 * i);",
-                     "const float4 x = calibrate4(xs4[i], pd, g);")],
+    "consts_once": [("const float4 x = calibrate4<RawT>(xs4[i], pd + 4 * i, g + 4 * i);",
+                     "const float4 x = calibrate4<RawT>(xs4[i], pd, g);")],
+    "unroll1": [(VECTOR_PASS1, VECTOR_PASS1.replace("      for (", "#pragma unroll 1\n      for ("))],
+    "per_pixel": [(SUB_FIRST, PER_PIXEL)],
 }
 UNCHECKED = {"consts_once"}
 # label: (cluster size, clusters walk the items)
@@ -94,14 +111,18 @@ def build_variants(names, build):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name}: build failed\n{log[-3000:]}")
-        regs, func = set(), [""]
+        regs, func, spilling = set(), [""], set()
         for line in log.splitlines():
             func = re.findall(r"Compiling entry function '([^']+)'", line) or func
             used = re.search(r"Used (\d+) registers", line)
             if used and "calib_cluster_kernel" in func[0]:
                 regs.add(int(used.group(1)))
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if spill and int(spill.group(1)):
+                spilling.add(func[0])
         report[name] = {
             "spill_bytes": sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log)),
+            "spilling_kernels": sorted(spilling),
             "cluster_kernel_registers": sorted(regs),
         }
         lib = ctypes.CDLL(os.path.join(out, "libcalib.so"))
@@ -124,7 +145,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("calib_ablation: no CUDA device", file=sys.stderr)
         return 1
-    names = sys.argv[1:] or list(VARIANTS)
+    args = sys.argv[1:]
+    raw_name = "f32"
+    if args[:1] == ["--raw"]:
+        raw_name, args = args[1], args[2:]
+    raw_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[raw_name]
+    names = args or list(VARIANTS)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs, report = build_variants(names, build)
@@ -139,33 +165,38 @@ def main() -> int:
     cm = 16.0 * torch.rand((b, p, 1, 1), generator=gen, device=dev) - 8.0
     raw = ped + 35.0 * photons * gain + cm + 2.5 * torch.randn(SHAPE, generator=gen, device=dev)
     del photons
+    raw, ped, gain = (t.to(raw_dtype) for t in (raw, ped, gain))
+    raw_type = fc.RAW_TYPES[raw_dtype]
+    thr = fc._threshold(10.0, raw_dtype)
     timer = Timer(torch, dev)
     load = fc.load_mode(raw, ped, gain, mask)
     plans = {label: (fc.calib_plan(h, w, cluster=c), walk) for label, (c, walk) in RUNS.items()}
     for out_dtype in (torch.bfloat16, torch.float32):
         ref = fc.fused_calibrate_plain(raw, ped, gain, mask, out_dtype=out_dtype)
         out = torch.empty_like(ref)
-        row = {"shape": list(SHAPE), "out": str(out_dtype), "plan": fc.calib_plan(h, w).cluster}
+        row = {"shape": list(SHAPE), "raw": raw_name, "out": str(out_dtype),
+               "plan": fc.calib_plan(h, w).cluster}
         for name, lib in libs.items():
             runs = dict(plans, **({"two_pass": (fc.TWO_PASS, False)} if name == "base" else {}))
             for label, (plan, walk) in runs.items():
                 active = ctypes.c_int(0)
                 if plan.route == "cluster":
                     build.check(lib, lib.calib_active_clusters(
-                        h, w, 0, int(out_dtype == torch.bfloat16), load, plan.cluster,
+                        h, w, raw_type, int(out_dtype == torch.bfloat16), load, plan.cluster,
                         plan.rows_per_cta, ctypes.byref(active)), "occupancy")
                 clusters = min(b * p, active.value) if walk else b * p
 
                 def fn(lib=lib, plan=plan, clusters=clusters):
                     err = lib.calib_launch(
                         raw.data_ptr(), ped.data_ptr(), gain.data_ptr(), mask.data_ptr(),
-                        out.data_ptr(), b, p, h, w, 10.0, 0, int(out_dtype == torch.bfloat16),
+                        out.data_ptr(), b, p, h, w, thr, raw_type, int(out_dtype == torch.bfloat16),
                         load, plan.cluster, plan.rows_per_cta, clusters,
                         torch.cuda.current_stream().cuda_stream)
                     build.check(lib, err, f"calib_kernel ({name}, {label})")
 
                 fn()
-                err = None if name in UNCHECKED else calib_err(torch, out, ref, f"{name}, {label}")
+                err = None if name in UNCHECKED else calib_err(torch, out, ref, f"{name}, {label}",
+                                                               raw_dtype)
                 row[f"{name}/{label}"] = {"ms": timer.ms(fn, iters=20), "max_abs_err": err,
                                           "active_clusters": active.value,
                                           "smem_per_cta": plan.smem_bytes}
