@@ -116,8 +116,8 @@ one JSON line (``{"phase": ...}``):
    logits and pooled features are checked against the plain path on the
    card.
 6. ``profile``: the same pipeline for 4 timed batches after the warm-up
-   under ``torch.profiler``: device time by kernel, the device's idle
-   share and the busiest host ops.
+   under ``torch.profiler``: device time by kernel and the busiest host
+   ops.
 6b. ``shm_end_to_end``: the same serving path fed by another process: a
    ``spawn`` producer process (``produce_synthetic``, which loads no
    torch) draws the same pool from the same seed and writes it into a
@@ -186,7 +186,7 @@ one JSON line (``{"phase": ...}``):
    file must exist. Prints the process's age, the trace's size and the
    p50 batch ms without and with the capture.
 6g. ``tcp_profile``: phase 6e's path again for 6 + 8 batches, the 8
-   under ``torch.profiler`` as in phase 6: the card's idle share there.
+   under ``torch.profiler`` as in phase 6: the card's time by kernel there.
 6h. ``durable_end_to_end`` (after 6e, before 6f): phase 6e's path fed
    from ``python -m psana_ray_tpu_torch.queue_server --workers 2
    --durable_dir <fresh directory under build/chip_smoke/> --queue_size
@@ -1460,8 +1460,8 @@ def check_resnet_result(torch, pt, model, consts, last):
 
 
 def profile_summary(torch, prof, wall, n_batches, top=16) -> dict:
-    """Device time by kernel per batch, the device's idle share of the wall
-    time and the host ops that take the most time, from a profiler run."""
+    """Device time by kernel per batch and the host ops that take the most
+    time, from a profiler run."""
     events = prof.key_averages()
 
     def dev_us(e):
@@ -1481,7 +1481,6 @@ def profile_summary(torch, prof, wall, n_batches, top=16) -> dict:
         "wall_ms_per_batch": wall * 1e3 / n_batches,
         "device_compute_ms_per_batch": compute / per,
         "device_copy_ms_per_batch": copies / per,
-        "device_idle_share": max(0.0, 1.0 - compute / 1e3 / (wall * 1e3)),
         "top_device": [{"name": e.key[:160], "ms_per_batch": dev_us(e) / per,
                         "calls_per_batch": e.count / n_batches} for e in kernels[:top]],
         "top_host": [{"name": e.key[:80], "self_ms_per_batch": e.self_cpu_time_total / per,
@@ -1743,7 +1742,7 @@ def phase_tcp_end_to_end(torch, pt, pool, consts, model, params, device, root):
 
 def phase_tcp_profile(torch, pt, pool, consts, params, device, root):
     """The TCP-fed ResNet serving path again, its ``TCP_PROFILE_BATCHES``
-    timed batches under ``torch.profiler``: the card's idle share there."""
+    timed batches under ``torch.profiler``: the card's time by kernel there."""
     step = make_step(torch, pt, consts, params)
 
     def run(on_batch):

@@ -30,17 +30,19 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 
 from psana_ray_tpu_torch.obs.flight import FLIGHT
-from psana_ray_tpu_torch.obs.profiling.stagetag import (
-    TAG_BATCH,
-    TAG_DEQUEUE,
-    TAG_UNTAGGED,
-    set_stage,
+from psana_ray_tpu_torch.obs.profiling.stagetag import TAG_UNTAGGED, set_stage
+from psana_ray_tpu_torch.obs.stages import (
+    HOP_BATCH,
+    HOP_DEQ,
+    HOP_PUSH,
+    STAGE_BATCH,
+    STAGE_DEQUEUE,
 )
-from psana_ray_tpu_torch.obs.stages import HOP_BATCH, HOP_DEQ, HOP_PUSH
 from psana_ray_tpu_torch.obs.tracing import TRACE_KEY, TRACER
 from psana_ray_tpu_torch.records import EndOfStream, EosTally, FrameRecord, mark_hop
 from psana_ray_tpu_torch.transport.registry import TransportClosed, TransportWedged
 from psana_ray_tpu_torch.utils.bufpool import WIRE
+from psana_ray_tpu_torch.utils.trace import annotate_stage
 
 # the [B] metadata arrays of a batch, after the frames: valid, shard_rank,
 # event_idx, photon_energy
@@ -292,9 +294,10 @@ def batches_from_queue(
                     chunk = max(1, int(control.chunk))
                 if control.poll_s:
                     poll_s = float(control.poll_s)
-            set_stage(TAG_DEQUEUE)  # the profiler bills the pop to "dequeue"
             try:
-                items = pop(chunk, timeout=poll_s)
+                # the pop and its wait on the transport: "dequeue"
+                with annotate_stage(STAGE_DEQUEUE):
+                    items = pop(chunk, timeout=poll_s)
             except TransportWedged:
                 raise  # lost data, not a clean end of stream
             except TransportClosed:
@@ -320,42 +323,42 @@ def batches_from_queue(
             tally.flush_duplicates(queue)
             ready: List[Batch] = []
             done = False
-            set_stage(TAG_BATCH)  # ... and the copies into the arena to "batch"
-            for pos, item in enumerate(items):
-                if isinstance(item, EndOfStream):
-                    if tally.process(item):
-                        # records popped after the completing marker belong
-                        # to the queue (or are sibling markers): hand them
-                        # back, each copied out of its slot first, since a
-                        # put into a full ring would wait on that very slot
-                        rest = []
-                        for other in items[pos + 1:]:
-                            if isinstance(other, EndOfStream):
-                                tally.process(other)
-                            else:
-                                rest.append(other.materialize()
-                                            if isinstance(other, FrameRecord) else other)
-                        for other in rest:
-                            queue.put_wait(other, timeout=1.0)
-                        if batcher is not None and (tail := batcher.flush()) is not None:
-                            ready.append(tail)
-                        FLIGHT.record("eos_complete", source="batches_from_queue")
-                        done = True
-                        break
-                    continue
-                if batcher is None:
-                    batcher = FrameBatcher(batch_size, n_buffers=n_buffers)
-                trace = item.trace
-                if trace is not None and trace.sampled and TRACER.enabled:
-                    # a traced frame from the wire: its stamps start here and
-                    # become spans at the step's end (emit_batch_spans)
-                    mark_hop(item, HOP_DEQ, t_deq)
-                    item.hops[TRACE_KEY] = trace.trace_id
-                elif item.hops is not None:  # a timed stream: stamp the pop
-                    item.hops[HOP_DEQ] = t_deq
-                out = batcher.push_view(item)
-                if out is not None:
-                    ready.append(out)
+            with annotate_stage(STAGE_BATCH):  # ... and the copies into the arena: "batch"
+                for pos, item in enumerate(items):
+                    if isinstance(item, EndOfStream):
+                        if tally.process(item):
+                            # records popped after the completing marker belong
+                            # to the queue (or are sibling markers): hand them
+                            # back, each copied out of its slot first, since a
+                            # put into a full ring would wait on that very slot
+                            rest = []
+                            for other in items[pos + 1:]:
+                                if isinstance(other, EndOfStream):
+                                    tally.process(other)
+                                else:
+                                    rest.append(other.materialize()
+                                                if isinstance(other, FrameRecord) else other)
+                            for other in rest:
+                                queue.put_wait(other, timeout=1.0)
+                            if batcher is not None and (tail := batcher.flush()) is not None:
+                                ready.append(tail)
+                            FLIGHT.record("eos_complete", source="batches_from_queue")
+                            done = True
+                            break
+                        continue
+                    if batcher is None:
+                        batcher = FrameBatcher(batch_size, n_buffers=n_buffers)
+                    trace = item.trace
+                    if trace is not None and trace.sampled and TRACER.enabled:
+                        # a traced frame from the wire: its stamps start here and
+                        # become spans at the step's end (emit_batch_spans)
+                        mark_hop(item, HOP_DEQ, t_deq)
+                        item.hops[TRACE_KEY] = trace.trace_id
+                    elif item.hops is not None:  # a timed stream: stamp the pop
+                        item.hops[HOP_DEQ] = t_deq
+                    out = batcher.push_view(item)
+                    if out is not None:
+                        ready.append(out)
             del items
             set_stage(TAG_UNTAGGED)  # suspended at a yield: the caller's time
             yield from ready

@@ -29,7 +29,10 @@ to the card) into the pipeline's :class:`PipelineMetrics`, and counts the
 frame bytes the host copied and the batches copied to the card straight
 from their arena. On the profiler's timeline each batch's H2D enqueue is
 a ``stage.device_put`` range and each step a ``stage.dispatch`` range
-(:func:`~psana_ray_tpu_torch.utils.trace.annotate_stage`).
+(:func:`~psana_ray_tpu_torch.utils.trace.annotate_stage`); the consumer's
+wait for the next staged batch is a ``stage.wait_staged`` range, and a
+step's wait on the card under ``block_until_ready`` a ``stage.sync``
+range inside its ``stage.dispatch``.
 
 A batch of stamped records (``Batch.hops``) gets each record's
 ``device_put`` stamp once its copy to the device is enqueued, and at the
@@ -62,6 +65,8 @@ from psana_ray_tpu_torch.infeed.batcher import (
 from psana_ray_tpu_torch.obs.registry import MetricsRegistry
 from psana_ray_tpu_torch.obs.stages import (
     HOP_DEVICE_PUT,
+    RANGE_SYNC,
+    RANGE_WAIT_STAGED,
     STAGE_DEVICE_PUT,
     STAGE_DISPATCH,
     observe_batch_stages,
@@ -69,7 +74,7 @@ from psana_ray_tpu_torch.obs.stages import (
 from psana_ray_tpu_torch.obs.tracing import emit_batch_spans
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
-from psana_ray_tpu_torch.utils.trace import annotate_stage
+from psana_ray_tpu_torch.utils.trace import annotate, annotate_stage
 
 
 def pinned_arena(batch_size: int, frame_shape: tuple, dtype) -> Arena:
@@ -260,7 +265,8 @@ class DevicePrefetcher:
         of the stream, and the staging thread's error if it failed."""
         if self._done:
             raise StopIteration
-        item = self._buf.get()
+        with annotate(RANGE_WAIT_STAGED):
+            item = self._buf.get()
         if item is None:
             self._done = True
             if self._err is not None:
@@ -307,7 +313,8 @@ def drive_step(
     with annotate_stage(STAGE_DISPATCH):
         out = step(batch)
         if block_until_ready and torch.is_tensor(batch.frames) and batch.frames.is_cuda:
-            torch.cuda.current_stream(batch.frames.device).synchronize()
+            with annotate(RANGE_SYNC):
+                torch.cuda.current_stream(batch.frames.device).synchronize()
     t1 = time.monotonic()
     metrics.observe_batch(batch.num_valid, t1 - t0,
                           _frames_nbytes(batch.frames) if nbytes is None else nbytes)

@@ -55,6 +55,8 @@ from psana_ray_tpu_torch.models.resnet import (
     max_pool_same,
     same_pads,
 )
+from psana_ray_tpu_torch.obs.stages import RANGE_MODEL
+from psana_ray_tpu_torch.utils.trace import annotate
 
 _BF16 = torch.bfloat16
 
@@ -497,6 +499,7 @@ def _stem(params: FusedResNet, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+@annotate(RANGE_MODEL)
 @torch.no_grad()
 def resnet_fused_infer(
     params: FusedResNet,

@@ -64,6 +64,8 @@ from psana_ray_tpu_torch.models.unet_tpu import (
     depth_to_space,
     space_to_depth,
 )
+from psana_ray_tpu_torch.obs.stages import RANGE_MODEL
+from psana_ray_tpu_torch.utils.trace import annotate
 
 _BF16 = torch.bfloat16
 COUNTER = "conv_block_kernel"
@@ -320,6 +322,7 @@ def _upsample2x(y: torch.Tensor) -> torch.Tensor:
     return y[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
 
 
+@annotate(RANGE_MODEL)
 @torch.no_grad()
 def peaknet_tpu_fused_infer(params: FusedUNet, x: torch.Tensor) -> torch.Tensor:
     """Fused forward of a frozen PeakNet-TPU: ``x [N, H, W, C_in]`` ->

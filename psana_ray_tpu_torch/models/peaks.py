@@ -18,7 +18,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from psana_ray_tpu_torch.obs.stages import RANGE_PEAKS
+from psana_ray_tpu_torch.utils.trace import annotate
 
+
+@annotate(RANGE_PEAKS)
 def find_peaks(
     logits: torch.Tensor,
     max_peaks: int = 128,

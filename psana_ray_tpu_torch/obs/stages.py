@@ -25,6 +25,12 @@ Stages are consecutive differences of one record's timeline, so their
 means over a set of records add up to the mean of the ``e2e`` pseudo-stage
 (src -> step done). A missing boundary (monotonic stamps do not cross
 processes) is absorbed by the stage ending at the next present one.
+
+The serving loop also opens profiler ranges for parts of a stage, named
+``stage.<part>`` like the stages' own (the ``RANGE_*`` names below). They
+are not hop stages: no stamp, no histogram, no continuous-profiler tag,
+no entry in :data:`STAGES`, so they are opened with
+:func:`psana_ray_tpu_torch.utils.trace.annotate`, not ``annotate_stage``.
 """
 
 from __future__ import annotations
@@ -61,6 +67,15 @@ STAGES = (
     STAGE_DEVICE_PUT,
     STAGE_DISPATCH,
 )
+
+
+# parts of a stage (ranges only), the thread that opens each
+RANGE_WAIT_STAGED = "stage.wait_staged"  # consumer: blocked for the next staged batch
+RANGE_CALIB = "stage.calib"  # fused_calibrate's launch (inside dispatch)
+RANGE_MODEL = "stage.model"  # the fused U-Net's or ResNet's launches (inside dispatch)
+RANGE_PEAKS = "stage.peaks"  # find_peaks' launches (inside dispatch)
+RANGE_SYNC = "stage.sync"  # blocked on the card for a step's result (inside dispatch or drain)
+RANGE_DRAIN = "stage.drain"  # SfxPipeline.drain: the wait, unpadding, writer, cursor
 
 
 def observe_record_stages(stages, hops: dict, t_end: float) -> None:

@@ -32,7 +32,9 @@ from typing import Optional, Tuple
 import torch
 
 from psana_ray_tpu_torch.kernels import LAUNCHES, build
+from psana_ray_tpu_torch.obs.stages import RANGE_CALIB
 from psana_ray_tpu_torch.ops.calib import calibrate
+from psana_ray_tpu_torch.utils.trace import annotate
 
 SMEM_MAX = 232448  # bytes of shared memory a CTA may use on Hopper (227 KB)
 STATIC_SMEM = 1024  # room for the cluster kernel's static shared memory (barriers, sums)
@@ -183,6 +185,7 @@ def _threshold(threshold: float, raw_dtype: torch.dtype) -> float:
     return float(threshold)
 
 
+@annotate(RANGE_CALIB)
 def fused_calibrate(
     raw: torch.Tensor,
     pedestal: torch.Tensor,

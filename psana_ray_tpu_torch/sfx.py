@@ -75,6 +75,7 @@ from psana_ray_tpu_torch.obs.profiling import (
     wire_bytes,
 )
 from psana_ray_tpu_torch.obs.registry import MetricsRegistry
+from psana_ray_tpu_torch.obs.stages import RANGE_DRAIN, RANGE_SYNC, STAGE_DISPATCH
 from psana_ray_tpu_torch.obs.timeseries import add_history_args, configure_history_from_args
 from psana_ray_tpu_torch.obs.tracing import add_trace_args, configure_from_args, emit_batch_spans
 from psana_ray_tpu_torch.ops.fused_calib import fused_calibrate
@@ -86,6 +87,7 @@ from psana_ray_tpu_torch.transport.addressing import (
 from psana_ray_tpu_torch.transport.registry import TransportClosed
 from psana_ray_tpu_torch.utils.hostmem import enable_large_alloc_reuse
 from psana_ray_tpu_torch.utils.metrics import PipelineMetrics
+from psana_ray_tpu_torch.utils.trace import annotate, annotate_stage
 
 __all__ = ["DEFAULT_THRESHOLDS", "SfxConfig", "SfxPipeline", "infer_features", "infer_s2d", "main",
            "parse_args", "run"]
@@ -182,26 +184,30 @@ class SfxPipeline:
         """Enqueue one batch's device step and the copy of its peaks into
         pinned host memory, without waiting; :meth:`drain` takes the
         handle. ``batch.frames`` may be a device tensor or host numpy; the
-        metadata stays on the host."""
+        metadata stays on the host. A ``stage.dispatch`` range."""
         t0 = time.monotonic()
-        frames = torch.as_tensor(batch.frames, device=self.device)
-        nbytes = frames.numel() * frames.element_size()
-        out = self.device_step(frames)
-        if self.device.type != "cuda":
-            return Pending(t0, nbytes, out, None, batch)
-        host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in out)
-        for h, a in zip(host, out):
-            h.copy_(a, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        with annotate_stage(STAGE_DISPATCH):
+            frames = torch.as_tensor(batch.frames, device=self.device)
+            nbytes = frames.numel() * frames.element_size()
+            out = self.device_step(frames)
+            if self.device.type != "cuda":
+                return Pending(t0, nbytes, out, None, batch)
+            host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True) for a in out)
+            for h, a in zip(host, out):
+                h.copy_(a, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         return Pending(t0, nbytes, host, event, batch)
 
+    @annotate(RANGE_DRAIN)
     def drain(self, pending: Pending, cursor=None) -> int:
         """Wait for a :meth:`dispatch` handle and append its real events to
         the writer; returns the events appended. Padding rows never reach
-        the writer; the cursor advances only after the append."""
+        the writer; the cursor advances only after the append. A
+        ``stage.drain`` range, its wait on the card a ``stage.sync`` range."""
         if pending.event is not None:
-            pending.event.synchronize()
+            with annotate(RANGE_SYNC):
+                pending.event.synchronize()
         yx, score, n = (a.numpy() for a in pending.peaks)
         batch = pending.batch
         b, p, h, _ = batch.frames.shape

@@ -7,16 +7,17 @@ counterpart of ``psana_ray_tpu/utils/trace.py``, in PyTorch's idiom.
   in Perfetto or ``chrome://tracing``) into a timestamped subdirectory
   of ``logdir``. ``logdir=None`` captures nothing, so a CLI can pass an
   optional ``--profile_dir`` straight through.
-- :func:`annotate` is a named range: a ``torch.profiler.record_function``
-  (in the capture), and an NVTX range once CUDA is initialised (what
-  ``nsys`` shows).
+- :class:`annotate` is a named range: a ``torch.profiler.record_function``
+  while a capture runs, and an NVTX range once CUDA is initialised (what
+  ``nsys`` shows); a context manager or a function decorator.
 - :func:`annotate_stage` names its range ``stage.<name>`` after a stage
   of :mod:`psana_ray_tpu_torch.obs.stages`.
 
 Unlike the JAX package, nothing here degrades to a silent no-op: torch
 always has its profiler, and a capture that cannot start raises. The
 module imports torch only inside these functions, so a process that
-never captures never loads it.
+never captures never loads it, and a range opened where torch is not
+loaded records nothing.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import sys
 import time
 from typing import Iterator, Optional
 
@@ -64,22 +66,42 @@ def trace(logdir: Optional[str]) -> Iterator[Optional[str]]:
         logger.info("profiler trace written to %s", path)
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range on the timeline: a ``record_function`` in the
-    profiler's capture (a few microseconds when none runs), and an NVTX
-    range when CUDA is initialised."""
-    import torch
+class annotate(contextlib.ContextDecorator):
+    """A named range on the timeline: a ``record_function`` while a
+    ``torch.profiler`` capture runs (any thread's, the capture started
+    before or after the thread), and an NVTX range when CUDA is
+    initialised. With neither it is two flag reads: a ``record_function``
+    costs a dispatcher call even with no capture running. As a decorator
+    it opens a fresh range for each call."""
 
-    nvtx = torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+        self._nvtx = None
+
+    def _recreate_cm(self):
+        return annotate(self.name)
+
+    def __enter__(self):
+        torch = sys.modules.get("torch")
+        if torch is None:  # nothing can capture in a process without torch
+            return self
+        # the capture's start and stop set this module flag; torch's
+        # ``_profiler_enabled()`` reads False during a Kineto capture
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if torch.cuda.is_initialized():
+            self._nvtx = torch.cuda.nvtx
+            self._nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._nvtx is not None:
+            self._nvtx.range_pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
 
 
 def annotate_stage(stage: str):

@@ -2,14 +2,16 @@
 ``InfeedPipeline`` run writes one Chrome trace in a timestamped
 subdirectory holding a ``stage.device_put`` and a ``stage.dispatch``
 range for every batch (the staging thread's ranges included); the stage
-names are the JAX package's; ``trace(None)`` captures nothing; and the
-consumer CLI's ``--profile_dir`` writes its trace."""
+names are the JAX package's; ``trace(None)`` captures nothing; ``annotate``
+opens a ``record_function`` only while a capture runs, on any thread; and
+the consumer CLI's ``--profile_dir`` writes its trace."""
 
 import glob
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -94,6 +96,62 @@ def test_trace_writes_even_when_the_block_raises(tmp_path):
                 pass
             raise KeyError("x")
     assert "before.error" in _names(path)
+
+
+def test_annotate_records_only_while_a_capture_runs(monkeypatch):
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
+
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name):
+        opened.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    go, done = threading.Event(), threading.Event()
+
+    def started_before_the_capture():
+        assert go.wait(10)
+        with annotate("range.on_thread"):
+            torch.ones(2).sum()
+        done.set()
+
+    worker = threading.Thread(target=started_before_the_capture, daemon=True)
+    worker.start()
+    with annotate("range.no_capture"):
+        torch.ones(2).sum()
+    assert opened == []  # no capture: no record_function entered
+    cfg = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU], experimental_config=cfg) as prof:
+        go.set()
+        assert done.wait(10)
+        with annotate("range.main"):
+            torch.ones(2).sum()
+    worker.join(timeout=10)
+    assert not worker.is_alive()
+    with annotate("range.after"):
+        pass
+    assert opened == ["range.on_thread", "range.main"]
+    names = {e.key for e in prof.key_averages()}
+    assert {"range.on_thread", "range.main"} <= names
+    assert not {"range.no_capture", "range.after"} & names
+
+
+def test_annotate_as_a_decorator_opens_a_range_a_call(tmp_path):
+    @annotate("range.decorated")
+    def work(n):
+        return torch.ones(n).sum()
+
+    with trace(str(tmp_path)) as path:
+        threads = [threading.Thread(target=work, args=(3,)) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        assert float(work(4)) == 4.0
+    assert work.__name__ == "work"
+    assert _names(path).count("range.decorated") == 3
 
 
 def test_consumer_cli_profile_dir_writes_a_trace(tmp_path):
